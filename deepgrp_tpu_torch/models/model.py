@@ -1,0 +1,195 @@
+"""The DeepGRP classifier: weight-shared fwd/revcomp RNN with attention.
+
+Counterpart of ``deepgrp_tpu/models/model.py`` (inference path,
+``forward_probs_from_codes``)::
+
+    codes [B, T]
+      ├─ fused fwd + reverse-complement recurrence with branch averaging
+      │    (models/cuda_rnn.py: the CUDA kernel, or its plain version on CPU)
+      │    -> avg [B, T, u], hidden = (h_fwd[T-1] + h_rev[T-1]) / 2 [B, u]
+      ├─ if attention and GRU:
+      │     att   = AdditiveAttention(hidden, avg)         -> [B, u]
+      │     feats = concat(repeat(att, T), avg)            -> [B, T, 2u]
+      │  else: feats = avg
+      ├─ Dense(n_classes) logits (layer "FF")
+      └─ softmax over classes
+
+Keras ``AdditiveAttention`` (use_scale=True): ``scores[b, t] = sum_d
+scale[d] * tanh(q[b, d] + k[b, t, d])``; softmax over t; the output is the
+weighted sum of the values.
+
+Parameters are a flat ``dict[str, Tensor]`` (the model's ``state_dict``):
+``rnn.kernel``, ``rnn.recurrent``, ``rnn.bias``, ``attention.scale`` (with
+attention), ``dense.kernel``, ``dense.bias``, in the Keras layouts of the
+JAX package (``models/rnn.py``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import asdict, dataclass
+from typing import Dict, Mapping, Union
+
+import torch
+from torch import nn
+
+from deepgrp_tpu_torch.models import cuda_rnn
+
+Params = Mapping[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description (fields and defaults as in the JAX
+    package's ``ModelConfig``)."""
+
+    vecsize: int = 150
+    units: int = 32
+    rnn: str = "GRU"
+    attention: bool = False
+    n_classes: int = 5
+    dropout: float = 0.25
+    input_dim: int = 5
+
+    @property
+    def use_attention(self) -> bool:
+        # Attention only takes effect with GRU (reference model.py:308).
+        return self.attention and self.rnn != "LSTM"
+
+    @property
+    def feature_dim(self) -> int:
+        return 2 * self.units if self.use_attention else self.units
+
+    @property
+    def gates(self) -> int:
+        return 4 if self.rnn == "LSTM" else 3
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        """Shape of every parameter, by ``state_dict`` key."""
+        width = self.gates * self.units
+        shapes = {
+            "rnn.kernel": (self.input_dim, width),
+            "rnn.recurrent": (self.units, width),
+            "rnn.bias": (width,) if self.rnn == "LSTM" else (2, width),
+        }
+        if self.use_attention:
+            shapes["attention.scale"] = (self.units,)
+        shapes["dense.kernel"] = (self.feature_dim, self.n_classes)
+        shapes["dense.bias"] = (self.n_classes,)
+        return shapes
+
+    def todict(self) -> dict:
+        return asdict(self)
+
+
+def require_full_f32_matmul() -> None:
+    """Turn TF32 off for CUDA matmuls and check that it is off.
+
+    The float32 head must run in full float32, as the JAX head runs at
+    ``"highest"`` precision; TF32 keeps about three decimal digits.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("could not disable TF32 for CUDA matmuls")
+
+
+def additive_attention(scale: torch.Tensor, query: torch.Tensor,
+                       keyvalue: torch.Tensor) -> torch.Tensor:
+    """Keras AdditiveAttention with one query vector per batch row.
+
+    Args:
+        scale: ``[u]`` learned scale.
+        query: ``[B, u]``.
+        keyvalue: ``[B, T, u]`` (keys are the values).
+
+    Returns:
+        ``[B, u]`` attention output.
+    """
+    scores = torch.einsum("u,btu->bt", scale,
+                          torch.tanh(query[:, None, :] + keyvalue))
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bt,btu->bu", weights, keyvalue)
+
+
+def head_probs(params: Params, avg: torch.Tensor, hidden: torch.Tensor,
+               config: ModelConfig) -> torch.Tensor:
+    """Attention + dense head and softmax over the branch-averaged
+    recurrence outputs: ``[B, T, n_classes]`` probabilities."""
+    if avg.is_cuda:
+        require_full_f32_matmul()
+    if config.use_attention:
+        att = additive_attention(params["attention.scale"], hidden, avg)
+        feats = torch.cat([att[:, None, :].expand_as(avg), avg], dim=-1)
+    else:
+        feats = avg
+    logits = feats @ params["dense.kernel"] + params["dense.bias"]
+    return torch.softmax(logits, dim=-1)
+
+
+def forward_probs_from_codes(params: Params, codes: torch.Tensor,
+                             config: ModelConfig) -> torch.Tensor:
+    """Integer code windows ``[B, T]`` -> class probabilities
+    ``[B, T, n_classes]`` (float32)."""
+    rnn_params = {"kernel": params["rnn.kernel"],
+                  "recurrent": params["rnn.recurrent"],
+                  "bias": params["rnn.bias"]}
+    rnn_avg = cuda_rnn.lstm_avg if config.rnn == "LSTM" else cuda_rnn.gru_avg
+    avg, hidden = rnn_avg(rnn_params, codes)
+    return head_probs(params, avg, hidden, config)
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device to run on; raises for CUDA when no GPU is available
+    (entry points never carry on on the CPU unless asked to)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (--device cpu) to run on the CPU")
+    return device
+
+
+class DeepGRPModel(nn.Module):
+    """The classifier's parameters on one device, in float32.
+
+    The parameters are buffers (inference only) of three submodules, so
+    ``state_dict()`` keys are the flat names listed in the module docstring.
+    """
+
+    def __init__(self, config: ModelConfig,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        self.config = config
+        device = resolve_device(device)
+        for key, shape in config.param_shapes().items():
+            group, name = key.split(".")
+            if not hasattr(self, group):
+                self.add_module(group, nn.Module())
+            getattr(self, group).register_buffer(
+                name, torch.zeros(shape, device=device))
+
+    @classmethod
+    def from_params(cls, config: ModelConfig, params: Params,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> "DeepGRPModel":
+        """Model holding ``params`` (copied to ``device``; names and shapes
+        must match the config)."""
+        model = cls(config, device)
+        model.load_state_dict(dict(params))
+        return model
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.buffers()).device
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The parameters by flat name."""
+        return dict(self.named_buffers())
+
+    @torch.no_grad()
+    def forward_probs_from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """Class probabilities ``[B, T, n_classes]`` for code windows
+        ``[B, T]`` (int8 on a CUDA device)."""
+        return forward_probs_from_codes(self.params(), codes, self.config)
+
+    def forward(self, codes: torch.Tensor) -> torch.Tensor:
+        return self.forward_probs_from_codes(codes)

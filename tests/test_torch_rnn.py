@@ -1,0 +1,93 @@
+"""The port's fused recurrence (plain versions and CPU path of the kernel
+wrappers) against the JAX package's Pallas kernels.
+
+Inputs come from a numpy seed and go to both sides.  The JAX kernels run in
+interpret mode, as the JAX package's own tests run them on the CPU.
+Tolerance: atol 1e-5 on both outputs, the JAX package's kernel tolerance
+(tests/test_pallas_rnn.py); the two sides sum the recurrent dot in
+different orders, so they agree to float32 rounding, not bit for bit.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from deepgrp_tpu.models import pallas_rnn  # noqa: E402
+from deepgrp_tpu_torch.models import cuda_rnn, rnn  # noqa: E402
+
+ATOL = 1e-5
+
+
+def random_case(seed, cell, batch, steps, units):
+    rng = np.random.default_rng(seed)
+    gates = 4 if cell == "lstm" else 3
+    width = gates * units
+    params = {
+        "kernel": rng.normal(0.0, 0.5, (5, width)).astype(np.float32),
+        "recurrent": rng.normal(0.0, units ** -0.5,
+                                (units, width)).astype(np.float32),
+        "bias": rng.normal(0.0, 0.3, (2, width) if gates == 3
+                           else (width,)).astype(np.float32),
+    }
+    codes = rng.integers(0, 6, size=(batch, steps)).astype(np.int8)
+    codes[0, :3] = 4  # N
+    codes[-1, -4:] = 5  # pad
+    return params, codes
+
+
+def torch_params(params):
+    return {k: torch.from_numpy(v) for k, v in params.items()}
+
+
+def jax_avg(cell, params, codes):
+    fn = pallas_rnn.pallas_lstm_avg if cell == "lstm" \
+        else pallas_rnn.pallas_gru_avg
+    avg, hidden = fn({k: jnp.asarray(v) for k, v in params.items()},
+                     jnp.asarray(codes.astype(np.int32)), block_b=8,
+                     time_block=8, interpret=True)
+    return np.asarray(avg), np.asarray(hidden)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("batch,steps,units", [(4, 17, 6), (16, 40, 16),
+                                               (3, 9, 5), (11, 33, 12)])
+def test_plain_matches_pallas(cell, batch, steps, units):
+    params, codes = random_case(batch * steps + units, cell, batch, steps,
+                                units)
+    want_avg, want_hidden = jax_avg(cell, params, codes)
+    plain = rnn.lstm_avg_plain if cell == "lstm" else rnn.gru_avg_plain
+    avg, hidden = plain(torch_params(params), torch.from_numpy(codes))
+    assert avg.shape == (batch, steps, units)
+    assert hidden.shape == (batch, units)
+    np.testing.assert_allclose(avg.numpy(), want_avg, atol=ATOL)
+    np.testing.assert_allclose(hidden.numpy(), want_hidden, atol=ATOL)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_cpu_wrapper_is_plain_version(cell):
+    params, codes = random_case(5, cell, 6, 20, 8)
+    params, codes = torch_params(params), torch.from_numpy(codes)
+    wrapper = cuda_rnn.lstm_avg if cell == "lstm" else cuda_rnn.gru_avg
+    plain = rnn.lstm_avg_plain if cell == "lstm" else rnn.gru_avg_plain
+    launches = cuda_rnn.LAUNCHES.get(f"{cell}_avg")
+    calls = rnn.PLAIN_CALLS.get(f"{cell}_avg")
+    got = wrapper(params, codes)
+    want = plain(params, codes)
+    assert cuda_rnn.LAUNCHES.get(f"{cell}_avg") == launches
+    assert rnn.PLAIN_CALLS.get(f"{cell}_avg") == calls + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_kernel_launcher_refuses_cpu_tensors():
+    params, codes = random_case(1, "gru", 2, 5, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_rnn._launch("gru_avg", 3, torch_params(params),
+                         torch.from_numpy(codes))
+
+
+def test_reverse_complement_table_matches_jax():
+    assert rnn.COMPLEMENT_CODES == pallas_rnn._COMPLEMENT_CODES
