@@ -26,16 +26,38 @@ Phases (any failure exits non-zero; nothing is caught):
    all 1456 rows must equal ``mbp.bed``.  Prints windows/s end to end.
 5. Where the time goes: the same chromosome stage by stage on the host
    clock, and the engine's device time by kernel name (``torch.profiler``).
+6. Training kernels vs plain: the four training kernels (GRU and LSTM,
+   forward and backward) against their plain versions at the flagship
+   training shape (B=256 windows, T=342, u=60) and a ragged one (B=37,
+   T=150, u=32), with dropout masks (rate 0.0928) and without: forward
+   outputs at atol 1e-5, gradients within 1e-4 x the largest magnitude of
+   each gradient, and a second backward bitwise equal to the first.  Times
+   each kernel, its plain version and cuDNN (``torch.nn.GRU``/``LSTM``
+   forward, and forward + backward, on the doubled one-hot batch without
+   masks, TF32 off) with CUDA events.
+7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
+   (through ``cli.main``) with the flagship ``gru_att`` configuration
+   (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
+   3 epochs of 20 steps, on synthetic learnable chromosomes written from a
+   seed (2 Mbp training, 0.5 Mbp validation, four repeat classes of
+   class-specific motifs, and their BED); the training kernels must have
+   launched on every step, the inference kernel once per epoch, no plain
+   version, every loss finite and the last epoch's below the first's; the
+   written model then predicts a BED of the validation sequence.  Then
+   steps/s, one epoch's stream time by stage and device time by kernel
+   name with the idle share, one step through the kernels against the
+   same step through the plain versions, and LSTM at 2 epochs of 5 steps.
 
-Before each predict run every launch count is set to 0; after it, the
-kernel of that model must have launched and the plain versions must not
-have run.  The line before the last lists each kernel
+Before each predict or train run every launch count is set to 0; after it,
+the kernels of that path must have launched and the plain versions must
+not have run.  The line before the last lists each kernel
 (``{"kernels": [...]}``); the last line is ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -60,6 +82,20 @@ KERNELS = {
 }
 SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
 
+TRAIN_KERNELS = {
+    # name: TPU kernel it replaces
+    "gru_train_fwd": "deepgrp_tpu/models/pallas_rnn_train.py:97",
+    "gru_train_bwd": "deepgrp_tpu/models/pallas_rnn_train.py:135",
+    "lstm_train_fwd": "deepgrp_tpu/models/pallas_rnn_train.py:496",
+    "lstm_train_bwd": "deepgrp_tpu/models/pallas_rnn_train.py:542",
+}
+TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
+GRAD_RTOL = 1e-4  # max abs difference / largest magnitude of the gradient
+# The flagship model (bench.py:37-42): vecsize 342, 60 units, attention,
+# dropout 0.0928; the reference's RMSprop defaults.
+FLAGSHIP = {"vecsize": 342, "units": 60, "attention": True,
+            "dropout": 0.0928}
+
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
@@ -74,7 +110,8 @@ def card_line() -> str:
 
 
 def build_all():
-    """Build the CUDA and the host library concurrently; seconds each."""
+    """Build every CUDA library (one nvcc each) and the host library
+    concurrently; seconds each."""
     from deepgrp_tpu_torch import _build, native
 
     seconds, errors = {}, []
@@ -87,8 +124,10 @@ def build_all():
             errors.append(err)
         seconds[name] = time.perf_counter() - start
 
-    threads = [threading.Thread(target=run, args=(name, fn)) for name, fn in
-               (("csrc", _build.load_kernels), ("native", native.load))]
+    jobs = [(name, lambda name=name: _build.load_kernels(name))
+            for name in _build.CUDA_SOURCES]
+    jobs.append(("native", native.load))
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for thread in threads:
         thread.start()
     for thread in threads:
@@ -125,8 +164,9 @@ def random_rnn(torch, gen, gates: int, batch: int, steps: int, units: int):
     return ({k: v.cuda() for k, v in params.items()}, codes.cuda())
 
 
-def library_rnn(torch, gates: int, params, codes):
-    """cuDNN recurrence computing the same function (timed only)."""
+def cudnn_cell(torch, gates: int, params, codes):
+    """cuDNN recurrence with the kernel's weights and the doubled one-hot
+    batch it runs on (timed only; it has no per-gate input masks)."""
     from deepgrp_tpu_torch.models.rnn import _doubled_codes
 
     units = params["recurrent"].shape[0]
@@ -150,6 +190,12 @@ def library_rnn(torch, gates: int, params, codes):
         cell.weight_hh_l0.copy_(w_hh.T)
         cell.bias_ih_l0.copy_(b_ih)
         cell.bias_hh_l0.copy_(b_hh)
+    return cell, onehot
+
+
+def library_rnn(torch, gates: int, params, codes):
+    """cuDNN recurrence computing the same function (timed only)."""
+    cell, onehot = cudnn_cell(torch, gates, params, codes)
     batch = codes.shape[0]
 
     @torch.no_grad()
@@ -158,6 +204,23 @@ def library_rnn(torch, gates: int, params, codes):
         return (seq[:batch] + seq[batch:]) * 0.5
 
     return run
+
+
+def library_rnn_train(torch, gates: int, params, codes):
+    """cuDNN training forward, and forward + backward, on the same batch
+    (timed only)."""
+    cell, onehot = cudnn_cell(torch, gates, params, codes)
+    units = params["recurrent"].shape[0]
+    d_seq = torch.randn(onehot.shape[0], onehot.shape[1], units,
+                        device=onehot.device)
+
+    def forward():
+        return cell(onehot)[0]
+
+    def forward_backward():
+        torch.autograd.backward(cell(onehot)[0], d_seq)
+
+    return forward, forward_backward
 
 
 def kernel_phase(torch):
@@ -312,6 +375,447 @@ def breakdown_phase(torch, fasta: str, man: dict) -> None:
               flush=True)
 
 
+def train_case(torch, gen, gates: int, batch: int, steps: int,
+               units: int):
+    """Random weights and codes, dropout masks and output cotangents."""
+    params, codes = random_rnn(torch, gen, gates, batch, steps, units)
+    keep = 1.0 - FLAGSHIP["dropout"]
+    masks = torch.bernoulli(torch.full((gates, 2 * batch, 5), keep),
+                            generator=gen) / keep
+    d_avg = torch.randn(batch, steps, units, generator=gen)
+    d_hid = torch.randn(batch, units, generator=gen)
+    return params, codes, masks.cuda(), d_avg.cuda(), d_hid.cuda()
+
+
+def check_train_kernels(torch, cell: str, case, masks):
+    """A training kernel pair against its plain versions; returns the max
+    abs differences of the forward outputs and of the gradients."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    params, codes, _, d_avg, d_hid = case
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    got = cuda_rnn.train_fwd(cell, params, codes, masks)
+    torch.cuda.synchronize()
+    want = plain_fwd(params, codes, masks)
+    torch.cuda.synchronize()
+    fwd_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    seqs = tuple(want[2:])
+    grads = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    again = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    torch.cuda.synchronize()
+    want_g = plain_bwd(params, codes, masks, *seqs, d_avg, d_hid)
+    bwd_err = max((g - w).abs().max().item() for g, w in zip(grads, want_g))
+    rel = max((g - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(grads, want_g))
+    bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
+    tag = f"{cell} {'with' if masks is not None else 'without'} masks"
+    print(f"  {tag}: forward max_abs_err={fwd_err:.3g}; gradients "
+          f"max_abs_err={bwd_err:.3g} (max relative to the gradient's "
+          f"largest magnitude {rel:.3g}); second backward bitwise equal: "
+          f"{bitwise}", flush=True)
+    if not fwd_err <= TOL:
+        raise AssertionError(f"{tag}: train forward differs by {fwd_err}")
+    if not rel <= GRAD_RTOL:
+        raise AssertionError(f"{tag}: train backward relative error {rel}")
+    if not bitwise:
+        raise AssertionError(f"{tag}: train backward not deterministic")
+    return fwd_err, bwd_err
+
+
+def time_train_kernels(torch, cell: str, case, errors):
+    """Times of a training kernel pair (with masks), its plain versions
+    and cuDNN; the bound of each kernel; one result row each."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    params, codes, masks, d_avg, d_hid = case
+    gates = 4 if cell == "lstm" else 3
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    out = cuda_rnn.train_fwd(cell, params, codes, masks)
+    seqs = tuple(out[2:])
+    grads = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    lib_fwd, lib_fwd_bwd = library_rnn_train(torch, gates, params, codes)
+    ms = {
+        "fwd": cuda_ms(torch, lambda: cuda_rnn.train_fwd(
+            cell, params, codes, masks), 20),
+        "bwd": cuda_ms(torch, lambda: cuda_rnn.train_bwd(
+            cell, params, codes, masks, seqs, d_avg, d_hid), 20),
+        "plain_fwd": cuda_ms(torch, lambda: plain_fwd(params, codes, masks),
+                             3),
+        "plain_bwd": cuda_ms(torch, lambda: plain_bwd(
+            params, codes, masks, *seqs, d_avg, d_hid), 3),
+        "lib_fwd": cuda_ms(torch, lib_fwd, 20),
+        "lib_bwd": cuda_ms(torch, lib_fwd_bwd, 20),
+    }
+    # Multiply-adds of the recurrent products: the forward's h U over both
+    # rows; the backward recomputes them and adds d_rp U^T and
+    # h_prev^T d_rp (3x).  Bytes: each input read once, each output
+    # written once.
+    batch, steps = codes.shape
+    units = params["recurrent"].shape[0]
+    fwd_flops = 2.0 * (2 * batch) * steps * units * gates * units
+    in_bytes = (codes.numel() + 4 * masks.numel()
+                + 4 * sum(p.numel() for p in params.values()))
+    seq_bytes = 4 * sum(q.numel() for q in seqs)
+    work = {
+        "fwd": (fwd_flops, in_bytes + seq_bytes
+                + 4 * (out[0].numel() + out[1].numel())),
+        "bwd": (3 * fwd_flops, in_bytes + seq_bytes
+                + 4 * (d_avg.numel() + d_hid.numel()
+                       + sum(g.numel() for g in grads))),
+    }
+    rows = {}
+    for kind, err in zip(("fwd", "bwd"), errors):
+        flops, n_bytes = work[kind]
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+        row = {"max_abs_err": err, "ms": ms[kind],
+               "plain_ms": ms[f"plain_{kind}"],
+               "library_ms": ms[f"lib_{kind}"],
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"  {cell}_train_{kind}: kernel_ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.3f} library_ms="
+              f"{row['library_ms']:.4f} (cuDNN "
+              f"{'forward' if kind == 'fwd' else 'fwd+bwd'}) "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",
+              flush=True)
+        rows[f"{cell}_train_{kind}"] = row
+    return rows
+
+
+def train_kernel_phase(torch):
+    """Phase 6: each training kernel against its plain version; times."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    gen = torch.Generator().manual_seed(2025)
+    results = {}
+    for cell in ("gru", "lstm"):
+        gates = 4 if cell == "lstm" else 3
+        for label, (batch, steps, units) in TRAIN_SHAPES.items():
+            case = train_case(torch, gen, gates, batch, steps, units)
+            block_rows, n_cta = cuda_rnn.train_grid(batch, units)
+            print(f"{cell} train {label} B={batch} T={steps} u={units}: grid "
+                  f"{n_cta} CTAs x {block_rows} windows "
+                  f"({block_rows * units} threads)", flush=True)
+            errors = check_train_kernels(torch, cell, case, case[2])
+            check_train_kernels(torch, cell, case, None)
+            for name, row in time_train_kernels(torch, cell, case,
+                                                errors).items():
+                results[(name, label)] = row
+    return results
+
+
+def check_counts(expected):
+    """Launch counts of the run just made: each kernel of the path exactly
+    as often as ``expected`` says; the plain versions must not have run."""
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    launches, plain = cuda_rnn.LAUNCHES.snapshot(), rnn.PLAIN_CALLS.snapshot()
+    print(f"  launches={launches} plain_calls={plain}", flush=True)
+    for kernel, count in expected.items():
+        if launches.get(kernel, 0) != count:
+            raise AssertionError(f"{kernel}: {launches.get(kernel, 0)} "
+                                 f"launches on this path, expected {count}")
+    if plain:
+        raise AssertionError(f"plain versions ran on the path: {plain}")
+    return launches
+
+
+def write_training_files(np, tmp: str, seed: int = 7):
+    """Synthetic learnable chromosomes (one-hot ``fwd`` .npz files) and
+    their BED: random ACGT with, for each repeat class 1-4, 40 regions of
+    300-1500 bp filled with a class-specific motif (5, 171, 300 and 1000
+    bp long), in disjoint 5 kb slots, and a run of Ns at each end."""
+    rng = np.random.default_rng(seed)
+    motifs = {cls: rng.integers(0, 4, size) for cls, size in
+              ((1, 5), (2, 171), (3, 300), (4, 1000))}
+    bed, paths = [], {}
+    for chrom, length in (("chrTrain", 2_000_000), ("chrValid", 500_000)):
+        codes = rng.integers(0, 4, length).astype(np.int8)
+        n_regions = 40 if length >= 1_000_000 else 10
+        slots = rng.choice(length // 5000 - 2, 4 * n_regions,
+                           replace=False) + 1
+        for j, slot in enumerate(slots):
+            cls = 1 + j // n_regions
+            size = int(rng.integers(300, 1500))
+            begin = int(slot) * 5000
+            codes[begin:begin + size] = np.resize(motifs[cls], size)
+            bed.append(f"{chrom}\t{begin}\t{begin + size}\t{cls}\n")
+        codes[:1000] = 4
+        codes[-1000:] = 4
+        fwd = np.zeros((5, length), np.int8)
+        fwd[codes, np.arange(length)] = 1
+        paths[chrom] = os.path.join(tmp, f"{chrom}.npz")
+        np.savez(paths[chrom], fwd=fwd)
+        with open(os.path.join(tmp, f"{chrom}.fa"), "w") as fh:
+            fh.write(f">{chrom}\n" + "".join("ACGTN"[c] for c in codes)
+                     + "\n")
+    with open(os.path.join(tmp, "repeats.bed"), "w") as fh:
+        fh.writelines(bed)
+    return paths["chrTrain"], paths["chrValid"], os.path.join(tmp,
+                                                              "repeats.bed")
+
+
+def run_train_cli(tmp: str, files, name: str, **options):
+    """``train ... --honor-toml`` through ``cli.main``; returns the model
+    path, the metrics records and the host seconds."""
+    from deepgrp_tpu_torch import cli
+    from deepgrp_tpu_torch.config import Options
+
+    toml = os.path.join(tmp, f"{name}.toml")
+    with open(toml, "w") as fh:
+        Options(**options).to_toml(fh)
+    logdir = os.path.join(tmp, f"{name}_log")
+    model = os.path.join(tmp, f"{name}.npz")
+    start = time.perf_counter()
+    cli.main(["-b", "256", "train", toml, *files, "--honor-toml",
+              "--logdir", logdir, "--modelfile", model])
+    seconds = time.perf_counter() - start
+    with open(os.path.join(logdir, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    return model, records, seconds
+
+
+def check_losses(name: str, records, n_epochs: int) -> None:
+    losses = [r["loss"] for r in records]
+    print(f"{name}: epoch losses {losses}, val_losses "
+          f"{[r['val_loss'] for r in records]}", flush=True)
+    if len(records) != n_epochs:
+        raise AssertionError(f"{name}: {len(records)} epochs, expected "
+                             f"{n_epochs}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
+               for r in records):
+        raise AssertionError(f"{name}: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall ({losses})")
+
+
+def load_training_data(np, npz: str, bed: str, options):
+    from deepgrp_tpu_torch.data import preprocess
+
+    with np.load(npz) as arrays:
+        fwd = arrays["fwd"]
+    chrom = os.path.basename(npz).split(".")[0]
+    labels = preprocess.preprocess_y(bed, chrom, fwd.shape[1],
+                                     options.repeats_to_search)
+    return preprocess.Data(*preprocess.drop_start_end_n(fwd, labels))
+
+
+def plain_avg_train(torch, cell: str):
+    """An autograd Function over the plain forward and backward of the
+    training recurrence, for CUDA tensors (the port's Functions take the
+    plain versions only for CPU tensors)."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    fwd, bwd = cuda_rnn._PLAIN[cell]
+
+    class PlainAvgTrain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, kernel, recurrent, bias, codes, masks):
+            params = {"kernel": kernel, "recurrent": recurrent, "bias": bias}
+            avg, hidden, *seqs = fwd(params, codes, masks)
+            ctx.save_for_backward(kernel, recurrent, bias, codes, masks,
+                                  *seqs)
+            return avg, hidden
+
+        @staticmethod
+        def backward(ctx, d_avg, d_hidden):
+            kernel, recurrent, bias, codes, masks, *seqs = ctx.saved_tensors
+            params = {"kernel": kernel, "recurrent": recurrent, "bias": bias}
+            return (*bwd(params, codes, masks, *seqs, d_avg, d_hidden), None,
+                    None)
+
+    return PlainAvgTrain
+
+
+def step_parity(torch, model, codes, labels, masks) -> None:
+    """One optimization step's loss and gradients through the kernels
+    against the same through the plain versions."""
+    from deepgrp_tpu_torch.models.model import (
+        forward_logits_from_codes_train, head_logits)
+    from deepgrp_tpu_torch.train.training import categorical_crossentropy
+
+    config = model.config
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in model.params().items()}
+    loss_k = categorical_crossentropy(forward_logits_from_codes_train(
+        params, codes, config, masks), labels)
+    grads_k = torch.autograd.grad(loss_k, list(params.values()))
+    fn = plain_avg_train(torch, "lstm" if config.rnn == "LSTM" else "gru")
+    avg, hidden = fn.apply(params["rnn.kernel"], params["rnn.recurrent"],
+                           params["rnn.bias"], codes, masks)
+    loss_p = categorical_crossentropy(
+        head_logits(params, avg, hidden, config), labels)
+    grads_p = torch.autograd.grad(loss_p, list(params.values()))
+    loss_err = abs(loss_k.item() - loss_p.item())
+    rel = {k: (a - b).abs().max().item() / b.abs().max().item()
+           for k, a, b in zip(params, grads_k, grads_p)}
+    print(f"one step, kernels vs plain versions: loss {loss_k.item():.6f} "
+          f"vs {loss_p.item():.6f} (diff {loss_err:.3g}); gradient max abs "
+          f"diff / largest magnitude: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()), flush=True)
+    if not loss_err <= TOL:
+        raise AssertionError(f"step loss differs by {loss_err}")
+    if not max(rel.values()) <= GRAD_RTOL:
+        raise AssertionError(f"step gradients differ: {rel}")
+
+
+def train_breakdown_phase(torch, model_path: str, train_data, options):
+    """Where one epoch's time goes: stream time between the stage
+    boundaries of each step (CUDA events), device time by kernel name
+    (``torch.profiler``) and the idle share against the host clock; then
+    one step through the kernels against the plain versions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepgrp_tpu_torch.models import rnn
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import (
+        DeepGRPModel, forward_logits_from_codes_train)
+    from deepgrp_tpu_torch.train.optimizers import get_optimizer
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+    from deepgrp_tpu_torch.train.training import (categorical_crossentropy,
+                                                  train_step)
+
+    config, params = load_model(model_path)
+    model = DeepGRPModel.from_params(config, params)
+    optimizer = get_optimizer(options, model.parameters())
+    device = model.device
+    sampler = BatchSampler(options, train_data, device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows, n_steps = 2 * sampler.batch_size, options.n_batches
+
+    def batch():
+        codes, labels = sampler.batch(gen)
+        masks = rnn.input_dropout_masks(gen, rows, config.dropout,
+                                        config.gates)
+        return codes, labels, masks
+
+    def epoch():
+        losses = [train_step(model, optimizer, *batch())
+                  for _ in range(n_steps)]
+        return torch.stack(losses).mean().item()
+
+    epoch()  # warm-up
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    epoch()
+    wall = time.perf_counter() - start
+    print(f"one epoch of {n_steps} steps (batch {sampler.batch_size}): "
+          f"{wall:.4f} s = {n_steps / wall:.2f} steps/s", flush=True)
+
+    names = ("sample + gather", "masks", "forward (recurrence + head)",
+             "loss", "backward", "optimizer")
+    stage_ms = dict.fromkeys(names, 0.0)
+    for _ in range(n_steps):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(names) + 1)]
+        events[0].record()
+        codes, labels = sampler.batch(gen)
+        events[1].record()
+        masks = rnn.input_dropout_masks(gen, rows, config.dropout,
+                                        config.gates)
+        events[2].record()
+        optimizer.zero_grad(set_to_none=True)
+        logits = forward_logits_from_codes_train(model.params(), codes,
+                                                 config, masks)
+        events[3].record()
+        loss = categorical_crossentropy(logits, labels)
+        events[4].record()
+        loss.backward()
+        events[5].record()
+        optimizer.step()
+        events[6].record()
+        torch.cuda.synchronize()
+        for j, name in enumerate(names):
+            stage_ms[name] += events[j].elapsed_time(events[j + 1])
+    total = sum(stage_ms.values())
+    print(f"stream time by stage over {n_steps} steps ({total:.3f} ms): "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                      for k, v in stage_ms.items()), flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epoch()
+        torch.cuda.synchronize()
+    by_name = {}
+    for event in prof.events():
+        # User annotations (e.g. "Optimizer.step#RMSprop.step") mirrored
+        # on the device timeline span kernels counted on their own.
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(event, "is_user_annotation", False)):
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(by_name.values())
+    if busy_ms == 0:
+        print("device time by kernel: not measured (the profiler saw no "
+              "device events)", flush=True)
+    else:
+        print(f"device busy {busy_ms:.2f} ms of the unprofiled epoch's "
+              f"{1e3 * wall:.2f} ms = {100 * busy_ms / (1e3 * wall):.1f}% "
+              f"(idle {100 - 100 * busy_ms / (1e3 * wall):.1f}%)",
+              flush=True)
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:90]}",
+                  flush=True)
+    step_parity(torch, model, *batch())
+
+
+def training_phase(torch, np, tmp: str):
+    """Phase 7: train the flagship gru_att (and LSTM, shallower) through
+    the CLI; returns the launch counts of each run."""
+    from deepgrp_tpu_torch.config import Options
+
+    start = time.perf_counter()
+    train_npz, val_npz, bed = write_training_files(np, tmp)
+    print(f"wrote the training files in {time.perf_counter() - start:.2f} s",
+          flush=True)
+    epochs, steps = 3, 20
+    reset_counts()
+    model, records, seconds = run_train_cli(
+        tmp, (train_npz, val_npz, bed), "gru_att", n_epochs=epochs,
+        n_batches=steps, **FLAGSHIP)
+    launches = check_counts({"gru_train_fwd": epochs * steps,
+                             "gru_train_bwd": epochs * steps,
+                             "gru_avg": epochs})
+    check_losses("gru_att", records, epochs)
+    print(f"gru_att train CLI: {seconds:.3f} s for {epochs} x {steps} steps "
+          f"(data, build of the samplers and model file included); epoch "
+          f"seconds {[round(r['epoch_seconds'], 4) for r in records]}; "
+          f"steps/s after the first epoch "
+          f"{[round(steps / r['epoch_seconds'], 2) for r in records[1:]]}",
+          flush=True)
+
+    reset_counts()
+    out = os.path.join(tmp, "valid.bed")
+    rows = predict_rows(["-b", "1024", "predict", model,
+                         os.path.join(tmp, "chrValid.fa")], out)
+    check_path("gru_avg")
+    print(f"predict with the trained model on chrValid: {len(rows)} BED "
+          f"rows", flush=True)
+
+    options = Options(n_epochs=epochs, n_batches=steps, batch_size=256,
+                      **FLAGSHIP)
+    train_breakdown_phase(torch, model,
+                          load_training_data(np, train_npz, bed, options),
+                          options)
+
+    lstm_epochs, lstm_steps = 2, 5
+    reset_counts()
+    _, records, seconds = run_train_cli(
+        tmp, (train_npz, val_npz, bed), "lstm", n_epochs=lstm_epochs,
+        n_batches=lstm_steps, rnn="LSTM", **{**FLAGSHIP,
+                                             "attention": False})
+    lstm_launches = check_counts({
+        "lstm_train_fwd": lstm_epochs * lstm_steps,
+        "lstm_train_bwd": lstm_epochs * lstm_steps,
+        "lstm_avg": lstm_epochs})
+    check_losses("lstm", records, lstm_epochs)
+    print(f"lstm train CLI: {seconds:.3f} s", flush=True)
+    return launches, lstm_launches
+
+
 def main() -> int:
     import torch
 
@@ -332,11 +836,13 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
     build_s = build_all()
-    print(f"build seconds: csrc {build_s['csrc']:.2f}, native "
-          f"{build_s['native']:.2f}", flush=True)
+    print("build seconds: " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in build_s.items()),
+          flush=True)
     from deepgrp_tpu_torch import _build
 
-    print((_build.BUILD_DIR / "rnn_avg.log").read_text(), flush=True)
+    for name in _build.CUDA_SOURCES:
+        print((_build.BUILD_DIR / f"{name}.log").read_text(), flush=True)
 
     phase("2. kernels vs plain versions")
     timings = kernel_phase(torch)
@@ -393,12 +899,29 @@ def main() -> int:
         phase("5. where the time goes (4.9 Mbp, gru_att, batch 1024)")
         breakdown_phase(torch, fasta, man)
 
+    phase("6. training kernels vs plain versions")
+    timings.update(train_kernel_phase(torch))
+
+    phase("7. training on the card: gru_att (3 x 20 steps), lstm (2 x 5)")
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gru_launches, lstm_launches = training_phase(torch, np, tmp)
+    launches.update({k: gru_launches[k] for k in ("gru_train_fwd",
+                                                  "gru_train_bwd")})
+    launches.update({k: lstm_launches[k] for k in ("lstm_train_fwd",
+                                                   "lstm_train_bwd")})
+
     kernels = []
-    for name, (_, replaces) in KERNELS.items():
+    sources = {**{name: ("rnn_avg.cu", replaces)
+                  for name, (_, replaces) in KERNELS.items()},
+               **{name: ("rnn_train.cu", replaces)
+                  for name, replaces in TRAIN_KERNELS.items()}}
+    for name, (source, replaces) in sources.items():
         row = timings[(name, "flagship")]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "deepgrp_tpu_torch/csrc/rnn_avg.cu",
+            "source": f"deepgrp_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

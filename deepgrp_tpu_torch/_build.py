@@ -1,10 +1,13 @@
 """Build-at-first-use for the package's native code, and launch counters.
 
-Two shared libraries are compiled from sources in the package, each at its
+Shared libraries are compiled from sources in the package, each at its
 first use, into ``deepgrp_tpu_torch/_build/`` (ignored by git):
 
-* ``csrc/*.cu`` with ``nvcc`` for Hopper (``sm_90a``), a plain C interface
-  loaded with :mod:`ctypes` (no PyTorch headers, so the build takes seconds);
+* each ``csrc/*.cu`` with ``nvcc`` for Hopper (``sm_90a``) into a library
+  of its own (``rnn_avg``: the inference kernels, ``rnn_train``: the
+  training kernels), a plain C interface loaded with :mod:`ctypes` (no
+  PyTorch headers, so a build takes seconds; the libraries build
+  independently, so they can build in parallel);
 * ``native/src/*.cc`` with ``g++`` (host MSS and encoding, see
   :mod:`deepgrp_tpu_torch.native`).
 
@@ -24,17 +27,19 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
-CUDA_SOURCES = (PKG_DIR / "csrc" / "rnn_avg.cu",)
+#: CUDA kernel libraries by name, one source each.
+CUDA_SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
+                for name in ("rnn_avg", "rnn_train")}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
-_kernels: Optional[ctypes.CDLL] = None
+_locks = {name: threading.Lock() for name in CUDA_SOURCES}
+_kernels: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
@@ -108,24 +113,51 @@ def nvcc() -> str:
     return path
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The CUDA kernel library (``csrc/*.cu``), built on first use."""
-    global _kernels
-    with _lock:
-        if _kernels is None:
-            path = build_shared_library("rnn_avg", [nvcc()], CUDA_SOURCES,
+def load_kernels(name: str) -> ctypes.CDLL:
+    """The CUDA kernel library ``name`` (``csrc/<name>.cu``), built on
+    first use."""
+    with _locks[name]:
+        if name not in _kernels:
+            path = build_shared_library(name, [nvcc()], [CUDA_SOURCES[name]],
                                         NVCC_FLAGS)
-            _kernels = _declare_kernels(ctypes.CDLL(str(path)))
-        return _kernels
+            lib = ctypes.CDLL(str(path))
+            _DECLARE[name](lib)
+            lib.dg_error_string.argtypes = [ctypes.c_int]
+            lib.dg_error_string.restype = ctypes.c_char_p
+            _kernels[name] = lib
+        return _kernels[name]
 
 
-def _declare_kernels(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+
+
+def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
     for fn in (lib.dg_gru_avg, lib.dg_lstm_avg):
         # codes, batch, steps, kernel, bias, recurrent, units, avg, hidden,
         # stream
-        fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr]
-        fn.restype = i32
-    lib.dg_rnn_avg_error_string.argtypes = [i32]
-    lib.dg_rnn_avg_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.argtypes = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32, _PTR, _PTR,
+                       _PTR]
+        fn.restype = _I32
+
+
+def _declare_rnn_train(lib: ctypes.CDLL) -> None:
+    lib.dg_train_block_rows.argtypes = [_I32, _I32]  # batch, units
+    lib.dg_train_block_rows.restype = _I32
+    # codes, batch, steps, masks, kernel, bias, recurrent, units, block rows
+    head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32]
+    # avg, hidden, hseq[, cseq], stream
+    lib.dg_gru_train_fwd.argtypes = head + [_PTR] * 4
+    lib.dg_lstm_train_fwd.argtypes = head + [_PTR] * 5
+    # hseq[, cseq], d_avg, d_hidden, part_w, part_b, part_u, d_kernel,
+    # d_bias, d_recurrent, stream
+    lib.dg_gru_train_bwd.argtypes = head + [_PTR] * 10
+    lib.dg_lstm_train_bwd.argtypes = head + [_PTR] * 11
+    for fn in (lib.dg_gru_train_fwd, lib.dg_lstm_train_fwd,
+               lib.dg_gru_train_bwd, lib.dg_lstm_train_bwd):
+        fn.restype = _I32
+
+
+_DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {
+    "rnn_avg": _declare_rnn_avg,
+    "rnn_train": _declare_rnn_train,
+}

@@ -1,11 +1,21 @@
-"""Command-line interface: ``python -m deepgrp_tpu_torch predict``.
+"""Command-line interface: ``python -m deepgrp_tpu_torch predict|train``.
 
-Counterpart of the ``predict`` command of ``deepgrp_tpu/cli.py`` (flag and
-output parity with the reference ``deepgrp`` CLI, ``__main__.py:86-356``):
-global flags ``--batch_size/-b --step_size/-s --xdrop_length/-x
---min_mss_length/-l --threads/-t -v`` with the same defaults, ``vecsize``
-taken from the model file, and one ``filename\\theader\\tstart\\tend\\tlabel``
-row per segment with label > 0.
+Counterpart of the ``predict`` and ``train`` commands of
+``deepgrp_tpu/cli.py`` (flag and output parity with the reference
+``deepgrp`` CLI, ``__main__.py:86-356``): global flags ``--batch_size/-b
+--step_size/-s --xdrop_length/-x --min_mss_length/-l --threads/-t -v``
+with the same defaults.
+
+``predict`` takes ``vecsize`` from the model file and writes one
+``filename\\theader\\tstart\\tend\\tlabel`` row per segment with label > 0.
+
+``train PARAMS.toml TRAIN.npz VAL.npz BED`` trains on the one-hot ``fwd``
+arrays of the two ``.npz`` files, labelled from the BED rows of the
+chromosome named by each file name up to its first ``.``, and writes the
+best weights as a ``.npz`` model that ``predict`` loads.  The reference's
+precedence quirk is kept: the CLI's option defaults (with ``-b -x -l``)
+overwrite the TOML file's values, so ``vecsize``, ``units`` and the rest
+fall back to their defaults, unless ``--honor-toml`` is given.
 
 ``--device`` picks the device (default ``cuda``; with no GPU the command
 fails rather than running on the CPU).  ``--precision`` accepts only
@@ -16,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 from typing import List, Optional
 
@@ -55,6 +66,26 @@ def build_parser() -> argparse.ArgumentParser:
 
     subparsers = parser.add_subparsers(help="sub-command help",
                                        dest="command")
+    train = subparsers.add_parser(
+        name="train",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+        description="Train a deepgrp model")
+    train.add_argument("parameter", type=str,
+                       help="toml file with parameters")
+    train.add_argument("trainfile", type=str,
+                       help="Training data: .npz with the one-hot 'fwd' "
+                       "array [5, L]")
+    train.add_argument("validfile", type=str,
+                       help="Validation data, as trainfile")
+    train.add_argument("bedfile", type=str,
+                       help="Ground truth repeat annotation data.")
+    train.add_argument("--logdir", type=str, default=".",
+                       help="Directory for log / checkpoint files.")
+    train.add_argument("--modelfile", type=str, default="model.npz",
+                       help="Output path for the model file (.npz).")
+    train.add_argument("--honor-toml", action="store_true",
+                       help="Let TOML values win over CLI defaults (the "
+                       "reference overwrites TOML with defaults)")
     predict = subparsers.add_parser(
         name="predict",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -117,6 +148,60 @@ def cmd_predict(args: argparse.Namespace) -> None:
             outstream.close()
 
 
+def cmd_train(args: argparse.Namespace) -> None:
+    import numpy as np
+
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.data import preprocess
+    from deepgrp_tpu_torch.models.keras_io import save_model_npz
+    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                                resolve_device)
+    from deepgrp_tpu_torch.train.training import training
+
+    if args.modelfile.endswith((".h5", ".hdf5")):
+        raise NotImplementedError(
+            "writing Keras .h5 model files is not yet ported (ROADMAP.md "
+            "queue 1, item 13); write a .npz model instead")
+    device = resolve_device(args.device)
+    with open(args.parameter) as file:
+        parameter = Options.from_toml(file)
+    # Same trio of CLI-sourced options as the reference (__main__.py:245).
+    options = Options(min_mss_len=args.min_mss_length,
+                      batch_size=args.batch_size,
+                      xdrop_len=args.xdrop_length)
+    if not args.honor_toml:
+        # Reference precedence: the full CLI Options dict (defaults + the
+        # three CLI flags) overwrites the TOML values (__main__.py:309-311).
+        parameter.fromdict(options.todict())
+    else:
+        parameter.min_mss_len = options.min_mss_len
+        parameter.batch_size = options.batch_size
+        parameter.xdrop_len = options.xdrop_len
+
+    train_chr = os.path.basename(args.trainfile).split(".")[0]
+    val_chr = os.path.basename(args.validfile).split(".")[0]
+    os.makedirs(args.logdir, exist_ok=True)
+
+    _LOG.info("Loading in all data necessary from %s, %s, %s",
+              args.trainfile, args.validfile, args.bedfile)
+    data = []
+    for path, chrom in ((args.trainfile, train_chr),
+                        (args.validfile, val_chr)):
+        with np.load(path, allow_pickle=False) as arrays:
+            fwd = arrays["fwd"]
+        labels = preprocess.preprocess_y(args.bedfile, chrom, fwd.shape[1],
+                                         parameter.repeats_to_search)
+        data.append(preprocess.Data(*preprocess.drop_start_end_n(fwd,
+                                                                 labels)))
+
+    model = DeepGRPModel(ModelConfig.from_options(parameter), device)
+    _LOG.info("Training model on %s", device)
+    best_params, _ = training((data[0], data[1]), parameter, model,
+                              args.logdir)
+    _LOG.info("Saving model as %s", args.modelfile)
+    save_model_npz(args.modelfile, model.config, best_params)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -126,7 +211,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     levels = [logging.WARNING, logging.INFO, logging.DEBUG]
     logging.basicConfig()
     _LOG.setLevel(levels[min(len(levels) - 1, args.verbose)])
-    cmd_predict(args)
+    if args.command == "train":
+        cmd_train(args)
+    else:
+        cmd_predict(args)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -248,7 +248,7 @@ int dg_lstm_avg(const void *codes, int batch, int steps, const void *kernel,
                    hidden, stream);
 }
 
-const char *dg_rnn_avg_error_string(int code) {
+const char *dg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,4 +1,4 @@
-"""Parameters of the JAX package -> parameters of this package.
+"""Parameters of the JAX package <-> parameters of this package.
 
 The one place where the mapping between the two layouts is written.  The
 JAX package keeps a nested pytree (``params["rnn"]["kernel"]``, ...); this
@@ -34,4 +34,21 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if group in params:
             out[flat] = torch.tensor(
                 np.asarray(params[group][name], dtype=np.float32))
+    return out
+
+
+JaxParams = Dict[str, Dict[str, np.ndarray]]
+
+
+def params_to_jax(params: Mapping[str, Any]) -> JaxParams:
+    """The JAX package's nested pytree of float32 numpy arrays from flat
+    parameters (tensors on any device, or arrays)."""
+    out: JaxParams = {}
+    for (group, name), flat in _NAMES:
+        if flat in params:
+            value = params[flat]
+            if isinstance(value, torch.Tensor):
+                value = value.detach().cpu().numpy()
+            out.setdefault(group, {})[name] = np.asarray(value,
+                                                         dtype=np.float32)
     return out

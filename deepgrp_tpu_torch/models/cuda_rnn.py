@@ -1,19 +1,31 @@
-"""Wrappers of the fused recurrence kernels (``csrc/rnn_avg.cu``).
+"""Wrappers of the fused recurrence kernels (``csrc/rnn_avg.cu``,
+``csrc/rnn_train.cu``).
 
-Counterpart of ``deepgrp_tpu/models/pallas_rnn.py`` (``pallas_gru_avg``,
-``pallas_lstm_avg``), with the same contract: ``codes [B, T]`` in,
-``(avg [B, T, u], hidden_avg [B, u])`` float32 out.
+Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
+(``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
+``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` float32 out.
+
+Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
+``torch.autograd.Function`` counterparts of the custom VJPs
+``pallas_gru_avg_train`` / ``pallas_lstm_avg_train``
+(``deepgrp_tpu/models/pallas_rnn_train.py``).  Their forward runs the
+training forward kernel (per-gate input dropout masks, hidden and cell
+sequences kept for the backward); their backward runs the backward kernel,
+which recomputes the gates and returns the gradients of the three
+parameters (none for the codes and masks).
 
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
 kernel on the current stream or raises.  ``LAUNCHES`` counts the kernel
-launches by name.
+launches by name: ``gru_avg``, ``lstm_avg``, ``gru_train_fwd``,
+``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
+counts once; it also launches the small kernel that sums its partials).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -21,7 +33,7 @@ from deepgrp_tpu_torch import _build
 from deepgrp_tpu_torch.models import rnn
 from deepgrp_tpu_torch.models.rnn import RnnParams
 
-#: Kernel launches by name ("gru_avg", "lstm_avg").
+#: Kernel launches by name.
 LAUNCHES = _build.LaunchCounter()
 
 
@@ -45,8 +57,9 @@ def lstm_avg(params: RnnParams,
     return _launch("lstm_avg", 4, params, codes)
 
 
-def _launch(name: str, gates: int, params: RnnParams,
-            codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check(name: str, gates: int, params: RnnParams,
+           codes: torch.Tensor) -> Tuple[int, int, int]:
+    """Validates a kernel's inputs; returns ``(batch, steps, units)``."""
     if codes.device.type != "cuda":
         raise ValueError(f"{name}: codes on {codes.device}; the kernel "
                          "takes CUDA tensors")
@@ -64,21 +77,44 @@ def _launch(name: str, gates: int, params: RnnParams,
     expect = {"kernel": (5, width), "recurrent": (units, width),
               "bias": bias_shape}
     for key, shape in expect.items():
-        tensor = params[key]
-        if tuple(tensor.shape) != shape:
-            raise ValueError(f"{name}: {key} has shape "
-                             f"{tuple(tensor.shape)}, expected {shape}")
-        if (tensor.dtype != torch.float32 or tensor.device != codes.device
-                or not tensor.is_contiguous()):
-            raise ValueError(f"{name}: {key} must be contiguous float32 on "
-                             f"{codes.device}")
-    avg = torch.empty(batch, steps, units, device=codes.device,
-                      dtype=torch.float32)
-    hidden = torch.empty(batch, units, device=codes.device,
-                         dtype=torch.float32)
+        _check_f32(name, key, params[key], shape, codes.device)
+    return batch, steps, units
+
+
+def _check_f32(name: str, key: str, tensor: torch.Tensor, shape: tuple,
+               device: torch.device) -> None:
+    if tuple(tensor.shape) != shape:
+        raise ValueError(f"{name}: {key} has shape {tuple(tensor.shape)}, "
+                         f"expected {shape}")
+    if (tensor.dtype != torch.float32 or tensor.device != device
+            or not tensor.is_contiguous()):
+        raise ValueError(f"{name}: {key} must be contiguous float32 on "
+                         f"{device}")
+
+
+def _ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:
+    return None if tensor is None else tensor.data_ptr()
+
+
+def _empty(device: torch.device, *shape: int) -> torch.Tensor:
+    return torch.empty(*shape, device=device, dtype=torch.float32)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, name: str, shape: str) -> None:
+    if err != 0:
+        msg = lib.dg_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({msg}) at {shape}")
+
+
+def _launch(name: str, gates: int, params: RnnParams,
+            codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    batch, steps, units = _check(name, gates, params, codes)
+    avg = _empty(codes.device, batch, steps, units)
+    hidden = _empty(codes.device, batch, units)
     if batch == 0:
         return avg, hidden
-    lib = _build.load_kernels()
+    lib = _build.load_kernels("rnn_avg")
     fn: Callable[..., int] = getattr(lib, f"dg_{name}")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
@@ -86,9 +122,162 @@ def _launch(name: str, gates: int, params: RnnParams,
                  params["kernel"].data_ptr(), params["bias"].data_ptr(),
                  params["recurrent"].data_ptr(), units, avg.data_ptr(),
                  hidden.data_ptr(), ctypes.c_void_p(stream))
-    if err != 0:
-        msg = lib.dg_rnn_avg_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({msg}) at B={batch} T={steps} u={units}")
+    _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
     LAUNCHES.add(name)
     return avg, hidden
+
+
+# -- training kernels --------------------------------------------------------
+
+
+def train_grid(batch: int, units: int,
+               device: Optional[torch.device] = None) -> Tuple[int, int]:
+    """``(windows a CTA owns, CTAs)`` of the training kernels for a batch
+    on a CUDA device (the tile is chosen from the batch and the card's SM
+    count, so that the grid is one wave)."""
+    lib = _build.load_kernels("rnn_train")
+    with torch.cuda.device(device or torch.device("cuda")):
+        block_rows = lib.dg_train_block_rows(batch, units)
+    return block_rows, -(-batch // block_rows)
+
+
+def _check_masks(name: str, gates: int, masks: Optional[torch.Tensor],
+                 batch: int, device: torch.device) -> None:
+    if masks is not None:
+        _check_f32(name, "masks", masks, (gates, 2 * batch, 5), device)
+
+
+def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
+              masks: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Launch the training forward kernel of ``cell`` ("gru" or "lstm").
+
+    Returns ``(avg [B, T, u], hidden [B, u], hseq [2B, T, u])`` and, for
+    LSTM, ``cseq [2B, T, u]``.
+    """
+    name, gates = f"{cell}_train_fwd", (4 if cell == "lstm" else 3)
+    batch, steps, units = _check(name, gates, params, codes)
+    _check_masks(name, gates, masks, batch, codes.device)
+    avg = _empty(codes.device, batch, steps, units)
+    hidden = _empty(codes.device, batch, units)
+    n_seqs = 2 if cell == "lstm" else 1  # hseq (and cseq)
+    seqs = [_empty(codes.device, 2 * batch, steps, units)
+            for _ in range(n_seqs)]
+    if batch == 0:
+        return (avg, hidden, *seqs)
+    lib = _build.load_kernels("rnn_train")
+    block_rows, _ = train_grid(batch, units, codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = getattr(lib, f"dg_{name}")(
+            codes.data_ptr(), batch, steps, _ptr(masks),
+            params["kernel"].data_ptr(), params["bias"].data_ptr(),
+            params["recurrent"].data_ptr(), units, block_rows,
+            avg.data_ptr(), hidden.data_ptr(),
+            *(seq.data_ptr() for seq in seqs), ctypes.c_void_p(stream))
+    _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
+    LAUNCHES.add(name)
+    return (avg, hidden, *seqs)
+
+
+def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
+              masks: Optional[torch.Tensor], seqs: Tuple[torch.Tensor, ...],
+              d_avg: torch.Tensor, d_hidden: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the training backward kernel of ``cell`` (and the sum of its
+    partials).  ``seqs`` is ``(hseq,)`` or ``(hseq, cseq)`` from
+    :func:`train_fwd`.  Returns ``(d_kernel, d_recurrent, d_bias)``."""
+    name, gates = f"{cell}_train_bwd", (4 if cell == "lstm" else 3)
+    batch, steps, units = _check(name, gates, params, codes)
+    _check_masks(name, gates, masks, batch, codes.device)
+    for key, seq in zip(("hseq", "cseq"), seqs):
+        _check_f32(name, key, seq, (2 * batch, steps, units), codes.device)
+    d_avg = d_avg.to(torch.float32).contiguous()
+    d_hidden = d_hidden.to(torch.float32).contiguous()
+    _check_f32(name, "d_avg", d_avg, (batch, steps, units), codes.device)
+    _check_f32(name, "d_hidden", d_hidden, (batch, units), codes.device)
+    grads = [torch.empty_like(params[key])
+             for key in ("kernel", "recurrent", "bias")]
+    if batch == 0:
+        return tuple(g.zero_() for g in grads)
+    width = gates * units
+    bias_rows = 2 if gates == 3 else 1
+    block_rows, n_cta = train_grid(batch, units, codes.device)
+    part_w = _empty(codes.device, n_cta * block_rows, 5, width)
+    part_b = _empty(codes.device, n_cta * block_rows, bias_rows, width)
+    part_u = _empty(codes.device, n_cta, units, width)
+    lib = _build.load_kernels("rnn_train")
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = getattr(lib, f"dg_{name}")(
+            codes.data_ptr(), batch, steps, _ptr(masks),
+            params["kernel"].data_ptr(), params["bias"].data_ptr(),
+            params["recurrent"].data_ptr(), units, block_rows,
+            *(seq.data_ptr() for seq in seqs), d_avg.data_ptr(),
+            d_hidden.data_ptr(), part_w.data_ptr(), part_b.data_ptr(),
+            part_u.data_ptr(), grads[0].data_ptr(), grads[2].data_ptr(),
+            grads[1].data_ptr(), ctypes.c_void_p(stream))
+    _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
+    LAUNCHES.add(name)
+    return grads[0], grads[1], grads[2]
+
+
+_PLAIN: Dict[str, Tuple[Callable, Callable]] = {
+    "gru": (rnn.gru_avg_train_fwd_plain, rnn.gru_avg_train_bwd_plain),
+    "lstm": (rnn.lstm_avg_train_fwd_plain, rnn.lstm_avg_train_bwd_plain),
+}
+
+
+class _AvgTrain(torch.autograd.Function):
+    """Shared body of :class:`GruAvgTrain` and :class:`LstmAvgTrain`."""
+
+    CELL = ""
+
+    @classmethod
+    def forward(cls, ctx, kernel, recurrent, bias, codes, masks):
+        params = {"kernel": kernel, "recurrent": recurrent, "bias": bias}
+        if codes.device.type == "cpu":
+            avg, hidden, *seqs = _PLAIN[cls.CELL][0](params, codes, masks)
+        else:
+            avg, hidden, *seqs = train_fwd(cls.CELL, params, codes, masks)
+        ctx.save_for_backward(kernel, recurrent, bias, codes, masks, *seqs)
+        return avg, hidden
+
+    @classmethod
+    def backward(cls, ctx, d_avg, d_hidden):
+        kernel, recurrent, bias, codes, masks, *seqs = ctx.saved_tensors
+        params = {"kernel": kernel, "recurrent": recurrent, "bias": bias}
+        if codes.device.type == "cpu":
+            grads = _PLAIN[cls.CELL][1](params, codes, masks, *seqs, d_avg,
+                                        d_hidden)
+        else:
+            grads = train_bwd(cls.CELL, params, codes, masks, tuple(seqs),
+                              d_avg, d_hidden)
+        return (*grads, None, None)
+
+
+class GruAvgTrain(_AvgTrain):
+    """Trainable fused fwd+revcomp GRU with branch averaging.
+
+    ``GruAvgTrain.apply(kernel [5, 3u], recurrent [u, 3u], bias [2, 3u],
+    codes int8 [B, T], masks [3, 2B, 5] | None)`` returns ``(avg [B, T,
+    u], hidden [B, u])``; the backward gives the three parameters'
+    gradients.
+    """
+
+    CELL = "gru"
+
+
+class LstmAvgTrain(_AvgTrain):
+    """LSTM counterpart of :class:`GruAvgTrain` (``bias [4u]``, ``masks
+    [4, 2B, 5]``); saves the hidden and cell sequences."""
+
+    CELL = "lstm"
+
+
+def avg_train(cell: str, params: RnnParams, codes: torch.Tensor,
+              masks: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(avg, hidden)`` of the trainable fused recurrence of ``cell``."""
+    fn = LstmAvgTrain if cell == "lstm" else GruAvgTrain
+    return fn.apply(params["kernel"], params["recurrent"], params["bias"],
+                    codes, masks)

@@ -8,7 +8,9 @@ when an ``.h5`` file is read, so machines without it load ``.npz`` files.
 
 The ``.npz`` format holds one array per flat parameter name
 (``rnn.kernel``, ...) plus a ``__config__`` entry: the :class:`ModelConfig`
-as JSON bytes.
+as JSON bytes.  ``load_model_npz`` also reads the JAX package's model
+files, whose arrays are keyed by ``/``-joined pytree paths (``rnn/kernel``,
+``deepgrp_tpu/models/keras_io.py:31-44``) beside the same ``__config__``.
 """
 
 from __future__ import annotations
@@ -36,12 +38,15 @@ def save_model_npz(path: str, config: ModelConfig, params: Params) -> None:
 
 
 def load_model_npz(path: str) -> Tuple[ModelConfig, Params]:
+    """Load a model file of this package or of the JAX package."""
     with np.load(path, allow_pickle=False) as data:
         arrays = {key: data[key] for key in data.files}
     config = ModelConfig(**json.loads(arrays.pop(_CONFIG_KEY).tobytes()))
-    params = {key: torch.from_numpy(np.ascontiguousarray(value,
-                                                         dtype=np.float32))
-              for key, value in arrays.items()}
+    # "rnn/kernel" (JAX package) and "rnn.kernel" (this package) name the
+    # same array.
+    params = {key.replace("/", "."): torch.from_numpy(
+        np.ascontiguousarray(value, dtype=np.float32))
+        for key, value in arrays.items()}
     _validate_shapes(config, params)
     return config, params
 

@@ -1,18 +1,20 @@
 """The DeepGRP classifier: weight-shared fwd/revcomp RNN with attention.
 
-Counterpart of ``deepgrp_tpu/models/model.py`` (inference path,
-``forward_probs_from_codes``)::
+Counterpart of ``deepgrp_tpu/models/model.py`` (the fused paths:
+``forward_probs_from_codes`` for inference,
+``forward_logits_from_codes_train`` for training)::
 
     codes [B, T]
       ├─ fused fwd + reverse-complement recurrence with branch averaging
-      │    (models/cuda_rnn.py: the CUDA kernel, or its plain version on CPU)
+      │    (models/cuda_rnn.py: the CUDA kernel, or its plain version on CPU;
+      │    training adds per-gate input dropout masks and a backward kernel)
       │    -> avg [B, T, u], hidden = (h_fwd[T-1] + h_rev[T-1]) / 2 [B, u]
       ├─ if attention and GRU:
       │     att   = AdditiveAttention(hidden, avg)         -> [B, u]
       │     feats = concat(repeat(att, T), avg)            -> [B, T, 2u]
       │  else: feats = avg
       ├─ Dense(n_classes) logits (layer "FF")
-      └─ softmax over classes
+      └─ softmax over classes (inference; training takes the logits)
 
 Keras ``AdditiveAttention`` (use_scale=True): ``scores[b, t] = sum_d
 scale[d] * tanh(q[b, d] + k[b, t, d])``; softmax over t; the output is the
@@ -27,12 +29,12 @@ JAX package (``models/rnn.py``).
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
 
-from deepgrp_tpu_torch.models import cuda_rnn
+from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
 Params = Mapping[str, torch.Tensor]
 
@@ -49,6 +51,15 @@ class ModelConfig:
     n_classes: int = 5
     dropout: float = 0.25
     input_dim: int = 5
+
+    @classmethod
+    def from_options(cls, options: Any) -> "ModelConfig":
+        """The architecture of a run's :class:`~deepgrp_tpu_torch.config.
+        Options` (``n_classes`` = repeats searched + background)."""
+        return cls(vecsize=int(options.vecsize), units=int(options.units),
+                   rnn=str(options.rnn), attention=bool(options.attention),
+                   n_classes=len(options.repeats_to_search) + 1,
+                   dropout=float(options.dropout))
 
     @property
     def use_attention(self) -> bool:
@@ -82,14 +93,36 @@ class ModelConfig:
 
 
 def require_full_f32_matmul() -> None:
-    """Turn TF32 off for CUDA matmuls and check that it is off.
+    """Turn TF32 off for CUDA matmuls and cuDNN and check that it is off.
 
-    The float32 head must run in full float32, as the JAX head runs at
-    ``"highest"`` precision; TF32 keeps about three decimal digits.
+    The float32 head (forward and backward) must run in full float32, as
+    the JAX head runs at ``"highest"`` precision; TF32 keeps about three
+    decimal digits.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("could not disable TF32 for CUDA matmuls")
+    torch.backends.cudnn.allow_tf32 = False
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise RuntimeError("could not disable TF32 for CUDA matmuls and "
+                           "cuDNN")
+
+
+def init_params(config: ModelConfig,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Keras-default initial parameters (``model.py:87-108``), flat float32
+    CPU tensors drawn from ``generator`` (a CPU generator): the cell's
+    initialisers, glorot-uniform attention scale and dense kernel, zero
+    dense bias."""
+    init = rnn.lstm_init if config.rnn == "LSTM" else rnn.gru_init
+    cell = init(config.input_dim, config.units, generator)
+    params = {f"rnn.{key}": value for key, value in cell.items()}
+    if config.use_attention:
+        params["attention.scale"] = rnn.glorot_uniform(
+            (config.units, 1), generator).reshape(config.units)
+    params["dense.kernel"] = rnn.glorot_uniform(
+        (config.feature_dim, config.n_classes), generator)
+    params["dense.bias"] = torch.zeros(config.n_classes)
+    return params
 
 
 def additive_attention(scale: torch.Tensor, query: torch.Tensor,
@@ -110,10 +143,11 @@ def additive_attention(scale: torch.Tensor, query: torch.Tensor,
     return torch.einsum("bt,btu->bu", weights, keyvalue)
 
 
-def head_probs(params: Params, avg: torch.Tensor, hidden: torch.Tensor,
-               config: ModelConfig) -> torch.Tensor:
-    """Attention + dense head and softmax over the branch-averaged
-    recurrence outputs: ``[B, T, n_classes]`` probabilities."""
+def head_logits(params: Params, avg: torch.Tensor, hidden: torch.Tensor,
+                config: ModelConfig) -> torch.Tensor:
+    """Attention + dense head over the branch-averaged recurrence outputs:
+    ``[B, T, n_classes]`` logits (``_head_logits``, ``model.py:175-188``;
+    shared by the inference and the training path)."""
     if avg.is_cuda:
         require_full_f32_matmul()
     if config.use_attention:
@@ -121,20 +155,48 @@ def head_probs(params: Params, avg: torch.Tensor, hidden: torch.Tensor,
         feats = torch.cat([att[:, None, :].expand_as(avg), avg], dim=-1)
     else:
         feats = avg
-    logits = feats @ params["dense.kernel"] + params["dense.bias"]
-    return torch.softmax(logits, dim=-1)
+    return feats @ params["dense.kernel"] + params["dense.bias"]
+
+
+def _rnn_params(params: Params) -> Dict[str, torch.Tensor]:
+    return {"kernel": params["rnn.kernel"],
+            "recurrent": params["rnn.recurrent"],
+            "bias": params["rnn.bias"]}
+
+
+def forward_logits_from_codes(params: Params, codes: torch.Tensor,
+                              config: ModelConfig) -> torch.Tensor:
+    """Integer code windows ``[B, T]`` -> logits ``[B, T, n_classes]``
+    through the inference kernels (no dropout)."""
+    rnn_avg = cuda_rnn.lstm_avg if config.rnn == "LSTM" else cuda_rnn.gru_avg
+    avg, hidden = rnn_avg(_rnn_params(params), codes)
+    return head_logits(params, avg, hidden, config)
 
 
 def forward_probs_from_codes(params: Params, codes: torch.Tensor,
                              config: ModelConfig) -> torch.Tensor:
     """Integer code windows ``[B, T]`` -> class probabilities
     ``[B, T, n_classes]`` (float32)."""
-    rnn_params = {"kernel": params["rnn.kernel"],
-                  "recurrent": params["rnn.recurrent"],
-                  "bias": params["rnn.bias"]}
-    rnn_avg = cuda_rnn.lstm_avg if config.rnn == "LSTM" else cuda_rnn.gru_avg
-    avg, hidden = rnn_avg(rnn_params, codes)
-    return head_probs(params, avg, hidden, config)
+    return torch.softmax(forward_logits_from_codes(params, codes, config),
+                         dim=-1)
+
+
+def forward_logits_from_codes_train(params: Params, codes: torch.Tensor,
+                                    config: ModelConfig,
+                                    masks: Optional[torch.Tensor] = None
+                                    ) -> torch.Tensor:
+    """Trainable forward: integer code windows ``[B, T]`` -> logits
+    (``model.py:191-228``).
+
+    The recurrence runs through the training kernels' autograd Function
+    (:class:`~deepgrp_tpu_torch.models.cuda_rnn.GruAvgTrain` /
+    ``LstmAvgTrain``), with Keras input dropout as per-gate scales
+    ``masks [g, 2B, 5]`` over the doubled batch (``None``: no dropout);
+    the head is plain torch, differentiated by autograd.
+    """
+    cell = "lstm" if config.rnn == "LSTM" else "gru"
+    avg, hidden = cuda_rnn.avg_train(cell, _rnn_params(params), codes, masks)
+    return head_logits(params, avg, hidden, config)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -151,8 +213,9 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class DeepGRPModel(nn.Module):
     """The classifier's parameters on one device, in float32.
 
-    The parameters are buffers (inference only) of three submodules, so
-    ``state_dict()`` keys are the flat names listed in the module docstring.
+    The parameters are ``nn.Parameter``s of three submodules, so
+    ``state_dict()`` keys are the flat names listed in the module
+    docstring; inference runs under ``torch.no_grad()``.
     """
 
     def __init__(self, config: ModelConfig,
@@ -164,8 +227,8 @@ class DeepGRPModel(nn.Module):
             group, name = key.split(".")
             if not hasattr(self, group):
                 self.add_module(group, nn.Module())
-            getattr(self, group).register_buffer(
-                name, torch.zeros(shape, device=device))
+            getattr(self, group).register_parameter(
+                name, nn.Parameter(torch.zeros(shape, device=device)))
 
     @classmethod
     def from_params(cls, config: ModelConfig, params: Params,
@@ -179,11 +242,11 @@ class DeepGRPModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return next(self.buffers()).device
+        return next(self.parameters()).device
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The parameters by flat name."""
-        return dict(self.named_buffers())
+        return dict(self.named_parameters())
 
     @torch.no_grad()
     def forward_probs_from_codes(self, codes: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,18 @@
-"""Plain PyTorch versions of the fused recurrence kernels.
+"""Plain PyTorch versions of the fused recurrence kernels, and the cell's
+initialisation and dropout masks.
 
 ``gru_avg_plain`` and ``lstm_avg_plain`` compute exactly what the CUDA
 kernels in ``csrc/rnn_avg.cu`` compute (and what the JAX package's
 ``pallas_gru_avg`` / ``pallas_lstm_avg`` compute): the shared cell runs over
 the doubled batch of forward rows and their reverse complements, with Keras
-gate math, and returns the branch average.  They are a Python loop over T
-in torch ops: the CPU path of :mod:`deepgrp_tpu_torch.models.cuda_rnn` and
-the reference the kernels are held against on the card.
+gate math, and returns the branch average.  The ``*_train_fwd_plain`` /
+``*_train_bwd_plain`` functions are the same for the training kernels of
+``csrc/rnn_train.cu`` (the JAX package's ``pallas_rnn_train.py``): a
+forward with per-gate input dropout masks that also returns the hidden (and
+cell) sequence, and an explicit reverse loop over T for the gradients.
+They are loops over T in torch ops: the CPU path of
+:mod:`deepgrp_tpu_torch.models.cuda_rnn` and the reference the kernels are
+held against on the card.
 
 Parameter layout (Keras, ``deepgrp_tpu/models/rnn.py``):
 
@@ -22,12 +28,15 @@ Parameter layout (Keras, ``deepgrp_tpu/models/rnn.py``):
   ``bias [4u]``; ``c' = f * c + i * g``, ``h' = o * tanh(c')``.
 
 The input projection of a one-hot row is a row select: ``x W == W[code]``;
-pad code 5 is the all-zero row and selects bias only.
+pad code 5 is the all-zero row and selects bias only.  Keras input dropout
+scales the selected row per gate: ``mask[g, row, code] * W_g[code]``, with
+``masks [g, 2B, 5]`` over the doubled batch (rows ``0..B-1`` forward,
+``B..2B-1`` reverse complement), shared over time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -113,3 +122,276 @@ def lstm_avg_plain(params: RnnParams,
         h = o * torch.tanh(c)
         avg[:, t] = (h[:batch] + h[batch:]) * 0.5
     return avg, avg[:, -1].clone()
+
+
+# -- initialisation and dropout ---------------------------------------------
+
+
+def glorot_uniform(shape: Tuple[int, int],
+                   generator: torch.Generator) -> torch.Tensor:
+    """Keras ``glorot_uniform``: U(-l, l), ``l = sqrt(6 / (fan_in +
+    fan_out))`` for a ``[fan_in, fan_out]`` matrix."""
+    limit = (6.0 / (shape[0] + shape[1])) ** 0.5
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
+
+
+def _orthogonal(shape: Tuple[int, int],
+                generator: torch.Generator) -> torch.Tensor:
+    """Keras / JAX ``orthogonal``: orthonormal rows (or columns) from the
+    QR of a normal matrix, signs fixed by ``diag(R)``."""
+    out = torch.empty(shape)
+    torch.nn.init.orthogonal_(out, generator=generator)
+    return out
+
+
+def gru_init(input_dim: int, units: int,
+             generator: torch.Generator) -> RnnParams:
+    """Keras-default GRU initialisation (``deepgrp_tpu/models/rnn.py:39``):
+    glorot-uniform kernel, orthogonal recurrent, zero biases.  CPU
+    tensors drawn from ``generator``."""
+    return {"kernel": glorot_uniform((input_dim, 3 * units), generator),
+            "recurrent": _orthogonal((units, 3 * units), generator),
+            "bias": torch.zeros(2, 3 * units)}
+
+
+def lstm_init(input_dim: int, units: int,
+              generator: torch.Generator) -> RnnParams:
+    """Keras-default LSTM initialisation (``rnn.py:51``), with the unit
+    forget-gate bias."""
+    bias = torch.zeros(4 * units)
+    bias[units:2 * units] = 1.0
+    return {"kernel": glorot_uniform((input_dim, 4 * units), generator),
+            "recurrent": _orthogonal((units, 4 * units), generator),
+            "bias": bias}
+
+
+def input_dropout_masks(generator: torch.Generator, rows: int, rate: float,
+                        n_gates: int, input_dim: int = 5) -> torch.Tensor:
+    """Keras RNN input-dropout masks, ``[n_gates, rows, input_dim]``
+    float32 of ``Bernoulli(keep) / keep`` (``rnn.py:64``), on the
+    generator's device.  ``rows`` is the doubled batch ``2B``: rows
+    ``0..B-1`` mask the forward branch, ``B..2B-1`` the reverse
+    complement."""
+    keep = 1.0 - rate
+    probs = torch.full((n_gates, rows, input_dim), keep,
+                       device=generator.device)
+    return torch.bernoulli(probs, generator=generator) / keep
+
+
+# -- training recurrences (plain versions of csrc/rnn_train.cu) -------------
+
+
+def _mask_scale(masks: Optional[torch.Tensor], both: torch.Tensor,
+                units: int) -> Optional[torch.Tensor]:
+    """Per-gate scale of each step's selected input row, ``[2B, T, g*u]``
+    (``None`` without masks; pad steps get scale 1, their row is zero)."""
+    if masks is None:
+        return None
+    n_gates, rows, _ = masks.shape
+    padded = torch.cat([masks, masks.new_ones(n_gates, rows, 1)], dim=2)
+    scale = padded.gather(2, both[None].expand(n_gates, -1, -1))
+    return scale.permute(1, 2, 0).repeat_interleave(units, dim=2)
+
+
+def _train_projection(kernel: torch.Tensor, bias_in: torch.Tensor,
+                      both: torch.Tensor,
+                      scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """``bias + scale * W[code]`` for every step, ``[2B, T, g*u]``."""
+    rows = torch.cat([kernel, kernel.new_zeros(1, kernel.shape[1])])
+    selected = rows[both]
+    return bias_in + (selected if scale is None else scale * selected)
+
+
+def _kernel_grad(d_xp: torch.Tensor, both: torch.Tensor,
+                 scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """``dW[c] = sum over (row, t) with code c of scale * d_xp``, ``[5,
+    g*u]`` (pad steps select no row)."""
+    width = d_xp.shape[-1]
+    contrib = d_xp if scale is None else scale * d_xp
+    rows = d_xp.new_zeros(6, width).index_add_(0, both.reshape(-1),
+                                               contrib.reshape(-1, width))
+    return rows[:5]
+
+
+def gru_avg_train_fwd_plain(
+        params: RnnParams, codes: torch.Tensor,
+        masks: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training forward of the fused GRU (``_gru_train_fwd_kernel``).
+
+    Args:
+        params: ``kernel [5, 3u]``, ``recurrent [u, 3u]``, ``bias [2, 3u]``.
+        codes: ``[B, T]`` integer base codes.
+        masks: ``[3, 2B, 5]`` per-gate input dropout scales, or ``None``.
+
+    Returns:
+        ``(avg [B, T, u], hidden_avg [B, u], hseq [2B, T, u])``; ``hseq``
+        holds both branches' hidden states, forward rows first.
+    """
+    PLAIN_CALLS.add("gru_train_fwd")
+    batch = codes.shape[0]
+    recurrent = params["recurrent"]
+    units = recurrent.shape[0]
+    both = _doubled_codes(codes)
+    xp = _train_projection(params["kernel"], params["bias"][0], both,
+                           _mask_scale(masks, both, units))
+    bias_rec = params["bias"][1]
+    h = xp.new_zeros(2 * batch, units)
+    states = []
+    for t in range(codes.shape[1]):
+        x = xp[:, t]
+        rp = h @ recurrent + bias_rec
+        z = torch.sigmoid(x[:, :units] + rp[:, :units])
+        r = torch.sigmoid(x[:, units:2 * units] + rp[:, units:2 * units])
+        hh = torch.tanh(x[:, 2 * units:] + r * rp[:, 2 * units:])
+        h = z * h + (1.0 - z) * hh
+        states.append(h)
+    hseq = torch.stack(states, dim=1)
+    avg = (hseq[:batch] + hseq[batch:]) * 0.5
+    return avg, avg[:, -1].clone(), hseq
+
+
+def gru_avg_train_bwd_plain(
+        params: RnnParams, codes: torch.Tensor,
+        masks: Optional[torch.Tensor], hseq: torch.Tensor,
+        d_avg: torch.Tensor, d_hidden: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of the fused GRU (``_gru_train_bwd_kernel``), by an
+    explicit reverse loop over T (not autograd).
+
+    With ``rp = h_prev U + b_rec`` recomputed per step and the carried
+    cotangent ``dh`` (seeded ``d_hidden / 2`` on both branch rows, plus
+    ``d_avg[t] / 2`` each step)::
+
+        da_z = dh (h_prev - hh) z (1-z)    da_h = dh (1-z) (1 - hh^2)
+        da_r = (da_h rh) r (1-r)
+        d_xp = [da_z, da_r, da_h]          d_rp = [da_z, da_r, da_h r]
+        dh_prev = dh z + d_rp U^T
+        dU += h_prev^T d_rp   db_rec += sum d_rp   db_in += sum d_xp
+        dW[c] += sum_{code==c} mask_c d_xp
+
+    Returns:
+        ``(d_kernel [5, 3u], d_recurrent [u, 3u], d_bias [2, 3u])``.
+    """
+    PLAIN_CALLS.add("gru_train_bwd")
+    batch, steps = codes.shape
+    recurrent = params["recurrent"]
+    units = recurrent.shape[0]
+    both = _doubled_codes(codes)
+    scale = _mask_scale(masks, both, units)
+    xp = _train_projection(params["kernel"], params["bias"][0], both, scale)
+    bias_rec = params["bias"][1]
+    half = d_hidden * 0.5
+    dh = torch.cat([half, half])
+    d_rec = torch.zeros_like(recurrent)
+    d_bias = torch.zeros_like(params["bias"])
+    d_xp_seq = xp.new_empty(xp.shape)
+    for t in reversed(range(steps)):
+        h_prev = hseq[:, t - 1] if t > 0 else hseq.new_zeros(2 * batch,
+                                                             units)
+        x = xp[:, t]
+        rp = h_prev @ recurrent + bias_rec
+        z = torch.sigmoid(x[:, :units] + rp[:, :units])
+        r = torch.sigmoid(x[:, units:2 * units] + rp[:, units:2 * units])
+        rh = rp[:, 2 * units:]
+        hh = torch.tanh(x[:, 2 * units:] + r * rh)
+        half_avg = d_avg[:, t] * 0.5
+        dht = dh + torch.cat([half_avg, half_avg])
+        da_z = dht * (h_prev - hh) * z * (1.0 - z)
+        da_h = dht * (1.0 - z) * (1.0 - hh * hh)
+        da_r = (da_h * rh) * r * (1.0 - r)
+        d_xp = torch.cat([da_z, da_r, da_h], dim=1)
+        d_rp = torch.cat([da_z, da_r, da_h * r], dim=1)
+        dh = dht * z + d_rp @ recurrent.T
+        d_rec += h_prev.T @ d_rp
+        d_bias[0] += d_xp.sum(0)
+        d_bias[1] += d_rp.sum(0)
+        d_xp_seq[:, t] = d_xp
+    return _kernel_grad(d_xp_seq, both, scale), d_rec, d_bias
+
+
+def lstm_avg_train_fwd_plain(
+        params: RnnParams, codes: torch.Tensor,
+        masks: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training forward of the fused LSTM (``_lstm_train_fwd_kernel``):
+    ``masks [4, 2B, 5]`` or ``None``; returns ``(avg, hidden_avg, hseq,
+    cseq)``, the sequences ``[2B, T, u]`` forward rows first."""
+    PLAIN_CALLS.add("lstm_train_fwd")
+    batch = codes.shape[0]
+    recurrent = params["recurrent"]
+    units = recurrent.shape[0]
+    both = _doubled_codes(codes)
+    xp = _train_projection(params["kernel"], params["bias"], both,
+                           _mask_scale(masks, both, units))
+    h = xp.new_zeros(2 * batch, units)
+    c = xp.new_zeros(2 * batch, units)
+    h_states, c_states = [], []
+    for t in range(codes.shape[1]):
+        gates = xp[:, t] + h @ recurrent
+        i = torch.sigmoid(gates[:, :units])
+        f = torch.sigmoid(gates[:, units:2 * units])
+        g = torch.tanh(gates[:, 2 * units:3 * units])
+        o = torch.sigmoid(gates[:, 3 * units:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        h_states.append(h)
+        c_states.append(c)
+    hseq = torch.stack(h_states, dim=1)
+    avg = (hseq[:batch] + hseq[batch:]) * 0.5
+    return avg, avg[:, -1].clone(), hseq, torch.stack(c_states, dim=1)
+
+
+def lstm_avg_train_bwd_plain(
+        params: RnnParams, codes: torch.Tensor,
+        masks: Optional[torch.Tensor], hseq: torch.Tensor,
+        cseq: torch.Tensor, d_avg: torch.Tensor, d_hidden: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of the fused LSTM (``_lstm_train_bwd_kernel``), by an
+    explicit reverse loop over T carrying ``(dh, dc)``::
+
+        do = dh tanh(c)          dc_t = dc + dh o (1 - tanh(c)^2)
+        da = [dc_t g i(1-i), dc_t c_prev f(1-f), dc_t i (1-g^2), do o(1-o)]
+        dh_prev = da U^T         dc_prev = dc_t f
+        dU += h_prev^T da   db += sum da   dW[c] += sum_{code==c} mask_c da
+
+    Returns:
+        ``(d_kernel [5, 4u], d_recurrent [u, 4u], d_bias [4u])``.
+    """
+    PLAIN_CALLS.add("lstm_train_bwd")
+    batch, steps = codes.shape
+    recurrent = params["recurrent"]
+    units = recurrent.shape[0]
+    both = _doubled_codes(codes)
+    scale = _mask_scale(masks, both, units)
+    xp = _train_projection(params["kernel"], params["bias"], both, scale)
+    half = d_hidden * 0.5
+    dh = torch.cat([half, half])
+    dc = torch.zeros_like(dh)
+    d_rec = torch.zeros_like(recurrent)
+    d_bias = torch.zeros_like(params["bias"])
+    da_seq = xp.new_empty(xp.shape)
+    zeros = hseq.new_zeros(2 * batch, units)
+    for t in reversed(range(steps)):
+        h_prev = hseq[:, t - 1] if t > 0 else zeros
+        c_prev = cseq[:, t - 1] if t > 0 else zeros
+        gates = xp[:, t] + h_prev @ recurrent
+        gi = torch.sigmoid(gates[:, :units])
+        gf = torch.sigmoid(gates[:, units:2 * units])
+        gg = torch.tanh(gates[:, 2 * units:3 * units])
+        go = torch.sigmoid(gates[:, 3 * units:])
+        tanh_c = torch.tanh(gf * c_prev + gi * gg)
+        half_avg = d_avg[:, t] * 0.5
+        dht = dh + torch.cat([half_avg, half_avg])
+        d_o = dht * tanh_c
+        dc_t = dc + dht * go * (1.0 - tanh_c * tanh_c)
+        da = torch.cat([(dc_t * gg) * gi * (1.0 - gi),
+                        (dc_t * c_prev) * gf * (1.0 - gf),
+                        (dc_t * gi) * (1.0 - gg * gg),
+                        d_o * go * (1.0 - go)], dim=1)
+        dh = da @ recurrent.T
+        dc = dc_t * gf
+        d_rec += h_prev.T @ da
+        d_bias += da.sum(0)
+        da_seq[:, t] = da
+    return _kernel_grad(da_seq, both, scale), d_rec, d_bias

@@ -1,0 +1,89 @@
+"""Optimizer construction with the reference's TF parameter mapping.
+
+Counterpart of ``deepgrp_tpu/train/optimizers.py`` (parity with
+the reference DeepGRP's ``model.py:202-215``):
+
+* ``RMSprop``: ``rho`` is the decay of the squared-gradient average and
+  ``momentum`` a trace of the updates, with epsilon *inside* the square
+  root, as in TF2 and ``optax.rmsprop``::
+
+      nu = rho nu + (1 - rho) g^2
+      u = -lr g / sqrt(nu + eps)
+      m = u + momentum m   (only when momentum is truthy; then u = m)
+      p = p + u
+
+  ``torch.optim.RMSprop`` puts epsilon outside the root (``sqrt(v) +
+  eps``), which differs wherever ``nu`` is tiny (with the default
+  ``epsilon = 1e-10``, e.g. an input row that no batch selects), so
+  :class:`RMSprop` here follows the composition above.
+* ``Adam``: ``momentum -> beta_1``, ``rho -> beta_2`` (epsilon outside the
+  root in TF2, optax and torch alike): ``torch.optim.Adam``.
+* ``sgd``: ``torch.optim.SGD``.
+
+Any other name raises ``ValueError`` (the JAX package resolves any optax
+optimizer by name; that is not ported).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import torch
+
+from deepgrp_tpu_torch.config import Options
+
+
+class RMSprop(torch.optim.Optimizer):
+    """RMSprop in the TF2 / optax composition (see the module
+    docstring); ``momentum=None`` or 0 leaves the trace out."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float,
+                 rho: float, eps: float, momentum: Optional[float] = None):
+        super().__init__(params, {"lr": lr, "rho": rho, "eps": eps,
+                                  "momentum": momentum})
+
+    @torch.no_grad()
+    def step(self, closure=None):  # pylint: disable=arguments-differ
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            rho, eps, lr = group["rho"], group["eps"], group["lr"]
+            momentum = group["momentum"]
+            for param in group["params"]:
+                if param.grad is None:
+                    continue
+                grad = param.grad
+                state = self.state[param]
+                if not state:
+                    state["nu"] = torch.zeros_like(param)
+                    if momentum:
+                        state["trace"] = torch.zeros_like(param)
+                nu = state["nu"]
+                nu.copy_((1.0 - rho) * (grad * grad) + rho * nu)
+                update = -lr * (torch.rsqrt(nu + eps) * grad)
+                if momentum:
+                    trace = state["trace"]
+                    trace.copy_(update + momentum * trace)
+                    update = trace
+                param.add_(update)
+        return loss
+
+
+def get_optimizer(options: Options, params: Iterable[torch.Tensor]
+                  ) -> torch.optim.Optimizer:
+    """The optimizer named by ``options.optimizer`` over ``params``."""
+    name = str(options.optimizer)
+    if name == "RMSprop":
+        return RMSprop(params, lr=options.learning_rate, rho=options.rho,
+                       eps=options.epsilon,
+                       momentum=options.momentum or None)
+    if name == "Adam":
+        return torch.optim.Adam(params, lr=options.learning_rate,
+                                betas=(options.momentum, options.rho),
+                                eps=options.epsilon)
+    if name.lower() == "sgd":
+        return torch.optim.SGD(params, lr=options.learning_rate)
+    raise ValueError(f"unknown optimizer {name!r} (RMSprop, Adam and sgd "
+                     "are ported)")

@@ -1,0 +1,222 @@
+"""Training loop.
+
+Counterpart of ``deepgrp_tpu/train/training.py`` on its fused route
+(reference behaviour: the reference DeepGRP's ``training.py:15-73``): a
+loop of ``n_epochs`` epochs of ``n_batches`` optimization steps, one
+validation batch per epoch, early stopping on ``val_loss`` with patience
+``early_stopping_th`` and restoration of the best weights, best-only
+checkpoints in ``logdir``, and metrics in ``logdir/metrics.jsonl``.
+
+One optimization step (:func:`train_step`): class-balanced code windows
+and labels gathered on the device, Keras input-dropout masks, the forward
+through the training kernels' autograd Function and the attention + dense
+head, categorical cross-entropy from logits (``log_softmax``, numerically
+equivalent to the reference's CCE on the softmax but stable), the backward
+(the recurrence's through the backward kernel), and the optimizer update.
+
+Within an epoch nothing waits for the device: windows and masks are drawn
+from one ``torch.Generator`` on the device and the losses stay there; the
+host reads them once per epoch (the counterpart of the JAX package's one
+dispatch per epoch).  The validation batch runs without dropout, through
+the inference kernels.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from deepgrp_tpu_torch.config import Options
+from deepgrp_tpu_torch.data.preprocess import Data
+from deepgrp_tpu_torch.models import rnn
+from deepgrp_tpu_torch.models.convert import params_from_jax, params_to_jax
+from deepgrp_tpu_torch.models.model import (
+    DeepGRPModel, ModelConfig, forward_logits_from_codes,
+    forward_logits_from_codes_train, init_params)
+from deepgrp_tpu_torch.train.checkpoint import CheckpointManager, load_params
+from deepgrp_tpu_torch.train.optimizers import get_optimizer
+from deepgrp_tpu_torch.train.sampler import BatchSampler
+
+_LOG = logging.getLogger(__name__)
+
+MetricCallback = Callable[[int, Dict[str, float]], None]
+Params = Dict[str, torch.Tensor]
+
+
+def categorical_crossentropy(logits: torch.Tensor,
+                             labels: torch.Tensor) -> torch.Tensor:
+    """Mean categorical cross-entropy over batch and positions."""
+    log_probs = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.sum(labels * log_probs, dim=-1))
+
+
+class MetricsWriter:
+    """JSONL metrics log (``metrics.jsonl``, one record an epoch with the
+    keys ``step``, ``time`` and the metrics)."""
+
+    def __init__(self, logdir: os.PathLike):
+        self.logdir = os.fspath(logdir)
+        os.makedirs(self.logdir, exist_ok=True)
+        self._file = open(os.path.join(self.logdir, "metrics.jsonl"), "a")
+
+    def write(self, step: int, metrics: Dict[str, float]) -> None:
+        record = {"step": step, "time": time.time(), **metrics}
+        self._file.write(json.dumps(record) + "\n")
+        self._file.flush()
+
+    def close(self) -> None:
+        self._file.close()
+
+
+def train_step(model: DeepGRPModel, optimizer: torch.optim.Optimizer,
+               codes: torch.Tensor, labels: torch.Tensor,
+               masks: Optional[torch.Tensor]) -> torch.Tensor:
+    """One optimization step on explicit windows and masks.
+
+    Args:
+        model: the parameters (updated in place).
+        optimizer: over ``model.parameters()``.
+        codes: int8 code windows ``[B, T]``.
+        labels: one-hot labels ``float32 [B, T, n_classes]``.
+        masks: input dropout masks ``[g, 2B, 5]``, or ``None``.
+
+    Returns:
+        The batch loss, a 0-dim tensor on the model's device (not read).
+    """
+    optimizer.zero_grad(set_to_none=True)
+    logits = forward_logits_from_codes_train(model.params(), codes,
+                                             model.config, masks)
+    loss = categorical_crossentropy(logits, labels)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def _host_copy(model: DeepGRPModel) -> Params:
+    return {key: value.detach().cpu().clone()
+            for key, value in model.params().items()}
+
+
+class Trainer:
+    """The training loop of one model / options pair (``Trainer``,
+    ``training.py:196-391``)."""
+
+    def __init__(self, model: DeepGRPModel, options: Options,
+                 logdir: os.PathLike):
+        self.model = model
+        self.options = options
+        self.logdir = logdir
+        self.checkpoints = CheckpointManager(logdir)
+        self.writer = MetricsWriter(logdir)
+
+    def fit(self, train_data: Data, val_data: Data,
+            params: Optional[Params] = None, seed: int = 0,
+            callbacks: Optional[List[MetricCallback]] = None,
+            resume: bool = False, stop_on_nan: bool = True
+            ) -> Tuple[Params, Dict[str, List[float]]]:
+        """Run the training loop; returns ``(best_params, history)``,
+        the parameters on the CPU, and leaves the best ones in the model.
+
+        ``params`` (flat, any device) start the run; else ``resume=True``
+        starts from the latest checkpoint in ``logdir`` if there is one
+        (with a fresh optimizer state); else Keras-default initial values
+        drawn from ``seed``.  ``stop_on_nan`` ends the loop at the first
+        epoch whose mean training loss is not finite.
+        """
+        options, model = self.options, self.model
+        config = model.config
+        if params is None and resume:
+            latest = self.checkpoints.latest_path()
+            if latest is not None:
+                params = params_from_jax(load_params(latest))
+                _LOG.info("resumed parameters from %s", latest)
+        if params is None:
+            params = init_params(config, torch.Generator().manual_seed(seed))
+        model.load_state_dict(params)
+        optimizer = get_optimizer(options, model.parameters())
+
+        device = model.device
+        generator = torch.Generator(device=device).manual_seed(seed)
+        train_sampler = BatchSampler(options, train_data, device)
+        val_sampler = BatchSampler(options, val_data, device)
+        rows = 2 * train_sampler.batch_size
+        rate = float(config.dropout)
+
+        history: Dict[str, List[float]] = {"loss": [], "val_loss": []}
+        best_val = math.inf
+        best_params = _host_copy(model)
+        patience = 0
+        for epoch in range(1, options.n_epochs + 1):
+            epoch_t0 = time.time()
+            losses = []
+            for _ in range(options.n_batches):
+                codes, labels = train_sampler.batch(generator)
+                masks = (rnn.input_dropout_masks(generator, rows, rate,
+                                                 config.gates)
+                         if rate > 0.0 else None)
+                losses.append(train_step(model, optimizer, codes, labels,
+                                         masks))
+            train_loss = torch.stack(losses).mean().item()
+            if stop_on_nan and not math.isfinite(train_loss):
+                _LOG.warning("non-finite training loss at epoch %d; "
+                             "stopping and restoring best weights", epoch)
+                break
+
+            with torch.no_grad():
+                val_codes, val_labels = val_sampler.batch(generator)
+                val_loss = categorical_crossentropy(
+                    forward_logits_from_codes(model.params(), val_codes,
+                                              config), val_labels).item()
+
+            history["loss"].append(train_loss)
+            history["val_loss"].append(val_loss)
+            metrics = {"loss": train_loss, "val_loss": val_loss,
+                       "epoch_seconds": time.time() - epoch_t0}
+            self.writer.write(epoch, metrics)
+            for callback in callbacks or []:
+                callback(epoch, metrics)
+            _LOG.info("epoch %d: loss=%.5f val_loss=%.5f", epoch,
+                      train_loss, val_loss)
+
+            if val_loss < best_val:
+                best_val = val_loss
+                best_params = _host_copy(model)
+                self.checkpoints.save(epoch, params_to_jax(best_params))
+                patience = 0
+            else:
+                patience += 1
+                if patience >= options.early_stopping_th:
+                    _LOG.info("early stopping at epoch %d", epoch)
+                    break
+
+        # EarlyStopping(restore_best_weights=True) semantics.
+        model.load_state_dict(best_params)
+        return best_params, history
+
+
+def training(data: Tuple[Data, Data], options: Options,
+             model: Optional[DeepGRPModel] = None,
+             logdir: os.PathLike = ".",
+             extra_callbacks: Optional[List[MetricCallback]] = None,
+             params: Optional[Params] = None, seed: int = 0,
+             device: str = "cuda"
+             ) -> Tuple[Params, Dict[str, List[float]]]:
+    """Functional API mirroring the reference ``training()``
+    (training.py:15-73).  Returns ``(best_params, history)``.
+
+    ``model`` defaults to a new model of ``options`` on ``device``.
+    """
+    if model is None:
+        model = DeepGRPModel(ModelConfig.from_options(options), device)
+    trainer = Trainer(model, options, logdir)
+    try:
+        return trainer.fit(data[0], data[1], params=params, seed=seed,
+                           callbacks=extra_callbacks)
+    finally:
+        trainer.writer.close()

@@ -10,6 +10,13 @@ atol 1e-5 (the JAX package's kernel tolerance, tests/test_pallas_rnn.py):
 the kernel and the plain version sum the recurrent dot in other orders.
 The shapes include the engine's default tile at the flagship shape
 (1024 windows, T=342, u=60), a ragged batch and tiny widths.
+
+The training kernels are held against their plain versions at the
+flagship training shape (256 windows, T=342, u=60), a ragged batch and
+tiny widths, with and without dropout masks: forward outputs at atol 1e-5;
+gradients at a max abs difference of 1e-4 times the largest magnitude of
+that gradient (sums over B x T terms taken in other orders); two backward
+runs give bitwise-equal gradients (no float atomics).
 """
 
 import os
@@ -18,11 +25,15 @@ import numpy as np
 import pytest
 import torch
 
+from deepgrp_tpu_torch.config import Options
 from deepgrp_tpu_torch.models import cuda_rnn, rnn
 from deepgrp_tpu_torch.models.keras_io import load_model
-from deepgrp_tpu_torch.models.model import (DeepGRPModel,
+from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                            init_params,
                                             require_full_f32_matmul)
 from deepgrp_tpu_torch.predict.engine import PredictionEngine
+from deepgrp_tpu_torch.train.optimizers import get_optimizer
+from deepgrp_tpu_torch.train.training import train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +64,71 @@ def random_case(seed, gates, batch, steps, units, device):
     return ({k: torch.tensor(v, dtype=torch.float32, device=device)
              for k, v in params.items()},
             torch.from_numpy(codes).to(device))
+
+
+TRAIN_SHAPES = [(256, 342, 60), (37, 150, 32), (3, 7, 5), (9, 1, 17)]
+
+
+def random_masks(seed, gates, batch, device, rate=0.0928):
+    keep = 1.0 - rate
+    rng = np.random.default_rng(seed)
+    masks = (rng.random((gates, 2 * batch, 5)) < keep) / keep
+    return torch.tensor(masks, dtype=torch.float32, device=device)
+
+
+def assert_grads_close(got, want):
+    for name, g, w in zip(("kernel", "recurrent", "bias"), got, want):
+        assert g.shape == w.shape, name
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("batch,steps,units", TRAIN_SHAPES)
+def test_train_kernels_match_plain(device, cell, masked, batch, steps,
+                                   units):
+    gates = 4 if cell == "lstm" else 3
+    seed = batch * steps + units
+    params, codes = random_case(seed, gates, batch, steps, units, device)
+    masks = random_masks(seed, gates, batch, device) if masked else None
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    got = cuda_rnn.train_fwd(cell, params, codes, masks)
+    torch.cuda.synchronize()
+    want = plain_fwd(params, codes, masks)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+    rng = np.random.default_rng(seed + 1)
+    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                         dtype=torch.float32, device=device)
+    d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                         dtype=torch.float32, device=device)
+    seqs = tuple(want[2:])
+    grads = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    again = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    torch.cuda.synchronize()
+    assert_grads_close(grads, plain_bwd(params, codes, masks, *seqs, d_avg,
+                                        d_hid))
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
+    now = cuda_rnn.LAUNCHES.snapshot()
+    assert now.get(f"{cell}_train_fwd", 0) == launches.get(
+        f"{cell}_train_fwd", 0) + 1
+    assert now.get(f"{cell}_train_bwd", 0) == launches.get(
+        f"{cell}_train_bwd", 0) + 2
+
+
+def test_train_grid_fills_the_card(device):
+    block_rows, n_cta = cuda_rnn.train_grid(256, 60)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert n_cta <= sms and block_rows * n_cta >= 256
+    assert cuda_rnn.train_grid(1, 60) == (1, 1)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
@@ -96,3 +172,35 @@ def test_engine_on_card_matches_cpu(device):
     (got_c, got_p), (want_c, want_p) = results
     np.testing.assert_array_equal(got_c, want_c)
     np.testing.assert_allclose(got_p, want_p, atol=ATOL)
+
+
+@pytest.mark.parametrize("rnn_type,attention", [("GRU", True),
+                                                ("LSTM", False)])
+def test_train_step_on_card_matches_cpu(device, rnn_type, attention):
+    """One optimization step on the card (kernels) against the same step
+    on the CPU (plain versions): loss at atol 1e-5, gradients as above,
+    updated parameters at atol 1e-5."""
+    options = Options(vecsize=60, units=16, batch_size=32, rnn=rnn_type,
+                      attention=attention, dropout=0.0928)
+    config = ModelConfig.from_options(options)
+    params = init_params(config, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    codes = torch.from_numpy(rng.integers(0, 6, size=(32, 60)).astype(
+        np.int8))
+    labels = torch.eye(5)[torch.from_numpy(rng.integers(0, 5, (32, 60)))]
+    masks = random_masks(8, config.gates, 32, "cpu")
+    results = []
+    for dev in (device, torch.device("cpu")):
+        model = DeepGRPModel.from_params(config, params, dev)
+        opt = get_optimizer(options, model.parameters())
+        loss = train_step(model, opt, codes.to(dev), labels.to(dev),
+                          masks.to(dev))
+        results.append((loss.item(),
+                        {k: (v.detach().cpu(), v.grad.cpu())
+                         for k, v in model.params().items()}))
+    (loss_card, card), (loss_cpu, cpu) = results
+    assert abs(loss_card - loss_cpu) <= 1e-5
+    for key, (value, grad) in card.items():
+        err = (grad - cpu[key][1]).abs().max().item()
+        assert err <= 1e-4 * cpu[key][1].abs().max().item(), (key, err)
+        torch.testing.assert_close(value, cpu[key][0], atol=1e-5, rtol=0)

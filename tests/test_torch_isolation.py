@@ -19,7 +19,9 @@ def port_modules():
 
 def test_importing_every_module_loads_no_jax():
     modules = port_modules()
-    assert "deepgrp_tpu_torch.models.cuda_rnn" in modules
+    for name in ("models.cuda_rnn", "train.sampler", "train.optimizers",
+                 "train.checkpoint", "train.training", "data.preprocess"):
+        assert f"deepgrp_tpu_torch.{name}" in modules, name
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"

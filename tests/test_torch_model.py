@@ -143,3 +143,25 @@ def test_load_rejects_mismatched_params(tmp_path):
     keras_io.save_model_npz(path, config, params)
     with pytest.raises(ValueError, match="rnn.recurrent"):
         keras_io.load_model(path)
+
+
+@pytest.mark.parametrize("rnn,attention", [("GRU", True), ("LSTM", False)])
+def test_loads_jax_package_model_files(tmp_path, rnn, attention):
+    """A model file written by the JAX package (``/``-keyed arrays) loads
+    in the port and gives the same probabilities (exactly) as the port's
+    own ``.npz`` of the same weights."""
+    config = ModelConfig(vecsize=16, units=5, rnn=rnn, attention=attention)
+    jax_params = jax_model.init_params(jax.random.PRNGKey(4),
+                                       jax_config(config))
+    jax_path = str(tmp_path / "jax.npz")
+    jax_keras_io.save_model_npz(jax_path, jax_config(config), jax_params)
+    port_path = str(tmp_path / "port.npz")
+    keras_io.save_model_npz(port_path, config, params_from_jax(jax_params))
+    got_config, got = keras_io.load_model(jax_path)
+    want_config, want = keras_io.load_model(port_path)
+    assert got_config == want_config == config
+    assert set(got) == set(want)
+    codes = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 6, size=(3, 16)).astype(np.int8))
+    assert torch.equal(forward_probs_from_codes(got, codes, config),
+                       forward_probs_from_codes(want, codes, config))
