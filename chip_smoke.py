@@ -47,6 +47,26 @@ Phases (any failure exits non-zero; nothing is caught):
    steps/s, one epoch's stream time by stage and device time by kernel
    name with the idle share, one step through the kernels against the
    same step through the plain versions, and LSTM at 2 epochs of 5 steps.
+8. One-hot kernels vs plain versions: the GRU sequence kernel
+   (``gru_seq``, ``csrc/rnn_seq.cu``) against ``rnn.gru_apply`` on uniform
+   random input at (2048, 342, 60) in float32 and bfloat16, (2048, 342,
+   128) and (512, 342, 256) in float32 (U in shared memory, then through
+   L2) and a ragged (7, 23, 60); the bf16 variants of the fused kernels
+   (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
+   (1024, 342, 60) and (1000, 150, 32).  atol 1e-5 in float32, 2e-2 in
+   bfloat16.  Times each kernel, its plain version and cuDNN
+   (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off).
+9. The scan route and the fast mode: ``predict --rnn-kernel scan`` on the
+   three fixtures (rows equal to the reference BEDs; ``gru_seq`` launched
+   for the GRU models) and once on the 4.9 Mbp chromosome (windows/s, the
+   rows against ``mbp.bed``, and the largest max-probability difference to
+   phase 4's fused run, at most 1e-5); ``--precision bfloat16`` on the
+   fused and the scan route against the float32 runs of phase 3: raw class
+   agreement >= 0.95, post-MSS agreement >= 0.98 and R_K MCC >= 0.95 on
+   ``gru_att`` and ``gru`` (the JAX package's contract), recorded for
+   ``lstm``; then ``--precision bfloat16`` (fused) on the 4.9 Mbp
+   chromosome: windows/s, and agreement and MCC against phase 4 (recorded,
+   not gated).
 
 Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
@@ -72,8 +92,10 @@ REF_ARGS = ["-b", "64", "-s", "50", "-x", "50", "-l", "50"]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bfloat16 tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 TOL = 1e-5
+BF16_TOL = 2e-2
 
 KERNELS = {
     # name: (gates, TPU kernel it replaces)
@@ -90,6 +112,17 @@ TRAIN_KERNELS = {
     "lstm_train_bwd": "deepgrp_tpu/models/pallas_rnn_train.py:542",
 }
 TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
+
+# The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
+# the doubled batch of the engine's -b 1024.
+SEQ_REPLACES = "deepgrp_tpu/models/pallas_rnn.py:43"
+SEQ_SHAPES = [("flagship", "float32", (2048, 342, 60)),
+              ("flagship_bf16", "bfloat16", (2048, 342, 60)),
+              ("u128", "float32", (2048, 342, 128)),
+              ("u256", "float32", (512, 342, 256)),
+              ("ragged", "float32", (7, 23, 60))]
+# The bf16 quality contract (tests/test_reference_parity.py:110-180).
+BF16_RAW_AGREE, BF16_POST_AGREE, BF16_MCC = 0.95, 0.98, 0.95
 GRAD_RTOL = 1e-4  # max abs difference / largest magnitude of the gradient
 # The flagship model (bench.py:37-42): vecsize 342, 60 units, attention,
 # dropout 0.0928; the reference's RMSprop defaults.
@@ -164,16 +197,24 @@ def random_rnn(torch, gen, gates: int, batch: int, steps: int, units: int):
     return ({k: v.cuda() for k, v in params.items()}, codes.cuda())
 
 
-def cudnn_cell(torch, gates: int, params, codes):
+def cudnn_cell(torch, gates: int, params, codes, dtype=None):
     """cuDNN recurrence with the kernel's weights and the doubled one-hot
     batch it runs on (timed only; it has no per-gate input masks)."""
     from deepgrp_tpu_torch.models.rnn import _doubled_codes
 
-    units = params["recurrent"].shape[0]
     both = _doubled_codes(codes)
-    onehot = torch.eye(6, device=codes.device)[both][..., :5].contiguous()
+    onehot = torch.eye(6, device=codes.device,
+                       dtype=dtype)[both][..., :5].contiguous()
+    return cudnn_module(torch, gates, params, dtype), onehot
+
+
+def cudnn_module(torch, gates: int, params, dtype=None):
+    """``torch.nn.GRU``/``LSTM`` (cuDNN) holding the Keras-layout weights,
+    in ``dtype`` (float32 by default)."""
+    units = params["recurrent"].shape[0]
+    in_dim = params["kernel"].shape[0]
     if gates == 3:
-        cell = torch.nn.GRU(5, units, batch_first=True).cuda()
+        cell = torch.nn.GRU(in_dim, units, batch_first=True).cuda()
 
         def reorder(mat):  # Keras (z, r, h) -> torch (r, z, n)
             return torch.cat([mat[..., units:2 * units], mat[..., :units],
@@ -182,7 +223,7 @@ def cudnn_cell(torch, gates: int, params, codes):
         w_ih, w_hh = reorder(params["kernel"]), reorder(params["recurrent"])
         b_ih, b_hh = reorder(params["bias"][0]), reorder(params["bias"][1])
     else:
-        cell = torch.nn.LSTM(5, units, batch_first=True).cuda()
+        cell = torch.nn.LSTM(in_dim, units, batch_first=True).cuda()
         w_ih, w_hh = params["kernel"], params["recurrent"]
         b_ih, b_hh = params["bias"], torch.zeros_like(params["bias"])
     with torch.no_grad():
@@ -190,12 +231,12 @@ def cudnn_cell(torch, gates: int, params, codes):
         cell.weight_hh_l0.copy_(w_hh.T)
         cell.bias_ih_l0.copy_(b_ih)
         cell.bias_hh_l0.copy_(b_hh)
-    return cell, onehot
+    return cell.to(dtype) if dtype is not None else cell
 
 
-def library_rnn(torch, gates: int, params, codes):
+def library_rnn(torch, gates: int, params, codes, dtype=None):
     """cuDNN recurrence computing the same function (timed only)."""
-    cell, onehot = cudnn_cell(torch, gates, params, codes)
+    cell, onehot = cudnn_cell(torch, gates, params, codes, dtype)
     batch = codes.shape[0]
 
     @torch.no_grad()
@@ -816,6 +857,249 @@ def training_phase(torch, np, tmp: str):
     return launches, lstm_launches
 
 
+def bound(flops: float, n_bytes: float, peak_flops: float) -> dict:
+    """The least time of the work on this card, and what bounds it."""
+    t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def seq_kernel_phase(torch):
+    """Phase 8a: the GRU sequence kernel against its plain version."""
+    from deepgrp_tpu_torch import _build
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    lib = _build.load_kernels("rnn_seq")
+    gen = torch.Generator().manual_seed(2026)
+    results = {}
+    for label, dtype_name, (batch, steps, units) in SEQ_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        params, _ = random_rnn(torch, gen, 3, 1, 1, units)
+        x = torch.rand(batch, steps, 5, generator=gen).cuda().to(dtype)
+        seq, last = cuda_rnn.gru_apply(params, x)
+        torch.cuda.synchronize()
+        p_seq, p_last = rnn.gru_apply(params, x)
+        torch.cuda.synchronize()
+        err = max((seq.float() - p_seq.float()).abs().max().item(),
+                  (last.float() - p_last.float()).abs().max().item())
+        cell = cudnn_module(torch, 3, params, dtype)
+        reps = 5 if units > 128 else 20
+        with torch.no_grad():
+            lib_err = (cell(x)[0].float() - p_seq.float()).abs().max().item()
+            library_ms = cuda_ms(torch, lambda: cell(x), reps)
+        ms = cuda_ms(torch, lambda: cuda_rnn.gru_apply(params, x), reps)
+        plain_ms = cuda_ms(torch, lambda: rnn.gru_apply(params, x), 3)
+        # Multiply-adds of the input dot and the recurrent products; each
+        # input read once (weights in x's dtype, biases float32), each
+        # output written once.
+        flops = 2.0 * batch * steps * (5 + units) * 3 * units
+        size = x.element_size()
+        n_bytes = (size * (x.numel() + params["kernel"].numel()
+                           + params["recurrent"].numel())
+                   + 4 * params["bias"].numel()
+                   + size * (seq.numel() + last.numel()))
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, **bound(flops, n_bytes, peak)}
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        place = {1: "shared memory", 0: "L2"}[
+            lib.dg_gru_seq_u_in_smem(units, 5, int(dtype == torch.bfloat16))]
+        print(f"gru_seq {label} B={batch} T={steps} u={units} {dtype_name} "
+              f"(U in {place}): max_abs_err={err:.3g} (tolerance {tol:g}; "
+              f"cuDNN vs plain {lib_err:.3g}) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"gru_seq {label}: kernel differs from its "
+                                 f"plain version by {err}")
+        results[("gru_seq", label)] = row
+    return results
+
+
+def bf16_kernel_phase(torch):
+    """Phase 8b: the bf16 variants of the fused kernels against their
+    plain versions."""
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    gen = torch.Generator().manual_seed(2027)
+    results = {}
+    for name, (gates, _) in KERNELS.items():
+        kernel = getattr(cuda_rnn, name)
+        plain = getattr(rnn, f"{name}_plain")
+        for label, (batch, steps, units) in SHAPES.items():
+            params, codes = random_rnn(torch, gen, gates, batch, steps,
+                                       units)
+            avg, hidden = kernel(params, codes, torch.bfloat16)
+            torch.cuda.synchronize()
+            p_avg, p_hidden = plain(params, codes, torch.bfloat16)
+            torch.cuda.synchronize()
+            err = max((avg.float() - p_avg.float()).abs().max().item(),
+                      (hidden.float() - p_hidden.float()).abs().max().item())
+            lib = library_rnn(torch, gates, params, codes, torch.bfloat16)
+            ms = cuda_ms(torch, lambda: kernel(params, codes,
+                                               torch.bfloat16), 20)
+            plain_ms = cuda_ms(torch, lambda: plain(params, codes,
+                                                    torch.bfloat16), 3)
+            library_ms = cuda_ms(torch, lib, 20)
+            flops = 2.0 * (2 * batch) * steps * units * gates * units
+            n_bytes = (codes.numel() + 4 * sum(p.numel()
+                                               for p in params.values())
+                       + 2 * (avg.numel() + hidden.numel()))
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   **bound(flops, n_bytes, PEAK_BF16_FLOPS)}
+            print(f"{name}_bf16 {label} B={batch} T={steps} u={units}: "
+                  f"max_abs_err={err:.3g} (tolerance {BF16_TOL:g}) "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                  f"library_ms={library_ms:.4f} (cuDNN bf16) "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
+                  f"bf16 peak)", flush=True)
+            if not err <= BF16_TOL:
+                raise AssertionError(f"{name}_bf16 {label}: kernel differs "
+                                     f"from its plain version by {err}")
+            results[(f"{name}_bf16", label)] = row
+    return results
+
+
+class Recorder:
+    """Keeps, for the CLI runs made inside it, each sequence's engine
+    scores ``(classes, maxp)`` and MSS labels (wraps the engine's
+    ``predict_scored`` and ``postprocess.predict_sequence``)."""
+
+    def __enter__(self):
+        from deepgrp_tpu_torch.predict import engine, postprocess
+
+        self.scored, self.labels = [], []
+        self._saved = (engine.PredictionEngine.predict_scored,
+                       postprocess.predict_sequence)
+        scored_fn, sequence_fn = self._saved
+
+        def predict_scored(eng, codes):
+            out = scored_fn(eng, codes)
+            self.scored.append(out)
+            return out
+
+        def predict_sequence(*args, **kwargs):
+            out = sequence_fn(*args, **kwargs)
+            self.labels.append(out)
+            return out
+
+        engine.PredictionEngine.predict_scored = predict_scored
+        postprocess.predict_sequence = predict_sequence
+        return self
+
+    def __exit__(self, *exc):
+        from deepgrp_tpu_torch.predict import engine, postprocess
+
+        engine.PredictionEngine.predict_scored = self._saved[0]
+        postprocess.predict_sequence = self._saved[1]
+        return False
+
+
+def compare_runs(np, ref: "Recorder", got: "Recorder"):
+    """Raw class agreement, post-MSS agreement and R_K MCC of ``got``
+    against ``ref`` (one sequence each)."""
+    from deepgrp_tpu_torch.predict import metrics
+
+    raw_ref, raw_got = ref.scored[0][0], got.scored[0][0]
+    lab_ref = np.asarray(ref.labels[0], np.int64)
+    lab_got = np.asarray(got.labels[0], np.int64)
+    mcc = metrics.calculate_multiclass_matthews_cc(
+        metrics.confusion_matrix(lab_ref, lab_got))
+    return (float((raw_ref == raw_got).mean()),
+            float((lab_ref == lab_got).mean()), float(mcc))
+
+
+def scan_and_bf16_phase(torch, np, tmp: str, fixture_runs, mbp_run,
+                        man: dict, mbp_args):
+    """Phase 9: the scan route and the bf16 fast mode through the CLI;
+    returns the launch counts of the main-path runs of the new kernels."""
+    launches = {}
+    for name in ("gru_att", "gru", "lstm"):
+        reset_counts()
+        got = predict_rows(
+            REF_ARGS + ["--rnn-kernel", "scan", "predict",
+                        os.path.join(TORCH_FIXDIR, f"{name}.npz"),
+                        os.path.join(FIXDIR, f"{name}.fa")],
+            os.path.join(tmp, f"{name}_scan.bed"))
+        if name == "lstm":  # no kernel: the LSTM over x is plain torch
+            check_counts({})
+        else:
+            check_path("gru_seq")
+        want = expected_rows(name)
+        print(f"{name} --rnn-kernel scan: {len(got)} rows, expected "
+              f"{len(want)}, identical={got == want}", flush=True)
+        if got != want:
+            raise AssertionError(f"{name} scan route: BED rows differ")
+
+    reset_counts()
+    start = time.perf_counter()
+    with Recorder() as scan_run:
+        got = predict_rows(["--rnn-kernel", "scan"] + mbp_args,
+                           os.path.join(tmp, "mbp_scan.bed"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["gru_seq"] = check_path("gru_seq")
+    want = expected_rows("mbp")
+    diff_p = float(np.abs(scan_run.scored[0][1]
+                          - mbp_run.scored[0][1]).max())
+    diff_c = int((scan_run.scored[0][0] != mbp_run.scored[0][0]).sum())
+    print(f"mbp --rnn-kernel scan: {seconds:.3f} s = "
+          f"{man['n_windows'] / seconds:.1f} windows/s; {len(got)} rows, "
+          f"expected {len(want)}, identical={got == want}; largest max-"
+          f"probability difference to the fused route {diff_p:.3g}, "
+          f"{diff_c} positions of another class", flush=True)
+    for row in sorted(set(got) ^ set(want))[:20]:
+        print(f"  differing row: {row}", flush=True)
+    if not diff_p <= TOL:
+        raise AssertionError(f"mbp scan route: max probability differs "
+                             f"from the fused route by {diff_p}")
+
+    for name in ("gru_att", "gru", "lstm"):
+        routes = ("fused",) if name == "lstm" else ("fused", "scan")
+        for route in routes:
+            reset_counts()
+            with Recorder() as run:
+                predict_rows(
+                    REF_ARGS + ["--precision", "bfloat16", "--rnn-kernel",
+                                route, "predict",
+                                os.path.join(TORCH_FIXDIR, f"{name}.npz"),
+                                os.path.join(FIXDIR, f"{name}.fa")],
+                    os.path.join(tmp, f"{name}_{route}_bf16.bed"))
+            cell = "lstm" if name == "lstm" else "gru"
+            kernel = f"{cell}_avg_bf16" if route == "fused" else "gru_seq"
+            count = check_path(kernel)
+            if name == "lstm":
+                launches["lstm_avg_bf16"] = count
+            raw, post, mcc = compare_runs(np, fixture_runs[name], run)
+            gated = name != "lstm"
+            print(f"{name} --precision bfloat16 --rnn-kernel {route} vs "
+                  f"float32: raw agreement {raw:.4f}, post-MSS {post:.4f}, "
+                  f"R_K MCC {mcc:.4f} ({'gated' if gated else 'recorded'})",
+                  flush=True)
+            if gated and not (raw >= BF16_RAW_AGREE
+                              and post >= BF16_POST_AGREE
+                              and mcc >= BF16_MCC):
+                raise AssertionError(f"{name} bf16 {route}: below the "
+                                     "quality contract")
+
+    reset_counts()
+    start = time.perf_counter()
+    with Recorder() as bf16_run:
+        got = predict_rows(["--precision", "bfloat16"] + mbp_args,
+                           os.path.join(tmp, "mbp_bf16.bed"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["gru_avg_bf16"] = check_path("gru_avg_bf16")
+    raw, post, mcc = compare_runs(np, mbp_run, bf16_run)
+    print(f"mbp --precision bfloat16 (fused): {seconds:.3f} s = "
+          f"{man['n_windows'] / seconds:.1f} windows/s; {len(got)} rows "
+          f"(float32: {len(want)}); vs float32: raw agreement {raw:.4f}, "
+          f"post-MSS {post:.4f}, R_K MCC {mcc:.4f} (recorded)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -848,15 +1132,16 @@ def main() -> int:
     timings = kernel_phase(torch)
 
     phase("3. fixture BEDs")
-    launches = {}
+    launches, fixture_runs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("gru_att", "gru", "lstm"):
             reset_counts()
-            got = predict_rows(
-                REF_ARGS + ["predict", os.path.join(TORCH_FIXDIR,
-                                                    f"{name}.npz"),
-                            os.path.join(FIXDIR, f"{name}.fa")],
-                os.path.join(tmp, f"{name}.bed"))
+            with Recorder() as fixture_runs[name]:
+                got = predict_rows(
+                    REF_ARGS + ["predict", os.path.join(TORCH_FIXDIR,
+                                                        f"{name}.npz"),
+                                os.path.join(FIXDIR, f"{name}.fa")],
+                    os.path.join(tmp, f"{name}.bed"))
             kernel = "lstm_avg" if name == "lstm" else "gru_avg"
             count = check_path(kernel)
             want = expected_rows(name)
@@ -873,13 +1158,14 @@ def main() -> int:
         seq = synth_mbp.make_mbp_sequence(man["seed"], man["n_windows"])
         fasta = os.path.join(tmp, "mbp.fa")
         synth_mbp.write_fasta(fasta, man["header"], seq)
+        mbp_args = ["-b", "1024", "-s", str(man["step_size"]),
+                    "-x", str(man["xdrop_len"]), "-l",
+                    str(man["min_mss_len"]), "predict",
+                    os.path.join(TORCH_FIXDIR, "gru_att.npz"), fasta]
         reset_counts()
         start = time.perf_counter()
-        got = predict_rows(
-            ["-b", "1024", "-s", str(man["step_size"]),
-             "-x", str(man["xdrop_len"]), "-l", str(man["min_mss_len"]),
-             "predict", os.path.join(TORCH_FIXDIR, "gru_att.npz"), fasta],
-            os.path.join(tmp, "mbp.bed"))
+        with Recorder() as mbp_run:
+            got = predict_rows(mbp_args, os.path.join(tmp, "mbp.bed"))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         launches["gru_avg"] = check_path("gru_avg")
@@ -899,24 +1185,37 @@ def main() -> int:
         phase("5. where the time goes (4.9 Mbp, gru_att, batch 1024)")
         breakdown_phase(torch, fasta, man)
 
-    phase("6. training kernels vs plain versions")
-    timings.update(train_kernel_phase(torch))
+        phase("6. training kernels vs plain versions")
+        timings.update(train_kernel_phase(torch))
 
-    phase("7. training on the card: gru_att (3 x 20 steps), lstm (2 x 5)")
-    import numpy as np
+        phase("7. training on the card: gru_att (3 x 20 steps), lstm "
+              "(2 x 5)")
+        import numpy as np
 
-    with tempfile.TemporaryDirectory() as tmp:
-        gru_launches, lstm_launches = training_phase(torch, np, tmp)
-    launches.update({k: gru_launches[k] for k in ("gru_train_fwd",
-                                                  "gru_train_bwd")})
-    launches.update({k: lstm_launches[k] for k in ("lstm_train_fwd",
-                                                   "lstm_train_bwd")})
+        with tempfile.TemporaryDirectory() as train_tmp:
+            gru_launches, lstm_launches = training_phase(torch, np,
+                                                         train_tmp)
+        launches.update({k: gru_launches[k] for k in ("gru_train_fwd",
+                                                      "gru_train_bwd")})
+        launches.update({k: lstm_launches[k] for k in ("lstm_train_fwd",
+                                                       "lstm_train_bwd")})
+
+        phase("8. one-hot kernels vs plain versions")
+        timings.update(seq_kernel_phase(torch))
+        timings.update(bf16_kernel_phase(torch))
+
+        phase("9. the scan route and the bfloat16 fast mode")
+        launches.update(scan_and_bf16_phase(torch, np, tmp, fixture_runs,
+                                            mbp_run, man, mbp_args))
 
     kernels = []
     sources = {**{name: ("rnn_avg.cu", replaces)
                   for name, (_, replaces) in KERNELS.items()},
                **{name: ("rnn_train.cu", replaces)
-                  for name, replaces in TRAIN_KERNELS.items()}}
+                  for name, replaces in TRAIN_KERNELS.items()},
+               "gru_seq": ("rnn_seq.cu", SEQ_REPLACES),
+               **{f"{name}_bf16": ("rnn_avg.cu", replaces)
+                  for name, (_, replaces) in KERNELS.items()}}
     for name, (source, replaces) in sources.items():
         row = timings[(name, "flagship")]
         kernels.append({

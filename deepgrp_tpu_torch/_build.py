@@ -4,8 +4,9 @@ Shared libraries are compiled from sources in the package, each at its
 first use, into ``deepgrp_tpu_torch/_build/`` (ignored by git):
 
 * each ``csrc/*.cu`` with ``nvcc`` for Hopper (``sm_90a``) into a library
-  of its own (``rnn_avg``: the inference kernels, ``rnn_train``: the
-  training kernels), a plain C interface loaded with :mod:`ctypes` (no
+  of its own (``rnn_avg``: the fused inference kernels, ``rnn_train``: the
+  training kernels, ``rnn_seq``: the GRU over a float input sequence), a
+  plain C interface loaded with :mod:`ctypes` (no
   PyTorch headers, so a build takes seconds; the libraries build
   independently, so they can build in parallel);
 * ``native/src/*.cc`` with ``g++`` (host MSS and encoding, see
@@ -33,7 +34,7 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
 #: CUDA kernel libraries by name, one source each.
 CUDA_SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
-                for name in ("rnn_avg", "rnn_train")}
+                for name in ("rnn_avg", "rnn_train", "rnn_seq")}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -132,7 +133,8 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
-    for fn in (lib.dg_gru_avg, lib.dg_lstm_avg):
+    for fn in (lib.dg_gru_avg, lib.dg_lstm_avg, lib.dg_gru_avg_bf16,
+               lib.dg_lstm_avg_bf16):
         # codes, batch, steps, kernel, bias, recurrent, units, avg, hidden,
         # stream
         fn.argtypes = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32, _PTR, _PTR,
@@ -157,7 +159,18 @@ def _declare_rnn_train(lib: ctypes.CDLL) -> None:
         fn.restype = _I32
 
 
+def _declare_rnn_seq(lib: ctypes.CDLL) -> None:
+    # x, batch, steps, channels, kernel, bias, recurrent, units, bf16, seq,
+    # last, stream
+    lib.dg_gru_seq.argtypes = [_PTR, _I32, _I32, _I32, _PTR, _PTR, _PTR,
+                               _I32, _I32, _PTR, _PTR, _PTR]
+    lib.dg_gru_seq.restype = _I32
+    lib.dg_gru_seq_u_in_smem.argtypes = [_I32, _I32, _I32]
+    lib.dg_gru_seq_u_in_smem.restype = _I32
+
+
 _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {
     "rnn_avg": _declare_rnn_avg,
     "rnn_train": _declare_rnn_train,
+    "rnn_seq": _declare_rnn_seq,
 }

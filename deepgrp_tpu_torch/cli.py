@@ -18,8 +18,12 @@ overwrite the TOML file's values, so ``vecsize``, ``units`` and the rest
 fall back to their defaults, unless ``--honor-toml`` is given.
 
 ``--device`` picks the device (default ``cuda``; with no GPU the command
-fails rather than running on the CPU).  ``--precision`` accepts only
-``float32`` for now.
+fails rather than running on the CPU).  ``--precision bfloat16`` is the
+fast mode of ``predict`` (float32 is the parity mode).  ``--rnn-kernel``
+picks the engine's route: ``fused`` (the fused fwd+revcomp recurrence
+kernel on the codes), ``scan`` (one-hot windows through the model's
+one-hot route) or ``auto`` (fused, on every device).  ``train`` has only
+the fused route.
 """
 
 from __future__ import annotations
@@ -59,10 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Increase verbosity")
     parser.add_argument("--precision", choices=["float32", "bfloat16"],
                         default="float32",
-                        help="Inference compute dtype (only float32 is "
-                        "ported)")
+                        help="Inference compute dtype (float32 matches the "
+                        "reference bit-for-bit; bfloat16 is faster)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="Device to run the model on")
+    parser.add_argument("--rnn-kernel", choices=["auto", "scan", "fused"],
+                        default="auto",
+                        help="Recurrence route: 'fused' (fwd+revcomp "
+                        "recurrence kernel on the codes), 'scan' (one-hot "
+                        "windows through the model's one-hot route), "
+                        "'auto' (fused)")
 
     subparsers = parser.add_subparsers(help="sub-command help",
                                        dest="command")
@@ -101,6 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cmd_predict(args: argparse.Namespace) -> None:
+    import torch
+
     from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import load_model
@@ -110,10 +122,6 @@ def cmd_predict(args: argparse.Namespace) -> None:
     from deepgrp_tpu_torch.predict.engine import PredictionEngine
     from deepgrp_tpu_torch.predict.postprocess import predict_sequence
 
-    if args.precision != "float32":
-        raise NotImplementedError(
-            f"--precision {args.precision} is not yet ported; float32 is "
-            "the only mode of deepgrp_tpu_torch so far")
     device = resolve_device(args.device)
     _LOG.debug("Loading model %s", args.model)
     config, params = load_model(args.model)
@@ -122,8 +130,11 @@ def cmd_predict(args: argparse.Namespace) -> None:
     options = Options(vecsize=config.vecsize, batch_size=args.batch_size,
                       min_mss_len=args.min_mss_length,
                       xdrop_len=args.xdrop_length)
+    dtype = (torch.bfloat16 if args.precision == "bfloat16"
+             else torch.float32)
     engine = PredictionEngine(model, batch_size=options.batch_size,
-                              step_size=args.step_size)
+                              step_size=args.step_size, compute_dtype=dtype,
+                              rnn_kernel=args.rnn_kernel)
     _LOG.info("Model loaded on %s", device)
 
     outstream = sys.stdout if args.output == "-" else open(args.output, "w")
@@ -162,6 +173,11 @@ def cmd_train(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "writing Keras .h5 model files is not yet ported (ROADMAP.md "
             "queue 1, item 13); write a .npz model instead")
+    if args.rnn_kernel == "scan":
+        raise NotImplementedError(
+            "train --rnn-kernel scan (the training scan route, dropout "
+            "through forward_logits) is not yet ported (ROADMAP.md queue 1, "
+            "item 14); use --rnn-kernel fused or auto")
     device = resolve_device(args.device)
     with open(args.parameter) as file:
         parameter = Options.from_toml(file)

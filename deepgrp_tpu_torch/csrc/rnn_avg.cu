@@ -2,10 +2,12 @@
 // averaging (inference), for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of the JAX package:
-//   * dg_gru_avg  <- deepgrp_tpu/models/pallas_rnn.py:178 _gru_avg_kernel
-//                    (pallas_gru_avg, :466)
-//   * dg_lstm_avg <- deepgrp_tpu/models/pallas_rnn.py:309 _lstm_avg_kernel
-//                    (pallas_lstm_avg, :433)
+//   * dg_gru_avg, dg_gru_avg_bf16
+//       <- deepgrp_tpu/models/pallas_rnn.py:178 _gru_avg_kernel
+//          (pallas_gru_avg, :466; out_dtype float32 / bfloat16)
+//   * dg_lstm_avg, dg_lstm_avg_bf16
+//       <- deepgrp_tpu/models/pallas_rnn.py:309 _lstm_avg_kernel
+//          (pallas_lstm_avg, :433; out_dtype float32 / bfloat16)
 // Contract (identical to those kernels and to the plain PyTorch versions in
 // deepgrp_tpu_torch/models/rnn.py): codes int8 [B, T] (A=0 C=1 G=2 T=3 N=4,
 // pad=5); every window runs twice through one shared cell, forward and as its
@@ -14,7 +16,12 @@
 // bias only); Keras gate math (GRU reset_after=True, gates z,r,h with an
 // input and a recurrent bias row; LSTM gates i,f,c,o with one bias row);
 // outputs avg [B, T, u] = (h_fwd + h_rev) / 2 at every step and
-// hidden [B, u] = avg at step T-1, float32.
+// hidden [B, u] = avg at step T-1, float32.  The _bf16 variants are the
+// fast mode (the TPU's Precision.DEFAULT, pallas_rnn.py:262-265): h and U
+// are rounded to bfloat16 for the recurrent dot, which accumulates in
+// float32; the row select, the carry, the gate math and the average stay
+// float32, and avg and hidden are stored as bfloat16.  The float32 variants
+// compile to the same arithmetic as before the bf16 variants existed.
 //
 // Bound on this card.  Per window the recurrent products cost
 // 2 rows x T x u x (g*u) multiply-adds (g = 3 GRU, 4 LSTM); at the flagship
@@ -48,8 +55,13 @@
 //     masked in the kernel (rows past B read pad codes and store nothing).
 //   * What bounds this version is shared-memory bandwidth (3-4 loads per
 //     2-row FMA pair), not the FMA units; tensor cores, more rows per thread
-//     and several steps per barrier are left to later work.
+//     and several steps per barrier are left to later work.  The bf16
+//     variants keep U and h in shared memory as float32 values already
+//     rounded to bfloat16, so they run the same float32 FMAs: their bound
+//     is the same work at the bf16 tensor-core rate, which this design
+//     cannot reach.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,14 +86,37 @@ __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
 }
 
+// Output element type and the precision of the recurrent dot's operands.
+template <bool kBf16>
+struct Io;
+template <>
+struct Io<false> {
+  using Out = float;
+  static __device__ __forceinline__ float Operand(float x) { return x; }
+  static __device__ __forceinline__ float Store(float x) { return x; }
+};
+template <>
+struct Io<true> {
+  using Out = __nv_bfloat16;
+  // Round to nearest even, as torch's .to(torch.bfloat16).
+  static __device__ __forceinline__ float Operand(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 Store(float x) {
+    return __float2bfloat16(x);
+  }
+};
+
 // kGates == 3: GRU (bias [2, 3u]: input row, recurrent row).
 // kGates == 4: LSTM (bias [4u]).
-template <int kGates>
+template <int kGates, bool kBf16>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
              const float *__restrict__ kernel, const float *__restrict__ bias,
              const float *__restrict__ recurrent, int units, int bb,
-             float *__restrict__ avg, float *__restrict__ hidden) {
+             typename Io<kBf16>::Out *__restrict__ avg,
+             typename Io<kBf16>::Out *__restrict__ hidden) {
+  using IoT = Io<kBf16>;
   constexpr int kBiasRows = (kGates == 3) ? 2 : 1;
   extern __shared__ float smem[];
   const int width = kGates * units;
@@ -94,7 +129,9 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   const int tid = threadIdx.x;
   const int n_threads = blockDim.x;
   const int row0 = blockIdx.x * bb;
-  for (int j = tid; j < units * width; j += n_threads) s_u[j] = recurrent[j];
+  for (int j = tid; j < units * width; j += n_threads) {
+    s_u[j] = IoT::Operand(recurrent[j]);
+  }
   for (int j = tid; j < kCodes * width; j += n_threads) s_w[j] = kernel[j];
   for (int j = tid; j < kBiasRows * width; j += n_threads) s_b[j] = bias[j];
   for (int j = tid; j < 4 * bb * units; j += n_threads) s_h[j] = 0.0f;
@@ -188,18 +225,21 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
       h_r = og * tanhf(c_r);
     }
 
-    h_nxt[b * units + i] = h_f;
-    h_nxt[(bb + b) * units + i] = h_r;
+    h_nxt[b * units + i] = IoT::Operand(h_f);
+    h_nxt[(bb + b) * units + i] = IoT::Operand(h_r);
     if (valid) {
       const float mean = (h_f + h_r) * 0.5f;
-      avg[(static_cast<size_t>(row) * steps + t) * units + i] = mean;
-      if (t == steps - 1) hidden[static_cast<size_t>(row) * units + i] = mean;
+      avg[(static_cast<size_t>(row) * steps + t) * units + i] =
+          IoT::Store(mean);
+      if (t == steps - 1) {
+        hidden[static_cast<size_t>(row) * units + i] = IoT::Store(mean);
+      }
     }
     __syncthreads();
   }
 }
 
-template <int kGates>
+template <int kGates, bool kBf16>
 int Launch(const void *codes, int batch, int steps, const void *kernel,
            const void *bias, const void *recurrent, int units, void *avg,
            void *hidden, void *stream) {
@@ -215,17 +255,18 @@ int Launch(const void *codes, int batch, int steps, const void *kernel,
       static_cast<size_t>(bb) * steps;
   // Above 48 kB a kernel only launches after this opt-in; a launch without
   // it is refused, and the refusal shows only in cudaGetLastError.
+  using Out = typename Io<kBf16>::Out;
   cudaError_t err = cudaFuncSetAttribute(
-      RnnAvgKernel<kGates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      RnnAvgKernel<kGates, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + bb - 1) / bb);
-  RnnAvgKernel<kGates><<<grid, bb * units, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  RnnAvgKernel<kGates, kBf16><<<grid, bb * units, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t *>(codes), batch, steps,
       static_cast<const float *>(kernel), static_cast<const float *>(bias),
       static_cast<const float *>(recurrent), units, bb,
-      static_cast<float *>(avg), static_cast<float *>(hidden));
+      static_cast<Out *>(avg), static_cast<Out *>(hidden));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,15 +278,32 @@ extern "C" {
 int dg_gru_avg(const void *codes, int batch, int steps, const void *kernel,
                const void *bias, const void *recurrent, int units, void *avg,
                void *hidden, void *stream) {
-  return Launch<3>(codes, batch, steps, kernel, bias, recurrent, units, avg,
-                   hidden, stream);
+  return Launch<3, false>(codes, batch, steps, kernel, bias, recurrent,
+                          units, avg, hidden, stream);
 }
 
 int dg_lstm_avg(const void *codes, int batch, int steps, const void *kernel,
                 const void *bias, const void *recurrent, int units, void *avg,
                 void *hidden, void *stream) {
-  return Launch<4>(codes, batch, steps, kernel, bias, recurrent, units, avg,
-                   hidden, stream);
+  return Launch<4, false>(codes, batch, steps, kernel, bias, recurrent,
+                          units, avg, hidden, stream);
+}
+
+// The bfloat16 fast mode: same arguments, avg and hidden bfloat16.
+int dg_gru_avg_bf16(const void *codes, int batch, int steps,
+                    const void *kernel, const void *bias,
+                    const void *recurrent, int units, void *avg, void *hidden,
+                    void *stream) {
+  return Launch<3, true>(codes, batch, steps, kernel, bias, recurrent, units,
+                         avg, hidden, stream);
+}
+
+int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
+                     const void *kernel, const void *bias,
+                     const void *recurrent, int units, void *avg,
+                     void *hidden, void *stream) {
+  return Launch<4, true>(codes, batch, steps, kernel, bias, recurrent, units,
+                         avg, hidden, stream);
 }
 
 const char *dg_error_string(int code) {

@@ -1,9 +1,12 @@
-"""Wrappers of the fused recurrence kernels (``csrc/rnn_avg.cu``,
-``csrc/rnn_train.cu``).
+"""Wrappers of the recurrence kernels (``csrc/rnn_avg.cu``,
+``csrc/rnn_train.cu``, ``csrc/rnn_seq.cu``).
 
 Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
-``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` float32 out.
+``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
+``out_dtype`` (float32, or bfloat16 for the fast mode).  :func:`gru_apply`
+is the counterpart of ``pallas_gru_apply``: the GRU over a float input
+``x [B, T, C]``, ``(seq, last)`` out in ``x``'s dtype.
 
 Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``torch.autograd.Function`` counterparts of the custom VJPs
@@ -17,7 +20,8 @@ parameters (none for the codes and masks).
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
 kernel on the current stream or raises.  ``LAUNCHES`` counts the kernel
-launches by name: ``gru_avg``, ``lstm_avg``, ``gru_train_fwd``,
+launches by name: ``gru_avg``, ``lstm_avg``, ``gru_avg_bf16``,
+``lstm_avg_bf16``, ``gru_seq`` (either dtype), ``gru_train_fwd``,
 ``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
 counts once; it also launches the small kernel that sums its partials).
 """
@@ -37,24 +41,29 @@ from deepgrp_tpu_torch.models.rnn import RnnParams
 LAUNCHES = _build.LaunchCounter()
 
 
-def gru_avg(params: RnnParams,
-            codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def gru_avg(params: RnnParams, codes: torch.Tensor,
+            out_dtype: torch.dtype = torch.float32
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused fwd+revcomp GRU with branch averaging (inference).
 
     ``params``: ``kernel [5, 3u]``, ``recurrent [u, 3u]``, ``bias [2, 3u]``
-    float32; ``codes``: int8 ``[B, T]`` (A=0..T=3, N=4, pad=5).
+    float32; ``codes``: int8 ``[B, T]`` (A=0..T=3, N=4, pad=5);
+    ``out_dtype``: float32, or bfloat16 (the fast mode, kernel
+    ``gru_avg_bf16``: see :func:`~deepgrp_tpu_torch.models.rnn.
+    gru_avg_plain`).
     """
     if codes.device.type == "cpu":
-        return rnn.gru_avg_plain(params, codes)
-    return _launch("gru_avg", 3, params, codes)
+        return rnn.gru_avg_plain(params, codes, out_dtype)
+    return _launch("gru_avg", 3, params, codes, out_dtype)
 
 
-def lstm_avg(params: RnnParams,
-             codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def lstm_avg(params: RnnParams, codes: torch.Tensor,
+             out_dtype: torch.dtype = torch.float32
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LSTM counterpart of :func:`gru_avg` (``bias [4u]``)."""
     if codes.device.type == "cpu":
-        return rnn.lstm_avg_plain(params, codes)
-    return _launch("lstm_avg", 4, params, codes)
+        return rnn.lstm_avg_plain(params, codes, out_dtype)
+    return _launch("lstm_avg", 4, params, codes, out_dtype)
 
 
 def _check(name: str, gates: int, params: RnnParams,
@@ -96,8 +105,9 @@ def _ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:
     return None if tensor is None else tensor.data_ptr()
 
 
-def _empty(device: torch.device, *shape: int) -> torch.Tensor:
-    return torch.empty(*shape, device=device, dtype=torch.float32)
+def _empty(device: torch.device, *shape: int,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.empty(*shape, device=device, dtype=dtype)
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, name: str, shape: str) -> None:
@@ -107,11 +117,13 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str, shape: str) -> None:
                            f"({msg}) at {shape}")
 
 
-def _launch(name: str, gates: int, params: RnnParams,
-            codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
+            out_dtype: torch.dtype = torch.float32
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    name += rnn.dtype_suffix(out_dtype)
     batch, steps, units = _check(name, gates, params, codes)
-    avg = _empty(codes.device, batch, steps, units)
-    hidden = _empty(codes.device, batch, units)
+    avg = _empty(codes.device, batch, steps, units, dtype=out_dtype)
+    hidden = _empty(codes.device, batch, units, dtype=out_dtype)
     if batch == 0:
         return avg, hidden
     lib = _build.load_kernels("rnn_avg")
@@ -125,6 +137,75 @@ def _launch(name: str, gates: int, params: RnnParams,
     _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
     LAUNCHES.add(name)
     return avg, hidden
+
+
+def gru_apply(params: RnnParams, x: torch.Tensor, *,
+              dropout_rate: float = 0.0,
+              dropout_key: Optional[object] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GRU over a float input ``x [B, T, C]`` (inference only).
+
+    Counterpart of ``pallas_gru_apply`` (``pallas_rnn.py:126``), a
+    drop-in for :func:`~deepgrp_tpu_torch.models.rnn.gru_apply`:
+    ``params`` ``kernel [C, 3u]``, ``recurrent [u, 3u]``, ``bias [2, 3u]``
+    (any float type: ``kernel`` and ``recurrent`` are cast to ``x``'s
+    dtype, ``bias`` to float32, as ``pallas_rnn.py:121-122``); ``x``
+    float32 or bfloat16.  Returns ``(seq [B, T, u], last [B, u])`` in
+    ``x``'s dtype.  Dropout raises ``ValueError``, as ``:135-138``.
+    """
+    if dropout_key is not None and (
+            not isinstance(dropout_rate, (int, float)) or dropout_rate > 0.0):
+        raise ValueError("the GRU sequence kernel is inference-only (no "
+                         "dropout)")
+    if x.device.type == "cpu":
+        return rnn.gru_apply(params, x)
+    return _launch_seq(params, x)
+
+
+def _launch_seq(params: RnnParams,
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    name = "gru_seq"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x on {x.device}; the kernel takes CUDA "
+                         "tensors")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
+        raise ValueError(f"{name}: x must be float32 or bfloat16 [B, T, C], "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    batch, steps, channels = x.shape
+    if steps == 0:
+        raise ValueError(f"{name}: x has no time steps")
+    units = params["recurrent"].shape[0]
+    width = 3 * units
+    weights = {"kernel": params["kernel"].to(x.dtype).contiguous(),
+               "recurrent": params["recurrent"].to(x.dtype).contiguous(),
+               "bias": params["bias"].to(torch.float32).contiguous()}
+    expect = {"kernel": (channels, width), "recurrent": (units, width),
+              "bias": (2, width)}
+    for key, shape in expect.items():
+        tensor = weights[key]
+        if tuple(tensor.shape) != shape or tensor.device != x.device:
+            raise ValueError(f"{name}: {key} has shape "
+                             f"{tuple(tensor.shape)} on {tensor.device}, "
+                             f"expected {shape} on {x.device}")
+    seq = _empty(x.device, batch, steps, units, dtype=x.dtype)
+    last = _empty(x.device, batch, units, dtype=x.dtype)
+    if batch == 0:
+        return seq, last
+    lib = _build.load_kernels("rnn_seq")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dg_gru_seq(
+            x.data_ptr(), batch, steps, channels,
+            weights["kernel"].data_ptr(), weights["bias"].data_ptr(),
+            weights["recurrent"].data_ptr(), units,
+            int(x.dtype == torch.bfloat16), seq.data_ptr(), last.data_ptr(),
+            ctypes.c_void_p(stream))
+    _raise_on(lib, err, name, f"B={batch} T={steps} C={channels} u={units} "
+              f"{x.dtype}")
+    LAUNCHES.add(name)
+    return seq, last
 
 
 # -- training kernels --------------------------------------------------------

@@ -1,8 +1,12 @@
 """The DeepGRP classifier: weight-shared fwd/revcomp RNN with attention.
 
-Counterpart of ``deepgrp_tpu/models/model.py`` (the fused paths:
-``forward_probs_from_codes`` for inference,
-``forward_logits_from_codes_train`` for training)::
+Counterpart of ``deepgrp_tpu/models/model.py``: the fused paths
+(``forward_probs_from_codes`` for inference,
+``forward_logits_from_codes_train`` for training), drawn below, and the
+one-hot route (``forward`` / ``forward_logits`` / ``DeepGRPModel.apply``
+over one-hot windows ``x [B, T, 5]``: one recurrence over the doubled
+batch ``[x, reverse_complement(x)]``, then the branch average and the same
+head)::
 
     codes [B, T]
       ├─ fused fwd + reverse-complement recurrence with branch averaging
@@ -24,12 +28,16 @@ Parameters are a flat ``dict[str, Tensor]`` (the model's ``state_dict``):
 ``rnn.kernel``, ``rnn.recurrent``, ``rnn.bias``, ``attention.scale`` (with
 attention), ``dense.kernel``, ``dense.bias``, in the Keras layouts of the
 JAX package (``models/rnn.py``).
+
+bfloat16 is the fast mode of inference: the recurrence runs at the TPU's
+``DEFAULT`` precision (:mod:`deepgrp_tpu_torch.models.rnn`) and the head
+in bfloat16.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,6 +45,11 @@ from torch import nn
 from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
 Params = Mapping[str, torch.Tensor]
+RnnApply = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+# DNA complement channel permutation: A<->T, C<->G, N<->N (encoding A=0
+# C=1 G=2 T=3 N=4).
+COMPLEMENT_PERM = (3, 2, 1, 0, 4)
 
 
 @dataclass(frozen=True)
@@ -147,7 +160,8 @@ def head_logits(params: Params, avg: torch.Tensor, hidden: torch.Tensor,
                 config: ModelConfig) -> torch.Tensor:
     """Attention + dense head over the branch-averaged recurrence outputs:
     ``[B, T, n_classes]`` logits (``_head_logits``, ``model.py:175-188``;
-    shared by the inference and the training path)."""
+    shared by the inference and the training path).  Runs in ``avg``'s
+    dtype; the head's parameters must be in it too."""
     if avg.is_cuda:
         require_full_f32_matmul()
     if config.use_attention:
@@ -164,21 +178,83 @@ def _rnn_params(params: Params) -> Dict[str, torch.Tensor]:
             "bias": params["rnn.bias"]}
 
 
-def forward_logits_from_codes(params: Params, codes: torch.Tensor,
-                              config: ModelConfig) -> torch.Tensor:
-    """Integer code windows ``[B, T]`` -> logits ``[B, T, n_classes]``
-    through the inference kernels (no dropout)."""
-    rnn_avg = cuda_rnn.lstm_avg if config.rnn == "LSTM" else cuda_rnn.gru_avg
-    avg, hidden = rnn_avg(_rnn_params(params), codes)
+def _cast(params: Params, dtype: torch.dtype) -> Params:
+    """``params`` in ``dtype`` (the same mapping for float32)."""
+    if dtype == torch.float32:
+        return params
+    return {key: value.to(dtype) for key, value in params.items()}
+
+
+def reverse_complement(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the sequence axis and complement the channel axis of one-hot
+    ``x [..., T, 5]`` (``model.py:78-84``)."""
+    return x.flip(-2)[..., list(COMPLEMENT_PERM)]
+
+
+def forward_logits(params: Params, x: torch.Tensor, config: ModelConfig,
+                   rnn_apply: Optional[RnnApply] = None) -> torch.Tensor:
+    """One-hot windows ``x [B, T, 5]`` -> logits ``[B, T, n_classes]``
+    (``model.py:147-172``, inference: no dropout).
+
+    ``x`` is float32, or bfloat16 for the fast mode: then every parameter
+    is cast to bfloat16 (as the JAX engine casts them,
+    ``engine.py:102-103``) and the head runs in bfloat16.  ``rnn_apply``
+    overrides the recurrence (signature of
+    :func:`~deepgrp_tpu_torch.models.rnn.gru_apply`).
+
+    By default the GRU runs through the ``dg_gru_seq`` kernel's wrapper
+    (:func:`~deepgrp_tpu_torch.models.cuda_rnn.gru_apply`; its plain
+    version on the CPU) and the LSTM through plain torch
+    (:func:`~deepgrp_tpu_torch.models.rnn.lstm_apply`).  The JAX package's
+    one-hot route runs XLA's ``lax.scan`` for both cells
+    (``model.py:158-160``).  The function is the same, but on the card no
+    plain version of a kernel runs, so the GRU goes through the
+    hand-written kernel; no TPU kernel computes the LSTM over a float
+    input, so it has none.
+    """
+    batch = x.shape[0]
+    if rnn_apply is None:
+        rnn_apply = (rnn.lstm_apply if config.rnn == "LSTM"
+                     else cuda_rnn.gru_apply)
+    params = _cast(params, x.dtype)
+    both = torch.cat([x, reverse_complement(x)], dim=0)
+    seq, last = rnn_apply(_rnn_params(params), both)
+    avg = (seq[:batch] + seq[batch:]) * 0.5
+    hidden = (last[:batch] + last[batch:]) * 0.5
     return head_logits(params, avg, hidden, config)
 
 
-def forward_probs_from_codes(params: Params, codes: torch.Tensor,
-                             config: ModelConfig) -> torch.Tensor:
-    """Integer code windows ``[B, T]`` -> class probabilities
-    ``[B, T, n_classes]`` (float32)."""
-    return torch.softmax(forward_logits_from_codes(params, codes, config),
+def forward(params: Params, x: torch.Tensor, config: ModelConfig,
+            rnn_apply: Optional[RnnApply] = None) -> torch.Tensor:
+    """One-hot windows ``x [B, T, 5]`` -> class probabilities ``[B, T,
+    n_classes]`` in ``x``'s dtype (``model.py:130-144``)."""
+    return torch.softmax(forward_logits(params, x, config, rnn_apply),
                          dim=-1)
+
+
+def forward_logits_from_codes(params: Params, codes: torch.Tensor,
+                              config: ModelConfig,
+                              compute_dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """Integer code windows ``[B, T]`` -> logits ``[B, T, n_classes]``
+    through the inference kernels (no dropout).  In bfloat16 the kernel
+    stores bfloat16 and the head runs in bfloat16 (``model.py:248-260``);
+    the recurrence's parameters stay float32."""
+    rnn_avg = cuda_rnn.lstm_avg if config.rnn == "LSTM" else cuda_rnn.gru_avg
+    avg, hidden = rnn_avg(_rnn_params(params), codes, compute_dtype)
+    head = {key: value for key, value in params.items()
+            if not key.startswith("rnn.")}
+    return head_logits(_cast(head, compute_dtype), avg, hidden, config)
+
+
+def forward_probs_from_codes(params: Params, codes: torch.Tensor,
+                             config: ModelConfig,
+                             compute_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """Integer code windows ``[B, T]`` -> class probabilities
+    ``[B, T, n_classes]`` in ``compute_dtype`` (float32 or bfloat16)."""
+    return torch.softmax(forward_logits_from_codes(params, codes, config,
+                                                   compute_dtype), dim=-1)
 
 
 def forward_logits_from_codes_train(params: Params, codes: torch.Tensor,
@@ -249,10 +325,29 @@ class DeepGRPModel(nn.Module):
         return dict(self.named_parameters())
 
     @torch.no_grad()
-    def forward_probs_from_codes(self, codes: torch.Tensor) -> torch.Tensor:
-        """Class probabilities ``[B, T, n_classes]`` for code windows
-        ``[B, T]`` (int8 on a CUDA device)."""
-        return forward_probs_from_codes(self.params(), codes, self.config)
+    def forward_probs_from_codes(self, codes: torch.Tensor,
+                                 compute_dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+        """Class probabilities ``[B, T, n_classes]`` in ``compute_dtype``
+        for code windows ``[B, T]`` (int8 on a CUDA device)."""
+        return forward_probs_from_codes(self.params(), codes, self.config,
+                                        compute_dtype)
+
+    @torch.no_grad()
+    def apply(self, x: torch.Tensor,
+              rnn_apply: Optional[RnnApply] = None) -> torch.Tensor:
+        """Class probabilities for one-hot windows ``x [B, T, 5]`` (float32
+        or bfloat16) through the one-hot route (:func:`forward`); the JAX
+        package's ``DeepGRPModel.apply``.  (It takes the place of
+        ``nn.Module.apply``, which this model does not use.)"""
+        return forward(self.params(), x, self.config, rnn_apply)
+
+    @torch.no_grad()
+    def apply_logits(self, x: torch.Tensor,
+                     rnn_apply: Optional[RnnApply] = None) -> torch.Tensor:
+        """Logits for one-hot windows ``x [B, T, 5]`` (:func:`
+        forward_logits`)."""
+        return forward_logits(self.params(), x, self.config, rnn_apply)
 
     def forward(self, codes: torch.Tensor) -> torch.Tensor:
         return self.forward_probs_from_codes(codes)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the fused recurrence kernels, and the cell's
-initialisation and dropout masks.
+"""Plain PyTorch versions of the recurrence kernels, the one-hot
+recurrences, and the cell's initialisation and dropout masks.
 
 ``gru_avg_plain`` and ``lstm_avg_plain`` compute exactly what the CUDA
 kernels in ``csrc/rnn_avg.cu`` compute (and what the JAX package's
@@ -13,6 +13,18 @@ cell) sequence, and an explicit reverse loop over T for the gradients.
 They are loops over T in torch ops: the CPU path of
 :mod:`deepgrp_tpu_torch.models.cuda_rnn` and the reference the kernels are
 held against on the card.
+
+``gru_apply`` and ``lstm_apply`` are the one-hot recurrences of the JAX
+package (``deepgrp_tpu/models/rnn.py``) over a float input ``x [B, T, I]``
+with a real input dot ``x W + b``; ``gru_apply`` is also the plain version
+of the ``csrc/rnn_seq.cu`` kernel (``pallas_gru_apply``).
+
+Precision.  In float32 every product and sum is float32 (the JAX
+package's ``Precision.HIGHEST``).  The bfloat16 fast mode follows the TPU's
+``DEFAULT`` precision as the kernels run it: the operands of each dot are
+rounded to bfloat16 (the weights, and the hidden state ``h`` at every
+step), the products are summed in float32, the carried state and the gate
+math stay float32, and only the outputs are stored as bfloat16.
 
 Parameter layout (Keras, ``deepgrp_tpu/models/rnn.py``):
 
@@ -66,20 +78,44 @@ def _input_projection(kernel: torch.Tensor, bias_in: torch.Tensor,
     return bias_in + rows[both]
 
 
-def gru_avg_plain(params: RnnParams,
-                  codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _round_to(tensor: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``tensor`` rounded to ``dtype`` and back to float32 (the operand of
+    a dot at the mode's precision; itself in float32 mode)."""
+    if dtype == torch.float32:
+        return tensor
+    return tensor.to(dtype).to(torch.float32)
+
+
+def dtype_suffix(out_dtype: torch.dtype) -> str:
+    """The name suffix of a kernel's output type: ``""`` or ``"_bf16"``
+    (raises for any other type)."""
+    if out_dtype == torch.float32:
+        return ""
+    if out_dtype == torch.bfloat16:
+        return "_bf16"
+    raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                     f"{out_dtype}")
+
+
+def gru_avg_plain(params: RnnParams, codes: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused fwd+revcomp GRU with branch averaging, as a loop over T.
 
     Args:
-        params: ``kernel [5, 3u]``, ``recurrent [u, 3u]``, ``bias [2, 3u]``.
+        params: ``kernel [5, 3u]``, ``recurrent [u, 3u]``, ``bias [2, 3u]``
+            float32.
         codes: ``[B, T]`` integer base codes (A=0..T=3, N=4, pad=5).
+        out_dtype: float32, or bfloat16 for the fast mode (``h`` and ``U``
+            rounded to bfloat16 for the recurrent dot; the input row
+            select, the carry and the average stay float32).
 
     Returns:
-        ``(avg [B, T, u], hidden_avg [B, u])`` float32.
+        ``(avg [B, T, u], hidden_avg [B, u])`` in ``out_dtype``.
     """
-    PLAIN_CALLS.add("gru_avg")
+    PLAIN_CALLS.add("gru_avg" + dtype_suffix(out_dtype))
     batch, steps = codes.shape
-    recurrent = params["recurrent"]
+    recurrent = _round_to(params["recurrent"], out_dtype)
     units = recurrent.shape[0]
     bias_rec = params["bias"][1]
     xp = _input_projection(params["kernel"], params["bias"][0],
@@ -88,24 +124,26 @@ def gru_avg_plain(params: RnnParams,
     avg = xp.new_empty(batch, steps, units)
     for t in range(steps):
         x = xp[:, t]
-        rp = h @ recurrent + bias_rec
+        rp = _round_to(h, out_dtype) @ recurrent + bias_rec
         z = torch.sigmoid(x[:, :units] + rp[:, :units])
         r = torch.sigmoid(x[:, units:2 * units] + rp[:, units:2 * units])
         hh = torch.tanh(x[:, 2 * units:] + r * rp[:, 2 * units:])
         h = z * h + (1.0 - z) * hh
         avg[:, t] = (h[:batch] + h[batch:]) * 0.5
+    avg = avg.to(out_dtype)
     return avg, avg[:, -1].clone()
 
 
-def lstm_avg_plain(params: RnnParams,
-                   codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def lstm_avg_plain(params: RnnParams, codes: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LSTM counterpart of :func:`gru_avg_plain` (same contract).
 
     ``params``: ``kernel [5, 4u]``, ``recurrent [u, 4u]``, ``bias [4u]``.
     """
-    PLAIN_CALLS.add("lstm_avg")
+    PLAIN_CALLS.add("lstm_avg" + dtype_suffix(out_dtype))
     batch, steps = codes.shape
-    recurrent = params["recurrent"]
+    recurrent = _round_to(params["recurrent"], out_dtype)
     units = recurrent.shape[0]
     xp = _input_projection(params["kernel"], params["bias"],
                            _doubled_codes(codes))
@@ -113,7 +151,7 @@ def lstm_avg_plain(params: RnnParams,
     c = xp.new_zeros(2 * batch, units)
     avg = xp.new_empty(batch, steps, units)
     for t in range(steps):
-        gates = xp[:, t] + h @ recurrent
+        gates = xp[:, t] + _round_to(h, out_dtype) @ recurrent
         i = torch.sigmoid(gates[:, :units])
         f = torch.sigmoid(gates[:, units:2 * units])
         g = torch.tanh(gates[:, 2 * units:3 * units])
@@ -121,7 +159,91 @@ def lstm_avg_plain(params: RnnParams,
         c = f * c + i * g
         h = o * torch.tanh(c)
         avg[:, t] = (h[:batch] + h[batch:]) * 0.5
+    avg = avg.to(out_dtype)
     return avg, avg[:, -1].clone()
+
+
+# -- one-hot recurrences (deepgrp_tpu/models/rnn.py) -----------------------
+
+
+def _io_dtype(x: torch.Tensor) -> torch.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, T, I], got {tuple(x.shape)}")
+    return x.dtype
+
+
+def _seq_projection(params: RnnParams, x: torch.Tensor,
+                    bias_in: torch.Tensor) -> torch.Tensor:
+    """``x W + b`` for every step, float32 ``[B, T, g*u]`` (operands at the
+    precision of ``x``'s dtype)."""
+    kernel = _round_to(params["kernel"].to(torch.float32), x.dtype)
+    return x.to(torch.float32) @ kernel + bias_in.to(torch.float32)
+
+
+def gru_apply(params: RnnParams,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GRU over ``x [B, T, I]`` (``rnn.py:77-133``, inference).
+
+    The plain version of the ``dg_gru_seq`` kernel (``csrc/rnn_seq.cu``,
+    the TPU's ``pallas_gru_apply``): Keras ``reset_after=True`` gate math
+    with ``kernel [I, 3u]``, ``recurrent [u, 3u]``, ``bias [2, 3u]``.
+    ``x`` is float32 or bfloat16; the parameters are rounded to its type
+    (bfloat16: ``DEFAULT`` precision, module docstring).
+
+    Returns:
+        ``(seq [B, T, u], last [B, u])`` in ``x``'s dtype; ``last`` is the
+        state after step ``T-1`` (zeros for ``T = 0``).
+    """
+    PLAIN_CALLS.add("gru_seq")
+    dtype = _io_dtype(x)
+    recurrent = _round_to(params["recurrent"].to(torch.float32), dtype)
+    units = recurrent.shape[0]
+    bias = params["bias"].to(torch.float32)
+    xp = _seq_projection(params, x, bias[0])
+    h = xp.new_zeros(x.shape[0], units)
+    seq = xp.new_empty(x.shape[0], x.shape[1], units)
+    for t in range(x.shape[1]):
+        xt = xp[:, t]
+        rp = _round_to(h, dtype) @ recurrent + bias[1]
+        z = torch.sigmoid(xt[:, :units] + rp[:, :units])
+        r = torch.sigmoid(xt[:, units:2 * units] + rp[:, units:2 * units])
+        hh = torch.tanh(xt[:, 2 * units:] + r * rp[:, 2 * units:])
+        h = z * h + (1.0 - z) * hh
+        seq[:, t] = h
+    return seq.to(dtype), h.to(dtype)
+
+
+def lstm_apply(params: RnnParams,
+               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM over ``x [B, T, I]`` (``rnn.py:136-182``, inference).
+
+    Gate order (i, f, c, o), ``kernel [I, 4u]``, ``recurrent [u, 4u]``,
+    ``bias [4u]``; precision as :func:`gru_apply`.  No TPU kernel
+    computes this function (XLA's scan does), so it is plain torch on
+    every device and counts no plain-version call.
+
+    Returns:
+        ``(seq [B, T, u], last [B, u])`` in ``x``'s dtype.
+    """
+    dtype = _io_dtype(x)
+    recurrent = _round_to(params["recurrent"].to(torch.float32), dtype)
+    units = recurrent.shape[0]
+    xp = _seq_projection(params, x, params["bias"])
+    h = xp.new_zeros(x.shape[0], units)
+    c = xp.new_zeros(x.shape[0], units)
+    seq = xp.new_empty(x.shape[0], x.shape[1], units)
+    for t in range(x.shape[1]):
+        gates = xp[:, t] + _round_to(h, dtype) @ recurrent
+        i = torch.sigmoid(gates[:, :units])
+        f = torch.sigmoid(gates[:, units:2 * units])
+        g = torch.tanh(gates[:, 2 * units:3 * units])
+        o = torch.sigmoid(gates[:, 3 * units:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        seq[:, t] = h
+    return seq.to(dtype), h.to(dtype)
 
 
 # -- initialisation and dropout ---------------------------------------------

@@ -17,6 +17,13 @@ tiny widths, with and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
 runs give bitwise-equal gradients (no float atomics).
+
+The GRU sequence kernel (``gru_seq``) is held against its plain version
+(``rnn.gru_apply``) on uniform random input at the scan route's shape
+(2048 rows, T=342, u=60), at u=128 (U at the edge of shared memory) and
+u=256 (U read through L2), and at ragged shapes; the bf16 variants of the
+fused kernels against their plain versions.  Tolerance in bfloat16: atol
+2e-2 (the plain version rounds as the kernel does; the outputs are bf16).
 """
 
 import os
@@ -204,3 +211,96 @@ def test_train_step_on_card_matches_cpu(device, rnn_type, attention):
         err = (grad - cpu[key][1]).abs().max().item()
         assert err <= 1e-4 * cpu[key][1].abs().max().item(), (key, err)
         torch.testing.assert_close(value, cpu[key][0], atol=1e-5, rtol=0)
+
+
+BF16_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("dtype,batch,steps,units", [
+    (torch.float32, 2048, 342, 60), (torch.bfloat16, 2048, 342, 60),
+    (torch.float32, 2048, 342, 128), (torch.float32, 512, 342, 256),
+    (torch.bfloat16, 512, 342, 256), (torch.float32, 7, 23, 60),
+    (torch.bfloat16, 7, 23, 60), (torch.float32, 9, 1, 17)])
+def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
+    rng = np.random.default_rng(batch + steps + units)
+    width = 3 * units
+    params = {
+        "kernel": rng.normal(0.0, 0.5, (5, width)),
+        "recurrent": rng.normal(0.0, units ** -0.5, (units, width)),
+        "bias": rng.normal(0.0, 0.3, (2, width)),
+    }
+    params = {k: torch.tensor(v, dtype=torch.float32, device=device)
+              for k, v in params.items()}
+    x = torch.tensor(rng.random((batch, steps, 5)), dtype=torch.float32,
+                     device=device).to(dtype)
+    launches = cuda_rnn.LAUNCHES.get("gru_seq")
+    seq, last = cuda_rnn.gru_apply(params, x)
+    torch.cuda.synchronize()
+    assert cuda_rnn.LAUNCHES.get("gru_seq") == launches + 1
+    want_seq, want_last = rnn.gru_apply(params, x)
+    assert seq.dtype == last.dtype == dtype
+    assert seq.shape == (batch, steps, units) and last.shape == (batch,
+                                                                 units)
+    atol = ATOL if dtype == torch.float32 else BF16_ATOL
+    torch.testing.assert_close(seq.float(), want_seq.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(last.float(), want_last.float(), atol=atol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("batch,steps,units", [(1024, 342, 60),
+                                               (1000, 150, 32), (3, 7, 5)])
+def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
+    gates = 4 if cell == "lstm" else 3
+    params, codes = random_case(batch * units + steps, gates, batch, steps,
+                                units, device)
+    kernel = getattr(cuda_rnn, f"{cell}_avg")
+    plain = getattr(rnn, f"{cell}_avg_plain")
+    launches = cuda_rnn.LAUNCHES.get(f"{cell}_avg_bf16")
+    avg, hidden = kernel(params, codes, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_rnn.LAUNCHES.get(f"{cell}_avg_bf16") == launches + 1
+    want_avg, want_hidden = plain(params, codes, torch.bfloat16)
+    assert avg.dtype == hidden.dtype == torch.bfloat16
+    torch.testing.assert_close(avg.float(), want_avg.float(),
+                               atol=BF16_ATOL, rtol=0)
+    torch.testing.assert_close(hidden.float(), want_hidden.float(),
+                               atol=BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["gru_att", "lstm"])
+def test_engine_scan_on_card_matches_cpu(device, name):
+    """The scan route on the card (the ``gru_seq`` kernel for GRU) against
+    the same route on the CPU: classes equal, max probability to 1e-5."""
+    config, params = load_model(os.path.join(TORCH_FIXDIR, f"{name}.npz"))
+    codes = np.random.default_rng(4).integers(0, 5, 20000).astype(np.int8)
+    results = []
+    for dev in (device, "cpu"):
+        model = DeepGRPModel.from_params(config, params, dev)
+        launches = cuda_rnn.LAUNCHES.get("gru_seq")
+        results.append(PredictionEngine(
+            model, batch_size=64, step_size=50,
+            rnn_kernel="scan").predict_scored(codes))
+        if dev == device and config.rnn == "GRU":
+            assert cuda_rnn.LAUNCHES.get("gru_seq") > launches
+    (got_c, got_p), (want_c, want_p) = results
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_allclose(got_p, want_p, atol=ATOL)
+
+
+@pytest.mark.parametrize("route", ["fused", "scan"])
+def test_engine_bf16_on_card_matches_cpu(device, route):
+    """The bf16 fast mode on the card against the same mode on the CPU:
+    classes agree on >= 99.9 % of positions, max probability to 2e-2."""
+    config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
+    codes = np.random.default_rng(5).integers(0, 5, 20000).astype(np.int8)
+    results = []
+    for dev in (device, "cpu"):
+        model = DeepGRPModel.from_params(config, params, dev)
+        results.append(PredictionEngine(
+            model, batch_size=64, step_size=50, compute_dtype=torch.bfloat16,
+            rnn_kernel=route).predict_scored(codes))
+    (got_c, got_p), (want_c, want_p) = results
+    assert (got_c == want_c).mean() >= 0.999
+    np.testing.assert_allclose(got_p, want_p, atol=BF16_ATOL)

@@ -115,8 +115,15 @@ def test_cli_default_device_raises_without_gpu(tmp_path):
 
 
 def test_cli_bfloat16_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--precision", "bfloat16", "--device", "cpu", "predict",
-                  os.path.join(TORCH_FIXDIR, "gru.npz"),
-                  os.path.join(FIXDIR, "gru.fa"),
-                  "--output", str(tmp_path / "x.bed")])
+    """``--precision bfloat16 --device cpu predict`` writes a BED of the
+    fixture's rows (the fast mode's quality contract is checked in
+    tests/test_torch_bf16.py)."""
+    out = tmp_path / "x.bed"
+    cli.main(REF_ARGS + ["--precision", "bfloat16", "--device", "cpu",
+                         "predict", os.path.join(TORCH_FIXDIR, "gru.npz"),
+                         os.path.join(FIXDIR, "gru.fa"),
+                         "--output", str(out)])
+    rows = [line.split("\t") for line in out.read_text().splitlines()]
+    assert rows and all(len(row) == 5 for row in rows)
+    assert all(int(row[2]) < int(row[3]) and int(row[4]) > 0
+               for row in rows)
