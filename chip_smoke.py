@@ -34,7 +34,10 @@ Phases (any failure exits non-zero; nothing is caught):
    each gradient, and a second backward bitwise equal to the first.  Times
    each kernel, its plain version and cuDNN (``torch.nn.GRU``/``LSTM``
    forward, and forward + backward, on the doubled one-hot batch without
-   masks, TF32 off) with CUDA events.
+   masks, TF32 off) with CUDA events.  For the LSTM it prints the tile
+   (threads, CTAs and warps an SM), the backward's split (recurrence
+   kernel ms, reduction kernel ms), and checks the pair again at u=96
+   (B=64, T=342), a width past the register tile.
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -46,7 +49,11 @@ Phases (any failure exits non-zero; nothing is caught):
    written model then predicts a BED of the validation sequence.  Then
    steps/s, one epoch's stream time by stage and device time by kernel
    name with the idle share, one step through the kernels against the
-   same step through the plain versions, and LSTM at 2 epochs of 5 steps.
+   same step through the plain versions, and LSTM at 2 epochs of 5
+   steps (60 units, then 96), then the same breakdown (steps/s, stream time by stage with the
+   backward's share, device time and idle share, one step against the
+   plain versions) for the LSTM model at batch 256, one epoch of 20
+   steps.
 8. One-hot kernels vs plain versions: the GRU sequence kernel
    (``gru_seq``, ``csrc/rnn_seq.cu``) against ``rnn.gru_apply`` on uniform
    random input at (2048, 342, 60) in float32 and bfloat16, (2048, 342,
@@ -112,6 +119,7 @@ TRAIN_KERNELS = {
     "lstm_train_bwd": "deepgrp_tpu/models/pallas_rnn_train.py:542",
 }
 TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
+LSTM_WIDE_SHAPE = (64, 342, 96)
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -490,6 +498,21 @@ def time_train_kernels(torch, cell: str, case, errors):
         "lib_fwd": cuda_ms(torch, lib_fwd, 20),
         "lib_bwd": cuda_ms(torch, lib_fwd_bwd, 20),
     }
+    if cell == "lstm":
+        # The backward's two parts: the recurrence kernel, then the
+        # reduction kernel with the sum of its partials.
+        da = cuda_rnn._lstm_bwd_recurrence(params, codes, masks, seqs,
+                                           d_avg, d_hid)
+        split = {
+            "recurrence": cuda_ms(torch, lambda: cuda_rnn._lstm_bwd_recurrence(
+                params, codes, masks, seqs, d_avg, d_hid), 20),
+            "reduction": cuda_ms(torch, lambda: cuda_rnn._train_reduce(
+                seqs[0], da, codes, masks, gates, list(grads)), 20),
+        }
+        print(f"  lstm_train_bwd split: recurrence_ms="
+              f"{split['recurrence']:.4f} reduction_ms="
+              f"{split['reduction']:.4f} (backward kernel_ms={ms['bwd']:.4f})",
+              flush=True)
     # Multiply-adds of the recurrent products: the forward's h U over both
     # rows; the backward recomputes them and adds d_rp U^T and
     # h_prev^T d_rp (3x).  Bytes: each input read once, each output
@@ -536,15 +559,28 @@ def train_kernel_phase(torch):
         gates = 4 if cell == "lstm" else 3
         for label, (batch, steps, units) in TRAIN_SHAPES.items():
             case = train_case(torch, gen, gates, batch, steps, units)
-            block_rows, n_cta = cuda_rnn.train_grid(batch, units)
-            print(f"{cell} train {label} B={batch} T={steps} u={units}: grid "
-                  f"{n_cta} CTAs x {block_rows} windows "
-                  f"({block_rows * units} threads)", flush=True)
+            if cell == "lstm":
+                tile = cuda_rnn.lstm_train_tile(batch, units, steps)
+                print(f"{cell} train {label} B={batch} T={steps} u={units}: "
+                      f"tile {tile}", flush=True)
+            else:
+                block_rows, n_cta = cuda_rnn.train_grid(batch, units)
+                print(f"{cell} train {label} B={batch} T={steps} u={units}: "
+                      f"grid {n_cta} CTAs x {block_rows} windows "
+                      f"({block_rows * units} threads)", flush=True)
             errors = check_train_kernels(torch, cell, case, case[2])
             check_train_kernels(torch, cell, case, None)
             for name, row in time_train_kernels(torch, cell, case,
                                                 errors).items():
                 results[(name, label)] = row
+    # A width past the LSTM's register tile, which the GRU-style LSTM
+    # backward refused (dU beside U in shared memory stopped it at u=82).
+    batch, steps, units = LSTM_WIDE_SHAPE
+    print(f"lstm train wide B={batch} T={steps} u={units}: tile "
+          f"{cuda_rnn.lstm_train_tile(batch, units, steps)}", flush=True)
+    case = train_case(torch, gen, 4, batch, steps, units)
+    check_train_kernels(torch, "lstm", case, case[2])
+    check_train_kernels(torch, "lstm", case, None)
     return results
 
 
@@ -703,7 +739,8 @@ def step_parity(torch, model, codes, labels, masks) -> None:
         raise AssertionError(f"step gradients differ: {rel}")
 
 
-def train_breakdown_phase(torch, model_path: str, train_data, options):
+def train_breakdown_phase(torch, model_path: str, train_data, options,
+                          label: str = "gru_att"):
     """Where one epoch's time goes: stream time between the stage
     boundaries of each step (CUDA events), device time by kernel name
     (``torch.profiler``) and the idle share against the host clock; then
@@ -743,8 +780,9 @@ def train_breakdown_phase(torch, model_path: str, train_data, options):
     start = time.perf_counter()
     epoch()
     wall = time.perf_counter() - start
-    print(f"one epoch of {n_steps} steps (batch {sampler.batch_size}): "
-          f"{wall:.4f} s = {n_steps / wall:.2f} steps/s", flush=True)
+    print(f"{label}: one epoch of {n_steps} steps (batch "
+          f"{sampler.batch_size}): {wall:.4f} s = {n_steps / wall:.2f} "
+          f"steps/s", flush=True)
 
     names = ("sample + gather", "masks", "forward (recurrence + head)",
              "loss", "backward", "optimizer")
@@ -772,9 +810,12 @@ def train_breakdown_phase(torch, model_path: str, train_data, options):
         for j, name in enumerate(names):
             stage_ms[name] += events[j].elapsed_time(events[j + 1])
     total = sum(stage_ms.values())
-    print(f"stream time by stage over {n_steps} steps ({total:.3f} ms): "
+    print(f"{label}: stream time by stage over {n_steps} steps "
+          f"({total:.3f} ms): "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
-                      for k, v in stage_ms.items()), flush=True)
+                      for k, v in stage_ms.items())
+          + f"; backward share {100 * stage_ms['backward'] / total:.1f}%",
+          flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -793,7 +834,8 @@ def train_breakdown_phase(torch, model_path: str, train_data, options):
         print("device time by kernel: not measured (the profiler saw no "
               "device events)", flush=True)
     else:
-        print(f"device busy {busy_ms:.2f} ms of the unprofiled epoch's "
+        print(f"{label}: device busy {busy_ms:.2f} ms of the unprofiled "
+              f"epoch's "
               f"{1e3 * wall:.2f} ms = {100 * busy_ms / (1e3 * wall):.1f}% "
               f"(idle {100 - 100 * busy_ms / (1e3 * wall):.1f}%)",
               flush=True)
@@ -843,17 +885,36 @@ def training_phase(torch, np, tmp: str):
                           options)
 
     lstm_epochs, lstm_steps = 2, 5
+    lstm_options = {**FLAGSHIP, "attention": False, "rnn": "LSTM"}
     reset_counts()
-    _, records, seconds = run_train_cli(
+    lstm_model, records, seconds = run_train_cli(
         tmp, (train_npz, val_npz, bed), "lstm", n_epochs=lstm_epochs,
-        n_batches=lstm_steps, rnn="LSTM", **{**FLAGSHIP,
-                                             "attention": False})
+        n_batches=lstm_steps, **lstm_options)
     lstm_launches = check_counts({
         "lstm_train_fwd": lstm_epochs * lstm_steps,
         "lstm_train_bwd": lstm_epochs * lstm_steps,
         "lstm_avg": lstm_epochs})
     check_losses("lstm", records, lstm_epochs)
     print(f"lstm train CLI: {seconds:.3f} s", flush=True)
+
+    # The same run at a width the GRU-style LSTM backward refused (u=96).
+    wide = LSTM_WIDE_SHAPE[2]
+    reset_counts()
+    _, records, seconds = run_train_cli(
+        tmp, (train_npz, val_npz, bed), f"lstm_u{wide}",
+        n_epochs=lstm_epochs, n_batches=lstm_steps,
+        **{**lstm_options, "units": wide})
+    check_counts({"lstm_train_fwd": lstm_epochs * lstm_steps,
+                  "lstm_train_bwd": lstm_epochs * lstm_steps,
+                  "lstm_avg": lstm_epochs})
+    check_losses(f"lstm u={wide}", records, lstm_epochs)
+    print(f"lstm u={wide} train CLI: {seconds:.3f} s", flush=True)
+
+    options = Options(n_epochs=1, n_batches=steps, batch_size=256,
+                      **lstm_options)
+    train_breakdown_phase(torch, lstm_model,
+                          load_training_data(np, train_npz, bed, options),
+                          options, label="lstm")
     return launches, lstm_launches
 
 
@@ -1189,7 +1250,7 @@ def main() -> int:
         timings.update(train_kernel_phase(torch))
 
         phase("7. training on the card: gru_att (3 x 20 steps), lstm "
-              "(2 x 5)")
+              "(2 x 5 at u=60 and u=96, then 1 x 20)")
         import numpy as np
 
         with tempfile.TemporaryDirectory() as train_tmp:

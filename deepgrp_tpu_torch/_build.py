@@ -147,15 +147,24 @@ def _declare_rnn_train(lib: ctypes.CDLL) -> None:
     lib.dg_train_block_rows.restype = _I32
     # codes, batch, steps, masks, kernel, bias, recurrent, units, block rows
     head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32]
-    # avg, hidden, hseq[, cseq], stream
+    # avg, hidden, hseq, stream
     lib.dg_gru_train_fwd.argtypes = head + [_PTR] * 4
-    lib.dg_lstm_train_fwd.argtypes = head + [_PTR] * 5
-    # hseq[, cseq], d_avg, d_hidden, part_w, part_b, part_u, d_kernel,
-    # d_bias, d_recurrent, stream
+    # hseq, d_avg, d_hidden, part_w, part_b, part_u, d_kernel, d_bias,
+    # d_recurrent, stream
     lib.dg_gru_train_bwd.argtypes = head + [_PTR] * 10
-    lib.dg_lstm_train_bwd.argtypes = head + [_PTR] * 11
+    # LSTM (one CTA a window, no block rows): codes, batch, steps, masks,
+    # kernel, bias, recurrent, units, then avg, hidden, hseq, cseq, stream
+    # (forward) or hseq, cseq, d_avg, d_hidden, da, stream (recurrence)
+    lstm_head = head[:-1]
+    lib.dg_lstm_train_fwd.argtypes = lstm_head + [_PTR] * 5
+    lib.dg_lstm_bwd_recurrence.argtypes = lstm_head + [_PTR] * 6
+    lib.dg_lstm_train_ctas_per_sm.argtypes = [_I32, _I32, _I32]
+    # hseq, r1, r2, codes, masks, batch, steps, units, gates, splits, parts,
+    # d_kernel, d_bias_1, d_bias_2, d_recurrent, stream
+    lib.dg_train_reduce.argtypes = ([_PTR] * 5 + [_I32] * 5 + [_PTR] * 6)
     for fn in (lib.dg_gru_train_fwd, lib.dg_lstm_train_fwd,
-               lib.dg_gru_train_bwd, lib.dg_lstm_train_bwd):
+               lib.dg_gru_train_bwd, lib.dg_lstm_bwd_recurrence,
+               lib.dg_lstm_train_ctas_per_sm, lib.dg_train_reduce):
         fn.restype = _I32
 
 

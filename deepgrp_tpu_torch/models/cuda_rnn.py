@@ -13,8 +13,8 @@ Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``pallas_gru_avg_train`` / ``pallas_lstm_avg_train``
 (``deepgrp_tpu/models/pallas_rnn_train.py``).  Their forward runs the
 training forward kernel (per-gate input dropout masks, hidden and cell
-sequences kept for the backward); their backward runs the backward kernel,
-which recomputes the gates and returns the gradients of the three
+sequences kept for the backward); their backward runs the backward kernels,
+which recompute the gates and return the gradients of the three
 parameters (none for the codes and masks).
 
 For a tensor on the CPU a wrapper runs the plain version
@@ -23,7 +23,9 @@ kernel on the current stream or raises.  ``LAUNCHES`` counts the kernel
 launches by name: ``gru_avg``, ``lstm_avg``, ``gru_avg_bf16``,
 ``lstm_avg_bf16``, ``gru_seq`` (either dtype), ``gru_train_fwd``,
 ``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
-counts once; it also launches the small kernel that sums its partials).
+counts once: for GRU it also launches the small kernel that sums its
+partials, for LSTM it is the recurrence kernel, the reduction kernel and
+the sum of the reduction's partials).
 """
 
 from __future__ import annotations
@@ -213,8 +215,8 @@ def _launch_seq(params: RnnParams,
 
 def train_grid(batch: int, units: int,
                device: Optional[torch.device] = None) -> Tuple[int, int]:
-    """``(windows a CTA owns, CTAs)`` of the training kernels for a batch
-    on a CUDA device (the tile is chosen from the batch and the card's SM
+    """``(windows a CTA owns, CTAs)`` of the GRU training kernels for a
+    batch on a CUDA device (the tile is chosen from the batch and the card's SM
     count, so that the grid is one wave)."""
     lib = _build.load_kernels("rnn_train")
     with torch.cuda.device(device or torch.device("cuda")):
@@ -246,13 +248,15 @@ def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
     if batch == 0:
         return (avg, hidden, *seqs)
     lib = _build.load_kernels("rnn_train")
-    block_rows, _ = train_grid(batch, units, codes.device)
+    # The GRU kernel takes its tile; the LSTM kernel has one CTA a window.
+    tile = () if cell == "lstm" else (train_grid(batch, units,
+                                                 codes.device)[0],)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = getattr(lib, f"dg_{name}")(
             codes.data_ptr(), batch, steps, _ptr(masks),
             params["kernel"].data_ptr(), params["bias"].data_ptr(),
-            params["recurrent"].data_ptr(), units, block_rows,
+            params["recurrent"].data_ptr(), units, *tile,
             avg.data_ptr(), hidden.data_ptr(),
             *(seq.data_ptr() for seq in seqs), ctypes.c_void_p(stream))
     _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
@@ -264,9 +268,12 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
               masks: Optional[torch.Tensor], seqs: Tuple[torch.Tensor, ...],
               d_avg: torch.Tensor, d_hidden: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the training backward kernel of ``cell`` (and the sum of its
-    partials).  ``seqs`` is ``(hseq,)`` or ``(hseq, cseq)`` from
-    :func:`train_fwd`.  Returns ``(d_kernel, d_recurrent, d_bias)``."""
+    """Launch the training backward of ``cell``: for GRU the backward
+    kernel and the sum of its partials, for LSTM the recurrence kernel and
+    the reduction kernel (:func:`_lstm_bwd_recurrence`,
+    :func:`_train_reduce`).  ``seqs`` is ``(hseq,)`` or ``(hseq, cseq)``
+    from :func:`train_fwd`.  Returns ``(d_kernel, d_recurrent, d_bias)``
+    and counts one launch."""
     name, gates = f"{cell}_train_bwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
     _check_masks(name, gates, masks, batch, codes.device)
@@ -280,6 +287,12 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
              for key in ("kernel", "recurrent", "bias")]
     if batch == 0:
         return tuple(g.zero_() for g in grads)
+    if cell == "lstm":
+        da = _lstm_bwd_recurrence(params, codes, masks, seqs, d_avg,
+                                  d_hidden)
+        _train_reduce(seqs[0], da, codes, masks, gates, grads)
+        LAUNCHES.add(name)
+        return grads[0], grads[1], grads[2]
     width = gates * units
     bias_rows = 2 if gates == 3 else 1
     block_rows, n_cta = train_grid(batch, units, codes.device)
@@ -300,6 +313,86 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
     _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
     LAUNCHES.add(name)
     return grads[0], grads[1], grads[2]
+
+
+def _lstm_bwd_recurrence(params: RnnParams, codes: torch.Tensor,
+                         masks: Optional[torch.Tensor],
+                         seqs: Tuple[torch.Tensor, ...], d_avg: torch.Tensor,
+                         d_hidden: torch.Tensor) -> torch.Tensor:
+    """The LSTM backward's recurrence kernel on checked inputs (see
+    :func:`train_bwd`): the gate cotangents ``da [2B, T, 4u]``."""
+    batch, steps = codes.shape
+    units = params["recurrent"].shape[0]
+    da = _empty(codes.device, 2 * batch, steps, 4 * units)
+    lib = _build.load_kernels("rnn_train")
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = lib.dg_lstm_bwd_recurrence(
+            codes.data_ptr(), batch, steps, _ptr(masks),
+            params["kernel"].data_ptr(), params["bias"].data_ptr(),
+            params["recurrent"].data_ptr(), units,
+            *(seq.data_ptr() for seq in seqs), d_avg.data_ptr(),
+            d_hidden.data_ptr(), da.data_ptr(), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "lstm_train_bwd (recurrence)",
+              f"B={batch} T={steps} u={units}")
+    return da
+
+
+#: Tile of the reduction kernel (left rows and columns).
+REDUCE_TILE = 64
+
+
+def reduce_splits(rows: int, units: int, gates: int, sms: int) -> int:
+    """Splits over the ``rows`` = 2B*T rows of the reduction kernel: about
+    four CTAs an SM over the output tiles, and at least 256 rows a split.
+    A function of the shape and the SM count only, so two runs sum in the
+    same order."""
+    tiles = -(-gates * units // REDUCE_TILE) * -(-units // REDUCE_TILE)
+    return max(1, min(-(-4 * sms // tiles), -(-rows // 256)))
+
+
+def _train_reduce(hseq: torch.Tensor, da: torch.Tensor, codes: torch.Tensor,
+                  masks: Optional[torch.Tensor], gates: int,
+                  grads: list) -> None:
+    """The reduction kernel: ``dW, dU, db`` of the LSTM from ``hseq`` and
+    the gate cotangents ``da``, written into ``grads`` (``[d_kernel,
+    d_recurrent, d_bias]``)."""
+    batch, steps = codes.shape
+    units = hseq.shape[2]
+    sms = torch.cuda.get_device_properties(
+        codes.device).multi_processor_count
+    splits = reduce_splits(2 * batch * steps, units, gates, sms)
+    parts = _empty(codes.device, splits, units + 7, gates * units)
+    lib = _build.load_kernels("rnn_train")
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = lib.dg_train_reduce(
+            hseq.data_ptr(), da.data_ptr(), None, codes.data_ptr(),
+            _ptr(masks), batch, steps, units, gates, splits,
+            parts.data_ptr(), grads[0].data_ptr(), grads[2].data_ptr(),
+            None, grads[1].data_ptr(), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "lstm_train_bwd (reduction)",
+              f"B={batch} T={steps} u={units} splits={splits}")
+
+
+def lstm_train_tile(batch: int, units: int, steps: int,
+                    device: Optional[torch.device] = None) -> Dict[str, int]:
+    """The LSTM training kernels' tile on a CUDA device: threads a CTA
+    (one per gate column), CTAs (one a window), resident CTAs an SM of the
+    forward and the backward recurrence, and the warps an SM that gives at
+    this batch."""
+    lib = _build.load_kernels("rnn_train")
+    device = device or torch.device("cuda")
+    threads = 4 * units
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tile = {"threads": threads, "ctas": batch}
+    with torch.cuda.device(device):
+        for which, kind in enumerate(("fwd", "bwd")):
+            per_sm = lib.dg_lstm_train_ctas_per_sm(units, steps, which)
+            tile[f"{kind}_ctas_per_sm"] = per_sm
+            tile[f"{kind}_warps_per_sm"] = (min(per_sm, -(-batch // sms))
+                                            * -(-threads // 32))
+    return tile
 
 
 _PLAIN: Dict[str, Tuple[Callable, Callable]] = {

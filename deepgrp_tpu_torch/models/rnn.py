@@ -464,34 +464,33 @@ def lstm_avg_train_fwd_plain(
     return avg, avg[:, -1].clone(), hseq, torch.stack(c_states, dim=1)
 
 
-def lstm_avg_train_bwd_plain(
+def lstm_bwd_recurrence_plain(
         params: RnnParams, codes: torch.Tensor,
         masks: Optional[torch.Tensor], hseq: torch.Tensor,
         cseq: torch.Tensor, d_avg: torch.Tensor, d_hidden: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients of the fused LSTM (``_lstm_train_bwd_kernel``), by an
-    explicit reverse loop over T carrying ``(dh, dc)``::
+) -> torch.Tensor:
+    """The sequential part of the fused LSTM's backward (the recurrence
+    kernel of ``csrc/rnn_train.cu``): an explicit reverse loop over T
+    carrying ``(dh, dc)`` (seeded ``d_hidden / 2`` on both branch rows,
+    plus ``d_avg[t] / 2`` each step), the gates recomputed from
+    ``(h_prev, c_prev)``::
 
         do = dh tanh(c)          dc_t = dc + dh o (1 - tanh(c)^2)
         da = [dc_t g i(1-i), dc_t c_prev f(1-f), dc_t i (1-g^2), do o(1-o)]
         dh_prev = da U^T         dc_prev = dc_t f
-        dU += h_prev^T da   db += sum da   dW[c] += sum_{code==c} mask_c da
 
     Returns:
-        ``(d_kernel [5, 4u], d_recurrent [u, 4u], d_bias [4u])``.
+        The gate cotangents ``da [2B, T, 4u]``, forward rows first.
     """
-    PLAIN_CALLS.add("lstm_train_bwd")
     batch, steps = codes.shape
     recurrent = params["recurrent"]
     units = recurrent.shape[0]
     both = _doubled_codes(codes)
-    scale = _mask_scale(masks, both, units)
-    xp = _train_projection(params["kernel"], params["bias"], both, scale)
+    xp = _train_projection(params["kernel"], params["bias"], both,
+                           _mask_scale(masks, both, units))
     half = d_hidden * 0.5
     dh = torch.cat([half, half])
     dc = torch.zeros_like(dh)
-    d_rec = torch.zeros_like(recurrent)
-    d_bias = torch.zeros_like(params["bias"])
     da_seq = xp.new_empty(xp.shape)
     zeros = hseq.new_zeros(2 * batch, units)
     for t in reversed(range(steps)):
@@ -513,7 +512,47 @@ def lstm_avg_train_bwd_plain(
                         d_o * go * (1.0 - go)], dim=1)
         dh = da @ recurrent.T
         dc = dc_t * gf
-        d_rec += h_prev.T @ da
-        d_bias += da.sum(0)
         da_seq[:, t] = da
-    return _kernel_grad(da_seq, both, scale), d_rec, d_bias
+    return da_seq
+
+
+def lstm_train_reduce_plain(
+        hseq: torch.Tensor, da_seq: torch.Tensor, codes: torch.Tensor,
+        masks: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The parameter gradients of the fused LSTM from its gate cotangents
+    (the reduction kernel of ``csrc/rnn_train.cu``): sums over every
+    ``(row, t)`` of the doubled batch::
+
+        dU = sum h_prev^T da   (h_prev = hseq one step back, zero at t=0)
+        db = sum da            dW[c] = sum_{code==c} mask_c da
+
+    Returns:
+        ``(d_kernel [5, 4u], d_recurrent [u, 4u], d_bias [4u])``.
+    """
+    rows, _, units = hseq.shape
+    width = da_seq.shape[-1]
+    both = _doubled_codes(codes)
+    h_prev = torch.cat([hseq.new_zeros(rows, 1, units), hseq[:, :-1]], dim=1)
+    flat_da = da_seq.reshape(-1, width)
+    d_rec = h_prev.reshape(-1, units).T @ flat_da
+    d_kernel = _kernel_grad(da_seq, both, _mask_scale(masks, both, units))
+    return d_kernel, d_rec, flat_da.sum(0)
+
+
+def lstm_avg_train_bwd_plain(
+        params: RnnParams, codes: torch.Tensor,
+        masks: Optional[torch.Tensor], hseq: torch.Tensor,
+        cseq: torch.Tensor, d_avg: torch.Tensor, d_hidden: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of the fused LSTM (``_lstm_train_bwd_kernel``): the plain
+    recurrence (:func:`lstm_bwd_recurrence_plain`), then the plain
+    reduction (:func:`lstm_train_reduce_plain`).
+
+    Returns:
+        ``(d_kernel [5, 4u], d_recurrent [u, 4u], d_bias [4u])``.
+    """
+    PLAIN_CALLS.add("lstm_train_bwd")
+    da_seq = lstm_bwd_recurrence_plain(params, codes, masks, hseq, cseq,
+                                       d_avg, d_hidden)
+    return lstm_train_reduce_plain(hseq, da_seq, codes, masks)

@@ -13,7 +13,8 @@ The shapes include the engine's default tile at the flagship shape
 
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
-tiny widths, with and without dropout masks: forward outputs at atol 1e-5;
+tiny widths (LSTM also at u=96 and u=128, past the register tile), with
+and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
 runs give bitwise-equal gradients (no float atomics).
@@ -95,6 +96,20 @@ def assert_grads_close(got, want):
 @pytest.mark.parametrize("batch,steps,units", TRAIN_SHAPES)
 def test_train_kernels_match_plain(device, cell, masked, batch, steps,
                                    units):
+    check_train_pair(device, cell, masked, batch, steps, units)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("batch,steps,units", [(64, 342, 96),
+                                               (5, 20, 128)])
+def test_lstm_train_kernels_match_plain_wide(device, masked, batch, steps,
+                                             units):
+    """Widths past the register tile (U read through L2), up to the
+    kernels' ceiling (4u threads a CTA, at most 512: u=128)."""
+    check_train_pair(device, "lstm", masked, batch, steps, units)
+
+
+def check_train_pair(device, cell, masked, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     seed = batch * steps + units
     params, codes = random_case(seed, gates, batch, steps, units, device)
@@ -129,6 +144,53 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
         f"{cell}_train_fwd", 0) + 1
     assert now.get(f"{cell}_train_bwd", 0) == launches.get(
         f"{cell}_train_bwd", 0) + 2
+
+
+def test_lstm_tile_quadruples_warps_per_sm(device):
+    """At B=256, u=60 the LSTM kernels put at least 4x the 3.75 warps an
+    SM of the GRU tile they replace (2 windows x 60 threads, one CTA an
+    SM)."""
+    tile = cuda_rnn.lstm_train_tile(256, 60, 342)
+    assert tile["threads"] == 240 and tile["ctas"] == 256
+    assert tile["fwd_warps_per_sm"] >= 4 * 3.75, tile
+    assert tile["bwd_warps_per_sm"] >= 4 * 3.75, tile
+
+
+def test_lstm_backward_width_ceiling(device):
+    """The LSTM kernels launch up to u=128 at T=342 (4u threads a CTA)
+    and not at u=129."""
+    tile = cuda_rnn.lstm_train_tile(8, 128, 342)
+    assert tile["fwd_ctas_per_sm"] >= 1 and tile["bwd_ctas_per_sm"] >= 1
+    tile = cuda_rnn.lstm_train_tile(8, 129, 342)
+    assert tile["fwd_ctas_per_sm"] == 0 and tile["bwd_ctas_per_sm"] == 0
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_lstm_bwd_parts_match_plain(device, masked):
+    """The recurrence kernel's gate cotangents against the plain
+    recurrence, and the reduction kernel on those cotangents against the
+    plain reduction (1e-4 of the largest magnitude)."""
+    batch, steps, units = 37, 150, 32
+    params, codes = random_case(99, 4, batch, steps, units, device)
+    masks = random_masks(99, 4, batch, device) if masked else None
+    _, _, hseq, cseq = rnn.lstm_avg_train_fwd_plain(params, codes, masks)
+    rng = np.random.default_rng(7)
+    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                         dtype=torch.float32, device=device)
+    d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                         dtype=torch.float32, device=device)
+    da = cuda_rnn._lstm_bwd_recurrence(params, codes, masks, (hseq, cseq),
+                                       d_avg, d_hid)
+    want_da = rnn.lstm_bwd_recurrence_plain(params, codes, masks, hseq,
+                                            cseq, d_avg, d_hid)
+    torch.cuda.synchronize()
+    assert (da - want_da).abs().max().item() <= (
+        1e-4 * want_da.abs().max().item())
+    grads = [torch.empty_like(params[k])
+             for k in ("kernel", "recurrent", "bias")]
+    cuda_rnn._train_reduce(hseq, want_da, codes, masks, 4, grads)
+    assert_grads_close(grads, rnn.lstm_train_reduce_plain(hseq, want_da,
+                                                          codes, masks))
 
 
 def test_train_grid_fills_the_card(device):

@@ -221,3 +221,86 @@ def test_init_follows_keras_defaults(cell):
                                rtol=0)
     np.testing.assert_array_equal(params["bias"].numpy(),
                                   np.asarray(want["bias"]))
+
+
+LSTM_SPLIT_SHAPES = [(3, 17, 8), (5, 40, 12)]
+
+
+def lstm_cotangents(seed, batch, steps, units):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(batch, steps, units)).astype(np.float32),
+            rng.normal(size=(batch, units)).astype(np.float32))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("batch,steps,units", LSTM_SPLIT_SHAPES)
+def test_plain_lstm_reduce_matches_pallas_vjp(rate, batch, steps, units):
+    """The plain reduction fed the plain recurrence's gate cotangents gives
+    the JAX custom VJP's ``(dW, dU, db)`` (interpret mode), atol 1e-5."""
+    params, codes, masks = random_case(batch * units + steps, "lstm", batch,
+                                       steps, units, rate)
+    d_avg, d_hid = lstm_cotangents(steps, batch, steps, units)
+    fn, j_params, j_codes, j_masks, has_mask = jax_train("lstm", params,
+                                                         codes, masks)
+    _, vjp = jax.vjp(lambda p: fn(p, j_codes, j_masks, has_mask), j_params)
+    (want,) = vjp((jnp.asarray(d_avg), jnp.asarray(d_hid)))
+    t_params, t_codes, t_masks = to_torch(params, codes, masks)
+    _, _, hseq, cseq = rnn.lstm_avg_train_fwd_plain(t_params, t_codes,
+                                                    t_masks)
+    da_seq = rnn.lstm_bwd_recurrence_plain(
+        t_params, t_codes, t_masks, hseq, cseq, torch.from_numpy(d_avg),
+        torch.from_numpy(d_hid))
+    assert da_seq.shape == (2 * batch, steps, 4 * units)
+    got = rnn.lstm_train_reduce_plain(hseq, da_seq, t_codes, t_masks)
+    for name, grad in zip(("kernel", "recurrent", "bias"), got):
+        assert grad.shape == t_params[name].shape, name
+        np.testing.assert_allclose(grad.numpy(), np.asarray(want[name]),
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("batch,steps,units", LSTM_SPLIT_SHAPES)
+def test_split_plain_lstm_bwd_matches_autograd(rate, batch, steps, units):
+    """The composed plain backward (recurrence, then reduction) equals
+    torch autograd through the plain forward, atol 1e-5, and is exactly the
+    composition of its two parts."""
+    params, codes, masks = random_case(batch + 2 * units, "lstm", batch,
+                                       steps, units, rate)
+    t_params, t_codes, t_masks = to_torch(params, codes, masks)
+    for value in t_params.values():
+        value.requires_grad_(True)
+    avg, hidden, hseq, cseq = rnn.lstm_avg_train_fwd_plain(t_params, t_codes,
+                                                           t_masks)
+    d_avg, d_hid = (torch.from_numpy(a) for a in
+                    lstm_cotangents(units, batch, steps, units))
+    torch.autograd.backward([avg, hidden], [d_avg, d_hid])
+    with torch.no_grad():
+        hseq, cseq = hseq.detach(), cseq.detach()
+        grads = rnn.lstm_avg_train_bwd_plain(t_params, t_codes, t_masks,
+                                             hseq, cseq, d_avg, d_hid)
+        parts = rnn.lstm_train_reduce_plain(
+            hseq, rnn.lstm_bwd_recurrence_plain(t_params, t_codes, t_masks,
+                                                hseq, cseq, d_avg, d_hid),
+            t_codes, t_masks)
+    for name, got, part in zip(("kernel", "recurrent", "bias"), grads,
+                               parts):
+        torch.testing.assert_close(got, t_params[name].grad, atol=1e-5,
+                                   rtol=0, msg=name)
+        assert torch.equal(got, part), name
+
+
+@pytest.mark.parametrize("batch,steps,units,gates,sms", [
+    (256, 342, 60, 4, 132), (37, 150, 32, 4, 132), (64, 342, 96, 4, 132),
+    (1, 1, 5, 4, 132), (256, 342, 60, 3, 114)])
+def test_reduce_splits(batch, steps, units, gates, sms):
+    """The reduction's split count: at least one, no more than one for
+    every 256 rows, at most about four CTAs an SM, and a function of the
+    shape and SM count alone (so sums repeat bitwise)."""
+    rows = 2 * batch * steps
+    splits = cuda_rnn.reduce_splits(rows, units, gates, sms)
+    assert splits == cuda_rnn.reduce_splits(rows, units, gates, sms)
+    assert 1 <= splits <= -(-rows // 256)
+    tiles = -(-gates * units // 64) * -(-units // 64)
+    assert tiles * splits <= 4 * sms + tiles
+    if (batch, steps, units, gates) == (256, 342, 60, 4):
+        assert splits == 132  # 4 column tiles x 132 splits: 4 CTAs an SM
