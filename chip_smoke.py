@@ -12,11 +12,12 @@ Phases (any failure exits non-zero; nothing is caught):
    (``native/``, g++) in parallel and prints their build times.
 2. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the flagship shape (B=1024 windows, T=342, u=60) and at a
-   ragged one (B=1000, T=150, u=32), random weights and codes (with N and
-   pad codes) from a seed; max abs difference <= 1e-5 on both outputs (the
-   JAX package's kernel tolerance).  Times the kernel, the plain version
-   and the cuDNN recurrence (``torch.nn.GRU``/``LSTM`` on the doubled
-   one-hot batch, TF32 off) with CUDA events.
+   ragged one (B=1000, T=150, u=32), the GRU also at u=96 and u=128 (past
+   its register tile; the GRU's tile is printed), random weights and codes
+   (with N and pad codes) from a seed; max abs difference <= 1e-5 on both
+   outputs (the JAX package's kernel tolerance).  Times the kernel, the
+   plain version and the cuDNN recurrence (``torch.nn.GRU``/``LSTM`` on the
+   doubled one-hot batch, TF32 off) with CUDA events.
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
    the reference settings and the ``.npz`` weights in
@@ -34,10 +35,11 @@ Phases (any failure exits non-zero; nothing is caught):
    each gradient, and a second backward bitwise equal to the first.  Times
    each kernel, its plain version and cuDNN (``torch.nn.GRU``/``LSTM``
    forward, and forward + backward, on the doubled one-hot batch without
-   masks, TF32 off) with CUDA events.  For the LSTM it prints the tile
-   (threads, CTAs and warps an SM), the backward's split (recurrence
-   kernel ms, reduction kernel ms), and checks the pair again at u=96
-   (B=64, T=342), a width past the register tile.
+   masks, TF32 off) with CUDA events.  For both cells it prints the window
+   tile of the backward's recurrence kernel (and the LSTM forward's:
+   threads, CTAs and warps an SM) and the backward's split (recurrence
+   kernel ms, reduction kernel ms), and checks the pair again past the
+   register tile: at u=96 (B=64, T=342) and, for the GRU, at u=128.
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -60,7 +62,8 @@ Phases (any failure exits non-zero; nothing is caught):
    128) and (512, 342, 256) in float32 (U in shared memory, then through
    L2) and a ragged (7, 23, 60); the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
-   (1024, 342, 60) and (1000, 150, 32).  atol 1e-5 in float32, 2e-2 in
+   (1024, 342, 60) and (1000, 150, 32), the GRU also at u=96 and u=128.
+   atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
    (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off).
 9. The scan route and the fast mode: ``predict --rnn-kernel scan`` on the
@@ -110,6 +113,8 @@ KERNELS = {
     "lstm_avg": (4, "deepgrp_tpu/models/pallas_rnn.py:309"),
 }
 SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
+# The GRU kernel past its register tile (U through L1/L2), up to u=128.
+GRU_WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
 
 TRAIN_KERNELS = {
     # name: TPU kernel it replaces
@@ -120,6 +125,8 @@ TRAIN_KERNELS = {
 }
 TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
 LSTM_WIDE_SHAPE = (64, 342, 96)
+# Widths past the window tile's registers, up to its ceiling (4u <= 512).
+TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (64, 342, 128)}
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -280,9 +287,14 @@ def kernel_phase(torch):
     for name, (gates, _) in KERNELS.items():
         kernel = getattr(cuda_rnn, name)
         plain = getattr(rnn, f"{name}_plain")
-        for label, (batch, steps, units) in SHAPES.items():
+        shapes = {**SHAPES, **(GRU_WIDE_SHAPES if gates == 3 else {})}
+        for label, (batch, steps, units) in shapes.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
+            if gates == 3:
+                windows, n_cta = cuda_rnn.gru_avg_tile(batch, units)
+                print(f"{name} {label}: tile {n_cta} CTAs x {windows} "
+                      f"windows ({4 * units} threads)", flush=True)
             avg, hidden = kernel(params, codes)
             torch.cuda.synchronize()
             p_avg, p_hidden = plain(params, codes)
@@ -498,21 +510,20 @@ def time_train_kernels(torch, cell: str, case, errors):
         "lib_fwd": cuda_ms(torch, lib_fwd, 20),
         "lib_bwd": cuda_ms(torch, lib_fwd_bwd, 20),
     }
-    if cell == "lstm":
-        # The backward's two parts: the recurrence kernel, then the
-        # reduction kernel with the sum of its partials.
-        da = cuda_rnn._lstm_bwd_recurrence(params, codes, masks, seqs,
-                                           d_avg, d_hid)
-        split = {
-            "recurrence": cuda_ms(torch, lambda: cuda_rnn._lstm_bwd_recurrence(
-                params, codes, masks, seqs, d_avg, d_hid), 20),
-            "reduction": cuda_ms(torch, lambda: cuda_rnn._train_reduce(
-                seqs[0], da, codes, masks, gates, list(grads)), 20),
-        }
-        print(f"  lstm_train_bwd split: recurrence_ms="
-              f"{split['recurrence']:.4f} reduction_ms="
-              f"{split['reduction']:.4f} (backward kernel_ms={ms['bwd']:.4f})",
-              flush=True)
+    # The backward's two parts: the recurrence kernel, then the reduction
+    # kernel with the sum of its partials.
+    cotangents = cuda_rnn._bwd_recurrence(cell, params, codes, masks, seqs,
+                                          d_avg, d_hid)
+    split = {
+        "recurrence": cuda_ms(torch, lambda: cuda_rnn._bwd_recurrence(
+            cell, params, codes, masks, seqs, d_avg, d_hid), 20),
+        "reduction": cuda_ms(torch, lambda: cuda_rnn._train_reduce(
+            seqs[0], codes, masks, gates, list(grads), *cotangents), 20),
+    }
+    print(f"  {cell}_train_bwd split: recurrence_ms="
+          f"{split['recurrence']:.4f} reduction_ms="
+          f"{split['reduction']:.4f} (backward kernel_ms={ms['bwd']:.4f})",
+          flush=True)
     # Multiply-adds of the recurrent products: the forward's h U over both
     # rows; the backward recomputes them and adds d_rp U^T and
     # h_prev^T d_rp (3x).  Bytes: each input read once, each output
@@ -559,29 +570,38 @@ def train_kernel_phase(torch):
         gates = 4 if cell == "lstm" else 3
         for label, (batch, steps, units) in TRAIN_SHAPES.items():
             case = train_case(torch, gen, gates, batch, steps, units)
-            if cell == "lstm":
-                tile = cuda_rnn.lstm_train_tile(batch, units, steps)
-                print(f"{cell} train {label} B={batch} T={steps} u={units}: "
-                      f"tile {tile}", flush=True)
-            else:
-                block_rows, n_cta = cuda_rnn.train_grid(batch, units)
-                print(f"{cell} train {label} B={batch} T={steps} u={units}: "
-                      f"grid {n_cta} CTAs x {block_rows} windows "
-                      f"({block_rows * units} threads)", flush=True)
+            print_train_tile(cuda_rnn, cell, label, batch, steps, units)
             errors = check_train_kernels(torch, cell, case, case[2])
             check_train_kernels(torch, cell, case, None)
             for name, row in time_train_kernels(torch, cell, case,
                                                 errors).items():
                 results[(name, label)] = row
-    # A width past the LSTM's register tile, which the GRU-style LSTM
-    # backward refused (dU beside U in shared memory stopped it at u=82).
-    batch, steps, units = LSTM_WIDE_SHAPE
-    print(f"lstm train wide B={batch} T={steps} u={units}: tile "
-          f"{cuda_rnn.lstm_train_tile(batch, units, steps)}", flush=True)
-    case = train_case(torch, gen, 4, batch, steps, units)
-    check_train_kernels(torch, "lstm", case, case[2])
-    check_train_kernels(torch, "lstm", case, None)
+    # Widths past the window tile's registers, which the block-row
+    # backward refused (dU beside U in shared memory stopped it at u=82 for LSTM
+    # and u=94 for GRU); the LSTM at u=96 only, as before.
+    for cell in ("gru", "lstm"):
+        gates = 4 if cell == "lstm" else 3
+        for label, (batch, steps, units) in TRAIN_WIDE_SHAPES.items():
+            if cell == "lstm" and label != "u96":
+                continue
+            print_train_tile(cuda_rnn, cell, label, batch, steps, units)
+            case = train_case(torch, gen, gates, batch, steps, units)
+            check_train_kernels(torch, cell, case, case[2])
+            check_train_kernels(torch, cell, case, None)
     return results
+
+
+def print_train_tile(cuda_rnn, cell: str, label: str, batch: int,
+                     steps: int, units: int) -> None:
+    """The training kernels' tiles: the window tile (LSTM forward and both
+    backward recurrences) and the GRU forward's grid."""
+    line = (f"{cell} train {label} B={batch} T={steps} u={units}: window "
+            f"tile {cuda_rnn.train_tile(cell, batch, units, steps)}")
+    if cell == "gru":
+        block_rows, n_cta = cuda_rnn.train_grid(batch, units)
+        line += (f"; forward grid {n_cta} CTAs x {block_rows} windows "
+                 f"({block_rows * units} threads)")
+    print(line, flush=True)
 
 
 def check_counts(expected):
@@ -988,7 +1008,8 @@ def bf16_kernel_phase(torch):
     for name, (gates, _) in KERNELS.items():
         kernel = getattr(cuda_rnn, name)
         plain = getattr(rnn, f"{name}_plain")
-        for label, (batch, steps, units) in SHAPES.items():
+        shapes = {**SHAPES, **(GRU_WIDE_SHAPES if gates == 3 else {})}
+        for label, (batch, steps, units) in shapes.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
             avg, hidden = kernel(params, codes, torch.bfloat16)

@@ -133,38 +133,40 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
-    for fn in (lib.dg_gru_avg, lib.dg_lstm_avg, lib.dg_gru_avg_bf16,
-               lib.dg_lstm_avg_bf16):
-        # codes, batch, steps, kernel, bias, recurrent, units, avg, hidden,
-        # stream
-        fn.argtypes = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32, _PTR, _PTR,
-                       _PTR]
+    # codes, batch, steps, kernel, bias, recurrent, units, (GRU: windows a
+    # CTA), avg, hidden, stream
+    head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32]
+    for fn in (lib.dg_gru_avg, lib.dg_gru_avg_bf16):
+        fn.argtypes = head + [_I32, _PTR, _PTR, _PTR]
         fn.restype = _I32
+    for fn in (lib.dg_lstm_avg, lib.dg_lstm_avg_bf16):
+        fn.argtypes = head + [_PTR, _PTR, _PTR]
+        fn.restype = _I32
+    lib.dg_gru_avg_max_windows.argtypes = [_I32]  # units
+    lib.dg_gru_avg_max_windows.restype = _I32
 
 
 def _declare_rnn_train(lib: ctypes.CDLL) -> None:
     lib.dg_train_block_rows.argtypes = [_I32, _I32]  # batch, units
     lib.dg_train_block_rows.restype = _I32
-    # codes, batch, steps, masks, kernel, bias, recurrent, units, block rows
-    head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32]
-    # avg, hidden, hseq, stream
-    lib.dg_gru_train_fwd.argtypes = head + [_PTR] * 4
-    # hseq, d_avg, d_hidden, part_w, part_b, part_u, d_kernel, d_bias,
-    # d_recurrent, stream
-    lib.dg_gru_train_bwd.argtypes = head + [_PTR] * 10
-    # LSTM (one CTA a window, no block rows): codes, batch, steps, masks,
-    # kernel, bias, recurrent, units, then avg, hidden, hseq, cseq, stream
-    # (forward) or hseq, cseq, d_avg, d_hidden, da, stream (recurrence)
-    lstm_head = head[:-1]
-    lib.dg_lstm_train_fwd.argtypes = lstm_head + [_PTR] * 5
-    lib.dg_lstm_bwd_recurrence.argtypes = lstm_head + [_PTR] * 6
-    lib.dg_lstm_train_ctas_per_sm.argtypes = [_I32, _I32, _I32]
+    # codes, batch, steps, masks, kernel, bias, recurrent, units
+    head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32]
+    # GRU forward: block rows, then avg, hidden, hseq, stream
+    lib.dg_gru_train_fwd.argtypes = head + [_I32] + [_PTR] * 4
+    # LSTM forward: avg, hidden, hseq, cseq, stream; the recurrences:
+    # hseq (and cseq), d_avg, d_hidden, da (or d_rp, d_xp), stream
+    lib.dg_lstm_train_fwd.argtypes = head + [_PTR] * 5
+    lib.dg_lstm_bwd_recurrence.argtypes = head + [_PTR] * 6
+    lib.dg_gru_bwd_recurrence.argtypes = head + [_PTR] * 6
+    # which (0 LSTM forward, 1 LSTM recurrence, 2 GRU recurrence), units,
+    # steps
+    lib.dg_window_ctas_per_sm.argtypes = [_I32, _I32, _I32]
     # hseq, r1, r2, codes, masks, batch, steps, units, gates, splits, parts,
     # d_kernel, d_bias_1, d_bias_2, d_recurrent, stream
     lib.dg_train_reduce.argtypes = ([_PTR] * 5 + [_I32] * 5 + [_PTR] * 6)
     for fn in (lib.dg_gru_train_fwd, lib.dg_lstm_train_fwd,
-               lib.dg_gru_train_bwd, lib.dg_lstm_bwd_recurrence,
-               lib.dg_lstm_train_ctas_per_sm, lib.dg_train_reduce):
+               lib.dg_lstm_bwd_recurrence, lib.dg_gru_bwd_recurrence,
+               lib.dg_window_ctas_per_sm, lib.dg_train_reduce):
         fn.restype = _I32
 
 

@@ -20,8 +20,7 @@
 // fast mode (the TPU's Precision.DEFAULT, pallas_rnn.py:262-265): h and U
 // are rounded to bfloat16 for the recurrent dot, which accumulates in
 // float32; the row select, the carry, the gate math and the average stay
-// float32, and avg and hidden are stored as bfloat16.  The float32 variants
-// compile to the same arithmetic as before the bf16 variants existed.
+// float32, and avg and hidden are stored as bfloat16.
 //
 // Bound on this card.  Per window the recurrent products cost
 // 2 rows x T x u x (g*u) multiply-adds (g = 3 GRU, 4 LSTM); at the flagship
@@ -30,36 +29,78 @@
 // float32 tensor-core path; TF32 would not be float32), not by the bytes.
 // The recurrence is sequential in T, so the parallelism is B x 2 x u.
 //
-// Design (right and simple first):
+// GRU (GruAvgKernel, redesigned for Hopper).  The first design (the LSTM's,
+// below) ran one thread per (window, unit) over a k loop that issued 2
+// broadcast h loads and 3 U loads from shared memory for 6 FMAs: the step
+// was bound by shared-memory wavefronts (about 4,500 an SM a step against
+// 1,350 FMA issue cycles at u=60), and no U element fed more than two rows.
+// Here each U element, loaded once into a register, feeds many rows:
+//   * Tile: a CTA owns bb windows (2bb rows) for all T steps, bb chosen by
+//     the caller from the batch and the SM count so the grid is one wave
+//     (1024 windows on 132 SMs: bb=8, 128 CTAs; the CLI's default 256:
+//     bb=2; the fixtures' 64: bb=1), at most 8 (2 above u=128).  Threads
+//     come in lane groups of 4u: thread 4 i + s of a group owns unit i and
+//     k-slice s (the float4 quads s, s+4, ... of the recurrent dot) for the
+//     group's kWin windows; a CTA has ceil(bb / kWin) groups.
+//   * Up to u=64 (kRegUnits) the lane keeps its slice of U (U[k, g u + i]
+//     for its 16 k and the 3 gates: 48 floats) in registers, with kWin = 4
+//     (bb=8: 2 groups, 480 threads, 15 warps an SM), or 2 when bb <= 2;
+//     wider layers read the slice through L1/L2 (one quad's 12 entries at a
+//     time), with kWin = 8 up to u=128 (4u threads) and 2 above (up to
+//     u=256, 1,024 threads).
+//   * Step: the lane forms the three gate partials of its group's 2 kWin
+//     rows over its slice, reading h as float4 broadcasts from shared
+//     memory (kWin=4: 384 FMAs against 32 shared loads); a fixed butterfly
+//     of shuffles (xor 1, then xor 2) reduce-scatters the sums, so lane s
+//     ends with whole sums for its window's two rows; it does their gate
+//     math, carries their h in registers, writes h to the other of two
+//     shared buffers (one barrier a step) and stores the branch average.
+//     Ragged B: windows past the batch read pad codes and store nothing; a
+//     group's windows past bb read the CTA's last window (no branch in the
+//     dot) and their sums are dropped.
+//   * Found on the H100 while choosing the tile: a branch on the window
+//     count inside the dot made the step markedly slower (the compiler
+//     could not interleave the windows' loads); 8 windows a group with U in
+//     registers hit the 128-register cap and spilled, and so did the
+//     register variants under a 1,024-thread bound (64 registers).
+//   * The sums run in another order than the first design's k loop (four
+//     slices, then the butterfly); the plain version's tolerance allows
+//     for that.
+//   * ptxas -v (sm_90a, CUDA 12.8), the same for float32 and bfloat16, no
+//     spills: kWin 4 with U in registers 128 registers, kWin 2 with U in
+//     registers 111; kWin 8 through L1/L2 128; kWin 2 through L1/L2 64.
+//   * What bounds it: the FMA issue of the dot (the floor at 1024 x 342 x
+//     60 on 128 SMs is about 0.23 ms) plus the gate math (960 rows x units
+//     an SM a step at bb=8, three transcendentals each), then the latency
+//     of the butterfly and the barrier of each step.
+//
+// LSTM (RnnAvgKernel, the first design):
 //   * One CTA owns a block of `bb` windows for all T steps; the recurrence
 //     is a loop inside the kernel, not a grid dimension.  Nothing carries
 //     between CTAs.
 //   * Thread (b, i) owns unit i of window b for BOTH branches: it keeps
-//     h_fwd[b, i] and h_rev[b, i] (and c for LSTM) in registers, computes
-//     their g gate pre-activations, and writes avg[b, t, i] itself (no
+//     h_fwd[b, i], h_rev[b, i], c_fwd and c_rev in registers, computes
+//     their 4 gate pre-activations, and writes avg[b, t, i] itself (no
 //     second pass, no reverse-complement tensor in device memory).  Each U
 //     element loaded from shared memory feeds two rows (fwd and rev).
-//   * Shared memory holds U [u, g*u], W [5, g*u], the bias rows, the CTA's
-//     codes [bb, T] (loaded once, so no global load sits on the step's
-//     critical path), and the doubled hidden state [2*bb, u] twice: step t
-//     reads one buffer and writes the other, so one __syncthreads per step
-//     suffices.
+//   * Shared memory holds U [u, 4u], W [5, 4u], the bias, the CTA's codes
+//     [bb, T] (loaded once, so no global load sits on the step's critical
+//     path), and the doubled hidden state [2*bb, u] twice: step t reads one
+//     buffer and writes the other, so one __syncthreads per step suffices.
 //   * The recurrent dot is a plain float32 FMA chain over k in order (the
 //     counterpart of Precision.HIGHEST on the TPU): no TF32, no tensor
 //     cores.
 //   * Tile: bb = 8 windows (fewer when 8*u > 1024 threads).  At the engine's
 //     batch of 1024 windows that is 128 CTAs for the 132 SMs, one wave with
 //     one CTA per SM; at u=60 a CTA has 480 threads (15 warps) and needs
-//     ~59 kB (GRU) / ~75 kB (LSTM) of shared memory, above the 48 kB static
-//     limit, so the launch opts in to dynamic shared memory.  Ragged B is
-//     masked in the kernel (rows past B read pad codes and store nothing).
-//   * What bounds this version is shared-memory bandwidth (3-4 loads per
-//     2-row FMA pair), not the FMA units; tensor cores, more rows per thread
-//     and several steps per barrier are left to later work.  The bf16
-//     variants keep U and h in shared memory as float32 values already
-//     rounded to bfloat16, so they run the same float32 FMAs: their bound
-//     is the same work at the bf16 tensor-core rate, which this design
-//     cannot reach.
+//     ~75 kB of shared memory, above the 48 kB static limit, so the launch
+//     opts in to dynamic shared memory.  Ragged B is masked in the kernel
+//     (rows past B read pad codes and store nothing).
+//   * What bounds it is shared-memory bandwidth (3-4 loads per 2-row FMA
+//     pair), not the FMA units.
+// The bf16 variants keep U and h as float32 values already rounded to
+// bfloat16, so they run the same float32 FMAs: their bound is the same work
+// at the bf16 tensor-core rate, which neither design reaches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,9 +148,8 @@ struct Io<true> {
   }
 };
 
-// kGates == 3: GRU (bias [2, 3u]: input row, recurrent row).
-// kGates == 4: LSTM (bias [4u]).
-template <int kGates, bool kBf16>
+// The LSTM (bias [4u]), the first design.
+template <bool kBf16>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
              const float *__restrict__ kernel, const float *__restrict__ bias,
@@ -117,13 +157,13 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
              typename Io<kBf16>::Out *__restrict__ avg,
              typename Io<kBf16>::Out *__restrict__ hidden) {
   using IoT = Io<kBf16>;
-  constexpr int kBiasRows = (kGates == 3) ? 2 : 1;
+  constexpr int kGates = 4;
   extern __shared__ float smem[];
   const int width = kGates * units;
   float *s_u = smem;                           // [u, width]
   float *s_w = s_u + units * width;            // [5, width]
-  float *s_b = s_w + kCodes * width;           // [kBiasRows, width]
-  float *s_h = s_b + kBiasRows * width;        // [2 buffers][2*bb][u]
+  float *s_b = s_w + kCodes * width;           // [width]
+  float *s_h = s_b + width;                    // [2 buffers][2*bb][u]
   int8_t *s_codes = reinterpret_cast<int8_t *>(s_h + 4 * bb * units);
 
   const int tid = threadIdx.x;
@@ -133,7 +173,7 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     s_u[j] = IoT::Operand(recurrent[j]);
   }
   for (int j = tid; j < kCodes * width; j += n_threads) s_w[j] = kernel[j];
-  for (int j = tid; j < kBiasRows * width; j += n_threads) s_b[j] = bias[j];
+  for (int j = tid; j < width; j += n_threads) s_b[j] = bias[j];
   for (int j = tid; j < 4 * bb * units; j += n_threads) s_h[j] = 0.0f;
   for (int j = tid; j < bb * steps; j += n_threads) {
     const bool in_batch = row0 + j / steps < batch;
@@ -147,8 +187,6 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   const int row = row0 + b;
   const bool valid = row < batch;
   const int8_t *my_codes = s_codes + b * steps;
-  const float *b_in = s_b;
-  const float *b_rec = s_b + (kBiasRows - 1) * width;  // GRU recurrent row
   float h_f = 0.0f, h_r = 0.0f, c_f = 0.0f, c_r = 0.0f;
 
   for (int t = 0; t < steps; ++t) {
@@ -161,8 +199,8 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     float x_f[kGates], x_r[kGates];
 #pragma unroll
     for (int g = 0; g < kGates; ++g) {
-      x_f[g] = b_in[g * units + i];
-      x_r[g] = b_in[g * units + i];
+      x_f[g] = s_b[g * units + i];
+      x_r[g] = s_b[g * units + i];
     }
     if (static_cast<unsigned>(code_f) < kCodes) {
       const float *w = s_w + code_f * width;
@@ -197,33 +235,19 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
       }
     }
 
-    if constexpr (kGates == 3) {
-      // Keras GRU, reset_after=True.
-      const float rz = b_rec[i], rr = b_rec[units + i],
-                  rh = b_rec[2 * units + i];
-      float z = Sigmoid(x_f[0] + (a_f[0] + rz));
-      float r = Sigmoid(x_f[1] + (a_f[1] + rr));
-      float hh = tanhf(x_f[2] + r * (a_f[2] + rh));
-      h_f = z * h_f + (1.0f - z) * hh;
-      z = Sigmoid(x_r[0] + (a_r[0] + rz));
-      r = Sigmoid(x_r[1] + (a_r[1] + rr));
-      hh = tanhf(x_r[2] + r * (a_r[2] + rh));
-      h_r = z * h_r + (1.0f - z) * hh;
-    } else {
-      // Keras LSTM, gates i, f, c, o.
-      float ig = Sigmoid(x_f[0] + a_f[0]);
-      float fg = Sigmoid(x_f[1] + a_f[1]);
-      float gg = tanhf(x_f[2] + a_f[2]);
-      float og = Sigmoid(x_f[3] + a_f[3]);
-      c_f = fg * c_f + ig * gg;
-      h_f = og * tanhf(c_f);
-      ig = Sigmoid(x_r[0] + a_r[0]);
-      fg = Sigmoid(x_r[1] + a_r[1]);
-      gg = tanhf(x_r[2] + a_r[2]);
-      og = Sigmoid(x_r[3] + a_r[3]);
-      c_r = fg * c_r + ig * gg;
-      h_r = og * tanhf(c_r);
-    }
+    // Keras LSTM, gates i, f, c, o.
+    float ig = Sigmoid(x_f[0] + a_f[0]);
+    float fg = Sigmoid(x_f[1] + a_f[1]);
+    float gg = tanhf(x_f[2] + a_f[2]);
+    float og = Sigmoid(x_f[3] + a_f[3]);
+    c_f = fg * c_f + ig * gg;
+    h_f = og * tanhf(c_f);
+    ig = Sigmoid(x_r[0] + a_r[0]);
+    fg = Sigmoid(x_r[1] + a_r[1]);
+    gg = tanhf(x_r[2] + a_r[2]);
+    og = Sigmoid(x_r[3] + a_r[3]);
+    c_r = fg * c_r + ig * gg;
+    h_r = og * tanhf(c_r);
 
     h_nxt[b * units + i] = IoT::Operand(h_f);
     h_nxt[(bb + b) * units + i] = IoT::Operand(h_r);
@@ -239,30 +263,29 @@ RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   }
 }
 
-template <int kGates, bool kBf16>
-int Launch(const void *codes, int batch, int steps, const void *kernel,
-           const void *bias, const void *recurrent, int units, void *avg,
-           void *hidden, void *stream) {
+template <bool kBf16>
+int LaunchLstm(const void *codes, int batch, int steps, const void *kernel,
+               const void *bias, const void *recurrent, int units, void *avg,
+               void *hidden, void *stream) {
   if (batch <= 0 || steps <= 0 || units <= 0 || units > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bias_rows = (kGates == 3) ? 2 : 1;
   const int bb = BlockRows(units);
-  const size_t width = static_cast<size_t>(kGates) * units;
+  const size_t width = static_cast<size_t>(4) * units;
   const size_t smem =
-      sizeof(float) * (units * width + kCodes * width + bias_rows * width +
+      sizeof(float) * (units * width + kCodes * width + width +
                        4 * static_cast<size_t>(bb) * units) +
       static_cast<size_t>(bb) * steps;
   // Above 48 kB a kernel only launches after this opt-in; a launch without
   // it is refused, and the refusal shows only in cudaGetLastError.
   using Out = typename Io<kBf16>::Out;
   cudaError_t err = cudaFuncSetAttribute(
-      RnnAvgKernel<kGates, kBf16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      RnnAvgKernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + bb - 1) / bb);
-  RnnAvgKernel<kGates, kBf16><<<grid, bb * units, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  RnnAvgKernel<kBf16><<<grid, bb * units, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t *>(codes), batch, steps,
       static_cast<const float *>(kernel), static_cast<const float *>(bias),
       static_cast<const float *>(recurrent), units, bb,
@@ -270,40 +293,346 @@ int Launch(const void *codes, int batch, int steps, const void *kernel,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ GRU tile
+
+constexpr int kGates = 3;
+constexpr int kSlices = 4;      // k-slices a unit (lanes 4i .. 4i+3)
+constexpr int kRegUnits = 64;   // U's slice in registers up to this width
+constexpr int kRegQuads = kRegUnits / (4 * kSlices);
+constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
+constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
+
+__host__ __device__ __forceinline__ int Pad4(int n) { return (n + 3) & ~3; }
+
+// Windows a CTA may own at this width.
+__host__ __device__ __forceinline__ int MaxWindows(int units) {
+  return units <= kTileUnits ? 8 : 2;
+}
+
+// The U entries of lane (i, s): U[4 (s + 4 m) + c, g u + i] for quad m of
+// its slice, c < 4, gate g (zero past u), rounded to the dot's precision;
+// from registers or, for wider layers, device memory through L1/L2.
+template <bool kURegs, bool kBf16>
+struct USlice {
+  float reg[kURegs ? kRegQuads : 1][4][kGates];
+  const float *recurrent;
+
+  __device__ __forceinline__ void load(const float *__restrict__ u_mat,
+                                       int units, int i, int s) {
+    recurrent = u_mat;
+    if constexpr (kURegs) {
+#pragma unroll
+      for (int m = 0; m < kRegQuads; ++m) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = 4 * (s + kSlices * m) + c;
+#pragma unroll
+          for (int g = 0; g < kGates; ++g) {
+            reg[m][c][g] =
+                k < units ? Io<kBf16>::Operand(
+                                u_mat[k * kGates * units + g * units + i])
+                          : 0.0f;
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ float at(int m, int c, int g, int s, int units,
+                                      int i) const {
+    if constexpr (kURegs) {
+      return reg[m][c][g];
+    } else {
+      const int k = 4 * (s + kSlices * m) + c;
+      return k < units ? Io<kBf16>::Operand(__ldg(
+                             recurrent + k * kGates * units + g * units + i))
+                       : 0.0f;
+    }
+  }
+};
+
+// Sums in[.][b][g] with lane (this ^ mask) and keeps half of the windows:
+// lane bit `hi` set keeps the odd ones (2w + 1), else the even (2w); the
+// partner lane sends the other half.
+template <int kN>
+__device__ __forceinline__ void FoldWindows(const float (&in)[kN][2][kGates],
+                                            bool hi, int mask,
+                                            unsigned lanes,
+                                            float (&out)[kN / 2][2][kGates]) {
+#pragma unroll
+  for (int w = 0; w < kN / 2; ++w) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+        const float keep = hi ? in[2 * w + 1][b][g] : in[2 * w][b][g];
+        const float send = hi ? in[2 * w][b][g] : in[2 * w + 1][b][g];
+        out[w][b][g] = keep + __shfl_xor_sync(lanes, send, mask);
+      }
+    }
+  }
+}
+
+// Lanes of this thread's warp that exist (the last warp of a CTA of 4u
+// threads may be partial); the shuffles name only those.
+__device__ __forceinline__ unsigned WarpLanes() {
+  const int n = static_cast<int>(blockDim.x) - (threadIdx.x & ~31);
+  return n >= 32 ? ~0u : (1u << n) - 1u;
+}
+
+// kWin windows a lane group (4u threads); ceil(bb / kWin) groups a CTA.
+template <int kWin, bool kURegs, bool kBf16>
+__global__ void __launch_bounds__(kWin == 2 && !kURegs ? kMaxThreads
+                                                       : kMaxThreads / 2,
+                                  1)
+GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
+             const float *__restrict__ kernel, const float *__restrict__ bias,
+             const float *__restrict__ recurrent, int units, int bb,
+             typename Io<kBf16>::Out *__restrict__ avg,
+             typename Io<kBf16>::Out *__restrict__ hidden) {
+  static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
+  using IoT = Io<kBf16>;
+  // Windows a lane owns after the butterfly: w0 + 4 j + s (kWin >= 4), or
+  // w0 + (s & 1), shared by lanes s and s ^ 2 (kWin 2).
+  constexpr int kOwn = kWin >= 4 ? kWin / 4 : 1;
+  extern __shared__ float4 smem4[];
+  const int width = kGates * units;
+  const int hstride = Pad4(units);
+  float *s_h = reinterpret_cast<float *>(smem4);  // [2 buffers][2bb][hstride]
+  float *s_w = s_h + 4 * bb * hstride;           // [5][width]
+  int8_t *s_codes = reinterpret_cast<int8_t *>(s_w + kCodes * width);
+
+  const int tid = threadIdx.x;
+  const int group = tid / (kSlices * units);
+  const int lane = tid - group * kSlices * units;
+  const int i = lane / kSlices, s = lane % kSlices;
+  const int w0 = group * kWin;
+  const int row0 = blockIdx.x * bb;
+  for (int j = tid; j < 4 * bb * hstride; j += blockDim.x) s_h[j] = 0.0f;
+  for (int j = tid; j < kCodes * width; j += blockDim.x) s_w[j] = kernel[j];
+  for (int j = tid; j < bb * steps; j += blockDim.x) {
+    const bool in_batch = row0 + j / steps < batch;
+    s_codes[j] = in_batch ? codes[static_cast<size_t>(row0) * steps + j]
+                          : static_cast<int8_t>(kPadCode);
+  }
+  USlice<kURegs, kBf16> us;
+  us.load(recurrent, units, i, s);
+  float b_in[kGates], b_rec[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    b_in[g] = bias[g * units + i];
+    b_rec[g] = bias[width + g * units + i];
+  }
+  const unsigned lanes = WarpLanes();
+  const int n_quads = Pad4(units) / 4 > s
+                          ? (Pad4(units) / 4 - s + kSlices - 1) / kSlices
+                          : 0;
+  int own_w[kOwn];
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    own_w[j] = w0 + (kWin >= 4 ? 4 * j + s : s & 1);
+  }
+  const bool writer = kWin >= 4 || s < 2;
+  // The group's windows past the CTA's bb read the last one's rows (a
+  // branch here would keep the compiler from interleaving the windows'
+  // loads); their sums are dropped.
+  int h_row[kWin];
+#pragma unroll
+  for (int w = 0; w < kWin; ++w) h_row[w] = 2 * min(w0 + w, bb - 1) * hstride;
+  float h_own[kOwn][2] = {};
+  __syncthreads();
+
+  for (int t = 0; t < steps; ++t) {
+    const float *h_cur = s_h + (t & 1) * 2 * bb * hstride;
+    float *h_nxt = s_h + ((t + 1) & 1) * 2 * bb * hstride;
+
+    // Partial gate dots of the group's rows over the lane's slice: each U
+    // entry, loaded once, feeds 2 kWin rows.
+    float acc[kWin][2][kGates] = {};
+    auto quad = [&](int m) {
+      const int q = s + kSlices * m;
+      float u_q[4][kGates];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int g = 0; g < kGates; ++g) {
+          u_q[c][g] = us.at(m, c, g, s, units, i);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < kWin; ++w) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float4 h4 = reinterpret_cast<const float4 *>(
+              h_cur + h_row[w] + b * hstride)[q];
+          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+#pragma unroll
+            for (int g = 0; g < kGates; ++g) {
+              acc[w][b][g] = fmaf(hv[c], u_q[c][g], acc[w][b][g]);
+            }
+          }
+        }
+      }
+    };
+    if constexpr (kURegs) {
+#pragma unroll
+      for (int m = 0; m < kRegQuads; ++m) {
+        if (m < n_quads) quad(m);
+      }
+    } else {
+      for (int m = 0; m < n_quads; ++m) quad(m);
+    }
+
+    // Reduce-scatter over the unit's four lanes: xor 1, then xor 2 (for
+    // kWin 2 the second level is an all-reduce: a + b == b + a, so lanes s
+    // and s ^ 2 hold the same bits).
+    float dot[kOwn][2][kGates];
+    if constexpr (kWin >= 4) {
+      float half[kWin / 2][2][kGates];
+      FoldWindows<kWin>(acc, s & 1, 1, lanes, half);
+      FoldWindows<kWin / 2>(half, (s >> 1) & 1, 2, lanes, dot);
+    } else {
+      FoldWindows<kWin>(acc, s & 1, 1, lanes, dot);
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int g = 0; g < kGates; ++g) {
+          dot[0][b][g] += __shfl_xor_sync(lanes, dot[0][b][g], 2);
+        }
+      }
+    }
+
+    // Keras GRU (reset_after=True) for the lane's windows, both branches.
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      const int w = own_w[j];
+      if (!writer || w >= bb) continue;
+      const int8_t *w_codes = s_codes + w * steps;
+      const int code_b[2] = {w_codes[t], Complement(w_codes[steps - 1 - t])};
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float x[kGates];
+#pragma unroll
+        for (int g = 0; g < kGates; ++g) {
+          x[g] = b_in[g];
+          if (static_cast<unsigned>(code_b[b]) < kCodes) {
+            x[g] += s_w[code_b[b] * width + g * units + i];
+          }
+        }
+        const float z = Sigmoid(x[0] + (dot[j][b][0] + b_rec[0]));
+        const float r = Sigmoid(x[1] + (dot[j][b][1] + b_rec[1]));
+        const float hh = tanhf(x[2] + r * (dot[j][b][2] + b_rec[2]));
+        h_own[j][b] = z * h_own[j][b] + (1.0f - z) * hh;
+        h_nxt[(2 * w + b) * hstride + i] = IoT::Operand(h_own[j][b]);
+      }
+      const int row = row0 + w;
+      if (row < batch) {
+        const float mean = (h_own[j][0] + h_own[j][1]) * 0.5f;
+        avg[(static_cast<size_t>(row) * steps + t) * units + i] =
+            IoT::Store(mean);
+        if (t == steps - 1) {
+          hidden[static_cast<size_t>(row) * units + i] = IoT::Store(mean);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int kWin, bool kURegs, bool kBf16>
+int LaunchGruTile(const void *codes, int batch, int steps, const void *kernel,
+                  const void *bias, const void *recurrent, int units, int bb,
+                  void *avg, void *hidden, cudaStream_t stream) {
+  using Out = typename Io<kBf16>::Out;
+  const auto fn = GruAvgKernel<kWin, kURegs, kBf16>;
+  const int groups = (bb + kWin - 1) / kWin;
+  const size_t smem =
+      sizeof(float) * (4 * static_cast<size_t>(bb) * Pad4(units) +
+                       static_cast<size_t>(kCodes) * kGates * units) +
+      static_cast<size_t>(bb) * steps;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<(batch + bb - 1) / bb, groups * kSlices * units, smem, stream>>>(
+      static_cast<const int8_t *>(codes), batch, steps,
+      static_cast<const float *>(kernel), static_cast<const float *>(bias),
+      static_cast<const float *>(recurrent), units, bb,
+      static_cast<Out *>(avg), static_cast<Out *>(hidden));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GRU tile by width and windows a CTA (measured on the H100, see the
+// note above): U in registers with 4 windows a lane group (2 when the CTA
+// owns at most 2), U through L1/L2 with 8 windows, then 2 past u=128.
+template <bool kBf16>
+int LaunchGru(const void *codes, int batch, int steps, const void *kernel,
+              const void *bias, const void *recurrent, int units, int bb,
+              void *avg, void *hidden, void *stream) {
+  if (batch <= 0 || steps <= 0 || units <= 0 || units > kMaxUnits ||
+      bb < 1 || bb > MaxWindows(units)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (units <= kRegUnits) {
+    return bb <= 2 ? LaunchGruTile<2, true, kBf16>(codes, batch, steps,
+                                                   kernel, bias, recurrent,
+                                                   units, bb, avg, hidden, s)
+                   : LaunchGruTile<4, true, kBf16>(codes, batch, steps,
+                                                   kernel, bias, recurrent,
+                                                   units, bb, avg, hidden, s);
+  }
+  if (units <= kTileUnits) {
+    return LaunchGruTile<8, false, kBf16>(codes, batch, steps, kernel, bias,
+                                          recurrent, units, bb, avg, hidden,
+                                          s);
+  }
+  return LaunchGruTile<2, false, kBf16>(codes, batch, steps, kernel, bias,
+                                        recurrent, units, bb, avg, hidden, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each launcher returns cudaGetLastError() after the launch (0 = launched).
+// The GRU's `bb` is the windows a CTA owns (1 .. dg_gru_avg_max_windows).
 int dg_gru_avg(const void *codes, int batch, int steps, const void *kernel,
-               const void *bias, const void *recurrent, int units, void *avg,
-               void *hidden, void *stream) {
-  return Launch<3, false>(codes, batch, steps, kernel, bias, recurrent,
-                          units, avg, hidden, stream);
+               const void *bias, const void *recurrent, int units, int bb,
+               void *avg, void *hidden, void *stream) {
+  return LaunchGru<false>(codes, batch, steps, kernel, bias, recurrent,
+                          units, bb, avg, hidden, stream);
 }
 
 int dg_lstm_avg(const void *codes, int batch, int steps, const void *kernel,
                 const void *bias, const void *recurrent, int units, void *avg,
                 void *hidden, void *stream) {
-  return Launch<4, false>(codes, batch, steps, kernel, bias, recurrent,
-                          units, avg, hidden, stream);
+  return LaunchLstm<false>(codes, batch, steps, kernel, bias, recurrent,
+                           units, avg, hidden, stream);
 }
 
 // The bfloat16 fast mode: same arguments, avg and hidden bfloat16.
 int dg_gru_avg_bf16(const void *codes, int batch, int steps,
                     const void *kernel, const void *bias,
-                    const void *recurrent, int units, void *avg, void *hidden,
-                    void *stream) {
-  return Launch<3, true>(codes, batch, steps, kernel, bias, recurrent, units,
-                         avg, hidden, stream);
+                    const void *recurrent, int units, int bb, void *avg,
+                    void *hidden, void *stream) {
+  return LaunchGru<true>(codes, batch, steps, kernel, bias, recurrent, units,
+                         bb, avg, hidden, stream);
 }
 
 int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
                      const void *kernel, const void *bias,
                      const void *recurrent, int units, void *avg,
                      void *hidden, void *stream) {
-  return Launch<4, true>(codes, batch, steps, kernel, bias, recurrent, units,
-                         avg, hidden, stream);
+  return LaunchLstm<true>(codes, batch, steps, kernel, bias, recurrent, units,
+                          avg, hidden, stream);
+}
+
+// The most windows a CTA of the GRU kernels may own at this width (0: the
+// width is refused).
+int dg_gru_avg_max_windows(int units) {
+  return units > 0 && units <= kMaxUnits ? MaxWindows(units) : 0;
 }
 
 const char *dg_error_string(int code) {

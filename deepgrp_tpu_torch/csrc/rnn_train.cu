@@ -4,8 +4,8 @@
 // Replaces the TPU kernels of the JAX package
 // (deepgrp_tpu/models/pallas_rnn_train.py):
 //   * dg_gru_train_fwd       <- :97  _gru_train_fwd_kernel  (_fwd_call :252)
-//   * dg_gru_train_bwd       <- :135 _gru_train_bwd_kernel  (_bwd_call :328,
-//                               custom VJP pallas_gru_avg_train :422-474)
+//   * dg_gru_bwd_recurrence  <- :135 _gru_train_bwd_kernel  (_bwd_call :328,
+//     + dg_train_reduce         custom VJP pallas_gru_avg_train :422-474)
 //   * dg_lstm_train_fwd      <- :496 _lstm_train_fwd_kernel
 //                               (_lstm_fwd_call :638)
 //   * dg_lstm_bwd_recurrence <- :542 _lstm_train_bwd_kernel (_lstm_bwd_call
@@ -30,7 +30,8 @@
 //         da = [dc_t g i(1-i), dc_t c_prev f(1-f), dc_t i (1-g^2),
 //               do o(1-o)];  dh_prev = da U^T,  dc_prev = dc_t f
 //   dU = sum h_prev^T d_rp, db = sums of d_xp (and d_rp), and
-//   dW[c] = sum over rows with code c of mask_c * d_xp.
+//   dW[c] = sum over rows with code c of mask_c * d_xp (LSTM: d_rp = d_xp
+//   = da).
 // The gates are recomputed from h_prev (and c_prev), as on the TPU: only
 // hseq (cseq) goes through device memory.
 //
@@ -41,56 +42,60 @@
 // hseq written, so both kernels are bound by float32 arithmetic, not bytes.
 // The recurrence is sequential in T, so its parallelism is B x 2 x g*u.
 //
-// GRU (RnnTrainFwdKernel / RnnTrainBwdKernel): one CTA owns `bb` windows
-// (both branch rows of each) for all T steps; thread (b, i) owns unit i of
-// the two rows of window b; bb is the smallest in 1..8 with ceil(B / bb)
-// <= #SMs (B=256 on 132 SMs: bb=2, 128 CTAs of 2u threads).  The backward
-// stages h_prev and d_rp each step (two barriers), forms dh_prev with the
-// row U[i, :] (odd row stride against bank conflicts), and sums the CTA's
-// dU in shared memory every step; dW and db in registers; per-CTA partials
-// summed by SumPartsKernel in a fixed order.
+// GRU forward (RnnTrainFwdKernel, the block-row tile): one CTA owns `bb`
+// windows (both branch rows of each) for all T steps; thread (b, i) owns
+// unit i of the two rows of window b; bb is the smallest in 1..8 with
+// ceil(B / bb) <= #SMs (B=256 on 132 SMs: bb=2, 128 CTAs of 2u threads);
+// U, W, the biases and a double-buffered h in shared memory (u=128 fits at
+// bb=2: ~212 KB).
 //
-// LSTM (redesigned for Hopper).  The GRU design's tile gave 120 threads a
-// CTA and one CTA an SM at B=256: 3.75 warps an SM, about one a scheduler,
-// so nothing hid the latency of shared loads and dependent FMAs; and its
-// backward spent most of each step adding h_prev^T d_rp into the CTA's dU
-// in shared memory (u * 4u elements a step, one division, a load and a
-// store each).  The TPU kernel sums dU inside its body only because its
-// grid is sequential and VMEM holds the accumulator; here that sum leaves
-// the step loop:
-//   * Tile: one CTA a window (its 2 rows), 4u threads (240 at u=60);
-//     thread tid = 4 i + s owns unit i and k-slice s (the float4 quads s,
-//     s+4, s+8, ... of the recurrent dot), and its row is s & 1.  B=256
-//     gives 256 CTAs, two resident an SM: 16 warps an SM, 4.3x the GRU
-//     tile's.  Up to u=64 (kRegUnits) the thread keeps its slice of U
-//     (U[k, g u + i] for its 16 k and the 4 gates: 64 floats) in registers
-//     under the launch bound of 256 threads x 2 CTAs (at most 128
-//     registers a thread); wider layers read that slice through L1/L2.
-//   * Forward (LstmTrainFwdKernel), one barrier a step: each lane forms the
-//     four gate dots of both rows over its k-slice (h broadcast as float4
-//     from shared memory), a fixed butterfly of shuffles leaves each lane
-//     its own row's four sums, and lanes s < 2 store h, c and the branch
-//     average.
-//   * Backward recurrence (LstmBwdRecurrenceKernel), two barriers a step:
-//     (A) each lane recomputes its row's preactivations from h_prev as the
-//     forward does and forms the gate cotangents da, which lanes s < 2
-//     write to da [2B, T, 4u] in device memory (168 MB at the flagship
-//     shape); (C1) the lane takes the other row's da by a shuffle and
-//     stages p[row, k, i] = sum_g da[row, g u + i] U[k, g u + i] for the k
-//     of its slice; (C2) thread (row, k) adds p[row, k, :] over the units
-//     in a fixed order (four chains) into dh_prev and stages the next
-//     step's h_prev.  No dU, dW or db.
+// The backwards and the LSTM forward (redesigned for Hopper).  The
+// block-row tile gave 120 threads a CTA and one CTA an SM at B=256: 3.75
+// warps an SM, about one a scheduler, so nothing hid the latency of shared
+// loads and dependent FMAs; and its backward spent most of each step adding
+// h_prev^T d_rp into the CTA's dU in shared memory (u * g u elements a
+// step, one division, a load and a store each).  The TPU kernel sums dU
+// inside its body only because its grid is sequential and VMEM holds the
+// accumulator; here that sum leaves the step loop:
+//   * Tile ("window tile"): one CTA a window (its 2 rows), 4u threads (240
+//     at u=60); thread tid = 4 i + s owns unit i and k-slice s (the float4
+//     quads s, s+4, s+8, ... of the recurrent dot), and its row is s & 1.
+//     B=256 gives 256 CTAs, two resident an SM: 16 warps an SM, 4.3x the
+//     block-row tile's.  Up to u=64 (kRegUnits) the thread keeps its slice
+//     of U (U[k, g u + i] for its 16 k and the g gates: 64 floats LSTM, 48
+//     GRU) in registers under the launch bound of 256 threads x 2 CTAs (at
+//     most 128 registers a thread); wider layers read that slice through
+//     L1/L2.
+//   * LSTM forward (LstmTrainFwdKernel), one barrier a step: each lane forms
+//     the four gate dots of both rows over its k-slice (h broadcast as
+//     float4 from shared memory), a fixed butterfly of shuffles leaves each
+//     lane its own row's four sums, and lanes s < 2 store h, c and the
+//     branch average.
+//   * Backward recurrences (LstmBwdRecurrenceKernel,
+//     GruBwdRecurrenceKernel), two barriers a step: (A) each lane
+//     recomputes its row's gates from h_prev as the forward does (GRU: the
+//     three gate dots summed over the slices by shuffles, then z, r, hh) and
+//     forms the gate cotangents, which it writes to device memory: LSTM
+//     lanes s < 2 write da [2B, T, 4u] (168 MB at the flagship shape); GRU
+//     lanes s < 2 write d_rp and lanes s >= 2 d_xp, [2B, T, 3u] each
+//     (126 MB each); (C1) the lane takes the other row's cotangents (da,
+//     d_rp) by a shuffle and stages p[row, k, i] = sum_g d[row, g u + i]
+//     U[k, g u + i] for the k of its slice; (C2) thread (row, k) adds
+//     p[row, k, :] over the units in a fixed order (four chains) into
+//     dh_prev (GRU: the lane adds its dh z) and stages the next step's
+//     h_prev.  No dU, dW or db.
 //   * Reduction (TrainReduceKernel + SumReducePartsKernel): dU, db and dW
 //     as one tiled f32 product over the K = 2B*T rows, split over K, with
 //     fixed-order partial sums (see the kernel).  Written for g*u columns
-//     and an optional second right-hand matrix, so the GRU backward (whose
-//     d_rp and d_xp differ) can use it.
-//   * Shared memory (LstmSmem): the forward 4 (4 Pad4(u) + 20u + 40) + T
-//     bytes (6,262 B at u=60, T=342), the backward 4 (2 Pad4(u) + 22u + 40
-//     + 2u ldp) + T bytes (36,022 B).  U is not there, so the threads bound
-//     the width: 4u <= 512, u <= 128 (145,910 B at T=342); the GRU
-//     design's LSTM backward, with U and the CTA's dU in shared memory,
-//     stopped at u=82.
+//     and an optional second right-hand matrix: the GRU passes d_rp (dU,
+//     recurrent bias) and d_xp (dW, input bias).
+//   * Shared memory (WindowSmem): the LSTM forward 4 (4 Pad4(u) + 20u + 40)
+//     + T bytes (6,262 B at u=60, T=342); the backward recurrences
+//     4 (2 Pad4(u) + Pad4(5 g u) + 2 g 5 + 2u ldp + 2u) + T bytes (LSTM
+//     36,022 B, GRU 34,782 B at u=60).  U is not there, so the threads
+//     bound the width: 4u <= 512, u <= 128, for both cells (the block-row
+//     backward, with U and the CTA's dU in shared memory, stopped at u=82
+//     for LSTM and u=94 for GRU).
 //   * No float atomics anywhere: two backward runs are bitwise equal.
 //   * All float32 with FMA (the counterpart of Precision.HIGHEST): no TF32,
 //     no tensor cores.  Sums run in other orders than the plain versions;
@@ -98,8 +103,10 @@
 //   * ptxas -v (sm_90a, CUDA 12.8): LstmTrainFwdKernel 109 registers (U in
 //     registers) / 72 (U through L2), no spills; LstmBwdRecurrenceKernel
 //     128 / 84 registers, 16 bytes of spill stores and loads in the
-//     register variant, none in the other; TrainReduceKernel 72 registers,
-//     32,384 B of static shared memory, no spills; SumReducePartsKernel 32.
+//     register variant, none in the other; GruBwdRecurrenceKernel 128 / 89
+//     registers, 28 bytes of spill stores and loads in the register
+//     variant, none in the other; TrainReduceKernel 72 registers, 32,384 B
+//     of static shared memory, no spills; SumReducePartsKernel 32.
 //   * What bounds them on this card: not bytes or FMAs but latency.  The
 //     step loop is sequential, and each step waits on shared loads,
 //     shuffles and barriers; 16 warps an SM hide part of it.
@@ -140,12 +147,6 @@ int TrainBlockRows(int batch, int units) {
   if (bb > kMaxBlockRows) bb = kMaxBlockRows;
   while (bb > 1 && bb * units > kMaxThreads) --bb;
   return bb;
-}
-
-// Row stride of U in the backward's shared memory: odd, so that the 32
-// threads of a warp reading U[i, j] for 32 consecutive i hit 32 banks.
-__host__ __device__ __forceinline__ int OddStride(int width) {
-  return width | 1;
 }
 
 // Stages the CTA's per-gate mask scales: s_m[lr * g*5 + g*5 + c] for local
@@ -298,241 +299,6 @@ RnnTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
   }
 }
 
-// --------------------------------------------------------------- backward
-
-template <int kGates>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-RnnTrainBwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
-                  const float *__restrict__ masks,
-                  const float *__restrict__ kernel,
-                  const float *__restrict__ bias,
-                  const float *__restrict__ recurrent, int units, int bb,
-                  const float *__restrict__ hseq,
-                  const float *__restrict__ d_avg,
-                  const float *__restrict__ d_hidden,
-                  float *__restrict__ part_w, float *__restrict__ part_b,
-                  float *__restrict__ part_u) {
-  constexpr int kBiasRows = 2;
-  extern __shared__ float smem[];
-  const int width = kGates * units;
-  const int ldu = OddStride(width);
-  float *s_u = smem;                           // [u, ldu]
-  float *s_du = s_u + units * ldu;             // [u, width] dU of the CTA
-  float *s_w = s_du + units * width;           // [5, width]
-  float *s_b = s_w + kCodes * width;           // [kBiasRows, width]
-  float *s_m = s_b + kBiasRows * width;        // [2bb, g*5]
-  float *s_hp = s_m + 2 * bb * kGates * kCodes;  // [2 buffers][2bb][u]
-  float *s_drp = s_hp + 4 * bb * units;        // [2bb, width]
-  int8_t *s_codes = reinterpret_cast<int8_t *>(s_drp + 2 * bb * width);
-
-  const int tid = threadIdx.x;
-  const int n_threads = blockDim.x;
-  const int row0 = blockIdx.x * bb;
-  for (int j = tid; j < units * width; j += n_threads) {
-    s_u[(j / width) * ldu + j % width] = recurrent[j];
-    s_du[j] = 0.0f;
-  }
-  for (int j = tid; j < kCodes * width; j += n_threads) s_w[j] = kernel[j];
-  for (int j = tid; j < kBiasRows * width; j += n_threads) s_b[j] = bias[j];
-  StageMasks<kGates>(masks, batch, row0, bb, s_m);
-  StageCodes(codes, batch, steps, row0, bb, s_codes);
-  __syncthreads();
-
-  const int b = tid / units;
-  const int i = tid % units;
-  const int row = row0 + b;
-  const bool valid = row < batch;
-  const int8_t *my_codes = s_codes + b * steps;
-  const float *m_f = s_m + b * kGates * kCodes;
-  const float *m_r = s_m + (bb + b) * kGates * kCodes;
-  const float *b_rec = s_b + (kBiasRows - 1) * width;
-  const size_t seq_f = static_cast<size_t>(row) * steps * units + i;
-  const size_t seq_r = static_cast<size_t>(batch + row) * steps * units + i;
-
-  // Carried cotangents; the final state's cotangent seeds both rows.
-  const float half_hid =
-      valid ? d_hidden[static_cast<size_t>(row) * units + i] * 0.5f : 0.0f;
-  float dh_f = half_hid, dh_r = half_hid;
-  float acc_w[kCodes][kGates], acc_b[kBiasRows][kGates];
-#pragma unroll
-  for (int g = 0; g < kGates; ++g) {
-#pragma unroll
-    for (int c = 0; c < kCodes; ++c) acc_w[c][g] = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kBiasRows; ++r) acc_b[r][g] = 0.0f;
-  }
-
-  // Values of step t, loaded one step ahead: h_prev of both rows (zero at
-  // t=0) and davg/2.
-  float nx_hf = 0.0f, nx_hr = 0.0f, nx_da = 0.0f;
-  {
-    const int t = steps - 1;
-    if (valid) {
-      nx_da = d_avg[(static_cast<size_t>(row) * steps + t) * units + i] *
-              0.5f;
-      if (t > 0) {
-        const size_t at = static_cast<size_t>(t - 1) * units;
-        nx_hf = hseq[seq_f + at];
-        nx_hr = hseq[seq_r + at];
-      }
-    }
-  }
-
-  for (int t = steps - 1; t >= 0; --t) {
-    const float hp_f = nx_hf, hp_r = nx_hr;
-    const float half_avg = nx_da;
-    float *hp = s_hp + (t & 1) * 2 * bb * units;
-    hp[b * units + i] = hp_f;
-    hp[(bb + b) * units + i] = hp_r;
-    if (t > 0) {  // prefetch step t-1; the loads land during this step
-      nx_hf = nx_hr = nx_da = 0.0f;
-      if (valid) {
-        nx_da = d_avg[(static_cast<size_t>(row) * steps + t - 1) * units +
-                      i] * 0.5f;
-        if (t > 1) {
-          const size_t at = static_cast<size_t>(t - 2) * units;
-          nx_hf = hseq[seq_f + at];
-          nx_hr = hseq[seq_r + at];
-        }
-      }
-    }
-    __syncthreads();  // (1) h_prev of every row staged
-
-    const int code_f = my_codes[t];
-    const int code_r = Complement(my_codes[steps - 1 - t]);
-    float x_f[kGates], x_r[kGates];
-    InputProjection<kGates>(s_w, s_b, m_f, code_f, units, i, x_f);
-    InputProjection<kGates>(s_w, s_b, m_r, code_r, units, i, x_r);
-    float a_f[kGates], a_r[kGates];
-#pragma unroll
-    for (int g = 0; g < kGates; ++g) {
-      a_f[g] = 0.0f;
-      a_r[g] = 0.0f;
-    }
-    const float *hv_f = hp + b * units;
-    const float *hv_r = hp + (bb + b) * units;
-#pragma unroll 4
-    for (int k = 0; k < units; ++k) {
-      const float *u_k = s_u + k * ldu + i;
-      const float vf = hv_f[k];
-      const float vr = hv_r[k];
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) {
-        const float w = u_k[g * units];
-        a_f[g] = fmaf(vf, w, a_f[g]);
-        a_r[g] = fmaf(vr, w, a_r[g]);
-      }
-    }
-
-    const float dht_f = dh_f + half_avg;
-    const float dht_r = dh_r + half_avg;
-    float dx_f[kGates], dx_r[kGates];  // d_xp of both rows
-    float keep_f = 0.0f, keep_r = 0.0f;  // GRU: dh * z
-    float *drp_f = s_drp + b * width + i;
-    float *drp_r = s_drp + (bb + b) * width + i;
-    {
-      const float rz = b_rec[i], rr = b_rec[units + i],
-                  rhb = b_rec[2 * units + i];
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const float *x = side ? x_r : x_f;
-        const float *a = side ? a_r : a_f;
-        const float dht = side ? dht_r : dht_f;
-        const float h_prev = side ? hp_r : hp_f;
-        float *dx = side ? dx_r : dx_f;
-        float *drp = side ? drp_r : drp_f;
-        const float z = Sigmoid(x[0] + (a[0] + rz));
-        const float r = Sigmoid(x[1] + (a[1] + rr));
-        const float rh = a[2] + rhb;
-        const float hh = tanhf(x[2] + r * rh);
-        const float da_z = dht * (h_prev - hh) * z * (1.0f - z);
-        const float da_h = dht * (1.0f - z) * (1.0f - hh * hh);
-        const float da_r = (da_h * rh) * r * (1.0f - r);
-        dx[0] = da_z;
-        dx[1] = da_r;
-        dx[2] = da_h;
-        drp[0] = da_z;
-        drp[units] = da_r;
-        drp[2 * units] = da_h * r;
-        acc_b[1][0] += da_z;
-        acc_b[1][1] += da_r;
-        acc_b[1][2] += da_h * r;
-        if (side) {
-          keep_r = dht * z;
-        } else {
-          keep_f = dht * z;
-        }
-      }
-    }
-    // dW and the input bias: the selected row's mask scale times d_xp.
-#pragma unroll
-    for (int g = 0; g < kGates; ++g) {
-      acc_b[0][g] += dx_f[g];
-      acc_b[0][g] += dx_r[g];
-#pragma unroll
-      for (int c = 0; c < kCodes; ++c) {
-        if (code_f == c) acc_w[c][g] += m_f[g * kCodes + c] * dx_f[g];
-        if (code_r == c) acc_w[c][g] += m_r[g * kCodes + c] * dx_r[g];
-      }
-    }
-    __syncthreads();  // (2) d_rp of every row staged
-
-    // dh_prev = (dh z) + d_rp U[i, :]^T.
-    float dot_f = 0.0f, dot_r = 0.0f;
-    const float *u_i = s_u + i * ldu;
-    const float *dv_f = s_drp + b * width;
-    const float *dv_r = s_drp + (bb + b) * width;
-#pragma unroll 4
-    for (int j = 0; j < width; ++j) {
-      const float w = u_i[j];
-      dot_f = fmaf(dv_f[j], w, dot_f);
-      dot_r = fmaf(dv_r[j], w, dot_r);
-    }
-    dh_f = keep_f + dot_f;
-    dh_r = keep_r + dot_r;
-
-    // dU += h_prev^T d_rp over the CTA's rows, in row order.
-    for (int e = tid; e < units * width; e += n_threads) {
-      const int k = e / width;
-      const int j = e - k * width;
-      float acc = s_du[e];
-      for (int lr = 0; lr < 2 * bb; ++lr) {
-        acc = fmaf(hp[lr * units + k], s_drp[lr * width + j], acc);
-      }
-      s_du[e] = acc;
-    }
-  }
-  __syncthreads();
-
-  // Partials: dU per CTA, dW and db per (CTA, b) slot.
-  float *pu = part_u + static_cast<size_t>(blockIdx.x) * units * width;
-  for (int e = tid; e < units * width; e += n_threads) pu[e] = s_du[e];
-  const size_t slot = static_cast<size_t>(row0 + b);
-  float *pw = part_w + slot * kCodes * width;
-  float *pb = part_b + slot * kBiasRows * width;
-#pragma unroll
-  for (int g = 0; g < kGates; ++g) {
-#pragma unroll
-    for (int c = 0; c < kCodes; ++c) pw[c * width + g * units + i] =
-        acc_w[c][g];
-#pragma unroll
-    for (int r = 0; r < kBiasRows; ++r) pb[r * width + g * units + i] =
-        acc_b[r][g];
-  }
-}
-
-// out[e] = sum over p of parts[p, e], p in order (deterministic).
-__global__ void SumPartsKernel(const float *__restrict__ parts, int n_parts,
-                               int n_elem, float *__restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elem) return;
-  float acc = 0.0f;
-  for (int p = 0; p < n_parts; ++p) {
-    acc += parts[static_cast<size_t>(p) * n_elem + e];
-  }
-  out[e] = acc;
-}
-
 size_t FwdSmem(int gates, int units, int bb, int steps) {
   const size_t width = static_cast<size_t>(gates) * units;
   const int bias_rows = (gates == 3) ? 2 : 1;
@@ -540,18 +306,6 @@ size_t FwdSmem(int gates, int units, int bb, int steps) {
              (units * width + kCodes * width + bias_rows * width +
               2 * static_cast<size_t>(bb) * gates * kCodes +
               4 * static_cast<size_t>(bb) * units) +
-         static_cast<size_t>(bb) * steps;
-}
-
-size_t BwdSmem(int gates, int units, int bb, int steps) {
-  const size_t width = static_cast<size_t>(gates) * units;
-  const int bias_rows = (gates == 3) ? 2 : 1;
-  return sizeof(float) *
-             (units * static_cast<size_t>(OddStride(static_cast<int>(width))) +
-              units * width + kCodes * width + bias_rows * width +
-              2 * static_cast<size_t>(bb) * gates * kCodes +
-              4 * static_cast<size_t>(bb) * units +
-              2 * static_cast<size_t>(bb) * width) +
          static_cast<size_t>(bb) * steps;
 }
 
@@ -587,71 +341,25 @@ int LaunchFwd(const void *codes, int batch, int steps, const void *masks,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kGates>
-int LaunchBwd(const void *codes, int batch, int steps, const void *masks,
-              const void *kernel, const void *bias, const void *recurrent,
-              int units, int bb, const void *hseq, const void *d_avg, const void *d_hidden, void *part_w,
-              void *part_b, void *part_u, void *d_kernel, void *d_bias,
-              void *d_recurrent, void *stream) {
-  if (BadShape(batch, steps, units, bb)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  constexpr int kBiasRows = 2;
-  const size_t smem = BwdSmem(kGates, units, bb, steps);
-  cudaError_t err = cudaFuncSetAttribute(
-      RnnTrainBwdKernel<kGates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_cta = (batch + bb - 1) / bb;
-  RnnTrainBwdKernel<kGates><<<n_cta, bb * units, smem, s>>>(
-      static_cast<const int8_t *>(codes), batch, steps,
-      static_cast<const float *>(masks), static_cast<const float *>(kernel),
-      static_cast<const float *>(bias),
-      static_cast<const float *>(recurrent), units, bb,
-      static_cast<const float *>(hseq), static_cast<const float *>(d_avg),
-      static_cast<const float *>(d_hidden), static_cast<float *>(part_w),
-      static_cast<float *>(part_b), static_cast<float *>(part_u));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int width = kGates * units;
-  const int n_slots = n_cta * bb;
-  const struct {
-    const void *parts;
-    int n_parts, n_elem;
-    void *out;
-  } sums[3] = {{part_w, n_slots, kCodes * width, d_kernel},
-               {part_b, n_slots, kBiasRows * width, d_bias},
-               {part_u, n_cta, units * width, d_recurrent}};
-  for (const auto &job : sums) {
-    constexpr int kThreads = 256;
-    SumPartsKernel<<<(job.n_elem + kThreads - 1) / kThreads, kThreads, 0,
-                     s>>>(static_cast<const float *>(job.parts),
-                          job.n_parts, job.n_elem,
-                          static_cast<float *>(job.out));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
-// ------------------------------------------------------ LSTM (Hopper)
+// ------------------------------------------------- window tile (Hopper)
 //
 // One CTA owns one window (its forward and reverse-complement rows) for
 // all T steps.  Thread tid = 4 i + s owns unit i and k-slice s (the float4
 // quads s, s+4, s+8, ... of the recurrent dot): at u=60, 240 threads, and
-// at B=256, 256 CTAs, two resident an SM: 16 warps an SM.
+// at B=256, 256 CTAs, two resident an SM: 16 warps an SM.  The LSTM
+// forward and backward recurrence and the GRU backward recurrence use it.
 
 constexpr int kLstmGates = 4;
+constexpr int kGruGates = 3;
+constexpr int kMaxGates = 4;
 constexpr int kSlices = 4;  // k-slices a unit (lanes 4i .. 4i+3)
-// U's slice stays in registers up to this width (kRegQuads quads x 4 k x 4
-// gates = 64 floats; 256 threads, two CTAs an SM under a 128-register
-// cap); wider layers (up to kMaxThreads / 4 = 128 units) read it from
-// device memory through L2 (U is 64 u^2 bytes, at most 1 MB).
+// U's slice stays in registers up to this width (kRegQuads quads x 4 k x g
+// gates: 64 floats LSTM, 48 GRU; 256 threads, two CTAs an SM under a
+// 128-register cap); wider layers (up to kMaxThreads / 4 = 128 units) read
+// it from device memory through L2 (U is 4 g u^2 bytes, at most 1 MB).
 constexpr int kRegUnits = 64;
 constexpr int kRegQuads = kRegUnits / (4 * kSlices);
-constexpr int kRegThreads = kLstmGates * kRegUnits;
+constexpr int kRegThreads = kSlices * kRegUnits;
 
 __host__ __device__ __forceinline__ int Pad4(int n) { return (n + 3) & ~3; }
 
@@ -664,9 +372,9 @@ __host__ __device__ __forceinline__ int PartStride(int units) {
 
 // The U entries of thread (i, s): U[4 (s + 4 m) + c, g u + i] for quad m of
 // the slice, c < 4, gate g (zero past u); from registers or device memory.
-template <bool kURegs>
+template <int kGates, bool kURegs>
 struct USlice {
-  float reg[kURegs ? kRegQuads : 1][4][kLstmGates];
+  float reg[kURegs ? kRegQuads : 1][4][kGates];
   const float *recurrent;
 
   __device__ __forceinline__ float at(int m, int c, int g, int s, int units,
@@ -676,26 +384,26 @@ struct USlice {
     } else {
       const int k = 4 * (s + kSlices * m) + c;
       return k < units
-                 ? __ldg(recurrent + k * kLstmGates * units + g * units + i)
+                 ? __ldg(recurrent + k * kGates * units + g * units + i)
                  : 0.0f;
     }
   }
 };
 
-template <bool kURegs>
+template <int kGates, bool kURegs>
 __device__ __forceinline__ void LoadUSlice(const float *__restrict__ recurrent,
                                            int units, int i, int s,
-                                           USlice<kURegs> &us) {
+                                           USlice<kGates, kURegs> &us) {
   us.recurrent = recurrent;
   if constexpr (kURegs) {
-    const int width = kLstmGates * units;
+    const int width = kGates * units;
 #pragma unroll
     for (int m = 0; m < kRegQuads; ++m) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int k = 4 * (s + kSlices * m) + c;
 #pragma unroll
-        for (int g = 0; g < kLstmGates; ++g) {
+        for (int g = 0; g < kGates; ++g) {
           us.reg[m][c][g] =
               k < units ? recurrent[k * width + g * units + i] : 0.0f;
         }
@@ -710,22 +418,19 @@ __device__ __forceinline__ int SliceQuads(int units, int s) {
   return quads > s ? (quads - s + kSlices - 1) / kSlices : 0;
 }
 
-// The four gate preactivations of unit i for row `row` (= s & 1) of the
-// lane: bias + mask * W[code] + h U, the dot summed over the four slices of
-// the unit by a fixed butterfly of shuffles (lanes s and s^2 end with the
-// same bits).  `s_h` holds both rows' h (row stride Pad4(u), zero past u).
-template <bool kURegs>
-__device__ __forceinline__ void LstmPreacts(const USlice<kURegs> &us,
-                                            const float *s_h, const float *s_w,
-                                            const float *s_m,
-                                            const float (&b_in)[kLstmGates],
-                                            int units, int i, int s, int code,
-                                            unsigned lanes,
-                                            float (&pre)[kLstmGates]) {
+// The recurrent dots h U[:, g u + i] of unit i for row `row` (= s & 1) of
+// the lane, summed over the four slices of the unit by a fixed butterfly
+// of shuffles (lanes s and s^2 end with the same bits).  `s_h` holds both
+// rows' h (row stride Pad4(u), zero past u).
+template <int kGates, bool kURegs>
+__device__ __forceinline__ void GateDots(const USlice<kGates, kURegs> &us,
+                                         const float *s_h, int units, int i,
+                                         int s, unsigned lanes,
+                                         float (&dot)[kGates]) {
   const int hstride = Pad4(units);
   const float4 *hf = reinterpret_cast<const float4 *>(s_h);
   const float4 *hr = reinterpret_cast<const float4 *>(s_h + hstride);
-  float acc_f[kLstmGates] = {}, acc_r[kLstmGates] = {};
+  float acc_f[kGates] = {}, acc_r[kGates] = {};
   auto quad = [&](int m) {
     const int q = s + kSlices * m;
     const float4 a4 = hf[q], b4 = hr[q];
@@ -734,7 +439,7 @@ __device__ __forceinline__ void LstmPreacts(const USlice<kURegs> &us,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
 #pragma unroll
-      for (int g = 0; g < kLstmGates; ++g) {
+      for (int g = 0; g < kGates; ++g) {
         const float w = us.at(m, c, g, s, units, i);
         acc_f[g] = fmaf(a[c], w, acc_f[g]);
         acc_r[g] = fmaf(b[c], w, acc_r[g]);
@@ -752,38 +457,67 @@ __device__ __forceinline__ void LstmPreacts(const USlice<kURegs> &us,
   }
   // (1) xor 1: lane bit 0 picks the row it keeps.
   const bool odd = s & 1;
-  float part[kLstmGates];
+  float part[kGates];
 #pragma unroll
-  for (int g = 0; g < kLstmGates; ++g) {
+  for (int g = 0; g < kGates; ++g) {
     const float send = odd ? acc_f[g] : acc_r[g];
     part[g] = (odd ? acc_r[g] : acc_f[g]) + __shfl_xor_sync(lanes, send, 1);
   }
-  // (2) xor 2: lane bit 1 picks the gate pair it sums, (3) then the pairs
-  // are swapped back, so both lanes of a row hold all four sums.
-  const bool high = s & 2;
-  float sum[2];
+  if constexpr (kGates == kLstmGates) {
+    // (2) xor 2: lane bit 1 picks the gate pair it sums, (3) then the pairs
+    // are swapped back, so both lanes of a row hold all four sums.
+    const bool high = s & 2;
+    float sum[2];
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const float send = high ? part[p] : part[2 + p];
-    sum[p] = (high ? part[2 + p] : part[p]) + __shfl_xor_sync(lanes, send, 2);
-  }
-  float other[2];
-#pragma unroll
-  for (int p = 0; p < 2; ++p) other[p] = __shfl_xor_sync(lanes, sum[p], 2);
-  const float dot[kLstmGates] = {high ? other[0] : sum[0],
-                                 high ? other[1] : sum[1],
-                                 high ? sum[0] : other[0],
-                                 high ? sum[1] : other[1]};
-  const int width = kLstmGates * units;
-  const float *m_row = s_m + (s & 1) * kLstmGates * kCodes;
-#pragma unroll
-  for (int g = 0; g < kLstmGates; ++g) {
-    float x = b_in[g];
-    if (static_cast<unsigned>(code) < kCodes) {
-      x += m_row[g * kCodes + code] * s_w[code * width + g * units + i];
+    for (int p = 0; p < 2; ++p) {
+      const float send = high ? part[p] : part[2 + p];
+      sum[p] =
+          (high ? part[2 + p] : part[p]) + __shfl_xor_sync(lanes, send, 2);
     }
-    pre[g] = x + dot[g];
+    float other[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) other[p] = __shfl_xor_sync(lanes, sum[p], 2);
+    dot[0] = high ? other[0] : sum[0];
+    dot[1] = high ? other[1] : sum[1];
+    dot[2] = high ? sum[0] : other[0];
+    dot[3] = high ? sum[1] : other[1];
+  } else {
+    // (2) xor 2: each gate summed by both lanes of the row (a + b == b + a).
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) {
+      dot[g] = part[g] + __shfl_xor_sync(lanes, part[g], 2);
+    }
   }
+}
+
+// The masked input row of unit i: b_in + mask[g, row, code] W_g[code].
+template <int kGates>
+__device__ __forceinline__ void InputRow(const float *s_w, const float *m_row,
+                                         const float (&b_in)[kGates],
+                                         int units, int i, int code,
+                                         float (&x)[kGates]) {
+  const int width = kGates * units;
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    x[g] = b_in[g];
+    if (static_cast<unsigned>(code) < kCodes) {
+      x[g] += m_row[g * kCodes + code] * s_w[code * width + g * units + i];
+    }
+  }
+}
+
+// The four LSTM gate preactivations of unit i for the lane's row.
+template <bool kURegs>
+__device__ __forceinline__ void LstmPreacts(
+    const USlice<kLstmGates, kURegs> &us, const float *s_h, const float *s_w,
+    const float *s_m, const float (&b_in)[kLstmGates], int units, int i,
+    int s, int code, unsigned lanes, float (&pre)[kLstmGates]) {
+  float dot[kLstmGates], x[kLstmGates];
+  GateDots<kLstmGates, kURegs>(us, s_h, units, i, s, lanes, dot);
+  InputRow<kLstmGates>(s_w, s_m + (s & 1) * kLstmGates * kCodes, b_in, units,
+                       i, code, x);
+#pragma unroll
+  for (int g = 0; g < kLstmGates; ++g) pre[g] = x[g] + dot[g];
 }
 
 // The cell update of one row from its preactivations; returns h.
@@ -817,14 +551,17 @@ __device__ __forceinline__ void LstmCellBackward(
   dc = dc_t * gf;
 }
 
-// Shared memory of the LSTM kernels, in floats (then T bytes of codes):
-// h [2 (forward: 2 buffers x 2)][Pad4(u)], W [5][4u], masks [2][4*5];
-// the backward also the transposed product's partials [2][u][ldp] and
-// dh_prev [2][u].  U is not there: the width is bounded by the threads.
-size_t LstmSmem(int units, int steps, bool backward) {
-  const size_t width = static_cast<size_t>(kLstmGates) * units;
+// Shared memory of the window kernels, in floats (then T bytes of codes):
+// h [2 (forward: 2 buffers x 2)][Pad4(u)], W [5][g u] (padded to 4
+// floats), masks [2][g*5];
+// the backward recurrences also the transposed product's partials
+// [2][u][ldp] and dh_prev [2][u].  U is not there: the width is bounded by
+// the threads.
+size_t WindowSmem(int gates, int units, int steps, bool backward) {
+  const size_t width = static_cast<size_t>(gates) * units;
   size_t floats = (backward ? 2 : 4) * static_cast<size_t>(Pad4(units)) +
-                  kCodes * width + 2 * kLstmGates * kCodes;
+                  Pad4(kCodes * static_cast<int>(width)) +
+                  2 * static_cast<size_t>(gates) * kCodes;
   if (backward) {
     floats += 2 * static_cast<size_t>(units) * PartStride(units) + 2 * units;
   }
@@ -839,16 +576,17 @@ __device__ __forceinline__ unsigned WarpLanes() {
 }
 
 // Stages W and the window's masks and codes.
-__device__ void StageLstm(const int8_t *__restrict__ codes, int batch,
-                          int steps, const float *__restrict__ masks,
-                          const float *__restrict__ kernel, int units,
-                          int window, float *s_w, float *s_m,
-                          int8_t *s_codes) {
-  const int width = kLstmGates * units;
+template <int kGates>
+__device__ void StageWindow(const int8_t *__restrict__ codes, int batch,
+                            int steps, const float *__restrict__ masks,
+                            const float *__restrict__ kernel, int units,
+                            int window, float *s_w, float *s_m,
+                            int8_t *s_codes) {
+  const int width = kGates * units;
   for (int e = threadIdx.x; e < kCodes * width; e += blockDim.x) {
     s_w[e] = kernel[e];
   }
-  StageMasks<kLstmGates>(masks, batch, window, 1, s_m);
+  StageMasks<kGates>(masks, batch, window, 1, s_m);
   StageCodes(codes, batch, steps, window, 1, s_codes);
 }
 
@@ -876,10 +614,10 @@ LstmTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
   const int row = s & 1;  // 0: forward, 1: reverse complement
   const bool writer = (s & 2) == 0;  // one of the row's two lanes
   for (int e = tid; e < 4 * hstride; e += blockDim.x) s_h[e] = 0.0f;
-  StageLstm(codes, batch, steps, masks, kernel, units, window, s_w, s_m,
-            s_codes);
-  USlice<kURegs> us;
-  LoadUSlice<kURegs>(recurrent, units, i, s, us);
+  StageWindow<kLstmGates>(codes, batch, steps, masks, kernel, units, window,
+                          s_w, s_m, s_codes);
+  USlice<kLstmGates, kURegs> us;
+  LoadUSlice<kLstmGates, kURegs>(recurrent, units, i, s, us);
   const unsigned lanes = WarpLanes();
   float b_in[kLstmGates];
 #pragma unroll
@@ -915,13 +653,100 @@ LstmTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
   }
 }
 
-// The backward's sequential part: the reverse loop carrying (dh, dc), which
-// writes the gate cotangents da [2B, T, 4u] and sums nothing over rows.
-// Per step: (A) lane (i, s) recomputes the preactivations of unit i for its
-// row from h_prev, as the forward does, and forms da of that row; (C1) it
-// takes the other row's da from lane s^1 and writes its slice's part of
-// dh_prev: p[row, k, i] = sum_g da[row, g u + i] U[k, g u + i] for the k of
-// slice s; (C2) thread (row, k) adds p[row, k, :] over the units in order.
+// The sequential part of a backward: a reverse loop carrying the state's
+// cotangents, which writes the gate cotangents to device memory and sums
+// nothing over rows.  Per step: (A) lane (i, s) recomputes the gates of
+// unit i for its row from h_prev (and c_prev), as the forward does, and
+// forms the row's gate cotangents; (C1) it takes the other row's from lane
+// s^1 and writes its slice's parts of dh_prev (StageParts); (C2) thread
+// (row, k) adds them over the units in order (SumParts).
+
+// Both rows' values of a per-lane array: the lane's own and, by a shuffle,
+// lane s^1's (the other row).
+template <int kGates>
+__device__ __forceinline__ void BothRows(const float (&mine)[kGates], int row,
+                                         unsigned lanes,
+                                         float (&fwd)[kGates],
+                                         float (&rev)[kGates]) {
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    const float other = __shfl_xor_sync(lanes, mine[g], 1);
+    fwd[g] = row ? other : mine[g];
+    rev[g] = row ? mine[g] : other;
+  }
+}
+
+// (C1) The parts of dh_prev of slice s: p[row, k, i] = sum_g d[row, g u + i]
+// U[k, g u + i] for the k of the slice, both rows, into s_p [2][u][ldp].
+template <int kGates, bool kURegs>
+__device__ __forceinline__ void StageParts(const USlice<kGates, kURegs> &us,
+                                           const float (&d_f)[kGates],
+                                           const float (&d_r)[kGates],
+                                           int units, int i, int s, int ldp,
+                                           float *s_p) {
+  auto parts = [&](int m) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kk = 4 * (s + kSlices * m) + c;
+      float p_f = 0.0f, p_r = 0.0f;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+        const float w = us.at(m, c, g, s, units, i);
+        p_f = fmaf(d_f[g], w, p_f);
+        p_r = fmaf(d_r[g], w, p_r);
+      }
+      if (kk < units) {
+        s_p[kk * ldp + i] = p_f;
+        s_p[(units + kk) * ldp + i] = p_r;
+      }
+    }
+  };
+  const int n_quads = SliceQuads(units, s);
+  if constexpr (kURegs) {
+#pragma unroll
+    for (int m = 0; m < kRegQuads; ++m) {
+      if (m < n_quads) parts(m);
+    }
+  } else {
+    for (int m = 0; m < n_quads; ++m) parts(m);
+  }
+}
+
+// (C2) sum over the units of p[srow, k, :], in order, four chains.
+__device__ __forceinline__ float SumParts(const float *s_p, int units,
+                                          int ldp, int srow, int k) {
+  const float *p1 = s_p + (srow * units + k) * ldp;
+  const float2 *p2 = reinterpret_cast<const float2 *>(p1);
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  int j = 0;
+  for (; j + 4 <= units; j += 4) {
+    const float2 x = p2[j / 2], y = p2[j / 2 + 1];
+    a0 += x.x;
+    a1 += x.y;
+    a2 += y.x;
+    a3 += y.y;
+  }
+  for (; j < units; ++j) a0 += p1[j];
+  return (a0 + a1) + (a2 + a3);
+}
+
+// Shared memory of a backward recurrence: h_prev [2][hstride], W [5][width],
+// masks [2][g*5], parts [2][u][ldp], dh_prev [2][u], codes [T].
+template <int kGates>
+struct BwdLayout {
+  float *h, *w, *m, *p, *dh;
+  int8_t *codes;
+  __device__ explicit BwdLayout(float *base, int units) {
+    h = base;
+    w = h + 2 * Pad4(units);
+    m = w + Pad4(kCodes * kGates * units);  // keeps p 8-byte aligned
+    p = m + 2 * kGates * kCodes;
+    dh = p + 2 * units * PartStride(units);
+    codes = reinterpret_cast<int8_t *>(dh + 2 * units);
+  }
+};
+
+// The LSTM's: carries (dh, dc); writes da [2B, T, 4u].
 template <bool kURegs>
 __global__ void __launch_bounds__(kURegs ? kRegThreads : kMaxThreads,
                                   kURegs ? 2 : 1)
@@ -939,12 +764,7 @@ LstmBwdRecurrenceKernel(const int8_t *__restrict__ codes, int batch,
   const int width = kLstmGates * units;
   const int hstride = Pad4(units);
   const int ldp = PartStride(units);
-  float *s_h = reinterpret_cast<float *>(smem4);  // h_prev [2][hstride]
-  float *s_w = s_h + 2 * hstride;                 // [5][width]
-  float *s_m = s_w + kCodes * width;              // [2][4*5]
-  float *s_p = s_m + 2 * kLstmGates * kCodes;     // [2][u][ldp]
-  float *s_dh = s_p + 2 * units * ldp;            // dh_prev [2][u]
-  int8_t *s_codes = reinterpret_cast<int8_t *>(s_dh + 2 * units);
+  const BwdLayout<kLstmGates> sm(reinterpret_cast<float *>(smem4), units);
 
   const int tid = threadIdx.x;
   const int window = blockIdx.x;
@@ -971,13 +791,13 @@ LstmBwdRecurrenceKernel(const int8_t *__restrict__ codes, int batch,
            0.5f;
   };
   for (int e = tid; e < 2 * hstride; e += blockDim.x) {
-    if (e % hstride >= units) s_h[e] = 0.0f;
+    if (e % hstride >= units) sm.h[e] = 0.0f;
   }
-  if (stager) s_h[srow * hstride + k] = h_at(steps - 2);  // h_prev of T-1
-  StageLstm(codes, batch, steps, masks, kernel, units, window, s_w, s_m,
-            s_codes);
-  USlice<kURegs> us;
-  LoadUSlice<kURegs>(recurrent, units, i, s, us);
+  if (stager) sm.h[srow * hstride + k] = h_at(steps - 2);  // h_prev of T-1
+  StageWindow<kLstmGates>(codes, batch, steps, masks, kernel, units, window,
+                          sm.w, sm.m, sm.codes);
+  USlice<kLstmGates, kURegs> us;
+  LoadUSlice<kLstmGates, kURegs>(recurrent, units, i, s, us);
   const unsigned lanes = WarpLanes();
   float b_in[kLstmGates];
 #pragma unroll
@@ -992,15 +812,15 @@ LstmBwdRecurrenceKernel(const int8_t *__restrict__ codes, int batch,
   float nx_c = c_at(steps - 2), nx_da = half_avg_at(steps - 1);
   float nx_h = h_at(steps - 3);
   float dc = 0.0f;
-  const int n_quads = SliceQuads(units, s);
 
   for (int t = steps - 1; t >= 0; --t) {
     // (A) preactivations and da of the lane's row.
-    const int code = row ? Complement(s_codes[steps - 1 - t]) : s_codes[t];
+    const int code = row ? Complement(sm.codes[steps - 1 - t])
+                         : sm.codes[t];
     float pre[kLstmGates];
-    LstmPreacts<kURegs>(us, s_h, s_w, s_m, b_in, units, i, s, code, lanes,
+    LstmPreacts<kURegs>(us, sm.h, sm.w, sm.m, b_in, units, i, s, code, lanes,
                         pre);
-    const float dh = t < steps - 1 ? s_dh[row * units + i] : half_hid;
+    const float dh = t < steps - 1 ? sm.dh[row * units + i] : half_hid;
     float d_a[kLstmGates];
     LstmCellBackward(pre, dh + nx_da, nx_c, dc, d_a);
     if (writer) {
@@ -1015,57 +835,124 @@ LstmBwdRecurrenceKernel(const int8_t *__restrict__ codes, int batch,
 
     // (C1) both rows' da of unit i, then this slice's parts of dh_prev.
     float da_f[kLstmGates], da_r[kLstmGates];
-#pragma unroll
-    for (int g = 0; g < kLstmGates; ++g) {
-      const float other = __shfl_xor_sync(lanes, d_a[g], 1);
-      da_f[g] = row ? other : d_a[g];
-      da_r[g] = row ? d_a[g] : other;
-    }
-    auto parts = [&](int m) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kk = 4 * (s + kSlices * m) + c;
-        float p_f = 0.0f, p_r = 0.0f;
-#pragma unroll
-        for (int g = 0; g < kLstmGates; ++g) {
-          const float w = us.at(m, c, g, s, units, i);
-          p_f = fmaf(da_f[g], w, p_f);
-          p_r = fmaf(da_r[g], w, p_r);
-        }
-        if (kk < units) {
-          s_p[kk * ldp + i] = p_f;
-          s_p[(units + kk) * ldp + i] = p_r;
-        }
-      }
-    };
-    if constexpr (kURegs) {
-#pragma unroll
-      for (int m = 0; m < kRegQuads; ++m) {
-        if (m < n_quads) parts(m);
-      }
-    } else {
-      for (int m = 0; m < n_quads; ++m) parts(m);
-    }
-    __syncthreads();  // (1) parts staged; every read of s_h done
+    BothRows<kLstmGates>(d_a, row, lanes, da_f, da_r);
+    StageParts<kLstmGates, kURegs>(us, da_f, da_r, units, i, s, ldp, sm.p);
+    __syncthreads();  // (1) parts staged; every read of h_prev done
 
-    // (C2) dh_prev[srow, k]: the units in order, four chains; stage the
-    // next step's h_prev.
+    // (C2) dh_prev[srow, k]; stage the next step's h_prev.
     if (stager) {
-      const float2 *p2 = reinterpret_cast<const float2 *>(
-          s_p + (srow * units + k) * ldp);
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      int j = 0;
-      for (; j + 4 <= units; j += 4) {
-        const float2 x = p2[j / 2], y = p2[j / 2 + 1];
-        a0 += x.x;
-        a1 += x.y;
-        a2 += y.x;
-        a3 += y.y;
-      }
-      const float *p1 = s_p + (srow * units + k) * ldp;
-      for (; j < units; ++j) a0 += p1[j];
-      s_dh[srow * units + k] = (a0 + a1) + (a2 + a3);
-      s_h[srow * hstride + k] = nx_h;
+      sm.dh[srow * units + k] = SumParts(sm.p, units, ldp, srow, k);
+      sm.h[srow * hstride + k] = nx_h;
+      nx_h = h_at(t - 3);
+    }
+    __syncthreads();  // (2) dh_prev and h_prev staged
+  }
+}
+
+// The GRU's: carries dh (dh_prev = dh z + d_rp U^T, the first term in the
+// lane's registers); writes d_rp = [da_z, da_r, da_h r] (the cotangent of
+// the recurrent preactivations) and d_xp = [da_z, da_r, da_h] (of the
+// input preactivations), [2B, T, 3u] each: lane s < 2 of a row writes
+// d_rp, lane s >= 2 d_xp.
+template <bool kURegs>
+__global__ void __launch_bounds__(kURegs ? kRegThreads : kMaxThreads,
+                                  kURegs ? 2 : 1)
+GruBwdRecurrenceKernel(const int8_t *__restrict__ codes, int batch,
+                       int steps, const float *__restrict__ masks,
+                       const float *__restrict__ kernel,
+                       const float *__restrict__ bias,
+                       const float *__restrict__ recurrent, int units,
+                       const float *__restrict__ hseq,
+                       const float *__restrict__ d_avg,
+                       const float *__restrict__ d_hidden,
+                       float *__restrict__ d_rp, float *__restrict__ d_xp) {
+  extern __shared__ float4 smem4[];
+  const int width = kGruGates * units;
+  const int hstride = Pad4(units);
+  const int ldp = PartStride(units);
+  const BwdLayout<kGruGates> sm(reinterpret_cast<float *>(smem4), units);
+
+  const int tid = threadIdx.x;
+  const int window = blockIdx.x;
+  const int i = tid / kSlices, s = tid % kSlices;
+  const int row = s & 1;
+  const bool rp_writer = (s & 2) == 0;
+  const bool stager = tid < 2 * units;
+  const int srow = tid / units, k = tid - srow * units;
+  const size_t row_base =
+      static_cast<size_t>(row ? batch + window : window) * steps;
+  const size_t stage_base =
+      static_cast<size_t>(srow ? batch + window : window) * steps * units + k;
+  auto h_at = [&](int step) {
+    return (stager && step >= 0)
+               ? hseq[stage_base + static_cast<size_t>(step) * units]
+               : 0.0f;
+  };
+  auto half_avg_at = [&](int step) {
+    return d_avg[(static_cast<size_t>(window) * steps + step) * units + i] *
+           0.5f;
+  };
+  for (int e = tid; e < 2 * hstride; e += blockDim.x) {
+    if (e % hstride >= units) sm.h[e] = 0.0f;
+  }
+  if (stager) sm.h[srow * hstride + k] = h_at(steps - 2);
+  StageWindow<kGruGates>(codes, batch, steps, masks, kernel, units, window,
+                         sm.w, sm.m, sm.codes);
+  USlice<kGruGates, kURegs> us;
+  LoadUSlice<kGruGates, kURegs>(recurrent, units, i, s, us);
+  const unsigned lanes = WarpLanes();
+  float b_in[kGruGates], b_rec[kGruGates];
+#pragma unroll
+  for (int g = 0; g < kGruGates; ++g) {
+    b_in[g] = bias[g * units + i];
+    b_rec[g] = bias[width + g * units + i];
+  }
+  __syncthreads();
+
+  const float half_hid =
+      d_hidden[static_cast<size_t>(window) * units + i] * 0.5f;
+  float nx_da = half_avg_at(steps - 1);
+  float nx_h = h_at(steps - 3);
+  float keep = 0.0f;  // dh z of the step after this one
+
+  for (int t = steps - 1; t >= 0; --t) {
+    // (A) gates and cotangents of the lane's row.
+    const int code = row ? Complement(sm.codes[steps - 1 - t])
+                         : sm.codes[t];
+    float dot[kGruGates], x[kGruGates];
+    GateDots<kGruGates, kURegs>(us, sm.h, units, i, s, lanes, dot);
+    InputRow<kGruGates>(sm.w, sm.m + row * kGruGates * kCodes, b_in, units,
+                        i, code, x);
+    const float z = Sigmoid(x[0] + (dot[0] + b_rec[0]));
+    const float r = Sigmoid(x[1] + (dot[1] + b_rec[1]));
+    const float rh = dot[2] + b_rec[2];
+    const float hh = tanhf(x[2] + r * rh);
+    const float h_prev = sm.h[row * hstride + i];
+    const float dh = t < steps - 1 ? keep + sm.dh[row * units + i] : half_hid;
+    const float dht = dh + nx_da;
+    const float da_z = dht * (h_prev - hh) * z * (1.0f - z);
+    const float da_h = dht * (1.0f - z) * (1.0f - hh * hh);
+    const float da_r = (da_h * rh) * r * (1.0f - r);
+    keep = dht * z;
+    const float drp[kGruGates] = {da_z, da_r, da_h * r};
+    {
+      float *out = (rp_writer ? d_rp : d_xp) + (row_base + t) * width + i;
+      out[0] = da_z;
+      out[units] = da_r;
+      out[2 * units] = rp_writer ? drp[2] : da_h;
+    }
+    if (t > 0) nx_da = half_avg_at(t - 1);
+
+    // (C1) both rows' d_rp of unit i, then this slice's parts of dh_prev.
+    float drp_f[kGruGates], drp_r[kGruGates];
+    BothRows<kGruGates>(drp, row, lanes, drp_f, drp_r);
+    StageParts<kGruGates, kURegs>(us, drp_f, drp_r, units, i, s, ldp, sm.p);
+    __syncthreads();  // (1) parts staged; every read of h_prev done
+
+    // (C2) the d_rp U^T part of dh_prev[srow, k]; the next step's h_prev.
+    if (stager) {
+      sm.dh[srow * units + k] = SumParts(sm.p, units, ldp, srow, k);
+      sm.h[srow * hstride + k] = nx_h;
       nx_h = h_at(t - 3);
     }
     __syncthreads();  // (2) dh_prev and h_prev staged
@@ -1106,7 +993,7 @@ TrainReduceKernel(const float *__restrict__ hseq,
   __shared__ __align__(16) float s_r[2][kRedDepth][kRedTile];
   __shared__ __align__(16) float s_r2[2][kRedDepth][kRedTile];
   __shared__ int s_code[2][kRedDepth];
-  __shared__ float s_scale[2][kRedDepth][kLstmGates];
+  __shared__ float s_scale[2][kRedDepth][kMaxGates];
   __shared__ float s_vec[4][kVecRows][kRedTile];
 
   const int width = gates * units;
@@ -1128,7 +1015,7 @@ TrainReduceKernel(const float *__restrict__ hseq,
   int step[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) step[m] = (n_begin + vp + 4 * m) % steps;
-  float ld_l[4], ld_r[4], ld_r2[4], ld_scale[kLstmGates];
+  float ld_l[4], ld_r[4], ld_r2[4], ld_scale[kMaxGates];
   int ld_code = kPadCode;
 
   auto load = [&](int n0) {
@@ -1274,19 +1161,20 @@ __global__ void SumReducePartsKernel(const float *__restrict__ parts,
 
 // Opt-in shared memory above 48 kB, then the launch (one CTA a window).
 template <typename Kernel, typename... Args>
-int LaunchLstm(Kernel kernel_fn, int batch, int units, size_t smem,
-               cudaStream_t stream, Args... args) {
+int LaunchWindow(Kernel kernel_fn, int batch, int units, size_t smem,
+                 cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel_fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel_fn<<<batch, kLstmGates * units, smem, stream>>>(args...);
+  kernel_fn<<<batch, kSlices * units, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool BadLstmShape(int batch, int steps, int units) {
+// The window kernels take 4u threads a CTA: u <= kMaxThreads / 4 = 128.
+bool BadWindowShape(int batch, int steps, int units) {
   return batch <= 0 || steps <= 0 || units <= 0 ||
-         kLstmGates * units > kMaxThreads;
+         kSlices * units > kMaxThreads;
 }
 
 }  // namespace
@@ -1313,20 +1201,19 @@ int dg_lstm_train_fwd(const void *codes, int batch, int steps,
                       const void *bias, const void *recurrent, int units,
                       void *avg, void *hidden, void *hseq, void *cseq,
                       void *stream) {
-  if (BadLstmShape(batch, steps, units)) {
+  if (BadWindowShape(batch, steps, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = LstmSmem(units, steps, false);
+  const size_t smem = WindowSmem(kLstmGates, units, steps, false);
   const auto fn = units <= kRegUnits ? LstmTrainFwdKernel<true>
                                      : LstmTrainFwdKernel<false>;
-  return LaunchLstm(fn, batch, units, smem, static_cast<cudaStream_t>(stream),
-                    static_cast<const int8_t *>(codes), batch, steps,
-                    static_cast<const float *>(masks),
-                    static_cast<const float *>(kernel),
-                    static_cast<const float *>(bias),
-                    static_cast<const float *>(recurrent), units,
-                    static_cast<float *>(avg), static_cast<float *>(hidden),
-                    static_cast<float *>(hseq), static_cast<float *>(cseq));
+  return LaunchWindow(
+      fn, batch, units, smem, static_cast<cudaStream_t>(stream),
+      static_cast<const int8_t *>(codes), batch, steps,
+      static_cast<const float *>(masks), static_cast<const float *>(kernel),
+      static_cast<const float *>(bias), static_cast<const float *>(recurrent),
+      units, static_cast<float *>(avg), static_cast<float *>(hidden),
+      static_cast<float *>(hseq), static_cast<float *>(cseq));
 }
 
 // The LSTM backward's recurrence: writes the gate cotangents da [2B, T, 4u]
@@ -1337,39 +1224,62 @@ int dg_lstm_bwd_recurrence(const void *codes, int batch, int steps,
                            int units, const void *hseq, const void *cseq,
                            const void *d_avg, const void *d_hidden, void *da,
                            void *stream) {
-  if (BadLstmShape(batch, steps, units)) {
+  if (BadWindowShape(batch, steps, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = LstmSmem(units, steps, true);
+  const size_t smem = WindowSmem(kLstmGates, units, steps, true);
   const auto fn = units <= kRegUnits ? LstmBwdRecurrenceKernel<true>
                                      : LstmBwdRecurrenceKernel<false>;
-  return LaunchLstm(fn, batch, units, smem, static_cast<cudaStream_t>(stream),
-                    static_cast<const int8_t *>(codes), batch, steps,
-                    static_cast<const float *>(masks),
-                    static_cast<const float *>(kernel),
-                    static_cast<const float *>(bias),
-                    static_cast<const float *>(recurrent), units,
-                    static_cast<const float *>(hseq),
-                    static_cast<const float *>(cseq),
-                    static_cast<const float *>(d_avg),
-                    static_cast<const float *>(d_hidden),
-                    static_cast<float *>(da));
+  return LaunchWindow(
+      fn, batch, units, smem, static_cast<cudaStream_t>(stream),
+      static_cast<const int8_t *>(codes), batch, steps,
+      static_cast<const float *>(masks), static_cast<const float *>(kernel),
+      static_cast<const float *>(bias), static_cast<const float *>(recurrent),
+      units, static_cast<const float *>(hseq),
+      static_cast<const float *>(cseq), static_cast<const float *>(d_avg),
+      static_cast<const float *>(d_hidden), static_cast<float *>(da));
 }
 
-// CTAs of the LSTM forward (which=0) or backward recurrence (1) that fit on
-// one SM at this width and length (0 if the kernel cannot launch).
-int dg_lstm_train_ctas_per_sm(int units, int steps, int which) {
-  if (BadLstmShape(1, steps, units)) return 0;
-  const size_t smem = LstmSmem(units, steps, which != 0);
+// The GRU backward's recurrence: writes d_rp and d_xp [2B, T, 3u] (scratch
+// the caller allocates); dg_train_reduce then sums the gradients.
+int dg_gru_bwd_recurrence(const void *codes, int batch, int steps,
+                          const void *masks, const void *kernel,
+                          const void *bias, const void *recurrent, int units,
+                          const void *hseq, const void *d_avg,
+                          const void *d_hidden, void *d_rp, void *d_xp,
+                          void *stream) {
+  if (BadWindowShape(batch, steps, units)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = WindowSmem(kGruGates, units, steps, true);
+  const auto fn = units <= kRegUnits ? GruBwdRecurrenceKernel<true>
+                                     : GruBwdRecurrenceKernel<false>;
+  return LaunchWindow(
+      fn, batch, units, smem, static_cast<cudaStream_t>(stream),
+      static_cast<const int8_t *>(codes), batch, steps,
+      static_cast<const float *>(masks), static_cast<const float *>(kernel),
+      static_cast<const float *>(bias), static_cast<const float *>(recurrent),
+      units, static_cast<const float *>(hseq),
+      static_cast<const float *>(d_avg), static_cast<const float *>(d_hidden),
+      static_cast<float *>(d_rp), static_cast<float *>(d_xp));
+}
+
+// CTAs of a window kernel that fit on one SM at this width and length (0
+// if the kernel cannot launch): which = 0 the LSTM forward, 1 the LSTM
+// backward recurrence, 2 the GRU backward recurrence.
+int dg_window_ctas_per_sm(int which, int units, int steps) {
+  if (which < 0 || which > 2 || BadWindowShape(1, steps, units)) return 0;
   const bool regs = units <= kRegUnits;
-  const void *fn =
-      which == 0
-          ? (regs ? reinterpret_cast<const void *>(LstmTrainFwdKernel<true>)
-                  : reinterpret_cast<const void *>(LstmTrainFwdKernel<false>))
-          : (regs ? reinterpret_cast<const void *>(
-                        LstmBwdRecurrenceKernel<true>)
-                  : reinterpret_cast<const void *>(
-                        LstmBwdRecurrenceKernel<false>));
+  const void *fns[3][2] = {
+      {reinterpret_cast<const void *>(LstmTrainFwdKernel<false>),
+       reinterpret_cast<const void *>(LstmTrainFwdKernel<true>)},
+      {reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<false>),
+       reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<true>)},
+      {reinterpret_cast<const void *>(GruBwdRecurrenceKernel<false>),
+       reinterpret_cast<const void *>(GruBwdRecurrenceKernel<true>)}};
+  const void *fn = fns[which][regs ? 1 : 0];
+  const size_t smem = WindowSmem(which == 2 ? kGruGates : kLstmGates, units,
+                                 steps, which != 0);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess) {
     cudaGetLastError();
@@ -1377,7 +1287,7 @@ int dg_lstm_train_ctas_per_sm(int units, int steps, int which) {
   }
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, fn, kLstmGates * units, smem) != cudaSuccess) {
+          &blocks, fn, kSlices * units, smem) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
@@ -1395,7 +1305,7 @@ int dg_train_reduce(const void *hseq, const void *r1, const void *r2,
                     void *parts, void *d_kernel, void *d_bias_1,
                     void *d_bias_2, void *d_recurrent, void *stream) {
   if (batch <= 0 || steps <= 0 || units <= 0 || splits <= 0 ||
-      gates < 3 || gates > kLstmGates) {
+      gates < kGruGates || gates > kMaxGates) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1422,20 +1332,6 @@ int dg_train_reduce(const void *hseq, const void *r1, const void *r2,
       static_cast<float *>(d_recurrent), static_cast<float *>(d_bias_1),
       static_cast<float *>(d_bias_2), static_cast<float *>(d_kernel));
   return static_cast<int>(cudaGetLastError());
-}
-
-// part_w [n_cta*bb, 5, g*u], part_b [n_cta*bb, bias rows, g*u] and
-// part_u [n_cta, u, g*u] are scratch the caller allocates.
-int dg_gru_train_bwd(const void *codes, int batch, int steps,
-                     const void *masks, const void *kernel, const void *bias,
-                     const void *recurrent, int units, int bb,
-                     const void *hseq, const void *d_avg,
-                     const void *d_hidden, void *part_w, void *part_b,
-                     void *part_u, void *d_kernel, void *d_bias,
-                     void *d_recurrent, void *stream) {
-  return LaunchBwd<3>(codes, batch, steps, masks, kernel, bias, recurrent,
-                      units, bb, hseq, d_avg, d_hidden, part_w,
-                      part_b, part_u, d_kernel, d_bias, d_recurrent, stream);
 }
 
 const char *dg_error_string(int code) {

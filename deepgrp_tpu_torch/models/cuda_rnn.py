@@ -13,8 +13,9 @@ Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``pallas_gru_avg_train`` / ``pallas_lstm_avg_train``
 (``deepgrp_tpu/models/pallas_rnn_train.py``).  Their forward runs the
 training forward kernel (per-gate input dropout masks, hidden and cell
-sequences kept for the backward); their backward runs the backward kernels,
-which recompute the gates and return the gradients of the three
+sequences kept for the backward); their backward runs the recurrence
+kernel, which recomputes the gates and writes the gate cotangents, and the
+reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).
 
 For a tensor on the CPU a wrapper runs the plain version
@@ -23,9 +24,8 @@ kernel on the current stream or raises.  ``LAUNCHES`` counts the kernel
 launches by name: ``gru_avg``, ``lstm_avg``, ``gru_avg_bf16``,
 ``lstm_avg_bf16``, ``gru_seq`` (either dtype), ``gru_train_fwd``,
 ``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
-counts once: for GRU it also launches the small kernel that sums its
-partials, for LSTM it is the recurrence kernel, the reduction kernel and
-the sum of the reduction's partials).
+counts once, for either cell: it is the recurrence kernel, the reduction
+kernel and the sum of the reduction's partials).
 """
 
 from __future__ import annotations
@@ -130,15 +130,37 @@ def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
         return avg, hidden
     lib = _build.load_kernels("rnn_avg")
     fn: Callable[..., int] = getattr(lib, f"dg_{name}")
+    # The GRU kernel takes its tile (windows a CTA); the LSTM's is fixed.
+    tile = () if gates == 4 else (gru_avg_tile(batch, units,
+                                               codes.device)[0],)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = fn(codes.data_ptr(), batch, steps,
                  params["kernel"].data_ptr(), params["bias"].data_ptr(),
-                 params["recurrent"].data_ptr(), units, avg.data_ptr(),
-                 hidden.data_ptr(), ctypes.c_void_p(stream))
+                 params["recurrent"].data_ptr(), units, *tile,
+                 avg.data_ptr(), hidden.data_ptr(), ctypes.c_void_p(stream))
     _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
     LAUNCHES.add(name)
     return avg, hidden
+
+
+def block_windows(batch: int, sms: int, most: int) -> int:
+    """Windows a CTA owns: the least that keeps the grid of
+    ``ceil(batch / windows)`` CTAs within one wave on ``sms`` SMs, at most
+    ``most`` (then the grid takes the fewest waves it can)."""
+    return max(1, min(most, -(-batch // max(sms, 1))))
+
+
+def gru_avg_tile(batch: int, units: int,
+                 device: Optional[torch.device] = None) -> Tuple[int, int]:
+    """``(windows a CTA owns, CTAs)`` of the GRU inference kernels for a
+    batch on a CUDA device (:func:`block_windows` with the card's SM count
+    and the kernel's cap at this width: 8 windows up to u=128, 2 beyond)."""
+    device = device or torch.device("cuda")
+    most = _build.load_kernels("rnn_avg").dg_gru_avg_max_windows(units)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    windows = block_windows(batch, sms, most)
+    return windows, -(-batch // windows)
 
 
 def gru_apply(params: RnnParams, x: torch.Tensor, *,
@@ -268,9 +290,8 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
               masks: Optional[torch.Tensor], seqs: Tuple[torch.Tensor, ...],
               d_avg: torch.Tensor, d_hidden: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the training backward of ``cell``: for GRU the backward
-    kernel and the sum of its partials, for LSTM the recurrence kernel and
-    the reduction kernel (:func:`_lstm_bwd_recurrence`,
+    """Launch the training backward of ``cell``: the recurrence kernel,
+    then the reduction kernel (:func:`_bwd_recurrence`,
     :func:`_train_reduce`).  ``seqs`` is ``(hseq,)`` or ``(hseq, cseq)``
     from :func:`train_fwd`.  Returns ``(d_kernel, d_recurrent, d_bias)``
     and counts one launch."""
@@ -287,55 +308,38 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
              for key in ("kernel", "recurrent", "bias")]
     if batch == 0:
         return tuple(g.zero_() for g in grads)
-    if cell == "lstm":
-        da = _lstm_bwd_recurrence(params, codes, masks, seqs, d_avg,
-                                  d_hidden)
-        _train_reduce(seqs[0], da, codes, masks, gates, grads)
-        LAUNCHES.add(name)
-        return grads[0], grads[1], grads[2]
-    width = gates * units
-    bias_rows = 2 if gates == 3 else 1
-    block_rows, n_cta = train_grid(batch, units, codes.device)
-    part_w = _empty(codes.device, n_cta * block_rows, 5, width)
-    part_b = _empty(codes.device, n_cta * block_rows, bias_rows, width)
-    part_u = _empty(codes.device, n_cta, units, width)
-    lib = _build.load_kernels("rnn_train")
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = getattr(lib, f"dg_{name}")(
-            codes.data_ptr(), batch, steps, _ptr(masks),
-            params["kernel"].data_ptr(), params["bias"].data_ptr(),
-            params["recurrent"].data_ptr(), units, block_rows,
-            *(seq.data_ptr() for seq in seqs), d_avg.data_ptr(),
-            d_hidden.data_ptr(), part_w.data_ptr(), part_b.data_ptr(),
-            part_u.data_ptr(), grads[0].data_ptr(), grads[2].data_ptr(),
-            grads[1].data_ptr(), ctypes.c_void_p(stream))
-    _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
+    cotangents = _bwd_recurrence(cell, params, codes, masks, seqs, d_avg,
+                                 d_hidden)
+    _train_reduce(seqs[0], codes, masks, gates, grads, *cotangents)
     LAUNCHES.add(name)
     return grads[0], grads[1], grads[2]
 
 
-def _lstm_bwd_recurrence(params: RnnParams, codes: torch.Tensor,
-                         masks: Optional[torch.Tensor],
-                         seqs: Tuple[torch.Tensor, ...], d_avg: torch.Tensor,
-                         d_hidden: torch.Tensor) -> torch.Tensor:
-    """The LSTM backward's recurrence kernel on checked inputs (see
-    :func:`train_bwd`): the gate cotangents ``da [2B, T, 4u]``."""
+def _bwd_recurrence(cell: str, params: RnnParams, codes: torch.Tensor,
+                    masks: Optional[torch.Tensor],
+                    seqs: Tuple[torch.Tensor, ...], d_avg: torch.Tensor,
+                    d_hidden: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The backward's recurrence kernel of ``cell`` on checked inputs (see
+    :func:`train_bwd`): the gate cotangents, ``(da [2B, T, 4u],)`` for
+    LSTM, ``(d_rp, d_xp)`` ``[2B, T, 3u]`` each for GRU."""
     batch, steps = codes.shape
     units = params["recurrent"].shape[0]
-    da = _empty(codes.device, 2 * batch, steps, 4 * units)
+    gates = 4 if cell == "lstm" else 3
+    outs = tuple(_empty(codes.device, 2 * batch, steps, gates * units)
+                 for _ in range(1 if cell == "lstm" else 2))
     lib = _build.load_kernels("rnn_train")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = lib.dg_lstm_bwd_recurrence(
+        err = getattr(lib, f"dg_{cell}_bwd_recurrence")(
             codes.data_ptr(), batch, steps, _ptr(masks),
             params["kernel"].data_ptr(), params["bias"].data_ptr(),
             params["recurrent"].data_ptr(), units,
             *(seq.data_ptr() for seq in seqs), d_avg.data_ptr(),
-            d_hidden.data_ptr(), da.data_ptr(), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "lstm_train_bwd (recurrence)",
+            d_hidden.data_ptr(), *(out.data_ptr() for out in outs),
+            ctypes.c_void_p(stream))
+    _raise_on(lib, err, f"{cell}_train_bwd (recurrence)",
               f"B={batch} T={steps} u={units}")
-    return da
+    return outs
 
 
 #: Tile of the reduction kernel (left rows and columns).
@@ -351,44 +355,57 @@ def reduce_splits(rows: int, units: int, gates: int, sms: int) -> int:
     return max(1, min(-(-4 * sms // tiles), -(-rows // 256)))
 
 
-def _train_reduce(hseq: torch.Tensor, da: torch.Tensor, codes: torch.Tensor,
-                  masks: Optional[torch.Tensor], gates: int,
-                  grads: list) -> None:
-    """The reduction kernel: ``dW, dU, db`` of the LSTM from ``hseq`` and
-    the gate cotangents ``da``, written into ``grads`` (``[d_kernel,
-    d_recurrent, d_bias]``)."""
+def _train_reduce(hseq: torch.Tensor, codes: torch.Tensor,
+                  masks: Optional[torch.Tensor], gates: int, grads: list,
+                  r1: torch.Tensor, r2: Optional[torch.Tensor] = None
+                  ) -> None:
+    """The reduction kernel: ``dW, dU, db`` from ``hseq`` and the gate
+    cotangents, written into ``grads`` (``[d_kernel, d_recurrent,
+    d_bias]``).  LSTM passes ``r1 = da``; GRU ``r1 = d_rp`` (``dU`` and the
+    recurrent bias row) and ``r2 = d_xp`` (``dW`` and the input bias
+    row)."""
     batch, steps = codes.shape
     units = hseq.shape[2]
     sms = torch.cuda.get_device_properties(
         codes.device).multi_processor_count
     splits = reduce_splits(2 * batch * steps, units, gates, sms)
     parts = _empty(codes.device, splits, units + 7, gates * units)
+    d_bias = grads[2]
+    bias_1, bias_2 = ((d_bias, None) if r2 is None
+                      else (d_bias[1], d_bias[0]))
     lib = _build.load_kernels("rnn_train")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.dg_train_reduce(
-            hseq.data_ptr(), da.data_ptr(), None, codes.data_ptr(),
+            hseq.data_ptr(), r1.data_ptr(), _ptr(r2), codes.data_ptr(),
             _ptr(masks), batch, steps, units, gates, splits,
-            parts.data_ptr(), grads[0].data_ptr(), grads[2].data_ptr(),
-            None, grads[1].data_ptr(), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "lstm_train_bwd (reduction)",
+            parts.data_ptr(), grads[0].data_ptr(), bias_1.data_ptr(),
+            _ptr(bias_2), grads[1].data_ptr(), ctypes.c_void_p(stream))
+    cell = "lstm" if gates == 4 else "gru"
+    _raise_on(lib, err, f"{cell}_train_bwd (reduction)",
               f"B={batch} T={steps} u={units} splits={splits}")
 
 
-def lstm_train_tile(batch: int, units: int, steps: int,
-                    device: Optional[torch.device] = None) -> Dict[str, int]:
-    """The LSTM training kernels' tile on a CUDA device: threads a CTA
-    (one per gate column), CTAs (one a window), resident CTAs an SM of the
-    forward and the backward recurrence, and the warps an SM that gives at
-    this batch."""
+#: The window kernels of each cell's training path, ``(kind, index that
+#: dg_window_ctas_per_sm takes)``.
+_WINDOW_KERNELS = {"lstm": (("fwd", 0), ("bwd", 1)), "gru": (("bwd", 2),)}
+
+
+def train_tile(cell: str, batch: int, units: int, steps: int,
+               device: Optional[torch.device] = None) -> Dict[str, int]:
+    """The tile of ``cell``'s training kernels that take one CTA a window
+    (LSTM forward and backward recurrence, GRU backward recurrence; the
+    GRU forward's tile is :func:`train_grid`'s) on a CUDA device: threads
+    a CTA (four per unit), CTAs (one a window), resident CTAs an SM of each
+    kernel, and the warps an SM that gives at this batch."""
     lib = _build.load_kernels("rnn_train")
     device = device or torch.device("cuda")
     threads = 4 * units
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tile = {"threads": threads, "ctas": batch}
     with torch.cuda.device(device):
-        for which, kind in enumerate(("fwd", "bwd")):
-            per_sm = lib.dg_lstm_train_ctas_per_sm(units, steps, which)
+        for kind, which in _WINDOW_KERNELS[cell]:
+            per_sm = lib.dg_window_ctas_per_sm(which, units, steps)
             tile[f"{kind}_ctas_per_sm"] = per_sm
             tile[f"{kind}_warps_per_sm"] = (min(per_sm, -(-batch // sms))
                                             * -(-threads // 32))

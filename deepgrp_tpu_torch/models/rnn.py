@@ -373,44 +373,40 @@ def gru_avg_train_fwd_plain(
     return avg, avg[:, -1].clone(), hseq
 
 
-def gru_avg_train_bwd_plain(
+def gru_bwd_recurrence_plain(
         params: RnnParams, codes: torch.Tensor,
         masks: Optional[torch.Tensor], hseq: torch.Tensor,
         d_avg: torch.Tensor, d_hidden: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients of the fused GRU (``_gru_train_bwd_kernel``), by an
-    explicit reverse loop over T (not autograd).
-
-    With ``rp = h_prev U + b_rec`` recomputed per step and the carried
-    cotangent ``dh`` (seeded ``d_hidden / 2`` on both branch rows, plus
-    ``d_avg[t] / 2`` each step)::
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential part of the fused GRU's backward (the recurrence
+    kernel of ``csrc/rnn_train.cu``): an explicit reverse loop over T
+    carrying ``dh`` (seeded ``d_hidden / 2`` on both branch rows, plus
+    ``d_avg[t] / 2`` each step), the gates recomputed from ``h_prev`` with
+    ``rp = h_prev U + b_rec``::
 
         da_z = dh (h_prev - hh) z (1-z)    da_h = dh (1-z) (1 - hh^2)
         da_r = (da_h rh) r (1-r)
         d_xp = [da_z, da_r, da_h]          d_rp = [da_z, da_r, da_h r]
         dh_prev = dh z + d_rp U^T
-        dU += h_prev^T d_rp   db_rec += sum d_rp   db_in += sum d_xp
-        dW[c] += sum_{code==c} mask_c d_xp
 
     Returns:
-        ``(d_kernel [5, 3u], d_recurrent [u, 3u], d_bias [2, 3u])``.
+        ``(d_rp [2B, T, 3u], d_xp [2B, T, 3u])``, forward rows first: the
+        cotangents of the recurrent and of the input preactivations.
     """
-    PLAIN_CALLS.add("gru_train_bwd")
     batch, steps = codes.shape
     recurrent = params["recurrent"]
     units = recurrent.shape[0]
     both = _doubled_codes(codes)
-    scale = _mask_scale(masks, both, units)
-    xp = _train_projection(params["kernel"], params["bias"][0], both, scale)
+    xp = _train_projection(params["kernel"], params["bias"][0], both,
+                           _mask_scale(masks, both, units))
     bias_rec = params["bias"][1]
     half = d_hidden * 0.5
     dh = torch.cat([half, half])
-    d_rec = torch.zeros_like(recurrent)
-    d_bias = torch.zeros_like(params["bias"])
+    d_rp_seq = xp.new_empty(xp.shape)
     d_xp_seq = xp.new_empty(xp.shape)
+    zeros = hseq.new_zeros(2 * batch, units)
     for t in reversed(range(steps)):
-        h_prev = hseq[:, t - 1] if t > 0 else hseq.new_zeros(2 * batch,
-                                                             units)
+        h_prev = hseq[:, t - 1] if t > 0 else zeros
         x = xp[:, t]
         rp = h_prev @ recurrent + bias_rec
         z = torch.sigmoid(x[:, :units] + rp[:, :units])
@@ -422,14 +418,30 @@ def gru_avg_train_bwd_plain(
         da_z = dht * (h_prev - hh) * z * (1.0 - z)
         da_h = dht * (1.0 - z) * (1.0 - hh * hh)
         da_r = (da_h * rh) * r * (1.0 - r)
-        d_xp = torch.cat([da_z, da_r, da_h], dim=1)
         d_rp = torch.cat([da_z, da_r, da_h * r], dim=1)
         dh = dht * z + d_rp @ recurrent.T
-        d_rec += h_prev.T @ d_rp
-        d_bias[0] += d_xp.sum(0)
-        d_bias[1] += d_rp.sum(0)
-        d_xp_seq[:, t] = d_xp
-    return _kernel_grad(d_xp_seq, both, scale), d_rec, d_bias
+        d_rp_seq[:, t] = d_rp
+        d_xp_seq[:, t] = torch.cat([da_z, da_r, da_h], dim=1)
+    return d_rp_seq, d_xp_seq
+
+
+def gru_avg_train_bwd_plain(
+        params: RnnParams, codes: torch.Tensor,
+        masks: Optional[torch.Tensor], hseq: torch.Tensor,
+        d_avg: torch.Tensor, d_hidden: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of the fused GRU (``_gru_train_bwd_kernel``): the plain
+    recurrence (:func:`gru_bwd_recurrence_plain`), then the plain
+    reduction (:func:`train_reduce_plain`) with ``d_rp`` for ``dU`` and
+    the recurrent bias, ``d_xp`` for ``dW`` and the input bias.
+
+    Returns:
+        ``(d_kernel [5, 3u], d_recurrent [u, 3u], d_bias [2, 3u])``.
+    """
+    PLAIN_CALLS.add("gru_train_bwd")
+    d_rp_seq, d_xp_seq = gru_bwd_recurrence_plain(params, codes, masks, hseq,
+                                                  d_avg, d_hidden)
+    return train_reduce_plain(hseq, d_rp_seq, codes, masks, d_xp_seq)
 
 
 def lstm_avg_train_fwd_plain(
@@ -516,28 +528,36 @@ def lstm_bwd_recurrence_plain(
     return da_seq
 
 
-def lstm_train_reduce_plain(
-        hseq: torch.Tensor, da_seq: torch.Tensor, codes: torch.Tensor,
-        masks: Optional[torch.Tensor]
+def train_reduce_plain(
+        hseq: torch.Tensor, r1_seq: torch.Tensor, codes: torch.Tensor,
+        masks: Optional[torch.Tensor],
+        r2_seq: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The parameter gradients of the fused LSTM from its gate cotangents
-    (the reduction kernel of ``csrc/rnn_train.cu``): sums over every
-    ``(row, t)`` of the doubled batch::
+    """The parameter gradients of a fused recurrence from its gate
+    cotangents (the reduction kernel of ``csrc/rnn_train.cu``): sums over
+    every ``(row, t)`` of the doubled batch of ``r1`` (the cotangent of the
+    recurrent preactivations) and ``r2`` (of the input preactivations;
+    LSTM passes none, and then it is ``r1``)::
 
-        dU = sum h_prev^T da   (h_prev = hseq one step back, zero at t=0)
-        db = sum da            dW[c] = sum_{code==c} mask_c da
+        dU = sum h_prev^T r1   (h_prev = hseq one step back, zero at t=0)
+        dW[c] = sum_{code==c} mask_c r2
+        db = sum r1 (LSTM, [4u]); [sum r2, sum r1] (GRU, [2, 3u])
 
     Returns:
-        ``(d_kernel [5, 4u], d_recurrent [u, 4u], d_bias [4u])``.
+        ``(d_kernel [5, g*u], d_recurrent [u, g*u], d_bias)``.
     """
     rows, _, units = hseq.shape
-    width = da_seq.shape[-1]
+    width = r1_seq.shape[-1]
     both = _doubled_codes(codes)
     h_prev = torch.cat([hseq.new_zeros(rows, 1, units), hseq[:, :-1]], dim=1)
-    flat_da = da_seq.reshape(-1, width)
-    d_rec = h_prev.reshape(-1, units).T @ flat_da
-    d_kernel = _kernel_grad(da_seq, both, _mask_scale(masks, both, units))
-    return d_kernel, d_rec, flat_da.sum(0)
+    flat_r1 = r1_seq.reshape(-1, width)
+    d_rec = h_prev.reshape(-1, units).T @ flat_r1
+    input_seq = r1_seq if r2_seq is None else r2_seq
+    d_kernel = _kernel_grad(input_seq, both, _mask_scale(masks, both, units))
+    if r2_seq is None:
+        return d_kernel, d_rec, flat_r1.sum(0)
+    d_bias = torch.stack([r2_seq.reshape(-1, width).sum(0), flat_r1.sum(0)])
+    return d_kernel, d_rec, d_bias
 
 
 def lstm_avg_train_bwd_plain(
@@ -547,7 +567,7 @@ def lstm_avg_train_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of the fused LSTM (``_lstm_train_bwd_kernel``): the plain
     recurrence (:func:`lstm_bwd_recurrence_plain`), then the plain
-    reduction (:func:`lstm_train_reduce_plain`).
+    reduction (:func:`train_reduce_plain`).
 
     Returns:
         ``(d_kernel [5, 4u], d_recurrent [u, 4u], d_bias [4u])``.
@@ -555,4 +575,4 @@ def lstm_avg_train_bwd_plain(
     PLAIN_CALLS.add("lstm_train_bwd")
     da_seq = lstm_bwd_recurrence_plain(params, codes, masks, hseq, cseq,
                                        d_avg, d_hidden)
-    return lstm_train_reduce_plain(hseq, da_seq, codes, masks)
+    return train_reduce_plain(hseq, da_seq, codes, masks)

@@ -13,13 +13,16 @@ The shapes include the engine's default tile at the flagship shape
 
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
-tiny widths (LSTM also at u=96 and u=128, past the register tile), with
+tiny widths (also at u=96 and u=128, past the register tile), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
 runs give bitwise-equal gradients (no float atomics).
 
-The GRU sequence kernel (``gru_seq``) is held against its plain version
+The fused GRU inference kernel also runs at the CLI's default batch (256
+windows: two a CTA), at u=96 and u=128 (past its register tile) and at
+u=200 (two windows a CTA, 4u threads).  The GRU sequence kernel
+(``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at u=128 (U at the edge of shared memory) and
 u=256 (U read through L2), and at ragged shapes; the bf16 variants of the
@@ -99,14 +102,15 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
     check_train_pair(device, cell, masked, batch, steps, units)
 
 
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("batch,steps,units", [(64, 342, 96),
                                                (5, 20, 128)])
-def test_lstm_train_kernels_match_plain_wide(device, masked, batch, steps,
-                                             units):
+def test_train_kernels_match_plain_wide(device, cell, masked, batch, steps,
+                                        units):
     """Widths past the register tile (U read through L2), up to the
-    kernels' ceiling (4u threads a CTA, at most 512: u=128)."""
-    check_train_pair(device, "lstm", masked, batch, steps, units)
+    backward's ceiling (4u threads a CTA, at most 512: u=128)."""
+    check_train_pair(device, cell, masked, batch, steps, units)
 
 
 def check_train_pair(device, cell, masked, batch, steps, units):
@@ -146,51 +150,75 @@ def check_train_pair(device, cell, masked, batch, steps, units):
         f"{cell}_train_bwd", 0) + 2
 
 
-def test_lstm_tile_quadruples_warps_per_sm(device):
-    """At B=256, u=60 the LSTM kernels put at least 4x the 3.75 warps an
-    SM of the GRU tile they replace (2 windows x 60 threads, one CTA an
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_window_tile_quadruples_warps_per_sm(device, cell):
+    """At B=256, u=60 the window kernels (LSTM forward and backward
+    recurrence, GRU backward recurrence) put at least 4x the 3.75 warps an
+    SM of the block-row tile they replace (2 windows x 60 threads, one CTA an
     SM)."""
-    tile = cuda_rnn.lstm_train_tile(256, 60, 342)
+    tile = cuda_rnn.train_tile(cell, 256, 60, 342)
     assert tile["threads"] == 240 and tile["ctas"] == 256
-    assert tile["fwd_warps_per_sm"] >= 4 * 3.75, tile
-    assert tile["bwd_warps_per_sm"] >= 4 * 3.75, tile
+    kinds = ("fwd", "bwd") if cell == "lstm" else ("bwd",)
+    for kind in kinds:
+        assert tile[f"{kind}_warps_per_sm"] >= 4 * 3.75, tile
 
 
-def test_lstm_backward_width_ceiling(device):
-    """The LSTM kernels launch up to u=128 at T=342 (4u threads a CTA)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_backward_width_ceiling(device, cell):
+    """The window kernels launch up to u=128 at T=342 (4u threads a CTA)
     and not at u=129."""
-    tile = cuda_rnn.lstm_train_tile(8, 128, 342)
-    assert tile["fwd_ctas_per_sm"] >= 1 and tile["bwd_ctas_per_sm"] >= 1
-    tile = cuda_rnn.lstm_train_tile(8, 129, 342)
-    assert tile["fwd_ctas_per_sm"] == 0 and tile["bwd_ctas_per_sm"] == 0
+    tile = cuda_rnn.train_tile(cell, 8, 128, 342)
+    assert tile["bwd_ctas_per_sm"] >= 1
+    assert tile.get("fwd_ctas_per_sm", 1) >= 1
+    tile = cuda_rnn.train_tile(cell, 8, 129, 342)
+    assert tile["bwd_ctas_per_sm"] == 0
+    assert tile.get("fwd_ctas_per_sm", 0) == 0
 
 
+def test_gru_backward_refuses_u129(device):
+    """The GRU backward raises at u=129 (past its 4u <= 512 threads)."""
+    batch, steps, units = 2, 5, 129
+    params, codes = random_case(5, 3, batch, steps, units, device)
+    hseq = torch.zeros(2 * batch, steps, units, device=device)
+    with pytest.raises(RuntimeError, match="u=129"):
+        cuda_rnn.train_bwd("gru", params, codes, None, (hseq,),
+                           torch.zeros(batch, steps, units, device=device),
+                           torch.zeros(batch, units, device=device))
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("masked", [True, False])
-def test_lstm_bwd_parts_match_plain(device, masked):
+def test_bwd_parts_match_plain(device, cell, masked):
     """The recurrence kernel's gate cotangents against the plain
     recurrence, and the reduction kernel on those cotangents against the
     plain reduction (1e-4 of the largest magnitude)."""
     batch, steps, units = 37, 150, 32
-    params, codes = random_case(99, 4, batch, steps, units, device)
-    masks = random_masks(99, 4, batch, device) if masked else None
-    _, _, hseq, cseq = rnn.lstm_avg_train_fwd_plain(params, codes, masks)
+    gates = 4 if cell == "lstm" else 3
+    params, codes = random_case(99, gates, batch, steps, units, device)
+    masks = random_masks(99, gates, batch, device) if masked else None
+    _, _, *seqs = cuda_rnn._PLAIN[cell][0](params, codes, masks)
     rng = np.random.default_rng(7)
     d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
                          dtype=torch.float32, device=device)
     d_hid = torch.tensor(rng.normal(size=(batch, units)),
                          dtype=torch.float32, device=device)
-    da = cuda_rnn._lstm_bwd_recurrence(params, codes, masks, (hseq, cseq),
-                                       d_avg, d_hid)
-    want_da = rnn.lstm_bwd_recurrence_plain(params, codes, masks, hseq,
-                                            cseq, d_avg, d_hid)
+    got = cuda_rnn._bwd_recurrence(cell, params, codes, masks, tuple(seqs),
+                                   d_avg, d_hid)
+    if cell == "lstm":
+        want = (rnn.lstm_bwd_recurrence_plain(params, codes, masks, *seqs,
+                                              d_avg, d_hid),)
+    else:
+        want = rnn.gru_bwd_recurrence_plain(params, codes, masks, seqs[0],
+                                            d_avg, d_hid)
     torch.cuda.synchronize()
-    assert (da - want_da).abs().max().item() <= (
-        1e-4 * want_da.abs().max().item())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
     grads = [torch.empty_like(params[k])
              for k in ("kernel", "recurrent", "bias")]
-    cuda_rnn._train_reduce(hseq, want_da, codes, masks, 4, grads)
-    assert_grads_close(grads, rnn.lstm_train_reduce_plain(hseq, want_da,
-                                                          codes, masks))
+    cuda_rnn._train_reduce(seqs[0], codes, masks, gates, grads, *want)
+    assert_grads_close(grads, rnn.train_reduce_plain(seqs[0], want[0], codes,
+                                                     masks, *want[1:]))
 
 
 def test_train_grid_fills_the_card(device):
@@ -200,10 +228,23 @@ def test_train_grid_fills_the_card(device):
     assert cuda_rnn.train_grid(1, 60) == (1, 1)
 
 
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("batch,steps,units", [(1024, 342, 60),
-                                               (1000, 150, 32), (3, 7, 5),
-                                               (9, 1, 17)])
+def test_gru_avg_tile_fills_the_card(device):
+    """The GRU inference tile: one wave at the engine's 1024 windows and at
+    the fixtures' 64 (8 and 1 windows a CTA on a 132-SM card)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch in (1024, 64):
+        windows, n_cta = cuda_rnn.gru_avg_tile(batch, 60)
+        assert windows * n_cta >= batch and windows <= 8
+        assert n_cta <= sms or windows == 8
+    assert cuda_rnn.gru_avg_tile(64, 60) == (1, 64)
+    assert cuda_rnn.gru_avg_tile(1024, 200)[0] <= 2
+
+
+@pytest.mark.parametrize("cell,batch,steps,units", [
+    *((cell, *shape) for cell in ("gru", "lstm")
+      for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5), (9, 1, 17))),
+    ("gru", 256, 342, 60), ("gru", 1024, 342, 96), ("gru", 1024, 342, 128),
+    ("gru", 37, 50, 200)])
 def test_kernel_matches_plain(device, cell, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch + steps + units, gates, batch, steps,
@@ -310,9 +351,10 @@ def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
                                rtol=0)
 
 
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("batch,steps,units", [(1024, 342, 60),
-                                               (1000, 150, 32), (3, 7, 5)])
+@pytest.mark.parametrize("cell,batch,steps,units", [
+    *((cell, *shape) for cell in ("gru", "lstm")
+      for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5))),
+    ("gru", 1024, 342, 96), ("gru", 1024, 342, 128)])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch * units + steps, gates, batch, steps,

@@ -91,3 +91,19 @@ def test_kernel_launcher_refuses_cpu_tensors():
 
 def test_reverse_complement_table_matches_jax():
     assert rnn.COMPLEMENT_CODES == pallas_rnn._COMPLEMENT_CODES
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("batch", [1024, 64, 1000, 1])
+def test_gru_avg_block_windows(batch, sms):
+    """The GRU inference tile: the fewest windows a CTA that keep the grid
+    within one wave, up to the kernel's cap of 8 (then the fewest waves:
+    1024 windows need 9 a CTA on 114 SMs, so 8 and two waves)."""
+    windows = cuda_rnn.block_windows(batch, sms, 8)
+    n_cta = -(-batch // windows)
+    assert 1 <= windows <= 8
+    assert n_cta <= sms or windows == 8
+    assert windows == 1 or -(-batch // (windows - 1)) > sms
+    if sms == 132:
+        assert windows == {1024: 8, 64: 1, 1000: 8, 1: 1}[batch]
+    assert cuda_rnn.block_windows(batch, sms, 2) == min(windows, 2)

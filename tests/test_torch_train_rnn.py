@@ -223,65 +223,75 @@ def test_init_follows_keras_defaults(cell):
                                   np.asarray(want["bias"]))
 
 
-LSTM_SPLIT_SHAPES = [(3, 17, 8), (5, 40, 12)]
+SPLIT_SHAPES = [(3, 17, 8), (5, 40, 12)]
 
 
-def lstm_cotangents(seed, batch, steps, units):
+def cotangents(seed, batch, steps, units):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(batch, steps, units)).astype(np.float32),
             rng.normal(size=(batch, units)).astype(np.float32))
 
 
+def plain_split(cell, params, codes, masks, seqs, d_avg, d_hid):
+    """The plain recurrence of ``cell``, then the plain reduction fed its
+    cotangents (GRU: ``d_rp`` and ``d_xp``; LSTM: ``da``)."""
+    hseq = seqs[0]
+    if cell == "lstm":
+        da_seq = rnn.lstm_bwd_recurrence_plain(params, codes, masks, *seqs,
+                                               d_avg, d_hid)
+        assert da_seq.shape == hseq.shape[:2] + (4 * hseq.shape[2],)
+        return rnn.train_reduce_plain(hseq, da_seq, codes, masks)
+    d_rp, d_xp = rnn.gru_bwd_recurrence_plain(params, codes, masks, hseq,
+                                              d_avg, d_hid)
+    assert d_rp.shape == d_xp.shape == hseq.shape[:2] + (3 * hseq.shape[2],)
+    return rnn.train_reduce_plain(hseq, d_rp, codes, masks, d_xp)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("batch,steps,units", LSTM_SPLIT_SHAPES)
-def test_plain_lstm_reduce_matches_pallas_vjp(rate, batch, steps, units):
-    """The plain reduction fed the plain recurrence's gate cotangents gives
-    the JAX custom VJP's ``(dW, dU, db)`` (interpret mode), atol 1e-5."""
-    params, codes, masks = random_case(batch * units + steps, "lstm", batch,
+@pytest.mark.parametrize("batch,steps,units", SPLIT_SHAPES)
+def test_plain_reduce_matches_pallas_vjp(cell, rate, batch, steps, units):
+    """The plain reduction fed the plain recurrence's cotangents gives the
+    JAX custom VJP's ``(dW, dU, db)`` (interpret mode), atol 1e-5."""
+    params, codes, masks = random_case(batch * units + steps, cell, batch,
                                        steps, units, rate)
-    d_avg, d_hid = lstm_cotangents(steps, batch, steps, units)
-    fn, j_params, j_codes, j_masks, has_mask = jax_train("lstm", params,
+    d_avg, d_hid = cotangents(steps, batch, steps, units)
+    fn, j_params, j_codes, j_masks, has_mask = jax_train(cell, params,
                                                          codes, masks)
     _, vjp = jax.vjp(lambda p: fn(p, j_codes, j_masks, has_mask), j_params)
     (want,) = vjp((jnp.asarray(d_avg), jnp.asarray(d_hid)))
     t_params, t_codes, t_masks = to_torch(params, codes, masks)
-    _, _, hseq, cseq = rnn.lstm_avg_train_fwd_plain(t_params, t_codes,
-                                                    t_masks)
-    da_seq = rnn.lstm_bwd_recurrence_plain(
-        t_params, t_codes, t_masks, hseq, cseq, torch.from_numpy(d_avg),
-        torch.from_numpy(d_hid))
-    assert da_seq.shape == (2 * batch, steps, 4 * units)
-    got = rnn.lstm_train_reduce_plain(hseq, da_seq, t_codes, t_masks)
+    _, _, *seqs = cuda_rnn._PLAIN[cell][0](t_params, t_codes, t_masks)
+    got = plain_split(cell, t_params, t_codes, t_masks, seqs,
+                      torch.from_numpy(d_avg), torch.from_numpy(d_hid))
     for name, grad in zip(("kernel", "recurrent", "bias"), got):
         assert grad.shape == t_params[name].shape, name
         np.testing.assert_allclose(grad.numpy(), np.asarray(want[name]),
                                    atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("batch,steps,units", LSTM_SPLIT_SHAPES)
-def test_split_plain_lstm_bwd_matches_autograd(rate, batch, steps, units):
+@pytest.mark.parametrize("batch,steps,units", SPLIT_SHAPES)
+def test_split_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
     """The composed plain backward (recurrence, then reduction) equals
     torch autograd through the plain forward, atol 1e-5, and is exactly the
     composition of its two parts."""
-    params, codes, masks = random_case(batch + 2 * units, "lstm", batch,
+    params, codes, masks = random_case(batch + 2 * units, cell, batch,
                                        steps, units, rate)
     t_params, t_codes, t_masks = to_torch(params, codes, masks)
     for value in t_params.values():
         value.requires_grad_(True)
-    avg, hidden, hseq, cseq = rnn.lstm_avg_train_fwd_plain(t_params, t_codes,
-                                                           t_masks)
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    avg, hidden, *seqs = plain_fwd(t_params, t_codes, t_masks)
     d_avg, d_hid = (torch.from_numpy(a) for a in
-                    lstm_cotangents(units, batch, steps, units))
+                    cotangents(units, batch, steps, units))
     torch.autograd.backward([avg, hidden], [d_avg, d_hid])
     with torch.no_grad():
-        hseq, cseq = hseq.detach(), cseq.detach()
-        grads = rnn.lstm_avg_train_bwd_plain(t_params, t_codes, t_masks,
-                                             hseq, cseq, d_avg, d_hid)
-        parts = rnn.lstm_train_reduce_plain(
-            hseq, rnn.lstm_bwd_recurrence_plain(t_params, t_codes, t_masks,
-                                                hseq, cseq, d_avg, d_hid),
-            t_codes, t_masks)
+        seqs = [seq.detach() for seq in seqs]
+        grads = plain_bwd(t_params, t_codes, t_masks, *seqs, d_avg, d_hid)
+        parts = plain_split(cell, t_params, t_codes, t_masks, seqs, d_avg,
+                            d_hid)
     for name, got, part in zip(("kernel", "recurrent", "bias"), grads,
                                parts):
         torch.testing.assert_close(got, t_params[name].grad, atol=1e-5,
