@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (``native/``, g++) in parallel and prints their build times.
 2. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the flagship shape (B=1024 windows, T=342, u=60) and at a
-   ragged one (B=1000, T=150, u=32), the GRU also at u=96 and u=128 (past
-   its register tile; the GRU's tile is printed), random weights and codes
+   ragged one (B=1000, T=150, u=32), also at u=96 and u=128 (past the
+   register tile; each cell's tile is printed), random weights and codes
    (with N and pad codes) from a seed; max abs difference <= 1e-5 on both
    outputs (the JAX package's kernel tolerance).  Times the kernel, the
    plain version and the cuDNN recurrence (``torch.nn.GRU``/``LSTM`` on the
@@ -36,10 +36,10 @@ Phases (any failure exits non-zero; nothing is caught):
    each kernel, its plain version and cuDNN (``torch.nn.GRU``/``LSTM``
    forward, and forward + backward, on the doubled one-hot batch without
    masks, TF32 off) with CUDA events.  For both cells it prints the window
-   tile of the backward's recurrence kernel (and the LSTM forward's:
-   threads, CTAs and warps an SM) and the backward's split (recurrence
-   kernel ms, reduction kernel ms), and checks the pair again past the
-   register tile: at u=96 (B=64, T=342) and, for the GRU, at u=128.
+   tile of the forward and of the backward's recurrence kernel (threads,
+   CTAs and warps an SM) and the backward's split (recurrence kernel ms,
+   reduction kernel ms), and checks the pair again past the register
+   tile: at u=96 (B=64, T=342) and, for the GRU, at u=128.
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -52,17 +52,18 @@ Phases (any failure exits non-zero; nothing is caught):
    steps/s, one epoch's stream time by stage and device time by kernel
    name with the idle share, one step through the kernels against the
    same step through the plain versions, and LSTM at 2 epochs of 5
-   steps (60 units, then 96), then the same breakdown (steps/s, stream time by stage with the
-   backward's share, device time and idle share, one step against the
-   plain versions) for the LSTM model at batch 256, one epoch of 20
-   steps.
+   steps (60 units, then 128, whose model then predicts a BED of the
+   validation sequence), then the same breakdown (steps/s, stream time by
+   stage with the backward's share, device time and idle share, one step
+   against the plain versions) for the LSTM model at batch 256, one epoch
+   of 20 steps.
 8. One-hot kernels vs plain versions: the GRU sequence kernel
    (``gru_seq``, ``csrc/rnn_seq.cu``) against ``rnn.gru_apply`` on uniform
    random input at (2048, 342, 60) in float32 and bfloat16, (2048, 342,
    128) and (512, 342, 256) in float32 (U in shared memory, then through
    L2) and a ragged (7, 23, 60); the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
-   (1024, 342, 60) and (1000, 150, 32), the GRU also at u=96 and u=128.
+   (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128.
    atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
    (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off).
@@ -113,8 +114,8 @@ KERNELS = {
     "lstm_avg": (4, "deepgrp_tpu/models/pallas_rnn.py:309"),
 }
 SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
-# The GRU kernel past its register tile (U through L1/L2), up to u=128.
-GRU_WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
+# The inference kernels past their register tile (U through L1/L2).
+WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
 
 TRAIN_KERNELS = {
     # name: TPU kernel it replaces
@@ -127,6 +128,9 @@ TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
 LSTM_WIDE_SHAPE = (64, 342, 96)
 # Widths past the window tile's registers, up to its ceiling (4u <= 512).
 TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (64, 342, 128)}
+# The LSTM trained through the CLI at the training ceiling, past the
+# u=113 at which the first inference kernel stopped.
+LSTM_WIDE_UNITS = 128
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -287,14 +291,14 @@ def kernel_phase(torch):
     for name, (gates, _) in KERNELS.items():
         kernel = getattr(cuda_rnn, name)
         plain = getattr(rnn, f"{name}_plain")
-        shapes = {**SHAPES, **(GRU_WIDE_SHAPES if gates == 3 else {})}
-        for label, (batch, steps, units) in shapes.items():
+        for label, (batch, steps, units) in {**SHAPES,
+                                             **WIDE_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
-            if gates == 3:
-                windows, n_cta = cuda_rnn.gru_avg_tile(batch, units)
-                print(f"{name} {label}: tile {n_cta} CTAs x {windows} "
-                      f"windows ({4 * units} threads)", flush=True)
+            windows, n_cta = cuda_rnn.avg_tile(name.split("_")[0], batch,
+                                             units)
+            print(f"{name} {label}: tile {n_cta} CTAs x {windows} "
+                  f"windows ({4 * units}-thread lane groups)", flush=True)
             avg, hidden = kernel(params, codes)
             torch.cuda.synchronize()
             p_avg, p_hidden = plain(params, codes)
@@ -593,15 +597,11 @@ def train_kernel_phase(torch):
 
 def print_train_tile(cuda_rnn, cell: str, label: str, batch: int,
                      steps: int, units: int) -> None:
-    """The training kernels' tiles: the window tile (LSTM forward and both
-    backward recurrences) and the GRU forward's grid."""
-    line = (f"{cell} train {label} B={batch} T={steps} u={units}: window "
-            f"tile {cuda_rnn.train_tile(cell, batch, units, steps)}")
-    if cell == "gru":
-        block_rows, n_cta = cuda_rnn.train_grid(batch, units)
-        line += (f"; forward grid {n_cta} CTAs x {block_rows} windows "
-                 f"({block_rows * units} threads)")
-    print(line, flush=True)
+    """The window tile of the training kernels (forward and the backward's
+    recurrence)."""
+    print(f"{cell} train {label} B={batch} T={steps} u={units}: window "
+          f"tile {cuda_rnn.train_tile(cell, batch, units, steps)}",
+          flush=True)
 
 
 def check_counts(expected):
@@ -917,10 +917,12 @@ def training_phase(torch, np, tmp: str):
     check_losses("lstm", records, lstm_epochs)
     print(f"lstm train CLI: {seconds:.3f} s", flush=True)
 
-    # The same run at a width the GRU-style LSTM backward refused (u=96).
-    wide = LSTM_WIDE_SHAPE[2]
+    # The same run at the training ceiling, which each epoch's validation
+    # (the inference kernel) and predict with the written model must
+    # reach too.
+    wide = LSTM_WIDE_UNITS
     reset_counts()
-    _, records, seconds = run_train_cli(
+    wide_model, records, seconds = run_train_cli(
         tmp, (train_npz, val_npz, bed), f"lstm_u{wide}",
         n_epochs=lstm_epochs, n_batches=lstm_steps,
         **{**lstm_options, "units": wide})
@@ -929,6 +931,13 @@ def training_phase(torch, np, tmp: str):
                   "lstm_avg": lstm_epochs})
     check_losses(f"lstm u={wide}", records, lstm_epochs)
     print(f"lstm u={wide} train CLI: {seconds:.3f} s", flush=True)
+    reset_counts()
+    rows = predict_rows(["-b", "1024", "predict", wide_model,
+                         os.path.join(tmp, "chrValid.fa")],
+                        os.path.join(tmp, f"valid_lstm_u{wide}.bed"))
+    check_path("lstm_avg")
+    print(f"predict with the trained lstm u={wide} model on chrValid: "
+          f"{len(rows)} BED rows", flush=True)
 
     options = Options(n_epochs=1, n_batches=steps, batch_size=256,
                       **lstm_options)
@@ -1008,8 +1017,8 @@ def bf16_kernel_phase(torch):
     for name, (gates, _) in KERNELS.items():
         kernel = getattr(cuda_rnn, name)
         plain = getattr(rnn, f"{name}_plain")
-        shapes = {**SHAPES, **(GRU_WIDE_SHAPES if gates == 3 else {})}
-        for label, (batch, steps, units) in shapes.items():
+        for label, (batch, steps, units) in {**SHAPES,
+                                             **WIDE_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
             avg, hidden = kernel(params, codes, torch.bfloat16)
@@ -1271,7 +1280,7 @@ def main() -> int:
         timings.update(train_kernel_phase(torch))
 
         phase("7. training on the card: gru_att (3 x 20 steps), lstm "
-              "(2 x 5 at u=60 and u=96, then 1 x 20)")
+              f"(2 x 5 at u=60 and u={LSTM_WIDE_UNITS}, then 1 x 20)")
         import numpy as np
 
         with tempfile.TemporaryDirectory() as train_tmp:

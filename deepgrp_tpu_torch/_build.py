@@ -133,33 +133,28 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
-    # codes, batch, steps, kernel, bias, recurrent, units, (GRU: windows a
-    # CTA), avg, hidden, stream
-    head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32]
-    for fn in (lib.dg_gru_avg, lib.dg_gru_avg_bf16):
-        fn.argtypes = head + [_I32, _PTR, _PTR, _PTR]
+    # codes, batch, steps, kernel, bias, recurrent, units, windows a CTA,
+    # avg, hidden, stream
+    for fn in (lib.dg_gru_avg, lib.dg_gru_avg_bf16, lib.dg_lstm_avg,
+               lib.dg_lstm_avg_bf16):
+        fn.argtypes = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32, _I32, _PTR,
+                       _PTR, _PTR]
         fn.restype = _I32
-    for fn in (lib.dg_lstm_avg, lib.dg_lstm_avg_bf16):
-        fn.argtypes = head + [_PTR, _PTR, _PTR]
-        fn.restype = _I32
-    lib.dg_gru_avg_max_windows.argtypes = [_I32]  # units
-    lib.dg_gru_avg_max_windows.restype = _I32
+    lib.dg_avg_max_windows.argtypes = [_I32, _I32]  # gates, units
+    lib.dg_avg_max_windows.restype = _I32
 
 
 def _declare_rnn_train(lib: ctypes.CDLL) -> None:
-    lib.dg_train_block_rows.argtypes = [_I32, _I32]  # batch, units
-    lib.dg_train_block_rows.restype = _I32
     # codes, batch, steps, masks, kernel, bias, recurrent, units
     head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32]
-    # GRU forward: block rows, then avg, hidden, hseq, stream
-    lib.dg_gru_train_fwd.argtypes = head + [_I32] + [_PTR] * 4
-    # LSTM forward: avg, hidden, hseq, cseq, stream; the recurrences:
+    # the forwards: avg, hidden, hseq (and cseq), stream; the recurrences:
     # hseq (and cseq), d_avg, d_hidden, da (or d_rp, d_xp), stream
+    lib.dg_gru_train_fwd.argtypes = head + [_PTR] * 4
     lib.dg_lstm_train_fwd.argtypes = head + [_PTR] * 5
     lib.dg_lstm_bwd_recurrence.argtypes = head + [_PTR] * 6
     lib.dg_gru_bwd_recurrence.argtypes = head + [_PTR] * 6
-    # which (0 LSTM forward, 1 LSTM recurrence, 2 GRU recurrence), units,
-    # steps
+    # which (0 LSTM forward, 1 LSTM recurrence, 2 GRU recurrence, 3 GRU
+    # forward), units, steps
     lib.dg_window_ctas_per_sm.argtypes = [_I32, _I32, _I32]
     # hseq, r1, r2, codes, masks, batch, steps, units, gates, splits, parts,
     # d_kernel, d_bias_1, d_bias_2, d_recurrent, stream

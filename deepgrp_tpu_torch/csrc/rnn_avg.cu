@@ -24,17 +24,19 @@
 //
 // Bound on this card.  Per window the recurrent products cost
 // 2 rows x T x u x (g*u) multiply-adds (g = 3 GRU, 4 LSTM); at the flagship
-// shape (T=342, u=60) that is 14.8 MFLOP per window against 82 kB of
-// output, so the work is bound by float32 arithmetic (the H100 has no
-// float32 tensor-core path; TF32 would not be float32), not by the bytes.
-// The recurrence is sequential in T, so the parallelism is B x 2 x u.
+// shape (T=342, u=60) that is 14.8 MFLOP (GRU) or 19.7 MFLOP (LSTM) per
+// window against 82 kB of output, so the work is bound by float32
+// arithmetic (the H100 has no float32 tensor-core path; TF32 would not be
+// float32), not by the bytes.  The recurrence is sequential in T, so the
+// parallelism is B x 2 x u.
 //
-// GRU (GruAvgKernel, redesigned for Hopper).  The first design (the LSTM's,
-// below) ran one thread per (window, unit) over a k loop that issued 2
-// broadcast h loads and 3 U loads from shared memory for 6 FMAs: the step
-// was bound by shared-memory wavefronts (about 4,500 an SM a step against
-// 1,350 FMA issue cycles at u=60), and no U element fed more than two rows.
-// Here each U element, loaded once into a register, feeds many rows:
+// One kernel serves both cells (AvgKernel<kGates, ...>, the register tile).
+// The first design ran one thread per (window, unit) over a k loop that
+// issued 2 broadcast h loads and g U loads from shared memory for 2g
+// FMAs: the step was bound by shared-memory wavefronts, no U element fed
+// more than two rows, and U [u, g u] in shared memory capped the LSTM at
+// u=113 (T=342).  Here each U element, loaded once into a register, feeds
+// many rows:
 //   * Tile: a CTA owns bb windows (2bb rows) for all T steps, bb chosen by
 //     the caller from the batch and the SM count so the grid is one wave
 //     (1024 windows on 132 SMs: bb=8, 128 CTAs; the CLI's default 256:
@@ -43,64 +45,57 @@
 //     k-slice s (the float4 quads s, s+4, ... of the recurrent dot) for the
 //     group's kWin windows; a CTA has ceil(bb / kWin) groups.
 //   * Up to u=64 (kRegUnits) the lane keeps its slice of U (U[k, g u + i]
-//     for its 16 k and the 3 gates: 48 floats) in registers, with kWin = 4
-//     (bb=8: 2 groups, 480 threads, 15 warps an SM), or 2 when bb <= 2;
-//     wider layers read the slice through L1/L2 (one quad's 12 entries at a
-//     time), with kWin = 8 up to u=128 (4u threads) and 2 above (up to
-//     u=256, 1,024 threads).
-//   * Step: the lane forms the three gate partials of its group's 2 kWin
-//     rows over its slice, reading h as float4 broadcasts from shared
-//     memory (kWin=4: 384 FMAs against 32 shared loads); a fixed butterfly
+//     for its 16 k and the g gates: 48 floats GRU, 64 LSTM) in registers,
+//     with kWin = 4 (bb=8: 2 groups, 480 threads, 15 warps an SM), or 2
+//     when bb <= 2; wider layers read the slice through L1/L2 (one quad's
+//     4g entries at a time), with kWin = 8 up to u=128 (4u threads) and 2
+//     above (up to u=256, 1,024 threads).
+//   * Step: the lane forms the g gate partials of its group's 2 kWin rows
+//     over its slice, reading h as float4 broadcasts from shared memory
+//     (kWin=4: 32 g FMAs a quad against 8 shared loads); a fixed butterfly
 //     of shuffles (xor 1, then xor 2) reduce-scatters the sums, so lane s
 //     ends with whole sums for its window's two rows; it does their gate
-//     math, carries their h in registers, writes h to the other of two
-//     shared buffers (one barrier a step) and stores the branch average.
-//     Ragged B: windows past the batch read pad codes and store nothing; a
-//     group's windows past bb read the CTA's last window (no branch in the
-//     dot) and their sums are dropped.
-//   * Found on the H100 while choosing the tile: a branch on the window
-//     count inside the dot made the step markedly slower (the compiler
-//     could not interleave the windows' loads); 8 windows a group with U in
-//     registers hit the 128-register cap and spilled, and so did the
-//     register variants under a 1,024-thread bound (64 registers).
-//   * The sums run in another order than the first design's k loop (four
-//     slices, then the butterfly); the plain version's tolerance allows
-//     for that.
-//   * ptxas -v (sm_90a, CUDA 12.8), the same for float32 and bfloat16, no
-//     spills: kWin 4 with U in registers 128 registers, kWin 2 with U in
-//     registers 111; kWin 8 through L1/L2 128; kWin 2 through L1/L2 64.
+//     math, carries their h (and the LSTM's c) in registers, writes h to
+//     the other of two shared buffers (one barrier a step) and stores the
+//     branch average.  Ragged B: windows past the batch read pad codes and
+//     store nothing; a group's windows past bb read the CTA's last window
+//     (no branch in the dot) and their sums are dropped.
+//   * Shared memory: the doubled h of bb windows twice, W [5, g u] and the
+//     codes, 4 (4 bb Pad4(u) + 5 g u) + bb T bytes: the LSTM at u=128, bb=8,
+//     T=342 takes 29,360 B; the width is bounded by the threads (4u <=
+//     1,024: u <= 256) for both cells.
+//   * Found on the H100 while choosing the GRU's tile: a branch on
+//     the window count inside the dot made the step markedly slower (the
+//     compiler could not interleave the windows' loads); 8 windows a group
+//     with U in registers hit the 128-register cap and spilled, and so did
+//     the register variants under a 1,024-thread bound (64 registers).
+//   * The sums run in another order than the plain version's (four slices,
+//     then the butterfly); its tolerance allows for that.
+//   * The LSTM's tile, timed on the H100 (tools/avg_tile_sweep.py, f32,
+//     T=342, ms a launch): at B=1024, u=60, kWin 4 with U in registers
+//     (bb=8, 128 CTAs) 1.087, kWin 2 with U in registers 1.404 (bb=4, 256
+//     CTAs) and 1.389 (bb=2, 512 CTAs), kWin 4 through L1/L2 1.645, kWin 8
+//     through L1/L2 1.884; at B=256 (bb=2) kWin 2 with U in registers
+//     0.491, through L1/L2 0.892, kWin 4 with U in registers at bb=4 (64
+//     CTAs) 0.718; at u=96 kWin 8 (bb=8) 3.134 against kWin 4 (bb=4)
+//     3.691; at u=128 kWin 8 5.056, kWin 4 6.088, kWin 2 (bb=2) 8.843.  So
+//     the LSTM takes the GRU's tile: the 28 bytes its kWin 4 register
+//     variant spills cost less than any other layout.
+//   * ptxas -v (sm_90a, CUDA 12.8), float32 and bfloat16 alike but where
+//     noted: GRU kWin 4 with U in registers 128 registers, kWin 2 with U in
+//     registers 111, kWin 8 through L1/L2 126, kWin 2 through L1/L2 64 (4
+//     bytes of spill stores and loads in float32); LSTM kWin 4 with U in
+//     registers 128 (28 bytes of spill stores and loads), kWin 2 with U in
+//     registers 126, kWin 8 through L1/L2 128, kWin 2 through L1/L2 64 (8
+//     bytes of spills in bfloat16); nothing else spills.
 //   * What bounds it: the FMA issue of the dot (the floor at 1024 x 342 x
-//     60 on 128 SMs is about 0.23 ms) plus the gate math (960 rows x units
-//     an SM a step at bb=8, three transcendentals each), then the latency
-//     of the butterfly and the barrier of each step.
-//
-// LSTM (RnnAvgKernel, the first design):
-//   * One CTA owns a block of `bb` windows for all T steps; the recurrence
-//     is a loop inside the kernel, not a grid dimension.  Nothing carries
-//     between CTAs.
-//   * Thread (b, i) owns unit i of window b for BOTH branches: it keeps
-//     h_fwd[b, i], h_rev[b, i], c_fwd and c_rev in registers, computes
-//     their 4 gate pre-activations, and writes avg[b, t, i] itself (no
-//     second pass, no reverse-complement tensor in device memory).  Each U
-//     element loaded from shared memory feeds two rows (fwd and rev).
-//   * Shared memory holds U [u, 4u], W [5, 4u], the bias, the CTA's codes
-//     [bb, T] (loaded once, so no global load sits on the step's critical
-//     path), and the doubled hidden state [2*bb, u] twice: step t reads one
-//     buffer and writes the other, so one __syncthreads per step suffices.
-//   * The recurrent dot is a plain float32 FMA chain over k in order (the
-//     counterpart of Precision.HIGHEST on the TPU): no TF32, no tensor
-//     cores.
-//   * Tile: bb = 8 windows (fewer when 8*u > 1024 threads).  At the engine's
-//     batch of 1024 windows that is 128 CTAs for the 132 SMs, one wave with
-//     one CTA per SM; at u=60 a CTA has 480 threads (15 warps) and needs
-//     ~75 kB of shared memory, above the 48 kB static limit, so the launch
-//     opts in to dynamic shared memory.  Ragged B is masked in the kernel
-//     (rows past B read pad codes and store nothing).
-//   * What bounds it is shared-memory bandwidth (3-4 loads per 2-row FMA
-//     pair), not the FMA units.
+//     60 on 128 SMs is about 0.23 ms GRU, 0.31 ms LSTM) plus the gate math
+//     (960 rows x units an SM a step at bb=8; three transcendentals each
+//     for the GRU, five for the LSTM), then the latency of the butterfly
+//     and the barrier of each step.
 // The bf16 variants keep U and h as float32 values already rounded to
 // bfloat16, so they run the same float32 FMAs: their bound is the same work
-// at the bf16 tensor-core rate, which neither design reaches.
+// at the bf16 tensor-core rate, which this design does not reach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,13 +106,11 @@ namespace {
 constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
 constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
-constexpr int kBlockRows = 8;
-
-int BlockRows(int units) {
-  int bb = kBlockRows;
-  while (bb > 1 && bb * units > kMaxThreads) --bb;
-  return bb;
-}
+constexpr int kSlices = 4;      // k-slices a unit (lanes 4i .. 4i+3)
+constexpr int kRegUnits = 64;   // U's slice in registers up to this width
+constexpr int kRegQuads = kRegUnits / (4 * kSlices);
+constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
+constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
 
 __device__ __forceinline__ float Sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -125,6 +118,13 @@ __device__ __forceinline__ float Sigmoid(float x) {
 
 __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
+}
+
+__host__ __device__ __forceinline__ int Pad4(int n) { return (n + 3) & ~3; }
+
+// Windows a CTA may own at this width.
+__host__ __device__ __forceinline__ int MaxWindows(int units) {
+  return units <= kTileUnits ? 8 : 2;
 }
 
 // Output element type and the precision of the recurrent dot's operands.
@@ -148,171 +148,76 @@ struct Io<true> {
   }
 };
 
-// The LSTM (bias [4u]), the first design.
-template <bool kBf16>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-RnnAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
-             const float *__restrict__ kernel, const float *__restrict__ bias,
-             const float *__restrict__ recurrent, int units, int bb,
-             typename Io<kBf16>::Out *__restrict__ avg,
-             typename Io<kBf16>::Out *__restrict__ hidden) {
-  using IoT = Io<kBf16>;
-  constexpr int kGates = 4;
-  extern __shared__ float smem[];
-  const int width = kGates * units;
-  float *s_u = smem;                           // [u, width]
-  float *s_w = s_u + units * width;            // [5, width]
-  float *s_b = s_w + kCodes * width;           // [width]
-  float *s_h = s_b + width;                    // [2 buffers][2*bb][u]
-  int8_t *s_codes = reinterpret_cast<int8_t *>(s_h + 4 * bb * units);
+// The cell of unit i: its bias in registers and the Keras gate math of one
+// row from the row's recurrent dots and its input row W[code] (w_row, read
+// at g u; none for pad).
+template <int kGates>
+struct Cell;
 
-  const int tid = threadIdx.x;
-  const int n_threads = blockDim.x;
-  const int row0 = blockIdx.x * bb;
-  for (int j = tid; j < units * width; j += n_threads) {
-    s_u[j] = IoT::Operand(recurrent[j]);
+// GRU (reset_after=True), bias [2, 3u] (input row, recurrent row); c unused.
+template <>
+struct Cell<3> {
+  float b_in[3], b_rec[3];
+
+  __device__ __forceinline__ void load(const float *__restrict__ bias,
+                                       int units, int i) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      b_in[g] = bias[g * units + i];
+      b_rec[g] = bias[3 * units + g * units + i];
+    }
   }
-  for (int j = tid; j < kCodes * width; j += n_threads) s_w[j] = kernel[j];
-  for (int j = tid; j < width; j += n_threads) s_b[j] = bias[j];
-  for (int j = tid; j < 4 * bb * units; j += n_threads) s_h[j] = 0.0f;
-  for (int j = tid; j < bb * steps; j += n_threads) {
-    const bool in_batch = row0 + j / steps < batch;
-    s_codes[j] = in_batch ? codes[static_cast<size_t>(row0) * steps + j]
-                          : static_cast<int8_t>(kPadCode);
+
+  __device__ __forceinline__ void step(const float (&dot)[3],
+                                       const float *w_row, bool has_w,
+                                       int units, float &h,
+                                       float & /*c*/) const {
+    float x[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      x[g] = b_in[g];
+      if (has_w) x[g] += w_row[g * units];
+    }
+    const float z = Sigmoid(x[0] + (dot[0] + b_rec[0]));
+    const float r = Sigmoid(x[1] + (dot[1] + b_rec[1]));
+    const float hh = tanhf(x[2] + r * (dot[2] + b_rec[2]));
+    h = z * h + (1.0f - z) * hh;
   }
-  __syncthreads();
+};
 
-  const int b = tid / units;
-  const int i = tid % units;
-  const int row = row0 + b;
-  const bool valid = row < batch;
-  const int8_t *my_codes = s_codes + b * steps;
-  float h_f = 0.0f, h_r = 0.0f, c_f = 0.0f, c_r = 0.0f;
+// LSTM, gates i, f, c, o, bias [4u].
+template <>
+struct Cell<4> {
+  float b[4];
 
-  for (int t = 0; t < steps; ++t) {
-    const float *h_cur = s_h + (t & 1) * 2 * bb * units;
-    float *h_nxt = s_h + ((t + 1) & 1) * 2 * bb * units;
-    const int code_f = my_codes[t];
-    const int code_r = Complement(my_codes[steps - 1 - t]);
-
-    // Input projection: bias + W[code] (exact row select).
-    float x_f[kGates], x_r[kGates];
+  __device__ __forceinline__ void load(const float *__restrict__ bias,
+                                       int units, int i) {
 #pragma unroll
-    for (int g = 0; g < kGates; ++g) {
-      x_f[g] = s_b[g * units + i];
-      x_r[g] = s_b[g * units + i];
-    }
-    if (static_cast<unsigned>(code_f) < kCodes) {
-      const float *w = s_w + code_f * width;
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) x_f[g] += w[g * units + i];
-    }
-    if (static_cast<unsigned>(code_r) < kCodes) {
-      const float *w = s_w + code_r * width;
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) x_r[g] += w[g * units + i];
-    }
-
-    // Recurrent products h @ U for both branches, float32 FMA in k order.
-    float a_f[kGates], a_r[kGates];
-#pragma unroll
-    for (int g = 0; g < kGates; ++g) {
-      a_f[g] = 0.0f;
-      a_r[g] = 0.0f;
-    }
-    const float *hv_f = h_cur + b * units;
-    const float *hv_r = h_cur + (bb + b) * units;
-#pragma unroll 4
-    for (int k = 0; k < units; ++k) {
-      const float *u_k = s_u + k * width + i;
-      const float vf = hv_f[k];
-      const float vr = hv_r[k];
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) {
-        const float w = u_k[g * units];
-        a_f[g] = fmaf(vf, w, a_f[g]);
-        a_r[g] = fmaf(vr, w, a_r[g]);
-      }
-    }
-
-    // Keras LSTM, gates i, f, c, o.
-    float ig = Sigmoid(x_f[0] + a_f[0]);
-    float fg = Sigmoid(x_f[1] + a_f[1]);
-    float gg = tanhf(x_f[2] + a_f[2]);
-    float og = Sigmoid(x_f[3] + a_f[3]);
-    c_f = fg * c_f + ig * gg;
-    h_f = og * tanhf(c_f);
-    ig = Sigmoid(x_r[0] + a_r[0]);
-    fg = Sigmoid(x_r[1] + a_r[1]);
-    gg = tanhf(x_r[2] + a_r[2]);
-    og = Sigmoid(x_r[3] + a_r[3]);
-    c_r = fg * c_r + ig * gg;
-    h_r = og * tanhf(c_r);
-
-    h_nxt[b * units + i] = IoT::Operand(h_f);
-    h_nxt[(bb + b) * units + i] = IoT::Operand(h_r);
-    if (valid) {
-      const float mean = (h_f + h_r) * 0.5f;
-      avg[(static_cast<size_t>(row) * steps + t) * units + i] =
-          IoT::Store(mean);
-      if (t == steps - 1) {
-        hidden[static_cast<size_t>(row) * units + i] = IoT::Store(mean);
-      }
-    }
-    __syncthreads();
+    for (int g = 0; g < 4; ++g) b[g] = bias[g * units + i];
   }
-}
 
-template <bool kBf16>
-int LaunchLstm(const void *codes, int batch, int steps, const void *kernel,
-               const void *bias, const void *recurrent, int units, void *avg,
-               void *hidden, void *stream) {
-  if (batch <= 0 || steps <= 0 || units <= 0 || units > kMaxThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  __device__ __forceinline__ void step(const float (&dot)[4],
+                                       const float *w_row, bool has_w,
+                                       int units, float &h, float &c) const {
+    float x[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      x[g] = b[g];
+      if (has_w) x[g] += w_row[g * units];
+    }
+    const float ig = Sigmoid(x[0] + dot[0]);
+    const float fg = Sigmoid(x[1] + dot[1]);
+    const float gg = tanhf(x[2] + dot[2]);
+    const float og = Sigmoid(x[3] + dot[3]);
+    c = fg * c + ig * gg;
+    h = og * tanhf(c);
   }
-  const int bb = BlockRows(units);
-  const size_t width = static_cast<size_t>(4) * units;
-  const size_t smem =
-      sizeof(float) * (units * width + kCodes * width + width +
-                       4 * static_cast<size_t>(bb) * units) +
-      static_cast<size_t>(bb) * steps;
-  // Above 48 kB a kernel only launches after this opt-in; a launch without
-  // it is refused, and the refusal shows only in cudaGetLastError.
-  using Out = typename Io<kBf16>::Out;
-  cudaError_t err = cudaFuncSetAttribute(
-      RnnAvgKernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + bb - 1) / bb);
-  RnnAvgKernel<kBf16><<<grid, bb * units, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t *>(codes), batch, steps,
-      static_cast<const float *>(kernel), static_cast<const float *>(bias),
-      static_cast<const float *>(recurrent), units, bb,
-      static_cast<Out *>(avg), static_cast<Out *>(hidden));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------------ GRU tile
-
-constexpr int kGates = 3;
-constexpr int kSlices = 4;      // k-slices a unit (lanes 4i .. 4i+3)
-constexpr int kRegUnits = 64;   // U's slice in registers up to this width
-constexpr int kRegQuads = kRegUnits / (4 * kSlices);
-constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
-constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
-
-__host__ __device__ __forceinline__ int Pad4(int n) { return (n + 3) & ~3; }
-
-// Windows a CTA may own at this width.
-__host__ __device__ __forceinline__ int MaxWindows(int units) {
-  return units <= kTileUnits ? 8 : 2;
-}
+};
 
 // The U entries of lane (i, s): U[4 (s + 4 m) + c, g u + i] for quad m of
 // its slice, c < 4, gate g (zero past u), rounded to the dot's precision;
 // from registers or, for wider layers, device memory through L1/L2.
-template <bool kURegs, bool kBf16>
+template <int kGates, bool kURegs, bool kBf16>
 struct USlice {
   float reg[kURegs ? kRegQuads : 1][4][kGates];
   const float *recurrent;
@@ -354,11 +259,10 @@ struct USlice {
 // Sums in[.][b][g] with lane (this ^ mask) and keeps half of the windows:
 // lane bit `hi` set keeps the odd ones (2w + 1), else the even (2w); the
 // partner lane sends the other half.
-template <int kN>
-__device__ __forceinline__ void FoldWindows(const float (&in)[kN][2][kGates],
-                                            bool hi, int mask,
-                                            unsigned lanes,
-                                            float (&out)[kN / 2][2][kGates]) {
+template <int kN, int kGates>
+__device__ __forceinline__ void FoldWindows(
+    const float (&in)[kN][2][kGates], bool hi, int mask, unsigned lanes,
+    float (&out)[kN / 2][2][kGates]) {
 #pragma unroll
   for (int w = 0; w < kN / 2; ++w) {
 #pragma unroll
@@ -381,15 +285,15 @@ __device__ __forceinline__ unsigned WarpLanes() {
 }
 
 // kWin windows a lane group (4u threads); ceil(bb / kWin) groups a CTA.
-template <int kWin, bool kURegs, bool kBf16>
+template <int kGates, int kWin, bool kURegs, bool kBf16>
 __global__ void __launch_bounds__(kWin == 2 && !kURegs ? kMaxThreads
                                                        : kMaxThreads / 2,
                                   1)
-GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
-             const float *__restrict__ kernel, const float *__restrict__ bias,
-             const float *__restrict__ recurrent, int units, int bb,
-             typename Io<kBf16>::Out *__restrict__ avg,
-             typename Io<kBf16>::Out *__restrict__ hidden) {
+AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
+          const float *__restrict__ kernel, const float *__restrict__ bias,
+          const float *__restrict__ recurrent, int units, int bb,
+          typename Io<kBf16>::Out *__restrict__ avg,
+          typename Io<kBf16>::Out *__restrict__ hidden) {
   static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
   using IoT = Io<kBf16>;
   // Windows a lane owns after the butterfly: w0 + 4 j + s (kWin >= 4), or
@@ -415,14 +319,10 @@ GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     s_codes[j] = in_batch ? codes[static_cast<size_t>(row0) * steps + j]
                           : static_cast<int8_t>(kPadCode);
   }
-  USlice<kURegs, kBf16> us;
+  USlice<kGates, kURegs, kBf16> us;
   us.load(recurrent, units, i, s);
-  float b_in[kGates], b_rec[kGates];
-#pragma unroll
-  for (int g = 0; g < kGates; ++g) {
-    b_in[g] = bias[g * units + i];
-    b_rec[g] = bias[width + g * units + i];
-  }
+  Cell<kGates> cell;
+  cell.load(bias, units, i);
   const unsigned lanes = WarpLanes();
   const int n_quads = Pad4(units) / 4 > s
                           ? (Pad4(units) / 4 - s + kSlices - 1) / kSlices
@@ -439,7 +339,7 @@ GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   int h_row[kWin];
 #pragma unroll
   for (int w = 0; w < kWin; ++w) h_row[w] = 2 * min(w0 + w, bb - 1) * hstride;
-  float h_own[kOwn][2] = {};
+  float h_own[kOwn][2] = {}, c_own[kOwn][2] = {};
   __syncthreads();
 
   for (int t = 0; t < steps; ++t) {
@@ -491,10 +391,10 @@ GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     float dot[kOwn][2][kGates];
     if constexpr (kWin >= 4) {
       float half[kWin / 2][2][kGates];
-      FoldWindows<kWin>(acc, s & 1, 1, lanes, half);
-      FoldWindows<kWin / 2>(half, (s >> 1) & 1, 2, lanes, dot);
+      FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, half);
+      FoldWindows<kWin / 2, kGates>(half, (s >> 1) & 1, 2, lanes, dot);
     } else {
-      FoldWindows<kWin>(acc, s & 1, 1, lanes, dot);
+      FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, dot);
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
 #pragma unroll
@@ -504,7 +404,7 @@ GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
       }
     }
 
-    // Keras GRU (reset_after=True) for the lane's windows, both branches.
+    // The gate math of the lane's windows, both branches.
 #pragma unroll
     for (int j = 0; j < kOwn; ++j) {
       const int w = own_w[j];
@@ -513,18 +413,9 @@ GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
       const int code_b[2] = {w_codes[t], Complement(w_codes[steps - 1 - t])};
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
-        float x[kGates];
-#pragma unroll
-        for (int g = 0; g < kGates; ++g) {
-          x[g] = b_in[g];
-          if (static_cast<unsigned>(code_b[b]) < kCodes) {
-            x[g] += s_w[code_b[b] * width + g * units + i];
-          }
-        }
-        const float z = Sigmoid(x[0] + (dot[j][b][0] + b_rec[0]));
-        const float r = Sigmoid(x[1] + (dot[j][b][1] + b_rec[1]));
-        const float hh = tanhf(x[2] + r * (dot[j][b][2] + b_rec[2]));
-        h_own[j][b] = z * h_own[j][b] + (1.0f - z) * hh;
+        const bool has_w = static_cast<unsigned>(code_b[b]) < kCodes;
+        cell.step(dot[j][b], s_w + (has_w ? code_b[b] : 0) * width + i,
+                  has_w, units, h_own[j][b], c_own[j][b]);
         h_nxt[(2 * w + b) * hstride + i] = IoT::Operand(h_own[j][b]);
       }
       const int row = row0 + w;
@@ -541,17 +432,19 @@ GruAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   }
 }
 
-template <int kWin, bool kURegs, bool kBf16>
-int LaunchGruTile(const void *codes, int batch, int steps, const void *kernel,
-                  const void *bias, const void *recurrent, int units, int bb,
-                  void *avg, void *hidden, cudaStream_t stream) {
+template <int kGates, int kWin, bool kURegs, bool kBf16>
+int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
+               const void *bias, const void *recurrent, int units, int bb,
+               void *avg, void *hidden, cudaStream_t stream) {
   using Out = typename Io<kBf16>::Out;
-  const auto fn = GruAvgKernel<kWin, kURegs, kBf16>;
+  const auto fn = AvgKernel<kGates, kWin, kURegs, kBf16>;
   const int groups = (bb + kWin - 1) / kWin;
   const size_t smem =
       sizeof(float) * (4 * static_cast<size_t>(bb) * Pad4(units) +
                        static_cast<size_t>(kCodes) * kGates * units) +
       static_cast<size_t>(bb) * steps;
+  // Above 48 kB a kernel only launches after this opt-in; a launch without
+  // it is refused, and the refusal shows only in cudaGetLastError.
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -563,11 +456,11 @@ int LaunchGruTile(const void *codes, int batch, int steps, const void *kernel,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The GRU tile by width and windows a CTA (measured on the H100, see the
-// note above): U in registers with 4 windows a lane group (2 when the CTA
-// owns at most 2), U through L1/L2 with 8 windows, then 2 past u=128.
-template <bool kBf16>
-int LaunchGru(const void *codes, int batch, int steps, const void *kernel,
+// The tile by width and windows a CTA (measured on the H100, see the note
+// above): U in registers with 4 windows a lane group (2 when the CTA owns
+// at most 2), U through L1/L2 with 8 windows, then 2 past u=128.
+template <int kGates, bool kBf16>
+int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
               void *avg, void *hidden, void *stream) {
   if (batch <= 0 || steps <= 0 || units <= 0 || units > kMaxUnits ||
@@ -576,20 +469,21 @@ int LaunchGru(const void *codes, int batch, int steps, const void *kernel,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (units <= kRegUnits) {
-    return bb <= 2 ? LaunchGruTile<2, true, kBf16>(codes, batch, steps,
-                                                   kernel, bias, recurrent,
-                                                   units, bb, avg, hidden, s)
-                   : LaunchGruTile<4, true, kBf16>(codes, batch, steps,
-                                                   kernel, bias, recurrent,
-                                                   units, bb, avg, hidden, s);
+    return bb <= 2 ? LaunchTile<kGates, 2, true, kBf16>(
+                         codes, batch, steps, kernel, bias, recurrent, units,
+                         bb, avg, hidden, s)
+                   : LaunchTile<kGates, 4, true, kBf16>(
+                         codes, batch, steps, kernel, bias, recurrent, units,
+                         bb, avg, hidden, s);
   }
   if (units <= kTileUnits) {
-    return LaunchGruTile<8, false, kBf16>(codes, batch, steps, kernel, bias,
-                                          recurrent, units, bb, avg, hidden,
-                                          s);
+    return LaunchTile<kGates, 8, false, kBf16>(codes, batch, steps, kernel,
+                                               bias, recurrent, units, bb,
+                                               avg, hidden, s);
   }
-  return LaunchGruTile<2, false, kBf16>(codes, batch, steps, kernel, bias,
-                                        recurrent, units, bb, avg, hidden, s);
+  return LaunchTile<kGates, 2, false, kBf16>(codes, batch, steps, kernel,
+                                             bias, recurrent, units, bb, avg,
+                                             hidden, s);
 }
 
 }  // namespace
@@ -597,19 +491,19 @@ int LaunchGru(const void *codes, int batch, int steps, const void *kernel,
 extern "C" {
 
 // Each launcher returns cudaGetLastError() after the launch (0 = launched).
-// The GRU's `bb` is the windows a CTA owns (1 .. dg_gru_avg_max_windows).
+// `bb` is the windows a CTA owns (1 .. dg_avg_max_windows).
 int dg_gru_avg(const void *codes, int batch, int steps, const void *kernel,
                const void *bias, const void *recurrent, int units, int bb,
                void *avg, void *hidden, void *stream) {
-  return LaunchGru<false>(codes, batch, steps, kernel, bias, recurrent,
-                          units, bb, avg, hidden, stream);
+  return LaunchAvg<3, false>(codes, batch, steps, kernel, bias, recurrent,
+                             units, bb, avg, hidden, stream);
 }
 
 int dg_lstm_avg(const void *codes, int batch, int steps, const void *kernel,
-                const void *bias, const void *recurrent, int units, void *avg,
-                void *hidden, void *stream) {
-  return LaunchLstm<false>(codes, batch, steps, kernel, bias, recurrent,
-                           units, avg, hidden, stream);
+                const void *bias, const void *recurrent, int units, int bb,
+                void *avg, void *hidden, void *stream) {
+  return LaunchAvg<4, false>(codes, batch, steps, kernel, bias, recurrent,
+                             units, bb, avg, hidden, stream);
 }
 
 // The bfloat16 fast mode: same arguments, avg and hidden bfloat16.
@@ -617,22 +511,24 @@ int dg_gru_avg_bf16(const void *codes, int batch, int steps,
                     const void *kernel, const void *bias,
                     const void *recurrent, int units, int bb, void *avg,
                     void *hidden, void *stream) {
-  return LaunchGru<true>(codes, batch, steps, kernel, bias, recurrent, units,
-                         bb, avg, hidden, stream);
+  return LaunchAvg<3, true>(codes, batch, steps, kernel, bias, recurrent,
+                            units, bb, avg, hidden, stream);
 }
 
 int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
                      const void *kernel, const void *bias,
-                     const void *recurrent, int units, void *avg,
+                     const void *recurrent, int units, int bb, void *avg,
                      void *hidden, void *stream) {
-  return LaunchLstm<true>(codes, batch, steps, kernel, bias, recurrent, units,
-                          avg, hidden, stream);
+  return LaunchAvg<4, true>(codes, batch, steps, kernel, bias, recurrent,
+                            units, bb, avg, hidden, stream);
 }
 
-// The most windows a CTA of the GRU kernels may own at this width (0: the
-// width is refused).
-int dg_gru_avg_max_windows(int units) {
-  return units > 0 && units <= kMaxUnits ? MaxWindows(units) : 0;
+// The most windows a CTA of the kernels of a cell with `gates` gates (3
+// GRU, 4 LSTM) may own at this width (0: the shape is refused).
+int dg_avg_max_windows(int gates, int units) {
+  return (gates == 3 || gates == 4) && units > 0 && units <= kMaxUnits
+             ? MaxWindows(units)
+             : 0;
 }
 
 const char *dg_error_string(int code) {

@@ -42,21 +42,15 @@
 // hseq written, so both kernels are bound by float32 arithmetic, not bytes.
 // The recurrence is sequential in T, so its parallelism is B x 2 x g*u.
 //
-// GRU forward (RnnTrainFwdKernel, the block-row tile): one CTA owns `bb`
-// windows (both branch rows of each) for all T steps; thread (b, i) owns
-// unit i of the two rows of window b; bb is the smallest in 1..8 with
-// ceil(B / bb) <= #SMs (B=256 on 132 SMs: bb=2, 128 CTAs of 2u threads);
-// U, W, the biases and a double-buffered h in shared memory (u=128 fits at
-// bb=2: ~212 KB).
-//
-// The backwards and the LSTM forward (redesigned for Hopper).  The
+// The window tile (every kernel here runs on it).  The first design's
 // block-row tile gave 120 threads a CTA and one CTA an SM at B=256: 3.75
 // warps an SM, about one a scheduler, so nothing hid the latency of shared
-// loads and dependent FMAs; and its backward spent most of each step adding
-// h_prev^T d_rp into the CTA's dU in shared memory (u * g u elements a
-// step, one division, a load and a store each).  The TPU kernel sums dU
-// inside its body only because its grid is sequential and VMEM holds the
-// accumulator; here that sum leaves the step loop:
+// loads and dependent FMAs; and its
+// backward spent most of each step adding h_prev^T d_rp into the CTA's dU in
+// shared memory (u * g u elements a step, one division, a load and a store
+// each).  The TPU kernel sums dU inside its body only because its grid is
+// sequential and VMEM holds the accumulator; here that sum leaves the step
+// loop:
 //   * Tile ("window tile"): one CTA a window (its 2 rows), 4u threads (240
 //     at u=60); thread tid = 4 i + s owns unit i and k-slice s (the float4
 //     quads s, s+4, s+8, ... of the recurrent dot), and its row is s & 1.
@@ -66,11 +60,13 @@
 //     GRU) in registers under the launch bound of 256 threads x 2 CTAs (at
 //     most 128 registers a thread); wider layers read that slice through
 //     L1/L2.
-//   * LSTM forward (LstmTrainFwdKernel), one barrier a step: each lane forms
-//     the four gate dots of both rows over its k-slice (h broadcast as
-//     float4 from shared memory), a fixed butterfly of shuffles leaves each
-//     lane its own row's four sums, and lanes s < 2 store h, c and the
-//     branch average.
+//   * Forwards (LstmTrainFwdKernel, GruTrainFwdKernel), one barrier a step:
+//     each lane forms the g gate dots of both rows over its k-slice (h
+//     broadcast as float4 from shared memory), a fixed butterfly of
+//     shuffles leaves each lane its own row's g sums, and lanes s < 2 store
+//     h (and the LSTM's c) and the branch average.  The GRU forward sums
+//     its dots in the order its backward recomputes them (GateDots), so the
+//     recomputed gates are the forward's.
 //   * Backward recurrences (LstmBwdRecurrenceKernel,
 //     GruBwdRecurrenceKernel), two barriers a step: (A) each lane
 //     recomputes its row's gates from h_prev as the forward does (GRU: the
@@ -89,24 +85,26 @@
 //     fixed-order partial sums (see the kernel).  Written for g*u columns
 //     and an optional second right-hand matrix: the GRU passes d_rp (dU,
 //     recurrent bias) and d_xp (dW, input bias).
-//   * Shared memory (WindowSmem): the LSTM forward 4 (4 Pad4(u) + 20u + 40)
-//     + T bytes (6,262 B at u=60, T=342); the backward recurrences
-//     4 (2 Pad4(u) + Pad4(5 g u) + 2 g 5 + 2u ldp + 2u) + T bytes (LSTM
-//     36,022 B, GRU 34,782 B at u=60).  U is not there, so the threads
-//     bound the width: 4u <= 512, u <= 128, for both cells (the block-row
-//     backward, with U and the CTA's dU in shared memory, stopped at u=82
-//     for LSTM and u=94 for GRU).
+//   * Shared memory (WindowSmem): the forwards 4 (4 Pad4(u) + Pad4(5 g u) +
+//     10 g) + T bytes (LSTM 6,262 B, GRU 5,022 B at u=60, T=342); the
+//     backward recurrences 4 (2 Pad4(u) + Pad4(5 g u) + 2 g 5 + 2u ldp +
+//     2u) + T bytes (LSTM 36,022 B, GRU 34,782 B at u=60).  U is not
+//     there, so the threads bound the width: 4u <= 512, u <= 128, for both
+//     cells (the block-row backward, with U and the CTA's dU in shared
+//     memory, stopped at u=82 for LSTM and u=94 for GRU).  B=256 gives the
+//     GRU forward 16 warps an SM, against the block-row tile's 3.75.
 //   * No float atomics anywhere: two backward runs are bitwise equal.
 //   * All float32 with FMA (the counterpart of Precision.HIGHEST): no TF32,
 //     no tensor cores.  Sums run in other orders than the plain versions;
 //     the tolerances allow for that.
 //   * ptxas -v (sm_90a, CUDA 12.8): LstmTrainFwdKernel 109 registers (U in
-//     registers) / 72 (U through L2), no spills; LstmBwdRecurrenceKernel
-//     128 / 84 registers, 16 bytes of spill stores and loads in the
-//     register variant, none in the other; GruBwdRecurrenceKernel 128 / 89
-//     registers, 28 bytes of spill stores and loads in the register
-//     variant, none in the other; TrainReduceKernel 72 registers, 32,384 B
-//     of static shared memory, no spills; SumReducePartsKernel 32.
+//     registers) / 72 (U through L2), GruTrainFwdKernel 94 / 69, no spills;
+//     LstmBwdRecurrenceKernel 128 / 86 registers, 16 bytes of spill stores
+//     and loads in the register variant, none in the other;
+//     GruBwdRecurrenceKernel 128 / 89 registers, 28 bytes of spill stores
+//     and loads in the register variant, none in the other;
+//     TrainReduceKernel 72 registers, 32,384 B of static shared memory, no
+//     spills; SumReducePartsKernel 32.
 //   * What bounds them on this card: not bytes or FMAs but latency.  The
 //     step loop is sequential, and each step waits on shared loads,
 //     shuffles and barriers; 16 warps an SM hide part of it.
@@ -119,7 +117,6 @@ namespace {
 constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
 constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 512;
-constexpr int kMaxBlockRows = 8;
 
 __device__ __forceinline__ float Sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -127,26 +124,6 @@ __device__ __forceinline__ float Sigmoid(float x) {
 
 __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
-}
-
-int SmCount() {
-  int device = 0, count = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess) {
-    return 0;
-  }
-  return count;
-}
-
-// Windows a CTA owns: the least that keeps the grid within one wave.
-int TrainBlockRows(int batch, int units) {
-  const int sms = SmCount();
-  int bb = sms > 0 ? (batch + sms - 1) / sms : kMaxBlockRows;
-  if (bb < 1) bb = 1;
-  if (bb > kMaxBlockRows) bb = kMaxBlockRows;
-  while (bb > 1 && bb * units > kMaxThreads) --bb;
-  return bb;
 }
 
 // Stages the CTA's per-gate mask scales: s_m[lr * g*5 + g*5 + c] for local
@@ -178,176 +155,13 @@ __device__ void StageCodes(const int8_t *__restrict__ codes, int batch,
   }
 }
 
-// Masked input projection of one row for unit i: bias + scale * W[code].
-template <int kGates>
-__device__ __forceinline__ void InputProjection(const float *s_w,
-                                                const float *b_in,
-                                                const float *m_row, int code,
-                                                int units, int i,
-                                                float *x) {
-  const int width = kGates * units;
-#pragma unroll
-  for (int g = 0; g < kGates; ++g) x[g] = b_in[g * units + i];
-  if (static_cast<unsigned>(code) < kCodes) {
-    const float *w = s_w + code * width;
-#pragma unroll
-    for (int g = 0; g < kGates; ++g) {
-      x[g] += m_row[g * kCodes + code] * w[g * units + i];
-    }
-  }
-}
-
-// ---------------------------------------------------------------- forward
-
-template <int kGates>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-RnnTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
-                  const float *__restrict__ masks,
-                  const float *__restrict__ kernel,
-                  const float *__restrict__ bias,
-                  const float *__restrict__ recurrent, int units, int bb,
-                  float *__restrict__ avg, float *__restrict__ hidden,
-                  float *__restrict__ hseq) {
-  constexpr int kBiasRows = 2;
-  extern __shared__ float smem[];
-  const int width = kGates * units;
-  float *s_u = smem;                          // [u, width]
-  float *s_w = s_u + units * width;           // [5, width]
-  float *s_b = s_w + kCodes * width;          // [kBiasRows, width]
-  float *s_m = s_b + kBiasRows * width;       // [2bb, g*5]
-  float *s_h = s_m + 2 * bb * kGates * kCodes;  // [2 buffers][2bb][u]
-  int8_t *s_codes = reinterpret_cast<int8_t *>(s_h + 4 * bb * units);
-
-  const int tid = threadIdx.x;
-  const int n_threads = blockDim.x;
-  const int row0 = blockIdx.x * bb;
-  for (int j = tid; j < units * width; j += n_threads) s_u[j] = recurrent[j];
-  for (int j = tid; j < kCodes * width; j += n_threads) s_w[j] = kernel[j];
-  for (int j = tid; j < kBiasRows * width; j += n_threads) s_b[j] = bias[j];
-  for (int j = tid; j < 4 * bb * units; j += n_threads) s_h[j] = 0.0f;
-  StageMasks<kGates>(masks, batch, row0, bb, s_m);
-  StageCodes(codes, batch, steps, row0, bb, s_codes);
-  __syncthreads();
-
-  const int b = tid / units;
-  const int i = tid % units;
-  const int row = row0 + b;
-  const bool valid = row < batch;
-  const int8_t *my_codes = s_codes + b * steps;
-  const float *m_f = s_m + b * kGates * kCodes;
-  const float *m_r = s_m + (bb + b) * kGates * kCodes;
-  const float *b_rec = s_b + (kBiasRows - 1) * width;  // GRU recurrent row
-  const size_t seq_f = static_cast<size_t>(row) * steps * units + i;
-  const size_t seq_r = static_cast<size_t>(batch + row) * steps * units + i;
-  float h_f = 0.0f, h_r = 0.0f;
-
-  for (int t = 0; t < steps; ++t) {
-    const float *h_cur = s_h + (t & 1) * 2 * bb * units;
-    float *h_nxt = s_h + ((t + 1) & 1) * 2 * bb * units;
-    float x_f[kGates], x_r[kGates];
-    InputProjection<kGates>(s_w, s_b, m_f, my_codes[t], units, i, x_f);
-    InputProjection<kGates>(s_w, s_b, m_r,
-                            Complement(my_codes[steps - 1 - t]), units, i,
-                            x_r);
-
-    // Recurrent products h @ U for both rows, float32 FMA in k order.
-    float a_f[kGates], a_r[kGates];
-#pragma unroll
-    for (int g = 0; g < kGates; ++g) {
-      a_f[g] = 0.0f;
-      a_r[g] = 0.0f;
-    }
-    const float *hv_f = h_cur + b * units;
-    const float *hv_r = h_cur + (bb + b) * units;
-#pragma unroll 4
-    for (int k = 0; k < units; ++k) {
-      const float *u_k = s_u + k * width + i;
-      const float vf = hv_f[k];
-      const float vr = hv_r[k];
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) {
-        const float w = u_k[g * units];
-        a_f[g] = fmaf(vf, w, a_f[g]);
-        a_r[g] = fmaf(vr, w, a_r[g]);
-      }
-    }
-
-    {
-      const float rz = b_rec[i], rr = b_rec[units + i],
-                  rh = b_rec[2 * units + i];
-      float z = Sigmoid(x_f[0] + (a_f[0] + rz));
-      float r = Sigmoid(x_f[1] + (a_f[1] + rr));
-      float hh = tanhf(x_f[2] + r * (a_f[2] + rh));
-      h_f = z * h_f + (1.0f - z) * hh;
-      z = Sigmoid(x_r[0] + (a_r[0] + rz));
-      r = Sigmoid(x_r[1] + (a_r[1] + rr));
-      hh = tanhf(x_r[2] + r * (a_r[2] + rh));
-      h_r = z * h_r + (1.0f - z) * hh;
-    }
-
-    h_nxt[b * units + i] = h_f;
-    h_nxt[(bb + b) * units + i] = h_r;
-    if (valid) {
-      const size_t at = static_cast<size_t>(t) * units;
-      hseq[seq_f + at] = h_f;
-      hseq[seq_r + at] = h_r;
-      const float mean = (h_f + h_r) * 0.5f;
-      avg[(static_cast<size_t>(row) * steps + t) * units + i] = mean;
-      if (t == steps - 1) hidden[static_cast<size_t>(row) * units + i] = mean;
-    }
-    __syncthreads();
-  }
-}
-
-size_t FwdSmem(int gates, int units, int bb, int steps) {
-  const size_t width = static_cast<size_t>(gates) * units;
-  const int bias_rows = (gates == 3) ? 2 : 1;
-  return sizeof(float) *
-             (units * width + kCodes * width + bias_rows * width +
-              2 * static_cast<size_t>(bb) * gates * kCodes +
-              4 * static_cast<size_t>(bb) * units) +
-         static_cast<size_t>(bb) * steps;
-}
-
-bool BadShape(int batch, int steps, int units, int bb) {
-  return batch <= 0 || steps <= 0 || units <= 0 || bb <= 0 ||
-         bb > kMaxBlockRows || bb * units > kMaxThreads;
-}
-
-template <int kGates>
-int LaunchFwd(const void *codes, int batch, int steps, const void *masks,
-              const void *kernel, const void *bias, const void *recurrent,
-              int units, int bb, void *avg, void *hidden, void *hseq,
-              void *stream) {
-  if (BadShape(batch, steps, units, bb)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = FwdSmem(kGates, units, bb, steps);
-  // Above 48 kB a kernel only launches after this opt-in; a launch without
-  // it is refused, and the refusal shows only in cudaGetLastError.
-  cudaError_t err = cudaFuncSetAttribute(
-      RnnTrainFwdKernel<kGates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + bb - 1) / bb);
-  RnnTrainFwdKernel<kGates><<<grid, bb * units, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t *>(codes), batch, steps,
-      static_cast<const float *>(masks), static_cast<const float *>(kernel),
-      static_cast<const float *>(bias),
-      static_cast<const float *>(recurrent), units, bb,
-      static_cast<float *>(avg), static_cast<float *>(hidden),
-      static_cast<float *>(hseq));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ------------------------------------------------- window tile (Hopper)
 //
 // One CTA owns one window (its forward and reverse-complement rows) for
 // all T steps.  Thread tid = 4 i + s owns unit i and k-slice s (the float4
 // quads s, s+4, s+8, ... of the recurrent dot): at u=60, 240 threads, and
-// at B=256, 256 CTAs, two resident an SM: 16 warps an SM.  The LSTM
-// forward and backward recurrence and the GRU backward recurrence use it.
+// at B=256, 256 CTAs, two resident an SM: 16 warps an SM.  Both cells'
+// forwards and backward recurrences use it.
 
 constexpr int kLstmGates = 4;
 constexpr int kGruGates = 3;
@@ -575,7 +389,12 @@ __device__ __forceinline__ unsigned WarpLanes() {
   return n >= 32 ? ~0u : (1u << n) - 1u;
 }
 
-// Stages W and the window's masks and codes.
+// Stages W and the window's masks and codes (through StageMasks and
+// StageCodes, written for a block of bb windows, at bb=1: folding them into
+// this function for one window moved the register allocation of the
+// backward recurrences' step loops, whose spills grew from 16 to 24 bytes
+// (LSTM) and from 28 to 44 (GRU), and made lstm_train_bwd 14 % slower on
+// the H100).
 template <int kGates>
 __device__ void StageWindow(const int8_t *__restrict__ codes, int batch,
                             int steps, const float *__restrict__ masks,
@@ -641,6 +460,77 @@ LstmTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
       const size_t at = static_cast<size_t>(t) * units;
       hseq[seq + at] = h;
       cseq[seq + at] = c;
+      if (row == 0) {
+        const float mean = (h + h_other) * 0.5f;
+        avg[(static_cast<size_t>(window) * steps + t) * units + i] = mean;
+        if (t == steps - 1) {
+          hidden[static_cast<size_t>(window) * units + i] = mean;
+        }
+      }
+    }
+    __syncthreads();  // h of step t staged
+  }
+}
+
+// The GRU's (reset_after=True): the LSTM forward's step with three gates
+// and a recurrent bias row; the gate dots are summed in the order
+// GruBwdRecurrenceKernel recomputes them.
+template <bool kURegs>
+__global__ void __launch_bounds__(kURegs ? kRegThreads : kMaxThreads,
+                                  kURegs ? 2 : 1)
+GruTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
+                  const float *__restrict__ masks,
+                  const float *__restrict__ kernel,
+                  const float *__restrict__ bias,
+                  const float *__restrict__ recurrent, int units,
+                  float *__restrict__ avg, float *__restrict__ hidden,
+                  float *__restrict__ hseq) {
+  extern __shared__ float4 smem4[];
+  const int width = kGruGates * units;
+  const int hstride = Pad4(units);
+  float *s_h = reinterpret_cast<float *>(smem4);  // [2 buffers][2][hstride]
+  float *s_w = s_h + 4 * hstride;                 // [5][width]
+  float *s_m = s_w + kCodes * width;              // [2][3*5]
+  int8_t *s_codes = reinterpret_cast<int8_t *>(s_m + 2 * kGruGates * kCodes);
+
+  const int tid = threadIdx.x;
+  const int window = blockIdx.x;
+  const int i = tid / kSlices, s = tid % kSlices;
+  const int row = s & 1;  // 0: forward, 1: reverse complement
+  const bool writer = (s & 2) == 0;  // one of the row's two lanes
+  for (int e = tid; e < 4 * hstride; e += blockDim.x) s_h[e] = 0.0f;
+  StageWindow<kGruGates>(codes, batch, steps, masks, kernel, units, window,
+                         s_w, s_m, s_codes);
+  USlice<kGruGates, kURegs> us;
+  LoadUSlice<kGruGates, kURegs>(recurrent, units, i, s, us);
+  const unsigned lanes = WarpLanes();
+  float b_in[kGruGates], b_rec[kGruGates];
+#pragma unroll
+  for (int g = 0; g < kGruGates; ++g) {
+    b_in[g] = bias[g * units + i];
+    b_rec[g] = bias[width + g * units + i];
+  }
+  __syncthreads();
+
+  const size_t seq =
+      static_cast<size_t>(row ? batch + window : window) * steps * units + i;
+  float h = 0.0f;
+  for (int t = 0; t < steps; ++t) {
+    const float *h_cur = s_h + (t & 1) * 2 * hstride;
+    float *h_nxt = s_h + ((t + 1) & 1) * 2 * hstride;
+    const int code = row ? Complement(s_codes[steps - 1 - t]) : s_codes[t];
+    float dot[kGruGates], x[kGruGates];
+    GateDots<kGruGates, kURegs>(us, h_cur, units, i, s, lanes, dot);
+    InputRow<kGruGates>(s_w, s_m + row * kGruGates * kCodes, b_in, units, i,
+                        code, x);
+    const float z = Sigmoid(x[0] + (dot[0] + b_rec[0]));
+    const float r = Sigmoid(x[1] + (dot[1] + b_rec[1]));
+    const float hh = tanhf(x[2] + r * (dot[2] + b_rec[2]));
+    h = z * h + (1.0f - z) * hh;
+    const float h_other = __shfl_xor_sync(lanes, h, 1);
+    if (writer) {
+      h_nxt[row * hstride + i] = h;
+      hseq[seq + static_cast<size_t>(t) * units] = h;
       if (row == 0) {
         const float mean = (h + h_other) * 0.5f;
         avg[(static_cast<size_t>(window) * steps + t) * units + i] = mean;
@@ -1181,19 +1071,25 @@ bool BadWindowShape(int batch, int steps, int units) {
 
 extern "C" {
 
-// Windows a CTA owns for a training batch (the grid is ceil(batch / bb)).
-int dg_train_block_rows(int batch, int units) {
-  return TrainBlockRows(batch, units);
-}
-
 // Each launcher returns cudaGetLastError() after its launches (0 = all
 // launched).  `masks` may be null (no dropout: scale 1).
 int dg_gru_train_fwd(const void *codes, int batch, int steps,
                      const void *masks, const void *kernel, const void *bias,
-                     const void *recurrent, int units, int bb, void *avg,
+                     const void *recurrent, int units, void *avg,
                      void *hidden, void *hseq, void *stream) {
-  return LaunchFwd<3>(codes, batch, steps, masks, kernel, bias, recurrent,
-                      units, bb, avg, hidden, hseq, stream);
+  if (BadWindowShape(batch, steps, units)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = WindowSmem(kGruGates, units, steps, false);
+  const auto fn = units <= kRegUnits ? GruTrainFwdKernel<true>
+                                     : GruTrainFwdKernel<false>;
+  return LaunchWindow(
+      fn, batch, units, smem, static_cast<cudaStream_t>(stream),
+      static_cast<const int8_t *>(codes), batch, steps,
+      static_cast<const float *>(masks), static_cast<const float *>(kernel),
+      static_cast<const float *>(bias), static_cast<const float *>(recurrent),
+      units, static_cast<float *>(avg), static_cast<float *>(hidden),
+      static_cast<float *>(hseq));
 }
 
 int dg_lstm_train_fwd(const void *codes, int batch, int steps,
@@ -1266,20 +1162,30 @@ int dg_gru_bwd_recurrence(const void *codes, int batch, int steps,
 
 // CTAs of a window kernel that fit on one SM at this width and length (0
 // if the kernel cannot launch): which = 0 the LSTM forward, 1 the LSTM
-// backward recurrence, 2 the GRU backward recurrence.
+// backward recurrence, 2 the GRU backward recurrence, 3 the GRU forward.
 int dg_window_ctas_per_sm(int which, int units, int steps) {
-  if (which < 0 || which > 2 || BadWindowShape(1, steps, units)) return 0;
-  const bool regs = units <= kRegUnits;
-  const void *fns[3][2] = {
-      {reinterpret_cast<const void *>(LstmTrainFwdKernel<false>),
-       reinterpret_cast<const void *>(LstmTrainFwdKernel<true>)},
-      {reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<false>),
-       reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<true>)},
-      {reinterpret_cast<const void *>(GruBwdRecurrenceKernel<false>),
-       reinterpret_cast<const void *>(GruBwdRecurrenceKernel<true>)}};
-  const void *fn = fns[which][regs ? 1 : 0];
-  const size_t smem = WindowSmem(which == 2 ? kGruGates : kLstmGates, units,
-                                 steps, which != 0);
+  struct Entry {
+    const void *fns[2];  // U through L2, U in registers
+    int gates;
+    bool backward;
+  };
+  const Entry kernels[4] = {
+      {{reinterpret_cast<const void *>(LstmTrainFwdKernel<false>),
+        reinterpret_cast<const void *>(LstmTrainFwdKernel<true>)},
+       kLstmGates, false},
+      {{reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<false>),
+        reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<true>)},
+       kLstmGates, true},
+      {{reinterpret_cast<const void *>(GruBwdRecurrenceKernel<false>),
+        reinterpret_cast<const void *>(GruBwdRecurrenceKernel<true>)},
+       kGruGates, true},
+      {{reinterpret_cast<const void *>(GruTrainFwdKernel<false>),
+        reinterpret_cast<const void *>(GruTrainFwdKernel<true>)},
+       kGruGates, false}};
+  if (which < 0 || which > 3 || BadWindowShape(1, steps, units)) return 0;
+  const Entry &entry = kernels[which];
+  const void *fn = entry.fns[units <= kRegUnits ? 1 : 0];
+  const size_t smem = WindowSmem(entry.gates, units, steps, entry.backward);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess) {
     cudaGetLastError();

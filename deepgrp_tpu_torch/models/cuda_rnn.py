@@ -130,14 +130,13 @@ def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
         return avg, hidden
     lib = _build.load_kernels("rnn_avg")
     fn: Callable[..., int] = getattr(lib, f"dg_{name}")
-    # The GRU kernel takes its tile (windows a CTA); the LSTM's is fixed.
-    tile = () if gates == 4 else (gru_avg_tile(batch, units,
-                                               codes.device)[0],)
+    windows = avg_tile("lstm" if gates == 4 else "gru", batch, units,
+                       codes.device)[0]
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = fn(codes.data_ptr(), batch, steps,
                  params["kernel"].data_ptr(), params["bias"].data_ptr(),
-                 params["recurrent"].data_ptr(), units, *tile,
+                 params["recurrent"].data_ptr(), units, windows,
                  avg.data_ptr(), hidden.data_ptr(), ctypes.c_void_p(stream))
     _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
     LAUNCHES.add(name)
@@ -151,13 +150,16 @@ def block_windows(batch: int, sms: int, most: int) -> int:
     return max(1, min(most, -(-batch // max(sms, 1))))
 
 
-def gru_avg_tile(batch: int, units: int,
-                 device: Optional[torch.device] = None) -> Tuple[int, int]:
-    """``(windows a CTA owns, CTAs)`` of the GRU inference kernels for a
-    batch on a CUDA device (:func:`block_windows` with the card's SM count
-    and the kernel's cap at this width: 8 windows up to u=128, 2 beyond)."""
+def avg_tile(cell: str, batch: int, units: int,
+             device: Optional[torch.device] = None) -> Tuple[int, int]:
+    """``(windows a CTA owns, CTAs)`` of the inference kernels of ``cell``
+    ("gru" or "lstm") for a batch on a CUDA device (:func:`block_windows`
+    with the card's SM count and the kernel's cap at this width: 8 windows
+    up to u=128, 2 beyond; a width the kernel refuses gets 1, and its
+    launch raises)."""
     device = device or torch.device("cuda")
-    most = _build.load_kernels("rnn_avg").dg_gru_avg_max_windows(units)
+    gates = 4 if cell == "lstm" else 3
+    most = _build.load_kernels("rnn_avg").dg_avg_max_windows(gates, units)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     windows = block_windows(batch, sms, most)
     return windows, -(-batch // windows)
@@ -235,17 +237,6 @@ def _launch_seq(params: RnnParams,
 # -- training kernels --------------------------------------------------------
 
 
-def train_grid(batch: int, units: int,
-               device: Optional[torch.device] = None) -> Tuple[int, int]:
-    """``(windows a CTA owns, CTAs)`` of the GRU training kernels for a
-    batch on a CUDA device (the tile is chosen from the batch and the card's SM
-    count, so that the grid is one wave)."""
-    lib = _build.load_kernels("rnn_train")
-    with torch.cuda.device(device or torch.device("cuda")):
-        block_rows = lib.dg_train_block_rows(batch, units)
-    return block_rows, -(-batch // block_rows)
-
-
 def _check_masks(name: str, gates: int, masks: Optional[torch.Tensor],
                  batch: int, device: torch.device) -> None:
     if masks is not None:
@@ -270,15 +261,12 @@ def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
     if batch == 0:
         return (avg, hidden, *seqs)
     lib = _build.load_kernels("rnn_train")
-    # The GRU kernel takes its tile; the LSTM kernel has one CTA a window.
-    tile = () if cell == "lstm" else (train_grid(batch, units,
-                                                 codes.device)[0],)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = getattr(lib, f"dg_{name}")(
             codes.data_ptr(), batch, steps, _ptr(masks),
             params["kernel"].data_ptr(), params["bias"].data_ptr(),
-            params["recurrent"].data_ptr(), units, *tile,
+            params["recurrent"].data_ptr(), units,
             avg.data_ptr(), hidden.data_ptr(),
             *(seq.data_ptr() for seq in seqs), ctypes.c_void_p(stream))
     _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
@@ -388,16 +376,16 @@ def _train_reduce(hseq: torch.Tensor, codes: torch.Tensor,
 
 #: The window kernels of each cell's training path, ``(kind, index that
 #: dg_window_ctas_per_sm takes)``.
-_WINDOW_KERNELS = {"lstm": (("fwd", 0), ("bwd", 1)), "gru": (("bwd", 2),)}
+_WINDOW_KERNELS = {"lstm": (("fwd", 0), ("bwd", 1)),
+                   "gru": (("fwd", 3), ("bwd", 2))}
 
 
 def train_tile(cell: str, batch: int, units: int, steps: int,
                device: Optional[torch.device] = None) -> Dict[str, int]:
-    """The tile of ``cell``'s training kernels that take one CTA a window
-    (LSTM forward and backward recurrence, GRU backward recurrence; the
-    GRU forward's tile is :func:`train_grid`'s) on a CUDA device: threads
-    a CTA (four per unit), CTAs (one a window), resident CTAs an SM of each
-    kernel, and the warps an SM that gives at this batch."""
+    """The window tile of ``cell``'s training kernels (the forward and the
+    backward's recurrence) on a CUDA device: threads a CTA (four per
+    unit), CTAs (one a window), resident CTAs an SM of each kernel, and the
+    warps an SM that gives at this batch."""
     lib = _build.load_kernels("rnn_train")
     device = device or torch.device("cuda")
     threads = 4 * units

@@ -19,10 +19,10 @@ gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
 runs give bitwise-equal gradients (no float atomics).
 
-The fused GRU inference kernel also runs at the CLI's default batch (256
-windows: two a CTA), at u=96 and u=128 (past its register tile) and at
-u=200 (two windows a CTA, 4u threads).  The GRU sequence kernel
-(``gru_seq``) is held against its plain version
+The fused inference kernels (one register tile for both cells) also run
+at the CLI's default batch (256 windows: two a CTA), at u=96 and u=128
+(past the register tile) and at u=200 (two windows a CTA, 4u threads).
+The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at u=128 (U at the edge of shared memory) and
 u=256 (U read through L2), and at ragged shapes; the bf16 variants of the
@@ -152,27 +152,23 @@ def check_train_pair(device, cell, masked, batch, steps, units):
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_window_tile_quadruples_warps_per_sm(device, cell):
-    """At B=256, u=60 the window kernels (LSTM forward and backward
-    recurrence, GRU backward recurrence) put at least 4x the 3.75 warps an
-    SM of the block-row tile they replace (2 windows x 60 threads, one CTA an
-    SM)."""
+    """At B=256, u=60 the window kernels (each cell's forward and backward
+    recurrence) put at least 4x the 3.75 warps an SM of the block-row tile
+    they replace (2 windows x 60 threads, one CTA an SM)."""
     tile = cuda_rnn.train_tile(cell, 256, 60, 342)
     assert tile["threads"] == 240 and tile["ctas"] == 256
-    kinds = ("fwd", "bwd") if cell == "lstm" else ("bwd",)
-    for kind in kinds:
+    for kind in ("fwd", "bwd"):
         assert tile[f"{kind}_warps_per_sm"] >= 4 * 3.75, tile
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_backward_width_ceiling(device, cell):
-    """The window kernels launch up to u=128 at T=342 (4u threads a CTA)
-    and not at u=129."""
+    """The window kernels (forward and backward recurrence) launch up to
+    u=128 at T=342 (4u threads a CTA) and not at u=129."""
     tile = cuda_rnn.train_tile(cell, 8, 128, 342)
-    assert tile["bwd_ctas_per_sm"] >= 1
-    assert tile.get("fwd_ctas_per_sm", 1) >= 1
+    assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
     tile = cuda_rnn.train_tile(cell, 8, 129, 342)
-    assert tile["bwd_ctas_per_sm"] == 0
-    assert tile.get("fwd_ctas_per_sm", 0) == 0
+    assert tile["bwd_ctas_per_sm"] == 0 and tile["fwd_ctas_per_sm"] == 0
 
 
 def test_gru_backward_refuses_u129(device):
@@ -221,30 +217,47 @@ def test_bwd_parts_match_plain(device, cell, masked):
                                                      masks, *want[1:]))
 
 
-def test_train_grid_fills_the_card(device):
-    block_rows, n_cta = cuda_rnn.train_grid(256, 60)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert n_cta <= sms and block_rows * n_cta >= 256
-    assert cuda_rnn.train_grid(1, 60) == (1, 1)
-
-
 def test_gru_avg_tile_fills_the_card(device):
     """The GRU inference tile: one wave at the engine's 1024 windows and at
     the fixtures' 64 (8 and 1 windows a CTA on a 132-SM card)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for batch in (1024, 64):
-        windows, n_cta = cuda_rnn.gru_avg_tile(batch, 60)
+        windows, n_cta = cuda_rnn.avg_tile("gru", batch, 60)
         assert windows * n_cta >= batch and windows <= 8
         assert n_cta <= sms or windows == 8
-    assert cuda_rnn.gru_avg_tile(64, 60) == (1, 64)
-    assert cuda_rnn.gru_avg_tile(1024, 200)[0] <= 2
+    assert cuda_rnn.avg_tile("gru", 64, 60) == (1, 64)
+    assert cuda_rnn.avg_tile("gru", 1024, 200)[0] <= 2
+
+
+def test_lstm_avg_tile_fills_the_card(device):
+    """The LSTM runs on the GRU's tile: one wave at the engine's 1024
+    windows and at the CLI's default 256 (128 CTAs of 2 windows on a
+    132-SM card, where the first design ran 32 CTAs of 8)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch in (1024, 256):
+        windows, n_cta = cuda_rnn.avg_tile("lstm", batch, 60)
+        assert windows * n_cta >= batch and windows <= 8
+        assert n_cta <= sms or windows == 8
+        assert cuda_rnn.avg_tile("lstm", batch, 60) == cuda_rnn.avg_tile(
+            "gru", batch, 60)
+    if sms == 132:
+        assert cuda_rnn.avg_tile("lstm", 256, 60) == (2, 128)
+
+
+def test_lstm_avg_refuses_u257(device):
+    """The inference kernels take 4u <= 1,024 threads: u=257 raises, naming
+    the shape."""
+    params, codes = random_case(6, 4, 3, 5, 257, device)
+    with pytest.raises(RuntimeError, match="u=257"):
+        cuda_rnn.lstm_avg(params, codes)
 
 
 @pytest.mark.parametrize("cell,batch,steps,units", [
     *((cell, *shape) for cell in ("gru", "lstm")
       for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5), (9, 1, 17))),
-    ("gru", 256, 342, 60), ("gru", 1024, 342, 96), ("gru", 1024, 342, 128),
-    ("gru", 37, 50, 200)])
+    *((cell, *shape) for cell in ("gru", "lstm")
+      for shape in ((256, 342, 60), (1024, 342, 96), (1024, 342, 128),
+                    (37, 50, 200)))])
 def test_kernel_matches_plain(device, cell, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch + steps + units, gates, batch, steps,
@@ -353,8 +366,8 @@ def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
 
 @pytest.mark.parametrize("cell,batch,steps,units", [
     *((cell, *shape) for cell in ("gru", "lstm")
-      for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5))),
-    ("gru", 1024, 342, 96), ("gru", 1024, 342, 128)])
+      for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5),
+                    (1024, 342, 96), (1024, 342, 128)))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch * units + steps, gates, batch, steps,

@@ -5,6 +5,7 @@ labelling, segments and FASTA reading are integer or identical float64
 work, and the overlap-max merge is a max (no rounding).
 """
 
+import fcntl
 import io
 import math
 
@@ -15,6 +16,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from deepgrp_tpu import native as jax_native  # noqa: E402
 from deepgrp_tpu.data import fasta as jax_fasta  # noqa: E402
 from deepgrp_tpu.ops import encoding as jax_encoding  # noqa: E402
 from deepgrp_tpu.ops import mss as jax_mss  # noqa: E402
@@ -29,6 +31,32 @@ from deepgrp_tpu_torch.ops.segments import yield_segments  # noqa: E402
 from deepgrp_tpu_torch.predict import engine  # noqa: E402
 
 S0 = math.log(0.99 / 0.01)
+
+
+def load_jax_native():
+    """Loads the JAX package's host library, building it at most once
+    across processes.  Its loader compiles straight into the library's path,
+    so a test worker that loads while another compiles reads a half-written
+    file, and every test of that worker that needs the library skips
+    (``tests/test_mss.py``, ``tests/test_encoding.py``).  An exclusive lock
+    on the loader's source file serialises the build."""
+    with open(jax_native.__file__, "rb") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            return jax_native.load()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+# Every test worker collects this module before it runs a test.
+load_jax_native()
+
+
+def test_jax_native_library_loads():
+    """Both packages' host libraries load, so the JAX package's native
+    tests run instead of skipping."""
+    assert jax_native.available()
+    assert load_jax_native() is not None
 
 
 def random_scores(rng, n):

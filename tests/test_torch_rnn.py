@@ -42,13 +42,14 @@ def torch_params(params):
     return {k: torch.from_numpy(v) for k, v in params.items()}
 
 
-def jax_avg(cell, params, codes):
+def jax_avg(cell, params, codes, out_dtype=jnp.float32):
     fn = pallas_rnn.pallas_lstm_avg if cell == "lstm" \
         else pallas_rnn.pallas_gru_avg
     avg, hidden = fn({k: jnp.asarray(v) for k, v in params.items()},
                      jnp.asarray(codes.astype(np.int32)), block_b=8,
-                     time_block=8, interpret=True)
-    return np.asarray(avg), np.asarray(hidden)
+                     time_block=8, out_dtype=out_dtype, interpret=True)
+    return (np.asarray(jnp.asarray(avg, jnp.float32)),
+            np.asarray(jnp.asarray(hidden, jnp.float32)))
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
@@ -64,6 +65,27 @@ def test_plain_matches_pallas(cell, batch, steps, units):
     assert hidden.shape == (batch, units)
     np.testing.assert_allclose(avg.numpy(), want_avg, atol=ATOL)
     np.testing.assert_allclose(hidden.numpy(), want_hidden, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL),
+                                        ("bfloat16", 2e-2)])
+def test_lstm_plain_matches_pallas_u128(dtype, atol):
+    """The LSTM at u=128, the training ceiling (the first CUDA kernel
+    stopped at u=113): the plain version against the JAX kernel in float32
+    and in the bf16 fast mode (atol 2e-2, as tests/test_torch_bf16.py: the
+    port rounds the dot's operands to bfloat16, the JAX kernel in interpret
+    mode does not)."""
+    params, codes = random_case(128, "lstm", 2, 20, 128)
+    want_avg, want_hidden = jax_avg("lstm", params, codes,
+                                    getattr(jnp, dtype))
+    avg, hidden = rnn.lstm_avg_plain(torch_params(params),
+                                     torch.from_numpy(codes),
+                                     getattr(torch, dtype))
+    assert avg.dtype == hidden.dtype == getattr(torch, dtype)
+    assert avg.shape == (2, 20, 128)
+    np.testing.assert_allclose(avg.float().numpy(), want_avg, atol=atol)
+    np.testing.assert_allclose(hidden.float().numpy(), want_hidden,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])

@@ -133,6 +133,37 @@ def test_autograd_function_matches_jax_vjp(cell, batch, steps, units,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.0928])
+def test_lstm_train_matches_jax_vjp_u128(rate):
+    """One LstmAvgTrain step (loss and gradients) at u=128, the training
+    ceiling, against the JAX custom VJP, at the tolerances above."""
+    batch, steps, units = 2, 20, 128
+    params, codes, masks = random_case(128, "lstm", batch, steps, units,
+                                       rate)
+    rng = np.random.default_rng(12)
+    w_avg = rng.normal(size=(batch, steps, units)).astype(np.float32)
+    fn, j_params, j_codes, j_masks, has_mask = jax_train("lstm", params,
+                                                         codes, masks)
+
+    def loss_jax(p):
+        return jnp.sum(fn(p, j_codes, j_masks, has_mask)[0] * w_avg)
+
+    want_v, want_g = jax.value_and_grad(loss_jax)(j_params)
+    t_params, t_codes, t_masks = to_torch(params, codes, masks)
+    for value in t_params.values():
+        value.requires_grad_(True)
+    avg, _ = cuda_rnn.LstmAvgTrain.apply(
+        t_params["kernel"], t_params["recurrent"], t_params["bias"],
+        t_codes, t_masks)
+    loss = (avg * torch.from_numpy(w_avg)).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_v), rtol=1e-5)
+    for name in ("kernel", "recurrent", "bias"):
+        np.testing.assert_allclose(t_params[name].grad.numpy(),
+                                   np.asarray(want_g[name]), atol=2e-4,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("batch,steps,units", SHAPES)
