@@ -58,10 +58,13 @@ Phases (any failure exits non-zero; nothing is caught):
    against the plain versions) for the LSTM model at batch 256, one epoch
    of 20 steps.
 8. One-hot kernels vs plain versions: the GRU sequence kernel
-   (``gru_seq``, ``csrc/rnn_seq.cu``) against ``rnn.gru_apply`` on uniform
-   random input at (2048, 342, 60) in float32 and bfloat16, (2048, 342,
-   128) and (512, 342, 256) in float32 (U in shared memory, then through
-   L2) and a ragged (7, 23, 60); the bf16 variants of the fused kernels
+   (``gru_seq``, ``csrc/rnn_seq.cu``; its ``ptxas -v`` registers and
+   spills, and at each shape its tile: rows a CTA, CTAs, rows a lane
+   group, k-slices a unit and where U sits) against ``rnn.gru_apply`` on
+   uniform random input at (2048, 342, 60) in float32 and bfloat16,
+   (2048, 342, 128), (512, 342, 256) and (16, 342, 512) in float32 (U
+   through L1/L2; two k-slices a unit past u=128) and a ragged (7, 23, 60);
+   the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
    (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128.
    atol 1e-5 in float32, 2e-2 in
@@ -90,6 +93,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,6 +143,7 @@ SEQ_SHAPES = [("flagship", "float32", (2048, 342, 60)),
               ("flagship_bf16", "bfloat16", (2048, 342, 60)),
               ("u128", "float32", (2048, 342, 128)),
               ("u256", "float32", (512, 342, 256)),
+              ("u512", "float32", (16, 342, 512)),
               ("ragged", "float32", (7, 23, 60))]
 # The bf16 quality contract (tests/test_reference_parity.py:110-180).
 BF16_RAW_AGREE, BF16_POST_AGREE, BF16_MCC = 0.95, 0.98, 0.95
@@ -954,12 +959,44 @@ def bound(flops: float, n_bytes: float, peak_flops: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def ptxas_usage(log: str, template: str) -> dict:
+    """Registers and spill bytes of each instantiation of the kernel
+    template ``template`` (keyed by its template arguments), from a build
+    log of ``nvcc -Xptxas -v``."""
+    found, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(template + r"I((?:L[ib]\d+E)+)E", m.group(1))
+            entry = (", ".join(re.findall(r"L[ib](\d+)E", t.group(1)))
+                     if t else None)
+            continue
+        if entry is None:
+            continue
+        usage = found.setdefault(entry, {"registers": 0, "spill_stores": 0,
+                                         "spill_loads": 0})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage["spill_stores"] = int(m.group(1))
+            usage["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage["registers"] = int(m.group(1))
+    return found
+
+
 def seq_kernel_phase(torch):
     """Phase 8a: the GRU sequence kernel against its plain version."""
     from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
-    lib = _build.load_kernels("rnn_seq")
+    _build.load_kernels("rnn_seq")
+    log = (_build.BUILD_DIR / "rnn_seq.log").read_text()
+    for args, usage in sorted(ptxas_usage(log, "SeqKernel").items()):
+        print(f"ptxas SeqKernel<{args}> (slices, rows a group, U in "
+              f"registers, bf16): {usage}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(2026)
     results = {}
     for label, dtype_name, (batch, steps, units) in SEQ_SHAPES:
@@ -992,10 +1029,13 @@ def seq_kernel_phase(torch):
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, **bound(flops, n_bytes, peak)}
         tol = TOL if dtype == torch.float32 else BF16_TOL
-        place = {1: "shared memory", 0: "L2"}[
-            lib.dg_gru_seq_u_in_smem(units, 5, int(dtype == torch.bfloat16))]
+        rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms)
+        layout = cuda_rnn.seq_layout(units, rows_a_cta)
         print(f"gru_seq {label} B={batch} T={steps} u={units} {dtype_name} "
-              f"(U in {place}): max_abs_err={err:.3g} (tolerance {tol:g}; "
+              f"(tile {n_cta} CTAs x {rows_a_cta} rows, "
+              f"{layout['rows_a_group']} rows a lane group of "
+              f"{layout['slices']} slices a unit, U in {layout['u_in']}): "
+              f"max_abs_err={err:.3g} (tolerance {tol:g}; "
               f"cuDNN vs plain {lib_err:.3g}) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})",

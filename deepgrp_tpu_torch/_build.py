@@ -166,13 +166,14 @@ def _declare_rnn_train(lib: ctypes.CDLL) -> None:
 
 
 def _declare_rnn_seq(lib: ctypes.CDLL) -> None:
-    # x, batch, steps, channels, kernel, bias, recurrent, units, bf16, seq,
-    # last, stream
+    # x, batch, steps, channels, kernel, bias, recurrent, units, rows a CTA,
+    # bf16, seq, last, stream
     lib.dg_gru_seq.argtypes = [_PTR, _I32, _I32, _I32, _PTR, _PTR, _PTR,
-                               _I32, _I32, _PTR, _PTR, _PTR]
+                               _I32, _I32, _I32, _PTR, _PTR, _PTR]
     lib.dg_gru_seq.restype = _I32
-    lib.dg_gru_seq_u_in_smem.argtypes = [_I32, _I32, _I32]
-    lib.dg_gru_seq_u_in_smem.restype = _I32
+    # units, rows a CTA, int[3] out
+    lib.dg_gru_seq_layout.argtypes = [_I32, _I32, _PTR]
+    lib.dg_gru_seq_layout.restype = _I32
 
 
 _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {

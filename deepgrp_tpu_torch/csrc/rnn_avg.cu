@@ -30,7 +30,8 @@
 // float32), not by the bytes.  The recurrence is sequential in T, so the
 // parallelism is B x 2 x u.
 //
-// One kernel serves both cells (AvgKernel<kGates, ...>, the register tile).
+// One kernel serves both cells (AvgKernel<kGates, ...>, the register tile;
+// its building blocks, shared with rnn_seq.cu, are in rnn_tile.cuh).
 // The first design ran one thread per (window, unit) over a k loop that
 // issued 2 broadcast h loads and g U loads from shared memory for 2g
 // FMAs: the step was bound by shared-memory wavefronts, no U element fed
@@ -101,52 +102,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rnn_tile.cuh"
+
 namespace {
 
 constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
 constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
-constexpr int kSlices = 4;      // k-slices a unit (lanes 4i .. 4i+3)
-constexpr int kRegUnits = 64;   // U's slice in registers up to this width
-constexpr int kRegQuads = kRegUnits / (4 * kSlices);
 constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
 constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
-
-__device__ __forceinline__ float Sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
 }
 
-__host__ __device__ __forceinline__ int Pad4(int n) { return (n + 3) & ~3; }
-
 // Windows a CTA may own at this width.
 __host__ __device__ __forceinline__ int MaxWindows(int units) {
   return units <= kTileUnits ? 8 : 2;
 }
-
-// Output element type and the precision of the recurrent dot's operands.
-template <bool kBf16>
-struct Io;
-template <>
-struct Io<false> {
-  using Out = float;
-  static __device__ __forceinline__ float Operand(float x) { return x; }
-  static __device__ __forceinline__ float Store(float x) { return x; }
-};
-template <>
-struct Io<true> {
-  using Out = __nv_bfloat16;
-  // Round to nearest even, as torch's .to(torch.bfloat16).
-  static __device__ __forceinline__ float Operand(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 Store(float x) {
-    return __float2bfloat16(x);
-  }
-};
 
 // The cell of unit i: its bias in registers and the Keras gate math of one
 // row from the row's recurrent dots and its input row W[code] (w_row, read
@@ -213,76 +186,6 @@ struct Cell<4> {
     h = og * tanhf(c);
   }
 };
-
-// The U entries of lane (i, s): U[4 (s + 4 m) + c, g u + i] for quad m of
-// its slice, c < 4, gate g (zero past u), rounded to the dot's precision;
-// from registers or, for wider layers, device memory through L1/L2.
-template <int kGates, bool kURegs, bool kBf16>
-struct USlice {
-  float reg[kURegs ? kRegQuads : 1][4][kGates];
-  const float *recurrent;
-
-  __device__ __forceinline__ void load(const float *__restrict__ u_mat,
-                                       int units, int i, int s) {
-    recurrent = u_mat;
-    if constexpr (kURegs) {
-#pragma unroll
-      for (int m = 0; m < kRegQuads; ++m) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = 4 * (s + kSlices * m) + c;
-#pragma unroll
-          for (int g = 0; g < kGates; ++g) {
-            reg[m][c][g] =
-                k < units ? Io<kBf16>::Operand(
-                                u_mat[k * kGates * units + g * units + i])
-                          : 0.0f;
-          }
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ float at(int m, int c, int g, int s, int units,
-                                      int i) const {
-    if constexpr (kURegs) {
-      return reg[m][c][g];
-    } else {
-      const int k = 4 * (s + kSlices * m) + c;
-      return k < units ? Io<kBf16>::Operand(__ldg(
-                             recurrent + k * kGates * units + g * units + i))
-                       : 0.0f;
-    }
-  }
-};
-
-// Sums in[.][b][g] with lane (this ^ mask) and keeps half of the windows:
-// lane bit `hi` set keeps the odd ones (2w + 1), else the even (2w); the
-// partner lane sends the other half.
-template <int kN, int kGates>
-__device__ __forceinline__ void FoldWindows(
-    const float (&in)[kN][2][kGates], bool hi, int mask, unsigned lanes,
-    float (&out)[kN / 2][2][kGates]) {
-#pragma unroll
-  for (int w = 0; w < kN / 2; ++w) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) {
-        const float keep = hi ? in[2 * w + 1][b][g] : in[2 * w][b][g];
-        const float send = hi ? in[2 * w][b][g] : in[2 * w + 1][b][g];
-        out[w][b][g] = keep + __shfl_xor_sync(lanes, send, mask);
-      }
-    }
-  }
-}
-
-// Lanes of this thread's warp that exist (the last warp of a CTA of 4u
-// threads may be partial); the shuffles name only those.
-__device__ __forceinline__ unsigned WarpLanes() {
-  const int n = static_cast<int>(blockDim.x) - (threadIdx.x & ~31);
-  return n >= 32 ? ~0u : (1u << n) - 1u;
-}
 
 // kWin windows a lane group (4u threads); ceil(bb / kWin) groups a CTA.
 template <int kGates, int kWin, bool kURegs, bool kBf16>

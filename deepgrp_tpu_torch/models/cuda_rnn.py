@@ -165,6 +165,28 @@ def avg_tile(cell: str, batch: int, units: int,
     return windows, -(-batch // windows)
 
 
+def seq_tile(rows: int, units: int, sms: int) -> Tuple[int, int]:
+    """``(rows a CTA, CTAs)`` of the GRU sequence kernel for ``rows`` rows
+    on ``sms`` SMs: :func:`block_windows` with the kernel's cap at this
+    width (16 rows up to u=128, 4 beyond: ``MaxRows`` in
+    ``csrc/rnn_seq.cu``)."""
+    rows_a_cta = block_windows(rows, sms, 16 if units <= 128 else 4)
+    return rows_a_cta, -(-rows // rows_a_cta)
+
+
+def seq_layout(units: int, rows_a_cta: int) -> Dict[str, object]:
+    """The layout the GRU sequence kernel launches at this width and tile:
+    rows a lane group, k-slices a unit and where ``U`` sits ("registers"
+    or "L1/L2"); raises ``ValueError`` for a shape the kernel refuses."""
+    lib = _build.load_kernels("rnn_seq")
+    out = (ctypes.c_int * 3)()
+    if lib.dg_gru_seq_layout(units, rows_a_cta, out) == 0:
+        raise ValueError(f"gru_seq refuses u={units} with {rows_a_cta} rows "
+                         "a CTA")
+    return {"rows_a_group": out[0], "slices": out[1],
+            "u_in": "registers" if out[2] else "L1/L2"}
+
+
 def gru_apply(params: RnnParams, x: torch.Tensor, *,
               dropout_rate: float = 0.0,
               dropout_key: Optional[object] = None
@@ -220,12 +242,14 @@ def _launch_seq(params: RnnParams,
     if batch == 0:
         return seq, last
     lib = _build.load_kernels("rnn_seq")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows_a_cta = seq_tile(batch, units, sms)[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dg_gru_seq(
             x.data_ptr(), batch, steps, channels,
             weights["kernel"].data_ptr(), weights["bias"].data_ptr(),
-            weights["recurrent"].data_ptr(), units,
+            weights["recurrent"].data_ptr(), units, rows_a_cta,
             int(x.dtype == torch.bfloat16), seq.data_ptr(), last.data_ptr(),
             ctypes.c_void_p(stream))
     _raise_on(lib, err, name, f"B={batch} T={steps} C={channels} u={units} "

@@ -24,10 +24,13 @@ at the CLI's default batch (256 windows: two a CTA), at u=96 and u=128
 (past the register tile) and at u=200 (two windows a CTA, 4u threads).
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
-(2048 rows, T=342, u=60), at u=128 (U at the edge of shared memory) and
-u=256 (U read through L2), and at ragged shapes; the bf16 variants of the
-fused kernels against their plain versions.  Tolerance in bfloat16: atol
-2e-2 (the plain version rounds as the kernel does; the outputs are bf16).
+(2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
+(either side of U in registers), u=128 (U through L1/L2), u=256 and
+u=512 (two k-slices a unit), u=1024 (one), and at ragged shapes; a second
+launch is bitwise equal to the first and u=1025 is refused.  The bf16
+variants of the fused kernels are held against their plain versions.
+Tolerance in bfloat16: atol 2e-2 (the plain version rounds as the kernel
+does; the outputs are bf16).
 """
 
 import os
@@ -332,12 +335,8 @@ def test_train_step_on_card_matches_cpu(device, rnn_type, attention):
 BF16_ATOL = 2e-2
 
 
-@pytest.mark.parametrize("dtype,batch,steps,units", [
-    (torch.float32, 2048, 342, 60), (torch.bfloat16, 2048, 342, 60),
-    (torch.float32, 2048, 342, 128), (torch.float32, 512, 342, 256),
-    (torch.bfloat16, 512, 342, 256), (torch.float32, 7, 23, 60),
-    (torch.bfloat16, 7, 23, 60), (torch.float32, 9, 1, 17)])
-def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
+def random_seq_case(batch, steps, units, dtype, device):
+    """GRU weights and a uniform random input ``x [B, T, 5]`` from a seed."""
     rng = np.random.default_rng(batch + steps + units)
     width = 3 * units
     params = {
@@ -349,6 +348,25 @@ def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
               for k, v in params.items()}
     x = torch.tensor(rng.random((batch, steps, 5)), dtype=torch.float32,
                      device=device).to(dtype)
+    return params, x
+
+
+@pytest.mark.parametrize("dtype,batch,steps,units", [
+    (torch.float32, 2048, 342, 60), (torch.bfloat16, 2048, 342, 60),
+    (torch.float32, 2048, 342, 128), (torch.float32, 512, 342, 256),
+    (torch.bfloat16, 512, 342, 256), (torch.float32, 7, 23, 60),
+    (torch.bfloat16, 7, 23, 60), (torch.float32, 9, 1, 17),
+    # The CLI's default batch (512 rows: 4 a CTA, a lane group of 4 rows).
+    (torch.float32, 512, 342, 60),
+    # 12 rows a CTA: the second lane group of 8 (u=64, U in registers) or
+    # the one group of 16 (u=65, through L1/L2) has rows past the CTA, and
+    # the last CTA holds one row.
+    (torch.float32, 1501, 50, 64), (torch.float32, 1501, 50, 65),
+    # Two slices a unit (u=512; u=256 above) and one (u=1024).
+    (torch.float32, 6, 40, 512), (torch.float32, 5, 20, 1024),
+    (torch.bfloat16, 5, 20, 1024), (torch.bfloat16, 2048, 342, 128)])
+def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
+    params, x = random_seq_case(batch, steps, units, dtype, device)
     launches = cuda_rnn.LAUNCHES.get("gru_seq")
     seq, last = cuda_rnn.gru_apply(params, x)
     torch.cuda.synchronize()
@@ -362,6 +380,46 @@ def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
                                rtol=0)
     torch.testing.assert_close(last.float(), want_last.float(), atol=atol,
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_seq_repeats_bitwise(device, dtype):
+    """Fixed-order sums and no atomics: a second launch equals the first
+    bit for bit (two lane groups, rows past the CTA and the batch)."""
+    params, x = random_seq_case(1501, 50, 60, dtype, device)
+    first = cuda_rnn.gru_apply(params, x)
+    second = cuda_rnn.gru_apply(params, x)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gru_seq_refuses_u1025(device):
+    """The sequence kernel takes u <= 1024 (one slice a unit, u threads):
+    u=1025 raises, naming the shape."""
+    params, x = random_seq_case(2, 3, 1025, torch.float32, device)
+    with pytest.raises(RuntimeError, match="u=1025"):
+        cuda_rnn.gru_apply(params, x)
+
+
+def test_gru_seq_layout(device):
+    """The layout the kernel launches by width and rows a CTA, and the
+    cap of :func:`cuda_rnn.seq_tile` is the kernel's own."""
+    cases = {(60, 16): (8, 4, "registers"), (60, 4): (4, 4, "registers"),
+             (64, 12): (8, 4, "registers"), (65, 12): (16, 4, "L1/L2"),
+             (128, 3): (4, 4, "L1/L2"), (129, 4): (4, 2, "L1/L2"),
+             (512, 1): (4, 2, "L1/L2"), (1024, 4): (4, 1, "L1/L2")}
+    for (units, rows), want in cases.items():
+        layout = cuda_rnn.seq_layout(units, rows)
+        assert (layout["rows_a_group"], layout["slices"],
+                layout["u_in"]) == want
+    for units in (60, 128, 129, 1024):
+        most = cuda_rnn.seq_tile(10 ** 6, units, 1)[0]
+        cuda_rnn.seq_layout(units, most)
+        with pytest.raises(ValueError):
+            cuda_rnn.seq_layout(units, most + 1)
+    with pytest.raises(ValueError):
+        cuda_rnn.seq_layout(1025, 1)
 
 
 @pytest.mark.parametrize("cell,batch,steps,units", [

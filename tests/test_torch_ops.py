@@ -8,6 +8,7 @@ work, and the overlap-max merge is a max (no rounding).
 import fcntl
 import io
 import math
+import os
 
 import numpy as np
 import pytest
@@ -34,18 +35,43 @@ S0 = math.log(0.99 / 0.01)
 
 
 def load_jax_native():
-    """Loads the JAX package's host library, building it at most once
-    across processes.  Its loader compiles straight into the library's path,
-    so a test worker that loads while another compiles reads a half-written
-    file, and every test of that worker that needs the library skips
-    (``tests/test_mss.py``, ``tests/test_encoding.py``).  An exclusive lock
-    on the loader's source file serialises the build."""
+    """Loads the JAX package's host library, building it at most once at a
+    time across processes, and recovers a worker whose loader gave up.
+
+    The loader compiles straight into the library's path, and once a load
+    fails it gives up for the life of the process (``_load_failed``).  So a
+    test worker that loaded while another compiled read a half-written
+    file, and every test of that worker that needs the library skipped
+    (``tests/test_mss.py``).  Under an exclusive lock on the loader's source
+    file, a worker without the library rebuilds it with the loader's own
+    command into a temporary file beside it, moves that into place (so no
+    process maps a half-written file), clears the loader's verdict and loads
+    again.  A worker whose load succeeded is left alone."""
     with open(jax_native.__file__, "rb") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
+            if (jax_native._lib is None
+                    and not os.environ.get("DEEPGRP_TPU_NO_NATIVE")):
+                _rebuild_jax_native()
             return jax_native.load()
         finally:
             fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def _rebuild_jax_native():
+    """Runs the loader's compile into a temporary file beside the library
+    (the loader writes to its module-level ``_LIB_PATH``), renames it over
+    the library and clears ``_load_failed``."""
+    lib_path = jax_native._LIB_PATH
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    jax_native._LIB_PATH = tmp
+    try:
+        built = jax_native._compile()
+    finally:
+        jax_native._LIB_PATH = lib_path
+    if built:
+        os.replace(tmp, lib_path)
+    jax_native._load_failed = False
 
 
 # Every test worker collects this module before it runs a test.

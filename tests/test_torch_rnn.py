@@ -129,3 +129,22 @@ def test_gru_avg_block_windows(batch, sms):
     if sms == 132:
         assert windows == {1024: 8, 64: 1, 1000: 8, 1: 1}[batch]
     assert cuda_rnn.block_windows(batch, sms, 2) == min(windows, 2)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows", [2048, 256, 7, 1])
+def test_gru_seq_tile(rows, sms):
+    """The GRU sequence kernel's tile: the fewest rows a CTA that keep the
+    grid within one wave, up to the kernel's cap (16 rows up to u=128, 4
+    beyond; then the fewest waves: 2048 rows need 18 a CTA on 114 SMs, so
+    16 and two waves).  The scan route's 2048 rows take 128 CTAs of 16 on
+    a 132-SM card, the shape of the fused kernel's tile at 8 windows."""
+    for units, most in ((60, 16), (128, 16), (129, 4), (1024, 4)):
+        rows_a_cta, n_cta = cuda_rnn.seq_tile(rows, units, sms)
+        assert 1 <= rows_a_cta <= most
+        assert n_cta == -(-rows // rows_a_cta)
+        assert n_cta <= sms or rows_a_cta == most
+        assert rows_a_cta == 1 or -(-rows // (rows_a_cta - 1)) > sms
+    if sms == 132:
+        assert cuda_rnn.seq_tile(rows, 60, sms) == {
+            2048: (16, 128), 256: (2, 128), 7: (1, 7), 1: (1, 1)}[rows]
