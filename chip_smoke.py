@@ -81,6 +81,35 @@ Phases (any failure exits non-zero; nothing is caught):
    ``lstm``; then ``--precision bfloat16`` (fused) on the 4.9 Mbp
    chromosome: windows/s, and agreement and MCC against phase 4 (recorded,
    not gated).
+10. ``predict -m`` (no MSS): on the three fixtures the card's BED rows must
+    equal the same call's with ``--device cpu``; on the 4.9 Mbp chromosome
+    ``engine.predict``'s row argmax and row max must equal
+    ``predict_scored``'s classes and max probability bit for bit, on the
+    fused and the scan route (seconds of the track and of the host softmax
+    printed); then the seconds and windows/s of ``-m`` beside the MSS
+    route's (MSS, -m, -m, MSS).
+11. The training scan route: on phase 7's synthetic chromosomes, one step
+    of ``gru_att`` and of the LSTM at u=60 (batch 256) through
+    ``forward_logits(..., train=True)`` (autograd through the plain loop,
+    no kernel) against the same step through the fused kernels on the
+    same windows, masks and parameters: loss to 1e-5, every gradient to
+    1e-4 of its largest magnitude; then ``train --rnn-kernel scan`` and
+    ``--rnn-kernel fused`` through the CLI (2 epochs of 3 steps), with
+    their steps/s.
+12. HPO on phase 7's chromosome pair, in the reference search space
+    (vecsize about 200, 34 units), each trial 2 epochs of 100 steps at
+    batch 256 (cut from the reference's 200 x 250): ``run_a_trial`` with 2
+    TPE evaluations, then 1 more (``results.pkl`` must resume to 3);
+    ``run_bucketed_sweep`` with 4 proposals a round, at the first seed
+    whose round puts two proposals in one shape bucket (a fleet).  Every
+    trial must be ``STATUS_OK`` with a finite loss, its logdir holding
+    ``hparams.json``, ``metrics.jsonl`` with ``hpo/MCC`` and an events
+    file, and every training step must have gone through the kernels.
+    Then one fleet step of 4 trials (one frozen) through the kernels
+    against the same step through the plain versions on the card (losses
+    to 1e-5, updated parameters to 1e-4 of their largest magnitude, the
+    frozen trial's bit for bit), the fleet's steps/s against one trial's
+    serial steps/s, and one fleet epoch's device time by kernel name.
 
 Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
@@ -90,6 +119,7 @@ not have run.  The line before the last lists each kernel
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -152,6 +182,12 @@ GRAD_RTOL = 1e-4  # max abs difference / largest magnitude of the gradient
 # dropout 0.0928; the reference's RMSprop defaults.
 FLAGSHIP = {"vecsize": 342, "units": 60, "attention": True,
             "dropout": 0.0928}
+# HPO trials: depth cut from the reference's 200 epochs x 250 steps.  At
+# the reference space's widths a trial needs about 80 steps on these
+# chromosomes before it predicts any repeat on chrValid; with fewer its
+# MCC is NaN and the trial fails by the reference's rule.  The
+# evaluation's window step is the CLI default.
+HPO_EPOCHS, HPO_STEPS, HPO_STEP_SIZE = 2, 100, 50
 
 
 def phase(name: str) -> None:
@@ -660,9 +696,10 @@ def write_training_files(np, tmp: str, seed: int = 7):
                                                               "repeats.bed")
 
 
-def run_train_cli(tmp: str, files, name: str, **options):
-    """``train ... --honor-toml`` through ``cli.main``; returns the model
-    path, the metrics records and the host seconds."""
+def run_train_cli(tmp: str, files, name: str, cli_args=(), **options):
+    """``train ... --honor-toml`` through ``cli.main`` (``cli_args``: global
+    flags before ``train``); returns the model path, the metrics records
+    and the host seconds."""
     from deepgrp_tpu_torch import cli
     from deepgrp_tpu_torch.config import Options
 
@@ -672,8 +709,8 @@ def run_train_cli(tmp: str, files, name: str, **options):
     logdir = os.path.join(tmp, f"{name}_log")
     model = os.path.join(tmp, f"{name}.npz")
     start = time.perf_counter()
-    cli.main(["-b", "256", "train", toml, *files, "--honor-toml",
-              "--logdir", logdir, "--modelfile", model])
+    cli.main(["-b", "256", *cli_args, "train", toml, *files,
+              "--honor-toml", "--logdir", logdir, "--modelfile", model])
     seconds = time.perf_counter() - start
     with open(os.path.join(logdir, "metrics.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
@@ -770,8 +807,6 @@ def train_breakdown_phase(torch, model_path: str, train_data, options,
     boundaries of each step (CUDA events), device time by kernel name
     (``torch.profiler``) and the idle share against the host clock; then
     one step through the kernels against the plain versions."""
-    from torch.profiler import ProfilerActivity, profile
-
     from deepgrp_tpu_torch.models import rnn
     from deepgrp_tpu_torch.models.keras_io import load_model
     from deepgrp_tpu_torch.models.model import (
@@ -842,31 +877,7 @@ def train_breakdown_phase(torch, model_path: str, train_data, options,
           + f"; backward share {100 * stage_ms['backward'] / total:.1f}%",
           flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        epoch()
-        torch.cuda.synchronize()
-    by_name = {}
-    for event in prof.events():
-        # User annotations (e.g. "Optimizer.step#RMSprop.step") mirrored
-        # on the device timeline span kernels counted on their own.
-        if (event.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(event, "is_user_annotation", False)):
-            by_name[event.name] = (by_name.get(event.name, 0.0)
-                                   + event.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(by_name.values())
-    if busy_ms == 0:
-        print("device time by kernel: not measured (the profiler saw no "
-              "device events)", flush=True)
-    else:
-        print(f"{label}: device busy {busy_ms:.2f} ms of the unprofiled "
-              f"epoch's "
-              f"{1e3 * wall:.2f} ms = {100 * busy_ms / (1e3 * wall):.1f}% "
-              f"(idle {100 - 100 * busy_ms / (1e3 * wall):.1f}%)",
-              flush=True)
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:90]}",
-                  flush=True)
+    print_device_time(label, device_time(torch, epoch), wall)
     step_parity(torch, model, *batch())
 
 
@@ -1231,6 +1242,417 @@ def scan_and_bf16_phase(torch, np, tmp: str, fixture_runs, mbp_run,
     return launches
 
 
+def no_mss_phase(torch, np, tmp: str, man: dict, mbp_args, seq: str):
+    """Phase 10: ``predict -m`` on the card against the CPU, the merged-
+    probability track against the scored route on the 4.9 Mbp chromosome,
+    and the seconds of ``-m`` beside the MSS route's."""
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
+    from deepgrp_tpu_torch.predict import postprocess
+    from deepgrp_tpu_torch.predict.engine import PredictionEngine
+
+    for name in ("gru_att", "gru", "lstm"):
+        args = REF_ARGS + ["predict", os.path.join(TORCH_FIXDIR,
+                                                   f"{name}.npz"),
+                           os.path.join(FIXDIR, f"{name}.fa"), "-m"]
+        reset_counts()
+        card = predict_rows(args, os.path.join(tmp, f"{name}_m.bed"))
+        check_path("lstm_avg" if name == "lstm" else "gru_avg")
+        cpu = predict_rows(["--device", "cpu"] + args,
+                           os.path.join(tmp, f"{name}_m_cpu.bed"))
+        print(f"{name} predict -m: {len(card)} rows on the card, "
+              f"{len(cpu)} with --device cpu, identical={card == cpu} "
+              f"(the MSS route: {len(expected_rows(name))} rows)",
+              flush=True)
+        if card != cpu or not card:
+            raise AssertionError(f"{name} predict -m: the card's BED rows "
+                                 "differ from the CPU's")
+
+    config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
+    model = DeepGRPModel.from_params(config, params)
+    codes = encode_codes_trimmed(seq)[1]
+    for route in ("fused", "scan"):
+        engine = PredictionEngine(model, batch_size=1024,
+                                  step_size=man["step_size"],
+                                  rnn_kernel=route)
+        reset_counts()
+        start = time.perf_counter()
+        track = engine.predict(codes)
+        predict_s = time.perf_counter() - start
+        check_path("gru_avg" if route == "fused" else "gru_seq")
+        start = time.perf_counter()
+        postprocess.softmax(track).argmax(axis=1)
+        softmax_s = time.perf_counter() - start
+        classes, maxp = engine.predict_scored(codes)
+        same_c = bool(np.array_equal(track.argmax(axis=1), classes))
+        same_p = bool(np.array_equal(track.max(axis=1), maxp))
+        print(f"mbp {route}: engine.predict track {track.shape} "
+              f"{track.dtype} in {predict_s:.4f} s (the copy to the host "
+              f"included), the host softmax + argmax {softmax_s:.4f} s; "
+              f"row argmax == predict_scored classes: {same_c}, row max == "
+              f"maxp: {same_p}", flush=True)
+        if not (same_c and same_p):
+            raise AssertionError(f"mbp {route}: the merged track disagrees "
+                                 "with the scored route")
+
+    for label, extra in (("MSS", []), ("-m", ["-m"]), ("-m", ["-m"]),
+                         ("MSS", [])):
+        reset_counts()
+        start = time.perf_counter()
+        rows = predict_rows(mbp_args + extra,
+                            os.path.join(tmp, "mbp_route.bed"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        check_path("gru_avg")
+        print(f"mbp predict {label}: {seconds:.4f} s = "
+              f"{man['n_windows'] / seconds:.1f} windows/s; {len(rows)} "
+              f"rows", flush=True)
+
+
+def scan_training_phase(torch, np, tmp: str):
+    """Phase 11: one step of the training scan route against one through
+    the fused kernels at full width (gru_att, and LSTM at u=60), then
+    ``train --rnn-kernel scan`` through the CLI beside the fused route."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                                init_params)
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+    from deepgrp_tpu_torch.train.training import step_loss
+
+    files = write_training_files(np, tmp)
+    for label, overrides in (("gru_att", {}),
+                             ("lstm", {"rnn": "LSTM", "attention": False})):
+        options = Options(batch_size=256, **{**FLAGSHIP, **overrides})
+        config = ModelConfig.from_options(options)
+        model = DeepGRPModel.from_params(
+            config, init_params(config, torch.Generator().manual_seed(5)))
+        sampler = BatchSampler(options, load_training_data(
+            np, files[0], files[2], options), model.device)
+        gen = torch.Generator(device=model.device).manual_seed(13)
+        codes, labels = sampler.batch(gen)
+        masks = rnn.input_dropout_masks(gen, 2 * sampler.batch_size,
+                                        config.dropout, config.gates)
+        runs = {}
+        for fused in (True, False, True, False):
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = step_loss(model, codes, labels, masks, fused)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = (cuda_rnn.LAUNCHES.snapshot(),
+                      rnn.PLAIN_CALLS.snapshot())
+            runs[fused] = (loss.item(), grads, seconds, counts)
+        cell = "lstm" if label == "lstm" else "gru"
+        want = {f"{cell}_train_fwd": 1, f"{cell}_train_bwd": 1}
+        if runs[True][3] != (want, {}) or runs[False][3] != ({}, {}):
+            raise AssertionError(f"{label}: launches (kernels, plain) of "
+                                 f"the fused step {runs[True][3]}, of the "
+                                 f"scan step {runs[False][3]}")
+        loss_err = abs(runs[True][0] - runs[False][0])
+        rel = {name: (a - b).abs().max().item() / b.abs().max().item()
+               for (name, _), a, b in zip(model.named_parameters(),
+                                          runs[False][1], runs[True][1])}
+        print(f"{label} one step, scan route vs fused kernels: loss "
+              f"{runs[False][0]:.6f} vs {runs[True][0]:.6f} (diff "
+              f"{loss_err:.3g}); gradient max abs diff / largest magnitude: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+              + f"; step seconds (forward + backward, second of two): scan "
+              f"{runs[False][2]:.4f}, fused {runs[True][2]:.4f}",
+              flush=True)
+        if not loss_err <= TOL:
+            raise AssertionError(f"{label}: scan-route loss differs by "
+                                 f"{loss_err}")
+        if not max(rel.values()) <= GRAD_RTOL:
+            raise AssertionError(f"{label}: scan-route gradients differ: "
+                                 f"{rel}")
+
+    epochs, steps = 2, 3
+    for route in ("scan", "fused"):
+        reset_counts()
+        _, records, seconds = run_train_cli(
+            tmp, files, f"gru_att_{route}", cli_args=("--rnn-kernel", route),
+            n_epochs=epochs, n_batches=steps, **FLAGSHIP)
+        trained = 0 if route == "scan" else epochs * steps
+        check_counts({"gru_train_fwd": trained, "gru_train_bwd": trained,
+                      "gru_seq": 0, "gru_avg": epochs})
+        if len(records) != epochs or not all(
+                math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"train --rnn-kernel {route}: {records}")
+        print(f"gru_att train --rnn-kernel {route}: {seconds:.3f} s for "
+              f"{epochs} x {steps} steps; losses "
+              f"{[r['loss'] for r in records]}; steps/s of epoch 2 "
+              f"(its validation included) "
+              f"{steps / records[-1]['epoch_seconds']:.2f}", flush=True)
+
+
+@contextlib.contextmanager
+def plain_training(torch):
+    """The training recurrence through its plain versions on the card
+    (``cuda_rnn.avg_train`` swapped for :func:`plain_avg_train`)."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    saved = cuda_rnn.avg_train
+
+    def avg_train(cell, params, codes, masks):
+        return plain_avg_train(torch, cell).apply(
+            params["kernel"], params["recurrent"], params["bias"], codes,
+            masks)
+
+    cuda_rnn.avg_train = avg_train
+    try:
+        yield
+    finally:
+        cuda_rnn.avg_train = saved
+
+
+def device_time(torch, fn):
+    """Device time by kernel name (ms) of ``fn()`` under
+    ``torch.profiler``; user annotations mirrored on the device timeline
+    (e.g. ``Optimizer.step#RMSprop.step``) span kernels counted on their
+    own and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for event in prof.events():
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(event, "is_user_annotation", False)):
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.time_range.elapsed_us() / 1e3)
+    return by_name
+
+
+def print_device_time(label: str, by_name: dict, wall: float) -> None:
+    busy_ms = sum(by_name.values())
+    if busy_ms == 0:
+        print("device time by kernel: not measured (the profiler saw no "
+              "device events)", flush=True)
+        return
+    print(f"{label}: device busy {busy_ms:.2f} ms of the unprofiled "
+          f"epoch's {1e3 * wall:.2f} ms = {100 * busy_ms / (1e3 * wall):.1f}% "
+          f"(idle {100 - 100 * busy_ms / (1e3 * wall):.1f}%)", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:90]}",
+              flush=True)
+
+
+def check_trials(trials, label: str) -> None:
+    """Every trial ``STATUS_OK`` with a finite loss, and its logdir holds
+    ``hparams.json``, ``metrics.jsonl`` with ``hpo/MCC`` and an events
+    file."""
+    from deepgrp_tpu_torch.hpo import STATUS_OK
+
+    for trial in trials.trials:
+        result = trial["result"]
+        shown = {k: (round(v, 5) if isinstance(v, float) else v)
+                 for k, v in trial["params"].items()}
+        print(f"  {label}: {shown} -> {result['status']}, loss "
+              f"{result['loss']}, error {result['error']!r}", flush=True)
+        if result["status"] != STATUS_OK or not math.isfinite(
+                result["loss"]):
+            raise AssertionError(f"{label}: a trial failed: {result}")
+        logdir = result["logdir"]
+        names = os.listdir(logdir)
+        with open(os.path.join(logdir, "metrics.jsonl")) as fh:
+            mccs = [json.loads(line) for line in fh]
+        if ("hparams.json" not in names
+                or not any("hpo/MCC" in r for r in mccs)
+                or not any(n.startswith("events.out.tfevents")
+                           for n in names)):
+            raise AssertionError(f"{label}: logdir {logdir} holds {names}")
+
+
+def hpo_phase(torch, np, tmp: str):
+    """Phase 12: the TPE sweep (serial trials with resume), the shape-
+    bucketed sweep with a fleet, one fleet step against its plain
+    versions, and the fleet's speed and device time."""
+    import pickle
+
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.hpo import (run_a_trial, run_bucketed_sweep,
+                                       space, tpe, vmapped)
+    from deepgrp_tpu_torch.hpo.bucketed import _group_by_bucket
+    from deepgrp_tpu_torch.hpo.optimization import build_and_optimize
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                                init_params)
+    from deepgrp_tpu_torch.train.optimizers import (fleet_optimizer,
+                                                    get_optimizer)
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+    from deepgrp_tpu_torch.train.training import train_step
+
+    train_npz, val_npz, bed = write_training_files(np, tmp)
+    base = dict(batch_size=256, n_epochs=HPO_EPOCHS, n_batches=HPO_STEPS)
+    probe = Options(**base)
+    train_data = load_training_data(np, train_npz, bed, probe)
+    val_data = load_training_data(np, val_npz, bed, probe)
+    ref_space = space.reference_search_space()
+    print(f"reference search space, each trial {HPO_EPOCHS} epochs x "
+          f"{HPO_STEPS} steps at batch 256 (the reference's 200 x 250); "
+          f"evaluation on chrValid ({val_data.fwd.shape[1]} bp) at step "
+          f"{HPO_STEP_SIZE}", flush=True)
+
+    serial_root = os.path.join(tmp, "serial")
+    os.makedirs(serial_root)
+
+    def objective(trial):
+        options = Options(**base, project_root_dir=serial_root)
+        return build_and_optimize(train_data, val_data, HPO_STEP_SIZE,
+                                  options, trial)
+
+    reset_counts()
+    start = time.perf_counter()
+    first = run_a_trial(ref_space, objective, serial_root, 2, seed=0)
+    total = run_a_trial(ref_space, objective, serial_root, 1, seed=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    with open(os.path.join(serial_root, "results.pkl"), "rb") as fh:
+        trials = pickle.load(fh)
+    print(f"run_a_trial: {first} trials, resumed to {total} "
+          f"(results.pkl: {len(trials)}); {seconds:.3f} s = "
+          f"{seconds / total:.3f} s a serial trial", flush=True)
+    if (first, total, len(trials)) != (2, 3, 3):
+        raise AssertionError("results.pkl did not resume to 3 trials")
+    check_trials(trials, "serial")
+    check_counts({"gru_train_fwd": total * HPO_EPOCHS * HPO_STEPS,
+                  "gru_train_bwd": total * HPO_EPOCHS * HPO_STEPS})
+
+    # The first seed whose first round (4 startup proposals) puts two or
+    # more of them in one shape bucket, so that a fleet trains.
+    options = Options(**base)
+    for seed in range(1 << 16):
+        rng = np.random.default_rng(seed)
+        proposals = [tpe.suggest(ref_space, tpe.Trials(), rng)
+                     for _ in range(4)]
+        buckets = _group_by_bucket(options, proposals)
+        if max(len(v) for v in buckets.values()) >= 2:
+            break
+    bucket_root = os.path.join(tmp, "bucketed")
+    os.makedirs(bucket_root)
+    reset_counts()
+    start = time.perf_counter()
+    trials = run_bucketed_sweep(
+        ref_space, Options(**base, project_root_dir=bucket_root),
+        train_data, val_data, HPO_STEP_SIZE, bucket_root, max_evals=4,
+        batch_evals=4, seed=seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    sizes = {key: len(members) for key, members in sorted(buckets.items())}
+    print(f"run_bucketed_sweep (seed {seed}): {len(trials)} trials in "
+          f"buckets (vecsize, units, one_class_size): trials {sizes}; "
+          f"{seconds:.3f} s", flush=True)
+    check_trials(trials, "bucketed")
+    check_counts({"gru_train_fwd": 4 * HPO_EPOCHS * HPO_STEPS,
+                  "gru_train_bwd": 4 * HPO_EPOCHS * HPO_STEPS})
+
+    # One fleet step through the kernels against the plain versions.
+    fleet_options = Options(**base, vecsize=200, units=34)
+    config = ModelConfig.from_options(fleet_options)
+    hp = vmapped.stack_trial_hyperparams(
+        fleet_options, [{k: p[k] for k in vmapped.VARYING_KEYS if k in p}
+                        for p in proposals])
+    n_trials = len(proposals)
+    trial_hp = [vmapped.trial_hyperparams(hp, i) for i in range(n_trials)]
+    initial = [init_params(config, torch.Generator().manual_seed(i))
+               for i in range(n_trials)]
+    sampler = BatchSampler(fleet_options, train_data, "cuda")
+    rows = 2 * sampler.batch_size
+    generators = [torch.Generator(device="cuda").manual_seed(100 + i)
+                  for i in range(n_trials)]
+
+    def batch(i):
+        codes, labels = sampler.batch(generators[i])
+        rate = trial_hp[i]["dropout"]
+        masks = (rnn.input_dropout_masks(generators[i], rows, rate,
+                                         config.gates)
+                 if rate > 0.0 else None)
+        return codes, labels, masks
+
+    def fleet():
+        models = [DeepGRPModel.from_params(config, p) for p in initial]
+        return models, fleet_optimizer(
+            str(fleet_options.optimizer),
+            [(m.parameters(), trial_hp[i]) for i, m in enumerate(models)])
+
+    batches = [batch(i) for i in range(n_trials)]
+    active = [i != 1 for i in range(n_trials)]
+    runs = {}
+    for plain in (False, True):
+        models, optimizer = fleet()
+        reset_counts()
+        if plain:
+            with plain_training(torch):
+                losses = vmapped.fleet_step(models, optimizer, batches,
+                                            active)
+        else:
+            losses = vmapped.fleet_step(models, optimizer, batches, active)
+            check_counts({"gru_train_fwd": n_trials - 1,
+                          "gru_train_bwd": n_trials - 1})
+        runs[plain] = ([None if l is None else l.item() for l in losses],
+                       [m.params() for m in models])
+    loss_err = max(abs(a - b) for a, b in zip(runs[False][0], runs[True][0])
+                   if a is not None)
+    rel = max((a[k] - b[k]).abs().max().item() / b[k].abs().max().item()
+              for i, (a, b) in enumerate(zip(runs[False][1], runs[True][1]))
+              if active[i] for k in b)
+    frozen = all(torch.equal(runs[False][1][1][k].cpu(), v)
+                 for k, v in initial[1].items())
+    print(f"one fleet step of {n_trials} trials (trial 1 frozen), kernels "
+          f"vs plain versions: losses {runs[False][0]} vs {runs[True][0]} "
+          f"(largest diff {loss_err:.3g}); updated parameters' max abs diff "
+          f"/ largest magnitude {rel:.3g}; frozen trial unchanged bit for "
+          f"bit: {frozen}", flush=True)
+    if not (loss_err <= TOL and rel <= GRAD_RTOL and frozen):
+        raise AssertionError("the fleet step through the kernels differs "
+                             "from its plain versions")
+
+    # Fleet speed: HPO_STEPS fleet steps of all trials against as many
+    # serial steps of one, and the device time of a fleet epoch.
+    models, optimizer = fleet()
+    every = [True] * n_trials
+
+    def fleet_epoch():
+        for _ in range(HPO_STEPS):
+            vmapped.fleet_step(models, optimizer,
+                               [batch(i) for i in range(n_trials)], every)
+
+    serial = DeepGRPModel.from_params(config, initial[0])
+    serial_opt = get_optimizer(fleet_options, serial.parameters())
+
+    def serial_epoch():
+        for _ in range(HPO_STEPS):
+            train_step(serial, serial_opt, *batch(0))
+
+    walls = {}
+    for name, fn in (("fleet", fleet_epoch), ("serial", serial_epoch)):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - start
+    fleet_rate = HPO_STEPS / walls["fleet"]
+    serial_rate = HPO_STEPS / walls["serial"]
+    print(f"fleet of {n_trials} (vecsize 200, u=34, batch 256): "
+          f"{fleet_rate:.2f} fleet steps/s = {n_trials * fleet_rate:.2f} "
+          f"trial steps/s; one trial alone: {serial_rate:.2f} steps/s; "
+          f"{n_trials} serial steps take {n_trials / serial_rate:.4f} s, a "
+          f"fleet step {1 / fleet_rate:.4f} s", flush=True)
+    reset_counts()
+    by_name = device_time(torch, fleet_epoch)
+    print(f"  fleet epoch launches={cuda_rnn.LAUNCHES.snapshot()} "
+          f"plain_calls={rnn.PLAIN_CALLS.snapshot()}", flush=True)
+    print_device_time(f"fleet epoch ({HPO_STEPS} steps)", by_name,
+                      walls["fleet"])
+
+
 def main() -> int:
     import torch
 
@@ -1338,6 +1760,20 @@ def main() -> int:
         phase("9. the scan route and the bfloat16 fast mode")
         launches.update(scan_and_bf16_phase(torch, np, tmp, fixture_runs,
                                             mbp_run, man, mbp_args))
+
+        phase("10. predict -m (no MSS): fixtures against the CPU, the "
+              "merged track on 4.9 Mbp")
+        no_mss_phase(torch, np, tmp, man, mbp_args, seq)
+
+    with tempfile.TemporaryDirectory() as train_tmp:
+        phase("11. the training scan route: one step against the fused "
+              "kernels (gru_att, lstm u=60), then train --rnn-kernel scan")
+        scan_training_phase(torch, np, train_tmp)
+
+    with tempfile.TemporaryDirectory() as hpo_tmp:
+        phase(f"12. HPO: TPE trials with resume, the bucketed sweep, the "
+              f"fleet ({HPO_EPOCHS} x {HPO_STEPS} steps a trial)")
+        hpo_phase(torch, np, hpo_tmp)
 
     kernels = []
     sources = {**{name: ("rnn_avg.cu", replaces)

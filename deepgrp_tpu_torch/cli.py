@@ -7,7 +7,9 @@ Counterpart of the ``predict`` and ``train`` commands of
 with the same defaults.
 
 ``predict`` takes ``vecsize`` from the model file and writes one
-``filename\\theader\\tstart\\tend\\tlabel`` row per segment with label > 0.
+``filename\\theader\\tstart\\tend\\tlabel`` row per segment with label > 0;
+``--no_use_mss/-m`` labels each position with the argmax of the merged
+probabilities' softmax instead of the MSS labelling.
 
 ``train PARAMS.toml TRAIN.npz VAL.npz BED`` trains on the one-hot ``fwd``
 arrays of the two ``.npz`` files, labelled from the BED rows of the
@@ -20,10 +22,12 @@ fall back to their defaults, unless ``--honor-toml`` is given.
 ``--device`` picks the device (default ``cuda``; with no GPU the command
 fails rather than running on the CPU).  ``--precision bfloat16`` is the
 fast mode of ``predict`` (float32 is the parity mode).  ``--rnn-kernel``
-picks the engine's route: ``fused`` (the fused fwd+revcomp recurrence
-kernel on the codes), ``scan`` (one-hot windows through the model's
-one-hot route) or ``auto`` (fused, on every device).  ``train`` has only
-the fused route.
+picks the route of ``predict`` and ``train``: ``fused`` (the fused
+fwd+revcomp recurrence kernels on the codes), ``scan`` (one-hot windows
+through the model's one-hot route; in training a plain loop differentiated
+by autograd) or ``auto`` (fused, on every device).  ``train
+--tensorboard`` (the default) writes TensorBoard event files beside
+``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -96,6 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--honor-toml", action="store_true",
                        help="Let TOML values win over CLI defaults (the "
                        "reference overwrites TOML with defaults)")
+    train.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
+                       default=True,
+                       help="Write TensorBoard event files next to "
+                       "metrics.jsonl (reference parity: always on, "
+                       "training.py:40-45)")
     predict = subparsers.add_parser(
         name="predict",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -107,6 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
                          help="Fasta input files ('-' for stdin)")
     predict.add_argument("--output", type=str, default="-",
                          help="Output filename")
+    predict.add_argument("--no_use_mss", "-m", action="store_true",
+                         help="Disable maximum scoring segment algorithm")
     return parser
 
 
@@ -145,8 +156,9 @@ def cmd_predict(args: argparse.Namespace) -> None:
             try:
                 for header, dnasequence in read_multi_fasta(filestream):
                     startpos, codes = encode_codes_trimmed(dnasequence)
-                    classes = predict_sequence(engine, codes, options,
-                                               threads=args.threads)
+                    classes = predict_sequence(
+                        engine, codes, options, threads=args.threads,
+                        use_mss=not args.no_use_mss)
                     for segment in yield_segments(classes, startpos):
                         if segment[2] > 0:
                             outstream.write("{}\t{}\t{}\t{}\t{}\n".format(
@@ -173,11 +185,6 @@ def cmd_train(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "writing Keras .h5 model files is not yet ported (ROADMAP.md "
             "queue 1, item 13); write a .npz model instead")
-    if args.rnn_kernel == "scan":
-        raise NotImplementedError(
-            "train --rnn-kernel scan (the training scan route, dropout "
-            "through forward_logits) is not yet ported (ROADMAP.md queue 1, "
-            "item 14); use --rnn-kernel fused or auto")
     device = resolve_device(args.device)
     with open(args.parameter) as file:
         parameter = Options.from_toml(file)
@@ -213,7 +220,8 @@ def cmd_train(args: argparse.Namespace) -> None:
     model = DeepGRPModel(ModelConfig.from_options(parameter), device)
     _LOG.info("Training model on %s", device)
     best_params, _ = training((data[0], data[1]), parameter, model,
-                              args.logdir)
+                              args.logdir, tensorboard=args.tensorboard,
+                              rnn_kernel=args.rnn_kernel)
     _LOG.info("Saving model as %s", args.modelfile)
     save_model_npz(args.modelfile, model.config, best_params)
 

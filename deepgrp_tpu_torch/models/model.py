@@ -6,7 +6,7 @@ Counterpart of ``deepgrp_tpu/models/model.py``: the fused paths
 one-hot route (``forward`` / ``forward_logits`` / ``DeepGRPModel.apply``
 over one-hot windows ``x [B, T, 5]``: one recurrence over the doubled
 batch ``[x, reverse_complement(x)]``, then the branch average and the same
-head)::
+head; ``forward_logits(..., train=True)`` is its training form)::
 
     codes [B, T]
       ├─ fused fwd + reverse-complement recurrence with branch averaging
@@ -36,6 +36,7 @@ in bfloat16.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import asdict, dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
@@ -50,6 +51,8 @@ RnnApply = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 # DNA complement channel permutation: A<->T, C<->G, N<->N (encoding A=0
 # C=1 G=2 T=3 N=4).
 COMPLEMENT_PERM = (3, 2, 1, 0, 4)
+# The code of a position that selects no input row (all-zero one-hot row).
+PAD_CODE = 5
 
 
 @dataclass(frozen=True)
@@ -192,11 +195,22 @@ def reverse_complement(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_logits(params: Params, x: torch.Tensor, config: ModelConfig,
-                   rnn_apply: Optional[RnnApply] = None) -> torch.Tensor:
+                   rnn_apply: Optional[RnnApply] = None,
+                   masks: Optional[torch.Tensor] = None,
+                   train: bool = False) -> torch.Tensor:
     """One-hot windows ``x [B, T, 5]`` -> logits ``[B, T, n_classes]``
-    (``model.py:147-172``, inference: no dropout).
+    (``model.py:147-172``).
 
-    ``x`` is float32, or bfloat16 for the fast mode: then every parameter
+    ``train=True`` is the training form (the JAX package's scan route under
+    ``jax.grad``): the recurrence is :func:`~deepgrp_tpu_torch.models.rnn.
+    gru_train_apply` / ``lstm_train_apply`` (the plain loop, differentiated
+    by autograd), with Keras input dropout from ``masks [g, 2B, 5]`` over
+    the doubled batch (rows ``0..B-1`` forward, ``B..2B-1`` reverse
+    complement), or none for ``masks=None`` (the JAX ``deterministic``
+    form).  ``x`` is then float32, and ``rnn_apply`` is not given.
+
+    Otherwise it is the inference form, without masks.  ``x`` is float32,
+    or bfloat16 for the fast mode: then every parameter
     is cast to bfloat16 (as the JAX engine casts them,
     ``engine.py:102-103``) and the head runs in bfloat16.  ``rnn_apply``
     overrides the recurrence (signature of
@@ -213,7 +227,17 @@ def forward_logits(params: Params, x: torch.Tensor, config: ModelConfig,
     input, so it has none.
     """
     batch = x.shape[0]
-    if rnn_apply is None:
+    if x.is_cuda:
+        require_full_f32_matmul()  # the recurrence's dots too
+    if train:
+        if rnn_apply is not None:
+            raise ValueError("train=True takes its own recurrence")
+        train_apply = (rnn.lstm_train_apply if config.rnn == "LSTM"
+                       else rnn.gru_train_apply)
+        rnn_apply = functools.partial(train_apply, masks=masks)
+    elif masks is not None:
+        raise ValueError("dropout masks are a training input (train=True)")
+    elif rnn_apply is None:
         rnn_apply = (rnn.lstm_apply if config.rnn == "LSTM"
                      else cuda_rnn.gru_apply)
     params = _cast(params, x.dtype)
@@ -273,6 +297,31 @@ def forward_logits_from_codes_train(params: Params, codes: torch.Tensor,
     cell = "lstm" if config.rnn == "LSTM" else "gru"
     avg, hidden = cuda_rnn.avg_train(cell, _rnn_params(params), codes, masks)
     return head_logits(params, avg, hidden, config)
+
+
+def resolve_rnn_kernel(mode: str) -> bool:
+    """Whether a route is the fused one (``engine.py:587-609``,
+    ``training.py:233-253``).
+
+    ``"fused"`` and ``"scan"`` force a route; ``"auto"`` is the fused
+    route on every device, for predict and train.  The JAX package's
+    ``auto`` keeps the scan off the TPU because its fused kernel would run
+    in the slow Pallas interpreter there; the port's fused route on the CPU
+    runs the exact plain version of the kernel instead, so ``auto`` keeps
+    the route the port has taken since it began, on the card and on the
+    CPU.
+    """
+    if mode not in ("auto", "scan", "fused"):
+        raise ValueError(f"rnn_kernel must be auto|scan|fused, got {mode!r}")
+    return mode != "scan"
+
+
+def one_hot(codes: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Code windows ``[B, T]`` -> one-hot ``[B, T, 5]`` in ``dtype``; pad
+    code 5 gives the all-zero row (``engine.py:67-70``; the one-hot
+    sequence's hard-masked columns)."""
+    eye = torch.eye(PAD_CODE + 1, dtype=dtype, device=codes.device)
+    return eye[codes.long()][..., :PAD_CODE]
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -342,12 +391,15 @@ class DeepGRPModel(nn.Module):
         ``nn.Module.apply``, which this model does not use.)"""
         return forward(self.params(), x, self.config, rnn_apply)
 
-    @torch.no_grad()
     def apply_logits(self, x: torch.Tensor,
-                     rnn_apply: Optional[RnnApply] = None) -> torch.Tensor:
+                     rnn_apply: Optional[RnnApply] = None,
+                     masks: Optional[torch.Tensor] = None,
+                     train: bool = False) -> torch.Tensor:
         """Logits for one-hot windows ``x [B, T, 5]`` (:func:`
-        forward_logits`)."""
-        return forward_logits(self.params(), x, self.config, rnn_apply)
+        forward_logits`); autograd records only the training form."""
+        with torch.set_grad_enabled(train):
+            return forward_logits(self.params(), x, self.config, rnn_apply,
+                                  masks, train)
 
     def forward(self, codes: torch.Tensor) -> torch.Tensor:
         return self.forward_probs_from_codes(codes)

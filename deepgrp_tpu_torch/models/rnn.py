@@ -18,6 +18,8 @@ held against on the card.
 package (``deepgrp_tpu/models/rnn.py``) over a float input ``x [B, T, I]``
 with a real input dot ``x W + b``; ``gru_apply`` is also the plain version
 of the ``csrc/rnn_seq.cu`` kernel (``pallas_gru_apply``).
+``gru_train_apply`` and ``lstm_train_apply`` are the same recurrences for
+training, with per-gate input dropout masks, differentiated by autograd.
 
 Precision.  In float32 every product and sum is float32 (the JAX
 package's ``Precision.HIGHEST``).  The bfloat16 fast mode follows the TPU's
@@ -198,21 +200,37 @@ def gru_apply(params: RnnParams,
     """
     PLAIN_CALLS.add("gru_seq")
     dtype = _io_dtype(x)
-    recurrent = _round_to(params["recurrent"].to(torch.float32), dtype)
-    units = recurrent.shape[0]
     bias = params["bias"].to(torch.float32)
-    xp = _seq_projection(params, x, bias[0])
-    h = xp.new_zeros(x.shape[0], units)
-    seq = xp.new_empty(x.shape[0], x.shape[1], units)
-    for t in range(x.shape[1]):
+    return _gru_steps(_seq_projection(params, x, bias[0]),
+                      params["recurrent"].to(torch.float32), bias[1], dtype)
+
+
+def _gru_steps(xp: torch.Tensor, recurrent: torch.Tensor,
+               bias_rec: torch.Tensor, dtype: torch.dtype
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GRU's loop over T from the input projections ``xp [B, T, 3u]``
+    (float32); ``h`` and ``recurrent`` enter the dot at ``dtype``'s
+    precision.  Returns ``(seq, last)`` in ``dtype``."""
+    recurrent = _round_to(recurrent, dtype)
+    units = recurrent.shape[0]
+    h = xp.new_zeros(xp.shape[0], units)
+    states = []
+    for t in range(xp.shape[1]):
         xt = xp[:, t]
-        rp = _round_to(h, dtype) @ recurrent + bias[1]
+        rp = _round_to(h, dtype) @ recurrent + bias_rec
         z = torch.sigmoid(xt[:, :units] + rp[:, :units])
         r = torch.sigmoid(xt[:, units:2 * units] + rp[:, units:2 * units])
         hh = torch.tanh(xt[:, 2 * units:] + r * rp[:, 2 * units:])
         h = z * h + (1.0 - z) * hh
-        seq[:, t] = h
-    return seq.to(dtype), h.to(dtype)
+        states.append(h)
+    return _stack_states(states, xp, units).to(dtype), h.to(dtype)
+
+
+def _stack_states(states, xp: torch.Tensor, units: int) -> torch.Tensor:
+    """The per-step states as ``[B, T, u]`` (empty for ``T = 0``)."""
+    if not states:
+        return xp.new_empty(xp.shape[0], 0, units)
+    return torch.stack(states, dim=1)
 
 
 def lstm_apply(params: RnnParams,
@@ -228,13 +246,20 @@ def lstm_apply(params: RnnParams,
         ``(seq [B, T, u], last [B, u])`` in ``x``'s dtype.
     """
     dtype = _io_dtype(x)
-    recurrent = _round_to(params["recurrent"].to(torch.float32), dtype)
+    return _lstm_steps(_seq_projection(params, x, params["bias"]),
+                       params["recurrent"].to(torch.float32), dtype)
+
+
+def _lstm_steps(xp: torch.Tensor, recurrent: torch.Tensor,
+                dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM's loop over T from ``xp [B, T, 4u]`` (the bias included);
+    as :func:`_gru_steps`."""
+    recurrent = _round_to(recurrent, dtype)
     units = recurrent.shape[0]
-    xp = _seq_projection(params, x, params["bias"])
-    h = xp.new_zeros(x.shape[0], units)
-    c = xp.new_zeros(x.shape[0], units)
-    seq = xp.new_empty(x.shape[0], x.shape[1], units)
-    for t in range(x.shape[1]):
+    h = xp.new_zeros(xp.shape[0], units)
+    c = xp.new_zeros(xp.shape[0], units)
+    states = []
+    for t in range(xp.shape[1]):
         gates = xp[:, t] + _round_to(h, dtype) @ recurrent
         i = torch.sigmoid(gates[:, :units])
         f = torch.sigmoid(gates[:, units:2 * units])
@@ -242,8 +267,48 @@ def lstm_apply(params: RnnParams,
         o = torch.sigmoid(gates[:, 3 * units:])
         c = f * c + i * g
         h = o * torch.tanh(c)
-        seq[:, t] = h
-    return seq.to(dtype), h.to(dtype)
+        states.append(h)
+    return _stack_states(states, xp, units).to(dtype), h.to(dtype)
+
+
+# -- trainable one-hot recurrences (the JAX package's scan route) -----------
+
+
+def _masked_projection(kernel: torch.Tensor, bias_in: torch.Tensor,
+                       x: torch.Tensor,
+                       masks: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x W + b`` for every step with Keras input dropout: gate ``g``'s
+    columns take ``(x * masks[g]) @ W_g`` (``rnn.py:109-118``, ``masks [g,
+    B, I]`` shared over T); ``None``: ``x W + b``."""
+    if masks is None:
+        return x @ kernel + bias_in
+    units = kernel.shape[1] // masks.shape[0]
+    projs = [(x * mask[:, None, :]) @ kernel[:, g * units:(g + 1) * units]
+             for g, mask in enumerate(masks)]
+    return torch.cat(projs, dim=-1) + bias_in
+
+
+def gru_train_apply(params: RnnParams, x: torch.Tensor,
+                    masks: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GRU over a float32 input ``x [B, T, I]`` for training, with
+    input dropout ``masks [3, B, I]`` (or ``None``): the JAX package's
+    ``gru_apply`` under ``jax.grad`` (``rnn.py:77-133``).  The plain loop,
+    differentiated by autograd on every device: the JAX package runs it as
+    XLA's scan, and no TPU kernel has its backward (``gru_seq`` is
+    inference-only).  Returns ``(seq [B, T, u], last [B, u])``."""
+    bias = params["bias"]
+    xp = _masked_projection(params["kernel"], bias[0], x, masks)
+    return _gru_steps(xp, params["recurrent"], bias[1], torch.float32)
+
+
+def lstm_train_apply(params: RnnParams, x: torch.Tensor,
+                     masks: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM counterpart of :func:`gru_train_apply` (``rnn.py:136-182``,
+    ``masks [4, B, I]``)."""
+    xp = _masked_projection(params["kernel"], params["bias"], x, masks)
+    return _lstm_steps(xp, params["recurrent"], torch.float32)
 
 
 # -- initialisation and dropout ---------------------------------------------

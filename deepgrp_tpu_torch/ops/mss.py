@@ -1,8 +1,9 @@
 """Maximum scoring segment (Ruzzo–Tompa) labelling, host side.
 
-Counterpart of ``find_mss_classes`` in ``deepgrp_tpu/ops/mss.py`` (parity
-with the reference DeepGRP's ``find_mss_labels``, ``_mss/pymss.pyx:16-80``,
-over ``mss_find_all``, ``_mss/mss.c:50-101``): the same score constants
+Counterpart of ``find_mss_classes`` and ``find_mss_labels`` in
+``deepgrp_tpu/ops/mss.py`` (parity with the reference DeepGRP's
+``find_mss_labels``, ``_mss/pymss.pyx:16-80``, over ``mss_find_all``,
+``_mss/mss.c:50-101``): the same score constants
 (s0 = logit(0.99), min_sc = s0*min_mss_len, xdrop = s0*xdrop_len*10 or
 disabled), the same integer truncation of the minimum-score threshold, the
 same majority-vote labelling quirks (ties keep the lowest class, in-segment
@@ -66,6 +67,18 @@ def find_mss_classes(scores: np.ndarray, labels: np.ndarray,
         scores.size, nof_labels, min_mss_len, xdrop_len, threads,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     return out
+
+
+def find_mss_labels(scores: np.ndarray, labels: np.ndarray,
+                    nof_labels: int, min_mss_len: int, xdrop_len: int,
+                    threads: int = 0) -> np.ndarray:
+    """The MSS labelling as one-hot rows, float64 ``[n, nof_labels]``
+    (``find_mss_labels``, ``deepgrp_tpu/ops/mss.py:85``; the reference's
+    ``pymss.pyx:16-27``): :func:`find_mss_classes` expanded, since the
+    labelling sets exactly one class a position."""
+    classes = find_mss_classes(scores, labels, nof_labels, min_mss_len,
+                               xdrop_len, threads)
+    return np.eye(nof_labels, dtype=np.float64)[classes]
 
 
 def find_mss_classes_spec(scores: np.ndarray, labels: np.ndarray,

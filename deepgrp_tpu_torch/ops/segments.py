@@ -1,6 +1,8 @@
-"""Segment iteration over per-position class arrays.
+"""Segment iteration over per-position class arrays, and the evaluation's
+short-segment filter.
 
-Counterpart of ``yield_segments`` in ``deepgrp_tpu/ops/segments.py``
+Counterpart of ``yield_segments`` and ``filter_segments`` in
+``deepgrp_tpu/ops/segments.py``
 (parity with the reference DeepGRP's ``sequence.pyx:40-53,79-85``),
 including the reference's boundary quirk: the scan never extends a segment
 past index ``size - 2``, so the final element of a trailing run is emitted
@@ -56,3 +58,20 @@ def segments_from_classes(classes: np.ndarray) -> List[Segment]:
     ]
     out.append((n - 1, n, int(classes[n - 1])))
     return out
+
+
+def filter_segments(array: np.ndarray, min_len: int = 50) -> None:
+    """Clear non-background runs shorter than ``min_len``, in place
+    (``filter_segments``, ``deepgrp_tpu/ops/segments.py:80-95``; the
+    reference's ``prediction.py:242-260``, vectorised: runs by RLE, each
+    short non-zero run set to 0)."""
+    n = array.size
+    if n == 0:
+        return
+    boundaries = np.flatnonzero(array[1:] != array[:-1]) + 1
+    starts = np.concatenate(([0], boundaries))
+    ends = np.concatenate((boundaries, [n]))
+    labels = array[starts]
+    short = (labels > 0) & ((ends - starts) < min_len)
+    for s, e in zip(starts[short], ends[short]):
+        array[s:e] = 0

@@ -1,7 +1,8 @@
 """On-device sliding-window prediction engine.
 
-Counterpart of ``deepgrp_tpu/predict/engine.py`` (``PredictionEngine``,
-scored route).  The compact code sequence goes to the device once; for each
+Counterpart of ``deepgrp_tpu/predict/engine.py`` (``PredictionEngine``:
+the scored route, ``predict_scored``, and the merged-probability track,
+``predict``).  The compact code sequence goes to the device once; for each
 chunk of ``batch_size`` windows the engine
 
   * gathers the code windows (``unfold`` of the padded sequence, the torch
@@ -16,13 +17,15 @@ chunk of ``batch_size`` windows the engine
   * overlap-max merges the chunk (ops/overlap_max.py) and carries the
     ``vecsize - step`` rows that reach into the next chunk as a spill, and
   * scores each position of the finished block: int8 argmax class and
-    float32 max probability, kept on the device.
+    float32 max probability, kept on the device (``predict`` keeps the
+    block's rows instead).
 
 The two score tracks come back to the host once, at the end, in one byte
-buffer: 5 B/bp in float32.  The bfloat16 fast mode (``compute_dtype``)
-ships the max probability as 2 bytes, so its tracks are 3 B/bp; that
-rounding is the mode's contract (``engine.py:197-212``): the probabilities
-are nominally bfloat16, and every consumer sees the rounded track.
+buffer: 5 B/bp in float32 (``predict``'s rows: 20 B/bp at 5 classes).  The
+bfloat16 fast mode (``compute_dtype``) ships the max probability as 2
+bytes, so its tracks are 3 B/bp; that rounding is the mode's contract
+(``engine.py:197-212``): the probabilities are nominally bfloat16, and
+every consumer sees the rounded track.
 
 Window enumeration parity with the reference (``prediction.py:31``): window
 starts are ``range(0, L - vecsize, step_size)``; the window starting exactly
@@ -35,15 +38,15 @@ final partial batch, ``prediction.py:105``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from deepgrp_tpu_torch.models.model import DeepGRPModel
+from deepgrp_tpu_torch.models.model import (PAD_CODE, DeepGRPModel, one_hot,
+                                            resolve_rnn_kernel)
 from deepgrp_tpu_torch.ops.overlap_max import overlap_max_merge
 
-PAD_CODE = 5
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -63,28 +66,6 @@ def mss_score_transform(classes: np.ndarray,
     mins = np.where(mins > 0.99, np.float32(0.99), mins)
     t_scores = np.log(mins / (1 - mins))
     return np.where(classes > 0, t_scores, -10 * t_scores)
-
-
-def resolve_rnn_kernel(mode: str) -> bool:
-    """Whether the engine takes the fused route (``engine.py:587-609``).
-
-    ``"fused"`` and ``"scan"`` force a route; ``"auto"`` is the fused
-    route on every device.  The JAX package's ``auto`` keeps the scan off
-    the TPU because its fused kernel would run in the slow Pallas
-    interpreter there; the port's fused route on the CPU runs the exact
-    plain version of the kernel instead, so ``auto`` keeps the route the
-    port has taken since it began, on the card and on the CPU.
-    """
-    if mode not in ("auto", "scan", "fused"):
-        raise ValueError(f"rnn_kernel must be auto|scan|fused, got {mode!r}")
-    return mode != "scan"
-
-
-def one_hot(codes: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Code windows ``[B, T]`` -> one-hot ``[B, T, 5]`` in ``dtype``; pad
-    code 5 gives the all-zero row (``engine.py:67-70``)."""
-    eye = torch.eye(PAD_CODE + 1, dtype=dtype, device=codes.device)
-    return eye[codes.long()][..., :PAD_CODE]
 
 
 class PredictionEngine:
@@ -122,6 +103,80 @@ class PredictionEngine:
             probs = self.model.apply(one_hot(chunk, self.compute_dtype))
         return probs.to(torch.float32)
 
+    def _merged_blocks(self, codes: np.ndarray, n_windows: int
+                       ) -> Tuple[int, Iterator[Tuple[int, torch.Tensor]]]:
+        """The chunk loop that both tracks share (``scan_chunk_range``,
+        ``engine.py:74-197``).
+
+        Returns ``(rows, blocks)``: ``blocks`` yields ``(first row,
+        merged float32 rows [n, n_classes])`` on the device, in order of
+        rows and each final (the last one is the final chunk's spill),
+        covering rows ``0 .. rows - 1``.  A block is a view that the next
+        chunk reuses: read it before asking for the next.
+        """
+        config = self.model.config
+        vecsize, step, batch = config.vecsize, self.step_size, self.batch_size
+        k = -(-vecsize // step)
+        n_chunks = -(-n_windows // batch)
+        block_rows = batch * step
+        span = (batch - 1) * step + vecsize
+        spill_rows = max(span - block_rows, 0)  # == vecsize - step if > 0
+        rows = (n_chunks * batch + k) * step
+        padded = np.full(rows, PAD_CODE, np.int8)
+        padded[:min(codes.shape[0], rows)] = codes[:rows]
+        device = self.model.device
+        # [n_chunks*batch + ..., vecsize] view: window w starts at w*step.
+        windows = torch.from_numpy(padded).to(device).unfold(0, vecsize, step)
+
+        def blocks() -> Iterator[Tuple[int, torch.Tensor]]:
+            spill = torch.zeros(spill_rows, config.n_classes, device=device)
+            for c in range(n_chunks):
+                chunk = windows[c * batch:(c + 1) * batch].contiguous()
+                probs = self._probs(chunk)
+                n_real = n_windows - c * batch
+                if n_real < batch:
+                    probs[n_real:] = 0.0
+                merged = overlap_max_merge(probs, step, max(span, block_rows))
+                block = merged[:block_rows]
+                if spill_rows:
+                    torch.maximum(block[:spill_rows], spill,
+                                  out=block[:spill_rows])
+                    spill = merged[block_rows:]
+                yield c * block_rows, block
+            if spill_rows:
+                # The final spill's rows: no further chunk reaches them.
+                yield n_chunks * block_rows, spill
+
+        return n_chunks * block_rows + spill_rows, blocks()
+
+    def predict(self, codes: np.ndarray,
+                out_len: Optional[int] = None) -> np.ndarray:
+        """Overlap-max merged class probabilities, ``float32 [out_len,
+        n_classes]`` (``PredictionEngine.predict``, ``engine.py:643-679``).
+
+        ``codes`` is the sequence's int8 code track ``[L]``; ``out_len``
+        (default ``L``) sizes the output, as ``results_shape`` in the
+        reference's ``prediction.py:90``.  Rows no window covers are zeros.
+        The merged rows stay on the device and come back in one copy
+        (20 B/bp at 5 classes).  In the bfloat16 fast mode the track is
+        float32 holding the bfloat16 probabilities, as the JAX engine's
+        unscored track is.
+        """
+        out_len = codes.shape[0] if out_len is None else int(out_len)
+        n_classes = self.model.config.n_classes
+        n_windows = window_starts(codes.shape[0], self.model.config.vecsize,
+                                  self.step_size).size
+        out = np.zeros((out_len, n_classes), np.float32)
+        if n_windows == 0:
+            return out
+        rows, blocks = self._merged_blocks(codes, n_windows)
+        merged = torch.empty(rows, n_classes, device=self.model.device)
+        for lo, block in blocks:
+            merged[lo:lo + block.shape[0]] = block
+        take = min(out_len, rows)
+        out[:take] = merged[:take].cpu().numpy()
+        return out
+
     def predict_scored(self, codes: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-position ``(classes int8 [L], max_prob float32 [L])``.
@@ -130,56 +185,27 @@ class PredictionEngine:
         Positions no window covers come back as class 0 with probability 0
         (the reference merges into a zero buffer).
         """
-        config = self.model.config
-        vecsize, step, batch = config.vecsize, self.step_size, self.batch_size
         out_len = int(codes.shape[0])
-        n_windows = window_starts(out_len, vecsize, step).size
+        n_windows = window_starts(out_len, self.model.config.vecsize,
+                                  self.step_size).size
         out_classes = np.zeros(out_len, np.int8)
         out_maxp = np.zeros(out_len, np.float32)
         if n_windows == 0:
             return out_classes, out_maxp
 
-        k = -(-vecsize // step)
-        n_chunks = -(-n_windows // batch)
-        block_rows = batch * step
-        span = (batch - 1) * step + vecsize
-        spill_rows = max(span - block_rows, 0)  # == vecsize - step if > 0
-        rows = (n_chunks * batch + k) * step
-        padded = np.full(rows, PAD_CODE, np.int8)
-        padded[:min(out_len, rows)] = codes[:rows]
-        device = self.model.device
-        # [n_chunks*batch + ..., vecsize] view: window w starts at w*step.
-        windows = torch.from_numpy(padded).to(device).unfold(0, vecsize, step)
-
-        total = n_chunks * block_rows + spill_rows
+        total, blocks = self._merged_blocks(codes, n_windows)
         # Both score tracks live in one byte buffer (maxp, then classes),
         # so they come back to the host in one copy; storing maxp in the
         # bfloat16 track rounds it (to nearest even).
         maxp_size = torch.finfo(self.compute_dtype).bits // 8
         tracks = torch.empty((maxp_size + 1) * total, dtype=torch.uint8,
-                             device=device)
+                             device=self.model.device)
         maxp_d = tracks[:maxp_size * total].view(self.compute_dtype)
         classes_d = tracks[maxp_size * total:].view(torch.int8)
-        spill = torch.zeros(spill_rows, config.n_classes, device=device)
-        for c in range(n_chunks):
-            chunk = windows[c * batch:(c + 1) * batch].contiguous()
-            probs = self._probs(chunk)
-            n_real = n_windows - c * batch
-            if n_real < batch:
-                probs[n_real:] = 0.0
-            merged = overlap_max_merge(probs, step, max(span, block_rows))
-            block = merged[:block_rows]
-            if spill_rows:
-                torch.maximum(block[:spill_rows], spill,
-                              out=block[:spill_rows])
-                spill = merged[block_rows:]
-            lo = c * block_rows
-            classes_d[lo:lo + block_rows] = block.argmax(dim=1)
-            maxp_d[lo:lo + block_rows] = block.amax(dim=1)
-        if spill_rows:
-            # The final spill's rows: no further chunk reaches them.
-            classes_d[n_chunks * block_rows:] = spill.argmax(dim=1)
-            maxp_d[n_chunks * block_rows:] = spill.amax(dim=1)
+        for lo, block in blocks:
+            hi = lo + block.shape[0]
+            classes_d[lo:hi] = block.argmax(dim=1)
+            maxp_d[lo:hi] = block.amax(dim=1)
 
         tracks_h = tracks.cpu().numpy()
         if maxp_size == 2:
@@ -194,4 +220,3 @@ class PredictionEngine:
         out_classes[:take] = classes_h[:take]
         out_maxp[:take] = maxp_h[:take]
         return out_classes, out_maxp
-

@@ -22,11 +22,15 @@ the reference DeepGRP's ``model.py:202-215``):
 
 Any other name raises ``ValueError`` (the JAX package resolves any optax
 optimizer by name; that is not ported).
+
+:func:`fleet_optimizer` is the HPO fleet's optimizer: one param group a
+trial, each with its own hyperparameters (the JAX fleet's
+``_injected_optimizer`` / ``_set_hyperparams``, ``hpo/vmapped.py:35-54``).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -87,3 +91,36 @@ def get_optimizer(options: Options, params: Iterable[torch.Tensor]
         return torch.optim.SGD(params, lr=options.learning_rate)
     raise ValueError(f"unknown optimizer {name!r} (RMSprop, Adam and sgd "
                      "are ported)")
+
+
+def fleet_optimizer(name: str,
+                    trials: Sequence[Tuple[Iterable[torch.Tensor],
+                                           Dict[str, float]]]
+                    ) -> torch.optim.Optimizer:
+    """One optimizer over a fleet of trials, a param group each.
+
+    ``trials`` pairs each trial's parameters with its hyperparameters
+    ``learning_rate``, ``rho``, ``epsilon`` and ``momentum``; every group
+    takes its own, as ``optax.inject_hyperparams`` gives each vmapped
+    trial its own (``hpo/vmapped.py:35-54``): RMSprop ``lr``, ``rho``,
+    ``eps`` and ``momentum``, Adam ``lr``, ``betas=(momentum, rho)`` and
+    ``eps``.  Both skip a parameter that has no gradient, so a frozen
+    trial, which computes none, takes no step: its parameters stay exactly
+    where they stopped (the JAX fleet's zero-masked update).
+    """
+    def group(params, hp):
+        common = {"params": list(params), "lr": hp["learning_rate"],
+                  "eps": hp["epsilon"]}
+        if name == "RMSprop":
+            return {**common, "rho": hp["rho"], "momentum": hp["momentum"]}
+        return {**common, "betas": (hp["momentum"], hp["rho"])}
+
+    if name not in ("RMSprop", "Adam"):
+        raise ValueError(f"parallel trials support RMSprop/Adam, got "
+                         f"{name!r}")
+    groups = [group(params, hp) for params, hp in trials]
+    if name == "RMSprop":
+        first = groups[0]
+        return RMSprop(groups, lr=first["lr"], rho=first["rho"],
+                       eps=first["eps"], momentum=first["momentum"])
+    return torch.optim.Adam(groups)

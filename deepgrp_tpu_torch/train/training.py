@@ -1,18 +1,22 @@
 """Training loop.
 
-Counterpart of ``deepgrp_tpu/train/training.py`` on its fused route
-(reference behaviour: the reference DeepGRP's ``training.py:15-73``): a
-loop of ``n_epochs`` epochs of ``n_batches`` optimization steps, one
-validation batch per epoch, early stopping on ``val_loss`` with patience
-``early_stopping_th`` and restoration of the best weights, best-only
-checkpoints in ``logdir``, and metrics in ``logdir/metrics.jsonl``.
+Counterpart of ``deepgrp_tpu/train/training.py`` (reference behaviour: the
+reference DeepGRP's ``training.py:15-73``): a loop of ``n_epochs`` epochs
+of ``n_batches`` optimization steps, one validation batch per epoch, early
+stopping on ``val_loss`` with patience ``early_stopping_th`` and
+restoration of the best weights, best-only checkpoints in ``logdir``, and
+metrics in ``logdir/metrics.jsonl`` and TensorBoard event files.
 
 One optimization step (:func:`train_step`): class-balanced code windows
 and labels gathered on the device, Keras input-dropout masks, the forward
-through the training kernels' autograd Function and the attention + dense
-head, categorical cross-entropy from logits (``log_softmax``, numerically
-equivalent to the reference's CCE on the softmax but stable), the backward
-(the recurrence's through the backward kernel), and the optimizer update.
+and the attention + dense head, categorical cross-entropy from logits
+(``log_softmax``, numerically equivalent to the reference's CCE on the
+softmax but stable), the backward, and the optimizer update.  On the fused
+route (the default) the recurrence runs through the training kernels'
+autograd Function, the backward through the backward kernel; on the scan
+route the windows go one-hot through the model's one-hot recurrence, a
+plain loop differentiated by autograd, as the JAX package's scan route
+runs XLA's scan under ``jax.grad``.
 
 Within an epoch nothing waits for the device: windows and masks are drawn
 from one ``torch.Generator`` on the device and the losses stay there; the
@@ -38,10 +42,12 @@ from deepgrp_tpu_torch.models import rnn
 from deepgrp_tpu_torch.models.convert import params_from_jax, params_to_jax
 from deepgrp_tpu_torch.models.model import (
     DeepGRPModel, ModelConfig, forward_logits_from_codes,
-    forward_logits_from_codes_train, init_params)
+    forward_logits_from_codes_train, init_params, one_hot,
+    resolve_rnn_kernel)
 from deepgrp_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from deepgrp_tpu_torch.train.optimizers import get_optimizer
 from deepgrp_tpu_torch.train.sampler import BatchSampler
+from deepgrp_tpu_torch.utils.tb_events import EventFileWriter
 
 _LOG = logging.getLogger(__name__)
 
@@ -57,26 +63,57 @@ def categorical_crossentropy(logits: torch.Tensor,
 
 
 class MetricsWriter:
-    """JSONL metrics log (``metrics.jsonl``, one record an epoch with the
-    keys ``step``, ``time`` and the metrics)."""
+    """JSONL metrics log (``metrics.jsonl``, one record a call with the
+    keys ``step``, ``time`` and the metrics), mirrored into TensorBoard
+    scalar events with ``tensorboard=True`` (``training.py:50-84``) through
+    :class:`~deepgrp_tpu_torch.utils.tb_events.EventFileWriter`, each
+    event stamped with its record's ``time``."""
 
-    def __init__(self, logdir: os.PathLike):
+    def __init__(self, logdir: os.PathLike, tensorboard: bool = False):
         self.logdir = os.fspath(logdir)
         os.makedirs(self.logdir, exist_ok=True)
         self._file = open(os.path.join(self.logdir, "metrics.jsonl"), "a")
+        self._tb = EventFileWriter(self.logdir) if tensorboard else None
 
     def write(self, step: int, metrics: Dict[str, float]) -> None:
         record = {"step": step, "time": time.time(), **metrics}
         self._file.write(json.dumps(record) + "\n")
         self._file.flush()
+        if self._tb is not None:
+            for key, value in metrics.items():
+                self._tb.add_scalar(key, value, step, record["time"])
 
     def close(self) -> None:
         self._file.close()
+        if self._tb is not None:
+            self._tb.close()
+
+
+def step_loss(model: DeepGRPModel, codes: torch.Tensor,
+              labels: torch.Tensor, masks: Optional[torch.Tensor],
+              fused: bool = True) -> torch.Tensor:
+    """The training loss of one batch, for autograd.
+
+    ``fused``: the recurrence runs through the training kernels
+    (:func:`~deepgrp_tpu_torch.models.model.
+    forward_logits_from_codes_train`); else the scan route
+    (``training.py:120-127``): the code windows become one-hot rows (pad
+    code 5 the all-zero row) and go through ``forward_logits(...,
+    train=True)``, the plain loop differentiated by autograd.
+    """
+    if fused:
+        logits = forward_logits_from_codes_train(model.params(), codes,
+                                                 model.config, masks)
+    else:
+        logits = model.apply_logits(one_hot(codes, torch.float32),
+                                    masks=masks, train=True)
+    return categorical_crossentropy(logits, labels)
 
 
 def train_step(model: DeepGRPModel, optimizer: torch.optim.Optimizer,
                codes: torch.Tensor, labels: torch.Tensor,
-               masks: Optional[torch.Tensor]) -> torch.Tensor:
+               masks: Optional[torch.Tensor],
+               fused: bool = True) -> torch.Tensor:
     """One optimization step on explicit windows and masks.
 
     Args:
@@ -85,20 +122,20 @@ def train_step(model: DeepGRPModel, optimizer: torch.optim.Optimizer,
         codes: int8 code windows ``[B, T]``.
         labels: one-hot labels ``float32 [B, T, n_classes]``.
         masks: input dropout masks ``[g, 2B, 5]``, or ``None``.
+        fused: the route (:func:`step_loss`).
 
     Returns:
         The batch loss, a 0-dim tensor on the model's device (not read).
     """
     optimizer.zero_grad(set_to_none=True)
-    logits = forward_logits_from_codes_train(model.params(), codes,
-                                             model.config, masks)
-    loss = categorical_crossentropy(logits, labels)
+    loss = step_loss(model, codes, labels, masks, fused)
     loss.backward()
     optimizer.step()
     return loss.detach()
 
 
-def _host_copy(model: DeepGRPModel) -> Params:
+def host_params(model: DeepGRPModel) -> Params:
+    """A CPU copy of the model's parameters."""
     return {key: value.detach().cpu().clone()
             for key, value in model.params().items()}
 
@@ -108,12 +145,14 @@ class Trainer:
     ``training.py:196-391``)."""
 
     def __init__(self, model: DeepGRPModel, options: Options,
-                 logdir: os.PathLike):
+                 logdir: os.PathLike, tensorboard: bool = True,
+                 rnn_kernel: str = "auto"):
         self.model = model
         self.options = options
         self.logdir = logdir
+        self.fused = resolve_rnn_kernel(rnn_kernel)
         self.checkpoints = CheckpointManager(logdir)
-        self.writer = MetricsWriter(logdir)
+        self.writer = MetricsWriter(logdir, tensorboard=tensorboard)
 
     def fit(self, train_data: Data, val_data: Data,
             params: Optional[Params] = None, seed: int = 0,
@@ -150,7 +189,7 @@ class Trainer:
 
         history: Dict[str, List[float]] = {"loss": [], "val_loss": []}
         best_val = math.inf
-        best_params = _host_copy(model)
+        best_params = host_params(model)
         patience = 0
         for epoch in range(1, options.n_epochs + 1):
             epoch_t0 = time.time()
@@ -161,7 +200,7 @@ class Trainer:
                                                  config.gates)
                          if rate > 0.0 else None)
                 losses.append(train_step(model, optimizer, codes, labels,
-                                         masks))
+                                         masks, self.fused))
             train_loss = torch.stack(losses).mean().item()
             if stop_on_nan and not math.isfinite(train_loss):
                 _LOG.warning("non-finite training loss at epoch %d; "
@@ -186,7 +225,7 @@ class Trainer:
 
             if val_loss < best_val:
                 best_val = val_loss
-                best_params = _host_copy(model)
+                best_params = host_params(model)
                 self.checkpoints.save(epoch, params_to_jax(best_params))
                 patience = 0
             else:
@@ -205,16 +244,23 @@ def training(data: Tuple[Data, Data], options: Options,
              logdir: os.PathLike = ".",
              extra_callbacks: Optional[List[MetricCallback]] = None,
              params: Optional[Params] = None, seed: int = 0,
-             device: str = "cuda"
+             device: str = "cuda", tensorboard: bool = True,
+             rnn_kernel: str = "auto"
              ) -> Tuple[Params, Dict[str, List[float]]]:
     """Functional API mirroring the reference ``training()``
     (training.py:15-73).  Returns ``(best_params, history)``.
 
     ``model`` defaults to a new model of ``options`` on ``device``.
+    ``tensorboard`` (default on, as the reference's TensorBoard callback
+    always runs) mirrors the metrics into event files beside
+    ``metrics.jsonl``; ``rnn_kernel`` picks the step's route
+    (auto|scan|fused, :func:`~deepgrp_tpu_torch.models.model.
+    resolve_rnn_kernel`).
     """
     if model is None:
         model = DeepGRPModel(ModelConfig.from_options(options), device)
-    trainer = Trainer(model, options, logdir)
+    trainer = Trainer(model, options, logdir, tensorboard=tensorboard,
+                      rnn_kernel=rnn_kernel)
     try:
         return trainer.fit(data[0], data[1], params=params, seed=seed,
                            callbacks=extra_callbacks)

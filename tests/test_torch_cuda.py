@@ -31,6 +31,13 @@ launch is bitwise equal to the first and u=1025 is refused.  The bf16
 variants of the fused kernels are held against their plain versions.
 Tolerance in bfloat16: atol 2e-2 (the plain version rounds as the kernel
 does; the outputs are bf16).
+
+The training scan route (autograd through the plain loop, no kernel) is
+held against the fused step on the card and against itself on the CPU,
+and an HPO fleet step (three trials, one frozen) against the same step on
+the CPU: losses at atol 1e-5, gradients and updated parameters within
+1e-4 of their largest magnitude, the frozen trial's parameters bit for
+bit.
 """
 
 import os
@@ -479,3 +486,115 @@ def test_engine_bf16_on_card_matches_cpu(device, route):
     (got_c, got_p), (want_c, want_p) = results
     assert (got_c == want_c).mean() >= 0.999
     np.testing.assert_allclose(got_p, want_p, atol=BF16_ATOL)
+
+
+def random_train_batch(seed, config, batch, device):
+    """Code windows (with N and pad codes), one-hot labels and dropout
+    masks of one training step, from a seed."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 6, size=(batch, config.vecsize)).astype(np.int8)
+    labels = np.eye(config.n_classes, dtype=np.float32)[
+        rng.integers(0, config.n_classes, (batch, config.vecsize))]
+    return (torch.from_numpy(codes).to(device),
+            torch.from_numpy(labels).to(device),
+            random_masks(seed, config.gates, batch, device))
+
+
+def assert_params_close(got, want):
+    """Updated parameters within 1e-4 of each one's largest magnitude."""
+    for key, value in want.items():
+        err = (got[key].detach().cpu() - value.detach().cpu()).abs().max()
+        assert err.item() <= 1e-4 * value.abs().max().item(), (key, err)
+
+
+@pytest.mark.parametrize("rnn_type,attention", [("GRU", True),
+                                                ("LSTM", False)])
+def test_scan_train_step_on_card_matches_fused(device, rnn_type, attention):
+    """One scan-route step on the card (autograd through the plain loop,
+    no kernel) against the fused step on the card (the training kernels)
+    and against the scan step on the CPU, from the same parameters on the
+    same windows and masks: losses at atol 1e-5, gradients within 1e-4 of
+    their largest magnitude, updated parameters within 1e-4 of theirs."""
+    from deepgrp_tpu_torch.train.training import step_loss
+
+    options = Options(vecsize=60, units=16, batch_size=32, rnn=rnn_type,
+                      attention=attention, dropout=0.0928)
+    config = ModelConfig.from_options(options)
+    params = init_params(config, torch.Generator().manual_seed(3))
+    batch = random_train_batch(9, config, 32, "cpu")
+    runs = {}
+    for dev, fused in ((device, False), (device, True),
+                       (torch.device("cpu"), False)):
+        model = DeepGRPModel.from_params(config, params, dev)
+        opt = get_optimizer(options, model.parameters())
+        rnn.PLAIN_CALLS.reset()
+        cuda_rnn.LAUNCHES.reset()
+        opt.zero_grad()
+        loss = step_loss(model, *(t.to(dev) for t in batch), fused=fused)
+        loss.backward()
+        grads = {k: v.grad.detach().cpu().clone()
+                 for k, v in model.params().items()}
+        opt.step()
+        if dev.type == "cuda":
+            assert rnn.PLAIN_CALLS.snapshot() == {}
+            cell = "lstm" if rnn_type == "LSTM" else "gru"
+            assert (cuda_rnn.LAUNCHES.get(f"{cell}_train_fwd")
+                    == int(fused))
+            assert cuda_rnn.LAUNCHES.get("gru_seq") == 0
+        runs[(dev.type, fused)] = (loss.item(), grads, model.params())
+    want_loss, want_grads, want_params = runs[("cuda", False)]
+    for other in (("cuda", True), ("cpu", False)):
+        loss, grads, updated = runs[other]
+        assert abs(loss - want_loss) <= 1e-5, other
+        for key, grad in grads.items():
+            err = (grad - want_grads[key]).abs().max().item()
+            assert err <= 1e-4 * want_grads[key].abs().max().item(), \
+                (other, key, err)
+        assert_params_close(updated, want_params)
+
+
+@pytest.mark.parametrize("rnn_type,attention,optimizer", [
+    ("GRU", True, "RMSprop"), ("LSTM", False, "Adam")])
+def test_fleet_step_on_card_matches_cpu(device, rnn_type, attention,
+                                        optimizer):
+    """One fleet step of three trials (the second frozen) on the card
+    (the training kernels) against the same step on the CPU (the plain
+    versions): per-trial losses at atol 1e-5, updated parameters within
+    1e-4 of their largest magnitude, the frozen trial's bit for bit."""
+    from deepgrp_tpu_torch.hpo.vmapped import fleet_step
+    from deepgrp_tpu_torch.train.optimizers import fleet_optimizer
+
+    options = Options(vecsize=60, units=16, batch_size=32, rnn=rnn_type,
+                      attention=attention, optimizer=optimizer)
+    config = ModelConfig.from_options(options)
+    hps = [{"learning_rate": lr, "momentum": m, "rho": r, "epsilon": e}
+           for lr, m, r, e in ((1e-3, 0.9, 0.9, 1e-7), (5e-3, 0.5, 0.8, 1e-7),
+                               (2e-3, 0.0, 0.95, 1e-6))]
+    active = [True, False, True]
+    initial = [init_params(config, torch.Generator().manual_seed(i))
+               for i in range(3)]
+    batches = [random_train_batch(20 + i, config, 32, "cpu")
+               for i in range(3)]
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        models = [DeepGRPModel.from_params(config, p, dev) for p in initial]
+        opt = fleet_optimizer(optimizer, [(m.parameters(), hp)
+                                          for m, hp in zip(models, hps)])
+        rnn.PLAIN_CALLS.reset()
+        cuda_rnn.LAUNCHES.reset()
+        losses = fleet_step(models, opt, [tuple(t.to(dev) for t in b)
+                                          for b in batches], active)
+        if dev.type == "cuda":
+            cell = "lstm" if rnn_type == "LSTM" else "gru"
+            assert rnn.PLAIN_CALLS.snapshot() == {}
+            assert cuda_rnn.LAUNCHES.get(f"{cell}_train_fwd") == 2
+            assert cuda_rnn.LAUNCHES.get(f"{cell}_train_bwd") == 2
+        assert losses[1] is None
+        runs[dev.type] = ([None if l is None else l.item() for l in losses],
+                          [m.params() for m in models])
+    (card_losses, card), (cpu_losses, cpu) = runs["cuda"], runs["cpu"]
+    for i in (0, 2):
+        assert abs(card_losses[i] - cpu_losses[i]) <= 1e-5
+        assert_params_close(card[i], cpu[i])
+    for key, value in initial[1].items():
+        assert torch.equal(card[1][key].detach().cpu(), value), key

@@ -249,8 +249,11 @@ def test_cli_scan_reproduces_reference_bed(name, tmp_path):
 
 
 def test_cli_train_scan_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
+    """``train --rnn-kernel scan`` is ported now: the CLI no longer refuses
+    it, and fails here only on the absent input files (training through
+    the scan route is checked in tests/test_torch_training.py)."""
+    with pytest.raises(FileNotFoundError, match="p.toml"):
         cli.main(["--rnn-kernel", "scan", "--device", "cpu", "train",
-                  "p.toml", "a.npz", "b.npz", "r.bed", "--modelfile",
-                  str(tmp_path / "m.npz")])
+                  str(tmp_path / "p.toml"), "a.npz", "b.npz", "r.bed",
+                  "--modelfile", str(tmp_path / "m.npz")])
 

@@ -8,6 +8,7 @@ stated per test.
 """
 
 import json
+import math
 import os
 
 import numpy as np
@@ -252,6 +253,141 @@ def test_train_step_matches_jax(rnn_type, attention):
                                    atol=1e-5, err_msg=key)
 
 
+@pytest.mark.parametrize("rnn_type,attention", [("GRU", True),
+                                                ("LSTM", False)])
+def test_scan_train_step_matches_jax(rnn_type, attention):
+    """Two scan-route steps of the port (``train_step(..., fused=False)``:
+    one-hot windows through ``forward_logits(..., train=True)``, autograd
+    through the plain loop) against the JAX package's scan-route step
+    (``_train_step`` with ``fused=False``), from the same parameters: the
+    port is fed the windows at the starts that the JAX step samples and
+    the masks of its ``_input_dropout_masks`` for the step's key.  Losses
+    and parameters at atol 1e-5.  The fused step (the training kernels'
+    plain versions) on the same windows agrees at atol 1e-5 too."""
+    import importlib
+
+    from deepgrp_tpu.models import rnn as jax_rnn
+
+    # The package's __init__ exports a function of the module's name.
+    jax_training = importlib.import_module("deepgrp_tpu.train.training")
+
+    options = small_options(units=6, batch_size=6, rnn=rnn_type,
+                            attention=attention, dropout=0.0928)
+    jax_options = JaxOptions(**options.todict())
+    data = make_data(seed=3)
+    model = jax_model.create_model(jax_options)
+    params = model.init(jax.random.PRNGKey(5))
+    jax_opt = jax_optimizers.get_optimizer(jax_options)
+    state = jax_opt.init(params)
+    sampler_j = jax_sampler.BatchSampler(jax_options, data)
+    static = (sampler_j.n_sampled_classes, sampler_j.one_class_size,
+              sampler_j.batch_size, sampler_j.seq_len)
+    config = ModelConfig.from_options(options)
+    port = {fused: DeepGRPModel.from_params(config, params_from_jax(params),
+                                            "cpu")
+            for fused in (False, True)}
+    opts = {fused: get_optimizer(options, port[fused].parameters())
+            for fused in port}
+    port_sampler = sampler.BatchSampler(options, data, "cpu")
+    key = jax.random.PRNGKey(12)
+    for _ in range(2):
+        key, step_key = jax.random.split(key)
+        jax_params = jax.tree.map(jnp.array, params)
+        params, state, jax_loss = jax_training._train_step(
+            jax_params, state, step_key, sampler_j._fwd, sampler_j._lbl,
+            sampler_j._candidates, sampler_j._lengths, static, model,
+            jax_opt, options.vecsize, fused=False)
+        key_sample, key_dropout = jax.random.split(step_key)
+        starts = jax_sampler._sample_starts(
+            key_sample, sampler_j._candidates, sampler_j._lengths, *static,
+            options.vecsize)
+        masks = torch.from_numpy(np.array(jax_rnn._input_dropout_masks(
+            key_dropout, (2 * options.batch_size, 5), options.dropout,
+            config.gates, jnp.float32)))
+        codes, labels = port_sampler.gather(
+            torch.from_numpy(np.asarray(starts, dtype=np.int64)))
+        for fused in port:
+            loss = train_step(port[fused], opts[fused], codes, labels, masks,
+                              fused=fused)
+            assert abs(loss.item() - float(jax_loss)) <= 1e-5, fused
+    want = params_from_jax(jax.device_get(params))
+    for fused in port:
+        for key_name, value in port[fused].params().items():
+            np.testing.assert_allclose(value.detach().numpy(),
+                                       want[key_name].numpy(), atol=1e-5,
+                                       err_msg=f"{key_name} fused={fused}")
+
+
+def test_scan_forward_takes_no_kernel_and_checks_its_inputs():
+    """The training form runs the plain loop (no kernel, no plain-version
+    call of ``gru_seq``), is differentiable, and refuses masks outside
+    training."""
+    from deepgrp_tpu_torch.models.model import forward_logits
+
+    config = ModelConfig(vecsize=8, units=4, attention=True)
+    model = DeepGRPModel.from_params(
+        config, init_params(config, torch.Generator().manual_seed(1)), "cpu")
+    x = torch.eye(5)[torch.randint(0, 5, (3, 8))]
+    masks = torch.ones(3, 6, 5)
+    rnn.PLAIN_CALLS.reset()
+    logits = model.apply_logits(x, masks=masks, train=True)
+    assert logits.requires_grad and rnn.PLAIN_CALLS.snapshot() == {}
+    logits.sum().backward()
+    assert model.rnn.recurrent.grad is not None
+    torch.testing.assert_close(
+        logits.detach(), model.apply_logits(x), atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="train=True"):
+        forward_logits(model.params(), x, config, masks=masks)
+
+
+def test_metrics_writer_events_equal_jax_bytes(tmp_path, monkeypatch):
+    """``MetricsWriter(tensorboard=True)`` writes an events file whose
+    bytes equal those the JAX package's ``EventFileWriter`` writes for the
+    same tags, values, steps and wall times (the clock is fixed)."""
+    import time as time_module
+
+    from deepgrp_tpu.utils.tb_events import EventFileWriter as JaxWriter
+    from deepgrp_tpu_torch.train.training import MetricsWriter
+
+    monkeypatch.setattr(time_module, "time", lambda: 1700000000.25)
+    records = [(1, {"loss": 0.5, "val_loss": 0.75}),
+               (2, {"loss": 0.25, "val_loss": 0.5}), (0, {"hpo/MCC": -0.1})]
+    writer = MetricsWriter(tmp_path / "port", tensorboard=True)
+    for step, metrics in records:
+        writer.write(step, metrics)
+    writer.close()
+    jax_writer = JaxWriter(tmp_path / "jax")
+    for step, metrics in records:
+        for tag, value in metrics.items():
+            jax_writer.add_scalar(tag, value, step)
+    jax_writer.close()
+
+    def events(directory):
+        (name,) = [p for p in directory.iterdir()
+                   if p.name.startswith("events.out.tfevents")]
+        return name.name, name.read_bytes()
+
+    port_name, port_bytes = events(tmp_path / "port")
+    jax_name, jax_bytes = events(tmp_path / "jax")
+    assert port_name == jax_name and port_bytes == jax_bytes
+    lines = (tmp_path / "port" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(line)["step"] for line in lines] == [1, 2, 0]
+    writer = MetricsWriter(tmp_path / "plain")
+    writer.write(1, {"loss": 1.0})
+    writer.close()
+    assert os.listdir(tmp_path / "plain") == ["metrics.jsonl"]
+
+
+def test_tb_events_crc32c_known_vectors():
+    """The RFC 3720 vectors of ``tests/test_tb_events.py:14`` hold for the
+    port's copy."""
+    from deepgrp_tpu_torch.utils.tb_events import _crc32c
+
+    assert _crc32c(b"") == 0x0
+    assert _crc32c(b"123456789") == 0xE3069283
+    assert _crc32c(bytes([0] * 32)) == 0x8A9136AA
+
+
 def test_categorical_crossentropy_matches_jax():
     rng = np.random.default_rng(0)
     logits = rng.normal(size=(3, 7, 5)).astype(np.float32) * 3
@@ -461,6 +597,33 @@ def test_cli_train_then_predict_on_cpu(tmp_path):
         fields = line.split("\t")
         assert fields[:2] == [str(fasta), "r1"]
         assert int(fields[4]) > 0
+
+
+@pytest.mark.parametrize("route,tensorboard", [("scan", True),
+                                               ("fused", False)])
+def test_cli_train_routes_and_tensorboard(tmp_path, route, tensorboard):
+    """``train --rnn-kernel scan`` trains through the scan route (no
+    kernel's plain version runs in its steps; the validation takes the
+    inference kernel's); ``--tensorboard`` (the default) writes an events
+    file and ``--no-tensorboard`` none."""
+    model_path = tmp_path / "model.npz"
+    rnn.PLAIN_CALLS.reset()
+    cli.main(["--device", "cpu", "-b", "8", "--rnn-kernel", route, "train",
+              *write_training_files(tmp_path), "--honor-toml",
+              "--logdir", str(tmp_path / "log"),
+              "--modelfile", str(model_path),
+              "--tensorboard" if tensorboard else "--no-tensorboard"])
+    calls = rnn.PLAIN_CALLS.snapshot()
+    if route == "scan":
+        assert set(calls) == {"gru_avg"}
+    else:
+        assert calls["gru_train_fwd"] == calls["gru_train_bwd"] > 0
+    events = [p for p in os.listdir(tmp_path / "log")
+              if p.startswith("events.out.tfevents")]
+    assert len(events) == (1 if tensorboard else 0)
+    records = (tmp_path / "log" / "metrics.jsonl").read_text().splitlines()
+    assert all(math.isfinite(json.loads(r)["loss"]) for r in records)
+    assert load_model(str(model_path))[0].vecsize == 20
 
 
 def test_cli_train_without_honor_toml_takes_defaults(tmp_path):
