@@ -110,6 +110,25 @@ Phases (any failure exits non-zero; nothing is caught):
     to 1e-5, updated parameters to 1e-4 of their largest magnitude, the
     frozen trial's bit for bit), the fleet's steps/s against one trial's
     serial steps/s, and one fleet epoch's device time by kernel name.
+13. Several shards and ranks on the one card (``deepgrp_tpu_torch/
+    parallel``): the sharded engine over ``["cuda:0"] * 4`` and ``* 3``
+    on phase 4's chromosome (batch 1024): the MSS labels give the 1456
+    rows of ``mbp.bed``, classes and max probability equal phase 4's bit
+    for bit, the boundary combined on the device and on the host agree,
+    and the bf16 track equals the single engine's bf16 track; the
+    ``lstm`` fixture (f32, bf16) and ``gru_att`` on the scan route over 3
+    shards against the single engine and the reference BEDs; the engine
+    stage's seconds with 1, 4 and 3 shards in turn (the cost of
+    splitting; one card says nothing of scaling).  Then two ranks on
+    ``cuda:0`` over gloo (processes the script starts, ``dp_worker``):
+    one DP step of ``gru_att`` and of the LSTM of its width at batch 256
+    (128 a rank) against one process's step on the whole batch (loss to
+    1e-5, parameters to 1e-4 of their largest magnitude), then 2 x 3 DP
+    training steps of ``gru_att`` after which the ranks' parameters and
+    histories are bitwise equal and only rank 0 wrote a logdir.  Then the
+    default backend (``cpu:gloo,cuda:nccl``) at world size 1: an NCCL
+    all-reduce, and ``predict`` (the ``gru_att`` fixture BED) and
+    ``train`` (2 x 3 steps) through the CLI's launch flags.
 
 Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
@@ -1653,6 +1672,373 @@ def hpo_phase(torch, np, tmp: str):
                       walls["fleet"])
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(torch, np, man: dict, seq: str, mbp_run: "Recorder"):
+    """Phase 13a: the sharded engine over 4 and 3 shards on the one card
+    against phase 4's single engine (the scored track in f32 and bf16,
+    the boundary on the device and on the host) and ``mbp.bed``, and the
+    ``lstm`` (f32, bf16) and ``gru_att`` (scan route) fixtures over 3
+    shards; returns each kernel's launches on its first sharded run."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
+    from deepgrp_tpu_torch.parallel.predict import ShardedPredictionEngine
+    from deepgrp_tpu_torch.predict.engine import PredictionEngine
+
+    config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
+    model = DeepGRPModel.from_params(config, params, "cuda:0")
+    startpos, codes = encode_codes_trimmed(seq)
+    step, batch = man["step_size"], 1024
+    options = Options(vecsize=config.vecsize, batch_size=batch,
+                      min_mss_len=man["min_mss_len"],
+                      xdrop_len=man["xdrop_len"])
+    want_c, want_p = mbp_run.scored[0]
+    want_rows = expected_rows("mbp")
+
+    def same(a, b) -> bool:
+        return a.shape == b.shape and bool(np.array_equal(
+            a.view(np.uint8), b.view(np.uint8)))
+
+    def engine(n_shards, dtype=torch.float32, collective=True):
+        if n_shards == 1:
+            return PredictionEngine(model, batch, step, dtype)
+        return ShardedPredictionEngine(model, ["cuda:0"] * n_shards, batch,
+                                       step, dtype, collective=collective)
+
+    launches = {}
+    for n_shards in (4, 3):
+        sharded = engine(n_shards)
+        reset_counts()
+        rows = bed_rows(sharded, [(startpos, codes, man["header"])],
+                        options)
+        count = check_path("gru_avg")
+        launches.setdefault("gru_avg", count)
+        got_c, got_p = sharded.predict_scored(codes)
+        other = engine(n_shards, collective=False).predict_scored(codes)
+        ok = {"mbp.bed rows": rows == want_rows,
+              "classes == phase 4": same(got_c, want_c),
+              "maxp == phase 4": same(got_p, want_p),
+              "collective False == True": (same(other[0], got_c)
+                                           and same(other[1], got_p))}
+        print(f"{n_shards} shards on cuda:0 (f32): {len(rows)} rows, "
+              f"gru_avg launched {count} times; {ok}", flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"{n_shards} shards: {ok}")
+
+    for name, dtype, route, kernel in (
+            ("lstm", torch.float32, "fused", "lstm_avg"),
+            ("lstm", torch.bfloat16, "fused", "lstm_avg_bf16"),
+            ("gru_att", torch.float32, "scan", "gru_seq")):
+        fixture_sharded(torch, np, name, dtype, route, kernel, launches)
+
+    single_bf16 = engine(1, torch.bfloat16).predict_scored(codes)
+    for n_shards in (4, 3):
+        reset_counts()
+        got = engine(n_shards, torch.bfloat16).predict_scored(codes)
+        launches.setdefault("gru_avg_bf16", check_path("gru_avg_bf16"))
+        ok = same(got[0], single_bf16[0]) and same(got[1], single_bf16[1])
+        print(f"{n_shards} shards bf16: track == single bf16 track: {ok}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{n_shards} shards bf16: tracks differ")
+
+    n_windows = man["n_windows"]
+    engines = {n: engine(n) for n in (1, 4, 3)}
+    for n_shards in (1, 4, 3, 3, 4, 1):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        engines[n_shards].predict_scored(codes)
+        seconds = time.perf_counter() - start
+        print(f"predict_scored, {n_shards} shard(s) on cuda:0: "
+              f"{seconds:.4f} s = {n_windows / seconds:.1f} windows/s "
+              f"(the engine stage only; phase 4 reads the CLI end to end)",
+              flush=True)
+    return launches
+
+
+def bed_rows(engine, records, options) -> list:
+    """The BED rows (without the file column) that ``predict`` writes for
+    ``records`` of ``(startpos, codes, header)`` through ``engine`` (the
+    CLI's loop, ``-t 1``)."""
+    from deepgrp_tpu_torch.ops.segments import yield_segments
+    from deepgrp_tpu_torch.predict.postprocess import predict_sequence
+
+    rows = []
+    for startpos, codes, header in records:
+        classes = predict_sequence(engine, codes, options, threads=1)
+        rows += ["{}\t{}\t{}\t{}".format(header, *segment)
+                 for segment in yield_segments(classes, startpos)
+                 if segment[2] > 0]
+    return rows
+
+
+def fixture_sharded(torch, np, name: str, dtype, route: str, kernel: str,
+                    launches: dict) -> None:
+    """A fixture through 3 shards on cuda:0 at the reference settings:
+    each record's scored track bit for bit the single engine's and, in
+    float32, the BED rows the reference's; ``kernel`` launched (its
+    count lands in ``launches``) and no plain version."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.data.fasta import read_multi_fasta
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
+    from deepgrp_tpu_torch.parallel.predict import ShardedPredictionEngine
+    from deepgrp_tpu_torch.predict.engine import PredictionEngine
+
+    config, params = load_model(os.path.join(TORCH_FIXDIR, f"{name}.npz"))
+    model = DeepGRPModel.from_params(config, params, "cuda:0")
+    args = dict(batch_size=64, step_size=50, compute_dtype=dtype,
+                rnn_kernel=route)
+    single = PredictionEngine(model, **args)
+    sharded = ShardedPredictionEngine(model, ["cuda:0"] * 3, **args)
+    options = Options(vecsize=config.vecsize, batch_size=64, min_mss_len=50,
+                      xdrop_len=50)
+    with open(os.path.join(FIXDIR, f"{name}.fa")) as fh:
+        records = [encode_codes_trimmed(seq) + (header,)
+                   for header, seq in read_multi_fasta(fh)]
+    reset_counts()
+    rows = bed_rows(sharded, records, options)
+    launches.setdefault(kernel, check_path(kernel))
+    same = all(
+        all(a.tobytes() == b.tobytes() for a, b in
+            zip(sharded.predict_scored(codes), single.predict_scored(codes)))
+        for _, codes, _ in records)
+    bed = rows == expected_rows(name) if dtype == torch.float32 else None
+    print(f"{name} ({route}, {str(dtype).split('.')[-1]}) over 3 shards: "
+          f"{len(records)} records, {len(rows)} rows; tracks == single "
+          f"engine: {same}; rows == {name}.bed: {bed}", flush=True)
+    if not same or bed is False:
+        raise AssertionError(f"{name} over 3 shards differs")
+
+
+def dp_batch(np, torch, gates: int):
+    """The DP phase's global batch on the CPU: flagship windows (256 x
+    342 codes), one-hot labels, dropout masks ``[gates, 512, 5]``."""
+    from deepgrp_tpu_torch.models import rnn
+
+    rng = np.random.default_rng(13)
+    batch, steps = 256, FLAGSHIP["vecsize"]
+    codes = torch.from_numpy(rng.integers(0, 6, (batch, steps))
+                             .astype(np.int8))
+    labels = torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, 5, (batch, steps))),
+        5).to(torch.float32)
+    masks = rnn.input_dropout_masks(torch.Generator().manual_seed(14),
+                                    2 * batch, FLAGSHIP["dropout"], gates)
+    return codes, labels, masks
+
+
+def dp_model(torch, options):
+    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                                init_params)
+
+    config = ModelConfig.from_options(options)
+    return DeepGRPModel.from_params(
+        config, init_params(config, torch.Generator().manual_seed(0)),
+        "cuda:0")
+
+
+#: The DP phase's models: the flagship, and the LSTM of its width.
+DP_CELLS = {"gru": FLAGSHIP,
+            "lstm": {**FLAGSHIP, "attention": False, "rnn": "LSTM"}}
+
+
+def dp_worker(rank: int, tmp: str) -> None:
+    """One of phase 13b's two ranks (a process of its own, both on
+    cuda:0, gloo): one DP step of each of :data:`DP_CELLS` on its half of
+    :func:`dp_batch`, then 2 x 3 DP training steps of the flagship on the
+    synthetic chromosomes; writes ``tmp/rank{rank}.npz`` and ``.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import torch_dist_worker  # tests/: the rank's slice of a batch
+
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+    from deepgrp_tpu_torch.parallel.train import dp_train_step
+    from deepgrp_tpu_torch.train.optimizers import get_optimizer
+    from deepgrp_tpu_torch.train.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"file://{tmp}/rdzv", 2, rank, backend="gloo")
+    try:
+        out, step_launches = {}, {}
+        for cell, widths in DP_CELLS.items():
+            options = Options(batch_size=256, **widths)
+            model = dp_model(torch, options)
+            optimizer = get_optimizer(options, model.parameters())
+            part = torch_dist_worker.rank_slice(
+                dp_batch(np, torch, model.config.gates), rank, 2)
+            reset_counts()
+            loss = dp_train_step(model, optimizer,
+                                 *(t.to("cuda:0") for t in part))
+            step_launches.update(check_counts({f"{cell}_train_fwd": 1,
+                                               f"{cell}_train_bwd": 1}))
+            out.update({f"{cell}/{k}": v.detach().cpu().numpy()
+                        for k, v in model.params().items()})
+            out[f"{cell}/loss"] = loss.cpu().numpy()
+
+        options = Options(batch_size=256, n_epochs=2, n_batches=3,
+                          **FLAGSHIP)
+        train_npz, val_npz, bed = (os.path.join(tmp, name) for name in
+                                   ("chrTrain.npz", "chrValid.npz",
+                                    "repeats.bed"))
+        train = load_training_data(np, train_npz, bed, options)
+        val = load_training_data(np, val_npz, bed, options)
+        trainer = Trainer(dp_model(torch, options), options,
+                          os.path.join(tmp, f"log-{rank}"),
+                          tensorboard=False, group=dist.group.WORLD)
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        best, history = trainer.fit(train, val)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        fit_launches = check_counts({"gru_train_fwd": 6, "gru_train_bwd": 6,
+                                     "gru_avg": 2})
+        if trainer.writer is not None:
+            trainer.writer.close()
+        out.update({f"fit/{k}": v.numpy() for k, v in best.items()})
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump({"history": history, "seconds": seconds,
+                       "step_launches": step_launches,
+                       "fit_launches": fit_launches}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(torch, np, tmp: str) -> dict:
+    """Phase 13b: two gloo ranks on the one card (processes of their own,
+    :func:`dp_worker`) against one process on the whole batch; returns
+    rank 0's launch counts of the 2 x 3 steps."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.train.optimizers import get_optimizer
+    from deepgrp_tpu_torch.train.training import train_step
+
+    write_training_files(np, tmp)
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import chip_smoke; chip_smoke.dp_worker(int(sys.argv[3]), "
+            "sys.argv[4])")
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, HERE,
+                               os.path.join(HERE, "tests"), str(rank), tmp],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, text) in enumerate(zip(procs, outputs)):
+        print(f"-- rank {rank} (exit {proc.returncode}):\n{text.strip()}",
+              flush=True)
+        if proc.returncode:
+            raise AssertionError(f"DP rank {rank} failed")
+    print(f"two ranks: {time.perf_counter() - start:.2f} s, process start "
+          f"included", flush=True)
+
+    ranks, infos = [], []
+    for rank in range(2):
+        with np.load(os.path.join(tmp, f"rank{rank}.npz")) as data:
+            ranks.append({k: data[k] for k in data.files})
+        with open(os.path.join(tmp, f"rank{rank}.json")) as fh:
+            infos.append(json.load(fh))
+    for cell, widths in DP_CELLS.items():
+        options = Options(batch_size=256, **widths)
+        model = dp_model(torch, options)
+        batch = dp_batch(np, torch, model.config.gates)
+        loss = train_step(model, get_optimizer(options, model.parameters()),
+                          *(t.to("cuda:0") for t in batch))
+        loss_err = max(abs(float(r[f"{cell}/loss"]) - loss.item())
+                       for r in ranks)
+        rel = {}
+        for key, value in model.params().items():
+            want = value.detach().cpu().numpy()
+            rel[key] = max(float(np.abs(r[f"{cell}/{key}"] - want).max())
+                           for r in ranks) / float(np.abs(want).max())
+        print(f"{cell} DP step (2 ranks x 128) vs one process (256): loss "
+              f"{loss.item():.6f}, max diff {loss_err:.3g}; parameters max "
+              f"abs diff / largest magnitude: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()),
+              flush=True)
+        if not (loss_err <= TOL and max(rel.values()) <= GRAD_RTOL):
+            raise AssertionError(f"{cell} DP step differs: loss "
+                                 f"{loss_err}, {rel}")
+    same = all(ranks[0][k].tobytes() == ranks[1][k].tobytes()
+               for k in ranks[0])
+    print(f"after 2 x 3 DP steps: parameters bitwise equal across ranks: "
+          f"{same}; histories {infos[0]['history']} / "
+          f"{infos[1]['history']}; fit seconds "
+          f"{[round(i['seconds'], 4) for i in infos]}", flush=True)
+    if not same or infos[0]["history"] != infos[1]["history"]:
+        raise AssertionError("the ranks' parameters or histories differ")
+    if os.path.exists(os.path.join(tmp, "log-1")):
+        raise AssertionError("rank 1 wrote a logdir")
+    return {"step": infos[0]["step_launches"],
+            "fit": infos[0]["fit_launches"]}
+
+
+def nccl_cli_phase(torch, np, tmp: str) -> None:
+    """Phase 13c: the default backend (``cpu:gloo,cuda:nccl``) at world
+    size 1: one NCCL all_reduce, then ``predict`` and ``train`` through
+    the CLI's launch flags."""
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        value = torch.ones(4, device="cuda:0")
+        dist.all_reduce(value)
+        torch.cuda.synchronize()
+        print(f"world 1, backend {dist.get_backend()}: all_reduce on "
+              f"cuda:0 -> {value.tolist()}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    def flags():
+        return ["--coordinator", f"127.0.0.1:{free_port()}",
+                "--num-processes", "1", "--process-id", "0"]
+
+    reset_counts()
+    got = predict_rows(REF_ARGS + flags() + [
+        "predict", os.path.join(TORCH_FIXDIR, "gru_att.npz"),
+        os.path.join(FIXDIR, "gru_att.fa")],
+        os.path.join(tmp, "gru_att_nccl.bed"))
+    check_path("gru_avg")
+    print(f"predict with the launch flags: {len(got)} rows, identical="
+          f"{got == expected_rows('gru_att')}", flush=True)
+    if got != expected_rows("gru_att") or dist.is_initialized():
+        raise AssertionError("predict with the launch flags")
+
+    files = write_training_files(np, tmp)
+    reset_counts()
+    _, records, seconds = run_train_cli(tmp, files, "nccl", flags(),
+                                        n_epochs=2, n_batches=3, **FLAGSHIP)
+    check_counts({"gru_train_fwd": 6, "gru_train_bwd": 6, "gru_avg": 2})
+    print(f"train with the launch flags: 2 x 3 steps in {seconds:.3f} s, "
+          f"losses {[r['loss'] for r in records]}", flush=True)
+    if len(records) != 2 or dist.is_initialized():
+        raise AssertionError("train with the launch flags")
+
+
 def main() -> int:
     import torch
 
@@ -1774,6 +2160,19 @@ def main() -> int:
         phase(f"12. HPO: TPE trials with resume, the bucketed sweep, the "
               f"fleet ({HPO_EPOCHS} x {HPO_STEPS} steps a trial)")
         hpo_phase(torch, np, hpo_tmp)
+
+    phase("13. several shards and ranks on the one card: the sharded "
+          "engine (4 and 3 shards), two gloo ranks (DP), the launch flags "
+          "at world size 1")
+    start = time.perf_counter()
+    path_launches = {"sharded": sharded_phase(torch, np, man, seq,
+                                              mbp_run)}
+    with tempfile.TemporaryDirectory() as dp_tmp:
+        path_launches["dp"] = dp_phase(torch, np, dp_tmp)
+    with tempfile.TemporaryDirectory() as cli_tmp:
+        nccl_cli_phase(torch, np, cli_tmp)
+    print(f"launches on phase 13's paths: {path_launches}; phase 13 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []
     sources = {**{name: ("rnn_avg.cu", replaces)

@@ -19,6 +19,21 @@ precedence quirk is kept: the CLI's option defaults (with ``-b -x -l``)
 overwrite the TOML file's values, so ``vecsize``, ``units`` and the rest
 fall back to their defaults, unless ``--honor-toml`` is given.
 
+Several GPUs (``cli.py:80-90``, ``:158-184`` of the JAX package):
+``predict --mesh auto`` (the default) shards the window stream over every
+visible GPU when there is more than one
+(:class:`~deepgrp_tpu_torch.parallel.predict.ShardedPredictionEngine`).
+The PyTorch idiom is one process a GPU, so data-parallel ``train`` runs
+over ranks: launch one process a GPU with ``torchrun`` (its environment
+names the group) or with ``--coordinator HOST:PORT --num-processes N
+--process-id R`` on each; ``train --mesh auto`` then trains
+data-parallel when the batch size divides by the world size (else it
+warns and each rank trains alone), and a multi-process ``predict`` shards
+over the ranks' GPUs.  Each rank runs on ``cuda:$LOCAL_RANK`` (or its
+rank modulo the GPU count); only rank 0 writes the BED, the model file
+and the training logs.  A single process that sees several GPUs trains on
+one.
+
 ``--device`` picks the device (default ``cuda``; with no GPU the command
 fails rather than running on the CPU).  ``--precision bfloat16`` is the
 fast mode of ``predict`` (float32 is the parity mode).  ``--rnn-kernel``
@@ -78,6 +93,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "windows through the model's one-hot route), "
                         "'auto' (fused)")
 
+    parser.add_argument("--coordinator", type=str, default=None,
+                        metavar="HOST:PORT",
+                        help="Multi-process launch: the address of rank "
+                        "0's rendezvous (with --num-processes and "
+                        "--process-id; torchrun's environment serves "
+                        "instead)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="Multi-process launch: the number of ranks")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="Multi-process launch: this process's rank")
+
     subparsers = parser.add_subparsers(help="sub-command help",
                                        dest="command")
     train = subparsers.add_parser(
@@ -100,6 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--honor-toml", action="store_true",
                        help="Let TOML values win over CLI defaults (the "
                        "reference overwrites TOML with defaults)")
+    train.add_argument("--mesh", choices=["auto", "off"], default="auto",
+                       help="Data-parallel training over the ranks of a "
+                       "multi-process run (auto: when there is more than "
+                       "one and the batch size divides)")
     train.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
                        default=True,
                        help="Write TensorBoard event files next to "
@@ -118,7 +148,60 @@ def build_parser() -> argparse.ArgumentParser:
                          help="Output filename")
     predict.add_argument("--no_use_mss", "-m", action="store_true",
                          help="Disable maximum scoring segment algorithm")
+    predict.add_argument("--mesh", choices=["auto", "off"], default="auto",
+                         help="Shard the window stream over every visible "
+                         "GPU (auto: when there is more than one, or over "
+                         "the ranks of a multi-process run)")
     return parser
+
+
+def setup_distributed(args: argparse.Namespace) -> bool:
+    """Join a multi-process run when the launch flags or ``torchrun``'s
+    environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) name one (``cli.py:158-184`` of the JAX package).
+
+    Returns True when this call started the process group (the caller
+    ends it).  A malformed address raises ``ValueError``; every failure
+    to join propagates, so a run never carries on as a single process.
+    """
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if all(flag is None for flag in flags):
+        if "WORLD_SIZE" not in os.environ:
+            return False
+        init_method = "env://"
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    elif any(flag is None for flag in flags):
+        raise ValueError("--coordinator, --num-processes and --process-id "
+                         "are given together")
+    else:
+        host, _, port = args.coordinator.rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"--coordinator must be HOST:PORT, got "
+                             f"{args.coordinator!r}")
+        init_method = f"tcp://{host}:{port}"
+        world, rank = args.num_processes, args.process_id
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    initialize_distributed(init_method, world, rank)
+    _LOG.info("joined a process group: rank %d of %d", rank, world)
+    return True
+
+
+def run_device(name: str):
+    """The device a command runs on: ``--device``, and in a multi-process
+    run on CUDA this rank's GPU."""
+    from deepgrp_tpu_torch.models.model import resolve_device
+    from deepgrp_tpu_torch.parallel.mesh import rank_device, world_size
+
+    device = resolve_device(name)
+    if device.type == "cuda" and world_size() > 1:
+        return rank_device()
+    return device
+
 
 
 def cmd_predict(args: argparse.Namespace) -> None:
@@ -127,13 +210,15 @@ def cmd_predict(args: argparse.Namespace) -> None:
     from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import load_model
-    from deepgrp_tpu_torch.models.model import DeepGRPModel, resolve_device
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
     from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
     from deepgrp_tpu_torch.ops.segments import yield_segments
+    from deepgrp_tpu_torch.parallel.mesh import is_first_rank, world_size
+    from deepgrp_tpu_torch.parallel.predict import ShardedPredictionEngine
     from deepgrp_tpu_torch.predict.engine import PredictionEngine
     from deepgrp_tpu_torch.predict.postprocess import predict_sequence
 
-    device = resolve_device(args.device)
+    device = run_device(args.device)
     _LOG.debug("Loading model %s", args.model)
     config, params = load_model(args.model)
     model = DeepGRPModel.from_params(config, params, device)
@@ -143,12 +228,27 @@ def cmd_predict(args: argparse.Namespace) -> None:
                       xdrop_len=args.xdrop_length)
     dtype = (torch.bfloat16 if args.precision == "bfloat16"
              else torch.float32)
-    engine = PredictionEngine(model, batch_size=options.batch_size,
-                              step_size=args.step_size, compute_dtype=dtype,
-                              rnn_kernel=args.rnn_kernel)
+    engine_args = dict(batch_size=options.batch_size,
+                       step_size=args.step_size, compute_dtype=dtype,
+                       rnn_kernel=args.rnn_kernel)
+    n_gpus = torch.cuda.device_count() if device.type == "cuda" else 0
+    if args.mesh == "auto" and (world_size() > 1 or n_gpus > 1):
+        # One shard a rank in a multi-process run, else one a GPU.
+        devices = [device] if world_size() > 1 else None
+        engine = ShardedPredictionEngine(model, devices, **engine_args)
+        _LOG.info("sharding windows over %d shards", engine.n_shards)
+    else:
+        engine = PredictionEngine(model, **engine_args)
     _LOG.info("Model loaded on %s", device)
 
-    outstream = sys.stdout if args.output == "-" else open(args.output, "w")
+    # Every rank computes (the sharded engine gathers the whole track);
+    # rank 0 writes the BED.
+    if not is_first_rank():
+        outstream = open(os.devnull, "w")
+    elif args.output == "-":
+        outstream = sys.stdout
+    else:
+        outstream = open(args.output, "w")
     try:
         for filename in args.FASTA:
             _LOG.info("Processing %s", filename)
@@ -176,16 +276,19 @@ def cmd_train(args: argparse.Namespace) -> None:
 
     from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.data import preprocess
+    import torch
+    import torch.distributed as dist
+
     from deepgrp_tpu_torch.models.keras_io import save_model_npz
-    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
-                                                resolve_device)
+    from deepgrp_tpu_torch.models.model import DeepGRPModel, ModelConfig
+    from deepgrp_tpu_torch.parallel.mesh import is_first_rank, world_size
     from deepgrp_tpu_torch.train.training import training
 
     if args.modelfile.endswith((".h5", ".hdf5")):
         raise NotImplementedError(
             "writing Keras .h5 model files is not yet ported (ROADMAP.md "
             "queue 1, item 13); write a .npz model instead")
-    device = resolve_device(args.device)
+    device = run_device(args.device)
     with open(args.parameter) as file:
         parameter = Options.from_toml(file)
     # Same trio of CLI-sourced options as the reference (__main__.py:245).
@@ -203,7 +306,8 @@ def cmd_train(args: argparse.Namespace) -> None:
 
     train_chr = os.path.basename(args.trainfile).split(".")[0]
     val_chr = os.path.basename(args.validfile).split(".")[0]
-    os.makedirs(args.logdir, exist_ok=True)
+    if is_first_rank():
+        os.makedirs(args.logdir, exist_ok=True)
 
     _LOG.info("Loading in all data necessary from %s, %s, %s",
               args.trainfile, args.validfile, args.bedfile)
@@ -217,13 +321,31 @@ def cmd_train(args: argparse.Namespace) -> None:
         data.append(preprocess.Data(*preprocess.drop_start_end_n(fwd,
                                                                  labels)))
 
+    group = None
+    world = world_size()
+    if args.mesh == "auto" and world > 1:
+        if parameter.batch_size % world:
+            _LOG.warning("batch_size %d not divisible by %d ranks; each "
+                         "rank trains alone", parameter.batch_size, world)
+        else:
+            group = dist.group.WORLD
+            _LOG.info("data-parallel training over %d ranks", world)
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        _LOG.warning(
+            "%d GPUs visible; this process trains on %s. For data-parallel "
+            "training launch one process a GPU: torchrun --nproc-per-node "
+            "N -m deepgrp_tpu_torch train ..., or --coordinator HOST:PORT "
+            "--num-processes N --process-id R in each",
+            torch.cuda.device_count(), device)
+
     model = DeepGRPModel(ModelConfig.from_options(parameter), device)
     _LOG.info("Training model on %s", device)
     best_params, _ = training((data[0], data[1]), parameter, model,
                               args.logdir, tensorboard=args.tensorboard,
-                              rnn_kernel=args.rnn_kernel)
-    _LOG.info("Saving model as %s", args.modelfile)
-    save_model_npz(args.modelfile, model.config, best_params)
+                              rnn_kernel=args.rnn_kernel, group=group)
+    if is_first_rank():
+        _LOG.info("Saving model as %s", args.modelfile)
+        save_model_npz(args.modelfile, model.config, best_params)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -235,10 +357,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     levels = [logging.WARNING, logging.INFO, logging.DEBUG]
     logging.basicConfig()
     _LOG.setLevel(levels[min(len(levels) - 1, args.verbose)])
-    if args.command == "train":
-        cmd_train(args)
-    else:
-        cmd_predict(args)
+    started = setup_distributed(args)
+    try:
+        if args.command == "train":
+            cmd_train(args)
+        else:
+            cmd_predict(args)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":  # pragma: no cover

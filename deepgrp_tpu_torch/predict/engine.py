@@ -38,7 +38,7 @@ final partial batch, ``prediction.py:105``).
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -103,7 +103,8 @@ class PredictionEngine:
             probs = self.model.apply(one_hot(chunk, self.compute_dtype))
         return probs.to(torch.float32)
 
-    def _merged_blocks(self, codes: np.ndarray, n_windows: int
+    def _merged_blocks(self, codes: np.ndarray, n_windows: int,
+                       n_chunks: Optional[int] = None
                        ) -> Tuple[int, Iterator[Tuple[int, torch.Tensor]]]:
         """The chunk loop that both tracks share (``scan_chunk_range``,
         ``engine.py:74-197``).
@@ -113,11 +114,18 @@ class PredictionEngine:
         rows and each final (the last one is the final chunk's spill),
         covering rows ``0 .. rows - 1``.  A block is a view that the next
         chunk reuses: read it before asking for the next.
+
+        ``n_chunks`` (default: as many as the windows need) runs a fixed
+        number of chunks, windows past the ``n_windows``-th masked: a
+        shard of the sharded engine runs its whole range, so its final
+        spill is the rows past its range.  ``codes`` are then the shard's
+        rows, the halo included.
         """
         config = self.model.config
         vecsize, step, batch = config.vecsize, self.step_size, self.batch_size
         k = -(-vecsize // step)
-        n_chunks = -(-n_windows // batch)
+        if n_chunks is None:
+            n_chunks = -(-n_windows // batch)
         block_rows = batch * step
         span = (batch - 1) * step + vecsize
         spill_rows = max(span - block_rows, 0)  # == vecsize - step if > 0
@@ -135,7 +143,7 @@ class PredictionEngine:
                 probs = self._probs(chunk)
                 n_real = n_windows - c * batch
                 if n_real < batch:
-                    probs[n_real:] = 0.0
+                    probs[max(n_real, 0):] = 0.0
                 merged = overlap_max_merge(probs, step, max(span, block_rows))
                 block = merged[:block_rows]
                 if spill_rows:
@@ -194,29 +202,54 @@ class PredictionEngine:
             return out_classes, out_maxp
 
         total, blocks = self._merged_blocks(codes, n_windows)
-        # Both score tracks live in one byte buffer (maxp, then classes),
-        # so they come back to the host in one copy; storing maxp in the
-        # bfloat16 track rounds it (to nearest even).
-        maxp_size = torch.finfo(self.compute_dtype).bits // 8
-        tracks = torch.empty((maxp_size + 1) * total, dtype=torch.uint8,
-                             device=self.model.device)
-        maxp_d = tracks[:maxp_size * total].view(self.compute_dtype)
-        classes_d = tracks[maxp_size * total:].view(torch.int8)
+        track = ScoredRows(total, self.compute_dtype, self.model.device)
         for lo, block in blocks:
-            hi = lo + block.shape[0]
-            classes_d[lo:hi] = block.argmax(dim=1)
-            maxp_d[lo:hi] = block.amax(dim=1)
-
-        tracks_h = tracks.cpu().numpy()
-        if maxp_size == 2:
-            # numpy has no bfloat16: widen the 16 bits into the top half of
-            # a float32 (exact).
-            u16 = tracks_h[:2 * total].view(np.uint16)
-            maxp_h = (u16.astype(np.uint32) << 16).view(np.float32)
-        else:
-            maxp_h = tracks_h[:4 * total].view(np.float32)
-        classes_h = tracks_h[maxp_size * total:].view(np.int8)
+            track.add(lo, block)
+        classes_h, maxp_h = track.host()
         take = min(out_len, total)
         out_classes[:take] = classes_h[:take]
         out_maxp[:take] = maxp_h[:take]
         return out_classes, out_maxp
+
+
+class ScoredRows:
+    """Per-position scores of merged rows, kept where the rows are.
+
+    Both score tracks of ``rows`` positions live in one byte buffer,
+    ``buf`` (maxp in ``dtype``, then the int8 classes), so they come back
+    to the host (or go over a collective) as one tensor.  Storing maxp in
+    a bfloat16 track rounds it to nearest even, on the card and on the
+    CPU alike: that rounding is the fast mode's contract.
+    """
+
+    def __init__(self, rows: int, dtype: torch.dtype,
+                 device: Union[str, torch.device],
+                 buf: Optional[torch.Tensor] = None):
+        self.rows = rows
+        self.maxp_size = torch.finfo(dtype).bits // 8
+        self.buf = (torch.empty((self.maxp_size + 1) * rows,
+                                dtype=torch.uint8, device=device)
+                    if buf is None else buf)
+        self._maxp = self.buf[:self.maxp_size * rows].view(dtype)
+        self._classes = self.buf[self.maxp_size * rows:].view(torch.int8)
+
+    def add(self, lo: int, block: torch.Tensor) -> None:
+        """Score merged float32 rows ``block [n, n_classes]`` as positions
+        ``lo .. lo + n - 1``: argmax class and max probability."""
+        hi = lo + block.shape[0]
+        self._classes[lo:hi] = block.argmax(dim=1)
+        self._maxp[lo:hi] = block.amax(dim=1)
+
+    def host(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(classes int8 [rows], max_prob float32 [rows])`` on the host
+        (one copy)."""
+        buf = self.buf.cpu().numpy()
+        split = self.maxp_size * self.rows
+        if self.maxp_size == 2:
+            # numpy has no bfloat16: widen the 16 bits into the top half of
+            # a float32 (exact).
+            u16 = buf[:split].view(np.uint16)
+            maxp = (u16.astype(np.uint32) << 16).view(np.float32)
+        else:
+            maxp = buf[:split].view(np.float32)
+        return buf[split:].view(np.int8), maxp

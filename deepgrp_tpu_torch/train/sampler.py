@@ -47,6 +47,16 @@ def codes_from_onehot_rows(fwd: np.ndarray) -> np.ndarray:
     return np.where(occupied, fwd.argmax(axis=0), PAD_CODE).astype(np.int8)
 
 
+def local_batch_size(batch_size: int, world: int) -> int:
+    """A rank's share of a data-parallel batch; raises ``ValueError``
+    when ``batch_size`` does not divide by ``world``
+    (``parallel/train.py:38-41``)."""
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"{world} ranks")
+    return batch_size // world
+
+
 class BatchSampler:
     """Batch sampler bound to one dataset, on one device."""
 
@@ -104,6 +114,48 @@ class BatchSampler:
                                        device=self.device))
         starts = torch.cat(parts)
         return starts[torch.randperm(self.batch_size, generator=generator,
+                                     device=self.device)]
+
+    def sample_starts_dp(self, generator: torch.Generator, rank: int,
+                         world: int) -> torch.Tensor:
+        """Rank ``rank``'s shuffled ``[batch_size // world]`` window starts
+        of a data-parallel batch with exact global class quotas
+        (``_sample_starts_dp``, ``sampler.py:114-160``).
+
+        The ``n_sampled * one_class_size`` class slots of the global batch
+        are numbered class-major (slot ``g`` belongs to class ``g //
+        one_class_size``) and striped over the ranks: rank ``r`` samples
+        slots ``r * slots + j`` for ``j < slots = ceil(filled / world)``
+        and turns those past the end into uniform starts.  Summed over the
+        ranks each class gets exactly ``one_class_size`` starts, as in one
+        process; the rest of each rank's batch is uniform.  ``generator``
+        is the rank's own (it takes the place of the JAX key's
+        ``fold_in`` of the device index).
+        """
+        local_batch = local_batch_size(self.batch_size, world)
+        n_sampled, ocs = self.n_sampled_classes, self.one_class_size
+        filled = n_sampled * ocs
+        slots = -(-filled // world) if filled else 0
+        if slots > local_batch:
+            raise ValueError(f"per-rank batch {local_batch} cannot hold "
+                             f"ceil({filled}/{world}) class-balanced slots")
+        high = self.seq_len - self.vecsize
+        parts = []
+        if slots:
+            slot = rank * slots + torch.arange(slots, device=self.device)
+            cls = (slot // ocs).clamp(0, n_sampled - 1)
+            picks = torch.randint(0, 1 << 30, (slots,), generator=generator,
+                                  device=self.device) % self.lengths[cls]
+            fill = torch.randint(0, high, (slots,), generator=generator,
+                                 device=self.device)
+            parts.append(torch.where(slot < filled,
+                                     self.candidates[cls, picks], fill))
+        if local_batch > slots:
+            parts.append(torch.randint(0, high, (local_batch - slots,),
+                                       generator=generator,
+                                       device=self.device))
+        starts = torch.cat(parts)
+        return starts[torch.randperm(local_batch, generator=generator,
                                      device=self.device)]
 
     def gather(self, starts: torch.Tensor

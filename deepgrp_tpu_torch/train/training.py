@@ -23,6 +23,10 @@ from one ``torch.Generator`` on the device and the losses stay there; the
 host reads them once per epoch (the counterpart of the JAX package's one
 dispatch per epoch).  The validation batch runs without dropout, through
 the inference kernels.
+
+With a process group of several ranks the loop is data-parallel
+(:class:`Trainer`'s ``group``; the step is
+:func:`deepgrp_tpu_torch.parallel.train.dp_train_step`).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from deepgrp_tpu_torch.config import Options
 from deepgrp_tpu_torch.data.preprocess import Data
@@ -44,9 +49,10 @@ from deepgrp_tpu_torch.models.model import (
     DeepGRPModel, ModelConfig, forward_logits_from_codes,
     forward_logits_from_codes_train, init_params, one_hot,
     resolve_rnn_kernel)
+from deepgrp_tpu_torch.parallel.mesh import is_first_rank
 from deepgrp_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from deepgrp_tpu_torch.train.optimizers import get_optimizer
-from deepgrp_tpu_torch.train.sampler import BatchSampler
+from deepgrp_tpu_torch.train.sampler import BatchSampler, local_batch_size
 from deepgrp_tpu_torch.utils.tb_events import EventFileWriter
 
 _LOG = logging.getLogger(__name__)
@@ -146,13 +152,21 @@ class Trainer:
 
     def __init__(self, model: DeepGRPModel, options: Options,
                  logdir: os.PathLike, tensorboard: bool = True,
-                 rnn_kernel: str = "auto"):
+                 rnn_kernel: str = "auto",
+                 group: Optional[dist.ProcessGroup] = None):
         self.model = model
         self.options = options
         self.logdir = logdir
         self.fused = resolve_rnn_kernel(rnn_kernel)
-        self.checkpoints = CheckpointManager(logdir)
-        self.writer = MetricsWriter(logdir, tensorboard=tensorboard)
+        # Data-parallel over ``group`` when it has more than one rank
+        # (``training.py:270-345``).
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
+        # In a multi-process run only the first rank writes files.
+        writes = is_first_rank()
+        self.checkpoints = CheckpointManager(logdir) if writes else None
+        self.writer = (MetricsWriter(logdir, tensorboard=tensorboard)
+                       if writes else None)
 
     def fit(self, train_data: Data, val_data: Data,
             params: Optional[Params] = None, seed: int = 0,
@@ -167,10 +181,31 @@ class Trainer:
         (with a fresh optimizer state); else Keras-default initial values
         drawn from ``seed``.  ``stop_on_nan`` ends the loop at the first
         epoch whose mean training loss is not finite.
+
+        Data-parallel (``group`` of more than one rank): the first rank's
+        starting parameters go to every rank; each step, rank ``r`` draws
+        its ``batch_size / world`` windows (exact global class quotas,
+        ``BatchSampler.sample_starts_dp``) and masks from a generator
+        seeded from ``(seed, r)`` and takes :func:`~deepgrp_tpu_torch.
+        parallel.train.dp_train_step`.  Every rank draws the same
+        validation batch (a generator seeded from ``seed``), scores its
+        slice, and the losses are averaged by an ``all_reduce``, so every
+        rank takes the same early-stopping and NaN decisions and returns
+        the same history.
         """
         options, model = self.options, self.model
         config = model.config
-        if params is None and resume:
+        data_parallel = self.world > 1
+        if data_parallel:
+            from deepgrp_tpu_torch.parallel.train import (broadcast_params,
+                                                          dp_train_step)
+
+            rank = dist.get_rank(self.group)
+            # Raises before any collective, on every rank alike.
+            local_batch = local_batch_size(options.batch_size, self.world)
+        else:
+            rank, local_batch = 0, int(options.batch_size)
+        if params is None and resume and self.checkpoints is not None:
             latest = self.checkpoints.latest_path()
             if latest is not None:
                 params = params_from_jax(load_params(latest))
@@ -178,13 +213,18 @@ class Trainer:
         if params is None:
             params = init_params(config, torch.Generator().manual_seed(seed))
         model.load_state_dict(params)
+        if data_parallel:
+            broadcast_params(model, self.group)
         optimizer = get_optimizer(options, model.parameters())
 
         device = model.device
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = torch.Generator(device=device).manual_seed(
+            seed * 65537 + rank if data_parallel else seed)
+        val_generator = (torch.Generator(device=device).manual_seed(seed)
+                         if data_parallel else generator)
         train_sampler = BatchSampler(options, train_data, device)
         val_sampler = BatchSampler(options, val_data, device)
-        rows = 2 * train_sampler.batch_size
+        rows = 2 * local_batch
         rate = float(config.dropout)
 
         history: Dict[str, List[float]] = {"loss": [], "val_loss": []}
@@ -195,12 +235,22 @@ class Trainer:
             epoch_t0 = time.time()
             losses = []
             for _ in range(options.n_batches):
-                codes, labels = train_sampler.batch(generator)
+                if data_parallel:
+                    codes, labels = train_sampler.gather(
+                        train_sampler.sample_starts_dp(generator, rank,
+                                                       self.world))
+                else:
+                    codes, labels = train_sampler.batch(generator)
                 masks = (rnn.input_dropout_masks(generator, rows, rate,
                                                  config.gates)
                          if rate > 0.0 else None)
-                losses.append(train_step(model, optimizer, codes, labels,
-                                         masks, self.fused))
+                if data_parallel:
+                    losses.append(dp_train_step(model, optimizer, codes,
+                                                labels, masks, self.group,
+                                                self.fused))
+                else:
+                    losses.append(train_step(model, optimizer, codes,
+                                             labels, masks, self.fused))
             train_loss = torch.stack(losses).mean().item()
             if stop_on_nan and not math.isfinite(train_loss):
                 _LOG.warning("non-finite training loss at epoch %d; "
@@ -208,16 +258,24 @@ class Trainer:
                 break
 
             with torch.no_grad():
-                val_codes, val_labels = val_sampler.batch(generator)
+                val_starts = val_sampler.sample_starts(val_generator)
+                val_starts = val_starts[rank * local_batch:
+                                        (rank + 1) * local_batch]
+                val_codes, val_labels = val_sampler.gather(val_starts)
                 val_loss = categorical_crossentropy(
                     forward_logits_from_codes(model.params(), val_codes,
-                                              config), val_labels).item()
+                                              config), val_labels)
+                if data_parallel:
+                    dist.all_reduce(val_loss, group=self.group)
+                    val_loss /= self.world
+                val_loss = val_loss.item()
 
             history["loss"].append(train_loss)
             history["val_loss"].append(val_loss)
             metrics = {"loss": train_loss, "val_loss": val_loss,
                        "epoch_seconds": time.time() - epoch_t0}
-            self.writer.write(epoch, metrics)
+            if self.writer is not None:
+                self.writer.write(epoch, metrics)
             for callback in callbacks or []:
                 callback(epoch, metrics)
             _LOG.info("epoch %d: loss=%.5f val_loss=%.5f", epoch,
@@ -226,7 +284,8 @@ class Trainer:
             if val_loss < best_val:
                 best_val = val_loss
                 best_params = host_params(model)
-                self.checkpoints.save(epoch, params_to_jax(best_params))
+                if self.checkpoints is not None:
+                    self.checkpoints.save(epoch, params_to_jax(best_params))
                 patience = 0
             else:
                 patience += 1
@@ -245,7 +304,8 @@ def training(data: Tuple[Data, Data], options: Options,
              extra_callbacks: Optional[List[MetricCallback]] = None,
              params: Optional[Params] = None, seed: int = 0,
              device: str = "cuda", tensorboard: bool = True,
-             rnn_kernel: str = "auto"
+             rnn_kernel: str = "auto",
+             group: Optional[dist.ProcessGroup] = None
              ) -> Tuple[Params, Dict[str, List[float]]]:
     """Functional API mirroring the reference ``training()``
     (training.py:15-73).  Returns ``(best_params, history)``.
@@ -255,14 +315,16 @@ def training(data: Tuple[Data, Data], options: Options,
     always runs) mirrors the metrics into event files beside
     ``metrics.jsonl``; ``rnn_kernel`` picks the step's route
     (auto|scan|fused, :func:`~deepgrp_tpu_torch.models.model.
-    resolve_rnn_kernel`).
+    resolve_rnn_kernel`); ``group`` trains data-parallel over its ranks
+    (:class:`Trainer`).
     """
     if model is None:
         model = DeepGRPModel(ModelConfig.from_options(options), device)
     trainer = Trainer(model, options, logdir, tensorboard=tensorboard,
-                      rnn_kernel=rnn_kernel)
+                      rnn_kernel=rnn_kernel, group=group)
     try:
         return trainer.fit(data[0], data[1], params=params, seed=seed,
                            callbacks=extra_callbacks)
     finally:
-        trainer.writer.close()
+        if trainer.writer is not None:
+            trainer.writer.close()

@@ -22,7 +22,9 @@ def test_importing_every_module_loads_no_jax():
     for name in ("models.cuda_rnn", "train.sampler", "train.optimizers",
                  "train.checkpoint", "train.training", "data.preprocess",
                  "hpo", "hpo.space", "hpo.tpe", "hpo.optimization",
-                 "hpo.vmapped", "hpo.bucketed", "utils.tb_events"):
+                 "hpo.vmapped", "hpo.bucketed", "utils.tb_events",
+                 "parallel", "parallel.mesh", "parallel.predict",
+                 "parallel.train"):
         assert f"deepgrp_tpu_torch.{name}" in modules, name
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
