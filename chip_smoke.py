@@ -26,7 +26,11 @@ Phases (any failure exits non-zero; nothing is caught):
    size from ``mbp_manifest.json``) through ``gru_att`` at ``-b 1024``;
    all 1456 rows must equal ``mbp.bed``.  Prints windows/s end to end.
 5. Where the time goes: the same chromosome stage by stage on the host
-   clock, and the engine's device time by kernel name (``torch.profiler``).
+   clock, the engine and the streaming host MSS as one overlapped stage
+   (``-t 1``) with the MSS's tail after the last slice's bytes landed, the
+   host time the chunk loop's thread takes to enqueue the engine stage, the
+   serial engine + whole-array MSS beside it (labels equal), and the
+   engine's device time by kernel name (``torch.profiler``).
 6. Training kernels vs plain: the four training kernels (GRU and LSTM,
    forward and backward) against their plain versions at the flagship
    training shape (B=256 windows, T=342, u=60) and a ragged one (B=37,
@@ -129,11 +133,29 @@ Phases (any failure exits non-zero; nothing is caught):
     default backend (``cpu:gloo,cuda:nccl``) at world size 1: an NCCL
     all-reduce, and ``predict`` (the ``gru_att`` fixture BED) and
     ``train`` (2 x 3 steps) through the CLI's launch flags.
+14. The MSS routes of ``predict``: phase 4's chromosome through the CLI
+    with ``--device-mss auto`` at ``-t 1`` and ``-t 0`` (the streaming
+    host MSS), ``on`` (the whole MSS on the card, ``dg_mss_stack``,
+    ``csrc/mss_stack.cu``) and ``off``, two turns each (seconds, the MSS
+    tail), all 1456 rows equal to ``mbp.bed``; the three fixture BEDs on
+    each route; 4 shards on ``cuda:0`` with ``auto``, which must run the
+    MSS on the card (``dg_mss_stack``) on this sparse track (its runs
+    printed); in bf16 every
+    route's classes equal to the ``off`` route's bit for bit;
+    ``dg_mss_stack`` against its plain version on the track's collapsed
+    runs (segments equal; timed, with its byte bound); the count of
+    positions where the card's score transform differs from numpy's (not
+    gated); the copy rate of a slice and of the whole track to pinned host
+    memory; and on a noisy 1 Mbp track (random weights at full width) a
+    capacity overflow at 64 runs and the doubling retry, whose classes
+    must equal the ``off`` route's.
 
 Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
-not have run.  The line before the last lists each kernel
-(``{"kernels": [...]}``); the last line is ``{"ok": true, "device": ...}``.
+not have run (``dg_mss_stack`` on the ``on`` route and the sharded
+engine's ``auto`` on a sparse track only).  The line before
+the last lists each kernel (``{"kernels": [...]}``); the last line is
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -422,33 +444,79 @@ def check_path(kernel: str):
 
 def reset_counts():
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
+    from deepgrp_tpu_torch.ops import mss_device
 
     cuda_rnn.LAUNCHES.reset()
     rnn.PLAIN_CALLS.reset()
+    mss_device.LAUNCHES.reset()
+
+
+class LandingClock:
+    """Host-clock time at which the last slice copy a reader waited for
+    had reached the host (``last``; wraps ``ScoredTrack.wait``), and at
+    which the last call of ``postprocess.predict_sequence`` returned
+    (``returned``): ``returned - last`` is the MSS tail, also of a CLI run
+    (which looks the function up at call time)."""
+
+    def __enter__(self):
+        from deepgrp_tpu_torch.predict import postprocess
+        from deepgrp_tpu_torch.predict.engine import ScoredTrack
+
+        self.last = self.returned = None
+        self._saved = (ScoredTrack.wait, postprocess.predict_sequence)
+        wait_fn, sequence_fn = self._saved
+
+        def wait(track, i):
+            wait_fn(track, i)
+            self.last = time.perf_counter()
+
+        def predict_sequence(*args, **kwargs):
+            out = sequence_fn(*args, **kwargs)
+            self.returned = time.perf_counter()
+            return out
+
+        ScoredTrack.wait = wait
+        postprocess.predict_sequence = predict_sequence
+        return self
+
+    def __exit__(self, *exc):
+        from deepgrp_tpu_torch.predict import postprocess
+        from deepgrp_tpu_torch.predict.engine import ScoredTrack
+
+        ScoredTrack.wait, postprocess.predict_sequence = self._saved
+        return False
 
 
 def breakdown_phase(torch, fasta: str, man: dict) -> None:
     """Where the time of the real-size run goes: host clock around each
-    stage of the predict path (the engine's stage ends in its one copy to
-    the host, so it includes the device), then one engine run under
+    stage of the predict path, the engine and the streaming host MSS as one
+    stage (``predict_sequence`` at ``-t 1``, as the CLI runs it), with the
+    MSS's tail after the last slice's bytes reached the host; then the
+    engine alone (its copies landed) and the whole-array host MSS alone,
+    the serial stages the overlap replaces; then one engine run under
     ``torch.profiler`` for the device time by kernel name."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import load_model
     from deepgrp_tpu_torch.models.model import DeepGRPModel
     from deepgrp_tpu_torch.ops import mss
     from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
     from deepgrp_tpu_torch.ops.segments import yield_segments
-    from deepgrp_tpu_torch.predict.engine import (PredictionEngine,
-                                                  mss_score_transform)
+    from deepgrp_tpu_torch.predict.engine import PredictionEngine
+    from deepgrp_tpu_torch.predict.postprocess import predict_sequence
 
     config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
     engine = PredictionEngine(DeepGRPModel.from_params(config, params),
                               batch_size=1024, step_size=man["step_size"])
-    engine.predict_scored(np.random.default_rng(0).integers(  # warm-up
-        0, 5, 4 * config.vecsize).astype(np.int8))
+    options = Options(vecsize=config.vecsize, batch_size=1024,
+                      min_mss_len=man["min_mss_len"],
+                      xdrop_len=man["xdrop_len"])
+    with open(fasta) as fh:  # warm-up at the real size (pinned memory)
+        predict_sequence(engine, encode_codes_trimmed(
+            next(read_multi_fasta(fh))[1])[1], options, threads=1)
     stages = {}
     clock = time.perf_counter()
 
@@ -463,19 +531,45 @@ def breakdown_phase(torch, fasta: str, man: dict) -> None:
     lap("read")
     start, codes = encode_codes_trimmed(sequence)
     lap("encode")
-    classes, maxp = engine.predict_scored(codes)
-    lap("engine (device scan + copy)")
-    scores = mss_score_transform(classes, maxp).astype(np.float64)
-    labels = mss.find_mss_classes(scores, classes.astype(np.int64),
-                                  config.n_classes, man["min_mss_len"],
-                                  man["xdrop_len"])
-    lap("MSS (host)")
+    with LandingClock() as landed:
+        labels = predict_sequence(engine, codes, options, threads=1)
+    lap("engine + streaming MSS")
+    tail = clock - landed.last
     rows = sum(1 for seg in yield_segments(labels, start) if seg[2] > 0)
     lap("segments")
     total = sum(stages.values())
     print(f"stages of the predict path ({rows} rows, {total:.4f} s): "
           + ", ".join(f"{k} {v:.4f} s ({100 * v / total:.1f}%)"
                       for k, v in stages.items()), flush=True)
+    overlapped = stages["engine + streaming MSS"]
+    print(f"MSS tail after the last slice landed: {tail:.4f} s "
+          f"({100 * tail / overlapped:.1f}% of the overlapped stage)",
+          flush=True)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter()
+    engine.scored_tracks(codes).finish()
+    enqueue_s = time.perf_counter() - start_s
+    torch.cuda.synchronize()
+    print(f"the chunk loop's thread enqueues the whole engine stage in "
+          f"{enqueue_s:.4f} s of host time (no copies; the card then finishes "
+          f"it)", flush=True)
+    start_s = time.perf_counter()
+    classes, maxp = engine.predict_scored(codes)
+    engine_s = time.perf_counter() - start_s
+    scores = engine.predict_mss_scores(codes)[1].astype(np.float64)
+    start_s = time.perf_counter()
+    serial = mss.find_mss_classes(scores, classes.astype(np.int64),
+                                  config.n_classes, man["min_mss_len"],
+                                  man["xdrop_len"], threads=1)
+    mss_s = time.perf_counter() - start_s
+    print(f"serial, for comparison: engine alone {engine_s:.4f} s + "
+          f"whole-array host MSS (-t 1) {mss_s:.4f} s = "
+          f"{engine_s + mss_s:.4f} s; overlapped {overlapped:.4f} s; "
+          f"labels equal: {bool(np.array_equal(serial, labels))}",
+          flush=True)
+    if not np.array_equal(serial, labels):
+        raise AssertionError("the streaming MSS's labels differ from the "
+                             "whole-array search's")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -487,7 +581,7 @@ def breakdown_phase(torch, fasta: str, man: dict) -> None:
             by_name[event.name] = (by_name.get(event.name, 0.0)
                                    + event.time_range.elapsed_us() / 1e3)
     busy_ms = sum(by_name.values())
-    engine_ms = 1e3 * stages["engine (device scan + copy)"]
+    engine_ms = 1e3 * engine_s
     if busy_ms == 0:
         print("device time by kernel: not measured (the profiler saw no "
               "device events)", flush=True)
@@ -1125,36 +1219,43 @@ def bf16_kernel_phase(torch):
 
 class Recorder:
     """Keeps, for the CLI runs made inside it, each sequence's engine
-    scores ``(classes, maxp)`` and MSS labels (wraps the engine's
-    ``predict_scored`` and ``postprocess.predict_sequence``)."""
+    scores ``(classes, maxp)`` on the host and its MSS labels (wraps the
+    engine's ``scored_tracks``, which every MSS route reads, and
+    ``postprocess.predict_sequence``)."""
 
     def __enter__(self):
         from deepgrp_tpu_torch.predict import engine, postprocess
 
-        self.scored, self.labels = [], []
-        self._saved = (engine.PredictionEngine.predict_scored,
+        self._tracks, self.labels = [], []
+        self._saved = (engine.PredictionEngine.scored_tracks,
                        postprocess.predict_sequence)
-        scored_fn, sequence_fn = self._saved
+        tracks_fn, sequence_fn = self._saved
 
-        def predict_scored(eng, codes):
-            out = scored_fn(eng, codes)
-            self.scored.append(out)
-            return out
+        def scored_tracks(eng, codes):
+            track = tracks_fn(eng, codes)
+            self._tracks.append((track, codes.shape[0]))
+            return track
 
         def predict_sequence(*args, **kwargs):
             out = sequence_fn(*args, **kwargs)
             self.labels.append(out)
             return out
 
-        engine.PredictionEngine.predict_scored = predict_scored
+        engine.PredictionEngine.scored_tracks = scored_tracks
         postprocess.predict_sequence = predict_sequence
         return self
 
     def __exit__(self, *exc):
+        import numpy as np
+
         from deepgrp_tpu_torch.predict import engine, postprocess
 
-        engine.PredictionEngine.predict_scored = self._saved[0]
+        engine.PredictionEngine.scored_tracks = self._saved[0]
         postprocess.predict_sequence = self._saved[1]
+        self.scored = [track.host_scored() if track is not None else
+                       (np.zeros(n, np.int8), np.zeros(n, np.float32))
+                       for track, n in self._tracks]
+        self._tracks = []
         return False
 
 
@@ -2039,6 +2140,285 @@ def nccl_cli_phase(torch, np, tmp: str) -> None:
         raise AssertionError("train with the launch flags")
 
 
+MSS_STACK_REPLACES = "deepgrp_tpu/ops/mss_device.py:160"
+MSS_ROUTES = {"auto -t 1": (["-t", "1"], "auto"),
+              "auto -t 0": (["-t", "0"], "auto"),
+              "on": ([], "on"), "off": ([], "off")}
+# The noisy track of phase 14: random weights at the flagship's width.
+NOISY_BP = 1 << 20
+
+
+def mss_launches():
+    from deepgrp_tpu_torch.ops import mss_device
+
+    return mss_device.LAUNCHES.snapshot()
+
+
+def check_mss_route(route: str, on_card: bool = False) -> int:
+    """``dg_mss_stack``'s launches on the run just made: at least one on
+    the ``on`` route (and where ``on_card`` says the route runs the MSS on
+    the card), none on the others; never the plain scan."""
+    counts = mss_launches()
+    launched = counts.get("mss_stack", 0)
+    if counts.get("mss_stack_plain", 0):
+        raise AssertionError(f"{route}: the plain stack scan ran: {counts}")
+    if (launched > 0) != (route == "on" or on_card):
+        raise AssertionError(f"{route}: dg_mss_stack launched {launched} "
+                             "times")
+    return launched
+
+
+def mss_routes_phase(torch, np, tmp: str, man: dict, seq: str) -> dict:
+    """Phase 14: the MSS routes of ``predict`` on the card; returns
+    ``dg_mss_stack``'s kernel row, with its launches on the main path (the
+    ``on`` route of the 4.9 Mbp run)."""
+    import synth_mbp  # numpy only
+
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                                init_params)
+    from deepgrp_tpu_torch.ops import mss, mss_device
+    from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
+    from deepgrp_tpu_torch.parallel.predict import ShardedPredictionEngine
+    from deepgrp_tpu_torch.predict import engine as engine_lib, postprocess
+    from deepgrp_tpu_torch.predict.engine import (PredictionEngine,
+                                                  mss_score_transform)
+
+    fasta = os.path.join(tmp, "mbp.fa")
+    synth_mbp.write_fasta(fasta, man["header"], seq)
+    mbp_args = ["-b", "1024", "-s", str(man["step_size"]), "-x",
+                str(man["xdrop_len"]), "-l", str(man["min_mss_len"])]
+    model_path = os.path.join(TORCH_FIXDIR, "gru_att.npz")
+    want = expected_rows("mbp")
+    seconds = {}
+    main_launches = None
+    # The 4.9 Mbp chromosome through the CLI on every route, in turns.
+    order = list(MSS_ROUTES) + list(reversed(MSS_ROUTES))
+    for route in order:
+        flags, choice = MSS_ROUTES[route]
+        argv = flags + mbp_args + ["predict", model_path, fasta,
+                                   "--device-mss", choice]
+        reset_counts()
+        with LandingClock() as landed:
+            start = time.perf_counter()
+            rows = predict_rows(argv, os.path.join(tmp, "mbp_mss.bed"))
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+        check_path("gru_avg")
+        count = check_mss_route(route)
+        if route == "on" and main_launches is None:
+            main_launches = count
+        seconds.setdefault(route, []).append(end - start)
+        tail = (f"; MSS tail after the last slice landed "
+                f"{landed.returned - landed.last:.4f} s (then "
+                f"{end - landed.returned:.4f} s to the written BED)"
+                if choice == "auto" else "")
+        print(f"mbp --device-mss {route}: {len(rows)} rows, identical="
+              f"{rows == want}, {end - start:.4f} s = "
+              f"{man['n_windows'] / (end - start):.1f} windows/s end to "
+              f"end{tail}; dg_mss_stack launches {count}", flush=True)
+        if rows != want:
+            raise AssertionError(f"mbp --device-mss {route}: rows differ")
+    print("mbp seconds by route (two turns): " + ", ".join(
+        f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in seconds.items()),
+        flush=True)
+
+    # The three fixtures through each route.
+    for name in ("gru_att", "gru", "lstm"):
+        for route in ("auto", "on", "off"):
+            reset_counts()
+            rows = predict_rows(
+                REF_ARGS + ["predict", os.path.join(TORCH_FIXDIR,
+                                                    f"{name}.npz"),
+                            os.path.join(FIXDIR, f"{name}.fa"),
+                            "--device-mss", route],
+                os.path.join(tmp, f"{name}_{route}.bed"))
+            check_path("lstm_avg" if name == "lstm" else "gru_avg")
+            check_mss_route(route)
+            if rows != expected_rows(name):
+                raise AssertionError(f"{name} --device-mss {route}: rows "
+                                     "differ")
+        print(f"{name}: rows == {name}.bed on auto, on and off", flush=True)
+
+    config, params = load_model(model_path)
+    model = DeepGRPModel.from_params(config, params, "cuda:0")
+    startpos, codes = encode_codes_trimmed(seq)
+    step, batch = man["step_size"], 1024
+    options = Options(vecsize=config.vecsize, batch_size=batch,
+                      min_mss_len=man["min_mss_len"],
+                      xdrop_len=man["xdrop_len"])
+
+    # The routes inside one process, without the FASTA read and encoding:
+    # predict_sequence on the encoded chromosome, in turns.
+    single = PredictionEngine(model, batch, step)
+    by_route = {route: [] for route in MSS_ROUTES}
+    for turn in range(3):
+        for route in (order if turn % 2 == 0 else reversed(order)):
+            flags, choice = MSS_ROUTES[route]
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            postprocess.predict_sequence(single, codes, options,
+                                         threads=int(flags[1]) if flags
+                                         else 1, device_mss=choice)
+            torch.cuda.synchronize()
+            by_route[route].append(time.perf_counter() - start)
+    print("predict_sequence seconds by route (engine and MSS, 6 runs each, "
+          "median): " + ", ".join(
+              f"{k} {float(np.median(v)):.4f} (min {min(v):.4f}, max "
+              f"{max(v):.4f})" for k, v in by_route.items()), flush=True)
+
+    # 4 shards on cuda:0, auto: this sparse track's MSS runs on the card.
+    sharded = ShardedPredictionEngine(model, ["cuda:0"] * 4, batch, step)
+    runs = sharded.scored_tracks(codes).count_runs()
+    taken = []
+    real_on_device = postprocess.apply_mss_on_device
+
+    def spy(*args, **kwargs):
+        taken.append(kwargs.get("runs"))
+        return real_on_device(*args, **kwargs)
+
+    postprocess.apply_mss_on_device = spy
+    try:
+        reset_counts()
+        start = time.perf_counter()
+        rows = bed_rows(sharded, [(startpos, codes, man["header"])],
+                        options)
+        shard_s = time.perf_counter() - start
+    finally:
+        postprocess.apply_mss_on_device = real_on_device
+    check_path("gru_avg")
+    shard_launches = check_mss_route("4 shards auto", on_card=True)
+    print(f"4 shards on cuda:0, auto: {runs} positive runs (threshold "
+          f"{postprocess.DEVICE_MSS_AUTO_MAX_RUNS}), MSS on the card for "
+          f"runs {taken}, dg_mss_stack launches {shard_launches}, "
+          f"{len(rows)} rows, identical={rows == want}, {shard_s:.4f} s "
+          f"(engine and MSS)", flush=True)
+    if taken != [runs] or rows != want:
+        raise AssertionError("4 shards auto: not the MSS on the card, or "
+                             "rows differ")
+
+    # bf16: every route's classes equal the off route's, bit for bit.
+    single16 = PredictionEngine(model, batch, step, torch.bfloat16)
+    sharded16 = ShardedPredictionEngine(model, ["cuda:0"] * 4, batch, step,
+                                        torch.bfloat16)
+    want16 = postprocess.predict_sequence(single16, codes, options,
+                                          threads=1, device_mss="off")
+    for label, engine, route, threads in (
+            ("auto -t 1", single16, "auto", 1),
+            ("auto -t 0", single16, "auto", 0), ("on", single16, "on", 1),
+            ("4 shards auto", sharded16, "auto", 1)):
+        mss_device.LAUNCHES.reset()
+        got = postprocess.predict_sequence(engine, codes, options,
+                                           threads=threads, device_mss=route)
+        check_mss_route(label, on_card=label == "4 shards auto")
+        same = bool(np.array_equal(np.asarray(got, np.int64),
+                                   np.asarray(want16, np.int64)))
+        print(f"bf16 {label}: classes == bf16 off: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"bf16 {label}: classes differ from off")
+
+    # dg_mss_stack against its plain version on the track's runs.
+    track = single.scored_tracks(codes)
+    classes_d, maxp_d = track.device()
+    scores_d, _ = mss_device.scored_to_scores(classes_d, maxp_d,
+                                              codes.shape[0])
+    covered = min(codes.shape[0], classes_d.shape[0])
+    host_c, host_p = track.host_scored()
+    host_scores = mss_score_transform(host_c[:covered], host_p[:covered])
+    dev_scores = scores_d[:covered].cpu().numpy()
+    ulps = np.abs(dev_scores.view(np.int32).astype(np.int64)
+                  - host_scores.view(np.int32).astype(np.int64))
+    print(f"device score transform against the host's: {int((ulps > 0).sum())}"
+          f" of {ulps.size} positions differ, by at most {int(ulps.max())} "
+          f"ulp (recorded, not gated: the gate is the BED)", flush=True)
+    n_runs = mss_device.count_positive_runs(scores_d)
+    cand = mss_device.collapse_runs(scores_d, mss_device.run_capacity(n_runs))
+    min_score, xdrop = mss.mss_thresholds(man["min_mss_len"],
+                                          man["xdrop_len"])
+    seg_s, seg_e, count = mss_device.mss_stack(cand, min_score, xdrop)
+    torch.cuda.synchronize()
+    cpu_cand = mss_device.Candidates(*(t.cpu() for t in cand))
+    start = time.perf_counter()
+    plain = mss_device.mss_stack(cpu_cand, min_score, xdrop)
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    n_seg = int(count)
+    err = max(abs(n_seg - int(plain[2])),
+              int((seg_s.cpu() - plain[0]).abs().max()),
+              int((seg_e.cpu() - plain[1]).abs().max()))
+    ms = cuda_ms(torch, lambda: mss_device.mss_stack(cand, min_score, xdrop),
+                 20)
+    n_bytes = 24 * n_runs + 8 * n_seg
+    row = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * n_bytes / PEAK_BYTES, "bound_by": "bytes",
+           "library_ms": None, "launches": main_launches}
+    print(f"dg_mss_stack on the 4.9 Mbp track: {n_runs} runs, {n_seg} "
+          f"segments, max_abs_err={err} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.6f} (bytes; "
+          f"the chain of dependent loads bounds it in fact)", flush=True)
+    if err:
+        raise AssertionError("dg_mss_stack differs from its plain version")
+
+    # The slice copy rate: one slice's bytes, and the whole track's,
+    # device to pinned host on a side stream.
+    maxp_size = 4
+    slice_bytes = (maxp_size + 1) * engine_lib.SLICE_CHUNKS * batch * step
+    for label, n in (("a slice", slice_bytes),
+                     ("the track", track.rows.buf.numel())):
+        n = min(n, track.rows.buf.numel())
+        src = track.rows.buf[:n]
+        dst = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            copy_ms = cuda_ms(
+                torch, lambda: dst.copy_(src, non_blocking=True), 20)
+        print(f"copy of {label} ({n} B) to pinned host memory: "
+              f"{copy_ms:.4f} ms = {n / copy_ms / 1e6:.2f} GB/s", flush=True)
+
+    # A noisy track (random weights): a forced overflow and its retry.
+    noisy_config = ModelConfig(vecsize=config.vecsize, units=config.units,
+                               attention=True, dropout=0.0)
+    noisy = DeepGRPModel.from_params(
+        noisy_config, init_params(noisy_config,
+                                  torch.Generator().manual_seed(5)),
+        "cuda:0")
+    noisy_codes = np.random.default_rng(5).integers(
+        0, 5, NOISY_BP).astype(np.int8)
+    engine = PredictionEngine(noisy, batch, step)
+    classes_d, maxp_d, _ = engine.predict_scored_device(noisy_codes)
+    runs = postprocess.scored_run_count(classes_d, maxp_d, NOISY_BP)
+    _, overflow = mss_device.mss_classes_from_scored(
+        classes_d, maxp_d, NOISY_BP, config.n_classes, options.min_mss_len,
+        options.xdrop_len, max_runs=64)
+    capacities = []
+    real_from_scored = mss_device.mss_classes_from_scored
+
+    def count_capacity(*args, max_runs):
+        capacities.append(max_runs)
+        return real_from_scored(*args, max_runs=max_runs)
+
+    mss_device.mss_classes_from_scored = count_capacity
+    try:
+        start = time.perf_counter()
+        got = postprocess.apply_mss_on_device(classes_d, maxp_d, options,
+                                              config.n_classes, NOISY_BP,
+                                              runs=1)
+        retry_s = time.perf_counter() - start
+    finally:
+        mss_device.mss_classes_from_scored = real_from_scored
+    want_noisy = postprocess.predict_sequence(engine, noisy_codes, options,
+                                              device_mss="off")
+    same = bool(np.array_equal(np.asarray(got, np.int64),
+                               np.asarray(want_noisy, np.int64)))
+    print(f"noisy track ({NOISY_BP} bp, random weights): {runs} positive "
+          f"runs; capacity 64 overflows: {bool(overflow)}; the retry went "
+          f"through capacities {capacities} in {retry_s:.4f} s; classes == "
+          f"off: {same}", flush=True)
+    if not (bool(overflow) and capacities[-1] >= runs and same):
+        raise AssertionError("noisy track: overflow or retry failed")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2174,6 +2554,14 @@ def main() -> int:
     print(f"launches on phase 13's paths: {path_launches}; phase 13 took "
           f"{time.perf_counter() - start:.2f} s", flush=True)
 
+    phase("14. the MSS routes of predict: --device-mss auto (streaming, "
+          "-t 1 and -t 0), on, off; 4 shards auto; bf16; dg_mss_stack; a "
+          "noisy track's overflow")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as mss_tmp:
+        mss_row = mss_routes_phase(torch, np, mss_tmp, man, seq)
+    print(f"phase 14 took {time.perf_counter() - start:.2f} s", flush=True)
+
     kernels = []
     sources = {**{name: ("rnn_avg.cu", replaces)
                   for name, (_, replaces) in KERNELS.items()},
@@ -2191,6 +2579,10 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "mss_stack", "route": "cuda",
+        "source": "deepgrp_tpu_torch/csrc/mss_stack.cu",
+        "replaces": MSS_STACK_REPLACES, **mss_row})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

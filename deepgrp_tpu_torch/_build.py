@@ -8,7 +8,8 @@ first use, into ``deepgrp_tpu_torch/_build/`` (ignored by git):
   training kernels, ``rnn_seq``: the GRU over a float input sequence), a
   plain C interface loaded with :mod:`ctypes` (no
   PyTorch headers, so a build takes seconds; the libraries build
-  independently, so they can build in parallel);
+  independently, so they can build in parallel; ``mss_stack``: the
+  on-device MSS's candidate-stack scan);
 * ``native/src/*.cc`` with ``g++`` (host MSS and encoding, see
   :mod:`deepgrp_tpu_torch.native`).
 
@@ -34,7 +35,7 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
 #: CUDA kernel libraries by name, one source each.
 CUDA_SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
-                for name in ("rnn_avg", "rnn_train", "rnn_seq")}
+                for name in ("rnn_avg", "rnn_train", "rnn_seq", "mss_stack")}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -176,8 +177,18 @@ def _declare_rnn_seq(lib: ctypes.CDLL) -> None:
     lib.dg_gru_seq_layout.restype = _I32
 
 
+def _declare_mss_stack(lib: ctypes.CDLL) -> None:
+    # starts, ends, l_glob, r_glob, n_runs, capacity, min_score, xdrop,
+    # stack_f, stack_i, out, stream
+    lib.dg_mss_stack.argtypes = ([_PTR] * 5 + [_I32, ctypes.c_double,
+                                               ctypes.c_double]
+                                 + [_PTR] * 4)
+    lib.dg_mss_stack.restype = _I32
+
+
 _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {
     "rnn_avg": _declare_rnn_avg,
     "rnn_train": _declare_rnn_train,
     "rnn_seq": _declare_rnn_seq,
+    "mss_stack": _declare_mss_stack,
 }

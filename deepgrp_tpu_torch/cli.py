@@ -152,6 +152,13 @@ def build_parser() -> argparse.ArgumentParser:
                          help="Shard the window stream over every visible "
                          "GPU (auto: when there is more than one, or over "
                          "the ranks of a multi-process run)")
+    predict.add_argument("--device-mss", nargs="?", const="on",
+                         choices=["auto", "on", "off"], default="auto",
+                         help="Where the MSS runs: 'auto' streams the host "
+                         "MSS behind the chunk loop (on several shards: "
+                         "the device for a sparse track, the host for a "
+                         "noisy one), 'on' runs it all on the device, "
+                         "'off' on the host after the whole track")
     return parser
 
 
@@ -258,7 +265,8 @@ def cmd_predict(args: argparse.Namespace) -> None:
                     startpos, codes = encode_codes_trimmed(dnasequence)
                     classes = predict_sequence(
                         engine, codes, options, threads=args.threads,
-                        use_mss=not args.no_use_mss)
+                        use_mss=not args.no_use_mss,
+                        device_mss=args.device_mss)
                     for segment in yield_segments(classes, startpos):
                         if segment[2] > 0:
                             outstream.write("{}\t{}\t{}\t{}\t{}\n".format(

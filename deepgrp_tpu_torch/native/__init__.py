@@ -2,7 +2,8 @@
 
 Compiles ``native/src/*.cc`` (a copy of the parts of the JAX package's
 native library that prediction uses: the Ruzzo–Tompa MSS labelling and
-N-trimming) with ``g++`` into ``deepgrp_tpu_torch/_build/`` and loads it.
+N-trimming; and the streaming MSS's split scan, which the JAX package
+does in numpy) with ``g++`` into ``deepgrp_tpu_torch/_build/`` and loads it.
 A failed build raises; there is no fallback.
 """
 
@@ -31,6 +32,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(i64), i64, i32, i32,
         i32, i32, ctypes.POINTER(i32),
     ]
+    for fn, scores in ((lib.dg_split_scan_f32, ctypes.c_float),
+                       (lib.dg_split_scan_f64, ctypes.c_double)):
+        fn.restype = i64
+        fn.argtypes = [
+            ctypes.POINTER(scores), i64, i64, ctypes.c_double, i64,
+            ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(i64),
+        ]
     lib.dg_trim_n.restype = None
     lib.dg_trim_n.argtypes = [
         ctypes.c_char_p, i64, ctypes.POINTER(i64), ctypes.POINTER(i64),

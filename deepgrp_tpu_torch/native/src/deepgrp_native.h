@@ -6,7 +6,9 @@
  *     majority-vote segment labelling (behavioural parity with the reference
  *     DeepGRP's _mss/mss.c + _mss/pymss.pyx),
  *   - leading/trailing 'N' trimming of a DNA sequence (reference
- *     sequence.pyx:21-36).
+ *     sequence.pyx:21-36),
+ *   - the streaming MSS's split scan (the port's own: the JAX package
+ *     scans in numpy).
  */
 #ifndef DEEPGRP_TPU_TORCH_NATIVE_H_
 #define DEEPGRP_TPU_TORCH_NATIVE_H_
@@ -53,6 +55,21 @@ void dg_find_mss_classes_mt(const double *scores, const int64_t *labels,
                             int64_t n, int32_t n_labels, int32_t min_mss_len,
                             int32_t xdrop_len, int32_t n_threads,
                             int32_t *classes_out);
+
+/* Streaming split-point scan (the port's SplitScanner, ops/mss.py): scans
+ * scores[lo..hi) in one pass, carrying the open non-positive run across
+ * calls in `state` = {run_start (-1: none), last_split} and `drop` (the open
+ * run's cumulative drop, in double).  A run that starts after position 0
+ * and ends at i (the first positive position after it) splits at i when its
+ * drop exceeds xdrop + 1e-6 * max(1, |xdrop|) and i - last_split >= min_gap.
+ * Writes the split points, ascending, into `out` (room for
+ * (hi - lo) / min_gap + 1) and returns their count. */
+int64_t dg_split_scan_f32(const float *scores, int64_t lo, int64_t hi,
+                          double xdrop, int64_t min_gap, int64_t *state,
+                          double *drop, int64_t *out);
+int64_t dg_split_scan_f64(const double *scores, int64_t lo, int64_t hi,
+                          double xdrop, int64_t min_gap, int64_t *state,
+                          double *drop, int64_t *out);
 
 /* On return [*start, *end) is the range of seq[0..n) left after trimming
  * leading and trailing 'N' bytes. */

@@ -226,3 +226,57 @@ extern "C" void dg_find_mss_classes_mt(const double *scores,
     }
   }
 }
+
+namespace {
+
+// One pass of the streaming split scan (deepgrp_native.h, dg_split_scan_*):
+// the exact split points of the reset-point decomposition above, found as
+// the score track lands, with the open run carried across calls.
+template <typename T>
+int64_t SplitScan(const T *scores, int64_t lo, int64_t hi, double xdrop,
+                  int64_t min_gap, int64_t *state, double *drop_io,
+                  int64_t *out) {
+  // The strict margin: the vectorised scans of other implementations sum
+  // a run in another order, so a run at the threshold is never split.
+  const double limit = xdrop + 1e-6 * std::max(1.0, std::fabs(xdrop));
+  int64_t run_start = state[0];
+  int64_t last_split = state[1];
+  double drop = *drop_io;
+  int64_t n_out = 0;
+  for (int64_t i = lo; i < hi; ++i) {
+    const double s = static_cast<double>(scores[i]);
+    if (s > 0.0) {
+      if (run_start > 0 && drop > limit && i - last_split >= min_gap) {
+        out[n_out++] = i;
+        last_split = i;
+      }
+      run_start = -1;
+    } else {
+      if (run_start < 0) {
+        run_start = i;
+        drop = 0.0;
+      }
+      drop -= s;
+    }
+  }
+  state[0] = run_start;
+  state[1] = last_split;
+  *drop_io = run_start >= 0 ? drop : 0.0;
+  return n_out;
+}
+
+}  // namespace
+
+extern "C" int64_t dg_split_scan_f32(const float *scores, int64_t lo,
+                                     int64_t hi, double xdrop,
+                                     int64_t min_gap, int64_t *state,
+                                     double *drop, int64_t *out) {
+  return SplitScan(scores, lo, hi, xdrop, min_gap, state, drop, out);
+}
+
+extern "C" int64_t dg_split_scan_f64(const double *scores, int64_t lo,
+                                     int64_t hi, double xdrop,
+                                     int64_t min_gap, int64_t *state,
+                                     double *drop, int64_t *out) {
+  return SplitScan(scores, lo, hi, xdrop, min_gap, state, drop, out);
+}

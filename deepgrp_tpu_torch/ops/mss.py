@@ -30,6 +30,15 @@ from deepgrp_tpu_torch import native
 _NEG_INF = -1e30
 
 
+def mss_thresholds(min_mss_len: int, xdrop_len: int) -> Tuple[float, float]:
+    """``(min_score, xdrop)`` of the labelling: ``s0 * min_mss_len`` and
+    ``s0 * xdrop_len * 10`` (-1, no X-drop, when ``xdrop_len <= 0``), with
+    ``s0 = logit(0.99)`` (``pymss.pyx:16-27``)."""
+    s0 = math.log(0.99 / (1.0 - 0.99))
+    return s0 * min_mss_len, (s0 * xdrop_len * 10.0 if xdrop_len > 0
+                              else -1.0)
+
+
 def default_threads(n: int) -> int:
     """Worker count for the exact-parallel MSS: 1 below ~1 Mbp, else the
     CPU count (at most 16)."""
@@ -79,6 +88,72 @@ def find_mss_labels(scores: np.ndarray, labels: np.ndarray,
     classes = find_mss_classes(scores, labels, nof_labels, min_mss_len,
                                xdrop_len, threads)
     return np.eye(nof_labels, dtype=np.float64)[classes]
+
+
+class SplitScanner:
+    """Incremental, exact block-split detection for the streaming MSS
+    (``SplitScanner``, ``deepgrp_tpu/ops/mss.py:151-268``).
+
+    The end of a maximal non-positive run that starts after position 0 and
+    whose cumulative drop exceeds ``xdrop`` is an exact block boundary:
+    Ruzzo–Tompa restarted there emits the same segments
+    (``native/src/mss_parallel.cc:1-24``).  :meth:`feed` scans the score
+    track as it lands, a prefix at a time, carries the open run across
+    feeds and returns the split points found so far, so that finished
+    blocks can be labelled while later positions are still being
+    computed.  A split needs ``drop > xdrop + 1e-6 * max(1, |xdrop|)``:
+    another scan sums a run in another order, so a run at the threshold
+    is never split.  Splits closer than ``min_gap`` positions to the
+    previous one are skipped (a noisy track has thousands of reset points,
+    and a block costs a dispatch).
+
+    The JAX package scans with vectorised numpy; here one pass of the
+    native library (``dg_split_scan_*``) does it, with the interpreter
+    lock released: the streaming route scans beside the chunk loop's
+    thread, which must keep the card fed.  The split points are the JAX
+    scanner's (the run drops differ only in rounding, far inside the
+    margin).
+    """
+
+    def __init__(self, xdrop: float, min_gap: int = 1 << 18):
+        self.xdrop = float(xdrop)
+        self.min_gap = int(min_gap)
+        self._pos = 0  # next unscanned position
+        # [start of the run open at _pos (-1: none), last split], and the
+        # open run's drop so far.
+        self._state = np.array([-1, 0], dtype=np.int64)
+        self._drop = np.zeros(1, dtype=np.float64)
+
+    def feed(self, scores: np.ndarray, upto: int) -> List[int]:
+        """Scan ``scores[pos:upto]`` (later entries may still be unwritten);
+        returns the new split points, ascending."""
+        lo, hi = self._pos, int(upto)
+        self._pos = max(self._pos, hi)
+        if hi <= lo or self.xdrop <= 0.0:
+            return []
+        if scores.dtype == np.float32 and scores.flags.c_contiguous:
+            fn, ctype = native.load().dg_split_scan_f32, ctypes.c_float
+        else:
+            scores = np.ascontiguousarray(scores, dtype=np.float64)
+            fn, ctype = native.load().dg_split_scan_f64, ctypes.c_double
+        out = np.empty((hi - lo) // max(self.min_gap, 1) + 1, np.int64)
+        i64 = ctypes.POINTER(ctypes.c_int64)
+        count = fn(scores.ctypes.data_as(ctypes.POINTER(ctype)), lo, hi,
+                   self.xdrop, self.min_gap, self._state.ctypes.data_as(i64),
+                   self._drop.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                   out.ctypes.data_as(i64))
+        return out[:count].tolist()
+
+
+def streaming_mss_block_classes(scores: np.ndarray, labels: np.ndarray,
+                                out: np.ndarray, lo: int, hi: int,
+                                nof_labels: int, min_mss_len: int,
+                                xdrop_len: int) -> None:
+    """Label the block ``[lo, hi)`` into ``out`` (int32), single-threaded:
+    the streaming route runs blocks in parallel.  ``lo`` and ``hi`` are 0,
+    the track's length or :class:`SplitScanner` split points."""
+    out[lo:hi] = find_mss_classes(scores[lo:hi], labels[lo:hi], nof_labels,
+                                  min_mss_len, xdrop_len, threads=1)
 
 
 def find_mss_classes_spec(scores: np.ndarray, labels: np.ndarray,
@@ -152,9 +227,7 @@ def _mss_find_all_py(scores: np.ndarray, min_score: float,
 def _find_mss_labels_py(scores: np.ndarray, labels: np.ndarray,
                         nof_labels: int, min_mss_len: int, xdrop_len: int,
                         out: np.ndarray) -> None:
-    s0 = math.log(0.99 / (1.0 - 0.99))
-    min_sc = s0 * min_mss_len
-    xdrop = s0 * xdrop_len * 10.0 if xdrop_len > 0 else -1.0
+    min_sc, xdrop = mss_thresholds(min_mss_len, xdrop_len)
     segs = _mss_find_all_py(scores, min_sc, xdrop)
     cursor = 0
     rng = np.arange(scores.size)

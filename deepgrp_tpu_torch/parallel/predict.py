@@ -41,8 +41,9 @@ import torch.distributed as dist
 
 from deepgrp_tpu_torch.models.model import PAD_CODE, DeepGRPModel
 from deepgrp_tpu_torch.parallel.mesh import Device, local_devices, world_size
-from deepgrp_tpu_torch.predict.engine import (PredictionEngine, ScoredRows,
-                                              window_starts)
+from deepgrp_tpu_torch.predict.engine import (PredictionEngine,
+                                              ScoredReadings, ScoredRows,
+                                              ScoredTrack, window_starts)
 
 # One shard's results: (track, head rows, tail rows).  The track is a
 # ScoredRows of the shard's range (scored route) or its merged float32
@@ -90,10 +91,10 @@ class _Shard:
         return self.track, self.head, self.tail
 
 
-class ShardedPredictionEngine:
+class ShardedPredictionEngine(ScoredReadings):
     """Windowed predictor sharded over devices (and processes), with the
     single engine's results and signatures (``predict``,
-    ``predict_scored``, ``model``).
+    ``scored_tracks`` and its readings, ``model``).
 
     ``devices`` are this process's shards (default: every visible GPU; a
     device may repeat).  ``collective`` picks where a shard boundary is
@@ -220,59 +221,69 @@ class ShardedPredictionEngine:
 
     # -- the two tracks ------------------------------------------------------
 
-    def _pieces(self, codes: np.ndarray, score: bool) -> List[tuple]:
-        """The stitched track as ``(first row, rows)`` pieces in order,
-        later pieces overwriting earlier ones: each shard's range, then
-        each boundary's combined rows, then the global tail.  A piece's
-        rows are ``(classes, max_prob)`` with ``score``, else merged
-        float32 rows, on the host."""
-        ran = self._run(codes, score)
-        if ran is None:
+    def _seams(self, parts: List[Parts], range_rows: int
+               ) -> List[Tuple[int, torch.Tensor]]:
+        """What the shards' ranges leave out, as ``(first row, merged
+        float32 rows)``: each boundary's rows combined (the head of the
+        range after it with the spill of the range before it, on the
+        head's device), then the global tail (the last shard's spill)."""
+        if not self._overlap:
             return []
+        seams = []
+        for d in range(1, len(parts)):
+            head = parts[d][1]
+            seams.append((d * range_rows, torch.maximum(
+                head, parts[d - 1][2].to(head.device))))
+        return seams + [(len(parts) * range_rows, parts[-1][2])]
+
+    def scored_tracks(self, codes: np.ndarray) -> Optional[ScoredTrack]:
+        """The stitched scored track as a complete
+        :class:`~deepgrp_tpu_torch.predict.engine.ScoredTrack` (the single
+        engine's contract; ``scored_tracks``, ``parallel/predict.py:413``
+        of the JAX package), or None when the sequence has no window.  It
+        is assembled on the first shard's device (on the host across
+        processes, and with ``collective=False``): each shard's range,
+        then each boundary's combined rows scored again, then the global
+        tail."""
+        ran = self._run(codes, score=True)
+        if ran is None:
+            return None
         parts, range_rows = ran
+        device = parts[0][0].buf.device
+        track = ScoredRows(len(parts) * range_rows + self._overlap,
+                           self.compute_dtype, device)
+        for d, (rows, _, _) in enumerate(parts):
+            track.place(d * range_rows, rows)
+        for lo, rows in self._seams(parts, range_rows):
+            track.add(lo, rows.to(device))
+        return ScoredTrack(track, codes.shape[0])
 
-        def final(rows: torch.Tensor):
-            if not score:
-                return rows.cpu().numpy()
-            track = ScoredRows(rows.shape[0], self.compute_dtype,
-                               rows.device)
-            track.add(0, rows)
-            return track.host()
+    def routes_by_sparsity(self) -> bool:
+        return True
 
-        pieces = [(d * range_rows,
-                   track.host() if score else track.cpu().numpy())
-                  for d, (track, _, _) in enumerate(parts)]
-        if self._overlap:
-            for d in range(1, len(parts)):
-                head = parts[d][1]
-                tail = parts[d - 1][2].to(head.device)
-                pieces.append((d * range_rows,
-                               final(torch.maximum(head, tail))))
-            pieces.append((len(parts) * range_rows, final(parts[-1][2])))
-        return pieces
+    def device_route_ok(self) -> bool:
+        """Whether the on-device MSS routes can take the track: False in a
+        run of several processes, where the track is gathered on the host
+        (the JAX package's multi-host guard, ``parallel/predict.py:427``)."""
+        return self._gloo is None
 
     def predict(self, codes: np.ndarray,
                 out_len: Optional[int] = None) -> np.ndarray:
         """Overlap-max merged class probabilities ``float32 [out_len,
-        n_classes]``, bit for bit :meth:`PredictionEngine.predict`'s."""
+        n_classes]``, bit for bit :meth:`PredictionEngine.predict`'s: each
+        shard's range, then each boundary's combined rows, then the global
+        tail, on the host."""
         out_len = codes.shape[0] if out_len is None else int(out_len)
         out = np.zeros((out_len, self.model.config.n_classes), np.float32)
-        for lo, rows in self._pieces(codes, score=False):
+        ran = self._run(codes, score=False)
+        if ran is None:
+            return out
+        parts, range_rows = ran
+        pieces = [(d * range_rows, track)
+                  for d, (track, _, _) in enumerate(parts)]
+        pieces += self._seams(parts, range_rows)
+        for lo, rows in pieces:  # later pieces overwrite earlier ones
             take = min(rows.shape[0], out_len - lo)
             if take > 0:
-                out[lo:lo + take] = rows[:take]
+                out[lo:lo + take] = rows[:take].cpu().numpy()
         return out
-
-    def predict_scored(self, codes: np.ndarray
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """Per-position ``(classes int8 [L], max_prob float32 [L])``, bit
-        for bit :meth:`PredictionEngine.predict_scored`'s."""
-        out_len = int(codes.shape[0])
-        out_classes = np.zeros(out_len, np.int8)
-        out_maxp = np.zeros(out_len, np.float32)
-        for lo, (classes, maxp) in self._pieces(codes, score=True):
-            take = min(classes.shape[0], out_len - lo)
-            if take > 0:
-                out_classes[lo:lo + take] = classes[:take]
-                out_maxp[lo:lo + take] = maxp[:take]
-        return out_classes, out_maxp

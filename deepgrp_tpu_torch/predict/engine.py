@@ -1,9 +1,9 @@
 """On-device sliding-window prediction engine.
 
 Counterpart of ``deepgrp_tpu/predict/engine.py`` (``PredictionEngine``:
-the scored route, ``predict_scored``, and the merged-probability track,
-``predict``).  The compact code sequence goes to the device once; for each
-chunk of ``batch_size`` windows the engine
+the scored track, ``scored_tracks`` and its readings, and the
+merged-probability track, ``predict``).  The compact code sequence goes to
+the device once; for each chunk of ``batch_size`` windows the engine
 
   * gathers the code windows (``unfold`` of the padded sequence, the torch
     form of ``chunk_windows``),
@@ -20,12 +20,15 @@ chunk of ``batch_size`` windows the engine
     float32 max probability, kept on the device (``predict`` keeps the
     block's rows instead).
 
-The two score tracks come back to the host once, at the end, in one byte
-buffer: 5 B/bp in float32 (``predict``'s rows: 20 B/bp at 5 classes).  The
-bfloat16 fast mode (``compute_dtype``) ships the max probability as 2
-bytes, so its tracks are 3 B/bp; that rounding is the mode's contract
-(``engine.py:197-212``): the probabilities are nominally bfloat16, and
-every consumer sees the rounded track.
+The two score tracks live in one byte buffer (:class:`ScoredRows`), 5 B/bp
+in float32; a :class:`ScoredTrack` copies it to the host a slice of
+``SLICE_CHUNKS`` chunks at a time while later chunks compute, so the host
+MSS can run behind the chunk loop, or keeps it on the device for the
+device MSS routes.  The bfloat16 fast mode (``compute_dtype``) keeps the
+max probability as 2 bytes, so its tracks are 3 B/bp; that rounding is the
+mode's contract (``engine.py:197-212``): the probabilities are nominally
+bfloat16, and every consumer sees the rounded track.  ``predict``'s merged
+rows (20 B/bp at 5 classes) come back in one copy at the end.
 
 Window enumeration parity with the reference (``prediction.py:31``): window
 starts are ``range(0, L - vecsize, step_size)``; the window starting exactly
@@ -38,16 +41,24 @@ final partial batch, ``prediction.py:105``).
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple, Union
+import itertools
+import queue
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deepgrp_tpu_torch.models.model import (PAD_CODE, DeepGRPModel, one_hot,
                                             resolve_rnn_kernel)
+from deepgrp_tpu_torch.ops import mss, mss_device
 from deepgrp_tpu_torch.ops.overlap_max import overlap_max_merge
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+#: Chunks in a slice of the scored track (``SLICE_CHUNKS``, ``engine.py:167``
+#: of the JAX package): at ``-b 1024 -s 50`` a slice is 204,800 positions,
+#: 1 MB in float32.
+SLICE_CHUNKS = 4
 
 
 def window_starts(seq_len: int, vecsize: int, step_size: int) -> np.ndarray:
@@ -55,20 +66,80 @@ def window_starts(seq_len: int, vecsize: int, step_size: int) -> np.ndarray:
     return np.arange(0, max(seq_len - vecsize, 0), step_size, dtype=np.int64)
 
 
-def mss_score_transform(classes: np.ndarray,
-                        maxp: np.ndarray) -> np.ndarray:
+def mss_score_transform(classes: np.ndarray, maxp: np.ndarray,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
     """The reference MSS score transform (prediction.py:51-57), float32.
 
     ``t = log(p/(1-p))`` with ``p = min(max_prob + 1e-6, 0.99)``;
-    background positions score ``-10*t``, repeat positions ``+t``.
+    background positions score ``-10*t``, repeat positions ``+t``.  The
+    reference's operations in its order, in place where it can (two
+    temporaries), into ``out`` if given: the streaming route transforms a
+    slice beside the chunk loop's thread and should hold the interpreter
+    little.
     """
     mins = maxp + np.float32(1e-6)
-    mins = np.where(mins > 0.99, np.float32(0.99), mins)
-    t_scores = np.log(mins / (1 - mins))
-    return np.where(classes > 0, t_scores, -10 * t_scores)
+    np.minimum(mins, np.float32(0.99), out=mins)
+    odds = 1 - mins
+    np.divide(mins, odds, out=mins)
+    t_scores = np.log(mins, out=mins)
+    scores = np.multiply(t_scores, -10, out=odds if out is None else out)
+    np.copyto(scores, t_scores, where=classes > 0)
+    return scores
 
 
-class PredictionEngine:
+class ScoredReadings:
+    """The scored track's readings, for an engine with ``scored_tracks``
+    (the single and the sharded engine)."""
+
+    def scored_tracks(self, codes: np.ndarray) -> Optional["ScoredTrack"]:
+        raise NotImplementedError
+
+    def routes_by_sparsity(self) -> bool:
+        """Whether ``predict_sequence``'s ``auto`` route chooses by the
+        track's positive runs (the sharded engine), rather than streaming
+        the host MSS behind the chunk loop (the single engine)."""
+        return False
+
+    def predict_scored(self, codes: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-position ``(classes int8 [L], max_prob float32 [L])``.
+
+        ``codes`` is the sequence's int8 code track (A=0..T=3, N=4).
+        Positions no window covers come back as class 0 with probability 0
+        (the reference merges into a zero buffer).
+        """
+        track = self.scored_tracks(codes)
+        if track is None:
+            return (np.zeros(codes.shape[0], np.int8),
+                    np.zeros(codes.shape[0], np.float32))
+        return track.host_scored()
+
+    def predict_scored_device(self, codes: np.ndarray):
+        """``(classes int8, max_prob float32, rows)`` kept on the track's
+        device (``predict_scored_device``, ``engine.py:744`` of the JAX
+        package): the first ``rows`` positions are the sequence's (the
+        track may be longer, or shorter: uncovered positions), or
+        ``(None, None, 0)`` when there is no window."""
+        track = self.scored_tracks(codes)
+        if track is None:
+            return None, None, 0
+        classes, maxp = track.device()
+        return classes, maxp, min(track.out_len, classes.shape[0])
+
+    def predict_mss_scores(self, codes: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-position ``(classes int8 [L], MSS scores float32 [L])``
+        (``predict_mss_scores``, ``engine.py:837`` of the JAX package): the
+        reference transform of :meth:`predict_scored`'s track, positions no
+        window covers at the zero-probability score."""
+        track = self.scored_tracks(codes)
+        if track is None:
+            return (np.zeros(codes.shape[0], np.int8),
+                    np.full(codes.shape[0], zero_fill_score(), np.float32))
+        return track.host_mss_scores()
+
+
+class PredictionEngine(ScoredReadings):
     """Windowed predictor for one model, on the model's device.
 
     ``compute_dtype`` is float32 (the parity mode) or bfloat16 (the fast
@@ -185,31 +256,25 @@ class PredictionEngine:
         out[:take] = merged[:take].cpu().numpy()
         return out
 
-    def predict_scored(self, codes: np.ndarray
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """Per-position ``(classes int8 [L], max_prob float32 [L])``.
-
-        ``codes`` is the sequence's int8 code track (A=0..T=3, N=4).
-        Positions no window covers come back as class 0 with probability 0
-        (the reference merges into a zero buffer).
-        """
+    def scored_tracks(self, codes: np.ndarray) -> Optional["ScoredTrack"]:
+        """The scored track of ``codes`` (the int8 code track ``[L]``) as a
+        :class:`ScoredTrack` whose chunk loop runs as its reader asks for
+        slices (``scored_tracks``, ``engine.py:534-550`` of the JAX
+        package), or None when the sequence has no window (the callers
+        keep the reference's all-zero-buffer quirk)."""
         out_len = int(codes.shape[0])
         n_windows = window_starts(out_len, self.model.config.vecsize,
                                   self.step_size).size
-        out_classes = np.zeros(out_len, np.int8)
-        out_maxp = np.zeros(out_len, np.float32)
         if n_windows == 0:
-            return out_classes, out_maxp
-
+            return None
         total, blocks = self._merged_blocks(codes, n_windows)
-        track = ScoredRows(total, self.compute_dtype, self.model.device)
-        for lo, block in blocks:
-            track.add(lo, block)
-        classes_h, maxp_h = track.host()
-        take = min(out_len, total)
-        out_classes[:take] = classes_h[:take]
-        out_maxp[:take] = maxp_h[:take]
-        return out_classes, out_maxp
+        return ScoredTrack(ScoredRows(total, self.compute_dtype,
+                                      self.model.device), out_len, blocks)
+
+    def device_route_ok(self) -> bool:
+        """Whether the on-device MSS routes can take this engine's track:
+        always, since the track lies on the model's device."""
+        return True
 
 
 class ScoredRows:
@@ -240,16 +305,250 @@ class ScoredRows:
         self._classes[lo:hi] = block.argmax(dim=1)
         self._maxp[lo:hi] = block.amax(dim=1)
 
-    def host(self) -> Tuple[np.ndarray, np.ndarray]:
-        """``(classes int8 [rows], max_prob float32 [rows])`` on the host
-        (one copy)."""
-        buf = self.buf.cpu().numpy()
+    def place(self, lo: int, other: "ScoredRows") -> None:
+        """Copy ``other``'s positions in as positions ``lo ..``."""
+        hi = lo + other.rows
+        self._classes[lo:hi] = other._classes.to(self.buf.device)
+        self._maxp[lo:hi] = other._maxp.to(self.buf.device)
+
+    def byte_ranges(self, lo: int, hi: int) -> List[Tuple[int, int]]:
+        """The spans of ``buf`` that hold positions ``lo .. hi - 1``."""
         split = self.maxp_size * self.rows
+        return [(self.maxp_size * lo, self.maxp_size * hi),
+                (split + lo, split + hi)]
+
+    def device(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(classes int8 [rows], max_prob float32 [rows])`` where the
+        rows are (a bfloat16 track widened exactly)."""
+        return self._classes, self._maxp.to(torch.float32)
+
+    def host(self, buf: np.ndarray, lo: int,
+             hi: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(classes int8, max_prob float32)`` of positions ``lo .. hi -
+        1``, read from ``buf``, a host copy of ``self.buf``."""
+        (m_lo, m_hi), (c_lo, c_hi) = self.byte_ranges(lo, hi)
         if self.maxp_size == 2:
             # numpy has no bfloat16: widen the 16 bits into the top half of
             # a float32 (exact).
-            u16 = buf[:split].view(np.uint16)
+            u16 = buf[m_lo:m_hi].view(np.uint16)
             maxp = (u16.astype(np.uint32) << 16).view(np.float32)
         else:
-            maxp = buf[:split].view(np.float32)
-        return buf[split:].view(np.int8), maxp
+            maxp = buf[m_lo:m_hi].view(np.float32)
+        return buf[c_lo:c_hi].view(np.int8), maxp
+
+
+def zero_fill_score() -> np.float32:
+    """The MSS score of a position no window covers: zero probability,
+    class 0, which the reference's transform scores positive
+    (``prediction.py:90`` zeros, ``:51-57``)."""
+    return mss_score_transform(np.zeros(1, np.int8),
+                               np.zeros(1, np.float32))[0]
+
+
+class ScoredTrack:
+    """One sequence's scored track as the chunk loop writes it, and its
+    readings for the MSS routes (``ScoredTrack``, ``engine.py:294-437`` of
+    the JAX package).
+
+    The rows come in slices: every ``SLICE_CHUNKS`` chunks, and after the
+    final spill, the rows scored since the last slice form one.  On a CUDA
+    device the track records an event on the compute stream, and a side
+    stream waits for it, copies the slice's bytes of ``rows.buf`` into
+    pinned host memory (``non_blocking``) and records a second event; a
+    reader synchronises on that event alone, so the chunk loop goes on.  On
+    the CPU the track already lies on the host.  The chunk loop runs as a
+    host reader asks for slices (:meth:`enqueue`), each slice's copy queued
+    as soon as its chunks are scored; a reading on the device
+    (:meth:`device`) runs the loop to its end and copies nothing.
+    ``blocks`` are the chunk loop's ``(first row, merged rows)``
+    (:meth:`PredictionEngine._merged_blocks`); without them ``rows`` is
+    complete and forms one slice.
+    """
+
+    def __init__(self, rows: ScoredRows, out_len: int,
+                 blocks: Iterable[Tuple[int, torch.Tensor]] = ()):
+        self.rows = rows
+        self.out_len = int(out_len)
+        #: Row ranges ``(lo, hi)`` of the slices scored so far.
+        self.slices: List[Tuple[int, int]] = []
+        # Slice index -> the event that ends its copy (None on the CPU).
+        self._copied: Dict[int, Optional[torch.cuda.Event]] = {}
+        self._device = rows.buf.device
+        # On a CUDA device: pinned host memory and the side stream, made at
+        # the first copy.
+        self._host: Optional[torch.Tensor] = (
+            rows.buf if self._device.type == "cpu" else None)
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._chunks = self._run(iter(blocks))
+
+    def _run(self, blocks: Iterator[Tuple[int, torch.Tensor]]
+             ) -> Iterator[int]:
+        lo = 0
+        for count, (first, block) in enumerate(blocks, 1):
+            self.rows.add(first, block)
+            if count % SLICE_CHUNKS == 0:
+                self.slices.append((lo, first + block.shape[0]))
+                lo = self.slices[-1][1]
+                yield len(self.slices) - 1
+        if lo < self.rows.rows:
+            self.slices.append((lo, self.rows.rows))
+            yield len(self.slices) - 1
+
+    def enqueue(self) -> Iterator[int]:
+        """Runs the chunk loop; yields the index (into :attr:`slices`) of
+        every slice, in order, as soon as its copy to the host is queued
+        (first those that an earlier reading ran the loop through)."""
+        for i in itertools.chain(range(len(self.slices)), self._chunks):
+            self._copy(i)
+            yield i
+
+    def finish(self) -> None:
+        """Runs the chunk loop to its end (copying nothing more)."""
+        for _ in self._chunks:
+            pass
+
+    def _copy(self, i: int) -> None:
+        """Queues slice ``i``'s copy to the host, unless it was."""
+        if i in self._copied:
+            return
+        if self._device.type == "cpu":
+            self._copied[i] = None
+            return
+        if self._stream is None:
+            self._host = torch.empty(self.rows.buf.shape, dtype=torch.uint8,
+                                     pin_memory=True)
+            self._stream = torch.cuda.Stream(self._device)
+            # The side stream reads the buffer: the allocator must not hand
+            # it out again before those reads end.
+            self.rows.buf.record_stream(self._stream)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self._device))
+        self._stream.wait_event(ready)
+        with torch.cuda.stream(self._stream):
+            for a, b in self.rows.byte_ranges(*self.slices[i]):
+                self._host[a:b].copy_(self.rows.buf[a:b], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        self._copied[i] = done
+
+    def wait(self, i: int) -> None:
+        """Waits for slice ``i``'s copy (issuing it if it was not), and
+        for nothing else."""
+        self._copy(i)
+        event = self._copied[i]
+        if event is not None:
+            event.synchronize()
+
+    def host_rows(self, lo: int, hi: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(classes int8, max_prob float32)`` of positions ``lo .. hi -
+        1`` from the host copy; their slices must have been waited for."""
+        return self.rows.host(self._host.numpy(), lo, hi)
+
+    def device(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(classes int8 [rows], max_prob float32 [rows])`` on the
+        track's device (the rows may run past ``out_len``, and may stop
+        short of it: uncovered positions)."""
+        self.finish()
+        return self.rows.device()
+
+    def count_runs(self) -> int:
+        """Positive runs of the track's MSS scores within ``out_len`` (one
+        scalar read): the sparsity routing's signal."""
+        return mss_device.scored_run_count(*self.device(), self.out_len)
+
+    def _host_covered(self) -> Tuple[int, np.ndarray, np.ndarray]:
+        for _ in self.enqueue():
+            pass
+        for i in range(len(self.slices)):
+            self.wait(i)
+        covered = min(self.rows.rows, self.out_len)
+        return (covered, *self.host_rows(0, covered))
+
+    def host_scored(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(classes int8 [out_len], max_prob float32 [out_len])`` on the
+        host; uncovered positions are class 0 with probability 0."""
+        covered, classes_h, maxp_h = self._host_covered()
+        classes = np.zeros(self.out_len, np.int8)
+        maxp = np.zeros(self.out_len, np.float32)
+        classes[:covered] = classes_h
+        maxp[:covered] = maxp_h
+        return classes, maxp
+
+    def host_mss_scores(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(classes int8 [out_len], MSS scores float32 [out_len])`` on the
+        host: the reference transform (:func:`mss_score_transform`), the
+        zero-probability score past the covered rows."""
+        covered, classes_h, maxp_h = self._host_covered()
+        classes = np.zeros(self.out_len, np.int8)
+        scores = np.full(self.out_len, zero_fill_score(), np.float32)
+        classes[:covered] = classes_h
+        scores[:covered] = mss_score_transform(classes_h, maxp_h)
+        return classes, scores
+
+    def host_mss_classes(self, options, nof_labels: int,
+                         threads: int = 0) -> np.ndarray:
+        """The host MSS labels ``int32 [out_len]``, streamed behind the
+        chunk loop (``_mss_classes_streaming``, ``engine.py:860-977`` of
+        the JAX package).
+
+        The calling thread runs the chunk loop and queues each slice's copy;
+        a reader thread takes the slices in order as their copies land,
+        transforms their rows into scores and feeds them to
+        :class:`~deepgrp_tpu_torch.ops.mss.SplitScanner`; each block the
+        scanner closes is labelled in a worker pool.  The loop thread does
+        nothing else, since it must keep the card fed.  Pool and reader are
+        made for the call; the pool has ``threads`` workers (0:
+        :func:`~deepgrp_tpu_torch.ops.mss.default_threads`).  The last
+        block, past the last split, is labelled after the loop with the
+        multithreaded search.  The output is that of the whole-array
+        search, for any thread count.  With ``xdrop_len <= 0`` no split
+        exists and the whole array is searched at the end.
+        """
+        if options.xdrop_len <= 0:
+            classes, scores = self.host_mss_scores()
+            return mss.find_mss_classes(
+                scores.astype(np.float64), classes.astype(np.int64),
+                nof_labels, options.min_mss_len, options.xdrop_len, threads)
+        out_len = self.out_len
+        classes = np.zeros(out_len, np.int8)
+        scores = np.full(out_len, zero_fill_score(), np.float32)
+        out = np.empty(out_len, np.int32)
+        scanner = mss.SplitScanner(
+            mss.mss_thresholds(options.min_mss_len, options.xdrop_len)[1])
+        workers = threads if threads > 0 else mss.default_threads(out_len)
+        args = (nof_labels, options.min_mss_len, options.xdrop_len)
+        landing: "queue.Queue[Optional[int]]" = queue.Queue()
+
+        def read(pool: ThreadPoolExecutor) -> Tuple[int, list]:
+            futures, block_start = [], 0
+            while (i := landing.get()) is not None:
+                lo, hi = self.slices[i]
+                hi = min(hi, out_len)
+                if hi <= lo:
+                    continue
+                self.wait(i)
+                classes_s, maxp_s = self.host_rows(lo, hi)
+                classes[lo:hi] = classes_s
+                mss_score_transform(classes_s, maxp_s, out=scores[lo:hi])
+                for split in scanner.feed(scores, hi):
+                    futures.append(pool.submit(
+                        mss.streaming_mss_block_classes, scores, classes,
+                        out, block_start, split, *args))
+                    block_start = split
+            return block_start, futures
+
+        with ThreadPoolExecutor(workers) as pool, \
+                ThreadPoolExecutor(1) as reader:
+            reading = reader.submit(read, pool)
+            try:
+                for i in self.enqueue():
+                    landing.put(i)
+            finally:
+                landing.put(None)
+            block_start, futures = reading.result()
+            out[block_start:] = mss.find_mss_classes(
+                scores[block_start:], classes[block_start:], *args,
+                threads=threads)
+            for future in futures:
+                future.result()
+        return out

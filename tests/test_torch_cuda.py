@@ -32,6 +32,12 @@ variants of the fused kernels are held against their plain versions.
 Tolerance in bfloat16: atol 2e-2 (the plain version rounds as the kernel
 does; the outputs are bf16).
 
+The on-device MSS's stack scan (``dg_mss_stack``) is held against its
+plain version on the same collapsed runs (segments equal: float64 adds and
+compares in the same order), the device search against the host library,
+and the MSS routes on the card against the CPU's host route (classes
+equal); a CUDA tensor never runs the plain scan.
+
 The training scan route (autograd through the plain loop, no kernel) is
 held against the fused step on the card and against itself on the CPU,
 and an HPO fleet step (three trials, one frozen) against the same step on
@@ -52,6 +58,9 @@ from deepgrp_tpu_torch.models.keras_io import load_model
 from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
                                             init_params,
                                             require_full_f32_matmul)
+from deepgrp_tpu_torch.ops import mss, mss_device
+from deepgrp_tpu_torch.parallel.predict import ShardedPredictionEngine
+from deepgrp_tpu_torch.predict import postprocess
 from deepgrp_tpu_torch.predict.engine import PredictionEngine
 from deepgrp_tpu_torch.train.optimizers import get_optimizer
 from deepgrp_tpu_torch.train.training import train_step
@@ -598,3 +607,97 @@ def test_fleet_step_on_card_matches_cpu(device, rnn_type, attention,
         assert_params_close(card[i], cpu[i])
     for key, value in initial[1].items():
         assert torch.equal(card[1][key].detach().cpu(), value), key
+
+
+def transform_shaped_scores(seed, n, repeat_frac):
+    """A float track shaped like a trained model's MSS scores: confident
+    background (-10 t) with stretches of one repeat class (+t), about
+    ``repeat_frac`` of the positions, and 5 % unsure positions (p < 0.5,
+    so t < 0) of any class."""
+    rng = np.random.default_rng(seed)
+    labels = np.zeros(n, np.int64)
+    for start in rng.integers(0, n, max(1, int(n * repeat_frac / 200))):
+        labels[start:start + int(rng.integers(20, 400))] = rng.integers(1, 5)
+    unsure = rng.random(n) < 0.05
+    labels[unsure] = rng.integers(0, 5, int(unsure.sum()))
+    t = np.where(unsure, rng.uniform(-1.0, 1.0, n),
+                 rng.uniform(2.0, np.log(99.0), n))
+    return np.where(labels > 0, t, -10 * t), labels
+
+
+@pytest.mark.parametrize("seed,n,repeat_frac,xdrop_len", [
+    (0, 1 << 20, 0.05, 50), (1, 200000, 0.3, 50), (2, 5000, 0.5, 0),
+    (3, 3, 1.0, 50)])
+def test_mss_stack_matches_plain(device, seed, n, repeat_frac, xdrop_len):
+    """``dg_mss_stack`` on the card equals its plain version on the same
+    candidates, segment for segment (float64 adds and compares in the same
+    order), and the whole device search equals the host library."""
+    scores, labels = transform_shaped_scores(seed, n, repeat_frac)
+    min_score, xdrop = mss.mss_thresholds(50, xdrop_len)
+    track = torch.as_tensor(scores, device=device)
+    cap = mss_device.run_capacity(mss_device.count_positive_runs(track))
+    cand = mss_device.collapse_runs(track, cap)
+    mss_device.LAUNCHES.reset()
+    seg_s, seg_e, count = mss_device.mss_stack(cand, min_score, xdrop)
+    torch.cuda.synchronize()
+    assert mss_device.LAUNCHES.snapshot() == {"mss_stack": 1}
+    plain = mss_device.mss_stack(
+        mss_device.Candidates(*(t.cpu() for t in cand)), min_score, xdrop)
+    assert int(count) == int(plain[2])
+    assert int(count) > 0 or n < 100
+    np.testing.assert_array_equal(seg_s.cpu().numpy(), plain[0].numpy())
+    np.testing.assert_array_equal(seg_e.cpu().numpy(), plain[1].numpy())
+    got, overflow = mss_device.mss_classes_device(
+        track, torch.as_tensor(labels, device=device), 5, 50, xdrop_len,
+        max_runs=cap)
+    assert not bool(overflow)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), mss.find_mss_classes(scores, labels, 5, 50,
+                                                xdrop_len))
+
+
+def test_mss_stack_cuda_never_takes_plain(device, monkeypatch):
+    """A CUDA tensor launches the kernel: the plain version is never
+    called, on the stack scan or on the whole device route."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain stack scan ran for a CUDA tensor")
+
+    monkeypatch.setattr(mss_device, "mss_stack_from_candidates", refuse)
+    scores, labels = transform_shaped_scores(5, 50000, 0.05)
+    classes = torch.as_tensor(labels.astype(np.int8), device=device)
+    maxp = torch.full((50000,), 0.97, device=device)
+    mss_device.LAUNCHES.reset()
+    out = postprocess.apply_mss_on_device(classes, maxp, Options(), 5,
+                                          50000)
+    assert out.shape == (50000,)
+    assert mss_device.LAUNCHES.snapshot() == {"mss_stack": 1}
+    with pytest.raises(ValueError, match="int32/float64"):
+        cand = mss_device.collapse_runs(torch.as_tensor(scores,
+                                                        device=device), 64)
+        mss_device.mss_stack(cand._replace(l_glob=cand.l_glob.float()),
+                             1.0, 1.0)
+
+
+@pytest.mark.parametrize("route", ["auto", "on", "off"])
+def test_mss_routes_on_card_match_cpu(device, route):
+    """Each route on the card gives the CPU's host-route classes on the
+    ``gru_att`` fixture's records; the 3-shard ``auto`` too.  No route of
+    a CUDA track runs the plain stack scan."""
+    config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
+    options = Options(vecsize=config.vecsize, batch_size=64, min_mss_len=50,
+                      xdrop_len=50)
+    codes = np.random.default_rng(11).integers(0, 5, 30000).astype(np.int8)
+    cpu = PredictionEngine(DeepGRPModel.from_params(config, params, "cpu"),
+                           batch_size=64, step_size=50)
+    want = postprocess.predict_sequence(cpu, codes, options,
+                                        device_mss="off")
+    model = DeepGRPModel.from_params(config, params, device)
+    for engine in (PredictionEngine(model, batch_size=64, step_size=50),
+                   ShardedPredictionEngine(model, [device] * 3,
+                                           batch_size=64, step_size=50)):
+        mss_device.LAUNCHES.reset()
+        got = postprocess.predict_sequence(engine, codes, options,
+                                           device_mss=route)
+        assert "mss_stack_plain" not in mss_device.LAUNCHES.snapshot()
+        np.testing.assert_array_equal(np.asarray(got, np.int64),
+                                      np.asarray(want, np.int64))
