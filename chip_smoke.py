@@ -150,6 +150,27 @@ Phases (any failure exits non-zero; nothing is caught):
     capacity overflow at 64 runs and the doubling retry, whose classes
     must equal the ``off`` route's.
 
+15. The port-only workflow on the card: phase 7's chromosomes (same seed)
+    as gzip FASTA files in lines of 60 bases and their regions as a
+    RepeatMasker ``.out`` file (classic and tab-separated rows, class 1 as
+    ``(GGAAT)n`` rows and one mutated motif, other families to drop)
+    through ``python -m deepgrp_tpu_torch.data.preprocess_sequence`` (run
+    twice: the second run must write nothing) and ``...data.parse_rm -o``:
+    each npz's ``fwd`` must equal phase 7's one-hot and ``preprocess_y``
+    over the tool's BED phase 7's labels.  Then ``train`` through the CLI
+    with ``--profile DIR --xla -t 2`` (``gru_att``, 1 x 20 steps): 20
+    launches of each training kernel, no plain call, finite losses, and
+    the trace names both kernels; 5 steps with ``optimizer = "adamw"``;
+    2 x 20 steps at ``-t 1`` and ``-t 0`` in turns (the second epoch's
+    steps/s with torch on one host thread and on its default);
+    ``predict`` of chrValid with the trained model, plain, with
+    ``--profile`` (the trace names ``AvgKernel``) and plain again (seconds
+    of each: the profiler's overhead); ``engine.predict`` with
+    ``create_model(options)`` on the card equal to
+    ``PredictionEngine.predict`` bit for bit; and, where ``h5py`` is
+    missing, ``train --modelfile m.h5`` raising ``ImportError`` before it
+    trains or writes anything.
+
 Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
 not have run (``dg_mss_stack`` on the ``on`` route and the sharded
@@ -2419,6 +2440,249 @@ def mss_routes_phase(torch, np, tmp: str, man: dict, seq: str) -> dict:
     return row
 
 
+#: Phase 15's RepeatMasker families by class (rep, family) and rows of
+#: families ``parse_rm`` drops.
+RM_FAMILIES = {1: ("(GGAAT)n", "Satellite"),
+               2: ("ALR/Alpha", "Satellite/centr"),
+               3: ("AluY", "SINE/Alu"), 4: ("L1PA2", "LINE/L1")}
+RM_DROPPED = [("MER5A", "DNA/hAT-Charlie"), ("(CACAC)n", "Simple_repeat"),
+              ("Tigger1", "DNA/TcMar-Tigger"), ("(GGAATG)n", "Satellite")]
+
+
+def write_workflow_inputs(np, tmp: str, seed: int = 7):
+    """Phase 7's chromosomes as gzip FASTA files (60 bases a line) and
+    their regions as one RepeatMasker ``.out`` file: classic rows
+    (1-based) and every fifth region as a tab-separated row (0-based),
+    class 1 as ``(GGAAT)n`` Satellite rows and one mutated-motif
+    ``(GGAATGGAGT)n`` row, and rows of families ``parse_rm`` drops.
+    Returns phase 7's files and the new ones."""
+    import gzip
+
+    train_npz, val_npz, bed = write_training_files(np, tmp, seed)
+    fasta = {}
+    for chrom in ("chrTrain", "chrValid"):
+        with open(os.path.join(tmp, f"{chrom}.fa")) as fh:
+            header, seq = fh.read().split("\n")[:2]
+        fasta[chrom] = os.path.join(tmp, f"{chrom}.fa.gz")
+        with gzip.open(fasta[chrom], "wt", compresslevel=1) as fh:
+            fh.write(header + "\n")
+            fh.writelines(seq[i:i + 60] + "\n"
+                          for i in range(0, len(seq), 60))
+    rows = []
+    with open(bed) as fh:
+        regions = [line.split() for line in fh]
+    for i, (chrom, begin, end, cls) in enumerate(regions):
+        rep, family = RM_FAMILIES[int(cls)]
+        if i == 0:
+            rep = "(GGAATGGAGT)n"  # one exact chunk, one mutated chunk
+        if i % 5 == 4:
+            fam, _, sub = family.partition("/")
+            rows.append("\t".join([str(i), "0", "0", "0", "0", chrom, begin,
+                                   end, "0", "+", rep, fam, sub or fam]))
+        else:
+            rows.append(f"  {100 + i} 1.0 0.5 0.5 {chrom} {int(begin) + 1} "
+                        f"{end} (0) + {rep} {family} 1 100 (0) {i}")
+    for j, (rep, family) in enumerate(RM_DROPPED):
+        rows.append(f"  50 2.0 0.0 0.0 chrTrain {1000 + 300 * j} "
+                    f"{1200 + 300 * j} (0) C {rep} {family} (0) 200 1 {j}")
+    out = os.path.join(tmp, "genome.fa.out")
+    with open(out, "w") as fh:
+        fh.write("   SW  perc perc perc  query   position in query\n\n")
+        fh.writelines(row + "\n" for row in rows)
+    return (train_npz, val_npz, bed), fasta, out
+
+
+def run_tool(module: str, *args: str) -> float:
+    """``python -m deepgrp_tpu_torch.data.<module> ARGS`` in a process of
+    its own; its host seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([HERE, env.get("PYTHONPATH", "")])
+    start = time.perf_counter()
+    subprocess.run([sys.executable, "-m", f"deepgrp_tpu_torch.data.{module}",
+                    *args], env=env, check=True, timeout=300)
+    return time.perf_counter() - start
+
+
+def trace_names(directory: str, command: str, names) -> dict:
+    """Which of ``names`` the one ``torch.profiler`` trace of ``command``
+    under ``directory`` holds (its size too)."""
+    traces = [f for f in os.listdir(directory)
+              if f.startswith(f"{command}.") and f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"{directory}: traces {traces}")
+    path = os.path.join(directory, traces[0])
+    with open(path) as fh:
+        text = fh.read()
+    found = {name: name in text for name in names}
+    print(f"  trace {traces[0]}: {os.path.getsize(path)} bytes, names "
+          f"{found}", flush=True)
+    if not all(found.values()):
+        raise AssertionError(f"{path} lacks {found}")
+    return found
+
+
+def workflow_phase(torch, np, tmp: str) -> dict:
+    """Phase 15: the port-only workflow on the card, from gzip FASTA files
+    and a RepeatMasker ``.out`` file to a trained model and a BED; returns
+    the launch counts on its paths."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.data import preprocess
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import DeepGRPModel, create_model
+    from deepgrp_tpu_torch.predict import engine
+    from deepgrp_tpu_torch.train.sampler import codes_from_onehot_rows
+
+    seconds = {}
+    start = time.perf_counter()
+    phase7, fasta, rm_out = write_workflow_inputs(np, tmp)
+    print(f"wrote phase 7's files, the gzip FASTA files and the .out file "
+          f"in {time.perf_counter() - start:.2f} s", flush=True)
+
+    # The tools: preprocess_sequence twice (the second run skips), parse_rm.
+    seconds["preprocess_sequence"] = sum(run_tool("preprocess_sequence", p)
+                                         for p in fasta.values())
+    mtimes = {p: os.stat(p + ".npz").st_mtime_ns for p in fasta.values()}
+    seconds["preprocess_sequence (skip)"] = sum(
+        run_tool("preprocess_sequence", p) for p in fasta.values())
+    for path, mtime in mtimes.items():
+        if os.stat(path + ".npz").st_mtime_ns != mtime:
+            raise AssertionError(f"{path}.npz was written again")
+    rm_bed = os.path.join(tmp, "repeats_rm.bed")
+    seconds["parse_rm"] = run_tool("parse_rm", rm_out, "-o", rm_bed)
+    options = Options(n_epochs=1, n_batches=20, batch_size=256, **FLAGSHIP)
+    for chrom, want_npz in (("chrTrain", phase7[0]), ("chrValid", phase7[1])):
+        with np.load(fasta[chrom] + ".npz") as got, \
+                np.load(want_npz) as want:
+            same = np.array_equal(got["fwd"], want["fwd"])
+            length = got["fwd"].shape[1]
+        labels = [preprocess.preprocess_y(bed, chrom, length,
+                                          options.repeats_to_search)
+                  for bed in (rm_bed, phase7[2])]
+        print(f"{chrom}: npz fwd == phase 7's: {same}; preprocess_y over "
+              f"parse_rm's BED == over phase 7's: "
+              f"{np.array_equal(*labels)}", flush=True)
+        if not (same and np.array_equal(*labels)):
+            raise AssertionError(f"{chrom}: the tools' data differ")
+    with open(rm_bed) as fh:
+        n_rows = sum(1 for _ in fh)
+    with open(phase7[2]) as fh:
+        if n_rows != sum(1 for _ in fh):
+            raise AssertionError(f"parse_rm kept {n_rows} rows")
+
+    # Train through the CLI with the reference's flags, traced.
+    files = (fasta["chrTrain"] + ".npz", fasta["chrValid"] + ".npz", rm_bed)
+    train_trace = os.path.join(tmp, "train_trace")
+    reset_counts()
+    model, records, seconds["train 1 x 20 (--profile)"] = run_train_cli(
+        tmp, files, "workflow", ("--profile", train_trace, "--xla", "-t",
+                                 "2"), n_epochs=1, n_batches=20, **FLAGSHIP)
+    launches = {"train": check_counts({"gru_train_fwd": 20,
+                                       "gru_train_bwd": 20, "gru_avg": 1})}
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
+               for r in records):
+        raise AssertionError(f"workflow: a loss is not finite: {records}")
+    print(f"workflow train: losses {[r['loss'] for r in records]}",
+          flush=True)
+    trace_names(train_trace, "train", ("GruTrainFwdKernel",
+                                       "GruBwdRecurrenceKernel"))
+    reset_counts()
+    _, records, seconds["train 1 x 5 adamw"] = run_train_cli(
+        tmp, files, "workflow_adamw", n_epochs=1, n_batches=5,
+        optimizer="adamw", **FLAGSHIP)
+    launches["train adamw"] = check_counts({"gru_train_fwd": 5,
+                                            "gru_train_bwd": 5,
+                                            "gru_avg": 1})
+    if not all(math.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"adamw: a loss is not finite: {records}")
+    print(f"adamw train: losses {[r['loss'] for r in records]}", flush=True)
+    # -t on the card: the second epoch's steps/s with torch's host threads
+    # at 1 (-t 1, the CLI default) and at torch's default (-t 0), in turns.
+    steps_s = {"1": [], "0": []}
+    for turn, flag in enumerate(("1", "0", "0", "1")):
+        reset_counts()
+        _, records, _ = run_train_cli(tmp, files, f"threads_{turn}",
+                                      ("-t", flag), n_epochs=2,
+                                      n_batches=20, **FLAGSHIP)
+        check_counts({"gru_train_fwd": 40, "gru_train_bwd": 40,
+                      "gru_avg": 2})
+        steps_s[flag].append(round(20 / records[1]["epoch_seconds"], 2))
+    print(f"train steps/s of a second epoch (2 x 20, batch 256), -t 1 "
+          f"{steps_s['1']}, -t 0 (torch's {torch.get_num_threads()} "
+          f"threads) {steps_s['0']}", flush=True)
+
+    # Predict chrValid with the trained model: plain, traced, plain.
+    valid_fa = os.path.join(tmp, "chrValid.fa")
+    predict_trace = os.path.join(tmp, "predict_trace")
+    runs = {}
+    for label, flags in (("predict (first)", []),
+                         ("predict --profile", ["--profile", predict_trace]),
+                         ("predict", [])):
+        reset_counts()
+        start = time.perf_counter()
+        runs[label] = predict_rows(["-b", "1024", *flags, "predict", model,
+                                    valid_fa],
+                                   os.path.join(tmp, "workflow.bed"))
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - start
+        launches[label] = check_path("gru_avg")
+    if len({tuple(rows) for rows in runs.values()}) != 1:
+        raise AssertionError("the traced predict wrote other rows")
+    trace_names(predict_trace, "predict", ("AvgKernel",))
+    print(f"workflow predict: {len(runs['predict'])} BED rows; --profile "
+          f"overhead {seconds['predict --profile'] - seconds['predict']:.4f}"
+          " s", flush=True)
+
+    # The reference API: create_model + engine.predict on chrValid.
+    config, params = load_model(model)
+    with np.load(fasta["chrValid"] + ".npz") as arrays:
+        onehot = arrays["fwd"]
+    reset_counts()
+    got = engine.predict(create_model(options, "cuda"), params, onehot,
+                         (onehot.shape[1], config.n_classes), 50,
+                         batch_size=1024)
+    launches["engine.predict"] = check_path("gru_avg")
+    want = engine.PredictionEngine(
+        DeepGRPModel.from_params(config, params, "cuda"), batch_size=1024,
+        step_size=50).predict(codes_from_onehot_rows(onehot))
+    print(f"engine.predict == PredictionEngine.predict bit for bit: "
+          f"{np.array_equal(got, want)} ({got.shape})", flush=True)
+    if not np.array_equal(got, want):
+        raise AssertionError("engine.predict differs")
+
+    # The card has no h5py: an .h5 model file fails before any training.
+    try:
+        import h5py  # noqa: F401
+        print("h5py is installed on this machine: the .h5 refusal is not "
+              "checked", flush=True)
+    except ImportError:
+        from deepgrp_tpu_torch import cli
+
+        toml = os.path.join(tmp, "workflow.toml")
+        reset_counts()
+        start = time.perf_counter()
+        try:
+            cli.main(["-b", "256", "train", toml, *files, "--honor-toml",
+                      "--logdir", os.path.join(tmp, "workflow_h5_log"),
+                      "--modelfile", os.path.join(tmp, "workflow_h5.h5")])
+        except ImportError as err:
+            if "h5py" not in str(err):
+                raise
+            print(f"train --modelfile m.h5: ImportError after "
+                  f"{time.perf_counter() - start:.3f} s: {err}", flush=True)
+        else:
+            raise AssertionError("train --modelfile m.h5 did not raise")
+        from deepgrp_tpu_torch.models import cuda_rnn
+
+        if cuda_rnn.LAUNCHES.snapshot() or os.path.exists(
+                os.path.join(tmp, "workflow_h5_log")) or any(
+                    f.startswith("workflow_h5.") for f in os.listdir(tmp)):
+            raise AssertionError("the .h5 run trained or wrote files")
+    print("workflow seconds: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in seconds.items()),
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2561,6 +2825,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as mss_tmp:
         mss_row = mss_routes_phase(torch, np, mss_tmp, man, seq)
     print(f"phase 14 took {time.perf_counter() - start:.2f} s", flush=True)
+
+    phase("15. the port-only workflow on the card: gzip FASTA and "
+          "RepeatMasker .out -> npz and BED -> train (traced, adamw) -> "
+          "predict -> BED; create_model and engine.predict; no .h5 without "
+          "h5py")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workflow_tmp:
+        path_launches = workflow_phase(torch, np, workflow_tmp)
+    print(f"launches on phase 15's paths: {path_launches}; phase 15 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []
     sources = {**{name: ("rnn_avg.cu", replaces)

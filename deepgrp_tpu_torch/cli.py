@@ -14,7 +14,9 @@ probabilities' softmax instead of the MSS labelling.
 ``train PARAMS.toml TRAIN.npz VAL.npz BED`` trains on the one-hot ``fwd``
 arrays of the two ``.npz`` files, labelled from the BED rows of the
 chromosome named by each file name up to its first ``.``, and writes the
-best weights as a ``.npz`` model that ``predict`` loads.  The reference's
+best weights as a ``.npz`` model that ``predict`` loads, or, for a
+``--modelfile`` ending ``.h5``/``.hdf5``, as a Keras HDF5 model (needs
+``h5py``, checked before any data loads).  The reference's
 precedence quirk is kept: the CLI's option defaults (with ``-b -x -l``)
 overwrite the TOML file's values, so ``vecsize``, ``units`` and the rest
 fall back to their defaults, unless ``--honor-toml`` is given.
@@ -34,6 +36,13 @@ rank modulo the GPU count); only rank 0 writes the BED, the model file
 and the training logs.  A single process that sees several GPUs trains on
 one.
 
+``--threads/-t N`` (N > 0) bounds torch's host threads for the command
+(``python -m deepgrp_tpu_torch`` also exports ``OMP_NUM_THREADS`` before
+torch loads, ``__main__.py``) and the MSS workers; ``--xla`` is accepted
+and does nothing, as in the JAX package; ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the command (CPU, and CUDA on the card)
+under ``DIR``, the counterpart of the JAX package's ``jax.profiler`` trace.
+
 ``--device`` picks the device (default ``cuda``; with no GPU the command
 fails rather than running on the CPU).  ``--precision bfloat16`` is the
 fast mode of ``predict`` (float32 is the parity mode).  ``--rnn-kernel``
@@ -48,10 +57,11 @@ by autograd) or ``auto`` (fused, on every device).  ``train
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 _LOG = logging.getLogger("deepgrp_tpu_torch")
 
@@ -76,8 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--min_mss_length", "-l", type=int, default=50,
                         help="Minimal length of maximum scoring segments")
     parser.add_argument("--threads", "-t", type=int, default=1,
-                        help="Number of host threads of the MSS labelling "
-                        "(all=0)")
+                        help="Number of host threads: torch's and the MSS "
+                        "labelling's (all=0)")
+    parser.add_argument("--xla", action="store_true",
+                        help="Accepted for compatibility (always XLA)")
     parser.add_argument("-v", "--verbose", action="count", default=0,
                         help="Increase verbosity")
     parser.add_argument("--precision", choices=["float32", "bfloat16"],
@@ -86,6 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference bit-for-bit; bfloat16 is faster)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="Device to run the model on")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="Write a torch.profiler Chrome trace of the "
+                        "command into DIR (view with Perfetto or "
+                        "chrome://tracing)")
     parser.add_argument("--rnn-kernel", choices=["auto", "scan", "fused"],
                         default="auto",
                         help="Recurrence route: 'fused' (fwd+revcomp "
@@ -122,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--logdir", type=str, default=".",
                        help="Directory for log / checkpoint files.")
     train.add_argument("--modelfile", type=str, default="model.npz",
-                       help="Output path for the model file (.npz).")
+                       help="Output path for the model file (.npz, or "
+                       "Keras .h5/.hdf5).")
     train.add_argument("--honor-toml", action="store_true",
                        help="Let TOML values win over CLI defaults (the "
                        "reference overwrites TOML with defaults)")
@@ -287,15 +304,15 @@ def cmd_train(args: argparse.Namespace) -> None:
     import torch
     import torch.distributed as dist
 
-    from deepgrp_tpu_torch.models.keras_io import save_model_npz
-    from deepgrp_tpu_torch.models.model import DeepGRPModel, ModelConfig
+    from deepgrp_tpu_torch.models import keras_io
+    from deepgrp_tpu_torch.models.model import create_model
     from deepgrp_tpu_torch.parallel.mesh import is_first_rank, world_size
     from deepgrp_tpu_torch.train.training import training
 
+    save_model = keras_io.save_model_npz
     if args.modelfile.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            "writing Keras .h5 model files is not yet ported (ROADMAP.md "
-            "queue 1, item 13); write a .npz model instead")
+        keras_io.require_h5py()  # before a run whose model it cannot write
+        save_model = keras_io.save_model_h5
     device = run_device(args.device)
     with open(args.parameter) as file:
         parameter = Options.from_toml(file)
@@ -346,14 +363,37 @@ def cmd_train(args: argparse.Namespace) -> None:
             "--num-processes N --process-id R in each",
             torch.cuda.device_count(), device)
 
-    model = DeepGRPModel(ModelConfig.from_options(parameter), device)
+    model = create_model(parameter, device)
     _LOG.info("Training model on %s", device)
     best_params, _ = training((data[0], data[1]), parameter, model,
                               args.logdir, tensorboard=args.tensorboard,
                               rnn_kernel=args.rnn_kernel, group=group)
     if is_first_rank():
         _LOG.info("Saving model as %s", args.modelfile)
-        save_model_npz(args.modelfile, model.config, best_params)
+        save_model(args.modelfile, model.config, best_params)
+
+
+@contextlib.contextmanager
+def profile_trace(directory: Optional[str], command: str, device: str
+                  ) -> Iterator[None]:
+    """Trace the body with ``torch.profiler`` (CPU activities, and CUDA's
+    for ``device`` ``cuda``) and write a Chrome trace,
+    ``DIR/<command>.<pid>.pt.trace.json`` (``cli.py:237-246`` of the JAX
+    package); no trace when ``directory`` is None."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(directory, f"{command}.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _LOG.info("profiler trace written to %s", path)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -365,13 +405,23 @@ def main(argv: Optional[List[str]] = None) -> None:
     levels = [logging.WARNING, logging.INFO, logging.DEBUG]
     logging.basicConfig()
     _LOG.setLevel(levels[min(len(levels) - 1, args.verbose)])
-    started = setup_distributed(args)
+    import torch
+
+    threads = torch.get_num_threads()
+    if args.threads > 0:
+        torch.set_num_threads(args.threads)
+    _LOG.info("host threads: torch %d, OMP_NUM_THREADS %s",
+              torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS"))
+    started = False
     try:
-        if args.command == "train":
-            cmd_train(args)
-        else:
-            cmd_predict(args)
+        started = setup_distributed(args)
+        with profile_trace(args.profile, args.command, args.device):
+            if args.command == "train":
+                cmd_train(args)
+            else:
+                cmd_predict(args)
     finally:
+        torch.set_num_threads(threads)
         if started:
             import torch.distributed as dist
 

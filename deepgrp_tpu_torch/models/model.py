@@ -403,3 +403,12 @@ class DeepGRPModel(nn.Module):
 
     def forward(self, codes: torch.Tensor) -> torch.Tensor:
         return self.forward_probs_from_codes(codes)
+
+
+def create_model(options: Any, device: Union[str, torch.device] = "cuda"
+                 ) -> DeepGRPModel:
+    """The model of a run's :class:`~deepgrp_tpu_torch.config.Options` on
+    ``device`` (``create_model``, ``deepgrp_tpu/models/model.py:309``; the
+    reference's ``model.py:293-336``), its parameters zero until trained or
+    loaded (``load_state_dict``)."""
+    return DeepGRPModel(ModelConfig.from_options(options), device)

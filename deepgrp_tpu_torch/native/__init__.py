@@ -25,8 +25,23 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+class DgSegment(ctypes.Structure):
+    """Mirror of the C ``DgSegment`` struct (``deepgrp_native.h``)."""
+
+    _fields_ = [
+        ("start", ctypes.c_int64),
+        ("end", ctypes.c_int64),
+        ("score", ctypes.c_double),
+    ]
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     i32, i64 = ctypes.c_int32, ctypes.c_int64
+    lib.dg_mss_find_all_mt.restype = i64
+    lib.dg_mss_find_all_mt.argtypes = [
+        ctypes.POINTER(ctypes.c_double), i64, ctypes.c_double,
+        ctypes.c_double, i32, ctypes.POINTER(DgSegment), i64,
+    ]
     lib.dg_find_mss_classes_mt.restype = None
     lib.dg_find_mss_classes_mt.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(i64), i64, i32, i32,

@@ -78,6 +78,27 @@ def find_mss_classes(scores: np.ndarray, labels: np.ndarray,
     return out
 
 
+def mss_find_all(scores: np.ndarray, min_score: float, xdrop: float,
+                 threads: int = 0) -> np.ndarray:
+    """All maximal scoring subsequences of ``scores`` (``mss_find_all``,
+    ``deepgrp_tpu/ops/mss.py:53``; the reference's ``pymss.pyx``), as a
+    structured array of ``start``, ``end`` (exclusive) and ``score``: the
+    segments scoring at least ``trunc(min_score)`` (``mss.c:35``), with the
+    X-drop reset when ``xdrop > 0``.  ``threads`` workers run the exact
+    block-parallel search (0 = auto); the output does not depend on it."""
+    scores = np.ascontiguousarray(scores, dtype=np.float64)
+    if threads <= 0:
+        threads = default_threads(scores.size)
+    # Segments are disjoint and separated by a non-positive position.
+    out = np.empty(scores.size // 2 + 1, dtype=[
+        ("start", np.int64), ("end", np.int64), ("score", np.float64)])
+    count = native.load().dg_mss_find_all_mt(
+        scores.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), scores.size,
+        float(min_score), float(xdrop), threads,
+        out.ctypes.data_as(ctypes.POINTER(native.DgSegment)), out.size)
+    return out[:min(count, out.size)].copy()
+
+
 def find_mss_labels(scores: np.ndarray, labels: np.ndarray,
                     nof_labels: int, min_mss_len: int, xdrop_len: int,
                     threads: int = 0) -> np.ndarray:

@@ -1,15 +1,37 @@
 """Overlap-max merging of sliding-window predictions, on the device.
 
-Counterpart of ``overlap_max_merge`` in ``deepgrp_tpu/ops/overlap_max.py``.
-The reference merges overlapping window outputs into a genome-length array
-by a strided elementwise max on the host (``maxcalc.c:10-24``); here the
-merge is a max over K = ceil(V/step) shifted chunk layers, in torch ops.
+Counterpart of ``overlap_max_merge`` and ``get_max`` in
+``deepgrp_tpu/ops/overlap_max.py``.  The reference merges overlapping window
+outputs into a genome-length array by a strided elementwise max on the host
+(``maxcalc.c:10-24``); here the merge is a max over K = ceil(V/step) shifted
+chunk layers, in torch ops.  ``get_max`` keeps the reference's host API.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def get_max(output: np.ndarray, inputs: np.ndarray,
+            stride: int) -> np.ndarray:
+    """In-place strided overlap max on the host (``get_max``,
+    ``deepgrp_tpu/ops/overlap_max.py:26-40``; the reference's
+    ``sequence.pyx:67-76``): ``output[b*stride + i, j] = max(output[b*stride
+    + i, j], inputs[b, i, j])`` for every window ``b``.  ``output`` needs at
+    least ``(batch-1)*stride + dim0`` rows; returns it."""
+    if inputs.ndim != 3 or output.ndim != 2:
+        raise ValueError("inputs must be [batch, dim0, dim1], output 2-D")
+    batch, dim0, dim1 = inputs.shape
+    if output.shape[1] != dim1:
+        raise ValueError("output and inputs disagree on dim1")
+    if batch and output.shape[0] < (batch - 1) * stride + dim0:
+        raise ValueError("output too small for the window span")
+    for b in range(batch):
+        lo = b * stride
+        np.maximum(output[lo:lo + dim0], inputs[b], out=output[lo:lo + dim0])
+    return output
 
 
 def overlap_max_merge(windows: torch.Tensor, step: int,

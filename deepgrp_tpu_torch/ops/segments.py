@@ -1,8 +1,8 @@
 """Segment iteration over per-position class arrays, and the evaluation's
 short-segment filter.
 
-Counterpart of ``yield_segments`` and ``filter_segments`` in
-``deepgrp_tpu/ops/segments.py``
+Counterpart of ``get_segments``, ``yield_segments`` and ``filter_segments``
+in ``deepgrp_tpu/ops/segments.py``
 (parity with the reference DeepGRP's ``sequence.pyx:40-53,79-85``),
 including the reference's boundary quirk: the scan never extends a segment
 past index ``size - 2``, so the final element of a trailing run is emitted
@@ -16,6 +16,21 @@ from typing import Iterator, List, Tuple
 import numpy as np
 
 Segment = Tuple[int, int, int]
+
+
+def get_segments(classes: np.ndarray, startpos: int) -> Segment:
+    """The next non-background constant-label run from ``startpos``: the
+    reference's scan (``sequence.pyx:40-53``), which never extends a run
+    past index ``size - 2``."""
+    length = classes.size - 1
+    currentlabel = int(classes[startpos])
+    while startpos < length and currentlabel == 0:
+        startpos += 1
+        currentlabel = int(classes[startpos])
+    end = startpos + 1
+    while end < length and classes[end] == currentlabel:
+        end += 1
+    return startpos, end, currentlabel
 
 
 def yield_segments(classes: np.ndarray,

@@ -53,6 +53,7 @@ from deepgrp_tpu_torch.models.model import (PAD_CODE, DeepGRPModel, one_hot,
                                             resolve_rnn_kernel)
 from deepgrp_tpu_torch.ops import mss, mss_device
 from deepgrp_tpu_torch.ops.overlap_max import overlap_max_merge
+from deepgrp_tpu_torch.train.sampler import codes_from_onehot_rows
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 #: Chunks in a slice of the scored track (``SLICE_CHUNKS``, ``engine.py:167``
@@ -275,6 +276,27 @@ class PredictionEngine(ScoredReadings):
         """Whether the on-device MSS routes can take this engine's track:
         always, since the track lies on the model's device."""
         return True
+
+
+def predict(model: DeepGRPModel, params: Optional[Dict[str, torch.Tensor]],
+            onehot: np.ndarray, results_shape: Tuple[int, int],
+            step_size: int, batch_size: int = 256) -> np.ndarray:
+    """The reference's one-shot ``predict`` (``prediction.py:89-111``;
+    ``predict``, ``engine.py:1063`` of the JAX package): the overlap-max
+    merged probabilities ``float32 [results_shape]`` of the one-hot
+    sequence ``onehot [5, L]`` (all-zero columns become the pad code),
+    through :meth:`PredictionEngine.predict` on the model's device.
+    ``params`` (flat names, as ``model.params()``) replace the model's
+    weights for this call; ``None`` keeps them."""
+    if params is not None:
+        model = DeepGRPModel.from_params(model.config, params, model.device)
+    if results_shape[1] != model.config.n_classes:
+        raise ValueError(f"results_shape {tuple(results_shape)}: the model "
+                         f"has {model.config.n_classes} classes")
+    engine = PredictionEngine(model, batch_size=batch_size,
+                              step_size=step_size)
+    return engine.predict(codes_from_onehot_rows(np.asarray(onehot)),
+                          out_len=results_shape[0])
 
 
 class ScoredRows:

@@ -150,9 +150,13 @@ def predict_sequence(engine: ScoredReadings, codes: np.ndarray,
 
     Without ``use_mss`` (``predict -m``, ``postprocess.py:404-406``) the
     class is the argmax of :func:`softmax` over the merged probabilities
-    (``engine.predict``); a position no window covers is class 0.
+    (``engine.predict``); a position no window covers is class 0.  An
+    empty track (an empty or all-N record) gives no class, as on the MSS
+    routes; the JAX package's (and the reference's) softmax raises on it.
     """
     if not use_mss:
+        if codes.shape[0] == 0:
+            return np.zeros(0, np.int64)
         return softmax(engine.predict(codes)).argmax(axis=1)
     route = {True: "on", False: "off"}.get(device_mss, device_mss)
     if route not in DEVICE_MSS_ROUTES:

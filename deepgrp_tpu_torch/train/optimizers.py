@@ -18,10 +18,22 @@ the reference DeepGRP's ``model.py:202-215``):
   :class:`RMSprop` here follows the composition above.
 * ``Adam``: ``momentum -> beta_1``, ``rho -> beta_2`` (epsilon outside the
   root in TF2, optax and torch alike): ``torch.optim.Adam``.
-* ``sgd``: ``torch.optim.SGD``.
 
-Any other name raises ``ValueError`` (the JAX package resolves any optax
-optimizer by name; that is not ported).
+Any other name is, as in the JAX package (``optimizers.py:35-38``),
+``getattr(optax, name.lower())(learning_rate=lr)`` with optax's defaults,
+and maps to the ``torch.optim`` class (or, for ``rmsprop``, the class
+below) that computes the same update, optax's defaults passed explicitly
+(:data:`OPTAX_DEFAULTS`; they differ from torch's, e.g. ``adamw``'s weight
+decay is 1e-4 and ``adagrad``'s accumulator starts at 0.1 with ``eps``
+1e-7 inside the root, which torch's ``Adagrad`` reaches with the
+accumulator started at 0.1 + 1e-7 and ``eps`` 0).  A name whose
+``torch.optim`` update differs from optax's raises ``ValueError``:
+``amsgrad`` (optax keeps the maximum of the bias-corrected second moment,
+torch the maximum of the raw one), ``nadam`` and ``nadamw`` (torch's
+``NAdam`` decays the momentum on a schedule), ``radam`` (torch adds
+``eps`` before the bias correction), and every optax optimizer
+``torch.optim`` lacks (``lamb``, ``lion``, ``lars``, ``novograd``,
+``yogi``, ...).
 
 :func:`fleet_optimizer` is the HPO fleet's optimizer: one param group a
 trial, each with its own hyperparameters (the JAX fleet's
@@ -75,6 +87,22 @@ class RMSprop(torch.optim.Optimizer):
         return loss
 
 
+#: The optax optimizers that ``torch.optim`` computes, by lowercase name:
+#: the torch class (``None``: :class:`RMSprop`) and optax's defaults as its
+#: arguments.
+OPTAX_DEFAULTS: Dict[str, Tuple[Optional[type], Dict[str, object]]] = {
+    "adam": (torch.optim.Adam, {"betas": (0.9, 0.999), "eps": 1e-8}),
+    "adamw": (torch.optim.AdamW, {"betas": (0.9, 0.999), "eps": 1e-8,
+                                  "weight_decay": 1e-4}),
+    "adamax": (torch.optim.Adamax, {"betas": (0.9, 0.999), "eps": 1e-8}),
+    "adagrad": (torch.optim.Adagrad, {"initial_accumulator_value": 0.1
+                                      + 1e-7, "eps": 0.0}),
+    "adadelta": (torch.optim.Adadelta, {"rho": 0.9, "eps": 1e-6}),
+    "rmsprop": (None, {"rho": 0.9, "eps": 1e-8}),
+    "sgd": (torch.optim.SGD, {}),
+}
+
+
 def get_optimizer(options: Options, params: Iterable[torch.Tensor]
                   ) -> torch.optim.Optimizer:
     """The optimizer named by ``options.optimizer`` over ``params``."""
@@ -87,10 +115,12 @@ def get_optimizer(options: Options, params: Iterable[torch.Tensor]
         return torch.optim.Adam(params, lr=options.learning_rate,
                                 betas=(options.momentum, options.rho),
                                 eps=options.epsilon)
-    if name.lower() == "sgd":
-        return torch.optim.SGD(params, lr=options.learning_rate)
-    raise ValueError(f"unknown optimizer {name!r} (RMSprop, Adam and sgd "
-                     "are ported)")
+    if name.lower() not in OPTAX_DEFAULTS:
+        raise ValueError(f"unknown optimizer {name!r}: RMSprop, Adam and "
+                         f"the optax names {sorted(OPTAX_DEFAULTS)} are "
+                         "ported")
+    cls, defaults = OPTAX_DEFAULTS[name.lower()]
+    return (cls or RMSprop)(params, lr=options.learning_rate, **defaults)
 
 
 def fleet_optimizer(name: str,

@@ -44,6 +44,10 @@ and an HPO fleet step (three trials, one frozen) against the same step on
 the CPU: losses at atol 1e-5, gradients and updated parameters within
 1e-4 of their largest magnitude, the frozen trial's parameters bit for
 bit.
+
+The reference API's ``engine.predict`` through ``create_model`` on the
+card equals ``PredictionEngine.predict`` bit for bit, and where ``h5py``
+is missing ``train --modelfile m.h5`` raises before it reads anything.
 """
 
 import os
@@ -701,3 +705,52 @@ def test_mss_routes_on_card_match_cpu(device, route):
         assert "mss_stack_plain" not in mss_device.LAUNCHES.snapshot()
         np.testing.assert_array_equal(np.asarray(got, np.int64),
                                       np.asarray(want, np.int64))
+
+
+def test_api_engine_predict_on_card(device):
+    """``engine.predict`` through ``create_model`` on the card equals
+    ``PredictionEngine.predict`` on the card bit for bit (``dg_gru_avg``
+    launched) and the CPU's merged track to 1e-5."""
+    from deepgrp_tpu_torch.models.model import create_model
+    from deepgrp_tpu_torch.predict.engine import predict
+    from deepgrp_tpu_torch.train.sampler import codes_from_onehot_rows
+
+    config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
+    options = Options(vecsize=config.vecsize, units=config.units,
+                      attention=config.attention)
+    model = create_model(options)
+    assert model.device.type == "cuda"
+    rng = np.random.default_rng(5)
+    onehot = np.eye(5, dtype=np.int8)[rng.integers(0, 5, 20000)].T.copy()
+    shape = (onehot.shape[1], config.n_classes)
+    cuda_rnn.LAUNCHES.reset()
+    got = predict(model, params, onehot, shape, 50, batch_size=64)
+    assert cuda_rnn.LAUNCHES.get("gru_avg") > 0
+    loaded = DeepGRPModel.from_params(config, params, device)
+    want = PredictionEngine(loaded, batch_size=64, step_size=50).predict(
+        codes_from_onehot_rows(onehot))
+    np.testing.assert_array_equal(got, want)
+    cpu = predict(DeepGRPModel(config, "cpu"), params, onehot, shape, 50,
+                  batch_size=64)
+    np.testing.assert_allclose(got, cpu, atol=ATOL)
+
+
+def test_train_h5_without_h5py_raises_at_once(device, tmp_path):
+    """Where ``h5py`` is missing (the card's machine), ``train --modelfile
+    m.h5`` raises ``ImportError`` naming it before it reads any input or
+    trains."""
+    try:
+        import h5py  # noqa: F401
+        pytest.skip("h5py is installed here")
+    except ImportError:
+        pass
+    from deepgrp_tpu_torch import cli
+
+    missing = [str(tmp_path / name) for name in ("p.toml", "a.npz",
+                                                 "b.npz", "r.bed")]
+    cuda_rnn.LAUNCHES.reset()
+    with pytest.raises(ImportError, match="h5py"):
+        cli.main(["train", *missing, "--logdir", str(tmp_path / "log"),
+                  "--modelfile", str(tmp_path / "m.h5")])
+    assert not cuda_rnn.LAUNCHES.snapshot()
+    assert not list(tmp_path.iterdir())

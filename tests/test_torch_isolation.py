@@ -24,7 +24,9 @@ def test_importing_every_module_loads_no_jax():
                  "hpo", "hpo.space", "hpo.tpe", "hpo.optimization",
                  "hpo.vmapped", "hpo.bucketed", "utils.tb_events",
                  "parallel", "parallel.mesh", "parallel.predict",
-                 "parallel.train", "ops.mss_device"):
+                 "parallel.train", "ops.mss_device", "data.fasta",
+                 "data.parse_rm", "data.preprocess_sequence",
+                 "models.keras_io", "__main__"):
         assert f"deepgrp_tpu_torch.{name}" in modules, name
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"

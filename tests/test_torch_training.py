@@ -10,6 +10,7 @@ stated per test.
 import json
 import math
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -636,11 +637,18 @@ def test_cli_train_without_honor_toml_takes_defaults(tmp_path):
     assert (parameter.vecsize, parameter.units) == (150, 32)
 
 
-def test_cli_train_refuses_h5_output(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_cli_train_refuses_h5_output(tmp_path, monkeypatch):
+    """Without ``h5py`` an ``.h5`` model cannot be written: ``train``
+    raises ``ImportError`` naming it before it loads any data (nothing is
+    trained, no log directory made, no ``.npz`` written instead)."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
         cli.main(["--device", "cpu", "train",
-                  *write_training_files(tmp_path),
-                  "--modelfile", str(tmp_path / "m.h5")])
+                  *write_training_files(tmp_path), "--logdir",
+                  str(tmp_path / "log"), "--modelfile",
+                  str(tmp_path / "m.h5")])
+    assert not (tmp_path / "log").exists()
+    assert not list(tmp_path.glob("m.*"))
 
 
 def test_cli_train_default_device_raises_without_gpu(tmp_path):
