@@ -60,7 +60,16 @@ Phases (any failure exits non-zero; nothing is caught):
    validation sequence), then the same breakdown (steps/s, stream time by
    stage with the backward's share, device time and idle share, one step
    against the plain versions) for the LSTM model at batch 256, one epoch
-   of 20 steps.
+   of 20 steps.  For both models the epoch with its step captured as a
+   CUDA graph (``train/step_graph.py``: one eager warm-up step, the
+   capture, replays) against the eager epoch, from the same parameters
+   and generator seed, in 4 turns (the first a warm-up; eager first in
+   turns 1 and 3, captured first in 2 and 4) and one profiled epoch each:
+   step losses, parameters and generator state equal bit for bit after
+   every turn; steps/s, the graph's memory and each one's device busy and
+   idle share printed.  Then ``Trainer.fit`` of 2 epochs captured against
+   eager: history, best parameters, generator state and launch counts
+   equal bit for bit.
 8. One-hot kernels vs plain versions: the GRU sequence kernel
    (``gru_seq``, ``csrc/rnn_seq.cu``; its ``ptxas -v`` registers and
    spills, and at each shape its tile: rows a CTA, CTAs, rows a lane
@@ -99,7 +108,10 @@ Phases (any failure exits non-zero; nothing is caught):
     same windows, masks and parameters: loss to 1e-5, every gradient to
     1e-4 of its largest magnitude; then ``train --rnn-kernel scan`` and
     ``--rnn-kernel fused`` through the CLI (2 epochs of 3 steps), with
-    their steps/s.
+    their steps/s.  Between them, the scan route's step captured as a
+    CUDA graph against the eager step (``gru_att``, batch 256, epochs of
+    5 steps in turns, as phase 7), and a captured ``Trainer.fit
+    --rnn-kernel scan`` of 2 x 3 steps against the eager one.
 12. HPO on phase 7's chromosome pair, in the reference search space
     (vecsize about 200, 34 units), each trial 2 epochs of 100 steps at
     batch 256 (cut from the reference's 200 x 250): ``run_a_trial`` with 2
@@ -114,6 +126,12 @@ Phases (any failure exits non-zero; nothing is caught):
     to 1e-5, updated parameters to 1e-4 of their largest magnitude, the
     frozen trial's bit for bit), the fleet's steps/s against one trial's
     serial steps/s, and one fleet epoch's device time by kernel name.
+    Then the fleet step of 4 trials captured as one CUDA graph against
+    the eager fleet step, epochs of 20 steps in turns as phase 7, then 2
+    more epochs with trial 1 frozen (the captured run drops its graph and
+    captures the other three's): losses, parameters and generator states
+    equal bit for bit after every epoch, the frozen trial's parameters
+    unchanged, every trial step counted once.
 13. Several shards and ranks on the one card (``deepgrp_tpu_torch/
     parallel``): the sharded engine over ``["cuda:0"] * 4`` and ``* 3``
     on phase 4's chromosome (batch 1024): the MSS labels give the 1456
@@ -171,6 +189,8 @@ Phases (any failure exits non-zero; nothing is caught):
     missing, ``train --modelfile m.h5`` raising ``ImportError`` before it
     trains or writes anything.
 
+A captured step's launches are counted at each replay, as an eager
+step's are (``_build.recording_launches``).
 Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
 not have run (``dg_mss_stack`` on the ``on`` route and the sharded
@@ -250,6 +270,12 @@ FLAGSHIP = {"vecsize": 342, "units": 60, "attention": True,
 # MCC is NaN and the trial fails by the reference's rule.  The
 # evaluation's window step is the CLI default.
 HPO_EPOCHS, HPO_STEPS, HPO_STEP_SIZE = 2, 100, 50
+# Steps an epoch of the captured-against-eager turns: the scan route (a
+# slow eager step) and the fleet.
+SCAN_GRAPH_STEPS, FLEET_GRAPH_STEPS = 5, 20
+# The fleet's epoch at which trial 1 freezes: after compare_captured's 4
+# turns and profiled epoch.
+FLEET_FREEZE_EPOCH = 5
 
 
 def phase(name: str) -> None:
@@ -935,12 +961,16 @@ def step_parity(torch, model, codes, labels, masks) -> None:
         raise AssertionError(f"step gradients differ: {rel}")
 
 
-def train_breakdown_phase(torch, model_path: str, train_data, options,
-                          label: str = "gru_att"):
-    """Where one epoch's time goes: stream time between the stage
+def train_breakdown_phase(torch, model_path: str, train_data, val_data,
+                          options, tmp: str, label: str = "gru_att"):
+    """Where one eager epoch's time goes: stream time between the stage
     boundaries of each step (CUDA events), device time by kernel name
     (``torch.profiler``) and the idle share against the host clock; then
-    one step through the kernels against the plain versions."""
+    one step through the kernels against the plain versions; then the
+    epoch with its step captured as a CUDA graph against the eager epoch
+    (:func:`compare_captured`), and a captured ``Trainer.fit`` of 2 epochs
+    against the eager one (:func:`fit_pair`)."""
+    from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.models import rnn
     from deepgrp_tpu_torch.models.keras_io import load_model
     from deepgrp_tpu_torch.models.model import (
@@ -1014,6 +1044,12 @@ def train_breakdown_phase(torch, model_path: str, train_data, options,
     print_device_time(label, device_time(torch, epoch), wall)
     step_parity(torch, model, *batch())
 
+    compare_captured(torch, label, single_run(torch, config, params,
+                                              options, sampler, seed=11),
+                     n_steps)
+    fit_pair(torch, Options(**{**options.todict(), "n_epochs": 2}),
+             train_data, val_data, tmp, label)
+
 
 def training_phase(torch, np, tmp: str):
     """Phase 7: train the flagship gru_att (and LSTM, shallower) through
@@ -1052,7 +1088,8 @@ def training_phase(torch, np, tmp: str):
                       **FLAGSHIP)
     train_breakdown_phase(torch, model,
                           load_training_data(np, train_npz, bed, options),
-                          options)
+                          load_training_data(np, val_npz, bed, options),
+                          options, tmp)
 
     lstm_epochs, lstm_steps = 2, 5
     lstm_options = {**FLAGSHIP, "attention": False, "rnn": "LSTM"}
@@ -1093,7 +1130,8 @@ def training_phase(torch, np, tmp: str):
                       **lstm_options)
     train_breakdown_phase(torch, lstm_model,
                           load_training_data(np, train_npz, bed, options),
-                          options, label="lstm")
+                          load_training_data(np, val_npz, bed, options),
+                          options, tmp, label="lstm")
     return launches, lstm_launches
 
 
@@ -1511,6 +1549,21 @@ def scan_training_phase(torch, np, tmp: str):
             raise AssertionError(f"{label}: scan-route gradients differ: "
                                  f"{rel}")
 
+    # The scan route's step captured as a CUDA graph against the eager
+    # step: epochs of SCAN_GRAPH_STEPS steps in turns, then a captured
+    # Trainer.fit of 2 x 3 steps against the eager one.
+    options = Options(batch_size=256, n_epochs=2, n_batches=SCAN_GRAPH_STEPS,
+                      **FLAGSHIP)
+    config = ModelConfig.from_options(options)
+    data = [load_training_data(np, path, files[2], options)
+            for path in files[:2]]
+    compare_captured(torch, "gru_att scan route", single_run(
+        torch, config, init_params(config, torch.Generator().manual_seed(5)),
+        options, BatchSampler(options, data[0], "cuda"), seed=13,
+        fused=False), SCAN_GRAPH_STEPS)
+    fit_pair(torch, Options(**{**options.todict(), "n_batches": 3}), *data,
+             tmp, "gru_att scan", rnn_kernel="scan")
+
     epochs, steps = 2, 3
     for route in ("scan", "fused"):
         reset_counts()
@@ -1584,6 +1637,149 @@ def print_device_time(label: str, by_name: dict, wall: float) -> None:
               flush=True)
 
 
+def compare_captured(torch, label: str, make, n_steps: int,
+                     turns: int = 4) -> dict:
+    """A run's epochs eager and the same run's epochs with the step
+    captured as a CUDA graph, in turns (eager first in even turns,
+    captured first in odd ones).  ``make(capture)`` gives ``(epoch,
+    state)``: ``epoch()`` runs one epoch of ``n_steps`` steps (ending in a
+    host read, as a real epoch does) and returns its step losses,
+    ``state()`` the tensors to hold equal (parameters, generator states).
+    After every turn the two runs' losses and states must be equal bit for
+    bit.  The first turn is the warm-up (the captured run's eager step and
+    capture; the graph's memory is read there); steps/s from the others;
+    then one more epoch of each under the profiler, its device busy share
+    against that run's median unprofiled epoch."""
+    runs = {capture: make(capture) for capture in (False, True)}
+    walls = {False: [], True: []}
+    graph_mb = None
+
+    def check(when: str, losses) -> None:
+        states = [runs[capture][1]() for capture in (False, True)]
+        same = (all(torch.equal(a, b) for a, b in zip(*losses))
+                and all(torch.equal(a, b) for a, b in zip(*states)))
+        if not same:
+            raise AssertionError(f"{label}: the captured run differs from "
+                                 f"the eager one {when}")
+
+    for turn in range(turns):
+        order = (False, True) if turn % 2 == 0 else (True, False)
+        losses = {}
+        for capture in order:
+            torch.cuda.synchronize()
+            if turn == 0 and capture:
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
+            start = time.perf_counter()
+            losses[capture] = runs[capture][0]()
+            torch.cuda.synchronize()
+            walls[capture].append(time.perf_counter() - start)
+            if turn == 0 and capture:
+                torch.cuda.empty_cache()
+                graph_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+        check(f"after turn {turn + 1}", (losses[False], losses[True]))
+    rates = {c: [n_steps / w for w in walls[c][1:]] for c in walls}
+    medians = {c: sorted(walls[c][1:])[len(walls[c][1:]) // 2]
+               for c in walls}
+    print(f"{label}: captured vs eager, {turns - 1} timed turns of "
+          f"{n_steps} steps after a warm-up turn, losses and states equal "
+          f"bit for bit after every turn; steps/s eager "
+          f"{[round(r, 2) for r in rates[False]]}, captured "
+          f"{[round(r, 2) for r in rates[True]]}; median epoch eager "
+          f"{medians[False]:.4f} s, captured {medians[True]:.4f} s "
+          f"({medians[False] / medians[True]:.2f}x); warm-up turn eager "
+          f"{walls[False][0]:.4f} s, captured (eager step, capture, "
+          f"replays) {walls[True][0]:.4f} s; graph memory (its pool and "
+          f"the run's state) {graph_mb:.1f} MiB", flush=True)
+    losses = {}
+    for capture in (False, True):
+        def profiled(capture=capture):
+            losses[capture] = runs[capture][0]()
+
+        print_device_time(f"{label} {'captured' if capture else 'eager'}",
+                          device_time(torch, profiled), medians[capture])
+    check("after the profiled epochs", (losses[False], losses[True]))
+    return {"runs": runs, "steps_per_s": rates, "median_s": medians,
+            "graph_mib": graph_mb}
+
+
+def single_run(torch, config, params, options, sampler, seed: int,
+               fused: bool = True):
+    """``make(capture)`` of :func:`compare_captured` for a single-device
+    run: the model from ``params``, the options' optimizer, draws from a
+    generator seeded ``seed``, and ``options.n_batches`` steps an epoch
+    through ``EpochLoop``."""
+    from deepgrp_tpu_torch.models import rnn
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.train.optimizers import get_optimizer
+    from deepgrp_tpu_torch.train.training import EpochLoop, train_step
+
+    def make(capture: bool):
+        model = DeepGRPModel.from_params(config, params)
+        optimizer = get_optimizer(options, model.parameters())
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        rows, rate = 2 * sampler.batch_size, float(config.dropout)
+
+        def step():
+            codes, labels = sampler.batch(gen)
+            masks = (rnn.input_dropout_masks(gen, rows, rate, config.gates)
+                     if rate > 0.0 else None)
+            return train_step(model, optimizer, codes, labels, masks, fused)
+
+        loop = EpochLoop(step, options.n_batches, model.device, capture,
+                         [gen])
+
+        def epoch():
+            loop.epoch().item()
+            return [loop.losses.clone()]
+
+        return epoch, lambda: [*model.params().values(), gen.get_state()]
+
+    return make
+
+
+def fit_pair(torch, options, train_data, val_data, tmp: str, label: str,
+             rnn_kernel: str = "fused") -> None:
+    """``Trainer.fit`` eager and captured from seed 0: history, best
+    parameters, the generator's state and the launch counts must be equal
+    bit for bit, and no plain version may run."""
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+    from deepgrp_tpu_torch.models.model import DeepGRPModel, ModelConfig
+    from deepgrp_tpu_torch.train.training import Trainer
+
+    runs = {}
+    for capture in (False, True):
+        model = DeepGRPModel(ModelConfig.from_options(options))
+        trainer = Trainer(model, options,
+                          os.path.join(tmp, f"{label}_fit_{capture}"),
+                          tensorboard=False, rnn_kernel=rnn_kernel,
+                          capture=capture)
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            best, history = trainer.fit(train_data, val_data, seed=0)
+        finally:
+            trainer.writer.close()
+        seconds = time.perf_counter() - start
+        runs[capture] = (history, best, trainer.generator.get_state(),
+                         cuda_rnn.LAUNCHES.snapshot(),
+                         rnn.PLAIN_CALLS.snapshot(), seconds)
+    (history, best, state, launches, plain, _), want = runs[True], runs[False]
+    same = (history == want[0] and launches == want[3]
+            and torch.equal(state, want[2])
+            and all(torch.equal(best[k], v) for k, v in want[1].items()))
+    print(f"{label} Trainer.fit {options.n_epochs} x {options.n_batches} "
+          f"steps (--rnn-kernel {rnn_kernel}), captured vs eager: history, "
+          f"best parameters, generator state and launches equal bit for "
+          f"bit: {same}; launches {launches}; seconds eager "
+          f"{want[5]:.4f}, captured {runs[True][5]:.4f}; losses "
+          f"{history['loss']}", flush=True)
+    if not same or plain or want[4]:
+        raise AssertionError(f"{label}: the captured fit differs from the "
+                             f"eager one (plain calls {plain}, {want[4]})")
+
+
 def check_trials(trials, label: str) -> None:
     """Every trial ``STATUS_OK`` with a finite loss, and its logdir holds
     ``hparams.json``, ``metrics.jsonl`` with ``hpo/MCC`` and an events
@@ -1627,6 +1823,7 @@ def hpo_phase(torch, np, tmp: str):
     from deepgrp_tpu_torch.train.optimizers import (fleet_optimizer,
                                                     get_optimizer)
     from deepgrp_tpu_torch.train.sampler import BatchSampler
+    from deepgrp_tpu_torch.train.step_graph import StepGraph
     from deepgrp_tpu_torch.train.training import train_step
 
     train_npz, val_npz, bed = write_training_files(np, tmp)
@@ -1792,6 +1989,75 @@ def hpo_phase(torch, np, tmp: str):
           f"plain_calls={rnn.PLAIN_CALLS.snapshot()}", flush=True)
     print_device_time(f"fleet epoch ({HPO_STEPS} steps)", by_name,
                       walls["fleet"])
+
+    # The fleet step captured as one CUDA graph against the eager fleet
+    # step, FLEET_GRAPH_STEPS steps an epoch, all trials active in the
+    # timed and profiled epochs; then trial 1 freezes for two more epochs
+    # (the captured run drops its graph and captures the other three's).
+    fleets, frozen = {}, {}
+
+    def fleet_run(capture):
+        models, optimizer = fleet()
+        gens = [torch.Generator(device="cuda").manual_seed(300 + i)
+                for i in range(n_trials)]
+        losses = torch.zeros(n_trials, device="cuda")
+        active = [True] * n_trials
+        run, epochs = [None], [0]
+        fleets[capture] = models
+
+        def trial_batch(i):
+            codes, labels = sampler.batch(gens[i])
+            rate = trial_hp[i]["dropout"]
+            masks = (rnn.input_dropout_masks(gens[i], rows, rate,
+                                             config.gates)
+                     if rate > 0.0 else None)
+            return codes, labels, masks
+
+        def epoch():
+            if epochs[0] == FLEET_FREEZE_EPOCH:
+                active[1], run[0] = False, None
+                frozen[capture] = [p.detach().clone()
+                                   for p in models[1].parameters()]
+            if run[0] is None:
+                step = vmapped.fleet_steps(models, optimizer, trial_batch,
+                                           active, losses)
+                run[0] = (StepGraph(step, "cuda", [
+                    g for g, on in zip(gens, active) if on])
+                    if capture else step)
+            record = []
+            for _ in range(FLEET_GRAPH_STEPS):
+                run[0]()
+                record.append(losses.clone())
+            losses.cpu()
+            epochs[0] += 1
+            return record
+
+        return epoch, lambda: ([p for m in models for p in m.parameters()]
+                               + [g.get_state() for g in gens])
+
+    reset_counts()
+    runs = compare_captured(torch, f"fleet of {n_trials}", fleet_run,
+                            FLEET_GRAPH_STEPS)["runs"]
+    for _ in range(2):
+        losses = [runs[capture][0]() for capture in (False, True)]
+        states = [runs[capture][1]() for capture in (False, True)]
+        if not (all(torch.equal(a, b) for a, b in zip(*losses))
+                and all(torch.equal(a, b) for a, b in zip(*states))):
+            raise AssertionError("the captured fleet differs from the "
+                                 "eager one after the freeze")
+    # A run's epochs: FLEET_FREEZE_EPOCH of every trial, 2 without trial 1.
+    trial_steps = 2 * FLEET_GRAPH_STEPS * (FLEET_FREEZE_EPOCH * n_trials
+                                           + 2 * (n_trials - 1))
+    check_counts({"gru_train_fwd": trial_steps,
+                  "gru_train_bwd": trial_steps})
+    for capture in (False, True):
+        if not all(torch.equal(a, b) for a, b in zip(
+                frozen[capture], fleets[capture][1].parameters())):
+            raise AssertionError("the frozen trial's parameters moved")
+    print("fleet: trial 1 frozen for 2 more epochs (a new graph of the "
+          "other three): losses and states equal bit for bit, the frozen "
+          "trial's parameters unchanged, every trial step counted once",
+          flush=True)
 
 
 def free_port() -> int:

@@ -22,6 +22,7 @@ is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
@@ -45,15 +46,22 @@ _kernels: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Per-name integer counts (thread-safe), e.g. kernel launches."""
+    """Per-name integer counts (thread-safe), e.g. kernel launches.
+
+    While :func:`recording_launches` is open, adds go into its record
+    instead (a CUDA graph's capture launches nothing; each replay adds the
+    record, :class:`LaunchRecord`)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = {}
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + 1
+            record = _recording
+            counts = (self._counts if record is None
+                      else record.setdefault(self, {}))
+            counts[name] = counts.get(name, 0) + n
 
     def reset(self) -> None:
         with self._lock:
@@ -66,6 +74,43 @@ class LaunchCounter:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._counts)
+
+
+class LaunchRecord:
+    """The adds of every counter made while recording, kept out of the
+    counts; :meth:`replay` adds them once."""
+
+    def __init__(self) -> None:
+        self.counts: Dict[LaunchCounter, Dict[str, int]] = {}
+
+    def replay(self) -> None:
+        for counter, counts in self.counts.items():
+            for name, n in counts.items():
+                counter.add(name, n)
+
+
+_recording: Optional[Dict[LaunchCounter, Dict[str, int]]] = None
+_recording_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[LaunchRecord]:
+    """Within the block every :class:`LaunchCounter`'s adds, from any
+    thread (the autograd engine runs a backward on its own), go into the
+    yielded record instead of the counts.  One recording at a time, as one
+    CUDA graph capture at a time; raises ``RuntimeError`` if another is
+    open."""
+    global _recording
+    record = LaunchRecord()
+    with _recording_lock:
+        if _recording is not None:
+            raise RuntimeError("launches are already being recorded")
+        _recording = record.counts
+    try:
+        yield record
+    finally:
+        with _recording_lock:
+            _recording = None
 
 
 def build_shared_library(name: str, compiler: Sequence[str],

@@ -22,11 +22,19 @@ through the inference kernels.  With one-hot input ``(x * mask_g) @ W_g``
 equals the fused row select ``mask_g[b, code] * W_g[code]``, so the two
 routes compute the same function and differ only in the summation order of
 the recurrent dot.
+
+On a CUDA device a fleet step (every active trial's draw, masks, forward
+and backward, then the one optimizer step) is captured as one CUDA graph
+after an eager warm-up step and replayed (:func:`fleet_steps`,
+:class:`~deepgrp_tpu_torch.train.step_graph.StepGraph`), the counterpart
+of the JAX fleet's one program a step.  The active set changes only
+between epochs; a freeze drops the graph and captures one of the new set.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -39,6 +47,7 @@ from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
                                             init_params, resolve_device)
 from deepgrp_tpu_torch.train.optimizers import fleet_optimizer
 from deepgrp_tpu_torch.train.sampler import BatchSampler
+from deepgrp_tpu_torch.train.step_graph import StepGraph
 from deepgrp_tpu_torch.train.training import (categorical_crossentropy,
                                               host_params, step_loss)
 
@@ -94,6 +103,28 @@ def fleet_step(models: Sequence[DeepGRPModel],
     return losses
 
 
+def fleet_steps(models: Sequence[DeepGRPModel],
+                optimizer: torch.optim.Optimizer,
+                batch: Callable[[int], Batch], active: Sequence[bool],
+                losses: torch.Tensor) -> Callable[[], None]:
+    """The fleet step of one active set as a function of no arguments
+    (what a :class:`~deepgrp_tpu_torch.train.step_graph.StepGraph`
+    captures): each active trial's batch (``batch(i)``, in trial order),
+    :func:`fleet_step`, and each active trial's loss copied into
+    ``losses[i]`` (a frozen trial's row keeps its value)."""
+    active = [bool(on) for on in active]
+
+    def step() -> None:
+        out = fleet_step(models, optimizer,
+                         [batch(i) if on else None
+                          for i, on in enumerate(active)], active)
+        for i, loss in enumerate(out):
+            if loss is not None:
+                losses[i].copy_(loss)
+
+    return step
+
+
 def _trial_seed(seed: int, *path: int) -> int:
     """The seed of one stream of the fleet seeded ``seed``."""
     return int(np.random.SeedSequence([seed, *path]).generate_state(1)[0])
@@ -103,7 +134,8 @@ def run_parallel_trials(base_options: Options,
                         trial_dicts: List[Dict[str, Any]],
                         train_data: Data, val_data: Data,
                         seed: int = 0,
-                        device: Union[str, torch.device] = "cuda"
+                        device: Union[str, torch.device] = "cuda",
+                        capture: Optional[bool] = None
                         ) -> List[Dict[str, Any]]:
     """Train every trial of the fleet; per-trial results
     (``run_parallel_trials``, ``vmapped.py:125-231``).
@@ -114,7 +146,10 @@ def run_parallel_trials(base_options: Options,
     seeds ``(seed, 0, i)``; the shared validation batches come from
     ``(seed, 1)``.  Early stopping is per trial: a trial whose patience
     (``early_stopping_th``, at least 1) is spent is frozen, and the fleet
-    stops when every trial is.  Raises ``ValueError`` for a trial dict
+    stops when every trial is.  ``capture`` replays each fleet step as a
+    captured CUDA graph (module docstring); ``None`` (the default) captures
+    on a CUDA device, ``False`` runs every step eagerly, ``True`` raises
+    ``ValueError`` on the CPU.  Raises ``ValueError`` for a trial dict
     with a key outside ``VARYING_KEYS``.
     """
     n_trials = len(trial_dicts)
@@ -128,6 +163,10 @@ def run_parallel_trials(base_options: Options,
 
     options = base_options
     device = resolve_device(device)
+    if capture is None:
+        capture = device.type == "cuda"
+    elif capture and device.type != "cuda":
+        raise ValueError(f"capture=True needs a CUDA device, not {device}")
     config = ModelConfig.from_options(options)
     hp = stack_trial_hyperparams(options, trial_dicts)
     trial_hp = [trial_hyperparams(hp, i) for i in range(n_trials)]
@@ -164,12 +203,20 @@ def run_parallel_trials(base_options: Options,
     since_best = np.zeros(n_trials, np.int64)
     stopped_epoch = np.zeros(n_trials, np.int64)
 
+    losses = torch.zeros(n_trials, device=device)
+    run: Optional[Callable[[], None]] = None
+    run_active = None
     for epoch in range(1, options.n_epochs + 1):
         active = since_best < patience
+        if run is None or not np.array_equal(active, run_active):
+            # A freeze drops the old graph (run's last reference).
+            step = fleet_steps(models, optimizer, batch, active, losses)
+            run = (StepGraph(step, device, [generators[i] for i in
+                                            np.flatnonzero(active)])
+                   if capture else step)
+            run_active = active
         for _ in range(options.n_batches):
-            fleet_step(models, optimizer,
-                       [batch(i) if active[i] else None
-                        for i in range(n_trials)], active)
+            run()
         val_codes, val_labels = val_sampler.batch(val_generator)
         with torch.no_grad():
             val_losses = torch.stack([

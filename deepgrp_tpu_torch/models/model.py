@@ -190,8 +190,11 @@ def _cast(params: Params, dtype: torch.dtype) -> Params:
 
 def reverse_complement(x: torch.Tensor) -> torch.Tensor:
     """Reverse the sequence axis and complement the channel axis of one-hot
-    ``x [..., T, 5]`` (``model.py:78-84``)."""
-    return x.flip(-2)[..., list(COMPLEMENT_PERM)]
+    ``x [..., T, 5]`` (``model.py:78-84``): ``COMPLEMENT_PERM`` reverses
+    A, C, G, T and keeps N, taken here as slices, so no index tensor is
+    copied from the host (a CUDA graph cannot capture that copy)."""
+    rev = x.flip(-2)
+    return torch.cat([rev[..., :4].flip(-1), rev[..., 4:]], dim=-1)
 
 
 def forward_logits(params: Params, x: torch.Tensor, config: ModelConfig,

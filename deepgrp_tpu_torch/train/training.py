@@ -20,13 +20,18 @@ runs XLA's scan under ``jax.grad``.
 
 Within an epoch nothing waits for the device: windows and masks are drawn
 from one ``torch.Generator`` on the device and the losses stay there; the
-host reads them once per epoch (the counterpart of the JAX package's one
-dispatch per epoch).  The validation batch runs without dropout, through
-the inference kernels.
+host reads them once per epoch.  On a CUDA device the step (draw, masks,
+forward, loss, backward, optimizer) is captured as a CUDA graph after one
+eager warm-up step and replayed for every later step (:class:`EpochLoop`,
+:class:`~deepgrp_tpu_torch.train.step_graph.StepGraph`): the counterpart
+of the JAX package's one dispatch per epoch.  The validation batch runs
+without dropout, through the inference kernels, eagerly between epochs.
 
 With a process group of several ranks the loop is data-parallel
 (:class:`Trainer`'s ``group``; the step is
-:func:`deepgrp_tpu_torch.parallel.train.dp_train_step`).
+:func:`deepgrp_tpu_torch.parallel.train.dp_train_step`) and eager: its
+``all_reduce`` could be captured only over NCCL, which needs a card a
+rank.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import logging
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -53,6 +58,7 @@ from deepgrp_tpu_torch.parallel.mesh import is_first_rank
 from deepgrp_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from deepgrp_tpu_torch.train.optimizers import get_optimizer
 from deepgrp_tpu_torch.train.sampler import BatchSampler, local_batch_size
+from deepgrp_tpu_torch.train.step_graph import StepGraph
 from deepgrp_tpu_torch.utils.tb_events import EventFileWriter
 
 _LOG = logging.getLogger(__name__)
@@ -140,6 +146,39 @@ def train_step(model: DeepGRPModel, optimizer: torch.optim.Optimizer,
     return loss.detach()
 
 
+class EpochLoop:
+    """Epochs of a run's optimization steps, eager or, with ``capture``,
+    replayed as one captured CUDA graph (:class:`~deepgrp_tpu_torch.train.
+    step_graph.StepGraph` over ``generators``, the ones ``step`` draws
+    from).
+
+    ``step()`` takes one optimization step and returns its loss, a 0-dim
+    device tensor.  The loss is copied into the static ``loss`` inside the
+    step, then into row ``i`` of ``losses [n_batches]``; :meth:`epoch`
+    returns ``losses.mean()``, the values and the reduction of
+    ``torch.stack`` of the steps' losses ``.mean()``, not read.
+    """
+
+    def __init__(self, step: Callable[[], torch.Tensor], n_batches: int,
+                 device: Union[str, torch.device], capture: bool = False,
+                 generators: Sequence[torch.Generator] = ()):
+        self.loss = torch.zeros((), device=device)
+        self.losses = torch.zeros(n_batches, device=device)
+
+        def body() -> None:
+            self.loss.copy_(step())
+
+        self._run: Callable[[], None] = (
+            StepGraph(body, device, generators) if capture else body)
+
+    def epoch(self) -> torch.Tensor:
+        """``n_batches`` steps; their mean loss (a 0-dim device tensor)."""
+        for i in range(self.losses.shape[0]):
+            self._run()
+            self.losses[i].copy_(self.loss)
+        return self.losses.mean()
+
+
 def host_params(model: DeepGRPModel) -> Params:
     """A CPU copy of the model's parameters."""
     return {key: value.detach().cpu().clone()
@@ -148,12 +187,20 @@ def host_params(model: DeepGRPModel) -> Params:
 
 class Trainer:
     """The training loop of one model / options pair (``Trainer``,
-    ``training.py:196-391``)."""
+    ``training.py:196-391``).
+
+    ``capture``: replay the step as a captured CUDA graph
+    (:class:`EpochLoop`); ``None`` (the default) captures on a CUDA device
+    outside data-parallel runs, ``False`` runs every step eagerly (the
+    reference a captured run equals bit for bit), ``True`` raises
+    ``ValueError`` on the CPU or with a group of several ranks.
+    """
 
     def __init__(self, model: DeepGRPModel, options: Options,
                  logdir: os.PathLike, tensorboard: bool = True,
                  rnn_kernel: str = "auto",
-                 group: Optional[dist.ProcessGroup] = None):
+                 group: Optional[dist.ProcessGroup] = None,
+                 capture: Optional[bool] = None):
         self.model = model
         self.options = options
         self.logdir = logdir
@@ -162,6 +209,15 @@ class Trainer:
         # (``training.py:270-345``).
         self.group = group
         self.world = 1 if group is None else dist.get_world_size(group)
+        capturable = model.device.type == "cuda" and self.world == 1
+        if capture and not capturable:
+            raise ValueError(
+                f"capture=True needs a single-device run on a CUDA device; "
+                f"this run is on {model.device} with {self.world} rank(s)")
+        self.capture = capturable if capture is None else capture
+        # The last fit's training generator (its state tells how far the
+        # run's draws went).
+        self.generator: Optional[torch.Generator] = None
         # In a multi-process run only the first rank writes files.
         writes = is_first_rank()
         self.checkpoints = CheckpointManager(logdir) if writes else None
@@ -222,36 +278,37 @@ class Trainer:
             seed * 65537 + rank if data_parallel else seed)
         val_generator = (torch.Generator(device=device).manual_seed(seed)
                          if data_parallel else generator)
+        self.generator = generator
         train_sampler = BatchSampler(options, train_data, device)
         val_sampler = BatchSampler(options, val_data, device)
         rows = 2 * local_batch
         rate = float(config.dropout)
 
+        def step() -> torch.Tensor:
+            if data_parallel:
+                codes, labels = train_sampler.gather(
+                    train_sampler.sample_starts_dp(generator, rank,
+                                                   self.world))
+            else:
+                codes, labels = train_sampler.batch(generator)
+            masks = (rnn.input_dropout_masks(generator, rows, rate,
+                                             config.gates)
+                     if rate > 0.0 else None)
+            if data_parallel:
+                return dp_train_step(model, optimizer, codes, labels, masks,
+                                     self.group, self.fused)
+            return train_step(model, optimizer, codes, labels, masks,
+                              self.fused)
+
+        loop = EpochLoop(step, options.n_batches, device, self.capture,
+                         [generator])
         history: Dict[str, List[float]] = {"loss": [], "val_loss": []}
         best_val = math.inf
         best_params = host_params(model)
         patience = 0
         for epoch in range(1, options.n_epochs + 1):
             epoch_t0 = time.time()
-            losses = []
-            for _ in range(options.n_batches):
-                if data_parallel:
-                    codes, labels = train_sampler.gather(
-                        train_sampler.sample_starts_dp(generator, rank,
-                                                       self.world))
-                else:
-                    codes, labels = train_sampler.batch(generator)
-                masks = (rnn.input_dropout_masks(generator, rows, rate,
-                                                 config.gates)
-                         if rate > 0.0 else None)
-                if data_parallel:
-                    losses.append(dp_train_step(model, optimizer, codes,
-                                                labels, masks, self.group,
-                                                self.fused))
-                else:
-                    losses.append(train_step(model, optimizer, codes,
-                                             labels, masks, self.fused))
-            train_loss = torch.stack(losses).mean().item()
+            train_loss = loop.epoch().item()
             if stop_on_nan and not math.isfinite(train_loss):
                 _LOG.warning("non-finite training loss at epoch %d; "
                              "stopping and restoring best weights", epoch)

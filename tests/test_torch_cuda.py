@@ -48,6 +48,15 @@ bit.
 The reference API's ``engine.predict`` through ``create_model`` on the
 card equals ``PredictionEngine.predict`` bit for bit, and where ``h5py``
 is missing ``train --modelfile m.h5`` raises before it reads anything.
+
+The training step captured as a CUDA graph (``-k capture``): a captured
+``Trainer.fit`` equals the eager fit (``capture=False``, the same
+optimizer built the same way) bit for bit in history, best parameters,
+the generator's state and the launch counts, for GRU with attention and
+LSTM, with and without dropout, on the fused and the scan route, and for
+one epoch of every optimizer name the port maps; captured fleet steps
+with a freeze (a new graph of the active trials) equal the eager ones,
+and a captured ``run_parallel_trials`` the eager one.
 """
 
 import os
@@ -754,3 +763,201 @@ def test_train_h5_without_h5py_raises_at_once(device, tmp_path):
                   "--modelfile", str(tmp_path / "m.h5")])
     assert not cuda_rnn.LAUNCHES.snapshot()
     assert not list(tmp_path.iterdir())
+
+
+# -- the optimization step as a captured CUDA graph ---------------------------
+
+
+def repeat_data(seed, length=6000):
+    """A chromosome's one-hot ``fwd`` and labels from a seed: class-1
+    regions poly-A, class-2 regions poly-C, background random."""
+    from deepgrp_tpu_torch.data.preprocess import Data
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=length)
+    truelbl = np.zeros((3, length), dtype=np.int8)
+    for start in range(100, length - 300, 400):
+        codes[start:start + 100] = 0
+        truelbl[1, start:start + 100] = 1
+        codes[start + 200:start + 260] = 1
+        truelbl[2, start + 200:start + 260] = 1
+    truelbl[0] = truelbl[1:].sum(axis=0) == 0
+    fwd = np.zeros((5, length), dtype=np.int8)
+    fwd[codes, np.arange(length)] = 1
+    return Data(fwd=fwd, truelbl=truelbl)
+
+
+def graph_options(**kwargs):
+    base = dict(vecsize=60, units=16, batch_size=32, n_epochs=2,
+                n_batches=4, early_stopping_th=10, repeats_to_search=[1, 2],
+                learning_rate=0.01)
+    base.update(kwargs)
+    return Options(**base)
+
+
+def fit_on_card(device, options, capture, logdir, rnn_kernel="fused"):
+    """One ``Trainer.fit`` on the card from seed 0: ``(history, best
+    parameters, the generator's state, the launch counts)``."""
+    from deepgrp_tpu_torch.train.training import Trainer
+
+    model = DeepGRPModel(ModelConfig.from_options(options), device)
+    trainer = Trainer(model, options, logdir, tensorboard=False,
+                      rnn_kernel=rnn_kernel, capture=capture)
+    cuda_rnn.LAUNCHES.reset()
+    rnn.PLAIN_CALLS.reset()
+    try:
+        best, history = trainer.fit(repeat_data(0), repeat_data(1), seed=0)
+    finally:
+        trainer.writer.close()
+    torch.cuda.synchronize()
+    assert rnn.PLAIN_CALLS.snapshot() == {}
+    return (history, best, trainer.generator.get_state(),
+            cuda_rnn.LAUNCHES.snapshot())
+
+
+def assert_same_fit(got, want):
+    history, best, state, launches = got
+    assert history == want[0]
+    for key, value in want[1].items():
+        assert torch.equal(best[key], value), key
+    assert torch.equal(state, want[2])
+    assert launches == want[3]
+
+
+@pytest.mark.parametrize("route", ["fused", "scan"])
+@pytest.mark.parametrize("dropout", [0.0, 0.0928])
+@pytest.mark.parametrize("rnn_type,attention", [("GRU", True),
+                                                ("LSTM", False)])
+def test_captured_fit_equals_eager(device, tmp_path, route, dropout,
+                                   rnn_type, attention):
+    """``Trainer.fit`` with the step captured as a CUDA graph (one eager
+    warm-up step, then replays) equals the eager fit bit for bit: history,
+    best parameters, the generator's state and the launch counts (each
+    kernel once a step, the validation's once an epoch)."""
+    options = graph_options(rnn=rnn_type, attention=attention,
+                            dropout=dropout)
+    eager = fit_on_card(device, options, False, tmp_path / "eager", route)
+    captured = fit_on_card(device, options, True, tmp_path / "captured",
+                           route)
+    assert_same_fit(captured, eager)
+    cell = "lstm" if rnn_type == "LSTM" else "gru"
+    trained = options.n_epochs * options.n_batches if route == "fused" else 0
+    assert eager[3].get(f"{cell}_train_fwd", 0) == trained
+    assert eager[3].get(f"{cell}_train_bwd", 0) == trained
+    assert eager[3][f"{cell}_avg"] == options.n_epochs
+
+
+@pytest.mark.parametrize("name", ["RMSprop", "Adam", "adam", "adamw",
+                                  "adamax", "adagrad", "adadelta", "rmsprop",
+                                  "sgd"])
+def test_captured_epoch_of_each_optimizer(device, tmp_path, name):
+    """One epoch of each optimizer name the port maps, captured, equals
+    the same optimizer's eager epoch bit for bit."""
+    options = graph_options(optimizer=name, n_epochs=1, dropout=0.0928,
+                            attention=True)
+    eager = fit_on_card(device, options, False, tmp_path / "eager")
+    captured = fit_on_card(device, options, True, tmp_path / "captured")
+    assert_same_fit(captured, eager)
+
+
+def test_capture_refuses_the_cpu(device, tmp_path):
+    from deepgrp_tpu_torch.train.step_graph import StepGraph
+    from deepgrp_tpu_torch.train.training import Trainer
+
+    options = graph_options()
+    model = DeepGRPModel(ModelConfig.from_options(options), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        Trainer(model, options, tmp_path, tensorboard=False, capture=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        StepGraph(lambda: None, "cpu")
+
+
+@pytest.mark.parametrize("optimizer", ["RMSprop", "Adam"])
+def test_captured_fleet_with_a_freeze_equals_eager(device, optimizer):
+    """Fleet steps of three trials, captured (one graph for all three,
+    then, after trial 1 freezes, one for the other two), equal the eager
+    fleet steps bit for bit: each trial's losses and parameters, the
+    generators' states and the launch counts; the frozen trial's
+    parameters stay bit for bit where they stopped."""
+    from deepgrp_tpu_torch.hpo.vmapped import fleet_steps
+    from deepgrp_tpu_torch.train.optimizers import fleet_optimizer
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+    from deepgrp_tpu_torch.train.step_graph import StepGraph
+
+    options = graph_options(optimizer=optimizer, attention=True)
+    config = ModelConfig.from_options(options)
+    hps = [{"learning_rate": lr, "momentum": m, "rho": r, "epsilon": e,
+            "dropout": d}
+           for lr, m, r, e, d in ((1e-3, 0.9, 0.9, 1e-7, 0.0928),
+                                  (5e-3, 0.5, 0.8, 1e-7, 0.0),
+                                  (2e-3, 0.0, 0.95, 1e-6, 0.2))]
+    sampler = BatchSampler(options, repeat_data(0), device)
+    rows = 2 * sampler.batch_size
+    runs = {}
+    for capture in (False, True):
+        models = [DeepGRPModel.from_params(config, init_params(
+            config, torch.Generator().manual_seed(i)), device)
+            for i in range(3)]
+        opt = fleet_optimizer(optimizer, [(m.parameters(), hp)
+                                          for m, hp in zip(models, hps)])
+        gens = [torch.Generator(device=device).manual_seed(40 + i)
+                for i in range(3)]
+
+        def batch(i, gens=gens):
+            codes, labels = sampler.batch(gens[i])
+            masks = (rnn.input_dropout_masks(gens[i], rows, hps[i]["dropout"],
+                                             config.gates)
+                     if hps[i]["dropout"] > 0.0 else None)
+            return codes, labels, masks
+
+        losses = torch.zeros(3, device=device)
+        cuda_rnn.LAUNCHES.reset()
+        record = []
+        for active in ([True] * 3, [True, False, True]):
+            step = fleet_steps(models, opt, batch, active, losses)
+            run = (StepGraph(step, device, [g for g, on in zip(gens, active)
+                                            if on]) if capture else step)
+            for _ in range(5):
+                run()
+                record.append(losses.cpu().clone())
+            if all(active):
+                frozen = {k: v.detach().clone() for k, v in
+                          models[1].params().items()}
+            del run
+        torch.cuda.synchronize()
+        runs[capture] = (record, [m.params() for m in models],
+                         [g.get_state() for g in gens],
+                         cuda_rnn.LAUNCHES.snapshot(), frozen)
+    eager, captured = runs[False], runs[True]
+    for got, want in zip(captured[0], eager[0]):
+        assert torch.equal(got, want)
+    for got, want in zip(captured[1], eager[1]):
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    for got, want in zip(captured[2], eager[2]):
+        assert torch.equal(got, want)
+    assert captured[3] == eager[3] == {"gru_train_fwd": 25,
+                                       "gru_train_bwd": 25}
+    for key, value in captured[4].items():
+        assert torch.equal(captured[1][1][key], value), key
+
+
+def test_captured_parallel_trials_equal_eager(device):
+    """``run_parallel_trials`` with captured fleet steps equals the eager
+    run bit for bit (validation histories, best parameters, stop
+    epochs)."""
+    from deepgrp_tpu_torch.hpo.vmapped import run_parallel_trials
+
+    options = graph_options(n_epochs=3, early_stopping_th=1)
+    trials = [{"learning_rate": 1e-2, "dropout": 0.0928},
+              {"learning_rate": 0.0, "dropout": 0.0},
+              {"learning_rate": 3e-3, "momentum": 0.5, "dropout": 0.2}]
+    runs = {capture: run_parallel_trials(options, trials, repeat_data(0),
+                                         repeat_data(1), seed=3,
+                                         device=device, capture=capture)
+            for capture in (False, True)}
+    for got, want in zip(runs[True], runs[False]):
+        assert got["val_history"] == want["val_history"]
+        assert got["stopped_epoch"] == want["stopped_epoch"]
+        for key, value in want["params"].items():
+            assert torch.equal(got["params"][key], value), key

@@ -16,7 +16,8 @@ from deepgrp_tpu.train.optimizers import \
     get_optimizer as jax_get_optimizer  # noqa: E402
 from deepgrp_tpu_torch.config import Options  # noqa: E402
 from deepgrp_tpu_torch.train.optimizers import (  # noqa: E402
-    OPTAX_DEFAULTS, get_optimizer)
+    CAPTURABLE, OPTAX_DEFAULTS, Adagrad, RMSprop, fleet_optimizer,
+    get_optimizer)
 
 MAPPED = ["adam", "rmsprop", "sgd", "adagrad", "adadelta", "adamax",
           "adamw"]
@@ -90,3 +91,45 @@ def test_tf_named_optimizers_keep_options():
     rmsprop = get_optimizer(options, params)
     assert (rmsprop.defaults["rho"], rmsprop.defaults["eps"],
             rmsprop.defaults["momentum"]) == (0.9, 1e-8, None)
+
+
+def test_adagrad_is_the_ports_own_and_equals_optax():
+    """``adagrad`` is the port's class (state in tensors: a CUDA graph can
+    capture its step), optax's update over three steps at atol 1e-6."""
+    params = [torch.zeros(3, requires_grad=True)]
+    assert type(get_optimizer(Options(optimizer="adagrad"), params)) \
+        is Adagrad
+    _, got, want = three_steps("adagrad")
+    for got_step, want_step in zip(got, want):
+        for g, w in zip(got_step, want_step):
+            np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", MAPPED + ["RMSprop", "Adam"])
+def test_every_mapped_optimizer_can_be_captured(name):
+    """Each name's optimizer holds its state in tensors (the port's
+    classes), has none (``sgd``), or takes ``capturable``, which it gets
+    for CUDA parameters only (``CAPTURABLE``; off on the CPU)."""
+    optimizer = get_optimizer(Options(optimizer=name),
+                              [torch.zeros(3, requires_grad=True)])
+    if isinstance(optimizer, (RMSprop, Adagrad)):
+        return
+    if type(optimizer) is torch.optim.SGD:
+        assert optimizer.defaults["momentum"] == 0
+        return
+    assert type(optimizer) in CAPTURABLE
+    assert optimizer.defaults["capturable"] is False
+
+
+def test_fleet_optimizer_names():
+    """The fleet takes RMSprop and Adam (Adam capturable on CUDA only)
+    and refuses every other name."""
+    hp = {"learning_rate": 0.01, "rho": 0.9, "epsilon": 1e-7,
+          "momentum": 0.5}
+    trial = [([torch.zeros(3, requires_grad=True)], hp)]
+    assert type(fleet_optimizer("RMSprop", trial)) is RMSprop
+    adam = fleet_optimizer("Adam", trial)
+    assert type(adam) is torch.optim.Adam
+    assert adam.defaults["capturable"] is False
+    with pytest.raises(ValueError, match="RMSprop/Adam"):
+        fleet_optimizer("adagrad", trial)
