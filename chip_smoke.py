@@ -188,6 +188,22 @@ Phases (any failure exits non-zero; nothing is caught):
     ``PredictionEngine.predict`` bit for bit; and, where ``h5py`` is
     missing, ``train --modelfile m.h5`` raising ``ImportError`` before it
     trains or writes anything.
+16. The examples on the card, on phase 7's chromosomes (same seed):
+    ``examples.train_and_evaluate`` with ``--runs 1`` on the tuned
+    ``gru_att`` (vecsize 342, 60 units, attention, dropout 0.0928, batch
+    256; depth cut from 200 x 250 to 2 x 100 steps, from a TOML): 200
+    launches of each training kernel, ``gru_avg`` on the two validations
+    and every evaluation chunk, no plain call, one CSV row with a finite
+    MCC equal to the scored route's on the same weights, and
+    ``model00.npz`` loads; ``examples.hpo_sweep --space quick --seed 0``
+    on the same TOML, 2 serial trials saved after each, then a fleet
+    round of 2 that resumes ``results.pkl`` (every trial ``STATUS_OK``
+    with a finite loss); ``examples.multihost_sim --device cuda --nproc
+    2`` (two gloo ranks holding 1 and 2 shards on ``cuda:0``, bit-identical
+    to one process); and the native library's self-test built on this
+    host (``make -C deepgrp_tpu_torch/native selftest``, ``-march=native``)
+    printing ``native selftest OK``.  Prints each step's seconds and the
+    phase's launches.
 
 A captured step's launches are counted at each replay, as an eager
 step's are (``_build.recording_launches``).
@@ -2949,6 +2965,139 @@ def workflow_phase(torch, np, tmp: str) -> dict:
     return launches
 
 
+# Phase 16's depth, cut from the reference's 200 x 250 to phase 12's
+# 2 x 100 (train_and_evaluate and each sweep trial): at 2 x 20 the tuned
+# gru_att predicted no repeat on chrValid (MCC NaN).  The sweep's TPE seed
+# makes its proposals repeatable.
+EXAMPLE_EPOCHS, EXAMPLE_STEPS, EXAMPLE_SEED = 2, 100, 0
+
+
+def run_module(module: str, *args: str) -> str:
+    """``python -m deepgrp_tpu_torch.<module> ARGS`` from the checkout;
+    raises unless it exits 0.  Returns its standard output."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    result = subprocess.run(
+        [sys.executable, "-m", f"deepgrp_tpu_torch.{module}", *args],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    print(result.stdout + result.stderr[-2000:], flush=True)
+    if result.returncode:
+        raise AssertionError(f"{module} exited {result.returncode}")
+    return result.stdout
+
+
+def examples_phase(torch, np, tmp: str) -> dict:
+    """Phase 16: the examples on the card, on phase 7's chromosomes;
+    returns the launch counts on their paths."""
+    import csv
+    import pickle
+
+    from deepgrp_tpu_torch.data.preprocess import load_chromosome
+    from deepgrp_tpu_torch.examples import hpo_sweep, train_and_evaluate
+    from deepgrp_tpu_torch.hpo.optimization import evaluate_trained
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import ModelConfig
+    from deepgrp_tpu_torch.predict.engine import window_starts
+
+    seconds, launches = {}, {}
+    train_npz, val_npz, bed = write_training_files(np, tmp)
+    files = [train_npz, val_npz, bed]
+
+    # train_and_evaluate: the tuned flagship, depth cut to 2 x 20 steps.
+    options = train_and_evaluate.tuned_options()
+    options.n_epochs, options.n_batches = EXAMPLE_EPOCHS, EXAMPLE_STEPS
+    options.batch_size = 256
+    toml = os.path.join(tmp, "tuned.toml")
+    with open(toml, "w") as fh:
+        options.to_toml(fh)
+    val_len = load_chromosome(val_npz, bed,
+                              options.repeats_to_search).fwd.shape[1]
+    chunks = -(-window_starts(val_len, options.vecsize, 50).size
+               // options.batch_size)
+    steps = EXAMPLE_EPOCHS * EXAMPLE_STEPS
+    outdir = os.path.join(tmp, "runs")
+    reset_counts()
+    start = time.perf_counter()
+    train_and_evaluate.main([*files, "--runs", "1", "--outdir", outdir,
+                             "--config", toml])
+    torch.cuda.synchronize()
+    seconds["train_and_evaluate"] = time.perf_counter() - start
+    launches["train_and_evaluate"] = check_counts({
+        "gru_train_fwd": steps, "gru_train_bwd": steps,
+        "gru_avg": EXAMPLE_EPOCHS + chunks})
+    with open(os.path.join(outdir, "training_times.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    print(f"training_times.csv: {rows}", flush=True)
+    if len(rows) != 1 or not math.isfinite(float(rows[0]["MCC"])):
+        raise AssertionError(f"train_and_evaluate: {rows}")
+    config, params = load_model(os.path.join(outdir, "model00.npz"))
+    if config != ModelConfig.from_options(options):
+        raise AssertionError(f"model00.npz holds {config}")
+    # The CSV's MCC (the merged track, then the MSS of the probabilities)
+    # against the scored route's on the same weights.
+    mcc = evaluate_trained(options, 50, os.path.join(outdir, "run00"),
+                           load_chromosome(val_npz, bed,
+                                           options.repeats_to_search),
+                           params)["MCC"]
+    print(f"MCC {rows[0]['MCC']}, scored route {mcc}", flush=True)
+    if abs(mcc - float(rows[0]["MCC"])) > 1e-6:
+        raise AssertionError("the routes' MCCs differ")
+
+    # hpo_sweep: serial TPE (quick space, the same TOML) with a save after
+    # each trial, then a fleet round of 2 that resumes results.pkl.
+    root = os.path.join(tmp, "sweep")
+    sweep = [*files, "--space", "quick", "--config", toml, "--root", root,
+             "--seed", str(EXAMPLE_SEED)]
+    for label, extra in (("hpo_sweep", ["--trials", "2", "--save-step",
+                                        "1"]),
+                         ("hpo_sweep --parallel 2", ["--trials", "2",
+                                                     "--parallel", "2"])):
+        reset_counts()
+        start = time.perf_counter()
+        hpo_sweep.main([*sweep, *extra])
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - start
+        launches[label] = check_counts({"gru_train_fwd": 2 * steps,
+                                        "gru_train_bwd": 2 * steps})
+        if launches[label].get("gru_avg", 0) <= 0:
+            raise AssertionError(f"{label}: gru_avg was not launched")
+        with open(os.path.join(root, "results.pkl"), "rb") as fh:
+            trials = pickle.load(fh)
+        check_trials(trials, label)
+        if len(trials) != (2 if label == "hpo_sweep" else 4):
+            raise AssertionError(f"{label}: {len(trials)} trials in "
+                                 "results.pkl")
+
+    # multihost_sim: two gloo ranks (1 + 2 shards) on cuda:0 against one
+    # process.
+    start = time.perf_counter()
+    out = run_module("examples.multihost_sim", "--device", "cuda",
+                     "--nproc", "2")
+    seconds["multihost_sim"] = time.perf_counter() - start
+    if "bit-identical" not in out:
+        raise AssertionError("multihost_sim")
+
+    # The native library's self-test, built on this host (-march=native).
+    native_dir = os.path.join(HERE, "deepgrp_tpu_torch", "native")
+    start = time.perf_counter()
+    subprocess.run(["make", "-s", "-C", native_dir, "selftest"], check=True,
+                   timeout=600)
+    seconds["selftest build"] = time.perf_counter() - start
+    start = time.perf_counter()
+    result = subprocess.run(
+        [os.path.join(HERE, "deepgrp_tpu_torch", "_build", "selftest")],
+        capture_output=True, text=True, timeout=600)
+    seconds["selftest run"] = time.perf_counter() - start
+    print(result.stdout + result.stderr, flush=True)
+    if result.returncode or "native selftest OK" not in result.stdout:
+        raise AssertionError("the native self-test failed")
+    print("examples seconds: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in seconds.items()),
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3100,6 +3249,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workflow_tmp:
         path_launches = workflow_phase(torch, np, workflow_tmp)
     print(f"launches on phase 15's paths: {path_launches}; phase 15 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+
+    phase("16. the examples on the card: train_and_evaluate (gru_att, "
+          f"{EXAMPLE_EPOCHS} x {EXAMPLE_STEPS} steps), hpo_sweep (serial with "
+          "resume, a fleet of 2), multihost_sim (2 gloo ranks), the native "
+          "self-test")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as examples_tmp:
+        path_launches = examples_phase(torch, np, examples_tmp)
+    print(f"launches on phase 16's paths: {path_launches}; phase 16 took "
           f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []

@@ -297,8 +297,6 @@ def cmd_predict(args: argparse.Namespace) -> None:
 
 
 def cmd_train(args: argparse.Namespace) -> None:
-    import numpy as np
-
     from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.data import preprocess
     import torch
@@ -329,22 +327,14 @@ def cmd_train(args: argparse.Namespace) -> None:
         parameter.batch_size = options.batch_size
         parameter.xdrop_len = options.xdrop_len
 
-    train_chr = os.path.basename(args.trainfile).split(".")[0]
-    val_chr = os.path.basename(args.validfile).split(".")[0]
     if is_first_rank():
         os.makedirs(args.logdir, exist_ok=True)
 
     _LOG.info("Loading in all data necessary from %s, %s, %s",
               args.trainfile, args.validfile, args.bedfile)
-    data = []
-    for path, chrom in ((args.trainfile, train_chr),
-                        (args.validfile, val_chr)):
-        with np.load(path, allow_pickle=False) as arrays:
-            fwd = arrays["fwd"]
-        labels = preprocess.preprocess_y(args.bedfile, chrom, fwd.shape[1],
-                                         parameter.repeats_to_search)
-        data.append(preprocess.Data(*preprocess.drop_start_end_n(fwd,
-                                                                 labels)))
+    data = [preprocess.load_chromosome(path, args.bedfile,
+                                       parameter.repeats_to_search)
+            for path in (args.trainfile, args.validfile)]
 
     group = None
     world = world_size()

@@ -12,7 +12,10 @@ reference DeepGRP's ``preprocessing.py``):
 * ``drop_start_end_n`` trims the positions where the first four one-hot
   rows are all zero at both ends, with the reference's off-by-one that
   drops the final non-N position (``end = shape-1 - argmax(...)``,
-  preprocessing.py:64-68), kept for output parity.
+  preprocessing.py:64-68), kept for output parity;
+* ``load_chromosome`` reads one chromosome's one-hot ``.npz`` file and
+  labels it from the BED file (both steps above), as ``train`` and the
+  examples do.
 
 The file is parsed with plain Python (no ``pandas``).
 """
@@ -71,3 +74,16 @@ def drop_start_end_n(fwd: np.ndarray,
     start = np.argmax(sums > 0)
     end = fwd.shape[1] - 1 - np.argmax(np.flip(sums) > 0)
     return fwd[:, start:end], array[:, start:end]
+
+
+def load_chromosome(npz_path: os.PathLike, bedfile: os.PathLike,
+                    repeats_to_search: List[int]) -> Data:
+    """One chromosome's training data: the one-hot ``fwd`` of ``npz_path``
+    (as ``preprocess_sequence`` writes it), labelled from the BED rows of
+    the chromosome that the file's name names up to its first ``.``, both
+    trimmed by :func:`drop_start_end_n`."""
+    chrom = os.path.basename(npz_path).split(".")[0]
+    with np.load(npz_path, allow_pickle=False) as arrays:
+        fwd = arrays["fwd"]
+    labels = preprocess_y(bedfile, chrom, fwd.shape[1], repeats_to_search)
+    return Data(*drop_start_end_n(fwd, labels))

@@ -9,11 +9,12 @@ the same layout, so the reference (and the JAX package) load the port's
 models.  ``h5py`` is imported only when an ``.h5`` file is read or written,
 so machines without it load and write ``.npz`` files.
 
-The ``.npz`` format holds one array per flat parameter name
-(``rnn.kernel``, ...) plus a ``__config__`` entry: the :class:`ModelConfig`
-as JSON bytes.  ``load_model_npz`` also reads the JAX package's model
-files, whose arrays are keyed by ``/``-joined pytree paths (``rnn/kernel``,
-``deepgrp_tpu/models/keras_io.py:31-44``) beside the same ``__config__``.
+The ``.npz`` format is the JAX package's (``deepgrp_tpu/models/
+keras_io.py:31-44``), so each package loads the other's model files: one
+array per parameter keyed by its ``/``-joined pytree path (``rnn/kernel``,
+...; the flat name with ``/`` for ``.``) plus a ``__config__`` entry, the
+:class:`ModelConfig` as JSON bytes.  ``load_model_npz`` also reads files
+keyed by the flat names (``rnn.kernel``), as the port wrote them before.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ _CONFIG_KEY = "__config__"
 
 
 def save_model_npz(path: str, config: ModelConfig, params: Params) -> None:
-    """Write a self-contained model file (parameters + config)."""
-    arrays = {key: value.detach().cpu().numpy()
+    """Write a self-contained model file (parameters + config) in the JAX
+    package's layout."""
+    arrays = {key.replace(".", "/"): value.detach().cpu().numpy()
               for key, value in params.items()}
     arrays[_CONFIG_KEY] = np.frombuffer(
         json.dumps(config.todict()).encode(), dtype=np.uint8)
@@ -45,8 +47,8 @@ def load_model_npz(path: str) -> Tuple[ModelConfig, Params]:
     with np.load(path, allow_pickle=False) as data:
         arrays = {key: data[key] for key in data.files}
     config = ModelConfig(**json.loads(arrays.pop(_CONFIG_KEY).tobytes()))
-    # "rnn/kernel" (JAX package) and "rnn.kernel" (this package) name the
-    # same array.
+    # "rnn/kernel" (both packages' files) and "rnn.kernel" (the port's
+    # earlier files) name the same array.
     params = {key.replace("/", "."): torch.from_numpy(
         np.ascontiguousarray(value, dtype=np.float32))
         for key, value in arrays.items()}

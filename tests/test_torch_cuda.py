@@ -57,6 +57,10 @@ LSTM, with and without dropout, on the fused and the scan route, and for
 one epoch of every optimizer name the port maps; captured fleet steps
 with a freeze (a new graph of the active trials) equal the eager ones,
 and a captured ``run_parallel_trials`` the eager one.
+
+The ``train_and_evaluate`` example on the card for 1 x 3 steps launches
+each training kernel once a step and the inference kernel on the
+validation and every evaluation chunk, and no plain version runs.
 """
 
 import os
@@ -961,3 +965,45 @@ def test_captured_parallel_trials_equal_eager(device):
         assert got["stopped_epoch"] == want["stopped_epoch"]
         for key, value in want["params"].items():
             assert torch.equal(got["params"][key], value), key
+
+
+# -- the examples on the card --------------------------------------------------
+
+
+def test_train_and_evaluate_example_on_card(device, tmp_path):
+    """``examples/train_and_evaluate.py`` for 1 x 3 steps on the card: each
+    training kernel launched once a step (counted at each replay of the
+    captured step), the inference kernel on the validation and on every
+    chunk of the evaluation, no plain version; one CSV row (after 3
+    steps the MCC may be NaN: no repeat predicted), and ``model00.npz``
+    loads."""
+    import csv
+
+    import torch_dist_worker as worker
+    from deepgrp_tpu_torch.examples import train_and_evaluate
+    from deepgrp_tpu_torch.predict.engine import window_starts
+
+    toml, train_npz, val_npz, bed = worker.write_cli_train_inputs(tmp_path)
+    options = graph_options(n_epochs=1, n_batches=3, attention=True,
+                            dropout=0.0928)
+    with open(toml, "w") as fh:
+        options.to_toml(fh)
+    val_len = worker.train_data(seed=1).fwd.shape[1] - 1  # drop_start_end_n
+    windows = window_starts(val_len, options.vecsize, 50).size
+    chunks = -(-windows // options.batch_size)
+    cuda_rnn.LAUNCHES.reset()
+    rnn.PLAIN_CALLS.reset()
+    train_and_evaluate.main([train_npz, val_npz, bed, "--runs", "1",
+                             "--outdir", str(tmp_path / "out"), "--config",
+                             toml])
+    torch.cuda.synchronize()
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    assert rnn.PLAIN_CALLS.snapshot() == {}
+    assert launches["gru_train_fwd"] == launches["gru_train_bwd"] == 3
+    assert launches["gru_avg"] == 1 + chunks
+    with open(tmp_path / "out" / "training_times.csv") as fh:
+        rows = list(csv.DictReader(fh))
+    assert len(rows) == 1 and int(rows[0]["epochs"]) == 1
+    float(rows[0]["MCC"])
+    config, _ = load_model(str(tmp_path / "out" / "model00.npz"))
+    assert config == ModelConfig.from_options(options)

@@ -146,6 +146,25 @@ def test_load_rejects_mismatched_params(tmp_path):
 
 
 @pytest.mark.parametrize("rnn,attention", [("GRU", True), ("LSTM", False)])
+def test_jax_package_loads_port_model_files(tmp_path, rnn, attention):
+    """The port's ``.npz`` model file is in the JAX package's layout: its
+    ``load_model`` gives the config and every array back exactly."""
+    config = ModelConfig(vecsize=16, units=5, rnn=rnn, attention=attention)
+    jax_params = jax_model.init_params(jax.random.PRNGKey(5),
+                                       jax_config(config))
+    path = str(tmp_path / "port.npz")
+    keras_io.save_model_npz(path, config, params_from_jax(jax_params))
+    got_config, got = jax_keras_io.load_model(path)
+    assert got_config == jax_config(config)
+    assert set(got) == set(jax_params)
+    for group, arrays in jax_params.items():
+        assert set(got[group]) == set(arrays)
+        for name, value in arrays.items():
+            np.testing.assert_array_equal(got[group][name],
+                                          np.asarray(value))
+
+
+@pytest.mark.parametrize("rnn,attention", [("GRU", True), ("LSTM", False)])
 def test_loads_jax_package_model_files(tmp_path, rnn, attention):
     """A model file written by the JAX package (``/``-keyed arrays) loads
     in the port and gives the same probabilities (exactly) as the port's

@@ -8,9 +8,12 @@ tracks, in float32 and bfloat16, with the boundary combined on the
 shards' devices or on the host; against the JAX package's
 ``ShardedPredictionEngine`` on the conftest's 8-device CPU mesh, classes
 are equal and max probabilities within 1e-5 (the tolerance of
-``tests/test_torch_predict.py``).
+``tests/test_torch_predict.py``).  Through the launch flags, two CLI
+ranks predict the reference BED and train as a two-rank API run does,
+bit for bit.
 """
 
+import json
 import os
 import socket
 import sys
@@ -270,3 +273,41 @@ def test_cli_two_process_predict(tmp_path):
             for line in outs[0].read_text().splitlines()]
     assert rows == expected_rows("gru_att")
     assert not outs[1].exists()
+
+
+def test_cli_two_process_train(tmp_path):
+    """Two gloo ranks through the CLI's launch flags train data-parallel
+    (the counterpart of ``tests/test_multihost.py``'s
+    ``test_multiprocess_train_via_cli``): rank 0's epoch losses and model
+    file equal, bit for bit, a two-rank ``training(..., group=WORLD)`` on
+    the same files (``torch_dist_worker.py``'s ``cli_train`` task); rank 1
+    writes no logdir and no model file."""
+    files = worker.write_cli_train_inputs(tmp_path)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    worker.run_ranks(
+        [sys.executable, "-c", _CLI, os.path.dirname(HERE), "--device",
+         "cpu", "-b", str(worker.CLI_TRAIN_BATCH), "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(rank), "train", *files, "--honor-toml", "--logdir",
+         str(tmp_path / f"cli-log-{rank}"), "--modelfile",
+         str(tmp_path / f"cli-model-{rank}.npz"), "--no-tensorboard"]
+        for rank in range(2))
+    worker.spawn("cli_train", 2, tmp_path)
+
+    def losses(logdir):
+        with open(logdir / "metrics.jsonl") as fh:
+            return [(rec["loss"], rec["val_loss"])
+                    for rec in map(json.loads, fh)]
+
+    want = losses(tmp_path / "api-log-0")
+    assert len(want) == worker.trainer_options().n_epochs
+    assert losses(tmp_path / "cli-log-0") == want
+    with np.load(tmp_path / "cli-model-0.npz") as got, \
+            np.load(tmp_path / "api-model.npz") as ref:
+        assert sorted(got.files) == sorted(ref.files)
+        for key in ref.files:
+            assert_same_bytes(got[key], ref[key])
+    assert not (tmp_path / "cli-log-1").exists()
+    assert not (tmp_path / "cli-model-1.npz").exists()

@@ -14,7 +14,11 @@ what each computed to ``DIR/TASK-RANK.npz`` (and ``.json``).  Tasks:
 * ``trainer``: a batch size that does not divide raises ``ValueError``
   before any collective; then ``Trainer(..., group=WORLD).fit`` on
   :func:`train_data`, logging into ``DIR/log-RANK`` (history, best
-  parameters).
+  parameters);
+* ``cli_train``: what ``train`` of the CLI runs, through the API: the
+  files of :func:`write_cli_train_inputs` in ``DIR`` loaded as the CLI
+  loads them, then ``training(..., group=WORLD)`` from a new model,
+  logging into ``DIR/api-log-RANK``; rank 0 writes ``DIR/api-model.npz``.
 
 No JAX here: the workers start fast, and the port needs none.
 """
@@ -172,6 +176,60 @@ def run_trainer(rank: int, world: int, out: str, tmp: str) -> None:
         json.dump({"history": history, "raised": raised}, fh)
 
 
+#: The ``train`` command's batch size (``-b``) on :func:`
+#: write_cli_train_inputs`'s files.
+CLI_TRAIN_BATCH = 16
+
+
+def cli_train_paths(tmp) -> list:
+    """The ``train`` command's positional arguments in ``tmp``: TOML,
+    training and validation ``.npz`` files, BED."""
+    return [os.path.join(tmp, name) for name in ("params.toml", "chrT.npz",
+                                                 "chrV.npz", "repeats.bed")]
+
+
+def write_cli_train_inputs(tmp) -> list:
+    """A tiny chromosome pair as one-hot ``.npz`` files (learnable, as
+    :func:`train_data`), their BED and a TOML; returns the ``train``
+    command's positional arguments."""
+    bed = []
+    for chrom, seed in (("chrT", 0), ("chrV", 1)):
+        data = train_data(seed=seed)
+        np.savez(os.path.join(tmp, f"{chrom}.npz"), fwd=data.fwd)
+        for cls in (1, 2):
+            row = data.truelbl[cls].astype(np.int8)
+            edges = np.flatnonzero(np.diff(np.concatenate([[0], row, [0]])))
+            bed += [f"{chrom}\t{a}\t{b}\t{cls}\n"
+                    for a, b in zip(edges[::2], edges[1::2])]
+    with open(os.path.join(tmp, "repeats.bed"), "w") as fh:
+        fh.writelines(bed)
+    with open(os.path.join(tmp, "params.toml"), "w") as fh:
+        trainer_options(batch_size=CLI_TRAIN_BATCH).to_toml(fh)
+    return cli_train_paths(tmp)
+
+
+def run_cli_train(rank: int, tmp: str) -> None:
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.data.preprocess import load_chromosome
+    from deepgrp_tpu_torch.models.keras_io import save_model_npz
+    from deepgrp_tpu_torch.models.model import create_model
+    from deepgrp_tpu_torch.train.training import training
+
+    toml, train_npz, val_npz, bed = cli_train_paths(tmp)
+    with open(toml) as fh:
+        options = Options.from_toml(fh)
+    data = tuple(load_chromosome(path, bed, options.repeats_to_search)
+                 for path in (train_npz, val_npz))
+    model = create_model(options, "cpu")
+    best, _ = training(data, options, model,
+                       os.path.join(tmp, f"api-log-{rank}"),
+                       tensorboard=False, group=dist.group.WORLD)
+    if rank == 0:
+        save_model_npz(os.path.join(tmp, "api-model.npz"), model.config,
+                       best)
+
+
 def run_ranks(commands) -> None:
     """Run one process a command (a rank each) and wait for all; raises
     with the first failing rank's errors."""
@@ -212,6 +270,8 @@ def main(argv) -> None:
                 run_step(rank, world, out)
             elif task == "sharded":
                 run_sharded(rank, out)
+            elif task == "cli_train":
+                run_cli_train(rank, tmp)
             else:
                 run_trainer(rank, world, out, tmp)
     finally:
