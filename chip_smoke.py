@@ -147,9 +147,10 @@ Phases (any failure exits non-zero; nothing is caught):
     (128 a rank) against one process's step on the whole batch (loss to
     1e-5, parameters to 1e-4 of their largest magnitude), then 2 x 3 DP
     training steps of ``gru_att`` after which the ranks' parameters and
-    histories are bitwise equal and only rank 0 wrote a logdir.  Then the
-    default backend (``cpu:gloo,cuda:nccl``) at world size 1: an NCCL
-    all-reduce, and ``predict`` (the ``gru_att`` fixture BED) and
+    histories are bitwise equal and only rank 0 wrote a logdir; the gloo
+    ranks stay eager (no graph captured) and refuse ``capture=True``.
+    Then the default backend (``cpu:gloo,cuda:nccl``) at world size 1: an
+    NCCL all-reduce, and ``predict`` (the ``gru_att`` fixture BED) and
     ``train`` (2 x 3 steps) through the CLI's launch flags.
 14. The MSS routes of ``predict``: phase 4's chromosome through the CLI
     with ``--device-mss auto`` at ``-t 1`` and ``-t 0`` (the streaming
@@ -204,6 +205,20 @@ Phases (any failure exits non-zero; nothing is caught):
     host (``make -C deepgrp_tpu_torch/native selftest``, ``-march=native``)
     printing ``native selftest OK``.  Prints each step's seconds and the
     phase's launches.
+17. The data-parallel epoch as one captured graph
+    (``parallel/train.py:make_dp_train_epoch``, the gradient ``all_reduce``
+    inside): on phase 7's chromosomes (same seed), under the default
+    backend at world size 1 (NCCL for CUDA tensors), ``gru_att`` and the
+    LSTM of its width at batch 256, the captured epoch against the eager
+    one in turns as phase 7 (5 x 20 steps each): losses, parameters and
+    generator state bit for bit after every turn, each training kernel
+    launched 20 times an epoch on both sides (counted at each replay),
+    steps/s, idle share and the replayed graph's NCCL kernels, copies and
+    sets (from the profiled epoch); then, under torch's fake process group
+    at world size 2 (rank 0), ``Trainer.fit`` of ``gru_att`` (2 x 20
+    steps, 128 windows a rank) captured against eager: history, best
+    parameters, generator state and launch counts bit for bit.  Fails if
+    torch lacks the fake backend.
 
 A captured step's launches are counted at each replay, as an eager
 step's are (``_build.recording_launches``).
@@ -1707,16 +1722,17 @@ def compare_captured(torch, label: str, make, n_steps: int,
           f"{walls[False][0]:.4f} s, captured (eager step, capture, "
           f"replays) {walls[True][0]:.4f} s; graph memory (its pool and "
           f"the run's state) {graph_mb:.1f} MiB", flush=True)
-    losses = {}
+    losses, device_ms = {}, {}
     for capture in (False, True):
         def profiled(capture=capture):
             losses[capture] = runs[capture][0]()
 
+        device_ms[capture] = device_time(torch, profiled)
         print_device_time(f"{label} {'captured' if capture else 'eager'}",
-                          device_time(torch, profiled), medians[capture])
+                          device_ms[capture], medians[capture])
     check("after the profiled epochs", (losses[False], losses[True]))
     return {"runs": runs, "steps_per_s": rates, "median_s": medians,
-            "graph_mib": graph_mb}
+            "graph_mib": graph_mb, "device_ms": device_ms}
 
 
 def single_run(torch, config, params, options, sampler, seed: int,
@@ -1755,10 +1771,11 @@ def single_run(torch, config, params, options, sampler, seed: int,
 
 
 def fit_pair(torch, options, train_data, val_data, tmp: str, label: str,
-             rnn_kernel: str = "fused") -> None:
-    """``Trainer.fit`` eager and captured from seed 0: history, best
-    parameters, the generator's state and the launch counts must be equal
-    bit for bit, and no plain version may run."""
+             rnn_kernel: str = "fused", group=None) -> dict:
+    """``Trainer.fit`` eager and captured from seed 0 (over ``group``
+    when given): history, best parameters, the generator's state and the
+    launch counts must be equal bit for bit, and no plain version may run.
+    Returns the captured fit's launch counts."""
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
     from deepgrp_tpu_torch.models.model import DeepGRPModel, ModelConfig
     from deepgrp_tpu_torch.train.training import Trainer
@@ -1769,7 +1786,7 @@ def fit_pair(torch, options, train_data, val_data, tmp: str, label: str,
         trainer = Trainer(model, options,
                           os.path.join(tmp, f"{label}_fit_{capture}"),
                           tensorboard=False, rnn_kernel=rnn_kernel,
-                          capture=capture)
+                          group=group, capture=capture)
         reset_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -1794,6 +1811,7 @@ def fit_pair(torch, options, train_data, val_data, tmp: str, label: str,
     if not same or plain or want[4]:
         raise AssertionError(f"{label}: the captured fit differs from the "
                              f"eager one (plain calls {plain}, {want[4]})")
+    return launches
 
 
 def check_trials(trials, label: str) -> None:
@@ -2271,10 +2289,16 @@ def dp_worker(rank: int, tmp: str) -> None:
     from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
     from deepgrp_tpu_torch.parallel.train import dp_train_step
     from deepgrp_tpu_torch.train.optimizers import get_optimizer
+    from deepgrp_tpu_torch.train.step_graph import StepGraph
     from deepgrp_tpu_torch.train.training import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Gloo runs the collectives on the host, which a graph cannot hold:
+    # every graph captured in this process is counted, and must be none.
+    graphs = []
+    capture_fn = StepGraph._capture
+    StepGraph._capture = lambda self: (graphs.append(1), capture_fn(self))
     initialize_distributed(f"file://{tmp}/rdzv", 2, rank, backend="gloo")
     try:
         out, step_launches = {}, {}
@@ -2300,6 +2324,13 @@ def dp_worker(rank: int, tmp: str) -> None:
                                     "repeats.bed"))
         train = load_training_data(np, train_npz, bed, options)
         val = load_training_data(np, val_npz, bed, options)
+        try:
+            Trainer(dp_model(torch, options), options,
+                    os.path.join(tmp, f"refused-{rank}"), tensorboard=False,
+                    group=dist.group.WORLD, capture=True)
+            refused = ""
+        except ValueError as err:
+            refused = str(err)
         trainer = Trainer(dp_model(torch, options), options,
                           os.path.join(tmp, f"log-{rank}"),
                           tensorboard=False, group=dist.group.WORLD)
@@ -2318,7 +2349,9 @@ def dp_worker(rank: int, tmp: str) -> None:
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
             json.dump({"history": history, "seconds": seconds,
                        "step_launches": step_launches,
-                       "fit_launches": fit_launches}, fh)
+                       "fit_launches": fit_launches,
+                       "capture": trainer.capture, "graphs": len(graphs),
+                       "refused": refused}, fh)
     finally:
         dist.destroy_process_group()
 
@@ -2393,6 +2426,13 @@ def dp_phase(torch, np, tmp: str) -> dict:
           f"{[round(i['seconds'], 4) for i in infos]}", flush=True)
     if not same or infos[0]["history"] != infos[1]["history"]:
         raise AssertionError("the ranks' parameters or histories differ")
+    print(f"gloo ranks: capture {[i['capture'] for i in infos]}, graphs "
+          f"captured {[i['graphs'] for i in infos]}; capture=True refused: "
+          f"{infos[0]['refused']!r}", flush=True)
+    if any(i["capture"] or i["graphs"] or "gloo" not in i["refused"]
+           for i in infos):
+        raise AssertionError("a gloo rank captured a graph, or took "
+                             "capture=True")
     if os.path.exists(os.path.join(tmp, "log-1")):
         raise AssertionError("rank 1 wrote a logdir")
     return {"step": infos[0]["step_launches"],
@@ -3098,6 +3138,133 @@ def examples_phase(torch, np, tmp: str) -> dict:
     return launches
 
 
+#: Phase 17's depth: epochs of 20 steps, as phase 7's turns.
+DP_GRAPH_STEPS = 20
+
+
+def dp_graph_run(torch, config, params, options, sampler, group,
+                 deltas: dict):
+    """``make(capture)`` of :func:`compare_captured` for a rank's
+    data-parallel epoch (``make_dp_train_epoch`` over ``group``); each
+    epoch's launch counts go into ``deltas[capture]``."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.parallel.train import make_dp_train_epoch
+    from deepgrp_tpu_torch.train.optimizers import get_optimizer
+
+    def make(capture: bool):
+        model = DeepGRPModel.from_params(config, params)
+        optimizer = get_optimizer(options, model.parameters())
+        gen = torch.Generator(device=model.device).manual_seed(11)
+        loop = make_dp_train_epoch(model, optimizer, options, sampler, gen,
+                                   options.n_batches, group,
+                                   capture=capture)
+
+        def epoch():
+            before = cuda_rnn.LAUNCHES.snapshot()
+            loop.epoch().item()
+            after = cuda_rnn.LAUNCHES.snapshot()
+            deltas[capture].append({k: v - before.get(k, 0)
+                                    for k, v in after.items()
+                                    if v != before.get(k, 0)})
+            return [loop.losses.clone()]
+
+        return epoch, lambda: [*model.params().values(), gen.get_state()]
+
+    return make
+
+
+def dp_capture_phase(torch, np, tmp: str) -> dict:
+    """Phase 17: the data-parallel epoch captured with its ``all_reduce``
+    inside, against the eager one: at world size 1 over NCCL for
+    ``gru_att`` and the LSTM of its width (turns, device time, the
+    replayed graph's NCCL kernels), then ``Trainer.fit`` captured against
+    eager under torch's fake process group at world size 2.  Returns the
+    launch counts of the phase's runs."""
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.models.model import ModelConfig, init_params
+    from deepgrp_tpu_torch.parallel.mesh import (cuda_backend,
+                                                 initialize_distributed)
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+
+    train_npz, val_npz, bed = write_training_files(np, tmp)
+    launches = {}
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        print(f"world 1, backend {backend} (CUDA collectives over "
+              f"{cuda_backend()})", flush=True)
+        if cuda_backend() != "nccl":
+            raise AssertionError(f"backend {backend}: not NCCL")
+        for cell, widths in DP_CELLS.items():
+            options = Options(batch_size=256, n_batches=DP_GRAPH_STEPS,
+                              **widths)
+            config = ModelConfig.from_options(options)
+            params = init_params(config, torch.Generator().manual_seed(0))
+            sampler = BatchSampler(options, load_training_data(
+                np, train_npz, bed, options), "cuda")
+            deltas = {False: [], True: []}
+            reset_counts()
+            result = compare_captured(
+                torch, f"{cell} DP epoch (NCCL, world 1)",
+                dp_graph_run(torch, config, params, options, sampler,
+                             dist.group.WORLD, deltas), DP_GRAPH_STEPS,
+                turns=4)
+            want = {f"{cell}_train_fwd": DP_GRAPH_STEPS,
+                    f"{cell}_train_bwd": DP_GRAPH_STEPS}
+            n_epochs = len(deltas[True])
+            total = check_counts({k: 2 * n_epochs * v
+                                  for k, v in want.items()})
+            if deltas[False] != deltas[True] or any(d != want for d in
+                                                    deltas[True]):
+                raise AssertionError(f"{cell}: launches an epoch eager "
+                                     f"{deltas[False]}, captured "
+                                     f"{deltas[True]}")
+            replayed = result["device_ms"][True]
+            nccl = {k: round(v, 4) for k, v in replayed.items()
+                    if "nccl" in k.lower()}
+            copies = {k: round(v, 4) for k, v in replayed.items()
+                      if "memcpy" in k.lower() or "memset" in k.lower()}
+            eager_nccl = sorted(k for k in result["device_ms"][False]
+                                if "nccl" in k.lower())
+            print(f"{cell}: launches an epoch {want} eager and captured "
+                  f"({n_epochs} epochs each, counted at each replay); the "
+                  f"replayed graph's NCCL kernels (ms in its profiled "
+                  f"epoch): {nccl or 'none'}; its copies and sets: "
+                  f"{copies or 'none'}; the eager epoch's NCCL kernels: "
+                  f"{eager_nccl or 'none'}", flush=True)
+            launches[f"{cell} world 1"] = total
+    finally:
+        dist.destroy_process_group()
+
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as err:
+        raise AssertionError(f"torch {torch.__version__} has no fake "
+                             f"process group backend: {err}") from err
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=2)
+    try:
+        options = Options(batch_size=256, n_epochs=2,
+                          n_batches=DP_GRAPH_STEPS, **FLAGSHIP)
+        train = load_training_data(np, train_npz, bed, options)
+        val = load_training_data(np, val_npz, bed, options)
+        fit = fit_pair(torch, options, train, val, tmp,
+                       "gru_att fake world 2", group=dist.group.WORLD)
+        steps = options.n_epochs * options.n_batches
+        want = {"gru_train_fwd": steps, "gru_train_bwd": steps,
+                "gru_avg": options.n_epochs}
+        if fit != want:
+            raise AssertionError(f"fake world 2 fit launches {fit}, "
+                                 f"expected {want}")
+        launches["gru_att fake world 2 fit"] = fit
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3259,6 +3426,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as examples_tmp:
         path_launches = examples_phase(torch, np, examples_tmp)
     print(f"launches on phase 16's paths: {path_launches}; phase 16 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+
+    phase(f"17. the data-parallel epoch captured with its all_reduce: "
+          f"NCCL at world size 1 (gru_att, lstm; 5 x {DP_GRAPH_STEPS} "
+          f"steps in turns), Trainer.fit under the fake backend at world "
+          f"size 2")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as dp_graph_tmp:
+        path_launches = dp_capture_phase(torch, np, dp_graph_tmp)
+    print(f"launches on phase 17's paths: {path_launches}; phase 17 took "
           f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []

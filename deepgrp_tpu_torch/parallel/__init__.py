@@ -1,6 +1,7 @@
 """Several GPUs and processes (counterpart of ``deepgrp_tpu/parallel``):
 devices and the process group (:mod:`mesh`), the sharded predictor
-(:mod:`predict`) and the data-parallel training step (:mod:`train`).
+(:mod:`predict`) and the data-parallel training step and epoch
+(:mod:`train`).
 
 The JAX package shards over a 1-D device mesh inside one program; here
 the sharded predictor drives one chunk loop a shard, each on its device

@@ -59,6 +59,17 @@ def initialize_distributed(init_method: str, world_size: int, rank: int,
                             world_size=world_size, rank=rank)
 
 
+def cuda_backend(group: Optional[dist.ProcessGroup] = None) -> str:
+    """The backend that runs ``group``'s collectives on CUDA tensors:
+    ``"nccl"`` for ``"nccl"`` and the default ``"cpu:gloo,cuda:nccl"``,
+    ``"gloo"`` for ``"gloo"`` (the host, for either device), else the
+    backend as named (torch's ``"fake"`` testing backend)."""
+    backend = str(dist.get_backend(group))
+    pairs = dict(item.split(":", 1) for item in backend.split(",")
+                 if ":" in item)
+    return pairs.get("cuda", backend)
+
+
 def world_size() -> int:
     """The default group's size, 1 without a process group."""
     return dist.get_world_size() if dist.is_initialized() else 1

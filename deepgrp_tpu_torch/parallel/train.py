@@ -1,4 +1,4 @@
-"""Data-parallel training step over ``torch.distributed``.
+"""Data-parallel training step and epoch over ``torch.distributed``.
 
 Counterpart of ``deepgrp_tpu/parallel/train.py``.  The JAX step runs
 inside ``shard_map``: each device samples its slice of the class-balanced
@@ -10,6 +10,13 @@ gradients and the loss are averaged by **one** ``all_reduce`` of one flat
 buffer a step, in the model's parameter order, before the same update on
 every rank.  The explicit form keeps the order of the step's sums fixed
 (DDP's buckets would not), as the kernels' own sums are.
+
+:func:`make_dp_train_epoch` is the counterpart of the JAX package's
+``make_dp_train_epoch`` (``n_steps`` DP steps as one ``lax.scan`` inside
+``shard_map``, the ``pmean`` inside the scan): a rank's epoch as an
+:class:`~deepgrp_tpu_torch.train.training.EpochLoop` whose step draws the
+rank's windows and masks and takes :func:`dp_train_step`, eager or
+captured as one CUDA graph with the ``all_reduce`` inside.
 """
 
 from __future__ import annotations
@@ -19,8 +26,11 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from deepgrp_tpu_torch.config import Options
+from deepgrp_tpu_torch.models import rnn
 from deepgrp_tpu_torch.models.model import DeepGRPModel
-from deepgrp_tpu_torch.train.training import step_loss
+from deepgrp_tpu_torch.train.sampler import BatchSampler, local_batch_size
+from deepgrp_tpu_torch.train.training import EpochLoop, step_loss
 
 
 def _flat(params: List[torch.Tensor]) -> torch.Tensor:
@@ -72,6 +82,56 @@ def dp_train_step(model: DeepGRPModel, optimizer: torch.optim.Optimizer,
         _unflat(flat[:-1], grads)
     optimizer.step()
     return flat[-1]
+
+
+def make_dp_train_epoch(model: DeepGRPModel,
+                        optimizer: torch.optim.Optimizer, options: Options,
+                        train_sampler: BatchSampler,
+                        generator: torch.Generator, n_steps: int,
+                        group: Optional[dist.ProcessGroup] = None,
+                        fused: bool = True,
+                        capture: bool = False) -> EpochLoop:
+    """This rank's data-parallel epoch of ``n_steps`` steps.
+
+    Each step draws the rank's ``batch_size / world`` window starts
+    (``train_sampler.sample_starts_dp(generator, rank, world)``), then its
+    dropout masks from the same ``generator``, and takes
+    :func:`dp_train_step` over ``group``.  With ``capture`` the step is
+    replayed as a captured CUDA graph (:class:`~deepgrp_tpu_torch.train.
+    step_graph.StepGraph` over ``generator``), the ``all_reduce`` inside
+    it; ``capture`` needs the group's collectives on CUDA tensors to run
+    on the card (NCCL, or a backend that makes no host call), which the
+    caller checks (``Trainer``).
+
+    The capture keeps ``capture_error_mode="global"``, as a
+    single-device step's does.  ``ProcessGroupNCCL``'s watchdog thread
+    polls the CUDA events of the collectives issued before the capture
+    (the parameters' broadcast, the warm-up step's ``all_reduce``, the
+    last validation's) on its own schedule; a query of an event recorded
+    outside the capture is no unsafe call, and the collectives captured
+    are not handed to the watchdog.  The communicator exists before the
+    capture (the broadcast, the warm-up step).  The ``all_reduce`` is
+    synchronous, so NCCL's stream joins the capturing stream again before
+    the capture ends.
+
+    The graph belongs to the returned loop; nothing is cached.
+    """
+    rank = dist.get_rank(group)
+    world = dist.get_world_size(group)
+    config = model.config
+    rows = 2 * local_batch_size(options.batch_size, world)
+    rate = float(config.dropout)
+
+    def step() -> torch.Tensor:
+        codes, labels = train_sampler.gather(
+            train_sampler.sample_starts_dp(generator, rank, world))
+        masks = (rnn.input_dropout_masks(generator, rows, rate,
+                                         config.gates)
+                 if rate > 0.0 else None)
+        return dp_train_step(model, optimizer, codes, labels, masks, group,
+                             fused)
+
+    return EpochLoop(step, n_steps, model.device, capture, [generator])
 
 
 @torch.no_grad()

@@ -2,7 +2,11 @@
 
 The port's counterpart of the JAX package's one-dispatch training
 programs: ``_train_epoch`` (``deepgrp_tpu/train/training.py:151-180``, a
-whole epoch as one ``lax.scan``) and ``_parallel_step``
+whole epoch as one ``lax.scan``), ``make_dp_train_epoch``
+(``deepgrp_tpu/parallel/train.py:119-155``, the data-parallel epoch with
+its ``pmean`` inside the scan; here
+:func:`deepgrp_tpu_torch.parallel.train.make_dp_train_epoch`, the
+gradient ``all_reduce`` inside the graph) and ``_parallel_step``
 (``deepgrp_tpu/hpo/vmapped.py:69-113``, one program a fleet step).  An
 eager step issues a few hundred small launches from Python (the sampler's
 draws, the dropout masks, the recurrence kernels and the head, autograd's
@@ -29,8 +33,11 @@ them with one host call.
 * the capture runs with ``capture_error_mode="global"``: a call that is
   unsafe during capture, made by any thread (the autograd engine runs the
   backward on its own), raises.  No other thread issues CUDA work during a
-  training step (predict's reader threads run only under predict).  An
-  error raises; nothing falls back to the eager step.
+  training step (predict's reader threads run only under predict).  Over
+  NCCL, ``ProcessGroupNCCL``'s watchdog thread queries the events of
+  collectives issued before the capture, which is not an unsafe call, and
+  is handed none of the collectives captured (``make_dp_train_epoch``).
+  An error raises; nothing falls back to the eager step.
 
 What a step may do: device work only, with no read on the host
 (``.item()``, ``.cpu()``), no copy of host data to the device and no branch

@@ -28,10 +28,11 @@ of the JAX package's one dispatch per epoch.  The validation batch runs
 without dropout, through the inference kernels, eagerly between epochs.
 
 With a process group of several ranks the loop is data-parallel
-(:class:`Trainer`'s ``group``; the step is
-:func:`deepgrp_tpu_torch.parallel.train.dp_train_step`) and eager: its
-``all_reduce`` could be captured only over NCCL, which needs a card a
-rank.
+(:class:`Trainer`'s ``group``; the epoch is
+:func:`deepgrp_tpu_torch.parallel.train.make_dp_train_epoch`, its step
+:func:`~deepgrp_tpu_torch.parallel.train.dp_train_step`).  Over NCCL it
+is captured as well, the gradient ``all_reduce`` inside the graph; over
+gloo, whose collectives run on the host, it stays eager.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from deepgrp_tpu_torch.models.model import (
     DeepGRPModel, ModelConfig, forward_logits_from_codes,
     forward_logits_from_codes_train, init_params, one_hot,
     resolve_rnn_kernel)
-from deepgrp_tpu_torch.parallel.mesh import is_first_rank
+from deepgrp_tpu_torch.parallel.mesh import cuda_backend, is_first_rank
 from deepgrp_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from deepgrp_tpu_torch.train.optimizers import get_optimizer
 from deepgrp_tpu_torch.train.sampler import BatchSampler, local_batch_size
@@ -191,9 +192,14 @@ class Trainer:
 
     ``capture``: replay the step as a captured CUDA graph
     (:class:`EpochLoop`); ``None`` (the default) captures on a CUDA device
-    outside data-parallel runs, ``False`` runs every step eagerly (the
-    reference a captured run equals bit for bit), ``True`` raises
-    ``ValueError`` on the CPU or with a group of several ranks.
+    when the run has one rank or the group's collectives on CUDA tensors
+    run over NCCL (``"nccl"``, or the default ``"cpu:gloo,cuda:nccl"``),
+    and keeps a gloo group of several ranks eager; ``False`` runs every
+    step eagerly (the reference a captured run equals bit for bit);
+    ``True`` captures with any backend but gloo and raises ``ValueError``
+    on the CPU or with a group of several ranks whose CUDA collectives run
+    on gloo (the host, which a graph cannot hold), before any step or
+    collective.
     """
 
     def __init__(self, model: DeepGRPModel, options: Options,
@@ -209,12 +215,16 @@ class Trainer:
         # (``training.py:270-345``).
         self.group = group
         self.world = 1 if group is None else dist.get_world_size(group)
-        capturable = model.device.type == "cuda" and self.world == 1
+        # The backend of the step's collectives (none with one rank).
+        backend = cuda_backend(group) if self.world > 1 else None
+        capturable = model.device.type == "cuda" and backend != "gloo"
         if capture and not capturable:
             raise ValueError(
-                f"capture=True needs a single-device run on a CUDA device; "
-                f"this run is on {model.device} with {self.world} rank(s)")
-        self.capture = capturable if capture is None else capture
+                f"capture=True needs a CUDA device and collectives that run "
+                f"on it; this run is on {model.device} with {self.world} "
+                f"rank(s), CUDA collectives over {backend or 'none'}")
+        self.capture = (capturable and backend in (None, "nccl")
+                        if capture is None else capture)
         # The last fit's training generator (its state tells how far the
         # run's draws went).
         self.generator: Optional[torch.Generator] = None
@@ -243,7 +253,9 @@ class Trainer:
         its ``batch_size / world`` windows (exact global class quotas,
         ``BatchSampler.sample_starts_dp``) and masks from a generator
         seeded from ``(seed, r)`` and takes :func:`~deepgrp_tpu_torch.
-        parallel.train.dp_train_step`.  Every rank draws the same
+        parallel.train.dp_train_step`, in the epoch that
+        ``make_dp_train_epoch`` builds (captured as the class docstring
+        says; a failed capture raises).  Every rank draws the same
         validation batch (a generator seeded from ``seed``), scores its
         slice, and the losses are averaged by an ``all_reduce``, so every
         rank takes the same early-stopping and NaN decisions and returns
@@ -253,8 +265,8 @@ class Trainer:
         config = model.config
         data_parallel = self.world > 1
         if data_parallel:
-            from deepgrp_tpu_torch.parallel.train import (broadcast_params,
-                                                          dp_train_step)
+            from deepgrp_tpu_torch.parallel.train import (
+                broadcast_params, make_dp_train_epoch)
 
             rank = dist.get_rank(self.group)
             # Raises before any collective, on every rank alike.
@@ -281,27 +293,24 @@ class Trainer:
         self.generator = generator
         train_sampler = BatchSampler(options, train_data, device)
         val_sampler = BatchSampler(options, val_data, device)
-        rows = 2 * local_batch
-        rate = float(config.dropout)
+        if data_parallel:
+            loop = make_dp_train_epoch(model, optimizer, options,
+                                       train_sampler, generator,
+                                       options.n_batches, self.group,
+                                       self.fused, self.capture)
+        else:
+            rows, rate = 2 * local_batch, float(config.dropout)
 
-        def step() -> torch.Tensor:
-            if data_parallel:
-                codes, labels = train_sampler.gather(
-                    train_sampler.sample_starts_dp(generator, rank,
-                                                   self.world))
-            else:
+            def step() -> torch.Tensor:
                 codes, labels = train_sampler.batch(generator)
-            masks = (rnn.input_dropout_masks(generator, rows, rate,
-                                             config.gates)
-                     if rate > 0.0 else None)
-            if data_parallel:
-                return dp_train_step(model, optimizer, codes, labels, masks,
-                                     self.group, self.fused)
-            return train_step(model, optimizer, codes, labels, masks,
-                              self.fused)
+                masks = (rnn.input_dropout_masks(generator, rows, rate,
+                                                 config.gates)
+                         if rate > 0.0 else None)
+                return train_step(model, optimizer, codes, labels, masks,
+                                  self.fused)
 
-        loop = EpochLoop(step, options.n_batches, device, self.capture,
-                         [generator])
+            loop = EpochLoop(step, options.n_batches, device, self.capture,
+                             [generator])
         history: Dict[str, List[float]] = {"loss": [], "val_loss": []}
         best_val = math.inf
         best_params = host_params(model)

@@ -58,12 +58,30 @@ one epoch of every optimizer name the port maps; captured fleet steps
 with a freeze (a new graph of the active trials) equal the eager ones,
 and a captured ``run_parallel_trials`` the eager one.
 
+The data-parallel epoch captured with its ``all_reduce`` inside
+(``-k dp_capture``): at world size 1 over NCCL the captured
+``make_dp_train_epoch`` equals the eager one bit for bit (losses,
+parameters, generator state, launch counts) for ``gru_att`` and the LSTM
+of its width on the fused route and ``gru_att`` on the scan route; a
+capture in ``StepGraph``'s ``"global"`` mode outlasts NCCL's watchdog's
+polling of earlier collectives; under
+torch's fake process group at world size 2 a captured ``Trainer.fit(group=
+...)`` equals the eager fit bit for bit; on a machine with two cards, two
+NCCL ranks (processes of their own) fit captured and eager, equal bit for
+bit (skipped with fewer cards).
+
 The ``train_and_evaluate`` example on the card for 1 x 3 steps launches
 each training kernel once a step and the inference kernel on the
 validation and every evaluation chunk, and no plain version runs.
 """
 
+import contextlib
+import json
 import os
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -965,6 +983,269 @@ def test_captured_parallel_trials_equal_eager(device):
         assert got["stopped_epoch"] == want["stopped_epoch"]
         for key, value in want["params"].items():
             assert torch.equal(got["params"][key], value), key
+
+
+# -- the data-parallel epoch as a captured CUDA graph -------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def process_group(backend: str, world: int = 1):
+    """The default process group for the ``with`` block: ``"nccl"`` (the
+    port's default backend, ``cpu:gloo,cuda:nccl``, one rank) or torch's
+    ``"fake"`` backend (rank 0 of ``world``; its collectives make no CUDA
+    call and leave their tensors as they are).  Yields the group."""
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+
+    assert not dist.is_initialized()
+    if backend == "fake":
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    else:
+        initialize_distributed(f"tcp://127.0.0.1:{free_port()}", world, 0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_options(rnn_type="GRU", attention=True, **kwargs):
+    """The flagship's widths (vecsize 342, 60 units, dropout 0.0928) at a
+    small batch and depth."""
+    base = dict(vecsize=342, units=60, rnn=rnn_type, attention=attention,
+                dropout=0.0928, batch_size=32, n_epochs=2, n_batches=3,
+                early_stopping_th=10, repeats_to_search=[1, 2])
+    base.update(kwargs)
+    return Options(**base)
+
+
+def dp_epochs(device, options, capture, fused, group):
+    """``options.n_epochs`` epochs of ``make_dp_train_epoch`` over
+    ``group`` from seed 0: (each epoch's step losses, parameters, the
+    generator's state, the launch counts)."""
+    from deepgrp_tpu_torch.parallel.train import make_dp_train_epoch
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+
+    config = ModelConfig.from_options(options)
+    model = DeepGRPModel.from_params(
+        config, init_params(config, torch.Generator().manual_seed(0)),
+        device)
+    optimizer = get_optimizer(options, model.parameters())
+    sampler = BatchSampler(options, repeat_data(0, 12000), device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    loop = make_dp_train_epoch(model, optimizer, options, sampler, gen,
+                               options.n_batches, group, fused, capture)
+    cuda_rnn.LAUNCHES.reset()
+    rnn.PLAIN_CALLS.reset()
+    losses = []
+    for _ in range(options.n_epochs):
+        loop.epoch().item()
+        losses.append(loop.losses.clone())
+    torch.cuda.synchronize()
+    assert rnn.PLAIN_CALLS.snapshot() == {}
+    return (losses, model.params(), gen.get_state(),
+            cuda_rnn.LAUNCHES.snapshot())
+
+
+@pytest.mark.parametrize("rnn_type,attention,route", [
+    ("GRU", True, "fused"), ("LSTM", False, "fused"),
+    ("GRU", True, "scan")])
+def test_dp_capture_world1_nccl_equals_eager(device, rnn_type, attention,
+                                             route):
+    """At world size 1 over NCCL the captured data-parallel epoch (the
+    ``all_reduce`` inside the graph) equals the eager one bit for bit:
+    step losses, parameters, generator state and launch counts (each
+    training kernel once a step on the fused route, none on the scan
+    route)."""
+    from deepgrp_tpu_torch.parallel.mesh import cuda_backend
+
+    options = dp_options(rnn_type, attention)
+    fused = route == "fused"
+    with process_group("nccl") as group:
+        assert cuda_backend(group) == "nccl"
+        eager = dp_epochs(device, options, False, fused, group)
+        captured = dp_epochs(device, options, True, fused, group)
+    for got, want in zip(captured[0], eager[0]):
+        assert torch.equal(got, want)
+    for key, value in eager[1].items():
+        assert torch.equal(captured[1][key], value), key
+    assert torch.equal(captured[2], eager[2])
+    cell = "lstm" if rnn_type == "LSTM" else "gru"
+    steps = options.n_epochs * options.n_batches if fused else 0
+    assert captured[3] == eager[3]
+    assert eager[3].get(f"{cell}_train_fwd", 0) == steps
+    assert eager[3].get(f"{cell}_train_bwd", 0) == steps
+
+
+def test_dp_capture_global_mode_outlasts_the_watchdog(device):
+    """A capture under ``capture_error_mode="global"`` (the one
+    ``StepGraph`` uses) that lasts two seconds of host time, with
+    collectives issued just before it still in NCCL's watchdog's list and
+    an ``all_reduce`` inside it, ends and replays right: the watchdog
+    thread's event queries do not invalidate it."""
+    import torch.distributed as dist
+
+    with process_group("nccl"):
+        x = torch.ones(1 << 16, device=device)
+        dist.all_reduce(x)  # the communicator
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(8):
+                dist.all_reduce(x)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="global"):
+            y = x * 2
+            time.sleep(2.0)
+            dist.all_reduce(y)
+            z = y + 1
+        x.fill_(5.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(z, torch.full_like(z, 11.0))
+
+
+def test_dp_capture_fake_world2_fit_equals_eager(device, tmp_path):
+    """Under torch's fake process group at world size 2 (rank 0; the
+    collectives leave their tensors as they are), ``Trainer.fit(group=
+    ...)`` with the step captured equals ``capture=False`` bit for bit:
+    history, best parameters, generator state and launch counts.  The
+    fake backend is not NCCL, so the default stays eager."""
+    from deepgrp_tpu_torch.train.training import Trainer
+
+    options = graph_options(attention=True, dropout=0.0928)
+    runs = {}
+    with process_group("fake", 2) as group:
+        for capture in (None, False, True):
+            model = DeepGRPModel(ModelConfig.from_options(options), device)
+            trainer = Trainer(model, options, tmp_path / str(capture),
+                              tensorboard=False, group=group,
+                              capture=capture)
+            if capture is None:
+                assert trainer.capture is False
+                trainer.writer.close()
+                continue
+            cuda_rnn.LAUNCHES.reset()
+            rnn.PLAIN_CALLS.reset()
+            try:
+                best, history = trainer.fit(repeat_data(0), repeat_data(1),
+                                            seed=0)
+            finally:
+                trainer.writer.close()
+            torch.cuda.synchronize()
+            assert rnn.PLAIN_CALLS.snapshot() == {}
+            runs[capture] = (history, best, trainer.generator.get_state(),
+                             cuda_rnn.LAUNCHES.snapshot())
+    assert_same_fit(runs[True], runs[False])
+    steps = options.n_epochs * options.n_batches
+    assert runs[True][3] == {"gru_train_fwd": steps, "gru_train_bwd": steps,
+                             "gru_avg": options.n_epochs}
+
+
+def nccl_rank(rank: int, tmp: str) -> None:
+    """One of :func:`test_dp_capture_two_nccl_ranks_equal_eager`'s ranks
+    (a process of its own, on ``cuda:rank``): ``Trainer.fit`` over an
+    NCCL group of two, eager and then with the default (captured); writes
+    ``tmp/rank{rank}-{eager|captured}.npz`` and ``tmp/rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+    from deepgrp_tpu_torch.train.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    initialize_distributed(f"file://{tmp}/rdzv", 2, rank)
+    info = {}
+    try:
+        options = graph_options(attention=True, dropout=0.0928)
+        for capture in (False, None):
+            name = "eager" if capture is False else "captured"
+            model = DeepGRPModel(ModelConfig.from_options(options), device)
+            trainer = Trainer(model, options,
+                              os.path.join(tmp, f"{name}-{rank}"),
+                              tensorboard=False, group=dist.group.WORLD,
+                              capture=capture)
+            cuda_rnn.LAUNCHES.reset()
+            best, history = trainer.fit(repeat_data(0), repeat_data(1),
+                                        seed=0)
+            torch.cuda.synchronize()
+            if trainer.writer is not None:
+                trainer.writer.close()
+            np.savez(os.path.join(tmp, f"rank{rank}-{name}.npz"),
+                     generator=trainer.generator.get_state().numpy(),
+                     **{k: v.numpy() for k, v in best.items()})
+            info[name] = {"history": history, "capture": trainer.capture,
+                          "launches": cuda_rnn.LAUNCHES.snapshot()}
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(info, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_capture_two_nccl_ranks_equal_eager(device, tmp_path):
+    """Two NCCL ranks on two cards: ``Trainer.fit`` captured by default
+    (the gradient ``all_reduce`` inside the replayed graph, NCCL's sum of
+    two ranks, exact in either order) equals the eager fit bit for bit on
+    each rank (history, best parameters, generator state, launch counts),
+    and the ranks' parameters and histories are equal."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two CUDA cards; this machine has {count}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path[:0] = sys.argv[1:3]; "
+            "import test_torch_cuda; "
+            "test_torch_cuda.nccl_rank(int(sys.argv[3]), sys.argv[4])")
+    procs = [subprocess.Popen([sys.executable, "-c", code, here,
+                               os.path.dirname(here), str(rank),
+                               str(tmp_path)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, text in zip(procs, outputs):
+        assert proc.returncode == 0, text
+    ranks = []
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.json") as fh:
+            info = json.load(fh)
+        runs = {}
+        for name in ("eager", "captured"):
+            with np.load(tmp_path / f"rank{rank}-{name}.npz") as data:
+                runs[name] = {k: data[k] for k in data.files}
+        assert info["eager"]["capture"] is False
+        assert info["captured"]["capture"] is True
+        assert info["captured"]["history"] == info["eager"]["history"]
+        assert info["captured"]["launches"] == info["eager"]["launches"]
+        for key, value in runs["eager"].items():
+            assert runs["captured"][key].tobytes() == value.tobytes(), key
+        ranks.append((info, runs))
+    assert ranks[0][0]["captured"]["history"] == \
+        ranks[1][0]["captured"]["history"]
+    for key, value in ranks[0][1]["captured"].items():
+        if key != "generator":
+            assert ranks[1][1]["captured"][key].tobytes() == \
+                value.tobytes(), key
 
 
 # -- the examples on the card --------------------------------------------------
