@@ -219,6 +219,32 @@ Phases (any failure exits non-zero; nothing is caught):
     steps, 128 windows a rank) captured against eager: history, best
     parameters, generator state and launch counts bit for bit.  Fails if
     torch lacks the fake backend.
+18. One command, every GPU (``parallel/launch.py:launch_local`` behind
+    ``train --mesh auto`` and ``training(mesh=...)``), on phase 7's
+    chromosomes (same seed), ``gru_att`` at batch 256, 1 x 20 steps: (a)
+    ``train --mesh auto`` through ``cli.main`` on this one-GPU machine
+    launches nothing (``plan_train_ranks`` gives 1 rank; the launcher,
+    wrapped, is never called) and writes a model equal bit for bit to
+    ``--mesh off``'s; (b) ``training(mesh=["cuda:0", "cuda:0"])``, two
+    gloo ranks the launcher spawns on the card, returns rank 0's best
+    parameters and history bit for bit those of the same two ranks
+    started by hand as phase 13b's (:func:`hand_rank`), one metrics
+    record; each rank launches rows 3 and 4 20 times and ``gru_avg`` once
+    and no plain version (the launched rank 0 through a callback that
+    pickles, :class:`LaunchCounts`, the ranks by hand themselves); the
+    same two ranks through ``python -m deepgrp_tpu_torch train --mesh
+    auto`` in a new process (the rank plan and the mesh patched there
+    only) write rank 0's model by hand, and that process never
+    initialises CUDA; (c)
+    ``launch_local(fn, ["cuda:0"])`` with the default backend joins NCCL
+    at world size 1 and its captured DP epoch (phase 17's, 20 steps)
+    equals the same epoch in this process bit for bit (losses,
+    parameters, generator state; 20 launches of rows 3 and 4); (d) with
+    two GPUs or more, ``python -m deepgrp_tpu_torch train`` (N NCCL ranks
+    launched) against ``torchrun --nproc-per-node N`` bit for bit; on one
+    card it prints ``unverified: 1 GPU``.  Prints the launches' seconds
+    (start-up and rendezvous, the CUDA context, the first epoch and a
+    second, teardown) beside the in-process runs', and the card.
 
 A captured step's launches are counted at each replay, as an eager
 step's are (``_build.recording_launches``).
@@ -887,10 +913,11 @@ def write_training_files(np, tmp: str, seed: int = 7):
                                                               "repeats.bed")
 
 
-def run_train_cli(tmp: str, files, name: str, cli_args=(), **options):
+def run_train_cli(tmp: str, files, name: str, cli_args=(), train_args=(),
+                  **options):
     """``train ... --honor-toml`` through ``cli.main`` (``cli_args``: global
-    flags before ``train``); returns the model path, the metrics records
-    and the host seconds."""
+    flags before ``train``, ``train_args`` its own after the files);
+    returns the model path, the metrics records and the host seconds."""
     from deepgrp_tpu_torch import cli
     from deepgrp_tpu_torch.config import Options
 
@@ -901,7 +928,8 @@ def run_train_cli(tmp: str, files, name: str, cli_args=(), **options):
     model = os.path.join(tmp, f"{name}.npz")
     start = time.perf_counter()
     cli.main(["-b", "256", *cli_args, "train", toml, *files,
-              "--honor-toml", "--logdir", logdir, "--modelfile", model])
+              "--honor-toml", "--logdir", logdir, "--modelfile", model,
+              *train_args])
     seconds = time.perf_counter() - start
     with open(os.path.join(logdir, "metrics.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
@@ -2356,24 +2384,19 @@ def dp_worker(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def dp_phase(torch, np, tmp: str) -> dict:
-    """Phase 13b: two gloo ranks on the one card (processes of their own,
-    :func:`dp_worker`) against one process on the whole batch; returns
-    rank 0's launch counts of the 2 x 3 steps."""
-    from deepgrp_tpu_torch.config import Options
-    from deepgrp_tpu_torch.train.optimizers import get_optimizer
-    from deepgrp_tpu_torch.train.training import train_step
-
-    write_training_files(np, tmp)
+def run_rank_processes(entry: str, tmp: str, world: int = 2) -> float:
+    """Start ``world`` processes by hand, each calling ``chip_smoke.<entry>
+    (rank, tmp)``, and wait for them; prints each one's output and fails if
+    one failed.  Returns the seconds, process start included."""
     code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
-            "import chip_smoke; chip_smoke.dp_worker(int(sys.argv[3]), "
+            f"import chip_smoke; chip_smoke.{entry}(int(sys.argv[3]), "
             "sys.argv[4])")
     start = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", code, HERE,
                                os.path.join(HERE, "tests"), str(rank), tmp],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for rank in range(2)]
+             for rank in range(world)]
     outputs = []
     try:
         for proc in procs:
@@ -2383,13 +2406,26 @@ def dp_phase(torch, np, tmp: str) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    seconds = time.perf_counter() - start
     for rank, (proc, text) in enumerate(zip(procs, outputs)):
         print(f"-- rank {rank} (exit {proc.returncode}):\n{text.strip()}",
               flush=True)
         if proc.returncode:
-            raise AssertionError(f"DP rank {rank} failed")
-    print(f"two ranks: {time.perf_counter() - start:.2f} s, process start "
-          f"included", flush=True)
+            raise AssertionError(f"{entry} rank {rank} failed")
+    return seconds
+
+
+def dp_phase(torch, np, tmp: str) -> dict:
+    """Phase 13b: two gloo ranks on the one card (processes of their own,
+    :func:`dp_worker`) against one process on the whole batch; returns
+    rank 0's launch counts of the 2 x 3 steps."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.train.optimizers import get_optimizer
+    from deepgrp_tpu_torch.train.training import train_step
+
+    write_training_files(np, tmp)
+    seconds = run_rank_processes("dp_worker", tmp)
+    print(f"two ranks: {seconds:.2f} s, process start included", flush=True)
 
     ranks, infos = [], []
     for rank in range(2):
@@ -3265,6 +3301,353 @@ def dp_capture_phase(torch, np, tmp: str) -> dict:
     return launches
 
 
+#: Phase 18's run: the flagship at batch 256, 1 epoch of LAUNCH_STEPS steps
+#: on phase 7's chromosomes.
+LAUNCH_STEPS = 20
+
+
+def launch_options():
+    from deepgrp_tpu_torch.config import Options
+
+    return Options(batch_size=256, n_epochs=1, n_batches=LAUNCH_STEPS,
+                   **FLAGSHIP)
+
+
+def launch_data(np, tmp: str, options):
+    """Phase 7's chromosomes, written by :func:`write_training_files` into
+    ``tmp``, as the training and validation ``Data``."""
+    bed = os.path.join(tmp, "repeats.bed")
+    return tuple(load_training_data(np, os.path.join(tmp, name), bed,
+                                    options)
+                 for name in ("chrTrain.npz", "chrValid.npz"))
+
+
+class LaunchCounts:
+    """An ``extra_callbacks`` entry that pickles, for rank 0 of a launched
+    run: after each epoch it appends the rank's launch counts, its plain
+    calls and the host clock to ``path`` (JSON lines)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __call__(self, epoch: int, metrics: dict) -> None:
+        from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+        with open(self.path, "a") as fh:
+            fh.write(json.dumps({
+                "epoch": epoch, "time": time.time(),
+                "launches": cuda_rnn.LAUNCHES.snapshot(),
+                "plain": rnn.PLAIN_CALLS.snapshot()}) + "\n")
+
+
+def hand_rank(rank: int, tmp: str) -> None:
+    """One of phase 18b's two ranks started by hand (a process of its own
+    on cuda:0, gloo, as phase 13b's): ``training(..., group=WORLD)`` of
+    phase 18's run; writes ``tmp/hand{rank}.npz`` (best parameters) and
+    ``.json`` (history, launch counts)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.models.model import DeepGRPModel, ModelConfig
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+    from deepgrp_tpu_torch.train.training import training
+
+    initialize_distributed(f"file://{tmp}/hand-rdzv", 2, rank,
+                           backend="gloo")
+    try:
+        options = launch_options()
+        data = launch_data(np, tmp, options)
+        reset_counts()
+        start = time.perf_counter()
+        best, history = training(
+            data, options, DeepGRPModel(ModelConfig.from_options(options),
+                                        "cuda:0"),
+            os.path.join(tmp, f"hand-log-{rank}"), tensorboard=False,
+            group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = check_counts({"gru_train_fwd": LAUNCH_STEPS,
+                                 "gru_train_bwd": LAUNCH_STEPS,
+                                 "gru_avg": 1})
+        np.savez(os.path.join(tmp, f"hand{rank}.npz"),
+                 **{k: v.numpy() for k, v in best.items()})
+        with open(os.path.join(tmp, f"hand{rank}.json"), "w") as fh:
+            json.dump({"history": history, "launches": launches,
+                       "seconds": seconds}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_epoch(torch, np, tmp: str) -> dict:
+    """Phase 17's captured DP epoch of ``gru_att`` (``DP_GRAPH_STEPS``
+    steps, parameters from seed 0, generator seed 11) in the default
+    process group: the losses, parameters and generator state on the CPU,
+    the launch counts an epoch, the backend and host-clock times."""
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.models.model import ModelConfig, init_params
+    from deepgrp_tpu_torch.parallel.mesh import cuda_backend
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+
+    start = time.time()
+    options = Options(batch_size=256, n_batches=DP_GRAPH_STEPS, **FLAGSHIP)
+    config = ModelConfig.from_options(options)
+    params = init_params(config, torch.Generator().manual_seed(0))
+    sampler = BatchSampler(options, launch_data(np, tmp, options)[0],
+                           "cuda")
+    deltas = {False: [], True: []}
+    reset_counts()
+    epoch, state = dp_graph_run(torch, config, params, options, sampler,
+                                dist.group.WORLD, deltas)(True)
+    losses = epoch()
+    torch.cuda.synchronize()
+    from deepgrp_tpu_torch.models import rnn
+
+    return {"backend": str(dist.get_backend()),
+            "cuda_backend": cuda_backend(),
+            "world": dist.get_world_size(),
+            "losses": [t.cpu() for t in losses],
+            "state": [t.detach().cpu() for t in state()],
+            "launches": deltas[True], "plain": rnn.PLAIN_CALLS.snapshot(),
+            "start": start, "end": time.time()}
+
+
+def nccl_epoch_rank(rank: int, tmp: str) -> list:
+    """Phase 18c's launched rank: the CUDA context's creation, then
+    :func:`nccl_epoch` twice in the group the launcher started (the first
+    pays the process's first use of the kernels, cuBLAS and NCCL), TF32
+    off as in this script's own process; returns the context's host-clock
+    seconds and both runs."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    start = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    return [time.time() - start] + [nccl_epoch(torch, np, tmp)
+                                    for _ in range(2)]
+
+
+def same_tensors(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and a.numpy().tobytes() == b.numpy().tobytes()
+        for a, b in zip(got, want))
+
+
+def launch_phase(torch, np, tmp: str, card: str) -> dict:
+    """Phase 18: one command trains on every visible GPU.  (a) ``train
+    --mesh auto`` on this one-GPU machine launches nothing and writes
+    ``--mesh off``'s model; (b) ``training(mesh=["cuda:0", "cuda:0"])``,
+    two gloo ranks the launcher starts, against the same two ranks started
+    by hand; (c) ``launch_local`` over ``["cuda:0"]`` with the default
+    backend, NCCL at world size 1, against the same captured DP epoch in
+    this process; (d) with two GPUs or more, ``train --mesh auto`` against
+    ``torchrun``.  Returns the launch counts of the phase's runs."""
+    import torch.distributed as dist
+
+    from deepgrp_tpu_torch import cli
+    from deepgrp_tpu_torch.parallel import launch
+    from deepgrp_tpu_torch.parallel.mesh import initialize_distributed
+    from deepgrp_tpu_torch.train.training import training
+
+    files = write_training_files(np, tmp)
+    n_gpus = torch.cuda.device_count()
+    counts = {}
+
+    # (a) The plan on this machine, and the command with and without it.
+    plan = cli.plan_train_ranks("auto", "cuda", n_gpus, None, 256)
+    # The launcher, wrapped where training() calls it.
+    import deepgrp_tpu_torch.train.training as train_module
+
+    launched = []
+    launch_fn = train_module.launch_local
+    train_module.launch_local = lambda *a, **k: (launched.append(a),
+                                                 launch_fn(*a, **k))[1]
+    runs = {}
+    try:
+        for flag in ("auto", "off"):
+            reset_counts()
+            runs[flag] = run_train_cli(
+                tmp, files, f"mesh_{flag}", train_args=["--mesh", flag],
+                n_epochs=1, n_batches=LAUNCH_STEPS, **FLAGSHIP)
+            counts[f"train --mesh {flag}"] = check_counts(
+                {"gru_train_fwd": LAUNCH_STEPS,
+                 "gru_train_bwd": LAUNCH_STEPS, "gru_avg": 1})
+    finally:
+        train_module.launch_local = launch_fn
+    with np.load(runs["auto"][0]) as auto, np.load(runs["off"][0]) as off:
+        same = (sorted(auto.files) == sorted(off.files) and all(
+            auto[k].tobytes() == off[k].tobytes() for k in off.files))
+    print(f"(a) {n_gpus} GPU(s): plan_train_ranks -> {plan}; train --mesh "
+          f"auto launched {len(launched)} time(s), {runs['auto'][2]:.3f} s; "
+          f"--mesh off {runs['off'][2]:.3f} s; models bit for bit equal: "
+          f"{same}; losses {[r['loss'] for r in runs['auto'][1]]} / "
+          f"{[r['loss'] for r in runs['off'][1]]}", flush=True)
+    if n_gpus == 1 and (plan != (1, None) or launched or not same):
+        raise AssertionError("train --mesh auto on one GPU")
+    # (b) Two gloo ranks on cuda:0 through the launcher, against the same
+    # ranks started by hand.
+    options = launch_options()
+    counts_path = os.path.join(tmp, "rank0-counts.jsonl")
+    start, wall = time.perf_counter(), time.time()
+    best, history = training(launch_data(np, tmp, options), options,
+                             logdir=os.path.join(tmp, "mesh-log"),
+                             tensorboard=False, mesh=["cuda:0", "cuda:0"],
+                             extra_callbacks=[LaunchCounts(counts_path)])
+    launch_s = time.perf_counter() - start
+    with open(counts_path) as fh:
+        rank0 = [json.loads(line) for line in fh]
+    hand_s = run_rank_processes("hand_rank", tmp)
+    hands = []
+    for rank in range(2):
+        with np.load(os.path.join(tmp, f"hand{rank}.npz")) as data:
+            params = {k: data[k] for k in data.files}
+        with open(os.path.join(tmp, f"hand{rank}.json")) as fh:
+            hands.append((params, json.load(fh)))
+    want = {"gru_train_fwd": LAUNCH_STEPS, "gru_train_bwd": LAUNCH_STEPS,
+            "gru_avg": 1}
+    same = (sorted(best) == sorted(hands[0][0]) and all(
+        best[k].numpy().tobytes() == hands[0][0][k].tobytes()
+        for k in best))
+    with open(os.path.join(tmp, "mesh-log", "metrics.jsonl")) as fh:
+        logged = len(fh.readlines())
+    print(f"(b) training(mesh=['cuda:0', 'cuda:0']): {launch_s:.3f} s "
+          f"(spawn, rendezvous, training, teardown; rank 0's epoch ended "
+          f"{rank0[-1]['time'] - wall:.3f} s after the call); by hand: "
+          f"{hand_s:.3f} s, process start included, of it training() "
+          f"{[round(h[1]['seconds'], 3) for h in hands]} s (the process's "
+          f"first use of the kernels included); history {history} == "
+          f"by hand {hands[0][1]['history']}: "
+          f"{history == hands[0][1]['history']}; best parameters bit for "
+          f"bit: {same}; launched rank 0: launches {rank0[-1]['launches']}, "
+          f"plain {rank0[-1]['plain']}; by hand: "
+          f"{[h[1]['launches'] for h in hands]}; metrics records "
+          f"{logged}", flush=True)
+    if (not same or history != hands[0][1]["history"] or logged != 1
+            or rank0[-1]["launches"] != want or rank0[-1]["plain"]
+            or any(h[1]["launches"] != want for h in hands)):
+        raise AssertionError("training(mesh=...) differs from the ranks "
+                             "started by hand")
+    counts["training(mesh) rank 0"] = rank0[-1]["launches"]
+
+    # (b) again through the command a user types, in a new process:
+    # python -m deepgrp_tpu_torch train --mesh auto, the rank plan and the
+    # mesh patched in that process only (one GPU here) to two ranks on
+    # cuda:0.  The spawned ranks import the -m module by name; the model
+    # equals rank 0's by hand, and the launching process, which loads the
+    # data and saves the model, never initialises CUDA.
+    from deepgrp_tpu_torch.models.keras_io import load_model
+
+    code = ("import runpy; import torch; from deepgrp_tpu_torch import cli; "
+            "from deepgrp_tpu_torch.parallel import mesh; "
+            "cli.plan_train_ranks = lambda *args: (2, None); "
+            "mesh.make_mesh = lambda: mesh.local_devices(['cuda:0'] * 2); "
+            "runpy.run_module('deepgrp_tpu_torch', run_name='__main__', "
+            "alter_sys=True); "
+            "print('cuda initialised', torch.cuda.is_initialized())")
+    model_path = os.path.join(tmp, "mesh_cli.npz")
+    start = time.perf_counter()
+    # -t 0: torch's default host threads, as the ranks by hand run (the
+    # recurrent kernel's orthogonal initialisation, a QR on the host,
+    # depends on the thread count).
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "-v", "-t", "0", "-b", "256", "train",
+         os.path.join(tmp, "mesh_auto.toml"), *files, "--honor-toml",
+         "--logdir", os.path.join(tmp, "mesh_cli_log"), "--modelfile",
+         model_path, "--no-tensorboard", "--mesh", "auto"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - start
+    if proc.returncode:
+        print(proc.stderr[-4000:], flush=True)
+        raise AssertionError(f"python -m deepgrp_tpu_torch train --mesh "
+                             f"auto exited with {proc.returncode}")
+    _, params = load_model(model_path)
+    same = (sorted(params) == sorted(hands[0][0]) and all(
+        params[k].numpy().tobytes() == hands[0][0][k].tobytes()
+        for k in params))
+    fresh = proc.stdout.strip().splitlines()[-1]
+    print(f"(b) python -m deepgrp_tpu_torch train --mesh auto over the same "
+          f"two ranks: {cli_s:.3f} s (process start, data, spawn, training, "
+          f"model file); launched: {'launching 2 ranks' in proc.stderr}; "
+          f"model bit for bit rank 0's by hand: {same}; the launching "
+          f"process: {fresh}", flush=True)
+    if not same or fresh != "cuda initialised False" or \
+            "launching 2 ranks" not in proc.stderr:
+        raise AssertionError("train --mesh auto's launch through python -m")
+
+    # (c) NCCL at world size 1 through the launcher, against this process.
+    start = time.time()
+    context_s, *got = launch.launch_local(nccl_epoch_rank, ["cuda:0"],
+                                          args=(tmp,))
+    returned = time.time()
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        here = nccl_epoch(torch, np, tmp)
+    finally:
+        dist.destroy_process_group()
+    want_epoch = [{"gru_train_fwd": DP_GRAPH_STEPS,
+                   "gru_train_bwd": DP_GRAPH_STEPS}]
+    same = all(same_tensors(run["losses"], here["losses"])
+               and same_tensors(run["state"], here["state"])
+               for run in got)
+    first, second = got
+    print(f"(c) launch_local(['cuda:0']): backend {first['backend']} (CUDA "
+          f"collectives over {first['cuda_backend']}), world "
+          f"{first['world']}; spawn, imports and rendezvous "
+          f"{first['start'] - context_s - start:.3f} s, the CUDA context "
+          f"{context_s:.3f} s, the first epoch "
+          f"{first['end'] - first['start']:.3f} s (the process's first use "
+          f"of the kernels, cuBLAS and NCCL), "
+          f"the second {second['end'] - second['start']:.3f} s, teardown "
+          f"and result {returned - second['end']:.3f} s, "
+          f"{returned - start:.3f} s in all; in this process the epoch "
+          f"{here['end'] - here['start']:.3f} s; losses, parameters and "
+          f"generator state of both runs bit for bit: {same}; launches an "
+          f"epoch {[run['launches'] for run in got]} / {here['launches']}, "
+          f"plain {[run['plain'] for run in got]}", flush=True)
+    if (not same or first["cuda_backend"] != "nccl" or first["world"] != 1
+            or any(run["launches"] != want_epoch or run["plain"]
+                   for run in got) or here["launches"] != want_epoch):
+        raise AssertionError("the launched NCCL epoch differs")
+    counts["launch_local NCCL epoch"] = first["launches"][0]
+
+    # (d) N NCCL ranks on N cards, against torchrun.
+    if n_gpus < 2:
+        print(f"(d) unverified: {n_gpus} GPU", flush=True)
+    else:
+        toml = os.path.join(tmp, "mesh_auto.toml")
+        models = {}
+        for name, launcher in (
+                ("auto", [sys.executable, "-m", "deepgrp_tpu_torch"]),
+                ("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                              "--nproc-per-node", str(n_gpus), "-m",
+                              "deepgrp_tpu_torch"])):
+            models[name] = os.path.join(tmp, f"multi_{name}.npz")
+            start = time.perf_counter()
+            subprocess.run([*launcher, "-b", "256", "train", toml, *files,
+                            "--honor-toml", "--logdir",
+                            os.path.join(tmp, f"multi_{name}_log"),
+                            "--modelfile", models[name]], cwd=HERE,
+                           check=True, timeout=600)
+            print(f"(d) {name}: {time.perf_counter() - start:.3f} s",
+                  flush=True)
+        with np.load(models["auto"]) as auto, \
+                np.load(models["torchrun"]) as ref:
+            same = all(auto[k].tobytes() == ref[k].tobytes()
+                       for k in ref.files)
+        print(f"(d) train --mesh auto over {n_gpus} NCCL ranks == torchrun "
+              f"--nproc-per-node {n_gpus}: {same}", flush=True)
+        if not same:
+            raise AssertionError("train --mesh auto differs from torchrun")
+    print(f"card: {card}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3436,6 +3819,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as dp_graph_tmp:
         path_launches = dp_capture_phase(torch, np, dp_graph_tmp)
     print(f"launches on phase 17's paths: {path_launches}; phase 17 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+
+    phase(f"18. one command, every GPU: train --mesh auto on this machine, "
+          f"training(mesh=['cuda:0', 'cuda:0']) against two ranks by hand, "
+          f"launch_local over NCCL at world size 1, N NCCL ranks against "
+          f"torchrun (1 x {LAUNCH_STEPS} steps)")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as launch_tmp:
+        path_launches = launch_phase(torch, np, launch_tmp, card)
+    print(f"launches on phase 18's paths: {path_launches}; phase 18 took "
           f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []

@@ -21,27 +21,36 @@ precedence quirk is kept: the CLI's option defaults (with ``-b -x -l``)
 overwrite the TOML file's values, so ``vecsize``, ``units`` and the rest
 fall back to their defaults, unless ``--honor-toml`` is given.
 
-Several GPUs (``cli.py:80-90``, ``:158-184`` of the JAX package):
-``predict --mesh auto`` (the default) shards the window stream over every
-visible GPU when there is more than one
+Several GPUs (``cli.py:80-90``, ``:158-184``, ``:363-377`` of the JAX
+package): ``predict --mesh auto`` (the default) shards the window stream
+over every visible GPU when there is more than one
 (:class:`~deepgrp_tpu_torch.parallel.predict.ShardedPredictionEngine`).
-The PyTorch idiom is one process a GPU, so data-parallel ``train`` runs
-over ranks: launch one process a GPU with ``torchrun`` (its environment
-names the group) or with ``--coordinator HOST:PORT --num-processes N
---process-id R`` on each; ``train --mesh auto`` then trains
-data-parallel when the batch size divides by the world size (else it
-warns and each rank trains alone), and a multi-process ``predict`` shards
-over the ranks' GPUs.  Each rank runs on ``cuda:$LOCAL_RANK`` (or its
-rank modulo the GPU count); only rank 0 writes the BED, the model file
-and the training logs.  A single process that sees several GPUs trains on
-one.
+``train --mesh auto`` (the default) in one process that sees several GPUs
+trains data-parallel on all of them when the batch size divides by their
+number (else it warns and trains on one, as the JAX package does;
+:func:`plan_train_ranks` decides): the process loads the data once and
+calls ``training(..., mesh=make_mesh())``, as the JAX package's CLI does,
+which starts one rank a GPU
+(:func:`~deepgrp_tpu_torch.parallel.launch.launch_local`) over the data
+in shared memory; the process saves rank 0's model.  A multi-process
+launch from outside still works: ``torchrun`` (its environment names the
+group) or ``--coordinator HOST:PORT --num-processes N --process-id R`` on
+each process; ``train --mesh auto`` then trains data-parallel over the
+ranks when the batch size divides by the world size (else it warns and
+each rank trains alone), and a multi-process ``predict`` shards over the
+ranks' GPUs.  Each rank runs on ``cuda:$LOCAL_RANK`` (or its rank modulo
+the GPU count); only rank 0 writes the BED, the model file and the
+training logs.  Every launched rank runs with the command's torch thread
+count (``-t``) and ``OMP_NUM_THREADS`` and, with ``--profile DIR``, writes
+its own trace.
 
 ``--threads/-t N`` (N > 0) bounds torch's host threads for the command
 (``python -m deepgrp_tpu_torch`` also exports ``OMP_NUM_THREADS`` before
 torch loads, ``__main__.py``) and the MSS workers; ``--xla`` is accepted
 and does nothing, as in the JAX package; ``--profile DIR`` writes a
-``torch.profiler`` Chrome trace of the command (CPU, and CUDA on the card)
-under ``DIR``, the counterpart of the JAX package's ``jax.profiler`` trace.
+``torch.profiler`` Chrome trace of the command (CPU, and CUDA on the card;
+of ``train``, its training) under ``DIR``, the counterpart of the JAX
+package's ``jax.profiler`` trace.
 
 ``--device`` picks the device (default ``cuda``; with no GPU the command
 fails rather than running on the CPU).  ``--precision bfloat16`` is the
@@ -58,10 +67,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import logging
 import os
 import sys
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 _LOG = logging.getLogger("deepgrp_tpu_torch")
 
@@ -144,9 +154,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Let TOML values win over CLI defaults (the "
                        "reference overwrites TOML with defaults)")
     train.add_argument("--mesh", choices=["auto", "off"], default="auto",
-                       help="Data-parallel training over the ranks of a "
-                       "multi-process run (auto: when there is more than "
-                       "one and the batch size divides)")
+                       help="Data-parallel training over every visible GPU, "
+                       "one rank a GPU started by this process, or over the "
+                       "ranks of a multi-process run (auto: when there is "
+                       "more than one and the batch size divides)")
     train.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
                        default=True,
                        help="Write TensorBoard event files next to "
@@ -296,6 +307,30 @@ def cmd_predict(args: argparse.Namespace) -> None:
             outstream.close()
 
 
+def plan_train_ranks(mesh: str, device: str, n_gpus: int,
+                     world: Optional[int], batch_size: int
+                     ) -> Tuple[int, Optional[str]]:
+    """How ``train`` spreads over devices: ``(n_ranks, warning)``.
+
+    ``world`` is the size of the process group this process runs in,
+    ``None`` outside one.  ``--mesh auto`` spans the group's ranks, or
+    outside a group every visible GPU (``n_gpus``, with ``--device
+    cuda``), when the batch size divides by their number; else it warns
+    with the JAX package's text (``cli.py:363-377`` there) and trains
+    single-device.  ``n_ranks`` is the data-parallel width: in a group
+    ``world`` (train over it) or 1 (each rank alone); outside one the
+    number of ranks to launch, 1 to train in this process.  ``--mesh off``
+    and the CPU outside a group train on one device.
+    """
+    width = n_gpus if world is None else world
+    if mesh != "auto" or width <= 1 or (world is None and device != "cuda"):
+        return 1, None
+    if batch_size % width:
+        return 1, (f"batch_size {batch_size} not divisible by {width} "
+                   f"devices; training single-device")
+    return width, None
+
+
 def cmd_train(args: argparse.Namespace) -> None:
     from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.data import preprocess
@@ -304,7 +339,7 @@ def cmd_train(args: argparse.Namespace) -> None:
 
     from deepgrp_tpu_torch.models import keras_io
     from deepgrp_tpu_torch.models.model import create_model
-    from deepgrp_tpu_torch.parallel.mesh import is_first_rank, world_size
+    from deepgrp_tpu_torch.parallel import mesh
     from deepgrp_tpu_torch.train.training import training
 
     save_model = keras_io.save_model_npz
@@ -327,7 +362,21 @@ def cmd_train(args: argparse.Namespace) -> None:
         parameter.batch_size = options.batch_size
         parameter.xdrop_len = options.xdrop_len
 
-    if is_first_rank():
+    world = dist.get_world_size() if dist.is_initialized() else None
+    n_ranks, warning = plan_train_ranks(
+        args.mesh, args.device,
+        torch.cuda.device_count() if device.type == "cuda" else 0, world,
+        parameter.batch_size)
+    if warning:
+        _LOG.warning(warning)
+    elif n_ranks > 1:
+        _LOG.info("data-parallel training over %d ranks", n_ranks)
+    # Outside a group, several ranks are launched: this process loads the
+    # data once (the ranks map it), keeps the model on the CPU and creates
+    # no CUDA context (neither run_device nor device_count does).
+    devices = mesh.make_mesh() if world is None and n_ranks > 1 else None
+
+    if mesh.is_first_rank():
         os.makedirs(args.logdir, exist_ok=True)
 
     _LOG.info("Loading in all data necessary from %s, %s, %s",
@@ -336,29 +385,16 @@ def cmd_train(args: argparse.Namespace) -> None:
                                        parameter.repeats_to_search)
             for path in (args.trainfile, args.validfile)]
 
-    group = None
-    world = world_size()
-    if args.mesh == "auto" and world > 1:
-        if parameter.batch_size % world:
-            _LOG.warning("batch_size %d not divisible by %d ranks; each "
-                         "rank trains alone", parameter.batch_size, world)
-        else:
-            group = dist.group.WORLD
-            _LOG.info("data-parallel training over %d ranks", world)
-    elif device.type == "cuda" and torch.cuda.device_count() > 1:
-        _LOG.warning(
-            "%d GPUs visible; this process trains on %s. For data-parallel "
-            "training launch one process a GPU: torchrun --nproc-per-node "
-            "N -m deepgrp_tpu_torch train ..., or --coordinator HOST:PORT "
-            "--num-processes N --process-id R in each",
-            torch.cuda.device_count(), device)
-
-    model = create_model(parameter, device)
-    _LOG.info("Training model on %s", device)
-    best_params, _ = training((data[0], data[1]), parameter, model,
-                              args.logdir, tensorboard=args.tensorboard,
-                              rnn_kernel=args.rnn_kernel, group=group)
-    if is_first_rank():
+    model = create_model(parameter, "cpu" if devices else device)
+    _LOG.info("Training model on %s", devices or device)
+    best_params, _ = training(
+        (data[0], data[1]), parameter, model, args.logdir,
+        tensorboard=args.tensorboard, rnn_kernel=args.rnn_kernel,
+        group=dist.group.WORLD if world and n_ranks > 1 else None,
+        mesh=devices,
+        trace=functools.partial(profile_trace, args.profile, args.command,
+                                args.device))
+    if mesh.is_first_rank():
         _LOG.info("Saving model as %s", args.modelfile)
         save_model(args.modelfile, model.config, best_params)
 
@@ -405,10 +441,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     started = False
     try:
         started = setup_distributed(args)
-        with profile_trace(args.profile, args.command, args.device):
-            if args.command == "train":
-                cmd_train(args)
-            else:
+        if args.command == "train":
+            cmd_train(args)  # traced where it trains, in each launched rank
+        else:
+            with profile_trace(args.profile, args.command, args.device):
                 cmd_predict(args)
     finally:
         torch.set_num_threads(threads)

@@ -1,5 +1,6 @@
 """Several GPUs and processes (counterpart of ``deepgrp_tpu/parallel``):
-devices and the process group (:mod:`mesh`), the sharded predictor
+devices and the process group (:mod:`mesh`), the local launcher that
+starts one rank a device (:mod:`launch`), the sharded predictor
 (:mod:`predict`) and the data-parallel training step and epoch
 (:mod:`train`).
 
@@ -7,11 +8,13 @@ The JAX package shards over a 1-D device mesh inside one program; here
 the sharded predictor drives one chunk loop a shard, each on its device
 (several shards may share one), and data-parallel training runs one
 process a GPU over ``torch.distributed``, averaging the gradients with
-one ``all_reduce`` a step.
+one ``all_reduce`` a step.  What the JAX package gets from one process's
+mesh, one command that trains on every visible GPU, comes from
+:func:`launch_local`: the process starts the ranks itself.
 
 The package exports :class:`ShardedPredictionEngine`,
-:func:`dp_train_step`, :func:`local_devices` and
-:func:`initialize_distributed`, each imported from its module when first
+:func:`dp_train_step`, :func:`local_devices`, :func:`make_mesh`,
+:func:`launch_local` and :func:`initialize_distributed`, each imported from its module when first
 named (``train.training`` imports :mod:`mesh`, and :mod:`train` imports
 ``train.training``, so an eager import here would be circular).
 """
@@ -19,7 +22,8 @@ named (``train.training`` imports :mod:`mesh`, and :mod:`train` imports
 import importlib
 
 _EXPORTS = {"ShardedPredictionEngine": "predict", "dp_train_step": "train",
-            "local_devices": "mesh", "initialize_distributed": "mesh"}
+            "local_devices": "mesh", "make_mesh": "mesh",
+            "launch_local": "launch", "initialize_distributed": "mesh"}
 
 __all__ = sorted(_EXPORTS)
 

@@ -1,10 +1,12 @@
 """Devices and the process group.
 
 Counterpart of ``deepgrp_tpu/parallel/mesh.py``.  The JAX package builds a
-1-D ``Mesh`` over ``jax.devices()``; here the shards of the sharded
-predictor are a plain list of torch devices (:func:`local_devices`), and
-the processes of a multi-process run join one ``torch.distributed``
-process group (:func:`initialize_distributed`), one process a GPU
+1-D ``Mesh`` over ``jax.devices()``; here a mesh is a plain list of torch
+devices (:func:`local_devices`, also named :func:`make_mesh`): the shards
+of the sharded predictor, or the ranks that
+:func:`~deepgrp_tpu_torch.parallel.launch.launch_local` starts.  The
+processes of a multi-process run join one ``torch.distributed`` process
+group (:func:`initialize_distributed`), one process a GPU
 (:func:`rank_device`).
 """
 
@@ -37,6 +39,12 @@ def local_devices(devices: Optional[Sequence[Device]] = None
     if not devices:
         raise ValueError("no devices given")
     return [resolve_device(device) for device in devices]
+
+
+#: The JAX package's name (``deepgrp_tpu/parallel/mesh.py:make_mesh``) for
+#: :func:`local_devices`: ``training(..., mesh=make_mesh())`` trains on
+#: every visible GPU.
+make_mesh = local_devices
 
 
 def initialize_distributed(init_method: str, world_size: int, rank: int,

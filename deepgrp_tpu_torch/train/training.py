@@ -32,18 +32,26 @@ With a process group of several ranks the loop is data-parallel
 :func:`deepgrp_tpu_torch.parallel.train.make_dp_train_epoch`, its step
 :func:`~deepgrp_tpu_torch.parallel.train.dp_train_step`).  Over NCCL it
 is captured as well, the gradient ``all_reduce`` inside the graph; over
-gloo, whose collectives run on the host, it stays eager.
+gloo, whose collectives run on the host, it stays eager.  ``training(...,
+mesh=[...])`` over several devices starts those ranks itself, one a
+device (:func:`~deepgrp_tpu_torch.parallel.launch.launch_local`), as the
+JAX package's ``training(..., mesh=make_mesh())`` spans one process's
+devices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
 import os
+import pickle
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, ContextManager, Dict, List, Optional,
+                    Sequence, Tuple, Union)
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,7 +63,9 @@ from deepgrp_tpu_torch.models.model import (
     DeepGRPModel, ModelConfig, forward_logits_from_codes,
     forward_logits_from_codes_train, init_params, one_hot,
     resolve_rnn_kernel)
-from deepgrp_tpu_torch.parallel.mesh import cuda_backend, is_first_rank
+from deepgrp_tpu_torch.parallel.launch import launch_local
+from deepgrp_tpu_torch.parallel.mesh import (cuda_backend, is_first_rank,
+                                             local_devices)
 from deepgrp_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from deepgrp_tpu_torch.train.optimizers import get_optimizer
 from deepgrp_tpu_torch.train.sampler import BatchSampler, local_batch_size
@@ -371,7 +381,9 @@ def training(data: Tuple[Data, Data], options: Options,
              params: Optional[Params] = None, seed: int = 0,
              device: str = "cuda", tensorboard: bool = True,
              rnn_kernel: str = "auto",
-             group: Optional[dist.ProcessGroup] = None
+             group: Optional[dist.ProcessGroup] = None,
+             mesh: Optional[Sequence[Union[str, torch.device]]] = None,
+             trace: Optional[Callable[[], ContextManager]] = None
              ) -> Tuple[Params, Dict[str, List[float]]]:
     """Functional API mirroring the reference ``training()``
     (training.py:15-73).  Returns ``(best_params, history)``.
@@ -381,16 +393,88 @@ def training(data: Tuple[Data, Data], options: Options,
     always runs) mirrors the metrics into event files beside
     ``metrics.jsonl``; ``rnn_kernel`` picks the step's route
     (auto|scan|fused, :func:`~deepgrp_tpu_torch.models.model.
-    resolve_rnn_kernel`); ``group`` trains data-parallel over its ranks
-    (:class:`Trainer`).
+    resolve_rnn_kernel`); ``group`` trains data-parallel over the ranks
+    of a started process group (:class:`Trainer`); ``trace`` returns a
+    context manager that the training runs under (the CLI's ``--profile``
+    trace).
+
+    ``mesh``, the JAX package's keyword (``training(..., mesh=
+    make_mesh())``), is a list of devices
+    (:func:`~deepgrp_tpu_torch.parallel.mesh.make_mesh`).  One device:
+    the run of this process on it (a given ``model`` must be there).
+    Several: data-parallel over one rank a device, started by
+    :func:`~deepgrp_tpu_torch.parallel.launch.launch_local` (``device`` is
+    unused): the data travel to the ranks in shared memory, a given
+    ``model`` lends its config and ends holding the best parameters, as
+    without a mesh, ``extra_callbacks`` run on rank 0, in its process,
+    ``trace`` in each rank, and both must pickle (checked before any rank
+    starts), and rank 0's ``(best_params, history)`` come back as CPU
+    tensors.  ``mesh`` with ``group`` raises ``ValueError``.
     """
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("training() takes a mesh or a group, not both")
+        devices = local_devices(mesh)
+        if len(devices) > 1:
+            try:
+                pickle.dumps((extra_callbacks, trace))
+            except (pickle.PicklingError, AttributeError, TypeError) as err:
+                raise ValueError(f"extra_callbacks and trace run in the "
+                                 f"launched ranks, so they must pickle: "
+                                 f"{err}") from err
+            config = (model.config if model is not None
+                      else ModelConfig.from_options(options))
+            arrays = [(_shared(part.fwd), _shared(part.truelbl))
+                      for part in data]
+            if params is not None:
+                params = {key: value.detach().cpu()
+                          for key, value in params.items()}
+            best_params, history = launch_local(_train_rank, devices, args=(
+                devices, arrays, options, config, os.fspath(logdir),
+                extra_callbacks, params, seed, tensorboard, rnn_kernel,
+                trace))
+            if model is not None:
+                model.load_state_dict(best_params)
+            return best_params, history
+        device = devices[0]
+        if model is not None and model.device != device:
+            raise ValueError(f"the model is on {model.device}, the mesh is "
+                             f"{[str(d) for d in devices]}")
     if model is None:
         model = DeepGRPModel(ModelConfig.from_options(options), device)
     trainer = Trainer(model, options, logdir, tensorboard=tensorboard,
                       rnn_kernel=rnn_kernel, group=group)
     try:
-        return trainer.fit(data[0], data[1], params=params, seed=seed,
-                           callbacks=extra_callbacks)
+        with (trace or contextlib.nullcontext)():
+            return trainer.fit(data[0], data[1], params=params, seed=seed,
+                               callbacks=extra_callbacks)
     finally:
         if trainer.writer is not None:
             trainer.writer.close()
+
+
+def _shared(array: np.ndarray) -> torch.Tensor:
+    """``array`` copied once into shared memory, which every launched rank
+    maps instead of receiving a copy."""
+    dtype = torch.from_numpy(np.empty(0, array.dtype)).dtype
+    shared = torch.empty(array.shape, dtype=dtype).share_memory_()
+    shared.numpy()[...] = array
+    return shared
+
+
+def _train_rank(rank: int, devices: List[torch.device], arrays,
+                options: Options, config: ModelConfig, logdir: str,
+                extra_callbacks: Optional[List[MetricCallback]],
+                params: Optional[Params], seed: int, tensorboard: bool,
+                rnn_kernel: str,
+                trace: Optional[Callable[[], ContextManager]]
+                ) -> Tuple[Params, Dict[str, List[float]]]:
+    """A launched rank of :func:`training`: the data-parallel run over the
+    launched group on this rank's device (the callbacks on rank 0), under
+    its own ``trace``."""
+    data = tuple(Data(fwd.numpy(), truelbl.numpy())
+                 for fwd, truelbl in arrays)
+    return training(data, options, DeepGRPModel(config, devices[rank]),
+                    logdir, extra_callbacks if rank == 0 else None, params,
+                    seed, tensorboard=tensorboard, rnn_kernel=rnn_kernel,
+                    group=dist.group.WORLD, trace=trace)

@@ -157,22 +157,25 @@ def test_new_capabilities_exported():
     from deepgrp_tpu_torch.parallel import (ShardedPredictionEngine,
                                             dp_train_step,
                                             initialize_distributed,
-                                            local_devices)
+                                            launch_local, local_devices,
+                                            make_mesh)
     from deepgrp_tpu_torch.predict.engine import PredictionEngine
 
     for fn in (find_mss_labels_device, mss_classes_device,
                mss_classes_from_scored, mss_find_all_device,
                overlap_max_merge, ShardedPredictionEngine, dp_train_step,
                initialize_distributed, local_devices, PredictionEngine,
-               run_parallel_trials):
+               run_parallel_trials, launch_local, make_mesh):
         assert callable(fn)
     import deepgrp_tpu_torch.parallel as parallel
 
     assert sorted(parallel.__all__) == [
         "ShardedPredictionEngine", "dp_train_step", "initialize_distributed",
-        "local_devices"]
+        "launch_local", "local_devices", "make_mesh"]
+    # The JAX package's name for the device list (parallel/mesh.py:15).
+    assert make_mesh is local_devices
     with pytest.raises(AttributeError):
-        parallel.make_mesh  # noqa: B018
+        parallel.make_dp_mesh  # noqa: B018
 
 
 # -- values against the JAX package ------------------------------------------

@@ -25,7 +25,7 @@ def test_importing_every_module_loads_no_jax():
                  "train.checkpoint", "train.training", "data.preprocess",
                  "hpo", "hpo.space", "hpo.tpe", "hpo.optimization",
                  "hpo.vmapped", "hpo.bucketed", "utils.tb_events",
-                 "parallel", "parallel.mesh", "parallel.predict",
+                 "parallel", "parallel.mesh", "parallel.launch", "parallel.predict",
                  "parallel.train", "ops.mss_device", "data.fasta",
                  "data.parse_rm", "data.preprocess_sequence",
                  "models.keras_io", "__main__", "examples.train_and_evaluate",

@@ -20,6 +20,10 @@ what each computed to ``DIR/TASK-RANK.npz`` (and ``.json``).  Tasks:
   loads them, then ``training(..., group=WORLD)`` from a new model,
   logging into ``DIR/api-log-RANK``; rank 0 writes ``DIR/api-model.npz``.
 
+:func:`failing_rank`, :func:`rank_result` and :func:`write_shared` are
+ranks for ``parallel.launch.launch_local``: a pair that fails on purpose,
+one that returns what it sees, and one that writes into its argument.
+
 No JAX here: the workers start fast, and the port needs none.
 """
 
@@ -228,6 +232,41 @@ def run_cli_train(rank: int, tmp: str) -> None:
     if rank == 0:
         save_model_npz(os.path.join(tmp, "api-model.npz"), model.config,
                        best)
+
+
+def failing_rank(rank: int, tmp: str, mode: str) -> None:
+    """A launched rank pair that fails: rank 1 raises (``mode`` "raise")
+    or leaves with ``os._exit(3)`` ("exit") while rank 0 waits in an
+    ``all_reduce``, after which rank 0 would write ``tmp/model.npz``."""
+    import torch.distributed as dist
+
+    if rank == 1:
+        if mode == "exit":
+            os._exit(3)
+        raise ValueError("rank 1 fails on purpose")
+    value = torch.ones(1)
+    dist.all_reduce(value)
+    np.savez(os.path.join(tmp, "model.npz"), value=value.numpy())
+
+
+def rank_result(rank: int) -> dict:
+    """A launched rank's group, environment, torch thread count, an
+    ``all_reduce`` of ones and a 1 MiB tensor (more than a pipe holds)."""
+    import torch.distributed as dist
+
+    value = torch.ones(4)
+    dist.all_reduce(value)
+    return {"world": dist.get_world_size(), "rank": dist.get_rank(),
+            "env": {key: os.environ[key]
+                    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK")},
+            "threads": torch.get_num_threads(),
+            "sum": value, "big": torch.arange(1 << 18, dtype=torch.float32)}
+
+
+def write_shared(rank: int, tensor: torch.Tensor) -> None:
+    """Write ``rank + 1`` into element ``rank`` of a tensor the launcher
+    passed (the caller sees it only through shared memory)."""
+    tensor[rank] = rank + 1
 
 
 def run_ranks(commands) -> None:
