@@ -79,7 +79,10 @@ Phases (any failure exits non-zero; nothing is caught):
    through L1/L2; two k-slices a unit past u=128) and a ragged (7, 23, 60);
    the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
-   (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128.
+   (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128, at the
+   CLI's default batch (256, 342, 60) and at (256, 342, 256), each row
+   with the tile it ran (the tensor-core tile up to u=128, the FMA tile
+   beyond; ``ptxas -v`` of the tensor-core tile's instantiations).
    atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
    (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off).
@@ -93,7 +96,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``gru_att`` and ``gru`` (the JAX package's contract), recorded for
    ``lstm``; then ``--precision bfloat16`` (fused) on the 4.9 Mbp
    chromosome: windows/s, and agreement and MCC against phase 4 (recorded,
-   not gated).
+   not gated); then the chromosome in float32 and bf16 in turns, through
+   the CLI and the engine stage alone (windows/s each), and the bf16
+   engine stage's device time by kernel name with its busy and idle
+   share.
 10. ``predict -m`` (no MSS): on the three fixtures the card's BED rows must
     equal the same call's with ``--device cpu``; on the 4.9 Mbp chromosome
     ``engine.predict``'s row argmax and row max must equal
@@ -233,9 +239,10 @@ Phases (any failure exits non-zero; nothing is caught):
     and no plain version (the launched rank 0 through a callback that
     pickles, :class:`LaunchCounts`, the ranks by hand themselves); the
     same two ranks through ``python -m deepgrp_tpu_torch train --mesh
-    auto`` in a new process (the rank plan and the mesh patched there
-    only) write rank 0's model by hand, and that process never
-    initialises CUDA; (c)
+    auto`` in a new process at the CLI's default ``-t 1`` (the rank plan
+    and the mesh patched there only) write rank 0's model by hand (whose
+    processes run at torch's default thread count), and that process
+    never initialises CUDA; (c)
     ``launch_local(fn, ["cuda:0"])`` with the default backend joins NCCL
     at world size 1 and its captured DP epoch (phase 17's, 20 steps)
     equals the same epoch in this process bit for bit (losses,
@@ -289,6 +296,9 @@ KERNELS = {
 SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
 # The inference kernels past their register tile (U through L1/L2).
 WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
+# The bf16 kernels also at the CLI's default batch and past the
+# tensor-core tile (u > 128: the float32-FMA register tile).
+BF16_SHAPES = {"b256": (256, 342, 60), "u256": (256, 342, 256)}
 
 TRAIN_KERNELS = {
     # name: TPU kernel it replaces
@@ -1209,7 +1219,10 @@ def ptxas_usage(log: str, template: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(template + r"I((?:L[ib]\d+E)+)E", m.group(1))
+            # The mangled name's length digits precede the template's
+            # name (so AvgKernel does not match MmaAvgKernel).
+            t = re.search(r"(?<=\d)" + template + r"I((?:L[ib]\d+E)+)E",
+                          m.group(1))
             entry = (", ".join(re.findall(r"L[ib](\d+)E", t.group(1)))
                      if t else None)
             continue
@@ -1291,18 +1304,29 @@ def seq_kernel_phase(torch):
 
 def bf16_kernel_phase(torch):
     """Phase 8b: the bf16 variants of the fused kernels against their
-    plain versions."""
+    plain versions, each row with the tile it ran (the tensor-core tile up
+    to u=128)."""
+    from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
+    log = (_build.BUILD_DIR / "rnn_avg.log").read_text()
+    for args, usage in sorted(ptxas_usage(log, "MmaAvgKernel").items()):
+        print(f"ptxas MmaAvgKernel<{args}> (gates, k-tiles, U in shared "
+              f"memory): {usage}", flush=True)
     gen = torch.Generator().manual_seed(2027)
     results = {}
     for name, (gates, _) in KERNELS.items():
         kernel = getattr(cuda_rnn, name)
         plain = getattr(rnn, f"{name}_plain")
-        for label, (batch, steps, units) in {**SHAPES,
-                                             **WIDE_SHAPES}.items():
+        cell = name.split("_")[0]
+        for label, (batch, steps, units) in {**SHAPES, **WIDE_SHAPES,
+                                             **BF16_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
+            windows, n_cta = cuda_rnn.avg_tile(cell, batch, units, None,
+                                               torch.bfloat16)
+            tile = (f"{cuda_rnn.avg_bf16_tile(cell, units)} tile, {n_cta} "
+                    f"CTAs x {windows} windows")
             avg, hidden = kernel(params, codes, torch.bfloat16)
             torch.cuda.synchronize()
             p_avg, p_hidden = plain(params, codes, torch.bfloat16)
@@ -1322,8 +1346,9 @@ def bf16_kernel_phase(torch):
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
                    **bound(flops, n_bytes, PEAK_BF16_FLOPS)}
-            print(f"{name}_bf16 {label} B={batch} T={steps} u={units}: "
-                  f"max_abs_err={err:.3g} (tolerance {BF16_TOL:g}) "
+            print(f"{name}_bf16 {label} B={batch} T={steps} u={units} "
+                  f"({tile}): max_abs_err={err:.3g} (tolerance "
+                  f"{BF16_TOL:g}) "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                   f"library_ms={library_ms:.4f} (cuDNN bf16) "
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
@@ -1478,6 +1503,50 @@ def scan_and_bf16_phase(torch, np, tmp: str, fixture_runs, mbp_run,
           f"(float32: {len(want)}); vs float32: raw agreement {raw:.4f}, "
           f"post-MSS {post:.4f}, R_K MCC {mcc:.4f} (recorded)", flush=True)
     return launches
+
+
+def bf16_speed_phase(torch, tmp: str, man: dict, mbp_args, seq: str):
+    """Phase 9, end: the 4.9 Mbp chromosome in float32 and in the bf16 fast
+    mode in this process, in turns (f32, bf16, bf16, f32): through the CLI
+    end to end, then the engine stage alone (``predict_scored``); then one
+    bf16 engine stage under ``torch.profiler``: device time by kernel
+    name, busy and idle share."""
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
+    from deepgrp_tpu_torch.predict.engine import PredictionEngine
+
+    n_windows = man["n_windows"]
+    turns = (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32)
+    for dtype in turns:
+        name = str(dtype).split(".")[-1]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        predict_rows(["--precision", name] + mbp_args,
+                     os.path.join(tmp, f"mbp_{name}_turn.bed"))
+        seconds = time.perf_counter() - start
+        print(f"mbp --precision {name} (fused, CLI end to end, in turns): "
+              f"{seconds:.4f} s = {n_windows / seconds:.1f} windows/s",
+              flush=True)
+    config, params = load_model(os.path.join(TORCH_FIXDIR, "gru_att.npz"))
+    model = DeepGRPModel.from_params(config, params, "cuda:0")
+    codes = encode_codes_trimmed(seq)[1]
+    engines = {dtype: PredictionEngine(model, 1024, man["step_size"], dtype)
+               for dtype in turns[:2]}
+    walls = {}
+    for dtype in turns:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        engines[dtype].predict_scored(codes)
+        seconds = time.perf_counter() - start
+        walls.setdefault(dtype, []).append(seconds)
+        print(f"predict_scored {str(dtype).split('.')[-1]} (the engine "
+              f"stage, in turns): {seconds:.4f} s = "
+              f"{n_windows / seconds:.1f} windows/s", flush=True)
+    by_name = device_time(
+        torch, lambda: engines[torch.bfloat16].predict_scored(codes))
+    print_device_time("bf16 engine stage (4.9 Mbp, gru_att, batch 1024)",
+                      by_name, min(walls[torch.bfloat16]), "engine stage")
 
 
 def no_mss_phase(torch, np, tmp: str, man: dict, mbp_args, seq: str):
@@ -1682,15 +1751,17 @@ def device_time(torch, fn):
     return by_name
 
 
-def print_device_time(label: str, by_name: dict, wall: float) -> None:
+def print_device_time(label: str, by_name: dict, wall: float,
+                      what: str = "epoch") -> None:
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
         print("device time by kernel: not measured (the profiler saw no "
               "device events)", flush=True)
         return
+    share = 100 * busy_ms / (1e3 * wall)
     print(f"{label}: device busy {busy_ms:.2f} ms of the unprofiled "
-          f"epoch's {1e3 * wall:.2f} ms = {100 * busy_ms / (1e3 * wall):.1f}% "
-          f"(idle {100 - 100 * busy_ms / (1e3 * wall):.1f}%)", flush=True)
+          f"{what}'s {1e3 * wall:.2f} ms = {share:.1f}% "
+          f"(idle {100 - share:.1f}%)", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:90]}",
               flush=True)
@@ -3552,11 +3623,11 @@ def launch_phase(torch, np, tmp: str, card: str) -> dict:
             "print('cuda initialised', torch.cuda.is_initialized())")
     model_path = os.path.join(tmp, "mesh_cli.npz")
     start = time.perf_counter()
-    # -t 0: torch's default host threads, as the ranks by hand run (the
-    # recurrent kernel's orthogonal initialisation, a QR on the host,
-    # depends on the thread count).
+    # At the CLI's default -t 1, while the ranks by hand run at torch's
+    # default host threads: the initial weights do not depend on the
+    # thread count.
     proc = subprocess.run(
-        [sys.executable, "-c", code, "-v", "-t", "0", "-b", "256", "train",
+        [sys.executable, "-c", code, "-v", "-b", "256", "train",
          os.path.join(tmp, "mesh_auto.toml"), *files, "--honor-toml",
          "--logdir", os.path.join(tmp, "mesh_cli_log"), "--modelfile",
          model_path, "--no-tensorboard", "--mesh", "auto"],
@@ -3755,6 +3826,7 @@ def main() -> int:
         phase("9. the scan route and the bfloat16 fast mode")
         launches.update(scan_and_bf16_phase(torch, np, tmp, fixture_runs,
                                             mbp_run, man, mbp_args))
+        bf16_speed_phase(torch, tmp, man, mbp_args, seq)
 
         phase("10. predict -m (no MSS): fixtures against the CPU, the "
               "merged track on 4.9 Mbp")

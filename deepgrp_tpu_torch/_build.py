@@ -186,8 +186,11 @@ def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
         fn.argtypes = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32, _I32, _PTR,
                        _PTR, _PTR]
         fn.restype = _I32
-    lib.dg_avg_max_windows.argtypes = [_I32, _I32]  # gates, units
-    lib.dg_avg_max_windows.restype = _I32
+    # gates, units
+    for fn in (lib.dg_avg_max_windows, lib.dg_avg_bf16_max_windows,
+               lib.dg_avg_bf16_tile):
+        fn.argtypes = [_I32, _I32]
+        fn.restype = _I32
 
 
 def _declare_rnn_train(lib: ctypes.CDLL) -> None:

@@ -94,9 +94,86 @@
 //     (960 rows x units an SM a step at bb=8; three transcendentals each
 //     for the GRU, five for the LSTM), then the latency of the butterfly
 //     and the barrier of each step.
-// The bf16 variants keep U and h as float32 values already rounded to
-// bfloat16, so they run the same float32 FMAs: their bound is the same work
-// at the bf16 tensor-core rate, which this design does not reach.
+// Above u=128 the bf16 variants run this tile too (kWin 2 through L1/L2):
+// U and h as float32 values already rounded to bfloat16, the same float32
+// FMAs.
+//
+// The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem>), which
+// the _bf16 entry points run up to u=128 (kMmaUnits).  Bound at the
+// flagship shape: the same 14.8 / 19.7 MFLOP a window at the bf16
+// tensor-core rate (989 TFLOP/s), 0.0153 ms GRU and 0.0204 ms LSTM at
+// B=1024; the recurrence is still sequential in T, so a step's latency,
+// not the rate, is what a design can shorten.  Each step is exactly the
+// TPU's Precision.DEFAULT dot: h rounded to bf16 (round to nearest even,
+// as Io<true>::Operand) times U rounded to bf16, summed in float32, by
+// mma.sync.aligned.m16n8k16 (bf16 operands, float32 accumulator):
+//   * Rows: an m16 tile holds 8 windows, their forward rows in rows 0-7
+//     and their reverse-complement rows in rows 8-15.  The accumulator
+//     gives lane l rows l/4 and l/4 + 8, so a lane holds one window's
+//     forward and reverse sums for the same units and forms the branch
+//     average in registers.
+//   * Columns: U's columns are taken as mma sees them, so that the n-tile
+//     of each gate covers the same 8 units: a warp owns a unit group of 8
+//     and gets all kGates pre-activations of its (row, unit) cells in
+//     matching accumulator registers (lane l: units 8 ug + 2 (l % 4) and
+//     the next).  The gate math runs where the sums are; no shuffle.  At
+//     u=60 (padded to 64) that is 8 unit groups, one warp each for each
+//     m-tile.  Padded units and k rows are zero in U and in h and are
+//     never stored.
+//   * U is loaded once, before the T loop, as bf16 B fragments, in shared
+//     memory in fragment order (kUSmem: one 8-byte load a lane a fragment;
+//     the LSTM's at u=128 is 128 KB) or in registers (kKT k-tiles x kGates
+//     x 2 words: 24 GRU, 32 LSTM at u=64).  Each step a warp reads the A
+//     fragments of h with ldmatrix.x4 from a bf16 h buffer in shared
+//     memory (rows padded by 8 elements: ldmatrix and the lanes' bf16x2
+//     writes of the new h are free of bank conflicts), double-buffered,
+//     one barrier a step.  The input rows bias + W[code] (pad: bias; the
+//     same float32 add as the FMA tile's) are a [6, g u] table in shared
+//     memory, read before the products, and so are the codes.
+//   * The gates: Keras's float32 gate math with FastSigmoid and FastTanh
+//     (exp through __expf, quotients through __fdividef, a few ulp from
+//     libm), the carry in float32.
+//   * A row's bits depend only on its own codes and the weights: the
+//     k-tiles are summed in an order fixed by u, each mma row only reads
+//     its own h row, and nothing is atomic, so neither the batch, nor the
+//     windows a CTA, nor the row's place in the tile changes them.
+//   * Why mma.sync and not wgmma: a CTA holds at most 16 windows, 32 rows
+//     a step, against wgmma's 64-row minimum, and wgmma's asynchronous
+//     commit and wait would sit on the critical path of every step.  The
+//     products are not what bounds the step (below), so no transposed
+//     wgmma (U as the M side) was tried.
+//   * The tile, timed on the H100 (tools/avg_tile_sweep.py --kernel
+//     avg_bf16, T=342, ms a launch; GRU / LSTM; U in registers, in shared
+//     memory):
+//       u=60,  B=1024,  8 windows a CTA (128 CTAs): 0.302, 0.319 / 0.392,
+//              0.377; 16 (64 CTAs, two warps a unit group): 0.424, 0.458
+//              / 0.580, 0.627;
+//       u=60,  B=256,   2 windows (128 CTAs): 0.286, 0.300 / 0.354, 0.340;
+//       u=60,  B=2048,  8 windows (256 CTAs): 0.382, 0.386 / 0.500, 0.483;
+//              16 (128 CTAs): 0.414, 0.449 / 0.582, 0.628;
+//       u=96,  B=1024,  8 windows: 0.817, 0.508 / 1.228, 0.659;
+//       u=128, B=1024,  8 windows: 1.123, 0.733 / 1.594, 0.907;
+//       u=128, B=2048,  8 windows: -, 1.327 / -, 1.765; 16: -, 1.244 / -,
+//              1.636 (16 windows 7-8 % faster here; 8 faster below
+//              u=128).
+//     At kKT 8 the 1,024-thread bound of 16 windows leaves 64 registers,
+//     and U in registers spills.  So: at most 8 windows a CTA (kMmaCap,
+//     one m-tile); up to u=64 kKT 4, U in registers for the GRU and in
+//     shared memory for the LSTM; above, kKT 8 with U in shared memory.
+//   * ptxas -v (sm_90a, CUDA 12.8), MmaAvgKernel<gates, kKT, kUSmem>:
+//     <3, 4, registers> 96 registers, <3, 4, shared> 68, <4, 4,
+//     registers> 128, <4, 4, shared> 74, <3 or 4, 8, shared> 64; <3, 8,
+//     registers> and <4, 8, registers> 64 with 224 and 456 bytes of
+//     spill stores; nothing else spills.
+//   * What bounds it (tools/avg_bf16_ablation.py, PERF.md): the gate
+//     math's transcendentals (each lane carries 4 cells, 8 windows x 64
+//     units x 2 rows an SM), then a floor of barrier, shared-memory round
+//     trips and index math each step; the products cost little.  libm's
+//     expf, IEEE quotient and tanhf take the step about 1.5x longer;
+//     tanh.approx.f32 (relative error up to 2^-11, not float32 gate math)
+//     would save about a quarter.  B=256 (2 windows a CTA) takes about as
+//     long as B=1024: a warp runs the same instructions for the padded
+//     rows of an m-tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,6 +188,9 @@ constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
 constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
 constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
+constexpr int kMmaUnits = 128;   // widest layer of the bf16 tensor-core tile
+constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
+constexpr int kMmaCap = 8;       // most the bf16 entry points give it
 
 __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
@@ -359,10 +439,10 @@ int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile by width and windows a CTA (measured on the H100, see the note
-// above): U in registers with 4 windows a lane group (2 when the CTA owns
-// at most 2), U through L1/L2 with 8 windows, then 2 past u=128.
-template <int kGates, bool kBf16>
+// The float32 tile by width and windows a CTA (measured on the H100, see
+// the note above): U in registers with 4 windows a lane group (2 when the
+// CTA owns at most 2), U through L1/L2 with 8 windows, then 2 past u=128.
+template <int kGates>
 int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
               void *avg, void *hidden, void *stream) {
@@ -372,21 +452,353 @@ int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (units <= kRegUnits) {
-    return bb <= 2 ? LaunchTile<kGates, 2, true, kBf16>(
+    return bb <= 2 ? LaunchTile<kGates, 2, true, false>(
                          codes, batch, steps, kernel, bias, recurrent, units,
                          bb, avg, hidden, s)
-                   : LaunchTile<kGates, 4, true, kBf16>(
+                   : LaunchTile<kGates, 4, true, false>(
                          codes, batch, steps, kernel, bias, recurrent, units,
                          bb, avg, hidden, s);
   }
   if (units <= kTileUnits) {
-    return LaunchTile<kGates, 8, false, kBf16>(codes, batch, steps, kernel,
+    return LaunchTile<kGates, 8, false, false>(codes, batch, steps, kernel,
                                                bias, recurrent, units, bb,
                                                avg, hidden, s);
   }
-  return LaunchTile<kGates, 2, false, kBf16>(codes, batch, steps, kernel,
+  return LaunchTile<kGates, 2, false, false>(codes, batch, steps, kernel,
                                              bias, recurrent, units, bb, avg,
                                              hidden, s);
+}
+
+// ---- The bf16 tensor-core tile --------------------------------------------
+
+// Windows a CTA of the bf16 kernels may own at this width (one m-tile on
+// the tensor-core tile: see the note above).
+__host__ __device__ __forceinline__ int MaxWindowsBf16(int units) {
+  return units <= kMmaUnits ? kMmaCap : MaxWindows(units);
+}
+
+__device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t *>(&v);
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
+__device__ __forceinline__ void MmaBf16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of a 16 x 16 bf16 tile in shared memory: lane l gives the
+// address of row l % 16, columns 8 (l / 16) .. +7.
+__device__ __forceinline__ void LdMatrixX4(uint32_t (&a)[4],
+                                           const __nv_bfloat16 *row) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// Shared memory of the tile, in bytes from the start: the input rows
+// [6][g u] float32, U's fragments (kUSmem), the two h buffers
+// [2][m tiles][16][hstride] bf16, the codes [bb][T].
+struct MmaLayout {
+  int width, k_tiles, groups, m_tiles, hstride;
+  size_t u_off, h_off, codes_off, bytes;
+
+  __host__ __device__ MmaLayout(int gates, int units, int bb, int steps,
+                                bool u_smem) {
+    width = gates * units;
+    k_tiles = (units + 15) / 16;
+    groups = (units + 7) / 8;
+    m_tiles = (bb + 7) / 8;
+    hstride = 16 * k_tiles + 8;  // bf16 a row: 16 bytes of pad
+    u_off = (sizeof(float) * 6 * width + 15) & ~static_cast<size_t>(15);
+    h_off = u_off + (u_smem ? sizeof(uint2) * 32 * groups * k_tiles * gates
+                            : 0);
+    codes_off = h_off + sizeof(__nv_bfloat16) * 2 * m_tiles * 16 * hstride;
+    bytes = codes_off + static_cast<size_t>(bb) * steps;
+  }
+};
+
+// B fragment words of lane (g, tq) for unit n = 8 ug + g of gate q and
+// k-tile kt: U[16 kt + 2 tq + {0, 1}] and U[16 kt + 2 tq + {8, 9}] in
+// column q u + n, rounded to bf16; zero past u.
+__device__ __forceinline__ uint2 UFragment(const float *__restrict__ u_mat,
+                                           int units, int width, int q,
+                                           int n, int kt, int tq) {
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 16 * kt + 2 * tq + (j & 1) + 8 * (j >> 1);
+    v[j] = n < units && k < units ? u_mat[k * width + q * units + n] : 0.0f;
+  }
+  return make_uint2(PackBf16(v[0], v[1]), PackBf16(v[2], v[3]));
+}
+
+// The float32 sigmoid and tanh of the tensor-core tile: exp through the
+// hardware's exp2 (__expf) and the quotient through its reciprocal
+// (__fdividef), a few ulp from expf and the IEEE quotient; tanh(x) = 1 -
+// 2 / (1 + e^2x), within about 1e-7 of tanhf.  1 / (1 + inf) is 0, so both
+// saturate.
+__device__ __forceinline__ float FastSigmoid(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+
+__device__ __forceinline__ float FastTanh(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+}
+
+// The cell's gate math on one (row, unit) cell from its input row x
+// (bias + W[code]) and its recurrent dots d; the GRU adds its recurrent
+// bias b_rec.  Cell<kGates>::step's float32 operations, with FastSigmoid
+// and FastTanh.
+template <int kGates>
+__device__ __forceinline__ void MmaCellStep(const float (&x)[kGates],
+                                            const float (&d)[kGates],
+                                            const float (&b_rec)[kGates],
+                                            float &h, float &c) {
+  if constexpr (kGates == 3) {
+    const float z = FastSigmoid(x[0] + (d[0] + b_rec[0]));
+    const float r = FastSigmoid(x[1] + (d[1] + b_rec[1]));
+    const float hh = FastTanh(x[2] + r * (d[2] + b_rec[2]));
+    h = z * h + (1.0f - z) * hh;
+  } else {
+    const float ig = FastSigmoid(x[0] + d[0]);
+    const float fg = FastSigmoid(x[1] + d[1]);
+    const float gg = FastTanh(x[2] + d[2]);
+    const float og = FastSigmoid(x[3] + d[3]);
+    c = fg * c + ig * gg;
+    h = og * FastTanh(c);
+  }
+}
+
+// Threads of the largest CTA: a warp for each of 2 kKT unit groups and
+// each m-tile of kMmaWindows windows.
+__host__ __device__ constexpr int MmaThreads(int k_tiles) {
+  return 32 * 2 * k_tiles * (kMmaWindows / 8);
+}
+
+// kKT: most k-tiles (u <= 16 kKT); kUSmem: U's fragments in shared memory
+// (else in registers).  A CTA owns bb windows, ceil(bb / 8) m-tiles; warp
+// w is unit group w % groups of m-tile w / groups.
+template <int kGates, int kKT, bool kUSmem>
+__global__ void __launch_bounds__(MmaThreads(kKT), 1)
+MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
+             const float *__restrict__ kernel, const float *__restrict__ bias,
+             const float *__restrict__ recurrent, int units, int bb,
+             __nv_bfloat16 *__restrict__ avg,
+             __nv_bfloat16 *__restrict__ hidden) {
+  static_assert(MmaThreads(kKT) <= kMaxThreads,
+                "more threads than a CTA may have");
+  extern __shared__ float4 smem4[];
+  const MmaLayout lay(kGates, units, bb, steps, kUSmem);
+  const int width = lay.width, hstride = lay.hstride;
+  const int mbuf = lay.m_tiles * 16 * hstride;  // bf16 a buffer
+  char *base = reinterpret_cast<char *>(smem4);
+  float *s_x = reinterpret_cast<float *>(base);  // [6][width]
+  uint2 *s_u = reinterpret_cast<uint2 *>(base + lay.u_off);
+  __nv_bfloat16 *s_h = reinterpret_cast<__nv_bfloat16 *>(base + lay.h_off);
+  int8_t *s_codes = reinterpret_cast<int8_t *>(base + lay.codes_off);
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * bb;
+  for (int j = tid; j < mbuf; j += blockDim.x) {  // both buffers, by words
+    reinterpret_cast<uint32_t *>(s_h)[j] = 0u;
+  }
+  for (int j = tid; j < 6 * width; j += blockDim.x) {
+    const int code = j / width, col = j - code * width;
+    s_x[j] = code < kCodes ? bias[col] + kernel[code * width + col]
+                           : bias[col];
+  }
+  for (int j = tid; j < bb * steps; j += blockDim.x) {
+    const bool in_batch = row0 + j / steps < batch;
+    s_codes[j] = in_batch ? codes[static_cast<size_t>(row0) * steps + j]
+                          : static_cast<int8_t>(kPadCode);
+  }
+  if constexpr (kUSmem) {
+    const int n_frag = 32 * lay.groups * lay.k_tiles * kGates;
+    for (int j = tid; j < n_frag; j += blockDim.x) {
+      const int l = j & 31, f = j >> 5;  // f = (ug k_tiles + kt) g + q
+      const int q = f % kGates, kt = (f / kGates) % lay.k_tiles;
+      const int ug = f / (kGates * lay.k_tiles);
+      s_u[j] = UFragment(recurrent, units, width, q, 8 * ug + (l >> 2), kt,
+                         l & 3);
+    }
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ug = warp % lay.groups, mi = warp / lay.groups;  // m-tile
+  const int g = lane >> 2, tq = lane & 3;
+  const int w = 8 * mi + g;  // the lane's window (none past bb)
+  const int unit0 = 8 * ug + 2 * tq;  // the lane's units: unit0, unit0 + 1
+  const bool mine[2] = {unit0 < units, unit0 + 1 < units};  // not padding
+  const bool pair_store = mine[1] && (units & 1) == 0;
+  uint2 u_reg[kUSmem ? 1 : kKT][kGates];
+  if constexpr (!kUSmem) {
+#pragma unroll
+    for (int kt = 0; kt < kKT; ++kt) {
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        u_reg[kt][q] = UFragment(recurrent, units, width, q, 8 * ug + g, kt,
+                                 tq);
+      }
+    }
+  }
+  const uint2 *u_warp = s_u + 32 * kGates * lay.k_tiles * ug + lane;
+  float b_rec[2][kGates] = {};  // [unit][gate], GRU only
+  if constexpr (kGates == 3) {
+#pragma unroll
+    for (int q = 0; q < kGates; ++q) {
+      if (mine[0]) b_rec[0][q] = bias[width + q * units + unit0];
+      if (mine[1]) b_rec[1][q] = bias[width + q * units + unit0 + 1];
+    }
+  }
+  float h_st[2][2] = {}, c_st[2][2] = {};  // [branch][unit]
+  __syncthreads();
+
+  for (int t = 0; t < steps; ++t) {
+    const __nv_bfloat16 *h_cur = s_h + (t & 1) * mbuf;
+    __nv_bfloat16 *h_nxt = s_h + ((t + 1) & 1) * mbuf;
+
+    // The step's input rows (they do not wait for h): x[b][j][q].
+    float x[2][2][kGates];
+    const int8_t *w_codes = s_codes + min(w, bb - 1) * steps;
+    const int code_b[2] = {w_codes[t], Complement(w_codes[steps - 1 - t])};
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float *x_row =
+          s_x + (static_cast<unsigned>(code_b[b]) < kCodes ? code_b[b]
+                                                             : kCodes) *
+                    width + unit0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int q = 0; q < kGates; ++q) {
+          x[b][j][q] = mine[j] ? x_row[q * units + j] : 0.0f;
+        }
+      }
+    }
+
+    float acc[kGates][4] = {};
+    const __nv_bfloat16 *a_row =
+        h_cur + (16 * mi + (lane & 15)) * hstride + 8 * (lane >> 4);
+#pragma unroll
+    for (int kt = 0; kt < kKT; ++kt) {
+      if (kt < lay.k_tiles) {
+        uint32_t a[4];
+        LdMatrixX4(a, a_row + 16 * kt);
+#pragma unroll
+        for (int q = 0; q < kGates; ++q) {
+          uint2 b;
+          if constexpr (kUSmem) {
+            b = u_warp[32 * (kGates * kt + q)];
+          } else {
+            b = u_reg[kt][q];
+          }
+          MmaBf16(acc[q], a, b.x, b.y);
+        }
+      }
+    }
+
+    if (w < bb && mine[0]) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (!mine[j]) continue;
+          float d[kGates];
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) d[q] = acc[q][2 * b + j];
+          MmaCellStep<kGates>(x[b][j], d, b_rec[j], h_st[b][j], c_st[b][j]);
+        }
+        *reinterpret_cast<uint32_t *>(
+            h_nxt + (16 * mi + 8 * b + g) * hstride + unit0) =
+            PackBf16(h_st[b][0], mine[1] ? h_st[b][1] : 0.0f);
+      }
+      const int row = row0 + w;
+      if (row < batch) {
+        float mean[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mean[j] = (h_st[0][j] + h_st[1][j]) * 0.5f;
+        }
+        auto store = [&](__nv_bfloat16 *dst) {
+          if (pair_store) {
+            *reinterpret_cast<__nv_bfloat162 *>(dst) =
+                __floats2bfloat162_rn(mean[0], mean[1]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (mine[j]) dst[j] = __float2bfloat16(mean[j]);
+            }
+          }
+        };
+        store(avg + (static_cast<size_t>(row) * steps + t) * units + unit0);
+        if (t == steps - 1) {
+          store(hidden + static_cast<size_t>(row) * units + unit0);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int kGates, int kKT, bool kUSmem>
+int LaunchMma(const void *codes, int batch, int steps, const void *kernel,
+              const void *bias, const void *recurrent, int units, int bb,
+              void *avg, void *hidden, cudaStream_t stream) {
+  if (units > 16 * kKT || bb > kMmaWindows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = MmaAvgKernel<kGates, kKT, kUSmem>;
+  const MmaLayout lay(kGates, units, bb, steps, kUSmem);
+  const int threads = 32 * lay.groups * lay.m_tiles;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(lay.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<(batch + bb - 1) / bb, threads, lay.bytes, stream>>>(
+      static_cast<const int8_t *>(codes), batch, steps,
+      static_cast<const float *>(kernel), static_cast<const float *>(bias),
+      static_cast<const float *>(recurrent), units, bb,
+      static_cast<__nv_bfloat16 *>(avg), static_cast<__nv_bfloat16 *>(hidden));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which tile the bf16 kernels run at this width: 1 the tensor-core tile
+// (u <= kMmaUnits), 2 the float32-FMA register tile (kWin 2 through L1/L2,
+// u <= kMaxUnits), 0 refused.
+__host__ __device__ __forceinline__ int Bf16Tile(int units) {
+  return units <= 0 || units > kMaxUnits ? 0 : units <= kMmaUnits ? 1 : 2;
+}
+
+// The bf16 tile by width (measured on the H100, see the note above).
+template <int kGates>
+int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
+                  const void *bias, const void *recurrent, int units, int bb,
+                  void *avg, void *hidden, void *stream) {
+  if (batch <= 0 || steps <= 0 || Bf16Tile(units) == 0 || bb < 1 ||
+      bb > MaxWindowsBf16(units)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (units <= 64) {  // U in registers for the GRU, in shared memory
+    return LaunchMma<kGates, 4, kGates == 4>(codes, batch, steps, kernel,
+                                             bias, recurrent, units, bb, avg,
+                                             hidden, s);
+  }
+  if (units <= kMmaUnits) {
+    return LaunchMma<kGates, 8, true>(codes, batch, steps, kernel, bias,
+                                      recurrent, units, bb, avg, hidden, s);
+  }
+  return LaunchTile<kGates, 2, false, true>(codes, batch, steps, kernel, bias,
+                                            recurrent, units, bb, avg, hidden,
+                                            s);
 }
 
 }  // namespace
@@ -398,15 +810,15 @@ extern "C" {
 int dg_gru_avg(const void *codes, int batch, int steps, const void *kernel,
                const void *bias, const void *recurrent, int units, int bb,
                void *avg, void *hidden, void *stream) {
-  return LaunchAvg<3, false>(codes, batch, steps, kernel, bias, recurrent,
-                             units, bb, avg, hidden, stream);
+  return LaunchAvg<3>(codes, batch, steps, kernel, bias, recurrent, units,
+                      bb, avg, hidden, stream);
 }
 
 int dg_lstm_avg(const void *codes, int batch, int steps, const void *kernel,
                 const void *bias, const void *recurrent, int units, int bb,
                 void *avg, void *hidden, void *stream) {
-  return LaunchAvg<4, false>(codes, batch, steps, kernel, bias, recurrent,
-                             units, bb, avg, hidden, stream);
+  return LaunchAvg<4>(codes, batch, steps, kernel, bias, recurrent, units,
+                      bb, avg, hidden, stream);
 }
 
 // The bfloat16 fast mode: same arguments, avg and hidden bfloat16.
@@ -414,24 +826,37 @@ int dg_gru_avg_bf16(const void *codes, int batch, int steps,
                     const void *kernel, const void *bias,
                     const void *recurrent, int units, int bb, void *avg,
                     void *hidden, void *stream) {
-  return LaunchAvg<3, true>(codes, batch, steps, kernel, bias, recurrent,
-                            units, bb, avg, hidden, stream);
+  return LaunchAvgBf16<3>(codes, batch, steps, kernel, bias, recurrent,
+                          units, bb, avg, hidden, stream);
 }
 
 int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
                      const void *kernel, const void *bias,
                      const void *recurrent, int units, int bb, void *avg,
                      void *hidden, void *stream) {
-  return LaunchAvg<4, true>(codes, batch, steps, kernel, bias, recurrent,
-                            units, bb, avg, hidden, stream);
+  return LaunchAvgBf16<4>(codes, batch, steps, kernel, bias, recurrent,
+                          units, bb, avg, hidden, stream);
 }
 
-// The most windows a CTA of the kernels of a cell with `gates` gates (3
-// GRU, 4 LSTM) may own at this width (0: the shape is refused).
+// The most windows a CTA of the float32 kernels of a cell with `gates`
+// gates (3 GRU, 4 LSTM) may own at this width (0: the shape is refused).
 int dg_avg_max_windows(int gates, int units) {
   return (gates == 3 || gates == 4) && units > 0 && units <= kMaxUnits
              ? MaxWindows(units)
              : 0;
+}
+
+// The same for the bfloat16 kernels.
+int dg_avg_bf16_max_windows(int gates, int units) {
+  return (gates == 3 || gates == 4) && Bf16Tile(units) != 0
+             ? MaxWindowsBf16(units)
+             : 0;
+}
+
+// The tile the bfloat16 kernels run at this width: 1 the tensor-core tile
+// (mma.sync), 2 the float32-FMA register tile, 0 refused.
+int dg_avg_bf16_tile(int gates, int units) {
+  return gates == 3 || gates == 4 ? Bf16Tile(units) : 0;
 }
 
 const char *dg_error_string(int code) {

@@ -4,7 +4,9 @@
 Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
-``out_dtype`` (float32, or bfloat16 for the fast mode).  :func:`gru_apply`
+``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
+the recurrent dot on the tensor cores up to u=128: :func:`avg_bf16_tile`
+names the tile of a width).  :func:`gru_apply`
 is the counterpart of ``pallas_gru_apply``: the GRU over a float input
 ``x [B, T, C]``, ``(seq, last)`` out in ``x``'s dtype.
 
@@ -131,7 +133,7 @@ def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
     lib = _build.load_kernels("rnn_avg")
     fn: Callable[..., int] = getattr(lib, f"dg_{name}")
     windows = avg_tile("lstm" if gates == 4 else "gru", batch, units,
-                       codes.device)[0]
+                       codes.device, out_dtype)[0]
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = fn(codes.data_ptr(), batch, steps,
@@ -151,18 +153,38 @@ def block_windows(batch: int, sms: int, most: int) -> int:
 
 
 def avg_tile(cell: str, batch: int, units: int,
-             device: Optional[torch.device] = None) -> Tuple[int, int]:
+             device: Optional[torch.device] = None,
+             out_dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """``(windows a CTA owns, CTAs)`` of the inference kernels of ``cell``
     ("gru" or "lstm") for a batch on a CUDA device (:func:`block_windows`
-    with the card's SM count and the kernel's cap at this width: 8 windows
-    up to u=128, 2 beyond; a width the kernel refuses gets 1, and its
+    with the card's SM count and the kernel's cap at this width, which the
+    library gives for ``out_dtype``: 8 windows up to u=128, 2 beyond, in
+    float32 and in bfloat16; a width the kernel refuses gets 1, and its
     launch raises)."""
     device = device or torch.device("cuda")
     gates = 4 if cell == "lstm" else 3
-    most = _build.load_kernels("rnn_avg").dg_avg_max_windows(gates, units)
+    lib = _build.load_kernels("rnn_avg")
+    cap = (lib.dg_avg_bf16_max_windows if rnn.dtype_suffix(out_dtype)
+           else lib.dg_avg_max_windows)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    windows = block_windows(batch, sms, most)
+    windows = block_windows(batch, sms, cap(gates, units))
     return windows, -(-batch // windows)
+
+
+#: The tiles of the bfloat16 inference kernels, by the library's code.
+BF16_TILES = {1: "mma", 2: "fma"}
+
+
+def avg_bf16_tile(cell: str, units: int) -> str:
+    """The tile the bfloat16 inference kernels of ``cell`` run at this
+    width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
+    operands, up to u=128) or ``"fma"`` (the float32-FMA register tile,
+    up to u=256); raises ``ValueError`` for a width they refuse."""
+    gates = 4 if cell == "lstm" else 3
+    code = _build.load_kernels("rnn_avg").dg_avg_bf16_tile(gates, units)
+    if code not in BF16_TILES:
+        raise ValueError(f"{cell}_avg_bf16 refuses u={units}")
+    return BF16_TILES[code]
 
 
 def seq_tile(rows: int, units: int, sms: int) -> Tuple[int, int]:

@@ -50,6 +50,7 @@ scales the selected row per gate: ``mask[g, row, code] * W_g[code]``, with
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -322,12 +323,28 @@ def glorot_uniform(shape: Tuple[int, int],
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
 
 
+# torch's host thread count is process-wide: one guard at a time may set
+# it and restore the caller's (the HPO fleet and the launcher draw initial
+# weights from several threads).
+_THREADS_LOCK = threading.Lock()
+
+
 def _orthogonal(shape: Tuple[int, int],
                 generator: torch.Generator) -> torch.Tensor:
     """Keras / JAX ``orthogonal``: orthonormal rows (or columns) from the
-    QR of a normal matrix, signs fixed by ``diag(R)``."""
+    QR of a normal matrix, signs fixed by ``diag(R)``.
+
+    The QR (LAPACK on the host) gives other bits at other thread counts, so
+    it runs at one thread whatever the caller's count, which is restored:
+    the same seed gives the same weights at any ``-t``."""
     out = torch.empty(shape)
-    torch.nn.init.orthogonal_(out, generator=generator)
+    with _THREADS_LOCK:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            torch.nn.init.orthogonal_(out, generator=generator)
+        finally:
+            torch.set_num_threads(threads)
     return out
 
 

@@ -28,9 +28,12 @@ The GRU sequence kernel (``gru_seq``) is held against its plain version
 (either side of U in registers), u=128 (U through L1/L2), u=256 and
 u=512 (two k-slices a unit), u=1024 (one), and at ragged shapes; a second
 launch is bitwise equal to the first and u=1025 is refused.  The bf16
-variants of the fused kernels are held against their plain versions.
-Tolerance in bfloat16: atol 2e-2 (the plain version rounds as the kernel
-does; the outputs are bf16).
+variants of the fused kernels are held against their plain versions, up
+to u=128 on their tensor-core tile (``mma.sync``), beyond on the FMA
+tile, which ``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
+same alone and inside a batch of 1024.  Tolerance in bfloat16: atol 2e-2
+(the plain version rounds h and U as the kernel does, but the tensor
+cores sum the products in another order; the outputs are bf16).
 
 The on-device MSS's stack scan (``dg_mss_stack``) is held against its
 plain version on the same collapsed runs (segments equal: float64 adds and
@@ -271,31 +274,44 @@ def test_bwd_parts_match_plain(device, cell, masked):
                                                      masks, *want[1:]))
 
 
-def test_gru_avg_tile_fills_the_card(device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_avg_tile_fills_the_card(device, dtype):
     """The GRU inference tile: one wave at the engine's 1024 windows and at
-    the fixtures' 64 (8 and 1 windows a CTA on a 132-SM card)."""
+    the fixtures' 64 (8 and 1 windows a CTA on a 132-SM card), in float32
+    (at most 8 windows a CTA up to u=128) and on the bf16 tensor-core tile
+    (at most 8, one m-tile); 2 at most past u=128 in either.  The float32
+    choice is the same with and without ``out_dtype``."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for batch in (1024, 64):
-        windows, n_cta = cuda_rnn.avg_tile("gru", batch, 60)
+    for batch in (1024, 64, 4096):
+        windows, n_cta = cuda_rnn.avg_tile("gru", batch, 60, None, dtype)
         assert windows * n_cta >= batch and windows <= 8
         assert n_cta <= sms or windows == 8
-    assert cuda_rnn.avg_tile("gru", 64, 60) == (1, 64)
-    assert cuda_rnn.avg_tile("gru", 1024, 200)[0] <= 2
+    assert cuda_rnn.avg_tile("gru", 64, 60, None, dtype) == (1, 64)
+    assert cuda_rnn.avg_tile("gru", 1024, 200, None, dtype)[0] <= 2
+    assert cuda_rnn.avg_tile("gru", 4096, 128, None, dtype)[0] == 8
+    if dtype == torch.float32:
+        for batch in (1024, 256, 64, 4096):
+            assert cuda_rnn.avg_tile("gru", batch, 60) == cuda_rnn.avg_tile(
+                "gru", batch, 60, None, dtype)
 
 
-def test_lstm_avg_tile_fills_the_card(device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_avg_tile_fills_the_card(device, dtype):
     """The LSTM runs on the GRU's tile: one wave at the engine's 1024
     windows and at the CLI's default 256 (128 CTAs of 2 windows on a
-    132-SM card, where the first design ran 32 CTAs of 8)."""
+    132-SM card, where the first design ran 32 CTAs of 8), in float32 and
+    in bf16."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for batch in (1024, 256):
-        windows, n_cta = cuda_rnn.avg_tile("lstm", batch, 60)
+        windows, n_cta = cuda_rnn.avg_tile("lstm", batch, 60, None, dtype)
         assert windows * n_cta >= batch and windows <= 8
         assert n_cta <= sms or windows == 8
-        assert cuda_rnn.avg_tile("lstm", batch, 60) == cuda_rnn.avg_tile(
-            "gru", batch, 60)
+        assert cuda_rnn.avg_tile("lstm", batch, 60, None,
+                                 dtype) == cuda_rnn.avg_tile(
+            "gru", batch, 60, None, dtype)
     if sms == 132:
-        assert cuda_rnn.avg_tile("lstm", 256, 60) == (2, 128)
+        assert cuda_rnn.avg_tile("lstm", 256, 60, None, dtype) == (2, 128)
+        assert cuda_rnn.avg_tile("lstm", 1024, 60, None, dtype) == (8, 128)
 
 
 def test_lstm_avg_refuses_u257(device):
@@ -476,13 +492,21 @@ def test_gru_seq_layout(device):
 @pytest.mark.parametrize("cell,batch,steps,units", [
     *((cell, *shape) for cell in ("gru", "lstm")
       for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5),
-                    (1024, 342, 96), (1024, 342, 128)))])
+                    (1024, 342, 96), (1024, 342, 128),
+                    # The wide tile (float32 FMAs), one window, one step,
+                    # an odd width and more windows than one wave holds.
+                    (64, 342, 256), (1, 342, 60), (1000, 1, 60),
+                    (37, 50, 17), (4000, 40, 128)))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
+    """The bf16 kernels against their plain versions; up to u=128 they run
+    the tensor-core tile, beyond it the float32-FMA register tile."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch * units + steps, gates, batch, steps,
                                 units, device)
     kernel = getattr(cuda_rnn, f"{cell}_avg")
     plain = getattr(rnn, f"{cell}_avg_plain")
+    assert cuda_rnn.avg_bf16_tile(cell, units) == (
+        "mma" if units <= 128 else "fma")
     launches = cuda_rnn.LAUNCHES.get(f"{cell}_avg_bf16")
     avg, hidden = kernel(params, codes, torch.bfloat16)
     torch.cuda.synchronize()
@@ -493,6 +517,38 @@ def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
                                atol=BF16_ATOL, rtol=0)
     torch.testing.assert_close(hidden.float(), want_hidden.float(),
                                atol=BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [60, 128])
+def test_avg_bf16_rows_independent_of_batch(device, cell, units):
+    """A row's bf16 bits depend only on its own codes and the weights: 7
+    windows alone (one CTA, one m-tile) and inside a batch of 1024 at
+    offset 501 (other CTAs, other places in the tile) give identical bits;
+    the sharded engine's bit-for-bit tracks rest on this."""
+    gates = 4 if cell == "lstm" else 3
+    params, codes = random_case(units + gates, gates, 1024, 342, units,
+                                device)
+    kernel = getattr(cuda_rnn, f"{cell}_avg")
+    alone = kernel(params, codes[501:508].contiguous(), torch.bfloat16)
+    inside = kernel(params, codes, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], inside[0][501:508])
+    assert torch.equal(alone[1], inside[1][501:508])
+
+
+def test_avg_bf16_tile_by_width(device):
+    """The tile of each width: the tensor-core tile up to u=128, the FMA
+    tile up to u=256, refused beyond (and the launch raises)."""
+    for cell in ("gru", "lstm"):
+        for units, want in ((1, "mma"), (60, "mma"), (128, "mma"),
+                            (129, "fma"), (256, "fma")):
+            assert cuda_rnn.avg_bf16_tile(cell, units) == want
+        with pytest.raises(ValueError, match="u=257"):
+            cuda_rnn.avg_bf16_tile(cell, 257)
+    params, codes = random_case(3, 3, 2, 3, 257, device)
+    with pytest.raises(RuntimeError, match="u=257"):
+        cuda_rnn.gru_avg(params, codes, torch.bfloat16)
 
 
 @pytest.mark.parametrize("name", ["gru_att", "lstm"])

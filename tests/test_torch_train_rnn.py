@@ -12,6 +12,8 @@ autograd through the plain forward atol 1e-5 (both in float32 on the CPU,
 same formulas, other summation orders).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -252,6 +254,28 @@ def test_init_follows_keras_defaults(cell):
                                rtol=0)
     np.testing.assert_array_equal(params["bias"].numpy(),
                                   np.asarray(want["bias"]))
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [60, 128, 256])
+def test_init_independent_of_thread_count(cell, units):
+    """The same seed gives the same initial weights, bit for bit, at one
+    torch host thread and at ``os.cpu_count()`` (the recurrent kernel's
+    orthogonal init is a host QR, whose bits follow the thread count
+    unless pinned); the caller's thread count is restored."""
+    init = rnn.lstm_init if cell == "lstm" else rnn.gru_init
+    saved = torch.get_num_threads()
+    try:
+        got = {}
+        for threads in (1, os.cpu_count() or 1):
+            torch.set_num_threads(threads)
+            got[threads] = init(5, units, torch.Generator().manual_seed(0))
+            assert torch.get_num_threads() == threads
+    finally:
+        torch.set_num_threads(saved)
+    one, many = got.values()
+    for name in ("kernel", "recurrent", "bias"):
+        assert torch.equal(one[name], many[name]), name
 
 
 SPLIT_SHAPES = [(3, 17, 8), (5, 40, 12)]

@@ -4,24 +4,31 @@ card.
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
-    python3 tools/avg_tile_sweep.py [--kernel avg|seq] [--out FILE.json]
+    python3 tools/avg_tile_sweep.py [--kernel avg|avg_bf16|seq]
+        [--out FILE.json]
 
 ``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs, kBf16>``
 (``deepgrp_tpu_torch/csrc/rnn_avg.cu``) takes its lane group's window count
 and the place of its ``U`` slice (registers, or L1/L2) as template
-parameters, and the windows a CTA owns at run time.  ``--kernel seq``:
+parameters, and the windows a CTA owns at run time.  ``--kernel
+avg_bf16``: the bf16 tensor-core tile of the same file,
+``MmaAvgKernel<kGates, kKT, kUSmem>``, takes the most k-tiles (u <= 16
+kKT) and the place of ``U``'s fragments (registers, or shared memory),
+and the windows a CTA at run time (a warp a unit group and m-tile of 8
+windows: at 16 windows two warps a unit group).  ``--kernel seq``:
 ``SeqKernel<kSl, kRows, kURegs, kBf16>`` (``csrc/rnn_seq.cu``, the GRU over
 a float input) takes the k-slices a unit, the rows a lane group and the
 place of ``U``, and the rows a CTA at run time.
 
 The script builds a copy of the source with one more C entry point that
-launches any variant listed for the kernel (float32), prints the
-compiler's registers and spills of each, and for each case checks the
-variant against the plain version (``rnn.gru_avg_plain`` /
-``lstm_avg_plain`` / ``gru_apply``, atol 1e-5) and prints its CUDA-event
-time over 20 launches after a warm-up, with the card's name and power
-limit (and writes them to ``--out`` as JSON, if given).  Every case of a
-shape runs on the same inputs.
+launches any variant listed for the kernel (float32 out; bfloat16 for
+``avg_bf16``), prints the compiler's registers and spills of each, and for
+each case checks the variant against the plain version
+(``rnn.gru_avg_plain`` / ``lstm_avg_plain`` / ``gru_apply``, atol 1e-5;
+2e-2 in bfloat16) and prints its CUDA-event time over 20 launches after a
+warm-up, with the card's name and power limit (and writes them to
+``--out`` as JSON, if given).  Every case of a shape runs on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -58,6 +65,21 @@ CASES = [
     (3, 256, 342, 60, 2, (3, 2, True)),
     (3, 1024, 342, 128, 8, (3, 8, False)),
 ]
+# MmaAvgKernel: (gates, most k-tiles, U in shared memory); a warp a unit
+# group and m-tile of 8 windows, so 16 windows a CTA take two warps a unit
+# group.
+BF16_VARIANTS = [(gates, k_tiles, u_smem) for gates in (3, 4)
+                 for k_tiles in (4, 8) for u_smem in (False, True)]
+# (gates, batch, steps, units, windows a CTA, variant): the engine's batch
+# (8 windows a CTA fill 128 SMs; 16 fill 64), the CLI's default -b 256 (2
+# a CTA fill 128 SMs) and twice the engine's (16 a CTA fill 128 SMs; 8
+# take 256 CTAs).
+BF16_CASES = [
+    (gates, batch, 342, units, bb, variant)
+    for gates in (3, 4) for units in (60, 96, 128)
+    for batch, bbs in ((1024, (8, 16)), (256, (2,)), (2048, (16, 8)))
+    for bb in bbs for variant in BF16_VARIANTS
+    if variant[0] == gates and variant[1] == (4 if units <= 64 else 8)]
 # SeqKernel: (slices a unit, rows a lane group, U in registers)
 SEQ_VARIANTS = [(4, 8, True), (4, 16, True), (4, 4, True), (4, 8, False),
                 (4, 16, False), (4, 4, False), (2, 16, False), (2, 8, False),
@@ -87,17 +109,20 @@ SEQ_CASES = [
     (16, 342, 512, 1, (2, 4, False)),
     (16, 342, 512, 1, (1, 4, False)),
 ]
-TOL = 1e-5
-# What each kernel's entry point passes through to LaunchTile.
+TOL = {"avg": 1e-5, "avg_bf16": 2e-2, "seq": 1e-5}
+_AVG_HEAD = ("const void *codes, int batch, int steps, const void *kernel, "
+             "const void *bias, const void *recurrent, int units, int bb, "
+             "void *avg, void *hidden")
+_AVG_ARGS = ("codes, batch, steps, kernel, bias, recurrent, units, bb, avg, "
+             "hidden")
+# What each kernel's entry point passes through to its launcher.
 _SPECS = {
     "avg": {"source": "rnn_avg.cu", "template": "AvgKernel",
-            "head": "const void *codes, int batch, int steps, "
-                    "const void *kernel, const void *bias, "
-                    "const void *recurrent, int units, int bb, void *avg, "
-                    "void *hidden",
-            "args": "codes, batch, steps, kernel, bias, recurrent, units, "
-                    "bb, avg, hidden",
+            "head": _AVG_HEAD, "args": _AVG_ARGS,
             "launch": "LaunchTile<{0}, {1}, {2}, false>"},
+    "avg_bf16": {"source": "rnn_avg.cu", "template": "MmaAvgKernel",
+                 "head": _AVG_HEAD, "args": _AVG_ARGS,
+                 "launch": "LaunchMma<{0}, {1}, {2}>"},
     "seq": {"source": "rnn_seq.cu", "template": "SeqKernel",
             "head": "const void *x, int batch, int steps, int channels, "
                     "const void *kernel, const void *bias, "
@@ -144,26 +169,28 @@ def build(kind: str, variants):
         name, [_build.nvcc()], [src], (*_build.NVCC_FLAGS, "-I", CSRC))
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dg_sweep.argtypes = ([i, p, i, i, p, p, p, i, i, p, p, p]
-                             if kind == "avg" else
-                             [i, p, i, i, i, p, p, p, i, i, p, p, p])
+    lib.dg_sweep.argtypes = ([i, p, i, i, i, p, p, p, i, i, p, p, p]
+                             if kind == "seq" else
+                             [i, p, i, i, p, p, p, i, i, p, p, p])
     lib.dg_sweep.restype = i
     lib.dg_error_string.argtypes = [i]
     lib.dg_error_string.restype = ctypes.c_char_p
     log = (_build.BUILD_DIR / f"{name}.log").read_text()
-    return lib, registers(log, _SPECS[kind]["template"])
+    return lib, registers(log, kind)
 
 
-def registers(log: str, template: str) -> dict:
-    """Registers and spill bytes of each float32 variant of ``template``
-    (keyed by its first three template arguments), from ``ptxas -v``."""
+def registers(log: str, kind: str) -> dict:
+    """Registers and spill bytes of each variant of the kernel of ``kind``,
+    from ``ptxas -v``: keyed by the variant's tuple (for ``avg`` and
+    ``seq`` the float32 instantiations, by their first three template
+    arguments)."""
     from chip_smoke import ptxas_usage
 
     found = {}
-    for args, usage in ptxas_usage(log, template).items():
-        first, second, regs, bf16 = args.split(", ")
-        if bf16 == "0":
-            found[(int(first), int(second), regs == "1")] = usage
+    for args, usage in ptxas_usage(log, _SPECS[kind]["template"]).items():
+        values = [int(v) for v in args.split(", ")]
+        if kind == "avg_bf16" or values[3] == 0:
+            found[(values[0], values[1], values[2] == 1)] = usage
     return found
 
 
@@ -191,11 +218,14 @@ def gru_weights(torch, gen, gates: int, in_dim: int, units: int) -> dict:
     return {k: v.cuda() for k, v in params.items()}
 
 
-def avg_rows(torch, lib, regs):
+def avg_rows(torch, lib, regs, bf16: bool = False):
     from deepgrp_tpu_torch.models import rnn
 
-    rows, inputs = [], {}
-    for gates, batch, steps, units, bb, variant in CASES:
+    inputs = {}
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    variants = BF16_VARIANTS if bf16 else VARIANTS
+    for gates, batch, steps, units, bb, variant in (BF16_CASES if bf16
+                                                    else CASES):
         shape = (gates, batch, steps, units)
         if shape not in inputs:
             gen = torch.Generator().manual_seed(sum(shape))
@@ -203,11 +233,11 @@ def avg_rows(torch, lib, regs):
             codes = torch.randint(0, 6, (batch, steps), generator=gen,
                                   dtype=torch.int8).cuda()
             plain = rnn.lstm_avg_plain if gates == 4 else rnn.gru_avg_plain
-            inputs[shape] = (params, codes, plain(params, codes))
+            inputs[shape] = (params, codes, plain(params, codes, dtype))
         params, codes, want = inputs[shape]
-        avg = torch.empty(batch, steps, units, device="cuda")
-        hidden = torch.empty(batch, units, device="cuda")
-        index = VARIANTS.index(variant)
+        avg = torch.empty(batch, steps, units, device="cuda", dtype=dtype)
+        hidden = torch.empty(batch, units, device="cuda", dtype=dtype)
+        index = variants.index(variant)
 
         def launch():
             return lib.dg_sweep(
@@ -217,11 +247,13 @@ def avg_rows(torch, lib, regs):
                 hidden.data_ptr(),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
+        layout = ({"k_tiles": variant[1],
+                   "u_in": "shared" if variant[2] else "registers"}
+                  if bf16 else {"windows_a_group": variant[1],
+                                "u_in_registers": variant[2]})
         yield ({"gates": gates, "batch": batch, "steps": steps,
-                "units": units, "windows_a_cta": bb,
-                "windows_a_group": variant[1],
-                "u_in_registers": variant[2], "ctas": -(-batch // bb),
-                **regs.get(variant, {})},
+                "units": units, "windows_a_cta": bb, **layout,
+                "ctas": -(-batch // bb), **regs.get(variant, {})},
                launch, (avg, hidden), want)
 
 
@@ -272,26 +304,29 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    variants = VARIANTS if args.kernel == "avg" else SEQ_VARIANTS
+    variants = {"avg": VARIANTS, "avg_bf16": BF16_VARIANTS,
+                "seq": SEQ_VARIANTS}[args.kernel]
     lib, regs = build(args.kernel, variants)
     template = _SPECS[args.kernel]["template"]
     for variant, info in sorted(regs.items()):
-        print(f"{template}<{', '.join(map(str, variant))}> f32: {info}",
+        print(f"{template}<{', '.join(map(str, variant))}>: {info}",
               flush=True)
 
     rows = []
-    cases = avg_rows if args.kernel == "avg" else seq_rows
+    cases = {"avg": avg_rows,
+             "avg_bf16": lambda *a: avg_rows(*a, bf16=True),
+             "seq": seq_rows}[args.kernel]
     for row, launch, outs, want in cases(torch, lib, regs):
         err = launch()
         if err:
             raise RuntimeError(f"{row}: {lib.dg_error_string(err).decode()}")
         torch.cuda.synchronize()
-        row["max_abs_err"] = max((o - w).abs().max().item()
+        row["max_abs_err"] = max((o.float() - w.float()).abs().max().item()
                                  for o, w in zip(outs, want))
         row["ms"] = time_ms(torch, launch)
         rows.append(row)
         print(json.dumps(row), flush=True)
-        if not row["max_abs_err"] <= TOL:
+        if not row["max_abs_err"] <= TOL[args.kernel]:
             raise AssertionError(f"{row}: differs from the plain version")
     if args.out:
         with open(args.out, "w") as fh:
