@@ -294,11 +294,15 @@ KERNELS = {
     "lstm_avg": (4, "deepgrp_tpu/models/pallas_rnn.py:309"),
 }
 SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
-# The inference kernels past their register tile (U through L1/L2).
-WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
+# The inference kernels past their register tile (U through L1/L2), and
+# at the widest layer they take, at the CLI's default batch.
+WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128),
+               "u256": (256, 342, 256)}
 # The bf16 kernels also at the CLI's default batch and past the
-# tensor-core tile (u > 128: the float32-FMA register tile).
-BF16_SHAPES = {"b256": (256, 342, 60), "u256": (256, 342, 256)}
+# tensor-core tile (u > 128: its cluster tile), ragged there too.
+BF16_SHAPES = {"b256": (256, 342, 60), "u160": (256, 342, 160),
+               "u192_b1024": (1024, 342, 192), "u256": (256, 342, 256),
+               "ragged_wide": (37, 150, 200)}
 
 TRAIN_KERNELS = {
     # name: TPU kernel it replaces
@@ -323,7 +327,12 @@ SEQ_SHAPES = [("flagship", "float32", (2048, 342, 60)),
               ("u128", "float32", (2048, 342, 128)),
               ("u256", "float32", (512, 342, 256)),
               ("u512", "float32", (16, 342, 512)),
-              ("ragged", "float32", (7, 23, 60))]
+              ("u512_bf16", "bfloat16", (16, 342, 512)),
+              ("u1024", "float32", (64, 342, 1024)),
+              ("u1024_bf16", "bfloat16", (64, 342, 1024)),
+              ("ragged", "float32", (7, 23, 60)),
+              ("ragged_wide", "float32", (5, 23, 520)),
+              ("ragged_wide_bf16", "bfloat16", (5, 23, 520))]
 # The bf16 quality contract (tests/test_reference_parity.py:110-180).
 BF16_RAW_AGREE, BF16_POST_AGREE, BF16_MCC = 0.95, 0.98, 0.95
 GRAD_RTOL = 1e-4  # max abs difference / largest magnitude of the gradient
@@ -1249,8 +1258,9 @@ def seq_kernel_phase(torch):
     _build.load_kernels("rnn_seq")
     log = (_build.BUILD_DIR / "rnn_seq.log").read_text()
     for args, usage in sorted(ptxas_usage(log, "SeqKernel").items()):
-        print(f"ptxas SeqKernel<{args}> (slices, rows a group, U in "
-              f"registers, bf16): {usage}", flush=True)
+        print(f"ptxas SeqKernel<{args}> (rows a group, U in "
+              f"registers, bf16, CTAs a cluster, U in shared memory): "
+              f"{usage}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(2026)
     results = {}
@@ -1284,10 +1294,14 @@ def seq_kernel_phase(torch):
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, **bound(flops, n_bytes, peak)}
         tol = TOL if dtype == torch.float32 else BF16_TOL
-        rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms)
+        slots = cuda_rnn.seq_slots(units, steps, 5, dtype)
+        rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms, slots)
         layout = cuda_rnn.seq_layout(units, rows_a_cta)
+        cluster = (f"clusters of {layout['cluster']} CTAs ({slots} at "
+                   f"once), each {-(-units // layout['cluster'])} units, "
+                   if layout["cluster"] > 1 else "one CTA a row, ")
         print(f"gru_seq {label} B={batch} T={steps} u={units} {dtype_name} "
-              f"(tile {n_cta} CTAs x {rows_a_cta} rows, "
+              f"(tile {n_cta} CTAs x {rows_a_cta} rows, {cluster}"
               f"{layout['rows_a_group']} rows a lane group of "
               f"{layout['slices']} slices a unit, U in {layout['u_in']}): "
               f"max_abs_err={err:.3g} (tolerance {tol:g}; "
@@ -1305,14 +1319,14 @@ def seq_kernel_phase(torch):
 def bf16_kernel_phase(torch):
     """Phase 8b: the bf16 variants of the fused kernels against their
     plain versions, each row with the tile it ran (the tensor-core tile up
-    to u=128)."""
+    to u=128, its cluster tile beyond)."""
     from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
     log = (_build.BUILD_DIR / "rnn_avg.log").read_text()
     for args, usage in sorted(ptxas_usage(log, "MmaAvgKernel").items()):
         print(f"ptxas MmaAvgKernel<{args}> (gates, k-tiles, U in shared "
-              f"memory): {usage}", flush=True)
+              f"memory, CTAs a cluster): {usage}", flush=True)
     gen = torch.Generator().manual_seed(2027)
     results = {}
     for name, (gates, _) in KERNELS.items():
@@ -1325,8 +1339,11 @@ def bf16_kernel_phase(torch):
                                        units)
             windows, n_cta = cuda_rnn.avg_tile(cell, batch, units, None,
                                                torch.bfloat16)
+            cluster = cuda_rnn.avg_bf16_cluster(cell, units)
             tile = (f"{cuda_rnn.avg_bf16_tile(cell, units)} tile, {n_cta} "
-                    f"CTAs x {windows} windows")
+                    f"CTAs x {windows} windows"
+                    + (f", clusters of {cluster} CTAs" if cluster > 1
+                       else ""))
             avg, hidden = kernel(params, codes, torch.bfloat16)
             torch.cuda.synchronize()
             p_avg, p_hidden = plain(params, codes, torch.bfloat16)

@@ -188,7 +188,7 @@ def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
         fn.restype = _I32
     # gates, units
     for fn in (lib.dg_avg_max_windows, lib.dg_avg_bf16_max_windows,
-               lib.dg_avg_bf16_tile):
+               lib.dg_avg_bf16_tile, lib.dg_avg_bf16_cluster):
         fn.argtypes = [_I32, _I32]
         fn.restype = _I32
 
@@ -220,9 +220,12 @@ def _declare_rnn_seq(lib: ctypes.CDLL) -> None:
     lib.dg_gru_seq.argtypes = [_PTR, _I32, _I32, _I32, _PTR, _PTR, _PTR,
                                _I32, _I32, _I32, _PTR, _PTR, _PTR]
     lib.dg_gru_seq.restype = _I32
-    # units, rows a CTA, int[3] out
+    # units, rows a CTA, int[4] out
     lib.dg_gru_seq_layout.argtypes = [_I32, _I32, _PTR]
     lib.dg_gru_seq_layout.restype = _I32
+    # units, rows a CTA, steps, channels, bf16
+    lib.dg_gru_seq_clusters.argtypes = [_I32] * 5
+    lib.dg_gru_seq_clusters.restype = _I32
 
 
 def _declare_mss_stack(lib: ctypes.CDLL) -> None:

@@ -82,24 +82,26 @@
 //     3.691; at u=128 kWin 8 5.056, kWin 4 6.088, kWin 2 (bb=2) 8.843.  So
 //     the LSTM takes the GRU's tile: the 28 bytes its kWin 4 register
 //     variant spills cost less than any other layout.
-//   * ptxas -v (sm_90a, CUDA 12.8), float32 and bfloat16 alike but where
-//     noted: GRU kWin 4 with U in registers 128 registers, kWin 2 with U in
-//     registers 111, kWin 8 through L1/L2 126, kWin 2 through L1/L2 64 (4
-//     bytes of spill stores and loads in float32); LSTM kWin 4 with U in
-//     registers 128 (28 bytes of spill stores and loads), kWin 2 with U in
-//     registers 126, kWin 8 through L1/L2 128, kWin 2 through L1/L2 64 (8
-//     bytes of spills in bfloat16); nothing else spills.
+//   * ptxas -v (sm_90a, CUDA 12.8): GRU kWin 4 with U in registers 128
+//     registers, kWin 2 with U in registers 111, kWin 8 through L1/L2 126,
+//     kWin 2 through L1/L2 64 (4 bytes of spill stores and loads); LSTM
+//     kWin 4 with U in registers 128 (28 bytes of spill stores and loads),
+//     kWin 2 with U in registers 126, kWin 8 through L1/L2 128, kWin 2
+//     through L1/L2 64; nothing else spills.
 //   * What bounds it: the FMA issue of the dot (the floor at 1024 x 342 x
 //     60 on 128 SMs is about 0.23 ms GRU, 0.31 ms LSTM) plus the gate math
 //     (960 rows x units an SM a step at bb=8; three transcendentals each
 //     for the GRU, five for the LSTM), then the latency of the butterfly
 //     and the barrier of each step.
-// Above u=128 the bf16 variants run this tile too (kWin 2 through L1/L2):
-// U and h as float32 values already rounded to bfloat16, the same float32
-// FMAs.
+// It serves float32 outputs only: the bf16 variants' float32-FMA copy of
+// it above u=128 took 8.3761 / 10.5517 ms at u=256, B=256 (GRU / LSTM;
+// PR 16's chip_smoke.py), slower than cuDNN's bf16 recurrence, and the
+// cluster tile below took its place.
 //
-// The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem>), which
-// the _bf16 entry points run up to u=128 (kMmaUnits).  Bound at the
+// The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem, kCluster>),
+// which the _bf16 entry points run up to u=128 (kMmaUnits) one CTA a
+// window, and up to u=256 as its cluster tile (the last bullets).  Bound at
+// the
 // flagship shape: the same 14.8 / 19.7 MFLOP a window at the bf16
 // tensor-core rate (989 TFLOP/s), 0.0153 ms GRU and 0.0204 ms LSTM at
 // B=1024; the recurrence is still sequential in T, so a step's latency,
@@ -174,6 +176,63 @@
 //     would save about a quarter.  B=256 (2 windows a CTA) takes about as
 //     long as B=1024: a warp runs the same instructions for the padded
 //     rows of an m-tile.
+//   * Past u=128 a CTA cannot hold U (the LSTM's is 512 KB of fragments
+//     at u=256), so the cluster tile (kCluster CTAs, a thread-block
+//     cluster; the helpers in rnn_tile.cuh) splits a window's unit groups:
+//     the CTA of rank r owns groups [r local, (r + 1) local), local =
+//     ceil(groups / kCluster), with their U fragments in its shared
+//     memory and their columns of the input rows.  The step is the one
+//     above: each warp reads the A fragments of the CTA's own full bf16 h
+//     buffer, so it forms whole gate sums (k-tiles in an order fixed by
+//     u) and no partial sum crosses CTAs; a window's bits depend on its
+//     codes and the weights only, as above, whatever the cluster rank.
+//     At the end of a step each lane writes its two units' new h (one
+//     bf16x2 word a branch) into the next buffer of every CTA of the
+//     cluster (st.shared::cluster), and one cluster barrier
+//     (arrive.release, wait.acquire) stands where the CTA's barrier
+//     stood.  The codes are read through L1 (shared memory would bound
+//     T).  A cluster has 2 CTAs where a CTA's half of U fits the shared
+//     memory at 8 windows (GRU up to u=256, 222,720 B; LSTM up to u=224),
+//     else 4 (Bf16Cluster); a CTA takes 16 windows (two m-tiles) where
+//     they fit, else 8 (MaxWindowsBf16; the GRU past u=240, the LSTM from
+//     u=209 to 224); the caller counts clusters in a wave.
+//   * The cluster tile, timed on the H100 (tools/avg_tile_sweep.py
+//     --kernel avg_bf16 --min-units 129, T=342, ms a launch, my chip call
+//     5 of PR 17; GRU / LSTM; clusters of 2 CTAs at 4, 8, 16 windows a
+//     CTA, then of 4):
+//       u=160, B=256:  0.8226, 0.8545, 1.2080 / 0.9881, 1.0532, 1.4918;
+//                      0.8591, 0.8311, 0.9258 / 1.0035, 0.9190, 1.0306;
+//       u=160, B=1024: 1.9075, 1.0195, 1.1848 / 3.9740, 2.0782, 1.4925;
+//                      2.5937, 1.7277, 2.0932 / 2.9768, 2.2394, 2.3291;
+//       u=192, B=256:  0.9319, 0.9963, 1.4727 / 1.0605, 1.1346, 1.7926;
+//                      1.0495, 0.9253, 1.0183 / 1.7674, 1.0435, 1.1853;
+//       u=192, B=1024: 3.7021, 1.9717, 1.4719 / 4.2133, 2.2279, 1.7875;
+//                      3.0401, 2.1933, 2.3037 / 4.6120, 3.0776, 2.6382;
+//       u=256, B=256:  1.1760, 1.2648, - / -, -, -;
+//                      2.7198, 1.9752, 1.3855 / 2.9214, 2.1135, 1.5863;
+//       u=256, B=1024: 4.7594, 2.4685, - / -, -, -;
+//                      8.1495, 4.9900, 4.0831 / 8.7628, 5.2931, 4.6418
+//     (-: the CTA's shared memory does not fit; the FMA tile took 8.3761
+//     / 10.5517 at u=256, B=256 in PR 16's chip_smoke.py).  Two CTAs beat
+//     four wherever they fit but at u=160-192, B=256 (by 1-7 %); the
+//     fewest windows a CTA that fill one wave win (4 at B=256; at B=1024
+//     16, or 8 where 16 do not fit), but for the GRU at u=160, B=1024 (8
+//     beat 16 by 14 %).  So the caller's rule (block_windows over the
+//     clusters) with these caps.
+//   * ptxas -v: MmaAvgKernel<3, 16, shared, 2> 60 registers, <3, 16,
+//     shared, 4> 72, <4, 16, shared, 2> 64, <4, 16, shared, 4> 78; no
+//     spills.
+//   * What bounds it (tools/avg_bf16_ablation.py --units 256, my chip
+//     call 5; B=256, GRU 2 CTAs x 4 windows / LSTM 4 CTAs x 8, ms):
+//     shipped 1.1964 / 2.1541; the CTA's barrier in place of the
+//     cluster's 0.9397 / 1.5681; no DSMEM hand-off 1.1573 / 1.9396; a
+//     trivial cell 1.0392 / 1.8336; no mma 1.0842 / 1.9303; tanh.approx
+//     1.1017 / 1.9534; two accumulator chains 1.2845 / 2.1033.  A step
+//     (3.5 us GRU) is a floor of shared-memory traffic (every warp reads
+//     its U fragments, 12 KB a step, and h through ldmatrix: about 330 KB
+//     a step an SM), then the cluster barrier (0.75 / 1.7 us a step, skew
+//     between the CTAs included), the gates and the mma chain; the
+//     hand-off costs 3-10 %.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,7 +247,7 @@ constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
 constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
 constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
-constexpr int kMmaUnits = 128;   // widest layer of the bf16 tensor-core tile
+constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
 
@@ -268,17 +327,15 @@ struct Cell<4> {
 };
 
 // kWin windows a lane group (4u threads); ceil(bb / kWin) groups a CTA.
-template <int kGates, int kWin, bool kURegs, bool kBf16>
+template <int kGates, int kWin, bool kURegs>
 __global__ void __launch_bounds__(kWin == 2 && !kURegs ? kMaxThreads
                                                        : kMaxThreads / 2,
                                   1)
 AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
           const float *__restrict__ kernel, const float *__restrict__ bias,
           const float *__restrict__ recurrent, int units, int bb,
-          typename Io<kBf16>::Out *__restrict__ avg,
-          typename Io<kBf16>::Out *__restrict__ hidden) {
+          float *__restrict__ avg, float *__restrict__ hidden) {
   static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
-  using IoT = Io<kBf16>;
   // Windows a lane owns after the butterfly: w0 + 4 j + s (kWin >= 4), or
   // w0 + (s & 1), shared by lanes s and s ^ 2 (kWin 2).
   constexpr int kOwn = kWin >= 4 ? kWin / 4 : 1;
@@ -302,7 +359,7 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     s_codes[j] = in_batch ? codes[static_cast<size_t>(row0) * steps + j]
                           : static_cast<int8_t>(kPadCode);
   }
-  USlice<kGates, kURegs, kBf16> us;
+  USlice<kGates, kURegs, false> us;
   us.load(recurrent, units, i, s);
   Cell<kGates> cell;
   cell.load(bias, units, i);
@@ -399,15 +456,14 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
         const bool has_w = static_cast<unsigned>(code_b[b]) < kCodes;
         cell.step(dot[j][b], s_w + (has_w ? code_b[b] : 0) * width + i,
                   has_w, units, h_own[j][b], c_own[j][b]);
-        h_nxt[(2 * w + b) * hstride + i] = IoT::Operand(h_own[j][b]);
+        h_nxt[(2 * w + b) * hstride + i] = h_own[j][b];
       }
       const int row = row0 + w;
       if (row < batch) {
         const float mean = (h_own[j][0] + h_own[j][1]) * 0.5f;
-        avg[(static_cast<size_t>(row) * steps + t) * units + i] =
-            IoT::Store(mean);
+        avg[(static_cast<size_t>(row) * steps + t) * units + i] = mean;
         if (t == steps - 1) {
-          hidden[static_cast<size_t>(row) * units + i] = IoT::Store(mean);
+          hidden[static_cast<size_t>(row) * units + i] = mean;
         }
       }
     }
@@ -415,12 +471,11 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   }
 }
 
-template <int kGates, int kWin, bool kURegs, bool kBf16>
+template <int kGates, int kWin, bool kURegs>
 int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
                const void *bias, const void *recurrent, int units, int bb,
                void *avg, void *hidden, cudaStream_t stream) {
-  using Out = typename Io<kBf16>::Out;
-  const auto fn = AvgKernel<kGates, kWin, kURegs, kBf16>;
+  const auto fn = AvgKernel<kGates, kWin, kURegs>;
   const int groups = (bb + kWin - 1) / kWin;
   const size_t smem =
       sizeof(float) * (4 * static_cast<size_t>(bb) * Pad4(units) +
@@ -435,7 +490,7 @@ int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
       static_cast<const int8_t *>(codes), batch, steps,
       static_cast<const float *>(kernel), static_cast<const float *>(bias),
       static_cast<const float *>(recurrent), units, bb,
-      static_cast<Out *>(avg), static_cast<Out *>(hidden));
+      static_cast<float *>(avg), static_cast<float *>(hidden));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -452,30 +507,23 @@ int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (units <= kRegUnits) {
-    return bb <= 2 ? LaunchTile<kGates, 2, true, false>(
+    return bb <= 2 ? LaunchTile<kGates, 2, true>(
                          codes, batch, steps, kernel, bias, recurrent, units,
                          bb, avg, hidden, s)
-                   : LaunchTile<kGates, 4, true, false>(
+                   : LaunchTile<kGates, 4, true>(
                          codes, batch, steps, kernel, bias, recurrent, units,
                          bb, avg, hidden, s);
   }
   if (units <= kTileUnits) {
-    return LaunchTile<kGates, 8, false, false>(codes, batch, steps, kernel,
-                                               bias, recurrent, units, bb,
-                                               avg, hidden, s);
+    return LaunchTile<kGates, 8, false>(codes, batch, steps, kernel, bias,
+                                        recurrent, units, bb, avg, hidden, s);
   }
-  return LaunchTile<kGates, 2, false, false>(codes, batch, steps, kernel,
-                                             bias, recurrent, units, bb, avg,
-                                             hidden, s);
+  return LaunchTile<kGates, 2, false>(codes, batch, steps, kernel, bias,
+                                      recurrent, units, bb, avg, hidden, s);
 }
 
 // ---- The bf16 tensor-core tile --------------------------------------------
 
-// Windows a CTA of the bf16 kernels may own at this width (one m-tile on
-// the tensor-core tile: see the note above).
-__host__ __device__ __forceinline__ int MaxWindowsBf16(int units) {
-  return units <= kMmaUnits ? kMmaCap : MaxWindows(units);
-}
 
 __device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -504,24 +552,30 @@ __device__ __forceinline__ void LdMatrixX4(uint32_t (&a)[4],
 }
 
 // Shared memory of the tile, in bytes from the start: the input rows
-// [6][g u] float32, U's fragments (kUSmem), the two h buffers
-// [2][m tiles][16][hstride] bf16, the codes [bb][T].
+// [6][g][xcols] float32 (the CTA's columns: all u without a cluster, its
+// unit groups' 8 local in one), U's fragments of its unit groups (kUSmem),
+// the two h buffers [2][m tiles][16][hstride] bf16 (every unit), the
+// codes [bb][T] (none in a cluster, whose CTAs read them through L1: the
+// shared memory then does not depend on T).
 struct MmaLayout {
-  int width, k_tiles, groups, m_tiles, hstride;
+  int width, k_tiles, groups, local, xcols, m_tiles, hstride;
   size_t u_off, h_off, codes_off, bytes;
 
   __host__ __device__ MmaLayout(int gates, int units, int bb, int steps,
-                                bool u_smem) {
+                                bool u_smem, int cluster = 1) {
     width = gates * units;
     k_tiles = (units + 15) / 16;
     groups = (units + 7) / 8;
+    local = (groups + cluster - 1) / cluster;  // unit groups a CTA
+    xcols = cluster > 1 ? 8 * local : units;
     m_tiles = (bb + 7) / 8;
     hstride = 16 * k_tiles + 8;  // bf16 a row: 16 bytes of pad
-    u_off = (sizeof(float) * 6 * width + 15) & ~static_cast<size_t>(15);
-    h_off = u_off + (u_smem ? sizeof(uint2) * 32 * groups * k_tiles * gates
+    u_off = (sizeof(float) * 6 * gates * xcols + 15) &
+            ~static_cast<size_t>(15);
+    h_off = u_off + (u_smem ? sizeof(uint2) * 32 * local * k_tiles * gates
                             : 0);
     codes_off = h_off + sizeof(__nv_bfloat16) * 2 * m_tiles * 16 * hstride;
-    bytes = codes_off + static_cast<size_t>(bb) * steps;
+    bytes = codes_off + (cluster > 1 ? 0 : static_cast<size_t>(bb) * steps);
   }
 };
 
@@ -577,62 +631,71 @@ __device__ __forceinline__ void MmaCellStep(const float (&x)[kGates],
   }
 }
 
-// Threads of the largest CTA: a warp for each of 2 kKT unit groups and
-// each m-tile of kMmaWindows windows.
-__host__ __device__ constexpr int MmaThreads(int k_tiles) {
-  return 32 * 2 * k_tiles * (kMmaWindows / 8);
+// Threads of the largest CTA: a warp for each of its share of 2 kKT unit
+// groups and each m-tile of kMmaWindows windows.
+__host__ __device__ constexpr int MmaThreads(int k_tiles, int cluster) {
+  return 32 * ((2 * k_tiles + cluster - 1) / cluster) * (kMmaWindows / 8);
 }
 
 // kKT: most k-tiles (u <= 16 kKT); kUSmem: U's fragments in shared memory
-// (else in registers).  A CTA owns bb windows, ceil(bb / 8) m-tiles; warp
-// w is unit group w % groups of m-tile w / groups.
-template <int kGates, int kKT, bool kUSmem>
-__global__ void __launch_bounds__(MmaThreads(kKT), 1)
+// (else in registers); kCluster CTAs a cluster split the unit groups (1:
+// none).  A CTA owns bb windows, ceil(bb / 8) m-tiles; warp w is its unit
+// group w % local of m-tile w / local.
+template <int kGates, int kKT, bool kUSmem, int kCluster = 1>
+__global__ void __launch_bounds__(MmaThreads(kKT, kCluster), 1)
 MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
              const float *__restrict__ kernel, const float *__restrict__ bias,
              const float *__restrict__ recurrent, int units, int bb,
              __nv_bfloat16 *__restrict__ avg,
              __nv_bfloat16 *__restrict__ hidden) {
-  static_assert(MmaThreads(kKT) <= kMaxThreads,
+  static_assert(MmaThreads(kKT, kCluster) <= kMaxThreads,
                 "more threads than a CTA may have");
+  static_assert(kCluster == 1 || kUSmem, "a cluster keeps U in shared memory");
   extern __shared__ float4 smem4[];
-  const MmaLayout lay(kGates, units, bb, steps, kUSmem);
-  const int width = lay.width, hstride = lay.hstride;
+  const MmaLayout lay(kGates, units, bb, steps, kUSmem, kCluster);
+  const int width = lay.width, hstride = lay.hstride, xcols = lay.xcols;
+  // The CTA's first unit group (0 without a cluster).
+  const int ug0 = kCluster > 1 ? static_cast<int>(ClusterRank()) * lay.local
+                               : 0;
   const int mbuf = lay.m_tiles * 16 * hstride;  // bf16 a buffer
   char *base = reinterpret_cast<char *>(smem4);
-  float *s_x = reinterpret_cast<float *>(base);  // [6][width]
+  float *s_x = reinterpret_cast<float *>(base);  // [6][g][xcols]
   uint2 *s_u = reinterpret_cast<uint2 *>(base + lay.u_off);
   __nv_bfloat16 *s_h = reinterpret_cast<__nv_bfloat16 *>(base + lay.h_off);
   int8_t *s_codes = reinterpret_cast<int8_t *>(base + lay.codes_off);
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * bb;
+  const int row0 = blockIdx.x / kCluster * bb;
   for (int j = tid; j < mbuf; j += blockDim.x) {  // both buffers, by words
     reinterpret_cast<uint32_t *>(s_h)[j] = 0u;
   }
-  for (int j = tid; j < 6 * width; j += blockDim.x) {
-    const int code = j / width, col = j - code * width;
-    s_x[j] = code < kCodes ? bias[col] + kernel[code * width + col]
-                           : bias[col];
+  for (int j = tid; j < 6 * kGates * xcols; j += blockDim.x) {
+    const int code = j / (kGates * xcols), o = j - code * kGates * xcols;
+    const int q = o / xcols, n = 8 * ug0 + o - q * xcols;
+    const int col = q * units + n;
+    s_x[j] = n >= units       ? 0.0f
+             : code < kCodes ? bias[col] + kernel[code * width + col]
+                             : bias[col];
   }
-  for (int j = tid; j < bb * steps; j += blockDim.x) {
+  for (int j = tid; j < (kCluster > 1 ? 0 : bb * steps); j += blockDim.x) {
     const bool in_batch = row0 + j / steps < batch;
     s_codes[j] = in_batch ? codes[static_cast<size_t>(row0) * steps + j]
                           : static_cast<int8_t>(kPadCode);
   }
   if constexpr (kUSmem) {
-    const int n_frag = 32 * lay.groups * lay.k_tiles * kGates;
+    const int n_frag = 32 * lay.local * lay.k_tiles * kGates;
     for (int j = tid; j < n_frag; j += blockDim.x) {
       const int l = j & 31, f = j >> 5;  // f = (ug k_tiles + kt) g + q
       const int q = f % kGates, kt = (f / kGates) % lay.k_tiles;
-      const int ug = f / (kGates * lay.k_tiles);
+      const int ug = ug0 + f / (kGates * lay.k_tiles);
       s_u[j] = UFragment(recurrent, units, width, q, 8 * ug + (l >> 2), kt,
                          l & 3);
     }
   }
 
   const int warp = tid >> 5, lane = tid & 31;
-  const int ug = warp % lay.groups, mi = warp / lay.groups;  // m-tile
+  const int ug_l = warp % lay.local, mi = warp / lay.local;  // m-tile
+  const int ug = ug0 + ug_l;
   const int g = lane >> 2, tq = lane & 3;
   const int w = 8 * mi + g;  // the lane's window (none past bb)
   const int unit0 = 8 * ug + 2 * tq;  // the lane's units: unit0, unit0 + 1
@@ -649,7 +712,7 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
       }
     }
   }
-  const uint2 *u_warp = s_u + 32 * kGates * lay.k_tiles * ug + lane;
+  const uint2 *u_warp = s_u + 32 * kGates * lay.k_tiles * ug_l + lane;
   float b_rec[2][kGates] = {};  // [unit][gate], GRU only
   if constexpr (kGates == 3) {
 #pragma unroll
@@ -659,27 +722,47 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     }
   }
   float h_st[2][2] = {}, c_st[2][2] = {};  // [branch][unit]
-  __syncthreads();
+  // The h buffers of the cluster's CTAs (the first must not be written
+  // before its CTA has zeroed it: the barrier below).
+  uint32_t h_peer[kCluster];
+#pragma unroll
+  for (int p = 0; p < kCluster; ++p) {
+    h_peer[p] = kCluster > 1 ? PeerAddress(s_h, p) : 0u;
+  }
+  if constexpr (kCluster > 1) {
+    ClusterBarrier();
+  } else {
+    __syncthreads();
+  }
 
   for (int t = 0; t < steps; ++t) {
     const __nv_bfloat16 *h_cur = s_h + (t & 1) * mbuf;
-    __nv_bfloat16 *h_nxt = s_h + ((t + 1) & 1) * mbuf;
+    const int nxt = ((t + 1) & 1) * mbuf;
 
     // The step's input rows (they do not wait for h): x[b][j][q].
     float x[2][2][kGates];
-    const int8_t *w_codes = s_codes + min(w, bb - 1) * steps;
-    const int code_b[2] = {w_codes[t], Complement(w_codes[steps - 1 - t])};
+    int code_b[2];
+    if constexpr (kCluster > 1) {  // the codes through L1
+      const int row = row0 + min(w, bb - 1);
+      const int8_t *w_codes = codes + static_cast<size_t>(row) * steps;
+      code_b[0] = row < batch ? w_codes[t] : kPadCode;
+      code_b[1] = row < batch ? Complement(w_codes[steps - 1 - t]) : kPadCode;
+    } else {
+      const int8_t *w_codes = s_codes + min(w, bb - 1) * steps;
+      code_b[0] = w_codes[t];
+      code_b[1] = Complement(w_codes[steps - 1 - t]);
+    }
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const float *x_row =
           s_x + (static_cast<unsigned>(code_b[b]) < kCodes ? code_b[b]
                                                              : kCodes) *
-                    width + unit0;
+                    kGates * xcols + unit0 - 8 * ug0;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
         for (int q = 0; q < kGates; ++q) {
-          x[b][j][q] = mine[j] ? x_row[q * units + j] : 0.0f;
+          x[b][j][q] = mine[j] ? x_row[q * xcols + j] : 0.0f;
         }
       }
     }
@@ -716,9 +799,18 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
           for (int q = 0; q < kGates; ++q) d[q] = acc[q][2 * b + j];
           MmaCellStep<kGates>(x[b][j], d, b_rec[j], h_st[b][j], c_st[b][j]);
         }
-        *reinterpret_cast<uint32_t *>(
-            h_nxt + (16 * mi + 8 * b + g) * hstride + unit0) =
+        const int at = nxt + (16 * mi + 8 * b + g) * hstride + unit0;
+        const uint32_t pair =
             PackBf16(h_st[b][0], mine[1] ? h_st[b][1] : 0.0f);
+        if constexpr (kCluster > 1) {
+          // The units' new h into every CTA's next buffer (its own too).
+#pragma unroll
+          for (int p = 0; p < kCluster; ++p) {
+            StoreCluster(h_peer[p] + sizeof(__nv_bfloat16) * at, pair);
+          }
+        } else {
+          *reinterpret_cast<uint32_t *>(s_h + at) = pair;
+        }
       }
       const int row = row0 + w;
       if (row < batch) {
@@ -744,37 +836,85 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
         }
       }
     }
-    __syncthreads();
+    if constexpr (kCluster > 1) {
+      ClusterBarrier();
+    } else {
+      __syncthreads();
+    }
   }
 }
 
-template <int kGates, int kKT, bool kUSmem>
+template <int kGates, int kKT, bool kUSmem, int kCluster = 1>
 int LaunchMma(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
               void *avg, void *hidden, cudaStream_t stream) {
   if (units > 16 * kKT || bb > kMmaWindows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto fn = MmaAvgKernel<kGates, kKT, kUSmem>;
-  const MmaLayout lay(kGates, units, bb, steps, kUSmem);
-  const int threads = 32 * lay.groups * lay.m_tiles;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<(batch + bb - 1) / bb, threads, lay.bytes, stream>>>(
-      static_cast<const int8_t *>(codes), batch, steps,
-      static_cast<const float *>(kernel), static_cast<const float *>(bias),
-      static_cast<const float *>(recurrent), units, bb,
-      static_cast<__nv_bfloat16 *>(avg), static_cast<__nv_bfloat16 *>(hidden));
-  return static_cast<int>(cudaGetLastError());
+  const auto fn = MmaAvgKernel<kGates, kKT, kUSmem, kCluster>;
+  const MmaLayout lay(kGates, units, bb, steps, kUSmem, kCluster);
+  const int threads = 32 * lay.local * lay.m_tiles;
+  const int ctas = (batch + bb - 1) / bb * kCluster;
+  const auto i8 = static_cast<const int8_t *>(codes);
+  const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
+  const auto out = static_cast<__nv_bfloat16 *>(avg);
+  const auto last = static_cast<__nv_bfloat16 *>(hidden);
+  if constexpr (kCluster > 1) {
+    return static_cast<int>(LaunchCluster(
+        fn, ctas, threads, lay.bytes, kCluster, stream, i8, batch, steps,
+        f32(kernel), f32(bias), f32(recurrent), units, bb, out, last));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(lay.bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fn<<<ctas, threads, lay.bytes, stream>>>(i8, batch, steps, f32(kernel),
+                                              f32(bias), f32(recurrent),
+                                              units, bb, out, last);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // Which tile the bf16 kernels run at this width: 1 the tensor-core tile
-// (u <= kMmaUnits), 2 the float32-FMA register tile (kWin 2 through L1/L2,
-// u <= kMaxUnits), 0 refused.
+// (u <= kMmaUnits), 3 its cluster tile (u <= kMaxUnits), 0 refused.  (2,
+// the float32-FMA register tile, served u=129-256 before the cluster tile.)
 __host__ __device__ __forceinline__ int Bf16Tile(int units) {
-  return units <= 0 || units > kMaxUnits ? 0 : units <= kMmaUnits ? 1 : 2;
+  return units <= 0 || units > kMaxUnits ? 0 : units <= kMmaUnits ? 1 : 3;
+}
+
+// Shared memory a block of the current device may opt in to (0 on a CUDA
+// error).
+size_t SmemOptin() {
+  int device = 0, optin = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  return static_cast<size_t>(optin);
+}
+
+// CTAs a cluster of the bf16 kernels at this width on this card (see the
+// note above): 1 up to u=128; past it 2 where a CTA's half of the tile
+// (U's fragments of half the unit groups) fits the card's shared memory a
+// block at 8 windows, else 4; 0 if the width is refused or on a CUDA
+// error.
+int Bf16Cluster(int gates, int units) {
+  if (Bf16Tile(units) != 3) return Bf16Tile(units);
+  return MmaLayout(gates, units, kMmaCap, 1, true, 2).bytes <= SmemOptin()
+             ? 2
+             : 4;
+}
+
+// Windows a CTA of the bf16 kernels may own at this width in clusters of
+// `cluster` (see the note above): one m-tile of 8 on the one-CTA tile; on
+// the cluster tile two m-tiles where they fit the shared memory, else one.
+int MaxWindowsBf16(int gates, int units, int cluster) {
+  if (cluster == 1) return kMmaCap;
+  return MmaLayout(gates, units, kMmaWindows, 1, true, cluster).bytes <=
+                 SmemOptin()
+             ? kMmaWindows
+             : kMmaCap;
 }
 
 // The bf16 tile by width (measured on the H100, see the note above).
@@ -782,8 +922,9 @@ template <int kGates>
 int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
                   const void *bias, const void *recurrent, int units, int bb,
                   void *avg, void *hidden, void *stream) {
-  if (batch <= 0 || steps <= 0 || Bf16Tile(units) == 0 || bb < 1 ||
-      bb > MaxWindowsBf16(units)) {
+  const int cluster = Bf16Cluster(kGates, units);
+  if (batch <= 0 || steps <= 0 || cluster == 0 || bb < 1 ||
+      bb > MaxWindowsBf16(kGates, units, cluster)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -796,9 +937,13 @@ int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
     return LaunchMma<kGates, 8, true>(codes, batch, steps, kernel, bias,
                                       recurrent, units, bb, avg, hidden, s);
   }
-  return LaunchTile<kGates, 2, false, true>(codes, batch, steps, kernel, bias,
-                                            recurrent, units, bb, avg, hidden,
-                                            s);
+  return cluster == 2
+             ? LaunchMma<kGates, 16, true, 2>(codes, batch, steps, kernel,
+                                              bias, recurrent, units, bb, avg,
+                                              hidden, s)
+             : LaunchMma<kGates, 16, true, 4>(codes, batch, steps, kernel,
+                                              bias, recurrent, units, bb, avg,
+                                              hidden, s);
 }
 
 }  // namespace
@@ -846,17 +991,24 @@ int dg_avg_max_windows(int gates, int units) {
              : 0;
 }
 
-// The same for the bfloat16 kernels.
+// The same for the bfloat16 kernels (on the cluster tile, the windows each
+// CTA of a cluster owns).
 int dg_avg_bf16_max_windows(int gates, int units) {
-  return (gates == 3 || gates == 4) && Bf16Tile(units) != 0
-             ? MaxWindowsBf16(units)
-             : 0;
+  const int cluster = gates == 3 || gates == 4 ? Bf16Cluster(gates, units)
+                                               : 0;
+  return cluster != 0 ? MaxWindowsBf16(gates, units, cluster) : 0;
 }
 
 // The tile the bfloat16 kernels run at this width: 1 the tensor-core tile
-// (mma.sync), 2 the float32-FMA register tile, 0 refused.
+// (mma.sync), 3 its cluster tile, 0 refused.
 int dg_avg_bf16_tile(int gates, int units) {
   return gates == 3 || gates == 4 ? Bf16Tile(units) : 0;
+}
+
+// CTAs a cluster of the bfloat16 kernels at this width on the current
+// device (1: one CTA a window; 0: refused).
+int dg_avg_bf16_cluster(int gates, int units) {
+  return gates == 3 || gates == 4 ? Bf16Cluster(gates, units) : 0;
 }
 
 const char *dg_error_string(int code) {

@@ -5,8 +5,9 @@ Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
 ``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
-the recurrent dot on the tensor cores up to u=128: :func:`avg_bf16_tile`
-names the tile of a width).  :func:`gru_apply`
+the recurrent dot on the tensor cores, one CTA a window up to u=128 and a
+cluster of CTAs a window up to u=256: :func:`avg_bf16_tile` names the tile
+of a width, :func:`avg_bf16_cluster` its CTAs a cluster).  :func:`gru_apply`
 is the counterpart of ``pallas_gru_apply``: the GRU over a float input
 ``x [B, T, C]``, ``(seq, last)`` out in ``x``'s dtype.
 
@@ -157,29 +158,38 @@ def avg_tile(cell: str, batch: int, units: int,
              out_dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """``(windows a CTA owns, CTAs)`` of the inference kernels of ``cell``
     ("gru" or "lstm") for a batch on a CUDA device (:func:`block_windows`
-    with the card's SM count and the kernel's cap at this width, which the
-    library gives for ``out_dtype``: 8 windows up to u=128, 2 beyond, in
-    float32 and in bfloat16; a width the kernel refuses gets 1, and its
-    launch raises)."""
+    with the card's SM count over the CTAs a cluster and the kernel's cap
+    at this width, which the library gives for ``out_dtype``: in float32 8
+    windows up to u=128, 2 beyond; in bfloat16 8 up to u=128, then 16 (8
+    where two m-tiles do not fit a CTA's shared memory) a cluster of
+    :func:`avg_bf16_cluster` CTAs, each CTA of which holds the cluster's
+    windows; a width the kernel refuses gets 1, and its launch raises)."""
     device = device or torch.device("cuda")
     gates = 4 if cell == "lstm" else 3
     lib = _build.load_kernels("rnn_avg")
-    cap = (lib.dg_avg_bf16_max_windows if rnn.dtype_suffix(out_dtype)
-           else lib.dg_avg_max_windows)
+    cluster = 1
+    if rnn.dtype_suffix(out_dtype):
+        cap = lib.dg_avg_bf16_max_windows(gates, units)
+        cluster = max(lib.dg_avg_bf16_cluster(gates, units), 1)
+    else:
+        cap = lib.dg_avg_max_windows(gates, units)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    windows = block_windows(batch, sms, cap(gates, units))
-    return windows, -(-batch // windows)
+    windows = block_windows(batch, sms // cluster, cap)
+    return windows, -(-batch // windows) * cluster
 
 
-#: The tiles of the bfloat16 inference kernels, by the library's code.
-BF16_TILES = {1: "mma", 2: "fma"}
+#: The tiles of the bfloat16 inference kernels, by the library's code (2,
+#: the float32-FMA register tile, served u=129-256 before the cluster
+#: tile).
+BF16_TILES = {1: "mma", 3: "cluster"}
 
 
 def avg_bf16_tile(cell: str, units: int) -> str:
     """The tile the bfloat16 inference kernels of ``cell`` run at this
     width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
-    operands, up to u=128) or ``"fma"`` (the float32-FMA register tile,
-    up to u=256); raises ``ValueError`` for a width they refuse."""
+    operands, one CTA a window, up to u=128) or ``"cluster"`` (the same
+    step with a window's units split over a cluster of CTAs, up to
+    u=256); raises ``ValueError`` for a width they refuse."""
     gates = 4 if cell == "lstm" else 3
     code = _build.load_kernels("rnn_avg").dg_avg_bf16_tile(gates, units)
     if code not in BF16_TILES:
@@ -187,26 +197,80 @@ def avg_bf16_tile(cell: str, units: int) -> str:
     return BF16_TILES[code]
 
 
-def seq_tile(rows: int, units: int, sms: int) -> Tuple[int, int]:
+def avg_bf16_cluster(cell: str, units: int) -> int:
+    """CTAs a cluster of the bfloat16 inference kernels of ``cell`` at this
+    width (1 on the one-CTA tile); raises ``ValueError`` for a width they
+    refuse."""
+    gates = 4 if cell == "lstm" else 3
+    cluster = _build.load_kernels("rnn_avg").dg_avg_bf16_cluster(gates,
+                                                                 units)
+    if cluster == 0:
+        raise ValueError(f"{cell}_avg_bf16 refuses u={units}")
+    return cluster
+
+
+def seq_cluster(units: int) -> int:
+    """CTAs a cluster of the GRU sequence kernel at this width: 1 up to
+    u=128, 8 up to u=256, 16 beyond (``SeqCluster`` in
+    ``csrc/rnn_seq.cu``)."""
+    return 1 if units <= 128 else 8 if units <= 256 else 16
+
+
+def seq_max_rows(units: int) -> int:
+    """The most rows a CTA of the GRU sequence kernel owns at this width:
+    16, but 4 from u=257 to 512, where each CTA keeps its slice of U in
+    shared memory (``MaxRows`` in ``csrc/rnn_seq.cu``)."""
+    return 4 if 256 < units <= 512 else 16
+
+
+def seq_tile(rows: int, units: int, sms: int,
+             slots: Optional[int] = None) -> Tuple[int, int]:
     """``(rows a CTA, CTAs)`` of the GRU sequence kernel for ``rows`` rows
     on ``sms`` SMs: :func:`block_windows` with the kernel's cap at this
-    width (16 rows up to u=128, 4 beyond: ``MaxRows`` in
-    ``csrc/rnn_seq.cu``)."""
-    rows_a_cta = block_windows(rows, sms, 16 if units <= 128 else 4)
-    return rows_a_cta, -(-rows // rows_a_cta)
+    width (:func:`seq_max_rows`) over ``slots``, the CTAs (past u=128 the
+    clusters of :func:`seq_cluster` CTAs, each of which holds its
+    cluster's rows) that run at once: by default ``sms`` over the CTAs a
+    cluster; the card's own count where it places fewer clusters (the
+    library's ``dg_gru_seq_clusters``)."""
+    cluster = seq_cluster(units)
+    if slots is None:
+        slots = sms // cluster
+    rows_a_cta = block_windows(rows, slots, seq_max_rows(units))
+    return rows_a_cta, -(-rows // rows_a_cta) * cluster
+
+
+def seq_slots(units: int, steps: int, channels: int,
+              dtype: torch.dtype) -> Optional[int]:
+    """The clusters of the GRU sequence kernel's layout for this shape
+    (at its cap of rows a CTA) that the current CUDA device runs at once
+    (a 16-CTA cluster needs 16 free SMs of one GPC, so fewer than the SMs
+    over 16 may fit); ``None`` without a cluster, or when the card cannot
+    place one (the launch then raises)."""
+    if seq_cluster(units) == 1:
+        return None
+    lib = _build.load_kernels("rnn_seq")
+    slots = lib.dg_gru_seq_clusters(units, seq_max_rows(units), steps,
+                                    channels, int(dtype == torch.bfloat16))
+    return slots or None
+
+
+#: Where the GRU sequence kernel's ``U`` sits, by the library's code.
+SEQ_U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 
 
 def seq_layout(units: int, rows_a_cta: int) -> Dict[str, object]:
     """The layout the GRU sequence kernel launches at this width and tile:
-    rows a lane group, k-slices a unit and where ``U`` sits ("registers"
-    or "L1/L2"); raises ``ValueError`` for a shape the kernel refuses."""
+    rows a lane group, k-slices a unit, where ``U`` sits ("registers",
+    "L1/L2" or "shared": each CTA's slice in shared memory) and the CTAs a
+    cluster (1: one CTA a row); raises ``ValueError`` for a shape the
+    kernel refuses."""
     lib = _build.load_kernels("rnn_seq")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     if lib.dg_gru_seq_layout(units, rows_a_cta, out) == 0:
         raise ValueError(f"gru_seq refuses u={units} with {rows_a_cta} rows "
                          "a CTA")
     return {"rows_a_group": out[0], "slices": out[1],
-            "u_in": "registers" if out[2] else "L1/L2"}
+            "u_in": SEQ_U_IN[out[2]], "cluster": out[3]}
 
 
 def gru_apply(params: RnnParams, x: torch.Tensor, *,
@@ -264,9 +328,11 @@ def _launch_seq(params: RnnParams,
     if batch == 0:
         return seq, last
     lib = _build.load_kernels("rnn_seq")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows_a_cta = seq_tile(batch, units, sms)[0]
     with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        rows_a_cta = seq_tile(batch, units, sms,
+                              seq_slots(units, steps, channels, x.dtype))[0]
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dg_gru_seq(
             x.data_ptr(), batch, steps, channels,

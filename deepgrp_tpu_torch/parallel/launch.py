@@ -72,7 +72,9 @@ def _failures(context: ProcessContext,
               first: ProcessException) -> List[str]:
     """Each rank that failed on its own, the first seen first: its
     traceback, its exit code, or the signal that ended it.  A rank the
-    launcher ended is not listed."""
+    launcher ended is not listed; one whose error file is empty or cut off
+    (it was ended while it wrote) is listed as ended.  Call it after every
+    rank has been ended and joined."""
     order = [first.error_index] + [rank for rank in
                                    range(len(context.processes))
                                    if rank != first.error_index]
@@ -81,16 +83,29 @@ def _failures(context: ProcessContext,
         process = context.processes[rank]
         error_file = context.error_files[rank]
         if os.path.exists(error_file):
-            with open(error_file, "rb") as fh:
-                trace = pickle.load(fh)
+            try:
+                with open(error_file, "rb") as fh:
+                    trace = pickle.load(fh)
+            except (EOFError, pickle.UnpicklingError):
+                trace = None
             os.unlink(error_file)
-            lines.append(f"rank {rank} raised:\n{trace}")
+            lines.append(f"rank {rank} raised:\n{trace}" if trace is not None
+                         else f"rank {rank} was ended while it wrote its "
+                         "error")
         elif process.exitcode and process.exitcode > 0:
             lines.append(f"rank {rank} exited with code {process.exitcode}")
         elif rank == first.error_index:
             lines.append(f"rank {rank} was ended by signal "
                          f"{getattr(first, 'signal_name', None)}")
     return lines
+
+
+def _end_ranks(context: ProcessContext) -> None:
+    """Kill every rank that is still alive and join them all."""
+    for process in context.processes:
+        if process.is_alive():
+            process.kill()
+        process.join()
 
 
 def launch_local(fn: Callable[..., Any], devices: Sequence[Device],
@@ -132,7 +147,7 @@ def launch_local(fn: Callable[..., Any], devices: Sequence[Device],
                               torch.get_num_threads(),
                               os.path.join(tmp, "rdzv"), results),
             nprocs=world, join=False, start_method="spawn")
-        payload = None
+        payload, failure = None, None
         try:
             # Read rank 0's result as it comes (a large one fills the
             # pipe, and rank 0 waits for the read before it exits).
@@ -140,16 +155,17 @@ def launch_local(fn: Callable[..., Any], devices: Sequence[Device],
                 if payload is None and not results.empty():
                     payload = results.get()
         except ProcessException as err:
+            failure = err
+        finally:
+            # Every rank is gone before an error file is read: a rank that
+            # is still writing its own would be read cut off.
+            _end_ranks(context)
+        if failure is not None:
             raise RuntimeError(
                 f"a launched rank failed ({world} ranks on "
                 f"{[str(device) for device in devices]}); the others "
-                f"were ended:\n" + "\n".join(_failures(context, err))
+                f"were ended:\n" + "\n".join(_failures(context, failure))
             ) from None
-        finally:
-            for process in context.processes:
-                if process.is_alive():
-                    process.kill()
-                process.join()
         if payload is None:
             payload = results.get()
     return pickle.loads(payload)

@@ -25,13 +25,17 @@ at the CLI's default batch (256 windows: two a CTA), at u=96 and u=128
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
-(either side of U in registers), u=128 (U through L1/L2), u=256 and
-u=512 (two k-slices a unit), u=1024 (one), and at ragged shapes; a second
-launch is bitwise equal to the first and u=1025 is refused.  The bf16
+(either side of U in registers), u=128 (U through L1/L2), past it on the
+cluster tile (u=256 and u=512: clusters of 8 and 16 CTAs, each with its
+slice of U in shared memory; u=520 and u=1024: 16 CTAs, U through L1/L2),
+and at ragged shapes; a second launch is bitwise equal to the first (on
+the cluster tile too) and u=1025 is refused.  The bf16
 variants of the fused kernels are held against their plain versions, up
-to u=128 on their tensor-core tile (``mma.sync``), beyond on the FMA
-tile, which ``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
-same alone and inside a batch of 1024.  Tolerance in bfloat16: atol 2e-2
+to u=128 on their tensor-core tile (``mma.sync``), beyond on its cluster
+tile (a window's units split over a cluster of CTAs), which
+``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
+same alone and inside a batch of 1024 (and of 256 at two places, on the
+cluster tile).  Tolerance in bfloat16: atol 2e-2
 (the plain version rounds h and U as the kernel does, but the tensor
 cores sum the products in another order; the outputs are bf16).
 
@@ -279,15 +283,25 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
     """The GRU inference tile: one wave at the engine's 1024 windows and at
     the fixtures' 64 (8 and 1 windows a CTA on a 132-SM card), in float32
     (at most 8 windows a CTA up to u=128) and on the bf16 tensor-core tile
-    (at most 8, one m-tile); 2 at most past u=128 in either.  The float32
-    choice is the same with and without ``out_dtype``."""
+    (at most 8, one m-tile); past u=128 at most 2 in float32, and in bf16
+    the cluster tile's windows, which every CTA of a cluster holds (the
+    wave counts clusters).  The float32 choice is the same with and
+    without ``out_dtype``."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for batch in (1024, 64, 4096):
         windows, n_cta = cuda_rnn.avg_tile("gru", batch, 60, None, dtype)
         assert windows * n_cta >= batch and windows <= 8
         assert n_cta <= sms or windows == 8
     assert cuda_rnn.avg_tile("gru", 64, 60, None, dtype) == (1, 64)
-    assert cuda_rnn.avg_tile("gru", 1024, 200, None, dtype)[0] <= 2
+    windows, n_cta = cuda_rnn.avg_tile("gru", 1024, 200, None, dtype)
+    if dtype == torch.float32:
+        assert windows <= 2 and n_cta == -(-1024 // windows)
+    else:  # the cluster tile: clusters of 2 CTAs, 16 windows at most
+        assert cuda_rnn.avg_bf16_cluster("gru", 200) == 2
+        assert windows <= 16 and n_cta == -(-1024 // windows) * 2
+        if sms == 132:  # 64 clusters of 4 windows fill the card
+            assert cuda_rnn.avg_tile("gru", 256, 256, None, dtype) == (4,
+                                                                      128)
     assert cuda_rnn.avg_tile("gru", 4096, 128, None, dtype)[0] == 8
     if dtype == torch.float32:
         for batch in (1024, 256, 64, 4096):
@@ -429,9 +443,15 @@ def random_seq_case(batch, steps, units, dtype, device):
     # the one group of 16 (u=65, through L1/L2) has rows past the CTA, and
     # the last CTA holds one row.
     (torch.float32, 1501, 50, 64), (torch.float32, 1501, 50, 65),
-    # Two slices a unit (u=512; u=256 above) and one (u=1024).
+    # The cluster tile: u=512 (16 CTAs, U in shared memory; u=256 above:
+    # 8), u=1024 and the ragged u=520 (16 CTAs of 33 units, the last with
+    # 25; U through L1/L2), at few rows.
     (torch.float32, 6, 40, 512), (torch.float32, 5, 20, 1024),
-    (torch.bfloat16, 5, 20, 1024), (torch.bfloat16, 2048, 342, 128)])
+    (torch.bfloat16, 5, 20, 1024), (torch.bfloat16, 2048, 342, 128),
+    (torch.float32, 16, 342, 512), (torch.bfloat16, 16, 342, 512),
+    (torch.float32, 64, 342, 1024), (torch.bfloat16, 64, 342, 1024),
+    (torch.float32, 5, 23, 520), (torch.bfloat16, 5, 23, 520),
+    (torch.float32, 37, 60, 200)])
 def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
     params, x = random_seq_case(batch, steps, units, dtype, device)
     launches = cuda_rnn.LAUNCHES.get("gru_seq")
@@ -461,6 +481,26 @@ def test_gru_seq_repeats_bitwise(device, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,steps,units", [(16, 342, 512), (9, 40, 520),
+                                               (37, 60, 200)])
+def test_gru_seq_cluster_repeats_bitwise(device, dtype, batch, steps,
+                                         units):
+    """On the cluster tile each unit's sum runs in an order fixed by u (a
+    CTA owns whole sums; no partial sum crosses CTAs): a second launch
+    equals the first bit for bit, and a row's bits do not depend on the
+    other rows of its cluster or the batch."""
+    params, x = random_seq_case(batch, steps, units, dtype, device)
+    first = cuda_rnn.gru_apply(params, x)
+    second = cuda_rnn.gru_apply(params, x)
+    alone = cuda_rnn.gru_apply(params, x[batch // 2:batch // 2 + 1]
+                               .contiguous())
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(alone[0], first[0][batch // 2:batch // 2 + 1])
+
+
 def test_gru_seq_refuses_u1025(device):
     """The sequence kernel takes u <= 1024 (one slice a unit, u threads):
     u=1025 raises, naming the shape."""
@@ -472,15 +512,18 @@ def test_gru_seq_refuses_u1025(device):
 def test_gru_seq_layout(device):
     """The layout the kernel launches by width and rows a CTA, and the
     cap of :func:`cuda_rnn.seq_tile` is the kernel's own."""
-    cases = {(60, 16): (8, 4, "registers"), (60, 4): (4, 4, "registers"),
-             (64, 12): (8, 4, "registers"), (65, 12): (16, 4, "L1/L2"),
-             (128, 3): (4, 4, "L1/L2"), (129, 4): (4, 2, "L1/L2"),
-             (512, 1): (4, 2, "L1/L2"), (1024, 4): (4, 1, "L1/L2")}
+    cases = {(60, 16): (8, 4, "registers", 1),
+             (60, 4): (4, 4, "registers", 1),
+             (64, 12): (8, 4, "registers", 1), (65, 12): (16, 4, "L1/L2", 1),
+             (128, 3): (4, 4, "L1/L2", 1), (129, 4): (4, 4, "shared", 8),
+             (256, 16): (8, 4, "shared", 8), (512, 1): (4, 4, "shared", 16),
+             (520, 8): (16, 4, "L1/L2", 16), (1024, 4): (4, 4, "L1/L2", 16)}
     for (units, rows), want in cases.items():
         layout = cuda_rnn.seq_layout(units, rows)
-        assert (layout["rows_a_group"], layout["slices"],
-                layout["u_in"]) == want
-    for units in (60, 128, 129, 1024):
+        assert (layout["rows_a_group"], layout["slices"], layout["u_in"],
+                layout["cluster"]) == want
+        assert layout["cluster"] == cuda_rnn.seq_cluster(units)
+    for units in (60, 128, 129, 256, 257, 512, 513, 1024):
         most = cuda_rnn.seq_tile(10 ** 6, units, 1)[0]
         cuda_rnn.seq_layout(units, most)
         with pytest.raises(ValueError):
@@ -493,20 +536,25 @@ def test_gru_seq_layout(device):
     *((cell, *shape) for cell in ("gru", "lstm")
       for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5),
                     (1024, 342, 96), (1024, 342, 128),
-                    # The wide tile (float32 FMAs), one window, one step,
-                    # an odd width and more windows than one wave holds.
+                    # The cluster tile, one window, one step, an odd width
+                    # and more windows than one wave holds.
                     (64, 342, 256), (1, 342, 60), (1000, 1, 60),
-                    (37, 50, 17), (4000, 40, 128)))])
+                    (37, 50, 17), (4000, 40, 128),
+                    # The cluster tile at the CLI's default batch and the
+                    # engine's, and a ragged one (u=200: 25 unit groups,
+                    # the last CTA of a cluster owns fewer).
+                    (256, 342, 160), (1024, 342, 192), (256, 342, 256),
+                    (37, 150, 200), (3, 7, 129)))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     """The bf16 kernels against their plain versions; up to u=128 they run
-    the tensor-core tile, beyond it the float32-FMA register tile."""
+    the tensor-core tile, beyond it its cluster tile."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch * units + steps, gates, batch, steps,
                                 units, device)
     kernel = getattr(cuda_rnn, f"{cell}_avg")
     plain = getattr(rnn, f"{cell}_avg_plain")
     assert cuda_rnn.avg_bf16_tile(cell, units) == (
-        "mma" if units <= 128 else "fma")
+        "mma" if units <= 128 else "cluster")
     launches = cuda_rnn.LAUNCHES.get(f"{cell}_avg_bf16")
     avg, hidden = kernel(params, codes, torch.bfloat16)
     torch.cuda.synchronize()
@@ -520,7 +568,7 @@ def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [60, 128])
+@pytest.mark.parametrize("units", [60, 128, 200, 256])
 def test_avg_bf16_rows_independent_of_batch(device, cell, units):
     """A row's bf16 bits depend only on its own codes and the weights: 7
     windows alone (one CTA, one m-tile) and inside a batch of 1024 at
@@ -537,15 +585,51 @@ def test_avg_bf16_rows_independent_of_batch(device, cell, units):
     assert torch.equal(alone[1], inside[1][501:508])
 
 
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [160, 256])
+def test_avg_bf16_cluster_window_bits(device, cell, units):
+    """On the cluster tile a window's bf16 bits are the same alone, inside
+    a batch of 256 and at another place in that batch (other clusters,
+    another row of the m-tile), and a second launch equals the first."""
+    gates = 4 if cell == "lstm" else 3
+    params, codes = random_case(units * gates, gates, 256, 342, units,
+                                device)
+    codes[200] = codes[13]
+    kernel = getattr(cuda_rnn, f"{cell}_avg")
+    alone = kernel(params, codes[13:14].contiguous(), torch.bfloat16)
+    inside = kernel(params, codes, torch.bfloat16)
+    again = kernel(params, codes, torch.bfloat16)
+    torch.cuda.synchronize()
+    for got, want in zip(alone, inside):
+        assert torch.equal(got[0], want[13])
+        assert torch.equal(got[0], want[200])
+    for a, b in zip(inside, again):
+        assert torch.equal(a, b)
+
+
 def test_avg_bf16_tile_by_width(device):
-    """The tile of each width: the tensor-core tile up to u=128, the FMA
-    tile up to u=256, refused beyond (and the launch raises)."""
-    for cell in ("gru", "lstm"):
-        for units, want in ((1, "mma"), (60, "mma"), (128, "mma"),
-                            (129, "fma"), (256, "fma")):
-            assert cuda_rnn.avg_bf16_tile(cell, units) == want
+    """The tile of each width: the tensor-core tile up to u=128 (one CTA a
+    window, at most 8), its cluster tile up to u=256, refused beyond (and
+    the launch raises).  A cluster has 2 CTAs where half of U's fragments
+    fit a CTA's shared memory at 8 windows (the GRU up to u=256, the LSTM
+    up to u=224), else 4; a CTA takes 16 windows where two m-tiles fit,
+    else 8 (the H100's 227 KB a block)."""
+    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8)],
+             "lstm": [(208, 2, 16), (209, 2, 8), (224, 2, 8), (225, 4, 16),
+                      (256, 4, 16)]}
+    for cell, wide in cases.items():
+        for units, tile, cluster, most in (
+                [(1, "mma", 1, 8), (60, "mma", 1, 8), (128, "mma", 1, 8),
+                 (129, "cluster", 2, 16)]
+                + [(units, "cluster", c, m) for units, c, m in wide]):
+            assert cuda_rnn.avg_bf16_tile(cell, units) == tile
+            assert cuda_rnn.avg_bf16_cluster(cell, units) == cluster
+            assert cuda_rnn.avg_tile(cell, 10 ** 6, units, None,
+                                     torch.bfloat16)[0] == most
         with pytest.raises(ValueError, match="u=257"):
             cuda_rnn.avg_bf16_tile(cell, 257)
+        with pytest.raises(ValueError, match="u=257"):
+            cuda_rnn.avg_bf16_cluster(cell, 257)
     params, codes = random_case(3, 3, 2, 3, 257, device)
     with pytest.raises(RuntimeError, match="u=257"):
         cuda_rnn.gru_avg(params, codes, torch.bfloat16)

@@ -414,6 +414,29 @@ def test_failing_rank_ends_the_launch(tmp_path, mode, named):
     assert not multiprocessing.active_children()
 
 
+def test_failures_reads_a_cut_off_error_file(tmp_path):
+    """Rank 1 exits with code 3 and rank 0, ended while torch's spawn
+    wrapper wrote its error file, leaves that file empty: the message
+    names rank 1's exit code and reports rank 0 as ended, and reading the
+    empty file raises no ``EOFError`` (the race a failing launch could
+    hit)."""
+    from types import SimpleNamespace
+
+    from torch.multiprocessing.spawn import ProcessExitedException
+
+    error_files = [str(tmp_path / "rank0.err"), str(tmp_path / "rank1.err")]
+    open(error_files[0], "wb").close()
+    context = SimpleNamespace(
+        processes=[SimpleNamespace(exitcode=-9), SimpleNamespace(exitcode=3)],
+        error_files=error_files)
+    first = ProcessExitedException("process 1 terminated with exit code 3",
+                                   error_index=1, error_pid=0, exit_code=3)
+    lines = launch._failures(context, first)
+    assert lines[0] == "rank 1 exited with code 3"
+    assert lines[1:] == ["rank 0 was ended while it wrote its error"]
+    assert not os.path.exists(error_files[0])
+
+
 def test_launch_returns_rank_zero_result(tmp_path):
     """Rank 0's value comes back by value (its tensors' bytes, not a
     handle into a process that has exited), read while rank 0 waits to

@@ -135,16 +135,26 @@ def test_gru_avg_block_windows(batch, sms):
 @pytest.mark.parametrize("rows", [2048, 256, 7, 1])
 def test_gru_seq_tile(rows, sms):
     """The GRU sequence kernel's tile: the fewest rows a CTA that keep the
-    grid within one wave, up to the kernel's cap (16 rows up to u=128, 4
-    beyond; then the fewest waves: 2048 rows need 18 a CTA on 114 SMs, so
-    16 and two waves).  The scan route's 2048 rows take 128 CTAs of 16 on
-    a 132-SM card, the shape of the fused kernel's tile at 8 windows."""
-    for units, most in ((60, 16), (128, 16), (129, 4), (1024, 4)):
+    grid within one wave, up to the kernel's cap (then the fewest waves:
+    2048 rows need 18 a CTA on 114 SMs, so 16 and two waves).  Up to
+    u=128 one CTA owns its rows' units, at most 16 rows; past it a
+    cluster of CTAs splits them (8 up to u=256, 16 beyond), each CTA of a
+    cluster holds the cluster's rows, and the wave counts clusters (16
+    rows, but 4 from u=257 to 512, where U's slice fills the shared
+    memory).  The scan route's 2048 rows take 128 CTAs of 16 on a 132-SM
+    card, the shape of the fused kernel's tile at 8 windows."""
+    for units, most, cluster in ((60, 16, 1), (128, 16, 1), (129, 16, 8),
+                                 (256, 16, 8), (257, 4, 16), (512, 4, 16),
+                                 (513, 16, 16), (1024, 16, 16)):
+        assert cuda_rnn.seq_cluster(units) == cluster
         rows_a_cta, n_cta = cuda_rnn.seq_tile(rows, units, sms)
+        clusters = sms // cluster
         assert 1 <= rows_a_cta <= most
-        assert n_cta == -(-rows // rows_a_cta)
-        assert n_cta <= sms or rows_a_cta == most
-        assert rows_a_cta == 1 or -(-rows // (rows_a_cta - 1)) > sms
+        assert n_cta == -(-rows // rows_a_cta) * cluster
+        assert n_cta <= clusters * cluster or rows_a_cta == most
+        assert rows_a_cta == 1 or -(-rows // (rows_a_cta - 1)) > clusters
     if sms == 132:
         assert cuda_rnn.seq_tile(rows, 60, sms) == {
             2048: (16, 128), 256: (2, 128), 7: (1, 7), 1: (1, 1)}[rows]
+        # u=512 at 16 rows: 8 clusters of 16 CTAs, 2 rows each.
+        assert cuda_rnn.seq_tile(16, 512, sms) == (2, 128)

@@ -4,7 +4,7 @@ step's time is made of.
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
-    python3 tools/avg_bf16_ablation.py [--out FILE.json]
+    python3 tools/avg_bf16_ablation.py [--units U] [--out FILE.json]
 
 Each ablation is a copy of ``deepgrp_tpu_torch/csrc/rnn_avg.cu`` with one
 edit to ``MmaAvgKernel`` or its gate functions (each edit must apply, or
@@ -19,13 +19,20 @@ the script fails), built beside the package's build:
   accumulators, added at the end;
 * ``no_gates``: a trivial cell in place of the gate math (timing only:
   its output is wrong);
-* ``no_mma``: a cheap dependence in place of each ``mma`` (timing only).
+* ``no_mma``: a cheap dependence in place of each ``mma`` (timing only);
+* ``cta_barrier``: on the cluster tile (u > 128), the CTA's barrier in
+  place of the cluster's at the end of each step, one cluster barrier
+  after the last (timing only: a CTA may read its peers' h before they
+  wrote it);
+* ``local_h``: on the cluster tile, each CTA writes its new h into its
+  own buffer only, no DSMEM hand-off (timing only).
 
-For each, at the flagship width (u=60, T=342) and the engine's batch (1024
-windows, 8 a CTA) and the CLI's default (256, 2 a CTA), both cells through
-their ``_bf16`` entry points: the CUDA-event time over 20 launches after a
-warm-up and the largest difference to the plain version, with the card's
-name and power limit.
+For each, at the flagship width (u=60, T=342; ``--units`` another) and
+the engine's batch (1024 windows) and the CLI's default (256), with the
+windows a CTA the entry points choose (``cuda_rnn.avg_tile``: 8 and 2 a
+CTA at u=60), both cells through their ``_bf16`` entry points: the
+CUDA-event time over 20 launches after a warm-up and the largest
+difference to the plain version, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -62,6 +69,12 @@ _MMA_CALL = "          MmaBf16(acc[q], a, b.x, b.y);"
 _GATE_MATH = "    if (w < bb && mine[0]) {\n"
 _TANH_APPROX = ('  float y;\n  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : '
                 '"f"({}));\n')
+_STEP_BARRIER = ("    if constexpr (kCluster > 1) {\n      ClusterBarrier();\n"
+                 "    } else {\n      __syncthreads();\n    }\n  }\n}\n\n"
+                 "template <int kGates, int kKT, bool kUSmem, int kCluster = 1>"
+                 "\nint LaunchMma(")
+_HAND_OFF = ("            StoreCluster(h_peer[p] + sizeof(__nv_bfloat16) * "
+             "at, pair);")
 
 # name: [(text in the source, its replacement), ...]
 ABLATIONS = {
@@ -87,10 +100,18 @@ ABLATIONS = {
                       "  d[1] += __uint_as_float(a[1] & 3u);\n"
                       "  d[2] += __uint_as_float((a[2] ^ b0) & 3u);\n"
                       "  d[3] += __uint_as_float((a[3] ^ b1) & 3u);")],
+    # One cluster barrier stays after the last step: a CTA must not exit
+    # while its peers still write into its shared memory.
+    "cta_barrier": [(_STEP_BARRIER, _STEP_BARRIER.replace(
+        "      ClusterBarrier();\n", "      __syncthreads();\n").replace(
+        "  }\n}\n\n", "  }\n  if constexpr (kCluster > 1) ClusterBarrier();"
+        "\n}\n\n", 1))],
+    "local_h": [(_HAND_OFF, "            if (p == 0) *reinterpret_cast<"
+                            "uint32_t *>(s_h + at) = pair;")],
 }
-# (batch, windows a CTA): the engine's batch and the CLI's default.
-CASES = [(1024, 8), (256, 2)]
-UNITS, STEPS = 60, 342
+# The engine's batch and the CLI's default.
+BATCHES = (1024, 256)
+STEPS = 342
 # The ablations whose output is still the bf16 function.
 VALID = ("shipped", "libm_gates", "approx_tanh", "two_chains")
 
@@ -143,8 +164,11 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--units", type=int, default=60,
+                        help="the layer's width (default: the flagship's)")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
+    units = args.units
     if not torch.cuda.is_available():
         print("avg_bf16_ablation: no CUDA card", file=sys.stderr)
         return 1
@@ -152,7 +176,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from avg_tile_sweep import gru_weights, time_ms
 
-    from deepgrp_tpu_torch.models import rnn
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,16 +187,18 @@ def main() -> int:
     rows = []
     for gates, cell in ((3, "gru"), (4, "lstm")):
         plain = rnn.lstm_avg_plain if gates == 4 else rnn.gru_avg_plain
-        for batch, bb in CASES:
+        for batch in BATCHES:
+            bb = cuda_rnn.avg_tile(cell, batch, units, None,
+                                   torch.bfloat16)[0]
             gen = torch.Generator().manual_seed(batch + gates)
-            params = gru_weights(torch, gen, gates, 5, UNITS)
+            params = gru_weights(torch, gen, gates, 5, units)
             codes = torch.randint(0, 6, (batch, STEPS), generator=gen,
                                   dtype=torch.int8).cuda()
             want = plain(params, codes, torch.bfloat16)
             for name, lib in libs.items():
-                avg = torch.empty(batch, STEPS, UNITS, device="cuda",
+                avg = torch.empty(batch, STEPS, units, device="cuda",
                                   dtype=torch.bfloat16)
-                hidden = torch.empty(batch, UNITS, device="cuda",
+                hidden = torch.empty(batch, units, device="cuda",
                                      dtype=torch.bfloat16)
                 entry = getattr(lib, f"dg_{cell}_avg_bf16")
 
@@ -181,7 +207,7 @@ def main() -> int:
                         codes.data_ptr(), batch, STEPS,
                         params["kernel"].data_ptr(),
                         params["bias"].data_ptr(),
-                        params["recurrent"].data_ptr(), UNITS, bb,
+                        params["recurrent"].data_ptr(), units, bb,
                         avg.data_ptr(), hidden.data_ptr(),
                         ctypes.c_void_p(
                             torch.cuda.current_stream().cuda_stream))
@@ -190,7 +216,8 @@ def main() -> int:
                                            f"{lib.dg_error_string(err)}")
 
                 row = {"ablation": name, "cell": cell, "batch": batch,
-                       "windows_a_cta": bb, "units": UNITS,
+                       "windows_a_cta": bb, "units": units,
+                       "cluster": cuda_rnn.avg_bf16_cluster(cell, units),
                        "ms": time_ms(torch, launch),
                        "max_abs_err": max(
                            (o.float() - w.float()).abs().max().item()

@@ -5,24 +5,28 @@ card.
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
     python3 tools/avg_tile_sweep.py [--kernel avg|avg_bf16|seq]
-        [--out FILE.json]
+        [--min-units N] [--out FILE.json]
 
-``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs, kBf16>``
+``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs>``
 (``deepgrp_tpu_torch/csrc/rnn_avg.cu``) takes its lane group's window count
 and the place of its ``U`` slice (registers, or L1/L2) as template
 parameters, and the windows a CTA owns at run time.  ``--kernel
 avg_bf16``: the bf16 tensor-core tile of the same file,
-``MmaAvgKernel<kGates, kKT, kUSmem>``, takes the most k-tiles (u <= 16
-kKT) and the place of ``U``'s fragments (registers, or shared memory),
-and the windows a CTA at run time (a warp a unit group and m-tile of 8
+``MmaAvgKernel<kGates, kKT, kUSmem, kCluster>``, takes the most k-tiles
+(u <= 16 kKT), the place of ``U``'s fragments (registers, or shared
+memory) and the CTAs a cluster that split the unit groups (1: none), and
+the windows a CTA at run time (a warp a unit group and m-tile of 8
 windows: at 16 windows two warps a unit group).  ``--kernel seq``:
-``SeqKernel<kSl, kRows, kURegs, kBf16>`` (``csrc/rnn_seq.cu``, the GRU over
-a float input) takes the k-slices a unit, the rows a lane group and the
-place of ``U``, and the rows a CTA at run time.
+``SeqKernel<kRows, kURegs, kBf16, kCluster, kUSmem>`` (``csrc/rnn_seq.cu``,
+the GRU over a float input) takes the rows a lane group, the place of
+``U`` (registers, L1/L2, or the CTA's slice in shared memory), the IO
+type and the CTAs a cluster, and the rows a CTA (a cluster) at run time.
+``--min-units N`` runs only the cases of at least N units.
 
 The script builds a copy of the source with one more C entry point that
-launches any variant listed for the kernel (float32 out; bfloat16 for
-``avg_bf16``), prints the compiler's registers and spills of each, and for
+launches any variant listed for the kernel (float32 out, bfloat16 for
+``avg_bf16``; either for ``seq``), prints the compiler's registers and
+spills of each, and for
 each case checks the variant against the plain version
 (``rnn.gru_avg_plain`` / ``lstm_avg_plain`` / ``gru_apply``, atol 1e-5;
 2e-2 in bfloat16) and prints its CUDA-event time over 20 launches after a
@@ -65,51 +69,69 @@ CASES = [
     (3, 256, 342, 60, 2, (3, 2, True)),
     (3, 1024, 342, 128, 8, (3, 8, False)),
 ]
-# MmaAvgKernel: (gates, most k-tiles, U in shared memory); a warp a unit
-# group and m-tile of 8 windows, so 16 windows a CTA take two warps a unit
-# group.
-BF16_VARIANTS = [(gates, k_tiles, u_smem) for gates in (3, 4)
-                 for k_tiles in (4, 8) for u_smem in (False, True)]
+# MmaAvgKernel: (gates, most k-tiles, U in shared memory, CTAs a
+# cluster); a warp a unit group and m-tile of 8 windows, so 16 windows a
+# CTA take two warps a unit group.  (gates, 0, False, 1): the FMA tile.
+BF16_VARIANTS = ([(gates, k_tiles, u_smem, 1) for gates in (3, 4)
+                  for k_tiles in (4, 8) for u_smem in (False, True)]
+                 + [(gates, 16, True, cluster) for gates in (3, 4)
+                    for cluster in (2, 4)])
 # (gates, batch, steps, units, windows a CTA, variant): the engine's batch
 # (8 windows a CTA fill 128 SMs; 16 fill 64), the CLI's default -b 256 (2
 # a CTA fill 128 SMs) and twice the engine's (16 a CTA fill 128 SMs; 8
-# take 256 CTAs).
+# take 256 CTAs); past u=128 the cluster tile at 2 and 4 CTAs a cluster,
+# 4, 8 and 16 windows a cluster.
 BF16_CASES = [
     (gates, batch, 342, units, bb, variant)
     for gates in (3, 4) for units in (60, 96, 128)
     for batch, bbs in ((1024, (8, 16)), (256, (2,)), (2048, (16, 8)))
     for bb in bbs for variant in BF16_VARIANTS
-    if variant[0] == gates and variant[1] == (4 if units <= 64 else 8)]
-# SeqKernel: (slices a unit, rows a lane group, U in registers)
-SEQ_VARIANTS = [(4, 8, True), (4, 16, True), (4, 4, True), (4, 8, False),
-                (4, 16, False), (4, 4, False), (2, 16, False), (2, 8, False),
-                (2, 4, False), (1, 4, False)]
+    if variant[0] == gates and variant[3] == 1
+    and variant[1] == (4 if units <= 64 else 8)] + [
+    (gates, batch, 342, units, bb, (gates, 16, True, cluster))
+    for gates in (3, 4) for units in (160, 192, 256)
+    for batch in (256, 1024) for cluster in (2, 4) for bb in (4, 8, 16)]
+# SeqKernel: (rows a lane group, U in registers, bf16, CTAs a cluster, U
+# in shared memory)
 # (rows, steps, units, rows a CTA, variant); 2048 rows is the scan route's
 # doubled batch at -b 1024, 512 at the CLI's default -b 256.
 SEQ_CASES = [
-    (2048, 342, 60, 16, (4, 8, True)),
-    (2048, 342, 60, 16, (4, 16, True)),
-    (2048, 342, 60, 8, (4, 4, True)),
-    (2048, 342, 60, 16, (4, 8, False)),
-    (2048, 342, 60, 16, (4, 16, False)),
-    (512, 342, 60, 4, (4, 4, True)),
-    (512, 342, 60, 4, (4, 8, True)),
-    (2048, 342, 128, 16, (4, 16, False)),
-    (2048, 342, 128, 8, (4, 8, False)),
-    (2048, 342, 128, 4, (4, 4, False)),
-    (2048, 342, 128, 16, (2, 16, False)),
-    (2048, 342, 128, 16, (2, 8, False)),
-    (2048, 342, 96, 16, (4, 16, False)),
-    (2048, 342, 96, 16, (2, 16, False)),
-    (512, 342, 128, 4, (4, 4, False)),
-    (512, 342, 128, 4, (2, 4, False)),
-    (512, 342, 256, 4, (4, 4, False)),
-    (512, 342, 256, 4, (2, 4, False)),
-    (512, 342, 256, 4, (1, 4, False)),
-    (16, 342, 512, 1, (2, 4, False)),
-    (16, 342, 512, 1, (1, 4, False)),
-]
+    (rows, steps, units, bb, (*layout, False, 1, False))
+    for rows, steps, units, bb, layout in (
+        (2048, 342, 60, 16, (8, True)),
+        (2048, 342, 60, 16, (16, True)),
+        (2048, 342, 60, 8, (4, True)),
+        (2048, 342, 60, 16, (8, False)),
+        (2048, 342, 60, 16, (16, False)),
+        (512, 342, 60, 4, (4, True)),
+        (512, 342, 60, 4, (8, True)),
+        (2048, 342, 128, 16, (16, False)),
+        (2048, 342, 128, 8, (8, False)),
+        (2048, 342, 128, 4, (4, False)),
+        (2048, 342, 96, 16, (16, False)),
+        (512, 342, 128, 4, (4, False)))] + [
+    # Past u=128: clusters of 8 and 16 CTAs, U in shared memory or through
+    # L1/L2, at a few rows a cluster; f32 and bf16.
+    (rows, 342, units, bb, (group, False, bf16, cluster, u_smem))
+    for bf16 in (False, True)
+    for rows, units, bb, (group, cluster, u_smem) in (
+        (512, 256, 16, (8, 8, True)),
+        (512, 256, 16, (16, 8, True)),
+        (512, 256, 4, (4, 8, True)),
+        (512, 256, 16, (16, 16, True)),
+        (512, 256, 16, (4, 16, True)),
+        (512, 256, 16, (16, 8, False)),
+        (16, 512, 4, (4, 16, True)),
+        (16, 512, 2, (4, 16, True)),
+        (16, 512, 2, (4, 16, False)),
+        (16, 512, 2, (4, 8, False)),
+        (16, 512, 1, (4, 8, False)),
+        (64, 1024, 16, (16, 16, False)),
+        (64, 1024, 8, (16, 16, False)),
+        (64, 1024, 4, (4, 16, False)))]
+SEQ_VARIANTS = sorted({case[-1] for case in SEQ_CASES})
 TOL = {"avg": 1e-5, "avg_bf16": 2e-2, "seq": 1e-5}
+BF16_TOL = 2e-2
 _AVG_HEAD = ("const void *codes, int batch, int steps, const void *kernel, "
              "const void *bias, const void *recurrent, int units, int bb, "
              "void *avg, void *hidden")
@@ -119,10 +141,10 @@ _AVG_ARGS = ("codes, batch, steps, kernel, bias, recurrent, units, bb, avg, "
 _SPECS = {
     "avg": {"source": "rnn_avg.cu", "template": "AvgKernel",
             "head": _AVG_HEAD, "args": _AVG_ARGS,
-            "launch": "LaunchTile<{0}, {1}, {2}, false>"},
+            "launch": "LaunchTile<{0}, {1}, {2}>"},
     "avg_bf16": {"source": "rnn_avg.cu", "template": "MmaAvgKernel",
                  "head": _AVG_HEAD, "args": _AVG_ARGS,
-                 "launch": "LaunchMma<{0}, {1}, {2}>"},
+                 "launch": "LaunchMma<{0}, {1}, {2}, {3}>"},
     "seq": {"source": "rnn_seq.cu", "template": "SeqKernel",
             "head": "const void *x, int batch, int steps, int channels, "
                     "const void *kernel, const void *bias, "
@@ -130,7 +152,7 @@ _SPECS = {
                     "void *last",
             "args": "x, batch, steps, channels, kernel, bias, recurrent, "
                     "units, bb, seq, last",
-            "launch": "LaunchTile<{0}, {1}, {2}, false>"},
+            "launch": "LaunchTile<{0}, {1}, {2}, {3}, {4}>"},
 }
 
 
@@ -181,17 +203,16 @@ def build(kind: str, variants):
 
 def registers(log: str, kind: str) -> dict:
     """Registers and spill bytes of each variant of the kernel of ``kind``,
-    from ``ptxas -v``: keyed by the variant's tuple (for ``avg`` and
-    ``seq`` the float32 instantiations, by their first three template
-    arguments)."""
+    from ``ptxas -v``: keyed by the variant's tuple of ints."""
     from chip_smoke import ptxas_usage
 
-    found = {}
-    for args, usage in ptxas_usage(log, _SPECS[kind]["template"]).items():
-        values = [int(v) for v in args.split(", ")]
-        if kind == "avg_bf16" or values[3] == 0:
-            found[(values[0], values[1], values[2] == 1)] = usage
-    return found
+    return {tuple(int(v) for v in args.split(", ")): usage
+            for args, usage in ptxas_usage(
+                log, _SPECS[kind]["template"]).items()}
+
+
+def usage_of(regs: dict, variant) -> dict:
+    return regs.get(tuple(int(v) for v in variant), {})
 
 
 def time_ms(torch, launch) -> float:
@@ -218,7 +239,7 @@ def gru_weights(torch, gen, gates: int, in_dim: int, units: int) -> dict:
     return {k: v.cuda() for k, v in params.items()}
 
 
-def avg_rows(torch, lib, regs, bf16: bool = False):
+def avg_rows(torch, lib, regs, min_units: int, bf16: bool = False):
     from deepgrp_tpu_torch.models import rnn
 
     inputs = {}
@@ -226,6 +247,8 @@ def avg_rows(torch, lib, regs, bf16: bool = False):
     variants = BF16_VARIANTS if bf16 else VARIANTS
     for gates, batch, steps, units, bb, variant in (BF16_CASES if bf16
                                                     else CASES):
+        if units < min_units:
+            continue
         shape = (gates, batch, steps, units)
         if shape not in inputs:
             gen = torch.Generator().manual_seed(sum(shape))
@@ -247,30 +270,38 @@ def avg_rows(torch, lib, regs, bf16: bool = False):
                 hidden.data_ptr(),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
-        layout = ({"k_tiles": variant[1],
+        cluster = variant[3] if bf16 else 1
+        layout = ({"tile": "cluster" if cluster > 1 else "mma",
+                   "k_tiles": variant[1], "cluster": cluster,
                    "u_in": "shared" if variant[2] else "registers"}
                   if bf16 else {"windows_a_group": variant[1],
                                 "u_in_registers": variant[2]})
         yield ({"gates": gates, "batch": batch, "steps": steps,
                 "units": units, "windows_a_cta": bb, **layout,
-                "ctas": -(-batch // bb), **regs.get(variant, {})},
+                "ctas": -(-batch // bb) * cluster,
+                **usage_of(regs, variant)},
                launch, (avg, hidden), want)
 
 
-def seq_rows(torch, lib, regs):
+def seq_rows(torch, lib, regs, min_units: int):
     from deepgrp_tpu_torch.models import rnn
 
     inputs = {}
     for batch, steps, units, bb, variant in SEQ_CASES:
-        shape = (batch, steps, units)
+        if units < min_units:
+            continue
+        dtype = torch.bfloat16 if variant[2] else torch.float32
+        shape = (batch, steps, units, dtype)
         if shape not in inputs:
-            gen = torch.Generator().manual_seed(sum(shape))
-            params = gru_weights(torch, gen, 3, 5, units)
-            x = torch.rand(batch, steps, 5, generator=gen).cuda()
+            gen = torch.Generator().manual_seed(batch + steps + units)
+            params = {k: v.to(dtype) if k != "bias" else v
+                      for k, v in gru_weights(torch, gen, 3, 5,
+                                              units).items()}
+            x = torch.rand(batch, steps, 5, generator=gen).cuda().to(dtype)
             inputs[shape] = (params, x, rnn.gru_apply(params, x))
         params, x, want = inputs[shape]
-        seq = torch.empty(batch, steps, units, device="cuda")
-        last = torch.empty(batch, units, device="cuda")
+        seq = torch.empty(batch, steps, units, device="cuda", dtype=dtype)
+        last = torch.empty(batch, units, device="cuda", dtype=dtype)
         index = SEQ_VARIANTS.index(variant)
 
         def launch():
@@ -281,10 +312,13 @@ def seq_rows(torch, lib, regs):
                 last.data_ptr(),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
+        u_in = ("registers" if variant[1] else "shared" if variant[4]
+                else "L1/L2")
         yield ({"rows": batch, "steps": steps, "units": units,
-                "rows_a_cta": bb, "slices": variant[0],
-                "rows_a_group": variant[1], "u_in_registers": variant[2],
-                "ctas": -(-batch // bb), **regs.get(variant, {})},
+                "dtype": str(dtype).split(".")[-1], "rows_a_cta": bb,
+                "rows_a_group": variant[0], "u_in": u_in,
+                "cluster": variant[3], "ctas": -(-batch // bb) * variant[3],
+                **usage_of(regs, variant)},
                launch, (seq, last), want)
 
 
@@ -293,6 +327,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=sorted(_SPECS), default="avg")
+    parser.add_argument("--min-units", type=int, default=0,
+                        help="run only the cases of at least this width")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -316,22 +352,32 @@ def main() -> int:
     cases = {"avg": avg_rows,
              "avg_bf16": lambda *a: avg_rows(*a, bf16=True),
              "seq": seq_rows}[args.kernel]
-    for row, launch, outs, want in cases(torch, lib, regs):
+    failed = []
+    for row, launch, outs, want in cases(torch, lib, regs, args.min_units):
         err = launch()
         if err:
-            raise RuntimeError(f"{row}: {lib.dg_error_string(err).decode()}")
+            # A variant the card refuses at this shape (too much shared
+            # memory, a cluster it cannot place) is a row, not the end.
+            row["refused"] = lib.dg_error_string(err).decode()
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            continue
         torch.cuda.synchronize()
         row["max_abs_err"] = max((o.float() - w.float()).abs().max().item()
                                  for o, w in zip(outs, want))
         row["ms"] = time_ms(torch, launch)
         rows.append(row)
         print(json.dumps(row), flush=True)
-        if not row["max_abs_err"] <= TOL[args.kernel]:
-            raise AssertionError(f"{row}: differs from the plain version")
+        tol = BF16_TOL if row.get("dtype") == "bfloat16" else TOL[args.kernel]
+        if not row["max_abs_err"] <= tol:
+            failed.append(row)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernel": args.kernel, "rows": rows},
                       fh, indent=1)
+    if failed:
+        raise AssertionError(f"{len(failed)} variants differ from the plain "
+                             f"version: {failed}")
     return 0
 
 
