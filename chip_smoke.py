@@ -40,10 +40,14 @@ Phases (any failure exits non-zero; nothing is caught):
    each kernel, its plain version and cuDNN (``torch.nn.GRU``/``LSTM``
    forward, and forward + backward, on the doubled one-hot batch without
    masks, TF32 off) with CUDA events.  For both cells it prints the window
-   tile of the forward and of the backward's recurrence kernel (threads,
-   CTAs and warps an SM) and the backward's split (recurrence kernel ms,
-   reduction kernel ms), and checks the pair again past the register
-   tile: at u=96 (B=64, T=342) and, for the GRU, at u=128.
+   tile of the forward and of the backward's recurrence kernel (layout,
+   threads, CTAs and warps an SM) and the backward's split (recurrence
+   kernel ms, reduction kernel ms), and checks both cells' pairs again
+   past the register tile: at u=96 (B=64, T=342) and u=128 (B=256, T=342,
+   U through L1/L2), and on the wide layout (4u threads up to 1,024) at
+   u=129 (B=256), u=200 (B=37, T=150) and the ceiling u=256 (B=256,
+   T=342); from u=128 on each pair is also timed as above (u=128 the
+   reference point of the layout it extends).
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -253,6 +257,22 @@ Phases (any failure exits non-zero; nothing is caught):
     (start-up and rendezvous, the CUDA context, the first epoch and a
     second, teardown) beside the in-process runs', and the card.
 
+19. Training past u=128: on phase 7's chromosomes (same seed), ``train``
+    through ``cli.main`` (captured, the card's default) of ``gru_att`` at
+    u=256 (vecsize 342, attention, dropout 0.0928, RMSprop defaults,
+    batch 256), 2 x 20 steps, and of the LSTM of that width, 2 x 5 steps:
+    each training kernel launched on every step, the inference kernel
+    once an epoch, no plain version, finite losses that fall; one step of
+    each trained model through the kernels against the plain versions
+    (loss to 1e-5, gradients to 1e-4 of their largest magnitude); a
+    captured epoch's steps/s and its device time by kernel name with the
+    idle share (``torch.profiler``); a captured ``Trainer.fit`` against
+    the eager one (history, best
+    parameters, generator state and launch counts bit for bit); then each
+    trained model predicts the three fixtures on the fused route in
+    float32 and bfloat16 (the kernel of each launched, no plain version;
+    the rows the two precisions share printed).
+
 A captured step's launches are counted at each replay, as an eager
 step's are (``_build.recording_launches``).
 Before each predict or train run every launch count is set to 0; after it,
@@ -313,11 +333,21 @@ TRAIN_KERNELS = {
 }
 TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
 LSTM_WIDE_SHAPE = (64, 342, 96)
-# Widths past the window tile's registers, up to its ceiling (4u <= 512).
-TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (64, 342, 128)}
-# The LSTM trained through the CLI at the training ceiling, past the
-# u=113 at which the first inference kernel stopped.
+# Widths past the window tile's registers: U through L1/L2 up to u=128,
+# the wide layout (4u threads up to 1,024) from u=129 to the ceiling,
+# u=256, at the CLI's default batch and a ragged one.
+TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (256, 342, 128),
+                     "u129": (256, 342, 129), "u200": (37, 150, 200),
+                     "u256": (256, 342, 256)}
+# The timed ones: the wide layout's, and u=128 (the L1/L2 layout's
+# widest) at the same batch as the reference point.
+TRAIN_WIDE_TIMED = ("u128", "u129", "u200", "u256")
+# The LSTM trained through the CLI at u=128 (the widest layer of the
+# L1/L2 layout, past the u=113 at which the first inference kernel
+# stopped); phase 19 trains at the ceiling.
 LSTM_WIDE_UNITS = 128
+# Phase 19: both cells trained at the training kernels' ceiling.
+TRAIN_CEILING_UNITS = 256
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -831,6 +861,9 @@ def time_train_kernels(torch, cell: str, case, errors):
                "library_ms": ms[f"lib_{kind}"],
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if kind == "bwd":
+            row.update(recurrence_ms=split["recurrence"],
+                       reduction_ms=split["reduction"])
         print(f"  {cell}_train_{kind}: kernel_ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.3f} library_ms="
               f"{row['library_ms']:.4f} (cuDNN "
@@ -858,17 +891,20 @@ def train_kernel_phase(torch):
                                                 errors).items():
                 results[(name, label)] = row
     # Widths past the window tile's registers, which the block-row
-    # backward refused (dU beside U in shared memory stopped it at u=82 for LSTM
-    # and u=94 for GRU); the LSTM at u=96 only, as before.
+    # backward refused (dU beside U in shared memory stopped it at u=82 for
+    # LSTM and u=94 for GRU), and past u=128 on the wide layout; timed
+    # from u=128 on.
     for cell in ("gru", "lstm"):
         gates = 4 if cell == "lstm" else 3
         for label, (batch, steps, units) in TRAIN_WIDE_SHAPES.items():
-            if cell == "lstm" and label != "u96":
-                continue
             print_train_tile(cuda_rnn, cell, label, batch, steps, units)
             case = train_case(torch, gen, gates, batch, steps, units)
-            check_train_kernels(torch, cell, case, case[2])
+            errors = check_train_kernels(torch, cell, case, case[2])
             check_train_kernels(torch, cell, case, None)
+            if label in TRAIN_WIDE_TIMED:
+                for name, row in time_train_kernels(torch, cell, case,
+                                                    errors).items():
+                    results[(name, label)] = row
     return results
 
 
@@ -1182,9 +1218,9 @@ def training_phase(torch, np, tmp: str):
     check_losses("lstm", records, lstm_epochs)
     print(f"lstm train CLI: {seconds:.3f} s", flush=True)
 
-    # The same run at the training ceiling, which each epoch's validation
-    # (the inference kernel) and predict with the written model must
-    # reach too.
+    # The same run at u=128, the widest layer of the tile's L1/L2 layout,
+    # which each epoch's validation (the inference kernel) and predict
+    # with the written model must reach too.
     wide = LSTM_WIDE_UNITS
     reset_counts()
     wide_model, records, seconds = run_train_cli(
@@ -1211,6 +1247,91 @@ def training_phase(torch, np, tmp: str):
                           load_training_data(np, val_npz, bed, options),
                           options, tmp, label="lstm")
     return launches, lstm_launches
+
+
+def wide_training_phase(torch, np, tmp: str) -> dict:
+    """Phase 19: both cells trained at the training kernels' ceiling
+    (u=256, the wide layout) through the CLI, captured; one step against
+    the plain versions; a captured epoch's steps/s and device time by
+    kernel name; a captured ``Trainer.fit`` against the eager one;
+    then each trained model predicts the three fixtures on the fused route
+    in float32 and bfloat16.  Returns the launch counts of each run."""
+    from deepgrp_tpu_torch.config import Options
+    from deepgrp_tpu_torch.models import rnn
+    from deepgrp_tpu_torch.models.keras_io import load_model
+    from deepgrp_tpu_torch.models.model import DeepGRPModel
+    from deepgrp_tpu_torch.train.sampler import BatchSampler
+
+    units = TRAIN_CEILING_UNITS
+    start = time.perf_counter()
+    train_npz, val_npz, bed = write_training_files(np, tmp)
+    print(f"wrote the training files in {time.perf_counter() - start:.2f} s",
+          flush=True)
+    runs = {  # label: (options, epochs, steps, cell)
+        "gru_att": ({**FLAGSHIP, "units": units}, 2, 20, "gru"),
+        "lstm": ({**FLAGSHIP, "attention": False, "rnn": "LSTM",
+                  "units": units}, 2, 5, "lstm")}
+    launches = {}
+    for label, (opts, epochs, steps, cell) in runs.items():
+        name = f"{label}_u{units}"
+        reset_counts()
+        model_path, records, seconds = run_train_cli(
+            tmp, (train_npz, val_npz, bed), name, n_epochs=epochs,
+            n_batches=steps, **opts)
+        launches[name] = check_counts({f"{cell}_train_fwd": epochs * steps,
+                                       f"{cell}_train_bwd": epochs * steps,
+                                       f"{cell}_avg": epochs})
+        check_losses(name, records, epochs)
+        print(f"{name} train CLI (captured): {seconds:.3f} s for {epochs} x "
+              f"{steps} steps (data, build of the samplers and model file "
+              f"included); epoch seconds "
+              f"{[round(r['epoch_seconds'], 4) for r in records]}; steps/s "
+              f"after the first epoch "
+              f"{[round(steps / r['epoch_seconds'], 2) for r in records[1:]]}",
+              flush=True)
+
+        options = Options(n_epochs=epochs, n_batches=steps, batch_size=256,
+                          **opts)
+        train_data = load_training_data(np, train_npz, bed, options)
+        config, params = load_model(model_path)
+        model = DeepGRPModel.from_params(config, params)
+        sampler = BatchSampler(options, train_data, model.device)
+        gen = torch.Generator(device=model.device).manual_seed(11)
+        codes, labels = sampler.batch(gen)
+        masks = rnn.input_dropout_masks(gen, 2 * sampler.batch_size,
+                                        config.dropout, config.gates)
+        step_parity(torch, model, codes, labels, masks)
+        epoch, _ = single_run(torch, config, params, options, sampler,
+                              seed=11)(True)
+        epoch()  # the eager warm-up step, the capture, replays
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        epoch()
+        wall = time.perf_counter() - start
+        print(f"{name}: one captured epoch of {steps} steps: {wall:.4f} s "
+              f"= {steps / wall:.2f} steps/s", flush=True)
+        print_device_time(name, device_time(torch, epoch), wall)
+        launches[f"{name} fit"] = fit_pair(
+            torch, options, train_data,
+            load_training_data(np, val_npz, bed, options), tmp, name)
+
+        for fixture in ("gru_att", "gru", "lstm"):
+            rows = {}
+            for precision in ("float32", "bfloat16"):
+                reset_counts()
+                rows[precision] = predict_rows(
+                    REF_ARGS + ["--precision", precision, "--rnn-kernel",
+                                "fused", "predict", model_path,
+                                os.path.join(FIXDIR, f"{fixture}.fa")],
+                    os.path.join(tmp, f"{name}_{fixture}_{precision}.bed"))
+                suffix = "_bf16" if precision == "bfloat16" else ""
+                launches[f"{name} {fixture} {precision}"] = check_path(
+                    f"{cell}_avg{suffix}")
+            same = len(set(rows["float32"]) & set(rows["bfloat16"]))
+            print(f"{name} predict {fixture}: {len(rows['float32'])} BED "
+                  f"rows in float32, {len(rows['bfloat16'])} in bfloat16, "
+                  f"{same} rows in both", flush=True)
+    return launches
 
 
 def bound(flops: float, n_bytes: float, peak_flops: float) -> dict:
@@ -3918,6 +4039,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as launch_tmp:
         path_launches = launch_phase(torch, np, launch_tmp, card)
     print(f"launches on phase 18's paths: {path_launches}; phase 18 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+
+    phase(f"19. training past u=128: gru_att and lstm at "
+          f"u={TRAIN_CEILING_UNITS} through the CLI (captured), one step "
+          f"against the plain versions, the captured fit against the eager "
+          f"one, the trained models on the fixtures in float32 and bf16")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wide_tmp:
+        path_launches = wide_training_phase(torch, np, wide_tmp)
+    print(f"launches on phase 19's paths: {path_launches}; phase 19 took "
           f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []

@@ -19,7 +19,9 @@ training forward kernel (per-gate input dropout masks, hidden and cell
 sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
-parameters (none for the codes and masks).
+parameters (none for the codes and masks).  The training kernels take
+layers up to u=256 (:data:`TRAIN_MAX_UNITS`; :func:`train_layout` names
+the window tile's layout of a width).
 
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
@@ -349,6 +351,23 @@ def _launch_seq(params: RnnParams,
 # -- training kernels --------------------------------------------------------
 
 
+#: The widest layer the training kernels take (``csrc/rnn_train.cu``: the
+#: window tile's 4u threads a CTA, at most 1,024).
+TRAIN_MAX_UNITS = 256
+
+
+def train_layout(units: int) -> str:
+    """The window tile's layout at a width: ``"registers"`` (U's slice in
+    registers, u <= 64), ``"l2"`` (U through L1/L2, u <= 128) or
+    ``"wide"`` (1,024 threads at most, one CTA an SM; the backward stages
+    the gate cotangents and forms dh_prev from U's rows, u <= 256).
+    Raises ``ValueError`` past :data:`TRAIN_MAX_UNITS`."""
+    if not 0 < units <= TRAIN_MAX_UNITS:
+        raise ValueError(f"the training kernels take widths up to their "
+                         f"ceiling u={TRAIN_MAX_UNITS}, not u={units}")
+    return "registers" if units <= 64 else "l2" if units <= 128 else "wide"
+
+
 def _check_masks(name: str, gates: int, masks: Optional[torch.Tensor],
                  batch: int, device: torch.device) -> None:
     if masks is not None:
@@ -364,6 +383,7 @@ def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
     """
     name, gates = f"{cell}_train_fwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
+    train_layout(units)  # raises past the ceiling
     _check_masks(name, gates, masks, batch, codes.device)
     avg = _empty(codes.device, batch, steps, units)
     hidden = _empty(codes.device, batch, units)
@@ -397,6 +417,7 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
     and counts one launch."""
     name, gates = f"{cell}_train_bwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
+    train_layout(units)  # raises past the ceiling
     _check_masks(name, gates, masks, batch, codes.device)
     for key, seq in zip(("hseq", "cseq"), seqs):
         _check_f32(name, key, seq, (2 * batch, steps, units), codes.device)
@@ -495,14 +516,18 @@ _WINDOW_KERNELS = {"lstm": (("fwd", 0), ("bwd", 1)),
 def train_tile(cell: str, batch: int, units: int, steps: int,
                device: Optional[torch.device] = None) -> Dict[str, int]:
     """The window tile of ``cell``'s training kernels (the forward and the
-    backward's recurrence) on a CUDA device: threads a CTA (four per
-    unit), CTAs (one a window), resident CTAs an SM of each kernel, and the
-    warps an SM that gives at this batch."""
+    backward's recurrence) on a CUDA device: its layout
+    (:func:`train_layout`, ``"refused"`` past the ceiling), threads a CTA
+    (four per unit), CTAs (one a window), resident CTAs an SM of each
+    kernel (0 where it cannot launch), and the warps an SM that gives at
+    this batch."""
     lib = _build.load_kernels("rnn_train")
     device = device or torch.device("cuda")
     threads = 4 * units
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tile = {"threads": threads, "ctas": batch}
+    layout = (train_layout(units) if 0 < units <= TRAIN_MAX_UNITS
+              else "refused")
+    tile = {"layout": layout, "threads": threads, "ctas": batch}
     with torch.cuda.device(device):
         for kind, which in _WINDOW_KERNELS[cell]:
             per_sm = lib.dg_window_ctas_per_sm(which, units, steps)

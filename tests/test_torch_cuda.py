@@ -13,7 +13,8 @@ The shapes include the engine's default tile at the flagship shape
 
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
-tiny widths (also at u=96 and u=128, past the register tile), with
+tiny widths (also at u=96 and u=128, past the register tile, and at
+u=129, 200 and 256 on the wide layout), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
@@ -166,11 +167,16 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("batch,steps,units", [(64, 342, 96),
-                                               (5, 20, 128)])
+                                               (5, 20, 128),
+                                               (5, 20, 129),
+                                               (37, 150, 200),
+                                               (64, 342, 256)])
 def test_train_kernels_match_plain_wide(device, cell, masked, batch, steps,
                                         units):
-    """Widths past the register tile (U read through L2), up to the
-    backward's ceiling (4u threads a CTA, at most 512: u=128)."""
+    """Widths past the register tile (U read through L2) up to u=128, and
+    the wide layout past it (4u threads up to 1,024; the backward stages
+    the gate cotangents and forms dh_prev from U's rows) up to the ceiling,
+    u=256; a ragged batch at u=200."""
     check_train_pair(device, cell, masked, batch, steps, units)
 
 
@@ -225,22 +231,35 @@ def test_window_tile_quadruples_warps_per_sm(device, cell):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_backward_width_ceiling(device, cell):
     """The window kernels (forward and backward recurrence) launch up to
-    u=128 at T=342 (4u threads a CTA) and not at u=129."""
-    tile = cuda_rnn.train_tile(cell, 8, 128, 342)
-    assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
-    tile = cuda_rnn.train_tile(cell, 8, 129, 342)
+    u=256 at T=342 (4u threads a CTA, the wide layout past u=128) and not
+    at u=257."""
+    for units, layout in ((128, "l2"), (129, "wide"), (256, "wide")):
+        tile = cuda_rnn.train_tile(cell, 8, units, 342)
+        assert tile["layout"] == layout, tile
+        assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
+    tile = cuda_rnn.train_tile(cell, 8, 257, 342)
+    assert tile["layout"] == "refused"
     assert tile["bwd_ctas_per_sm"] == 0 and tile["fwd_ctas_per_sm"] == 0
 
 
 def test_gru_backward_refuses_u129(device):
-    """The GRU backward raises at u=129 (past its 4u <= 512 threads)."""
-    batch, steps, units = 2, 5, 129
-    params, codes = random_case(5, 3, batch, steps, units, device)
-    hseq = torch.zeros(2 * batch, steps, units, device=device)
-    with pytest.raises(RuntimeError, match="u=129"):
-        cuda_rnn.train_bwd("gru", params, codes, None, (hseq,),
-                           torch.zeros(batch, steps, units, device=device),
-                           torch.zeros(batch, units, device=device))
+    """Named for the first ceiling (u=128): both cells' forward and
+    backward now raise past u=256, naming the width and the ceiling, and
+    launch nothing."""
+    batch, steps, units = 2, 5, 257
+    for cell, gates in (("gru", 3), ("lstm", 4)):
+        params, codes = random_case(5, gates, batch, steps, units, device)
+        seqs = tuple(torch.zeros(2 * batch, steps, units, device=device)
+                     for _ in range(gates - 2))
+        launches = cuda_rnn.LAUNCHES.snapshot()
+        with pytest.raises(ValueError, match="u=256, not u=257"):
+            cuda_rnn.train_fwd(cell, params, codes, None)
+        with pytest.raises(ValueError, match="u=256, not u=257"):
+            cuda_rnn.train_bwd(cell, params, codes, None, seqs,
+                               torch.zeros(batch, steps, units,
+                                           device=device),
+                               torch.zeros(batch, units, device=device))
+        assert cuda_rnn.LAUNCHES.snapshot() == launches
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])

@@ -70,8 +70,8 @@ def test_plain_matches_pallas(cell, batch, steps, units):
 @pytest.mark.parametrize("dtype,atol", [("float32", ATOL),
                                         ("bfloat16", 2e-2)])
 def test_lstm_plain_matches_pallas_u128(dtype, atol):
-    """The LSTM at u=128, the training ceiling (the first CUDA kernel
-    stopped at u=113): the plain version against the JAX kernel in float32
+    """The LSTM at u=128, the widest layer of the training kernels' L1/L2
+    layout (the first CUDA kernel stopped at u=113): the plain version against the JAX kernel in float32
     and in the bf16 fast mode (atol 2e-2, as tests/test_torch_bf16.py: the
     port rounds the dot's operands to bfloat16, the JAX kernel in interpret
     mode does not)."""

@@ -135,16 +135,37 @@ def test_autograd_function_matches_jax_vjp(cell, batch, steps, units,
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.0928])
-def test_lstm_train_matches_jax_vjp_u128(rate):
-    """One LstmAvgTrain step (loss and gradients) at u=128, the training
-    ceiling, against the JAX custom VJP, at the tolerances above."""
-    batch, steps, units = 2, 20, 128
-    params, codes, masks = random_case(128, "lstm", batch, steps, units,
+# The widths either side of the window tile's wide layout (u=128 | 129)
+# and up to the training kernels' ceiling (u=256); the LSTM's u=128 cases
+# keep the ids they had when u=128 was the ceiling.
+WIDE_CASES = [
+    pytest.param(cell, units, rate,
+                 id=(str(rate) if (cell, units) == ("lstm", 128)
+                     else f"{cell}-u{units}-{rate}"))
+    for cell in ("gru", "lstm") for units in (128, 129, 200, 256)
+    for rate in (0.0, 0.0928)]
+
+
+@pytest.mark.parametrize("cell,units,rate", WIDE_CASES)
+def test_lstm_train_matches_jax_vjp_u128(cell, units, rate):
+    """One training step (loss and gradients) of either cell's autograd
+    Function at widths from u=128 to the ceiling u=256 (named for the
+    LSTM at u=128, its first case), against the JAX custom VJP, at the
+    tolerances above.  The loss weights have random magnitudes and the
+    signs of the forward's avg, so the loss is a sum of 2 x 20 x u
+    positive terms: with random signs it cancels to a value near 0 (0.06
+    at u=129), where rtol 1e-5 reads the float32 rounding of avg (which
+    agrees within 3e-7) and not the kernels' agreement."""
+    batch, steps = 2, 20
+    params, codes, masks = random_case(units, cell, batch, steps, units,
                                        rate)
+    with torch.no_grad():
+        avg_sign = np.sign(cuda_rnn._PLAIN[cell][0](
+            *to_torch(params, codes, masks))[0].numpy())
     rng = np.random.default_rng(12)
-    w_avg = rng.normal(size=(batch, steps, units)).astype(np.float32)
-    fn, j_params, j_codes, j_masks, has_mask = jax_train("lstm", params,
+    w_avg = (np.abs(rng.normal(size=(batch, steps, units)))
+             * avg_sign).astype(np.float32)
+    fn, j_params, j_codes, j_masks, has_mask = jax_train(cell, params,
                                                          codes, masks)
 
     def loss_jax(p):
@@ -154,9 +175,7 @@ def test_lstm_train_matches_jax_vjp_u128(rate):
     t_params, t_codes, t_masks = to_torch(params, codes, masks)
     for value in t_params.values():
         value.requires_grad_(True)
-    avg, _ = cuda_rnn.LstmAvgTrain.apply(
-        t_params["kernel"], t_params["recurrent"], t_params["bias"],
-        t_codes, t_masks)
+    avg, _ = cuda_rnn.avg_train(cell, t_params, t_codes, t_masks)
     loss = (avg * torch.from_numpy(w_avg)).sum()
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_v), rtol=1e-5)
@@ -191,6 +210,17 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
         assert got.shape == t_params[name].shape
         torch.testing.assert_close(got, t_params[name].grad, atol=1e-5,
                                    rtol=0, msg=name)
+
+
+def test_train_layout_by_width():
+    """The window tile's layout of a width, and the ceiling: u=256."""
+    for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
+                          (128, "l2"), (129, "wide"), (256, "wide")):
+        assert cuda_rnn.train_layout(units) == layout
+    assert cuda_rnn.TRAIN_MAX_UNITS == 256
+    for units in (0, 257):
+        with pytest.raises(ValueError, match=f"u={units}"):
+            cuda_rnn.train_layout(units)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])

@@ -199,14 +199,17 @@ def test_optimizer_unknown_name_raises():
 # -- train step ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("rnn_type,attention", [("GRU", True),
-                                                ("LSTM", False)])
-def test_train_step_matches_jax(rnn_type, attention):
+@pytest.mark.parametrize("rnn_type,attention,units", [
+    pytest.param("GRU", True, 6, id="GRU-True"),
+    pytest.param("LSTM", False, 6, id="LSTM-False"),
+    pytest.param("GRU", True, 136, id="GRU-True-u136")])
+def test_train_step_matches_jax(rnn_type, attention, units):
     """3 optimization steps of the port (CPU: plain versions) against 3
     steps composed from the JAX package's own functions, from the same
     initial parameters on the same windows and masks: loss and parameters
-    at atol 1e-5."""
-    options = small_options(units=6, batch_size=4, rnn=rnn_type,
+    at atol 1e-5; also at u=136, a width of the training kernels' wide
+    layout."""
+    options = small_options(units=units, batch_size=4, rnn=rnn_type,
                             attention=attention, dropout=0.0928)
     config = ModelConfig.from_options(options)
     jax_config = jax_model.ModelConfig(**config.todict())
