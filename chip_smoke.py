@@ -13,11 +13,16 @@ Phases (any failure exits non-zero; nothing is caught):
 2. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the flagship shape (B=1024 windows, T=342, u=60) and at a
    ragged one (B=1000, T=150, u=32), also at u=96 and u=128 (past the
-   register tile; each cell's tile is printed), random weights and codes
-   (with N and pad codes) from a seed; max abs difference <= 1e-5 on both
-   outputs (the JAX package's kernel tolerance).  Times the kernel, the
-   plain version and the cuDNN recurrence (``torch.nn.GRU``/``LSTM`` on the
-   doubled one-hot batch, TF32 off) with CUDA events.
+   register tile's registers) and on the cluster tile at u=256, 512 (B=256),
+   1024 (B=64) and ragged at u=300 (B=37, T=150) and u=520 (B=5, T=23),
+   each with its tile (CTAs a cluster, clusters at once; the ptxas usage
+   of each instantiation), random weights and codes (with N and pad codes)
+   from a seed; max abs difference <= 1e-5 on both outputs (the JAX
+   package's kernel tolerance); past u=128 a second launch and a window
+   alone give the same bits; u=1025 raises ``ValueError`` in both dtypes
+   with no launch.  Times the kernel, the plain version and the cuDNN
+   recurrence (``torch.nn.GRU``/``LSTM`` on the doubled one-hot batch,
+   TF32 off) with CUDA events.
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
    the reference settings and the ``.npz`` weights in
@@ -84,9 +89,12 @@ Phases (any failure exits non-zero; nothing is caught):
    the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
    (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128, at the
-   CLI's default batch (256, 342, 60) and at (256, 342, 256), each row
-   with the tile it ran (the tensor-core tile up to u=128, the FMA tile
-   beyond; ``ptxas -v`` of the tensor-core tile's instantiations).
+   CLI's default batch (256, 342, 60), past u=128 at (256, 342, 160),
+   (1024, 342, 192), (37, 150, 200) and phase 2's cluster shapes (u=256
+   to the ceiling 1024), each row with the tile it ran (the tensor-core
+   tile up to u=128, its cluster tile of 2 to 16 CTAs beyond, with the
+   clusters at once; ``ptxas -v`` of every instantiation; past u=128 a
+   second launch and a window alone give the same bits).
    atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
    (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off).
@@ -272,6 +280,16 @@ Phases (any failure exits non-zero; nothing is caught):
     trained model predicts the three fixtures on the fused route in
     float32 and bfloat16 (the kernel of each launched, no plain version;
     the rows the two precisions share printed).
+20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
+    at u=512 and u=1024 (the fused route's ceiling), made by the port's
+    initialiser from a seed and written as ``.npz`` model files, predict
+    the three fixtures through ``cli.main`` on the fused route in float32
+    and bfloat16 (the kernel of each launched, no plain version; the BED
+    rows and those the two precisions share printed); at u=512 each
+    model's float32 scored track of the first ``gru_att.fa`` record equals
+    the same engine's on the CPU, at u=1024 ``gru_att``'s equals the scan
+    route's (``gru_seq``) on the card: classes equal, max probability
+    within 1e-5.
 
 A captured step's launches are counted at each replay, as an eager
 step's are (``_build.recording_launches``).
@@ -314,14 +332,20 @@ KERNELS = {
     "lstm_avg": (4, "deepgrp_tpu/models/pallas_rnn.py:309"),
 }
 SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
-# The inference kernels past their register tile (U through L1/L2), and
-# at the widest layer they take, at the CLI's default batch.
-WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128),
-               "u256": (256, 342, 256)}
+# The inference kernels past their register tile's registers (U through
+# L1/L2), at the engine's batch.
+WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
+# Past u=128 on the cluster tiles (a window's units over 8 or 16 CTAs in
+# float32, 2 to 16 in bf16), up to the ceiling u=1024: at the CLI's
+# default batch, 64 windows at the ceiling, and ragged (u=300: 19 units a
+# CTA of 16; u=520: 33).
+CLUSTER_SHAPES = {"u256": (256, 342, 256), "u512": (256, 342, 512),
+                  "u1024": (64, 342, 1024), "ragged_u300": (37, 150, 300),
+                  "ragged_u520": (5, 23, 520)}
 # The bf16 kernels also at the CLI's default batch and past the
 # tensor-core tile (u > 128: its cluster tile), ragged there too.
 BF16_SHAPES = {"b256": (256, 342, 60), "u160": (256, 342, 160),
-               "u192_b1024": (1024, 342, 192), "u256": (256, 342, 256),
+               "u192_b1024": (1024, 342, 192),
                "ragged_wide": (37, 150, 200)}
 
 TRAIN_KERNELS = {
@@ -348,6 +372,9 @@ TRAIN_WIDE_TIMED = ("u128", "u129", "u200", "u256")
 LSTM_WIDE_UNITS = 128
 # Phase 19: both cells trained at the training kernels' ceiling.
 TRAIN_CEILING_UNITS = 256
+# Phase 20: models of these widths (the inference kernels' ceiling last)
+# predict through the CLI.
+PREDICT_WIDE_UNITS = (512, 1024)
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -518,28 +545,95 @@ def library_rnn_train(torch, gates: int, params, codes):
     return forward, forward_backward
 
 
+def avg_tile_line(torch, cell: str, batch: int, units: int, dtype) -> str:
+    """The tile a fused kernel runs at this shape: its name, CTAs x windows,
+    and past u=128 the CTAs a cluster and the clusters the card places at
+    once."""
+    from deepgrp_tpu_torch import _build
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    layout = cuda_rnn.avg_layout(cell, units, dtype)
+    windows, n_cta = cuda_rnn.avg_tile(cell, batch, units, None, dtype)
+    line = (f"{layout['tile']} tile, {n_cta} CTAs x {windows} windows, U in "
+            f"{layout['u_in']}")
+    if layout["cluster"] > 1:
+        slots = _build.load_kernels("rnn_avg").dg_avg_clusters(
+            4 if cell == "lstm" else 3, units, layout["max_windows"],
+            int(dtype == torch.bfloat16))
+        line += (f", clusters of {layout['cluster']} CTAs ({slots} at "
+                 f"once), {-(-units // layout['cluster'])} units a CTA")
+    return line
+
+
+def window_bits(torch, run, codes) -> None:
+    """A second launch gives the first one's bits, and a window alone
+    (the 14th, or the last) its bits inside the batch; raises if not."""
+    first, again = run(codes), run(codes)
+    w = min(13, codes.shape[0] - 1)
+    alone = run(codes[w:w + 1].contiguous())
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+    single = all(torch.equal(a[0], b[w]) for a, b in zip(alone, first))
+    print(f"  second launch bitwise equal: {repeat}; window {w} alone "
+          f"bitwise equal to its row in the batch: {single}", flush=True)
+    if not (repeat and single):
+        raise AssertionError("the kernel's bits depend on the launch or on "
+                             "a window's place in the batch")
+
+
+def refuses_past_ceiling(torch, gen) -> None:
+    """u=1025 raises ValueError in both dtypes before any launch."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    for name, (gates, _) in KERNELS.items():
+        params, codes = random_rnn(torch, gen, gates, 2, 3, 1025)
+        for dtype in (torch.float32, torch.bfloat16):
+            before = cuda_rnn.LAUNCHES.snapshot()
+            try:
+                getattr(cuda_rnn, name)(params, codes, dtype)
+            except ValueError as err:
+                print(f"{name} {str(dtype).split('.')[-1]} u=1025: "
+                      f"ValueError: {err}", flush=True)
+            else:
+                raise AssertionError(f"{name} took u=1025")
+            if cuda_rnn.LAUNCHES.snapshot() != before:
+                raise AssertionError(f"{name} launched at u=1025")
+
+
 def kernel_phase(torch):
+    from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
+    log = (_build.BUILD_DIR / "rnn_avg.log").read_text()
+    for template, fields in (("AvgKernel", "gates, windows a lane group, U "
+                                           "in registers"),
+                             ("AvgClusterKernel", "gates, windows a lane "
+                                                  "group, CTAs a cluster, U "
+                                                  "in shared memory")):
+        for args, usage in sorted(ptxas_usage(log, template).items()):
+            print(f"ptxas {template}<{args}> ({fields}): {usage}",
+                  flush=True)
     gen = torch.Generator().manual_seed(2024)
     results = {}
     for name, (gates, _) in KERNELS.items():
         kernel = getattr(cuda_rnn, name)
         plain = getattr(rnn, f"{name}_plain")
-        for label, (batch, steps, units) in {**SHAPES,
-                                             **WIDE_SHAPES}.items():
+        cell = name.split("_")[0]
+        for label, (batch, steps, units) in {**SHAPES, **WIDE_SHAPES,
+                                             **CLUSTER_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
-            windows, n_cta = cuda_rnn.avg_tile(name.split("_")[0], batch,
-                                             units)
-            print(f"{name} {label}: tile {n_cta} CTAs x {windows} "
-                  f"windows ({4 * units}-thread lane groups)", flush=True)
+            print(f"{name} {label}: "
+                  f"{avg_tile_line(torch, cell, batch, units, torch.float32)}",
+                  flush=True)
             avg, hidden = kernel(params, codes)
             torch.cuda.synchronize()
             p_avg, p_hidden = plain(params, codes)
             torch.cuda.synchronize()
             err = max((avg - p_avg).abs().max().item(),
                       (hidden - p_hidden).abs().max().item())
+            if units > 128:
+                window_bits(torch, lambda c: kernel(params, c), codes)
             lib = library_rnn(torch, gates, params, codes)
             lib_err = (lib() - p_avg).abs().max().item()
             ms = cuda_ms(torch, lambda: kernel(params, codes), 20)
@@ -549,11 +643,9 @@ def kernel_phase(torch):
             n_bytes = (codes.numel() + 4 * sum(p.numel()
                                                for p in params.values())
                        + 4 * (avg.numel() + hidden.numel()))
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
-                   "bound_ms": 1e3 * max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                   **bound(flops, n_bytes, PEAK_F32_FLOPS)}
             print(f"{name} {label} B={batch} T={steps} u={units}: "
                   f"max_abs_err={err:.3g} (cuDNN vs plain {lib_err:.3g}) "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
@@ -564,6 +656,7 @@ def kernel_phase(torch):
                 raise AssertionError(f"{name} {label}: kernel differs from "
                                      f"its plain version by {err}")
             results[(name, label)] = row
+    refuses_past_ceiling(torch, gen)
     return results
 
 
@@ -1440,7 +1533,8 @@ def seq_kernel_phase(torch):
 def bf16_kernel_phase(torch):
     """Phase 8b: the bf16 variants of the fused kernels against their
     plain versions, each row with the tile it ran (the tensor-core tile up
-    to u=128, its cluster tile beyond)."""
+    to u=128, its cluster tile beyond, up to u=1024; there a second launch
+    and a window alone must give the same bits)."""
     from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
@@ -1455,22 +1549,22 @@ def bf16_kernel_phase(torch):
         plain = getattr(rnn, f"{name}_plain")
         cell = name.split("_")[0]
         for label, (batch, steps, units) in {**SHAPES, **WIDE_SHAPES,
-                                             **BF16_SHAPES}.items():
+                                             **BF16_SHAPES,
+                                             **CLUSTER_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
-            windows, n_cta = cuda_rnn.avg_tile(cell, batch, units, None,
-                                               torch.bfloat16)
-            cluster = cuda_rnn.avg_bf16_cluster(cell, units)
-            tile = (f"{cuda_rnn.avg_bf16_tile(cell, units)} tile, {n_cta} "
-                    f"CTAs x {windows} windows"
-                    + (f", clusters of {cluster} CTAs" if cluster > 1
-                       else ""))
+            tile = avg_tile_line(torch, cell, batch, units, torch.bfloat16)
             avg, hidden = kernel(params, codes, torch.bfloat16)
             torch.cuda.synchronize()
             p_avg, p_hidden = plain(params, codes, torch.bfloat16)
             torch.cuda.synchronize()
             err = max((avg.float() - p_avg.float()).abs().max().item(),
                       (hidden.float() - p_hidden.float()).abs().max().item())
+            print(f"{name}_bf16 {label}: {tile}", flush=True)
+            if units > 128:
+                window_bits(torch,
+                            lambda c: kernel(params, c, torch.bfloat16),
+                            codes)
             lib = library_rnn(torch, gates, params, codes, torch.bfloat16)
             ms = cuda_ms(torch, lambda: kernel(params, codes,
                                                torch.bfloat16), 20)
@@ -1484,8 +1578,8 @@ def bf16_kernel_phase(torch):
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
                    **bound(flops, n_bytes, PEAK_BF16_FLOPS)}
-            print(f"{name}_bf16 {label} B={batch} T={steps} u={units} "
-                  f"({tile}): max_abs_err={err:.3g} (tolerance "
+            print(f"{name}_bf16 {label} B={batch} T={steps} u={units}: "
+                  f"max_abs_err={err:.3g} (tolerance "
                   f"{BF16_TOL:g}) "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                   f"library_ms={library_ms:.4f} (cuDNN bf16) "
@@ -3857,6 +3951,90 @@ def launch_phase(torch, np, tmp: str, card: str) -> dict:
     return counts
 
 
+def wide_predict_phase(torch, np, tmp: str) -> dict:
+    """Phase 20: models past the training kernels' ceiling predict through
+    the CLI: ``gru_att`` and the LSTM of the flagship options at
+    :data:`PREDICT_WIDE_UNITS`, made by the port's initialiser from a seed
+    and written as model files; each predicts the three fixtures on the
+    fused route in float32 and bfloat16 (its kernel launched, no plain
+    version).  At u=512 the float32 engine's scored track of the first
+    fixture record on the card equals the same engine's on the CPU, and at
+    u=1024 ``gru_att``'s fused track equals the scan route's (row 7) on
+    the card: classes equal, max probability within 1e-5.  Returns the
+    launch counts of each run."""
+    from deepgrp_tpu_torch.data.fasta import read_multi_fasta
+    from deepgrp_tpu_torch.models.keras_io import save_model_npz
+    from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
+                                                init_params)
+    from deepgrp_tpu_torch.ops.encoding import encode_codes_trimmed
+    from deepgrp_tpu_torch.predict.engine import PredictionEngine
+
+    with open(os.path.join(FIXDIR, "gru_att.fa")) as fh:
+        codes = encode_codes_trimmed(next(read_multi_fasta(fh))[1])[1]
+    cells = {"gru_att": (FLAGSHIP, "gru"),
+             "lstm": ({**FLAGSHIP, "attention": False, "rnn": "LSTM"},
+                      "lstm")}
+    launches = {}
+    for units in PREDICT_WIDE_UNITS:
+        for label, (opts, cell) in cells.items():
+            name = f"{label}_u{units}"
+            config = ModelConfig(**{**opts, "units": units})
+            start = time.perf_counter()
+            params = init_params(config, torch.Generator().manual_seed(units))
+            model_path = os.path.join(tmp, f"{name}.npz")
+            save_model_npz(model_path, config, params)
+            print(f"{name}: initialised (seed {units}) and written in "
+                  f"{time.perf_counter() - start:.2f} s", flush=True)
+            for fixture in ("gru_att", "gru", "lstm"):
+                rows, seconds = {}, {}
+                for precision in ("float32", "bfloat16"):
+                    reset_counts()
+                    start = time.perf_counter()
+                    rows[precision] = predict_rows(
+                        REF_ARGS + ["--precision", precision, "--rnn-kernel",
+                                    "fused", "predict", model_path,
+                                    os.path.join(FIXDIR, f"{fixture}.fa")],
+                        os.path.join(tmp, f"{name}_{fixture}_{precision}"
+                                          ".bed"))
+                    seconds[precision] = time.perf_counter() - start
+                    suffix = "_bf16" if precision == "bfloat16" else ""
+                    launches[f"{name} {fixture} {precision}"] = check_path(
+                        f"{cell}_avg{suffix}")
+                same = len(set(rows["float32"]) & set(rows["bfloat16"]))
+                print(f"{name} predict {fixture}: {len(rows['float32'])} BED "
+                      f"rows in float32 ({seconds['float32']:.3f} s), "
+                      f"{len(rows['bfloat16'])} in bfloat16 "
+                      f"({seconds['bfloat16']:.3f} s), {same} rows in both",
+                      flush=True)
+            model = DeepGRPModel.from_params(config, params, "cuda")
+            if units == 512:
+                ref = PredictionEngine(
+                    DeepGRPModel.from_params(config, params, "cpu"),
+                    batch_size=64, step_size=50)
+                against = "the same engine on the CPU"
+            elif label == "gru_att":
+                ref = PredictionEngine(model, batch_size=64, step_size=50,
+                                       rnn_kernel="scan")
+                against = "the scan route (gru_seq) on the card"
+            else:
+                continue
+            reset_counts()
+            got_c, got_p = PredictionEngine(
+                model, batch_size=64, step_size=50).predict_scored(codes)
+            check_path(f"{cell}_avg")
+            want_c, want_p = ref.predict_scored(codes)
+            same_c = bool(np.array_equal(got_c, want_c))
+            diff = float(np.abs(got_p - want_p).max())
+            print(f"{name}: the fused route's f32 track of {codes.size} "
+                  f"positions against {against}: classes equal {same_c}, "
+                  f"max |maxp diff| {diff:.3g} (tolerance {TOL:g})",
+                  flush=True)
+            if not (same_c and diff <= TOL):
+                raise AssertionError(f"{name}: the fused track differs from "
+                                     f"{against}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4049,6 +4227,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as wide_tmp:
         path_launches = wide_training_phase(torch, np, wide_tmp)
     print(f"launches on phase 19's paths: {path_launches}; phase 19 took "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+
+    phase(f"20. wide models predict: gru_att and lstm at "
+          f"u={' and u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
+          f"weights from a seed) on the fixtures through the CLI in float32 "
+          f"and bf16; the track against the CPU (u=512) and the scan route "
+          f"(u=1024)")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wide_tmp:
+        path_launches = wide_predict_phase(torch, np, wide_tmp)
+    print(f"launches on phase 20's paths: {path_launches}; phase 20 took "
           f"{time.perf_counter() - start:.2f} s", flush=True)
 
     kernels = []

@@ -186,10 +186,11 @@ def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
         fn.argtypes = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _I32, _I32, _PTR,
                        _PTR, _PTR]
         fn.restype = _I32
-    # gates, units
-    for fn in (lib.dg_avg_max_windows, lib.dg_avg_bf16_max_windows,
-               lib.dg_avg_bf16_tile, lib.dg_avg_bf16_cluster):
-        fn.argtypes = [_I32, _I32]
+    lib.dg_avg_bf16_tile.argtypes = [_I32, _I32]  # gates, units
+    lib.dg_avg_layout.argtypes = [_I32, _I32, _I32, _PTR]  # ..., bf16, out
+    lib.dg_avg_clusters.argtypes = [_I32] * 4  # gates, units, bb, bf16
+    for fn in (lib.dg_avg_bf16_tile, lib.dg_avg_layout,
+               lib.dg_avg_clusters):
         fn.restype = _I32
 
 

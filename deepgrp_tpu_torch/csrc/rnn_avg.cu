@@ -41,7 +41,7 @@
 //   * Tile: a CTA owns bb windows (2bb rows) for all T steps, bb chosen by
 //     the caller from the batch and the SM count so the grid is one wave
 //     (1024 windows on 132 SMs: bb=8, 128 CTAs; the CLI's default 256:
-//     bb=2; the fixtures' 64: bb=1), at most 8 (2 above u=128).  Threads
+//     bb=2; the fixtures' 64: bb=1), at most 8.  Threads
 //     come in lane groups of 4u: thread 4 i + s of a group owns unit i and
 //     k-slice s (the float4 quads s, s+4, ... of the recurrent dot) for the
 //     group's kWin windows; a CTA has ceil(bb / kWin) groups.
@@ -49,8 +49,7 @@
 //     for its 16 k and the g gates: 48 floats GRU, 64 LSTM) in registers,
 //     with kWin = 4 (bb=8: 2 groups, 480 threads, 15 warps an SM), or 2
 //     when bb <= 2; wider layers read the slice through L1/L2 (one quad's
-//     4g entries at a time), with kWin = 8 up to u=128 (4u threads) and 2
-//     above (up to u=256, 1,024 threads).
+//     4g entries at a time), with kWin = 8 up to u=128 (4u threads).
 //   * Step: the lane forms the g gate partials of its group's 2 kWin rows
 //     over its slice, reading h as float4 broadcasts from shared memory
 //     (kWin=4: 32 g FMAs a quad against 8 shared loads); a fixed butterfly
@@ -63,8 +62,8 @@
 //     (no branch in the dot) and their sums are dropped.
 //   * Shared memory: the doubled h of bb windows twice, W [5, g u] and the
 //     codes, 4 (4 bb Pad4(u) + 5 g u) + bb T bytes: the LSTM at u=128, bb=8,
-//     T=342 takes 29,360 B; the width is bounded by the threads (4u <=
-//     1,024: u <= 256) for both cells.
+//     T=342 takes 29,360 B; the width is bounded by the threads (a lane
+//     group of 4u <= 512: u <= 128) for both cells.
 //   * Found on the H100 while choosing the GRU's tile: a branch on
 //     the window count inside the dot made the step markedly slower (the
 //     compiler could not interleave the windows' loads); 8 windows a group
@@ -83,11 +82,10 @@
 //     the LSTM takes the GRU's tile: the 28 bytes its kWin 4 register
 //     variant spills cost less than any other layout.
 //   * ptxas -v (sm_90a, CUDA 12.8): GRU kWin 4 with U in registers 128
-//     registers, kWin 2 with U in registers 111, kWin 8 through L1/L2 126,
-//     kWin 2 through L1/L2 64 (4 bytes of spill stores and loads); LSTM
-//     kWin 4 with U in registers 128 (28 bytes of spill stores and loads),
-//     kWin 2 with U in registers 126, kWin 8 through L1/L2 128, kWin 2
-//     through L1/L2 64; nothing else spills.
+//     registers, kWin 2 with U in registers 111, kWin 8 through L1/L2 126;
+//     LSTM kWin 4 with U in registers 128 (28 bytes of spill stores and
+//     loads), kWin 2 with U in registers 126, kWin 8 through L1/L2 128;
+//     nothing else spills.
 //   * What bounds it: the FMA issue of the dot (the floor at 1024 x 342 x
 //     60 on 128 SMs is about 0.23 ms GRU, 0.31 ms LSTM) plus the gate math
 //     (960 rows x units an SM a step at bb=8; three transcendentals each
@@ -98,9 +96,79 @@
 // PR 16's chip_smoke.py), slower than cuDNN's bf16 recurrence, and the
 // cluster tile below took its place.
 //
+// The float32 cluster tile (AvgClusterKernel<kGates, kWin, kCluster,
+// kUSmem>), which the float32 entry points run past u=128 up to the
+// ceiling u=1024 (kMaxUnits).  Past u=128 one CTA a window would read all
+// of U from L2 every step (the register tile's 2 windows a CTA at u=256:
+// 8.2622 / 10.7776 ms at B=256, slower than cuDNN), and 4u threads stop
+// at u=256.  So a window's units split over a thread-block cluster, as
+// the GRU sequence kernel's cluster tile (csrc/rnn_seq.cu) splits a
+// row's, with this file's windows and input:
+//   * The CTA of rank r owns units [r uc, (r + 1) uc), uc = ceil(u /
+//     kCluster) <= 64, with all their gates and all k of their columns of
+//     U, so its lanes (four k-slices a unit, the register tile's lane
+//     groups of kWin windows) form whole gate sums from the CTA's own full
+//     copy of h with the fixed butterfly: no partial sum crosses CTAs.
+//   * A window's forward and reverse-complement rows sit in the same
+//     CTA, so a unit's owner lane does both rows' gate math (Cell, the
+//     register tile's float32 arithmetic, the LSTM's c in a register),
+//     forms the average and stores avg (and hidden at T-1); it writes
+//     the unit's new h of both rows into the next buffer of every CTA of
+//     the cluster (st.shared::cluster), and one cluster barrier a step
+//     stands where the CTA's barrier stood.
+//   * The input is the row select: each CTA keeps its columns of W [5, g
+//     uc] in shared memory and its units' biases in registers (pad code
+//     5 selects the bias only); the codes are read through L1, so shared
+//     memory does not bound T.
+//   * Ragged widths: lanes past u (the last CTA's, when kCluster does not
+//     divide u) read the last unit's column and store nothing; windows
+//     past bb in a group read zero rows of h (no branch in the dot).
+//   * Layouts: up to u=256 8 CTAs, each CTA's slice of U in shared memory
+//     (98 kB GRU, 130 kB LSTM at u=256), 4 windows a lane group; past it
+//     16 CTAs (non-portable) streaming the slice through L1/L2 (196 kB a
+//     CTA a step for the GRU at u=512), 8 windows a lane group; 2 when the
+//     CTA owns at most 2; at most 8 windows a CTA.  The caller counts
+//     clusters in a wave and asks the card how many it places at once
+//     (dg_avg_clusters): on the H100 15 of 8 CTAs at u=256, of 16 CTAs 21
+//     at u=512 (CTAs of the L1/L2 layout share an SM) but 7 at u=1024
+//     (the two h buffers of 8 windows take 128 kB).
+//   * The layouts, timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
+//     (tools/avg_tile_sweep.py --min-units 129, T=342, ms a launch, GRU /
+//     LSTM): the register tile (2 windows a CTA, U through L1/L2) against
+//     8 CTAs at 2, 4 and 8 windows a cluster: u=160, B=256: 3.5004 /
+//     4.3013 against 3.5402, 3.0788, 2.0423 / 3.9114, 3.6314, 2.3690; B=1024:
+//     14.1796 / 17.2423 against 10.7716, 8.8875, 6.2662 / 15.5608,
+//     10.9302, 7.1398; u=200, B=256: 5.1715 / 6.5285 against 4.2761,
+//     5.0384, 4.0622 / 6.6779, 5.7882, 4.6692; B=1024: 21.1244 / 25.8290
+//     against 17.0017, 15.2262, 12.3754 / 23.8087, 17.4358, 13.5524;
+//     u=256, B=256: 8.4321 / 10.3821 against 6.4466, 6.3956, 5.5402 /
+//     10.1188, 7.4010, 6.2491; B=1024: 31.9709 / 40.9670 against 22.8968,
+//     22.9307, 16.6558 / 39.0031, 26.5938, 18.7939.  Past u=256, 16 CTAs
+//     with U in shared memory at 2 windows a cluster (the GRU's slice fits
+//     beside 2 up to u=512, the LSTM's up to u=448) against U through
+//     L1/L2 at 2, 4 and 8: u=300, B=256: 14.1780 / 17.0470 against
+//     14.7025, 15.8506, 8.8753 / 22.6416, 20.0151, 11.0055; u=512, B=256:
+//     27.7318 / - against 34.0921, 34.1962, 20.2449 / 42.8060, 43.0080,
+//     25.0810; u=1024, B=64: 37.1939, 44.4544, 30.8815 / 50.2227,
+//     58.0800, 39.8692 through L1/L2.  So the cluster tile from u=129 on,
+//     and past u=256 the L1/L2 layout at 8 windows: the smem layout's 2
+//     windows a cluster take 4x the waves.
+//   * ptxas -v (sm_90a, CUDA 12.8): AvgClusterKernel<3, 4, 8, shared> 104
+//     registers, <4, 4, 8, shared> 128, <3, 8, 16, L1/L2> 124, <4, 8, 16,
+//     L1/L2> 128, kWin 2 96-101; no spills.
+//   * What bounds it: up to u=256 the step's latency (a CTA of 4 uc
+//     threads, one or two warps a scheduler, the cluster barrier), as the
+//     GRU sequence kernel's; past it the L2 stream of U's slices (every
+//     cluster reads all of U each step: 3 MB for the GRU at u=512, 12.6
+//     MB at u=1024), where cuDNN is faster (PERF.md).
+//   * A window's bits depend on its codes and the weights only: each
+//     unit's sum runs in an order fixed by u (its quads in order, then the
+//     butterfly), nothing is atomic, whatever the window's cluster, CTA
+//     or lane.
+//
 // The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem, kCluster>),
 // which the _bf16 entry points run up to u=128 (kMmaUnits) one CTA a
-// window, and up to u=256 as its cluster tile (the last bullets).  Bound at
+// window, and up to u=1024 as its cluster tile (the last bullets).  Bound at
 // the
 // flagship shape: the same 14.8 / 19.7 MFLOP a window at the bf16
 // tensor-core rate (989 TFLOP/s), 0.0153 ms GRU and 0.0204 ms LSTM at
@@ -233,6 +301,38 @@
 //     a step an SM), then the cluster barrier (0.75 / 1.7 us a step, skew
 //     between the CTAs included), the gates and the mma chain; the
 //     hand-off costs 3-10 %.
+//   * Past u=256 the cluster tile takes clusters of up to 16 CTAs and 64
+//     k-tiles (kKT 32 up to u=512, 64 up to u=1024): the fewest of 2, 4,
+//     8 and 16 CTAs whose share of U's fragments fits a CTA beside 8
+//     windows (Bf16Cluster: the GRU 4 up to u=352, 8 up to u=496, 16
+//     beyond; the LSTM 4 up to u=304, 8 up to u=432, 16 beyond), 16
+//     windows a CTA where two m-tiles fit.  Past u=640 (GRU) / 592 (LSTM)
+//     not even 16 CTAs hold their fragments (384 / 512 kB a CTA at
+//     u=1024): there each warp forms its fragments every step from U read
+//     through L1/L2 (UFragment: four float32 loads a fragment, 32 bytes of
+//     a column in each of four rows a warp, so every sector is used) and
+//     rounds them as the shared-memory variant does, a few k-tiles in
+//     flight (unrolled over all 64, the compiler hoisted every load into
+//     registers and spilled 8-12 kB).
+//   * Timed on an NVIDIA H100 80GB HBM3 at 700 W (tools/avg_tile_sweep.py
+//     --kernel avg_bf16 --min-units 257, T=342, ms at 4, 8 and 16 windows
+//     a CTA, GRU / LSTM): u=300, B=256, clusters of 4: 3.1524, 2.3503,
+//     1.7201 / 3.7451, 2.6397, - (does not fit); of 8: 3.1398, 2.5671,
+//     2.5363 / 5.1791, 3.1215, 2.8589; of 16: 4.6390, 3.1571, 3.6653 /
+//     5.7894, 4.1229, 4.0298; u=512, B=256, 16 CTAs: 12.5263, 7.0229,
+//     5.4198 / 12.8178, 7.1345, 5.6569; u=640, B=256, 16 CTAs, fragments
+//     in shared memory: 15.7924, 8.6038, - / -, -, - (do not fit); through
+//     L1/L2: 24.3068, 14.6253, 16.8169 / 30.5518, 18.3873, 19.3295;
+//     u=1024, B=64, through L1/L2: 21.8873, 11.6813, 11.5368 / 27.6849,
+//     14.7301, 14.5990.  So the fewest CTAs that fit, as up to u=256.
+//   * ptxas -v: MmaAvgKernel<3, 32, shared, 4 / 8 / 16> 60 / 76 / 84
+//     registers, <4, 32, shared, 4 / 8 / 16> 64 / 82 / 90, <3 or 4, 64,
+//     shared, 16> 84 / 90, no spills; <3, 64, L1/L2, 16> 128 registers
+//     and 8 bytes of spill stores, <4, 64, L1/L2, 16> 128 and 4.
+//   * What bounds it past u=640: the L2 stream of U (each cluster reads
+//     all of U in float32 each step, 12.6 / 16.8 MB at u=1024), as the
+//     float32 tile; pre-rounded bf16 fragments in device memory would
+//     halve it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,8 +345,8 @@ namespace {
 constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
 constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
-constexpr int kTileUnits = 128;  // widest layer with 8 windows a CTA
-constexpr int kMaxUnits = kMaxThreads / kSlices;  // 256
+constexpr int kTileUnits = 128;  // widest layer of the register tile
+constexpr int kMaxUnits = 1024;  // widest layer of either dtype
 constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
@@ -255,9 +355,54 @@ __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
 }
 
-// Windows a CTA may own at this width.
+// Shared memory a block of the current device may opt in to (0 on a CUDA
+// error).
+size_t SmemOptin() {
+  int device = 0, optin = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  return static_cast<size_t>(optin);
+}
+
+// ---- The float32 cluster tile's layout ------------------------------------
+
+// CTAs a cluster of the float32 kernels at this width (1: the register
+// tile, one CTA a window; see the note above); each CTA of 8 keeps its
+// slice of U in shared memory, of 16 reads it through L1/L2.
+__host__ __device__ __forceinline__ int AvgCluster(int units) {
+  return units <= kTileUnits ? 1 : units <= 256 ? 8 : 16;
+}
+
+// Floats a k row of a CTA's shared slice of U takes: its g uc columns,
+// padded to 2 mod 8 so that the four lanes of a unit (4 k rows apart, 8
+// banks apart) read other banks.
+__host__ __device__ __forceinline__ int UColStride(int cols) {
+  return cols + ((2 - cols) % 8 + 8) % 8;
+}
+
+// Shared memory of the float32 cluster tile in bytes, for bb windows a CTA
+// in lane groups of `win`: the doubled h of the windows (padded to whole
+// groups) twice, the CTA's columns of W [5][g uc] and, with u_smem, its
+// slice of U [Pad4(u)][UColStride(g uc)].
+__host__ __device__ inline size_t ClusterSmem(int gates, int units, int bb,
+                                              int win, int cluster,
+                                              bool u_smem) {
+  const int uc = (units + cluster - 1) / cluster;
+  const size_t rows_pad = 2 * static_cast<size_t>((bb + win - 1) / win) * win;
+  const size_t u_floats =
+      u_smem ? static_cast<size_t>(Pad4(units)) * UColStride(gates * uc) : 0;
+  return sizeof(float) * (2 * rows_pad * Pad4(units) +
+                          static_cast<size_t>(kCodes) * gates * uc +
+                          u_floats);
+}
+
+// Windows a CTA (of a cluster: each of its CTAs) of the float32 kernels
+// may own at this width (0: refused).
 __host__ __device__ __forceinline__ int MaxWindows(int units) {
-  return units <= kTileUnits ? 8 : 2;
+  return units > 0 && units <= kMaxUnits ? 8 : 0;
 }
 
 // The cell of unit i: its bias in registers and the Keras gate math of one
@@ -326,19 +471,85 @@ struct Cell<4> {
   }
 };
 
+// ---- The step of a lane group, shared by both float32 tiles ---------------
+
+// Windows a lane of a group of `win` owns after the butterfly.
+__host__ __device__ constexpr int OwnWindows(int win) {
+  return win >= 4 ? win / 4 : 1;
+}
+
+// The j-th of them: w0 + 4 j + s (kWin >= 4), or w0 + (s & 1), shared by
+// lanes s and s ^ 2 (kWin 2).
+template <int kWin>
+__device__ __forceinline__ int OwnWindow(int w0, int s, int j) {
+  return w0 + (kWin >= 4 ? 4 * j + s : s & 1);
+}
+
+// Adds quad q of the lane's k-slice to the gate partials of its group's 2
+// kWin rows: u(c, g) is U[4 q + c] of gate g in the lane's column, row(w,
+// b) the h of window w's branch b in shared memory.  Each U entry, loaded
+// once, feeds 2 kWin rows.
+template <int kWin, int kGates, typename UAt, typename Row>
+__device__ __forceinline__ void QuadDot(float (&acc)[kWin][2][kGates], int q,
+                                        const UAt &u, const Row &row) {
+  float u_q[4][kGates];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) u_q[c][g] = u(c, g);
+  }
+#pragma unroll
+  for (int w = 0; w < kWin; ++w) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float4 h4 = reinterpret_cast<const float4 *>(row(w, b))[q];
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int g = 0; g < kGates; ++g) {
+          acc[w][b][g] = fmaf(hv[c], u_q[c][g], acc[w][b][g]);
+        }
+      }
+    }
+  }
+}
+
+// A window's step on both branches from their sums and codes: the gate
+// math on the input rows (w_col: the lane's column of W [5][..], rows
+// w_stride apart, gates g_stride apart; pad selects none), the new h to
+// store(b, h), and the branch average of the unit (column `unit` of avg
+// [B, T, u]) at step t, and of hidden at T-1, for a row in the batch.
+template <int kGates, typename Store>
+__device__ __forceinline__ void StepWindow(
+    const Cell<kGates> &cell, const float (&dot)[2][kGates],
+    const int (&code)[2], const float *w_col, int w_stride, int g_stride,
+    float (&h)[2], float (&c)[2], const Store &store, int row, int batch,
+    int steps, int t, int units, int unit, float *__restrict__ avg,
+    float *__restrict__ hidden) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const bool has_w = static_cast<unsigned>(code[b]) < kCodes;
+    cell.step(dot[b], w_col + (has_w ? code[b] : 0) * w_stride, has_w,
+              g_stride, h[b], c[b]);
+    store(b, h[b]);
+  }
+  if (row < batch) {
+    const float mean = (h[0] + h[1]) * 0.5f;
+    avg[(static_cast<size_t>(row) * steps + t) * units + unit] = mean;
+    if (t == steps - 1) hidden[static_cast<size_t>(row) * units + unit] = mean;
+  }
+}
+
 // kWin windows a lane group (4u threads); ceil(bb / kWin) groups a CTA.
 template <int kGates, int kWin, bool kURegs>
-__global__ void __launch_bounds__(kWin == 2 && !kURegs ? kMaxThreads
-                                                       : kMaxThreads / 2,
-                                  1)
+__global__ void __launch_bounds__(kMaxThreads / 2, 1)
 AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
           const float *__restrict__ kernel, const float *__restrict__ bias,
           const float *__restrict__ recurrent, int units, int bb,
           float *__restrict__ avg, float *__restrict__ hidden) {
   static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
-  // Windows a lane owns after the butterfly: w0 + 4 j + s (kWin >= 4), or
-  // w0 + (s & 1), shared by lanes s and s ^ 2 (kWin 2).
-  constexpr int kOwn = kWin >= 4 ? kWin / 4 : 1;
+  constexpr int kOwn = OwnWindows(kWin);
   extern __shared__ float4 smem4[];
   const int width = kGates * units;
   const int hstride = Pad4(units);
@@ -367,11 +578,6 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   const int n_quads = Pad4(units) / 4 > s
                           ? (Pad4(units) / 4 - s + kSlices - 1) / kSlices
                           : 0;
-  int own_w[kOwn];
-#pragma unroll
-  for (int j = 0; j < kOwn; ++j) {
-    own_w[j] = w0 + (kWin >= 4 ? 4 * j + s : s & 1);
-  }
   const bool writer = kWin >= 4 || s < 2;
   // The group's windows past the CTA's bb read the last one's rows (a
   // branch here would keep the compiler from interleaving the windows'
@@ -386,35 +592,12 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     const float *h_cur = s_h + (t & 1) * 2 * bb * hstride;
     float *h_nxt = s_h + ((t + 1) & 1) * 2 * bb * hstride;
 
-    // Partial gate dots of the group's rows over the lane's slice: each U
-    // entry, loaded once, feeds 2 kWin rows.
     float acc[kWin][2][kGates] = {};
     auto quad = [&](int m) {
-      const int q = s + kSlices * m;
-      float u_q[4][kGates];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int g = 0; g < kGates; ++g) {
-          u_q[c][g] = us.at(m, c, g, s, units, i);
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < kWin; ++w) {
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const float4 h4 = reinterpret_cast<const float4 *>(
-              h_cur + h_row[w] + b * hstride)[q];
-          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-#pragma unroll
-            for (int g = 0; g < kGates; ++g) {
-              acc[w][b][g] = fmaf(hv[c], u_q[c][g], acc[w][b][g]);
-            }
-          }
-        }
-      }
+      QuadDot<kWin, kGates>(
+          acc, s + kSlices * m,
+          [&](int c, int g) { return us.at(m, c, g, s, units, i); },
+          [&](int w, int b) { return h_cur + h_row[w] + b * hstride; });
     };
     if constexpr (kURegs) {
 #pragma unroll
@@ -424,10 +607,10 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     } else {
       for (int m = 0; m < n_quads; ++m) quad(m);
     }
-
     // Reduce-scatter over the unit's four lanes: xor 1, then xor 2 (for
     // kWin 2 the second level is an all-reduce: a + b == b + a, so lanes s
-    // and s ^ 2 hold the same bits).
+    // and s ^ 2 hold the same bits).  Written out in each kernel: as a
+    // shared helper it made the cluster tile's step slower on the H100.
     float dot[kOwn][2][kGates];
     if constexpr (kWin >= 4) {
       float half[kWin / 2][2][kGates];
@@ -447,25 +630,14 @@ AvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     // The gate math of the lane's windows, both branches.
 #pragma unroll
     for (int j = 0; j < kOwn; ++j) {
-      const int w = own_w[j];
+      const int w = OwnWindow<kWin>(w0, s, j);
       if (!writer || w >= bb) continue;
       const int8_t *w_codes = s_codes + w * steps;
       const int code_b[2] = {w_codes[t], Complement(w_codes[steps - 1 - t])};
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const bool has_w = static_cast<unsigned>(code_b[b]) < kCodes;
-        cell.step(dot[j][b], s_w + (has_w ? code_b[b] : 0) * width + i,
-                  has_w, units, h_own[j][b], c_own[j][b]);
-        h_nxt[(2 * w + b) * hstride + i] = h_own[j][b];
-      }
-      const int row = row0 + w;
-      if (row < batch) {
-        const float mean = (h_own[j][0] + h_own[j][1]) * 0.5f;
-        avg[(static_cast<size_t>(row) * steps + t) * units + i] = mean;
-        if (t == steps - 1) {
-          hidden[static_cast<size_t>(row) * units + i] = mean;
-        }
-      }
+      StepWindow(
+          cell, dot[j], code_b, s_w + i, width, units, h_own[j], c_own[j],
+          [&](int b, float h) { h_nxt[(2 * w + b) * hstride + i] = h; },
+          row0 + w, batch, steps, t, units, i, avg, hidden);
     }
     __syncthreads();
   }
@@ -494,18 +666,220 @@ int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch bound of the cluster tile: a CTA owns at most 64 units and 8
+// windows, in one or two lane groups of 4 uc threads (256), but 8
+// windows a group through L1/L2 keep 512 (128 registers), as the GRU
+// sequence kernel's 16 rows a group do (csrc/rnn_seq.cu).
+__host__ __device__ constexpr int ClusterThreads(int win, bool u_smem) {
+  return win >= 8 && !u_smem ? 512 : 256;
+}
+
+// The float32 cluster tile (see the note above): kCluster CTAs a cluster
+// split a window's units, uc = ceil(u / kCluster) each; kWin windows a
+// lane group of 4 uc threads, ceil(bb / kWin) groups a CTA; kUSmem keeps
+// the CTA's slice of U in shared memory (else it is read through L1/L2).
+template <int kGates, int kWin, int kCluster, bool kUSmem>
+__global__ void __launch_bounds__(ClusterThreads(kWin, kUSmem), 1)
+AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
+                 const float *__restrict__ kernel,
+                 const float *__restrict__ bias,
+                 const float *__restrict__ recurrent, int units, int bb,
+                 float *__restrict__ avg, float *__restrict__ hidden) {
+  static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
+  static_assert(kCluster > 1, "one CTA a window is the register tile");
+  constexpr int kOwn = OwnWindows(kWin);
+  extern __shared__ float4 smem4[];
+  const int width = kGates * units;
+  const int hstride = Pad4(units);
+  const int rows_pad = 2 * ((bb + kWin - 1) / kWin) * kWin;
+  // The CTA's units of a window: [base, base + uc), with their columns of
+  // W, the biases and U (cols a row).
+  const int uc = (units + kCluster - 1) / kCluster;
+  const int base = static_cast<int>(ClusterRank()) * uc;
+  const int cols = kGates * uc;
+  const int ustride = UColStride(cols);
+  float *s_h = reinterpret_cast<float *>(smem4);  // [2][rows_pad][hstride]
+  float *s_w = s_h + 2 * rows_pad * hstride;      // [5][cols]
+  float *s_u = s_w + kCodes * cols;               // [Pad4(u)][ustride]
+
+  const int tid = threadIdx.x;
+  const int group = tid / (kSlices * uc);
+  const int lane = tid - group * kSlices * uc;
+  const int i = lane / kSlices, s = lane % kSlices;
+  const int unit = base + i;  // the lane's unit of the window
+  const int w0 = group * kWin;
+  const int row0 = blockIdx.x / kCluster * bb;
+  for (int j = tid; j < 2 * rows_pad * hstride; j += blockDim.x) {
+    s_h[j] = 0.0f;
+  }
+  // Column o of the CTA's cols (gate o / uc, unit base + o % uc) in a
+  // matrix of the window's width; -1 past u.
+  auto column = [&](int o) {
+    const int g = o / uc, n = base + o - g * uc;
+    return n < units ? g * units + n : -1;
+  };
+  for (int j = tid; j < kCodes * cols; j += blockDim.x) {
+    const int c = j / cols, col = column(j - c * cols);
+    s_w[j] = col >= 0 ? kernel[c * width + col] : 0.0f;
+  }
+  if constexpr (kUSmem) {
+    for (int j = tid; j < Pad4(units) * ustride; j += blockDim.x) {
+      const int k = j / ustride, o = j - k * ustride;
+      const int col = o < cols && k < units ? column(o) : -1;
+      s_u[j] = col >= 0 ? recurrent[k * width + col] : 0.0f;
+    }
+  }
+  // A lane past u (the last CTA's, when kCluster does not divide u) reads
+  // the last unit's column of U and bias; its sums are dropped.
+  const int u_col = min(unit, units - 1);
+  USlice<kGates, false, false> us;
+  us.load(recurrent, units, u_col, s);
+  Cell<kGates> cell;
+  cell.load(bias, units, u_col);
+  const float *u_lane = s_u + i;
+  const unsigned lanes = WarpLanes();
+  const int n_quads = Pad4(units) / 4 > s
+                          ? (Pad4(units) / 4 - s + kSlices - 1) / kSlices
+                          : 0;
+  const bool writer = (kWin >= 4 || s < 2) && unit < units;
+  float h_own[kOwn][2] = {}, c_own[kOwn][2] = {};
+  // The h buffers of the cluster's CTAs (the first must not be written
+  // before its CTA has zeroed it: the barrier below).
+  uint32_t h_peer[kCluster];
+#pragma unroll
+  for (int p = 0; p < kCluster; ++p) h_peer[p] = PeerAddress(s_h, p);
+  ClusterBarrier();
+
+  for (int t = 0; t < steps; ++t) {
+    // The codes of the lane's windows (they do not wait for h), through
+    // L1: windows past the batch read pad.
+    int code_b[kOwn][2];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      const int w = OwnWindow<kWin>(w0, s, j), row = row0 + w;
+      const int8_t *w_codes = codes + static_cast<size_t>(row) * steps;
+      const bool in_batch = writer && w < bb && row < batch;
+      code_b[j][0] = in_batch ? w_codes[t] : kPadCode;
+      code_b[j][1] = in_batch ? Complement(w_codes[steps - 1 - t])
+                              : kPadCode;
+    }
+    // The group's rows (the windows past bb are zero rows: no branch in
+    // the dot).
+    const float *h_cur = s_h + ((t & 1) * rows_pad + 2 * w0) * hstride;
+    const int nxt = ((t + 1) & 1) * rows_pad * hstride;
+
+    float acc[kWin][2][kGates] = {};
+    for (int m = 0; m < n_quads; ++m) {
+      const int q = s + kSlices * m;
+      QuadDot<kWin, kGates>(
+          acc, q,
+          [&](int c, int g) {
+            if constexpr (kUSmem) {
+              return u_lane[(4 * q + c) * ustride + g * uc];
+            } else {
+              return us.at(m, c, g, s, units, u_col);
+            }
+          },
+          [&](int w, int b) { return h_cur + (2 * w + b) * hstride; });
+    }
+    // The register tile's butterfly.
+    float dot[kOwn][2][kGates];
+    if constexpr (kWin >= 4) {
+      float half[kWin / 2][2][kGates];
+      FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, half);
+      FoldWindows<kWin / 2, kGates>(half, (s >> 1) & 1, 2, lanes, dot);
+    } else {
+      FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, dot);
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int g = 0; g < kGates; ++g) {
+          dot[0][b][g] += __shfl_xor_sync(lanes, dot[0][b][g], 2);
+        }
+      }
+    }
+
+    // The gate math of the lane's windows, both branches; the unit's new
+    // h into every CTA's next buffer (its own too).
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      const int w = OwnWindow<kWin>(w0, s, j);
+      if (!writer || w >= bb) continue;
+      StepWindow(
+          cell, dot[j], code_b[j], s_w + i, cols, uc, h_own[j], c_own[j],
+          [&](int b, float h) {
+            const uint32_t at =
+                sizeof(float) * (nxt + (2 * w + b) * hstride + unit);
+#pragma unroll
+            for (int p = 0; p < kCluster; ++p) StoreCluster(h_peer[p] + at, h);
+          },
+          row0 + w, batch, steps, t, units, unit, avg, hidden);
+    }
+    ClusterBarrier();
+  }
+}
+
+// Launches a layout of the cluster tile; with `slots`, launches nothing
+// and writes the clusters of it the card runs at once (0 if it cannot
+// place one).
+template <int kGates, int kWin, int kCluster, bool kUSmem>
+int LaunchClusterTile(const void *codes, int batch, int steps,
+                      const void *kernel, const void *bias,
+                      const void *recurrent, int units, int bb, void *avg,
+                      void *hidden, cudaStream_t stream,
+                      int *slots = nullptr) {
+  const auto fn = AvgClusterKernel<kGates, kWin, kCluster, kUSmem>;
+  const int uc = (units + kCluster - 1) / kCluster;
+  const int threads = (bb + kWin - 1) / kWin * kSlices * uc;
+  if (threads > ClusterThreads(kWin, kUSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      ClusterSmem(kGates, units, bb, kWin, kCluster, kUSmem);
+  if (slots != nullptr) {
+    *slots = ClusterSlots(fn, threads, smem, kCluster);
+    return 0;
+  }
+  const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
+  return static_cast<int>(LaunchCluster(
+      fn, (batch + bb - 1) / bb * kCluster, threads, smem, kCluster, stream,
+      static_cast<const int8_t *>(codes), batch, steps, f32(kernel),
+      f32(bias), f32(recurrent), units, bb, static_cast<float *>(avg),
+      static_cast<float *>(hidden)));
+}
+
 // The float32 tile by width and windows a CTA (measured on the H100, see
-// the note above): U in registers with 4 windows a lane group (2 when the
-// CTA owns at most 2), U through L1/L2 with 8 windows, then 2 past u=128.
+// the note above): up to u=128 the register tile, U in registers with 4
+// windows a lane group (2 when the CTA owns at most 2), U through L1/L2
+// with 8 windows; past it the cluster tile, 4 windows a group on 8 CTAs
+// (U in shared memory), 8 on 16 (U through L1/L2), 2 when the CTA owns at
+// most 2.  With `slots`, launches nothing and writes the clusters the
+// card runs at once (0 without a cluster).
 template <int kGates>
 int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
-              void *avg, void *hidden, void *stream) {
-  if (batch <= 0 || steps <= 0 || units <= 0 || units > kMaxUnits ||
-      bb < 1 || bb > MaxWindows(units)) {
+              void *avg, void *hidden, void *stream, int *slots = nullptr) {
+  if (batch <= 0 || steps <= 0 || bb < 1 || bb > MaxWindows(units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto launch = [&](auto fn) {
+    return fn(codes, batch, steps, kernel, bias, recurrent, units, bb, avg,
+              hidden, s, slots);
+  };
+  const int cluster = AvgCluster(units);
+  if (cluster == 8) {
+    return bb <= 2 ? launch(LaunchClusterTile<kGates, 2, 8, true>)
+                   : launch(LaunchClusterTile<kGates, 4, 8, true>);
+  }
+  if (cluster == 16) {
+    return bb <= 2 ? launch(LaunchClusterTile<kGates, 2, 16, false>)
+                   : launch(LaunchClusterTile<kGates, 8, 16, false>);
+  }
+  if (slots != nullptr) {
+    *slots = 0;
+    return 0;
+  }
   if (units <= kRegUnits) {
     return bb <= 2 ? LaunchTile<kGates, 2, true>(
                          codes, batch, steps, kernel, bias, recurrent, units,
@@ -514,11 +888,7 @@ int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
                          codes, batch, steps, kernel, bias, recurrent, units,
                          bb, avg, hidden, s);
   }
-  if (units <= kTileUnits) {
-    return LaunchTile<kGates, 8, false>(codes, batch, steps, kernel, bias,
-                                        recurrent, units, bb, avg, hidden, s);
-  }
-  return LaunchTile<kGates, 2, false>(codes, batch, steps, kernel, bias,
+  return LaunchTile<kGates, 8, false>(codes, batch, steps, kernel, bias,
                                       recurrent, units, bb, avg, hidden, s);
 }
 
@@ -638,8 +1008,8 @@ __host__ __device__ constexpr int MmaThreads(int k_tiles, int cluster) {
 }
 
 // kKT: most k-tiles (u <= 16 kKT); kUSmem: U's fragments in shared memory
-// (else in registers); kCluster CTAs a cluster split the unit groups (1:
-// none).  A CTA owns bb windows, ceil(bb / 8) m-tiles; warp w is its unit
+// (else in registers, or on a cluster formed each step from U through
+// L1/L2); kCluster CTAs a cluster split the unit groups (1: none).  A CTA owns bb windows, ceil(bb / 8) m-tiles; warp w is its unit
 // group w % local of m-tile w / local.
 template <int kGates, int kKT, bool kUSmem, int kCluster = 1>
 __global__ void __launch_bounds__(MmaThreads(kKT, kCluster), 1)
@@ -650,7 +1020,9 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
              __nv_bfloat16 *__restrict__ hidden) {
   static_assert(MmaThreads(kKT, kCluster) <= kMaxThreads,
                 "more threads than a CTA may have");
-  static_assert(kCluster == 1 || kUSmem, "a cluster keeps U in shared memory");
+  // U's fragments in registers (one CTA a window), in shared memory, or
+  // (a cluster without kUSmem) formed each step from U through L1/L2.
+  constexpr bool kURegs = !kUSmem && kCluster == 1;
   extern __shared__ float4 smem4[];
   const MmaLayout lay(kGates, units, bb, steps, kUSmem, kCluster);
   const int width = lay.width, hstride = lay.hstride, xcols = lay.xcols;
@@ -701,8 +1073,8 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
   const int unit0 = 8 * ug + 2 * tq;  // the lane's units: unit0, unit0 + 1
   const bool mine[2] = {unit0 < units, unit0 + 1 < units};  // not padding
   const bool pair_store = mine[1] && (units & 1) == 0;
-  uint2 u_reg[kUSmem ? 1 : kKT][kGates];
-  if constexpr (!kUSmem) {
+  uint2 u_reg[kURegs ? kKT : 1][kGates];
+  if constexpr (kURegs) {
 #pragma unroll
     for (int kt = 0; kt < kKT; ++kt) {
 #pragma unroll
@@ -770,19 +1142,36 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
     float acc[kGates][4] = {};
     const __nv_bfloat16 *a_row =
         h_cur + (16 * mi + (lane & 15)) * hstride + 8 * (lane >> 4);
+    if constexpr (kUSmem || kURegs) {
 #pragma unroll
-    for (int kt = 0; kt < kKT; ++kt) {
-      if (kt < lay.k_tiles) {
+      for (int kt = 0; kt < kKT; ++kt) {
+        if (kt < lay.k_tiles) {
+          uint32_t a[4];
+          LdMatrixX4(a, a_row + 16 * kt);
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            uint2 b;
+            if constexpr (kUSmem) {
+              b = u_warp[32 * (kGates * kt + q)];
+            } else {
+              b = u_reg[kt][q];
+            }
+            MmaBf16(acc[q], a, b.x, b.y);
+          }
+        }
+      }
+    } else {
+      // U through L1/L2, rounded to bf16 fragments here, a few k-tiles in
+      // flight (unrolled over all of them, the loads were hoisted into
+      // registers and spilled).
+#pragma unroll 4
+      for (int kt = 0; kt < lay.k_tiles; ++kt) {
         uint32_t a[4];
         LdMatrixX4(a, a_row + 16 * kt);
 #pragma unroll
         for (int q = 0; q < kGates; ++q) {
-          uint2 b;
-          if constexpr (kUSmem) {
-            b = u_warp[32 * (kGates * kt + q)];
-          } else {
-            b = u_reg[kt][q];
-          }
+          const uint2 b =
+              UFragment(recurrent, units, width, q, 8 * ug + g, kt, tq);
           MmaBf16(acc[q], a, b.x, b.y);
         }
       }
@@ -847,13 +1236,21 @@ MmaAvgKernel(const int8_t *__restrict__ codes, int batch, int steps,
 template <int kGates, int kKT, bool kUSmem, int kCluster = 1>
 int LaunchMma(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
-              void *avg, void *hidden, cudaStream_t stream) {
+              void *avg, void *hidden, cudaStream_t stream,
+              int *slots = nullptr) {
+  // With `slots`, it launches nothing and writes the clusters the card
+  // runs at once (0 without a cluster, or if it cannot place one).
   if (units > 16 * kKT || bb > kMmaWindows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto fn = MmaAvgKernel<kGates, kKT, kUSmem, kCluster>;
   const MmaLayout lay(kGates, units, bb, steps, kUSmem, kCluster);
   const int threads = 32 * lay.local * lay.m_tiles;
+  if (slots != nullptr) {
+    *slots = kCluster > 1 ? ClusterSlots(fn, threads, lay.bytes, kCluster)
+                          : 0;
+    return 0;
+  }
   const int ctas = (batch + bb - 1) / bb * kCluster;
   const auto i8 = static_cast<const int8_t *>(codes);
   const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
@@ -882,28 +1279,24 @@ __host__ __device__ __forceinline__ int Bf16Tile(int units) {
   return units <= 0 || units > kMaxUnits ? 0 : units <= kMmaUnits ? 1 : 3;
 }
 
-// Shared memory a block of the current device may opt in to (0 on a CUDA
-// error).
-size_t SmemOptin() {
-  int device = 0, optin = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return 0;
-  }
-  return static_cast<size_t>(optin);
+// Whether a CTA of the bf16 cluster tile of `cluster` CTAs holds its unit
+// groups' U fragments in shared memory beside 8 windows.
+bool Bf16USmem(int gates, int units, int cluster) {
+  return MmaLayout(gates, units, kMmaCap, 1, true, cluster).bytes <=
+         SmemOptin();
 }
 
 // CTAs a cluster of the bf16 kernels at this width on this card (see the
-// note above): 1 up to u=128; past it 2 where a CTA's half of the tile
-// (U's fragments of half the unit groups) fits the card's shared memory a
-// block at 8 windows, else 4; 0 if the width is refused or on a CUDA
-// error.
+// note above): 1 up to u=128; past it the fewest of 2, 4, 8 and 16 whose
+// CTA holds its share of U's fragments beside 8 windows, else 16 (U
+// through L1/L2); 0 if the width is refused or on a CUDA error.
 int Bf16Cluster(int gates, int units) {
   if (Bf16Tile(units) != 3) return Bf16Tile(units);
-  return MmaLayout(gates, units, kMmaCap, 1, true, 2).bytes <= SmemOptin()
-             ? 2
-             : 4;
+  if (SmemOptin() == 0) return 0;
+  for (int cluster = 2; cluster < 16; cluster *= 2) {
+    if (Bf16USmem(gates, units, cluster)) return cluster;
+  }
+  return 16;
 }
 
 // Windows a CTA of the bf16 kernels may own at this width in clusters of
@@ -911,39 +1304,51 @@ int Bf16Cluster(int gates, int units) {
 // the cluster tile two m-tiles where they fit the shared memory, else one.
 int MaxWindowsBf16(int gates, int units, int cluster) {
   if (cluster == 1) return kMmaCap;
-  return MmaLayout(gates, units, kMmaWindows, 1, true, cluster).bytes <=
-                 SmemOptin()
+  return MmaLayout(gates, units, kMmaWindows, 1,
+                   Bf16USmem(gates, units, cluster), cluster)
+                     .bytes <= SmemOptin()
              ? kMmaWindows
              : kMmaCap;
 }
 
-// The bf16 tile by width (measured on the H100, see the note above).
+// The bf16 tile by width (measured on the H100, see the note above):
+// k-tiles up to 16 (u <= 256), 32 and 64 on the cluster tile.  With
+// `slots`, launches nothing and writes the clusters the card runs at
+// once (0 without a cluster).
 template <int kGates>
 int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
                   const void *bias, const void *recurrent, int units, int bb,
-                  void *avg, void *hidden, void *stream) {
+                  void *avg, void *hidden, void *stream,
+                  int *slots = nullptr) {
   const int cluster = Bf16Cluster(kGates, units);
   if (batch <= 0 || steps <= 0 || cluster == 0 || bb < 1 ||
       bb > MaxWindowsBf16(kGates, units, cluster)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto launch = [&](auto fn) {
+    return fn(codes, batch, steps, kernel, bias, recurrent, units, bb, avg,
+              hidden, s, slots);
+  };
   if (units <= 64) {  // U in registers for the GRU, in shared memory
-    return LaunchMma<kGates, 4, kGates == 4>(codes, batch, steps, kernel,
-                                             bias, recurrent, units, bb, avg,
-                                             hidden, s);
+    return launch(LaunchMma<kGates, 4, kGates == 4>);
   }
-  if (units <= kMmaUnits) {
-    return LaunchMma<kGates, 8, true>(codes, batch, steps, kernel, bias,
-                                      recurrent, units, bb, avg, hidden, s);
+  if (units <= kMmaUnits) return launch(LaunchMma<kGates, 8, true>);
+  if (!Bf16USmem(kGates, units, cluster)) {
+    return launch(LaunchMma<kGates, 64, false, 16>);
   }
-  return cluster == 2
-             ? LaunchMma<kGates, 16, true, 2>(codes, batch, steps, kernel,
-                                              bias, recurrent, units, bb, avg,
-                                              hidden, s)
-             : LaunchMma<kGates, 16, true, 4>(codes, batch, steps, kernel,
-                                              bias, recurrent, units, bb, avg,
-                                              hidden, s);
+  // The clusters each range of widths can get on the H100 (a card that
+  // gives another is refused).
+  const int k_tiles = units <= 256 ? 16 : units <= 512 ? 32 : 64;
+  switch (k_tiles * 100 + cluster) {
+    case 1602: return launch(LaunchMma<kGates, 16, true, 2>);
+    case 1604: return launch(LaunchMma<kGates, 16, true, 4>);
+    case 3204: return launch(LaunchMma<kGates, 32, true, 4>);
+    case 3208: return launch(LaunchMma<kGates, 32, true, 8>);
+    case 3216: return launch(LaunchMma<kGates, 32, true, 16>);
+    case 6416: return launch(LaunchMma<kGates, 64, true, 16>);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -951,7 +1356,7 @@ int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
 extern "C" {
 
 // Each launcher returns cudaGetLastError() after the launch (0 = launched).
-// `bb` is the windows a CTA owns (1 .. dg_avg_max_windows).
+// `bb` is the windows a CTA owns (1 .. dg_avg_layout's most).
 int dg_gru_avg(const void *codes, int batch, int steps, const void *kernel,
                const void *bias, const void *recurrent, int units, int bb,
                void *avg, void *hidden, void *stream) {
@@ -983,32 +1388,52 @@ int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
                           units, bb, avg, hidden, stream);
 }
 
-// The most windows a CTA of the float32 kernels of a cell with `gates`
-// gates (3 GRU, 4 LSTM) may own at this width (0: the shape is refused).
-int dg_avg_max_windows(int gates, int units) {
-  return (gates == 3 || gates == 4) && units > 0 && units <= kMaxUnits
-             ? MaxWindows(units)
-             : 0;
+// The layout the kernels of a cell with `gates` gates (3 GRU, 4 LSTM) run
+// at this width, in float32 (bf16 == 0) or bfloat16: out[0] CTAs a
+// cluster (1: one CTA a window), out[1] where U sits (0 read through
+// L1/L2, 1 registers, 2 shared memory).  Returns the most windows a CTA
+// (each CTA of a cluster holds the cluster's) may own, or 0 if the width
+// is refused (out untouched).
+int dg_avg_layout(int gates, int units, int bf16, int *out) {
+  if ((gates != 3 && gates != 4) || units <= 0 || units > kMaxUnits) {
+    return 0;
+  }
+  if (bf16) {
+    const int cluster = Bf16Cluster(gates, units);
+    if (cluster == 0) return 0;
+    out[0] = cluster;
+    out[1] = units <= 64 && gates == 3       ? 1
+             : units <= kMmaUnits            ? 2
+             : Bf16USmem(gates, units, cluster) ? 2
+                                                : 0;
+    return MaxWindowsBf16(gates, units, cluster);
+  }
+  out[0] = AvgCluster(units);
+  out[1] = units <= kRegUnits ? 1 : out[0] == 8 ? 2 : 0;
+  return MaxWindows(units);
 }
 
-// The same for the bfloat16 kernels (on the cluster tile, the windows each
-// CTA of a cluster owns).
-int dg_avg_bf16_max_windows(int gates, int units) {
-  const int cluster = gates == 3 || gates == 4 ? Bf16Cluster(gates, units)
-                                               : 0;
-  return cluster != 0 ? MaxWindowsBf16(gates, units, cluster) : 0;
+// The clusters of that layout, at `bb` windows a CTA, that the card runs
+// at once: 0 when the layout has no cluster, or when the card cannot
+// place one (or the shape is refused).
+int dg_avg_clusters(int gates, int units, int bb, int bf16) {
+  if (gates != 3 && gates != 4) return 0;
+  int slots = 0;
+  const auto query = [&](auto fn) {
+    return fn(nullptr, 1, 1, nullptr, nullptr, nullptr, units, bb, nullptr,
+              nullptr, nullptr, &slots);
+  };
+  const int err = bf16 ? (gates == 3 ? query(LaunchAvgBf16<3>)
+                                     : query(LaunchAvgBf16<4>))
+                       : (gates == 3 ? query(LaunchAvg<3>)
+                                     : query(LaunchAvg<4>));
+  return err == 0 ? slots : 0;
 }
 
 // The tile the bfloat16 kernels run at this width: 1 the tensor-core tile
 // (mma.sync), 3 its cluster tile, 0 refused.
 int dg_avg_bf16_tile(int gates, int units) {
   return gates == 3 || gates == 4 ? Bf16Tile(units) : 0;
-}
-
-// CTAs a cluster of the bfloat16 kernels at this width on the current
-// device (1: one CTA a window; 0: refused).
-int dg_avg_bf16_cluster(int gates, int units) {
-  return gates == 3 || gates == 4 ? Bf16Cluster(gates, units) : 0;
 }
 
 const char *dg_error_string(int code) {

@@ -5,9 +5,11 @@ Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
 ``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
-the recurrent dot on the tensor cores, one CTA a window up to u=128 and a
-cluster of CTAs a window up to u=256: :func:`avg_bf16_tile` names the tile
-of a width, :func:`avg_bf16_cluster` its CTAs a cluster).  :func:`gru_apply`
+the recurrent dot on the tensor cores), at every width up to
+:data:`AVG_MAX_UNITS`: one CTA a window up to u=128, past it a window's
+units split over a thread-block cluster of CTAs (:func:`avg_layout` names
+the tile, the CTAs a cluster and where ``U`` sits; past the ceiling it
+raises ``ValueError``, and so does a launch).  :func:`gru_apply`
 is the counterpart of ``pallas_gru_apply``: the GRU over a float input
 ``x [B, T, C]``, ``(seq, last)`` out in ``x``'s dtype.
 
@@ -127,16 +129,17 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str, shape: str) -> None:
 def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
             out_dtype: torch.dtype = torch.float32
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    cell = name.split("_")[0]
     name += rnn.dtype_suffix(out_dtype)
     batch, steps, units = _check(name, gates, params, codes)
+    _check_width(units)
     avg = _empty(codes.device, batch, steps, units, dtype=out_dtype)
     hidden = _empty(codes.device, batch, units, dtype=out_dtype)
     if batch == 0:
         return avg, hidden
     lib = _build.load_kernels("rnn_avg")
     fn: Callable[..., int] = getattr(lib, f"dg_{name}")
-    windows = avg_tile("lstm" if gates == 4 else "gru", batch, units,
-                       codes.device, out_dtype)[0]
+    windows = avg_tile(cell, batch, units, codes.device, out_dtype)[0]
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = fn(codes.data_ptr(), batch, steps,
@@ -155,29 +158,99 @@ def block_windows(batch: int, sms: int, most: int) -> int:
     return max(1, min(most, -(-batch // max(sms, 1))))
 
 
+#: The widest layer the inference kernels take (``csrc/rnn_avg.cu``: a
+#: window's units over a cluster of 16 CTAs, at most 64 units a CTA).
+AVG_MAX_UNITS = 1024
+#: Where a kernel keeps ``U``, by the library's code.
+U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
+
+
+def _check_width(units: int) -> None:
+    if not 0 < units <= AVG_MAX_UNITS:
+        raise ValueError(f"the inference kernels take widths up to their "
+                         f"ceiling u={AVG_MAX_UNITS}, not u={units}")
+
+
+def avg_tile_name(cell: str, units: int,
+                  out_dtype: torch.dtype = torch.float32) -> str:
+    """The tile of ``cell``'s ("gru" or "lstm") inference kernels at this
+    width in ``out_dtype`` (pure Python): in float32 ``"registers"`` (the
+    register tile, one CTA a window, ``U``'s slice in registers, u <= 64),
+    ``"l2"`` (the same reading it through L1/L2, u <= 128), in bfloat16
+    ``"mma"`` (the tensor-core tile, one CTA a window, u <= 128); past
+    u=128 ``"cluster"`` in either (a window's units over a thread-block
+    cluster of CTAs).  Raises ``ValueError`` naming the width and the
+    ceiling past :data:`AVG_MAX_UNITS`."""
+    _check_width(units)
+    if units > 128:
+        return "cluster"
+    if rnn.dtype_suffix(out_dtype):
+        return "mma"
+    return "registers" if units <= 64 else "l2"
+
+
+def avg_layout(cell: str, units: int,
+               out_dtype: torch.dtype = torch.float32) -> Dict[str, object]:
+    """The layout that ``cell``'s inference kernels launch at this width in
+    ``out_dtype`` on the current device: ``tile`` (:func:`avg_tile_name`),
+    and from the library, which asks the card, ``cluster`` (CTAs a
+    cluster; 1: one CTA a window), ``u_in`` (where ``U`` sits:
+    ``"registers"``, ``"shared"``, each CTA's share in shared memory, or
+    ``"L1/L2"``, read each step) and ``max_windows`` (the most windows a
+    CTA, of a cluster: the cluster's, owns).  Raises ``ValueError`` past
+    :data:`AVG_MAX_UNITS` before it asks."""
+    tile = avg_tile_name(cell, units, out_dtype)
+    most, cluster, u_in = _library_layout(cell, units, out_dtype)
+    return {"tile": tile, "cluster": cluster, "u_in": u_in,
+            "max_windows": most}
+
+
+def _library_layout(cell: str, units: int,
+                    out_dtype: torch.dtype) -> Tuple[int, int, str]:
+    """``(most windows a CTA, CTAs a cluster, where U sits)`` from the
+    library, which asks the current device; ``ValueError`` for a width
+    it refuses."""
+    gates = 4 if cell == "lstm" else 3
+    out = (ctypes.c_int * 2)()
+    most = _build.load_kernels("rnn_avg").dg_avg_layout(
+        gates, units, int(bool(rnn.dtype_suffix(out_dtype))), out)
+    if most == 0:
+        raise ValueError(f"{cell}_avg{rnn.dtype_suffix(out_dtype)} refuses "
+                         f"u={units}")
+    return most, out[0], U_IN[out[1]]
+
+
 def avg_tile(cell: str, batch: int, units: int,
              device: Optional[torch.device] = None,
              out_dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """``(windows a CTA owns, CTAs)`` of the inference kernels of ``cell``
-    ("gru" or "lstm") for a batch on a CUDA device (:func:`block_windows`
-    with the card's SM count over the CTAs a cluster and the kernel's cap
-    at this width, which the library gives for ``out_dtype``: in float32 8
-    windows up to u=128, 2 beyond; in bfloat16 8 up to u=128, then 16 (8
-    where two m-tiles do not fit a CTA's shared memory) a cluster of
-    :func:`avg_bf16_cluster` CTAs, each CTA of which holds the cluster's
-    windows; a width the kernel refuses gets 1, and its launch raises)."""
+    ("gru" or "lstm") for a batch on a CUDA device: :func:`block_windows`
+    with the kernel's cap at this width (``max_windows`` of
+    :func:`avg_layout`) over the CTAs that run at once:
+    the card's SMs, or past u=128 the clusters (of :func:`avg_cluster`
+    CTAs, each of which holds its cluster's windows) that the card places
+    at once (a cluster of 16 CTAs needs 16 free SMs of one GPC).  Raises
+    ``ValueError`` for a width the kernels refuse."""
     device = device or torch.device("cuda")
     gates = 4 if cell == "lstm" else 3
-    lib = _build.load_kernels("rnn_avg")
-    cluster = 1
-    if rnn.dtype_suffix(out_dtype):
-        cap = lib.dg_avg_bf16_max_windows(gates, units)
-        cluster = max(lib.dg_avg_bf16_cluster(gates, units), 1)
-    else:
-        cap = lib.dg_avg_max_windows(gates, units)
+    cap, cluster, _ = _library_layout(cell, units, out_dtype)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    windows = block_windows(batch, sms // cluster, cap)
+    slots = sms
+    if cluster > 1:
+        with torch.cuda.device(device):
+            slots = _build.load_kernels("rnn_avg").dg_avg_clusters(
+                gates, units, cap, int(bool(rnn.dtype_suffix(out_dtype))))
+        slots = slots or sms // cluster
+    windows = block_windows(batch, slots, cap)
     return windows, -(-batch // windows) * cluster
+
+
+def avg_cluster(cell: str, units: int,
+                out_dtype: torch.dtype = torch.float32) -> int:
+    """CTAs a cluster of ``cell``'s inference kernels in ``out_dtype`` at
+    this width on the current device (1: one CTA a window); raises
+    ``ValueError`` for a width they refuse."""
+    return _library_layout(cell, units, out_dtype)[1]
 
 
 #: The tiles of the bfloat16 inference kernels, by the library's code (2,
@@ -191,7 +264,7 @@ def avg_bf16_tile(cell: str, units: int) -> str:
     width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
     operands, one CTA a window, up to u=128) or ``"cluster"`` (the same
     step with a window's units split over a cluster of CTAs, up to
-    u=256); raises ``ValueError`` for a width they refuse."""
+    u=1024); raises ``ValueError`` for a width they refuse."""
     gates = 4 if cell == "lstm" else 3
     code = _build.load_kernels("rnn_avg").dg_avg_bf16_tile(gates, units)
     if code not in BF16_TILES:
@@ -201,14 +274,8 @@ def avg_bf16_tile(cell: str, units: int) -> str:
 
 def avg_bf16_cluster(cell: str, units: int) -> int:
     """CTAs a cluster of the bfloat16 inference kernels of ``cell`` at this
-    width (1 on the one-CTA tile); raises ``ValueError`` for a width they
-    refuse."""
-    gates = 4 if cell == "lstm" else 3
-    cluster = _build.load_kernels("rnn_avg").dg_avg_bf16_cluster(gates,
-                                                                 units)
-    if cluster == 0:
-        raise ValueError(f"{cell}_avg_bf16 refuses u={units}")
-    return cluster
+    width (:func:`avg_cluster` in bfloat16)."""
+    return avg_cluster(cell, units, torch.bfloat16)
 
 
 def seq_cluster(units: int) -> int:

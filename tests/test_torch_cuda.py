@@ -20,9 +20,15 @@ gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
 runs give bitwise-equal gradients (no float atomics).
 
-The fused inference kernels (one register tile for both cells) also run
-at the CLI's default batch (256 windows: two a CTA), at u=96 and u=128
-(past the register tile) and at u=200 (two windows a CTA, 4u threads).
+The fused inference kernels (one register tile for both cells up to
+u=128) also run at the CLI's default batch (256 windows: two a CTA), at
+u=96 and u=128 (past the register tile's registers), and past u=128 on
+the float32 cluster tile (a window's units over 8 CTAs up to u=256, 16
+beyond, ragged at u=129, 200, 300 and 520) up to the ceiling u=1024; a
+window's bits there are the same alone and inside a batch, and on a
+second launch; u=1025 raises ``ValueError`` before any launch, in both
+dtypes; ``cuda_rnn.avg_layout``'s tile agrees with the library's layout at
+every width.
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
@@ -33,8 +39,8 @@ and at ragged shapes; a second launch is bitwise equal to the first (on
 the cluster tile too) and u=1025 is refused.  The bf16
 variants of the fused kernels are held against their plain versions, up
 to u=128 on their tensor-core tile (``mma.sync``), beyond on its cluster
-tile (a window's units split over a cluster of CTAs), which
-``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
+tile (a window's units split over a cluster of 2 to 16 CTAs, up to
+u=1024), which ``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
 same alone and inside a batch of 1024 (and of 256 at two places, on the
 cluster tile).  Tolerance in bfloat16: atol 2e-2
 (the plain version rounds h and U as the kernel does, but the tensor
@@ -95,6 +101,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepgrp_tpu_torch import _build
 from deepgrp_tpu_torch.config import Options
 from deepgrp_tpu_torch.models import cuda_rnn, rnn
 from deepgrp_tpu_torch.models.keras_io import load_model
@@ -302,9 +309,8 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
     """The GRU inference tile: one wave at the engine's 1024 windows and at
     the fixtures' 64 (8 and 1 windows a CTA on a 132-SM card), in float32
     (at most 8 windows a CTA up to u=128) and on the bf16 tensor-core tile
-    (at most 8, one m-tile); past u=128 at most 2 in float32, and in bf16
-    the cluster tile's windows, which every CTA of a cluster holds (the
-    wave counts clusters).  The float32 choice is the same with and
+    (at most 8, one m-tile); past u=128 the cluster tile's windows, which
+    every CTA of a cluster holds (the wave counts clusters).  The float32 choice is the same with and
     without ``out_dtype``."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for batch in (1024, 64, 4096):
@@ -313,14 +319,30 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
         assert n_cta <= sms or windows == 8
     assert cuda_rnn.avg_tile("gru", 64, 60, None, dtype) == (1, 64)
     windows, n_cta = cuda_rnn.avg_tile("gru", 1024, 200, None, dtype)
-    if dtype == torch.float32:
-        assert windows <= 2 and n_cta == -(-1024 // windows)
+    if dtype == torch.float32:  # the cluster tile: 8 CTAs, 8 windows
+        assert cuda_rnn.avg_cluster("gru", 200) == 8
+        assert windows == 8 and n_cta == 1024 // 8 * 8
     else:  # the cluster tile: clusters of 2 CTAs, 16 windows at most
         assert cuda_rnn.avg_bf16_cluster("gru", 200) == 2
         assert windows <= 16 and n_cta == -(-1024 // windows) * 2
         if sms == 132:  # 64 clusters of 4 windows fill the card
             assert cuda_rnn.avg_tile("gru", 256, 256, None, dtype) == (4,
                                                                       128)
+    # Past u=256 the wave counts the card's own count of clusters at once
+    # (16 CTAs need 16 free SMs of one GPC; small ones share an SM): the
+    # fewest windows that fill one wave, at most the layout's cap.
+    lib = _build.load_kernels("rnn_avg")
+    for units in (300, 512, 1024):
+        layout = cuda_rnn.avg_layout("gru", units, dtype)
+        slots = lib.dg_avg_clusters(3, units, layout["max_windows"],
+                                    int(dtype == torch.bfloat16))
+        assert slots > 0
+        for batch in (5, 64, 256):
+            windows, n_cta = cuda_rnn.avg_tile("gru", batch, units, None,
+                                               dtype)
+            assert windows == cuda_rnn.block_windows(
+                batch, slots, layout["max_windows"])
+            assert n_cta == -(-batch // windows) * layout["cluster"]
     assert cuda_rnn.avg_tile("gru", 4096, 128, None, dtype)[0] == 8
     if dtype == torch.float32:
         for batch in (1024, 256, 64, 4096):
@@ -348,11 +370,16 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
 
 
 def test_lstm_avg_refuses_u257(device):
-    """The inference kernels take 4u <= 1,024 threads: u=257 raises, naming
-    the shape."""
-    params, codes = random_case(6, 4, 3, 5, 257, device)
-    with pytest.raises(RuntimeError, match="u=257"):
-        cuda_rnn.lstm_avg(params, codes)
+    """The inference kernels take widths up to u=1024 (past u=256 on a
+    cluster of 16 CTAs, as the scan route's GRU): u=1025 raises
+    ``ValueError`` naming the width and the ceiling before any launch, in
+    float32 and bfloat16."""
+    params, codes = random_case(6, 4, 3, 5, 1025, device)
+    for dtype in (torch.float32, torch.bfloat16):
+        launches = cuda_rnn.LAUNCHES.snapshot()
+        with pytest.raises(ValueError, match="u=1024, not u=1025"):
+            cuda_rnn.lstm_avg(params, codes, dtype)
+        assert cuda_rnn.LAUNCHES.snapshot() == launches
 
 
 @pytest.mark.parametrize("cell,batch,steps,units", [
@@ -360,7 +387,14 @@ def test_lstm_avg_refuses_u257(device):
       for shape in ((1024, 342, 60), (1000, 150, 32), (3, 7, 5), (9, 1, 17))),
     *((cell, *shape) for cell in ("gru", "lstm")
       for shape in ((256, 342, 60), (1024, 342, 96), (1024, 342, 128),
-                    (37, 50, 200)))])
+                    (37, 50, 200))),
+    # The cluster tile: 8 CTAs with U in shared memory (ragged at u=129
+    # and 200), 16 with U through L1/L2 (ragged at u=257, 300 and 520, up
+    # to the ceiling).
+    *((cell, *shape) for cell in ("gru", "lstm")
+      for shape in ((37, 50, 129), (64, 100, 200), (256, 342, 256),
+                    (9, 40, 257), (37, 150, 300), (256, 342, 512),
+                    (5, 23, 520), (64, 342, 1024)))])
 def test_kernel_matches_plain(device, cell, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch + steps + units, gates, batch, steps,
@@ -563,7 +597,11 @@ def test_gru_seq_layout(device):
                     # engine's, and a ragged one (u=200: 25 unit groups,
                     # the last CTA of a cluster owns fewer).
                     (256, 342, 160), (1024, 342, 192), (256, 342, 256),
-                    (37, 150, 200), (3, 7, 129)))])
+                    (37, 150, 200), (3, 7, 129),
+                    # Past u=256: clusters of 4 to 16 CTAs, U's fragments
+                    # in shared memory, then (u=1024) through L1/L2.
+                    (9, 40, 257), (37, 150, 300), (256, 342, 512),
+                    (5, 23, 520), (64, 342, 1024)))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     """The bf16 kernels against their plain versions; up to u=128 they run
     the tensor-core tile, beyond it its cluster tile."""
@@ -605,7 +643,7 @@ def test_avg_bf16_rows_independent_of_batch(device, cell, units):
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [160, 256])
+@pytest.mark.parametrize("units", [160, 256, 300, 512, 1024])
 def test_avg_bf16_cluster_window_bits(device, cell, units):
     """On the cluster tile a window's bf16 bits are the same alone, inside
     a batch of 256 and at another place in that batch (other clusters,
@@ -645,13 +683,60 @@ def test_avg_bf16_tile_by_width(device):
             assert cuda_rnn.avg_bf16_cluster(cell, units) == cluster
             assert cuda_rnn.avg_tile(cell, 10 ** 6, units, None,
                                      torch.bfloat16)[0] == most
-        with pytest.raises(ValueError, match="u=257"):
-            cuda_rnn.avg_bf16_tile(cell, 257)
-        with pytest.raises(ValueError, match="u=257"):
-            cuda_rnn.avg_bf16_cluster(cell, 257)
-    params, codes = random_case(3, 3, 2, 3, 257, device)
-    with pytest.raises(RuntimeError, match="u=257"):
+        with pytest.raises(ValueError, match="u=1025"):
+            cuda_rnn.avg_bf16_tile(cell, 1025)
+        with pytest.raises(ValueError, match="u=1025"):
+            cuda_rnn.avg_bf16_cluster(cell, 1025)
+    params, codes = random_case(3, 3, 2, 3, 1025, device)
+    with pytest.raises(ValueError, match="u=1024, not u=1025"):
         cuda_rnn.gru_avg(params, codes, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [129, 200, 256, 300, 512, 520, 1024])
+def test_avg_cluster_window_bits(device, cell, units):
+    """On the float32 cluster tile a window's bits are the same alone,
+    inside a batch of 64 and at another place in it (other clusters,
+    another lane of a group), and a second launch equals the first."""
+    gates = 4 if cell == "lstm" else 3
+    params, codes = random_case(units + gates, gates, 64, 150, units,
+                                device)
+    codes[50] = codes[13]
+    kernel = getattr(cuda_rnn, f"{cell}_avg")
+    alone = kernel(params, codes[13:14].contiguous())
+    inside = kernel(params, codes)
+    again = kernel(params, codes)
+    torch.cuda.synchronize()
+    for got, want in zip(alone, inside):
+        assert torch.equal(got[0], want[13])
+        assert torch.equal(got[0], want[50])
+    for a, b in zip(inside, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_avg_layout_matches_library(device, dtype):
+    """``cuda_rnn.avg_layout`` at every width 1-1024 on this card: its tile
+    (pure Python, from the width) agrees with the library's CTAs a
+    cluster (one CTA a window up to u=128, past it a cluster: in float32 8
+    CTAs with U in shared memory up to u=256, 16 reading it through L1/L2
+    beyond; in bfloat16 2 to 16 CTAs, the library's own tile), and the
+    library refuses u=1025."""
+    for cell in ("gru", "lstm"):
+        for units in range(1, cuda_rnn.AVG_MAX_UNITS + 1):
+            layout = cuda_rnn.avg_layout(cell, units, dtype)
+            assert (layout["cluster"] > 1) == (layout["tile"] == "cluster")
+            if dtype == torch.bfloat16:
+                assert layout["tile"] == cuda_rnn.avg_bf16_tile(cell, units)
+                assert layout["cluster"] in (1, 2, 4, 8, 16), units
+            elif units > 128:
+                assert (layout["cluster"], layout["u_in"]) == (
+                    (8, "shared") if units <= 256 else (16, "L1/L2")), units
+            else:
+                assert layout["u_in"] == ("registers" if units <= 64
+                                          else "L1/L2"), units
+        with pytest.raises(ValueError, match="u=1025"):
+            cuda_rnn._library_layout(cell, 1025, dtype)
 
 
 @pytest.mark.parametrize("name", ["gru_att", "lstm"])

@@ -28,10 +28,16 @@ TORCH_FIXDIR = os.path.join(HERE, "fixtures", "torch")
 REF_ARGS = ["-b", "64", "-s", "50", "-x", "50", "-l", "50"]
 
 
-@pytest.fixture(scope="module", params=["GRU", "LSTM"])
+@pytest.fixture(scope="module", params=[
+    ("GRU", 8), ("LSTM", 8),
+    # A width the kernels serve on a cluster of 16 CTAs (ragged: 19 units
+    # a CTA).
+    ("GRU", 300), ("LSTM", 300)],
+    ids=["GRU", "LSTM", "GRU-u300", "LSTM-u300"])
 def small_models(request):
-    config = ModelConfig(vecsize=30, units=8, rnn=request.param,
-                         attention=request.param == "GRU", dropout=0.0)
+    rnn_type, units = request.param
+    config = ModelConfig(vecsize=30, units=units, rnn=rnn_type,
+                         attention=rnn_type == "GRU", dropout=0.0)
     jax_cfg = jax_model.ModelConfig(**config.todict())
     params = jax_model.init_params(jax.random.PRNGKey(0), jax_cfg)
     port = DeepGRPModel.from_params(config, params_from_jax(params),

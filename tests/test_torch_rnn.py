@@ -53,8 +53,11 @@ def jax_avg(cell, params, codes, out_dtype=jnp.float32):
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("batch,steps,units", [(4, 17, 6), (16, 40, 16),
-                                               (3, 9, 5), (11, 33, 12)])
+@pytest.mark.parametrize("batch,steps,units", [
+    (4, 17, 6), (16, 40, 16), (3, 9, 5), (11, 33, 12),
+    # Widths the kernels serve on a cluster of CTAs: ragged over 16 CTAs
+    # (u=300, 520) and the ceiling.
+    (2, 5, 300), (2, 4, 520), (1, 3, 1024)])
 def test_plain_matches_pallas(cell, batch, steps, units):
     params, codes = random_case(batch * steps + units, cell, batch, steps,
                                 units)
@@ -158,3 +161,32 @@ def test_gru_seq_tile(rows, sms):
             2048: (16, 128), 256: (2, 128), 7: (1, 7), 1: (1, 1)}[rows]
         # u=512 at 16 rows: 8 clusters of 16 CTAs, 2 rows each.
         assert cuda_rnn.seq_tile(16, 512, sms) == (2, 128)
+
+
+# (units, tile) at each width where the inference kernels' tile changes,
+# and the ceiling.
+AVG_TILES = {
+    "float32": [(1, "registers"), (64, "registers"), (65, "l2"),
+                (128, "l2"), (129, "cluster"), (300, "cluster"),
+                (1024, "cluster")],
+    "bfloat16": [(1, "mma"), (128, "mma"), (129, "cluster"),
+                 (520, "cluster"), (1024, "cluster")],
+}
+
+
+@pytest.mark.parametrize("cell,dtype", [(cell, dtype) for cell in (
+    "gru", "lstm") for dtype in sorted(AVG_TILES)])
+def test_avg_layout_by_width(cell, dtype):
+    """The inference kernels' tile by width (pure Python): one CTA a
+    window up to u=128 (the register tile in float32, the tensor-core tile
+    in bf16), past it a window's units over a cluster of CTAs up to the
+    ceiling u=1024; past it ``avg_tile_name`` and ``avg_layout`` raise
+    ``ValueError`` naming the width and the ceiling, before they ask the
+    library."""
+    for units, tile in AVG_TILES[dtype]:
+        assert cuda_rnn.avg_tile_name(cell, units,
+                                      getattr(torch, dtype)) == tile, units
+    for units in (0, 1025, 4096):
+        for fn in (cuda_rnn.avg_tile_name, cuda_rnn.avg_layout):
+            with pytest.raises(ValueError, match=f"u=1024, not u={units}"):
+                fn(cell, units, getattr(torch, dtype))

@@ -65,7 +65,7 @@ _LSTM_GATES = '''    const float ig = FastSigmoid(x[0] + d[0]);
     c = fg * c + ig * gg;
     h = og * FastTanh(c);'''
 _ACC = "    float acc[kGates][4] = {};\n"
-_MMA_CALL = "          MmaBf16(acc[q], a, b.x, b.y);"
+_MMA_CALL = "            MmaBf16(acc[q], a, b.x, b.y);"
 _GATE_MATH = "    if (w < bb && mine[0]) {\n"
 _TANH_APPROX = ('  float y;\n  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : '
                 '"f"({}));\n')
@@ -86,7 +86,7 @@ ABLATIONS = {
                     (_TANH, _TANH_APPROX.format("x") + "  return y;")],
     "two_chains": [
         (_ACC, "    float acc[kGates][4] = {}, acc2[kGates][4] = {};\n"),
-        (_MMA_CALL, "          MmaBf16((kt & 1) ? acc2[q] : acc[q], a, "
+        (_MMA_CALL, "            MmaBf16((kt & 1) ? acc2[q] : acc[q], a, "
                     "b.x, b.y);"),
         (_GATE_MATH, "    for (int q = 0; q < kGates; ++q)\n"
                      "      for (int e = 0; e < 4; ++e) acc[q][e] += "

@@ -8,9 +8,13 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
         [--min-units N] [--out FILE.json]
 
 ``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs>``
-(``deepgrp_tpu_torch/csrc/rnn_avg.cu``) takes its lane group's window count
-and the place of its ``U`` slice (registers, or L1/L2) as template
-parameters, and the windows a CTA owns at run time.  ``--kernel
+(``deepgrp_tpu_torch/csrc/rnn_avg.cu``, the float32 register tile) takes
+its lane group's window count and the place of its ``U`` slice
+(registers, or L1/L2) as template parameters, and the windows a CTA owns
+at run time; past u=128 ``AvgClusterKernel<kGates, kWin, kCluster,
+kUSmem>``, the float32 cluster tile (a window's units over ``kCluster``
+CTAs, each CTA's slice of ``U`` in shared memory or read through L1/L2),
+up to u=1024.  ``--kernel
 avg_bf16``: the bf16 tensor-core tile of the same file,
 ``MmaAvgKernel<kGates, kKT, kUSmem, kCluster>``, takes the most k-tiles
 (u <= 16 kKT), the place of ``U``'s fragments (registers, or shared
@@ -47,9 +51,14 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(HERE, "deepgrp_tpu_torch", "csrc")
 
-# AvgKernel: (gates, windows a lane group, U in registers)
+# AvgKernel: (gates, windows a lane group, U in registers); past u=128
+# AvgClusterKernel: (gates, windows a lane group, CTAs a cluster, U in
+# shared memory).
 VARIANTS = [(4, 4, True), (4, 2, True), (4, 4, False), (4, 8, False),
-            (4, 2, False), (3, 4, True), (3, 2, True), (3, 8, False)]
+            (3, 4, True), (3, 2, True), (3, 8, False)] + [
+    (gates, win, cluster, u_smem) for gates in (3, 4)
+    for win, cluster, u_smem in ((2, 8, True), (4, 8, True), (2, 16, True),
+                                 (2, 16, False), (8, 16, False))]
 # (gates, batch, steps, units, windows a CTA, variant)
 CASES = [
     (4, 1024, 342, 60, 8, (4, 4, True)),
@@ -58,24 +67,41 @@ CASES = [
     (4, 1024, 342, 60, 8, (4, 4, False)),
     (4, 1024, 342, 60, 8, (4, 8, False)),
     (4, 256, 342, 60, 2, (4, 2, True)),
-    (4, 256, 342, 60, 2, (4, 2, False)),
     (4, 256, 342, 60, 4, (4, 4, True)),
     (4, 1024, 342, 96, 8, (4, 8, False)),
     (4, 1024, 342, 96, 4, (4, 4, False)),
     (4, 1024, 342, 128, 8, (4, 8, False)),
     (4, 1024, 342, 128, 4, (4, 4, False)),
-    (4, 1024, 342, 128, 2, (4, 2, False)),
     (3, 1024, 342, 60, 8, (3, 4, True)),
     (3, 256, 342, 60, 2, (3, 2, True)),
     (3, 1024, 342, 128, 8, (3, 8, False)),
-]
+] + [
+    # Past u=128 the cluster tile: 8 CTAs (2, 4 or 8 windows a cluster)
+    # up to u=256 at the CLI's default batch and the engine's; past u=256
+    # 16 CTAs, U in shared memory (2 windows) or through L1/L2 (2, 4, 8).
+    (gates, batch, 342, units, bb, variant)
+    for gates in (3, 4) for units in (160, 200, 256)
+    for batch in (256, 1024)
+    for bb, variant in ((2, (gates, 2, 8, True)), (4, (gates, 4, 8, True)),
+                        (8, (gates, 4, 8, True)))
+] + [
+    (gates, batch, 342, units, bb, variant)
+    for gates in (3, 4)
+    for batch, units in ((256, 300), (256, 512), (64, 1024))
+    for bb, variant in ((2, (gates, 2, 16, True)), (2, (gates, 2, 16, False)),
+                        (4, (gates, 8, 16, False)),
+                        (8, (gates, 8, 16, False)))]
 # MmaAvgKernel: (gates, most k-tiles, U in shared memory, CTAs a
 # cluster); a warp a unit group and m-tile of 8 windows, so 16 windows a
 # CTA take two warps a unit group.  (gates, 0, False, 1): the FMA tile.
 BF16_VARIANTS = ([(gates, k_tiles, u_smem, 1) for gates in (3, 4)
                   for k_tiles in (4, 8) for u_smem in (False, True)]
                  + [(gates, 16, True, cluster) for gates in (3, 4)
-                    for cluster in (2, 4)])
+                    for cluster in (2, 4)]
+                 + [(gates, 32, True, cluster) for gates in (3, 4)
+                    for cluster in (4, 8, 16)]
+                 + [(gates, 64, u_smem, 16) for gates in (3, 4)
+                    for u_smem in (True, False)])
 # (gates, batch, steps, units, windows a CTA, variant): the engine's batch
 # (8 windows a CTA fill 128 SMs; 16 fill 64), the CLI's default -b 256 (2
 # a CTA fill 128 SMs) and twice the engine's (16 a CTA fill 128 SMs; 8
@@ -90,7 +116,18 @@ BF16_CASES = [
     and variant[1] == (4 if units <= 64 else 8)] + [
     (gates, batch, 342, units, bb, (gates, 16, True, cluster))
     for gates in (3, 4) for units in (160, 192, 256)
-    for batch in (256, 1024) for cluster in (2, 4) for bb in (4, 8, 16)]
+    for batch in (256, 1024) for cluster in (2, 4) for bb in (4, 8, 16)] + [
+    # Past u=256: clusters of 4, 8 and 16 CTAs with U's fragments in
+    # shared memory (k-tiles up to 32), of 16 at u=640 in shared memory
+    # and through L1/L2, and through L1/L2 at u=1024.
+    (gates, batch, 342, units, bb, variant)
+    for gates in (3, 4)
+    for batch, units, variants in (
+        (256, 300, [(gates, 32, True, c) for c in (4, 8, 16)]),
+        (256, 512, [(gates, 32, True, 16)]),
+        (256, 640, [(gates, 64, True, 16), (gates, 64, False, 16)]),
+        (64, 1024, [(gates, 64, False, 16)]))
+    for variant in variants for bb in (4, 8, 16)]
 # SeqKernel: (rows a lane group, U in registers, bf16, CTAs a cluster, U
 # in shared memory)
 # (rows, steps, units, rows a CTA, variant); 2048 rows is the scan route's
@@ -139,9 +176,11 @@ _AVG_ARGS = ("codes, batch, steps, kernel, bias, recurrent, units, bb, avg, "
              "hidden")
 # What each kernel's entry point passes through to its launcher.
 _SPECS = {
-    "avg": {"source": "rnn_avg.cu", "template": "AvgKernel",
+    "avg": {"source": "rnn_avg.cu",
+            "template": ("AvgKernel", "AvgClusterKernel"),
             "head": _AVG_HEAD, "args": _AVG_ARGS,
-            "launch": "LaunchTile<{0}, {1}, {2}>"},
+            "launch": ("LaunchTile<{0}, {1}, {2}>",
+                       "LaunchClusterTile<{0}, {1}, {2}, {3}>")},
     "avg_bf16": {"source": "rnn_avg.cu", "template": "MmaAvgKernel",
                  "head": _AVG_HEAD, "args": _AVG_ARGS,
                  "launch": "LaunchMma<{0}, {1}, {2}, {3}>"},
@@ -156,6 +195,21 @@ _SPECS = {
 }
 
 
+def templates(kind: str) -> tuple:
+    """The kernel templates of ``kind``: the register tile's, then (for
+    ``avg``) the cluster tile's, whose variants have one more field."""
+    names = _SPECS[kind]["template"]
+    return names if isinstance(names, tuple) else (names,)
+
+
+def launch_of(kind: str, variant) -> str:
+    """The launcher of ``variant`` (a format string of its fields)."""
+    launch = _SPECS[kind]["launch"]
+    if isinstance(launch, str):
+        return launch
+    return launch[len(variant) - len(VARIANTS[0])]
+
+
 def sweep_source(kind: str, variants) -> str:
     """The kernel's source with ``dg_sweep(variant, <its LaunchTile's
     arguments but the stream>, stream)`` appended (the templates are in the
@@ -166,7 +220,7 @@ def sweep_source(kind: str, variants) -> str:
         text = fh.read()
     cases = "".join(
         f"    case {n}: return "
-        + spec["launch"].format(*(str(v).lower() for v in variant))
+        + launch_of(kind, variant).format(*(str(v).lower() for v in variant))
         + f"({spec['args']}, s);\n" for n, variant in enumerate(variants))
     return text + (
         f'\nextern "C" int dg_sweep(int variant, {spec["head"]}, '
@@ -207,8 +261,8 @@ def registers(log: str, kind: str) -> dict:
     from chip_smoke import ptxas_usage
 
     return {tuple(int(v) for v in args.split(", ")): usage
-            for args, usage in ptxas_usage(
-                log, _SPECS[kind]["template"]).items()}
+            for template in templates(kind)
+            for args, usage in ptxas_usage(log, template).items()}
 
 
 def usage_of(regs: dict, variant) -> dict:
@@ -270,12 +324,22 @@ def avg_rows(torch, lib, regs, min_units: int, bf16: bool = False):
                 hidden.data_ptr(),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
-        cluster = variant[3] if bf16 else 1
-        layout = ({"tile": "cluster" if cluster > 1 else "mma",
-                   "k_tiles": variant[1], "cluster": cluster,
-                   "u_in": "shared" if variant[2] else "registers"}
-                  if bf16 else {"windows_a_group": variant[1],
-                                "u_in_registers": variant[2]})
+        if bf16:
+            cluster = variant[3]
+            layout = {"tile": "cluster" if cluster > 1 else "mma",
+                      "k_tiles": variant[1], "cluster": cluster,
+                      "u_in": ("shared" if variant[2] else "registers"
+                               if cluster == 1 else "L1/L2")}
+        elif len(variant) == 4:  # the float32 cluster tile
+            cluster = variant[2]
+            layout = {"tile": "cluster", "windows_a_group": variant[1],
+                      "cluster": cluster,
+                      "u_in": "shared" if variant[3] else "L1/L2"}
+        else:
+            cluster = 1
+            layout = {"tile": "registers" if variant[2] else "l2",
+                      "windows_a_group": variant[1],
+                      "u_in": "registers" if variant[2] else "L1/L2"}
         yield ({"gates": gates, "batch": batch, "steps": steps,
                 "units": units, "windows_a_cta": bb, **layout,
                 "ctas": -(-batch // bb) * cluster,
@@ -343,8 +407,9 @@ def main() -> int:
     variants = {"avg": VARIANTS, "avg_bf16": BF16_VARIANTS,
                 "seq": SEQ_VARIANTS}[args.kernel]
     lib, regs = build(args.kernel, variants)
-    template = _SPECS[args.kernel]["template"]
-    for variant, info in sorted(regs.items()):
+    for variant, info in sorted(regs.items(), key=lambda kv: (len(kv[0]),
+                                                             kv[0])):
+        template = templates(args.kernel)[len(variant) - len(variants[0])]
         print(f"{template}<{', '.join(map(str, variant))}>: {info}",
               flush=True)
 
