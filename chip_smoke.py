@@ -5,7 +5,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught; each phase's
+seconds are printed after it):
 
 1. Environment: the card's name and power limit, the torch and CUDA
    versions; builds the CUDA kernels (``csrc/``, nvcc) and the host library
@@ -49,10 +50,14 @@ Phases (any failure exits non-zero; nothing is caught):
    threads, CTAs and warps an SM) and the backward's split (recurrence
    kernel ms, reduction kernel ms), and checks both cells' pairs again
    past the register tile: at u=96 (B=64, T=342) and u=128 (B=256, T=342,
-   U through L1/L2), and on the wide layout (4u threads up to 1,024) at
-   u=129 (B=256), u=200 (B=37, T=150) and the ceiling u=256 (B=256,
-   T=342); from u=128 on each pair is also timed as above (u=128 the
-   reference point of the layout it extends).
+   U through L1/L2), on the wide layout (4u threads up to 1,024) at
+   u=129 (B=256), u=200 (B=37, T=150) and its widest, u=256 (B=256,
+   T=342), and on the cluster tile (a window's units over a cluster of
+   CTAs, whose CTAs a cluster, windows a cluster and clusters at once it
+   prints) at u=257 (B=5, T=20), u=300 (B=37, T=150), u=520 (B=5,
+   T=23), u=512 (B=256, T=342) and the ceiling u=1024 (B=64, T=342);
+   u=128, 129, 200, 256, 300, 512 and 1024 are also timed as above (u=128
+   the reference point of the layout it extends).
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -265,10 +270,13 @@ Phases (any failure exits non-zero; nothing is caught):
     (start-up and rendezvous, the CUDA context, the first epoch and a
     second, teardown) beside the in-process runs', and the card.
 
-19. Training past u=128: on phase 7's chromosomes (same seed), ``train``
-    through ``cli.main`` (captured, the card's default) of ``gru_att`` at
-    u=256 (vecsize 342, attention, dropout 0.0928, RMSprop defaults,
-    batch 256), 2 x 20 steps, and of the LSTM of that width, 2 x 5 steps:
+19. Training at the ceilings: on phase 7's chromosomes (same seed),
+    ``train`` through ``cli.main`` (captured, the card's default) of
+    ``gru_att`` (vecsize 342, attention, dropout 0.0928, batch 256) and
+    of the LSTM at u=256 on the wide layout (2 x 20 and 2 x 5 steps,
+    RMSprop's default rate) and at u=1024 on the cluster tile (2 x 5
+    steps each, at a learning rate of 1e-5 for the width); depths cut
+    from 200 x 250:
     each training kernel launched on every step, the inference kernel
     once an epoch, no plain version, finite losses that fall; one step of
     each trained model through the kernels against the plain versions
@@ -358,20 +366,38 @@ TRAIN_KERNELS = {
 TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
 LSTM_WIDE_SHAPE = (64, 342, 96)
 # Widths past the window tile's registers: U through L1/L2 up to u=128,
-# the wide layout (4u threads up to 1,024) from u=129 to the ceiling,
-# u=256, at the CLI's default batch and a ragged one.
+# the wide layout (4u threads up to 1,024) from u=129 to u=256, the
+# cluster tile past it to the ceiling, u=1024, at the CLI's default batch,
+# 64 windows at the ceiling, and ragged (u=257, 300, 520: 17, 19 and 33
+# units a CTA of 16).
 TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (256, 342, 128),
                      "u129": (256, 342, 129), "u200": (37, 150, 200),
-                     "u256": (256, 342, 256)}
-# The timed ones: the wide layout's, and u=128 (the L1/L2 layout's
-# widest) at the same batch as the reference point.
-TRAIN_WIDE_TIMED = ("u128", "u129", "u200", "u256")
+                     "u256": (256, 342, 256), "u257": (5, 20, 257),
+                     "u300": (37, 150, 300), "u520": (5, 23, 520),
+                     "u512": (256, 342, 512), "u1024": (64, 342, 1024)}
+# The timed ones: the wide layout's and the cluster tile's, and u=128
+# (the L1/L2 layout's widest) at the same batch as the reference point.
+TRAIN_WIDE_TIMED = ("u128", "u129", "u200", "u256", "u300", "u512",
+                    "u1024")
 # The LSTM trained through the CLI at u=128 (the widest layer of the
 # L1/L2 layout, past the u=113 at which the first inference kernel
 # stopped); phase 19 trains at the ceiling.
 LSTM_WIDE_UNITS = 128
-# Phase 19: both cells trained at the training kernels' ceiling.
-TRAIN_CEILING_UNITS = 256
+# Phase 19: both cells trained at the wide layout's ceiling (u=256, as
+# PR 18's phase trained them) and at the training kernels' ceiling
+# (u=1024, the cluster tile): width: ((epochs, steps) of gru_att, of the
+# LSTM; RMSprop's learning rate, None for its default), the depth cut
+# from 200 x 250 (a step takes about half a second at u=1024).  At u=1024
+# a rate for the width: RMSprop's first step moves each entry of U whose
+# gradient is well above 3e-5 (epsilon's scale) by about 3x the rate, in
+# all up to 3.3 (gru_att) and 4.6 (LSTM) in a row of U at 1e-3, so a
+# 1,024-unit recurrence's preactivations swing with it.  On the H100 (2 x
+# 5 steps, epoch losses of gru_att; LSTM): 1e-3 5.42 to 4.31; 2.76 to
+# 3.63, 1e-4 1.39 to 3.96; 1.33 to 1.17, 3e-5 1.55 to 1.24; 1.54 to 2.10,
+# 1e-5 1.59 to 1.51; 1.60 to 1.47 (the plain versions' rise alike, and
+# the row sums: tools/train_rate_witness.py).
+TRAIN_CEILING_RUNS = {256: (((2, 20), (2, 5)), None),
+                      1024: (((2, 5), (2, 5)), 1e-5)}
 # Phase 20: models of these widths (the inference kernels' ceiling last)
 # predict through the CLI.
 PREDICT_WIDE_UNITS = (512, 1024)
@@ -411,7 +437,20 @@ SCAN_GRAPH_STEPS, FLEET_GRAPH_STEPS = 5, 20
 FLEET_FREEZE_EPOCH = 5
 
 
+_PHASE_START: list = []
+
+
+def end_phase() -> None:
+    """Prints the seconds of the phase that ran, if one did."""
+    if _PHASE_START:
+        print(f"(that phase took {time.perf_counter() - _PHASE_START.pop():.2f}"
+              " s)", flush=True)
+
+
 def phase(name: str) -> None:
+    """Ends the phase that ran, then begins ``name``."""
+    end_phase()
+    _PHASE_START.append(time.perf_counter())
     print(f"== {name}", flush=True)
 
 
@@ -985,8 +1024,8 @@ def train_kernel_phase(torch):
                 results[(name, label)] = row
     # Widths past the window tile's registers, which the block-row
     # backward refused (dU beside U in shared memory stopped it at u=82 for
-    # LSTM and u=94 for GRU), and past u=128 on the wide layout; timed
-    # from u=128 on.
+    # LSTM and u=94 for GRU), past u=128 on the wide layout and past
+    # u=256 on the cluster tile; timed from u=128 on (TRAIN_WIDE_TIMED).
     for cell in ("gru", "lstm"):
         gates = 4 if cell == "lstm" else 3
         for label, (batch, steps, units) in TRAIN_WIDE_SHAPES.items():
@@ -1343,30 +1382,36 @@ def training_phase(torch, np, tmp: str):
 
 
 def wide_training_phase(torch, np, tmp: str) -> dict:
-    """Phase 19: both cells trained at the training kernels' ceiling
-    (u=256, the wide layout) through the CLI, captured; one step against
-    the plain versions; a captured epoch's steps/s and device time by
-    kernel name; a captured ``Trainer.fit`` against the eager one;
-    then each trained model predicts the three fixtures on the fused route
-    in float32 and bfloat16.  Returns the launch counts of each run."""
+    """Phase 19: both cells trained at u=256 (the wide layout) and at the
+    training kernels' ceiling (u=1024, the cluster tile) through the CLI,
+    captured; one step against the plain versions; a captured epoch's
+    steps/s and device time by kernel name; a captured ``Trainer.fit``
+    against the eager one; then each trained model predicts the three
+    fixtures on the fused route in float32 and bfloat16.  Returns the
+    launch counts of each run."""
     from deepgrp_tpu_torch.config import Options
     from deepgrp_tpu_torch.models import rnn
     from deepgrp_tpu_torch.models.keras_io import load_model
     from deepgrp_tpu_torch.models.model import DeepGRPModel
     from deepgrp_tpu_torch.train.sampler import BatchSampler
 
-    units = TRAIN_CEILING_UNITS
     start = time.perf_counter()
     train_npz, val_npz, bed = write_training_files(np, tmp)
     print(f"wrote the training files in {time.perf_counter() - start:.2f} s",
           flush=True)
-    runs = {  # label: (options, epochs, steps, cell)
-        "gru_att": ({**FLAGSHIP, "units": units}, 2, 20, "gru"),
-        "lstm": ({**FLAGSHIP, "attention": False, "rnn": "LSTM",
-                  "units": units}, 2, 5, "lstm")}
+    runs = []  # (name, options, epochs, steps, cell)
+    for units, (depths, rate) in TRAIN_CEILING_RUNS.items():
+        wide = {"units": units}
+        if rate is not None:
+            wide["learning_rate"] = rate
+        for (label, opts, cell), depth in zip(
+                (("gru_att", FLAGSHIP, "gru"),
+                 ("lstm", {**FLAGSHIP, "attention": False, "rnn": "LSTM"},
+                  "lstm")), depths):
+            runs.append((f"{label}_u{units}", {**opts, **wide}, *depth,
+                         cell))
     launches = {}
-    for label, (opts, epochs, steps, cell) in runs.items():
-        name = f"{label}_u{units}"
+    for name, opts, epochs, steps, cell in runs:
         reset_counts()
         model_path, records, seconds = run_train_cli(
             tmp, (train_npz, val_npz, bed), name, n_epochs=epochs,
@@ -4161,85 +4206,71 @@ def main() -> int:
     phase("13. several shards and ranks on the one card: the sharded "
           "engine (4 and 3 shards), two gloo ranks (DP), the launch flags "
           "at world size 1")
-    start = time.perf_counter()
     path_launches = {"sharded": sharded_phase(torch, np, man, seq,
                                               mbp_run)}
     with tempfile.TemporaryDirectory() as dp_tmp:
         path_launches["dp"] = dp_phase(torch, np, dp_tmp)
     with tempfile.TemporaryDirectory() as cli_tmp:
         nccl_cli_phase(torch, np, cli_tmp)
-    print(f"launches on phase 13's paths: {path_launches}; phase 13 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 13's paths: {path_launches}", flush=True)
 
     phase("14. the MSS routes of predict: --device-mss auto (streaming, "
           "-t 1 and -t 0), on, off; 4 shards auto; bf16; dg_mss_stack; a "
           "noisy track's overflow")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as mss_tmp:
         mss_row = mss_routes_phase(torch, np, mss_tmp, man, seq)
-    print(f"phase 14 took {time.perf_counter() - start:.2f} s", flush=True)
 
     phase("15. the port-only workflow on the card: gzip FASTA and "
           "RepeatMasker .out -> npz and BED -> train (traced, adamw) -> "
           "predict -> BED; create_model and engine.predict; no .h5 without "
           "h5py")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as workflow_tmp:
         path_launches = workflow_phase(torch, np, workflow_tmp)
-    print(f"launches on phase 15's paths: {path_launches}; phase 15 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 15's paths: {path_launches}", flush=True)
 
     phase("16. the examples on the card: train_and_evaluate (gru_att, "
           f"{EXAMPLE_EPOCHS} x {EXAMPLE_STEPS} steps), hpo_sweep (serial with "
           "resume, a fleet of 2), multihost_sim (2 gloo ranks), the native "
           "self-test")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as examples_tmp:
         path_launches = examples_phase(torch, np, examples_tmp)
-    print(f"launches on phase 16's paths: {path_launches}; phase 16 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 16's paths: {path_launches}", flush=True)
 
     phase(f"17. the data-parallel epoch captured with its all_reduce: "
           f"NCCL at world size 1 (gru_att, lstm; 5 x {DP_GRAPH_STEPS} "
           f"steps in turns), Trainer.fit under the fake backend at world "
           f"size 2")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as dp_graph_tmp:
         path_launches = dp_capture_phase(torch, np, dp_graph_tmp)
-    print(f"launches on phase 17's paths: {path_launches}; phase 17 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 17's paths: {path_launches}", flush=True)
 
     phase(f"18. one command, every GPU: train --mesh auto on this machine, "
           f"training(mesh=['cuda:0', 'cuda:0']) against two ranks by hand, "
           f"launch_local over NCCL at world size 1, N NCCL ranks against "
           f"torchrun (1 x {LAUNCH_STEPS} steps)")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as launch_tmp:
         path_launches = launch_phase(torch, np, launch_tmp, card)
-    print(f"launches on phase 18's paths: {path_launches}; phase 18 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 18's paths: {path_launches}", flush=True)
 
-    phase(f"19. training past u=128: gru_att and lstm at "
-          f"u={TRAIN_CEILING_UNITS} through the CLI (captured), one step "
+    phase(f"19. training at the ceilings: gru_att and lstm at "
+          f"u={' and u='.join(map(str, TRAIN_CEILING_RUNS))} through the "
+          f"CLI (captured), one step "
           f"against the plain versions, the captured fit against the eager "
           f"one, the trained models on the fixtures in float32 and bf16")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as wide_tmp:
         path_launches = wide_training_phase(torch, np, wide_tmp)
-    print(f"launches on phase 19's paths: {path_launches}; phase 19 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 19's paths: {path_launches}", flush=True)
 
     phase(f"20. wide models predict: gru_att and lstm at "
           f"u={' and u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
           f"weights from a seed) on the fixtures through the CLI in float32 "
           f"and bf16; the track against the CPU (u=512) and the scan route "
           f"(u=1024)")
-    start = time.perf_counter()
     with tempfile.TemporaryDirectory() as wide_tmp:
         path_launches = wide_predict_phase(torch, np, wide_tmp)
-    print(f"launches on phase 20's paths: {path_launches}; phase 20 took "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
+    print(f"launches on phase 20's paths: {path_launches}", flush=True)
 
+    end_phase()
     kernels = []
     sources = {**{name: ("rnn_avg.cu", replaces)
                   for name, (_, replaces) in KERNELS.items()},

@@ -206,12 +206,16 @@ def _declare_rnn_train(lib: ctypes.CDLL) -> None:
     # which (0 LSTM forward, 1 LSTM recurrence, 2 GRU recurrence, 3 GRU
     # forward), units, steps
     lib.dg_window_ctas_per_sm.argtypes = [_I32, _I32, _I32]
+    # which (as above), units, batch, out [3]: CTAs a cluster, windows a
+    # cluster, clusters at once
+    lib.dg_train_clusters.argtypes = [_I32, _I32, _I32, _PTR]
     # hseq, r1, r2, codes, masks, batch, steps, units, gates, splits, parts,
     # d_kernel, d_bias_1, d_bias_2, d_recurrent, stream
     lib.dg_train_reduce.argtypes = ([_PTR] * 5 + [_I32] * 5 + [_PTR] * 6)
     for fn in (lib.dg_gru_train_fwd, lib.dg_lstm_train_fwd,
                lib.dg_lstm_bwd_recurrence, lib.dg_gru_bwd_recurrence,
-               lib.dg_window_ctas_per_sm, lib.dg_train_reduce):
+               lib.dg_window_ctas_per_sm, lib.dg_train_clusters,
+               lib.dg_train_reduce):
         fn.restype = _I32
 
 

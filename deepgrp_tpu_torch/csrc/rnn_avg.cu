@@ -473,18 +473,6 @@ struct Cell<4> {
 
 // ---- The step of a lane group, shared by both float32 tiles ---------------
 
-// Windows a lane of a group of `win` owns after the butterfly.
-__host__ __device__ constexpr int OwnWindows(int win) {
-  return win >= 4 ? win / 4 : 1;
-}
-
-// The j-th of them: w0 + 4 j + s (kWin >= 4), or w0 + (s & 1), shared by
-// lanes s and s ^ 2 (kWin 2).
-template <int kWin>
-__device__ __forceinline__ int OwnWindow(int w0, int s, int j) {
-  return w0 + (kWin >= 4 ? 4 * j + s : s & 1);
-}
-
 // Adds quad q of the lane's k-slice to the gate partials of its group's 2
 // kWin rows: u(c, g) is U[4 q + c] of gate g in the lane's column, row(w,
 // b) the h of window w's branch b in shared memory.  Each U entry, loaded

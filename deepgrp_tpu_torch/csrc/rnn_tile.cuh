@@ -5,7 +5,8 @@
 // and k-slice s of the recurrent dot (the float4 quads s, s + 4, ... of
 // k).  The lane keeps its slice of U in registers up to u = kRegUnits or
 // reads it through L1/L2 (USlice); a fixed butterfly of shuffles
-// reduce-scatters the partial sums over the unit's lanes (FoldWindows).
+// reduce-scatters the partial sums over the unit's lanes (FoldWindows, in
+// rnn_cluster.cuh).
 //
 // The cluster tile (Hopper's thread-block clusters) serves layers too wide
 // for one SM: the CTAs of a cluster split a row's units, each keeps the
@@ -14,13 +15,16 @@
 // through distributed shared memory (PeerAddress, StoreCluster); one
 // cluster barrier a step (ClusterBarrier) then stands where the CTA's
 // barrier stood, and the double buffer needs no second one.
-// LaunchCluster launches such a kernel.
+// LaunchCluster launches such a kernel (the helpers are in
+// rnn_cluster.cuh, which rnn_train.cu includes too).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rnn_cluster.cuh"
 
 namespace {
 
@@ -109,142 +113,11 @@ struct USlice {
   }
 };
 
-// Sums in[.][b][g] with lane (this ^ mask) and keeps half of the windows:
-// lane bit `hi` set keeps the odd ones (2w + 1), else the even (2w); the
-// partner lane sends the other half.
-template <int kN, int kGates>
-__device__ __forceinline__ void FoldWindows(
-    const float (&in)[kN][2][kGates], bool hi, int mask, unsigned lanes,
-    float (&out)[kN / 2][2][kGates]) {
-#pragma unroll
-  for (int w = 0; w < kN / 2; ++w) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-#pragma unroll
-      for (int g = 0; g < kGates; ++g) {
-        const float keep = hi ? in[2 * w + 1][b][g] : in[2 * w][b][g];
-        const float send = hi ? in[2 * w][b][g] : in[2 * w + 1][b][g];
-        out[w][b][g] = keep + __shfl_xor_sync(lanes, send, mask);
-      }
-    }
-  }
-}
-
 // Lanes of this thread's warp that exist (the last warp of a CTA of 4 u
 // threads may be partial); the shuffles name only those.
 __device__ __forceinline__ unsigned WarpLanes() {
   const int n = static_cast<int>(blockDim.x) - (threadIdx.x & ~31);
   return n >= 32 ? ~0u : (1u << n) - 1u;
-}
-
-// ---- Thread-block clusters ----------------------------------------------
-
-// The CTA's rank in its cluster.
-__device__ __forceinline__ unsigned ClusterRank() {
-  unsigned rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  return rank;
-}
-
-// The address in the cluster's shared window of `local` (this CTA's
-// shared memory) in the CTA of the cluster with rank `rank`.
-__device__ __forceinline__ uint32_t PeerAddress(const void *local,
-                                                unsigned rank) {
-  const uint32_t own =
-      static_cast<uint32_t>(__cvta_generic_to_shared(local));
-  uint32_t peer;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(peer)
-               : "r"(own), "r"(rank));
-  return peer;
-}
-
-// A 4-byte store to a peer's shared memory (an address from PeerAddress).
-__device__ __forceinline__ void StoreCluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
-               : "memory");
-}
-__device__ __forceinline__ void StoreCluster(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(addr), "r"(v)
-               : "memory");
-}
-
-// Every thread of the cluster: the shared-memory writes of each CTA before
-// it (to its own memory and its peers') are seen by all after it.  It also
-// orders the CTA's own threads, as __syncthreads() would.
-__device__ __forceinline__ void ClusterBarrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// A launch of `ctas` CTAs in clusters of `cluster` along x, `threads`
-// threads and `smem` bytes of dynamic shared memory each.
-struct ClusterLaunch {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t config;
-
-  ClusterLaunch(int ctas, int threads, size_t smem, int cluster,
-                cudaStream_t stream) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config = {};
-    config.gridDim = dim3(ctas);
-    config.blockDim = dim3(threads);
-    config.dynamicSmemBytes = smem;
-    config.stream = stream;
-    config.attrs = attr;
-    config.numAttrs = 1;
-  }
-};
-
-// The opt-ins a cluster launch of `kernel` needs: `smem` bytes of dynamic
-// shared memory and, past 8 CTAs (not portable), the cluster size.
-template <typename... Params>
-cudaError_t ClusterOptIn(void (*kernel)(Params...), size_t smem,
-                         int cluster) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && cluster > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return err;
-}
-
-// Clusters of `kernel` at this shape that the card runs at once (0 if it
-// cannot place one, or on a CUDA error).
-template <typename... Params>
-int ClusterSlots(void (*kernel)(Params...), int threads, size_t smem,
-                 int cluster) {
-  int placed = 0;
-  const ClusterLaunch launch(cluster, threads, smem, cluster, nullptr);
-  if (ClusterOptIn(kernel, smem, cluster) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&placed, kernel, &launch.config) !=
-          cudaSuccess) {
-    return 0;
-  }
-  return placed;
-}
-
-// Launches `kernel` on `stream` as ctas / cluster clusters of `cluster`
-// CTAs (ctas a multiple of it), after asking the card whether it can
-// place one such cluster: cudaErrorLaunchOutOfResources when it cannot
-// (no smaller tile is tried), else the launch's error (0 = launched).
-template <typename... Params, typename... Args>
-cudaError_t LaunchCluster(void (*kernel)(Params...), int ctas, int threads,
-                          size_t smem, int cluster, cudaStream_t stream,
-                          Args... args) {
-  if (ClusterSlots(kernel, threads, smem, cluster) < 1) {
-    const cudaError_t err = cudaGetLastError();  // clears a sticky error
-    return err != cudaSuccess ? err : cudaErrorLaunchOutOfResources;
-  }
-  const ClusterLaunch launch(ctas, threads, smem, cluster, stream);
-  const cudaError_t err = cudaLaunchKernelEx(&launch.config, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace

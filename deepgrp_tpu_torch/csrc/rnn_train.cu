@@ -42,7 +42,7 @@
 // hseq written, so both kernels are bound by float32 arithmetic, not bytes.
 // The recurrence is sequential in T, so its parallelism is B x 2 x g*u.
 //
-// The window tile (every kernel here runs on it).  The first design's
+// The window tile (every kernel here up to u=256).  The first design's
 // block-row tile gave 120 threads a CTA and one CTA an SM at B=256: 3.75
 // warps an SM, about one a scheduler, so nothing hid the latency of shared
 // loads and dependent FMAs; and its
@@ -161,9 +161,63 @@
 //     latency.  The step loop is sequential, and each step waits on
 //     shared loads, shuffles and barriers; 16 warps an SM hide part of
 //     it.  Past u=128, U's stream from L2 (above).
+//
+// The cluster tile (257 <= u <= 1024, kClusterMaxUnits; the section of
+// that name below): a window's units over a thread-block cluster of 8 or
+// 16 CTAs, each owning at most 64 units (uc) with all their gates and
+// U's columns, for 2, 4 or 8 windows a cluster (TrainFwdClusterKernel,
+// BwdRecurrenceClusterKernel<kGates, kWin, kCluster>).  The forward is
+// the f32 inference cluster tile's step (rnn_avg.cu) with the masked
+// input row and the hseq (cseq) stores; the backward's (A) recomputes
+// the gates with the forward's ClusterDots and GruGateMath (the forward's
+// bits), its (B) reduce-scatters dh_prev's partials through distributed
+// shared memory.
+//   * The layouts, timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
+//     (tools/train_tile_sweep.py --clusters, B=256, T=342, masks at rate
+//     0.0928, ms, forward / backward recurrence, GRU; LSTM; CTAs x
+//     windows a cluster):
+//       u=256: 8x2 8.79 / 27.03, 8x4 6.74 / 20.29, 8x8 5.30 / 18.21,
+//              16x2 11.38 / 31.99, 16x4 8.82 / 20.31, 16x8 5.63 / 24.32;
+//              LSTM 8x8 6.56 / 20.53, 16x8 6.82 / 28.14 (the wide layout,
+//              timed beside them in a second run: 16.24 / 32.88; 21.18 /
+//              46.33, where 8x8 took 5.30 / 18.23; 6.52 / 20.38);
+//       u=300: 8x2 11.46 / 32.35, 8x4 8.76 / 31.26, 8x8 7.80 / 33.08,
+//              16x2 15.01 / 40.43, 16x4 10.55 / 26.71, 16x8 8.84 / 36.59;
+//              LSTM 8x4 12.71 / 29.75, 8x8 13.20 / 37.04, 16x4 13.53 /
+//              33.53, 16x8 12.65 / 40.53;
+//       u=512: 8x2 32.49 / 94.86, 8x4 23.91 / 76.37, 8x8 18.97 / 53.50,
+//              16x4 26.38 / 56.09, 16x8 17.87 / 56.77; LSTM 8x4 29.65 /
+//              73.81, 8x8 28.29 / 62.44, 16x4 27.60 / 70.28, 16x8 21.33 /
+//              65.86;
+//       u=1024 (16 CTAs): x2 120.51 / 366.89, x4 78.65 / 206.69, x8
+//              73.91 / 171.43; LSTM x2 146.85 / 445.03, x4 100.23 /
+//              280.42, x8 89.31 / 197.70.
+//     So the forward takes 16 CTAs and 8 windows, the backward 8 CTAs (4
+//     windows up to u=384, 8 up to u=512) and past u=512 16 CTAs and 8
+//     windows (ClusterLayoutOf); a batch of at most 4 takes fewer
+//     windows.  The CTAs a cluster depend on the width only: the order of
+//     dh_prev's sum over the slots does, so a window's bits are the same
+//     in any batch.  At u=256 the cluster tile beats the wide layout 3x
+//     in the forward and 1.8-2.3x in the backward recurrence; u <= 256
+//     keeps the wide layout (ROADMAP item 28).
+//   * What bounds it: every cluster streams its CTAs' column slices of U
+//     (all of U, 12.6 MB for the GRU at u=1024) from L2 each step, the
+//     backward twice (A, B); more windows a cluster cut the stream a row,
+//     fewer let more clusters run at once (the card places 7 clusters of
+//     16 at 8 windows and u=1024).
+//   * ptxas -v (sm_90a): TrainFwdClusterKernel 96 (2 windows), 118 (GRU
+//     4, 8), 127 / 144 (LSTM 4 / 8) registers; BwdRecurrenceClusterKernel
+//     110 (2 windows), 126-146 (4), 224 / 228 (8) registers; no spills.
+//   * Shared memory: the forward's two h buffers 16 kWin Pad4(u) bytes
+//     (128 KB at 8 windows and u=1024), the backward's h_prev 8 kWin
+//     Pad4(u) and the slots 8 kCluster kWin uc bytes (64 + 128 KB there).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "rnn_cluster.cuh"
 
 namespace {
 
@@ -1180,6 +1234,667 @@ GruBwdRecurrenceWideKernel(const int8_t *__restrict__ codes, int batch,
   }
 }
 
+// --------------------------- the cluster tile (257 <= u <= 1024)
+//
+// Past kWideUnits a window's units split over a thread-block cluster of
+// kCluster CTAs, as the float32 inference tile does (AvgClusterKernel in
+// rnn_avg.cu): the CTA of rank r owns units [r uc, (r + 1) uc), uc =
+// ceil(u / kCluster) <= 64, with all their gates and all k of their
+// columns of U (read through L1/L2), for the kWin windows of the cluster
+// (one lane group of 4 uc threads; lane (i, s) owns unit base + i and
+// k-slice s).  Each CTA keeps a full copy of h per row.  The forward's
+// step: ClusterDots (the quads of the slice, then the butterfly) leaves
+// each lane the whole gate sums of the rows it owns, it does their gate
+// math on the masked input row, stores hseq (cseq), avg and hidden, and
+// writes the unit's new h into every CTA's next buffer through
+// distributed shared memory; one cluster barrier a step.  The backward's
+// step: (A) the same ClusterDots over h_prev (each CTA reads the rows from
+// hseq into shared memory, cp.async, one step ahead; no exchange), the
+// gate cotangents of the owned units, written to device memory as the
+// window tile writes them and staged as d [2 kWin][g uc] (the columns the
+// CTA owns); (B) dh_prev as a reduce-scatter: the CTA forms p_r[row, k] =
+// sum over its columns j of d[row, j] U[k, j] for every k (the same
+// column slice of U that (A) read) and writes peer q the partials of q's
+// units into its slot r (double-buffered); after the cluster barrier the
+// owner of (row, k) adds the kCluster slots in rank order (then the GRU's
+// dh z, then d_avg / 2).  u floats a row cross the cluster, not the g u
+// of an all-gather of the cotangents, whose double buffer would not fit
+// (256 kB for the LSTM at u=1024 and 4 windows).  One __syncthreads and
+// one cluster barrier a step.
+
+constexpr int kClusterUnits = 64;  // most units a CTA of a cluster owns
+constexpr int kClusterThreads = kSlices * kClusterUnits;
+constexpr int kClusterMaxUnits = 16 * kClusterUnits;  // the ceiling, 1,024
+constexpr int kPartialKs = 4;  // rows k of U a pass of (B) takes
+
+// Shared memory of a cluster kernel, as float offsets from a 16-byte
+// aligned base: h [2 (forward: 2 buffers x 2)][kWin][Pad4(u)]; the
+// backward's d [2 kWin][Pad4(g uc)], the column of U of each of those
+// columns (ints) and the slots [2][kCluster][2 kWin][uc]; then W's columns
+// [5][g uc] and the masks [2 kWin][g * 5] (StageMasks' order).
+struct ClusterLayout {
+  int uc, cols, hstride, dstride;
+  size_t d, col, slots, w, m, end;
+  __host__ __device__ ClusterLayout(int gates, int units, int win,
+                                    int cluster, bool backward) {
+    uc = (units + cluster - 1) / cluster;
+    cols = gates * uc;
+    hstride = Pad4(units);
+    dstride = Pad4(cols);
+    const size_t rows = 2 * static_cast<size_t>(win);
+    d = (backward ? 1 : 2) * rows * hstride;
+    col = d + (backward ? rows * dstride : 0);
+    slots = col + (backward ? dstride : 0);
+    w = slots + (backward ? 2 * cluster * rows * uc : 0);
+    m = w + static_cast<size_t>(kCodes) * cols;
+    end = m + rows * gates * kCodes;
+  }
+  size_t bytes() const { return sizeof(float) * end; }
+};
+
+// The CTA's columns of W: s_w[c][g uc + n] = W[c, g u + base + n], zero
+// past u.
+template <int kGates>
+__device__ void StageClusterWeights(const float *__restrict__ kernel,
+                                    int units, int uc, int base,
+                                    float *s_w) {
+  const int cols = kGates * uc;
+  for (int j = threadIdx.x; j < kCodes * cols; j += blockDim.x) {
+    const int c = j / cols, o = j - c * cols;
+    const int g = o / uc, n = base + o - g * uc;
+    s_w[j] = n < units ? kernel[c * kGates * units + g * units + n] : 0.0f;
+  }
+}
+
+// The code of window `row`'s branch b at step t, through L1 (pad past the
+// batch).
+__device__ __forceinline__ int ClusterCode(const int8_t *__restrict__ codes,
+                                           bool in_batch, int row,
+                                           int steps, int t, int b) {
+  if (!in_batch) return kPadCode;
+  const int8_t *w_codes = codes + static_cast<size_t>(row) * steps;
+  return b ? Complement(w_codes[steps - 1 - t]) : w_codes[t];
+}
+
+// The butterfly of a cluster tile: sums acc over the four lanes of a unit
+// (their k-slices) and leaves lane s the rows of the windows it owns
+// (OwnWindow), in an order fixed by the slices: (s0 + s1) + (s2 + s3).
+template <int kWin, int kN>
+__device__ __forceinline__ void FoldOwn(const float (&acc)[kWin][2][kN],
+                                        int s, unsigned lanes,
+                                        float (&out)[OwnWindows(kWin)][2][kN]) {
+  if constexpr (kWin >= 4) {
+    float half[kWin / 2][2][kN];
+    FoldWindows<kWin, kN>(acc, s & 1, 1, lanes, half);
+    FoldWindows<kWin / 2, kN>(half, (s >> 1) & 1, 2, lanes, out);
+  } else {
+    FoldWindows<kWin, kN>(acc, s & 1, 1, lanes, out);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int g = 0; g < kN; ++g) {
+        out[0][b][g] += __shfl_xor_sync(lanes, out[0][b][g], 2);
+      }
+    }
+  }
+}
+
+// The recurrent dots of the lane's rows: lane (i, s) sums the quads s,
+// s+4, ... of k of column u_col of each gate of U (through L1/L2) against
+// the 2 kWin rows of h in s_h [2 kWin][Pad4(u)] (row 2w + b), each in the
+// order of the window tile's GateDots, then FoldOwn.  The forward and the
+// backward's gate recompute both call it: the recomputed gates are the
+// forward's bits.
+template <int kGates, int kWin>
+__device__ __forceinline__ void ClusterDots(
+    const float *__restrict__ recurrent, const float *s_h, int units,
+    int u_col, int s, unsigned lanes,
+    float (&dot)[OwnWindows(kWin)][2][kGates]) {
+  const int hstride = Pad4(units);
+  const int width = kGates * units;
+  float acc[kWin][2][kGates] = {};
+  const int n_quads = SliceQuads(units, s);
+  for (int m = 0; m < n_quads; ++m) {
+    const int q = s + kSlices * m;
+    float u_q[4][kGates];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = 4 * q + c;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+        u_q[c][g] = k < units
+                        ? __ldg(recurrent + k * width + g * units + u_col)
+                        : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kWin; ++w) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float4 h4 =
+            reinterpret_cast<const float4 *>(s_h + (2 * w + b) * hstride)[q];
+        const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+#pragma unroll
+          for (int g = 0; g < kGates; ++g) {
+            acc[w][b][g] = fmaf(hv[c], u_q[c][g], acc[w][b][g]);
+          }
+        }
+      }
+    }
+  }
+  FoldOwn<kWin, kGates>(acc, s, lanes, dot);
+}
+
+// The GRU's gates from a row's input row and recurrent dots (the window
+// tile's arithmetic); both cluster kernels call it.
+struct GruGates {
+  float z, r, rh, hh;
+};
+__device__ __forceinline__ GruGates GruGateMath(
+    const float (&x)[kGruGates], const float (&dot)[kGruGates],
+    const float (&b_rec)[kGruGates]) {
+  GruGates o;
+  o.z = Sigmoid(x[0] + (dot[0] + b_rec[0]));
+  o.r = Sigmoid(x[1] + (dot[1] + b_rec[1]));
+  o.rh = dot[2] + b_rec[2];
+  o.hh = tanhf(x[2] + o.r * o.rh);
+  return o;
+}
+
+// The biases of unit u_col: the input row and, for the GRU, the recurrent
+// row.
+template <int kGates>
+__device__ __forceinline__ void ClusterBiases(const float *__restrict__ bias,
+                                              int units, int u_col,
+                                              float (&b_in)[kGates],
+                                              float (&b_rec)[kGates]) {
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    b_in[g] = bias[g * units + u_col];
+    b_rec[g] = kGates == kGruGates ? bias[kGates * units + g * units + u_col]
+                                   : 0.0f;
+  }
+}
+
+// The training forward of either cell on the cluster tile (the note
+// above); cseq is the LSTM's (null for the GRU).
+template <int kGates, int kWin, int kCluster>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+TrainFwdClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
+                      const float *__restrict__ masks,
+                      const float *__restrict__ kernel,
+                      const float *__restrict__ bias,
+                      const float *__restrict__ recurrent, int units,
+                      float *__restrict__ avg, float *__restrict__ hidden,
+                      float *__restrict__ hseq, float *__restrict__ cseq) {
+  constexpr int kOwn = OwnWindows(kWin);
+  constexpr int kRows = 2 * kWin;
+  extern __shared__ float4 smem4[];
+  const ClusterLayout lay(kGates, units, kWin, kCluster, false);
+  float *s_h = reinterpret_cast<float *>(smem4);  // [2][kRows][hstride]
+  float *s_w = s_h + lay.w;
+  float *s_m = s_h + lay.m;
+  const int uc = lay.uc, hstride = lay.hstride;
+  const int base = static_cast<int>(ClusterRank()) * uc;
+  const int tid = threadIdx.x;
+  const int i = tid / kSlices, s = tid % kSlices;
+  const int unit = base + i;
+  const int u_col = min(unit, units - 1);  // lanes past u: sums dropped
+  const int row0 = blockIdx.x / kCluster * kWin;
+  for (int j = tid; j < 2 * kRows * hstride; j += blockDim.x) s_h[j] = 0.0f;
+  StageClusterWeights<kGates>(kernel, units, uc, base, s_w);
+  StageMasks<kGates>(masks, batch, row0, kWin, s_m);
+  float b_in[kGates], b_rec[kGates];
+  ClusterBiases<kGates>(bias, units, u_col, b_in, b_rec);
+  const unsigned lanes = WarpLanes();
+  const bool writer = unit < units && (kWin >= 4 || s < 2);
+  float h_own[kOwn][2] = {}, c_own[kOwn][2] = {};
+  ClusterBarrier();  // every CTA's h zeroed before a peer writes it
+
+  for (int t = 0; t < steps; ++t) {
+    const float *h_cur = s_h + (t & 1) * kRows * hstride;
+    float *h_nxt = s_h + ((t + 1) & 1) * kRows * hstride;
+    float dot[kOwn][2][kGates];
+    ClusterDots<kGates, kWin>(recurrent, h_cur, units, u_col, s, lanes, dot);
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      const int w = OwnWindow<kWin>(0, s, j), row = row0 + w;
+      const bool in_batch = row < batch;
+      if (!writer) continue;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int code = ClusterCode(codes, in_batch, row, steps, t, b);
+        float x[kGates];
+        InputRow<kGates>(s_w, s_m + (b * kWin + w) * kGates * kCodes, b_in,
+                         uc, i, code, x);
+        float h;
+        if constexpr (kGates == kGruGates) {
+          const GruGates gg = GruGateMath(x, dot[j][b], b_rec);
+          h = gg.z * h_own[j][b] + (1.0f - gg.z) * gg.hh;
+        } else {
+          float pre[kLstmGates];
+#pragma unroll
+          for (int g = 0; g < kLstmGates; ++g) pre[g] = x[g] + dot[j][b][g];
+          h = LstmCell(pre, c_own[j][b]);
+        }
+        h_own[j][b] = h;
+        const uint32_t at = static_cast<uint32_t>(
+            sizeof(float) * ((2 * w + b) * hstride + unit));
+#pragma unroll
+        for (int p = 0; p < kCluster; ++p) {
+          StoreCluster(PeerAddress(h_nxt, p) + at, h);
+        }
+        if (in_batch) {
+          const size_t seq =
+              (static_cast<size_t>(b ? batch + row : row) * steps + t) *
+                  units + unit;
+          hseq[seq] = h;
+          if constexpr (kGates == kLstmGates) cseq[seq] = c_own[j][b];
+        }
+      }
+      if (in_batch) {
+        const float mean = (h_own[j][0] + h_own[j][1]) * 0.5f;
+        avg[(static_cast<size_t>(row) * steps + t) * units + unit] = mean;
+        if (t == steps - 1) {
+          hidden[static_cast<size_t>(row) * units + unit] = mean;
+        }
+      }
+    }
+    ClusterBarrier();  // the new h in every CTA's next buffer
+  }
+}
+
+// An asynchronous 4-byte copy from device to shared memory (cp.async; the
+// thread waits for its copies with CopyAsyncWait).
+__device__ __forceinline__ void CopyAsync4(float *dst, const float *src) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void CopyAsyncWait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Row lr (2w + b) of the cluster's h_prev at `step` into s_h [kRows][
+// hstride] (zero before step 0 and past the batch), asynchronously.
+__device__ __forceinline__ void LoadHPrev(const float *__restrict__ hseq,
+                                          int batch, int steps, int units,
+                                          int row0, int rows, int step,
+                                          float *s_h, bool async) {
+  const int hstride = Pad4(units);
+  for (int e = threadIdx.x; e < rows * units; e += blockDim.x) {
+    const int lr = e / units, k = e - lr * units;
+    const int row = row0 + (lr >> 1);
+    float *dst = s_h + lr * hstride + k;
+    if (row < batch && step >= 0) {
+      const float *src =
+          hseq + (static_cast<size_t>((lr & 1) ? batch + row : row) * steps +
+                  step) * units + k;
+      if (async) {
+        CopyAsync4(dst, src);
+      } else {
+        *dst = *src;
+      }
+    } else {
+      *dst = 0.0f;
+    }
+  }
+}
+
+// The backward recurrence of either cell on the cluster tile (the note
+// above): writes d_out = d_rp and d_xp (GRU) or d_out = da (LSTM; d_xp
+// null), as the window tile's kernels do.
+template <int kGates, int kWin, int kCluster>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+BwdRecurrenceClusterKernel(const int8_t *__restrict__ codes, int batch,
+                           int steps, const float *__restrict__ masks,
+                           const float *__restrict__ kernel,
+                           const float *__restrict__ bias,
+                           const float *__restrict__ recurrent, int units,
+                           const float *__restrict__ hseq,
+                           const float *__restrict__ cseq,
+                           const float *__restrict__ d_avg,
+                           const float *__restrict__ d_hidden,
+                           float *__restrict__ d_out,
+                           float *__restrict__ d_xp) {
+  constexpr int kOwn = OwnWindows(kWin);
+  constexpr int kRows = 2 * kWin;
+  extern __shared__ float4 smem4[];
+  const ClusterLayout lay(kGates, units, kWin, kCluster, true);
+  float *s_h = reinterpret_cast<float *>(smem4);  // [kRows][hstride]
+  float *s_d = s_h + lay.d;                       // [kRows][dstride]
+  int *s_col = reinterpret_cast<int *>(s_h + lay.col);  // [dstride]
+  float *s_slot = s_h + lay.slots;  // [2][kCluster][kRows][uc]
+  float *s_w = s_h + lay.w;
+  float *s_m = s_h + lay.m;
+  const int uc = lay.uc, cols = lay.cols, hstride = lay.hstride;
+  const int dstride = lay.dstride;
+  const int slot_buf = kCluster * kRows * uc;  // floats a slot buffer
+  const unsigned rank = ClusterRank();
+  const int base = static_cast<int>(rank) * uc;
+  const int width = kGates * units;
+  const int tid = threadIdx.x;
+  const int i = tid / kSlices, s = tid % kSlices;
+  const int unit = base + i;
+  const int u_col = min(unit, units - 1);
+  const int row0 = blockIdx.x / kCluster * kWin;
+
+  for (int j = tid; j < kRows * hstride; j += blockDim.x) s_h[j] = 0.0f;
+  for (int j = tid; j < kRows * dstride; j += blockDim.x) s_d[j] = 0.0f;
+  // The column of U of each of the CTA's columns of d (a valid one where
+  // d is zero: past u and the pads).
+  for (int o = tid; o < dstride; o += blockDim.x) {
+    const int g = o / uc, n = base + o - g * uc;
+    s_col[o] = o < cols && n < units ? g * units + n : 0;
+  }
+  StageClusterWeights<kGates>(kernel, units, uc, base, s_w);
+  StageMasks<kGates>(masks, batch, row0, kWin, s_m);
+  __syncthreads();  // zeroed before the rows of h_prev land
+  LoadHPrev(hseq, batch, steps, units, row0, kRows, steps - 2, s_h, false);
+  float b_in[kGates], b_rec[kGates];
+  ClusterBiases<kGates>(bias, units, u_col, b_in, b_rec);
+  const unsigned lanes = WarpLanes();
+  const bool writer = unit < units && (kWin >= 4 || s < 2);
+  const bool p_writer = kWin >= 4 || s < 2;
+
+  // Per owned window: dhid / 2, and one step ahead d_avg / 2 and c_prev.
+  float half_hid[kOwn], nx_da[kOwn], nx_c[kOwn][2];
+  float dc[kOwn][2] = {}, keep[kOwn][2] = {};
+  auto c_at = [&](int row, int b, int step) {
+    return step >= 0 ? cseq[(static_cast<size_t>(b ? batch + row : row) *
+                                 steps + step) * units + unit]
+                     : 0.0f;
+  };
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    const int row = row0 + OwnWindow<kWin>(0, s, j);
+    const bool live = writer && row < batch;
+    half_hid[j] =
+        live ? d_hidden[static_cast<size_t>(row) * units + unit] * 0.5f
+             : 0.0f;
+    nx_da[j] = live ? d_avg[(static_cast<size_t>(row) * steps + steps - 1) *
+                                units + unit] * 0.5f
+                    : 0.0f;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      nx_c[j][b] = kGates == kLstmGates && live ? c_at(row, b, steps - 2)
+                                                : 0.0f;
+    }
+  }
+  ClusterBarrier();  // h_prev staged; every CTA started before (B) writes
+
+  for (int t = steps - 1; t >= 0; --t) {
+    // (A) the owned rows' gates from h_prev and their cotangents.
+    float dot[kOwn][2][kGates];
+    ClusterDots<kGates, kWin>(recurrent, s_h, units, u_col, s, lanes, dot);
+    const float *slot_cur = s_slot + (t & 1) * slot_buf;
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      const int w = OwnWindow<kWin>(0, s, j), row = row0 + w;
+      const bool in_batch = row < batch;
+      if (!writer) continue;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int lr = 2 * w + b;
+        const int code = ClusterCode(codes, in_batch, row, steps, t, b);
+        float x[kGates];
+        InputRow<kGates>(s_w, s_m + (b * kWin + w) * kGates * kCodes, b_in,
+                         uc, i, code, x);
+        float dh = half_hid[j];
+        if (t < steps - 1) {  // the slots of dh_prev, in rank order
+          float sum = slot_cur[lr * uc + i];
+#pragma unroll
+          for (int p = 1; p < kCluster; ++p) {
+            sum += slot_cur[(p * kRows + lr) * uc + i];
+          }
+          dh = kGates == kGruGates ? keep[j][b] + sum : sum;
+        }
+        const float dht = dh + nx_da[j];
+        float d_r[kGates];  // of the recurrent preactivations
+        const size_t out =
+            (static_cast<size_t>(b ? batch + row : row) * steps + t) * width +
+            unit;
+        if constexpr (kGates == kGruGates) {
+          const GruGates gg = GruGateMath(x, dot[j][b], b_rec);
+          const float h_prev = s_h[lr * hstride + unit];
+          const float da_z = dht * (h_prev - gg.hh) * gg.z * (1.0f - gg.z);
+          const float da_h = dht * (1.0f - gg.z) * (1.0f - gg.hh * gg.hh);
+          const float da_r = (da_h * gg.rh) * gg.r * (1.0f - gg.r);
+          keep[j][b] = dht * gg.z;
+          d_r[0] = da_z;
+          d_r[1] = da_r;
+          d_r[2] = da_h * gg.r;
+          if (in_batch) {
+            d_xp[out] = da_z;
+            d_xp[out + units] = da_r;
+            d_xp[out + 2 * units] = da_h;
+          }
+        } else {
+          float pre[kLstmGates];
+#pragma unroll
+          for (int g = 0; g < kLstmGates; ++g) pre[g] = x[g] + dot[j][b][g];
+          LstmCellBackward(pre, dht, nx_c[j][b], dc[j][b], d_r);
+        }
+#pragma unroll
+        for (int g = 0; g < kGates; ++g) {
+          if (in_batch) d_out[out + g * units] = d_r[g];
+          s_d[lr * dstride + g * uc + i] = in_batch ? d_r[g] : 0.0f;
+        }
+      }
+      if (t > 0 && in_batch) {
+        nx_da[j] = d_avg[(static_cast<size_t>(row) * steps + t - 1) * units +
+                         unit] * 0.5f;
+        if constexpr (kGates == kLstmGates) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) nx_c[j][b] = c_at(row, b, t - 2);
+        }
+      }
+    }
+    __syncthreads();  // d staged; every read of h_prev done
+
+    if (t > 0) {
+      LoadHPrev(hseq, batch, steps, units, row0, kRows, t - 2, s_h, true);
+      // (B) p_r[row, k] for k = q uc + i of each peer q, kPartialKs peers
+      // a pass over the CTA's columns (quads s, s+4, ... of the slice).
+      const int n_quads = SliceQuads(cols, s);
+      const uint32_t slot_at = static_cast<uint32_t>(
+          sizeof(float) * (((t - 1) & 1) * slot_buf + rank * kRows * uc + i));
+#pragma unroll 1
+      for (int q0 = 0; q0 < kCluster; q0 += kPartialKs) {
+        const float *u_rows[kPartialKs];
+#pragma unroll
+        for (int kk = 0; kk < kPartialKs; ++kk) {
+          u_rows[kk] = recurrent +
+                       min((q0 + kk) * uc + i, units - 1) * width;
+        }
+        float acc[kPartialKs][kWin][2][1] = {};
+        for (int m = 0; m < n_quads; ++m) {
+          const int qd = s + kSlices * m;
+          const int4 col4 = reinterpret_cast<const int4 *>(s_col)[qd];
+          const int col[4] = {col4.x, col4.y, col4.z, col4.w};
+          float uv[kPartialKs][4];
+#pragma unroll
+          for (int kk = 0; kk < kPartialKs; ++kk) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) uv[kk][c] = __ldg(u_rows[kk] + col[c]);
+          }
+#pragma unroll
+          for (int w = 0; w < kWin; ++w) {
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const float4 d4 = reinterpret_cast<const float4 *>(
+                  s_d + (2 * w + b) * dstride)[qd];
+              const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+              for (int kk = 0; kk < kPartialKs; ++kk) {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  acc[kk][w][b][0] = fmaf(dv[c], uv[kk][c], acc[kk][w][b][0]);
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kPartialKs; ++kk) {
+          float p[kOwn][2][1];
+          FoldOwn<kWin, 1>(acc[kk], s, lanes, p);
+          const int q = q0 + kk;
+          if (!p_writer || q * uc + i >= units) continue;
+          const uint32_t peer = PeerAddress(s_slot, q) + slot_at;
+#pragma unroll
+          for (int j = 0; j < kOwn; ++j) {
+            const int w = OwnWindow<kWin>(0, s, j);
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              StoreCluster(static_cast<uint32_t>(
+                               peer + sizeof(float) * (2 * w + b) * uc),
+                           p[j][b][0]);
+            }
+          }
+        }
+      }
+      CopyAsyncWait();  // the next h_prev landed (the barrier shows it)
+    }
+    ClusterBarrier();  // slots written, h_prev staged, d read
+  }
+}
+
+// Launches a layout of the cluster tile's forward (ctas a multiple of
+// kCluster, 4 uc threads): the launch's error (0 = launched), or
+// cudaErrorInvalidValue past 64 units a CTA.
+template <int kGates, int kWin, int kCluster>
+int LaunchFwdCluster(const void *codes, int batch, int steps,
+                     const void *masks, const void *kernel, const void *bias,
+                     const void *recurrent, int units, void *avg,
+                     void *hidden, void *hseq, void *cseq,
+                     cudaStream_t stream) {
+  const ClusterLayout lay(kGates, units, kWin, kCluster, false);
+  if (lay.uc > kClusterUnits) return static_cast<int>(cudaErrorInvalidValue);
+  const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
+  return static_cast<int>(LaunchCluster(
+      TrainFwdClusterKernel<kGates, kWin, kCluster>,
+      (batch + kWin - 1) / kWin * kCluster, kSlices * lay.uc, lay.bytes(),
+      kCluster, stream, static_cast<const int8_t *>(codes), batch, steps,
+      f32(masks), f32(kernel), f32(bias), f32(recurrent), units,
+      static_cast<float *>(avg), static_cast<float *>(hidden),
+      static_cast<float *>(hseq), static_cast<float *>(cseq)));
+}
+
+// The same for the backward recurrence (d_xp: the GRU's, null for LSTM).
+template <int kGates, int kWin, int kCluster>
+int LaunchBwdCluster(const void *codes, int batch, int steps,
+                     const void *masks, const void *kernel, const void *bias,
+                     const void *recurrent, int units, const void *hseq,
+                     const void *cseq, const void *d_avg,
+                     const void *d_hidden, void *d_out, void *d_xp,
+                     cudaStream_t stream) {
+  const ClusterLayout lay(kGates, units, kWin, kCluster, true);
+  if (lay.uc > kClusterUnits) return static_cast<int>(cudaErrorInvalidValue);
+  const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
+  return static_cast<int>(LaunchCluster(
+      BwdRecurrenceClusterKernel<kGates, kWin, kCluster>,
+      (batch + kWin - 1) / kWin * kCluster, kSlices * lay.uc, lay.bytes(),
+      kCluster, stream, static_cast<const int8_t *>(codes), batch, steps,
+      f32(masks), f32(kernel), f32(bias), f32(recurrent), units, f32(hseq),
+      f32(cseq), f32(d_avg), f32(d_hidden), static_cast<float *>(d_out),
+      static_cast<float *>(d_xp)));
+}
+
+// The clusters of a layout the card runs at once (0 if it cannot place
+// one), or -1 past 64 units a CTA.
+template <int kGates, int kWin, int kCluster, bool kBackward>
+int ClusterSlotsOf(int units) {
+  const ClusterLayout lay(kGates, units, kWin, kCluster, kBackward);
+  if (lay.uc > kClusterUnits) return -1;
+  if constexpr (kBackward) {
+    return ClusterSlots(BwdRecurrenceClusterKernel<kGates, kWin, kCluster>,
+                        kSlices * lay.uc, lay.bytes(), kCluster);
+  } else {
+    return ClusterSlots(TrainFwdClusterKernel<kGates, kWin, kCluster>,
+                        kSlices * lay.uc, lay.bytes(), kCluster);
+  }
+}
+
+// The cluster tile's layout of a kernel at a width and batch: CTAs a
+// cluster and windows a cluster, from the sweep on the H100 (the note at
+// the top): the forward 16 CTAs, 8 windows; the backward 8 CTAs (4
+// windows up to u=384, 8 up to u=512), then 16 CTAs and 8 windows; fewer
+// windows for a batch of at most 4.  CTAs a cluster depend on the width
+// only, so a window's bits do not depend on its batch.
+struct TrainCluster {
+  int cluster, windows;
+};
+TrainCluster ClusterLayoutOf(bool backward, int units, int batch) {
+  const int cluster = backward && units <= 512 ? 8 : 16;
+  int windows = backward && units <= 384 ? 4 : 8;
+  while (windows > 2 && batch <= windows / 2) windows /= 2;
+  return {cluster, windows};
+}
+
+template <int kValue>
+using Int = std::integral_constant<int, kValue>;
+
+// op(Int<kWin>{}, Int<kCluster>{}) in the layout ClusterLayoutOf picks
+// (the forward's only in clusters of 16, so only those are compiled).
+template <bool kBackward, typename Op>
+int InClusterLayout(int units, int batch, Op op) {
+  const TrainCluster lay = ClusterLayoutOf(kBackward, units, batch);
+  const auto in = [&](auto cluster) {
+    switch (lay.windows) {
+      case 2: return op(Int<2>{}, cluster);
+      case 4: return op(Int<4>{}, cluster);
+      default: return op(Int<8>{}, cluster);
+    }
+  };
+  if constexpr (kBackward) {
+    if (lay.cluster == 8) return in(Int<8>{});
+  }
+  return in(Int<16>{});
+}
+
+// The training forward on the cluster tile, in the layout ClusterLayoutOf
+// picks.
+template <int kGates>
+int FwdCluster(const void *codes, int batch, int steps, const void *masks,
+               const void *kernel, const void *bias, const void *recurrent,
+               int units, void *avg, void *hidden, void *hseq, void *cseq,
+               cudaStream_t stream) {
+  return InClusterLayout<false>(units, batch, [&](auto win, auto cluster) {
+    return LaunchFwdCluster<kGates, decltype(win)::value,
+                            decltype(cluster)::value>(
+        codes, batch, steps, masks, kernel, bias, recurrent, units, avg,
+        hidden, hseq, cseq, stream);
+  });
+}
+
+// The backward recurrence on the cluster tile, likewise.
+template <int kGates>
+int BwdCluster(const void *codes, int batch, int steps, const void *masks,
+               const void *kernel, const void *bias, const void *recurrent,
+               int units, const void *hseq, const void *cseq,
+               const void *d_avg, const void *d_hidden, void *d_out,
+               void *d_xp, cudaStream_t stream) {
+  return InClusterLayout<true>(units, batch, [&](auto win, auto cluster) {
+    return LaunchBwdCluster<kGates, decltype(win)::value,
+                            decltype(cluster)::value>(
+        codes, batch, steps, masks, kernel, bias, recurrent, units, hseq,
+        cseq, d_avg, d_hidden, d_out, d_xp, stream);
+  });
+}
+
+// The clusters at once of the layout ClusterLayoutOf picks.
+template <int kGates, bool kBackward>
+int ClusterSlotsAt(int units, int batch) {
+  return InClusterLayout<kBackward>(units, batch, [&](auto win, auto cluster) {
+    return ClusterSlotsOf<kGates, decltype(win)::value,
+                          decltype(cluster)::value, kBackward>(units);
+  });
+}
+
 // ------------------------------------------- weight-gradient reduction
 //
 // After the recurrence, the parameter gradients are sums over the
@@ -1401,6 +2116,13 @@ bool BadWindowShape(int batch, int steps, int units) {
 
 bool IsWide(int units) { return kSlices * units > kMaxThreads; }
 
+// Past the window tile the cluster tile, up to kClusterMaxUnits.
+bool BadTrainShape(int batch, int steps, int units) {
+  return batch <= 0 || steps <= 0 || units <= 0 || units > kClusterMaxUnits;
+}
+
+bool IsCluster(int units) { return units > kWideUnits; }
+
 // Shared memory of a window kernel's launch at this width.
 size_t WindowKernelSmem(int gates, int units, int steps, bool backward) {
   return backward && IsWide(units) ? WideSmem(gates, units, steps)
@@ -1417,8 +2139,14 @@ int dg_gru_train_fwd(const void *codes, int batch, int steps,
                      const void *masks, const void *kernel, const void *bias,
                      const void *recurrent, int units, void *avg,
                      void *hidden, void *hseq, void *stream) {
-  if (BadWindowShape(batch, steps, units)) {
+  if (BadTrainShape(batch, steps, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (IsCluster(units)) {
+    return FwdCluster<kGruGates>(codes, batch, steps, masks, kernel, bias,
+                                 recurrent, units, avg, hidden, hseq,
+                                 nullptr,
+                                 static_cast<cudaStream_t>(stream));
   }
   const size_t smem = WindowKernelSmem(kGruGates, units, steps, false);
   const auto fn = units <= kRegUnits ? GruTrainFwdKernel<true>
@@ -1438,8 +2166,13 @@ int dg_lstm_train_fwd(const void *codes, int batch, int steps,
                       const void *bias, const void *recurrent, int units,
                       void *avg, void *hidden, void *hseq, void *cseq,
                       void *stream) {
-  if (BadWindowShape(batch, steps, units)) {
+  if (BadTrainShape(batch, steps, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (IsCluster(units)) {
+    return FwdCluster<kLstmGates>(codes, batch, steps, masks, kernel, bias,
+                                  recurrent, units, avg, hidden, hseq, cseq,
+                                  static_cast<cudaStream_t>(stream));
   }
   const size_t smem = WindowKernelSmem(kLstmGates, units, steps, false);
   const auto fn = units <= kRegUnits ? LstmTrainFwdKernel<true>
@@ -1462,8 +2195,14 @@ int dg_lstm_bwd_recurrence(const void *codes, int batch, int steps,
                            int units, const void *hseq, const void *cseq,
                            const void *d_avg, const void *d_hidden, void *da,
                            void *stream) {
-  if (BadWindowShape(batch, steps, units)) {
+  if (BadTrainShape(batch, steps, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (IsCluster(units)) {
+    return BwdCluster<kLstmGates>(codes, batch, steps, masks, kernel, bias,
+                                  recurrent, units, hseq, cseq, d_avg,
+                                  d_hidden, da, nullptr,
+                                  static_cast<cudaStream_t>(stream));
   }
   const size_t smem = WindowKernelSmem(kLstmGates, units, steps, true);
   const auto fn = units <= kRegUnits ? LstmBwdRecurrenceKernel<true>
@@ -1487,8 +2226,14 @@ int dg_gru_bwd_recurrence(const void *codes, int batch, int steps,
                           const void *hseq, const void *d_avg,
                           const void *d_hidden, void *d_rp, void *d_xp,
                           void *stream) {
-  if (BadWindowShape(batch, steps, units)) {
+  if (BadTrainShape(batch, steps, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (IsCluster(units)) {
+    return BwdCluster<kGruGates>(codes, batch, steps, masks, kernel, bias,
+                                 recurrent, units, hseq, nullptr, d_avg,
+                                 d_hidden, d_rp, d_xp,
+                                 static_cast<cudaStream_t>(stream));
   }
   const size_t smem = WindowKernelSmem(kGruGates, units, steps, true);
   const auto fn = units <= kRegUnits ? GruBwdRecurrenceKernel<true>
@@ -1548,6 +2293,30 @@ int dg_window_ctas_per_sm(int which, int units, int steps) {
     return 0;
   }
   return blocks;
+}
+
+// The cluster tile of a training kernel at this width and batch (which:
+// as dg_window_ctas_per_sm's): out[0] CTAs a cluster, out[1] windows a
+// cluster, out[2] the clusters of it the card runs at once (0 if it cannot
+// place one).  Returns 0 (out untouched) where the kernel runs no cluster:
+// u <= 256, or a shape it refuses.
+int dg_train_clusters(int which, int units, int batch, int *out) {
+  if (which < 0 || which > 3 || BadTrainShape(batch, 1, units) ||
+      !IsCluster(units)) {
+    return 0;
+  }
+  const bool lstm = which < 2, backward = which == 1 || which == 2;
+  const int slots =
+      lstm ? (backward ? ClusterSlotsAt<kLstmGates, true>(units, batch)
+                       : ClusterSlotsAt<kLstmGates, false>(units, batch))
+           : (backward ? ClusterSlotsAt<kGruGates, true>(units, batch)
+                       : ClusterSlotsAt<kGruGates, false>(units, batch));
+  if (slots < 0) return 0;
+  const TrainCluster lay = ClusterLayoutOf(backward, units, batch);
+  out[0] = lay.cluster;
+  out[1] = lay.windows;
+  out[2] = slots;
+  return 1;
 }
 
 // Sums of the backward over K = 2B*T rows (see TrainReduceKernel):

@@ -22,8 +22,10 @@ sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
-layers up to u=256 (:data:`TRAIN_MAX_UNITS`; :func:`train_layout` names
-the window tile's layout of a width).
+every width the inference kernels take, up to u=1024
+(:data:`TRAIN_MAX_UNITS`): one CTA a window up to u=256, past it a
+window's units split over a thread-block cluster (:func:`train_layout`
+names the layout of a width, :func:`train_tile` what the card launches).
 
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
@@ -418,20 +420,28 @@ def _launch_seq(params: RnnParams,
 # -- training kernels --------------------------------------------------------
 
 
-#: The widest layer the training kernels take (``csrc/rnn_train.cu``: the
-#: window tile's 4u threads a CTA, at most 1,024).
-TRAIN_MAX_UNITS = 256
+#: The widest layer the training kernels take (``csrc/rnn_train.cu``: a
+#: window's units over a cluster of 16 CTAs, at most 64 units a CTA), the
+#: inference kernels' ceiling.
+TRAIN_MAX_UNITS = AVG_MAX_UNITS
+#: The widest layer of the training kernels' window tile (4u threads a
+#: CTA, at most 1,024).
+TRAIN_WINDOW_UNITS = 256
 
 
 def train_layout(units: int) -> str:
-    """The window tile's layout at a width: ``"registers"`` (U's slice in
-    registers, u <= 64), ``"l2"`` (U through L1/L2, u <= 128) or
-    ``"wide"`` (1,024 threads at most, one CTA an SM; the backward stages
-    the gate cotangents and forms dh_prev from U's rows, u <= 256).
-    Raises ``ValueError`` past :data:`TRAIN_MAX_UNITS`."""
+    """The training kernels' layout at a width (pure Python): the window
+    tile's ``"registers"`` (U's slice in registers, u <= 64), ``"l2"`` (U
+    through L1/L2, u <= 128) or ``"wide"`` (1,024 threads at most, one
+    CTA an SM; the backward stages the gate cotangents and forms dh_prev
+    from U's rows, u <= 256), then ``"cluster"`` (a window's units over a
+    thread-block cluster, u <= 1024).  Raises ``ValueError`` naming the
+    width and the ceiling past :data:`TRAIN_MAX_UNITS`."""
     if not 0 < units <= TRAIN_MAX_UNITS:
         raise ValueError(f"the training kernels take widths up to their "
                          f"ceiling u={TRAIN_MAX_UNITS}, not u={units}")
+    if units > TRAIN_WINDOW_UNITS:
+        return "cluster"
     return "registers" if units <= 64 else "l2" if units <= 128 else "wide"
 
 
@@ -574,26 +584,46 @@ def _train_reduce(hseq: torch.Tensor, codes: torch.Tensor,
               f"B={batch} T={steps} u={units} splits={splits}")
 
 
-#: The window kernels of each cell's training path, ``(kind, index that
-#: dg_window_ctas_per_sm takes)``.
+#: The kernels of each cell's training path, ``(kind, index that
+#: dg_window_ctas_per_sm and dg_train_clusters take)``.
 _WINDOW_KERNELS = {"lstm": (("fwd", 0), ("bwd", 1)),
                    "gru": (("fwd", 3), ("bwd", 2))}
 
 
 def train_tile(cell: str, batch: int, units: int, steps: int,
                device: Optional[torch.device] = None) -> Dict[str, int]:
-    """The window tile of ``cell``'s training kernels (the forward and the
+    """The tile of ``cell``'s training kernels (the forward and the
     backward's recurrence) on a CUDA device: its layout
-    (:func:`train_layout`, ``"refused"`` past the ceiling), threads a CTA
-    (four per unit), CTAs (one a window), resident CTAs an SM of each
-    kernel (0 where it cannot launch), and the warps an SM that gives at
-    this batch."""
+    (:func:`train_layout`, ``"refused"`` past the ceiling) and threads a
+    CTA (four per unit the CTA owns).  On the window tile (u <= 256): CTAs
+    (one a window), resident CTAs an SM of each kernel (0 where it cannot
+    launch) and the warps an SM that gives at this batch.  On the cluster
+    tile, for each kernel (``fwd_...``, ``bwd_...``; the library picks
+    their layouts apart): CTAs a cluster, windows a cluster, threads a
+    CTA, clusters, and the clusters the card runs at once."""
     lib = _build.load_kernels("rnn_train")
     device = device or torch.device("cuda")
+    if not 0 < units <= TRAIN_MAX_UNITS:
+        return {"layout": "refused", "threads": 4 * units, "ctas": batch,
+                **{f"{kind}_ctas_per_sm": 0
+                   for kind, _ in _WINDOW_KERNELS[cell]}}
+    layout = train_layout(units)
+    if layout == "cluster":
+        tile: Dict[str, object] = {"layout": layout}
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            for kind, which in _WINDOW_KERNELS[cell]:
+                if not lib.dg_train_clusters(which, units, batch, out):
+                    raise ValueError(f"{cell}_train_{kind} refuses "
+                                     f"u={units} at B={batch}")
+                tile.update({f"{kind}_cluster": out[0],
+                             f"{kind}_windows": out[1],
+                             f"{kind}_threads": 4 * -(-units // out[0]),
+                             f"{kind}_clusters": -(-batch // out[1]),
+                             f"{kind}_clusters_at_once": out[2]})
+        return tile
     threads = 4 * units
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    layout = (train_layout(units) if 0 < units <= TRAIN_MAX_UNITS
-              else "refused")
     tile = {"layout": layout, "threads": threads, "ctas": batch}
     with torch.cuda.device(device):
         for kind, which in _WINDOW_KERNELS[cell]:

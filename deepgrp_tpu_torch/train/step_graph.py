@@ -37,7 +37,16 @@ them with one host call.
   NCCL, ``ProcessGroupNCCL``'s watchdog thread queries the events of
   collectives issued before the capture, which is not an unsafe call, and
   is handed none of the collectives captured (``make_dp_train_epoch``).
-  An error raises; nothing falls back to the eager step.
+  An error raises; nothing falls back to the eager step;
+* Python's cyclic garbage collector runs just before the capture and is
+  paused during it.  A finished run's graph lives in a reference cycle
+  (its ``StepGraph`` holds the step, whose loop holds the ``StepGraph``),
+  so only the collector frees it, and torch's graph context no longer
+  collects before a capture: a collection that an allocation set off
+  inside the capture ran the dead graph's ``cudaGraphExecDestroy``
+  there, which invalidated the capture (``CUDAGraph.cpp``: "operation
+  not permitted when stream is capturing"; seen on the H100 in a data-
+  parallel capture test and in the 7th ``train`` of one process).
 
 What a step may do: device work only, with no read on the host
 (``.item()``, ``.cpu()``), no copy of host data to the device and no branch
@@ -51,7 +60,9 @@ process-global state beyond the one-at-a-time launch recording.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+import contextlib
+import gc
+from typing import Callable, Iterator, Optional, Sequence, Union
 
 import torch
 
@@ -107,8 +118,22 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with _build.recording_launches() as launches:
+        with _build.recording_launches() as launches, collector_paused():
             with torch.cuda.graph(graph, stream=self.stream,
                                   capture_error_mode="global"):
                 self.step()
         self.graph, self.launches = graph, launches
+
+
+@contextlib.contextmanager
+def collector_paused() -> Iterator[None]:
+    """Runs Python's cyclic garbage collector, then pauses it for the
+    block (module docstring); it runs again after, if it ran before."""
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()

@@ -13,12 +13,16 @@ The shapes include the engine's default tile at the flagship shape
 
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
-tiny widths (also at u=96 and u=128, past the register tile, and at
-u=129, 200 and 256 on the wide layout), with
+tiny widths (also at u=96 and u=128, past the register tile, at
+u=129, 200 and 256 on the wide layout, and from u=257 to the ceiling
+u=1024 on the cluster tile), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
-runs give bitwise-equal gradients (no float atomics).
+runs give bitwise-equal gradients (no float atomics); on the cluster tile
+a window's bits are the same alone and in a batch, and u=1025 is refused
+before any launch.  A captured step outlasts a dead graph freed around
+it.
 
 The fused inference kernels (one register tile for both cells up to
 u=128) also run at the CLI's default batch (256 windows: two a CTA), at
@@ -177,14 +181,62 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
                                                (5, 20, 128),
                                                (5, 20, 129),
                                                (37, 150, 200),
-                                               (64, 342, 256)])
+                                               (64, 342, 256),
+                                               (5, 20, 257),
+                                               (37, 150, 300),
+                                               (5, 23, 520),
+                                               (64, 342, 512),
+                                               (8, 64, 1024)])
 def test_train_kernels_match_plain_wide(device, cell, masked, batch, steps,
                                         units):
-    """Widths past the register tile (U read through L2) up to u=128, and
-    the wide layout past it (4u threads up to 1,024; the backward stages
-    the gate cotangents and forms dh_prev from U's rows) up to the ceiling,
-    u=256; a ragged batch at u=200."""
+    """Widths past the register tile (U read through L2) up to u=128, the
+    wide layout past it (4u threads up to 1,024; the backward stages the
+    gate cotangents and forms dh_prev from U's rows) up to u=256, and the
+    cluster tile past it (a window's units over a cluster of CTAs) up to
+    the ceiling, u=1024; ragged batches at u=200 and 300, ragged widths
+    over the cluster's CTAs at u=257, 300 and 520."""
     check_train_pair(device, cell, masked, batch, steps, units)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [300, 1024])
+def test_train_cluster_bits_alone_and_repeated(device, cell, units):
+    """On the cluster tile a window's training forward and backward
+    cotangents have the same bits alone and inside a batch (whatever its
+    cluster, CTA or lane), and a second run repeats them."""
+    gates = 4 if cell == "lstm" else 3
+    batch, steps = 19, 40
+    params, codes = random_case(units, gates, batch, steps, units, device)
+    masks = random_masks(units, gates, batch, device)
+    rng = np.random.default_rng(units + 1)
+    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                         dtype=torch.float32, device=device)
+    d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                         dtype=torch.float32, device=device)
+
+    def run(rows):
+        lo, hi = rows
+        sub_masks = masks.view(gates, 2, batch, 5)[:, :, lo:hi].reshape(
+            gates, 2 * (hi - lo), 5).contiguous()
+        sub = codes[lo:hi].contiguous()
+        out = cuda_rnn.train_fwd(cell, params, sub, sub_masks)
+        seqs = tuple(out[2:])
+        cot = cuda_rnn._bwd_recurrence(cell, params, sub, sub_masks, seqs,
+                                       d_avg[lo:hi].contiguous(),
+                                       d_hid[lo:hi].contiguous())
+        return out, cot
+
+    (out, cot), (again, cot_again) = run((0, batch)), run((0, batch))
+    alone, cot_alone = run((11, 12))
+    torch.cuda.synchronize()
+    for g, a in zip(out + cot, again + cot_again):
+        assert torch.equal(g, a)
+    assert torch.equal(alone[0], out[0][11:12])
+    assert torch.equal(alone[1], out[1][11:12])
+    for seq, seq_alone in zip(out[2:], alone[2:]):
+        assert torch.equal(seq_alone, seq[[11, batch + 11]])
+    for c, c_alone in zip(cot, cot_alone):
+        assert torch.equal(c_alone, c[[11, batch + 11]])
 
 
 def check_train_pair(device, cell, masked, batch, steps, units):
@@ -237,31 +289,41 @@ def test_window_tile_quadruples_warps_per_sm(device, cell):
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_backward_width_ceiling(device, cell):
-    """The window kernels (forward and backward recurrence) launch up to
-    u=256 at T=342 (4u threads a CTA, the wide layout past u=128) and not
-    at u=257."""
+    """The training kernels (forward and backward recurrence) launch up
+    to u=1024 at T=342 (4u threads a CTA, the wide layout past u=128, the
+    cluster tile past u=256) and not at u=1025."""
     for units, layout in ((128, "l2"), (129, "wide"), (256, "wide")):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == layout, tile
         assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
-    tile = cuda_rnn.train_tile(cell, 8, 257, 342)
+    for units in (257, 512, 1024):
+        tile = cuda_rnn.train_tile(cell, 8, units, 342)
+        assert tile["layout"] == "cluster", tile
+        for kind in ("fwd", "bwd"):
+            assert tile[f"{kind}_cluster"] * 64 >= units, tile
+            assert tile[f"{kind}_threads"] == 4 * -(-units // tile[
+                f"{kind}_cluster"]), tile
+            assert tile[f"{kind}_clusters"] == -(-8 // tile[
+                f"{kind}_windows"]), tile
+            assert tile[f"{kind}_clusters_at_once"] >= 1, tile
+    tile = cuda_rnn.train_tile(cell, 8, 1025, 342)
     assert tile["layout"] == "refused"
     assert tile["bwd_ctas_per_sm"] == 0 and tile["fwd_ctas_per_sm"] == 0
 
 
 def test_gru_backward_refuses_u129(device):
     """Named for the first ceiling (u=128): both cells' forward and
-    backward now raise past u=256, naming the width and the ceiling, and
+    backward now raise past u=1024, naming the width and the ceiling, and
     launch nothing."""
-    batch, steps, units = 2, 5, 257
+    batch, steps, units = 2, 5, 1025
     for cell, gates in (("gru", 3), ("lstm", 4)):
         params, codes = random_case(5, gates, batch, steps, units, device)
         seqs = tuple(torch.zeros(2 * batch, steps, units, device=device)
                      for _ in range(gates - 2))
         launches = cuda_rnn.LAUNCHES.snapshot()
-        with pytest.raises(ValueError, match="u=256, not u=257"):
+        with pytest.raises(ValueError, match="u=1024, not u=1025"):
             cuda_rnn.train_fwd(cell, params, codes, None)
-        with pytest.raises(ValueError, match="u=256, not u=257"):
+        with pytest.raises(ValueError, match="u=1024, not u=1025"):
             cuda_rnn.train_bwd(cell, params, codes, None, seqs,
                                torch.zeros(batch, steps, units,
                                            device=device),
@@ -434,14 +496,22 @@ def test_engine_on_card_matches_cpu(device):
     np.testing.assert_allclose(got_p, want_p, atol=ATOL)
 
 
-@pytest.mark.parametrize("rnn_type,attention", [("GRU", True),
-                                                ("LSTM", False)])
-def test_train_step_on_card_matches_cpu(device, rnn_type, attention):
+@pytest.mark.parametrize("rnn_type,attention,units,epsilon", [
+    pytest.param("GRU", True, 16, None, id="GRU-True"),
+    pytest.param("LSTM", False, 16, None, id="LSTM-False"),
+    pytest.param("GRU", True, 300, 1e-6, id="GRU-True-u300"),
+    pytest.param("LSTM", False, 300, 1e-6, id="LSTM-False-u300")])
+def test_train_step_on_card_matches_cpu(device, rnn_type, attention, units,
+                                        epsilon):
     """One optimization step on the card (kernels) against the same step
     on the CPU (plain versions): loss at atol 1e-5, gradients as above,
-    updated parameters at atol 1e-5."""
-    options = Options(vecsize=60, units=16, batch_size=32, rnn=rnn_type,
-                      attention=attention, dropout=0.0928)
+    updated parameters at atol 1e-5; also at u=300, on the cluster tile,
+    with RMSprop's epsilon at 1e-6 (as tests/test_torch_training.py's
+    u=300 case: U's gradient has entries near the default 1e-10, where
+    sums in other orders move the update by more than 1e-5)."""
+    extra = {} if epsilon is None else {"epsilon": epsilon}
+    options = Options(vecsize=60, units=units, batch_size=32, rnn=rnn_type,
+                      attention=attention, dropout=0.0928, **extra)
     config = ModelConfig.from_options(options)
     params = init_params(config, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(8)
@@ -1328,6 +1398,49 @@ def test_dp_capture_world1_nccl_equals_eager(device, rnn_type, attention,
     assert captured[3] == eager[3]
     assert eager[3].get(f"{cell}_train_fwd", 0) == steps
     assert eager[3].get(f"{cell}_train_bwd", 0) == steps
+
+
+def test_capture_outlasts_a_graph_dying_inside_it(device):
+    """A finished run's captured graph, kept in a reference cycle (as a
+    ``StepGraph`` and its step's loop keep theirs), dies while the next
+    step is captured, with the collector set to run at every allocation:
+    the capture pauses the collector, so the dead graph's
+    ``cudaGraphExecDestroy`` does not run inside it (where it invalidated
+    the capture: ``train/step_graph.py``), and the step replays."""
+    import gc
+
+    from deepgrp_tpu_torch.train.step_graph import StepGraph
+
+    x = torch.zeros(4, device=device)
+    y = torch.zeros(4, device=device)
+    keep = []
+
+    def step():
+        if torch.cuda.is_current_stream_capturing():
+            keep.clear()  # the finished graph dies inside the capture
+            [[] for _ in range(100)]  # allocations that set off the collector
+        y.add_(1)
+
+    thresholds = gc.get_threshold()
+    gc.freeze()  # the process's objects out of the collector's way,
+    gc.collect()  # so that its full collections run again
+    try:
+        finished = StepGraph(lambda: x.add_(1), device)
+        finished()  # eager
+        finished()  # captured and replayed
+        finished.cycle = finished  # only the collector frees it
+        keep.append(finished)
+        del finished
+        gc.set_threshold(1, 1, 1)
+        run = StepGraph(step, device)
+        for _ in range(3):
+            run()
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.unfreeze()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(y, 3.0))
+    assert torch.equal(x, torch.full_like(x, 2.0))
 
 
 def test_dp_capture_global_mode_outlasts_the_watchdog(device):

@@ -16,9 +16,11 @@ CPU nothing is captured: the same step functions run eagerly.  Here:
   tolerance);
 * the fleet with a trial frozen mid-run equals the loop it replaced bit
   for bit;
-* asking to capture on the CPU raises; the launch counters' recording.
+* asking to capture on the CPU raises; the launch counters' recording;
+  a capture collects garbage first and pauses the collector.
 """
 
+import contextlib
 import importlib
 import math
 import threading
@@ -460,6 +462,51 @@ def test_trainer_captures_only_on_cuda_by_default(tmp_path):
         is False
     assert Trainer(model, options, tmp_path, tensorboard=False,
                    capture=False).capture is False
+
+
+def test_capture_collects_then_pauses_the_collector(monkeypatch):
+    """A capture runs Python's cyclic garbage collector first and pauses
+    it while the step is captured (a dead graph's destructor inside a
+    global-mode capture invalidates it: ``step_graph.py``'s docstring):
+    a dead reference cycle made before is freed before the step runs,
+    the collector is off during the step, on again after.  The capture's
+    CUDA calls are stand-ins here."""
+    import gc
+    import weakref
+
+    from deepgrp_tpu_torch.train import step_graph
+
+    class Graph:
+        def register_generator_state(self, gen):
+            pass
+
+    def graph(cuda_graph, stream=None, capture_error_mode=None):
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(step_graph.torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(step_graph.torch.cuda, "graph", graph)
+
+    class Node:
+        pass
+
+    def dead_cycle():
+        node = Node()
+        node.self = node
+        return weakref.ref(node)
+
+    seen = {}
+    dead = dead_cycle()
+
+    def step():
+        seen["collector on"] = gc.isenabled()
+        seen["dead cycle freed"] = dead() is None
+
+    captured = StepGraph.__new__(StepGraph)
+    captured.step, captured.generators, captured.stream = step, [], None
+    assert gc.isenabled()
+    captured._capture()
+    assert seen == {"collector on": False, "dead cycle freed": True}
+    assert gc.isenabled()
 
 
 def test_recorded_launches_are_counted_at_each_replay():

@@ -135,28 +135,32 @@ def test_autograd_function_matches_jax_vjp(cell, batch, steps, units,
                                    err_msg=name)
 
 
-# The widths either side of the window tile's wide layout (u=128 | 129)
-# and up to the training kernels' ceiling (u=256); the LSTM's u=128 cases
-# keep the ids they had when u=128 was the ceiling.
+# The widths either side of the window tile's wide layout (u=128 | 129),
+# up to its widest (u=256), and on the cluster tile past it: u=257, u=520
+# (ragged over 16 CTAs: 33 units a CTA) and the ceiling u=1024; the
+# LSTM's u=128 cases keep the ids they had when u=128 was the ceiling.
 WIDE_CASES = [
     pytest.param(cell, units, rate,
                  id=(str(rate) if (cell, units) == ("lstm", 128)
                      else f"{cell}-u{units}-{rate}"))
-    for cell in ("gru", "lstm") for units in (128, 129, 200, 256)
+    for cell in ("gru", "lstm") for units in (128, 129, 200, 256, 257, 520,
+                                              1024)
     for rate in (0.0, 0.0928)]
 
 
 @pytest.mark.parametrize("cell,units,rate", WIDE_CASES)
 def test_lstm_train_matches_jax_vjp_u128(cell, units, rate):
     """One training step (loss and gradients) of either cell's autograd
-    Function at widths from u=128 to the ceiling u=256 (named for the
+    Function at widths from u=128 to the ceiling u=1024 (named for the
     LSTM at u=128, its first case), against the JAX custom VJP, at the
-    tolerances above.  The loss weights have random magnitudes and the
-    signs of the forward's avg, so the loss is a sum of 2 x 20 x u
-    positive terms: with random signs it cancels to a value near 0 (0.06
-    at u=129), where rtol 1e-5 reads the float32 rounding of avg (which
-    agrees within 3e-7) and not the kernels' agreement."""
-    batch, steps = 2, 20
+    tolerances above (past u=256 over 8 steps, not 20: the JAX kernels'
+    interpret mode takes seconds a step there).  The loss weights have
+    random magnitudes and the signs of the forward's avg, so the loss is a
+    sum of 2 x T x u positive terms: with random signs it cancels to a
+    value near 0 (0.06 at u=129), where rtol 1e-5 reads the float32
+    rounding of avg (which agrees within 3e-7) and not the kernels'
+    agreement."""
+    batch, steps = 2, (20 if units <= cuda_rnn.TRAIN_WINDOW_UNITS else 8)
     params, codes, masks = random_case(units, cell, batch, steps, units,
                                        rate)
     with torch.no_grad():
@@ -213,13 +217,18 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 
 
 def test_train_layout_by_width():
-    """The window tile's layout of a width, and the ceiling: u=256."""
+    """The training kernels' layout of a width (the window tile up to
+    u=256, the cluster tile past it), and the ceiling: u=1024, the
+    inference kernels' own."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
-                          (128, "l2"), (129, "wide"), (256, "wide")):
+                          (128, "l2"), (129, "wide"), (256, "wide"),
+                          (257, "cluster"), (520, "cluster"),
+                          (1024, "cluster")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.TRAIN_MAX_UNITS == 256
-    for units in (0, 257):
-        with pytest.raises(ValueError, match=f"u={units}"):
+    assert cuda_rnn.TRAIN_MAX_UNITS == cuda_rnn.AVG_MAX_UNITS == 1024
+    for units in (0, 1025):
+        with pytest.raises(ValueError,
+                           match=f"u=1024, not u={units}"):
             cuda_rnn.train_layout(units)
 
 
