@@ -16,14 +16,17 @@ seconds are printed after it):
    ragged one (B=1000, T=150, u=32), also at u=96 and u=128 (past the
    register tile's registers) and on the cluster tile at u=256, 512 (B=256),
    1024 (B=64) and ragged at u=300 (B=37, T=150) and u=520 (B=5, T=23),
-   each with its tile (CTAs a cluster, clusters at once; the ptxas usage
-   of each instantiation), random weights and codes (with N and pad codes)
-   from a seed; max abs difference <= 1e-5 on both outputs (the JAX
-   package's kernel tolerance); past u=128 a second launch and a window
-   alone give the same bits; u=1025 raises ``ValueError`` in both dtypes
-   with no launch.  Times the kernel, the plain version and the cuDNN
-   recurrence (``torch.nn.GRU``/``LSTM`` on the doubled one-hot batch,
-   TF32 off) with CUDA events.
+   past u=1024 with several units a lane at u=2048 (B=64, T=342), 4096
+   (B=16, T=342) and ragged at u=1025 (B=37, T=150) and u=3000 (B=5,
+   T=23), each with its tile (CTAs a cluster, clusters at once; the ptxas
+   usage of each instantiation), random weights and codes (with N and pad
+   codes) from a seed; max abs difference <= 1e-5 on both outputs (the
+   JAX package's kernel tolerance); past u=128 a second launch and a
+   window alone give the same bits; u=4097 raises ``ValueError`` in both
+   dtypes, and on the scan route's ``gru_seq``, with no launch.  Times the
+   kernel, the plain version and the cuDNN recurrence
+   (``torch.nn.GRU``/``LSTM`` on the doubled one-hot batch, TF32 off) with
+   CUDA events (past u=1024 over 3 launches).
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
    the reference settings and the ``.npz`` weights in
@@ -90,13 +93,15 @@ seconds are printed after it):
    group, k-slices a unit and where U sits) against ``rnn.gru_apply`` on
    uniform random input at (2048, 342, 60) in float32 and bfloat16,
    (2048, 342, 128), (512, 342, 256) and (16, 342, 512) in float32 (U
-   through L1/L2; two k-slices a unit past u=128) and a ragged (7, 23, 60);
+   through L1/L2; two k-slices a unit past u=128), a ragged (7, 23, 60)
+   and past u=1024 phase 2's shapes of several units a lane in float32
+   and bfloat16 (a row alone gives its bits in the batch);
    the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
    (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128, at the
    CLI's default batch (256, 342, 60), past u=128 at (256, 342, 160),
    (1024, 342, 192), (37, 150, 200) and phase 2's cluster shapes (u=256
-   to the ceiling 1024), each row with the tile it ran (the tensor-core
+   to the ceiling 4096), each row with the tile it ran (the tensor-core
    tile up to u=128, its cluster tile of 2 to 16 CTAs beyond, with the
    clusters at once; ``ptxas -v`` of every instantiation; past u=128 a
    second launch and a window alone give the same bits).
@@ -289,15 +294,17 @@ seconds are printed after it):
     float32 and bfloat16 (the kernel of each launched, no plain version;
     the rows the two precisions share printed).
 20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
-    at u=512 and u=1024 (the fused route's ceiling), made by the port's
-    initialiser from a seed and written as ``.npz`` model files, predict
-    the three fixtures through ``cli.main`` on the fused route in float32
-    and bfloat16 (the kernel of each launched, no plain version; the BED
-    rows and those the two precisions share printed); at u=512 each
-    model's float32 scored track of the first ``gru_att.fa`` record equals
-    the same engine's on the CPU, at u=1024 ``gru_att``'s equals the scan
-    route's (``gru_seq``) on the card: classes equal, max probability
-    within 1e-5.
+    at u=512, u=1024 and u=2048 (past the training kernels' ceiling, two
+    units a lane), made by the port's initialiser from a seed and written
+    as ``.npz`` model files, predict the three fixtures through
+    ``cli.main`` on the fused route in float32 and bfloat16 (the kernel of
+    each launched, no plain version; the BED rows and those the two
+    precisions share printed), at u=2048 also on the scan route in
+    float32, whose BED equals the fused route's byte for byte; at u=512
+    each model's float32 scored track of the first ``gru_att.fa`` record
+    equals the same engine's on the CPU, from u=1024 ``gru_att``'s equals
+    the scan route's (``gru_seq``) on the card: classes equal, max
+    probability within 1e-5.
 
 A captured step's launches are counted at each replay, as an eager
 step's are (``_build.recording_launches``).
@@ -350,6 +357,13 @@ WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
 CLUSTER_SHAPES = {"u256": (256, 342, 256), "u512": (256, 342, 512),
                   "u1024": (64, 342, 1024), "ragged_u300": (37, 150, 300),
                   "ragged_u520": (5, 23, 520)}
+# Past u=1024 on 16 CTAs with several units a lane (a warp owning one or
+# two unit groups in bf16), up to the ceiling u=4096: ragged at u=1025 (65
+# units a CTA) and u=3000 (188), and u=2048 and 4096 at T=342; those two
+# are timed with fewer repetitions (WIDE_REPS).
+LANE_SHAPES = {"ragged_u1025": (37, 150, 1025), "u2048": (64, 342, 2048),
+               "ragged_u3000": (5, 23, 3000), "u4096": (16, 342, 4096)}
+WIDE_REPS = 3
 # The bf16 kernels also at the CLI's default batch and past the
 # tensor-core tile (u > 128: its cluster tile), ragged there too.
 BF16_SHAPES = {"b256": (256, 342, 60), "u160": (256, 342, 160),
@@ -398,9 +412,9 @@ LSTM_WIDE_UNITS = 128
 # the row sums: tools/train_rate_witness.py).
 TRAIN_CEILING_RUNS = {256: (((2, 20), (2, 5)), None),
                       1024: (((2, 5), (2, 5)), 1e-5)}
-# Phase 20: models of these widths (the inference kernels' ceiling last)
-# predict through the CLI.
-PREDICT_WIDE_UNITS = (512, 1024)
+# Phase 20: models of these widths predict through the CLI (u=2048: past
+# the one-unit-a-lane tiles, the fused and scan routes' BEDs compared).
+PREDICT_WIDE_UNITS = (512, 1024, 2048)
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -415,7 +429,11 @@ SEQ_SHAPES = [("flagship", "float32", (2048, 342, 60)),
               ("u1024_bf16", "bfloat16", (64, 342, 1024)),
               ("ragged", "float32", (7, 23, 60)),
               ("ragged_wide", "float32", (5, 23, 520)),
-              ("ragged_wide_bf16", "bfloat16", (5, 23, 520))]
+              ("ragged_wide_bf16", "bfloat16", (5, 23, 520)),
+              *((f"{label}{suffix}", dtype, shape)
+                for label, shape in LANE_SHAPES.items()
+                for suffix, dtype in (("", "float32"),
+                                      ("_bf16", "bfloat16")))]
 # The bf16 quality contract (tests/test_reference_parity.py:110-180).
 BF16_RAW_AGREE, BF16_POST_AGREE, BF16_MCC = 0.95, 0.98, 0.95
 GRAD_RTOL = 1e-4  # max abs difference / largest magnitude of the gradient
@@ -620,23 +638,40 @@ def window_bits(torch, run, codes) -> None:
                              "a window's place in the batch")
 
 
-def refuses_past_ceiling(torch, gen) -> None:
-    """u=1025 raises ValueError in both dtypes before any launch."""
+def refuses_past_ceiling(torch) -> None:
+    """One unit past the ceiling raises ValueError before any launch: the
+    fused kernels in both dtypes and the GRU sequence kernel (the scan
+    route) in both."""
     from deepgrp_tpu_torch.models import cuda_rnn
 
+    units = cuda_rnn.AVG_MAX_UNITS + 1
+
+    def zeros(*shape):
+        return torch.zeros(*shape, device="cuda")
+
+    def refused(name, dtype, run):
+        before = cuda_rnn.LAUNCHES.snapshot()
+        try:
+            run()
+        except ValueError as err:
+            print(f"{name} {str(dtype).split('.')[-1]} u={units}: "
+                  f"ValueError: {err}", flush=True)
+        else:
+            raise AssertionError(f"{name} took u={units}")
+        if cuda_rnn.LAUNCHES.snapshot() != before:
+            raise AssertionError(f"{name} launched at u={units}")
+
+    codes = torch.zeros(2, 3, dtype=torch.int8, device="cuda")
     for name, (gates, _) in KERNELS.items():
-        params, codes = random_rnn(torch, gen, gates, 2, 3, 1025)
+        width = gates * units
+        params = {"kernel": zeros(5, width), "recurrent": zeros(units, width),
+                  "bias": zeros(*((2, width) if gates == 3 else (width,)))}
         for dtype in (torch.float32, torch.bfloat16):
-            before = cuda_rnn.LAUNCHES.snapshot()
-            try:
-                getattr(cuda_rnn, name)(params, codes, dtype)
-            except ValueError as err:
-                print(f"{name} {str(dtype).split('.')[-1]} u=1025: "
-                      f"ValueError: {err}", flush=True)
-            else:
-                raise AssertionError(f"{name} took u=1025")
-            if cuda_rnn.LAUNCHES.snapshot() != before:
-                raise AssertionError(f"{name} launched at u=1025")
+            refused(name, dtype,
+                    lambda: getattr(cuda_rnn, name)(params, codes, dtype))
+            if gates == 3:
+                refused("gru_seq", dtype, lambda: cuda_rnn.gru_apply(
+                    params, zeros(2, 3, 5).to(dtype)))
 
 
 def kernel_phase(torch):
@@ -648,7 +683,8 @@ def kernel_phase(torch):
                                            "in registers"),
                              ("AvgClusterKernel", "gates, windows a lane "
                                                   "group, CTAs a cluster, U "
-                                                  "in shared memory")):
+                                                  "in shared memory, units "
+                                                  "a lane")):
         for args, usage in sorted(ptxas_usage(log, template).items()):
             print(f"ptxas {template}<{args}> ({fields}): {usage}",
                   flush=True)
@@ -659,7 +695,8 @@ def kernel_phase(torch):
         plain = getattr(rnn, f"{name}_plain")
         cell = name.split("_")[0]
         for label, (batch, steps, units) in {**SHAPES, **WIDE_SHAPES,
-                                             **CLUSTER_SHAPES}.items():
+                                             **CLUSTER_SHAPES,
+                                             **LANE_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
             print(f"{name} {label}: "
@@ -675,9 +712,11 @@ def kernel_phase(torch):
                 window_bits(torch, lambda c: kernel(params, c), codes)
             lib = library_rnn(torch, gates, params, codes)
             lib_err = (lib() - p_avg).abs().max().item()
-            ms = cuda_ms(torch, lambda: kernel(params, codes), 20)
-            plain_ms = cuda_ms(torch, lambda: plain(params, codes), 3)
-            library_ms = cuda_ms(torch, lib, 20)
+            reps = 20 if units <= 1024 else WIDE_REPS
+            ms = cuda_ms(torch, lambda: kernel(params, codes), reps)
+            plain_ms = cuda_ms(torch, lambda: plain(params, codes),
+                               min(reps, 3))
+            library_ms = cuda_ms(torch, lib, reps)
             flops = 2.0 * (2 * batch) * steps * units * gates * units
             n_bytes = (codes.numel() + 4 * sum(p.numel()
                                                for p in params.values())
@@ -695,7 +734,7 @@ def kernel_phase(torch):
                 raise AssertionError(f"{name} {label}: kernel differs from "
                                      f"its plain version by {err}")
             results[(name, label)] = row
-    refuses_past_ceiling(torch, gen)
+    refuses_past_ceiling(torch)
     return results
 
 
@@ -1518,8 +1557,8 @@ def seq_kernel_phase(torch):
     log = (_build.BUILD_DIR / "rnn_seq.log").read_text()
     for args, usage in sorted(ptxas_usage(log, "SeqKernel").items()):
         print(f"ptxas SeqKernel<{args}> (rows a group, U in "
-              f"registers, bf16, CTAs a cluster, U in shared memory): "
-              f"{usage}", flush=True)
+              f"registers, bf16, CTAs a cluster, U in shared memory, units "
+              f"a lane): {usage}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(2026)
     results = {}
@@ -1533,13 +1572,17 @@ def seq_kernel_phase(torch):
         torch.cuda.synchronize()
         err = max((seq.float() - p_seq.float()).abs().max().item(),
                   (last.float() - p_last.float()).abs().max().item())
+        if units > 1024:
+            window_bits(torch, lambda rows: cuda_rnn.gru_apply(params, rows),
+                        x)
         cell = cudnn_module(torch, 3, params, dtype)
-        reps = 5 if units > 128 else 20
+        reps = WIDE_REPS if units > 1024 else 5 if units > 128 else 20
         with torch.no_grad():
             lib_err = (cell(x)[0].float() - p_seq.float()).abs().max().item()
             library_ms = cuda_ms(torch, lambda: cell(x), reps)
         ms = cuda_ms(torch, lambda: cuda_rnn.gru_apply(params, x), reps)
-        plain_ms = cuda_ms(torch, lambda: rnn.gru_apply(params, x), 3)
+        plain_ms = cuda_ms(torch, lambda: rnn.gru_apply(params, x),
+                           min(reps, 3))
         # Multiply-adds of the input dot and the recurrent products; each
         # input read once (weights in x's dtype, biases float32), each
         # output written once.
@@ -1562,7 +1605,9 @@ def seq_kernel_phase(torch):
         print(f"gru_seq {label} B={batch} T={steps} u={units} {dtype_name} "
               f"(tile {n_cta} CTAs x {rows_a_cta} rows, {cluster}"
               f"{layout['rows_a_group']} rows a lane group of "
-              f"{layout['slices']} slices a unit, U in {layout['u_in']}): "
+              f"{layout['slices']} slices a unit, "
+              f"{layout['units_a_lane']} units a lane, U in "
+              f"{layout['u_in']}): "
               f"max_abs_err={err:.3g} (tolerance {tol:g}; "
               f"cuDNN vs plain {lib_err:.3g}) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
@@ -1587,6 +1632,9 @@ def bf16_kernel_phase(torch):
     for args, usage in sorted(ptxas_usage(log, "MmaAvgKernel").items()):
         print(f"ptxas MmaAvgKernel<{args}> (gates, k-tiles, U in shared "
               f"memory, CTAs a cluster): {usage}", flush=True)
+    for args, usage in sorted(ptxas_usage(log, "MmaWideKernel").items()):
+        print(f"ptxas MmaWideKernel<{args}> (gates, k-tiles, unit groups a "
+              f"warp): {usage}", flush=True)
     gen = torch.Generator().manual_seed(2027)
     results = {}
     for name, (gates, _) in KERNELS.items():
@@ -1595,7 +1643,8 @@ def bf16_kernel_phase(torch):
         cell = name.split("_")[0]
         for label, (batch, steps, units) in {**SHAPES, **WIDE_SHAPES,
                                              **BF16_SHAPES,
-                                             **CLUSTER_SHAPES}.items():
+                                             **CLUSTER_SHAPES,
+                                             **LANE_SHAPES}.items():
             params, codes = random_rnn(torch, gen, gates, batch, steps,
                                        units)
             tile = avg_tile_line(torch, cell, batch, units, torch.bfloat16)
@@ -1611,11 +1660,13 @@ def bf16_kernel_phase(torch):
                             lambda c: kernel(params, c, torch.bfloat16),
                             codes)
             lib = library_rnn(torch, gates, params, codes, torch.bfloat16)
+            reps = 20 if units <= 1024 else WIDE_REPS
             ms = cuda_ms(torch, lambda: kernel(params, codes,
-                                               torch.bfloat16), 20)
+                                               torch.bfloat16), reps)
             plain_ms = cuda_ms(torch, lambda: plain(params, codes,
-                                                    torch.bfloat16), 3)
-            library_ms = cuda_ms(torch, lib, 20)
+                                                    torch.bfloat16),
+                               min(reps, 3))
+            library_ms = cuda_ms(torch, lib, reps)
             flops = 2.0 * (2 * batch) * steps * units * gates * units
             n_bytes = (codes.numel() + 4 * sum(p.numel()
                                                for p in params.values())
@@ -3996,17 +4047,42 @@ def launch_phase(torch, np, tmp: str, card: str) -> dict:
     return counts
 
 
+def scan_bed_matches(name: str, cell: str, fixture: str, model_path: str,
+                     tmp: str, fused_rows: list, launches: dict) -> None:
+    """Phase 20 past u=1024: the float32 scan route (``gru_seq`` for the
+    GRU; the LSTM over one-hot windows is plain torch, no kernel) writes
+    the fused route's BED byte for byte; raises if not."""
+    reset_counts()
+    start = time.perf_counter()
+    rows = predict_rows(
+        REF_ARGS + ["--rnn-kernel", "scan", "predict", model_path,
+                    os.path.join(FIXDIR, f"{fixture}.fa")],
+        os.path.join(tmp, f"{name}_{fixture}_scan.bed"))
+    seconds = time.perf_counter() - start
+    if cell == "lstm":
+        check_counts({})
+    else:
+        launches[f"{name} {fixture} scan"] = check_path("gru_seq")
+    print(f"{name} predict {fixture} --rnn-kernel scan: {len(rows)} BED "
+          f"rows in float32 ({seconds:.3f} s), the fused route's BED byte "
+          f"for byte: {rows == fused_rows}", flush=True)
+    if rows != fused_rows:
+        raise AssertionError(f"{name} {fixture}: the scan route's float32 "
+                             f"BED differs from the fused route's")
+
+
 def wide_predict_phase(torch, np, tmp: str) -> dict:
-    """Phase 20: models past the training kernels' ceiling predict through
-    the CLI: ``gru_att`` and the LSTM of the flagship options at
-    :data:`PREDICT_WIDE_UNITS`, made by the port's initialiser from a seed
-    and written as model files; each predicts the three fixtures on the
-    fused route in float32 and bfloat16 (its kernel launched, no plain
-    version).  At u=512 the float32 engine's scored track of the first
-    fixture record on the card equals the same engine's on the CPU, and at
-    u=1024 ``gru_att``'s fused track equals the scan route's (row 7) on
-    the card: classes equal, max probability within 1e-5.  Returns the
-    launch counts of each run."""
+    """Phase 20: wide models predict through the CLI: ``gru_att`` and the
+    LSTM of the flagship options at :data:`PREDICT_WIDE_UNITS`, made by
+    the port's initialiser from a seed and written as model files; each
+    predicts the three fixtures on the fused route in float32 and
+    bfloat16 (its kernel launched, no plain version), and past u=1024 on
+    the scan route in float32 too, whose BED must equal the fused one
+    byte for byte.  At u=512 the float32 engine's scored track of the
+    first fixture record on the card equals the same engine's on the CPU,
+    and from u=1024 ``gru_att``'s fused track equals the scan route's (row
+    7) on the card: classes equal, max probability within 1e-5.  Returns
+    the launch counts of each run."""
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import save_model_npz
     from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
@@ -4051,6 +4127,9 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
                       f"{len(rows['bfloat16'])} in bfloat16 "
                       f"({seconds['bfloat16']:.3f} s), {same} rows in both",
                       flush=True)
+                if units > 1024:
+                    scan_bed_matches(name, cell, fixture, model_path, tmp,
+                                     rows["float32"], launches)
             model = DeepGRPModel.from_params(config, params, "cuda")
             if units == 512:
                 ref = PredictionEngine(
@@ -4262,10 +4341,10 @@ def main() -> int:
     print(f"launches on phase 19's paths: {path_launches}", flush=True)
 
     phase(f"20. wide models predict: gru_att and lstm at "
-          f"u={' and u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
+          f"u={', u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
           f"weights from a seed) on the fixtures through the CLI in float32 "
           f"and bf16; the track against the CPU (u=512) and the scan route "
-          f"(u=1024)")
+          f"(u >= 1024), the scan route's BEDs (u=2048)")
     with tempfile.TemporaryDirectory() as wide_tmp:
         path_launches = wide_predict_phase(torch, np, wide_tmp)
     print(f"launches on phase 20's paths: {path_launches}", flush=True)

@@ -97,8 +97,8 @@
 // cluster tile below took its place.
 //
 // The float32 cluster tile (AvgClusterKernel<kGates, kWin, kCluster,
-// kUSmem>), which the float32 entry points run past u=128 up to the
-// ceiling u=1024 (kMaxUnits).  Past u=128 one CTA a window would read all
+// kUSmem, kUnits>), which the float32 entry points run past u=128 up to
+// the ceiling u=4096 (kMaxUnits).  Past u=128 one CTA a window would read all
 // of U from L2 every step (the register tile's 2 windows a CTA at u=256:
 // 8.2622 / 10.7776 ms at B=256, slower than cuDNN), and 4u threads stop
 // at u=256.  So a window's units split over a thread-block cluster, as
@@ -165,10 +165,41 @@
 //     unit's sum runs in an order fixed by u (its quads in order, then the
 //     butterfly), nothing is atomic, whatever the window's cluster, CTA
 //     or lane.
+//   * Past u=1024 (kLaneUnits) a CTA of 16 owns more than 64 units (up to
+//     256 at u=4096), more than a lane group of 4 uc threads can hold
+//     within the launch bounds, and the two h buffers of a window take 16u
+//     bytes (64 kB at u=4096).  So each lane owns kUnits of the CTA's
+//     units (rnn_cluster.cuh's UnitSpan, LaneUnit: 2 up to u=2048, 4 up to
+//     4096, keeping 256 threads a group) and runs them one after the
+//     other through the same quads and butterfly, so a unit's sum is
+//     the one-unit-a-lane sum and the bits stay independent of the
+//     layout; and the windows a CTA shrink with the width (MaxWindows,
+//     WideLayout): 8 while their h buffers fit beside W's columns and a
+//     group of one unit a lane has at most 512 threads (u <= 1760 GRU,
+//     1744 LSTM), else 4 in lane groups of 4 (to u=3428 GRU, 3368
+//     LSTM), else 2.
+//     The float32 h stays float32 (the parity mode).  U is streamed
+//     through L1/L2 as from u=257: 50 MB for the GRU at u=2048 (the size
+//     of the L2), 201 MB at u=4096, which every cluster reads from HBM
+//     each step.
+//   * ptxas -v (sm_90a, CUDA 12.8): AvgClusterKernel<3, 2, 16, L1/L2, 2 /
+//     4> 106 / 128 registers, <3, 4, 16, L1/L2, 2 / 4> 125 / 168, <4, 2,
+//     16, L1/L2, 2 / 4> 96 / 128, <4, 4, 16, L1/L2, 2 / 4> 119 / 168; no
+//     spills (the one-unit-a-lane instantiations within one register of
+//     the figures above).
+//   * Timed on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, T=342,
+//     ms a launch, GRU / LSTM): u=2048, B=64 (4 windows a CTA, 16
+//     clusters, 3 waves) 210.3481 / 271.0643 against cuDNN's 45.1851 /
+//     45.8229; u=4096, B=16 (2 windows, 8 clusters, 2 waves) 556.2544 /
+//     650.9887 against 65.3534 / 67.7696.  What bounds it: each cluster
+//     streams all of U each step (from HBM past u=2048), and a lane's
+//     quad loop waits for one L2/HBM round trip a quad at few warps an
+//     SM.
 //
 // The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem, kCluster>),
 // which the _bf16 entry points run up to u=128 (kMmaUnits) one CTA a
-// window, and up to u=1024 as its cluster tile (the last bullets).  Bound at
+// window, and up to u=1024 as its cluster tile (the last bullets), past
+// it up to u=4096 as MmaWideKernel<kGates, kKT, kGroups>.  Bound at
 // the
 // flagship shape: the same 14.8 / 19.7 MFLOP a window at the bf16
 // tensor-core rate (989 TFLOP/s), 0.0153 ms GRU and 0.0204 ms LSTM at
@@ -333,6 +364,27 @@
 //     all of U in float32 each step, 12.6 / 16.8 MB at u=1024), as the
 //     float32 tile; pre-rounded bf16 fragments in device memory would
 //     halve it.
+//   * Past u=1024 (128 k-tiles up to u=2048, 256 up to 4096) MmaWideKernel
+//     runs that 16-CTA route, forming fragments from U through L1/L2, with
+//     one m-tile (at most 8 windows a CTA): two m-tiles of 16 rows at
+//     u=2048 would take 263 kB of h buffers.  The h buffers hold only the
+//     CTA's 2 bb rows (MmaLayout's compact rows, window w's branch b at
+//     row b bb + w; the ldmatrix lanes of windows past bb address the last
+//     window's rows, whose sums are dropped), so a CTA takes 8 windows at
+//     u=2048 and 6 at u=4096 (MaxWindowsBf16).  A warp owns kGroups unit
+//     groups (1 up to u=2048: 16 warps; 2 beyond, at most 32 groups a
+//     CTA), one after the other through the same k-tiles (the A fragments
+//     read again for each), keeping 512 threads and 128 registers.  The
+//     step is MmaAvgKernel's, so a row's bits depend on its codes and the
+//     weights only; the recurrent dot stays Precision.DEFAULT: bf16
+//     operands, float32 sums and carry.  A kernel of its own: the same
+//     changes made inside MmaAvgKernel (a group loop, a flag a group, the
+//     compact rows) took its one-CTA tile 3-10 % longer at u <= 128 on
+//     the H100 (timed in turns with the kernel without them; here its
+//     times are within 0.6 % of that kernel's at every width to u=1024).
+//   * ptxas -v: MmaWideKernel<3, 128, 1> 128 registers, <4, 128, 1> 126,
+//     no spills; <3, 256, 2> 128 with 12 / 20 bytes of spill stores /
+//     loads, <4, 256, 2> 128 with 12 / 16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -346,7 +398,7 @@ constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
 constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
 constexpr int kTileUnits = 128;  // widest layer of the register tile
-constexpr int kMaxUnits = 1024;  // widest layer of either dtype
+constexpr int kMaxUnits = 4096;  // widest layer of either dtype
 constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
@@ -399,10 +451,41 @@ __host__ __device__ inline size_t ClusterSmem(int gates, int units, int bb,
                           u_floats);
 }
 
+// The launch bound of the cluster tile: up to u=1024 a CTA owns at most 64
+// units and 8 windows, in one or two lane groups of 4 uc threads (256),
+// but 8 windows a group through L1/L2 keep 512 (128 registers), as the
+// GRU sequence kernel's 16 rows a group do (csrc/rnn_seq.cu); past it a
+// lane owns several units (WideLayout) within the same bounds.
+__host__ __device__ constexpr int ClusterThreads(int win, bool u_smem) {
+  return win >= 8 && !u_smem ? 512 : 256;
+}
+
 // Windows a CTA (of a cluster: each of its CTAs) of the float32 kernels
-// may own at this width (0: refused).
-__host__ __device__ __forceinline__ int MaxWindows(int units) {
-  return units > 0 && units <= kMaxUnits ? 8 : 0;
+// may own at this width on this card (0: refused): 8 up to u=1024; past
+// it the most of 8, 4 and 2 whose two h buffers (padded to a lane group of
+// as many windows) fit the shared memory beside W's columns, 8 only while
+// a group of one unit a lane has at most 512 threads (u <= 2048).
+inline int MaxWindows(int gates, int units) {
+  if (units <= 0 || units > kMaxUnits) return 0;
+  if (units <= kLaneUnits) return 8;
+  const size_t optin = SmemOptin();
+  for (int win = 8; win >= 2; win /= 2) {
+    if (win == 8 && units > 2 * kLaneUnits) continue;
+    if (ClusterSmem(gates, units, win, win, 16, false) <= optin) return win;
+  }
+  return 0;
+}
+
+// The float32 cluster tile past u=1024 (16 CTAs, U through L1/L2) at bb
+// windows a CTA: windows a lane group (2 for bb <= 2; else 8 where the
+// width takes 8 windows, else 4) and units a lane (as few as keep a group
+// within the launch bound: 512 threads at 8 windows, 256 below).
+inline void WideLayout(int gates, int units, int bb, int *win,
+                       int *per_lane) {
+  const int uc = (units + 15) / 16;
+  *win = bb <= 2 ? 2 : MaxWindows(gates, units) >= 8 ? 8 : 4;
+  const int lanes = ClusterThreads(*win, false) / kSlices;
+  *per_lane = uc <= lanes ? 1 : uc <= 2 * lanes ? 2 : 4;
 }
 
 // The cell of unit i: its bias in registers and the Keras gate math of one
@@ -654,19 +737,12 @@ int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch bound of the cluster tile: a CTA owns at most 64 units and 8
-// windows, in one or two lane groups of 4 uc threads (256), but 8
-// windows a group through L1/L2 keep 512 (128 registers), as the GRU
-// sequence kernel's 16 rows a group do (csrc/rnn_seq.cu).
-__host__ __device__ constexpr int ClusterThreads(int win, bool u_smem) {
-  return win >= 8 && !u_smem ? 512 : 256;
-}
-
 // The float32 cluster tile (see the note above): kCluster CTAs a cluster
 // split a window's units, uc = ceil(u / kCluster) each; kWin windows a
-// lane group of 4 uc threads, ceil(bb / kWin) groups a CTA; kUSmem keeps
+// lane group of 4 UnitSpan(uc, kUnits) threads, ceil(bb / kWin) groups a
+// CTA, each lane owning kUnits of the CTA's units (LaneUnit); kUSmem keeps
 // the CTA's slice of U in shared memory (else it is read through L1/L2).
-template <int kGates, int kWin, int kCluster, bool kUSmem>
+template <int kGates, int kWin, int kCluster, bool kUSmem, int kUnits = 1>
 __global__ void __launch_bounds__(ClusterThreads(kWin, kUSmem), 1)
 AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
                  const float *__restrict__ kernel,
@@ -675,6 +751,8 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
                  float *__restrict__ avg, float *__restrict__ hidden) {
   static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
   static_assert(kCluster > 1, "one CTA a window is the register tile");
+  static_assert(kUnits == 1 || !kUSmem,
+                "several units a lane read U through L1/L2");
   constexpr int kOwn = OwnWindows(kWin);
   extern __shared__ float4 smem4[];
   const int width = kGates * units;
@@ -686,15 +764,15 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
   const int base = static_cast<int>(ClusterRank()) * uc;
   const int cols = kGates * uc;
   const int ustride = UColStride(cols);
+  const int span = UnitSpan(uc, kUnits);
   float *s_h = reinterpret_cast<float *>(smem4);  // [2][rows_pad][hstride]
   float *s_w = s_h + 2 * rows_pad * hstride;      // [5][cols]
   float *s_u = s_w + kCodes * cols;               // [Pad4(u)][ustride]
 
   const int tid = threadIdx.x;
-  const int group = tid / (kSlices * uc);
-  const int lane = tid - group * kSlices * uc;
+  const int group = tid / (kSlices * span);
+  const int lane = tid - group * kSlices * span;
   const int i = lane / kSlices, s = lane % kSlices;
-  const int unit = base + i;  // the lane's unit of the window
   const int w0 = group * kWin;
   const int row0 = blockIdx.x / kCluster * bb;
   for (int j = tid; j < 2 * rows_pad * hstride; j += blockDim.x) {
@@ -717,20 +795,32 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
       s_u[j] = col >= 0 ? recurrent[k * width + col] : 0.0f;
     }
   }
-  // A lane past u (the last CTA's, when kCluster does not divide u) reads
-  // the last unit's column of U and bias; its sums are dropped.
-  const int u_col = min(unit, units - 1);
+  // The lane's units of the window (local[j] of the CTA's).  A lane past
+  // u (the last CTA's, when kCluster does not divide u) or past the CTA's
+  // units reads the last unit's column of U and bias; its sums are
+  // dropped.
+  int local[kUnits], unit[kUnits], u_col[kUnits];
+  bool writer[kUnits];
+  bool writes = false;
+  Cell<kGates> cell[kUnits];
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    local[j] = LaneUnit(i, span, j);
+    unit[j] = base + local[j];
+    u_col[j] = min(unit[j], units - 1);
+    writer[j] = (kWin >= 4 || s < 2) && (kUnits == 1 || local[j] < uc) &&
+                unit[j] < units;
+    writes = writes || writer[j];
+    cell[j].load(bias, units, u_col[j]);
+  }
   USlice<kGates, false, false> us;
-  us.load(recurrent, units, u_col, s);
-  Cell<kGates> cell;
-  cell.load(bias, units, u_col);
+  us.load(recurrent, units, u_col[0], s);
   const float *u_lane = s_u + i;
   const unsigned lanes = WarpLanes();
   const int n_quads = Pad4(units) / 4 > s
                           ? (Pad4(units) / 4 - s + kSlices - 1) / kSlices
                           : 0;
-  const bool writer = (kWin >= 4 || s < 2) && unit < units;
-  float h_own[kOwn][2] = {}, c_own[kOwn][2] = {};
+  float h_own[kUnits][kOwn][2] = {}, c_own[kUnits][kOwn][2] = {};
   // The h buffers of the cluster's CTAs (the first must not be written
   // before its CTA has zeroed it: the barrier below).
   uint32_t h_peer[kCluster];
@@ -746,7 +836,7 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
     for (int j = 0; j < kOwn; ++j) {
       const int w = OwnWindow<kWin>(w0, s, j), row = row0 + w;
       const int8_t *w_codes = codes + static_cast<size_t>(row) * steps;
-      const bool in_batch = writer && w < bb && row < batch;
+      const bool in_batch = writes && w < bb && row < batch;
       code_b[j][0] = in_batch ? w_codes[t] : kPadCode;
       code_b[j][1] = in_batch ? Complement(w_codes[steps - 1 - t])
                               : kPadCode;
@@ -756,52 +846,59 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
     const float *h_cur = s_h + ((t & 1) * rows_pad + 2 * w0) * hstride;
     const int nxt = ((t + 1) & 1) * rows_pad * hstride;
 
-    float acc[kWin][2][kGates] = {};
-    for (int m = 0; m < n_quads; ++m) {
-      const int q = s + kSlices * m;
-      QuadDot<kWin, kGates>(
-          acc, q,
-          [&](int c, int g) {
-            if constexpr (kUSmem) {
-              return u_lane[(4 * q + c) * ustride + g * uc];
-            } else {
-              return us.at(m, c, g, s, units, u_col);
-            }
-          },
-          [&](int w, int b) { return h_cur + (2 * w + b) * hstride; });
-    }
-    // The register tile's butterfly.
-    float dot[kOwn][2][kGates];
-    if constexpr (kWin >= 4) {
-      float half[kWin / 2][2][kGates];
-      FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, half);
-      FoldWindows<kWin / 2, kGates>(half, (s >> 1) & 1, 2, lanes, dot);
-    } else {
-      FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, dot);
+    // The lane's units one after the other.
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
+    for (int n = 0; n < kUnits; ++n) {
+      float acc[kWin][2][kGates] = {};
+      for (int m = 0; m < n_quads; ++m) {
+        const int q = s + kSlices * m;
+        QuadDot<kWin, kGates>(
+            acc, q,
+            [&](int c, int g) {
+              if constexpr (kUSmem) {
+                return u_lane[(4 * q + c) * ustride + g * uc];
+              } else {
+                return us.at(m, c, g, s, units, u_col[n]);
+              }
+            },
+            [&](int w, int b) { return h_cur + (2 * w + b) * hstride; });
+      }
+      // The register tile's butterfly.
+      float dot[kOwn][2][kGates];
+      if constexpr (kWin >= 4) {
+        float half[kWin / 2][2][kGates];
+        FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, half);
+        FoldWindows<kWin / 2, kGates>(half, (s >> 1) & 1, 2, lanes, dot);
+      } else {
+        FoldWindows<kWin, kGates>(acc, s & 1, 1, lanes, dot);
 #pragma unroll
-        for (int g = 0; g < kGates; ++g) {
-          dot[0][b][g] += __shfl_xor_sync(lanes, dot[0][b][g], 2);
+        for (int b = 0; b < 2; ++b) {
+#pragma unroll
+          for (int g = 0; g < kGates; ++g) {
+            dot[0][b][g] += __shfl_xor_sync(lanes, dot[0][b][g], 2);
+          }
         }
       }
-    }
 
-    // The gate math of the lane's windows, both branches; the unit's new
-    // h into every CTA's next buffer (its own too).
+      // The gate math of the lane's windows, both branches; the unit's
+      // new h into every CTA's next buffer (its own too).
 #pragma unroll
-    for (int j = 0; j < kOwn; ++j) {
-      const int w = OwnWindow<kWin>(w0, s, j);
-      if (!writer || w >= bb) continue;
-      StepWindow(
-          cell, dot[j], code_b[j], s_w + i, cols, uc, h_own[j], c_own[j],
-          [&](int b, float h) {
-            const uint32_t at =
-                sizeof(float) * (nxt + (2 * w + b) * hstride + unit);
+      for (int j = 0; j < kOwn; ++j) {
+        const int w = OwnWindow<kWin>(w0, s, j);
+        if (!writer[n] || w >= bb) continue;
+        StepWindow(
+            cell[n], dot[j], code_b[j], s_w + local[n], cols, uc,
+            h_own[n][j], c_own[n][j],
+            [&](int b, float h) {
+              const uint32_t at =
+                  sizeof(float) * (nxt + (2 * w + b) * hstride + unit[n]);
 #pragma unroll
-            for (int p = 0; p < kCluster; ++p) StoreCluster(h_peer[p] + at, h);
-          },
-          row0 + w, batch, steps, t, units, unit, avg, hidden);
+              for (int p = 0; p < kCluster; ++p) {
+                StoreCluster(h_peer[p] + at, h);
+              }
+            },
+            row0 + w, batch, steps, t, units, unit[n], avg, hidden);
+      }
     }
     ClusterBarrier();
   }
@@ -810,15 +907,16 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
 // Launches a layout of the cluster tile; with `slots`, launches nothing
 // and writes the clusters of it the card runs at once (0 if it cannot
 // place one).
-template <int kGates, int kWin, int kCluster, bool kUSmem>
+template <int kGates, int kWin, int kCluster, bool kUSmem, int kUnits = 1>
 int LaunchClusterTile(const void *codes, int batch, int steps,
                       const void *kernel, const void *bias,
                       const void *recurrent, int units, int bb, void *avg,
                       void *hidden, cudaStream_t stream,
                       int *slots = nullptr) {
-  const auto fn = AvgClusterKernel<kGates, kWin, kCluster, kUSmem>;
+  const auto fn = AvgClusterKernel<kGates, kWin, kCluster, kUSmem, kUnits>;
   const int uc = (units + kCluster - 1) / kCluster;
-  const int threads = (bb + kWin - 1) / kWin * kSlices * uc;
+  const int threads =
+      (bb + kWin - 1) / kWin * kSlices * UnitSpan(uc, kUnits);
   if (threads > ClusterThreads(kWin, kUSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -841,13 +939,15 @@ int LaunchClusterTile(const void *codes, int batch, int steps,
 // windows a lane group (2 when the CTA owns at most 2), U through L1/L2
 // with 8 windows; past it the cluster tile, 4 windows a group on 8 CTAs
 // (U in shared memory), 8 on 16 (U through L1/L2), 2 when the CTA owns at
-// most 2.  With `slots`, launches nothing and writes the clusters the
-// card runs at once (0 without a cluster).
+// most 2; past u=1024 (WideLayout) 2, 4 or 8 windows a group and 1, 2 or
+// 4 units a lane.  With `slots`, launches nothing and writes the clusters
+// the card runs at once (0 without a cluster).
 template <int kGates>
 int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
               void *avg, void *hidden, void *stream, int *slots = nullptr) {
-  if (batch <= 0 || steps <= 0 || bb < 1 || bb > MaxWindows(units)) {
+  if (batch <= 0 || steps <= 0 || bb < 1 ||
+      bb > MaxWindows(kGates, units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -860,9 +960,21 @@ int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
     return bb <= 2 ? launch(LaunchClusterTile<kGates, 2, 8, true>)
                    : launch(LaunchClusterTile<kGates, 4, 8, true>);
   }
-  if (cluster == 16) {
+  if (cluster == 16 && units <= kLaneUnits) {
     return bb <= 2 ? launch(LaunchClusterTile<kGates, 2, 16, false>)
                    : launch(LaunchClusterTile<kGates, 8, 16, false>);
+  }
+  if (cluster == 16) {
+    int win = 0, per_lane = 0;
+    WideLayout(kGates, units, bb, &win, &per_lane);
+    switch (win * 10 + per_lane) {
+      case 22: return launch(LaunchClusterTile<kGates, 2, 16, false, 2>);
+      case 24: return launch(LaunchClusterTile<kGates, 2, 16, false, 4>);
+      case 42: return launch(LaunchClusterTile<kGates, 4, 16, false, 2>);
+      case 44: return launch(LaunchClusterTile<kGates, 4, 16, false, 4>);
+      case 81: return launch(LaunchClusterTile<kGates, 8, 16, false>);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (slots != nullptr) {
     *slots = 0;
@@ -912,15 +1024,18 @@ __device__ __forceinline__ void LdMatrixX4(uint32_t (&a)[4],
 // Shared memory of the tile, in bytes from the start: the input rows
 // [6][g][xcols] float32 (the CTA's columns: all u without a cluster, its
 // unit groups' 8 local in one), U's fragments of its unit groups (kUSmem),
-// the two h buffers [2][m tiles][16][hstride] bf16 (every unit), the
-// codes [bb][T] (none in a cluster, whose CTAs read them through L1: the
-// shared memory then does not depend on T).
+// the two h buffers [2][h_rows][hstride] bf16 (every unit; h_rows: the m
+// tiles' 16 rows each, or with `compact` (u > 1024, one m-tile) the CTA's
+// 2 bb rows only, row b bb + w for window w's branch b), the codes [bb][T]
+// (none in a cluster, whose CTAs read them through L1: the shared memory
+// then does not depend on T).
 struct MmaLayout {
-  int width, k_tiles, groups, local, xcols, m_tiles, hstride;
+  int width, k_tiles, groups, local, xcols, m_tiles, hstride, h_rows;
   size_t u_off, h_off, codes_off, bytes;
 
   __host__ __device__ MmaLayout(int gates, int units, int bb, int steps,
-                                bool u_smem, int cluster = 1) {
+                                bool u_smem, int cluster = 1,
+                                bool compact = false) {
     width = gates * units;
     k_tiles = (units + 15) / 16;
     groups = (units + 7) / 8;
@@ -928,11 +1043,12 @@ struct MmaLayout {
     xcols = cluster > 1 ? 8 * local : units;
     m_tiles = (bb + 7) / 8;
     hstride = 16 * k_tiles + 8;  // bf16 a row: 16 bytes of pad
+    h_rows = compact ? 2 * bb : 16 * m_tiles;
     u_off = (sizeof(float) * 6 * gates * xcols + 15) &
             ~static_cast<size_t>(15);
     h_off = u_off + (u_smem ? sizeof(uint2) * 32 * local * k_tiles * gates
                             : 0);
-    codes_off = h_off + sizeof(__nv_bfloat16) * 2 * m_tiles * 16 * hstride;
+    codes_off = h_off + sizeof(__nv_bfloat16) * 2 * h_rows * hstride;
     bytes = codes_off + (cluster > 1 ? 0 : static_cast<size_t>(bb) * steps);
   }
 };
@@ -989,10 +1105,13 @@ __device__ __forceinline__ void MmaCellStep(const float (&x)[kGates],
   }
 }
 
-// Threads of the largest CTA: a warp for each of its share of 2 kKT unit
-// groups and each m-tile of kMmaWindows windows.
-__host__ __device__ constexpr int MmaThreads(int k_tiles, int cluster) {
-  return 32 * ((2 * k_tiles + cluster - 1) / cluster) * (kMmaWindows / 8);
+// Threads of the largest CTA: a warp for each `groups` of its share of 2
+// kKT unit groups and each m-tile of kMmaWindows windows, or past u=1024
+// (kKT > 64: one m-tile) of its one m-tile.
+__host__ __device__ constexpr int MmaThreads(int k_tiles, int cluster,
+                                             int groups = 1) {
+  return 32 * UnitSpan((2 * k_tiles + cluster - 1) / cluster, groups) *
+         (k_tiles > kLaneUnits / 16 ? 1 : kMmaWindows / 8);
 }
 
 // kKT: most k-tiles (u <= 16 kKT); kUSmem: U's fragments in shared memory
@@ -1260,6 +1379,206 @@ int LaunchMma(const void *codes, int batch, int steps, const void *kernel,
   }
 }
 
+// The bf16 cluster tile past u=1024 (see the note above): 16 CTAs a
+// cluster split the unit groups, local = ceil(groups / 16) each; one
+// m-tile of bb <= 8 windows, the h buffers holding only the CTA's 2 bb
+// rows; warp w owns unit groups w + j span (span = UnitSpan(local,
+// kGroups), j < kGroups), each step forming their fragments from U
+// through L1/L2, one group after the other.
+template <int kGates, int kKT, int kGroups>
+__global__ void __launch_bounds__(MmaThreads(kKT, 16, kGroups), 1)
+MmaWideKernel(const int8_t *__restrict__ codes, int batch, int steps,
+              const float *__restrict__ kernel, const float *__restrict__ bias,
+              const float *__restrict__ recurrent, int units, int bb,
+              __nv_bfloat16 *__restrict__ avg,
+              __nv_bfloat16 *__restrict__ hidden) {
+  constexpr int kCluster = 16;
+  static_assert(kKT > kLaneUnits / 16, "up to u=1024: MmaAvgKernel");
+  static_assert(MmaThreads(kKT, kCluster, kGroups) <= kMaxThreads,
+                "more threads than a CTA may have");
+  extern __shared__ float4 smem4[];
+  const MmaLayout lay(kGates, units, bb, steps, false, kCluster, true);
+  const int width = lay.width, hstride = lay.hstride, xcols = lay.xcols;
+  const int ug0 = static_cast<int>(ClusterRank()) * lay.local;
+  const int mbuf = lay.h_rows * hstride;  // bf16 a buffer
+  char *base = reinterpret_cast<char *>(smem4);
+  float *s_x = reinterpret_cast<float *>(base);  // [6][g][xcols]
+  __nv_bfloat16 *s_h = reinterpret_cast<__nv_bfloat16 *>(base + lay.h_off);
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x / kCluster * bb;
+  for (int j = tid; j < mbuf; j += blockDim.x) {  // both buffers, by words
+    reinterpret_cast<uint32_t *>(s_h)[j] = 0u;
+  }
+  for (int j = tid; j < 6 * kGates * xcols; j += blockDim.x) {
+    const int code = j / (kGates * xcols), o = j - code * kGates * xcols;
+    const int q = o / xcols, n = 8 * ug0 + o - q * xcols;
+    const int col = q * units + n;
+    s_x[j] = n >= units       ? 0.0f
+             : code < kCodes ? bias[col] + kernel[code * width + col]
+                             : bias[col];
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int span = UnitSpan(lay.local, kGroups);
+  const int g = lane >> 2, tq = lane & 3;  // the lane's window: g
+  // The warp's unit groups: ug_l[n] of the CTA's (has[n]: one it owns, a
+  // warp-wide flag), ug0 + ug_l[n] of the window's.  The lane's units of
+  // group n: unit0[n] and unit0[n] + 1 (mine: not padding).
+  int ug_l[kGroups], unit0[kGroups];
+  bool has[kGroups], mine[kGroups][2], pair_store[kGroups];
+  float b_rec[kGroups][2][kGates] = {};  // [group][unit][gate], GRU only
+#pragma unroll
+  for (int n = 0; n < kGroups; ++n) {
+    ug_l[n] = LaneUnit(warp, span, n);
+    has[n] = ug_l[n] < lay.local;
+    unit0[n] = 8 * (ug0 + ug_l[n]) + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mine[n][j] = has[n] && unit0[n] + j < units;
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        if (kGates == 3 && mine[n][j]) {
+          b_rec[n][j][q] = bias[width + q * units + unit0[n] + j];
+        }
+      }
+    }
+    pair_store[n] = mine[n][1] && (units & 1) == 0;
+  }
+  // [group][branch][unit]
+  float h_st[kGroups][2][2] = {}, c_st[kGroups][2][2] = {};
+  // The h buffers of the cluster's CTAs (the first must not be written
+  // before its CTA has zeroed it: the barrier below).
+  uint32_t h_peer[kCluster];
+#pragma unroll
+  for (int p = 0; p < kCluster; ++p) h_peer[p] = PeerAddress(s_h, p);
+  // The row of the A fragment this lane addresses for ldmatrix: row l % 16
+  // of the m-tile, window l % 8's branch (l / 8) % 2 at row b bb + w
+  // (windows past bb address the last one's rows; their sums are
+  // dropped).
+  const int a_row = min(lane & 7, bb - 1) + bb * ((lane >> 3) & 1);
+  ClusterBarrier();
+
+  for (int t = 0; t < steps; ++t) {
+    const __nv_bfloat16 *h_cur = s_h + (t & 1) * mbuf;
+    const int nxt = ((t + 1) & 1) * mbuf;
+
+    // The step's codes through L1 (they do not wait for h).
+    int code_b[2];
+    const int row = row0 + min(g, bb - 1);
+    const int8_t *w_codes = codes + static_cast<size_t>(row) * steps;
+    code_b[0] = row < batch ? w_codes[t] : kPadCode;
+    code_b[1] = row < batch ? Complement(w_codes[steps - 1 - t]) : kPadCode;
+    const __nv_bfloat16 *a_ptr = h_cur + a_row * hstride + 8 * (lane >> 4);
+
+#pragma unroll
+    for (int n = 0; n < kGroups; ++n) {
+      if (!has[n]) continue;  // the same for the whole warp
+      // The step's input rows: x[b][j][q].
+      float x[2][2][kGates];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float *x_row =
+            s_x + (static_cast<unsigned>(code_b[b]) < kCodes ? code_b[b]
+                                                               : kCodes) *
+                      kGates * xcols + unit0[n] - 8 * ug0;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            x[b][j][q] = mine[n][j] ? x_row[q * xcols + j] : 0.0f;
+          }
+        }
+      }
+      // U through L1/L2, rounded to bf16 fragments here, a few k-tiles in
+      // flight.
+      float sums[kGates][4] = {};
+      const int col = 8 * (ug0 + ug_l[n]) + g;
+#pragma unroll 4
+      for (int kt = 0; kt < lay.k_tiles; ++kt) {
+        uint32_t a[4];
+        LdMatrixX4(a, a_ptr + 16 * kt);
+#pragma unroll
+        for (int q = 0; q < kGates; ++q) {
+          const uint2 b = UFragment(recurrent, units, width, q, col, kt, tq);
+          MmaBf16(sums[q], a, b.x, b.y);
+        }
+      }
+
+      if (g < bb && mine[n][0]) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (!mine[n][j]) continue;
+            float d[kGates];
+#pragma unroll
+            for (int q = 0; q < kGates; ++q) d[q] = sums[q][2 * b + j];
+            MmaCellStep<kGates>(x[b][j], d, b_rec[n][j], h_st[n][b][j],
+                                c_st[n][b][j]);
+          }
+          // The units' new h into every CTA's next buffer (its own too).
+          const uint32_t at = sizeof(__nv_bfloat16) *
+                              (nxt + (b * bb + g) * hstride + unit0[n]);
+          const uint32_t pair = PackBf16(
+              h_st[n][b][0], mine[n][1] ? h_st[n][b][1] : 0.0f);
+#pragma unroll
+          for (int p = 0; p < kCluster; ++p) {
+            StoreCluster(h_peer[p] + at, pair);
+          }
+        }
+        if (row0 + g < batch) {
+          float mean[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mean[j] = (h_st[n][0][j] + h_st[n][1][j]) * 0.5f;
+          }
+          auto store = [&](__nv_bfloat16 *dst) {
+            if (pair_store[n]) {
+              *reinterpret_cast<__nv_bfloat162 *>(dst) =
+                  __floats2bfloat162_rn(mean[0], mean[1]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                if (mine[n][j]) dst[j] = __float2bfloat16(mean[j]);
+              }
+            }
+          };
+          const size_t at_row = static_cast<size_t>(row0 + g);
+          store(avg + (at_row * steps + t) * units + unit0[n]);
+          if (t == steps - 1) store(hidden + at_row * units + unit0[n]);
+        }
+      }
+    }
+    ClusterBarrier();
+  }
+}
+
+template <int kGates, int kKT, int kGroups>
+int LaunchMmaWide(const void *codes, int batch, int steps, const void *kernel,
+                  const void *bias, const void *recurrent, int units, int bb,
+                  void *avg, void *hidden, cudaStream_t stream,
+                  int *slots = nullptr) {
+  // With `slots`, it launches nothing and writes the clusters the card
+  // runs at once (0 if it cannot place one).
+  if (units > 16 * kKT || bb > kMmaCap) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = MmaWideKernel<kGates, kKT, kGroups>;
+  const MmaLayout lay(kGates, units, bb, steps, false, 16, true);
+  const int threads = 32 * UnitSpan(lay.local, kGroups);
+  if (slots != nullptr) {
+    *slots = ClusterSlots(fn, threads, lay.bytes, 16);
+    return 0;
+  }
+  const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
+  return static_cast<int>(LaunchCluster(
+      fn, (batch + bb - 1) / bb * 16, threads, lay.bytes, 16, stream,
+      static_cast<const int8_t *>(codes), batch, steps, f32(kernel),
+      f32(bias), f32(recurrent), units, bb, static_cast<__nv_bfloat16 *>(avg),
+      static_cast<__nv_bfloat16 *>(hidden)));
+}
+
 // Which tile the bf16 kernels run at this width: 1 the tensor-core tile
 // (u <= kMmaUnits), 3 its cluster tile (u <= kMaxUnits), 0 refused.  (2,
 // the float32-FMA register tile, served u=129-256 before the cluster tile.)
@@ -1289,9 +1608,21 @@ int Bf16Cluster(int gates, int units) {
 
 // Windows a CTA of the bf16 kernels may own at this width in clusters of
 // `cluster` (see the note above): one m-tile of 8 on the one-CTA tile; on
-// the cluster tile two m-tiles where they fit the shared memory, else one.
+// the cluster tile two m-tiles where they fit the shared memory, else one;
+// past u=1024 (one m-tile, the CTA's rows of h only) the most of 8 whose
+// rows fit.
 int MaxWindowsBf16(int gates, int units, int cluster) {
   if (cluster == 1) return kMmaCap;
+  if (units > kLaneUnits) {
+    const size_t optin = SmemOptin();
+    for (int bb = kMmaCap; bb >= 1; --bb) {
+      if (MmaLayout(gates, units, bb, 1, false, cluster, true).bytes <=
+          optin) {
+        return bb;
+      }
+    }
+    return 0;
+  }
   return MmaLayout(gates, units, kMmaWindows, 1,
                    Bf16USmem(gates, units, cluster), cluster)
                      .bytes <= SmemOptin()
@@ -1300,8 +1631,8 @@ int MaxWindowsBf16(int gates, int units, int cluster) {
 }
 
 // The bf16 tile by width (measured on the H100, see the note above):
-// k-tiles up to 16 (u <= 256), 32 and 64 on the cluster tile.  With
-// `slots`, launches nothing and writes the clusters the card runs at
+// k-tiles up to 16 (u <= 256), 32, 64, 128 and 256 on the cluster tile.
+// With `slots`, launches nothing and writes the clusters the card runs at
 // once (0 without a cluster).
 template <int kGates>
 int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
@@ -1323,7 +1654,11 @@ int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
   }
   if (units <= kMmaUnits) return launch(LaunchMma<kGates, 8, true>);
   if (!Bf16USmem(kGates, units, cluster)) {
-    return launch(LaunchMma<kGates, 64, false, 16>);
+    if (units <= kLaneUnits) return launch(LaunchMma<kGates, 64, false, 16>);
+    // Past u=1024: one m-tile, 128 k-tiles with a unit group a warp (16
+    // a CTA), 256 with two (up to 32 a CTA), 512 threads either way.
+    return units <= 2 * kLaneUnits ? launch(LaunchMmaWide<kGates, 128, 1>)
+                                   : launch(LaunchMmaWide<kGates, 256, 2>);
   }
   // The clusters each range of widths can get on the H100 (a card that
   // gives another is refused).
@@ -1398,7 +1733,7 @@ int dg_avg_layout(int gates, int units, int bf16, int *out) {
   }
   out[0] = AvgCluster(units);
   out[1] = units <= kRegUnits ? 1 : out[0] == 8 ? 2 : 0;
-  return MaxWindows(units);
+  return MaxWindows(gates, units);
 }
 
 // The clusters of that layout, at `bb` windows a CTA, that the card runs

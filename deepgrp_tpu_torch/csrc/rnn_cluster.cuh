@@ -5,6 +5,8 @@
 // A lane group's butterfly (FoldWindows) reduce-scatters the partial sums
 // of a unit's four k-slice lanes over the group's windows, so that lane s
 // ends with whole sums of the windows it owns (OwnWindows, OwnWindow).
+// Past 64 units a CTA (kLaneUnits) a lane owns several units (UnitSpan,
+// LaneUnit).
 //
 // Each CTA of such a cluster writes its slice of a step's result into its
 // peers' shared memory (PeerAddress, StoreCluster); one cluster barrier a
@@ -40,6 +42,27 @@ __device__ __forceinline__ void FoldWindows(
       }
     }
   }
+}
+
+// ---- The lane's units ----------------------------------------------------
+
+// Past 64 units a CTA (u > 1024 on 16 CTAs) a lane owns several of the
+// CTA's uc units: the k-slice lanes of a group span UnitSpan(uc, per_lane)
+// units, and the lane of unit slot i owns the CTA's local units
+// LaneUnit(i, span, j) = i + j span, j < per_lane (for each j a warp's
+// lanes read neighbouring columns of U).  The lane runs its units one
+// after the other, each through the same four k-slices and butterfly as
+// one unit a lane, so a unit's sum runs in an order fixed by u: a
+// window's bits do not depend on the units a lane, nor on the cluster,
+// CTA or lane.  The bf16 tile's warps own unit groups the same way.
+constexpr int kLaneUnits = 1024;  // widest at one unit a lane (16 x 64)
+
+__host__ __device__ constexpr int UnitSpan(int uc, int per_lane) {
+  return (uc + per_lane - 1) / per_lane;
+}
+
+__host__ __device__ constexpr int LaneUnit(int i, int span, int j) {
+  return i + j * span;
 }
 
 // Windows a lane of a group of `win` owns after the butterfly.

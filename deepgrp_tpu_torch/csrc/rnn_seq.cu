@@ -35,8 +35,7 @@
 //   * Layouts by width: up to u=64 four slices with U's slice in registers
 //     (48 floats a lane) and kRows 8 (4 when bb <= 4); up to u=128 four
 //     slices through L1/L2 with kRows 16 (4 when bb <= 4); past u=128 the
-//     cluster tile (below).  u=1025 is refused, as the first design
-//     refused it.
+//     cluster tile (below), to u=4096; u=4097 is refused.
 //   * The layouts, timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
 //     (tools/avg_tile_sweep.py --kernel seq, two runs, f32, T=342, ms a
 //     launch): at 2048 rows, u=60, kRows 8 with U in
@@ -99,6 +98,24 @@
 //     FMA rate (u=512 at 16 rows: 4.6 us a step against 0.13 ms of FMAs
 //     a launch); past u=512 the L2 stream of U's slices (88 MB a step at
 //     u=1024 over 112 CTAs, about 2 TB/s), where cuDNN is faster.
+//   * Past u=1024 (kLaneUnits) up to u=4096 (kMaxUnits) the cluster tile
+//     keeps 16 CTAs and U through L1/L2, and each lane owns kUnits of the
+//     CTA's units (rnn_cluster.cuh's UnitSpan, LaneUnit: 2 up to u=2048, 4
+//     beyond; a group of 4 or 8 rows keeps 256 threads), run one after the
+//     other through the same quads, butterfly and input dot, so a unit's
+//     sum is the one-unit-a-lane sum.  The two h buffers of 16 rows would
+//     outgrow the shared memory, so a CTA owns at most 8 rows up to
+//     u=2048 (kRows 8) and 4 up to 4096 (MaxRows; 128 kB of h buffers at
+//     each ceiling).  ptxas -v (sm_90a, CUDA 12.8): SeqKernel<4,
+//     L1/L2, f32 / bf16, 16, L1/L2, 2> 128 / 128 registers, <4, ..., 4> 193
+//     / 193, <8, ..., 2> 164 / 158; no spills.  Timed on an NVIDIA H100
+//     80GB HBM3 at 700 W (chip_smoke.py, T=342, f32 / bf16 IO, ms a
+//     launch): 64 rows, u=2048 128.6400 / 101.4715 against cuDNN's
+//     26.4413 / 7.2265; 16 rows, u=4096 251.8757 / 602.0655 against
+//     69.1920 / 15.5069.  Bound, as the fused tile past u=1024, by the
+//     stream of U each cluster reads each step and a lane's round trip a
+//     quad; why bf16 IO at four units a lane takes 2.4x its f32 time is
+//     not known (no spill, no stack frame).
 //   * Step: the lane forms the three gate partials of its group's kRows rows
 //     over its slice, each U entry loaded once for all of them and h read as
 //     float4 broadcasts from shared memory; the butterfly (xor 1, then xor
@@ -134,8 +151,8 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxUnits = kMaxThreads;  // one slice a unit
-constexpr int kTileUnits = 128;         // widest layer of one CTA a row
+constexpr int kMaxUnits = 4096;  // widest layer (up to 4 units a lane)
+constexpr int kTileUnits = 128;  // widest layer of one CTA a row
 
 // The cluster tile past u=128 (see the note above): CTAs a cluster and
 // whether each keeps its slice of U in shared memory, by width.
@@ -146,9 +163,15 @@ __host__ __device__ __forceinline__ bool SeqUSmem(int units) {
   return units > kTileUnits && units <= 512;
 }
 
-// Rows a CTA may own at this width.
+// Rows a CTA may own at this width: 16, but 4 from u=257 to 512 (U's
+// slice in shared memory) and past u=1024, where the two h buffers of 16
+// rows outgrow the shared memory, 8 up to u=2048 and 4 up to 4096 (128 kB
+// of h buffers at each ceiling).
 __host__ __device__ __forceinline__ int MaxRows(int units) {
-  return units <= 256 || units > 512 ? 16 : 4;
+  return units > 2 * kLaneUnits ? 4
+         : units > kLaneUnits   ? 8
+         : units <= 256 || units > 512 ? 16
+                                       : 4;
 }
 
 // Units of a row each CTA of a cluster owns (the last may own fewer).
@@ -190,12 +213,14 @@ __host__ __device__ __forceinline__ int XStride(int tile_steps,
 template <bool kBf16>
 using Elem = typename Io<kBf16>::Out;
 
-// kRows rows a lane group (4 uc threads, uc the CTA's units: u without a
-// cluster); ceil(bb / kRows) groups a CTA.  kCluster CTAs a cluster split
-// a row's units (1: no cluster); kUSmem keeps the CTA's slice of U in
-// shared memory (else registers, kURegs, or L1/L2).
+// kRows rows a lane group (4 UnitSpan(uc, kUnits) threads, uc the CTA's
+// units: u without a cluster); ceil(bb / kRows) groups a CTA.  kCluster
+// CTAs a cluster split a row's units (1: no cluster); kUSmem keeps the
+// CTA's slice of U in shared memory (else registers, kURegs, or L1/L2);
+// each lane owns kUnits of the CTA's units (LaneUnit), one after the
+// other.
 template <int kRows, bool kURegs, bool kBf16, int kCluster = 1,
-          bool kUSmem = false>
+          bool kUSmem = false, int kUnits = 1>
 __global__ void __launch_bounds__(SeqThreads(kRows, kURegs, kCluster,
                                              kUSmem),
                                   1)
@@ -209,6 +234,8 @@ SeqKernel(const Elem<kBf16> *__restrict__ x, int batch, int steps,
                 "kRows: pairs enough for the butterfly");
   static_assert(!(kURegs && (kUSmem || kCluster > 1)),
                 "U in registers: one CTA a row");
+  static_assert(kUnits == 1 || (!kURegs && !kUSmem),
+                "several units a lane read U through L1/L2");
   using IoT = Io<kBf16>;
   // The butterfly folds row pairs (as rnn_avg.cu folds a window's two
   // branches): a lane ends with kOwn pairs, 4 j + s, or with kRows 4 the
@@ -226,6 +253,7 @@ SeqKernel(const Elem<kBf16> *__restrict__ x, int batch, int steps,
   const int base = kCluster > 1 ? static_cast<int>(ClusterRank()) * uc : 0;
   const int cols = 3 * uc;
   const int ustride = UStride(uc);
+  const int span = UnitSpan(uc, kUnits);
   float *s_h = reinterpret_cast<float *>(smem4);  // [2][rows_pad][hstride]
   float *s_w = s_h + 2 * rows_pad * hstride;     // [C][cols]
   float *s_b = s_w + channels * cols;            // [2][cols]
@@ -234,10 +262,9 @@ SeqKernel(const Elem<kBf16> *__restrict__ x, int batch, int steps,
   // [1 or 2][bb][xstride]
 
   const int tid = threadIdx.x;
-  const int group = tid / (kSlices * uc);
-  const int lane = tid - group * kSlices * uc;
+  const int group = tid / (kSlices * span);
+  const int lane = tid - group * kSlices * span;
   const int i = lane / kSlices, s = lane % kSlices;
-  const int unit = base + i;  // the lane's unit of the row
   const int g0 = group * kRows;
   const int row0 = blockIdx.x / kCluster * bb;
   for (int j = tid; j < 2 * rows_pad * hstride; j += blockDim.x) {
@@ -280,10 +307,21 @@ SeqKernel(const Elem<kBf16> *__restrict__ x, int batch, int steps,
     }
   };
   stage(0);
-  // A lane past u (the last CTA of a cluster) reads the last unit's
-  // column of U; its sums are dropped.
+  // The lane's units of the row (local[n] of the CTA's).  A lane past u
+  // (the last CTA of a cluster) or past the CTA's units reads the last
+  // unit's column of U; its sums are dropped.
+  int local[kUnits], unit[kUnits], u_col[kUnits];
+  bool writer[kUnits];
+#pragma unroll
+  for (int n = 0; n < kUnits; ++n) {
+    local[n] = LaneUnit(i, span, n);
+    unit[n] = base + local[n];
+    u_col[n] = min(unit[n], units - 1);
+    writer[n] = (kPairs >= kSlices || s < 2) &&
+                (kUnits == 1 || local[n] < uc) && unit[n] < units;
+  }
   USlice<3, kURegs, kBf16, Elem<kBf16>> us;
-  us.load(recurrent, units, min(unit, units - 1), s);
+  us.load(recurrent, units, u_col[0], s);
   const float *u_lane = s_u + i;
   const unsigned lanes = WarpLanes();
   const int n_quads = Pad4(units) / 4 > s
@@ -294,8 +332,7 @@ SeqKernel(const Elem<kBf16> *__restrict__ x, int batch, int steps,
   for (int j = 0; j < kOwn; ++j) {
     own_p[j] = kPairs >= kSlices ? kSlices * j + s : (s & 1);
   }
-  const bool writer = (kPairs >= kSlices || s < 2) && unit < units;
-  float h_own[kOwn][2] = {};
+  float h_own[kUnits][kOwn][2] = {};
   // The h buffers of the cluster's CTAs (the first must not be written
   // before its CTA has zeroed it: the barrier below).
   uint32_t h_peer[kCluster];
@@ -319,121 +356,127 @@ SeqKernel(const Elem<kBf16> *__restrict__ x, int batch, int steps,
     const int nxt = ((t + 1) & 1) * rows_pad * hstride;
     float *h_nxt = s_h + nxt;
 
-    // Partial gate dots of the group's rows over the lane's slice: each U
-    // entry, loaded once, feeds kRows rows.
-    float acc[kPairs][2][3] = {};
-    auto quad = [&](int m) {
-      const int q = s + kSlices * m;
-      float u_q[4][3];
+    // The lane's units one after the other.
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+    for (int n = 0; n < kUnits; ++n) {
+      // Partial gate dots of the group's rows over the lane's slice: each
+      // U entry, loaded once, feeds kRows rows.
+      float acc[kPairs][2][3] = {};
+      auto quad = [&](int m) {
+        const int q = s + kSlices * m;
+        float u_q[4][3];
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          if constexpr (kUSmem) {
-            u_q[c][g] = u_lane[(4 * q + c) * ustride + g * uc];
-          } else {
-            u_q[c][g] = us.at(m, c, g, s, units, min(unit, units - 1));
-          }
-        }
-      }
+        for (int c = 0; c < 4; ++c) {
 #pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const float4 h4 = reinterpret_cast<const float4 *>(
-              h_cur + (2 * p + b) * hstride)[q];
-          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-#pragma unroll
-            for (int g = 0; g < 3; ++g) {
-              acc[p][b][g] = fmaf(hv[c], u_q[c][g], acc[p][b][g]);
+          for (int g = 0; g < 3; ++g) {
+            if constexpr (kUSmem) {
+              u_q[c][g] = u_lane[(4 * q + c) * ustride + g * uc];
+            } else {
+              u_q[c][g] = us.at(m, c, g, s, units, u_col[n]);
             }
           }
         }
-      }
-    };
-    if constexpr (kURegs) {
 #pragma unroll
-      for (int m = 0; m < kRegQuads; ++m) {
-        if (m < n_quads) quad(m);
-      }
-    } else {
-      for (int m = 0; m < n_quads; ++m) quad(m);
-    }
-
-    // Reduce-scatter over the unit's four lanes: xor 1, then xor 2 (with
-    // one pair left after xor 1, the second level is an all-reduce: a + b
-    // == b + a, so lanes s and s ^ 2 hold the same bits).
-    float dot[kOwn][2][3];
-    if constexpr (kPairs >= 4) {
-      float half[kPairs / 2][2][3];
-      FoldWindows<kPairs, 3>(acc, s & 1, 1, lanes, half);
-      FoldWindows<kPairs / 2, 3>(half, (s >> 1) & 1, 2, lanes, dot);
-    } else {
-      FoldWindows<kPairs, 3>(acc, s & 1, 1, lanes, dot);
+        for (int p = 0; p < kPairs; ++p) {
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
+          for (int b = 0; b < 2; ++b) {
+            const float4 h4 = reinterpret_cast<const float4 *>(
+                h_cur + (2 * p + b) * hstride)[q];
+            const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          dot[0][b][g] += __shfl_xor_sync(lanes, dot[0][b][g], 2);
+            for (int c = 0; c < 4; ++c) {
+#pragma unroll
+              for (int g = 0; g < 3; ++g) {
+                acc[p][b][g] = fmaf(hv[c], u_q[c][g], acc[p][b][g]);
+              }
+            }
+          }
         }
-      }
-    }
-
-    // The input dot and the gate math of the lane's rows.
-    const float *x_t =
-        s_x + ((t / tile_steps) & 1) * bb * xstride + tt * channels;
+      };
+      if constexpr (kURegs) {
 #pragma unroll
-    for (int j = 0; j < kOwn; ++j) {
-      const int r0 = g0 + 2 * own_p[j];
-      if (!writer || r0 >= bb) continue;
-      // x_t W in channel order, W's entries read once for both rows (the
-      // second row may lie past bb: it reads the last row's x).
-      const float *x_r[2] = {x_t + r0 * xstride,
-                             x_t + min(r0 + 1, bb - 1) * xstride};
-      float xg[2][3] = {};
-      for (int c = 0; c < channels; ++c) {
-        const float *w = s_w + c * cols + i;
-        const float w_c[3] = {w[0], w[uc], w[2 * uc]};
+        for (int m = 0; m < kRegQuads; ++m) {
+          if (m < n_quads) quad(m);
+        }
+      } else {
+        for (int m = 0; m < n_quads; ++m) quad(m);
+      }
+
+      // Reduce-scatter over the unit's four lanes: xor 1, then xor 2
+      // (with one pair left after xor 1, the second level is an
+      // all-reduce: a + b == b + a, so lanes s and s ^ 2 hold the same
+      // bits).
+      float dot[kOwn][2][3];
+      if constexpr (kPairs >= 4) {
+        float half[kPairs / 2][2][3];
+        FoldWindows<kPairs, 3>(acc, s & 1, 1, lanes, half);
+        FoldWindows<kPairs / 2, 3>(half, (s >> 1) & 1, 2, lanes, dot);
+      } else {
+        FoldWindows<kPairs, 3>(acc, s & 1, 1, lanes, dot);
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
-          const float v = x_r[b][c];
 #pragma unroll
-          for (int g = 0; g < 3; ++g) xg[b][g] = fmaf(v, w_c[g], xg[b][g]);
+          for (int g = 0; g < 3; ++g) {
+            dot[0][b][g] += __shfl_xor_sync(lanes, dot[0][b][g], 2);
+          }
         }
       }
+
+      // The input dot and the gate math of the lane's rows.
+      const float *x_t =
+          s_x + ((t / tile_steps) & 1) * bb * xstride + tt * channels;
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int r = r0 + b;
-        if (r >= bb) break;
-        // Keras GRU, reset_after=True.
-        const float *b_in = s_b + i;
-        const float *b_rec = s_b + cols + i;
-        const float z = Sigmoid((xg[b][0] + b_in[0]) +
-                                (dot[j][b][0] + b_rec[0]));
-        const float rg = Sigmoid((xg[b][1] + b_in[uc]) +
-                                 (dot[j][b][1] + b_rec[uc]));
-        const float hh = tanhf((xg[b][2] + b_in[2 * uc]) +
-                               rg * (dot[j][b][2] + b_rec[2 * uc]));
-        float &h = h_own[j][b];
-        h = z * h + (1.0f - z) * hh;
-        if constexpr (kCluster > 1) {
-          // The unit's new h into every CTA's next buffer (its own too).
-          const uint32_t at = sizeof(float) * (nxt + r * hstride + unit);
+      for (int j = 0; j < kOwn; ++j) {
+        const int r0 = g0 + 2 * own_p[j];
+        if (!writer[n] || r0 >= bb) continue;
+        // x_t W in channel order, W's entries read once for both rows
+        // (the second row may lie past bb: it reads the last row's x).
+        const float *x_r[2] = {x_t + r0 * xstride,
+                               x_t + min(r0 + 1, bb - 1) * xstride};
+        float xg[2][3] = {};
+        for (int c = 0; c < channels; ++c) {
+          const float *w = s_w + c * cols + local[n];
+          const float w_c[3] = {w[0], w[uc], w[2 * uc]};
 #pragma unroll
-          for (int p = 0; p < kCluster; ++p) {
-            StoreCluster(h_peer[p] + at, IoT::Operand(h));
+          for (int b = 0; b < 2; ++b) {
+            const float v = x_r[b][c];
+#pragma unroll
+            for (int g = 0; g < 3; ++g) xg[b][g] = fmaf(v, w_c[g], xg[b][g]);
           }
-        } else {
-          h_nxt[r * hstride + i] = IoT::Operand(h);
         }
-        const int row = row0 + r;
-        if (row < batch) {
-          seq[(static_cast<size_t>(row) * steps + t) * units + unit] =
-              IoT::Store(h);
-          if (t == steps - 1) {
-            last[static_cast<size_t>(row) * units + unit] = IoT::Store(h);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int r = r0 + b;
+          if (r >= bb) break;
+          // Keras GRU, reset_after=True.
+          const float *b_in = s_b + local[n];
+          const float *b_rec = s_b + cols + local[n];
+          const float z = Sigmoid((xg[b][0] + b_in[0]) +
+                                  (dot[j][b][0] + b_rec[0]));
+          const float rg = Sigmoid((xg[b][1] + b_in[uc]) +
+                                   (dot[j][b][1] + b_rec[uc]));
+          const float hh = tanhf((xg[b][2] + b_in[2 * uc]) +
+                                 rg * (dot[j][b][2] + b_rec[2 * uc]));
+          float &h = h_own[n][j][b];
+          h = z * h + (1.0f - z) * hh;
+          if constexpr (kCluster > 1) {
+            // The unit's new h into every CTA's next buffer (its own too).
+            const uint32_t at =
+                sizeof(float) * (nxt + r * hstride + unit[n]);
+#pragma unroll
+            for (int p = 0; p < kCluster; ++p) {
+              StoreCluster(h_peer[p] + at, IoT::Operand(h));
+            }
+          } else {
+            h_nxt[r * hstride + local[n]] = IoT::Operand(h);
+          }
+          const int row = row0 + r;
+          if (row < batch) {
+            const size_t at_row = static_cast<size_t>(row);
+            seq[(at_row * steps + t) * units + unit[n]] = IoT::Store(h);
+            if (t == steps - 1) {
+              last[at_row * units + unit[n]] = IoT::Store(h);
+            }
           }
         }
       }
@@ -487,15 +530,15 @@ cudaError_t SeqSmem(int units, int channels, int steps, int bb, int rows,
 // clusters the card runs at once (0 without a cluster, or if it cannot
 // place one).
 template <int kRows, bool kURegs, bool kBf16, int kCluster = 1,
-          bool kUSmem = false>
+          bool kUSmem = false, int kUnits = 1>
 int LaunchTile(const void *x, int batch, int steps, int channels,
                const void *kernel, const void *bias, const void *recurrent,
                int units, int bb, void *seq, void *last,
                cudaStream_t stream, int *slots = nullptr) {
   using T = Elem<kBf16>;
-  const auto fn = SeqKernel<kRows, kURegs, kBf16, kCluster, kUSmem>;
-  const int threads =
-      (bb + kRows - 1) / kRows * kSlices * ClusterUnits(units, kCluster);
+  const auto fn = SeqKernel<kRows, kURegs, kBf16, kCluster, kUSmem, kUnits>;
+  const int threads = (bb + kRows - 1) / kRows * kSlices *
+                      UnitSpan(ClusterUnits(units, kCluster), kUnits);
   if (threads > SeqThreads(kRows, kURegs, kCluster, kUSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -541,17 +584,21 @@ int LaunchTile(const void *x, int batch, int steps, int channels,
 
 // The layout at this width and rows a CTA: {rows a lane group, slices a
 // unit, where U sits (0 L1/L2, 1 registers, 2 shared memory), CTAs a
-// cluster}; false if the shape is refused.
+// cluster, units a lane}; false if the shape is refused.
 bool Layout(int units, int bb, int *out) {
   if (units <= 0 || units > kMaxUnits || bb < 1 || bb > MaxRows(units)) {
     return false;
   }
   const bool small = bb <= 4;
   out[3] = SeqCluster(units);
+  out[4] = 1;
   if (out[3] > 1) {  // four slices of the CTA's units
-    out[0] = small ? 4 : out[3] == 8 ? 8 : 16;
+    out[0] = small ? 4 : out[3] == 8 || units > kLaneUnits ? 8 : 16;
     out[1] = 4;
     out[2] = SeqUSmem(units) ? 2 : 0;
+    // Past u=1024 a group of 4 or 8 rows keeps 256 threads (SeqThreads):
+    // two units a lane up to u=2048, four up to u=4096.
+    if (units > kLaneUnits) out[4] = units <= 2 * kLaneUnits ? 2 : 4;
     return true;
   }
   out[0] = small ? 4 : units <= kRegUnits ? 8 : 16;
@@ -565,7 +612,7 @@ int LaunchSeq(const void *x, int batch, int steps, int channels,
               const void *kernel, const void *bias, const void *recurrent,
               int units, int bb, void *seq, void *last, void *stream,
               int *slots = nullptr) {
-  int layout[4];
+  int layout[5];
   if (batch <= 0 || steps <= 0 || channels <= 0 ||
       !Layout(units, bb, layout)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -578,6 +625,14 @@ int LaunchSeq(const void *x, int batch, int steps, int channels,
   if (layout[3] == 8) {
     return layout[0] == 4 ? launch(LaunchTile<4, false, kBf16, 8, true>)
                           : launch(LaunchTile<8, false, kBf16, 8, true>);
+  }
+  if (layout[4] > 1) {  // past u=1024
+    switch (layout[0] * 10 + layout[4]) {
+      case 42: return launch(LaunchTile<4, false, kBf16, 16, false, 2>);
+      case 44: return launch(LaunchTile<4, false, kBf16, 16, false, 4>);
+      case 82: return launch(LaunchTile<8, false, kBf16, 16, false, 2>);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (layout[3] == 16) {
     if (layout[2] == 2) return launch(LaunchTile<4, false, kBf16, 16, true>);
@@ -615,7 +670,8 @@ int dg_gru_seq(const void *x, int batch, int steps, int channels,
 // The layout dg_gru_seq launches for `units` and `bb` rows a CTA:
 // out[0] rows a lane group, out[1] slices a unit, out[2] where U sits (0
 // read through L1/L2, 1 registers, 2 shared memory), out[3] CTAs a
-// cluster (1: none; each CTA of a cluster owns ceil(u / out[3]) units).
+// cluster (1: none; each CTA of a cluster owns ceil(u / out[3]) units),
+// out[4] units a lane.
 // Returns the most rows a CTA may own at this width, or 0 if the shape is
 // refused (out untouched).
 int dg_gru_seq_layout(int units, int bb, int *out) {

@@ -6,12 +6,13 @@ Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
 ``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
 the recurrent dot on the tensor cores), at every width up to
-:data:`AVG_MAX_UNITS`: one CTA a window up to u=128, past it a window's
-units split over a thread-block cluster of CTAs (:func:`avg_layout` names
-the tile, the CTAs a cluster and where ``U`` sits; past the ceiling it
-raises ``ValueError``, and so does a launch).  :func:`gru_apply`
-is the counterpart of ``pallas_gru_apply``: the GRU over a float input
-``x [B, T, C]``, ``(seq, last)`` out in ``x``'s dtype.
+:data:`AVG_MAX_UNITS` (u=4096): one CTA a window up to u=128, past it a
+window's units split over a thread-block cluster of CTAs, past u=1024
+several units a lane (:func:`avg_layout` names the tile, the CTAs a
+cluster and where ``U`` sits; past the ceiling it raises ``ValueError``,
+and so does a launch).  :func:`gru_apply` is the counterpart of
+``pallas_gru_apply``: the GRU over a float input ``x [B, T, C]``,
+``(seq, last)`` out in ``x``'s dtype, at the same widths.
 
 Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``torch.autograd.Function`` counterparts of the custom VJPs
@@ -22,10 +23,10 @@ sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
-every width the inference kernels take, up to u=1024
-(:data:`TRAIN_MAX_UNITS`): one CTA a window up to u=256, past it a
-window's units split over a thread-block cluster (:func:`train_layout`
-names the layout of a width, :func:`train_tile` what the card launches).
+widths up to u=1024 (:data:`TRAIN_MAX_UNITS`, below the inference
+kernels' ceiling): one CTA a window up to u=256, past it a window's units
+split over a thread-block cluster (:func:`train_layout` names the layout
+of a width, :func:`train_tile` what the card launches).
 
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
@@ -160,9 +161,11 @@ def block_windows(batch: int, sms: int, most: int) -> int:
     return max(1, min(most, -(-batch // max(sms, 1))))
 
 
-#: The widest layer the inference kernels take (``csrc/rnn_avg.cu``: a
-#: window's units over a cluster of 16 CTAs, at most 64 units a CTA).
-AVG_MAX_UNITS = 1024
+#: The widest layer the inference kernels take, the fused ones and the GRU
+#: sequence kernel (``csrc/rnn_avg.cu``, ``csrc/rnn_seq.cu``: a window's
+#: units over a cluster of 16 CTAs, past 64 units a CTA several units a
+#: lane, at most 256 units a CTA: two h buffers of one window take 64 kB).
+AVG_MAX_UNITS = 4096
 #: Where a kernel keeps ``U``, by the library's code.
 U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 
@@ -181,8 +184,9 @@ def avg_tile_name(cell: str, units: int,
     ``"l2"`` (the same reading it through L1/L2, u <= 128), in bfloat16
     ``"mma"`` (the tensor-core tile, one CTA a window, u <= 128); past
     u=128 ``"cluster"`` in either (a window's units over a thread-block
-    cluster of CTAs).  Raises ``ValueError`` naming the width and the
-    ceiling past :data:`AVG_MAX_UNITS`."""
+    cluster of CTAs, past u=1024 several units a lane).  Raises
+    ``ValueError`` naming the width and the ceiling past
+    :data:`AVG_MAX_UNITS`."""
     _check_width(units)
     if units > 128:
         return "cluster"
@@ -266,7 +270,7 @@ def avg_bf16_tile(cell: str, units: int) -> str:
     width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
     operands, one CTA a window, up to u=128) or ``"cluster"`` (the same
     step with a window's units split over a cluster of CTAs, up to
-    u=1024); raises ``ValueError`` for a width they refuse."""
+    u=4096); raises ``ValueError`` for a width they refuse."""
     gates = 4 if cell == "lstm" else 3
     code = _build.load_kernels("rnn_avg").dg_avg_bf16_tile(gates, units)
     if code not in BF16_TILES:
@@ -290,7 +294,13 @@ def seq_cluster(units: int) -> int:
 def seq_max_rows(units: int) -> int:
     """The most rows a CTA of the GRU sequence kernel owns at this width:
     16, but 4 from u=257 to 512, where each CTA keeps its slice of U in
-    shared memory (``MaxRows`` in ``csrc/rnn_seq.cu``)."""
+    shared memory, and past u=1024, where the two h buffers of 16 rows
+    outgrow it, 8 up to u=2048 and 4 beyond (``MaxRows`` in
+    ``csrc/rnn_seq.cu``)."""
+    if units > 2048:
+        return 4
+    if units > 1024:
+        return 8
     return 4 if 256 < units <= 512 else 16
 
 
@@ -302,7 +312,9 @@ def seq_tile(rows: int, units: int, sms: int,
     clusters of :func:`seq_cluster` CTAs, each of which holds its
     cluster's rows) that run at once: by default ``sms`` over the CTAs a
     cluster; the card's own count where it places fewer clusters (the
-    library's ``dg_gru_seq_clusters``)."""
+    library's ``dg_gru_seq_clusters``).  Raises ``ValueError`` naming the
+    width and the ceiling past :data:`AVG_MAX_UNITS`."""
+    _check_width(units)
     cluster = seq_cluster(units)
     if slots is None:
         slots = sms // cluster
@@ -332,16 +344,18 @@ SEQ_U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 def seq_layout(units: int, rows_a_cta: int) -> Dict[str, object]:
     """The layout the GRU sequence kernel launches at this width and tile:
     rows a lane group, k-slices a unit, where ``U`` sits ("registers",
-    "L1/L2" or "shared": each CTA's slice in shared memory) and the CTAs a
-    cluster (1: one CTA a row); raises ``ValueError`` for a shape the
-    kernel refuses."""
+    "L1/L2" or "shared": each CTA's slice in shared memory), the CTAs a
+    cluster (1: one CTA a row) and the units a lane (past u=1024 two up
+    to u=2048, four beyond); raises ``ValueError`` for a shape the kernel
+    refuses."""
     lib = _build.load_kernels("rnn_seq")
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     if lib.dg_gru_seq_layout(units, rows_a_cta, out) == 0:
         raise ValueError(f"gru_seq refuses u={units} with {rows_a_cta} rows "
                          "a CTA")
     return {"rows_a_group": out[0], "slices": out[1],
-            "u_in": SEQ_U_IN[out[2]], "cluster": out[3]}
+            "u_in": SEQ_U_IN[out[2]], "cluster": out[3],
+            "units_a_lane": out[4]}
 
 
 def gru_apply(params: RnnParams, x: torch.Tensor, *,
@@ -356,7 +370,9 @@ def gru_apply(params: RnnParams, x: torch.Tensor, *,
     (any float type: ``kernel`` and ``recurrent`` are cast to ``x``'s
     dtype, ``bias`` to float32, as ``pallas_rnn.py:121-122``); ``x``
     float32 or bfloat16.  Returns ``(seq [B, T, u], last [B, u])`` in
-    ``x``'s dtype.  Dropout raises ``ValueError``, as ``:135-138``.
+    ``x``'s dtype.  Dropout raises ``ValueError``, as ``:135-138``; so
+    does a width past :data:`AVG_MAX_UNITS` on a CUDA tensor, before any
+    launch.
     """
     if dropout_key is not None and (
             not isinstance(dropout_rate, (int, float)) or dropout_rate > 0.0):
@@ -382,6 +398,7 @@ def _launch_seq(params: RnnParams,
     if steps == 0:
         raise ValueError(f"{name}: x has no time steps")
     units = params["recurrent"].shape[0]
+    _check_width(units)
     width = 3 * units
     weights = {"kernel": params["kernel"].to(x.dtype).contiguous(),
                "recurrent": params["recurrent"].to(x.dtype).contiguous(),
@@ -420,10 +437,10 @@ def _launch_seq(params: RnnParams,
 # -- training kernels --------------------------------------------------------
 
 
-#: The widest layer the training kernels take (``csrc/rnn_train.cu``: a
-#: window's units over a cluster of 16 CTAs, at most 64 units a CTA), the
-#: inference kernels' ceiling.
-TRAIN_MAX_UNITS = AVG_MAX_UNITS
+#: The widest layer the training kernels take (``csrc/rnn_train.cu``
+#: ``kClusterMaxUnits``: a window's units over a cluster of 16 CTAs, at most
+#: 64 units a CTA), below the inference kernels' ceiling.
+TRAIN_MAX_UNITS = 1024
 #: The widest layer of the training kernels' window tile (4u threads a
 #: CTA, at most 1,024).
 TRAIN_WINDOW_UNITS = 256

@@ -77,8 +77,10 @@ def as_f32(array):
 @pytest.mark.parametrize("batch,steps,units", [
     (4, 17, 6), (11, 32, 12), (3, 9, 5),
     # Past u=128, where the kernels run the cluster tile (past u=256 on 4
-    # to 16 CTAs, at u=1024 with U through L1/L2).
-    (3, 6, 136), (2, 5, 200), (2, 5, 300), (2, 4, 520), (1, 3, 1024)])
+    # to 16 CTAs, at u=1024 with U through L1/L2, at u=2048 with one
+    # m-tile and only the CTA's rows of h).
+    (3, 6, 136), (2, 5, 200), (2, 5, 300), (2, 4, 520), (1, 3, 1024),
+    (1, 2, 2048)])
 def test_avg_plain_bf16_matches_pallas(cell, batch, steps, units):
     params, rng = random_cell(batch * steps + units, cell, units)
     codes = rng.integers(0, 6, size=(batch, steps)).astype(np.int8)

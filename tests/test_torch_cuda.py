@@ -28,23 +28,26 @@ The fused inference kernels (one register tile for both cells up to
 u=128) also run at the CLI's default batch (256 windows: two a CTA), at
 u=96 and u=128 (past the register tile's registers), and past u=128 on
 the float32 cluster tile (a window's units over 8 CTAs up to u=256, 16
-beyond, ragged at u=129, 200, 300 and 520) up to the ceiling u=1024; a
+beyond, ragged at u=129, 200, 300 and 520), past u=1024 with several
+units a lane (ragged at u=1025 and 3000) up to the ceiling u=4096; a
 window's bits there are the same alone and inside a batch, and on a
-second launch; u=1025 raises ``ValueError`` before any launch, in both
-dtypes; ``cuda_rnn.avg_layout``'s tile agrees with the library's layout at
-every width.
+second launch; u=4097 raises ``ValueError`` before any launch, in both
+dtypes and on the scan route; ``cuda_rnn.avg_layout``'s tile agrees with
+the library's layout at every width.
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
 (either side of U in registers), u=128 (U through L1/L2), past it on the
 cluster tile (u=256 and u=512: clusters of 8 and 16 CTAs, each with its
-slice of U in shared memory; u=520 and u=1024: 16 CTAs, U through L1/L2),
-and at ragged shapes; a second launch is bitwise equal to the first (on
-the cluster tile too) and u=1025 is refused.  The bf16
+slice of U in shared memory; u=520 and u=1024: 16 CTAs, U through L1/L2;
+past it two or four units a lane up to u=4096), and at ragged shapes; a
+second launch is bitwise equal to the first (on the cluster tile too)
+and u=4097 is refused.  The bf16
 variants of the fused kernels are held against their plain versions, up
 to u=128 on their tensor-core tile (``mma.sync``), beyond on its cluster
 tile (a window's units split over a cluster of 2 to 16 CTAs, up to
-u=1024), which ``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
+u=4096: past u=1024 one m-tile, a warp owning one or two unit groups),
+which ``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
 same alone and inside a batch of 1024 (and of 256 at two places, on the
 cluster tile).  Tolerance in bfloat16: atol 2e-2
 (the plain version rounds h and U as the kernel does, but the tensor
@@ -122,6 +125,10 @@ from deepgrp_tpu_torch.train.training import train_step
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
+# Past u=1024 (several units a lane): (batch, steps, units), ragged at
+# u=1025 and 3000, and u=2048 and 4096 at T=342.
+WIDE_SHAPES = ((37, 150, 1025), (64, 342, 2048), (5, 23, 3000),
+               (16, 342, 4096))
 TORCH_FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "fixtures", "torch")
 
@@ -394,12 +401,12 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
     # (16 CTAs need 16 free SMs of one GPC; small ones share an SM): the
     # fewest windows that fill one wave, at most the layout's cap.
     lib = _build.load_kernels("rnn_avg")
-    for units in (300, 512, 1024):
+    for units in (300, 512, 1024, 2048, 4096):
         layout = cuda_rnn.avg_layout("gru", units, dtype)
         slots = lib.dg_avg_clusters(3, units, layout["max_windows"],
                                     int(dtype == torch.bfloat16))
         assert slots > 0
-        for batch in (5, 64, 256):
+        for batch in (5, 64, 256, 1024):
             windows, n_cta = cuda_rnn.avg_tile("gru", batch, units, None,
                                                dtype)
             assert windows == cuda_rnn.block_windows(
@@ -429,17 +436,26 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
     if sms == 132:
         assert cuda_rnn.avg_tile("lstm", 256, 60, None, dtype) == (2, 128)
         assert cuda_rnn.avg_tile("lstm", 1024, 60, None, dtype) == (8, 128)
+    # Past u=1024 the CLI's default batch and -b 1024 get a tile within the
+    # width's cap of windows a CTA (its h buffers), every window placed.
+    for units in (2048, 4096):
+        layout = cuda_rnn.avg_layout("lstm", units, dtype)
+        for batch in (256, 1024):
+            windows, n_cta = cuda_rnn.avg_tile("lstm", batch, units, None,
+                                               dtype)
+            assert 1 <= windows <= layout["max_windows"]
+            assert n_cta == -(-batch // windows) * layout["cluster"]
 
 
 def test_lstm_avg_refuses_u257(device):
-    """The inference kernels take widths up to u=1024 (past u=256 on a
-    cluster of 16 CTAs, as the scan route's GRU): u=1025 raises
-    ``ValueError`` naming the width and the ceiling before any launch, in
-    float32 and bfloat16."""
-    params, codes = random_case(6, 4, 3, 5, 1025, device)
+    """The inference kernels take widths up to u=4096 (past u=256 on a
+    cluster of 16 CTAs, as the scan route's GRU; past u=1024 several
+    units a lane): u=4097 raises ``ValueError`` naming the width and the
+    ceiling before any launch, in float32 and bfloat16."""
+    params, codes = random_case(6, 4, 3, 5, 4097, device)
     for dtype in (torch.float32, torch.bfloat16):
         launches = cuda_rnn.LAUNCHES.snapshot()
-        with pytest.raises(ValueError, match="u=1024, not u=1025"):
+        with pytest.raises(ValueError, match="u=4096, not u=4097"):
             cuda_rnn.lstm_avg(params, codes, dtype)
         assert cuda_rnn.LAUNCHES.snapshot() == launches
 
@@ -456,7 +472,11 @@ def test_lstm_avg_refuses_u257(device):
     *((cell, *shape) for cell in ("gru", "lstm")
       for shape in ((37, 50, 129), (64, 100, 200), (256, 342, 256),
                     (9, 40, 257), (37, 150, 300), (256, 342, 512),
-                    (5, 23, 520), (64, 342, 1024)))])
+                    (5, 23, 520), (64, 342, 1024))),
+    # Past u=1024: two units a lane (ragged at u=1025: 65 units a CTA),
+    # four (u=4096; ragged at u=3000), 8 to 2 windows a CTA.
+    *((cell, *shape) for cell in ("gru", "lstm")
+      for shape in WIDE_SHAPES)])
 def test_kernel_matches_plain(device, cell, batch, steps, units):
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch + steps + units, gates, batch, steps,
@@ -574,7 +594,10 @@ def random_seq_case(batch, steps, units, dtype, device):
     (torch.float32, 16, 342, 512), (torch.bfloat16, 16, 342, 512),
     (torch.float32, 64, 342, 1024), (torch.bfloat16, 64, 342, 1024),
     (torch.float32, 5, 23, 520), (torch.bfloat16, 5, 23, 520),
-    (torch.float32, 37, 60, 200)])
+    (torch.float32, 37, 60, 200),
+    # Past u=1024: two units a lane up to u=2048, four up to u=4096.
+    *((dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+      for shape in WIDE_SHAPES)])
 def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
     params, x = random_seq_case(batch, steps, units, dtype, device)
     launches = cuda_rnn.LAUNCHES.get("gru_seq")
@@ -606,7 +629,9 @@ def test_gru_seq_repeats_bitwise(device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,steps,units", [(16, 342, 512), (9, 40, 520),
-                                               (37, 60, 200)])
+                                               (37, 60, 200),
+                                               (16, 342, 2048),
+                                               (9, 40, 4096)])
 def test_gru_seq_cluster_repeats_bitwise(device, dtype, batch, steps,
                                          units):
     """On the cluster tile each unit's sum runs in an order fixed by u (a
@@ -625,11 +650,14 @@ def test_gru_seq_cluster_repeats_bitwise(device, dtype, batch, steps,
 
 
 def test_gru_seq_refuses_u1025(device):
-    """The sequence kernel takes u <= 1024 (one slice a unit, u threads):
-    u=1025 raises, naming the shape."""
-    params, x = random_seq_case(2, 3, 1025, torch.float32, device)
-    with pytest.raises(RuntimeError, match="u=1025"):
+    """The sequence kernel takes u <= 4096 (past u=1024 several units a
+    lane), the fused kernels' ceiling: u=4097 raises ``ValueError``
+    naming the width and the ceiling before any launch."""
+    params, x = random_seq_case(2, 3, 4097, torch.float32, device)
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    with pytest.raises(ValueError, match="u=4096, not u=4097"):
         cuda_rnn.gru_apply(params, x)
+    assert cuda_rnn.LAUNCHES.snapshot() == launches
 
 
 def test_gru_seq_layout(device):
@@ -640,19 +668,24 @@ def test_gru_seq_layout(device):
              (64, 12): (8, 4, "registers", 1), (65, 12): (16, 4, "L1/L2", 1),
              (128, 3): (4, 4, "L1/L2", 1), (129, 4): (4, 4, "shared", 8),
              (256, 16): (8, 4, "shared", 8), (512, 1): (4, 4, "shared", 16),
-             (520, 8): (16, 4, "L1/L2", 16), (1024, 4): (4, 4, "L1/L2", 16)}
+             (520, 8): (16, 4, "L1/L2", 16), (1024, 4): (4, 4, "L1/L2", 16),
+             (1025, 8): (8, 4, "L1/L2", 16), (2048, 3): (4, 4, "L1/L2", 16),
+             (2049, 4): (4, 4, "L1/L2", 16), (4096, 1): (4, 4, "L1/L2", 16)}
     for (units, rows), want in cases.items():
         layout = cuda_rnn.seq_layout(units, rows)
         assert (layout["rows_a_group"], layout["slices"], layout["u_in"],
                 layout["cluster"]) == want
         assert layout["cluster"] == cuda_rnn.seq_cluster(units)
-    for units in (60, 128, 129, 256, 257, 512, 513, 1024):
+        assert layout["units_a_lane"] == (1 if units <= 1024 else 2
+                                          if units <= 2048 else 4)
+    for units in (60, 128, 129, 256, 257, 512, 513, 1024, 1025, 2048,
+                  2049, 4096):
         most = cuda_rnn.seq_tile(10 ** 6, units, 1)[0]
         cuda_rnn.seq_layout(units, most)
         with pytest.raises(ValueError):
             cuda_rnn.seq_layout(units, most + 1)
     with pytest.raises(ValueError):
-        cuda_rnn.seq_layout(1025, 1)
+        cuda_rnn.seq_layout(4097, 1)
 
 
 @pytest.mark.parametrize("cell,batch,steps,units", [
@@ -671,7 +704,10 @@ def test_gru_seq_layout(device):
                     # Past u=256: clusters of 4 to 16 CTAs, U's fragments
                     # in shared memory, then (u=1024) through L1/L2.
                     (9, 40, 257), (37, 150, 300), (256, 342, 512),
-                    (5, 23, 520), (64, 342, 1024)))])
+                    (5, 23, 520), (64, 342, 1024),
+                    # Past u=1024: one m-tile, one unit group a warp up to
+                    # u=2048, two beyond.
+                    *WIDE_SHAPES))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     """The bf16 kernels against their plain versions; up to u=128 they run
     the tensor-core tile, beyond it its cluster tile."""
@@ -713,7 +749,7 @@ def test_avg_bf16_rows_independent_of_batch(device, cell, units):
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [160, 256, 300, 512, 1024])
+@pytest.mark.parametrize("units", [160, 256, 300, 512, 1024, 2048, 4096])
 def test_avg_bf16_cluster_window_bits(device, cell, units):
     """On the cluster tile a window's bf16 bits are the same alone, inside
     a batch of 256 and at another place in that batch (other clusters,
@@ -736,14 +772,17 @@ def test_avg_bf16_cluster_window_bits(device, cell, units):
 
 def test_avg_bf16_tile_by_width(device):
     """The tile of each width: the tensor-core tile up to u=128 (one CTA a
-    window, at most 8), its cluster tile up to u=256, refused beyond (and
+    window, at most 8), its cluster tile up to u=4096, refused beyond (and
     the launch raises).  A cluster has 2 CTAs where half of U's fragments
     fit a CTA's shared memory at 8 windows (the GRU up to u=256, the LSTM
     up to u=224), else 4; a CTA takes 16 windows where two m-tiles fit,
-    else 8 (the H100's 227 KB a block)."""
-    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8)],
+    else 8 (the H100's 227 KB a block); past u=1024 16 CTAs of one m-tile
+    holding only their windows' rows of h: 8 windows at u=2048, 6 at
+    u=4096."""
+    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8), (2048, 16, 8),
+                     (4096, 16, 6)],
              "lstm": [(208, 2, 16), (209, 2, 8), (224, 2, 8), (225, 4, 16),
-                      (256, 4, 16)]}
+                      (256, 4, 16), (2048, 16, 8), (4096, 16, 6)]}
     for cell, wide in cases.items():
         for units, tile, cluster, most in (
                 [(1, "mma", 1, 8), (60, "mma", 1, 8), (128, "mma", 1, 8),
@@ -753,17 +792,18 @@ def test_avg_bf16_tile_by_width(device):
             assert cuda_rnn.avg_bf16_cluster(cell, units) == cluster
             assert cuda_rnn.avg_tile(cell, 10 ** 6, units, None,
                                      torch.bfloat16)[0] == most
-        with pytest.raises(ValueError, match="u=1025"):
-            cuda_rnn.avg_bf16_tile(cell, 1025)
-        with pytest.raises(ValueError, match="u=1025"):
-            cuda_rnn.avg_bf16_cluster(cell, 1025)
-    params, codes = random_case(3, 3, 2, 3, 1025, device)
-    with pytest.raises(ValueError, match="u=1024, not u=1025"):
+        with pytest.raises(ValueError, match="u=4097"):
+            cuda_rnn.avg_bf16_tile(cell, 4097)
+        with pytest.raises(ValueError, match="u=4097"):
+            cuda_rnn.avg_bf16_cluster(cell, 4097)
+    params, codes = random_case(3, 3, 2, 3, 4097, device)
+    with pytest.raises(ValueError, match="u=4096, not u=4097"):
         cuda_rnn.gru_avg(params, codes, torch.bfloat16)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [129, 200, 256, 300, 512, 520, 1024])
+@pytest.mark.parametrize("units", [129, 200, 256, 300, 512, 520, 1024,
+                                   1025, 2048, 4096])
 def test_avg_cluster_window_bits(device, cell, units):
     """On the float32 cluster tile a window's bits are the same alone,
     inside a batch of 64 and at another place in it (other clusters,
@@ -786,12 +826,12 @@ def test_avg_cluster_window_bits(device, cell, units):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_avg_layout_matches_library(device, dtype):
-    """``cuda_rnn.avg_layout`` at every width 1-1024 on this card: its tile
+    """``cuda_rnn.avg_layout`` at every width 1-4096 on this card: its tile
     (pure Python, from the width) agrees with the library's CTAs a
     cluster (one CTA a window up to u=128, past it a cluster: in float32 8
     CTAs with U in shared memory up to u=256, 16 reading it through L1/L2
     beyond; in bfloat16 2 to 16 CTAs, the library's own tile), and the
-    library refuses u=1025."""
+    library refuses u=4097."""
     for cell in ("gru", "lstm"):
         for units in range(1, cuda_rnn.AVG_MAX_UNITS + 1):
             layout = cuda_rnn.avg_layout(cell, units, dtype)
@@ -805,8 +845,8 @@ def test_avg_layout_matches_library(device, dtype):
             else:
                 assert layout["u_in"] == ("registers" if units <= 64
                                           else "L1/L2"), units
-        with pytest.raises(ValueError, match="u=1025"):
-            cuda_rnn._library_layout(cell, 1025, dtype)
+        with pytest.raises(ValueError, match="u=4097"):
+            cuda_rnn._library_layout(cell, 4097, dtype)
 
 
 @pytest.mark.parametrize("name", ["gru_att", "lstm"])

@@ -56,8 +56,9 @@ def jax_avg(cell, params, codes, out_dtype=jnp.float32):
 @pytest.mark.parametrize("batch,steps,units", [
     (4, 17, 6), (16, 40, 16), (3, 9, 5), (11, 33, 12),
     # Widths the kernels serve on a cluster of CTAs: ragged over 16 CTAs
-    # (u=300, 520) and the ceiling.
-    (2, 5, 300), (2, 4, 520), (1, 3, 1024)])
+    # (u=300, 520), the widest at one unit a lane, and past it with two
+    # units a lane (u=1537: ragged, 97 units a CTA of 16; u=2048).
+    (2, 5, 300), (2, 4, 520), (1, 3, 1024), (1, 3, 1537), (1, 2, 2048)])
 def test_plain_matches_pallas(cell, batch, steps, units):
     params, codes = random_case(batch * steps + units, cell, batch, steps,
                                 units)
@@ -144,11 +145,15 @@ def test_gru_seq_tile(rows, sms):
     cluster of CTAs splits them (8 up to u=256, 16 beyond), each CTA of a
     cluster holds the cluster's rows, and the wave counts clusters (16
     rows, but 4 from u=257 to 512, where U's slice fills the shared
-    memory).  The scan route's 2048 rows take 128 CTAs of 16 on a 132-SM
-    card, the shape of the fused kernel's tile at 8 windows."""
+    memory, 8 from u=1025 to 2048 and 4 up to the ceiling u=4096, where
+    the h buffers do: several units a lane).  The scan route's 2048 rows
+    take 128 CTAs of 16 on a 132-SM card, the shape of the fused kernel's
+    tile at 8 windows."""
     for units, most, cluster in ((60, 16, 1), (128, 16, 1), (129, 16, 8),
                                  (256, 16, 8), (257, 4, 16), (512, 4, 16),
-                                 (513, 16, 16), (1024, 16, 16)):
+                                 (513, 16, 16), (1024, 16, 16),
+                                 (1025, 8, 16), (2048, 8, 16),
+                                 (2049, 4, 16), (4096, 4, 16)):
         assert cuda_rnn.seq_cluster(units) == cluster
         rows_a_cta, n_cta = cuda_rnn.seq_tile(rows, units, sms)
         clusters = sms // cluster
@@ -161,6 +166,10 @@ def test_gru_seq_tile(rows, sms):
             2048: (16, 128), 256: (2, 128), 7: (1, 7), 1: (1, 1)}[rows]
         # u=512 at 16 rows: 8 clusters of 16 CTAs, 2 rows each.
         assert cuda_rnn.seq_tile(16, 512, sms) == (2, 128)
+    # The ceiling, u=4096, which the tile names when it refuses a width.
+    for units in (0, 4097):
+        with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
+            cuda_rnn.seq_tile(rows, units, sms)
 
 
 # (units, tile) at each width where the inference kernels' tile changes,
@@ -168,9 +177,11 @@ def test_gru_seq_tile(rows, sms):
 AVG_TILES = {
     "float32": [(1, "registers"), (64, "registers"), (65, "l2"),
                 (128, "l2"), (129, "cluster"), (300, "cluster"),
-                (1024, "cluster")],
+                (1024, "cluster"), (1025, "cluster"), (2048, "cluster"),
+                (4096, "cluster")],
     "bfloat16": [(1, "mma"), (128, "mma"), (129, "cluster"),
-                 (520, "cluster"), (1024, "cluster")],
+                 (520, "cluster"), (1024, "cluster"), (1025, "cluster"),
+                 (3000, "cluster"), (4096, "cluster")],
 }
 
 
@@ -180,13 +191,27 @@ def test_avg_layout_by_width(cell, dtype):
     """The inference kernels' tile by width (pure Python): one CTA a
     window up to u=128 (the register tile in float32, the tensor-core tile
     in bf16), past it a window's units over a cluster of CTAs up to the
-    ceiling u=1024; past it ``avg_tile_name`` and ``avg_layout`` raise
-    ``ValueError`` naming the width and the ceiling, before they ask the
-    library."""
+    ceiling u=4096 (past u=1024 several units a lane); past it
+    ``avg_tile_name`` and ``avg_layout`` raise ``ValueError`` naming the
+    width and the ceiling, before they ask the library."""
     for units, tile in AVG_TILES[dtype]:
         assert cuda_rnn.avg_tile_name(cell, units,
                                       getattr(torch, dtype)) == tile, units
-    for units in (0, 1025, 4096):
+    for units in (0, 4097, 8192):
         for fn in (cuda_rnn.avg_tile_name, cuda_rnn.avg_layout):
-            with pytest.raises(ValueError, match=f"u=1024, not u={units}"):
+            with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
                 fn(cell, units, getattr(torch, dtype))
+
+
+def test_training_ceiling_stays_at_1024():
+    """Raising the inference kernels' ceiling to u=4096 leaves the
+    training kernels' own (``csrc/rnn_train.cu``): u=1025 is predicted on
+    the cluster tile but ``train_layout`` refuses it, naming u=1024, so
+    ``train_fwd``/``train_bwd`` never hand it to the library."""
+    assert cuda_rnn.TRAIN_MAX_UNITS == 1024
+    assert cuda_rnn.AVG_MAX_UNITS == 4096
+    assert cuda_rnn.avg_tile_name("gru", 1025) == "cluster"
+    assert cuda_rnn.train_layout(1024) == "cluster"
+    for units in (1025, 2048, 4096):
+        with pytest.raises(ValueError, match=f"u=1024, not u={units}"):
+            cuda_rnn.train_layout(units)

@@ -88,12 +88,13 @@ def test_apply_matches_jax_scan(cell, batch, steps, units):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("batch,steps,units", SHAPES + [(2, 4, 520)])
+@pytest.mark.parametrize("batch,steps,units",
+                         SHAPES + [(2, 4, 520), (1, 2, 2048)])
 def test_gru_seq_wrapper_matches_pallas(batch, steps, units):
     """The kernel's wrapper on the CPU runs its plain version, which equals
     ``pallas_gru_apply`` in interpret mode (also at u=520, a width the
     kernel splits over a cluster of 16 CTAs, the last owning fewer
-    units)."""
+    units, and at u=2048, two units a lane)."""
     params, x = random_rnn(batch + steps + units, "gru", batch, steps, units)
     with jax.default_matmul_precision("highest"):
         want_seq, want_last = pallas_gru_apply(

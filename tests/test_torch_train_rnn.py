@@ -218,14 +218,14 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 
 def test_train_layout_by_width():
     """The training kernels' layout of a width (the window tile up to
-    u=256, the cluster tile past it), and the ceiling: u=1024, the
-    inference kernels' own."""
+    u=256, the cluster tile past it), and the ceiling: u=1024, below the
+    inference kernels' u=4096."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
                           (128, "l2"), (129, "wide"), (256, "wide"),
                           (257, "cluster"), (520, "cluster"),
                           (1024, "cluster")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.TRAIN_MAX_UNITS == cuda_rnn.AVG_MAX_UNITS == 1024
+    assert cuda_rnn.TRAIN_MAX_UNITS == 1024 < cuda_rnn.AVG_MAX_UNITS
     for units in (0, 1025):
         with pytest.raises(ValueError,
                            match=f"u=1024, not u={units}"):
