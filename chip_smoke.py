@@ -58,9 +58,14 @@ seconds are printed after it):
    T=342), and on the cluster tile (a window's units over a cluster of
    CTAs, whose CTAs a cluster, windows a cluster and clusters at once it
    prints) at u=257 (B=5, T=20), u=300 (B=37, T=150), u=520 (B=5,
-   T=23), u=512 (B=256, T=342) and the ceiling u=1024 (B=64, T=342);
-   u=128, 129, 200, 256, 300, 512 and 1024 are also timed as above (u=128
-   the reference point of the layout it extends).
+   T=23), u=512 (B=256, T=342) and u=1024 (B=64, T=342); u=128, 256,
+   300, 512 and 1024 are also timed as above (u=128, over 20 launches,
+   the reference point of the layout it extends; the others over 5).
+   Past u=1024, two or four units a lane, at phase 2's shapes (u=1025,
+   B=37, T=150; 2048, B=64; 3000, B=5, T=23; the ceiling 4096, B=16;
+   T=342 unless given): with masks, a window's forward and gate
+   cotangents alone and in the batch and a second run bitwise equal,
+   timed over 3 launches.
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -138,7 +143,7 @@ seconds are printed after it):
     ``--rnn-kernel fused`` through the CLI (2 epochs of 3 steps), with
     their steps/s.  Between them, the scan route's step captured as a
     CUDA graph against the eager step (``gru_att``, batch 256, epochs of
-    5 steps in turns, as phase 7), and a captured ``Trainer.fit
+    2 steps in turns, as phase 7), and a captured ``Trainer.fit
     --rnn-kernel scan`` of 2 x 3 steps against the eager one.
 12. HPO on phase 7's chromosome pair, in the reference search space
     (vecsize about 200, 34 units), each trial 2 epochs of 100 steps at
@@ -277,11 +282,12 @@ seconds are printed after it):
 
 19. Training at the ceilings: on phase 7's chromosomes (same seed),
     ``train`` through ``cli.main`` (captured, the card's default) of
-    ``gru_att`` (vecsize 342, attention, dropout 0.0928, batch 256) and
-    of the LSTM at u=256 on the wide layout (2 x 20 and 2 x 5 steps,
-    RMSprop's default rate) and at u=1024 on the cluster tile (2 x 5
-    steps each, at a learning rate of 1e-5 for the width); depths cut
-    from 200 x 250:
+    ``gru_att`` (vecsize 342, attention, dropout 0.0928) and of the LSTM
+    at u=256 on the wide layout (2 x 5 steps each, batch 256, RMSprop's
+    default rate), at u=1024 on the cluster tile (2 x 5 steps each, batch
+    256, at a learning rate of 1e-5 for the width) and at u=2048 with two
+    units a lane (2 x 3 steps each, batch 64, at 1e-5 too);
+    depths cut from 200 x 250:
     each training kernel launched on every step, the inference kernel
     once an epoch, no plain version, finite losses that fall; one step of
     each trained model through the kernels against the plain versions
@@ -389,29 +395,36 @@ TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (256, 342, 128),
                      "u256": (256, 342, 256), "u257": (5, 20, 257),
                      "u300": (37, 150, 300), "u520": (5, 23, 520),
                      "u512": (256, 342, 512), "u1024": (64, 342, 1024)}
-# The timed ones: the wide layout's and the cluster tile's, and u=128
-# (the L1/L2 layout's widest) at the same batch as the reference point.
-TRAIN_WIDE_TIMED = ("u128", "u129", "u200", "u256", "u300", "u512",
-                    "u1024")
+# The timed ones: the wide layout's widest and the cluster tile's, and
+# u=128 (the L1/L2 layout's widest) at the same batch as the reference
+# point, over 20 launches at u=128 and 5 past it (u=129 and u=200 are
+# checked, not timed: PERF.md and rnn_train.cu's header keep their times).
+TRAIN_WIDE_TIMED = ("u128", "u256", "u300", "u512", "u1024")
+# Past u=1024 (two or four units a lane) phase 2's LANE_SHAPES: checked
+# with masks, a window's bits alone and repeated, timed over WIDE_REPS.
 # The LSTM trained through the CLI at u=128 (the widest layer of the
 # L1/L2 layout, past the u=113 at which the first inference kernel
 # stopped); phase 19 trains at the ceiling.
 LSTM_WIDE_UNITS = 128
-# Phase 19: both cells trained at the wide layout's ceiling (u=256, as
-# PR 18's phase trained them) and at the training kernels' ceiling
-# (u=1024, the cluster tile): width: ((epochs, steps) of gru_att, of the
-# LSTM; RMSprop's learning rate, None for its default), the depth cut
-# from 200 x 250 (a step takes about half a second at u=1024).  At u=1024
-# a rate for the width: RMSprop's first step moves each entry of U whose
-# gradient is well above 3e-5 (epsilon's scale) by about 3x the rate, in
-# all up to 3.3 (gru_att) and 4.6 (LSTM) in a row of U at 1e-3, so a
-# 1,024-unit recurrence's preactivations swing with it.  On the H100 (2 x
-# 5 steps, epoch losses of gru_att; LSTM): 1e-3 5.42 to 4.31; 2.76 to
-# 3.63, 1e-4 1.39 to 3.96; 1.33 to 1.17, 3e-5 1.55 to 1.24; 1.54 to 2.10,
-# 1e-5 1.59 to 1.51; 1.60 to 1.47 (the plain versions' rise alike, and
+# Phase 19: both cells trained at the wide layout's ceiling (u=256), on
+# the cluster tile at one unit a lane (u=1024) and at two (u=2048, batch
+# 64): width: ((epochs, steps) of gru_att, of the LSTM; RMSprop's
+# learning rate, None for its default; batch), the depth cut from 200 x
+# 250 (a step takes about 0.3 s at u=1024 and B=256, 0.7 s at u=2048 and
+# B=64).  Past u=256 a rate for the width: RMSprop's first step moves
+# each entry of U whose gradient is well above 3e-5 (epsilon's scale) by
+# about 3x the rate, in all up to 3.3 (gru_att) and 4.6 (LSTM) in a row of
+# U at 1e-3, so a 1,024-unit recurrence's preactivations swing with it.
+# On the H100 (epoch losses of gru_att; LSTM), at u=1024 (2 x 5 steps):
+# 1e-3 5.42 to 4.31; 2.76 to 3.63, 1e-4 1.39 to 3.96; 1.33 to 1.17, 3e-5
+# 1.55 to 1.24; 1.54 to 2.10, 1e-5 1.59 to 1.51; 1.60 to 1.47; at u=2048
+# (B=64, 2 x 3 steps): 1e-4 1.49 to 6.71; 1.33 to 4.25, 3e-5 1.59 to 1.37;
+# 1.55 to 1.93, 1e-5 1.61 to 1.55; 1.59 to 1.49, 3e-6 1.62 to 1.60; 1.61
+# to 1.58 (the plain versions' losses the same to the printed digits, and
 # the row sums: tools/train_rate_witness.py).
-TRAIN_CEILING_RUNS = {256: (((2, 20), (2, 5)), None),
-                      1024: (((2, 5), (2, 5)), 1e-5)}
+TRAIN_CEILING_RUNS = {256: (((2, 5), (2, 5)), None, 256),
+                      1024: (((2, 5), (2, 5)), 1e-5, 256),
+                      2048: (((2, 3), (2, 3)), 1e-5, 64)}
 # Phase 20: models of these widths predict through the CLI (u=2048: past
 # the one-unit-a-lane tiles, the fused and scan routes' BEDs compared).
 PREDICT_WIDE_UNITS = (512, 1024, 2048)
@@ -448,8 +461,9 @@ FLAGSHIP = {"vecsize": 342, "units": 60, "attention": True,
 # evaluation's window step is the CLI default.
 HPO_EPOCHS, HPO_STEPS, HPO_STEP_SIZE = 2, 100, 50
 # Steps an epoch of the captured-against-eager turns: the scan route (a
-# slow eager step) and the fleet.
-SCAN_GRAPH_STEPS, FLEET_GRAPH_STEPS = 5, 20
+# slow eager step; 2, cut from 5 to make room in the time limit for the
+# training widths past u=1024) and the fleet.
+SCAN_GRAPH_STEPS, FLEET_GRAPH_STEPS = 2, 20
 # The fleet's epoch at which trial 1 freezes: after compare_captured's 4
 # turns and profiled epoch.
 FLEET_FREEZE_EPOCH = 5
@@ -967,9 +981,49 @@ def check_train_kernels(torch, cell: str, case, masks):
     return fwd_err, bwd_err
 
 
-def time_train_kernels(torch, cell: str, case, errors):
-    """Times of a training kernel pair (with masks), its plain versions
-    and cuDNN; the bound of each kernel; one result row each."""
+def train_window_bits(torch, cell: str, case) -> None:
+    """The training forward's outputs and the backward recurrence's gate
+    cotangents: a second run gives the first one's bits, and a window alone
+    (the 14th, or the last) its rows in the batch; raises if not."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    params, codes, masks, d_avg, d_hid = case
+    gates, batch = masks.shape[0], codes.shape[0]
+
+    def run(lo, hi):
+        sub_masks = masks.view(gates, 2, batch, 5)[:, :, lo:hi].reshape(
+            gates, 2 * (hi - lo), 5).contiguous()
+        sub = codes[lo:hi].contiguous()
+        out = cuda_rnn.train_fwd(cell, params, sub, sub_masks)
+        cot = cuda_rnn._bwd_recurrence(
+            cell, params, sub, sub_masks, tuple(out[2:]),
+            d_avg[lo:hi].contiguous(), d_hid[lo:hi].contiguous())
+        return out, cot
+
+    w = min(13, batch - 1)
+    (out, cot), (again, cot_again) = run(0, batch), run(0, batch)
+    alone, cot_alone = run(w, w + 1)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b)
+                 for a, b in zip(out + cot, again + cot_again))
+    single = (all(torch.equal(a, b[w:w + 1])
+                  for a, b in zip(alone[:2], out[:2]))
+              and all(torch.equal(a, b[[w, batch + w]])
+                      for a, b in zip(alone[2:] + cot_alone,
+                                      out[2:] + cot)))
+    print(f"  {cell}: second forward and recurrence bitwise equal: {repeat}; "
+          f"window {w} alone bitwise equal to its rows in the batch: "
+          f"{single}", flush=True)
+    if not (repeat and single):
+        raise AssertionError(f"{cell}: the training kernels' bits depend on "
+                             "the launch or on a window's place in the "
+                             "batch")
+
+
+def time_train_kernels(torch, cell: str, case, errors, reps: int = 20):
+    """Times of a training kernel pair (with masks) over ``reps`` launches,
+    its plain versions (over 3) and cuDNN; the bound of each kernel; one
+    result row each."""
     from deepgrp_tpu_torch.models import cuda_rnn
 
     params, codes, masks, d_avg, d_hid = case
@@ -982,15 +1036,15 @@ def time_train_kernels(torch, cell: str, case, errors):
     lib_fwd, lib_fwd_bwd = library_rnn_train(torch, gates, params, codes)
     ms = {
         "fwd": cuda_ms(torch, lambda: cuda_rnn.train_fwd(
-            cell, params, codes, masks), 20),
+            cell, params, codes, masks), reps),
         "bwd": cuda_ms(torch, lambda: cuda_rnn.train_bwd(
-            cell, params, codes, masks, seqs, d_avg, d_hid), 20),
+            cell, params, codes, masks, seqs, d_avg, d_hid), reps),
         "plain_fwd": cuda_ms(torch, lambda: plain_fwd(params, codes, masks),
                              3),
         "plain_bwd": cuda_ms(torch, lambda: plain_bwd(
             params, codes, masks, *seqs, d_avg, d_hid), 3),
-        "lib_fwd": cuda_ms(torch, lib_fwd, 20),
-        "lib_bwd": cuda_ms(torch, lib_fwd_bwd, 20),
+        "lib_fwd": cuda_ms(torch, lib_fwd, reps),
+        "lib_bwd": cuda_ms(torch, lib_fwd_bwd, reps),
     }
     # The backward's two parts: the recurrence kernel, then the reduction
     # kernel with the sum of its partials.
@@ -998,9 +1052,9 @@ def time_train_kernels(torch, cell: str, case, errors):
                                           d_avg, d_hid)
     split = {
         "recurrence": cuda_ms(torch, lambda: cuda_rnn._bwd_recurrence(
-            cell, params, codes, masks, seqs, d_avg, d_hid), 20),
+            cell, params, codes, masks, seqs, d_avg, d_hid), reps),
         "reduction": cuda_ms(torch, lambda: cuda_rnn._train_reduce(
-            seqs[0], codes, masks, gates, list(grads), *cotangents), 20),
+            seqs[0], codes, masks, gates, list(grads), *cotangents), reps),
     }
     print(f"  {cell}_train_bwd split: recurrence_ms="
           f"{split['recurrence']:.4f} reduction_ms="
@@ -1073,9 +1127,22 @@ def train_kernel_phase(torch):
             errors = check_train_kernels(torch, cell, case, case[2])
             check_train_kernels(torch, cell, case, None)
             if label in TRAIN_WIDE_TIMED:
-                for name, row in time_train_kernels(torch, cell, case,
-                                                    errors).items():
+                for name, row in time_train_kernels(
+                        torch, cell, case, errors,
+                        20 if units <= 128 else 5).items():
                     results[(name, label)] = row
+    # Past u=1024, two or four units a lane (phase 2's widths): with masks,
+    # bits alone and repeated, timed over WIDE_REPS launches.
+    for cell in ("gru", "lstm"):
+        gates = 4 if cell == "lstm" else 3
+        for label, (batch, steps, units) in LANE_SHAPES.items():
+            print_train_tile(cuda_rnn, cell, label, batch, steps, units)
+            case = train_case(torch, gen, gates, batch, steps, units)
+            errors = check_train_kernels(torch, cell, case, case[2])
+            train_window_bits(torch, cell, case)
+            for name, row in time_train_kernels(torch, cell, case, errors,
+                                                WIDE_REPS).items():
+                results[(name, label)] = row
     return results
 
 
@@ -1438,8 +1505,8 @@ def wide_training_phase(torch, np, tmp: str) -> dict:
     train_npz, val_npz, bed = write_training_files(np, tmp)
     print(f"wrote the training files in {time.perf_counter() - start:.2f} s",
           flush=True)
-    runs = []  # (name, options, epochs, steps, cell)
-    for units, (depths, rate) in TRAIN_CEILING_RUNS.items():
+    runs = []  # (name, options, epochs, steps, cell, batch)
+    for units, (depths, rate, batch) in TRAIN_CEILING_RUNS.items():
         wide = {"units": units}
         if rate is not None:
             wide["learning_rate"] = rate
@@ -1448,26 +1515,27 @@ def wide_training_phase(torch, np, tmp: str) -> dict:
                  ("lstm", {**FLAGSHIP, "attention": False, "rnn": "LSTM"},
                   "lstm")), depths):
             runs.append((f"{label}_u{units}", {**opts, **wide}, *depth,
-                         cell))
+                         cell, batch))
     launches = {}
-    for name, opts, epochs, steps, cell in runs:
+    for name, opts, epochs, steps, cell, batch in runs:
         reset_counts()
         model_path, records, seconds = run_train_cli(
-            tmp, (train_npz, val_npz, bed), name, n_epochs=epochs,
-            n_batches=steps, **opts)
+            tmp, (train_npz, val_npz, bed), name, ("-b", str(batch)),
+            n_epochs=epochs, n_batches=steps, **opts)
         launches[name] = check_counts({f"{cell}_train_fwd": epochs * steps,
                                        f"{cell}_train_bwd": epochs * steps,
                                        f"{cell}_avg": epochs})
         check_losses(name, records, epochs)
-        print(f"{name} train CLI (captured): {seconds:.3f} s for {epochs} x "
-              f"{steps} steps (data, build of the samplers and model file "
+        print(f"{name} train CLI (captured, -b {batch}): {seconds:.3f} s for "
+              f"{epochs} x {steps} steps (data, build of the samplers and "
+              f"model file "
               f"included); epoch seconds "
               f"{[round(r['epoch_seconds'], 4) for r in records]}; steps/s "
               f"after the first epoch "
               f"{[round(steps / r['epoch_seconds'], 2) for r in records[1:]]}",
               flush=True)
 
-        options = Options(n_epochs=epochs, n_batches=steps, batch_size=256,
+        options = Options(n_epochs=epochs, n_batches=steps, batch_size=batch,
                           **opts)
         train_data = load_training_data(np, train_npz, bed, options)
         config, params = load_model(model_path)

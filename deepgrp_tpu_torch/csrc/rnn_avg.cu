@@ -398,25 +398,12 @@ constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
 constexpr int kPadCode = 5;
 constexpr int kMaxThreads = 1024;
 constexpr int kTileUnits = 128;  // widest layer of the register tile
-constexpr int kMaxUnits = 4096;  // widest layer of either dtype
 constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
 
 __device__ __forceinline__ int Complement(int c) {
   return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
-}
-
-// Shared memory a block of the current device may opt in to (0 on a CUDA
-// error).
-size_t SmemOptin() {
-  int device = 0, optin = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return 0;
-  }
-  return static_cast<size_t>(optin);
 }
 
 // ---- The float32 cluster tile's layout ------------------------------------

@@ -56,6 +56,9 @@ __device__ __forceinline__ void FoldWindows(
 // window's bits do not depend on the units a lane, nor on the cluster,
 // CTA or lane.  The bf16 tile's warps own unit groups the same way.
 constexpr int kLaneUnits = 1024;  // widest at one unit a lane (16 x 64)
+// The ceiling of every recurrence kernel (rnn_avg.cu, rnn_seq.cu,
+// rnn_train.cu): 16 CTAs of 256 units, four units a lane.
+constexpr int kMaxUnits = 4096;
 
 __host__ __device__ constexpr int UnitSpan(int uc, int per_lane) {
   return (uc + per_lane - 1) / per_lane;
@@ -78,6 +81,18 @@ __device__ __forceinline__ int OwnWindow(int w0, int s, int j) {
 }
 
 // ---- Clusters ------------------------------------------------------------
+
+// Shared memory a block of the current device may opt in to (0 on a CUDA
+// error).
+inline size_t SmemOptin() {
+  int device = 0, optin = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  return static_cast<size_t>(optin);
+}
 
 // The CTA's rank in its cluster.
 __device__ __forceinline__ unsigned ClusterRank() {

@@ -151,7 +151,6 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxUnits = 4096;  // widest layer (up to 4 units a lane)
 constexpr int kTileUnits = 128;  // widest layer of one CTA a row
 
 // The cluster tile past u=128 (see the note above): CTAs a cluster and

@@ -23,10 +23,11 @@ sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
-widths up to u=1024 (:data:`TRAIN_MAX_UNITS`, below the inference
-kernels' ceiling): one CTA a window up to u=256, past it a window's units
-split over a thread-block cluster (:func:`train_layout` names the layout
-of a width, :func:`train_tile` what the card launches).
+every width the inference kernels take, up to u=4096
+(:data:`TRAIN_MAX_UNITS`): one CTA a window up to u=256, past it a
+window's units split over a thread-block cluster, past u=1024 several
+units a lane (:func:`train_layout` names the layout of a width,
+:func:`train_tile` what the card launches).
 
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
@@ -437,10 +438,11 @@ def _launch_seq(params: RnnParams,
 # -- training kernels --------------------------------------------------------
 
 
-#: The widest layer the training kernels take (``csrc/rnn_train.cu``
-#: ``kClusterMaxUnits``: a window's units over a cluster of 16 CTAs, at most
-#: 64 units a CTA), below the inference kernels' ceiling.
-TRAIN_MAX_UNITS = 1024
+#: The widest layer the training kernels take: the inference kernels'
+#: ceiling (``csrc/rnn_cluster.cuh`` ``kMaxUnits``, which ``rnn_train.cu``
+#: reads too: a window's units over a cluster of 16 CTAs, past u=1024 two
+#: or four units a lane).
+TRAIN_MAX_UNITS = AVG_MAX_UNITS
 #: The widest layer of the training kernels' window tile (4u threads a
 #: CTA, at most 1,024).
 TRAIN_WINDOW_UNITS = 256
@@ -452,8 +454,9 @@ def train_layout(units: int) -> str:
     through L1/L2, u <= 128) or ``"wide"`` (1,024 threads at most, one
     CTA an SM; the backward stages the gate cotangents and forms dh_prev
     from U's rows, u <= 256), then ``"cluster"`` (a window's units over a
-    thread-block cluster, u <= 1024).  Raises ``ValueError`` naming the
-    width and the ceiling past :data:`TRAIN_MAX_UNITS`."""
+    thread-block cluster, past u=1024 two or four units a lane, u <= 4096).
+    Raises ``ValueError`` naming the width and the ceiling past
+    :data:`TRAIN_MAX_UNITS`."""
     if not 0 < units <= TRAIN_MAX_UNITS:
         raise ValueError(f"the training kernels take widths up to their "
                          f"ceiling u={TRAIN_MAX_UNITS}, not u={units}")
@@ -612,12 +615,14 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     """The tile of ``cell``'s training kernels (the forward and the
     backward's recurrence) on a CUDA device: its layout
     (:func:`train_layout`, ``"refused"`` past the ceiling) and threads a
-    CTA (four per unit the CTA owns).  On the window tile (u <= 256): CTAs
-    (one a window), resident CTAs an SM of each kernel (0 where it cannot
-    launch) and the warps an SM that gives at this batch.  On the cluster
-    tile, for each kernel (``fwd_...``, ``bwd_...``; the library picks
-    their layouts apart): CTAs a cluster, windows a cluster, threads a
-    CTA, clusters, and the clusters the card runs at once."""
+    CTA (four per unit the CTA owns, on the cluster tile four per lane
+    slot).  On the window tile (u <= 256): CTAs (one a window), resident
+    CTAs an SM of each kernel (0 where it cannot launch) and the warps an
+    SM that gives at this batch.  On the cluster tile, for each kernel
+    (``fwd_...``, ``bwd_...``; the library picks their layouts apart): CTAs
+    a cluster, windows a cluster, units a lane (past u=1024 two or four:
+    a CTA's units over its lane slots), threads a CTA, clusters, and the
+    clusters the card runs at once."""
     lib = _build.load_kernels("rnn_train")
     device = device or torch.device("cuda")
     if not 0 < units <= TRAIN_MAX_UNITS:
@@ -627,15 +632,17 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     layout = train_layout(units)
     if layout == "cluster":
         tile: Dict[str, object] = {"layout": layout}
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 4)()
         with torch.cuda.device(device):
             for kind, which in _WINDOW_KERNELS[cell]:
                 if not lib.dg_train_clusters(which, units, batch, out):
                     raise ValueError(f"{cell}_train_{kind} refuses "
                                      f"u={units} at B={batch}")
+                per_cta = -(-units // out[0])
                 tile.update({f"{kind}_cluster": out[0],
                              f"{kind}_windows": out[1],
-                             f"{kind}_threads": 4 * -(-units // out[0]),
+                             f"{kind}_units_a_lane": out[3],
+                             f"{kind}_threads": 4 * -(-per_cta // out[3]),
                              f"{kind}_clusters": -(-batch // out[1]),
                              f"{kind}_clusters_at_once": out[2]})
         return tile

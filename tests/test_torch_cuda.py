@@ -14,14 +14,17 @@ The shapes include the engine's default tile at the flagship shape
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
 tiny widths (also at u=96 and u=128, past the register tile, at
-u=129, 200 and 256 on the wide layout, and from u=257 to the ceiling
-u=1024 on the cluster tile), with
+u=129, 200 and 256 on the wide layout, and from u=257 on the cluster
+tile, past u=1024 with two or four units a lane, ragged at u=1025 and
+3000, up to the ceiling u=4096), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
 runs give bitwise-equal gradients (no float atomics); on the cluster tile
-a window's bits are the same alone and in a batch, and u=1025 is refused
-before any launch.  A captured step outlasts a dead graph freed around
+a window's bits are the same alone and in a batch, and u=4097 is refused
+before any launch.  The reduction kernel alone matches the plain
+reduction at u=4096, and at the CLI's B=256, T=342 and u=4096, where its
+cotangents hold more than 2^31 elements.  A captured step outlasts a dead graph freed around
 it.
 
 The fused inference kernels (one register tile for both cells up to
@@ -193,24 +196,27 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
                                                (37, 150, 300),
                                                (5, 23, 520),
                                                (64, 342, 512),
-                                               (8, 64, 1024)])
+                                               (8, 64, 1024),
+                                               *WIDE_SHAPES])
 def test_train_kernels_match_plain_wide(device, cell, masked, batch, steps,
                                         units):
     """Widths past the register tile (U read through L2) up to u=128, the
     wide layout past it (4u threads up to 1,024; the backward stages the
     gate cotangents and forms dh_prev from U's rows) up to u=256, and the
     cluster tile past it (a window's units over a cluster of CTAs) up to
-    the ceiling, u=1024; ragged batches at u=200 and 300, ragged widths
-    over the cluster's CTAs at u=257, 300 and 520."""
+    u=1024, then with two or four units a lane up to the ceiling, u=4096;
+    ragged batches at u=200 and 300, ragged widths over the cluster's CTAs
+    at u=257, 300, 520, 1025 and 3000."""
     check_train_pair(device, cell, masked, batch, steps, units)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [300, 1024])
+@pytest.mark.parametrize("units", [300, 1024, 1025, 2048, 4096])
 def test_train_cluster_bits_alone_and_repeated(device, cell, units):
     """On the cluster tile a window's training forward and backward
     cotangents have the same bits alone and inside a batch (whatever its
-    cluster, CTA or lane), and a second run repeats them."""
+    cluster, CTA, lane or the windows a cluster, and past u=1024 the units
+    a lane), and a second run repeats them."""
     gates = 4 if cell == "lstm" else 3
     batch, steps = 19, 40
     params, codes = random_case(units, gates, batch, steps, units, device)
@@ -297,40 +303,44 @@ def test_window_tile_quadruples_warps_per_sm(device, cell):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_backward_width_ceiling(device, cell):
     """The training kernels (forward and backward recurrence) launch up
-    to u=1024 at T=342 (4u threads a CTA, the wide layout past u=128, the
-    cluster tile past u=256) and not at u=1025."""
+    to u=4096 at T=342 (4u threads a CTA, the wide layout past u=128, the
+    cluster tile past u=256, past u=1024 two units a lane and past u=2048
+    four, at most 256 threads a CTA) and not at u=4097."""
     for units, layout in ((128, "l2"), (129, "wide"), (256, "wide")):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == layout, tile
         assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
-    for units in (257, 512, 1024):
+    for units in (257, 512, 1024, 1025, 2048, 2049, 3000, 4096):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == "cluster", tile
+        per_lane = 1 if units <= 1024 else 2 if units <= 2048 else 4
         for kind in ("fwd", "bwd"):
-            assert tile[f"{kind}_cluster"] * 64 >= units, tile
-            assert tile[f"{kind}_threads"] == 4 * -(-units // tile[
-                f"{kind}_cluster"]), tile
+            cluster = tile[f"{kind}_cluster"]
+            assert tile[f"{kind}_units_a_lane"] == per_lane, tile
+            assert cluster * 64 * per_lane >= units, tile
+            assert tile[f"{kind}_threads"] == 4 * -(-(-(-units // cluster))
+                                                   // per_lane) <= 256, tile
             assert tile[f"{kind}_clusters"] == -(-8 // tile[
                 f"{kind}_windows"]), tile
             assert tile[f"{kind}_clusters_at_once"] >= 1, tile
-    tile = cuda_rnn.train_tile(cell, 8, 1025, 342)
+    tile = cuda_rnn.train_tile(cell, 8, 4097, 342)
     assert tile["layout"] == "refused"
     assert tile["bwd_ctas_per_sm"] == 0 and tile["fwd_ctas_per_sm"] == 0
 
 
 def test_gru_backward_refuses_u129(device):
     """Named for the first ceiling (u=128): both cells' forward and
-    backward now raise past u=1024, naming the width and the ceiling, and
+    backward now raise past u=4096, naming the width and the ceiling, and
     launch nothing."""
-    batch, steps, units = 2, 5, 1025
+    batch, steps, units = 2, 5, 4097
     for cell, gates in (("gru", 3), ("lstm", 4)):
         params, codes = random_case(5, gates, batch, steps, units, device)
         seqs = tuple(torch.zeros(2 * batch, steps, units, device=device)
                      for _ in range(gates - 2))
         launches = cuda_rnn.LAUNCHES.snapshot()
-        with pytest.raises(ValueError, match="u=1024, not u=1025"):
+        with pytest.raises(ValueError, match="u=4096, not u=4097"):
             cuda_rnn.train_fwd(cell, params, codes, None)
-        with pytest.raises(ValueError, match="u=1024, not u=1025"):
+        with pytest.raises(ValueError, match="u=4096, not u=4097"):
             cuda_rnn.train_bwd(cell, params, codes, None, seqs,
                                torch.zeros(batch, steps, units,
                                            device=device),
@@ -371,6 +381,60 @@ def test_bwd_parts_match_plain(device, cell, masked):
     cuda_rnn._train_reduce(seqs[0], codes, masks, gates, grads, *want)
     assert_grads_close(grads, rnn.train_reduce_plain(seqs[0], want[0], codes,
                                                      masks, *want[1:]))
+
+
+def random_reduce_case(seed, gates, batch, steps, units, masked, device):
+    """hseq in (-1, 1) and the gate cotangents (r1, and r2 for the GRU)
+    drawn on the card, codes with N and pad steps, masks at rate 0.0928."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hseq = torch.rand(2 * batch, steps, units, generator=gen,
+                      device=device) * 2 - 1
+    cots = tuple(torch.randn(2 * batch, steps, gates * units, generator=gen,
+                             device=device)
+                 for _ in range(1 if gates == 4 else 2))
+    _, codes = random_case(seed, gates, batch, steps, 1, device)
+    masks = random_masks(seed, gates, batch, device) if masked else None
+    return hseq, cots, codes, masks
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_train_reduce_matches_plain_u4096(device, cell, masked):
+    """The reduction kernel at the ceiling u=4096 (64 x 256 output tiles of
+    the LSTM's dU) against the plain reduction: 1e-4 of the largest
+    magnitude, and a second run repeats its bits."""
+    gates = 4 if cell == "lstm" else 3
+    batch, steps, units = 4, 20, 4096
+    hseq, cots, codes, masks = random_reduce_case(
+        units + gates, gates, batch, steps, units, masked, device)
+    shapes = ((5, gates * units), (units, gates * units),
+              (2, 3 * units) if gates == 3 else (4 * units,))
+    grads, again = ([torch.empty(shape, device=device) for shape in shapes]
+                    for _ in range(2))
+    cuda_rnn._train_reduce(hseq, codes, masks, gates, grads, *cots)
+    cuda_rnn._train_reduce(hseq, codes, masks, gates, again, *cots)
+    torch.cuda.synchronize()
+    assert_grads_close(grads, rnn.train_reduce_plain(hseq, cots[0], codes,
+                                                     masks, *cots[1:]))
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
+
+
+def test_train_reduce_past_2_31_elements(device):
+    """The reduction kernel at the CLI's B=256, T=342 and u=4096 (LSTM):
+    r1 holds 175,104 x 16,384 = 2.87e9 floats, past 2^31, so its element
+    indices must not be int products; against the plain reduction (1e-4 of
+    the largest magnitude).  Needs about 20 GB of device memory."""
+    gates, batch, steps, units = 4, 256, 342, 4096
+    hseq, cots, codes, _ = random_reduce_case(7, gates, batch, steps, units,
+                                              False, device)
+    assert cots[0].numel() > 2 ** 31
+    grads = [torch.empty(shape, device=device)
+             for shape in ((5, 4 * units), (units, 4 * units), (4 * units,))]
+    cuda_rnn._train_reduce(hseq, codes, None, gates, grads, *cots)
+    torch.cuda.synchronize()
+    assert_grads_close(grads, rnn.train_reduce_plain(hseq, cots[0], codes,
+                                                     None))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -204,14 +204,18 @@ def test_avg_layout_by_width(cell, dtype):
 
 
 def test_training_ceiling_stays_at_1024():
-    """Raising the inference kernels' ceiling to u=4096 leaves the
-    training kernels' own (``csrc/rnn_train.cu``): u=1025 is predicted on
-    the cluster tile but ``train_layout`` refuses it, naming u=1024, so
-    ``train_fwd``/``train_bwd`` never hand it to the library."""
-    assert cuda_rnn.TRAIN_MAX_UNITS == 1024
-    assert cuda_rnn.AVG_MAX_UNITS == 4096
-    assert cuda_rnn.avg_tile_name("gru", 1025) == "cluster"
-    assert cuda_rnn.train_layout(1024) == "cluster"
-    for units in (1025, 2048, 4096):
-        with pytest.raises(ValueError, match=f"u=1024, not u={units}"):
-            cuda_rnn.train_layout(units)
+    """Named for the training kernels' former ceiling: they now take every
+    width the inference kernels take (``kMaxUnits`` of
+    ``csrc/rnn_cluster.cuh``, read by both libraries), u=1025 to 4096 on
+    the cluster tile, and ``train_layout`` refuses u=4097 as
+    ``avg_tile_name`` does, naming u=4096, so ``train_fwd``/``train_bwd``
+    never hand it to the library."""
+    assert cuda_rnn.TRAIN_MAX_UNITS == cuda_rnn.AVG_MAX_UNITS == 4096
+    for units in (1024, 1025, 2048, 4096):
+        assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
+        assert cuda_rnn.train_layout(units) == "cluster"
+    for units in (4097, 8192):
+        for refuse in (cuda_rnn.train_layout,
+                       lambda u: cuda_rnn.avg_tile_name("lstm", u)):
+            with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
+                refuse(units)

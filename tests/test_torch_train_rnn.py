@@ -137,30 +137,37 @@ def test_autograd_function_matches_jax_vjp(cell, batch, steps, units,
 
 # The widths either side of the window tile's wide layout (u=128 | 129),
 # up to its widest (u=256), and on the cluster tile past it: u=257, u=520
-# (ragged over 16 CTAs: 33 units a CTA) and the ceiling u=1024; the
-# LSTM's u=128 cases keep the ids they had when u=128 was the ceiling.
+# (ragged over 16 CTAs: 33 units a CTA), u=1024 (64 units a CTA, one a
+# lane) and past it with several units a lane, u=1025 (ragged: 65 units a
+# CTA) and u=2048; the LSTM's u=128 cases keep the ids they had when
+# u=128 was the ceiling.
 WIDE_CASES = [
     pytest.param(cell, units, rate,
                  id=(str(rate) if (cell, units) == ("lstm", 128)
                      else f"{cell}-u{units}-{rate}"))
     for cell in ("gru", "lstm") for units in (128, 129, 200, 256, 257, 520,
-                                              1024)
+                                              1024, 1025, 2048)
     for rate in (0.0, 0.0928)]
+# Steps of a wide case: 20 on the window tile, 8 past it, fewer past
+# u=1024, where the JAX kernels' interpret mode takes seconds a step.
+WIDE_STEPS = {1025: 3, 2048: 2}
 
 
 @pytest.mark.parametrize("cell,units,rate", WIDE_CASES)
 def test_lstm_train_matches_jax_vjp_u128(cell, units, rate):
     """One training step (loss and gradients) of either cell's autograd
-    Function at widths from u=128 to the ceiling u=1024 (named for the
-    LSTM at u=128, its first case), against the JAX custom VJP, at the
-    tolerances above (past u=256 over 8 steps, not 20: the JAX kernels'
-    interpret mode takes seconds a step there).  The loss weights have
+    Function at widths from u=128 to u=2048 (named for the LSTM at u=128,
+    its first case), against the JAX custom VJP, at the tolerances above
+    (past u=256 over 8 steps, not 20, and past u=1024 over 3 or 2: the JAX
+    kernels' interpret mode takes seconds a step there).  The loss weights have
     random magnitudes and the signs of the forward's avg, so the loss is a
     sum of 2 x T x u positive terms: with random signs it cancels to a
     value near 0 (0.06 at u=129), where rtol 1e-5 reads the float32
     rounding of avg (which agrees within 3e-7) and not the kernels'
     agreement."""
-    batch, steps = 2, (20 if units <= cuda_rnn.TRAIN_WINDOW_UNITS else 8)
+    batch = 2
+    steps = WIDE_STEPS.get(
+        units, 20 if units <= cuda_rnn.TRAIN_WINDOW_UNITS else 8)
     params, codes, masks = random_case(units, cell, batch, steps, units,
                                        rate)
     with torch.no_grad():
@@ -218,17 +225,19 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 
 def test_train_layout_by_width():
     """The training kernels' layout of a width (the window tile up to
-    u=256, the cluster tile past it), and the ceiling: u=1024, below the
-    inference kernels' u=4096."""
+    u=256, the cluster tile past it, with several units a lane past
+    u=1024), and the ceiling: u=4096, the inference kernels'."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
                           (128, "l2"), (129, "wide"), (256, "wide"),
                           (257, "cluster"), (520, "cluster"),
-                          (1024, "cluster")):
+                          (1024, "cluster"), (1025, "cluster"),
+                          (2048, "cluster"), (3000, "cluster"),
+                          (4096, "cluster")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.TRAIN_MAX_UNITS == 1024 < cuda_rnn.AVG_MAX_UNITS
-    for units in (0, 1025):
+    assert cuda_rnn.TRAIN_MAX_UNITS == cuda_rnn.AVG_MAX_UNITS == 4096
+    for units in (0, 4097, 8192):
         with pytest.raises(ValueError,
-                           match=f"u=1024, not u={units}"):
+                           match=f"u=4096, not u={units}"):
             cuda_rnn.train_layout(units)
 
 
@@ -395,16 +404,22 @@ def test_split_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 
 @pytest.mark.parametrize("batch,steps,units,gates,sms", [
     (256, 342, 60, 4, 132), (37, 150, 32, 4, 132), (64, 342, 96, 4, 132),
-    (1, 1, 5, 4, 132), (256, 342, 60, 3, 114)])
+    (1, 1, 5, 4, 132), (256, 342, 60, 3, 114), (256, 342, 2048, 3, 132),
+    (256, 342, 4096, 4, 132)])
 def test_reduce_splits(batch, steps, units, gates, sms):
     """The reduction's split count: at least one, no more than one for
     every 256 rows, at most about four CTAs an SM, and a function of the
-    shape and SM count alone (so sums repeat bitwise)."""
+    shape and SM count alone (so sums repeat bitwise).  The partials' rows
+    a split, ``(u + 7) g u`` (counted in int by the kernel), stay below
+    2^31 up to the ceiling u=4096."""
     rows = 2 * batch * steps
     splits = cuda_rnn.reduce_splits(rows, units, gates, sms)
+    assert (units + 7) * gates * units < 2 ** 31
     assert splits == cuda_rnn.reduce_splits(rows, units, gates, sms)
     assert 1 <= splits <= -(-rows // 256)
     tiles = -(-gates * units // 64) * -(-units // 64)
     assert tiles * splits <= 4 * sms + tiles
     if (batch, steps, units, gates) == (256, 342, 60, 4):
         assert splits == 132  # 4 column tiles x 132 splits: 4 CTAs an SM
+    if units == 4096:
+        assert splits == 1  # 256 x 64 tiles already fill the card

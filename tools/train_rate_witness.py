@@ -7,12 +7,12 @@ parting).
 
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
-    python3 tools/train_rate_witness.py [--units 1024]
+    python3 tools/train_rate_witness.py [--units 1024] [--batch 256]
         [--rates 1e-3,1e-4,1e-5] [--epochs 2] [--steps 5] [--out FILE.json]
 
 Data: ``chip_smoke.py``'s synthetic chromosomes (phase 7's seed); the
 options: ``gru_att`` (vecsize 342, attention, dropout 0.0928) and the
-LSTM of the flagship, batch 256, at ``--units``.  Each run is an eager
+LSTM of the flagship, at ``--units`` and ``--batch``.  Each run is an eager
 ``Trainer.fit`` from seed 0, as ``chip_smoke.py`` phase 19's
 ``fit_pair`` runs it: once through the kernels (``train_fwd`` /
 ``train_bwd`` launched every step) and once with the training recurrence
@@ -102,6 +102,7 @@ def fit(torch, chip_smoke, options, train_data, val_data, tmp: str,
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--units", type=int, default=1024)
+    parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--rates", default="1e-3,1e-4,1e-5")
     parser.add_argument("--epochs", type=int, default=2)
     parser.add_argument("--steps", type=int, default=5)
@@ -134,12 +135,14 @@ def main() -> int:
                 options = Options(**{**opts, "units": args.units},
                                   learning_rate=rate,
                                   n_epochs=args.epochs,
-                                  n_batches=args.steps, batch_size=256)
+                                  n_batches=args.steps,
+                                  batch_size=args.batch)
                 train_data = chip_smoke.load_training_data(
                     np, train_npz, bed, options)
                 val_data = chip_smoke.load_training_data(
                     np, val_npz, bed, options)
                 row = {"label": label, "units": args.units,
+                       "batch": args.batch,
                        **first_move(torch, options, train_data, cell)}
                 for route in ("kernels", "plain"):
                     row[route] = fit(torch, chip_smoke, options, train_data,
