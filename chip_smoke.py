@@ -22,11 +22,26 @@ seconds are printed after it):
    usage of each instantiation), random weights and codes (with N and pad
    codes) from a seed; max abs difference <= 1e-5 on both outputs (the
    JAX package's kernel tolerance); past u=128 a second launch and a
-   window alone give the same bits; u=4097 raises ``ValueError`` in both
-   dtypes, and on the scan route's ``gru_seq``, with no launch.  Times the
+   window alone give the same bits.  Times the
    kernel, the plain version and the cuDNN recurrence
    (``torch.nn.GRU``/``LSTM`` on the doubled one-hot batch, TF32 off) with
-   CUDA events (past u=1024 over 3 launches).
+   CUDA events (past u=1024 over 3 launches), and at u=2048 and 4096 the
+   grid tile (``csrc/rnn_grid.cu``) beside the cluster tile through the
+   same launcher, asked for the grid tile (times only; the routing there
+   is the cluster tile's).
+   Past the cluster tiles' ceiling the grid tile (ptxas usage of each
+   instantiation): at u=4097 (B=1, T=32), ragged u=5000 (B=5, T=23) and
+   u=8192 (B=3, T=17), and timed at B=64, T=342, u=4608 (phase 20's
+   shape) and B=16, u=8192 (bound: the larger of the FLOP over the peak
+   and the HBM bytes over the HBM rate: ``U`` once, then each step the
+   part of it past the L2 and the shared memory, and the IO once),
+   against the plain versions at 1e-5, a window's
+   bits alone, in the batch and repeated, its launches counted under the
+   row's name and the grid's and no plain version run; at GRU u=26,800
+   and LSTM u=23,200 (B=2, T=4, weights made on the card: g u^2 past
+   2^31 elements) against the plain versions.  Then u=4097 launches the
+   grid tile in both dtypes and on the scan route, and the training
+   kernels refuse it with ``ValueError`` before any launch.
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
    the reference settings and the ``.npz`` weights in
@@ -112,7 +127,10 @@ seconds are printed after it):
    second launch and a window alone give the same bits).
    atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
-   (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off).
+   (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off), and at u=2048
+   and 4096 the grid tile beside the cluster tile.  Past u=4096 the grid
+   tile of the bf16 rows and of ``gru_seq`` (f32 and bf16 IO, and f32 at
+   u=26,800) at phase 2's grid shapes, as phase 2.
 9. The scan route and the fast mode: ``predict --rnn-kernel scan`` on the
    three fixtures (rows equal to the reference BEDs; ``gru_seq`` launched
    for the GRU models) and once on the 4.9 Mbp chromosome (windows/s, the
@@ -300,12 +318,13 @@ seconds are printed after it):
     float32 and bfloat16 (the kernel of each launched, no plain version;
     the rows the two precisions share printed).
 20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
-    at u=512, u=1024 and u=2048 (past the training kernels' ceiling, two
-    units a lane), made by the port's initialiser from a seed and written
+    at u=512, u=1024 and u=2048 (two units a lane) and u=4608 (past the
+    cluster tiles: the grid tile; one fixture each, ``gru_att.fa`` and
+    ``lstm.fa``), made by the port's initialiser from a seed and written
     as ``.npz`` model files, predict the three fixtures through
     ``cli.main`` on the fused route in float32 and bfloat16 (the kernel of
     each launched, no plain version; the BED rows and those the two
-    precisions share printed), at u=2048 also on the scan route in
+    precisions share printed), past u=1024 also on the scan route in
     float32, whose BED equals the fused route's byte for byte; at u=512
     each model's float32 scored track of the first ``gru_att.fa`` record
     equals the same engine's on the CPU, from u=1024 ``gru_att``'s equals
@@ -325,6 +344,7 @@ the last lists each kernel (``{"kernels": [...]}``); the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -334,6 +354,7 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Optional, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(HERE, "tests", "fixtures", "reference")
@@ -426,8 +447,34 @@ TRAIN_CEILING_RUNS = {256: (((2, 5), (2, 5)), None, 256),
                       1024: (((2, 5), (2, 5)), 1e-5, 256),
                       2048: (((2, 3), (2, 3)), 1e-5, 64)}
 # Phase 20: models of these widths predict through the CLI (u=2048: past
-# the one-unit-a-lane tiles, the fused and scan routes' BEDs compared).
-PREDICT_WIDE_UNITS = (512, 1024, 2048)
+# the one-unit-a-lane tiles, the fused and scan routes' BEDs compared;
+# u=4608: past the cluster tiles, the grid tile), with the fixtures each
+# predicts (all three, or one where a predict takes seconds).
+PREDICT_WIDE_UNITS = (512, 1024, 2048, 4608)
+PREDICT_WIDE_FIXTURES = {4608: {"gru_att": ("gru_att",), "lstm": ("lstm",)}}
+# Past the cluster tiles' ceiling (u=4096), the grid tile: (batch, T, u)
+# checked at one window (u=4097), a ragged batch (u=5000) and u=8192 at T
+# <= 32, checked and timed (over WIDE_REPS) at B=64, T=342, u=4608 (phase
+# 20's shape: REF_ARGS' -b 64 at its width, 128 rows, so 4 row blocks; the
+# kernels line's shape) and B=16, u=8192; and the widths where g u^2
+# passes 2^31 elements (B=2, T=4, float32, checked only).
+GRID_SHAPES = {"grid_u4097": (1, 32, 4097), "grid_ragged_u5000": (5, 23, 5000),
+               "grid_u8192_t17": (3, 17, 8192), "grid_u4608": (64, 342, 4608),
+               "grid_u8192": (16, 342, 8192)}
+GRID_TIMED = ("grid_u4608", "grid_u8192")
+# Widths at which phases 2 and 8 time the grid tile beside the cluster
+# tiles (times only; the cluster tiles keep them).
+GRID_BESIDE = (2048, 4096)
+GRID_LINE_SHAPE = "grid_u4608"
+GRID_HUGE = {"gru": (2, 4, 26800), "lstm": (2, 4, 23200)}
+# The grid tile's kernels in the kernels line: name: TPU kernel replaced.
+GRID_KERNELS = {
+    "gru_avg_grid": "deepgrp_tpu/models/pallas_rnn.py:178",
+    "lstm_avg_grid": "deepgrp_tpu/models/pallas_rnn.py:309",
+    "gru_avg_grid_bf16": "deepgrp_tpu/models/pallas_rnn.py:178",
+    "lstm_avg_grid_bf16": "deepgrp_tpu/models/pallas_rnn.py:309",
+    "gru_seq_grid": "deepgrp_tpu/models/pallas_rnn.py:43",
+}
 
 # The GRU sequence kernel: (label, dtype name, (rows, T, u)); 2048 rows is
 # the doubled batch of the engine's -b 1024.
@@ -652,24 +699,39 @@ def window_bits(torch, run, codes) -> None:
                              "a window's place in the batch")
 
 
-def refuses_past_ceiling(torch) -> None:
-    """One unit past the ceiling raises ValueError before any launch: the
-    fused kernels in both dtypes and the GRU sequence kernel (the scan
-    route) in both."""
-    from deepgrp_tpu_torch.models import cuda_rnn
+def past_ceiling(torch) -> None:
+    """One unit past the cluster tiles' ceiling (u=4097): the inference
+    rows launch the grid tile (the fused kernels in both dtypes and the
+    GRU sequence kernel, the scan route, in both; counted under the row's
+    name and the grid's, no plain version run), and the training kernels
+    (forward and backward of both cells) raise ``ValueError`` naming
+    u=4096 before any launch."""
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
-    units = cuda_rnn.AVG_MAX_UNITS + 1
+    units = cuda_rnn.CLUSTER_MAX_UNITS + 1
 
     def zeros(*shape):
         return torch.zeros(*shape, device="cuda")
 
-    def refused(name, dtype, run):
+    def launched(names, dtype, run):
+        before = cuda_rnn.LAUNCHES.snapshot()
+        plain = rnn.PLAIN_CALLS.snapshot()
+        out = run()
+        torch.cuda.synchronize()
+        now = cuda_rnn.LAUNCHES.snapshot()
+        counted = {n: now.get(n, 0) - before.get(n, 0) for n in names}
+        print(f"{names[0]} {str(dtype).split('.')[-1]} u={units}: launched "
+              f"{counted}, output {tuple(out[0].shape)}", flush=True)
+        if set(counted.values()) != {1} or rnn.PLAIN_CALLS.snapshot() != plain:
+            raise AssertionError(f"{names[0]} at u={units}: {counted}, "
+                                 f"plain calls {rnn.PLAIN_CALLS.snapshot()}")
+
+    def refused(name, run):
         before = cuda_rnn.LAUNCHES.snapshot()
         try:
             run()
         except ValueError as err:
-            print(f"{name} {str(dtype).split('.')[-1]} u={units}: "
-                  f"ValueError: {err}", flush=True)
+            print(f"{name} u={units}: ValueError: {err}", flush=True)
         else:
             raise AssertionError(f"{name} took u={units}")
         if cuda_rnn.LAUNCHES.snapshot() != before:
@@ -681,11 +743,201 @@ def refuses_past_ceiling(torch) -> None:
         params = {"kernel": zeros(5, width), "recurrent": zeros(units, width),
                   "bias": zeros(*((2, width) if gates == 3 else (width,)))}
         for dtype in (torch.float32, torch.bfloat16):
-            refused(name, dtype,
-                    lambda: getattr(cuda_rnn, name)(params, codes, dtype))
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            launched((f"{name}{suffix}",
+                      f"{name.replace('_avg', '_avg_grid')}{suffix}"),
+                     dtype,
+                     lambda: getattr(cuda_rnn, name)(params, codes, dtype))
             if gates == 3:
-                refused("gru_seq", dtype, lambda: cuda_rnn.gru_apply(
-                    params, zeros(2, 3, 5).to(dtype)))
+                launched(("gru_seq", "gru_seq_grid"), dtype,
+                         lambda: cuda_rnn.gru_apply(
+                             params, zeros(2, 3, 5).to(dtype)))
+        cell = name.split("_")[0]
+        seqs = tuple(zeros(4, 3, units) for _ in range(gates - 2))
+        refused(f"{cell}_train_fwd",
+                lambda: cuda_rnn.train_fwd(cell, params, codes, None))
+        refused(f"{cell}_train_bwd",
+                lambda: cuda_rnn.train_bwd(cell, params, codes, None, seqs,
+                                           zeros(2, 3, units),
+                                           zeros(2, units)))
+
+
+def random_rnn_on_card(torch, seed: int, gates: int, batch: int, steps: int,
+                       units: int, channels: int = 0):
+    """:func:`random_rnn`'s weights made on the card (fast where ``U``
+    holds billions of entries), with codes, or with ``channels`` a uniform
+    ``x [B, T, C]`` in their place."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    width = gates * units
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    params = {"kernel": randn(5, width) * 0.5,
+              "recurrent": randn(units, width) / units ** 0.5,
+              "bias": randn(*((2, width) if gates == 3 else (width,))) * 0.3}
+    if channels:
+        return params, torch.rand(batch, steps, channels, generator=gen,
+                                  device="cuda")
+    return params, torch.randint(0, 6, (batch, steps), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+
+
+def grid_beside_cluster(torch, label: str, run, want, cluster_ms: float,
+                        reps: int, tol: float) -> float:
+    """The grid tile (``run``) at a width the cluster tile serves: its
+    difference to the plain version's outputs ``want`` and its ms beside
+    the cluster tile's; raises past ``tol``."""
+    got = run()
+    torch.cuda.synchronize()
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    ms = cuda_ms(torch, run, reps)
+    print(f"{label}: grid tile ms={ms:.4f} beside the cluster tile's "
+          f"{cluster_ms:.4f} ({cluster_ms / ms:.2f}x), max_abs_err={err:.3g}",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{label}: the grid tile differs from the plain "
+                             f"version by {err}")
+    return ms
+
+
+def grid_kernel_phase(torch, rows) -> dict:
+    """Past the cluster tiles' ceiling: each ``(name, kind, dtype)`` of
+    ``rows`` (``kind`` "gru" or "lstm", the fused rows, or "seq", the GRU
+    sequence kernel, on the doubled batch's rows) through its wrapper at
+    :data:`GRID_SHAPES` (in float32 also :data:`GRID_HUGE`), weights from
+    a seed made on the card:
+    the grid tile launched (counted under the row's and the grid's names,
+    no plain version run), its outputs against the plain version's (1e-5
+    in float32, 2e-2 in bf16), a window's bits alone, in the batch and
+    repeated, and at :data:`GRID_TIMED` the kernel, the plain version and
+    cuDNN timed over WIDE_REPS with the bound (:func:`grid_bytes`).
+    Returns the rows keyed ``(name, label)`` (row 7's bf16
+    IO: ``label + "_bf16"``)."""
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    print(f"grid bound: {on_chip_bytes(torch)} bytes on chip (L2 and "
+          "shared memory) hold part of U across steps", flush=True)
+    results = {}
+    for name, kind, dtype in rows:
+        gates = 4 if kind == "lstm" else 3
+        bf16 = dtype == torch.bfloat16
+        if kind == "seq":
+            names = ("gru_seq", "gru_seq_grid")
+            routed, plain = cuda_rnn.gru_apply, rnn.gru_apply
+        else:
+            suffix = "_bf16" if bf16 else ""
+            names = (f"{kind}_avg{suffix}", f"{kind}_avg_grid{suffix}")
+            routed = functools.partial(getattr(cuda_rnn, f"{kind}_avg"),
+                                       out_dtype=dtype)
+            plain = functools.partial(getattr(rnn, f"{kind}_avg_plain"),
+                                      out_dtype=dtype)
+        shapes = dict(GRID_SHAPES)
+        if not bf16:
+            shapes["grid_huge"] = GRID_HUGE["lstm" if kind == "lstm"
+                                            else "gru"]
+        for label, (batch, steps, units) in shapes.items():
+            # Row 7 takes the doubled batch, as the scan route gives it.
+            rows_in = 2 * batch if kind == "seq" else batch
+            params, inputs = random_rnn_on_card(
+                torch, units + gates, gates, rows_in, steps, units,
+                5 if kind == "seq" else 0)
+            if kind == "seq":
+                inputs = inputs.to(dtype)
+            before = cuda_rnn.LAUNCHES.snapshot()
+            plain_calls = rnn.PLAIN_CALLS.snapshot()
+            got = routed(params, inputs)
+            torch.cuda.synchronize()
+            now = cuda_rnn.LAUNCHES.snapshot()
+            counted = {n: now.get(n, 0) - before.get(n, 0) for n in names}
+            if (set(counted.values()) != {1}
+                    or rnn.PLAIN_CALLS.snapshot() != plain_calls):
+                raise AssertionError(f"{name} {label}: launches {counted}, "
+                                     f"plain {rnn.PLAIN_CALLS.snapshot()}")
+            want = plain(params, inputs)
+            torch.cuda.synchronize()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            tol = BF16_TOL if bf16 else TOL
+            key = label + ("_bf16" if kind == "seq" and bf16 else "")
+            tile = cuda_rnn.grid_tile(2 * batch, units)
+            line = (f"{name} {key} B={batch} T={steps} u={units} "
+                    f"{str(dtype).split('.')[-1]} (grid tile, {tile[1]} CTAs "
+                    f"a step x {tile[0]} rows): max_abs_err={err:.3g} "
+                    f"(tolerance {tol:g})")
+            if not err <= tol:
+                print(line, flush=True)
+                raise AssertionError(f"{name} {key}: kernel differs from its "
+                                     f"plain version by {err}")
+            del got, want
+            if batch > 1:
+                window_bits(torch, lambda rows_: routed(params, rows_),
+                            inputs)
+            if label in GRID_TIMED:
+                row = grid_times(torch, kind, gates, dtype, params, inputs,
+                                 routed, plain)
+                row["max_abs_err"] = err
+                results[(name, key)] = row
+                line += (f" kernel_ms={row['ms']:.4f} "
+                         f"plain_ms={row['plain_ms']:.3f} "
+                         f"library_ms={row['library_ms']:.4f} "
+                         f"bound_ms={row['bound_ms']:.4f} "
+                         f"({row['bound_by']})")
+            print(line, flush=True)
+            del params, inputs
+            if label == "grid_huge":
+                torch.cuda.empty_cache()
+    return results
+
+
+def grid_times(torch, kind: str, gates: int, dtype, params, inputs, routed,
+               plain) -> dict:
+    """Times of a grid row at a timed shape (over WIDE_REPS; the plain
+    version and cuDNN beside it) and its bound."""
+    batch, steps = inputs.shape[:2]
+    units = params["recurrent"].shape[0]
+    bf16 = dtype == torch.bfloat16
+    ms = cuda_ms(torch, lambda: routed(params, inputs), WIDE_REPS)
+    plain_ms = cuda_ms(torch, lambda: plain(params, inputs), WIDE_REPS)
+    if kind == "seq":
+        cell = cudnn_module(torch, 3, params, dtype)
+
+        @torch.no_grad()
+        def lib():
+            return cell(inputs)
+    else:
+        lib = library_rnn(torch, gates, params, inputs,
+                          dtype if bf16 else None)
+    library_ms = cuda_ms(torch, lib, WIDE_REPS)
+    rows = batch * (1 if kind == "seq" else 2)
+    channels = inputs.shape[2] if kind == "seq" else 0
+    flops = 2.0 * rows * steps * (units + channels) * gates * units
+    size = 2 if bf16 else 4
+    io = (inputs.numel() * inputs.element_size()
+          + 4 * (params["kernel"].numel() + params["bias"].numel())
+          + size * batch * (steps + 1) * units)
+    n_bytes = grid_bytes(torch, steps, size * gates * units * units, io)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **bound(flops, n_bytes, peak)}
+
+
+def on_chip_bytes(torch) -> int:
+    """The card's L2 and every SM's shared memory, in bytes, from the
+    device's properties."""
+    props = torch.cuda.get_device_properties(0)
+    return (props.L2_cache_size + props.multi_processor_count
+            * props.shared_memory_per_multiprocessor)
+
+
+def grid_bytes(torch, steps: int, u_bytes: int, io: int) -> int:
+    """The bytes a step-by-step recurrence over ``U`` (``u_bytes``, in the
+    dot's type) must move from HBM: ``U`` once, then each later step the
+    part of it that the card cannot keep on chip (:func:`on_chip_bytes`: a
+    persistent design may keep the rest resident across steps), and the
+    IO once."""
+    return u_bytes + (steps - 1) * max(0, u_bytes - on_chip_bytes(torch)) + io
 
 
 def kernel_phase(torch):
@@ -747,8 +999,21 @@ def kernel_phase(torch):
             if not err <= TOL:
                 raise AssertionError(f"{name} {label}: kernel differs from "
                                      f"its plain version by {err}")
+            if units in GRID_BESIDE:
+                row["grid_ms"] = grid_beside_cluster(
+                    torch, f"{name} {label}",
+                    lambda: cuda_rnn._launch(f"{cell}_avg", gates, params,
+                                             codes, grid=True),
+                    (p_avg, p_hidden), ms, reps, TOL)
             results[(name, label)] = row
-    refuses_past_ceiling(torch)
+    log = (_build.BUILD_DIR / "rnn_grid.log").read_text()
+    for args, usage in sorted(ptxas_usage(log, "GridStepKernel").items()):
+        print(f"ptxas GridStepKernel<{args}> (gates, bf16, GRU over x): "
+              f"{usage}", flush=True)
+    results.update(grid_kernel_phase(torch, [
+        (name.replace("_avg", "_avg_grid"), name.split("_")[0],
+         torch.float32) for name in KERNELS]))
+    past_ceiling(torch)
     return results
 
 
@@ -1651,6 +1916,13 @@ def seq_kernel_phase(torch):
         ms = cuda_ms(torch, lambda: cuda_rnn.gru_apply(params, x), reps)
         plain_ms = cuda_ms(torch, lambda: rnn.gru_apply(params, x),
                            min(reps, 3))
+        grid_ms = None
+        if units in GRID_BESIDE:
+            grid_ms = grid_beside_cluster(
+                torch, f"gru_seq {label}",
+                lambda: cuda_rnn._launch_seq(params, x, grid=True),
+                (p_seq, p_last), ms,
+                reps, TOL if dtype == torch.float32 else BF16_TOL)
         # Multiply-adds of the input dot and the recurrent products; each
         # input read once (weights in x's dtype, biases float32), each
         # output written once.
@@ -1662,7 +1934,8 @@ def seq_kernel_phase(torch):
                    + size * (seq.numel() + last.numel()))
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, **bound(flops, n_bytes, peak)}
+               "library_ms": library_ms, "grid_ms": grid_ms,
+               **bound(flops, n_bytes, peak)}
         tol = TOL if dtype == torch.float32 else BF16_TOL
         slots = cuda_rnn.seq_slots(units, steps, 5, dtype)
         rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms, slots)
@@ -1685,6 +1958,9 @@ def seq_kernel_phase(torch):
             raise AssertionError(f"gru_seq {label}: kernel differs from its "
                                  f"plain version by {err}")
         results[("gru_seq", label)] = row
+    results.update(grid_kernel_phase(torch, [
+        ("gru_seq_grid", "seq", torch.float32),
+        ("gru_seq_grid", "seq", torch.bfloat16)]))
     return results
 
 
@@ -1752,7 +2028,17 @@ def bf16_kernel_phase(torch):
             if not err <= BF16_TOL:
                 raise AssertionError(f"{name}_bf16 {label}: kernel differs "
                                      f"from its plain version by {err}")
+            if units in GRID_BESIDE:
+                row["grid_ms"] = grid_beside_cluster(
+                    torch, f"{name}_bf16 {label}",
+                    lambda: cuda_rnn._launch(f"{cell}_avg", gates, params,
+                                             codes, torch.bfloat16,
+                                             grid=True),
+                    (p_avg, p_hidden), ms, reps, BF16_TOL)
             results[(f"{name}_bf16", label)] = row
+    results.update(grid_kernel_phase(torch, [
+        (name.replace("_avg", "_avg_grid") + "_bf16", name.split("_")[0],
+         torch.bfloat16) for name in KERNELS]))
     return results
 
 
@@ -4116,10 +4402,13 @@ def launch_phase(torch, np, tmp: str, card: str) -> dict:
 
 
 def scan_bed_matches(name: str, cell: str, fixture: str, model_path: str,
-                     tmp: str, fused_rows: list, launches: dict) -> None:
+                     tmp: str, fused_rows: list, launches: dict,
+                     grid_launches: Optional[dict] = None) -> None:
     """Phase 20 past u=1024: the float32 scan route (``gru_seq`` for the
     GRU; the LSTM over one-hot windows is plain torch, no kernel) writes
-    the fused route's BED byte for byte; raises if not."""
+    the fused route's BED byte for byte; raises if not.  With
+    ``grid_launches`` (past u=4096) every ``gru_seq`` launch must have run
+    the grid tile, whose launches it adds there."""
     reset_counts()
     start = time.perf_counter()
     rows = predict_rows(
@@ -4131,6 +4420,9 @@ def scan_bed_matches(name: str, cell: str, fixture: str, model_path: str,
         check_counts({})
     else:
         launches[f"{name} {fixture} scan"] = check_path("gru_seq")
+        if grid_launches is not None:
+            add_grid_launches(grid_launches, "gru_seq",
+                              launches[f"{name} {fixture} scan"])
     print(f"{name} predict {fixture} --rnn-kernel scan: {len(rows)} BED "
           f"rows in float32 ({seconds:.3f} s), the fused route's BED byte "
           f"for byte: {rows == fused_rows}", flush=True)
@@ -4139,7 +4431,21 @@ def scan_bed_matches(name: str, cell: str, fixture: str, model_path: str,
                              f"BED differs from the fused route's")
 
 
-def wide_predict_phase(torch, np, tmp: str) -> dict:
+def add_grid_launches(grid_launches: dict, row: str, count: int) -> None:
+    """Adds the grid tile's launches of the run just made under its name
+    (``row`` with ``_grid`` after the cell's kernel name); raises unless
+    each of the row's ``count`` launches ran it."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    grid = (row.replace("_avg", "_avg_grid") if "_avg" in row
+            else f"{row}_grid")
+    got = cuda_rnn.LAUNCHES.get(grid)
+    if got != count:
+        raise AssertionError(f"{grid}: {got} launches of {count} of {row}")
+    grid_launches[grid] = grid_launches.get(grid, 0) + got
+
+
+def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
     """Phase 20: wide models predict through the CLI: ``gru_att`` and the
     LSTM of the flagship options at :data:`PREDICT_WIDE_UNITS`, made by
     the port's initialiser from a seed and written as model files; each
@@ -4149,8 +4455,12 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
     byte for byte.  At u=512 the float32 engine's scored track of the
     first fixture record on the card equals the same engine's on the CPU,
     and from u=1024 ``gru_att``'s fused track equals the scan route's (row
-    7) on the card: classes equal, max probability within 1e-5.  Returns
-    the launch counts of each run."""
+    7) on the card: classes equal, max probability within 1e-5.  Past
+    u=4096 (the grid tile) each model predicts its one fixture of
+    :data:`PREDICT_WIDE_FIXTURES`.  Returns the launch counts of each run,
+    and the grid tile's launches by kernel name (every launch of a run
+    past u=4096)."""
+    from deepgrp_tpu_torch.models import cuda_rnn
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import save_model_npz
     from deepgrp_tpu_torch.models.model import (DeepGRPModel, ModelConfig,
@@ -4163,9 +4473,10 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
     cells = {"gru_att": (FLAGSHIP, "gru"),
              "lstm": ({**FLAGSHIP, "attention": False, "rnn": "LSTM"},
                       "lstm")}
-    launches = {}
+    launches, grid_launches = {}, {}
     for units in PREDICT_WIDE_UNITS:
         for label, (opts, cell) in cells.items():
+            grid = cuda_rnn.avg_tile_name(cell, units) == "grid"
             name = f"{label}_u{units}"
             config = ModelConfig(**{**opts, "units": units})
             start = time.perf_counter()
@@ -4174,7 +4485,8 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
             save_model_npz(model_path, config, params)
             print(f"{name}: initialised (seed {units}) and written in "
                   f"{time.perf_counter() - start:.2f} s", flush=True)
-            for fixture in ("gru_att", "gru", "lstm"):
+            for fixture in PREDICT_WIDE_FIXTURES.get(units, {}).get(
+                    label, ("gru_att", "gru", "lstm")):
                 rows, seconds = {}, {}
                 for precision in ("float32", "bfloat16"):
                     reset_counts()
@@ -4189,6 +4501,10 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
                     suffix = "_bf16" if precision == "bfloat16" else ""
                     launches[f"{name} {fixture} {precision}"] = check_path(
                         f"{cell}_avg{suffix}")
+                    if grid:
+                        add_grid_launches(
+                            grid_launches, f"{cell}_avg{suffix}",
+                            launches[f"{name} {fixture} {precision}"])
                 same = len(set(rows["float32"]) & set(rows["bfloat16"]))
                 print(f"{name} predict {fixture}: {len(rows['float32'])} BED "
                       f"rows in float32 ({seconds['float32']:.3f} s), "
@@ -4197,7 +4513,8 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
                       flush=True)
                 if units > 1024:
                     scan_bed_matches(name, cell, fixture, model_path, tmp,
-                                     rows["float32"], launches)
+                                     rows["float32"], launches,
+                                     grid_launches if grid else None)
             model = DeepGRPModel.from_params(config, params, "cuda")
             if units == 512:
                 ref = PredictionEngine(
@@ -4224,7 +4541,9 @@ def wide_predict_phase(torch, np, tmp: str) -> dict:
             if not (same_c and diff <= TOL):
                 raise AssertionError(f"{name}: the fused track differs from "
                                      f"{against}")
-    return launches
+    print(f"grid tile launches on phase 20's paths: {grid_launches}",
+          flush=True)
+    return launches, grid_launches
 
 
 def main() -> int:
@@ -4411,10 +4730,12 @@ def main() -> int:
     phase(f"20. wide models predict: gru_att and lstm at "
           f"u={', u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
           f"weights from a seed) on the fixtures through the CLI in float32 "
-          f"and bf16; the track against the CPU (u=512) and the scan route "
-          f"(u >= 1024), the scan route's BEDs (u=2048)")
+          f"and bf16 (past u=4096 the grid tile); the track against the CPU "
+          f"(u=512) and the scan route (u >= 1024), the scan route's BEDs "
+          f"(u >= 2048)")
     with tempfile.TemporaryDirectory() as wide_tmp:
-        path_launches = wide_predict_phase(torch, np, wide_tmp)
+        path_launches, grid_launches = wide_predict_phase(torch, np,
+                                                          wide_tmp)
     print(f"launches on phase 20's paths: {path_launches}", flush=True)
 
     end_phase()
@@ -4432,6 +4753,15 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"deepgrp_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for name, replaces in GRID_KERNELS.items():
+        row = timings[(name, GRID_LINE_SHAPE)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deepgrp_tpu_torch/csrc/rnn_grid.cu",
+            "replaces": replaces, "launches": grid_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -8,8 +8,9 @@ first use, into ``deepgrp_tpu_torch/_build/`` (ignored by git):
   training kernels, ``rnn_seq``: the GRU over a float input sequence), a
   plain C interface loaded with :mod:`ctypes` (no
   PyTorch headers, so a build takes seconds; the libraries build
-  independently, so they can build in parallel; ``mss_stack``: the
-  on-device MSS's candidate-stack scan);
+  independently, so they can build in parallel; ``rnn_grid``: the
+  recurrences past the cluster tiles' ceiling, one tiled product a step;
+  ``mss_stack``: the on-device MSS's candidate-stack scan);
 * ``native/src/*.cc`` with ``g++`` (host MSS and encoding, see
   :mod:`deepgrp_tpu_torch.native`).
 
@@ -36,7 +37,8 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
 #: CUDA kernel libraries by name, one source each.
 CUDA_SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
-                for name in ("rnn_avg", "rnn_train", "rnn_seq", "mss_stack")}
+                for name in ("rnn_avg", "rnn_train", "rnn_seq", "rnn_grid",
+                             "mss_stack")}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -233,6 +235,22 @@ def _declare_rnn_seq(lib: ctypes.CDLL) -> None:
     lib.dg_gru_seq_clusters.restype = _I32
 
 
+def _declare_rnn_grid(lib: ctypes.CDLL) -> None:
+    # gates, bf16, codes, batch, steps, kernel, bias, recurrent, units, h0,
+    # h1, carry, avg, hidden, stream
+    lib.dg_avg_grid.argtypes = ([_I32, _I32, _PTR, _I32, _I32]
+                                + [_PTR] * 3 + [_I32] + [_PTR] * 6)
+    # bf16, x, batch, steps, channels, kernel, bias, recurrent, units, h0,
+    # h1, carry, seq, last, stream
+    lib.dg_seq_grid.argtypes = ([_I32, _PTR, _I32, _I32, _I32]
+                                + [_PTR] * 3 + [_I32] + [_PTR] * 6)
+    lib.dg_grid_shape.argtypes = [_I32, _I32, _PTR]  # rows, units, int64[4]
+    lib.dg_grid_layout.argtypes = [_PTR]  # int[8]
+    for fn in (lib.dg_avg_grid, lib.dg_seq_grid, lib.dg_grid_shape):
+        fn.restype = _I32
+    lib.dg_grid_layout.restype = None
+
+
 def _declare_mss_stack(lib: ctypes.CDLL) -> None:
     # starts, ends, l_glob, r_glob, n_runs, capacity, min_score, xdrop,
     # stack_f, stack_i, out, stream
@@ -246,5 +264,6 @@ _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {
     "rnn_avg": _declare_rnn_avg,
     "rnn_train": _declare_rnn_train,
     "rnn_seq": _declare_rnn_seq,
+    "rnn_grid": _declare_rnn_grid,
     "mss_stack": _declare_mss_stack,
 }

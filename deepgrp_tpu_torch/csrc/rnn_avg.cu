@@ -402,10 +402,6 @@ constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
 
-__device__ __forceinline__ int Complement(int c) {
-  return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
-}
-
 // ---- The float32 cluster tile's layout ------------------------------------
 
 // CTAs a cluster of the float32 kernels at this width (1: the register

@@ -13,6 +13,9 @@
 // step (ClusterBarrier) makes the writes visible to every CTA.
 // LaunchCluster launches such a kernel after asking the card whether it
 // can place one cluster (ClusterSlots).
+//
+// Complement, the reverse-complement branch's code, is here too, so that
+// every recurrence library (rnn_grid.cu through rnn_tile.cuh) shares it.
 
 #pragma once
 
@@ -20,6 +23,10 @@
 #include <stdint.h>
 
 namespace {
+
+__device__ __forceinline__ int Complement(int c) {
+  return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
+}
 
 // ---- The butterfly of a lane group ---------------------------------------
 

@@ -271,10 +271,6 @@ __device__ __forceinline__ float Sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__device__ __forceinline__ int Complement(int c) {
-  return (c >= 0 && c < 4) ? 3 - c : c;  // A<->T, C<->G, N and pad kept
-}
-
 // Stages the CTA's per-gate mask scales: s_m[lr * g*5 + g*5 + c] for local
 // row lr (0..bb-1 forward, bb..2bb-1 reverse complement).  1 without masks
 // or past the batch.

@@ -1,18 +1,20 @@
 """Wrappers of the recurrence kernels (``csrc/rnn_avg.cu``,
-``csrc/rnn_train.cu``, ``csrc/rnn_seq.cu``).
+``csrc/rnn_train.cu``, ``csrc/rnn_seq.cu``, ``csrc/rnn_grid.cu``).
 
 Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
 ``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
-the recurrent dot on the tensor cores), at every width up to
-:data:`AVG_MAX_UNITS` (u=4096): one CTA a window up to u=128, past it a
-window's units split over a thread-block cluster of CTAs, past u=1024
-several units a lane (:func:`avg_layout` names the tile, the CTAs a
-cluster and where ``U`` sits; past the ceiling it raises ``ValueError``,
-and so does a launch).  :func:`gru_apply` is the counterpart of
-``pallas_gru_apply``: the GRU over a float input ``x [B, T, C]``,
-``(seq, last)`` out in ``x``'s dtype, at the same widths.
+the recurrent dot on the tensor cores up to u=4096), at every width: one
+CTA a window up to u=128, past it a window's units split over a
+thread-block cluster of CTAs up to :data:`CLUSTER_MAX_UNITS` (u=4096;
+past u=1024 several units a lane), and past it the grid tile
+(``csrc/rnn_grid.cu``: one tiled product of every row's ``h`` with ``U``
+a step, the gate math in its epilogue).  :func:`avg_layout` names the
+tile, the CTAs a cluster and where ``U`` sits; only u <= 0 is refused.
+:func:`gru_apply` is the counterpart of ``pallas_gru_apply``: the GRU
+over a float input ``x [B, T, C]``, ``(seq, last)`` out in ``x``'s
+dtype, at the same widths.
 
 Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``torch.autograd.Function`` counterparts of the custom VJPs
@@ -23,7 +25,7 @@ sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
-every width the inference kernels take, up to u=4096
+the widths of the inference kernels' cluster tiles, up to u=4096
 (:data:`TRAIN_MAX_UNITS`): one CTA a window up to u=256, past it a
 window's units split over a thread-block cluster, past u=1024 several
 units a lane (:func:`train_layout` names the layout of a width,
@@ -36,7 +38,10 @@ launches by name: ``gru_avg``, ``lstm_avg``, ``gru_avg_bf16``,
 ``lstm_avg_bf16``, ``gru_seq`` (either dtype), ``gru_train_fwd``,
 ``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
 counts once, for either cell: it is the recurrence kernel, the reduction
-kernel and the sum of the reduction's partials).
+kernel and the sum of the reduction's partials).  A call of the grid tile
+(its T step launches) counts once under its row's name and once under
+the grid's: ``gru_avg_grid``, ``lstm_avg_grid``, ``gru_avg_grid_bf16``,
+``lstm_avg_grid_bf16``, ``gru_seq_grid`` (either dtype).
 """
 
 from __future__ import annotations
@@ -131,8 +136,11 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str, shape: str) -> None:
 
 
 def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
-            out_dtype: torch.dtype = torch.float32
+            out_dtype: torch.dtype = torch.float32, grid: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launches ``name``'s kernel on the tile of :func:`avg_tile_name`
+    (``grid``: on the grid tile at any width, to time it beside the
+    cluster tiles)."""
     cell = name.split("_")[0]
     name += rnn.dtype_suffix(out_dtype)
     batch, steps, units = _check(name, gates, params, codes)
@@ -140,6 +148,23 @@ def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
     avg = _empty(codes.device, batch, steps, units, dtype=out_dtype)
     hidden = _empty(codes.device, batch, units, dtype=out_dtype)
     if batch == 0:
+        return avg, hidden
+    if grid or _grid_route(units):
+        lib = _build.load_kernels("rnn_grid")
+        with torch.cuda.device(codes.device):
+            recurrent, h, carry = _grid_buffers(
+                lib, 2 * batch, units, gates, params["recurrent"], out_dtype)
+            stream = torch.cuda.current_stream(codes.device).cuda_stream
+            err = lib.dg_avg_grid(
+                gates, int(out_dtype == torch.bfloat16), codes.data_ptr(),
+                batch, steps, params["kernel"].data_ptr(),
+                params["bias"].data_ptr(), recurrent.data_ptr(), units,
+                h[0].data_ptr(), h[1].data_ptr(), carry.data_ptr(),
+                avg.data_ptr(), hidden.data_ptr(), ctypes.c_void_p(stream))
+        _raise_on(lib, err, f"{name} (grid)",
+                  f"B={batch} T={steps} u={units}")
+        LAUNCHES.add(name)
+        LAUNCHES.add(name.replace("_avg", "_avg_grid"))
         return avg, hidden
     lib = _build.load_kernels("rnn_avg")
     fn: Callable[..., int] = getattr(lib, f"dg_{name}")
@@ -162,19 +187,72 @@ def block_windows(batch: int, sms: int, most: int) -> int:
     return max(1, min(most, -(-batch // max(sms, 1))))
 
 
-#: The widest layer the inference kernels take, the fused ones and the GRU
-#: sequence kernel (``csrc/rnn_avg.cu``, ``csrc/rnn_seq.cu``: a window's
-#: units over a cluster of 16 CTAs, past 64 units a CTA several units a
-#: lane, at most 256 units a CTA: two h buffers of one window take 64 kB).
-AVG_MAX_UNITS = 4096
+#: The widest layer of the inference kernels' cluster tiles, the fused
+#: ones and the GRU sequence kernel (``csrc/rnn_avg.cu``,
+#: ``csrc/rnn_seq.cu``: a window's units over a cluster of 16 CTAs, past 64
+#: units a CTA several units a lane, at most 256 units a CTA: two h buffers
+#: of one window take 64 kB); past it the grid tile (``csrc/rnn_grid.cu``).
+CLUSTER_MAX_UNITS = 4096
 #: Where a kernel keeps ``U``, by the library's code.
 U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
+#: Where the grid tile keeps ``U``: tiles of it copied from L2 (or HBM)
+#: into shared memory each step.
+GRID_U_IN = "L2"
+#: The grid tile's rows and units a CTA (``kBlockRows``, ``kBlockUnits``
+#: of ``csrc/rnn_grid.cu``; the fused rows' 32 rows are 16 windows).
+GRID_ROWS = GRID_UNITS = 32
 
 
 def _check_width(units: int) -> None:
-    if not 0 < units <= AVG_MAX_UNITS:
-        raise ValueError(f"the inference kernels take widths up to their "
-                         f"ceiling u={AVG_MAX_UNITS}, not u={units}")
+    if units <= 0:
+        raise ValueError(f"the inference kernels take widths u >= 1, not "
+                         f"u={units}")
+
+
+def _grid_route(units: int) -> bool:
+    """Whether the inference rows run the grid tile at this width (past
+    :data:`CLUSTER_MAX_UNITS`); every layout helper and launch asks this."""
+    return units > CLUSTER_MAX_UNITS
+
+
+def grid_tile(rows: int, units: int) -> Tuple[int, int]:
+    """``(rows a CTA, CTAs a step)`` of the grid tile for ``rows`` rows
+    (the fused rows' doubled batch, or the GRU sequence kernel's rows) at
+    this width (pure Python): a CTA owns :data:`GRID_ROWS` rows and
+    :data:`GRID_UNITS` units with all their gates, the grid covers every
+    row and unit.  Raises ``ValueError`` for u <= 0."""
+    _check_width(units)
+    return (min(GRID_ROWS, max(rows, 1)),
+            -(-rows // GRID_ROWS) * -(-units // GRID_UNITS))
+
+
+def _grid_buffers(lib: ctypes.CDLL, rows: int, units: int, gates: int,
+                  recurrent: torch.Tensor, dtype: torch.dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grid tile's operands beside the parameters, zeroed, on
+    ``recurrent``'s device: ``U`` padded to ``[W, gates, W]`` in ``dtype``
+    (bfloat16: rounded to nearest even, the dot's operand), the two h
+    buffers ``[2, W, R']`` and the carry ``[2, W, R']`` (W and R' from the
+    library's ``dg_grid_shape``)."""
+    shape = (ctypes.c_longlong * 4)()
+    if not lib.dg_grid_shape(rows, units, shape):
+        raise ValueError(f"the grid tile refuses {rows} rows at u={units}")
+    width, rows_p = shape[0], shape[1]
+    device = recurrent.device
+    padded = torch.zeros(width, gates, width, dtype=dtype, device=device)
+    padded[:units, :, :units] = recurrent.view(units, gates, units)
+    h = torch.zeros(2, width, rows_p, device=device)
+    carry = torch.zeros(2, width, rows_p, device=device)
+    return padded, h, carry
+
+
+def _grid_layout() -> list:
+    """The grid tile's layout from the library: rows a CTA, units a CTA,
+    k a stage, k-slices, threads a CTA, stages, rows a thread, units a
+    thread."""
+    out = (ctypes.c_int * 8)()
+    _build.load_kernels("rnn_grid").dg_grid_layout(out)
+    return list(out)
 
 
 def avg_tile_name(cell: str, units: int,
@@ -185,10 +263,12 @@ def avg_tile_name(cell: str, units: int,
     ``"l2"`` (the same reading it through L1/L2, u <= 128), in bfloat16
     ``"mma"`` (the tensor-core tile, one CTA a window, u <= 128); past
     u=128 ``"cluster"`` in either (a window's units over a thread-block
-    cluster of CTAs, past u=1024 several units a lane).  Raises
-    ``ValueError`` naming the width and the ceiling past
-    :data:`AVG_MAX_UNITS`."""
+    cluster of CTAs, past u=1024 several units a lane) up to
+    :data:`CLUSTER_MAX_UNITS`, and past it ``"grid"`` (the grid tile).
+    Raises ``ValueError`` for u <= 0."""
     _check_width(units)
+    if _grid_route(units):
+        return "grid"
     if units > 128:
         return "cluster"
     if rnn.dtype_suffix(out_dtype):
@@ -201,11 +281,12 @@ def avg_layout(cell: str, units: int,
     """The layout that ``cell``'s inference kernels launch at this width in
     ``out_dtype`` on the current device: ``tile`` (:func:`avg_tile_name`),
     and from the library, which asks the card, ``cluster`` (CTAs a
-    cluster; 1: one CTA a window), ``u_in`` (where ``U`` sits:
-    ``"registers"``, ``"shared"``, each CTA's share in shared memory, or
-    ``"L1/L2"``, read each step) and ``max_windows`` (the most windows a
-    CTA, of a cluster: the cluster's, owns).  Raises ``ValueError`` past
-    :data:`AVG_MAX_UNITS` before it asks."""
+    cluster; 1: one CTA a window, or the grid tile), ``u_in`` (where ``U``
+    sits: ``"registers"``, ``"shared"``, each CTA's share in shared
+    memory, ``"L1/L2"``, read each step, or on the grid tile ``"L2"``,
+    tiles of it copied into shared memory each step) and ``max_windows``
+    (the most windows a CTA, of a cluster: the cluster's, owns).  Raises
+    ``ValueError`` for u <= 0 before it asks."""
     tile = avg_tile_name(cell, units, out_dtype)
     most, cluster, u_in = _library_layout(cell, units, out_dtype)
     return {"tile": tile, "cluster": cluster, "u_in": u_in,
@@ -215,8 +296,11 @@ def avg_layout(cell: str, units: int,
 def _library_layout(cell: str, units: int,
                     out_dtype: torch.dtype) -> Tuple[int, int, str]:
     """``(most windows a CTA, CTAs a cluster, where U sits)`` from the
-    library, which asks the current device; ``ValueError`` for a width
-    it refuses."""
+    library, which asks the current device (past
+    :data:`CLUSTER_MAX_UNITS` the grid tile's library); ``ValueError`` for
+    a width it refuses."""
+    if _grid_route(units):
+        return _grid_layout()[0] // 2, 1, GRID_U_IN
     gates = 4 if cell == "lstm" else 3
     out = (ctypes.c_int * 2)()
     most = _build.load_kernels("rnn_avg").dg_avg_layout(
@@ -236,8 +320,13 @@ def avg_tile(cell: str, batch: int, units: int,
     :func:`avg_layout`) over the CTAs that run at once:
     the card's SMs, or past u=128 the clusters (of :func:`avg_cluster`
     CTAs, each of which holds its cluster's windows) that the card places
-    at once (a cluster of 16 CTAs needs 16 free SMs of one GPC).  Raises
-    ``ValueError`` for a width the kernels refuse."""
+    at once (a cluster of 16 CTAs needs 16 free SMs of one GPC); past
+    :data:`CLUSTER_MAX_UNITS` the grid tile's windows a CTA and CTAs a
+    step (:func:`grid_tile`).  Raises ``ValueError`` for a width the
+    kernels refuse."""
+    if _grid_route(units):
+        rows_a_cta, ctas = grid_tile(2 * batch, units)
+        return max(rows_a_cta // 2, 1), ctas
     device = device or torch.device("cuda")
     gates = 4 if cell == "lstm" else 3
     cap, cluster, _ = _library_layout(cell, units, out_dtype)
@@ -269,9 +358,12 @@ BF16_TILES = {1: "mma", 3: "cluster"}
 def avg_bf16_tile(cell: str, units: int) -> str:
     """The tile the bfloat16 inference kernels of ``cell`` run at this
     width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
-    operands, one CTA a window, up to u=128) or ``"cluster"`` (the same
+    operands, one CTA a window, up to u=128), ``"cluster"`` (the same
     step with a window's units split over a cluster of CTAs, up to
-    u=4096); raises ``ValueError`` for a width they refuse."""
+    u=4096) or past it ``"grid"`` (the grid tile: FMAs on bf16-rounded
+    operands); raises ``ValueError`` for a width they refuse."""
+    if _grid_route(units):
+        return "grid"
     gates = 4 if cell == "lstm" else 3
     code = _build.load_kernels("rnn_avg").dg_avg_bf16_tile(gates, units)
     if code not in BF16_TILES:
@@ -287,8 +379,11 @@ def avg_bf16_cluster(cell: str, units: int) -> int:
 
 def seq_cluster(units: int) -> int:
     """CTAs a cluster of the GRU sequence kernel at this width: 1 up to
-    u=128, 8 up to u=256, 16 beyond (``SeqCluster`` in
-    ``csrc/rnn_seq.cu``)."""
+    u=128, 8 up to u=256, 16 up to :data:`CLUSTER_MAX_UNITS`
+    (``SeqCluster`` in ``csrc/rnn_seq.cu``), 1 on the grid tile past
+    it."""
+    if _grid_route(units):
+        return 1
     return 1 if units <= 128 else 8 if units <= 256 else 16
 
 
@@ -296,8 +391,11 @@ def seq_max_rows(units: int) -> int:
     """The most rows a CTA of the GRU sequence kernel owns at this width:
     16, but 4 from u=257 to 512, where each CTA keeps its slice of U in
     shared memory, and past u=1024, where the two h buffers of 16 rows
-    outgrow it, 8 up to u=2048 and 4 beyond (``MaxRows`` in
-    ``csrc/rnn_seq.cu``)."""
+    outgrow it, 8 up to u=2048 and 4 up to :data:`CLUSTER_MAX_UNITS`
+    (``MaxRows`` in ``csrc/rnn_seq.cu``); the grid tile's
+    :data:`GRID_ROWS` past it."""
+    if _grid_route(units):
+        return GRID_ROWS
     if units > 2048:
         return 4
     if units > 1024:
@@ -313,9 +411,12 @@ def seq_tile(rows: int, units: int, sms: int,
     clusters of :func:`seq_cluster` CTAs, each of which holds its
     cluster's rows) that run at once: by default ``sms`` over the CTAs a
     cluster; the card's own count where it places fewer clusters (the
-    library's ``dg_gru_seq_clusters``).  Raises ``ValueError`` naming the
-    width and the ceiling past :data:`AVG_MAX_UNITS`."""
+    library's ``dg_gru_seq_clusters``).  Past :data:`CLUSTER_MAX_UNITS`
+    the grid tile's (:func:`grid_tile`).  Raises ``ValueError`` for u <=
+    0."""
     _check_width(units)
+    if _grid_route(units):
+        return grid_tile(rows, units)
     cluster = seq_cluster(units)
     if slots is None:
         slots = sms // cluster
@@ -347,8 +448,13 @@ def seq_layout(units: int, rows_a_cta: int) -> Dict[str, object]:
     rows a lane group, k-slices a unit, where ``U`` sits ("registers",
     "L1/L2" or "shared": each CTA's slice in shared memory), the CTAs a
     cluster (1: one CTA a row) and the units a lane (past u=1024 two up
-    to u=2048, four beyond); raises ``ValueError`` for a shape the kernel
-    refuses."""
+    to u=2048, four up to :data:`CLUSTER_MAX_UNITS`); past it the grid
+    tile's: rows and units a thread, its k-slices, ``U`` in ``"L2"``, no
+    cluster.  Raises ``ValueError`` for a shape the kernel refuses."""
+    if _grid_route(units) and 0 < rows_a_cta <= GRID_ROWS:
+        layout = _grid_layout()
+        return {"rows_a_group": layout[6], "slices": layout[3],
+                "u_in": GRID_U_IN, "cluster": 1, "units_a_lane": layout[7]}
     lib = _build.load_kernels("rnn_seq")
     out = (ctypes.c_int * 5)()
     if lib.dg_gru_seq_layout(units, rows_a_cta, out) == 0:
@@ -371,9 +477,8 @@ def gru_apply(params: RnnParams, x: torch.Tensor, *,
     (any float type: ``kernel`` and ``recurrent`` are cast to ``x``'s
     dtype, ``bias`` to float32, as ``pallas_rnn.py:121-122``); ``x``
     float32 or bfloat16.  Returns ``(seq [B, T, u], last [B, u])`` in
-    ``x``'s dtype.  Dropout raises ``ValueError``, as ``:135-138``; so
-    does a width past :data:`AVG_MAX_UNITS` on a CUDA tensor, before any
-    launch.
+    ``x``'s dtype.  Dropout raises ``ValueError``, as ``:135-138``.  Past
+    :data:`CLUSTER_MAX_UNITS` a CUDA tensor runs the grid tile.
     """
     if dropout_key is not None and (
             not isinstance(dropout_rate, (int, float)) or dropout_rate > 0.0):
@@ -384,8 +489,10 @@ def gru_apply(params: RnnParams, x: torch.Tensor, *,
     return _launch_seq(params, x)
 
 
-def _launch_seq(params: RnnParams,
-                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_seq(params: RnnParams, x: torch.Tensor, grid: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gru_apply` on a CUDA tensor (``grid``: on the grid tile at
+    any width, to time it beside the cluster tiles)."""
     name = "gru_seq"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x on {x.device}; the kernel takes CUDA "
@@ -416,6 +523,24 @@ def _launch_seq(params: RnnParams,
     last = _empty(x.device, batch, units, dtype=x.dtype)
     if batch == 0:
         return seq, last
+    bf16 = int(x.dtype == torch.bfloat16)
+    if grid or _grid_route(units):
+        lib = _build.load_kernels("rnn_grid")
+        with torch.cuda.device(x.device):
+            recurrent, h, carry = _grid_buffers(
+                lib, batch, units, 3, weights["recurrent"], x.dtype)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.dg_seq_grid(
+                bf16, x.data_ptr(), batch, steps, channels,
+                weights["kernel"].data_ptr(), weights["bias"].data_ptr(),
+                recurrent.data_ptr(), units, h[0].data_ptr(),
+                h[1].data_ptr(), carry.data_ptr(), seq.data_ptr(),
+                last.data_ptr(), ctypes.c_void_p(stream))
+        _raise_on(lib, err, f"{name} (grid)", f"B={batch} T={steps} "
+                  f"C={channels} u={units} {x.dtype}")
+        LAUNCHES.add(name)
+        LAUNCHES.add(f"{name}_grid")
+        return seq, last
     lib = _build.load_kernels("rnn_seq")
     with torch.cuda.device(x.device):
         sms = torch.cuda.get_device_properties(
@@ -426,8 +551,8 @@ def _launch_seq(params: RnnParams,
         err = lib.dg_gru_seq(
             x.data_ptr(), batch, steps, channels,
             weights["kernel"].data_ptr(), weights["bias"].data_ptr(),
-            weights["recurrent"].data_ptr(), units, rows_a_cta,
-            int(x.dtype == torch.bfloat16), seq.data_ptr(), last.data_ptr(),
+            weights["recurrent"].data_ptr(), units, rows_a_cta, bf16,
+            seq.data_ptr(), last.data_ptr(),
             ctypes.c_void_p(stream))
     _raise_on(lib, err, name, f"B={batch} T={steps} C={channels} u={units} "
               f"{x.dtype}")
@@ -438,11 +563,12 @@ def _launch_seq(params: RnnParams,
 # -- training kernels --------------------------------------------------------
 
 
-#: The widest layer the training kernels take: the inference kernels'
-#: ceiling (``csrc/rnn_cluster.cuh`` ``kMaxUnits``, which ``rnn_train.cu``
-#: reads too: a window's units over a cluster of 16 CTAs, past u=1024 two
-#: or four units a lane).
-TRAIN_MAX_UNITS = AVG_MAX_UNITS
+#: The widest layer the training kernels take (``csrc/rnn_cluster.cuh``
+#: ``kMaxUnits``, which ``rnn_train.cu`` reads: a window's units over a
+#: cluster of 16 CTAs, past u=1024 two or four units a lane); the
+#: inference kernels' cluster tiles stop there too, and past it predict
+#: runs the grid tile, training nothing.
+TRAIN_MAX_UNITS = 4096
 #: The widest layer of the training kernels' window tile (4u threads a
 #: CTA, at most 1,024).
 TRAIN_WINDOW_UNITS = 256

@@ -2,7 +2,8 @@
 recurrences, and the cell's initialisation and dropout masks.
 
 ``gru_avg_plain`` and ``lstm_avg_plain`` compute exactly what the CUDA
-kernels in ``csrc/rnn_avg.cu`` compute (and what the JAX package's
+kernels in ``csrc/rnn_avg.cu`` (past u=4096 ``csrc/rnn_grid.cu``)
+compute (and what the JAX package's
 ``pallas_gru_avg`` / ``pallas_lstm_avg`` compute): the shared cell runs over
 the doubled batch of forward rows and their reverse complements, with Keras
 gate math, and returns the branch average.  The ``*_train_fwd_plain`` /
@@ -17,7 +18,8 @@ held against on the card.
 ``gru_apply`` and ``lstm_apply`` are the one-hot recurrences of the JAX
 package (``deepgrp_tpu/models/rnn.py``) over a float input ``x [B, T, I]``
 with a real input dot ``x W + b``; ``gru_apply`` is also the plain version
-of the ``csrc/rnn_seq.cu`` kernel (``pallas_gru_apply``).
+of the ``csrc/rnn_seq.cu`` kernel (``pallas_gru_apply``; past u=4096 of
+``csrc/rnn_grid.cu``'s ``dg_seq_grid``).
 ``gru_train_apply`` and ``lstm_train_apply`` are the same recurrences for
 training, with per-gate input dropout masks, differentiated by autograd.
 

@@ -34,9 +34,14 @@ the float32 cluster tile (a window's units over 8 CTAs up to u=256, 16
 beyond, ragged at u=129, 200, 300 and 520), past u=1024 with several
 units a lane (ragged at u=1025 and 3000) up to the ceiling u=4096; a
 window's bits there are the same alone and inside a batch, and on a
-second launch; u=4097 raises ``ValueError`` before any launch, in both
-dtypes and on the scan route; ``cuda_rnn.avg_layout``'s tile agrees with
-the library's layout at every width.
+second launch.  Past u=4096 every inference row (both cells, both
+dtypes, and the scan route's GRU) runs the grid tile (``csrc/rnn_grid.cu``:
+one tiled product a step): held against the plain versions at u=4097,
+5000 and 8192 (one window, a ragged batch, T <= 32), at GRU u=26,800 and
+LSTM u=23,200 (g u^2 past 2^31 elements), with a window's bits alone, in
+a batch and repeated, and under a CUDA graph's capture; the training
+kernels still refuse u=4097.  ``cuda_rnn.avg_layout``'s tile agrees with
+the library's layout at every width up to 4096 and past it.
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
@@ -100,6 +105,7 @@ validation and every evaluation chunk, and no plain version runs.
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import socket
@@ -512,16 +518,30 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
 
 
 def test_lstm_avg_refuses_u257(device):
-    """The inference kernels take widths up to u=4096 (past u=256 on a
-    cluster of 16 CTAs, as the scan route's GRU; past u=1024 several
-    units a lane): u=4097 raises ``ValueError`` naming the width and the
-    ceiling before any launch, in float32 and bfloat16."""
+    """Named for the first ceiling: the inference kernels take every width
+    (past u=256 on a cluster of 16 CTAs, past u=1024 several units a lane,
+    past u=4096 the grid tile).  u=4097 launches the grid tile, in float32
+    and bfloat16, and no plain version runs; only u <= 0 raises
+    ``ValueError``, before any launch."""
     params, codes = random_case(6, 4, 3, 5, 4097, device)
     for dtype in (torch.float32, torch.bfloat16):
+        suffix = rnn.dtype_suffix(dtype)
         launches = cuda_rnn.LAUNCHES.snapshot()
-        with pytest.raises(ValueError, match="u=4096, not u=4097"):
-            cuda_rnn.lstm_avg(params, codes, dtype)
-        assert cuda_rnn.LAUNCHES.snapshot() == launches
+        plain = rnn.PLAIN_CALLS.snapshot()
+        avg, hidden = cuda_rnn.lstm_avg(params, codes, dtype)
+        torch.cuda.synchronize()
+        now = cuda_rnn.LAUNCHES.snapshot()
+        for name in (f"lstm_avg{suffix}", f"lstm_avg_grid{suffix}"):
+            assert now.get(name, 0) == launches.get(name, 0) + 1
+        assert rnn.PLAIN_CALLS.snapshot() == plain
+        assert avg.shape == (3, 5, 4097) and avg.dtype == dtype
+    empty = {"kernel": torch.zeros(5, 0, device=device),
+             "recurrent": torch.zeros(0, 0, device=device),
+             "bias": torch.zeros(0, device=device)}
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    with pytest.raises(ValueError, match="u >= 1, not u=0"):
+        cuda_rnn.lstm_avg(empty, codes)
+    assert cuda_rnn.LAUNCHES.snapshot() == launches
 
 
 @pytest.mark.parametrize("cell,batch,steps,units", [
@@ -714,14 +734,20 @@ def test_gru_seq_cluster_repeats_bitwise(device, dtype, batch, steps,
 
 
 def test_gru_seq_refuses_u1025(device):
-    """The sequence kernel takes u <= 4096 (past u=1024 several units a
-    lane), the fused kernels' ceiling: u=4097 raises ``ValueError``
-    naming the width and the ceiling before any launch."""
+    """Named for a former ceiling: the sequence kernel takes u <= 4096 on
+    its cluster tile (past u=1024 several units a lane) and past it runs
+    the grid tile: u=4097 launches it (``gru_seq`` and ``gru_seq_grid``
+    counted once each) and no plain version runs."""
     params, x = random_seq_case(2, 3, 4097, torch.float32, device)
     launches = cuda_rnn.LAUNCHES.snapshot()
-    with pytest.raises(ValueError, match="u=4096, not u=4097"):
-        cuda_rnn.gru_apply(params, x)
-    assert cuda_rnn.LAUNCHES.snapshot() == launches
+    plain = rnn.PLAIN_CALLS.snapshot()
+    seq, last = cuda_rnn.gru_apply(params, x)
+    torch.cuda.synchronize()
+    now = cuda_rnn.LAUNCHES.snapshot()
+    for name in ("gru_seq", "gru_seq_grid"):
+        assert now.get(name, 0) == launches.get(name, 0) + 1
+    assert rnn.PLAIN_CALLS.snapshot() == plain
+    assert seq.shape == (2, 3, 4097) and last.shape == (2, 4097)
 
 
 def test_gru_seq_layout(device):
@@ -748,8 +774,14 @@ def test_gru_seq_layout(device):
         cuda_rnn.seq_layout(units, most)
         with pytest.raises(ValueError):
             cuda_rnn.seq_layout(units, most + 1)
+    # Past u=4096 the grid tile: 4 rows x 4 units a thread, four k-slices,
+    # tiles of U through L2, no cluster; only u <= 0 is refused.
+    for units in (4097, 8192):
+        assert cuda_rnn.seq_layout(units, 1) == {
+            "rows_a_group": 4, "slices": 4, "u_in": "L2", "cluster": 1,
+            "units_a_lane": 4}
     with pytest.raises(ValueError):
-        cuda_rnn.seq_layout(4097, 1)
+        cuda_rnn.seq_layout(0, 1)
 
 
 @pytest.mark.parametrize("cell,batch,steps,units", [
@@ -836,13 +868,13 @@ def test_avg_bf16_cluster_window_bits(device, cell, units):
 
 def test_avg_bf16_tile_by_width(device):
     """The tile of each width: the tensor-core tile up to u=128 (one CTA a
-    window, at most 8), its cluster tile up to u=4096, refused beyond (and
-    the launch raises).  A cluster has 2 CTAs where half of U's fragments
-    fit a CTA's shared memory at 8 windows (the GRU up to u=256, the LSTM
-    up to u=224), else 4; a CTA takes 16 windows where two m-tiles fit,
-    else 8 (the H100's 227 KB a block); past u=1024 16 CTAs of one m-tile
-    holding only their windows' rows of h: 8 windows at u=2048, 6 at
-    u=4096."""
+    window, at most 8), its cluster tile up to u=4096, the grid tile
+    beyond (no cluster; the launch runs it).  A cluster has 2 CTAs where
+    half of U's fragments fit a CTA's shared memory at 8 windows (the GRU
+    up to u=256, the LSTM up to u=224), else 4; a CTA takes 16 windows
+    where two m-tiles fit, else 8 (the H100's 227 KB a block); past
+    u=1024 16 CTAs of one m-tile holding only their windows' rows of h: 8
+    windows at u=2048, 6 at u=4096."""
     cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8), (2048, 16, 8),
                      (4096, 16, 6)],
              "lstm": [(208, 2, 16), (209, 2, 8), (224, 2, 8), (225, 4, 16),
@@ -856,13 +888,16 @@ def test_avg_bf16_tile_by_width(device):
             assert cuda_rnn.avg_bf16_cluster(cell, units) == cluster
             assert cuda_rnn.avg_tile(cell, 10 ** 6, units, None,
                                      torch.bfloat16)[0] == most
-        with pytest.raises(ValueError, match="u=4097"):
-            cuda_rnn.avg_bf16_tile(cell, 4097)
-        with pytest.raises(ValueError, match="u=4097"):
-            cuda_rnn.avg_bf16_cluster(cell, 4097)
+        assert cuda_rnn.avg_bf16_tile(cell, 4097) == "grid"
+        assert cuda_rnn.avg_bf16_cluster(cell, 4097) == 1
+        with pytest.raises(ValueError, match="u=0"):
+            cuda_rnn.avg_bf16_tile(cell, 0)
     params, codes = random_case(3, 3, 2, 3, 4097, device)
-    with pytest.raises(ValueError, match="u=4096, not u=4097"):
-        cuda_rnn.gru_avg(params, codes, torch.bfloat16)
+    launches = cuda_rnn.LAUNCHES.get("gru_avg_grid_bf16")
+    avg, _ = cuda_rnn.gru_avg(params, codes, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_rnn.LAUNCHES.get("gru_avg_grid_bf16") == launches + 1
+    assert avg.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
@@ -890,14 +925,19 @@ def test_avg_cluster_window_bits(device, cell, units):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_avg_layout_matches_library(device, dtype):
-    """``cuda_rnn.avg_layout`` at every width 1-4096 on this card: its tile
-    (pure Python, from the width) agrees with the library's CTAs a
-    cluster (one CTA a window up to u=128, past it a cluster: in float32 8
-    CTAs with U in shared memory up to u=256, 16 reading it through L1/L2
-    beyond; in bfloat16 2 to 16 CTAs, the library's own tile), and the
-    library refuses u=4097."""
+    """``cuda_rnn.avg_layout`` at every width 1-4096 on this card and past
+    it: its tile (pure Python, from the width) agrees with the library's
+    CTAs a cluster (one CTA a window up to u=128, past it a cluster: in
+    float32 8 CTAs with U in shared memory up to u=256, 16 reading it
+    through L1/L2 beyond; in bfloat16 2 to 16 CTAs, the library's own
+    tile; past u=4096 the grid tile's library: no cluster, 16 windows a
+    CTA, tiles of U through L2), and the library refuses u=0."""
     for cell in ("gru", "lstm"):
-        for units in range(1, cuda_rnn.AVG_MAX_UNITS + 1):
+        for units in (4097, 5000, 8192, 26800):
+            assert cuda_rnn.avg_layout(cell, units, dtype) == {
+                "tile": "grid", "cluster": 1, "u_in": "L2",
+                "max_windows": 16}
+        for units in range(1, cuda_rnn.CLUSTER_MAX_UNITS + 1):
             layout = cuda_rnn.avg_layout(cell, units, dtype)
             assert (layout["cluster"] > 1) == (layout["tile"] == "cluster")
             if dtype == torch.bfloat16:
@@ -909,8 +949,183 @@ def test_avg_layout_matches_library(device, dtype):
             else:
                 assert layout["u_in"] == ("registers" if units <= 64
                                           else "L1/L2"), units
-        with pytest.raises(ValueError, match="u=4097"):
-            cuda_rnn._library_layout(cell, 4097, dtype)
+        with pytest.raises(ValueError, match="u=0"):
+            cuda_rnn._library_layout(cell, 0, dtype)
+
+
+# The grid tile's rows (past u=4096): (kind, dtype) with kind "gru",
+# "lstm" (the fused rows) or "seq" (the scan route's GRU).
+GRID_ROWS = [(kind, dtype) for kind in ("gru", "lstm", "seq")
+             for dtype in (torch.float32, torch.bfloat16)]
+# One window, a ragged batch, widths past the cluster tiles (ragged over
+# the grid's 32-unit blocks but u=8192), T <= 32.
+GRID_SHAPES = [(1, 32, 4097), (5, 23, 5000), (3, 17, 8192)]
+
+
+def run_grid_row(kind, dtype, params, inputs, grid=False):
+    """The row ``kind`` through its wrapper (``grid=True``: forced onto
+    the grid tile) and its plain version's function."""
+    if kind == "seq":
+        if grid:
+            got = cuda_rnn._launch_seq(params, inputs, grid=True)
+        else:
+            got = cuda_rnn.gru_apply(params, inputs)
+        return got, rnn.gru_apply
+    plain = getattr(rnn, f"{kind}_avg_plain")
+    if grid:
+        gates = 4 if kind == "lstm" else 3
+        return cuda_rnn._launch(f"{kind}_avg", gates, params, inputs, dtype,
+                                grid=True), plain
+    return getattr(cuda_rnn, f"{kind}_avg")(params, inputs, dtype), plain
+
+
+def grid_case(kind, dtype, batch, steps, units, device):
+    if kind == "seq":
+        return random_seq_case(batch, steps, units, dtype, device)
+    gates = 4 if kind == "lstm" else 3
+    return random_case(batch * steps + units, gates, batch, steps, units,
+                       device)
+
+
+def grid_names(kind, dtype):
+    if kind == "seq":
+        return "gru_seq", "gru_seq_grid"
+    suffix = rnn.dtype_suffix(dtype)
+    return f"{kind}_avg{suffix}", f"{kind}_avg_grid{suffix}"
+
+
+@pytest.mark.parametrize("kind,dtype", GRID_ROWS)
+@pytest.mark.parametrize("batch,steps,units", GRID_SHAPES)
+def test_grid_matches_plain(device, kind, dtype, batch, steps, units):
+    """Past u=4096 each inference row runs the grid tile (its launch
+    counted under the row's name and the grid's, no plain version run)
+    and agrees with its plain version: atol 1e-5 in float32, 2e-2 in
+    bfloat16 (as on the cluster tiles)."""
+    params, inputs = grid_case(kind, dtype, batch, steps, units, device)
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    plain_calls = rnn.PLAIN_CALLS.snapshot()
+    got, plain = run_grid_row(kind, dtype, params, inputs)
+    torch.cuda.synchronize()
+    now = cuda_rnn.LAUNCHES.snapshot()
+    for name in grid_names(kind, dtype):
+        assert now.get(name, 0) == launches.get(name, 0) + 1, name
+    assert rnn.PLAIN_CALLS.snapshot() == plain_calls
+    want = (plain(params, inputs) if kind == "seq"
+            else plain(params, inputs, dtype))
+    atol = ATOL if dtype == torch.float32 else BF16_ATOL
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("kind,units", [("gru", 26800), ("lstm", 23200),
+                                        ("seq", 26800)])
+def test_grid_past_2_31_elements(device, kind, units):
+    """Where U holds more than 2^31 elements (g u^2: GRU u=26,800, LSTM
+    u=23,200), B=2, T=4, float32: the grid tile against the plain version
+    at atol 1e-5 (64-bit offsets into U, h and the outputs)."""
+    gates = 4 if kind == "lstm" else 3
+    assert gates * units * units > 2 ** 31
+    gen = torch.Generator(device=device).manual_seed(units)
+    width = gates * units
+    params = {
+        "kernel": torch.randn(5, width, generator=gen, device=device) * 0.5,
+        "recurrent": torch.randn(units, width, generator=gen,
+                                 device=device) * units ** -0.5,
+        "bias": torch.randn(*((width,) if gates == 4 else (2, width)),
+                            generator=gen, device=device) * 0.3}
+    if kind == "seq":
+        inputs = torch.rand(2, 4, 5, generator=gen, device=device)
+    else:
+        inputs = torch.randint(0, 6, (2, 4), generator=gen, device=device,
+                               dtype=torch.int8)
+    got, plain = run_grid_row(kind, torch.float32, params, inputs)
+    torch.cuda.synchronize()
+    want = plain(params, inputs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind,dtype", GRID_ROWS)
+def test_grid_window_bits(device, kind, dtype):
+    """On the grid tile a window's (row 7: a row's) bits are the same alone,
+    inside a batch of 37 (another row block) and at another place in it,
+    and a second launch equals the first (each sum runs in an order fixed
+    by u)."""
+    params, inputs = grid_case(kind, dtype, 37, 20, 4097, device)
+    inputs[30] = inputs[13]
+    alone = run_grid_row(kind, dtype, params,
+                         inputs[13:14].contiguous())[0]
+    inside = run_grid_row(kind, dtype, params, inputs)[0]
+    again = run_grid_row(kind, dtype, params, inputs)[0]
+    torch.cuda.synchronize()
+    for got, want in zip(alone, inside):
+        assert torch.equal(got[0], want[13])
+        assert torch.equal(got[0], want[30])
+    for a, b in zip(inside, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,dtype", GRID_ROWS)
+def test_grid_below_ceiling_matches_cluster_route(device, kind, dtype):
+    """The grid tile forced below u=4096 (as ``chip_smoke.py`` times it
+    beside the cluster tiles) agrees with the plain version at u=129 and
+    the ragged u=300; the routing there is unchanged (the cluster tile
+    runs)."""
+    for units in (129, 300):
+        params, inputs = grid_case(kind, dtype, 5, 9, units, device)
+        got, plain = run_grid_row(kind, dtype, params, inputs, grid=True)
+        routed = run_grid_row(kind, dtype, params, inputs)[0]
+        torch.cuda.synchronize()
+        want = (plain(params, inputs) if kind == "seq"
+                else plain(params, inputs, dtype))
+        atol = ATOL if dtype == torch.float32 else BF16_ATOL
+        for g, r, w in zip(got, routed, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                       rtol=0)
+            torch.testing.assert_close(r.float(), w.float(), atol=atol,
+                                       rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["gru", "seq"])
+def test_grid_under_capture(device, kind):
+    """The grid tile's T launches are captured into a CUDA graph (the
+    wrapper's zeroed buffers from the graph's pool); a replay on new
+    inputs equals an eager call bit for bit."""
+    params, inputs = grid_case(kind, torch.float32, 4, 9, 4100, device)
+    static = inputs.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run_grid_row(kind, torch.float32, params, static)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run_grid_row(kind, torch.float32, params, static)[0]
+    other = grid_case(kind, torch.float32, 4, 9, 4100, device)[1]
+    other = other.flip(0).contiguous()
+    static.copy_(other)
+    graph.replay()
+    eager = run_grid_row(kind, torch.float32, params, other)[0]
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_grid_shape_matches_python(device):
+    """The grid tile's layout in Python (``GRID_ROWS``, ``GRID_UNITS``,
+    ``grid_tile``) is the library's (``dg_grid_layout``,
+    ``dg_grid_shape``)."""
+    layout = cuda_rnn._grid_layout()
+    assert layout[:2] == [cuda_rnn.GRID_ROWS, cuda_rnn.GRID_UNITS]
+    lib = _build.load_kernels("rnn_grid")
+    shape = (ctypes.c_longlong * 4)()
+    for rows, units in ((1, 4097), (74, 5000), (2048, 8192), (4, 26800)):
+        assert lib.dg_grid_shape(rows, units, shape) == 1
+        assert shape[2] * shape[3] == cuda_rnn.grid_tile(rows, units)[1]
+        assert shape[0] == -(-units // 32) * 32
+        assert shape[1] == -(-rows // 32) * 32
+    assert lib.dg_grid_shape(1, 0, shape) == 0
 
 
 @pytest.mark.parametrize("name", ["gru_att", "lstm"])

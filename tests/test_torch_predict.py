@@ -70,6 +70,42 @@ def test_engine_scored_matches_jax(small_models, seq_len, batch, step):
     np.testing.assert_allclose(got_p, want_p, atol=1e-5)
 
 
+def test_engine_past_cluster_ceiling_matches_jax():
+    """The whole slice past the cluster tiles' ceiling (u=4096, where a
+    CUDA tensor runs the grid tile): a ``gru_att``-shaped model at u=4160
+    (vecsize 16, step 8) on a 200 bp record, the port's CPU engine against
+    the JAX package's engine on the same weights, made with numpy from a
+    seed in the JAX package's layout and carried across by the port's
+    converter: classes equal, max probability to 1e-5."""
+    config = ModelConfig(vecsize=16, units=4160, rnn="GRU", attention=True,
+                         dropout=0.0)
+    jax_cfg = jax_model.ModelConfig(**config.todict())
+    shapes = jax.eval_shape(lambda: jax_model.init_params(
+        jax.random.PRNGKey(0), jax_cfg))
+    rng = np.random.default_rng(4160)
+    scales = {("rnn", "kernel"): 0.5,
+              ("rnn", "recurrent"): config.units ** -0.5,
+              ("rnn", "bias"): 0.3, ("attention", "scale"): 0.05,
+              ("dense", "kernel"): (2 * config.units) ** -0.5,
+              ("dense", "bias"): 0.3}
+    params = {group: {name: rng.normal(0.0, scales[group, name],
+                                       leaf.shape).astype(np.float32)
+                      for name, leaf in leaves.items()}
+              for group, leaves in shapes.items()}
+    codes = random_codes(4160, 200)
+    want_c, want_p = jax_engine.PredictionEngine(
+        jax_model.DeepGRPModel(jax_cfg), batch_size=32,
+        step_size=8).predict_scored(params, codes)
+    port = DeepGRPModel.from_params(config, params_from_jax(params),
+                                    device="cpu")
+    got_c, got_p = PredictionEngine(port, batch_size=32,
+                                    step_size=8).predict_scored(codes)
+    assert got_c.shape == want_c.shape == (200,)
+    assert len(np.unique(want_c)) > 1
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_allclose(got_p, want_p, atol=1e-5)
+
+
 @pytest.mark.parametrize("seq_len", [400, 25])
 def test_predict_sequence_matches_jax(small_models, seq_len):
     """MSS-labelled classes equal the JAX package's host-MSS route,

@@ -57,8 +57,11 @@ def jax_avg(cell, params, codes, out_dtype=jnp.float32):
     (4, 17, 6), (16, 40, 16), (3, 9, 5), (11, 33, 12),
     # Widths the kernels serve on a cluster of CTAs: ragged over 16 CTAs
     # (u=300, 520), the widest at one unit a lane, and past it with two
-    # units a lane (u=1537: ragged, 97 units a CTA of 16; u=2048).
-    (2, 5, 300), (2, 4, 520), (1, 3, 1024), (1, 3, 1537), (1, 2, 2048)])
+    # units a lane (u=1537: ragged, 97 units a CTA of 16; u=2048); past
+    # the cluster tiles, on the grid tile (ragged: 4 and 8 units past a
+    # whole block of 32).
+    (2, 5, 300), (2, 4, 520), (1, 3, 1024), (1, 3, 1537), (1, 2, 2048),
+    (1, 2, 4100), (1, 2, 5000)])
 def test_plain_matches_pallas(cell, batch, steps, units):
     params, codes = random_case(batch * steps + units, cell, batch, steps,
                                 units)
@@ -108,6 +111,52 @@ def test_cpu_wrapper_is_plain_version(cell):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [4100, 5000])
+def test_cpu_wrapper_past_cluster_ceiling(cell, units):
+    """Past the cluster tiles' ceiling (u=4096), where a CUDA tensor runs
+    the grid tile, a CPU tensor still runs the plain version, in both
+    dtypes: bit for bit its outputs, one plain call each, no launch."""
+    params, codes = random_case(units, cell, 2, 3, units)
+    params, codes = torch_params(params), torch.from_numpy(codes)
+    wrapper = cuda_rnn.lstm_avg if cell == "lstm" else cuda_rnn.gru_avg
+    plain = rnn.lstm_avg_plain if cell == "lstm" else rnn.gru_avg_plain
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"{cell}_avg{rnn.dtype_suffix(dtype)}"
+        launches = cuda_rnn.LAUNCHES.snapshot()
+        calls = rnn.PLAIN_CALLS.get(name)
+        got = wrapper(params, codes, dtype)
+        assert rnn.PLAIN_CALLS.get(name) == calls + 1
+        assert cuda_rnn.LAUNCHES.snapshot() == launches
+        for g, w in zip(got, plain(params, codes, dtype)):
+            assert g.dtype == dtype and g.shape[-1] == units
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("units", [4100, 5000])
+def test_cpu_gru_apply_past_cluster_ceiling(units):
+    """``cuda_rnn.gru_apply`` on a CPU tensor past u=4096 against the JAX
+    package's ``pallas_gru_apply`` in interpret mode (atol 1e-5)."""
+    rng = np.random.default_rng(units)
+    params = {
+        "kernel": rng.normal(0.0, 0.5, (5, 3 * units)).astype(np.float32),
+        "recurrent": rng.normal(0.0, units ** -0.5,
+                                (units, 3 * units)).astype(np.float32),
+        "bias": rng.normal(0.0, 0.3, (2, 3 * units)).astype(np.float32),
+    }
+    x = rng.random((2, 3, 5)).astype(np.float32)
+    want_seq, want_last = pallas_rnn.pallas_gru_apply(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        interpret=True, block_b=8)
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    seq, last = cuda_rnn.gru_apply(torch_params(params), torch.from_numpy(x))
+    assert cuda_rnn.LAUNCHES.snapshot() == launches
+    assert seq.shape == (2, 3, units) and last.shape == (2, units)
+    np.testing.assert_allclose(seq.numpy(), np.asarray(want_seq), atol=ATOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want_last),
+                               atol=ATOL)
+
+
 def test_kernel_launcher_refuses_cpu_tensors():
     params, codes = random_case(1, "gru", 2, 5, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -145,10 +194,11 @@ def test_gru_seq_tile(rows, sms):
     cluster of CTAs splits them (8 up to u=256, 16 beyond), each CTA of a
     cluster holds the cluster's rows, and the wave counts clusters (16
     rows, but 4 from u=257 to 512, where U's slice fills the shared
-    memory, 8 from u=1025 to 2048 and 4 up to the ceiling u=4096, where
-    the h buffers do: several units a lane).  The scan route's 2048 rows
-    take 128 CTAs of 16 on a 132-SM card, the shape of the fused kernel's
-    tile at 8 windows."""
+    memory, 8 from u=1025 to 2048 and 4 up to the cluster tile's ceiling
+    u=4096, where the h buffers do: several units a lane).  Past it the
+    grid tile: 32 rows and 32 units a CTA, no cluster.  The scan route's
+    2048 rows take 128 CTAs of 16 on a 132-SM card, the shape of the
+    fused kernel's tile at 8 windows."""
     for units, most, cluster in ((60, 16, 1), (128, 16, 1), (129, 16, 8),
                                  (256, 16, 8), (257, 4, 16), (512, 4, 16),
                                  (513, 16, 16), (1024, 16, 16),
@@ -166,22 +216,29 @@ def test_gru_seq_tile(rows, sms):
             2048: (16, 128), 256: (2, 128), 7: (1, 7), 1: (1, 1)}[rows]
         # u=512 at 16 rows: 8 clusters of 16 CTAs, 2 rows each.
         assert cuda_rnn.seq_tile(16, 512, sms) == (2, 128)
-    # The ceiling, u=4096, which the tile names when it refuses a width.
-    for units in (0, 4097):
-        with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
-            cuda_rnn.seq_tile(rows, units, sms)
+    # Past the cluster tile's ceiling (u=4096) the grid tile, whatever the
+    # SMs: every row and unit covered; only u <= 0 is refused.
+    for units in (4097, 8192):
+        assert cuda_rnn.seq_cluster(units) == 1
+        assert cuda_rnn.seq_max_rows(units) == 32
+        assert cuda_rnn.seq_tile(rows, units, sms) == (
+            min(rows, 32), -(-rows // 32) * -(-units // 32))
+    with pytest.raises(ValueError, match="u >= 1, not u=0"):
+        cuda_rnn.seq_tile(rows, 0, sms)
 
 
 # (units, tile) at each width where the inference kernels' tile changes,
-# and the ceiling.
+# the cluster tiles' ceiling and past it.
 AVG_TILES = {
     "float32": [(1, "registers"), (64, "registers"), (65, "l2"),
                 (128, "l2"), (129, "cluster"), (300, "cluster"),
                 (1024, "cluster"), (1025, "cluster"), (2048, "cluster"),
-                (4096, "cluster")],
+                (4096, "cluster"), (4097, "grid"), (8192, "grid"),
+                (26800, "grid")],
     "bfloat16": [(1, "mma"), (128, "mma"), (129, "cluster"),
                  (520, "cluster"), (1024, "cluster"), (1025, "cluster"),
-                 (3000, "cluster"), (4096, "cluster")],
+                 (3000, "cluster"), (4096, "cluster"), (4097, "grid"),
+                 (8192, "grid")],
 }
 
 
@@ -191,31 +248,31 @@ def test_avg_layout_by_width(cell, dtype):
     """The inference kernels' tile by width (pure Python): one CTA a
     window up to u=128 (the register tile in float32, the tensor-core tile
     in bf16), past it a window's units over a cluster of CTAs up to the
-    ceiling u=4096 (past u=1024 several units a lane); past it
-    ``avg_tile_name`` and ``avg_layout`` raise ``ValueError`` naming the
-    width and the ceiling, before they ask the library."""
+    cluster tiles' ceiling u=4096 (past u=1024 several units a lane), and
+    past it the grid tile at every width (u=4097, 8192); only u <= 0 is
+    refused: ``avg_tile_name`` and ``avg_layout`` raise ``ValueError``
+    naming the width, before they ask the library."""
     for units, tile in AVG_TILES[dtype]:
         assert cuda_rnn.avg_tile_name(cell, units,
                                       getattr(torch, dtype)) == tile, units
-    for units in (0, 4097, 8192):
+    for units in (0, -1):
         for fn in (cuda_rnn.avg_tile_name, cuda_rnn.avg_layout):
-            with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
+            with pytest.raises(ValueError, match=f"u >= 1, not u={units}"):
                 fn(cell, units, getattr(torch, dtype))
 
 
 def test_training_ceiling_stays_at_1024():
-    """Named for the training kernels' former ceiling: they now take every
-    width the inference kernels take (``kMaxUnits`` of
+    """Named for the training kernels' former ceiling: they now take the
+    widths of the inference kernels' cluster tiles (``kMaxUnits`` of
     ``csrc/rnn_cluster.cuh``, read by both libraries), u=1025 to 4096 on
-    the cluster tile, and ``train_layout`` refuses u=4097 as
-    ``avg_tile_name`` does, naming u=4096, so ``train_fwd``/``train_bwd``
-    never hand it to the library."""
-    assert cuda_rnn.TRAIN_MAX_UNITS == cuda_rnn.AVG_MAX_UNITS == 4096
+    the cluster tile, and ``train_layout`` refuses u=4097 and beyond,
+    naming u=4096, so ``train_fwd``/``train_bwd`` never hand it to the
+    library; there the inference kernels run the grid tile."""
+    assert cuda_rnn.TRAIN_MAX_UNITS == 4096
     for units in (1024, 1025, 2048, 4096):
         assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
         assert cuda_rnn.train_layout(units) == "cluster"
     for units in (4097, 8192):
-        for refuse in (cuda_rnn.train_layout,
-                       lambda u: cuda_rnn.avg_tile_name("lstm", u)):
-            with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
-                refuse(units)
+        with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
+            cuda_rnn.train_layout(units)
+        assert cuda_rnn.avg_tile_name("lstm", units) == "grid"

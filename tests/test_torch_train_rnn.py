@@ -226,7 +226,8 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 def test_train_layout_by_width():
     """The training kernels' layout of a width (the window tile up to
     u=256, the cluster tile past it, with several units a lane past
-    u=1024), and the ceiling: u=4096, the inference kernels'."""
+    u=1024), and the ceiling: u=4096, the inference kernels' cluster
+    tiles'."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
                           (128, "l2"), (129, "wide"), (256, "wide"),
                           (257, "cluster"), (520, "cluster"),
@@ -234,7 +235,7 @@ def test_train_layout_by_width():
                           (2048, "cluster"), (3000, "cluster"),
                           (4096, "cluster")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.TRAIN_MAX_UNITS == cuda_rnn.AVG_MAX_UNITS == 4096
+    assert cuda_rnn.TRAIN_MAX_UNITS == 4096
     for units in (0, 4097, 8192):
         with pytest.raises(ValueError,
                            match=f"u=4096, not u={units}"):

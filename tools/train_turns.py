@@ -8,7 +8,8 @@ Usage, on a machine with one CUDA card::
 
     python3 tools/train_turns.py [--root DIR] [--label NAME]
         [--shapes 256x342x60,256x342x512,64x342x1024] [--reps 20]
-        [--sass [--sass-dir DIR]] [--out FILE.jsonl]
+        [--sass [--sass-dir DIR] [--libs rnn_train,rnn_avg,rnn_seq]]
+        [--out FILE.jsonl]
     python3 tools/train_turns.py --summary FILE.jsonl [--sass-dir DIR]
 
 ``--root`` is the checkout whose package is imported and built (by
@@ -17,7 +18,8 @@ from a seed, dropout masks at rate 0.0928, output cotangents; each time
 is CUDA events over ``--reps`` launches after a warm-up.  The line holds
 the label, the card's name and power limit and the ms of each
 ``{cell} {fwd|bwd} BxTxU``.  ``--sass`` adds a hash of the SASS of each
-kernel of the built library (``cuobjdump -sass``), by its mangled name
+kernel of the built libraries (``--libs``, by default ``rnn_train``;
+``cuobjdump -sass``), by its mangled name
 with the anonymous namespace's tag (a hash of the source file) dropped
 and with the listing's spacing collapsed, so the same machine code of two
 checkouts has the same hash; with ``--sass-dir DIR`` each kernel's SASS
@@ -138,7 +140,6 @@ def run(args) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    lib = _build.load_kernels("rnn_train")
     row = {"label": args.label, "root": root, "card": card, "ms": {}}
     gen = torch.Generator().manual_seed(2025)
     for cell, gates in (("gru", 3), ("lstm", 4)):
@@ -156,9 +157,11 @@ def run(args) -> dict:
                                                   seqs, d_avg, d_hid),
                 args.reps)
     if args.sass:
-        row["sass"] = sass_hashes(
-            lib._name, args.sass_dir and os.path.join(args.sass_dir,
-                                                      args.label))
+        row["sass"] = {}
+        for name in args.libs.split(","):
+            row["sass"].update(sass_hashes(
+                _build.load_kernels(name)._name,
+                args.sass_dir and os.path.join(args.sass_dir, args.label)))
     return row
 
 
@@ -209,6 +212,7 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--sass", action="store_true")
     parser.add_argument("--sass-dir")
+    parser.add_argument("--libs", default="rnn_train")
     parser.add_argument("--out")
     parser.add_argument("--summary")
     args = parser.parse_args()
