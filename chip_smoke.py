@@ -32,7 +32,7 @@ seconds are printed after it):
    Past the cluster tiles' ceiling the grid tile (ptxas usage of each
    instantiation): at u=4097 (B=1, T=32), ragged u=5000 (B=5, T=23) and
    u=8192 (B=3, T=17), and timed at B=64, T=342, u=4608 (phase 20's
-   shape) and B=16, u=8192 (bound: the larger of the FLOP over the peak
+   shape; bound: the larger of the FLOP over the peak
    and the HBM bytes over the HBM rate: ``U`` once, then each step the
    part of it past the L2 and the shared memory, and the IO once),
    against the plain versions at 1e-5, a window's
@@ -40,8 +40,8 @@ seconds are printed after it):
    row's name and the grid's and no plain version run; at GRU u=26,800
    and LSTM u=23,200 (B=2, T=4, weights made on the card: g u^2 past
    2^31 elements) against the plain versions.  Then u=4097 launches the
-   grid tile in both dtypes and on the scan route, and the training
-   kernels refuse it with ``ValueError`` before any launch.
+   grid tile in both dtypes, on the scan route and in the training
+   forward and backward of both cells.
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
    the reference settings and the ``.npz`` weights in
@@ -80,7 +80,18 @@ seconds are printed after it):
    B=37, T=150; 2048, B=64; 3000, B=5, T=23; the ceiling 4096, B=16;
    T=342 unless given): with masks, a window's forward and gate
    cotangents alone and in the batch and a second run bitwise equal,
-   timed over 3 launches.
+   timed over 3 launches.  Past the cluster tiles' ceiling, on the grid
+   tile (``csrc/rnn_grid.cu``; the ptxas usage of its training kernels,
+   the tile of each shape: rows and units a CTA, CTAs a step, the
+   recompute's CTAs): at u=4097 (B=1, T=32), ragged u=5000 (B=5, T=23),
+   u=8192 (B=3, T=17) and B=64, T=342, u=4608 (phase 19's u=4608 shape),
+   with and without masks, as above (each call counted under the row's
+   name and the grid's), a window's bits alone, in the batch and
+   repeated; u=4608 timed over 3 launches with its bound (the HBM bytes
+   as phase 2's grid rows count them); and at GRU u=26,800 / LSTM
+   u=23,200 (B=2, T=4: g u^2 and the reduction's partials past 2^31
+   elements) the forward and the gradients against the plain versions,
+   run after the port's buffers are freed.
 7. Training on the card: ``python -m deepgrp_tpu_torch -b 256 train``
    (through ``cli.main``) with the flagship ``gru_att`` configuration
    (vecsize 342, 60 units, attention, dropout 0.0928, RMSprop defaults),
@@ -302,10 +313,11 @@ seconds are printed after it):
     ``train`` through ``cli.main`` (captured, the card's default) of
     ``gru_att`` (vecsize 342, attention, dropout 0.0928) and of the LSTM
     at u=256 on the wide layout (2 x 5 steps each, batch 256, RMSprop's
-    default rate), at u=1024 on the cluster tile (2 x 5 steps each, batch
-    256, at a learning rate of 1e-5 for the width) and at u=2048 with two
-    units a lane (2 x 3 steps each, batch 64, at 1e-5 too);
-    depths cut from 200 x 250:
+    default rate), at u=1024 on the cluster tile (2 x 3 steps each, batch
+    256, at a learning rate of 1e-5 for the width), at u=2048 with two units a lane (2 x 3 steps each,
+    batch 64, at 1e-5 too) and at u=4608 on the grid tile (2 x 2 steps
+    each, batch 64, at 1e-5; the grid tile's launches counted too); depths
+    cut from 200 x 250:
     each training kernel launched on every step, the inference kernel
     once an epoch, no plain version, finite losses that fall; one step of
     each trained model through the kernels against the plain versions
@@ -314,9 +326,10 @@ seconds are printed after it):
     idle share (``torch.profiler``); a captured ``Trainer.fit`` against
     the eager one (history, best
     parameters, generator state and launch counts bit for bit); then each
-    trained model predicts the three fixtures on the fused route in
-    float32 and bfloat16 (the kernel of each launched, no plain version;
-    the rows the two precisions share printed).
+    trained model predicts the fixture of its cell (``gru_att.fa``,
+    ``lstm.fa``) on the fused route in float32 and bfloat16 (the kernel of
+    each launched, no plain version; the rows the two precisions share
+    printed).
 20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
     at u=512, u=1024 and u=2048 (two units a lane) and u=4608 (past the
     cluster tiles: the grid tile; one fixture each, ``gru_att.fa`` and
@@ -443,30 +456,44 @@ LSTM_WIDE_UNITS = 128
 # 1.55 to 1.93, 1e-5 1.61 to 1.55; 1.59 to 1.49, 3e-6 1.62 to 1.60; 1.61
 # to 1.58 (the plain versions' losses the same to the printed digits, and
 # the row sums: tools/train_rate_witness.py).
+# Past the cluster tiles u=4608 (the grid tile; batch 64, 2 x 2 steps,
+# the rate from tools/train_rate_witness.py at u=4608: 1e-5 and 3e-6 the
+# same losses through the kernels and the plain versions).  Each trained
+# model predicts the fixture of its cell; u=1024 trains 2 x 3 steps (cut
+# from 2 x 5, and the three fixtures a model to one, to make room for
+# u=4608 in the time limit).
 TRAIN_CEILING_RUNS = {256: (((2, 5), (2, 5)), None, 256),
-                      1024: (((2, 5), (2, 5)), 1e-5, 256),
-                      2048: (((2, 3), (2, 3)), 1e-5, 64)}
+                      1024: (((2, 3), (2, 3)), 1e-5, 256),
+                      2048: (((2, 3), (2, 3)), 1e-5, 64),
+                      4608: (((2, 2), (2, 2)), 1e-5, 64)}
 # Phase 20: models of these widths predict through the CLI (u=2048: past
 # the one-unit-a-lane tiles, the fused and scan routes' BEDs compared;
 # u=4608: past the cluster tiles, the grid tile), with the fixtures each
 # predicts (all three, or one where a predict takes seconds).
 PREDICT_WIDE_UNITS = (512, 1024, 2048, 4608)
 PREDICT_WIDE_FIXTURES = {4608: {"gru_att": ("gru_att",), "lstm": ("lstm",)}}
-# Past the cluster tiles' ceiling (u=4096), the grid tile: (batch, T, u)
-# checked at one window (u=4097), a ragged batch (u=5000) and u=8192 at T
-# <= 32, checked and timed (over WIDE_REPS) at B=64, T=342, u=4608 (phase
-# 20's shape: REF_ARGS' -b 64 at its width, 128 rows, so 4 row blocks; the
-# kernels line's shape) and B=16, u=8192; and the widths where g u^2
-# passes 2^31 elements (B=2, T=4, float32, checked only).
+# Past the cluster tiles' ceiling (u=4096), the grid tile, in inference
+# and in training: (batch, T, u) checked at one window (u=4097), a ragged
+# batch (u=5000) and u=8192 at T <= 32, checked and timed (over WIDE_REPS)
+# at B=64, T=342, u=4608 (GRID_LINE_SHAPE: phases 19 and 20's shape,
+# REF_ARGS' -b 64 at its width, 128 rows, so 4 row blocks; the kernels
+# line's shape); and the widths where g u^2 passes 2^31 elements (B=2,
+# T=4, float32, checked only).
 GRID_SHAPES = {"grid_u4097": (1, 32, 4097), "grid_ragged_u5000": (5, 23, 5000),
-               "grid_u8192_t17": (3, 17, 8192), "grid_u4608": (64, 342, 4608),
-               "grid_u8192": (16, 342, 8192)}
-GRID_TIMED = ("grid_u4608", "grid_u8192")
+               "grid_u8192_t17": (3, 17, 8192), "grid_u4608": (64, 342, 4608)}
+GRID_LINE_SHAPE = "grid_u4608"
 # Widths at which phases 2 and 8 time the grid tile beside the cluster
 # tiles (times only; the cluster tiles keep them).
 GRID_BESIDE = (2048, 4096)
-GRID_LINE_SHAPE = "grid_u4608"
 GRID_HUGE = {"gru": (2, 4, 26800), "lstm": (2, 4, 23200)}
+# The grid tile's training kernels (rows 3-6 past u=4096) in the kernels
+# line: name: TPU kernel replaced.
+GRID_TRAIN_KERNELS = {
+    "gru_train_fwd_grid": "deepgrp_tpu/models/pallas_rnn_train.py:97",
+    "gru_train_bwd_grid": "deepgrp_tpu/models/pallas_rnn_train.py:135",
+    "lstm_train_fwd_grid": "deepgrp_tpu/models/pallas_rnn_train.py:496",
+    "lstm_train_bwd_grid": "deepgrp_tpu/models/pallas_rnn_train.py:542",
+}
 # The grid tile's kernels in the kernels line: name: TPU kernel replaced.
 GRID_KERNELS = {
     "gru_avg_grid": "deepgrp_tpu/models/pallas_rnn.py:178",
@@ -700,12 +727,11 @@ def window_bits(torch, run, codes) -> None:
 
 
 def past_ceiling(torch) -> None:
-    """One unit past the cluster tiles' ceiling (u=4097): the inference
-    rows launch the grid tile (the fused kernels in both dtypes and the
-    GRU sequence kernel, the scan route, in both; counted under the row's
-    name and the grid's, no plain version run), and the training kernels
-    (forward and backward of both cells) raise ``ValueError`` naming
-    u=4096 before any launch."""
+    """One unit past the cluster tiles' ceiling (u=4097): every row
+    launches the grid tile (the fused kernels in both dtypes, the GRU
+    sequence kernel, the scan route, in both, and the training forward and
+    backward of both cells; counted under the row's name and the grid's,
+    no plain version run)."""
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
     units = cuda_rnn.CLUSTER_MAX_UNITS + 1
@@ -726,17 +752,6 @@ def past_ceiling(torch) -> None:
             raise AssertionError(f"{names[0]} at u={units}: {counted}, "
                                  f"plain calls {rnn.PLAIN_CALLS.snapshot()}")
 
-    def refused(name, run):
-        before = cuda_rnn.LAUNCHES.snapshot()
-        try:
-            run()
-        except ValueError as err:
-            print(f"{name} u={units}: ValueError: {err}", flush=True)
-        else:
-            raise AssertionError(f"{name} took u={units}")
-        if cuda_rnn.LAUNCHES.snapshot() != before:
-            raise AssertionError(f"{name} launched at u={units}")
-
     codes = torch.zeros(2, 3, dtype=torch.int8, device="cuda")
     for name, (gates, _) in KERNELS.items():
         width = gates * units
@@ -754,12 +769,14 @@ def past_ceiling(torch) -> None:
                              params, zeros(2, 3, 5).to(dtype)))
         cell = name.split("_")[0]
         seqs = tuple(zeros(4, 3, units) for _ in range(gates - 2))
-        refused(f"{cell}_train_fwd",
-                lambda: cuda_rnn.train_fwd(cell, params, codes, None))
-        refused(f"{cell}_train_bwd",
-                lambda: cuda_rnn.train_bwd(cell, params, codes, None, seqs,
-                                           zeros(2, 3, units),
-                                           zeros(2, units)))
+        launched((f"{cell}_train_fwd", f"{cell}_train_fwd_grid"),
+                 torch.float32,
+                 lambda: cuda_rnn.train_fwd(cell, params, codes, None))
+        launched((f"{cell}_train_bwd", f"{cell}_train_bwd_grid"),
+                 torch.float32,
+                 lambda: cuda_rnn.train_bwd(cell, params, codes, None, seqs,
+                                            zeros(2, 3, units),
+                                            zeros(2, units)))
 
 
 def random_rnn_on_card(torch, seed: int, gates: int, batch: int, steps: int,
@@ -811,7 +828,7 @@ def grid_kernel_phase(torch, rows) -> dict:
     the grid tile launched (counted under the row's and the grid's names,
     no plain version run), its outputs against the plain version's (1e-5
     in float32, 2e-2 in bf16), a window's bits alone, in the batch and
-    repeated, and at :data:`GRID_TIMED` the kernel, the plain version and
+    repeated, and at :data:`GRID_LINE_SHAPE` the kernel, the plain version and
     cuDNN timed over WIDE_REPS with the bound (:func:`grid_bytes`).
     Returns the rows keyed ``(name, label)`` (row 7's bf16
     IO: ``label + "_bf16"``)."""
@@ -874,7 +891,7 @@ def grid_kernel_phase(torch, rows) -> dict:
             if batch > 1:
                 window_bits(torch, lambda rows_: routed(params, rows_),
                             inputs)
-            if label in GRID_TIMED:
+            if label == GRID_LINE_SHAPE:
                 row = grid_times(torch, kind, gates, dtype, params, inputs,
                                  routed, plain)
                 row["max_abs_err"] = err
@@ -1328,12 +1345,16 @@ def time_train_kernels(torch, cell: str, case, errors, reps: int = 20):
     # Multiply-adds of the recurrent products: the forward's h U over both
     # rows; the backward recomputes them and adds d_rp U^T and
     # h_prev^T d_rp (3x).  Bytes: each input read once, each output
-    # written once.
+    # written once; on the grid tile (a step a launch) also U each step
+    # past what the card keeps on chip (grid_bytes).
     batch, steps = codes.shape
     units = params["recurrent"].shape[0]
     fwd_flops = 2.0 * (2 * batch) * steps * units * gates * units
     in_bytes = (codes.numel() + 4 * masks.numel()
                 + 4 * sum(p.numel() for p in params.values()))
+    if cuda_rnn.train_layout(units) == "grid":
+        u_bytes = 4 * gates * units * units
+        in_bytes += grid_bytes(torch, steps, u_bytes, 0) - u_bytes
     seq_bytes = 4 * sum(q.numel() for q in seqs)
     work = {
         "fwd": (fwd_flops, in_bytes + seq_bytes
@@ -1408,7 +1429,96 @@ def train_kernel_phase(torch):
             for name, row in time_train_kernels(torch, cell, case, errors,
                                                 WIDE_REPS).items():
                 results[(name, label)] = row
+    results.update(grid_train_phase(torch))
     return results
+
+
+def grid_train_phase(torch) -> dict:
+    """Past the cluster tiles' ceiling, both cells' training kernels on the
+    grid tile at :data:`GRID_SHAPES` (masks at rate 0.0928): each
+    call counted under the row's name and the grid's; the forward and the
+    gradients against the plain versions with and without masks, a second
+    backward bit for bit (:func:`check_train_kernels`); a window's bits
+    alone, in the batch and repeated; at :data:`GRID_LINE_SHAPE` the
+    kernels, the plain versions and cuDNN timed over WIDE_REPS
+    (:func:`time_train_kernels`); at :data:`GRID_HUGE` (B=2, T=4: g u^2
+    and the reduction's partials past 2^31 elements, weights made on the
+    card) the port's forward and gradients, then, its buffers freed, the
+    plain versions'.  Returns the timed rows keyed ``(name + "_grid",
+    label)``."""
+    from deepgrp_tpu_torch import _build
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    log = (_build.BUILD_DIR / "rnn_grid.log").read_text()
+    for template in ("GridTrainFwdKernel", "GridRecomputeKernel",
+                     "GridBwdStepKernel"):
+        for args, usage in sorted(ptxas_usage(log, template).items()):
+            print(f"ptxas {template}<{args}> (gates): {usage}", flush=True)
+    gen = torch.Generator().manual_seed(2026)
+    results = {}
+    for cell in ("gru", "lstm"):
+        gates = 4 if cell == "lstm" else 3
+        names = [f"{cell}_train_{kind}{grid}" for kind in ("fwd", "bwd")
+                 for grid in ("", "_grid")]
+        for label, (batch, steps, units) in GRID_SHAPES.items():
+            print_train_tile(cuda_rnn, cell, label, batch, steps, units)
+            case = train_case(torch, gen, gates, batch, steps, units)
+            before = cuda_rnn.LAUNCHES.snapshot()
+            errors = check_train_kernels(torch, cell, case, case[2])
+            now = cuda_rnn.LAUNCHES.snapshot()
+            counted = [now.get(n, 0) - before.get(n, 0) for n in names]
+            if counted != [1, 1, 2, 2]:
+                raise AssertionError(f"{cell} {label}: launches "
+                                     f"{dict(zip(names, counted))}")
+            check_train_kernels(torch, cell, case, None)
+            if batch > 1:
+                train_window_bits(torch, cell, case)
+            if label == GRID_LINE_SHAPE:
+                for name, row in time_train_kernels(torch, cell, case, errors,
+                                                    WIDE_REPS).items():
+                    results[(f"{name}_grid", label)] = row
+            del case
+        grid_train_huge(torch, cell, gates, *GRID_HUGE[cell])
+    return results
+
+
+def grid_train_huge(torch, cell: str, gates: int, batch: int, steps: int,
+                    units: int) -> None:
+    """The grid tile's training forward and gradients where g u^2 and the
+    reduction's partials pass 2^31 elements, against the plain versions,
+    run after the port's buffers are freed (to 1e-5 and 1e-4 of each
+    gradient's largest magnitude)."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    params, codes = random_rnn_on_card(torch, units + gates, gates, batch,
+                                       steps, units)
+    gen = torch.Generator(device="cuda").manual_seed(units)
+    keep = 1.0 - FLAGSHIP["dropout"]
+    masks = (torch.rand(gates, 2 * batch, 5, generator=gen, device="cuda")
+             < keep).float() / keep
+    d_avg = torch.randn(batch, steps, units, generator=gen, device="cuda")
+    d_hid = torch.randn(batch, units, generator=gen, device="cuda")
+    got = cuda_rnn.train_fwd(cell, params, codes, masks)
+    grads = cuda_rnn.train_bwd(cell, params, codes, masks, tuple(got[2:]),
+                               d_avg, d_hid)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    want = plain_fwd(params, codes, masks)
+    fwd_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    want_g = plain_bwd(params, codes, masks, *want[2:], d_avg, d_hid)
+    rel = max((g - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(grads, want_g))
+    torch.cuda.synchronize()
+    print(f"  {cell} grid_huge B={batch} T={steps} u={units} (g u^2 = "
+          f"{gates * units * units:,}, partials {(units + 7) * gates * units:,}"
+          f" elements): forward max_abs_err={fwd_err:.3g}; gradients max "
+          f"relative to the largest magnitude {rel:.3g}", flush=True)
+    if not (fwd_err <= TOL and rel <= GRAD_RTOL):
+        raise AssertionError(f"{cell} grid_huge: forward {fwd_err}, "
+                             f"gradients {rel}")
+    del params, got, grads, want, want_g
+    torch.cuda.empty_cache()
 
 
 def print_train_tile(cuda_rnn, cell: str, label: str, batch: int,
@@ -1753,15 +1863,16 @@ def training_phase(torch, np, tmp: str):
 
 
 def wide_training_phase(torch, np, tmp: str) -> dict:
-    """Phase 19: both cells trained at u=256 (the wide layout) and at the
-    training kernels' ceiling (u=1024, the cluster tile) through the CLI,
-    captured; one step against the plain versions; a captured epoch's
-    steps/s and device time by kernel name; a captured ``Trainer.fit``
-    against the eager one; then each trained model predicts the three
-    fixtures on the fused route in float32 and bfloat16.  Returns the
-    launch counts of each run."""
+    """Phase 19: both cells trained at the widths of
+    :data:`TRAIN_CEILING_RUNS` (the wide layout, the cluster tile with one
+    and two units a lane, the grid tile) through the CLI, captured; one
+    step against the plain versions; a captured epoch's steps/s and device
+    time by kernel name; a captured ``Trainer.fit`` against the eager
+    one; then each trained model predicts the fixture of its cell on the
+    fused route in float32 and bfloat16.  Returns the launch counts of
+    each run."""
     from deepgrp_tpu_torch.config import Options
-    from deepgrp_tpu_torch.models import rnn
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
     from deepgrp_tpu_torch.models.keras_io import load_model
     from deepgrp_tpu_torch.models.model import DeepGRPModel
     from deepgrp_tpu_torch.train.sampler import BatchSampler
@@ -1770,7 +1881,7 @@ def wide_training_phase(torch, np, tmp: str) -> dict:
     train_npz, val_npz, bed = write_training_files(np, tmp)
     print(f"wrote the training files in {time.perf_counter() - start:.2f} s",
           flush=True)
-    runs = []  # (name, options, epochs, steps, cell, batch)
+    runs = []  # (name, options, epochs, steps, cell, batch, fixture)
     for units, (depths, rate, batch) in TRAIN_CEILING_RUNS.items():
         wide = {"units": units}
         if rate is not None:
@@ -1780,16 +1891,19 @@ def wide_training_phase(torch, np, tmp: str) -> dict:
                  ("lstm", {**FLAGSHIP, "attention": False, "rnn": "LSTM"},
                   "lstm")), depths):
             runs.append((f"{label}_u{units}", {**opts, **wide}, *depth,
-                         cell, batch))
+                         cell, batch, label))
     launches = {}
-    for name, opts, epochs, steps, cell, batch in runs:
+    for name, opts, epochs, steps, cell, batch, fixture in runs:
         reset_counts()
         model_path, records, seconds = run_train_cli(
             tmp, (train_npz, val_npz, bed), name, ("-b", str(batch)),
             n_epochs=epochs, n_batches=steps, **opts)
-        launches[name] = check_counts({f"{cell}_train_fwd": epochs * steps,
-                                       f"{cell}_train_bwd": epochs * steps,
-                                       f"{cell}_avg": epochs})
+        grid = ["", "_grid"] if cuda_rnn.train_layout(
+            opts["units"]) == "grid" else [""]
+        launches[name] = check_counts({
+            **{f"{cell}_train_{kind}{g}": epochs * steps
+               for kind in ("fwd", "bwd") for g in grid},
+            **{f"{cell}_avg{g}": epochs for g in grid}})
         check_losses(name, records, epochs)
         print(f"{name} train CLI (captured, -b {batch}): {seconds:.3f} s for "
               f"{epochs} x {steps} steps (data, build of the samplers and "
@@ -1825,22 +1939,21 @@ def wide_training_phase(torch, np, tmp: str) -> dict:
             torch, options, train_data,
             load_training_data(np, val_npz, bed, options), tmp, name)
 
-        for fixture in ("gru_att", "gru", "lstm"):
-            rows = {}
-            for precision in ("float32", "bfloat16"):
-                reset_counts()
-                rows[precision] = predict_rows(
-                    REF_ARGS + ["--precision", precision, "--rnn-kernel",
-                                "fused", "predict", model_path,
-                                os.path.join(FIXDIR, f"{fixture}.fa")],
-                    os.path.join(tmp, f"{name}_{fixture}_{precision}.bed"))
-                suffix = "_bf16" if precision == "bfloat16" else ""
-                launches[f"{name} {fixture} {precision}"] = check_path(
-                    f"{cell}_avg{suffix}")
-            same = len(set(rows["float32"]) & set(rows["bfloat16"]))
-            print(f"{name} predict {fixture}: {len(rows['float32'])} BED "
-                  f"rows in float32, {len(rows['bfloat16'])} in bfloat16, "
-                  f"{same} rows in both", flush=True)
+        rows = {}
+        for precision in ("float32", "bfloat16"):
+            reset_counts()
+            rows[precision] = predict_rows(
+                REF_ARGS + ["--precision", precision, "--rnn-kernel",
+                            "fused", "predict", model_path,
+                            os.path.join(FIXDIR, f"{fixture}.fa")],
+                os.path.join(tmp, f"{name}_{fixture}_{precision}.bed"))
+            suffix = "_bf16" if precision == "bfloat16" else ""
+            launches[f"{name} {fixture} {precision}"] = check_path(
+                f"{cell}_avg{suffix}")
+        same = len(set(rows["float32"]) & set(rows["bfloat16"]))
+        print(f"{name} predict {fixture}: {len(rows['float32'])} BED "
+              f"rows in float32, {len(rows['bfloat16'])} in bfloat16, "
+              f"{same} rows in both", flush=True)
     return launches
 
 
@@ -4724,8 +4837,8 @@ def main() -> int:
           f"against the plain versions, the captured fit against the eager "
           f"one, the trained models on the fixtures in float32 and bf16")
     with tempfile.TemporaryDirectory() as wide_tmp:
-        path_launches = wide_training_phase(torch, np, wide_tmp)
-    print(f"launches on phase 19's paths: {path_launches}", flush=True)
+        train_launches = wide_training_phase(torch, np, wide_tmp)
+    print(f"launches on phase 19's paths: {train_launches}", flush=True)
 
     phase(f"20. wide models predict: gru_att and lstm at "
           f"u={', u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
@@ -4756,7 +4869,11 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    for name, replaces in GRID_KERNELS.items():
+    units = GRID_SHAPES[GRID_LINE_SHAPE][2]
+    for name, replaces in GRID_TRAIN_KERNELS.items():
+        run = "lstm" if name.startswith("lstm") else "gru_att"
+        grid_launches[name] = train_launches[f"{run}_u{units}"][name]
+    for name, replaces in {**GRID_KERNELS, **GRID_TRAIN_KERNELS}.items():
         row = timings[(name, GRID_LINE_SHAPE)]
         kernels.append({
             "name": name, "route": "cuda",

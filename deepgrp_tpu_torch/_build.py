@@ -9,7 +9,8 @@ first use, into ``deepgrp_tpu_torch/_build/`` (ignored by git):
   plain C interface loaded with :mod:`ctypes` (no
   PyTorch headers, so a build takes seconds; the libraries build
   independently, so they can build in parallel; ``rnn_grid``: the
-  recurrences past the cluster tiles' ceiling, one tiled product a step;
+  recurrences past the cluster tiles' ceiling, inference and training, one
+  tiled product a step;
   ``mss_stack``: the on-device MSS's candidate-stack scan);
 * ``native/src/*.cc`` with ``g++`` (host MSS and encoding, see
   :mod:`deepgrp_tpu_torch.native`).
@@ -246,7 +247,18 @@ def _declare_rnn_grid(lib: ctypes.CDLL) -> None:
                                 + [_PTR] * 3 + [_I32] + [_PTR] * 6)
     lib.dg_grid_shape.argtypes = [_I32, _I32, _PTR]  # rows, units, int64[4]
     lib.dg_grid_layout.argtypes = [_PTR]  # int[8]
-    for fn in (lib.dg_avg_grid, lib.dg_seq_grid, lib.dg_grid_shape):
+    # codes, batch, steps, masks, kernel, bias, padded U, units (as
+    # dg_gru_train_fwd's head); the forwards: avg, hidden, hseq (and cseq),
+    # h0, h1, carry, stream; the recurrences: padded U^T, hseq (and cseq),
+    # d_avg, d_hidden, d_rp and d_xp (or da), carry, stream
+    head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32]
+    lib.dg_gru_train_fwd_grid.argtypes = head + [_PTR] * 7
+    lib.dg_lstm_train_fwd_grid.argtypes = head + [_PTR] * 8
+    lib.dg_gru_bwd_grid.argtypes = head + [_PTR] * 8
+    lib.dg_lstm_bwd_grid.argtypes = head + [_PTR] * 8
+    for fn in (lib.dg_avg_grid, lib.dg_seq_grid, lib.dg_grid_shape,
+               lib.dg_gru_train_fwd_grid, lib.dg_lstm_train_fwd_grid,
+               lib.dg_gru_bwd_grid, lib.dg_lstm_bwd_grid):
         fn.restype = _I32
     lib.dg_grid_layout.restype = None
 

@@ -1,6 +1,7 @@
 // The recurrences past the cluster tiles' ceiling (u > 4096), for Hopper
 // (sm_90a): the grid tile, a tiled product of every row's h_t with U a step
-// with the gate math in its epilogue.
+// with the gate math in its epilogue; in training also the backward's
+// products (see "Training" below).
 //
 // Replaces, past u=4096, the TPU kernels of the JAX package:
 //   * dg_avg_grid gates=3 (f32 / bf16 out)
@@ -12,6 +13,14 @@
 //   * dg_seq_grid (f32 / bf16 IO)
 //       <- deepgrp_tpu/models/pallas_rnn.py:43 _gru_kernel
 //          (_pallas_gru :78, pallas_gru_apply :126)
+//   * dg_gru_train_fwd_grid, dg_lstm_train_fwd_grid
+//       <- deepgrp_tpu/models/pallas_rnn_train.py:97 _gru_train_fwd_kernel,
+//          :496 _lstm_train_fwd_kernel
+//   * dg_gru_bwd_grid, dg_lstm_bwd_grid (then rnn_train.cu's
+//     dg_train_reduce)
+//       <- deepgrp_tpu/models/pallas_rnn_train.py:135
+//          _gru_train_bwd_kernel, :542 _lstm_train_bwd_kernel (custom VJPs
+//          :422-474, :806-855)
 // Contracts: those of rnn_avg.cu (codes int8 [B, T]; the doubled batch of
 // forward rows and their reverse complements; the row select W[code] plus
 // the input bias, pad code 5 the bias only; Keras gate math, the GRU with
@@ -75,6 +84,37 @@
 //     the T launches.
 //   * Offsets into U, h, the carry and the outputs are size_t: g u^2 passes
 //     2^31 at u=26,755 (GRU) and 23,171 (LSTM).
+//
+// Training (rows 3-6 past u=4096; rnn_train.cu's contract: masked input
+// rows, hseq (cseq) kept for the backward, the backward's gate cotangents
+// summed by its dg_train_reduce).  All float32.
+//   * The forward (GridTrainFwdKernel) is the fused step above with the
+//     masked input row in the epilogue and hseq (cseq) stored, each branch
+//     row in its own time order; T launches.
+//   * The backward's (A), GridRecomputeKernel, one launch: the recurrent
+//     preactivations h_prev U of all 2B T rows (h_prev = hseq one step
+//     back, zero at t = 0) as one product, with the forward's tiles,
+//     slices and order (TileDot), so they carry the forward's bits.  It
+//     writes them into the d_xp (GRU) or da (LSTM) buffer: the owner of a
+//     (row, unit) at step t reads that unit's gates there in (B) and then
+//     writes its cotangents in their place, so no buffer is added.  One
+//     product of 2B T rows fills the card far better than T products of 2B
+//     (197k CTAs at B=64, T=342, u=4608 against 576 a step), which is why
+//     (B) does not recompute.
+//   * The backward's (B), GridBwdStepKernel, T launches in reverse time:
+//     dh of each (row, unit) as the product of step t+1's gate cotangents
+//     (GRU d_rp, LSTM da) with a zero-padded U^T [g][W][W] (K = g W, one
+//     gate's tile), then the cotangent math of rnn_train.cu's header in the
+//     epilogue for every gate of the unit; a carry passes dh z (GRU) or dc
+//     f (LSTM) to step t-1; step T-1 seeds dh with d_hidden / 2.
+//   * Both read their A operand row-major (hseq, the cotangents), so a
+//     gather stages it k-major with 4-byte cp.async copies that write zeros
+//     past the rows and the width (Gather), into a stage padded to 36
+//     floats a k so a warp's copies meet no bank conflict.
+//   * Every sum runs in an order fixed by u: a window's bits do not depend
+//     on the batch, its place or the launch; no atomics.
+//   * Bound: the forward does the inference step's FLOP, the backward
+//     three times as many (A, B and the reduction's dU).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,21 +201,149 @@ __device__ __forceinline__ float AsFloat(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <int kGates, bool kBf16>
+template <int kGates, bool kBf16, int kAStride = kBlockRows>
 __host__ __device__ constexpr size_t StageBytes() {
   return static_cast<size_t>(kBlockK) * kGates * kBlockUnits *
              sizeof(typename Io<kBf16>::Out) +
-         static_cast<size_t>(kBlockK) * kBlockRows * sizeof(float);
+         static_cast<size_t>(kBlockK) * kAStride * sizeof(float);
 }
 
 // Dynamic shared memory of a CTA: the ring of stages, which the slices'
 // sums reuse after the last tile.
-template <int kGates, bool kBf16>
+template <int kGates, bool kBf16, int kAStride = kBlockRows>
 __host__ __device__ constexpr size_t GridSmem() {
-  const size_t ring = kStages * StageBytes<kGates, kBf16>();
+  const size_t ring = kStages * StageBytes<kGates, kBf16, kAStride>();
   const size_t sums = static_cast<size_t>(kSplit - 1) * 16 * kGates *
                       kSliceThreads * sizeof(float);
   return ring > sums ? ring : sums;
+}
+
+// The CTA's tile of one product (GridStepKernel's loop, which that kernel
+// keeps written out so that its machine code stays as it was): acc[r][g][n]
+// = sum over k of A[row, k]
+// B[k][g][unit] for its kBlockRows rows and kBlockUnits units (with every
+// gate g of B), k in n_tiles tiles of kBlockK.  B is a zero-padded matrix
+// [n_tiles kBlockK][kGates][width] of TU; load_a(s_a, tile) issues the
+// cp.async copies that stage the tile's A k-major (s_a[kk kAStride + r]).
+// Slice s of the 256 threads sums k = 32 i + 8 s + j of every tile i in
+// order, the slices' sums are then added in slice order: each sum runs in
+// an order fixed by the tile count alone.  Returns true in the threads of
+// slice 0, which then hold the sums of their rows and units.
+template <int kGates, int kAStride, typename TU, typename LoadA>
+__device__ __forceinline__ bool TileDot(
+    unsigned char *smem, const TU *__restrict__ b_mat, size_t width, int n0,
+    int n_tiles, const LoadA &load_a,
+    float (&acc)[kThreadRows][kGates][kThreadUnits]) {
+  constexpr size_t kUBytes =
+      static_cast<size_t>(kBlockK) * kGates * kBlockUnits * sizeof(TU);
+  constexpr size_t kStage =
+      kUBytes + static_cast<size_t>(kBlockK) * kAStride * sizeof(float);
+  const int tid = threadIdx.x;
+  const int slice = tid / kSliceThreads, own = tid % kSliceThreads;
+  const int ug = own % (kBlockUnits / kThreadUnits);
+  const int rg = own / (kBlockUnits / kThreadUnits);
+
+  const auto load_tile = [&](int stage, int tile) {
+    unsigned char *base = smem + stage * kStage;
+    TU *s_u = reinterpret_cast<TU *>(base);
+    const size_t k0 = static_cast<size_t>(tile) * kBlockK;
+    constexpr int kPer = 16 / sizeof(TU);  // elements a copy
+    constexpr int kRowCopies = kBlockUnits / kPer;
+    constexpr int kCopies = kBlockK * kGates * kRowCopies;
+#pragma unroll
+    for (int c = tid; c < kCopies; c += kThreads) {
+      const int kk = c / (kGates * kRowCopies);
+      const int rest = c % (kGates * kRowCopies);
+      const int g = rest / kRowCopies, piece = rest % kRowCopies;
+      CpAsync16(s_u + (kk * kGates + g) * kBlockUnits + piece * kPer,
+                b_mat + ((k0 + kk) * kGates + g) * width + n0 +
+                    piece * kPer);
+    }
+    load_a(reinterpret_cast<float *>(base + kUBytes), tile);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    CpAsyncCommit();
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    CpAsyncWait<kStages - 2>();
+    __syncthreads();  // the tile landed; every slice is done with tile-1
+    const int next = tile + kStages - 1;
+    if (next < n_tiles) load_tile(next % kStages, next);
+    CpAsyncCommit();
+    const unsigned char *base = smem + (tile % kStages) * kStage;
+    const TU *s_u = reinterpret_cast<const TU *>(base);
+    const float *s_h = reinterpret_cast<const float *>(base + kUBytes);
+#pragma unroll
+    for (int j = 0; j < kBlockK / kSplit; ++j) {
+      const int kk = slice * (kBlockK / kSplit) + j;
+      const float4 hq = *reinterpret_cast<const float4 *>(
+          s_h + kk * kAStride + kThreadRows * rg);
+      const float h[kThreadRows] = {hq.x, hq.y, hq.z, hq.w};
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+        float u[kThreadUnits];
+        LoadU4(s_u + (kk * kGates + g) * kBlockUnits + kThreadUnits * ug, u);
+#pragma unroll
+        for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+          for (int n = 0; n < kThreadUnits; ++n) {
+            acc[r][g][n] = fmaf(h[r], u[n], acc[r][g][n]);
+          }
+        }
+      }
+    }
+  }
+  CpAsyncWait<0>();
+  __syncthreads();  // the ring is free for the slices' sums
+
+  // The slices' sums, added in slice order.
+  constexpr int kAcc = kThreadRows * kGates * kThreadUnits;
+  float *sums = reinterpret_cast<float *>(smem);
+  if (slice > 0) {
+    float *mine = sums + (slice - 1) * kAcc * kSliceThreads + own;
+#pragma unroll
+    for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+#pragma unroll
+        for (int n = 0; n < kThreadUnits; ++n) {
+          mine[((r * kGates + g) * kThreadUnits + n) * kSliceThreads] =
+              acc[r][g][n];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (slice != 0) return false;
+  for (int s = 1; s < kSplit; ++s) {
+    const float *theirs = sums + (s - 1) * kAcc * kSliceThreads + own;
+#pragma unroll
+    for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+#pragma unroll
+        for (int n = 0; n < kThreadUnits; ++n) {
+          acc[r][g][n] +=
+              theirs[((r * kGates + g) * kThreadUnits + n) * kSliceThreads];
+        }
+      }
+    }
+  }
+  return true;
+}
+
+// Stages the tile's h_cur [W][R'] (k-major already) for rows r0..: one
+// 16-byte copy a thread.
+__device__ __forceinline__ void StageH(float *s_h, const float *h_cur,
+                                       size_t rows, int r0, int tile) {
+  const size_t k0 = static_cast<size_t>(tile) * kBlockK;
+  const int kk = threadIdx.x / (kBlockRows / 4);
+  const int piece = threadIdx.x % (kBlockRows / 4);
+  CpAsync16(s_h + kk * kBlockRows + piece * 4,
+            h_cur + (k0 + kk) * rows + r0 + piece * 4);
 }
 
 // One step t of the recurrence for the CTA's rows and units: h_cur (the
@@ -408,6 +576,349 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ------------------------------------------------------ training
+//
+// Rows 3-6 past the cluster tiles (rnn_train.cu's contract: masked input
+// rows, hseq (cseq) stored for the backward, each branch row in its own
+// time order; the backward writes the gate cotangents that dg_train_reduce
+// of rnn_train.cu sums).  All float32.
+
+// Row stride of an operand that a gather stages (kBlockK rows of
+// kBlockRows floats, four more so a warp's 32 four-byte copies of 8
+// columns x 4 rows land in 32 banks).
+constexpr int kGatherStride = kBlockRows + 4;
+constexpr int kCodes = 5;  // W rows: A, C, G, T, N; pad (5) selects none
+
+// The arguments of a training call's launches.
+struct TrainArgs {
+  const int8_t *codes;      // [B, T]
+  const float *masks;       // [g, 2B, 5]; null: scale 1
+  const float *kernel;      // [5, g u]
+  const float *bias;        // GRU [2, 3u] (input, recurrent), LSTM [4u]
+  const float *recurrent;   // the padded U [W][g][W]
+  const float *transposed;  // backward: the padded U^T [g][W][W]
+  float *carry;             // [2][W][R']
+  float *hseq, *cseq;       // [2B, T, u], forward rows first
+  float *avg, *hidden;      // forward: [B, T, u], [B, u]
+  const float *d_avg, *d_hidden;  // backward: [B, T, u], [B, u]
+  float *d_out;             // backward: GRU d_xp, LSTM da [2B, T, g u]
+  float *d_rp;              // backward, GRU: d_rp [2B, T, 3u]
+  int batch, steps, units;
+  int width;                // W
+  int rows;                 // R' (2B rounded up to kBlockRows)
+};
+
+// A 4-byte cp.async; bytes = 0 writes a zero and reads nothing.
+__device__ __forceinline__ void CpAsync4(void *smem, const void *gmem,
+                                         int bytes) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes));
+}
+
+// Stages a tile of a row-major operand k-major (s_a[kk kGatherStride +
+// r]), four bytes a copy: the thread's 4 rows r = r_first + 8 i start at
+// src[i] (null: a zero row) and column `col` of the tile (valid: in
+// range, else zero).  Column kk = lane % 8 + 8 ((tid / 32) % 4), so a
+// warp reads 8 consecutive floats of 4 rows.
+struct Gather {
+  const float *src[4];
+  const float *any;  // a global address for the zero copies
+  int r_first, kk;
+
+  __device__ __forceinline__ explicit Gather(const float *global)
+      : any(global) {
+    const int lane = threadIdx.x % 32;
+    kk = lane % 8 + 8 * ((threadIdx.x / 32) % 4);
+    r_first = lane / 8 + 4 * (threadIdx.x / 128);
+  }
+  __device__ __forceinline__ int Row(int i) const { return r_first + 8 * i; }
+  __device__ __forceinline__ void Stage(float *s_a, size_t col,
+                                        bool valid) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool in = valid && src[i] != nullptr;
+      CpAsync4(s_a + kk * kGatherStride + Row(i),
+               in ? src[i] + col : any, in ? 4 : 0);
+    }
+  }
+};
+
+// The code a branch row reads at its step t: the forward row's base, or
+// the reverse complement of the base T-1-t.
+__device__ __forceinline__ int RowCode(const TrainArgs &a, int w,
+                                       bool reverse, int t) {
+  const size_t at = static_cast<size_t>(w) * a.steps +
+                    (reverse ? a.steps - 1 - t : t);
+  return reverse ? Complement(a.codes[at]) : a.codes[at];
+}
+
+// The masked input row of unit un: x_g = b_in_g + mask[g, row, code]
+// W_g[code] (pad: the bias only; null masks: scale 1); row is the doubled
+// batch's (forward rows first).
+template <int kGates>
+__device__ __forceinline__ void InputRow(const TrainArgs &a, int row,
+                                         int code, int un,
+                                         float (&x)[kGates]) {
+  const size_t units = a.units;
+  const bool has_w = static_cast<unsigned>(code) < kCodes;
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    x[g] = a.bias[g * units + un];
+    if (has_w) {
+      const float scale =
+          a.masks != nullptr
+              ? a.masks[(static_cast<size_t>(g) * 2 * a.batch + row) *
+                            kCodes + code]
+              : 1.0f;
+      x[g] += scale * a.kernel[(code * kGates + g) * units + un];
+    }
+  }
+}
+
+// The training forward's step t (rows 3, 5): GridStepKernel's fused step
+// with the masked input row, and hseq (the LSTM's cseq too) stored.
+template <int kGates>
+__global__ void __launch_bounds__(kThreads, 2)
+    GridTrainFwdKernel(const TrainArgs a, const int t,
+                       const float *__restrict__ h_cur,
+                       float *__restrict__ h_next) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int own = threadIdx.x % kSliceThreads;
+  const int ug = own % (kBlockUnits / kThreadUnits);
+  const int rg = own / (kBlockUnits / kThreadUnits);
+  const int r0 = blockIdx.x * kBlockRows;
+  const int n0 = blockIdx.y * kBlockUnits;
+  const size_t width = a.width, rows = a.rows;
+
+  float acc[kThreadRows][kGates][kThreadUnits] = {};
+  if (!TileDot<kGates, kBlockRows>(
+          smem, a.recurrent, width, n0, a.width / kBlockK,
+          [&](float *s_h, int tile) { StageH(s_h, h_cur, rows, r0, tile); },
+          acc)) {
+    return;
+  }
+
+  const int units = a.units, steps = a.steps, batch = a.batch;
+  const size_t plane = width * rows;
+#pragma unroll
+  for (int n = 0; n < kThreadUnits; ++n) {
+    const int un = n0 + kThreadUnits * ug + n;
+    if (un >= units) break;
+#pragma unroll
+    for (int q = 0; q < kThreadRows / 2; ++q) {
+      const int w = (r0 + kThreadRows * rg) / 2 + q;
+      if (w >= batch) break;
+      float mean = 0.0f;
+#pragma unroll
+      for (int branch = 0; branch < 2; ++branch) {
+        const int r = 2 * q + branch;
+        const int seq_row = branch == 0 ? w : batch + w;
+        float x[kGates];
+        InputRow<kGates>(a, seq_row, RowCode(a, w, branch == 1, t), un, x);
+        const size_t at = static_cast<size_t>(un) * rows + 2 * w + branch;
+        const size_t at_seq =
+            (static_cast<size_t>(seq_row) * steps + t) * units + un;
+        float h = a.carry[at];
+        if constexpr (kGates == 3) {
+          float b_rec[3];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            b_rec[g] = a.bias[(3 + g) * static_cast<size_t>(units) + un];
+          }
+          const float z = Sigmoid(x[0] + (acc[r][0][n] + b_rec[0]));
+          const float rr = Sigmoid(x[1] + (acc[r][1][n] + b_rec[1]));
+          const float hh = tanhf(x[2] + rr * (acc[r][2][n] + b_rec[2]));
+          h = z * h + (1.0f - z) * hh;
+        } else {
+          float &c = a.carry[plane + at];
+          const float ig = Sigmoid(x[0] + acc[r][0][n]);
+          const float fg = Sigmoid(x[1] + acc[r][1][n]);
+          const float gg = tanhf(x[2] + acc[r][2][n]);
+          const float og = Sigmoid(x[3] + acc[r][3][n]);
+          c = fg * c + ig * gg;
+          h = og * tanhf(c);
+          a.cseq[at_seq] = c;
+        }
+        a.carry[at] = h;
+        h_next[at] = h;
+        a.hseq[at_seq] = h;
+        mean += h;
+      }
+      mean *= 0.5f;
+      a.avg[(static_cast<size_t>(w) * steps + t) * units + un] = mean;
+      if (t == steps - 1) a.hidden[static_cast<size_t>(w) * units + un] = mean;
+    }
+  }
+}
+
+// The backward's (A): the recurrent preactivations h_prev U of every
+// (row, t), h_prev = hseq one step back (zero at t = 0), as one product
+// over the 2B T rows n = row T + t, into d_out [2B T, g u].  TileDot with
+// the forward's tiles, slices and order, so each preactivation has the
+// forward's bits.
+template <int kGates>
+__global__ void __launch_bounds__(kThreads, 2)
+    GridRecomputeKernel(const TrainArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int own = threadIdx.x % kSliceThreads;
+  const int ug = own % (kBlockUnits / kThreadUnits);
+  const int rg = own / (kBlockUnits / kThreadUnits);
+  const long long r0 = static_cast<long long>(blockIdx.x) * kBlockRows;
+  const int n0 = blockIdx.y * kBlockUnits;
+  const long long n_rows = 2LL * a.batch * a.steps;
+  const int units = a.units;
+
+  Gather gather(a.hseq);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long n = r0 + gather.Row(i);
+    gather.src[i] = n < n_rows && n % a.steps != 0
+                        ? a.hseq + static_cast<size_t>(n - 1) * units
+                        : nullptr;
+  }
+  float acc[kThreadRows][kGates][kThreadUnits] = {};
+  if (!TileDot<kGates, kGatherStride>(
+          smem, a.recurrent, a.width, n0, a.width / kBlockK,
+          [&](float *s_a, int tile) {
+            const int k = tile * kBlockK + gather.kk;
+            gather.Stage(s_a, k, k < units);
+          },
+          acc)) {
+    return;
+  }
+  const size_t cols = static_cast<size_t>(kGates) * units;
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r) {
+    const long long n = r0 + kThreadRows * rg + r;
+    if (n >= n_rows) break;
+#pragma unroll
+    for (int m = 0; m < kThreadUnits; ++m) {
+      const int un = n0 + kThreadUnits * ug + m;
+      if (un >= units) break;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) {
+        a.d_out[static_cast<size_t>(n) * cols + g * static_cast<size_t>(units) +
+                un] = acc[r][g][m];
+      }
+    }
+  }
+}
+
+// The backward's (B), step t (launched for t = T-1 down to 0): dh of the
+// CTA's rows and units as the product of step t+1's gate cotangents (GRU
+// d_rp, LSTM da, K = g W in the padded U^T's (gate, unit) order) with
+// U^T, then the cotangent math of rnn_train.cu's header for every gate of
+// each unit, reading the preactivations (A) left in d_out at step t and
+// writing the cotangents there.  The carry holds what passes to step t-1
+// beside the product (GRU dh z, LSTM dc f); step T-1 seeds dh with
+// d_hidden / 2 and runs no product.
+template <int kGates>
+__global__ void __launch_bounds__(kThreads, 2)
+    GridBwdStepKernel(const TrainArgs a, const int t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int own = threadIdx.x % kSliceThreads;
+  const int ug = own % (kBlockUnits / kThreadUnits);
+  const int rg = own / (kBlockUnits / kThreadUnits);
+  const int r0 = blockIdx.x * kBlockRows;
+  const int n0 = blockIdx.y * kBlockUnits;
+  const int units = a.units, steps = a.steps, batch = a.batch;
+  const size_t cols = static_cast<size_t>(kGates) * units;
+  const float *next = kGates == 3 ? a.d_rp : a.d_out;
+
+  Gather gather(next);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + gather.Row(i);
+    gather.src[i] = row < 2 * batch
+                        ? next + (static_cast<size_t>(row) * steps + t + 1) *
+                                     cols
+                        : nullptr;
+  }
+  float acc[kThreadRows][1][kThreadUnits] = {};
+  if (!TileDot<1, kGatherStride>(
+          smem, a.transposed, a.width, n0,
+          t == steps - 1 ? 0 : kGates * a.width / kBlockK,
+          [&](float *s_a, int tile) {
+            const int gate = tile * kBlockK / a.width;
+            const int i = tile * kBlockK - gate * a.width + gather.kk;
+            gather.Stage(s_a, gate * static_cast<size_t>(units) + i,
+                         i < units);
+          },
+          acc)) {
+    return;
+  }
+
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r) {
+    const int row = r0 + kThreadRows * rg + r;
+    if (row >= 2 * batch) break;
+    const bool reverse = row >= batch;
+    const int w = reverse ? row - batch : row;
+    const int code = RowCode(a, w, reverse, t);
+#pragma unroll
+    for (int m = 0; m < kThreadUnits; ++m) {
+      const int un = n0 + kThreadUnits * ug + m;
+      if (un >= units) break;
+      float x[kGates], p[kGates];
+      InputRow<kGates>(a, row, code, un, x);
+      const size_t at_d =
+          (static_cast<size_t>(row) * steps + t) * cols + un;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) p[g] = a.d_out[at_d + g * units];
+      const size_t at_prev =
+          (static_cast<size_t>(row) * steps + t - 1) * units + un;
+      const size_t at = static_cast<size_t>(un) * a.rows + row;
+      const size_t at_w = static_cast<size_t>(w) * units + un;
+      const float seed = 0.5f * a.d_hidden[at_w];
+      const float half_avg =
+          0.5f * a.d_avg[(static_cast<size_t>(w) * steps + t) * units + un];
+      if constexpr (kGates == 3) {
+        float b_rec[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          b_rec[g] = a.bias[(3 + g) * static_cast<size_t>(units) + un];
+        }
+        const float h_prev = t > 0 ? a.hseq[at_prev] : 0.0f;
+        const float z = Sigmoid(x[0] + (p[0] + b_rec[0]));
+        const float rr = Sigmoid(x[1] + (p[1] + b_rec[1]));
+        const float rh = p[2] + b_rec[2];
+        const float hh = tanhf(x[2] + rr * rh);
+        const float dh =
+            ((t == steps - 1 ? seed : a.carry[at]) + acc[r][0][m]) +
+            half_avg;
+        const float da_z = dh * (h_prev - hh) * z * (1.0f - z);
+        const float da_h = dh * (1.0f - z) * (1.0f - hh * hh);
+        const float da_r = (da_h * rh) * rr * (1.0f - rr);
+        a.d_out[at_d] = da_z;
+        a.d_out[at_d + units] = da_r;
+        a.d_out[at_d + 2 * units] = da_h;
+        a.d_rp[at_d] = da_z;
+        a.d_rp[at_d + units] = da_r;
+        a.d_rp[at_d + 2 * units] = da_h * rr;
+        a.carry[at] = dh * z;
+      } else {
+        const float c_prev = t > 0 ? a.cseq[at_prev] : 0.0f;
+        const float ig = Sigmoid(x[0] + p[0]);
+        const float fg = Sigmoid(x[1] + p[1]);
+        const float gg = tanhf(x[2] + p[2]);
+        const float og = Sigmoid(x[3] + p[3]);
+        const float tanh_c = tanhf(fg * c_prev + ig * gg);
+        const float dh = ((t == steps - 1 ? seed : 0.0f) + acc[r][0][m]) +
+                         half_avg;
+        const float dc = t == steps - 1 ? 0.0f : a.carry[at];
+        const float d_o = dh * tanh_c;
+        const float dc_t = dc + dh * og * (1.0f - tanh_c * tanh_c);
+        a.d_out[at_d] = (dc_t * gg) * ig * (1.0f - ig);
+        a.d_out[at_d + units] = (dc_t * c_prev) * fg * (1.0f - fg);
+        a.d_out[at_d + 2 * units] = (dc_t * ig) * (1.0f - gg * gg);
+        a.d_out[at_d + 3 * units] = d_o * og * (1.0f - og);
+        a.carry[at] = dc_t * fg;
+      }
+    }
+  }
+}
+
 // {W, R', row blocks, unit blocks} for `rows` rows of width `units`; false
 // if the shape is refused.
 bool Shape(long long rows, long long units, long long *out) {
@@ -419,21 +930,27 @@ bool Shape(long long rows, long long units, long long *out) {
   return true;
 }
 
-// The T launches of one call on `stream`; the first error, else 0.
-template <int kGates, bool kBf16, bool kSeq>
-int RunGrid(GridArgs a, long long rows, void *h0, void *h1, void *stream) {
+// Opts a kernel into `smem` bytes of dynamic shared memory: above 48 kB a
+// kernel only launches after it.
+template <typename Kernel>
+cudaError_t OptIn(Kernel fn, size_t smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The T launches of a step kernel (GridStepKernel, GridTrainFwdKernel) for
+// `rows` rows on `stream`, h_cur and h_next swapping each step; the first
+// error, else 0.
+template <typename Kernel, typename Args>
+int RunSteps(Kernel fn, size_t smem, Args a, long long rows, void *h0,
+             void *h1, void *stream) {
   long long shape[4];
   if (a.batch < 1 || a.steps < 1 || !Shape(rows, a.units, shape)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.width = static_cast<int>(shape[0]);
   a.rows = static_cast<int>(shape[1]);
-  const auto fn = GridStepKernel<kGates, kBf16, kSeq>;
-  constexpr size_t smem = GridSmem<kGates, kBf16>();
-  // Above 48 kB a kernel only launches after this opt-in.
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = OptIn(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(shape[2]),
                   static_cast<unsigned>(shape[3]));
@@ -445,6 +962,71 @@ int RunGrid(GridArgs a, long long rows, void *h0, void *h1, void *stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+template <int kGates, bool kBf16, bool kSeq>
+int RunGrid(GridArgs a, long long rows, void *h0, void *h1, void *stream) {
+  return RunSteps(GridStepKernel<kGates, kBf16, kSeq>,
+                  GridSmem<kGates, kBf16>(), a, rows, h0, h1, stream);
+}
+
+template <int kGates>
+int RunTrainFwd(TrainArgs a, void *h0, void *h1, void *stream) {
+  return RunSteps(GridTrainFwdKernel<kGates>, GridSmem<kGates, false>(), a,
+                  2LL * a.batch, h0, h1, stream);
+}
+
+// A training backward's launches on `stream`: (A) once, then (B) for t =
+// T-1 down to 0; the first error, else 0.
+template <int kGates>
+int RunTrainBwd(TrainArgs a, void *stream) {
+  long long shape[4];
+  const long long n_rows = 2LL * a.batch * a.steps;
+  if (a.batch < 1 || a.steps < 1 || !Shape(2LL * a.batch, a.units, shape) ||
+      n_rows > 0x7fffffffLL - kBlockRows) {  // (A)'s rows a 32-bit grid
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.width = static_cast<int>(shape[0]);
+  a.rows = static_cast<int>(shape[1]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto recompute = GridRecomputeKernel<kGates>;
+  constexpr size_t smem_a = GridSmem<kGates, false, kGatherStride>();
+  cudaError_t err = OptIn(recompute, smem_a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  recompute<<<dim3(static_cast<unsigned>((n_rows + kBlockRows - 1) /
+                                         kBlockRows),
+                   static_cast<unsigned>(shape[3])),
+              kThreads, smem_a, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto step = GridBwdStepKernel<kGates>;
+  constexpr size_t smem_b = GridSmem<1, false, kGatherStride>();
+  err = OptIn(step, smem_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(shape[2]),
+                  static_cast<unsigned>(shape[3]));
+  for (int t = a.steps - 1; t >= 0; --t) {
+    step<<<grid, kThreads, smem_b, s>>>(a, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// The arguments every training entry point shares.
+TrainArgs TrainHead(const void *codes, int batch, int steps,
+                    const void *masks, const void *kernel, const void *bias,
+                    const void *recurrent, int units) {
+  TrainArgs a{};
+  a.codes = static_cast<const int8_t *>(codes);
+  a.masks = static_cast<const float *>(masks);
+  a.kernel = static_cast<const float *>(kernel);
+  a.bias = static_cast<const float *>(bias);
+  a.recurrent = static_cast<const float *>(recurrent);
+  a.batch = batch;
+  a.steps = steps;
+  a.units = units;
+  return a;
 }
 
 }  // namespace
@@ -508,6 +1090,83 @@ int dg_seq_grid(int bf16, const void *x, int batch, int steps, int channels,
   a.units = units;
   return bf16 ? RunGrid<3, true, true>(a, batch, h0, h1, stream)
               : RunGrid<3, false, true>(a, batch, h0, h1, stream);
+}
+
+// Rows 3 and 5 past the cluster tiles: dg_gru_train_fwd's and
+// dg_lstm_train_fwd's arguments (rnn_train.cu), recurrent the zero-padded
+// U [W][g][W] float32, then h0, h1 [W][R'] and carry [2][W][R'] zeroed,
+// as dg_avg_grid's for 2B rows.  T launches on `stream`; returns the
+// first launch's error (0 = launched).
+int dg_gru_train_fwd_grid(const void *codes, int batch, int steps,
+                          const void *masks, const void *kernel,
+                          const void *bias, const void *recurrent, int units,
+                          void *avg, void *hidden, void *hseq, void *h0,
+                          void *h1, void *carry, void *stream) {
+  TrainArgs a =
+      TrainHead(codes, batch, steps, masks, kernel, bias, recurrent, units);
+  a.avg = static_cast<float *>(avg);
+  a.hidden = static_cast<float *>(hidden);
+  a.hseq = static_cast<float *>(hseq);
+  a.carry = static_cast<float *>(carry);
+  return RunTrainFwd<3>(a, h0, h1, stream);
+}
+
+int dg_lstm_train_fwd_grid(const void *codes, int batch, int steps,
+                           const void *masks, const void *kernel,
+                           const void *bias, const void *recurrent,
+                           int units, void *avg, void *hidden, void *hseq,
+                           void *cseq, void *h0, void *h1, void *carry,
+                           void *stream) {
+  TrainArgs a =
+      TrainHead(codes, batch, steps, masks, kernel, bias, recurrent, units);
+  a.avg = static_cast<float *>(avg);
+  a.hidden = static_cast<float *>(hidden);
+  a.hseq = static_cast<float *>(hseq);
+  a.cseq = static_cast<float *>(cseq);
+  a.carry = static_cast<float *>(carry);
+  return RunTrainFwd<4>(a, h0, h1, stream);
+}
+
+// Rows 4 and 6's recurrences past the cluster tiles: the arguments of
+// dg_gru_bwd_recurrence / dg_lstm_bwd_recurrence (rnn_train.cu), recurrent
+// the padded U as above, transposed the padded U^T [g][W][W] (zero past
+// u), carry [W][R'] scratch; the gate cotangents out (d_rp and d_xp, or
+// da, [2B, T, g u]), for dg_train_reduce.  T + 1 launches on `stream`.
+int dg_gru_bwd_grid(const void *codes, int batch, int steps,
+                    const void *masks, const void *kernel, const void *bias,
+                    const void *recurrent, int units, const void *transposed,
+                    const void *hseq, const void *d_avg,
+                    const void *d_hidden, void *d_rp, void *d_xp,
+                    void *carry, void *stream) {
+  TrainArgs a =
+      TrainHead(codes, batch, steps, masks, kernel, bias, recurrent, units);
+  a.transposed = static_cast<const float *>(transposed);
+  a.hseq = static_cast<float *>(const_cast<void *>(hseq));
+  a.d_avg = static_cast<const float *>(d_avg);
+  a.d_hidden = static_cast<const float *>(d_hidden);
+  a.d_rp = static_cast<float *>(d_rp);
+  a.d_out = static_cast<float *>(d_xp);
+  a.carry = static_cast<float *>(carry);
+  return RunTrainBwd<3>(a, stream);
+}
+
+int dg_lstm_bwd_grid(const void *codes, int batch, int steps,
+                     const void *masks, const void *kernel, const void *bias,
+                     const void *recurrent, int units,
+                     const void *transposed, const void *hseq,
+                     const void *cseq, const void *d_avg,
+                     const void *d_hidden, void *da, void *carry,
+                     void *stream) {
+  TrainArgs a =
+      TrainHead(codes, batch, steps, masks, kernel, bias, recurrent, units);
+  a.transposed = static_cast<const float *>(transposed);
+  a.hseq = static_cast<float *>(const_cast<void *>(hseq));
+  a.cseq = static_cast<float *>(const_cast<void *>(cseq));
+  a.d_avg = static_cast<const float *>(d_avg);
+  a.d_hidden = static_cast<const float *>(d_hidden);
+  a.d_out = static_cast<float *>(da);
+  a.carry = static_cast<float *>(carry);
+  return RunTrainBwd<4>(a, stream);
 }
 
 // out[0] W (u padded to whole unit blocks: U's rows and columns, h's k),

@@ -11,6 +11,9 @@
 //   * dg_lstm_bwd_recurrence <- :542 _lstm_train_bwd_kernel (_lstm_bwd_call
 //     + dg_train_reduce         :715, custom VJP pallas_lstm_avg_train
 //                               :806-855)
+// up to u=4096 (kMaxUnits); past it rnn_grid.cu's grid tile runs the
+// forwards and the recurrences, and dg_train_reduce sums its cotangents at
+// every width.
 // Contract (identical to those kernels and to the plain PyTorch versions in
 // deepgrp_tpu_torch/models/rnn.py): the inference contract of rnn_avg.cu,
 // plus Keras input dropout as per-gate scales of the selected input row,
@@ -2436,11 +2439,12 @@ TrainReduceKernel(const float *__restrict__ hseq,
   const bool vectors = blockIdx.y == 0;
   const bool two = r2 != nullptr;
   // Int arithmetic: rows (n_rows < 2^31, dg_train_reduce checks it),
-  // columns (width <= 4 kMaxUnits = 16,384) and the partials' rows; every
-  // element index of hseq, r1, r2 and parts is size_t.  The largest shape
-  // the port gives it: the CLI's B=256, T=342 at u=4096, 175,104 rows of
-  // r1 x 16,384 columns (LSTM) = 2.87e9 elements, past 2^31
-  // (tests/test_torch_cuda.py::test_train_reduce_past_2_31_elements).
+  // columns (width = g u, at most 4 x the grid tile's widest, 2,097,120)
+  // and the partials' rows; every element index of hseq, r1, r2 and parts
+  // is size_t.  Past 2^31 elements: the CLI's B=256, T=342 at u=4096,
+  // 175,104 rows of r1 x 16,384 columns (LSTM) = 2.87e9, and the grid
+  // tile's GRU u=26,800 / LSTM u=23,200, whose partials [u+7, g u] pass
+  // 2^31 (tests/test_torch_cuda.py::test_train_reduce_past_2_31_elements).
   const int n_rows = 2 * batch * steps;
   const int n_begin = blockIdx.z * per_split;
   const int n_stop = min(n_begin + per_split, n_rows);
@@ -2572,29 +2576,33 @@ TrainReduceKernel(const float *__restrict__ hseq,
 }
 
 // Adds the splits' partials in order and scatters the rows to the
-// gradients (a null bias pointer drops its row).
+// gradients (a null bias pointer drops its row).  Element offsets are
+// size_t: (u + 7) g u passes 2^31 at u=26,752 (GRU) and 23,167 (LSTM), so
+// the threads stride over the elements.
 __global__ void SumReducePartsKernel(const float *__restrict__ parts,
                                      int n_parts, int units, int width,
                                      float *__restrict__ d_recurrent,
                                      float *__restrict__ d_bias_1,
                                      float *__restrict__ d_bias_2,
                                      float *__restrict__ d_kernel) {
-  const int n_elem = (units + kVecRows) * width;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elem) return;
-  float acc = 0.0f;
-  for (int p = 0; p < n_parts; ++p) {
-    acc += parts[static_cast<size_t>(p) * n_elem + e];
-  }
-  const int row = e / width, j = e - row * width;
-  if (row < units) {
-    d_recurrent[e] = acc;
-  } else if (row == units) {
-    if (d_bias_1 != nullptr) d_bias_1[j] = acc;
-  } else if (row == units + 1) {
-    if (d_bias_2 != nullptr) d_bias_2[j] = acc;
-  } else {
-    d_kernel[(row - units - 2) * width + j] = acc;
+  const size_t n_elem = static_cast<size_t>(units + kVecRows) * width;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < n_elem; e += stride) {
+    float acc = 0.0f;
+    for (int p = 0; p < n_parts; ++p) {
+      acc += parts[static_cast<size_t>(p) * n_elem + e];
+    }
+    const size_t row = e / width, j = e - row * width;
+    if (row < static_cast<size_t>(units)) {
+      d_recurrent[e] = acc;
+    } else if (row == static_cast<size_t>(units)) {
+      if (d_bias_1 != nullptr) d_bias_1[j] = acc;
+    } else if (row == static_cast<size_t>(units) + 1) {
+      if (d_bias_2 != nullptr) d_bias_2[j] = acc;
+    } else {
+      d_kernel[(row - units - 2) * width + j] = acc;
+    }
   }
 }
 
@@ -2834,8 +2842,8 @@ int dg_train_reduce(const void *hseq, const void *r1, const void *r2,
                     int steps, int units, int gates, int splits,
                     void *parts, void *d_kernel, void *d_bias_1,
                     void *d_bias_2, void *d_recurrent, void *stream) {
-  if (batch <= 0 || steps <= 0 || units <= 0 || units > kMaxUnits ||
-      splits <= 0 || gates < kGruGates || gates > kMaxGates) {
+  if (batch <= 0 || steps <= 0 || units <= 0 || splits <= 0 ||
+      gates < kGruGates || gates > kMaxGates) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2855,9 +2863,13 @@ int dg_train_reduce(const void *hseq, const void *r1, const void *r2,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kThreads = 256;
-  const int n_elem = (units + kVecRows) * width;  // at most 67,223,552
-  SumReducePartsKernel<<<(n_elem + kThreads - 1) / kThreads, kThreads, 0,
-                         s>>>(
+  constexpr size_t kMaxBlocks = 1 << 20;  // then the threads stride
+  const size_t n_elem = static_cast<size_t>(units + kVecRows) * width;
+  const size_t blocks = (n_elem + kThreads - 1) / kThreads;
+  SumReducePartsKernel<<<static_cast<unsigned>(blocks < kMaxBlocks
+                                                   ? blocks
+                                                   : kMaxBlocks),
+                         kThreads, 0, s>>>(
       static_cast<const float *>(parts), splits, units, width,
       static_cast<float *>(d_recurrent), static_cast<float *>(d_bias_1),
       static_cast<float *>(d_bias_2), static_cast<float *>(d_kernel));

@@ -25,11 +25,16 @@ sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
-the widths of the inference kernels' cluster tiles, up to u=4096
-(:data:`TRAIN_MAX_UNITS`): one CTA a window up to u=256, past it a
-window's units split over a thread-block cluster, past u=1024 several
-units a lane (:func:`train_layout` names the layout of a width,
-:func:`train_tile` what the card launches).
+every width, as the inference kernels do: one CTA a window up to u=256,
+past it a window's units split over a thread-block cluster up to
+:data:`CLUSTER_MAX_UNITS` (past u=1024 several units a lane), and past
+it the grid tile (``csrc/rnn_grid.cu``: the forward one tiled product of
+every row's ``h`` with ``U`` a step; the backward one product of every
+``(row, t)``'s ``h_prev`` with ``U`` that recomputes the gates, then one
+product a step, in reverse time, of the gate cotangents with ``U^T``);
+the reduction kernel serves every layout.  :func:`train_layout` names the
+layout of a width, :func:`train_tile` what the card launches; only u <= 0
+is refused.
 
 For a tensor on the CPU a wrapper runs the plain version
 (:mod:`deepgrp_tpu_torch.models.rnn`); for a CUDA tensor it launches the
@@ -39,9 +44,11 @@ launches by name: ``gru_avg``, ``lstm_avg``, ``gru_avg_bf16``,
 ``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
 counts once, for either cell: it is the recurrence kernel, the reduction
 kernel and the sum of the reduction's partials).  A call of the grid tile
-(its T step launches) counts once under its row's name and once under
+(its step launches) counts once under its row's name and once under
 the grid's: ``gru_avg_grid``, ``lstm_avg_grid``, ``gru_avg_grid_bf16``,
-``lstm_avg_grid_bf16``, ``gru_seq_grid`` (either dtype).
+``lstm_avg_grid_bf16``, ``gru_seq_grid`` (either dtype),
+``gru_train_fwd_grid``, ``gru_train_bwd_grid``, ``lstm_train_fwd_grid``,
+``lstm_train_bwd_grid``.
 """
 
 from __future__ import annotations
@@ -244,6 +251,18 @@ def _grid_buffers(lib: ctypes.CDLL, rows: int, units: int, gates: int,
     h = torch.zeros(2, width, rows_p, device=device)
     carry = torch.zeros(2, width, rows_p, device=device)
     return padded, h, carry
+
+
+def _grid_transposed(recurrent: torch.Tensor, gates: int,
+                     width: int) -> torch.Tensor:
+    """``U^T`` zero-padded to ``[gates, W, W]`` (entry ``[g, i, k] =
+    U[k, g u + i]``), the training backward's operand beside
+    :func:`_grid_buffers`' padded ``U``, made on the current stream."""
+    units = recurrent.shape[0]
+    padded = torch.zeros(gates, width, width, device=recurrent.device)
+    padded[:, :units, :units] = recurrent.view(units, gates,
+                                               units).permute(1, 2, 0)
+    return padded
 
 
 def _grid_layout() -> list:
@@ -563,12 +582,6 @@ def _launch_seq(params: RnnParams, x: torch.Tensor, grid: bool = False
 # -- training kernels --------------------------------------------------------
 
 
-#: The widest layer the training kernels take (``csrc/rnn_cluster.cuh``
-#: ``kMaxUnits``, which ``rnn_train.cu`` reads: a window's units over a
-#: cluster of 16 CTAs, past u=1024 two or four units a lane); the
-#: inference kernels' cluster tiles stop there too, and past it predict
-#: runs the grid tile, training nothing.
-TRAIN_MAX_UNITS = 4096
 #: The widest layer of the training kernels' window tile (4u threads a
 #: CTA, at most 1,024).
 TRAIN_WINDOW_UNITS = 256
@@ -580,12 +593,14 @@ def train_layout(units: int) -> str:
     through L1/L2, u <= 128) or ``"wide"`` (1,024 threads at most, one
     CTA an SM; the backward stages the gate cotangents and forms dh_prev
     from U's rows, u <= 256), then ``"cluster"`` (a window's units over a
-    thread-block cluster, past u=1024 two or four units a lane, u <= 4096).
-    Raises ``ValueError`` naming the width and the ceiling past
-    :data:`TRAIN_MAX_UNITS`."""
-    if not 0 < units <= TRAIN_MAX_UNITS:
-        raise ValueError(f"the training kernels take widths up to their "
-                         f"ceiling u={TRAIN_MAX_UNITS}, not u={units}")
+    thread-block cluster, past u=1024 two or four units a lane, up to
+    :data:`CLUSTER_MAX_UNITS`), past it ``"grid"`` (the grid tile).
+    Raises ``ValueError`` for u <= 0."""
+    if units <= 0:
+        raise ValueError(f"the training kernels take widths u >= 1, not "
+                         f"u={units}")
+    if _grid_route(units):
+        return "grid"
     if units > TRAIN_WINDOW_UNITS:
         return "cluster"
     return "registers" if units <= 64 else "l2" if units <= 128 else "wide"
@@ -606,7 +621,7 @@ def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
     """
     name, gates = f"{cell}_train_fwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
-    train_layout(units)  # raises past the ceiling
+    grid = train_layout(units) == "grid"  # raises for u <= 0
     _check_masks(name, gates, masks, batch, codes.device)
     avg = _empty(codes.device, batch, steps, units)
     hidden = _empty(codes.device, batch, units)
@@ -615,17 +630,29 @@ def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
             for _ in range(n_seqs)]
     if batch == 0:
         return (avg, hidden, *seqs)
-    lib = _build.load_kernels("rnn_train")
+    head = (codes.data_ptr(), batch, steps, _ptr(masks),
+            params["kernel"].data_ptr(), params["bias"].data_ptr())
+    outs = (avg.data_ptr(), hidden.data_ptr(),
+            *(seq.data_ptr() for seq in seqs))
+    lib = _build.load_kernels("rnn_grid" if grid else "rnn_train")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = getattr(lib, f"dg_{name}")(
-            codes.data_ptr(), batch, steps, _ptr(masks),
-            params["kernel"].data_ptr(), params["bias"].data_ptr(),
-            params["recurrent"].data_ptr(), units,
-            avg.data_ptr(), hidden.data_ptr(),
-            *(seq.data_ptr() for seq in seqs), ctypes.c_void_p(stream))
-    _raise_on(lib, err, name, f"B={batch} T={steps} u={units}")
+        if grid:
+            recurrent, h, carry = _grid_buffers(
+                lib, 2 * batch, units, gates, params["recurrent"],
+                torch.float32)
+            err = getattr(lib, f"dg_{name}_grid")(
+                *head, recurrent.data_ptr(), units, *outs, h[0].data_ptr(),
+                h[1].data_ptr(), carry.data_ptr(), ctypes.c_void_p(stream))
+        else:
+            err = getattr(lib, f"dg_{name}")(
+                *head, params["recurrent"].data_ptr(), units, *outs,
+                ctypes.c_void_p(stream))
+    _raise_on(lib, err, name + (" (grid)" if grid else ""),
+              f"B={batch} T={steps} u={units}")
     LAUNCHES.add(name)
+    if grid:
+        LAUNCHES.add(f"{name}_grid")
     return (avg, hidden, *seqs)
 
 
@@ -640,7 +667,7 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
     and counts one launch."""
     name, gates = f"{cell}_train_bwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
-    train_layout(units)  # raises past the ceiling
+    grid = train_layout(units) == "grid"  # raises for u <= 0
     _check_masks(name, gates, masks, batch, codes.device)
     for key, seq in zip(("hseq", "cseq"), seqs):
         _check_f32(name, key, seq, (2 * batch, steps, units), codes.device)
@@ -656,6 +683,8 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
                                  d_hidden)
     _train_reduce(seqs[0], codes, masks, gates, grads, *cotangents)
     LAUNCHES.add(name)
+    if grid:
+        LAUNCHES.add(f"{name}_grid")
     return grads[0], grads[1], grads[2]
 
 
@@ -665,23 +694,38 @@ def _bwd_recurrence(cell: str, params: RnnParams, codes: torch.Tensor,
                     d_hidden: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The backward's recurrence kernel of ``cell`` on checked inputs (see
     :func:`train_bwd`): the gate cotangents, ``(da [2B, T, 4u],)`` for
-    LSTM, ``(d_rp, d_xp)`` ``[2B, T, 3u]`` each for GRU."""
+    LSTM, ``(d_rp, d_xp)`` ``[2B, T, 3u]`` each for GRU.  Past
+    :data:`CLUSTER_MAX_UNITS` the grid tile's: its recompute of the gates
+    writes their preactivations into ``da`` (``d_xp``), which each step
+    then overwrites with the cotangents."""
     batch, steps = codes.shape
     units = params["recurrent"].shape[0]
     gates = 4 if cell == "lstm" else 3
+    grid = _grid_route(units)
     outs = tuple(_empty(codes.device, 2 * batch, steps, gates * units)
                  for _ in range(1 if cell == "lstm" else 2))
-    lib = _build.load_kernels("rnn_train")
+    head = (codes.data_ptr(), batch, steps, _ptr(masks),
+            params["kernel"].data_ptr(), params["bias"].data_ptr())
+    ins = (*(seq.data_ptr() for seq in seqs), d_avg.data_ptr(),
+           d_hidden.data_ptr(), *(out.data_ptr() for out in outs))
+    lib = _build.load_kernels("rnn_grid" if grid else "rnn_train")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = getattr(lib, f"dg_{cell}_bwd_recurrence")(
-            codes.data_ptr(), batch, steps, _ptr(masks),
-            params["kernel"].data_ptr(), params["bias"].data_ptr(),
-            params["recurrent"].data_ptr(), units,
-            *(seq.data_ptr() for seq in seqs), d_avg.data_ptr(),
-            d_hidden.data_ptr(), *(out.data_ptr() for out in outs),
-            ctypes.c_void_p(stream))
-    _raise_on(lib, err, f"{cell}_train_bwd (recurrence)",
+        if grid:
+            recurrent, _, carry = _grid_buffers(
+                lib, 2 * batch, units, gates, params["recurrent"],
+                torch.float32)
+            transposed = _grid_transposed(params["recurrent"], gates,
+                                          recurrent.shape[0])
+            err = getattr(lib, f"dg_{cell}_bwd_grid")(
+                *head, recurrent.data_ptr(), units, transposed.data_ptr(),
+                *ins, carry.data_ptr(), ctypes.c_void_p(stream))
+        else:
+            err = getattr(lib, f"dg_{cell}_bwd_recurrence")(
+                *head, params["recurrent"].data_ptr(), units, *ins,
+                ctypes.c_void_p(stream))
+    _raise_on(lib, err, f"{cell}_train_bwd ("
+              f"{'grid ' if grid else ''}recurrence)",
               f"B={batch} T={steps} u={units}")
     return outs
 
@@ -740,7 +784,7 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
                device: Optional[torch.device] = None) -> Dict[str, int]:
     """The tile of ``cell``'s training kernels (the forward and the
     backward's recurrence) on a CUDA device: its layout
-    (:func:`train_layout`, ``"refused"`` past the ceiling) and threads a
+    (:func:`train_layout`, ``"refused"`` for u <= 0) and threads a
     CTA (four per unit the CTA owns, on the cluster tile four per lane
     slot).  On the window tile (u <= 256): CTAs (one a window), resident
     CTAs an SM of each kernel (0 where it cannot launch) and the warps an
@@ -748,14 +792,29 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     (``fwd_...``, ``bwd_...``; the library picks their layouts apart): CTAs
     a cluster, windows a cluster, units a lane (past u=1024 two or four:
     a CTA's units over its lane slots), threads a CTA, clusters, and the
-    clusters the card runs at once."""
-    lib = _build.load_kernels("rnn_train")
+    clusters the card runs at once.  On the grid tile (past
+    :data:`CLUSTER_MAX_UNITS`), from its library: rows and units a CTA,
+    threads a CTA, the CTAs of a forward or backward step, and the CTAs
+    of the backward's recompute of the gates (over the ``2B T`` rows)."""
     device = device or torch.device("cuda")
-    if not 0 < units <= TRAIN_MAX_UNITS:
+    if units <= 0:
         return {"layout": "refused", "threads": 4 * units, "ctas": batch,
                 **{f"{kind}_ctas_per_sm": 0
                    for kind, _ in _WINDOW_KERNELS[cell]}}
     layout = train_layout(units)
+    if layout == "grid":
+        shape = (ctypes.c_longlong * 4)()
+        if not _build.load_kernels("rnn_grid").dg_grid_shape(
+                2 * batch, units, shape):
+            raise ValueError(f"{cell}_train_fwd_grid refuses u={units} at "
+                             f"B={batch}")
+        grid = _grid_layout()
+        return {"layout": layout, "rows_a_cta": min(grid[0], 2 * batch),
+                "units_a_cta": grid[1], "threads": grid[4],
+                "ctas_a_step": shape[2] * shape[3],
+                "recompute_ctas": (-(-2 * batch * steps // grid[0])
+                                   * shape[3])}
+    lib = _build.load_kernels("rnn_train")
     if layout == "cluster":
         tile: Dict[str, object] = {"layout": layout}
         out = (ctypes.c_int * 4)()

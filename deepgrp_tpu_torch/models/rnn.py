@@ -8,7 +8,8 @@ compute (and what the JAX package's
 the doubled batch of forward rows and their reverse complements, with Keras
 gate math, and returns the branch average.  The ``*_train_fwd_plain`` /
 ``*_train_bwd_plain`` functions are the same for the training kernels of
-``csrc/rnn_train.cu`` (the JAX package's ``pallas_rnn_train.py``): a
+``csrc/rnn_train.cu`` (past u=4096 ``csrc/rnn_grid.cu``; the JAX package's
+``pallas_rnn_train.py``): a
 forward with per-gate input dropout masks that also returns the hidden (and
 cell) sequence, and an explicit reverse loop over T for the gradients.
 They are loops over T in torch ops: the CPU path of

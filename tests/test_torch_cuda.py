@@ -16,15 +16,19 @@ flagship training shape (256 windows, T=342, u=60), a ragged batch and
 tiny widths (also at u=96 and u=128, past the register tile, at
 u=129, 200 and 256 on the wide layout, and from u=257 on the cluster
 tile, past u=1024 with two or four units a lane, ragged at u=1025 and
-3000, up to the ceiling u=4096), with
+3000, up to the cluster tile's ceiling u=4096, and past it on the grid
+tile at u=4097, 5000 and 8192), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
-runs give bitwise-equal gradients (no float atomics); on the cluster tile
-a window's bits are the same alone and in a batch, and u=4097 is refused
-before any launch.  The reduction kernel alone matches the plain
-reduction at u=4096, and at the CLI's B=256, T=342 and u=4096, where its
-cotangents hold more than 2^31 elements.  A captured step outlasts a dead graph freed around
+runs give bitwise-equal gradients (no float atomics); on the cluster and
+grid tiles a window's bits are the same alone and in a batch (on the grid
+tile under a CUDA graph's capture too); only u <= 0 is refused, before any
+launch; the grid tile's training kernels also run at GRU u=26,800 and
+LSTM u=23,200 (g u^2 and the reduction's partials past 2^31 elements).
+The reduction kernel alone matches the plain reduction at u=4096, at the
+CLI's B=256, T=342 and u=4096, where its cotangents hold more than 2^31
+elements, and at GRU u=26,800, where its partials do.  A captured step outlasts a dead graph freed around
 it.
 
 The fused inference kernels (one register tile for both cells up to
@@ -39,8 +43,8 @@ dtypes, and the scan route's GRU) runs the grid tile (``csrc/rnn_grid.cu``:
 one tiled product a step): held against the plain versions at u=4097,
 5000 and 8192 (one window, a ragged batch, T <= 32), at GRU u=26,800 and
 LSTM u=23,200 (g u^2 past 2^31 elements), with a window's bits alone, in
-a batch and repeated, and under a CUDA graph's capture; the training
-kernels still refuse u=4097.  ``cuda_rnn.avg_layout``'s tile agrees with
+a batch and repeated, and under a CUDA graph's capture.
+``cuda_rnn.avg_layout``'s tile agrees with
 the library's layout at every width up to 4096 and past it.
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
@@ -309,9 +313,10 @@ def test_window_tile_quadruples_warps_per_sm(device, cell):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_backward_width_ceiling(device, cell):
     """The training kernels (forward and backward recurrence) launch up
-    to u=4096 at T=342 (4u threads a CTA, the wide layout past u=128, the
-    cluster tile past u=256, past u=1024 two units a lane and past u=2048
-    four, at most 256 threads a CTA) and not at u=4097."""
+    to u=4096 at T=342 on their window and cluster tiles (4u threads a
+    CTA, the wide layout past u=128, the cluster tile past u=256, past
+    u=1024 two units a lane and past u=2048 four, at most 256 threads a
+    CTA), and past it on the grid tile, whose tile the library reports."""
     for units, layout in ((128, "l2"), (129, "wide"), (256, "wide")):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == layout, tile
@@ -329,29 +334,54 @@ def test_backward_width_ceiling(device, cell):
             assert tile[f"{kind}_clusters"] == -(-8 // tile[
                 f"{kind}_windows"]), tile
             assert tile[f"{kind}_clusters_at_once"] >= 1, tile
-    tile = cuda_rnn.train_tile(cell, 8, 4097, 342)
+    for batch, units in ((8, 4097), (64, 4608), (3, 8192)):
+        tile = cuda_rnn.train_tile(cell, batch, units, 342)
+        assert tile == {
+            "layout": "grid", "rows_a_cta": min(32, 2 * batch),
+            "units_a_cta": 32, "threads": 256,
+            "ctas_a_step": cuda_rnn.grid_tile(2 * batch, units)[1],
+            "recompute_ctas": -(-2 * batch * 342 // 32) * -(-units // 32)}
+    tile = cuda_rnn.train_tile(cell, 8, 0, 342)
     assert tile["layout"] == "refused"
     assert tile["bwd_ctas_per_sm"] == 0 and tile["fwd_ctas_per_sm"] == 0
 
 
 def test_gru_backward_refuses_u129(device):
     """Named for the first ceiling (u=128): both cells' forward and
-    backward now raise past u=4096, naming the width and the ceiling, and
-    launch nothing."""
-    batch, steps, units = 2, 5, 4097
+    backward now take every width (u=4097 launches the grid tile) and
+    refuse only u <= 0, naming it, before any launch."""
+    batch, steps = 2, 5
     for cell, gates in (("gru", 3), ("lstm", 4)):
-        params, codes = random_case(5, gates, batch, steps, units, device)
-        seqs = tuple(torch.zeros(2 * batch, steps, units, device=device)
-                     for _ in range(gates - 2))
-        launches = cuda_rnn.LAUNCHES.snapshot()
-        with pytest.raises(ValueError, match="u=4096, not u=4097"):
-            cuda_rnn.train_fwd(cell, params, codes, None)
-        with pytest.raises(ValueError, match="u=4096, not u=4097"):
-            cuda_rnn.train_bwd(cell, params, codes, None, seqs,
-                               torch.zeros(batch, steps, units,
-                                           device=device),
-                               torch.zeros(batch, units, device=device))
-        assert cuda_rnn.LAUNCHES.snapshot() == launches
+        for units in (0, 4097):
+            params, codes = random_case(5, gates, batch, steps,
+                                        max(units, 1), device)
+            if units == 0:  # random_case draws U at scale u^-0.5
+                params = {"kernel": torch.zeros(5, 0, device=device),
+                          "recurrent": torch.zeros(0, 0, device=device),
+                          "bias": torch.zeros(*((2, 0) if gates == 3
+                                                else (0,)), device=device)}
+            seqs = tuple(torch.zeros(2 * batch, steps, units, device=device)
+                         for _ in range(gates - 2))
+            launches = cuda_rnn.LAUNCHES.snapshot()
+
+            def run():
+                cuda_rnn.train_fwd(cell, params, codes, None)
+                cuda_rnn.train_bwd(cell, params, codes, None, seqs,
+                                   torch.zeros(batch, steps, units,
+                                               device=device),
+                                   torch.zeros(batch, units, device=device))
+                torch.cuda.synchronize()
+
+            if units == 0:
+                with pytest.raises(ValueError, match="not u=0"):
+                    run()
+                assert cuda_rnn.LAUNCHES.snapshot() == launches
+                continue
+            run()
+            now = cuda_rnn.LAUNCHES.snapshot()
+            for name in (f"{cell}_train_fwd", f"{cell}_train_bwd",
+                         f"{cell}_train_fwd_grid", f"{cell}_train_bwd_grid"):
+                assert now.get(name, 0) == launches.get(name, 0) + 1, name
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
@@ -426,21 +456,27 @@ def test_train_reduce_matches_plain_u4096(device, cell, masked):
         assert torch.equal(g, a)
 
 
-def test_train_reduce_past_2_31_elements(device):
-    """The reduction kernel at the CLI's B=256, T=342 and u=4096 (LSTM):
-    r1 holds 175,104 x 16,384 = 2.87e9 floats, past 2^31, so its element
-    indices must not be int products; against the plain reduction (1e-4 of
-    the largest magnitude).  Needs about 20 GB of device memory."""
-    gates, batch, steps, units = 4, 256, 342, 4096
+@pytest.mark.parametrize("gates,batch,steps,units", [
+    (4, 256, 342, 4096), (3, 2, 4, 26800)])
+def test_train_reduce_past_2_31_elements(device, gates, batch, steps,
+                                         units):
+    """The reduction kernel past 2^31 elements: at the CLI's B=256, T=342
+    and u=4096 (LSTM) r1 holds 175,104 x 16,384 = 2.87e9 floats; at the
+    grid tile's GRU u=26,800 (B=2, T=4) the partials [u+7, 3u] hold 2.16e9
+    (summed by SumReducePartsKernel with 64-bit offsets); against the
+    plain reduction (1e-4 of the largest magnitude).  Needs about 20 GB of
+    device memory."""
     hseq, cots, codes, _ = random_reduce_case(7, gates, batch, steps, units,
                                               False, device)
-    assert cots[0].numel() > 2 ** 31
-    grads = [torch.empty(shape, device=device)
-             for shape in ((5, 4 * units), (units, 4 * units), (4 * units,))]
+    assert max(cots[0].numel(), (units + 7) * gates * units) > 2 ** 31
+    shapes = ((5, gates * units), (units, gates * units),
+              (2, 3 * units) if gates == 3 else (4 * units,))
+    grads = [torch.empty(shape, device=device) for shape in shapes]
     cuda_rnn._train_reduce(hseq, codes, None, gates, grads, *cots)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     assert_grads_close(grads, rnn.train_reduce_plain(hseq, cots[0], codes,
-                                                     None))
+                                                     None, *cots[1:]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1126,6 +1162,121 @@ def test_grid_shape_matches_python(device):
         assert shape[0] == -(-units // 32) * 32
         assert shape[1] == -(-rows // 32) * 32
     assert lib.dg_grid_shape(1, 0, shape) == 0
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("batch,steps,units", GRID_SHAPES)
+def test_grid_train_matches_plain(device, cell, masked, batch, steps,
+                                  units):
+    """Past u=4096 the training kernels run the grid tile (each call
+    counted under the row's name and the grid's) and agree with their
+    plain versions as on the other tiles: the forward at atol 1e-5, the
+    gradients within 1e-4 of their largest magnitude, a second backward
+    bit for bit."""
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    check_train_pair(device, cell, masked, batch, steps, units)
+    now = cuda_rnn.LAUNCHES.snapshot()
+    for kind, count in (("fwd", 1), ("bwd", 2)):
+        name = f"{cell}_train_{kind}_grid"
+        assert now.get(name, 0) == launches.get(name, 0) + count, name
+
+
+def grid_train_run(cell, params, codes, masks, d_avg, d_hid):
+    """The training forward's outputs and the backward recurrence's gate
+    cotangents of one call."""
+    out = cuda_rnn.train_fwd(cell, params, codes, masks)
+    return out + cuda_rnn._bwd_recurrence(cell, params, codes, masks,
+                                          tuple(out[2:]), d_avg, d_hid)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_grid_train_bits(device, cell):
+    """On the grid tile a window's training forward and gate cotangents
+    have the same bits alone, inside a batch of 19 (another row block) and
+    repeated, and a captured call (its launches in a CUDA graph, buffers
+    from the graph's pool) replayed on new inputs equals an eager call bit
+    for bit."""
+    gates = 4 if cell == "lstm" else 3
+    batch, steps, units = 19, 20, 4100
+    params, codes = random_case(units, gates, batch, steps, units, device)
+    masks = random_masks(units, gates, batch, device)
+    rng = np.random.default_rng(units)
+    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                         dtype=torch.float32, device=device)
+    d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                         dtype=torch.float32, device=device)
+
+    def rows(lo, hi):
+        sub_masks = masks.view(gates, 2, batch, 5)[:, :, lo:hi].reshape(
+            gates, 2 * (hi - lo), 5).contiguous()
+        return (codes[lo:hi].contiguous(), sub_masks,
+                d_avg[lo:hi].contiguous(), d_hid[lo:hi].contiguous())
+
+    full = grid_train_run(cell, params, *rows(0, batch))
+    again = grid_train_run(cell, params, codes, masks, d_avg, d_hid)
+    alone = grid_train_run(cell, params, *rows(11, 12))
+    torch.cuda.synchronize()
+    for a, b in zip(full, again):
+        assert torch.equal(a, b)
+    assert torch.equal(alone[0], full[0][11:12])
+    assert torch.equal(alone[1], full[1][11:12])
+    for got, want in zip(alone[2:], full[2:]):
+        assert torch.equal(got, want[[11, batch + 11]])
+
+    static = [t.clone() for t in rows(0, 4)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        grid_train_run(cell, params, *static)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = grid_train_run(cell, params, *static)
+    other = rows(5, 9)
+    for dst, src in zip(static, other):
+        dst.copy_(src)
+    graph.replay()
+    eager = grid_train_run(cell, params, *other)
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell,units", [("gru", 26800), ("lstm", 23200)])
+def test_grid_train_past_2_31_elements(device, cell, units):
+    """Where U (g u^2) and the reduction's partials ((u + 7) g u) hold more
+    than 2^31 elements, B=2, T=4, masks at rate 0.0928: the grid tile's
+    training forward and gradients against the plain versions, run after
+    the port's buffers are freed (atol 1e-5; 1e-4 of each gradient's
+    largest magnitude)."""
+    gates = 4 if cell == "lstm" else 3
+    batch, steps = 2, 4
+    assert min(gates * units * units, (units + 7) * gates * units) > 2 ** 31
+    gen = torch.Generator(device=device).manual_seed(units)
+    width = gates * units
+    params = {
+        "kernel": torch.randn(5, width, generator=gen, device=device) * 0.5,
+        "recurrent": torch.randn(units, width, generator=gen,
+                                 device=device) * units ** -0.5,
+        "bias": torch.randn(*((width,) if gates == 4 else (2, width)),
+                            generator=gen, device=device) * 0.3}
+    codes = torch.randint(0, 6, (batch, steps), generator=gen, device=device,
+                          dtype=torch.int8)
+    masks = random_masks(units, gates, batch, device)
+    d_avg = torch.randn(batch, steps, units, generator=gen, device=device)
+    d_hid = torch.randn(batch, units, generator=gen, device=device)
+    got = cuda_rnn.train_fwd(cell, params, codes, masks)
+    grads = cuda_rnn.train_bwd(cell, params, codes, masks, tuple(got[2:]),
+                               d_avg, d_hid)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    want = plain_fwd(params, codes, masks)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    assert_grads_close(grads, plain_bwd(params, codes, masks, *want[2:],
+                                        d_avg, d_hid))
 
 
 @pytest.mark.parametrize("name", ["gru_att", "lstm"])

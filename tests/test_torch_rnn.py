@@ -262,17 +262,18 @@ def test_avg_layout_by_width(cell, dtype):
 
 
 def test_training_ceiling_stays_at_1024():
-    """Named for the training kernels' former ceiling: they now take the
-    widths of the inference kernels' cluster tiles (``kMaxUnits`` of
-    ``csrc/rnn_cluster.cuh``, read by both libraries), u=1025 to 4096 on
-    the cluster tile, and ``train_layout`` refuses u=4097 and beyond,
-    naming u=4096, so ``train_fwd``/``train_bwd`` never hand it to the
-    library; there the inference kernels run the grid tile."""
-    assert cuda_rnn.TRAIN_MAX_UNITS == 4096
+    """Named for the training kernels' former ceiling: they now take every
+    width, as the inference kernels do: u=1025 to 4096 on the cluster tile
+    (``kMaxUnits`` of ``csrc/rnn_cluster.cuh``, read by both libraries),
+    past it the grid tile, in training as in inference; only u <= 0 is
+    refused."""
+    assert cuda_rnn.CLUSTER_MAX_UNITS == 4096
     for units in (1024, 1025, 2048, 4096):
         assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
         assert cuda_rnn.train_layout(units) == "cluster"
     for units in (4097, 8192):
-        with pytest.raises(ValueError, match=f"u=4096, not u={units}"):
-            cuda_rnn.train_layout(units)
+        assert cuda_rnn.train_layout(units) == "grid"
         assert cuda_rnn.avg_tile_name("lstm", units) == "grid"
+    for units in (0, -4097):
+        with pytest.raises(ValueError, match=f"not u={units}"):
+            cuda_rnn.train_layout(units)

@@ -139,24 +139,25 @@ def test_autograd_function_matches_jax_vjp(cell, batch, steps, units,
 # up to its widest (u=256), and on the cluster tile past it: u=257, u=520
 # (ragged over 16 CTAs: 33 units a CTA), u=1024 (64 units a CTA, one a
 # lane) and past it with several units a lane, u=1025 (ragged: 65 units a
-# CTA) and u=2048; the LSTM's u=128 cases keep the ids they had when
-# u=128 was the ceiling.
+# CTA) and u=2048, and past the cluster tiles on the grid tile, u=4100
+# (ragged against its 32-unit blocks); the LSTM's u=128 cases keep the ids
+# they had when u=128 was the ceiling.
 WIDE_CASES = [
     pytest.param(cell, units, rate,
                  id=(str(rate) if (cell, units) == ("lstm", 128)
                      else f"{cell}-u{units}-{rate}"))
     for cell in ("gru", "lstm") for units in (128, 129, 200, 256, 257, 520,
-                                              1024, 1025, 2048)
+                                              1024, 1025, 2048, 4100)
     for rate in (0.0, 0.0928)]
 # Steps of a wide case: 20 on the window tile, 8 past it, fewer past
 # u=1024, where the JAX kernels' interpret mode takes seconds a step.
-WIDE_STEPS = {1025: 3, 2048: 2}
+WIDE_STEPS = {1025: 3, 2048: 2, 4100: 2}
 
 
 @pytest.mark.parametrize("cell,units,rate", WIDE_CASES)
 def test_lstm_train_matches_jax_vjp_u128(cell, units, rate):
     """One training step (loss and gradients) of either cell's autograd
-    Function at widths from u=128 to u=2048 (named for the LSTM at u=128,
+    Function at widths from u=128 to u=4100 (named for the LSTM at u=128,
     its first case), against the JAX custom VJP, at the tolerances above
     (past u=256 over 8 steps, not 20, and past u=1024 over 3 or 2: the JAX
     kernels' interpret mode takes seconds a step there).  The loss weights have
@@ -226,19 +227,20 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 def test_train_layout_by_width():
     """The training kernels' layout of a width (the window tile up to
     u=256, the cluster tile past it, with several units a lane past
-    u=1024), and the ceiling: u=4096, the inference kernels' cluster
-    tiles'."""
+    u=1024, up to the inference kernels' cluster tiles' ceiling u=4096),
+    the grid tile past it at every width, and the refusal of u <= 0
+    only."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
                           (128, "l2"), (129, "wide"), (256, "wide"),
                           (257, "cluster"), (520, "cluster"),
                           (1024, "cluster"), (1025, "cluster"),
                           (2048, "cluster"), (3000, "cluster"),
-                          (4096, "cluster")):
+                          (4096, "cluster"), (4097, "grid"), (4100, "grid"),
+                          (8192, "grid"), (26800, "grid")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.TRAIN_MAX_UNITS == 4096
-    for units in (0, 4097, 8192):
-        with pytest.raises(ValueError,
-                           match=f"u=4096, not u={units}"):
+    assert cuda_rnn.CLUSTER_MAX_UNITS == 4096
+    for units in (0, -1):
+        with pytest.raises(ValueError, match=f"u >= 1, not u={units}"):
             cuda_rnn.train_layout(units)
 
 
@@ -411,8 +413,9 @@ def test_reduce_splits(batch, steps, units, gates, sms):
     """The reduction's split count: at least one, no more than one for
     every 256 rows, at most about four CTAs an SM, and a function of the
     shape and SM count alone (so sums repeat bitwise).  The partials' rows
-    a split, ``(u + 7) g u`` (counted in int by the kernel), stay below
-    2^31 up to the ceiling u=4096."""
+    a split, ``(u + 7) g u``, stay below 2^31 up to the cluster tiles'
+    ceiling u=4096 (past u=23,167 they do not: the kernel counts them in
+    64 bits)."""
     rows = 2 * batch * steps
     splits = cuda_rnn.reduce_splits(rows, units, gates, sms)
     assert (units + 7) * gates * units < 2 ** 31
