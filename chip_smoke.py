@@ -15,21 +15,18 @@ seconds are printed after it):
    the card, at the flagship shape (B=1024 windows, T=342, u=60) and at a
    ragged one (B=1000, T=150, u=32), also at u=96 and u=128 (past the
    register tile's registers) and on the cluster tile at u=256, 512 (B=256),
-   1024 (B=64) and ragged at u=300 (B=37, T=150) and u=520 (B=5, T=23),
-   past u=1024 with several units a lane at u=2048 (B=64, T=342), 4096
-   (B=16, T=342) and ragged at u=1025 (B=37, T=150) and u=3000 (B=5,
-   T=23), each with its tile (CTAs a cluster, clusters at once; the ptxas
-   usage of each instantiation), random weights and codes (with N and pad
-   codes) from a seed; max abs difference <= 1e-5 on both outputs (the
-   JAX package's kernel tolerance); past u=128 a second launch and a
-   window alone give the same bits.  Times the
-   kernel, the plain version and the cuDNN recurrence
-   (``torch.nn.GRU``/``LSTM`` on the doubled one-hot batch, TF32 off) with
-   CUDA events (past u=1024 over 3 launches), and at u=2048 and 4096 the
-   grid tile (``csrc/rnn_grid.cu``) beside the cluster tile through the
-   same launcher, asked for the grid tile (times only; the routing there
-   is the cluster tile's).
-   Past the cluster tiles' ceiling the grid tile (ptxas usage of each
+   1024 (B=64, its ceiling) and ragged at u=300 (B=37, T=150) and u=520
+   (B=5, T=23), past u=1024 on the grid tile (``csrc/rnn_grid.cu``) at
+   u=2048 (B=64, T=342), 4096 (B=16, T=342) and ragged at u=1025 (B=37,
+   T=150: one past the ceiling) and u=3000 (B=5, T=23), each with its
+   tile (CTAs a cluster, clusters at once; the ptxas usage of each
+   instantiation), random weights and codes (with N and pad codes) from a
+   seed; max abs difference <= 1e-5 on both outputs (the JAX package's
+   kernel tolerance); past u=128 a second launch and a window alone give
+   the same bits.  Times the kernel, the plain version and the cuDNN
+   recurrence (``torch.nn.GRU``/``LSTM`` on the doubled one-hot batch,
+   TF32 off) with CUDA events (past u=1024 over 3 launches).
+   The grid tile at wider widths too (ptxas usage of each
    instantiation): at u=4097 (B=1, T=32), ragged u=5000 (B=5, T=23) and
    u=8192 (B=3, T=17), and timed at B=64, T=342, u=4608 (phase 20's
    shape; bound: the larger of the FLOP over the peak
@@ -39,8 +36,9 @@ seconds are printed after it):
    bits alone, in the batch and repeated, its launches counted under the
    row's name and the grid's and no plain version run; at GRU u=26,800
    and LSTM u=23,200 (B=2, T=4, weights made on the card: g u^2 past
-   2^31 elements) against the plain versions.  Then u=4097 launches the
-   grid tile in both dtypes, on the scan route and in the training
+   2^31 elements) against the plain versions.  Then one unit past each
+   route's ceiling launches the grid tile: u=1025 in float32 and on the
+   scan route in both dtypes, u=2049 in bf16, u=1024 in the training
    forward and backward of both cells.
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
@@ -73,15 +71,16 @@ seconds are printed after it):
    T=342), and on the cluster tile (a window's units over a cluster of
    CTAs, whose CTAs a cluster, windows a cluster and clusters at once it
    prints) at u=257 (B=5, T=20), u=300 (B=37, T=150), u=520 (B=5,
-   T=23), u=512 (B=256, T=342) and u=1024 (B=64, T=342); u=128, 256,
+   T=23), u=512 (B=256, T=342) and its route's ceiling u=1023 (B=37,
+   T=150), and on the grid tile from u=1024 (B=64, T=342); u=128, 256,
    300, 512 and 1024 are also timed as above (u=128, over 20 launches,
    the reference point of the layout it extends; the others over 5).
-   Past u=1024, two or four units a lane, at phase 2's shapes (u=1025,
-   B=37, T=150; 2048, B=64; 3000, B=5, T=23; the ceiling 4096, B=16;
-   T=342 unless given): with masks, a window's forward and gate
-   cotangents alone and in the batch and a second run bitwise equal,
-   timed over 3 launches.  Past the cluster tiles' ceiling, on the grid
-   tile (``csrc/rnn_grid.cu``; the ptxas usage of its training kernels,
+   On the grid tile at phase 2's shapes past u=1024 (u=1025, B=37,
+   T=150; 2048, B=64; 3000, B=5, T=23; 4096, B=16; T=342 unless given):
+   with masks, a window's forward and gate cotangents alone and in the
+   batch and a second run bitwise equal, timed over 3 launches.  Wider,
+   on the grid tile (``csrc/rnn_grid.cu``; the ptxas usage of its
+   training kernels,
    the tile of each shape: rows and units a CTA, CTAs a step, the
    recompute's CTAs): at u=4097 (B=1, T=32), ragged u=5000 (B=5, T=23),
    u=8192 (B=3, T=17) and B=64, T=342, u=4608 (phase 19's u=4608 shape),
@@ -125,21 +124,22 @@ seconds are printed after it):
    uniform random input at (2048, 342, 60) in float32 and bfloat16,
    (2048, 342, 128), (512, 342, 256) and (16, 342, 512) in float32 (U
    through L1/L2; two k-slices a unit past u=128), a ragged (7, 23, 60)
-   and past u=1024 phase 2's shapes of several units a lane in float32
+   and past u=1024 (the grid tile) phase 2's wide shapes in float32
    and bfloat16 (a row alone gives its bits in the batch);
    the bf16 variants of the fused kernels
    (``gru_avg_bf16``, ``lstm_avg_bf16``) against their plain versions at
    (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128, at the
    CLI's default batch (256, 342, 60), past u=128 at (256, 342, 160),
-   (1024, 342, 192), (37, 150, 200) and phase 2's cluster shapes (u=256
-   to the ceiling 4096), each row with the tile it ran (the tensor-core
-   tile up to u=128, its cluster tile of 2 to 16 CTAs beyond, with the
-   clusters at once; ``ptxas -v`` of every instantiation; past u=128 a
-   second launch and a window alone give the same bits).
+   (1024, 342, 192), (37, 150, 200), phase 2's shapes from u=256 to 4096
+   and (5, 23, 2049), each row with the tile it ran (the tensor-core
+   tile up to u=128, its cluster tile of 2 to 16 CTAs beyond up to its
+   ceiling u=2048, the grid tile past it, with the clusters at once;
+   ``ptxas -v`` of every instantiation; past u=128 a second launch and a
+   window alone give the same bits).
    atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
    (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off), and at u=2048
-   and 4096 the grid tile beside the cluster tile.  Past u=4096 the grid
+   the grid tile beside the bf16 cluster tile.  Past u=4096 the grid
    tile of the bf16 rows and of ``gru_seq`` (f32 and bf16 IO, and f32 at
    u=26,800) at phase 2's grid shapes, as phase 2.
 9. The scan route and the fast mode: ``predict --rnn-kernel scan`` on the
@@ -313,10 +313,11 @@ seconds are printed after it):
     ``train`` through ``cli.main`` (captured, the card's default) of
     ``gru_att`` (vecsize 342, attention, dropout 0.0928) and of the LSTM
     at u=256 on the wide layout (2 x 5 steps each, batch 256, RMSprop's
-    default rate), at u=1024 on the cluster tile (2 x 3 steps each, batch
-    256, at a learning rate of 1e-5 for the width), at u=2048 with two units a lane (2 x 3 steps each,
-    batch 64, at 1e-5 too) and at u=4608 on the grid tile (2 x 2 steps
-    each, batch 64, at 1e-5; the grid tile's launches counted too); depths
+    default rate), at u=1023 on the cluster tile (its route's ceiling; 2 x
+    3 steps each, batch 256, at a learning rate of 1e-5 for the width),
+    at u=2048 on the grid tile (2 x 3 steps each, batch 64, at 1e-5 too)
+    and at u=4608 (2 x 2 steps each, batch 64, at 1e-5; the grid tile's
+    launches counted too); depths
     cut from 200 x 250:
     each training kernel launched on every step, the inference kernel
     once an epoch, no plain version, finite losses that fall; one step of
@@ -331,10 +332,12 @@ seconds are printed after it):
     each launched, no plain version; the rows the two precisions share
     printed).
 20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
-    at u=512, u=1024 and u=2048 (two units a lane) and u=4608 (past the
-    cluster tiles: the grid tile; one fixture each, ``gru_att.fa`` and
-    ``lstm.fa``), made by the port's initialiser from a seed and written
-    as ``.npz`` model files, predict the three fixtures through
+    at u=512, u=1024 (the float32 cluster tiles' ceiling), u=2048 (the
+    grid tile in float32 and on the scan route, the bf16 cluster tile's
+    ceiling) and u=4608 (the grid tile; one fixture each, ``gru_att.fa``
+    and ``lstm.fa``), made by the port's initialiser from a seed and written
+    as ``.npz`` model files, predict the three fixtures (from u=2048 the
+    one of their cell) through
     ``cli.main`` on the fused route in float32 and bfloat16 (the kernel of
     each launched, no plain version; the BED rows and those the two
     precisions share printed), past u=1024 also on the scan route in
@@ -397,18 +400,20 @@ WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
 CLUSTER_SHAPES = {"u256": (256, 342, 256), "u512": (256, 342, 512),
                   "u1024": (64, 342, 1024), "ragged_u300": (37, 150, 300),
                   "ragged_u520": (5, 23, 520)}
-# Past u=1024 on 16 CTAs with several units a lane (a warp owning one or
-# two unit groups in bf16), up to the ceiling u=4096: ragged at u=1025 (65
-# units a CTA) and u=3000 (188), and u=2048 and 4096 at T=342; those two
-# are timed with fewer repetitions (WIDE_REPS).
+# Past the float32 cluster tiles' ceiling (u=1024) on the grid tile (the
+# bf16 rows on their cluster tile of 16 CTAs up to u=2048): ragged at
+# u=1025 (one past the ceiling) and u=3000, and u=2048 and 4096 at T=342;
+# those two are timed with fewer repetitions (WIDE_REPS).
 LANE_SHAPES = {"ragged_u1025": (37, 150, 1025), "u2048": (64, 342, 2048),
                "ragged_u3000": (5, 23, 3000), "u4096": (16, 342, 4096)}
 WIDE_REPS = 3
 # The bf16 kernels also at the CLI's default batch and past the
-# tensor-core tile (u > 128: its cluster tile), ragged there too.
+# tensor-core tile (u > 128: its cluster tile), ragged there too, and one
+# past their cluster tile's ceiling (u=2048, LANE_SHAPES' u2048).
 BF16_SHAPES = {"b256": (256, 342, 60), "u160": (256, 342, 160),
                "u192_b1024": (1024, 342, 192),
-               "ragged_wide": (37, 150, 200)}
+               "ragged_wide": (37, 150, 200),
+               "ragged_u2049": (5, 23, 2049)}
 
 TRAIN_KERNELS = {
     # name: TPU kernel it replaces
@@ -421,28 +426,30 @@ TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
 LSTM_WIDE_SHAPE = (64, 342, 96)
 # Widths past the window tile's registers: U through L1/L2 up to u=128,
 # the wide layout (4u threads up to 1,024) from u=129 to u=256, the
-# cluster tile past it to the ceiling, u=1024, at the CLI's default batch,
-# 64 windows at the ceiling, and ragged (u=257, 300, 520: 17, 19 and 33
-# units a CTA of 16).
+# cluster tile past it to its route's ceiling, u=1023 (ragged: 64 units a
+# CTA but the last), at the CLI's default batch and ragged (u=257, 300,
+# 520: 17, 19 and 33 units a CTA of 16), then the grid tile at u=1024
+# (64 windows).
 TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (256, 342, 128),
                      "u129": (256, 342, 129), "u200": (37, 150, 200),
                      "u256": (256, 342, 256), "u257": (5, 20, 257),
                      "u300": (37, 150, 300), "u520": (5, 23, 520),
-                     "u512": (256, 342, 512), "u1024": (64, 342, 1024)}
+                     "u512": (256, 342, 512), "u1023": (37, 150, 1023),
+                     "u1024": (64, 342, 1024)}
 # The timed ones: the wide layout's widest and the cluster tile's, and
 # u=128 (the L1/L2 layout's widest) at the same batch as the reference
 # point, over 20 launches at u=128 and 5 past it (u=129 and u=200 are
 # checked, not timed: PERF.md and rnn_train.cu's header keep their times).
 TRAIN_WIDE_TIMED = ("u128", "u256", "u300", "u512", "u1024")
-# Past u=1024 (two or four units a lane) phase 2's LANE_SHAPES: checked
+# Past u=1024 (the grid tile) phase 2's LANE_SHAPES: checked
 # with masks, a window's bits alone and repeated, timed over WIDE_REPS.
 # The LSTM trained through the CLI at u=128 (the widest layer of the
 # L1/L2 layout, past the u=113 at which the first inference kernel
 # stopped); phase 19 trains at the ceiling.
 LSTM_WIDE_UNITS = 128
-# Phase 19: both cells trained at the wide layout's ceiling (u=256), on
-# the cluster tile at one unit a lane (u=1024) and at two (u=2048, batch
-# 64): width: ((epochs, steps) of gru_att, of the LSTM; RMSprop's
+# Phase 19: both cells trained at the wide layout's ceiling (u=256), at
+# the cluster tile's (u=1023) and on the grid tile (u=2048, batch 64):
+# width: ((epochs, steps) of gru_att, of the LSTM; RMSprop's
 # learning rate, None for its default; batch), the depth cut from 200 x
 # 250 (a step takes about 0.3 s at u=1024 and B=256, 0.7 s at u=2048 and
 # B=64).  Past u=256 a rate for the width: RMSprop's first step moves
@@ -459,34 +466,36 @@ LSTM_WIDE_UNITS = 128
 # Past the cluster tiles u=4608 (the grid tile; batch 64, 2 x 2 steps,
 # the rate from tools/train_rate_witness.py at u=4608: 1e-5 and 3e-6 the
 # same losses through the kernels and the plain versions).  Each trained
-# model predicts the fixture of its cell; u=1024 trains 2 x 3 steps (cut
-# from 2 x 5, and the three fixtures a model to one, to make room for
-# u=4608 in the time limit).
+# model predicts the fixture of its cell; u=1023 (the cluster tile's
+# route ceiling; the rate found at u=1024) trains 2 x 3 steps (cut from
+# 2 x 5, and the three fixtures a model to one, to make room for u=4608
+# in the time limit).
 TRAIN_CEILING_RUNS = {256: (((2, 5), (2, 5)), None, 256),
-                      1024: (((2, 3), (2, 3)), 1e-5, 256),
+                      1023: (((2, 3), (2, 3)), 1e-5, 256),
                       2048: (((2, 3), (2, 3)), 1e-5, 64),
                       4608: (((2, 2), (2, 2)), 1e-5, 64)}
-# Phase 20: models of these widths predict through the CLI (u=2048: past
-# the one-unit-a-lane tiles, the fused and scan routes' BEDs compared;
-# u=4608: past the cluster tiles, the grid tile), with the fixtures each
-# predicts (all three, or one where a predict takes seconds).
+# Phase 20: models of these widths predict through the CLI (u=2048: the
+# grid tile in float32, the bf16 cluster tile's ceiling, the fused and
+# scan routes' BEDs compared; u=4608: the grid tile), with the fixtures each
+# predicts (all three up to u=1024, then one each, the fixture of its cell,
+# to keep the script within its time).
 PREDICT_WIDE_UNITS = (512, 1024, 2048, 4608)
-PREDICT_WIDE_FIXTURES = {4608: {"gru_att": ("gru_att",), "lstm": ("lstm",)}}
-# Past the cluster tiles' ceiling (u=4096), the grid tile, in inference
-# and in training: (batch, T, u) checked at one window (u=4097), a ragged
-# batch (u=5000) and u=8192 at T <= 32, checked and timed (over WIDE_REPS)
-# at B=64, T=342, u=4608 (GRID_LINE_SHAPE: phases 19 and 20's shape,
-# REF_ARGS' -b 64 at its width, 128 rows, so 4 row blocks; the kernels
-# line's shape); and the widths where g u^2 passes 2^31 elements (B=2,
-# T=4, float32, checked only).
+PREDICT_WIDE_FIXTURES = {units: {"gru_att": ("gru_att",), "lstm": ("lstm",)}
+                         for units in (2048, 4608)}
+# Wider on the grid tile, in inference and in training: (batch, T, u) checked
+# at one window (u=4097), a ragged batch (u=5000) and u=8192 at T <= 32,
+# checked and timed (over WIDE_REPS) at B=64, T=342, u=4608 (GRID_LINE_SHAPE:
+# phases 19 and 20's shape, REF_ARGS' -b 64 at its width, 128 rows, so 4 row
+# blocks; the kernels line's shape); and the widths where g u^2 passes 2^31
+# elements (B=2, T=4, float32, checked only).
 GRID_SHAPES = {"grid_u4097": (1, 32, 4097), "grid_ragged_u5000": (5, 23, 5000),
                "grid_u8192_t17": (3, 17, 8192), "grid_u4608": (64, 342, 4608)}
 GRID_LINE_SHAPE = "grid_u4608"
-# Widths at which phases 2 and 8 time the grid tile beside the cluster
-# tiles (times only; the cluster tiles keep them).
-GRID_BESIDE = (2048, 4096)
+# The width at which phase 8 times the grid tile beside the bf16 cluster
+# tile (its ceiling; times only, the cluster tile keeps it).
+GRID_BESIDE = (2048,)
 GRID_HUGE = {"gru": (2, 4, 26800), "lstm": (2, 4, 23200)}
-# The grid tile's training kernels (rows 3-6 past u=4096) in the kernels
+# The grid tile's training kernels (rows 3-6 from u=1024) in the kernels
 # line: name: TPU kernel replaced.
 GRID_TRAIN_KERNELS = {
     "gru_train_fwd_grid": "deepgrp_tpu/models/pallas_rnn_train.py:97",
@@ -727,19 +736,23 @@ def window_bits(torch, run, codes) -> None:
 
 
 def past_ceiling(torch) -> None:
-    """One unit past the cluster tiles' ceiling (u=4097): every row
-    launches the grid tile (the fused kernels in both dtypes, the GRU
-    sequence kernel, the scan route, in both, and the training forward and
-    backward of both cells; counted under the row's name and the grid's,
-    no plain version run)."""
+    """One unit past each route's ceiling every row launches the grid tile
+    (the fused kernels past ``CLUSTER_MAX_UNITS`` in float32 and past
+    ``BF16_CLUSTER_MAX_UNITS`` in bf16, the GRU sequence kernel, the scan
+    route, in both dtypes past ``CLUSTER_MAX_UNITS``, and the training
+    forward and backward of both cells past ``TRAIN_CLUSTER_MAX_UNITS``;
+    counted under the row's name and the grid's, no plain version run)."""
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
-
-    units = cuda_rnn.CLUSTER_MAX_UNITS + 1
 
     def zeros(*shape):
         return torch.zeros(*shape, device="cuda")
 
-    def launched(names, dtype, run):
+    def params_of(gates, units):
+        width = gates * units
+        return {"kernel": zeros(5, width), "recurrent": zeros(units, width),
+                "bias": zeros(*((2, width) if gates == 3 else (width,)))}
+
+    def launched(names, dtype, run, units):
         before = cuda_rnn.LAUNCHES.snapshot()
         plain = rnn.PLAIN_CALLS.snapshot()
         out = run()
@@ -754,29 +767,35 @@ def past_ceiling(torch) -> None:
 
     codes = torch.zeros(2, 3, dtype=torch.int8, device="cuda")
     for name, (gates, _) in KERNELS.items():
-        width = gates * units
-        params = {"kernel": zeros(5, width), "recurrent": zeros(units, width),
-                  "bias": zeros(*((2, width) if gates == 3 else (width,)))}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, ceiling in ((torch.float32, cuda_rnn.CLUSTER_MAX_UNITS),
+                               (torch.bfloat16,
+                                cuda_rnn.BF16_CLUSTER_MAX_UNITS)):
             suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            params = params_of(gates, ceiling + 1)
             launched((f"{name}{suffix}",
                       f"{name.replace('_avg', '_avg_grid')}{suffix}"),
                      dtype,
-                     lambda: getattr(cuda_rnn, name)(params, codes, dtype))
+                     lambda: getattr(cuda_rnn, name)(params, codes, dtype),
+                     ceiling + 1)
             if gates == 3:
+                units = cuda_rnn.CLUSTER_MAX_UNITS + 1
+                seq_params = params_of(gates, units)
                 launched(("gru_seq", "gru_seq_grid"), dtype,
                          lambda: cuda_rnn.gru_apply(
-                             params, zeros(2, 3, 5).to(dtype)))
+                             seq_params, zeros(2, 3, 5).to(dtype)), units)
         cell = name.split("_")[0]
+        units = cuda_rnn.TRAIN_CLUSTER_MAX_UNITS + 1
+        params = params_of(gates, units)
         seqs = tuple(zeros(4, 3, units) for _ in range(gates - 2))
         launched((f"{cell}_train_fwd", f"{cell}_train_fwd_grid"),
                  torch.float32,
-                 lambda: cuda_rnn.train_fwd(cell, params, codes, None))
+                 lambda: cuda_rnn.train_fwd(cell, params, codes, None),
+                 units)
         launched((f"{cell}_train_bwd", f"{cell}_train_bwd_grid"),
                  torch.float32,
                  lambda: cuda_rnn.train_bwd(cell, params, codes, None, seqs,
                                             zeros(2, 3, units),
-                                            zeros(2, units)))
+                                            zeros(2, units)), units)
 
 
 def random_rnn_on_card(torch, seed: int, gates: int, batch: int, steps: int,
@@ -1016,12 +1035,6 @@ def kernel_phase(torch):
             if not err <= TOL:
                 raise AssertionError(f"{name} {label}: kernel differs from "
                                      f"its plain version by {err}")
-            if units in GRID_BESIDE:
-                row["grid_ms"] = grid_beside_cluster(
-                    torch, f"{name} {label}",
-                    lambda: cuda_rnn._launch(f"{cell}_avg", gates, params,
-                                             codes, grid=True),
-                    (p_avg, p_hidden), ms, reps, TOL)
             results[(name, label)] = row
     log = (_build.BUILD_DIR / "rnn_grid.log").read_text()
     for args, usage in sorted(ptxas_usage(log, "GridStepKernel").items()):
@@ -1417,8 +1430,8 @@ def train_kernel_phase(torch):
                         torch, cell, case, errors,
                         20 if units <= 128 else 5).items():
                     results[(name, label)] = row
-    # Past u=1024, two or four units a lane (phase 2's widths): with masks,
-    # bits alone and repeated, timed over WIDE_REPS launches.
+    # Past u=1024, on the grid tile (phase 2's widths): with masks, bits
+    # alone and repeated, timed over WIDE_REPS launches.
     for cell in ("gru", "lstm"):
         gates = 4 if cell == "lstm" else 3
         for label, (batch, steps, units) in LANE_SHAPES.items():
@@ -1864,8 +1877,8 @@ def training_phase(torch, np, tmp: str):
 
 def wide_training_phase(torch, np, tmp: str) -> dict:
     """Phase 19: both cells trained at the widths of
-    :data:`TRAIN_CEILING_RUNS` (the wide layout, the cluster tile with one
-    and two units a lane, the grid tile) through the CLI, captured; one
+    :data:`TRAIN_CEILING_RUNS` (the wide layout, the cluster tile, the
+    grid tile) through the CLI, captured; one
     step against the plain versions; a captured epoch's steps/s and device
     time by kernel name; a captured ``Trainer.fit`` against the eager
     one; then each trained model predicts the fixture of its cell on the
@@ -2029,13 +2042,6 @@ def seq_kernel_phase(torch):
         ms = cuda_ms(torch, lambda: cuda_rnn.gru_apply(params, x), reps)
         plain_ms = cuda_ms(torch, lambda: rnn.gru_apply(params, x),
                            min(reps, 3))
-        grid_ms = None
-        if units in GRID_BESIDE:
-            grid_ms = grid_beside_cluster(
-                torch, f"gru_seq {label}",
-                lambda: cuda_rnn._launch_seq(params, x, grid=True),
-                (p_seq, p_last), ms,
-                reps, TOL if dtype == torch.float32 else BF16_TOL)
         # Multiply-adds of the input dot and the recurrent products; each
         # input read once (weights in x's dtype, biases float32), each
         # output written once.
@@ -2047,20 +2053,20 @@ def seq_kernel_phase(torch):
                    + size * (seq.numel() + last.numel()))
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "grid_ms": grid_ms,
-               **bound(flops, n_bytes, peak)}
+               "library_ms": library_ms, **bound(flops, n_bytes, peak)}
         tol = TOL if dtype == torch.float32 else BF16_TOL
         slots = cuda_rnn.seq_slots(units, steps, 5, dtype)
         rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms, slots)
         layout = cuda_rnn.seq_layout(units, rows_a_cta)
         cluster = (f"clusters of {layout['cluster']} CTAs ({slots} at "
                    f"once), each {-(-units // layout['cluster'])} units, "
-                   if layout["cluster"] > 1 else "one CTA a row, ")
+                   if layout["cluster"] > 1 else "one CTA a row, "
+                   if cuda_rnn.seq_cluster(units) == 1
+                   and not cuda_rnn._grid_route(units) else "the grid tile, ")
         print(f"gru_seq {label} B={batch} T={steps} u={units} {dtype_name} "
               f"(tile {n_cta} CTAs x {rows_a_cta} rows, {cluster}"
               f"{layout['rows_a_group']} rows a lane group of "
-              f"{layout['slices']} slices a unit, "
-              f"{layout['units_a_lane']} units a lane, U in "
+              f"{layout['slices']} slices a unit, U in "
               f"{layout['u_in']}): "
               f"max_abs_err={err:.3g} (tolerance {tol:g}; "
               f"cuDNN vs plain {lib_err:.3g}) kernel_ms={ms:.4f} "
@@ -2080,8 +2086,9 @@ def seq_kernel_phase(torch):
 def bf16_kernel_phase(torch):
     """Phase 8b: the bf16 variants of the fused kernels against their
     plain versions, each row with the tile it ran (the tensor-core tile up
-    to u=128, its cluster tile beyond, up to u=1024; there a second launch
-    and a window alone must give the same bits)."""
+    to u=128, its cluster tile beyond, up to u=2048, the grid tile past
+    it; past u=128 a second launch and a window alone must give the same
+    bits)."""
     from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
@@ -4520,8 +4527,8 @@ def scan_bed_matches(name: str, cell: str, fixture: str, model_path: str,
     """Phase 20 past u=1024: the float32 scan route (``gru_seq`` for the
     GRU; the LSTM over one-hot windows is plain torch, no kernel) writes
     the fused route's BED byte for byte; raises if not.  With
-    ``grid_launches`` (past u=4096) every ``gru_seq`` launch must have run
-    the grid tile, whose launches it adds there."""
+    ``grid_launches`` (on the grid route) every ``gru_seq`` launch must
+    have run the grid tile, whose launches it adds there."""
     reset_counts()
     start = time.perf_counter()
     rows = predict_rows(
@@ -4568,11 +4575,11 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
     byte for byte.  At u=512 the float32 engine's scored track of the
     first fixture record on the card equals the same engine's on the CPU,
     and from u=1024 ``gru_att``'s fused track equals the scan route's (row
-    7) on the card: classes equal, max probability within 1e-5.  Past
-    u=4096 (the grid tile) each model predicts its one fixture of
-    :data:`PREDICT_WIDE_FIXTURES`.  Returns the launch counts of each run,
-    and the grid tile's launches by kernel name (every launch of a run
-    past u=4096)."""
+    7) on the card: classes equal, max probability within 1e-5.  From
+    u=2048 each model predicts its one fixture of
+    :data:`PREDICT_WIDE_FIXTURES`.  Returns the launch counts of each
+    run, and the grid tile's launches by kernel name (every launch of a
+    run on the grid tile)."""
     from deepgrp_tpu_torch.models import cuda_rnn
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import save_model_npz
@@ -4589,7 +4596,6 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
     launches, grid_launches = {}, {}
     for units in PREDICT_WIDE_UNITS:
         for label, (opts, cell) in cells.items():
-            grid = cuda_rnn.avg_tile_name(cell, units) == "grid"
             name = f"{label}_u{units}"
             config = ModelConfig(**{**opts, "units": units})
             start = time.perf_counter()
@@ -4614,7 +4620,8 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
                     suffix = "_bf16" if precision == "bfloat16" else ""
                     launches[f"{name} {fixture} {precision}"] = check_path(
                         f"{cell}_avg{suffix}")
-                    if grid:
+                    if cuda_rnn.avg_tile_name(
+                            cell, units, getattr(torch, precision)) == "grid":
                         add_grid_launches(
                             grid_launches, f"{cell}_avg{suffix}",
                             launches[f"{name} {fixture} {precision}"])
@@ -4627,7 +4634,8 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
                 if units > 1024:
                     scan_bed_matches(name, cell, fixture, model_path, tmp,
                                      rows["float32"], launches,
-                                     grid_launches if grid else None)
+                                     grid_launches
+                                     if cuda_rnn._grid_route(units) else None)
             model = DeepGRPModel.from_params(config, params, "cuda")
             if units == 512:
                 ref = PredictionEngine(
@@ -4843,7 +4851,8 @@ def main() -> int:
     phase(f"20. wide models predict: gru_att and lstm at "
           f"u={', u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
           f"weights from a seed) on the fixtures through the CLI in float32 "
-          f"and bf16 (past u=4096 the grid tile); the track against the CPU "
+          f"and bf16 (past u=1024 the grid tile, in bf16 past 2048); the "
+          f"track against the CPU "
           f"(u=512) and the scan route (u >= 1024), the scan route's BEDs "
           f"(u >= 2048)")
     with tempfile.TemporaryDirectory() as wide_tmp:

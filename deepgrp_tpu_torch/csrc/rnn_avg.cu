@@ -97,8 +97,9 @@
 // cluster tile below took its place.
 //
 // The float32 cluster tile (AvgClusterKernel<kGates, kWin, kCluster,
-// kUSmem, kUnits>), which the float32 entry points run past u=128 up to
-// the ceiling u=4096 (kMaxUnits).  Past u=128 one CTA a window would read all
+// kUSmem, 1>), which the float32 entry points run past u=128 up to u=1024
+// (kMaxUnits; past it the grid tile, rnn_grid.cu, the last bullet).  Past
+// u=128 one CTA a window would read all
 // of U from L2 every step (the register tile's 2 windows a CTA at u=256:
 // 8.2622 / 10.7776 ms at B=256, slower than cuDNN), and 4u threads stop
 // at u=256.  So a window's units split over a thread-block cluster, as
@@ -165,43 +166,23 @@
 //     unit's sum runs in an order fixed by u (its quads in order, then the
 //     butterfly), nothing is atomic, whatever the window's cluster, CTA
 //     or lane.
-//   * Past u=1024 (kLaneUnits) a CTA of 16 owns more than 64 units (up to
-//     256 at u=4096), more than a lane group of 4 uc threads can hold
-//     within the launch bounds, and the two h buffers of a window take 16u
-//     bytes (64 kB at u=4096).  So each lane owns kUnits of the CTA's
-//     units (rnn_cluster.cuh's UnitSpan, LaneUnit: 2 up to u=2048, 4 up to
-//     4096, keeping 256 threads a group) and runs them one after the
-//     other through the same quads and butterfly, so a unit's sum is
-//     the one-unit-a-lane sum and the bits stay independent of the
-//     layout; and the windows a CTA shrink with the width (MaxWindows,
-//     WideLayout): 8 while their h buffers fit beside W's columns and a
-//     group of one unit a lane has at most 512 threads (u <= 1760 GRU,
-//     1744 LSTM), else 4 in lane groups of 4 (to u=3428 GRU, 3368
-//     LSTM), else 2.
-//     The float32 h stays float32 (the parity mode).  U is streamed
-//     through L1/L2 as from u=257: 50 MB for the GRU at u=2048 (the size
-//     of the L2), 201 MB at u=4096, which every cluster reads from HBM
-//     each step.
-//   * ptxas -v (sm_90a, CUDA 12.8): AvgClusterKernel<3, 2, 16, L1/L2, 2 /
-//     4> 106 / 128 registers, <3, 4, 16, L1/L2, 2 / 4> 125 / 168, <4, 2,
-//     16, L1/L2, 2 / 4> 96 / 128, <4, 4, 16, L1/L2, 2 / 4> 119 / 168; no
-//     spills (the one-unit-a-lane instantiations within one register of
-//     the figures above).
-//   * Timed on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, T=342,
-//     ms a launch, GRU / LSTM): u=2048, B=64 (4 windows a CTA, 16
-//     clusters, 3 waves) 210.3481 / 271.0643 against cuDNN's 45.1851 /
-//     45.8229; u=4096, B=16 (2 windows, 8 clusters, 2 waves) 556.2544 /
-//     650.9887 against 65.3534 / 67.7696.  What bounds it: each cluster
-//     streams all of U each step (from HBM past u=2048), and a lane's
-//     quad loop waits for one L2/HBM round trip a quad at few warps an
-//     SM.
+//   * Where it stops: past u=1024 a CTA of 16 would own more than 64
+//     units, more than a lane group of 4 uc threads holds within the
+//     launch bounds.  A tile with several units a lane served u=1025 to
+//     4096 once, but every cluster streamed all of U each step, and the
+//     grid tile (rnn_grid.cu: one tiled product a step, U read about once
+//     for the batch) was faster at every width past u=1024 and every batch
+//     swept (tools/avg_tile_sweep.py --grid on an NVIDIA H100 80GB HBM3 at
+//     700 W, ms cluster / grid, GRU: u=1025, B=5, T=23 1.129 / 0.855;
+//     u=2048, B=64 211.122 / 35.621; u=4096, B=16 544.952 / 40.560).  At
+//     u=1024 the cluster tile stays: B=5, T=23 0.594 / 0.816 (LSTM 1.071 /
+//     1.102), though at B=64 it takes 30.923 against the grid's 12.133.
 //
 // The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem, kCluster>),
 // which the _bf16 entry points run up to u=128 (kMmaUnits) one CTA a
 // window, and up to u=1024 as its cluster tile (the last bullets), past
-// it up to u=4096 as MmaWideKernel<kGates, kKT, kGroups>.  Bound at
-// the
-// flagship shape: the same 14.8 / 19.7 MFLOP a window at the bf16
+// it up to u=2048 (kMmaWideUnits) as MmaWideKernel<kGates, kKT, 1>.  Bound
+// at the flagship shape: the same 14.8 / 19.7 MFLOP a window at the bf16
 // tensor-core rate (989 TFLOP/s), 0.0153 ms GRU and 0.0204 ms LSTM at
 // B=1024; the recurrence is still sequential in T, so a step's latency,
 // not the rate, is what a design can shorten.  Each step is exactly the
@@ -364,27 +345,29 @@
 //     all of U in float32 each step, 12.6 / 16.8 MB at u=1024), as the
 //     float32 tile; pre-rounded bf16 fragments in device memory would
 //     halve it.
-//   * Past u=1024 (128 k-tiles up to u=2048, 256 up to 4096) MmaWideKernel
-//     runs that 16-CTA route, forming fragments from U through L1/L2, with
-//     one m-tile (at most 8 windows a CTA): two m-tiles of 16 rows at
-//     u=2048 would take 263 kB of h buffers.  The h buffers hold only the
-//     CTA's 2 bb rows (MmaLayout's compact rows, window w's branch b at
-//     row b bb + w; the ldmatrix lanes of windows past bb address the last
-//     window's rows, whose sums are dropped), so a CTA takes 8 windows at
-//     u=2048 and 6 at u=4096 (MaxWindowsBf16).  A warp owns kGroups unit
-//     groups (1 up to u=2048: 16 warps; 2 beyond, at most 32 groups a
-//     CTA), one after the other through the same k-tiles (the A fragments
-//     read again for each), keeping 512 threads and 128 registers.  The
-//     step is MmaAvgKernel's, so a row's bits depend on its codes and the
+//   * Past u=1024 (128 k-tiles up to u=2048) MmaWideKernel runs that
+//     16-CTA route, forming fragments from U through L1/L2, with one
+//     m-tile (at most 8 windows a CTA): two m-tiles of 16 rows at u=2048
+//     would take 263 kB of h buffers.  The h buffers hold only the CTA's 2
+//     bb rows (MmaLayout's compact rows, window w's branch b at row b bb +
+//     w; the ldmatrix lanes of windows past bb address the last window's
+//     rows, whose sums are dropped), so a CTA takes 8 windows at u=2048
+//     (MaxWindowsBf16).  A warp owns one unit group (16 warps).  The step
+//     is MmaAvgKernel's, so a row's bits depend on its codes and the
 //     weights only; the recurrent dot stays Precision.DEFAULT: bf16
 //     operands, float32 sums and carry.  A kernel of its own: the same
-//     changes made inside MmaAvgKernel (a group loop, a flag a group, the
-//     compact rows) took its one-CTA tile 3-10 % longer at u <= 128 on
-//     the H100 (timed in turns with the kernel without them; here its
-//     times are within 0.6 % of that kernel's at every width to u=1024).
+//     changes made inside MmaAvgKernel (the compact rows and their flags)
+//     took its one-CTA tile 3-10 % longer at u <= 128 on the H100 (timed
+//     in turns with the kernel without them; here its times are within
+//     0.6 % of that kernel's at every width to u=1024).
 //   * ptxas -v: MmaWideKernel<3, 128, 1> 128 registers, <4, 128, 1> 126,
-//     no spills; <3, 256, 2> 128 with 12 / 20 bytes of spill stores /
-//     loads, <4, 256, 2> 128 with 12 / 16.
+//     no spills.
+//   * Where it stops: past u=2048 the grid tile (rnn_grid.cu) was faster
+//     at every batch swept (tools/avg_tile_sweep.py --grid on an NVIDIA
+//     H100 80GB HBM3 at 700 W, ms cluster / grid, GRU: u=2049, B=37, T=150
+//     20.517 / 15.686; B=256, T=342 234.217 / 140.521), where a CTA of 16
+//     would own more than 16 unit groups.  At u=2048 the cluster tile
+//     stays: B=37, T=150 13.755 / 15.458 (LSTM 19.842 / 20.643).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -401,6 +384,9 @@ constexpr int kTileUnits = 128;  // widest layer of the register tile
 constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
+// The bf16 cluster tile's ceiling (MmaWideKernel past kMaxUnits); past it
+// the grid tile (rnn_grid.cu), faster there on the H100.
+constexpr int kMmaWideUnits = 2048;
 
 // ---- The float32 cluster tile's layout ------------------------------------
 
@@ -434,41 +420,18 @@ __host__ __device__ inline size_t ClusterSmem(int gates, int units, int bb,
                           u_floats);
 }
 
-// The launch bound of the cluster tile: up to u=1024 a CTA owns at most 64
-// units and 8 windows, in one or two lane groups of 4 uc threads (256),
-// but 8 windows a group through L1/L2 keep 512 (128 registers), as the
-// GRU sequence kernel's 16 rows a group do (csrc/rnn_seq.cu); past it a
-// lane owns several units (WideLayout) within the same bounds.
+// The launch bound of the cluster tile: a CTA owns at most 64 units and 8
+// windows, in one or two lane groups of 4 uc threads (256), but 8
+// windows a group through L1/L2 keep 512 (128 registers), as the GRU
+// sequence kernel's 16 rows a group do (csrc/rnn_seq.cu).
 __host__ __device__ constexpr int ClusterThreads(int win, bool u_smem) {
   return win >= 8 && !u_smem ? 512 : 256;
 }
 
 // Windows a CTA (of a cluster: each of its CTAs) of the float32 kernels
-// may own at this width on this card (0: refused): 8 up to u=1024; past
-// it the most of 8, 4 and 2 whose two h buffers (padded to a lane group of
-// as many windows) fit the shared memory beside W's columns, 8 only while
-// a group of one unit a lane has at most 512 threads (u <= 2048).
-inline int MaxWindows(int gates, int units) {
-  if (units <= 0 || units > kMaxUnits) return 0;
-  if (units <= kLaneUnits) return 8;
-  const size_t optin = SmemOptin();
-  for (int win = 8; win >= 2; win /= 2) {
-    if (win == 8 && units > 2 * kLaneUnits) continue;
-    if (ClusterSmem(gates, units, win, win, 16, false) <= optin) return win;
-  }
-  return 0;
-}
-
-// The float32 cluster tile past u=1024 (16 CTAs, U through L1/L2) at bb
-// windows a CTA: windows a lane group (2 for bb <= 2; else 8 where the
-// width takes 8 windows, else 4) and units a lane (as few as keep a group
-// within the launch bound: 512 threads at 8 windows, 256 below).
-inline void WideLayout(int gates, int units, int bb, int *win,
-                       int *per_lane) {
-  const int uc = (units + 15) / 16;
-  *win = bb <= 2 ? 2 : MaxWindows(gates, units) >= 8 ? 8 : 4;
-  const int lanes = ClusterThreads(*win, false) / kSlices;
-  *per_lane = uc <= lanes ? 1 : uc <= 2 * lanes ? 2 : 4;
+// may own at this width (0: refused): 8 up to kMaxUnits.
+__host__ __device__ __forceinline__ int MaxWindows(int units) {
+  return units > 0 && units <= kMaxUnits ? 8 : 0;
 }
 
 // The cell of unit i: its bias in registers and the Keras gate math of one
@@ -725,6 +688,10 @@ int LaunchTile(const void *codes, int batch, int steps, const void *kernel,
 // lane group of 4 UnitSpan(uc, kUnits) threads, ceil(bb / kWin) groups a
 // CTA, each lane owning kUnits of the CTA's units (LaneUnit); kUSmem keeps
 // the CTA's slice of U in shared memory (else it is read through L1/L2).
+// Every launch runs one unit a lane (kUnits 1): the unit loop stays
+// because this is the code whose machine code was measured; the same
+// kernel without it compiles to other SASS for the 8-CTA layouts (ptxas,
+// sm_90a, CUDA 12.8; tools/train_turns.py --sass --libs rnn_avg).
 template <int kGates, int kWin, int kCluster, bool kUSmem, int kUnits = 1>
 __global__ void __launch_bounds__(ClusterThreads(kWin, kUSmem), 1)
 AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
@@ -890,16 +857,15 @@ AvgClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
 // Launches a layout of the cluster tile; with `slots`, launches nothing
 // and writes the clusters of it the card runs at once (0 if it cannot
 // place one).
-template <int kGates, int kWin, int kCluster, bool kUSmem, int kUnits = 1>
+template <int kGates, int kWin, int kCluster, bool kUSmem>
 int LaunchClusterTile(const void *codes, int batch, int steps,
                       const void *kernel, const void *bias,
                       const void *recurrent, int units, int bb, void *avg,
                       void *hidden, cudaStream_t stream,
                       int *slots = nullptr) {
-  const auto fn = AvgClusterKernel<kGates, kWin, kCluster, kUSmem, kUnits>;
+  const auto fn = AvgClusterKernel<kGates, kWin, kCluster, kUSmem>;
   const int uc = (units + kCluster - 1) / kCluster;
-  const int threads =
-      (bb + kWin - 1) / kWin * kSlices * UnitSpan(uc, kUnits);
+  const int threads = (bb + kWin - 1) / kWin * kSlices * uc;
   if (threads > ClusterThreads(kWin, kUSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -922,15 +888,13 @@ int LaunchClusterTile(const void *codes, int batch, int steps,
 // windows a lane group (2 when the CTA owns at most 2), U through L1/L2
 // with 8 windows; past it the cluster tile, 4 windows a group on 8 CTAs
 // (U in shared memory), 8 on 16 (U through L1/L2), 2 when the CTA owns at
-// most 2; past u=1024 (WideLayout) 2, 4 or 8 windows a group and 1, 2 or
-// 4 units a lane.  With `slots`, launches nothing and writes the clusters
-// the card runs at once (0 without a cluster).
+// most 2.  With `slots`, launches nothing and writes the clusters the
+// card runs at once (0 without a cluster).
 template <int kGates>
 int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
               const void *bias, const void *recurrent, int units, int bb,
               void *avg, void *hidden, void *stream, int *slots = nullptr) {
-  if (batch <= 0 || steps <= 0 || bb < 1 ||
-      bb > MaxWindows(kGates, units)) {
+  if (batch <= 0 || steps <= 0 || bb < 1 || bb > MaxWindows(units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -943,21 +907,9 @@ int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
     return bb <= 2 ? launch(LaunchClusterTile<kGates, 2, 8, true>)
                    : launch(LaunchClusterTile<kGates, 4, 8, true>);
   }
-  if (cluster == 16 && units <= kLaneUnits) {
+  if (cluster == 16) {
     return bb <= 2 ? launch(LaunchClusterTile<kGates, 2, 16, false>)
                    : launch(LaunchClusterTile<kGates, 8, 16, false>);
-  }
-  if (cluster == 16) {
-    int win = 0, per_lane = 0;
-    WideLayout(kGates, units, bb, &win, &per_lane);
-    switch (win * 10 + per_lane) {
-      case 22: return launch(LaunchClusterTile<kGates, 2, 16, false, 2>);
-      case 24: return launch(LaunchClusterTile<kGates, 2, 16, false, 4>);
-      case 42: return launch(LaunchClusterTile<kGates, 4, 16, false, 2>);
-      case 44: return launch(LaunchClusterTile<kGates, 4, 16, false, 4>);
-      case 81: return launch(LaunchClusterTile<kGates, 8, 16, false>);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (slots != nullptr) {
     *slots = 0;
@@ -1094,7 +1046,7 @@ __device__ __forceinline__ void MmaCellStep(const float (&x)[kGates],
 __host__ __device__ constexpr int MmaThreads(int k_tiles, int cluster,
                                              int groups = 1) {
   return 32 * UnitSpan((2 * k_tiles + cluster - 1) / cluster, groups) *
-         (k_tiles > kLaneUnits / 16 ? 1 : kMmaWindows / 8);
+         (k_tiles > kMaxUnits / 16 ? 1 : kMmaWindows / 8);
 }
 
 // kKT: most k-tiles (u <= 16 kKT); kUSmem: U's fragments in shared memory
@@ -1367,7 +1319,10 @@ int LaunchMma(const void *codes, int batch, int steps, const void *kernel,
 // m-tile of bb <= 8 windows, the h buffers holding only the CTA's 2 bb
 // rows; warp w owns unit groups w + j span (span = UnitSpan(local,
 // kGroups), j < kGroups), each step forming their fragments from U
-// through L1/L2, one group after the other.
+// through L1/L2, one group after the other.  Every launch gives a warp one
+// group (kGroups 1): the group loop stays because this is the code whose
+// machine code was measured; without it the kernel compiles to other SASS
+// (tools/train_turns.py --sass --libs rnn_avg).
 template <int kGates, int kKT, int kGroups>
 __global__ void __launch_bounds__(MmaThreads(kKT, 16, kGroups), 1)
 MmaWideKernel(const int8_t *__restrict__ codes, int batch, int steps,
@@ -1376,7 +1331,7 @@ MmaWideKernel(const int8_t *__restrict__ codes, int batch, int steps,
               __nv_bfloat16 *__restrict__ avg,
               __nv_bfloat16 *__restrict__ hidden) {
   constexpr int kCluster = 16;
-  static_assert(kKT > kLaneUnits / 16, "up to u=1024: MmaAvgKernel");
+  static_assert(kKT > kMaxUnits / 16, "up to u=1024: MmaAvgKernel");
   static_assert(MmaThreads(kKT, kCluster, kGroups) <= kMaxThreads,
                 "more threads than a CTA may have");
   extern __shared__ float4 smem4[];
@@ -1537,7 +1492,7 @@ MmaWideKernel(const int8_t *__restrict__ codes, int batch, int steps,
   }
 }
 
-template <int kGates, int kKT, int kGroups>
+template <int kGates, int kKT>
 int LaunchMmaWide(const void *codes, int batch, int steps, const void *kernel,
                   const void *bias, const void *recurrent, int units, int bb,
                   void *avg, void *hidden, cudaStream_t stream,
@@ -1547,9 +1502,9 @@ int LaunchMmaWide(const void *codes, int batch, int steps, const void *kernel,
   if (units > 16 * kKT || bb > kMmaCap) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto fn = MmaWideKernel<kGates, kKT, kGroups>;
+  const auto fn = MmaWideKernel<kGates, kKT, 1>;
   const MmaLayout lay(kGates, units, bb, steps, false, 16, true);
-  const int threads = 32 * UnitSpan(lay.local, kGroups);
+  const int threads = 32 * lay.local;
   if (slots != nullptr) {
     *slots = ClusterSlots(fn, threads, lay.bytes, 16);
     return 0;
@@ -1563,10 +1518,13 @@ int LaunchMmaWide(const void *codes, int batch, int steps, const void *kernel,
 }
 
 // Which tile the bf16 kernels run at this width: 1 the tensor-core tile
-// (u <= kMmaUnits), 3 its cluster tile (u <= kMaxUnits), 0 refused.  (2,
-// the float32-FMA register tile, served u=129-256 before the cluster tile.)
+// (u <= kMmaUnits), 3 its cluster tile (u <= kMmaWideUnits), 0 refused.
+// (2, the float32-FMA register tile, served u=129-256 before the cluster
+// tile.)
 __host__ __device__ __forceinline__ int Bf16Tile(int units) {
-  return units <= 0 || units > kMaxUnits ? 0 : units <= kMmaUnits ? 1 : 3;
+  return units <= 0 || units > kMmaWideUnits ? 0
+         : units <= kMmaUnits               ? 1
+                                            : 3;
 }
 
 // Whether a CTA of the bf16 cluster tile of `cluster` CTAs holds its unit
@@ -1596,7 +1554,7 @@ int Bf16Cluster(int gates, int units) {
 // rows fit.
 int MaxWindowsBf16(int gates, int units, int cluster) {
   if (cluster == 1) return kMmaCap;
-  if (units > kLaneUnits) {
+  if (units > kMaxUnits) {
     const size_t optin = SmemOptin();
     for (int bb = kMmaCap; bb >= 1; --bb) {
       if (MmaLayout(gates, units, bb, 1, false, cluster, true).bytes <=
@@ -1614,7 +1572,7 @@ int MaxWindowsBf16(int gates, int units, int cluster) {
 }
 
 // The bf16 tile by width (measured on the H100, see the note above):
-// k-tiles up to 16 (u <= 256), 32, 64, 128 and 256 on the cluster tile.
+// k-tiles up to 16 (u <= 256), 32, 64 and 128 on the cluster tile.
 // With `slots`, launches nothing and writes the clusters the card runs at
 // once (0 without a cluster).
 template <int kGates>
@@ -1637,11 +1595,10 @@ int LaunchAvgBf16(const void *codes, int batch, int steps, const void *kernel,
   }
   if (units <= kMmaUnits) return launch(LaunchMma<kGates, 8, true>);
   if (!Bf16USmem(kGates, units, cluster)) {
-    if (units <= kLaneUnits) return launch(LaunchMma<kGates, 64, false, 16>);
-    // Past u=1024: one m-tile, 128 k-tiles with a unit group a warp (16
-    // a CTA), 256 with two (up to 32 a CTA), 512 threads either way.
-    return units <= 2 * kLaneUnits ? launch(LaunchMmaWide<kGates, 128, 1>)
-                                   : launch(LaunchMmaWide<kGates, 256, 2>);
+    if (units <= kMaxUnits) return launch(LaunchMma<kGates, 64, false, 16>);
+    // Past u=1024: one m-tile, 128 k-tiles, a unit group a warp (16 a
+    // CTA, 512 threads).
+    return launch(LaunchMmaWide<kGates, 128>);
   }
   // The clusters each range of widths can get on the H100 (a card that
   // gives another is refused).
@@ -1701,7 +1658,8 @@ int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
 // (each CTA of a cluster holds the cluster's) may own, or 0 if the width
 // is refused (out untouched).
 int dg_avg_layout(int gates, int units, int bf16, int *out) {
-  if ((gates != 3 && gates != 4) || units <= 0 || units > kMaxUnits) {
+  if ((gates != 3 && gates != 4) || units <= 0 ||
+      units > (bf16 ? kMmaWideUnits : kMaxUnits)) {
     return 0;
   }
   if (bf16) {
@@ -1716,7 +1674,7 @@ int dg_avg_layout(int gates, int units, int bf16, int *out) {
   }
   out[0] = AvgCluster(units);
   out[1] = units <= kRegUnits ? 1 : out[0] == 8 ? 2 : 0;
-  return MaxWindows(gates, units);
+  return MaxWindows(units);
 }
 
 // The clusters of that layout, at `bb` windows a CTA, that the card runs

@@ -5,8 +5,6 @@
 // A lane group's butterfly (FoldWindows) reduce-scatters the partial sums
 // of a unit's four k-slice lanes over the group's windows, so that lane s
 // ends with whole sums of the windows it owns (OwnWindows, OwnWindow).
-// Past 64 units a CTA (kLaneUnits) a lane owns several units (UnitSpan,
-// LaneUnit).
 //
 // Each CTA of such a cluster writes its slice of a step's result into its
 // peers' shared memory (PeerAddress, StoreCluster); one cluster barrier a
@@ -53,20 +51,20 @@ __device__ __forceinline__ void FoldWindows(
 
 // ---- The lane's units ----------------------------------------------------
 
-// Past 64 units a CTA (u > 1024 on 16 CTAs) a lane owns several of the
-// CTA's uc units: the k-slice lanes of a group span UnitSpan(uc, per_lane)
-// units, and the lane of unit slot i owns the CTA's local units
-// LaneUnit(i, span, j) = i + j span, j < per_lane (for each j a warp's
-// lanes read neighbouring columns of U).  The lane runs its units one
-// after the other, each through the same four k-slices and butterfly as
-// one unit a lane, so a unit's sum runs in an order fixed by u: a
-// window's bits do not depend on the units a lane, nor on the cluster,
-// CTA or lane.  The bf16 tile's warps own unit groups the same way.
-constexpr int kLaneUnits = 1024;  // widest at one unit a lane (16 x 64)
-// The ceiling of every recurrence kernel (rnn_avg.cu, rnn_seq.cu,
-// rnn_train.cu): 16 CTAs of 256 units, four units a lane.
-constexpr int kMaxUnits = 4096;
+// The ceiling of the cluster tiles of one unit a lane (rnn_avg.cu's
+// float32 tile, rnn_seq.cu, rnn_train.cu): 16 CTAs of 64 units.  Past it
+// the grid tile (rnn_grid.cu) runs every recurrence faster on the H100
+// (tools/avg_tile_sweep.py --grid, tools/train_tile_sweep.py --grid), and
+// the bf16 tile keeps its cluster tile to kMmaWideUnits (rnn_avg.cu).
+constexpr int kMaxUnits = 1024;
 
+// A lane of rnn_avg.cu's and rnn_seq.cu's cluster tiles loops over
+// per_lane of its CTA's uc units: the k-slice lanes of a group span
+// UnitSpan(uc, per_lane) units, and the lane of unit slot i owns the
+// CTA's local units LaneUnit(i, span, j) = i + j span, j < per_lane (the
+// bf16 tile's warps own unit groups the same way).  Every launch passes
+// per_lane 1; the loop stays in those kernels because their machine code
+// is the one measured (without it they compile to other SASS).
 __host__ __device__ constexpr int UnitSpan(int uc, int per_lane) {
   return (uc + per_lane - 1) / per_lane;
 }

@@ -1,9 +1,14 @@
-// The recurrences past the cluster tiles' ceiling (u > 4096), for Hopper
-// (sm_90a): the grid tile, a tiled product of every row's h_t with U a step
-// with the gate math in its epilogue; in training also the backward's
-// products (see "Training" below).
+// The recurrences past the cluster tiles' ceilings, for Hopper (sm_90a):
+// the grid tile, a tiled product of every row's h_t with U a step with the
+// gate math in its epilogue; in training also the backward's products
+// (see "Training" below).  models/cuda_rnn.py routes here the float32
+// fused rows and the GRU sequence kernel (either dtype) past u=1024, the
+// bf16 fused rows past u=2048 and training from u=1024: the widths at
+// which this tile was as fast as the cluster tiles or faster at every
+// batch swept (tools/avg_tile_sweep.py --grid, tools/train_tile_sweep.py
+// --grid; the figures are beside those widths in models/cuda_rnn.py).
 //
-// Replaces, past u=4096, the TPU kernels of the JAX package:
+// Replaces, at those widths, the TPU kernels of the JAX package:
 //   * dg_avg_grid gates=3 (f32 / bf16 out)
 //       <- deepgrp_tpu/models/pallas_rnn.py:178 _gru_avg_kernel
 //          (pallas_gru_avg, :466)
@@ -32,13 +37,14 @@
 // U to bfloat16 for the recurrent dot, sums in float32 and keeps the carry,
 // the gate math and the average in float32 (the TPU's DEFAULT precision).
 //
-// Why a tile of its own.  Every cluster tile (rnn_avg.cu, rnn_seq.cu) keeps
-// a window's whole doubled h in each CTA of its cluster and streams all of
-// U each step, once a cluster: past u~3600 U no longer fits the 50 MB L2,
-// so each of the ~7 clusters at once reads it from HBM each step, and 16
-// CTAs of 256 units stop at u=4096.  Here one step is one launch of a
-// product of all the launch's rows with U, so U is read about once a step
-// for all windows, and the width is bounded by device memory only.
+// Why a tile of its own.  Every cluster tile (rnn_avg.cu, rnn_seq.cu,
+// rnn_train.cu) keeps a window's whole doubled h in each CTA of its
+// cluster and streams all of U each step, once a cluster (past u~3600 U
+// no longer fits the 50 MB L2, so each of the ~7 clusters at once reads
+// it from HBM each step), and 16 CTAs of 64 units stop at u=1024.  Here
+// one step is one launch of a product of all the launch's rows with U, so
+// U is read about once a step for all windows, and the width is bounded
+// by device memory only.
 //
 // Bound on this card.  A step multiplies R rows (2B for the fused rows, B
 // for row 7) by U [u, g u]: 2 R g u^2 FLOP, and U (g u^2 elements: 4 bytes
@@ -85,7 +91,7 @@
 //   * Offsets into U, h, the carry and the outputs are size_t: g u^2 passes
 //     2^31 at u=26,755 (GRU) and 23,171 (LSTM).
 //
-// Training (rows 3-6 past u=4096; rnn_train.cu's contract: masked input
+// Training (rows 3-6 from u=1024; rnn_train.cu's contract: masked input
 // rows, hseq (cseq) kept for the backward, the backward's gate cotangents
 // summed by its dg_train_reduce).  All float32.
 //   * The forward (GridTrainFwdKernel) is the fused step above with the

@@ -35,7 +35,8 @@
 //   * Layouts by width: up to u=64 four slices with U's slice in registers
 //     (48 floats a lane) and kRows 8 (4 when bb <= 4); up to u=128 four
 //     slices through L1/L2 with kRows 16 (4 when bb <= 4); past u=128 the
-//     cluster tile (below), to u=4096; u=4097 is refused.
+//     cluster tile (below), to u=1024 (kMaxUnits); past it the caller
+//     runs the grid tile (rnn_grid.cu), and u=1025 is refused here.
 //   * The layouts, timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
 //     (tools/avg_tile_sweep.py --kernel seq, two runs, f32, T=342, ms a
 //     launch): at 2048 rows, u=60, kRows 8 with U in
@@ -98,24 +99,13 @@
 //     FMA rate (u=512 at 16 rows: 4.6 us a step against 0.13 ms of FMAs
 //     a launch); past u=512 the L2 stream of U's slices (88 MB a step at
 //     u=1024 over 112 CTAs, about 2 TB/s), where cuDNN is faster.
-//   * Past u=1024 (kLaneUnits) up to u=4096 (kMaxUnits) the cluster tile
-//     keeps 16 CTAs and U through L1/L2, and each lane owns kUnits of the
-//     CTA's units (rnn_cluster.cuh's UnitSpan, LaneUnit: 2 up to u=2048, 4
-//     beyond; a group of 4 or 8 rows keeps 256 threads), run one after the
-//     other through the same quads, butterfly and input dot, so a unit's
-//     sum is the one-unit-a-lane sum.  The two h buffers of 16 rows would
-//     outgrow the shared memory, so a CTA owns at most 8 rows up to
-//     u=2048 (kRows 8) and 4 up to 4096 (MaxRows; 128 kB of h buffers at
-//     each ceiling).  ptxas -v (sm_90a, CUDA 12.8): SeqKernel<4,
-//     L1/L2, f32 / bf16, 16, L1/L2, 2> 128 / 128 registers, <4, ..., 4> 193
-//     / 193, <8, ..., 2> 164 / 158; no spills.  Timed on an NVIDIA H100
-//     80GB HBM3 at 700 W (chip_smoke.py, T=342, f32 / bf16 IO, ms a
-//     launch): 64 rows, u=2048 128.6400 / 101.4715 against cuDNN's
-//     26.4413 / 7.2265; 16 rows, u=4096 251.8757 / 602.0655 against
-//     69.1920 / 15.5069.  Bound, as the fused tile past u=1024, by the
-//     stream of U each cluster reads each step and a lane's round trip a
-//     quad; why bf16 IO at four units a lane takes 2.4x its f32 time is
-//     not known (no spill, no stack frame).
+//   * Where it stops: u=1024.  A layout with several units a lane served
+//     u=1025 to 4096 once, but the grid tile (rnn_grid.cu) was faster at
+//     every width past u=1024 and every row count swept
+//     (tools/avg_tile_sweep.py --grid on an NVIDIA H100 80GB HBM3 at 700 W,
+//     ms cluster / grid, f32: u=1025, 16 rows 16.719 / 13.497; u=2048, 64
+//     rows 129.006 / 23.524).  At u=1024 this tile stays: 16 rows 8.321 /
+//     13.075 (bf16 IO 9.388 / 13.263).
 //   * Step: the lane forms the three gate partials of its group's kRows rows
 //     over its slice, each U entry loaded once for all of them and h read as
 //     float4 broadcasts from shared memory; the butterfly (xor 1, then xor
@@ -163,14 +153,9 @@ __host__ __device__ __forceinline__ bool SeqUSmem(int units) {
 }
 
 // Rows a CTA may own at this width: 16, but 4 from u=257 to 512 (U's
-// slice in shared memory) and past u=1024, where the two h buffers of 16
-// rows outgrow the shared memory, 8 up to u=2048 and 4 up to 4096 (128 kB
-// of h buffers at each ceiling).
+// slice in shared memory).
 __host__ __device__ __forceinline__ int MaxRows(int units) {
-  return units > 2 * kLaneUnits ? 4
-         : units > kLaneUnits   ? 8
-         : units <= 256 || units > 512 ? 16
-                                       : 4;
+  return units <= 256 || units > 512 ? 16 : 4;
 }
 
 // Units of a row each CTA of a cluster owns (the last may own fewer).
@@ -217,7 +202,11 @@ using Elem = typename Io<kBf16>::Out;
 // CTAs a cluster split a row's units (1: no cluster); kUSmem keeps the
 // CTA's slice of U in shared memory (else registers, kURegs, or L1/L2);
 // each lane owns kUnits of the CTA's units (LaneUnit), one after the
-// other.
+// other.  Every launch runs one unit a lane (kUnits 1): the unit loop
+// stays because this is the code whose machine code was measured; the
+// same kernel without it compiles to other SASS, the flagship's
+// SeqKernel<8, U in registers> among them (tools/train_turns.py --sass
+// --libs rnn_seq).
 template <int kRows, bool kURegs, bool kBf16, int kCluster = 1,
           bool kUSmem = false, int kUnits = 1>
 __global__ void __launch_bounds__(SeqThreads(kRows, kURegs, kCluster,
@@ -529,15 +518,15 @@ cudaError_t SeqSmem(int units, int channels, int steps, int bb, int rows,
 // clusters the card runs at once (0 without a cluster, or if it cannot
 // place one).
 template <int kRows, bool kURegs, bool kBf16, int kCluster = 1,
-          bool kUSmem = false, int kUnits = 1>
+          bool kUSmem = false>
 int LaunchTile(const void *x, int batch, int steps, int channels,
                const void *kernel, const void *bias, const void *recurrent,
                int units, int bb, void *seq, void *last,
                cudaStream_t stream, int *slots = nullptr) {
   using T = Elem<kBf16>;
-  const auto fn = SeqKernel<kRows, kURegs, kBf16, kCluster, kUSmem, kUnits>;
-  const int threads = (bb + kRows - 1) / kRows * kSlices *
-                      UnitSpan(ClusterUnits(units, kCluster), kUnits);
+  const auto fn = SeqKernel<kRows, kURegs, kBf16, kCluster, kUSmem>;
+  const int threads =
+      (bb + kRows - 1) / kRows * kSlices * ClusterUnits(units, kCluster);
   if (threads > SeqThreads(kRows, kURegs, kCluster, kUSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -583,21 +572,17 @@ int LaunchTile(const void *x, int batch, int steps, int channels,
 
 // The layout at this width and rows a CTA: {rows a lane group, slices a
 // unit, where U sits (0 L1/L2, 1 registers, 2 shared memory), CTAs a
-// cluster, units a lane}; false if the shape is refused.
+// cluster}; false if the shape is refused.
 bool Layout(int units, int bb, int *out) {
   if (units <= 0 || units > kMaxUnits || bb < 1 || bb > MaxRows(units)) {
     return false;
   }
   const bool small = bb <= 4;
   out[3] = SeqCluster(units);
-  out[4] = 1;
   if (out[3] > 1) {  // four slices of the CTA's units
-    out[0] = small ? 4 : out[3] == 8 || units > kLaneUnits ? 8 : 16;
+    out[0] = small ? 4 : out[3] == 8 ? 8 : 16;
     out[1] = 4;
     out[2] = SeqUSmem(units) ? 2 : 0;
-    // Past u=1024 a group of 4 or 8 rows keeps 256 threads (SeqThreads):
-    // two units a lane up to u=2048, four up to u=4096.
-    if (units > kLaneUnits) out[4] = units <= 2 * kLaneUnits ? 2 : 4;
     return true;
   }
   out[0] = small ? 4 : units <= kRegUnits ? 8 : 16;
@@ -611,7 +596,7 @@ int LaunchSeq(const void *x, int batch, int steps, int channels,
               const void *kernel, const void *bias, const void *recurrent,
               int units, int bb, void *seq, void *last, void *stream,
               int *slots = nullptr) {
-  int layout[5];
+  int layout[4];
   if (batch <= 0 || steps <= 0 || channels <= 0 ||
       !Layout(units, bb, layout)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -624,14 +609,6 @@ int LaunchSeq(const void *x, int batch, int steps, int channels,
   if (layout[3] == 8) {
     return layout[0] == 4 ? launch(LaunchTile<4, false, kBf16, 8, true>)
                           : launch(LaunchTile<8, false, kBf16, 8, true>);
-  }
-  if (layout[4] > 1) {  // past u=1024
-    switch (layout[0] * 10 + layout[4]) {
-      case 42: return launch(LaunchTile<4, false, kBf16, 16, false, 2>);
-      case 44: return launch(LaunchTile<4, false, kBf16, 16, false, 4>);
-      case 82: return launch(LaunchTile<8, false, kBf16, 16, false, 2>);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (layout[3] == 16) {
     if (layout[2] == 2) return launch(LaunchTile<4, false, kBf16, 16, true>);
@@ -669,8 +646,7 @@ int dg_gru_seq(const void *x, int batch, int steps, int channels,
 // The layout dg_gru_seq launches for `units` and `bb` rows a CTA:
 // out[0] rows a lane group, out[1] slices a unit, out[2] where U sits (0
 // read through L1/L2, 1 registers, 2 shared memory), out[3] CTAs a
-// cluster (1: none; each CTA of a cluster owns ceil(u / out[3]) units),
-// out[4] units a lane.
+// cluster (1: none; each CTA of a cluster owns ceil(u / out[3]) units).
 // Returns the most rows a CTA may own at this width, or 0 if the shape is
 // refused (out untouched).
 int dg_gru_seq_layout(int units, int bb, int *out) {

@@ -11,9 +11,9 @@
 //   * dg_lstm_bwd_recurrence <- :542 _lstm_train_bwd_kernel (_lstm_bwd_call
 //     + dg_train_reduce         :715, custom VJP pallas_lstm_avg_train
 //                               :806-855)
-// up to u=4096 (kMaxUnits); past it rnn_grid.cu's grid tile runs the
-// forwards and the recurrences, and dg_train_reduce sums its cotangents at
-// every width.
+// up to u=1024 (kMaxUnits); past it rnn_grid.cu's grid tile runs the
+// forwards and the recurrences (the caller sends u=1024 there too), and
+// dg_train_reduce sums its cotangents at every width.
 // Contract (identical to those kernels and to the plain PyTorch versions in
 // deepgrp_tpu_torch/models/rnn.py): the inference contract of rnn_avg.cu,
 // plus Keras input dropout as per-gate scales of the selected input row,
@@ -165,14 +165,12 @@
 //     shared loads, shuffles and barriers; 16 warps an SM hide part of
 //     it.  Past u=128, U's stream from L2 (above).
 //
-// The cluster tile (257 <= u <= 4096, kMaxUnits of rnn_cluster.cuh; the
+// The cluster tile (257 <= u <= 1024, kMaxUnits of rnn_cluster.cuh; the
 // section of that name below): a window's units over a thread-block
-// cluster of 8 or 16 CTAs, each owning uc = ceil(u / kCluster) units with
-// all their gates and U's columns, for 2, 4 or 8 windows a cluster
-// (TrainFwdClusterKernel, BwdRecurrenceClusterKernel<kGates, kWin,
-// kCluster>, one unit a lane up to u=1024, 64 units a CTA; past it
-// TrainFwdClusterWideKernel, BwdRecurrenceClusterWideKernel<kGates, kWin,
-// kUnits>).  The forward is
+// cluster of 8 or 16 CTAs, each owning uc = ceil(u / kCluster) <= 64
+// units with all their gates and U's columns, one unit a lane, for 2, 4
+// or 8 windows a cluster (TrainFwdClusterKernel,
+// BwdRecurrenceClusterKernel<kGates, kWin, kCluster>).  The forward is
 // the f32 inference cluster tile's step (rnn_avg.cu) with the masked
 // input row and the hseq (cseq) stores; the backward's (A) recomputes
 // the gates with the forward's ClusterDots and GruGateMath (the forward's
@@ -217,45 +215,16 @@
 //   * Shared memory: the forward's two h buffers 16 kWin Pad4(u) bytes
 //     (128 KB at 8 windows and u=1024), the backward's h_prev 8 kWin
 //     Pad4(u) and the slots 8 kCluster kWin uc bytes (64 + 128 KB there).
-//   * Past u=1024 (kLaneUnits) a CTA of 16 owns up to 256 units, more than
-//     its 64 lane slots: a lane owns kUnits of them (rnn_cluster.cuh's
-//     UnitSpan / LaneUnit; UnitsALane: 2 up to u=2048, 4 up to 4096),
-//     runs them one after the other through the same ClusterDots k-slices
-//     and FoldOwn butterfly, and in (B) forms the partials of each unit's k
-//     in turn; the slots are summed in rank order as before.  The wide
-//     kernels are kernels of their own: the same unit loop inside the
-//     one-unit kernels changed those kernels' code (ptxas: the same
-//     registers) and moved the backward at u=300, B=37, T=150 by 0.82x
-//     (GRU) and 1.06x (LSTM), in turns with the earlier build
-//     (tools/train_turns.py).  So a
-//     window's forward and gradients do not depend on the units a lane,
-//     the windows a cluster, the batch or the CTA, and (A) still gives the
-//     forward's bits.  The h buffers outgrow 8 windows: the windows a
-//     cluster fall with the width (ClusterLayoutOf: the most that fit the
-//     227 KB opt-in), to 2 at u=4096: the forward's 151,872 B (LSTM) /
-//     146,672 B (GRU) there.  The backward at 2 windows would need
-//     237,888 B (LSTM) at u=4096 with W's columns staged (20 KB there),
-//     which fits only up to u=4000; past u=1024 its (A) reads W's row of
-//     the unit through L1 instead (the same value, so the same bits; one
-//     load a gate a row a step beside the ClusterDots stream of U), for
-//     217,408 / 212,208 B at u=4096 (WideBwdLayout).  The backward keeps
-//     at most 4 windows past u=1024: 8 would fit only up to u=1104 / 1120
-//     and double the per-unit registers of a step that holds 224-228 at
-//     one unit a lane.
-//   * ptxas -v (sm_90a, CUDA 12.8): TrainFwdClusterWideKernel 112-168
-//     registers (8 windows at two units a lane 150 / 153),
-//     BwdRecurrenceClusterWideKernel 125-202; no spills.
-//   * Timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
-//     (chip_smoke.py phase 6, masks at rate 0.0928, ms; forward / backward
-//     = recurrence + reduction; cuDNN's forward / forward + backward, TF32
-//     off, in the same process): GRU u=1025, B=37, T=150: 12.56 / 28.55 =
-//     25.23 + 3.30 (cuDNN 6.34 / 27.46); u=2048, B=64, T=342: 191.04 /
-//     452.20 = 414.02 + 42.11 (41.64 / 111.83); u=4096, B=16, T=342:
-//     551.24 / 965.57 = 926.56 + 41.04 (65.10 / 153.00); LSTM 14.79 /
-//     36.37, 214.88 / 531.64, 734.11 / 1329.77 (cuDNN 6.44 / 26.69, 45.72
-//     / 125.05, 67.45 / 174.91).  Forward + backward 1.5-11.8x cuDNN's:
-//     as in inference, every cluster streams all of U each step (201 / 268
-//     MB at u=4096, past the 50 MB L2), the backward twice.
+//   * Where it stops: the caller (models/cuda_rnn.py,
+//     TRAIN_CLUSTER_MAX_UNITS) runs it up to u=1023 and the grid tile
+//     (rnn_grid.cu) from u=1024, where the grid was as fast or faster at
+//     every batch swept (tools/train_tile_sweep.py --grid on an NVIDIA
+//     H100 80GB HBM3 at 700 W, ms forward + backward, cluster / grid:
+//     u=1024, B=64, T=342 GRU 108.86 / 60.16; the closest, LSTM B=37,
+//     T=150 28.93 / 29.30), and at u=768 it was not (the forward of B=37,
+//     T=150: LSTM 1.12x the cluster tile's time on the grid).  Past
+//     u=1024 a tile with several units a lane served up to u=4096 once;
+//     the grid was 1.5-7.7x faster there (forward + backward).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1275,17 +1244,15 @@ GruBwdRecurrenceWideKernel(const int8_t *__restrict__ codes, int batch,
   }
 }
 
-// --------------------------- the cluster tile (257 <= u <= 4096)
+// --------------------------- the cluster tile (257 <= u <= 1024)
 //
 // Past kWideUnits a window's units split over a thread-block cluster of
 // kCluster CTAs, as the float32 inference tile does (AvgClusterKernel in
 // rnn_avg.cu): the CTA of rank r owns units [r uc, (r + 1) uc), uc =
-// ceil(u / kCluster) <= 64 (past u=1024 on 16 CTAs up to 256), with all
-// their gates and all k of their columns of U (read through L1/L2), for
-// the kWin windows of the cluster (one lane group of 4 uc threads; lane
-// (i, s) owns unit base + i and k-slice s; past u=1024 4 UnitSpan(uc,
-// kUnits) threads, lane (i, s) owning units base + LaneUnit(i, span, n),
-// n < kUnits).  Each CTA keeps a full copy of h per row.  The forward's
+// ceil(u / kCluster) <= 64, with all their gates and all k of their
+// columns of U (read through L1/L2), for the kWin windows of the cluster
+// (one lane group of 4 uc threads; lane (i, s) owns unit base + i and
+// k-slice s).  Each CTA keeps a full copy of h per row.  The forward's
 // step: ClusterDots (the quads of the slice, then the butterfly) leaves
 // each lane the whole gate sums of the rows it owns, it does their gate
 // math on the masked input row, stores hseq (cseq), avg and hidden, and
@@ -1305,17 +1272,9 @@ GruBwdRecurrenceWideKernel(const int8_t *__restrict__ codes, int batch,
 // (256 kB for the LSTM at u=1024 and 4 windows).  One __syncthreads and
 // one cluster barrier a step.
 
-// Lane slots of a CTA: 64 (kClusterUnits), a lane owning one, two or four
-// of the CTA's units (UnitsALane), up to the shared ceiling kMaxUnits.
-constexpr int kClusterUnits = 64;
+constexpr int kClusterUnits = 64;  // most units a CTA of a cluster owns
 constexpr int kClusterThreads = kSlices * kClusterUnits;
 constexpr int kPartialKs = 4;  // rows k of U a pass of (B) takes
-
-// Units a lane of the cluster tile at this width: one up to u=1024
-// (kLaneUnits, 64 a CTA of 16), two up to 2048, four up to kMaxUnits.
-constexpr int UnitsALane(int units) {
-  return units <= kLaneUnits ? 1 : units <= 2 * kLaneUnits ? 2 : 4;
-}
 
 // Shared memory of a cluster kernel, as float offsets from a 16-byte
 // aligned base: h [2 (forward: 2 buffers x 2)][kWin][Pad4(u)]; the
@@ -1340,16 +1299,6 @@ struct ClusterLayout {
     end = m + rows * gates * kCodes;
   }
   size_t bytes() const { return sizeof(float) * end; }
-};
-
-// The backward's shared memory past u=1024 (16 CTAs): ClusterLayout's
-// without W's columns, which its (A) reads through L1; the masks at w.
-struct WideBwdLayout : ClusterLayout {
-  __host__ __device__ WideBwdLayout(int gates, int units, int win)
-      : ClusterLayout(gates, units, win, 16, true) {
-    m = w;
-    end = m + 2 * static_cast<size_t>(win) * gates * kCodes;
-  }
 };
 
 // The CTA's columns of W: s_w[c][g uc + n] = W[c, g u + base + n], zero
@@ -1559,118 +1508,6 @@ TrainFwdClusterKernel(const int8_t *__restrict__ codes, int batch, int steps,
         avg[(static_cast<size_t>(row) * steps + t) * units + unit] = mean;
         if (t == steps - 1) {
           hidden[static_cast<size_t>(row) * units + unit] = mean;
-        }
-      }
-    }
-    ClusterBarrier();  // the new h in every CTA's next buffer
-  }
-}
-
-// The same past u=1024 on 16 CTAs (the note above): lane (i, s) owns the
-// CTA's units LaneUnit(i, span, n), n < kUnits (2 or 4), and runs them
-// one after the other through the same ClusterDots and gate math.  A
-// kernel of its own: the one-unit kernel's code stays as it was measured.
-template <int kGates, int kWin, int kUnits>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-TrainFwdClusterWideKernel(const int8_t *__restrict__ codes, int batch, int steps,
-                      const float *__restrict__ masks,
-                      const float *__restrict__ kernel,
-                      const float *__restrict__ bias,
-                      const float *__restrict__ recurrent, int units,
-                      float *__restrict__ avg, float *__restrict__ hidden,
-                      float *__restrict__ hseq, float *__restrict__ cseq) {
-  static_assert(kUnits > 1, "one unit a lane: TrainFwdClusterKernel");
-  constexpr int kCluster = 16;
-  constexpr int kOwn = OwnWindows(kWin);
-  constexpr int kRows = 2 * kWin;
-  extern __shared__ float4 smem4[];
-  const ClusterLayout lay(kGates, units, kWin, kCluster, false);
-  float *s_h = reinterpret_cast<float *>(smem4);  // [2][kRows][hstride]
-  float *s_w = s_h + lay.w;
-  float *s_m = s_h + lay.m;
-  const int uc = lay.uc, hstride = lay.hstride;
-  const int span = UnitSpan(uc, kUnits);
-  const int base = static_cast<int>(ClusterRank()) * uc;
-  const int tid = threadIdx.x;
-  const int i = tid / kSlices, s = tid % kSlices;
-  // The lane's units; lanes past u or past the CTA's units read the last
-  // unit's column and drop their sums.
-  int local[kUnits], unit[kUnits], u_col[kUnits];
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-    local[n] = LaneUnit(i, span, n);
-    unit[n] = base + local[n];
-    u_col[n] = min(unit[n], units - 1);
-  }
-  const int row0 = blockIdx.x / kCluster * kWin;
-  for (int j = tid; j < 2 * kRows * hstride; j += blockDim.x) s_h[j] = 0.0f;
-  StageClusterWeights<kGates>(kernel, units, uc, base, s_w);
-  StageMasks<kGates>(masks, batch, row0, kWin, s_m);
-  float b_in[kUnits][kGates], b_rec[kUnits][kGates];
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-    ClusterBiases<kGates>(bias, units, u_col[n], b_in[n], b_rec[n]);
-  }
-  const unsigned lanes = WarpLanes();
-  bool writer[kUnits];
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-    writer[n] = unit[n] < units && local[n] < uc && (kWin >= 4 || s < 2);
-  }
-  float h_own[kUnits][kOwn][2] = {}, c_own[kUnits][kOwn][2] = {};
-  ClusterBarrier();  // every CTA's h zeroed before a peer writes it
-
-  for (int t = 0; t < steps; ++t) {
-    const float *h_cur = s_h + (t & 1) * kRows * hstride;
-    float *h_nxt = s_h + ((t + 1) & 1) * kRows * hstride;
-#pragma unroll
-    for (int n = 0; n < kUnits; ++n) {
-      float dot[kOwn][2][kGates];
-      ClusterDots<kGates, kWin>(recurrent, h_cur, units, u_col[n], s, lanes,
-                                dot);
-#pragma unroll
-      for (int j = 0; j < kOwn; ++j) {
-        const int w = OwnWindow<kWin>(0, s, j), row = row0 + w;
-        const bool in_batch = row < batch;
-        if (!writer[n]) continue;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int code = ClusterCode(codes, in_batch, row, steps, t, b);
-          float x[kGates];
-          InputRow<kGates>(s_w, s_m + (b * kWin + w) * kGates * kCodes,
-                           b_in[n], uc, local[n], code, x);
-          float h;
-          if constexpr (kGates == kGruGates) {
-            const GruGates gg = GruGateMath(x, dot[j][b], b_rec[n]);
-            h = gg.z * h_own[n][j][b] + (1.0f - gg.z) * gg.hh;
-          } else {
-            float pre[kLstmGates];
-#pragma unroll
-            for (int g = 0; g < kLstmGates; ++g) pre[g] = x[g] + dot[j][b][g];
-            h = LstmCell(pre, c_own[n][j][b]);
-          }
-          h_own[n][j][b] = h;
-          const uint32_t at = static_cast<uint32_t>(
-              sizeof(float) * ((2 * w + b) * hstride + unit[n]));
-#pragma unroll
-          for (int p = 0; p < kCluster; ++p) {
-            StoreCluster(PeerAddress(h_nxt, p) + at, h);
-          }
-          if (in_batch) {
-            const size_t seq =
-                (static_cast<size_t>(b ? batch + row : row) * steps + t) *
-                    units + unit[n];
-            hseq[seq] = h;
-            if constexpr (kGates == kLstmGates) cseq[seq] = c_own[n][j][b];
-          }
-        }
-        if (in_batch) {
-          const float mean = (h_own[n][j][0] + h_own[n][j][1]) * 0.5f;
-          avg[(static_cast<size_t>(row) * steps + t) * units + unit[n]] =
-              mean;
-          if (t == steps - 1) {
-            hidden[static_cast<size_t>(row) * units + unit[n]] = mean;
-          }
         }
       }
     }
@@ -1935,413 +1772,91 @@ BwdRecurrenceClusterKernel(const int8_t *__restrict__ codes, int batch,
   }
 }
 
-// The same past u=1024 on 16 CTAs (the note above): lane (i, s) owns the
-// CTA's units LaneUnit(i, span, n), n < kUnits (2 or 4); (A) runs them one
-// after the other, reading W's rows through L1 (WideBwdLayout), and (B)
-// forms the partials of k = q uc + LaneUnit(i, span, n) one unit after
-// the other.  A kernel of its own: the one-unit kernel's code stays as it
-// was measured.
-template <int kGates, int kWin, int kUnits>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-BwdRecurrenceClusterWideKernel(const int8_t *__restrict__ codes, int batch,
-                           int steps, const float *__restrict__ masks,
-                           const float *__restrict__ kernel,
-                           const float *__restrict__ bias,
-                           const float *__restrict__ recurrent, int units,
-                           const float *__restrict__ hseq,
-                           const float *__restrict__ cseq,
-                           const float *__restrict__ d_avg,
-                           const float *__restrict__ d_hidden,
-                           float *__restrict__ d_out,
-                           float *__restrict__ d_xp) {
-  static_assert(kUnits > 1, "one unit a lane: BwdRecurrenceClusterKernel");
-  constexpr int kCluster = 16;
-  constexpr int kOwn = OwnWindows(kWin);
-  constexpr int kRows = 2 * kWin;
-  extern __shared__ float4 smem4[];
-  const WideBwdLayout lay(kGates, units, kWin);
-  float *s_h = reinterpret_cast<float *>(smem4);  // [kRows][hstride]
-  float *s_d = s_h + lay.d;                       // [kRows][dstride]
-  int *s_col = reinterpret_cast<int *>(s_h + lay.col);  // [dstride]
-  float *s_slot = s_h + lay.slots;  // [2][kCluster][kRows][uc]
-  float *s_m = s_h + lay.m;
-  const int uc = lay.uc, cols = lay.cols, hstride = lay.hstride;
-  const int dstride = lay.dstride;
-  const int span = UnitSpan(uc, kUnits);
-  const int slot_buf = kCluster * kRows * uc;  // floats a slot buffer
-  const unsigned rank = ClusterRank();
-  const int base = static_cast<int>(rank) * uc;
-  const int width = kGates * units;
-  const int tid = threadIdx.x;
-  const int i = tid / kSlices, s = tid % kSlices;
-  int local[kUnits], unit[kUnits], u_col[kUnits];
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-    local[n] = LaneUnit(i, span, n);
-    unit[n] = base + local[n];
-    u_col[n] = min(unit[n], units - 1);
-  }
-  const int row0 = blockIdx.x / kCluster * kWin;
-
-  for (int j = tid; j < kRows * hstride; j += blockDim.x) s_h[j] = 0.0f;
-  for (int j = tid; j < kRows * dstride; j += blockDim.x) s_d[j] = 0.0f;
-  // The column of U of each of the CTA's columns of d (a valid one where
-  // d is zero: past u and the pads).
-  for (int o = tid; o < dstride; o += blockDim.x) {
-    const int g = o / uc, n = base + o - g * uc;
-    s_col[o] = o < cols && n < units ? g * units + n : 0;
-  }
-  StageMasks<kGates>(masks, batch, row0, kWin, s_m);
-  __syncthreads();  // zeroed before the rows of h_prev land
-  LoadHPrev(hseq, batch, steps, units, row0, kRows, steps - 2, s_h, false);
-  float b_in[kUnits][kGates], b_rec[kUnits][kGates];
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-    ClusterBiases<kGates>(bias, units, u_col[n], b_in[n], b_rec[n]);
-  }
-  const unsigned lanes = WarpLanes();
-  bool writer[kUnits];
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-    writer[n] = unit[n] < units && local[n] < uc && (kWin >= 4 || s < 2);
-  }
-  const bool p_writer = kWin >= 4 || s < 2;
-
-  // Per owned unit and window: dhid / 2, and one step ahead d_avg / 2 and
-  // c_prev.
-  float half_hid[kUnits][kOwn], nx_da[kUnits][kOwn], nx_c[kUnits][kOwn][2];
-  float dc[kUnits][kOwn][2] = {}, keep[kUnits][kOwn][2] = {};
-  auto c_at = [&](int row, int b, int step, int un) {
-    return step >= 0 ? cseq[(static_cast<size_t>(b ? batch + row : row) *
-                                 steps + step) * units + un]
-                     : 0.0f;
-  };
-#pragma unroll
-  for (int n = 0; n < kUnits; ++n) {
-#pragma unroll
-    for (int j = 0; j < kOwn; ++j) {
-      const int row = row0 + OwnWindow<kWin>(0, s, j);
-      const bool live = writer[n] && row < batch;
-      half_hid[n][j] =
-          live ? d_hidden[static_cast<size_t>(row) * units + unit[n]] * 0.5f
-               : 0.0f;
-      nx_da[n][j] =
-          live ? d_avg[(static_cast<size_t>(row) * steps + steps - 1) *
-                           units + unit[n]] * 0.5f
-               : 0.0f;
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        nx_c[n][j][b] = kGates == kLstmGates && live
-                            ? c_at(row, b, steps - 2, unit[n])
-                            : 0.0f;
-      }
-    }
-  }
-  ClusterBarrier();  // h_prev staged; every CTA started before (B) writes
-
-  for (int t = steps - 1; t >= 0; --t) {
-    const float *slot_cur = s_slot + (t & 1) * slot_buf;
-    // (A) the owned rows' gates from h_prev and their cotangents, unit by
-    // unit.
-#pragma unroll
-    for (int n = 0; n < kUnits; ++n) {
-      float dot[kOwn][2][kGates];
-      ClusterDots<kGates, kWin>(recurrent, s_h, units, u_col[n], s, lanes,
-                                dot);
-#pragma unroll
-      for (int j = 0; j < kOwn; ++j) {
-        const int w = OwnWindow<kWin>(0, s, j), row = row0 + w;
-        const bool in_batch = row < batch;
-        if (!writer[n]) continue;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int lr = 2 * w + b;
-          const int code = ClusterCode(codes, in_batch, row, steps, t, b);
-          float x[kGates];
-          InputRow<kGates>(kernel, s_m + (b * kWin + w) * kGates * kCodes,
-                           b_in[n], units, unit[n], code, x);
-          float dh = half_hid[n][j];
-          if (t < steps - 1) {  // the slots of dh_prev, in rank order
-            float sum = slot_cur[lr * uc + local[n]];
-#pragma unroll
-            for (int p = 1; p < kCluster; ++p) {
-              sum += slot_cur[(p * kRows + lr) * uc + local[n]];
-            }
-            dh = kGates == kGruGates ? keep[n][j][b] + sum : sum;
-          }
-          const float dht = dh + nx_da[n][j];
-          float d_r[kGates];  // of the recurrent preactivations
-          const size_t out =
-              (static_cast<size_t>(b ? batch + row : row) * steps + t) *
-                  width + unit[n];
-          if constexpr (kGates == kGruGates) {
-            const GruGates gg = GruGateMath(x, dot[j][b], b_rec[n]);
-            const float h_prev = s_h[lr * hstride + unit[n]];
-            const float da_z =
-                dht * (h_prev - gg.hh) * gg.z * (1.0f - gg.z);
-            const float da_h = dht * (1.0f - gg.z) * (1.0f - gg.hh * gg.hh);
-            const float da_r = (da_h * gg.rh) * gg.r * (1.0f - gg.r);
-            keep[n][j][b] = dht * gg.z;
-            d_r[0] = da_z;
-            d_r[1] = da_r;
-            d_r[2] = da_h * gg.r;
-            if (in_batch) {
-              d_xp[out] = da_z;
-              d_xp[out + units] = da_r;
-              d_xp[out + 2 * units] = da_h;
-            }
-          } else {
-            float pre[kLstmGates];
-#pragma unroll
-            for (int g = 0; g < kLstmGates; ++g) pre[g] = x[g] + dot[j][b][g];
-            LstmCellBackward(pre, dht, nx_c[n][j][b], dc[n][j][b], d_r);
-          }
-#pragma unroll
-          for (int g = 0; g < kGates; ++g) {
-            if (in_batch) d_out[out + g * units] = d_r[g];
-            s_d[lr * dstride + g * uc + local[n]] = in_batch ? d_r[g] : 0.0f;
-          }
-        }
-        if (t > 0 && in_batch) {
-          nx_da[n][j] = d_avg[(static_cast<size_t>(row) * steps + t - 1) *
-                                  units + unit[n]] * 0.5f;
-          if constexpr (kGates == kLstmGates) {
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              nx_c[n][j][b] = c_at(row, b, t - 2, unit[n]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // d staged; every read of h_prev done
-
-    if (t > 0) {
-      LoadHPrev(hseq, batch, steps, units, row0, kRows, t - 2, s_h, true);
-      // (B) p_r[row, k] for k = q uc + li of each peer q, kPartialKs peers
-      // a pass over the CTA's columns (quads s, s+4, ... of the slice).
-      const int n_quads = SliceQuads(cols, s);
-      const auto partials = [&](int li) {
-        const uint32_t slot_at = static_cast<uint32_t>(
-            sizeof(float) *
-            (((t - 1) & 1) * slot_buf + rank * kRows * uc + li));
-#pragma unroll 1
-        for (int q0 = 0; q0 < kCluster; q0 += kPartialKs) {
-          const float *u_rows[kPartialKs];
-#pragma unroll
-          for (int kk = 0; kk < kPartialKs; ++kk) {
-            u_rows[kk] = recurrent +
-                         min((q0 + kk) * uc + li, units - 1) * width;
-          }
-          float acc[kPartialKs][kWin][2][1] = {};
-          for (int m = 0; m < n_quads; ++m) {
-            const int qd = s + kSlices * m;
-            const int4 col4 = reinterpret_cast<const int4 *>(s_col)[qd];
-            const int col[4] = {col4.x, col4.y, col4.z, col4.w};
-            float uv[kPartialKs][4];
-#pragma unroll
-            for (int kk = 0; kk < kPartialKs; ++kk) {
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                uv[kk][c] = __ldg(u_rows[kk] + col[c]);
-              }
-            }
-#pragma unroll
-            for (int w = 0; w < kWin; ++w) {
-#pragma unroll
-              for (int b = 0; b < 2; ++b) {
-                const float4 d4 = reinterpret_cast<const float4 *>(
-                    s_d + (2 * w + b) * dstride)[qd];
-                const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-                for (int kk = 0; kk < kPartialKs; ++kk) {
-#pragma unroll
-                  for (int c = 0; c < 4; ++c) {
-                    acc[kk][w][b][0] =
-                        fmaf(dv[c], uv[kk][c], acc[kk][w][b][0]);
-                  }
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int kk = 0; kk < kPartialKs; ++kk) {
-            float p[kOwn][2][1];
-            FoldOwn<kWin, 1>(acc[kk], s, lanes, p);
-            const int q = q0 + kk;
-            if (!p_writer || li >= uc || q * uc + li >= units) continue;
-            const uint32_t peer = PeerAddress(s_slot, q) + slot_at;
-#pragma unroll
-            for (int j = 0; j < kOwn; ++j) {
-              const int w = OwnWindow<kWin>(0, s, j);
-#pragma unroll
-              for (int b = 0; b < 2; ++b) {
-                StoreCluster(static_cast<uint32_t>(
-                                 peer + sizeof(float) * (2 * w + b) * uc),
-                             p[j][b][0]);
-              }
-            }
-          }
-        }
-      };
-#pragma unroll 1
-      for (int n = 0; n < kUnits; ++n) partials(LaneUnit(i, span, n));
-      CopyAsyncWait();  // the next h_prev landed (the barrier shows it)
-    }
-    ClusterBarrier();  // slots written, h_prev staged, d read
-  }
-}
-
-// The kernels of a layout: one unit a lane (the cluster tile up to
-// u=1024), or kUnits past it (the wide kernels, 16 CTAs).
-template <int kGates, int kWin, int kCluster, int kUnits>
-constexpr auto FwdClusterKernelOf() {
-  static_assert(kUnits == 1 || kCluster == 16, "wide kernels: 16 CTAs");
-  if constexpr (kUnits == 1) {
-    return TrainFwdClusterKernel<kGates, kWin, kCluster>;
-  } else {
-    return TrainFwdClusterWideKernel<kGates, kWin, kUnits>;
-  }
-}
-template <int kGates, int kWin, int kCluster, int kUnits>
-constexpr auto BwdClusterKernelOf() {
-  static_assert(kUnits == 1 || kCluster == 16, "wide kernels: 16 CTAs");
-  if constexpr (kUnits == 1) {
-    return BwdRecurrenceClusterKernel<kGates, kWin, kCluster>;
-  } else {
-    return BwdRecurrenceClusterWideKernel<kGates, kWin, kUnits>;
-  }
-}
-
-// Shared memory of a layout's kernel.
-template <int kGates, int kWin, int kCluster, int kUnits, bool kBackward>
-size_t ClusterBytes(int units) {
-  if constexpr (kBackward && kUnits > 1) {
-    return WideBwdLayout(kGates, units, kWin).bytes();
-  } else {
-    return ClusterLayout(kGates, units, kWin, kCluster, kBackward).bytes();
-  }
-}
-
 // Launches a layout of the cluster tile's forward (ctas a multiple of
-// kCluster, 4 UnitSpan(uc, kUnits) threads): the launch's error (0 =
-// launched), or cudaErrorInvalidValue past 64 lanes of units a CTA.
-template <int kGates, int kWin, int kCluster, int kUnits = 1>
+// kCluster, 4 uc threads): the launch's error (0 = launched), or
+// cudaErrorInvalidValue past 64 units a CTA.
+template <int kGates, int kWin, int kCluster>
 int LaunchFwdCluster(const void *codes, int batch, int steps,
                      const void *masks, const void *kernel, const void *bias,
                      const void *recurrent, int units, void *avg,
                      void *hidden, void *hseq, void *cseq,
                      cudaStream_t stream) {
-  const int span = UnitSpan((units + kCluster - 1) / kCluster, kUnits);
-  if (span > kClusterUnits) return static_cast<int>(cudaErrorInvalidValue);
+  const ClusterLayout lay(kGates, units, kWin, kCluster, false);
+  if (lay.uc > kClusterUnits) return static_cast<int>(cudaErrorInvalidValue);
   const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
   return static_cast<int>(LaunchCluster(
-      FwdClusterKernelOf<kGates, kWin, kCluster, kUnits>(),
-      (batch + kWin - 1) / kWin * kCluster, kSlices * span,
-      ClusterBytes<kGates, kWin, kCluster, kUnits, false>(units), kCluster,
-      stream, static_cast<const int8_t *>(codes), batch, steps, f32(masks),
-      f32(kernel), f32(bias), f32(recurrent), units,
+      TrainFwdClusterKernel<kGates, kWin, kCluster>,
+      (batch + kWin - 1) / kWin * kCluster, kSlices * lay.uc, lay.bytes(),
+      kCluster, stream, static_cast<const int8_t *>(codes), batch, steps,
+      f32(masks), f32(kernel), f32(bias), f32(recurrent), units,
       static_cast<float *>(avg), static_cast<float *>(hidden),
       static_cast<float *>(hseq), static_cast<float *>(cseq)));
 }
 
 // The same for the backward recurrence (d_xp: the GRU's, null for LSTM).
-template <int kGates, int kWin, int kCluster, int kUnits = 1>
+template <int kGates, int kWin, int kCluster>
 int LaunchBwdCluster(const void *codes, int batch, int steps,
                      const void *masks, const void *kernel, const void *bias,
                      const void *recurrent, int units, const void *hseq,
                      const void *cseq, const void *d_avg,
                      const void *d_hidden, void *d_out, void *d_xp,
                      cudaStream_t stream) {
-  const int span = UnitSpan((units + kCluster - 1) / kCluster, kUnits);
-  if (span > kClusterUnits) return static_cast<int>(cudaErrorInvalidValue);
+  const ClusterLayout lay(kGates, units, kWin, kCluster, true);
+  if (lay.uc > kClusterUnits) return static_cast<int>(cudaErrorInvalidValue);
   const auto f32 = [](const void *p) { return static_cast<const float *>(p); };
   return static_cast<int>(LaunchCluster(
-      BwdClusterKernelOf<kGates, kWin, kCluster, kUnits>(),
-      (batch + kWin - 1) / kWin * kCluster, kSlices * span,
-      ClusterBytes<kGates, kWin, kCluster, kUnits, true>(units), kCluster,
-      stream, static_cast<const int8_t *>(codes), batch, steps, f32(masks),
-      f32(kernel), f32(bias), f32(recurrent), units, f32(hseq), f32(cseq),
-      f32(d_avg), f32(d_hidden), static_cast<float *>(d_out),
+      BwdRecurrenceClusterKernel<kGates, kWin, kCluster>,
+      (batch + kWin - 1) / kWin * kCluster, kSlices * lay.uc, lay.bytes(),
+      kCluster, stream, static_cast<const int8_t *>(codes), batch, steps,
+      f32(masks), f32(kernel), f32(bias), f32(recurrent), units, f32(hseq),
+      f32(cseq), f32(d_avg), f32(d_hidden), static_cast<float *>(d_out),
       static_cast<float *>(d_xp)));
 }
 
 // The clusters of a layout the card runs at once (0 if it cannot place
-// one), or -1 past 64 lanes of units a CTA.
-template <int kGates, int kWin, int kCluster, bool kBackward, int kUnits = 1>
+// one), or -1 past 64 units a CTA.
+template <int kGates, int kWin, int kCluster, bool kBackward>
 int ClusterSlotsOf(int units) {
-  const int span = UnitSpan((units + kCluster - 1) / kCluster, kUnits);
-  if (span > kClusterUnits) return -1;
-  const size_t bytes =
-      ClusterBytes<kGates, kWin, kCluster, kUnits, kBackward>(units);
+  const ClusterLayout lay(kGates, units, kWin, kCluster, kBackward);
+  if (lay.uc > kClusterUnits) return -1;
   if constexpr (kBackward) {
-    return ClusterSlots(BwdClusterKernelOf<kGates, kWin, kCluster, kUnits>(),
-                        kSlices * span, bytes, kCluster);
+    return ClusterSlots(BwdRecurrenceClusterKernel<kGates, kWin, kCluster>,
+                        kSlices * lay.uc, lay.bytes(), kCluster);
   } else {
-    return ClusterSlots(FwdClusterKernelOf<kGates, kWin, kCluster, kUnits>(),
-                        kSlices * span, bytes, kCluster);
+    return ClusterSlots(TrainFwdClusterKernel<kGates, kWin, kCluster>,
+                        kSlices * lay.uc, lay.bytes(), kCluster);
   }
 }
 
 // The cluster tile's layout of a kernel at a width and batch: CTAs a
-// cluster, windows a cluster and units a lane.  Up to u=1024, from the
-// sweep on the H100 (the note at the top): the forward 16 CTAs, 8
-// windows; the backward 8 CTAs (4 windows up to u=384, 8 up to u=512),
-// then 16 CTAs and 8 windows.  Past u=1024 16 CTAs with two or four units
-// a lane (UnitsALane) and the most windows whose shared memory fits the
-// card's opt-in (227 KB on the H100): at most 8 in the forward (GRU / LSTM
-// 8 up to u=1756 / 1736, 4 up to 3420 / 3356, then 2), at most 4 in the
-// backward and at four units a lane (4 up to u=2256 / 2204, then 2; see
-// the header).  Fewer windows for a batch of at most 4.  CTAs a cluster depend on the width only, so a window's bits
-// do not depend on its batch.
+// cluster and windows a cluster, from the sweep on the H100 (the note at
+// the top): the forward 16 CTAs, 8 windows; the backward 8 CTAs (4
+// windows up to u=384, 8 up to u=512), then 16 CTAs and 8 windows; fewer
+// windows for a batch of at most 4.  CTAs a cluster depend on the width
+// only, so a window's bits do not depend on its batch.
 struct TrainCluster {
-  int cluster, windows, per_lane;
+  int cluster, windows;
 };
-TrainCluster ClusterLayoutOf(int gates, bool backward, int units,
-                             int batch) {
-  const int per_lane = UnitsALane(units);
-  int cluster = 16, windows = 8;
-  if (per_lane == 1) {
-    cluster = backward && units <= 512 ? 8 : 16;
-    windows = backward && units <= 384 ? 4 : 8;
-  } else {
-    const size_t optin = SmemOptin();
-    windows = backward || per_lane > 2 ? 4 : 8;
-    const auto bytes = [&](int win) {
-      return backward ? WideBwdLayout(gates, units, win).bytes()
-                      : ClusterLayout(gates, units, win, cluster, false)
-                            .bytes();
-    };
-    while (windows > 2 && bytes(windows) > optin) windows /= 2;
-  }
+TrainCluster ClusterLayoutOf(bool backward, int units, int batch) {
+  const int cluster = backward && units <= 512 ? 8 : 16;
+  int windows = backward && units <= 384 ? 4 : 8;
   while (windows > 2 && batch <= windows / 2) windows /= 2;
-  return {cluster, windows, per_lane};
+  return {cluster, windows};
 }
 
 template <int kValue>
 using Int = std::integral_constant<int, kValue>;
 
-// op(Int<kWin>{}, Int<kCluster>{}, Int<kUnits>{}) in the layout
-// ClusterLayoutOf picks (only those layouts are compiled: up to u=1024
-// the forward's in clusters of 16; past it 8 windows only in the forward
-// at two units a lane).
-template <int kGates, bool kBackward, typename Op>
+// op(Int<kWin>{}, Int<kCluster>{}) in the layout ClusterLayoutOf picks
+// (the forward's only in clusters of 16, so only those are compiled).
+template <bool kBackward, typename Op>
 int InClusterLayout(int units, int batch, Op op) {
-  const TrainCluster lay = ClusterLayoutOf(kGates, kBackward, units, batch);
-  const auto wide = [&](auto per_lane) {
-    if constexpr (!kBackward && decltype(per_lane)::value == 2) {
-      if (lay.windows == 8) return op(Int<8>{}, Int<16>{}, per_lane);
-    }
-    return lay.windows == 4 ? op(Int<4>{}, Int<16>{}, per_lane)
-                            : op(Int<2>{}, Int<16>{}, per_lane);
-  };
-  if (lay.per_lane == 2) return wide(Int<2>{});
-  if (lay.per_lane == 4) return wide(Int<4>{});
+  const TrainCluster lay = ClusterLayoutOf(kBackward, units, batch);
   const auto in = [&](auto cluster) {
     switch (lay.windows) {
-      case 2: return op(Int<2>{}, cluster, Int<1>{});
-      case 4: return op(Int<4>{}, cluster, Int<1>{});
-      default: return op(Int<8>{}, cluster, Int<1>{});
+      case 2: return op(Int<2>{}, cluster);
+      case 4: return op(Int<4>{}, cluster);
+      default: return op(Int<8>{}, cluster);
     }
   };
   if constexpr (kBackward) {
@@ -2357,14 +1872,12 @@ int FwdCluster(const void *codes, int batch, int steps, const void *masks,
                const void *kernel, const void *bias, const void *recurrent,
                int units, void *avg, void *hidden, void *hseq, void *cseq,
                cudaStream_t stream) {
-  return InClusterLayout<kGates, false>(
-      units, batch, [&](auto win, auto cluster, auto per_lane) {
-        return LaunchFwdCluster<kGates, decltype(win)::value,
-                                decltype(cluster)::value,
-                                decltype(per_lane)::value>(
-            codes, batch, steps, masks, kernel, bias, recurrent, units, avg,
-            hidden, hseq, cseq, stream);
-      });
+  return InClusterLayout<false>(units, batch, [&](auto win, auto cluster) {
+    return LaunchFwdCluster<kGates, decltype(win)::value,
+                            decltype(cluster)::value>(
+        codes, batch, steps, masks, kernel, bias, recurrent, units, avg,
+        hidden, hseq, cseq, stream);
+  });
 }
 
 // The backward recurrence on the cluster tile, likewise.
@@ -2374,25 +1887,21 @@ int BwdCluster(const void *codes, int batch, int steps, const void *masks,
                int units, const void *hseq, const void *cseq,
                const void *d_avg, const void *d_hidden, void *d_out,
                void *d_xp, cudaStream_t stream) {
-  return InClusterLayout<kGates, true>(
-      units, batch, [&](auto win, auto cluster, auto per_lane) {
-        return LaunchBwdCluster<kGates, decltype(win)::value,
-                                decltype(cluster)::value,
-                                decltype(per_lane)::value>(
-            codes, batch, steps, masks, kernel, bias, recurrent, units, hseq,
-            cseq, d_avg, d_hidden, d_out, d_xp, stream);
-      });
+  return InClusterLayout<true>(units, batch, [&](auto win, auto cluster) {
+    return LaunchBwdCluster<kGates, decltype(win)::value,
+                            decltype(cluster)::value>(
+        codes, batch, steps, masks, kernel, bias, recurrent, units, hseq,
+        cseq, d_avg, d_hidden, d_out, d_xp, stream);
+  });
 }
 
 // The clusters at once of the layout ClusterLayoutOf picks.
 template <int kGates, bool kBackward>
 int ClusterSlotsAt(int units, int batch) {
-  return InClusterLayout<kGates, kBackward>(
-      units, batch, [&](auto win, auto cluster, auto per_lane) {
-        return ClusterSlotsOf<kGates, decltype(win)::value,
-                              decltype(cluster)::value, kBackward,
-                              decltype(per_lane)::value>(units);
-      });
+  return InClusterLayout<kBackward>(units, batch, [&](auto win, auto cluster) {
+    return ClusterSlotsOf<kGates, decltype(win)::value,
+                          decltype(cluster)::value, kBackward>(units);
+  });
 }
 
 // ------------------------------------------- weight-gradient reduction
@@ -2809,8 +2318,8 @@ int dg_window_ctas_per_sm(int which, int units, int steps) {
 // The cluster tile of a training kernel at this width and batch (which:
 // as dg_window_ctas_per_sm's): out[0] CTAs a cluster, out[1] windows a
 // cluster, out[2] the clusters of it the card runs at once (0 if it cannot
-// place one), out[3] units a lane.  Returns 0 (out untouched) where the
-// kernel runs no cluster: u <= 256, or a shape it refuses.
+// place one).  Returns 0 (out untouched) where the kernel runs no cluster:
+// u <= 256, or a shape it refuses.
 int dg_train_clusters(int which, int units, int batch, int *out) {
   if (which < 0 || which > 3 || BadTrainShape(batch, 1, units) ||
       !IsCluster(units)) {
@@ -2823,12 +2332,10 @@ int dg_train_clusters(int which, int units, int batch, int *out) {
            : (backward ? ClusterSlotsAt<kGruGates, true>(units, batch)
                        : ClusterSlotsAt<kGruGates, false>(units, batch));
   if (slots < 0) return 0;
-  const TrainCluster lay =
-      ClusterLayoutOf(lstm ? kLstmGates : kGruGates, backward, units, batch);
+  const TrainCluster lay = ClusterLayoutOf(backward, units, batch);
   out[0] = lay.cluster;
   out[1] = lay.windows;
   out[2] = slots;
-  out[3] = lay.per_lane;
   return 1;
 }
 

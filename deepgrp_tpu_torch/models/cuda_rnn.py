@@ -5,16 +5,17 @@ Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
 ``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
-the recurrent dot on the tensor cores up to u=4096), at every width: one
+the recurrent dot on the tensor cores up to u=2048), at every width: one
 CTA a window up to u=128, past it a window's units split over a
-thread-block cluster of CTAs up to :data:`CLUSTER_MAX_UNITS` (u=4096;
-past u=1024 several units a lane), and past it the grid tile
-(``csrc/rnn_grid.cu``: one tiled product of every row's ``h`` with ``U``
-a step, the gate math in its epilogue).  :func:`avg_layout` names the
-tile, the CTAs a cluster and where ``U`` sits; only u <= 0 is refused.
-:func:`gru_apply` is the counterpart of ``pallas_gru_apply``: the GRU
-over a float input ``x [B, T, C]``, ``(seq, last)`` out in ``x``'s
-dtype, at the same widths.
+thread-block cluster of CTAs up to :data:`CLUSTER_MAX_UNITS` (u=1024; in
+bfloat16 :data:`BF16_CLUSTER_MAX_UNITS`, u=2048), and past it the grid
+tile (``csrc/rnn_grid.cu``: one tiled product of every row's ``h`` with
+``U`` a step, the gate math in its epilogue).  :func:`avg_layout` names
+the tile, the CTAs a cluster and where ``U`` sits; only u <= 0 is
+refused.  :func:`gru_apply` is the counterpart of ``pallas_gru_apply``:
+the GRU over a float input ``x [B, T, C]``, ``(seq, last)`` out in
+``x``'s dtype, at every width (the grid tile past
+:data:`CLUSTER_MAX_UNITS` in either dtype).
 
 Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``torch.autograd.Function`` counterparts of the custom VJPs
@@ -27,12 +28,12 @@ reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
 every width, as the inference kernels do: one CTA a window up to u=256,
 past it a window's units split over a thread-block cluster up to
-:data:`CLUSTER_MAX_UNITS` (past u=1024 several units a lane), and past
-it the grid tile (``csrc/rnn_grid.cu``: the forward one tiled product of
-every row's ``h`` with ``U`` a step; the backward one product of every
-``(row, t)``'s ``h_prev`` with ``U`` that recomputes the gates, then one
-product a step, in reverse time, of the gate cotangents with ``U^T``);
-the reduction kernel serves every layout.  :func:`train_layout` names the
+:data:`TRAIN_CLUSTER_MAX_UNITS` (u=1023), and past it the grid tile
+(``csrc/rnn_grid.cu``: the forward one tiled product of every row's
+``h`` with ``U`` a step; the backward one product of every ``(row,
+t)``'s ``h_prev`` with ``U`` that recomputes the gates, then one product
+a step, in reverse time, of the gate cotangents with ``U^T``); the
+reduction kernel serves every layout. :func:`train_layout` names the
 layout of a width, :func:`train_tile` what the card launches; only u <= 0
 is refused.
 
@@ -156,7 +157,7 @@ def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
     hidden = _empty(codes.device, batch, units, dtype=out_dtype)
     if batch == 0:
         return avg, hidden
-    if grid or _grid_route(units):
+    if grid or _grid_route(units, "avg", out_dtype):
         lib = _build.load_kernels("rnn_grid")
         with torch.cuda.device(codes.device):
             recurrent, h, carry = _grid_buffers(
@@ -194,12 +195,37 @@ def block_windows(batch: int, sms: int, most: int) -> int:
     return max(1, min(most, -(-batch // max(sms, 1))))
 
 
-#: The widest layer of the inference kernels' cluster tiles, the fused
-#: ones and the GRU sequence kernel (``csrc/rnn_avg.cu``,
-#: ``csrc/rnn_seq.cu``: a window's units over a cluster of 16 CTAs, past 64
-#: units a CTA several units a lane, at most 256 units a CTA: two h buffers
-#: of one window take 64 kB); past it the grid tile (``csrc/rnn_grid.cu``).
-CLUSTER_MAX_UNITS = 4096
+#: The widest layer the float32 fused rows (1, 2) and the GRU sequence
+#: kernel (row 7, either dtype) run on their cluster tiles
+#: (``csrc/rnn_avg.cu``, ``csrc/rnn_seq.cu``: a window's units over 16
+#: CTAs of 64 units, one unit a lane); past it the grid tile
+#: (``csrc/rnn_grid.cu``).  From ``tools/avg_tile_sweep.py --grid`` on an
+#: NVIDIA H100 80GB HBM3 at 700 W (ms cluster / grid): u=1024, B=5, T=23
+#: rows 1 / 2 0.594 / 0.816, 1.071 / 1.102, and row 7 at 16 rows, T=342
+#: 8.321 / 13.075 (bf16 IO 9.388 / 13.263), so the cluster tiles keep
+#: u=1024; at u=1025 and every swept width above, every batch (B=16, 64,
+#: 256 at T=342; B=37, T=150; B=5, T=23; row 7 at 16, 64, 2048 rows) runs
+#: the grid within 0.87x the cluster tile's time.
+CLUSTER_MAX_UNITS = 1024
+#: The widest layer the bfloat16 fused rows (1b, 2b) run on their cluster
+#: tile (``MmaAvgKernel``, past u=1024 ``MmaWideKernel`` of
+#: ``csrc/rnn_avg.cu``: ``mma.sync`` with bf16 operands); past it the grid
+#: tile.  The same sweep: at u=2048, B=37, T=150 1b / 2b 13.755 / 19.842
+#: on the cluster tile against 15.458 / 20.643 on the grid (1.12x /
+#: 1.04x); from u=2049 (then 2304, 2560, 2800, 3000, 4096) every batch
+#: runs the grid within 0.99x (the worst: B=37, T=150 at u=3000).
+BF16_CLUSTER_MAX_UNITS = 2048
+#: The widest layer the training kernels (rows 3-6) run on their cluster
+#: tile (``csrc/rnn_train.cu``, one unit a lane); from u=1024 the grid
+#: tile.  ``tools/train_tile_sweep.py --grid`` (ms forward / backward,
+#: cluster against grid): at u=768 the forward of B=37, T=150 takes the
+#: grid 1.05x (GRU) / 1.12x (LSTM) the cluster tile's time, the LSTM's
+#: backward 1.04x; at u=1024 the grid is within 1.01x at every
+#: batch in both directions (the worst: LSTM B=37, T=150, 28.93 ms forward
+#: and backward on the cluster tile against 29.30), and within 0.72x from
+#: u=1025 on.  The library's cluster tile takes u=1024 too; the route
+#: sends it to the grid.
+TRAIN_CLUSTER_MAX_UNITS = 1023
 #: Where a kernel keeps ``U``, by the library's code.
 U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 #: Where the grid tile keeps ``U``: tiles of it copied from L2 (or HBM)
@@ -216,9 +242,18 @@ def _check_width(units: int) -> None:
                          f"u={units}")
 
 
-def _grid_route(units: int) -> bool:
-    """Whether the inference rows run the grid tile at this width (past
-    :data:`CLUSTER_MAX_UNITS`); every layout helper and launch asks this."""
+def _grid_route(units: int, row: str = "seq",
+                out_dtype: torch.dtype = torch.float32) -> bool:
+    """Whether a recurrence runs the grid tile at this width: the fused
+    inference rows (``row="avg"``) past :data:`CLUSTER_MAX_UNITS`, or in
+    bfloat16 past :data:`BF16_CLUSTER_MAX_UNITS`; the GRU sequence kernel
+    (``"seq"``, either dtype) past :data:`CLUSTER_MAX_UNITS`; the
+    training kernels (``"train"``) past :data:`TRAIN_CLUSTER_MAX_UNITS`.
+    Every layout helper and launch asks this."""
+    if row == "train":
+        return units > TRAIN_CLUSTER_MAX_UNITS
+    if row == "avg" and rnn.dtype_suffix(out_dtype):
+        return units > BF16_CLUSTER_MAX_UNITS
     return units > CLUSTER_MAX_UNITS
 
 
@@ -282,11 +317,11 @@ def avg_tile_name(cell: str, units: int,
     ``"l2"`` (the same reading it through L1/L2, u <= 128), in bfloat16
     ``"mma"`` (the tensor-core tile, one CTA a window, u <= 128); past
     u=128 ``"cluster"`` in either (a window's units over a thread-block
-    cluster of CTAs, past u=1024 several units a lane) up to
-    :data:`CLUSTER_MAX_UNITS`, and past it ``"grid"`` (the grid tile).
-    Raises ``ValueError`` for u <= 0."""
+    cluster of CTAs) up to :data:`CLUSTER_MAX_UNITS` (in bfloat16
+    :data:`BF16_CLUSTER_MAX_UNITS`), and past it ``"grid"`` (the grid
+    tile).  Raises ``ValueError`` for u <= 0."""
     _check_width(units)
-    if _grid_route(units):
+    if _grid_route(units, "avg", out_dtype):
         return "grid"
     if units > 128:
         return "cluster"
@@ -315,10 +350,9 @@ def avg_layout(cell: str, units: int,
 def _library_layout(cell: str, units: int,
                     out_dtype: torch.dtype) -> Tuple[int, int, str]:
     """``(most windows a CTA, CTAs a cluster, where U sits)`` from the
-    library, which asks the current device (past
-    :data:`CLUSTER_MAX_UNITS` the grid tile's library); ``ValueError`` for
-    a width it refuses."""
-    if _grid_route(units):
+    library, which asks the current device (on the grid route the grid
+    tile's library); ``ValueError`` for a width it refuses."""
+    if _grid_route(units, "avg", out_dtype):
         return _grid_layout()[0] // 2, 1, GRID_U_IN
     gates = 4 if cell == "lstm" else 3
     out = (ctypes.c_int * 2)()
@@ -339,11 +373,11 @@ def avg_tile(cell: str, batch: int, units: int,
     :func:`avg_layout`) over the CTAs that run at once:
     the card's SMs, or past u=128 the clusters (of :func:`avg_cluster`
     CTAs, each of which holds its cluster's windows) that the card places
-    at once (a cluster of 16 CTAs needs 16 free SMs of one GPC); past
-    :data:`CLUSTER_MAX_UNITS` the grid tile's windows a CTA and CTAs a
-    step (:func:`grid_tile`).  Raises ``ValueError`` for a width the
-    kernels refuse."""
-    if _grid_route(units):
+    at once (a cluster of 16 CTAs needs 16 free SMs of one GPC); on the
+    grid route the grid tile's windows a CTA and CTAs a step
+    (:func:`grid_tile`).  Raises ``ValueError`` for a width the kernels
+    refuse."""
+    if _grid_route(units, "avg", out_dtype):
         rows_a_cta, ctas = grid_tile(2 * batch, units)
         return max(rows_a_cta // 2, 1), ctas
     device = device or torch.device("cuda")
@@ -379,9 +413,10 @@ def avg_bf16_tile(cell: str, units: int) -> str:
     width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
     operands, one CTA a window, up to u=128), ``"cluster"`` (the same
     step with a window's units split over a cluster of CTAs, up to
-    u=4096) or past it ``"grid"`` (the grid tile: FMAs on bf16-rounded
-    operands); raises ``ValueError`` for a width they refuse."""
-    if _grid_route(units):
+    :data:`BF16_CLUSTER_MAX_UNITS`) or past it ``"grid"`` (the grid tile:
+    FMAs on bf16-rounded operands); raises ``ValueError`` for a width they
+    refuse."""
+    if _grid_route(units, "avg", torch.bfloat16):
         return "grid"
     gates = 4 if cell == "lstm" else 3
     code = _build.load_kernels("rnn_avg").dg_avg_bf16_tile(gates, units)
@@ -409,16 +444,10 @@ def seq_cluster(units: int) -> int:
 def seq_max_rows(units: int) -> int:
     """The most rows a CTA of the GRU sequence kernel owns at this width:
     16, but 4 from u=257 to 512, where each CTA keeps its slice of U in
-    shared memory, and past u=1024, where the two h buffers of 16 rows
-    outgrow it, 8 up to u=2048 and 4 up to :data:`CLUSTER_MAX_UNITS`
-    (``MaxRows`` in ``csrc/rnn_seq.cu``); the grid tile's
-    :data:`GRID_ROWS` past it."""
+    shared memory (``MaxRows`` in ``csrc/rnn_seq.cu``); the grid tile's
+    :data:`GRID_ROWS` past :data:`CLUSTER_MAX_UNITS`."""
     if _grid_route(units):
         return GRID_ROWS
-    if units > 2048:
-        return 4
-    if units > 1024:
-        return 8
     return 4 if 256 < units <= 512 else 16
 
 
@@ -465,23 +494,23 @@ SEQ_U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 def seq_layout(units: int, rows_a_cta: int) -> Dict[str, object]:
     """The layout the GRU sequence kernel launches at this width and tile:
     rows a lane group, k-slices a unit, where ``U`` sits ("registers",
-    "L1/L2" or "shared": each CTA's slice in shared memory), the CTAs a
-    cluster (1: one CTA a row) and the units a lane (past u=1024 two up
-    to u=2048, four up to :data:`CLUSTER_MAX_UNITS`); past it the grid
-    tile's: rows and units a thread, its k-slices, ``U`` in ``"L2"``, no
-    cluster.  Raises ``ValueError`` for a shape the kernel refuses."""
+    "L1/L2" or "shared": each CTA's slice in shared memory) and the CTAs
+    a cluster (1: one CTA a row); past :data:`CLUSTER_MAX_UNITS` the grid
+    tile's: rows a thread, its k-slices, ``U`` in ``"L2"``, no cluster,
+    and its units a thread.  Raises ``ValueError`` for a shape the kernel
+    refuses."""
     if _grid_route(units) and 0 < rows_a_cta <= GRID_ROWS:
         layout = _grid_layout()
         return {"rows_a_group": layout[6], "slices": layout[3],
-                "u_in": GRID_U_IN, "cluster": 1, "units_a_lane": layout[7]}
+                "u_in": GRID_U_IN, "cluster": 1,
+                "units_a_thread": layout[7]}
     lib = _build.load_kernels("rnn_seq")
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 4)()
     if lib.dg_gru_seq_layout(units, rows_a_cta, out) == 0:
         raise ValueError(f"gru_seq refuses u={units} with {rows_a_cta} rows "
                          "a CTA")
     return {"rows_a_group": out[0], "slices": out[1],
-            "u_in": SEQ_U_IN[out[2]], "cluster": out[3],
-            "units_a_lane": out[4]}
+            "u_in": SEQ_U_IN[out[2]], "cluster": out[3]}
 
 
 def gru_apply(params: RnnParams, x: torch.Tensor, *,
@@ -593,13 +622,13 @@ def train_layout(units: int) -> str:
     through L1/L2, u <= 128) or ``"wide"`` (1,024 threads at most, one
     CTA an SM; the backward stages the gate cotangents and forms dh_prev
     from U's rows, u <= 256), then ``"cluster"`` (a window's units over a
-    thread-block cluster, past u=1024 two or four units a lane, up to
-    :data:`CLUSTER_MAX_UNITS`), past it ``"grid"`` (the grid tile).
+    thread-block cluster, one unit a lane, up to
+    :data:`TRAIN_CLUSTER_MAX_UNITS`), past it ``"grid"`` (the grid tile).
     Raises ``ValueError`` for u <= 0."""
     if units <= 0:
         raise ValueError(f"the training kernels take widths u >= 1, not "
                          f"u={units}")
-    if _grid_route(units):
+    if _grid_route(units, "train"):
         return "grid"
     if units > TRAIN_WINDOW_UNITS:
         return "cluster"
@@ -613,15 +642,18 @@ def _check_masks(name: str, gates: int, masks: Optional[torch.Tensor],
 
 
 def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
-              masks: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """Launch the training forward kernel of ``cell`` ("gru" or "lstm").
+              masks: Optional[torch.Tensor], grid: bool = False
+              ) -> Tuple[torch.Tensor, ...]:
+    """Launch the training forward kernel of ``cell`` ("gru" or "lstm")
+    (``grid``: on the grid tile at any width, to time it beside the
+    cluster tiles).
 
     Returns ``(avg [B, T, u], hidden [B, u], hseq [2B, T, u])`` and, for
     LSTM, ``cseq [2B, T, u]``.
     """
     name, gates = f"{cell}_train_fwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
-    grid = train_layout(units) == "grid"  # raises for u <= 0
+    grid = train_layout(units) == "grid" or grid  # raises for u <= 0
     _check_masks(name, gates, masks, batch, codes.device)
     avg = _empty(codes.device, batch, steps, units)
     hidden = _empty(codes.device, batch, units)
@@ -658,16 +690,16 @@ def train_fwd(cell: str, params: RnnParams, codes: torch.Tensor,
 
 def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
               masks: Optional[torch.Tensor], seqs: Tuple[torch.Tensor, ...],
-              d_avg: torch.Tensor, d_hidden: torch.Tensor
+              d_avg: torch.Tensor, d_hidden: torch.Tensor, grid: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the training backward of ``cell``: the recurrence kernel,
     then the reduction kernel (:func:`_bwd_recurrence`,
     :func:`_train_reduce`).  ``seqs`` is ``(hseq,)`` or ``(hseq, cseq)``
     from :func:`train_fwd`.  Returns ``(d_kernel, d_recurrent, d_bias)``
-    and counts one launch."""
+    and counts one launch (``grid``: as :func:`train_fwd`)."""
     name, gates = f"{cell}_train_bwd", (4 if cell == "lstm" else 3)
     batch, steps, units = _check(name, gates, params, codes)
-    grid = train_layout(units) == "grid"  # raises for u <= 0
+    grid = train_layout(units) == "grid" or grid  # raises for u <= 0
     _check_masks(name, gates, masks, batch, codes.device)
     for key, seq in zip(("hseq", "cseq"), seqs):
         _check_f32(name, key, seq, (2 * batch, steps, units), codes.device)
@@ -680,7 +712,7 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
     if batch == 0:
         return tuple(g.zero_() for g in grads)
     cotangents = _bwd_recurrence(cell, params, codes, masks, seqs, d_avg,
-                                 d_hidden)
+                                 d_hidden, grid)
     _train_reduce(seqs[0], codes, masks, gates, grads, *cotangents)
     LAUNCHES.add(name)
     if grid:
@@ -691,17 +723,18 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
 def _bwd_recurrence(cell: str, params: RnnParams, codes: torch.Tensor,
                     masks: Optional[torch.Tensor],
                     seqs: Tuple[torch.Tensor, ...], d_avg: torch.Tensor,
-                    d_hidden: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                    d_hidden: torch.Tensor, grid: bool = False
+                    ) -> Tuple[torch.Tensor, ...]:
     """The backward's recurrence kernel of ``cell`` on checked inputs (see
     :func:`train_bwd`): the gate cotangents, ``(da [2B, T, 4u],)`` for
     LSTM, ``(d_rp, d_xp)`` ``[2B, T, 3u]`` each for GRU.  Past
-    :data:`CLUSTER_MAX_UNITS` the grid tile's: its recompute of the gates
-    writes their preactivations into ``da`` (``d_xp``), which each step
-    then overwrites with the cotangents."""
+    :data:`TRAIN_CLUSTER_MAX_UNITS` (or with ``grid``) the grid tile's: its
+    recompute of the gates writes their preactivations into ``da``
+    (``d_xp``), which each step then overwrites with the cotangents."""
     batch, steps = codes.shape
     units = params["recurrent"].shape[0]
     gates = 4 if cell == "lstm" else 3
-    grid = _grid_route(units)
+    grid = grid or _grid_route(units, "train")
     outs = tuple(_empty(codes.device, 2 * batch, steps, gates * units)
                  for _ in range(1 if cell == "lstm" else 2))
     head = (codes.data_ptr(), batch, steps, _ptr(masks),
@@ -785,15 +818,14 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     """The tile of ``cell``'s training kernels (the forward and the
     backward's recurrence) on a CUDA device: its layout
     (:func:`train_layout`, ``"refused"`` for u <= 0) and threads a
-    CTA (four per unit the CTA owns, on the cluster tile four per lane
-    slot).  On the window tile (u <= 256): CTAs (one a window), resident
-    CTAs an SM of each kernel (0 where it cannot launch) and the warps an
-    SM that gives at this batch.  On the cluster tile, for each kernel
-    (``fwd_...``, ``bwd_...``; the library picks their layouts apart): CTAs
-    a cluster, windows a cluster, units a lane (past u=1024 two or four:
-    a CTA's units over its lane slots), threads a CTA, clusters, and the
-    clusters the card runs at once.  On the grid tile (past
-    :data:`CLUSTER_MAX_UNITS`), from its library: rows and units a CTA,
+    CTA (four per unit the CTA owns).  On the window tile (u <= 256):
+    CTAs (one a window), resident CTAs an SM of each kernel (0 where it
+    cannot launch) and the warps an SM that gives at this batch.  On the
+    cluster tile, for each kernel (``fwd_...``, ``bwd_...``; the library
+    picks their layouts apart): CTAs a cluster, windows a cluster,
+    threads a CTA, clusters, and the clusters the card runs at once.  On
+    the grid tile (past :data:`TRAIN_CLUSTER_MAX_UNITS`), from its
+    library: rows and units a CTA,
     threads a CTA, the CTAs of a forward or backward step, and the CTAs
     of the backward's recompute of the gates (over the ``2B T`` rows)."""
     device = device or torch.device("cuda")
@@ -817,17 +849,15 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     lib = _build.load_kernels("rnn_train")
     if layout == "cluster":
         tile: Dict[str, object] = {"layout": layout}
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 3)()
         with torch.cuda.device(device):
             for kind, which in _WINDOW_KERNELS[cell]:
                 if not lib.dg_train_clusters(which, units, batch, out):
                     raise ValueError(f"{cell}_train_{kind} refuses "
                                      f"u={units} at B={batch}")
-                per_cta = -(-units // out[0])
                 tile.update({f"{kind}_cluster": out[0],
                              f"{kind}_windows": out[1],
-                             f"{kind}_units_a_lane": out[3],
-                             f"{kind}_threads": 4 * -(-per_cta // out[3]),
+                             f"{kind}_threads": 4 * -(-units // out[0]),
                              f"{kind}_clusters": -(-batch // out[1]),
                              f"{kind}_clusters_at_once": out[2]})
         return tile

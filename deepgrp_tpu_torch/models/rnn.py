@@ -2,13 +2,13 @@
 recurrences, and the cell's initialisation and dropout masks.
 
 ``gru_avg_plain`` and ``lstm_avg_plain`` compute exactly what the CUDA
-kernels in ``csrc/rnn_avg.cu`` (past u=4096 ``csrc/rnn_grid.cu``)
+kernels in ``csrc/rnn_avg.cu`` (past their cluster tiles ``csrc/rnn_grid.cu``)
 compute (and what the JAX package's
 ``pallas_gru_avg`` / ``pallas_lstm_avg`` compute): the shared cell runs over
 the doubled batch of forward rows and their reverse complements, with Keras
 gate math, and returns the branch average.  The ``*_train_fwd_plain`` /
 ``*_train_bwd_plain`` functions are the same for the training kernels of
-``csrc/rnn_train.cu`` (past u=4096 ``csrc/rnn_grid.cu``; the JAX package's
+``csrc/rnn_train.cu`` (from u=1024 ``csrc/rnn_grid.cu``; the JAX package's
 ``pallas_rnn_train.py``): a
 forward with per-gate input dropout masks that also returns the hidden (and
 cell) sequence, and an explicit reverse loop over T for the gradients.
@@ -19,7 +19,7 @@ held against on the card.
 ``gru_apply`` and ``lstm_apply`` are the one-hot recurrences of the JAX
 package (``deepgrp_tpu/models/rnn.py``) over a float input ``x [B, T, I]``
 with a real input dot ``x W + b``; ``gru_apply`` is also the plain version
-of the ``csrc/rnn_seq.cu`` kernel (``pallas_gru_apply``; past u=4096 of
+of the ``csrc/rnn_seq.cu`` kernel (``pallas_gru_apply``; past u=1024 of
 ``csrc/rnn_grid.cu``'s ``dg_seq_grid``).
 ``gru_train_apply`` and ``lstm_train_apply`` are the same recurrences for
 training, with per-gate input dropout masks, differentiated by autograd.

@@ -14,10 +14,9 @@ The shapes include the engine's default tile at the flagship shape
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
 tiny widths (also at u=96 and u=128, past the register tile, at
-u=129, 200 and 256 on the wide layout, and from u=257 on the cluster
-tile, past u=1024 with two or four units a lane, ragged at u=1025 and
-3000, up to the cluster tile's ceiling u=4096, and past it on the grid
-tile at u=4097, 5000 and 8192), with
+u=129, 200 and 256 on the wide layout, from u=257 on the cluster tile up
+to its route's ceiling u=1023, and from u=1024 on the grid tile, ragged
+at u=1025 and 3000, at u=2048, 4096, 4097, 5000 and 8192), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
@@ -35,33 +34,32 @@ The fused inference kernels (one register tile for both cells up to
 u=128) also run at the CLI's default batch (256 windows: two a CTA), at
 u=96 and u=128 (past the register tile's registers), and past u=128 on
 the float32 cluster tile (a window's units over 8 CTAs up to u=256, 16
-beyond, ragged at u=129, 200, 300 and 520), past u=1024 with several
-units a lane (ragged at u=1025 and 3000) up to the ceiling u=4096; a
+beyond, ragged at u=129, 200, 300 and 520) up to its ceiling u=1024; a
 window's bits there are the same alone and inside a batch, and on a
-second launch.  Past u=4096 every inference row (both cells, both
-dtypes, and the scan route's GRU) runs the grid tile (``csrc/rnn_grid.cu``:
-one tiled product a step): held against the plain versions at u=4097,
-5000 and 8192 (one window, a ragged batch, T <= 32), at GRU u=26,800 and
-LSTM u=23,200 (g u^2 past 2^31 elements), with a window's bits alone, in
-a batch and repeated, and under a CUDA graph's capture.
-``cuda_rnn.avg_layout``'s tile agrees with
-the library's layout at every width up to 4096 and past it.
+second launch.  Past it (in bf16 past u=2048) every inference row (both
+cells, both dtypes, and the scan route's GRU past u=1024) runs the grid
+tile (``csrc/rnn_grid.cu``: one tiled product a step): held against the
+plain versions at u=1025, 2048, 3000 and 4096 (ragged at u=1025 and 3000)
+and at u=4097, 5000 and 8192 (one window, a ragged batch, T <= 32), at
+GRU u=26,800 and LSTM u=23,200 (g u^2 past 2^31 elements), with a
+window's bits alone, in a batch and repeated, and under a CUDA graph's
+capture.  ``cuda_rnn.avg_layout``'s tile agrees with the library's
+layout at every width up to 2048 and past it.
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
 (either side of U in registers), u=128 (U through L1/L2), past it on the
 cluster tile (u=256 and u=512: clusters of 8 and 16 CTAs, each with its
 slice of U in shared memory; u=520 and u=1024: 16 CTAs, U through L1/L2;
-past it two or four units a lane up to u=4096), and at ragged shapes; a
-second launch is bitwise equal to the first (on the cluster tile too)
-and u=4097 is refused.  The bf16
+past it the grid tile), and at ragged shapes; a second launch is bitwise
+equal to the first (on the cluster and grid tiles too).  The bf16
 variants of the fused kernels are held against their plain versions, up
 to u=128 on their tensor-core tile (``mma.sync``), beyond on its cluster
 tile (a window's units split over a cluster of 2 to 16 CTAs, up to
-u=4096: past u=1024 one m-tile, a warp owning one or two unit groups),
-which ``cuda_rnn.avg_bf16_tile`` names; a window's bf16 bits are the
-same alone and inside a batch of 1024 (and of 256 at two places, on the
-cluster tile).  Tolerance in bfloat16: atol 2e-2
+u=2048: past u=1024 one m-tile, a warp owning one unit group) and past
+it on the grid tile, which ``cuda_rnn.avg_bf16_tile`` names; a window's
+bf16 bits are the same alone and inside a batch of 1024 (and of 256 at
+two places, on the cluster tile). Tolerance in bfloat16: atol 2e-2
 (the plain version rounds h and U as the kernel does, but the tensor
 cores sum the products in another order; the outputs are bf16).
 
@@ -138,8 +136,9 @@ from deepgrp_tpu_torch.train.training import train_step
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
-# Past u=1024 (several units a lane): (batch, steps, units), ragged at
-# u=1025 and 3000, and u=2048 and 4096 at T=342.
+# Past u=1024, where the tiles of several units a lane once ran (the grid
+# tile now; in bf16 the cluster tile up to u=2048): (batch, steps, units),
+# ragged at u=1025 and 3000, and u=2048 and 4096 at T=342.
 WIDE_SHAPES = ((37, 150, 1025), (64, 342, 2048), (5, 23, 3000),
                (16, 342, 4096))
 TORCH_FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -206,27 +205,29 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
                                                (37, 150, 300),
                                                (5, 23, 520),
                                                (64, 342, 512),
+                                               (8, 64, 1023),
                                                (8, 64, 1024),
                                                *WIDE_SHAPES])
 def test_train_kernels_match_plain_wide(device, cell, masked, batch, steps,
                                         units):
     """Widths past the register tile (U read through L2) up to u=128, the
     wide layout past it (4u threads up to 1,024; the backward stages the
-    gate cotangents and forms dh_prev from U's rows) up to u=256, and the
+    gate cotangents and forms dh_prev from U's rows) up to u=256, the
     cluster tile past it (a window's units over a cluster of CTAs) up to
-    u=1024, then with two or four units a lane up to the ceiling, u=4096;
-    ragged batches at u=200 and 300, ragged widths over the cluster's CTAs
-    at u=257, 300, 520, 1025 and 3000."""
+    u=1023, and the grid tile from u=1024; ragged batches at u=200 and
+    300, ragged widths over the cluster's CTAs at u=257, 300, 520 and
+    1023, over the grid's unit blocks at u=1025 and 3000."""
     check_train_pair(device, cell, masked, batch, steps, units)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [300, 1024, 1025, 2048, 4096])
+@pytest.mark.parametrize("units", [300, 1023, 1024, 1025, 2048, 4096])
 def test_train_cluster_bits_alone_and_repeated(device, cell, units):
-    """On the cluster tile a window's training forward and backward
-    cotangents have the same bits alone and inside a batch (whatever its
-    cluster, CTA, lane or the windows a cluster, and past u=1024 the units
-    a lane), and a second run repeats them."""
+    """On the cluster tile (up to u=1023) and on the grid tile (from
+    u=1024) a window's training forward and backward cotangents have the
+    same bits alone and inside a batch (whatever its cluster, CTA, lane or
+    the windows a cluster; on the grid its row block), and a second run
+    repeats them."""
     gates = 4 if cell == "lstm" else 3
     batch, steps = 19, 40
     params, codes = random_case(units, gates, batch, steps, units, device)
@@ -313,28 +314,27 @@ def test_window_tile_quadruples_warps_per_sm(device, cell):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_backward_width_ceiling(device, cell):
     """The training kernels (forward and backward recurrence) launch up
-    to u=4096 at T=342 on their window and cluster tiles (4u threads a
-    CTA, the wide layout past u=128, the cluster tile past u=256, past
-    u=1024 two units a lane and past u=2048 four, at most 256 threads a
-    CTA), and past it on the grid tile, whose tile the library reports."""
+    to u=1023 at T=342 on their window and cluster tiles (4u threads a
+    CTA, the wide layout past u=128, the cluster tile past u=256, one unit
+    a lane, at most 256 threads a CTA), and from u=1024 on the grid tile,
+    whose tile the library reports."""
     for units, layout in ((128, "l2"), (129, "wide"), (256, "wide")):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == layout, tile
         assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
-    for units in (257, 512, 1024, 1025, 2048, 2049, 3000, 4096):
+    for units in (257, 512, 1023):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == "cluster", tile
-        per_lane = 1 if units <= 1024 else 2 if units <= 2048 else 4
         for kind in ("fwd", "bwd"):
             cluster = tile[f"{kind}_cluster"]
-            assert tile[f"{kind}_units_a_lane"] == per_lane, tile
-            assert cluster * 64 * per_lane >= units, tile
-            assert tile[f"{kind}_threads"] == 4 * -(-(-(-units // cluster))
-                                                   // per_lane) <= 256, tile
+            assert cluster * 64 >= units, tile
+            assert tile[f"{kind}_threads"] == 4 * -(-units // cluster)
+            assert tile[f"{kind}_threads"] <= 256, tile
             assert tile[f"{kind}_clusters"] == -(-8 // tile[
                 f"{kind}_windows"]), tile
             assert tile[f"{kind}_clusters_at_once"] >= 1, tile
-    for batch, units in ((8, 4097), (64, 4608), (3, 8192)):
+    for batch, units in ((8, 1024), (8, 1025), (8, 2048), (8, 4096),
+                         (8, 4097), (64, 4608), (3, 8192)):
         tile = cuda_rnn.train_tile(cell, batch, units, 342)
         assert tile == {
             "layout": "grid", "rows_a_cta": min(32, 2 * batch),
@@ -505,10 +505,17 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
                                                                       128)
     # Past u=256 the wave counts the card's own count of clusters at once
     # (16 CTAs need 16 free SMs of one GPC; small ones share an SM): the
-    # fewest windows that fill one wave, at most the layout's cap.
+    # fewest windows that fill one wave, at most the layout's cap; on the
+    # grid tile (past u=1024, in bf16 past 2048) its rows and CTAs a step.
     lib = _build.load_kernels("rnn_avg")
     for units in (300, 512, 1024, 2048, 4096):
         layout = cuda_rnn.avg_layout("gru", units, dtype)
+        if layout["tile"] == "grid":
+            for batch in (5, 64, 256, 1024):
+                rows, ctas = cuda_rnn.grid_tile(2 * batch, units)
+                assert cuda_rnn.avg_tile("gru", batch, units, None,
+                                         dtype) == (max(rows // 2, 1), ctas)
+            continue
         slots = lib.dg_avg_clusters(3, units, layout["max_windows"],
                                     int(dtype == torch.bfloat16))
         assert slots > 0
@@ -543,20 +550,24 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
         assert cuda_rnn.avg_tile("lstm", 256, 60, None, dtype) == (2, 128)
         assert cuda_rnn.avg_tile("lstm", 1024, 60, None, dtype) == (8, 128)
     # Past u=1024 the CLI's default batch and -b 1024 get a tile within the
-    # width's cap of windows a CTA (its h buffers), every window placed.
+    # width's cap of windows a CTA (its h buffers; on the grid tile its
+    # row block), every window placed.
     for units in (2048, 4096):
         layout = cuda_rnn.avg_layout("lstm", units, dtype)
         for batch in (256, 1024):
             windows, n_cta = cuda_rnn.avg_tile("lstm", batch, units, None,
                                                dtype)
             assert 1 <= windows <= layout["max_windows"]
-            assert n_cta == -(-batch // windows) * layout["cluster"]
+            if layout["tile"] == "grid":
+                assert n_cta == cuda_rnn.grid_tile(2 * batch, units)[1]
+            else:
+                assert n_cta == -(-batch // windows) * layout["cluster"]
 
 
 def test_lstm_avg_refuses_u257(device):
     """Named for the first ceiling: the inference kernels take every width
-    (past u=256 on a cluster of 16 CTAs, past u=1024 several units a lane,
-    past u=4096 the grid tile).  u=4097 launches the grid tile, in float32
+    (past u=256 on a cluster of 16 CTAs, past u=1024 the grid tile; in
+    bf16 past u=2048).  u=4097 launches the grid tile, in float32
     and bfloat16, and no plain version runs; only u <= 0 raises
     ``ValueError``, before any launch."""
     params, codes = random_case(6, 4, 3, 5, 4097, device)
@@ -593,8 +604,8 @@ def test_lstm_avg_refuses_u257(device):
       for shape in ((37, 50, 129), (64, 100, 200), (256, 342, 256),
                     (9, 40, 257), (37, 150, 300), (256, 342, 512),
                     (5, 23, 520), (64, 342, 1024))),
-    # Past u=1024: two units a lane (ragged at u=1025: 65 units a CTA),
-    # four (u=4096; ragged at u=3000), 8 to 2 windows a CTA.
+    # Past u=1024 the grid tile (ragged over its unit blocks at u=1025 and
+    # u=3000).
     *((cell, *shape) for cell in ("gru", "lstm")
       for shape in WIDE_SHAPES)])
 def test_kernel_matches_plain(device, cell, batch, steps, units):
@@ -715,7 +726,7 @@ def random_seq_case(batch, steps, units, dtype, device):
     (torch.float32, 64, 342, 1024), (torch.bfloat16, 64, 342, 1024),
     (torch.float32, 5, 23, 520), (torch.bfloat16, 5, 23, 520),
     (torch.float32, 37, 60, 200),
-    # Past u=1024: two units a lane up to u=2048, four up to u=4096.
+    # Past u=1024 the grid tile, in either dtype.
     *((dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
       for shape in WIDE_SHAPES)])
 def test_gru_seq_matches_plain(device, dtype, batch, steps, units):
@@ -755,9 +766,10 @@ def test_gru_seq_repeats_bitwise(device, dtype):
 def test_gru_seq_cluster_repeats_bitwise(device, dtype, batch, steps,
                                          units):
     """On the cluster tile each unit's sum runs in an order fixed by u (a
-    CTA owns whole sums; no partial sum crosses CTAs): a second launch
-    equals the first bit for bit, and a row's bits do not depend on the
-    other rows of its cluster or the batch."""
+    CTA owns whole sums; no partial sum crosses CTAs), and on the grid
+    tile past u=1024 likewise: a second launch equals the first bit for
+    bit, and a row's bits do not depend on the other rows of its cluster
+    (row block) or the batch."""
     params, x = random_seq_case(batch, steps, units, dtype, device)
     first = cuda_rnn.gru_apply(params, x)
     second = cuda_rnn.gru_apply(params, x)
@@ -770,20 +782,21 @@ def test_gru_seq_cluster_repeats_bitwise(device, dtype, batch, steps,
 
 
 def test_gru_seq_refuses_u1025(device):
-    """Named for a former ceiling: the sequence kernel takes u <= 4096 on
-    its cluster tile (past u=1024 several units a lane) and past it runs
-    the grid tile: u=4097 launches it (``gru_seq`` and ``gru_seq_grid``
-    counted once each) and no plain version runs."""
-    params, x = random_seq_case(2, 3, 4097, torch.float32, device)
-    launches = cuda_rnn.LAUNCHES.snapshot()
-    plain = rnn.PLAIN_CALLS.snapshot()
-    seq, last = cuda_rnn.gru_apply(params, x)
-    torch.cuda.synchronize()
-    now = cuda_rnn.LAUNCHES.snapshot()
-    for name in ("gru_seq", "gru_seq_grid"):
-        assert now.get(name, 0) == launches.get(name, 0) + 1
-    assert rnn.PLAIN_CALLS.snapshot() == plain
-    assert seq.shape == (2, 3, 4097) and last.shape == (2, 4097)
+    """Named for a former ceiling: the sequence kernel takes u <= 1024 on
+    its cluster tile and past it runs the grid tile: u=1025 and u=4097
+    launch it (``gru_seq`` and ``gru_seq_grid`` counted once each) and no
+    plain version runs."""
+    for units in (1025, 4097):
+        params, x = random_seq_case(2, 3, units, torch.float32, device)
+        launches = cuda_rnn.LAUNCHES.snapshot()
+        plain = rnn.PLAIN_CALLS.snapshot()
+        seq, last = cuda_rnn.gru_apply(params, x)
+        torch.cuda.synchronize()
+        now = cuda_rnn.LAUNCHES.snapshot()
+        for name in ("gru_seq", "gru_seq_grid"):
+            assert now.get(name, 0) == launches.get(name, 0) + 1
+        assert rnn.PLAIN_CALLS.snapshot() == plain
+        assert seq.shape == (2, 3, units) and last.shape == (2, units)
 
 
 def test_gru_seq_layout(device):
@@ -794,28 +807,24 @@ def test_gru_seq_layout(device):
              (64, 12): (8, 4, "registers", 1), (65, 12): (16, 4, "L1/L2", 1),
              (128, 3): (4, 4, "L1/L2", 1), (129, 4): (4, 4, "shared", 8),
              (256, 16): (8, 4, "shared", 8), (512, 1): (4, 4, "shared", 16),
-             (520, 8): (16, 4, "L1/L2", 16), (1024, 4): (4, 4, "L1/L2", 16),
-             (1025, 8): (8, 4, "L1/L2", 16), (2048, 3): (4, 4, "L1/L2", 16),
-             (2049, 4): (4, 4, "L1/L2", 16), (4096, 1): (4, 4, "L1/L2", 16)}
+             (520, 8): (16, 4, "L1/L2", 16), (1023, 16): (16, 4, "L1/L2", 16),
+             (1024, 4): (4, 4, "L1/L2", 16)}
     for (units, rows), want in cases.items():
         layout = cuda_rnn.seq_layout(units, rows)
         assert (layout["rows_a_group"], layout["slices"], layout["u_in"],
                 layout["cluster"]) == want
         assert layout["cluster"] == cuda_rnn.seq_cluster(units)
-        assert layout["units_a_lane"] == (1 if units <= 1024 else 2
-                                          if units <= 2048 else 4)
-    for units in (60, 128, 129, 256, 257, 512, 513, 1024, 1025, 2048,
-                  2049, 4096):
+    for units in (60, 128, 129, 256, 257, 512, 513, 1023, 1024):
         most = cuda_rnn.seq_tile(10 ** 6, units, 1)[0]
         cuda_rnn.seq_layout(units, most)
         with pytest.raises(ValueError):
             cuda_rnn.seq_layout(units, most + 1)
-    # Past u=4096 the grid tile: 4 rows x 4 units a thread, four k-slices,
+    # Past u=1024 the grid tile: 4 rows x 4 units a thread, four k-slices,
     # tiles of U through L2, no cluster; only u <= 0 is refused.
-    for units in (4097, 8192):
+    for units in (1025, 2048, 2049, 4096, 4097, 8192):
         assert cuda_rnn.seq_layout(units, 1) == {
             "rows_a_group": 4, "slices": 4, "u_in": "L2", "cluster": 1,
-            "units_a_lane": 4}
+            "units_a_thread": 4}
     with pytest.raises(ValueError):
         cuda_rnn.seq_layout(0, 1)
 
@@ -838,18 +847,19 @@ def test_gru_seq_layout(device):
                     (9, 40, 257), (37, 150, 300), (256, 342, 512),
                     (5, 23, 520), (64, 342, 1024),
                     # Past u=1024: one m-tile, one unit group a warp up to
-                    # u=2048, two beyond.
-                    *WIDE_SHAPES))])
+                    # u=2048, the grid tile beyond.
+                    (5, 23, 2049), *WIDE_SHAPES))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     """The bf16 kernels against their plain versions; up to u=128 they run
-    the tensor-core tile, beyond it its cluster tile."""
+    the tensor-core tile, beyond it its cluster tile up to u=2048, and
+    past it the grid tile."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch * units + steps, gates, batch, steps,
                                 units, device)
     kernel = getattr(cuda_rnn, f"{cell}_avg")
     plain = getattr(rnn, f"{cell}_avg_plain")
     assert cuda_rnn.avg_bf16_tile(cell, units) == (
-        "mma" if units <= 128 else "cluster")
+        "mma" if units <= 128 else "cluster" if units <= 2048 else "grid")
     launches = cuda_rnn.LAUNCHES.get(f"{cell}_avg_bf16")
     avg, hidden = kernel(params, codes, torch.bfloat16)
     torch.cuda.synchronize()
@@ -883,9 +893,10 @@ def test_avg_bf16_rows_independent_of_batch(device, cell, units):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("units", [160, 256, 300, 512, 1024, 2048, 4096])
 def test_avg_bf16_cluster_window_bits(device, cell, units):
-    """On the cluster tile a window's bf16 bits are the same alone, inside
-    a batch of 256 and at another place in that batch (other clusters,
-    another row of the m-tile), and a second launch equals the first."""
+    """On the cluster tile (up to u=2048; the grid tile at u=4096) a
+    window's bf16 bits are the same alone, inside a batch of 256 and at
+    another place in that batch (other clusters, another row of the
+    m-tile), and a second launch equals the first."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(units * gates, gates, 256, 342, units,
                                 device)
@@ -904,17 +915,16 @@ def test_avg_bf16_cluster_window_bits(device, cell, units):
 
 def test_avg_bf16_tile_by_width(device):
     """The tile of each width: the tensor-core tile up to u=128 (one CTA a
-    window, at most 8), its cluster tile up to u=4096, the grid tile
+    window, at most 8), its cluster tile up to u=2048, the grid tile
     beyond (no cluster; the launch runs it).  A cluster has 2 CTAs where
     half of U's fragments fit a CTA's shared memory at 8 windows (the GRU
     up to u=256, the LSTM up to u=224), else 4; a CTA takes 16 windows
     where two m-tiles fit, else 8 (the H100's 227 KB a block); past
     u=1024 16 CTAs of one m-tile holding only their windows' rows of h: 8
-    windows at u=2048, 6 at u=4096."""
-    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8), (2048, 16, 8),
-                     (4096, 16, 6)],
+    windows at u=2048."""
+    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8), (2048, 16, 8)],
              "lstm": [(208, 2, 16), (209, 2, 8), (224, 2, 8), (225, 4, 16),
-                      (256, 4, 16), (2048, 16, 8), (4096, 16, 6)]}
+                      (256, 4, 16), (2048, 16, 8)]}
     for cell, wide in cases.items():
         for units, tile, cluster, most in (
                 [(1, "mma", 1, 8), (60, "mma", 1, 8), (128, "mma", 1, 8),
@@ -924,11 +934,12 @@ def test_avg_bf16_tile_by_width(device):
             assert cuda_rnn.avg_bf16_cluster(cell, units) == cluster
             assert cuda_rnn.avg_tile(cell, 10 ** 6, units, None,
                                      torch.bfloat16)[0] == most
-        assert cuda_rnn.avg_bf16_tile(cell, 4097) == "grid"
-        assert cuda_rnn.avg_bf16_cluster(cell, 4097) == 1
+        for units in (2049, 4096, 4097):
+            assert cuda_rnn.avg_bf16_tile(cell, units) == "grid"
+            assert cuda_rnn.avg_bf16_cluster(cell, units) == 1
         with pytest.raises(ValueError, match="u=0"):
             cuda_rnn.avg_bf16_tile(cell, 0)
-    params, codes = random_case(3, 3, 2, 3, 4097, device)
+    params, codes = random_case(3, 3, 2, 3, 2049, device)
     launches = cuda_rnn.LAUNCHES.get("gru_avg_grid_bf16")
     avg, _ = cuda_rnn.gru_avg(params, codes, torch.bfloat16)
     torch.cuda.synchronize()
@@ -940,9 +951,10 @@ def test_avg_bf16_tile_by_width(device):
 @pytest.mark.parametrize("units", [129, 200, 256, 300, 512, 520, 1024,
                                    1025, 2048, 4096])
 def test_avg_cluster_window_bits(device, cell, units):
-    """On the float32 cluster tile a window's bits are the same alone,
-    inside a batch of 64 and at another place in it (other clusters,
-    another lane of a group), and a second launch equals the first."""
+    """On the float32 cluster tile (up to u=1024; the grid tile past it) a
+    window's bits are the same alone, inside a batch of 64 and at another
+    place in it (other clusters, another lane of a group; another row of
+    the grid's row block), and a second launch equals the first."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(units + gates, gates, 64, 150, units,
                                 device)
@@ -961,19 +973,22 @@ def test_avg_cluster_window_bits(device, cell, units):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_avg_layout_matches_library(device, dtype):
-    """``cuda_rnn.avg_layout`` at every width 1-4096 on this card and past
-    it: its tile (pure Python, from the width) agrees with the library's
+    """``cuda_rnn.avg_layout`` at every width its cluster tiles take
+    (1-1024 in float32, 1-2048 in bfloat16) on this card and past them:
+    its tile (pure Python, from the width) agrees with the library's
     CTAs a cluster (one CTA a window up to u=128, past it a cluster: in
     float32 8 CTAs with U in shared memory up to u=256, 16 reading it
     through L1/L2 beyond; in bfloat16 2 to 16 CTAs, the library's own
-    tile; past u=4096 the grid tile's library: no cluster, 16 windows a
+    tile; past them the grid tile's library: no cluster, 16 windows a
     CTA, tiles of U through L2), and the library refuses u=0."""
+    ceiling = (cuda_rnn.BF16_CLUSTER_MAX_UNITS if dtype == torch.bfloat16
+               else cuda_rnn.CLUSTER_MAX_UNITS)
     for cell in ("gru", "lstm"):
-        for units in (4097, 5000, 8192, 26800):
+        for units in (ceiling + 1, 4096, 4097, 5000, 8192, 26800):
             assert cuda_rnn.avg_layout(cell, units, dtype) == {
                 "tile": "grid", "cluster": 1, "u_in": "L2",
                 "max_windows": 16}
-        for units in range(1, cuda_rnn.CLUSTER_MAX_UNITS + 1):
+        for units in range(1, ceiling + 1):
             layout = cuda_rnn.avg_layout(cell, units, dtype)
             assert (layout["cluster"] > 1) == (layout["tile"] == "cluster")
             if dtype == torch.bfloat16:
@@ -989,7 +1004,7 @@ def test_avg_layout_matches_library(device, dtype):
             cuda_rnn._library_layout(cell, 0, dtype)
 
 
-# The grid tile's rows (past u=4096): (kind, dtype) with kind "gru",
+# The grid tile's rows (past the cluster tiles): (kind, dtype) with kind "gru",
 # "lstm" (the fused rows) or "seq" (the scan route's GRU).
 GRID_ROWS = [(kind, dtype) for kind in ("gru", "lstm", "seq")
              for dtype in (torch.float32, torch.bfloat16)]
@@ -1104,10 +1119,10 @@ def test_grid_window_bits(device, kind, dtype):
 
 @pytest.mark.parametrize("kind,dtype", GRID_ROWS)
 def test_grid_below_ceiling_matches_cluster_route(device, kind, dtype):
-    """The grid tile forced below u=4096 (as ``chip_smoke.py`` times it
-    beside the cluster tiles) agrees with the plain version at u=129 and
-    the ragged u=300; the routing there is unchanged (the cluster tile
-    runs)."""
+    """The grid tile forced below its route's widths (as
+    ``tools/avg_tile_sweep.py --grid`` times it beside the cluster tiles)
+    agrees with the plain version at u=129 and the ragged u=300; the
+    routing there is unchanged (the cluster tile runs)."""
     for units in (129, 300):
         params, inputs = grid_case(kind, dtype, 5, 9, units, device)
         got, plain = run_grid_row(kind, dtype, params, inputs, grid=True)

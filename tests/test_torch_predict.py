@@ -71,8 +71,9 @@ def test_engine_scored_matches_jax(small_models, seq_len, batch, step):
 
 
 def test_engine_past_cluster_ceiling_matches_jax():
-    """The whole slice past the cluster tiles' ceiling (u=4096, where a
-    CUDA tensor runs the grid tile): a ``gru_att``-shaped model at u=4160
+    """The whole slice past the cluster tiles' ceilings (u=1024 in
+    float32, 2048 in bf16, where a CUDA tensor runs the grid tile): a
+    ``gru_att``-shaped model at u=4160
     (vecsize 16, step 8) on a 200 bp record, the port's CPU engine against
     the JAX package's engine on the same weights, made with numpy from a
     seed in the JAX package's layout and carried across by the port's

@@ -194,16 +194,14 @@ def test_gru_seq_tile(rows, sms):
     cluster of CTAs splits them (8 up to u=256, 16 beyond), each CTA of a
     cluster holds the cluster's rows, and the wave counts clusters (16
     rows, but 4 from u=257 to 512, where U's slice fills the shared
-    memory, 8 from u=1025 to 2048 and 4 up to the cluster tile's ceiling
-    u=4096, where the h buffers do: several units a lane).  Past it the
-    grid tile: 32 rows and 32 units a CTA, no cluster.  The scan route's
+    memory) up to the cluster tile's ceiling u=1024.  Past it the grid
+    tile: 32 rows and 32 units a CTA, no cluster.  The scan route's
     2048 rows take 128 CTAs of 16 on a 132-SM card, the shape of the
     fused kernel's tile at 8 windows."""
     for units, most, cluster in ((60, 16, 1), (128, 16, 1), (129, 16, 8),
                                  (256, 16, 8), (257, 4, 16), (512, 4, 16),
-                                 (513, 16, 16), (1024, 16, 16),
-                                 (1025, 8, 16), (2048, 8, 16),
-                                 (2049, 4, 16), (4096, 4, 16)):
+                                 (513, 16, 16), (1023, 16, 16),
+                                 (1024, 16, 16)):
         assert cuda_rnn.seq_cluster(units) == cluster
         rows_a_cta, n_cta = cuda_rnn.seq_tile(rows, units, sms)
         clusters = sms // cluster
@@ -216,9 +214,9 @@ def test_gru_seq_tile(rows, sms):
             2048: (16, 128), 256: (2, 128), 7: (1, 7), 1: (1, 1)}[rows]
         # u=512 at 16 rows: 8 clusters of 16 CTAs, 2 rows each.
         assert cuda_rnn.seq_tile(16, 512, sms) == (2, 128)
-    # Past the cluster tile's ceiling (u=4096) the grid tile, whatever the
+    # Past the cluster tile's ceiling (u=1024) the grid tile, whatever the
     # SMs: every row and unit covered; only u <= 0 is refused.
-    for units in (4097, 8192):
+    for units in (1025, 2048, 2049, 4096, 4097, 8192):
         assert cuda_rnn.seq_cluster(units) == 1
         assert cuda_rnn.seq_max_rows(units) == 32
         assert cuda_rnn.seq_tile(rows, units, sms) == (
@@ -228,30 +226,31 @@ def test_gru_seq_tile(rows, sms):
 
 
 # (units, tile) at each width where the inference kernels' tile changes,
-# the cluster tiles' ceiling and past it.
+# the cluster tiles' ceilings (u=1024 in float32, 2048 in bfloat16), one
+# past each and beyond.
 AVG_TILES = {
     "float32": [(1, "registers"), (64, "registers"), (65, "l2"),
                 (128, "l2"), (129, "cluster"), (300, "cluster"),
-                (1024, "cluster"), (1025, "cluster"), (2048, "cluster"),
-                (4096, "cluster"), (4097, "grid"), (8192, "grid"),
-                (26800, "grid")],
+                (1023, "cluster"), (1024, "cluster"), (1025, "grid"),
+                (2048, "grid"), (4096, "grid"), (4097, "grid"),
+                (8192, "grid"), (26800, "grid")],
     "bfloat16": [(1, "mma"), (128, "mma"), (129, "cluster"),
                  (520, "cluster"), (1024, "cluster"), (1025, "cluster"),
-                 (3000, "cluster"), (4096, "cluster"), (4097, "grid"),
-                 (8192, "grid")],
+                 (2048, "cluster"), (2049, "grid"), (3000, "grid"),
+                 (4096, "grid"), (4097, "grid"), (8192, "grid")],
 }
 
 
 @pytest.mark.parametrize("cell,dtype", [(cell, dtype) for cell in (
     "gru", "lstm") for dtype in sorted(AVG_TILES)])
 def test_avg_layout_by_width(cell, dtype):
-    """The inference kernels' tile by width (pure Python): one CTA a
-    window up to u=128 (the register tile in float32, the tensor-core tile
-    in bf16), past it a window's units over a cluster of CTAs up to the
-    cluster tiles' ceiling u=4096 (past u=1024 several units a lane), and
-    past it the grid tile at every width (u=4097, 8192); only u <= 0 is
-    refused: ``avg_tile_name`` and ``avg_layout`` raise ``ValueError``
-    naming the width, before they ask the library."""
+    """The inference kernels' tile by width (pure Python): one CTA a window
+    up to u=128 (the register tile in float32, the tensor-core tile in
+    bf16), past it a window's units over a cluster of CTAs up to the
+    cluster tiles' ceiling (u=1024 in float32, 2048 in bf16), and past it
+    the grid tile at every width; only u <= 0 is refused:
+    ``avg_tile_name`` and ``avg_layout`` raise ``ValueError`` naming the
+    width, before they ask the library."""
     for units, tile in AVG_TILES[dtype]:
         assert cuda_rnn.avg_tile_name(cell, units,
                                       getattr(torch, dtype)) == tile, units
@@ -262,17 +261,20 @@ def test_avg_layout_by_width(cell, dtype):
 
 
 def test_training_ceiling_stays_at_1024():
-    """Named for the training kernels' former ceiling: they now take every
-    width, as the inference kernels do: u=1025 to 4096 on the cluster tile
-    (``kMaxUnits`` of ``csrc/rnn_cluster.cuh``, read by both libraries),
-    past it the grid tile, in training as in inference; only u <= 0 is
-    refused."""
-    assert cuda_rnn.CLUSTER_MAX_UNITS == 4096
-    for units in (1024, 1025, 2048, 4096):
+    """Named for the training kernels' former ceiling: they take every
+    width, as the inference kernels do: the cluster tile up to
+    ``TRAIN_CLUSTER_MAX_UNITS`` (u=1023; the float32 inference rows' up to
+    ``CLUSTER_MAX_UNITS``, u=1024, the bf16 rows' up to
+    ``BF16_CLUSTER_MAX_UNITS``, u=2048), the grid tile past each; only
+    u <= 0 is refused."""
+    assert (cuda_rnn.TRAIN_CLUSTER_MAX_UNITS, cuda_rnn.CLUSTER_MAX_UNITS,
+            cuda_rnn.BF16_CLUSTER_MAX_UNITS) == (1023, 1024, 2048)
+    for units in (1023, 1024):
         assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
-        assert cuda_rnn.train_layout(units) == "cluster"
-    for units in (4097, 8192):
+    assert cuda_rnn.train_layout(1023) == "cluster"
+    for units in (1024, 1025, 2048, 4096, 4097, 8192):
         assert cuda_rnn.train_layout(units) == "grid"
+    for units in (1025, 2048, 4096, 4097, 8192):
         assert cuda_rnn.avg_tile_name("lstm", units) == "grid"
     for units in (0, -4097):
         with pytest.raises(ValueError, match=f"not u={units}"):

@@ -226,19 +226,18 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 
 def test_train_layout_by_width():
     """The training kernels' layout of a width (the window tile up to
-    u=256, the cluster tile past it, with several units a lane past
-    u=1024, up to the inference kernels' cluster tiles' ceiling u=4096),
-    the grid tile past it at every width, and the refusal of u <= 0
-    only."""
+    u=256, the cluster tile past it up to ``TRAIN_CLUSTER_MAX_UNITS``,
+    u=1023), the grid tile from u=1024 at every width, and the refusal of
+    u <= 0 only."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
                           (128, "l2"), (129, "wide"), (256, "wide"),
                           (257, "cluster"), (520, "cluster"),
-                          (1024, "cluster"), (1025, "cluster"),
-                          (2048, "cluster"), (3000, "cluster"),
-                          (4096, "cluster"), (4097, "grid"), (4100, "grid"),
+                          (1023, "cluster"), (1024, "grid"), (1025, "grid"),
+                          (2048, "grid"), (3000, "grid"),
+                          (4096, "grid"), (4097, "grid"), (4100, "grid"),
                           (8192, "grid"), (26800, "grid")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.CLUSTER_MAX_UNITS == 4096
+    assert cuda_rnn.TRAIN_CLUSTER_MAX_UNITS == 1023
     for units in (0, -1):
         with pytest.raises(ValueError, match=f"u >= 1, not u={units}"):
             cuda_rnn.train_layout(units)

@@ -6,6 +6,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
 
     python3 tools/avg_tile_sweep.py [--kernel avg|avg_bf16|seq]
         [--min-units N] [--out FILE.json]
+    python3 tools/avg_tile_sweep.py --grid [--units 257,...,4096]
+        [--rows 1,1b,2,2b,7] [--out FILE.jsonl]
 
 ``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs>``
 (``deepgrp_tpu_torch/csrc/rnn_avg.cu``, the float32 register tile) takes
@@ -26,6 +28,20 @@ the GRU over a float input) takes the rows a lane group, the place of
 ``U`` (registers, L1/L2, or the CTA's slice in shared memory), the IO
 type and the CTAs a cluster, and the rows a CTA (a cluster) at run time.
 ``--min-units N`` runs only the cases of at least N units.
+
+``--grid`` times the grid tile (``csrc/rnn_grid.cu``) beside the routed
+launch instead, through the wrappers of ``models/cuda_rnn.py``
+(``_launch`` / ``_launch_seq`` with ``grid=True`` beside the same call
+without it), for the fused rows of both cells in float32 and bf16 out at
+the batches of :data:`GRID_BATCHES`, and row 7 (the GRU sequence
+kernel) in float32 and bf16 IO at :data:`GRID_SEQ_ROWS` rows, at each
+width of ``--units`` (:data:`GRID_WIDTHS` by default; ``--rows`` keeps
+only the rows it names, row 7 in both dtypes): each output
+checked against its plain version first (1e-5; 2e-2 in bf16), then
+timed with CUDA events after that launch (over up to 20 launches, one
+launch where one takes more than a second).  One JSON line a case: the
+routed tile's name and ms, the grid's ms and their ratio, printed and
+appended to ``--out``.
 
 The script builds a copy of the source with one more C entry point that
 launches any variant listed for the kernel (float32 out, bfloat16 for
@@ -167,6 +183,13 @@ SEQ_CASES = [
         (64, 1024, 8, (16, 16, False)),
         (64, 1024, 4, (4, 16, False)))]
 SEQ_VARIANTS = sorted({case[-1] for case in SEQ_CASES})
+# --grid: the widths (from the 16-CTA cluster tiles' first, u=257, to
+# u=4096, either side of u=1024), the (batch, T) of the fused rows (B=16,
+# 64 and 256 at T=342 and the two ragged shapes of the card tests) and the
+# rows of row 7 at T=342.
+GRID_WIDTHS = (257, 384, 512, 768, 1024, 1025, 1280, 1536, 2048, 3000, 4096)
+GRID_BATCHES = ((16, 342), (64, 342), (256, 342), (37, 150), (5, 23))
+GRID_SEQ_ROWS = (16, 64, 2048)
 TOL = {"avg": 1e-5, "avg_bf16": 2e-2, "seq": 1e-5}
 BF16_TOL = 2e-2
 _AVG_HEAD = ("const void *codes, int batch, int steps, const void *kernel, "
@@ -386,6 +409,121 @@ def seq_rows(torch, lib, regs, min_units: int):
                launch, (seq, last), want)
 
 
+def max_err(got, want, chunk: int = 256) -> float:
+    """Largest absolute difference of two output tuples, a few rows at a
+    time (the widest cases hold tens of GB)."""
+    return max((g[i:i + chunk].float() - w[i:i + chunk].float())
+               .abs_().max().item()
+               for g, w in zip(got, want) for i in range(0, g.shape[0],
+                                                         chunk))
+
+
+def adaptive_ms(torch, launch) -> float:
+    """CUDA-event ms of ``launch`` (warm): one launch, then, where it took
+    under a second, the mean over up to 20 more (about a second's
+    worth)."""
+    import chip_smoke
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+    end.synchronize()
+    first = start.elapsed_time(end)
+    if first >= 1000.0:
+        return first
+    return chip_smoke.cuda_ms(torch, launch,
+                              max(1, min(20, int(1000.0 / max(first, 1e-3)))))
+
+
+def grid_sweep(torch, widths, card: str, out_path, only=None) -> list:
+    """``--grid``: the routed launch and the grid tile's, checked and
+    timed, at each width, row, dtype and batch (``only``: of the rows
+    named there); one row each."""
+    cases = [(kind, dtype) for kind in ("gru", "lstm", "seq")
+             for dtype in (torch.float32, torch.bfloat16)]
+    rows, failed = [], []
+    for units in widths:
+        for kind, dtype in cases:
+            shapes = ([(rows_, 342) for rows_ in GRID_SEQ_ROWS]
+                      if kind == "seq" else GRID_BATCHES)
+            for batch, steps in shapes:
+                bf16 = dtype == torch.bfloat16
+                row = {"row": "7" if kind == "seq" else
+                       ("2" if kind == "lstm" else "1") + ("b" if bf16
+                                                           else ""),
+                       "kind": kind, "dtype": str(dtype).split(".")[-1],
+                       "batch": batch, "steps": steps, "units": units}
+                if only and row["row"] not in only:
+                    continue
+                try:
+                    grid_case(torch, kind, dtype, row)
+                except RuntimeError as err:  # a launch refused, or memory
+                    row["error"] = str(err)
+                tol = BF16_TOL if bf16 else TOL["avg"]
+                if "error" in row or not (row["routed_err"] <= tol
+                                          and row["grid_err"] <= tol):
+                    failed.append(row)
+                row["card"] = card
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+                if out_path:
+                    with open(out_path, "a") as fh:
+                        fh.write(json.dumps(row) + "\n")
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{len(failed)} cases differ from the plain "
+                             f"version: {failed}")
+    return rows
+
+
+def grid_case(torch, kind: str, dtype, row: dict) -> None:
+    """One case of :func:`grid_sweep`, its results written into ``row``:
+    weights and inputs made on the card from a seed, the plain version's
+    outputs, then the routed launch and the grid tile's, each checked and
+    timed."""
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    batch, steps, units = row["batch"], row["steps"], row["units"]
+    gates = 4 if kind == "lstm" else 3
+    gen = torch.Generator(device="cuda").manual_seed(units + batch + steps
+                                                     + gates)
+    width = gates * units
+    params = {
+        "kernel": torch.randn(5, width, generator=gen, device="cuda") * 0.5,
+        "recurrent": torch.randn(units, width, generator=gen,
+                                 device="cuda") / units ** 0.5,
+        "bias": torch.randn(*((2, width) if gates == 3 else (width,)),
+                            generator=gen, device="cuda") * 0.3}
+    if kind == "seq":
+        inputs = torch.rand(batch, steps, 5, generator=gen,
+                            device="cuda").to(dtype)
+        want = rnn.gru_apply(params, inputs)
+        row["routed_tile"] = ("grid" if cuda_rnn._grid_route(units)
+                              else "cluster")
+
+        def run(grid):
+            return cuda_rnn._launch_seq(params, inputs, grid)
+    else:
+        inputs = torch.randint(0, 6, (batch, steps), generator=gen,
+                               device="cuda", dtype=torch.int8)
+        want = getattr(rnn, f"{kind}_avg_plain")(params, inputs, dtype)
+        row["routed_tile"] = cuda_rnn.avg_tile_name(kind, units, dtype)
+
+        def run(grid):
+            return cuda_rnn._launch(f"{kind}_avg", gates, params, inputs,
+                                    dtype, grid)
+    torch.cuda.synchronize()
+    for key, grid in (("routed", False), ("grid", True)):
+        got = run(grid)
+        torch.cuda.synchronize()
+        row[f"{key}_err"] = max_err(got, want)
+        del got
+        row[f"{key}_ms"] = adaptive_ms(torch, lambda: run(grid))
+    row["grid_over_routed"] = row["grid_ms"] / row["routed_ms"]
+
+
 def main() -> int:
     import torch
 
@@ -393,6 +531,10 @@ def main() -> int:
     parser.add_argument("--kernel", choices=sorted(_SPECS), default="avg")
     parser.add_argument("--min-units", type=int, default=0,
                         help="run only the cases of at least this width")
+    parser.add_argument("--grid", action="store_true",
+                        help="time the grid tile beside the routed launch")
+    parser.add_argument("--units", help="--grid: widths, comma-separated")
+    parser.add_argument("--rows", help="--grid: rows, comma-separated")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -404,6 +546,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+    if args.grid:
+        widths = (tuple(int(u) for u in args.units.split(","))
+                  if args.units else GRID_WIDTHS)
+        grid_sweep(torch, widths, card, args.out,
+                   args.rows.split(",") if args.rows else None)
+        return 0
     variants = {"avg": VARIANTS, "avg_bf16": BF16_VARIANTS,
                 "seq": SEQ_VARIANTS}[args.kernel]
     lib, regs = build(args.kernel, variants)

@@ -9,6 +9,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
         [--batch 256] [--steps 342] [--cells gru,lstm] [--out FILE.json]
     python3 tools/train_tile_sweep.py --clusters [--units 256,300,512,1024]
         [--batch 256] [--steps 342] [--cells gru,lstm] [--out FILE.json]
+    python3 tools/train_tile_sweep.py --grid [--units 257,...,4096]
+        [--cells gru,lstm] [--out FILE.jsonl]
 
 Prints the compiler's registers and spills of each kernel of the file
 (``nvcc -Xptxas -v``), then for each cell and width: the tile
@@ -32,6 +34,16 @@ magnitude) against the plain versions and times both over 5 launches
 after a warm-up, beside the library's own layout at that width (the row
 ``{cell}_library``: at u <= 256 the wide layout, past it the cluster
 layout the library picks).
+
+``--grid`` times the grid tile (``csrc/rnn_grid.cu``) beside the routed
+launch: ``cuda_rnn.train_fwd`` and ``train_bwd`` (the recurrence and the
+reduction) with ``grid=True`` beside the same calls without it, at each
+width of ``--units`` (``avg_tile_sweep.GRID_WIDTHS`` by default) and each
+(batch, T) of ``avg_tile_sweep.GRID_BATCHES``, inputs made on the card
+from a seed, masks at rate 0.0928: the forward's outputs (1e-5) and the
+gradients (1e-4 of their largest magnitude) checked against the plain
+versions first, then timed as ``avg_tile_sweep.adaptive_ms`` times.  One
+JSON line a case, printed and appended to ``--out``.
 """
 
 from __future__ import annotations
@@ -236,8 +248,12 @@ def main() -> int:
     parser.add_argument("--cells", default="gru,lstm")
     parser.add_argument("--clusters", action="store_true",
                         help="time the cluster tile's layouts")
+    parser.add_argument("--grid", action="store_true",
+                        help="time the grid tile beside the routed launch")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
+    if args.units is None and args.grid:
+        args.units = ",".join(map(str, avg_tile_sweep().GRID_WIDTHS))
     if args.units is None:
         args.units = ("256,300,512,1024" if args.clusters
                       else "128,129,160,192,224,256,300,512,1024")
@@ -256,6 +272,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+    if args.grid:
+        grid_rows(torch, args, card)
+        return 0
     if args.clusters:
         lib, log = build_sweep()
         rows = cluster_rows(torch, lib, log, args, card)
@@ -265,6 +284,98 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "rows": rows}, fh, indent=1)
     return 0
+
+
+def avg_tile_sweep():
+    """The inference sweep's module (its widths, batches and timer)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import avg_tile_sweep as module
+
+    return module
+
+
+def grid_rows(torch, args, card: str) -> list:
+    """``--grid``: the routed training kernels and the grid tile's, checked
+    against the plain versions and timed, at each cell, width and
+    (batch, T); one row each."""
+    import chip_smoke
+
+    sweep = avg_tile_sweep()
+    rows, failed = [], []
+    for units in (int(u) for u in args.units.split(",")):
+        for cell in args.cells.split(","):
+            for batch, steps in sweep.GRID_BATCHES:
+                row = {"cell": cell, "batch": batch, "steps": steps,
+                       "units": units}
+                try:
+                    grid_case(torch, chip_smoke, sweep, row)
+                except RuntimeError as err:  # a launch refused, or memory
+                    row["error"] = str(err)
+                if "error" in row or not all(
+                        row[f"{key}_fwd_err"] <= chip_smoke.TOL
+                        and row[f"{key}_grad_rel_err"] <= chip_smoke.GRAD_RTOL
+                        for key in ("routed", "grid")):
+                    failed.append(row)
+                row["card"] = card
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+                if args.out:
+                    with open(args.out, "a") as fh:
+                        fh.write(json.dumps(row) + "\n")
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{len(failed)} cases differ from the plain "
+                             f"versions: {failed}")
+    return rows
+
+
+def grid_case(torch, chip_smoke, sweep, row: dict) -> None:
+    """One case of :func:`grid_rows`, its results written into ``row``."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    cell, batch, steps, units = (row[k] for k in ("cell", "batch", "steps",
+                                                  "units"))
+    gates = 4 if cell == "lstm" else 3
+    params, codes = chip_smoke.random_rnn_on_card(
+        torch, units + batch + steps + gates, gates, batch, steps, units)
+    gen = torch.Generator(device="cuda").manual_seed(units)
+    keep = 1.0 - chip_smoke.FLAGSHIP["dropout"]
+    masks = (torch.rand(gates, 2 * batch, 5, generator=gen, device="cuda")
+             < keep).float() / keep
+    d_avg = torch.randn(batch, steps, units, generator=gen, device="cuda")
+    d_hid = torch.randn(batch, units, generator=gen, device="cuda")
+    plain_fwd, plain_bwd = cuda_rnn._PLAIN[cell]
+    want = plain_fwd(params, codes, masks)
+    seqs = tuple(want[2:])
+    want_g = plain_bwd(params, codes, masks, *seqs, d_avg, d_hid)
+    torch.cuda.synchronize()
+    row["routed_layout"] = cuda_rnn.train_layout(units)
+    for key, grid in (("routed", False), ("grid", True)):
+        def fwd(grid=grid):
+            return cuda_rnn.train_fwd(cell, params, codes, masks, grid)
+
+        def bwd(grid=grid):
+            return cuda_rnn.train_bwd(cell, params, codes, masks, seqs,
+                                      d_avg, d_hid, grid)
+
+        got = fwd()
+        torch.cuda.synchronize()
+        row[f"{key}_fwd_err"] = sweep.max_err(got, want)
+        del got
+        row[f"{key}_fwd_ms"] = sweep.adaptive_ms(torch, fwd)
+        grads = bwd()
+        torch.cuda.synchronize()
+        row[f"{key}_grad_rel_err"] = max(
+            (g - w).abs().max().item() / w.abs().max().item()
+            for g, w in zip(grads, want_g))
+        del grads
+        row[f"{key}_bwd_ms"] = sweep.adaptive_ms(torch, bwd)
+    for kind in ("fwd", "bwd"):
+        row[f"grid_over_routed_{kind}"] = (row[f"grid_{kind}_ms"]
+                                           / row[f"routed_{kind}_ms"])
+    row["grid_over_routed"] = ((row["grid_fwd_ms"] + row["grid_bwd_ms"])
+                               / (row["routed_fwd_ms"]
+                                  + row["routed_bwd_ms"]))
 
 
 def width_rows(torch, chip_smoke, _build, cuda_rnn, args) -> list:

@@ -25,9 +25,10 @@ and with the listing's spacing collapsed, so the same machine code of two
 checkouts has the same hash; with ``--sass-dir DIR`` each kernel's SASS
 is also written to ``DIR/<label>/<name>.sass``.  ``--summary`` prints,
 for each label after the first in the file, every time's ratio to the
-first label's (means over each label's lines) and which of the kernels
+first label's (means over each label's lines), which of the kernels
 both built have the same SASS (from the written files when ``--sass-dir``
-is given).
+is given), and for each kernel built only by the later label the first
+label's kernels, built only there, whose SASS it has (a renamed kernel).
 """
 
 from __future__ import annotations
@@ -202,6 +203,14 @@ def summary(path: str, sass_dir: str = None) -> None:
                   f"{len(same)} identical; differ: "
                   f"{sorted(set(common) - set(same))}; only in {label}: "
                   f"{sorted(set(sass[1]) - set(sass[0]))}")
+            # A kernel renamed (a template parameter dropped) keeps its
+            # machine code if its SASS is that of a kernel only in the base.
+            by_hash = defaultdict(list)
+            for name in set(sass[0]) - set(sass[1]):
+                by_hash[sass[0][name]].append(name)
+            for name in sorted(set(sass[1]) - set(sass[0])):
+                print(f"  {name}: same SASS as {base}'s "
+                      f"{by_hash.get(sass[1][name], 'none')}")
 
 
 def main() -> int:
