@@ -38,8 +38,8 @@ seconds are printed after it):
    and LSTM u=23,200 (B=2, T=4, weights made on the card: g u^2 past
    2^31 elements) against the plain versions.  Then one unit past each
    route's ceiling launches the grid tile: u=1025 in float32 and on the
-   scan route in both dtypes, u=2049 in bf16, u=1024 in the training
-   forward and backward of both cells.
+   scan route in float32, u=1280 in bf16, u=768 on the scan route in
+   bf16, u=1024 in the training forward and backward of both cells.
 3. Fixture BEDs: ``python -m deepgrp_tpu_torch predict`` (through
    ``cli.main``) on ``tests/fixtures/reference/{gru_att,gru,lstm}.fa`` with
    the reference settings and the ``.npz`` weights in
@@ -131,14 +131,15 @@ seconds are printed after it):
    (1024, 342, 60) and (1000, 150, 32), also at u=96 and u=128, at the
    CLI's default batch (256, 342, 60), past u=128 at (256, 342, 160),
    (1024, 342, 192), (37, 150, 200), phase 2's shapes from u=256 to 4096
-   and (5, 23, 2049), each row with the tile it ran (the tensor-core
+   and (5, 23, 1280), each row with the tile it ran (the tensor-core
    tile up to u=128, its cluster tile of 2 to 16 CTAs beyond up to its
-   ceiling u=2048, the grid tile past it, with the clusters at once;
+   ceiling u=1279, the grid tile's bf16 step past it, with the clusters
+   at once;
    ``ptxas -v`` of every instantiation; past u=128 a second launch and a
    window alone give the same bits).
    atol 1e-5 in float32, 2e-2 in
    bfloat16.  Times each kernel, its plain version and cuDNN
-   (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off), and at u=2048
+   (``torch.nn.GRU``/``LSTM`` in the same dtype, TF32 off), and at u=1025
    the grid tile beside the bf16 cluster tile.  Past u=4096 the grid
    tile of the bf16 rows and of ``gru_seq`` (f32 and bf16 IO, and f32 at
    u=26,800) at phase 2's grid shapes, as phase 2.
@@ -333,8 +334,7 @@ seconds are printed after it):
     printed).
 20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
     at u=512, u=1024 (the float32 cluster tiles' ceiling), u=2048 (the
-    grid tile in float32 and on the scan route, the bf16 cluster tile's
-    ceiling) and u=4608 (the grid tile; one fixture each, ``gru_att.fa``
+    grid tile in both dtypes and on the scan route) and u=4608 (the grid tile; one fixture each, ``gru_att.fa``
     and ``lstm.fa``), made by the port's initialiser from a seed and written
     as ``.npz`` model files, predict the three fixtures (from u=2048 the
     one of their cell) through
@@ -401,7 +401,7 @@ CLUSTER_SHAPES = {"u256": (256, 342, 256), "u512": (256, 342, 512),
                   "u1024": (64, 342, 1024), "ragged_u300": (37, 150, 300),
                   "ragged_u520": (5, 23, 520)}
 # Past the float32 cluster tiles' ceiling (u=1024) on the grid tile (the
-# bf16 rows on their cluster tile of 16 CTAs up to u=2048): ragged at
+# bf16 rows on their cluster tile of 16 CTAs up to u=1279): ragged at
 # u=1025 (one past the ceiling) and u=3000, and u=2048 and 4096 at T=342;
 # those two are timed with fewer repetitions (WIDE_REPS).
 LANE_SHAPES = {"ragged_u1025": (37, 150, 1025), "u2048": (64, 342, 2048),
@@ -409,11 +409,11 @@ LANE_SHAPES = {"ragged_u1025": (37, 150, 1025), "u2048": (64, 342, 2048),
 WIDE_REPS = 3
 # The bf16 kernels also at the CLI's default batch and past the
 # tensor-core tile (u > 128: its cluster tile), ragged there too, and one
-# past their cluster tile's ceiling (u=2048, LANE_SHAPES' u2048).
+# past their cluster tile's ceiling (u=1279).
 BF16_SHAPES = {"b256": (256, 342, 60), "u160": (256, 342, 160),
                "u192_b1024": (1024, 342, 192),
                "ragged_wide": (37, 150, 200),
-               "ragged_u2049": (5, 23, 2049)}
+               "ragged_u1280": (5, 23, 1280)}
 
 TRAIN_KERNELS = {
     # name: TPU kernel it replaces
@@ -492,8 +492,8 @@ GRID_SHAPES = {"grid_u4097": (1, 32, 4097), "grid_ragged_u5000": (5, 23, 5000),
                "grid_u8192_t17": (3, 17, 8192), "grid_u4608": (64, 342, 4608)}
 GRID_LINE_SHAPE = "grid_u4608"
 # The width at which phase 8 times the grid tile beside the bf16 cluster
-# tile (its ceiling; times only, the cluster tile keeps it).
-GRID_BESIDE = (2048,)
+# tile (one it keeps: ragged_u1025; times only).
+GRID_BESIDE = (1025,)
 GRID_HUGE = {"gru": (2, 4, 26800), "lstm": (2, 4, 23200)}
 # The grid tile's training kernels (rows 3-6 from u=1024) in the kernels
 # line: name: TPU kernel replaced.
@@ -739,7 +739,8 @@ def past_ceiling(torch) -> None:
     """One unit past each route's ceiling every row launches the grid tile
     (the fused kernels past ``CLUSTER_MAX_UNITS`` in float32 and past
     ``BF16_CLUSTER_MAX_UNITS`` in bf16, the GRU sequence kernel, the scan
-    route, in both dtypes past ``CLUSTER_MAX_UNITS``, and the training
+    route, past ``CLUSTER_MAX_UNITS`` in float32 and
+    ``SEQ_BF16_CLUSTER_MAX_UNITS`` in bf16, and the training
     forward and backward of both cells past ``TRAIN_CLUSTER_MAX_UNITS``;
     counted under the row's name and the grid's, no plain version run)."""
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
@@ -778,7 +779,9 @@ def past_ceiling(torch) -> None:
                      lambda: getattr(cuda_rnn, name)(params, codes, dtype),
                      ceiling + 1)
             if gates == 3:
-                units = cuda_rnn.CLUSTER_MAX_UNITS + 1
+                units = (cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS
+                         if dtype == torch.bfloat16
+                         else cuda_rnn.CLUSTER_MAX_UNITS) + 1
                 seq_params = params_of(gates, units)
                 launched(("gru_seq", "gru_seq_grid"), dtype,
                          lambda: cuda_rnn.gru_apply(
@@ -897,7 +900,8 @@ def grid_kernel_phase(torch, rows) -> dict:
                       for g, w in zip(got, want))
             tol = BF16_TOL if bf16 else TOL
             key = label + ("_bf16" if kind == "seq" and bf16 else "")
-            tile = cuda_rnn.grid_tile(2 * batch, units)
+            tile = cuda_rnn.grid_tile(rows_in if kind == "seq"
+                                      else 2 * batch, units, dtype)
             line = (f"{name} {key} B={batch} T={steps} u={units} "
                     f"{str(dtype).split('.')[-1]} (grid tile, {tile[1]} CTAs "
                     f"a step x {tile[0]} rows): max_abs_err={err:.3g} "
@@ -931,21 +935,35 @@ def grid_times(torch, kind: str, gates: int, dtype, params, inputs, routed,
                plain) -> dict:
     """Times of a grid row at a timed shape (over WIDE_REPS; the plain
     version and cuDNN beside it) and its bound."""
-    batch, steps = inputs.shape[:2]
-    units = params["recurrent"].shape[0]
-    bf16 = dtype == torch.bfloat16
     ms = cuda_ms(torch, lambda: routed(params, inputs), WIDE_REPS)
     plain_ms = cuda_ms(torch, lambda: plain(params, inputs), WIDE_REPS)
+    library_ms = cuda_ms(torch, grid_library(torch, kind, gates, dtype,
+                                             params, inputs), WIDE_REPS)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **grid_bound(torch, kind, gates, dtype, params, inputs)}
+
+
+def grid_library(torch, kind: str, gates: int, dtype, params, inputs):
+    """cuDNN computing a grid row's function in ``dtype`` (timed only): the
+    GRU over ``x`` for row 7, else :func:`library_rnn`."""
     if kind == "seq":
         cell = cudnn_module(torch, 3, params, dtype)
 
         @torch.no_grad()
         def lib():
             return cell(inputs)
-    else:
-        lib = library_rnn(torch, gates, params, inputs,
-                          dtype if bf16 else None)
-    library_ms = cuda_ms(torch, lib, WIDE_REPS)
+
+        return lib
+    return library_rnn(torch, gates, params, inputs,
+                       dtype if dtype == torch.bfloat16 else None)
+
+
+def grid_bound(torch, kind: str, gates: int, dtype, params, inputs) -> dict:
+    """The bound of a grid row: its FLOP at the peak of the dot's type and
+    the bytes of :func:`grid_bytes` (``U`` in the dot's type)."""
+    batch, steps = inputs.shape[:2]
+    units = params["recurrent"].shape[0]
+    bf16 = dtype == torch.bfloat16
     rows = batch * (1 if kind == "seq" else 2)
     channels = inputs.shape[2] if kind == "seq" else 0
     flops = 2.0 * rows * steps * (units + channels) * gates * units
@@ -954,9 +972,7 @@ def grid_times(torch, kind: str, gates: int, dtype, params, inputs, routed,
           + 4 * (params["kernel"].numel() + params["bias"].numel())
           + size * batch * (steps + 1) * units)
     n_bytes = grid_bytes(torch, steps, size * gates * units * units, io)
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            **bound(flops, n_bytes, peak)}
+    return bound(flops, n_bytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
 def on_chip_bytes(torch) -> int:
@@ -1038,8 +1054,11 @@ def kernel_phase(torch):
             results[(name, label)] = row
     log = (_build.BUILD_DIR / "rnn_grid.log").read_text()
     for args, usage in sorted(ptxas_usage(log, "GridStepKernel").items()):
-        print(f"ptxas GridStepKernel<{args}> (gates, bf16, GRU over x): "
-              f"{usage}", flush=True)
+        print(f"ptxas GridStepKernel<{args}> (gates, GRU over x): {usage}",
+              flush=True)
+    for args, usage in sorted(ptxas_usage(log, "GridMmaKernel").items()):
+        print(f"ptxas GridMmaKernel<{args}> (gates, GRU over x, units a "
+              f"CTA): {usage}", flush=True)
     results.update(grid_kernel_phase(torch, [
         (name.replace("_avg", "_avg_grid"), name.split("_")[0],
          torch.float32) for name in KERNELS]))
@@ -2056,13 +2075,15 @@ def seq_kernel_phase(torch):
                "library_ms": library_ms, **bound(flops, n_bytes, peak)}
         tol = TOL if dtype == torch.float32 else BF16_TOL
         slots = cuda_rnn.seq_slots(units, steps, 5, dtype)
-        rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms, slots)
-        layout = cuda_rnn.seq_layout(units, rows_a_cta)
+        rows_a_cta, n_cta = cuda_rnn.seq_tile(batch, units, sms, slots,
+                                              dtype)
+        layout = cuda_rnn.seq_layout(units, rows_a_cta, dtype)
         cluster = (f"clusters of {layout['cluster']} CTAs ({slots} at "
                    f"once), each {-(-units // layout['cluster'])} units, "
                    if layout["cluster"] > 1 else "one CTA a row, "
-                   if cuda_rnn.seq_cluster(units) == 1
-                   and not cuda_rnn._grid_route(units) else "the grid tile, ")
+                   if cuda_rnn.seq_cluster(units, dtype) == 1
+                   and not cuda_rnn._grid_route(units, "seq", dtype)
+                   else "the grid tile, ")
         print(f"gru_seq {label} B={batch} T={steps} u={units} {dtype_name} "
               f"(tile {n_cta} CTAs x {rows_a_cta} rows, {cluster}"
               f"{layout['rows_a_group']} rows a lane group of "
@@ -2086,9 +2107,9 @@ def seq_kernel_phase(torch):
 def bf16_kernel_phase(torch):
     """Phase 8b: the bf16 variants of the fused kernels against their
     plain versions, each row with the tile it ran (the tensor-core tile up
-    to u=128, its cluster tile beyond, up to u=2048, the grid tile past
-    it; past u=128 a second launch and a window alone must give the same
-    bits)."""
+    to u=128, its cluster tile beyond, up to u=1279, the grid tile's bf16
+    step past it; past u=128 a second launch and a window alone must give
+    the same bits)."""
     from deepgrp_tpu_torch import _build
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
@@ -4851,7 +4872,7 @@ def main() -> int:
     phase(f"20. wide models predict: gru_att and lstm at "
           f"u={', u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
           f"weights from a seed) on the fixtures through the CLI in float32 "
-          f"and bf16 (past u=1024 the grid tile, in bf16 past 2048); the "
+          f"and bf16 (past u=1024 the grid tile, in bf16 past 1279); the "
           f"track against the CPU "
           f"(u=512) and the scan route (u >= 1024), the scan route's BEDs "
           f"(u >= 2048)")

@@ -246,7 +246,8 @@ def _declare_rnn_grid(lib: ctypes.CDLL) -> None:
     lib.dg_seq_grid.argtypes = ([_I32, _PTR, _I32, _I32, _I32]
                                 + [_PTR] * 3 + [_I32] + [_PTR] * 6)
     lib.dg_grid_shape.argtypes = [_I32, _I32, _PTR]  # rows, units, int64[4]
-    lib.dg_grid_layout.argtypes = [_PTR]  # int[8]
+    lib.dg_grid_layout.argtypes = [_I32, _I32, _I32, _PTR]  # bf16, rows,
+    # units, int[8]
     # codes, batch, steps, masks, kernel, bias, padded U, units (as
     # dg_gru_train_fwd's head); the forwards: avg, hidden, hseq (and cseq),
     # h0, h1, carry, stream; the recurrences: padded U^T, hseq (and cseq),
@@ -257,10 +258,10 @@ def _declare_rnn_grid(lib: ctypes.CDLL) -> None:
     lib.dg_gru_bwd_grid.argtypes = head + [_PTR] * 8
     lib.dg_lstm_bwd_grid.argtypes = head + [_PTR] * 8
     for fn in (lib.dg_avg_grid, lib.dg_seq_grid, lib.dg_grid_shape,
-               lib.dg_gru_train_fwd_grid, lib.dg_lstm_train_fwd_grid,
-               lib.dg_gru_bwd_grid, lib.dg_lstm_bwd_grid):
+               lib.dg_grid_layout, lib.dg_gru_train_fwd_grid,
+               lib.dg_lstm_train_fwd_grid, lib.dg_gru_bwd_grid,
+               lib.dg_lstm_bwd_grid):
         fn.restype = _I32
-    lib.dg_grid_layout.restype = None
 
 
 def _declare_mss_stack(lib: ctypes.CDLL) -> None:

@@ -362,17 +362,19 @@
 //     0.6 % of that kernel's at every width to u=1024).
 //   * ptxas -v: MmaWideKernel<3, 128, 1> 128 registers, <4, 128, 1> 126,
 //     no spills.
-//   * Where it stops: past u=2048 the grid tile (rnn_grid.cu) was faster
-//     at every batch swept (tools/avg_tile_sweep.py --grid on an NVIDIA
-//     H100 80GB HBM3 at 700 W, ms cluster / grid, GRU: u=2049, B=37, T=150
-//     20.517 / 15.686; B=256, T=342 234.217 / 140.521), where a CTA of 16
-//     would own more than 16 unit groups.  At u=2048 the cluster tile
-//     stays: B=37, T=150 13.755 / 15.458 (LSTM 19.842 / 20.643).
+//   * Where it stops: the library takes up to u=2048 (a CTA of 16 would
+//     own more than 16 unit groups past it), but the route sends u=1280 on
+//     to the grid tile's bf16 step (rnn_grid.cu, mma.sync too), faster at
+//     every batch swept from u=1280 (tools/avg_tile_sweep.py --grid on an
+//     NVIDIA H100 80GB HBM3 at 700 W, ms cluster / grid: GRU B=64, u=2048
+//     52.040 / 13.884; B=16, u=1280 10.003 / 8.243); at u=1025 the LSTM
+//     at B=16, T=342 keeps the cluster tile (8.786 / 9.329).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rnn_mma.cuh"
 #include "rnn_tile.cuh"
 
 namespace {
@@ -384,8 +386,8 @@ constexpr int kTileUnits = 128;  // widest layer of the register tile
 constexpr int kMmaUnits = 128;   // widest layer of one CTA a window
 constexpr int kMmaWindows = 16;  // most windows a CTA of that tile takes
 constexpr int kMmaCap = 8;       // most the bf16 entry points give it
-// The bf16 cluster tile's ceiling (MmaWideKernel past kMaxUnits); past it
-// the grid tile (rnn_grid.cu), faster there on the H100.
+// The bf16 cluster tile's ceiling (MmaWideKernel past kMaxUnits); the
+// route (cuda_rnn.BF16_CLUSTER_MAX_UNITS) runs the grid tile from u=1280.
 constexpr int kMmaWideUnits = 2048;
 
 // ---- The float32 cluster tile's layout ------------------------------------
@@ -933,27 +935,6 @@ int LaunchAvg(const void *codes, int batch, int steps, const void *kernel,
 __device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t *>(&v);
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
-__device__ __forceinline__ void MmaBf16(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of a 16 x 16 bf16 tile in shared memory: lane l gives the
-// address of row l % 16, columns 8 (l / 16) .. +7.
-__device__ __forceinline__ void LdMatrixX4(uint32_t (&a)[4],
-                                           const __nv_bfloat16 *row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
 }
 
 // Shared memory of the tile, in bytes from the start: the input rows

@@ -2,11 +2,12 @@
 // the grid tile, a tiled product of every row's h_t with U a step with the
 // gate math in its epilogue; in training also the backward's products
 // (see "Training" below).  models/cuda_rnn.py routes here the float32
-// fused rows and the GRU sequence kernel (either dtype) past u=1024, the
-// bf16 fused rows past u=2048 and training from u=1024: the widths at
-// which this tile was as fast as the cluster tiles or faster at every
-// batch swept (tools/avg_tile_sweep.py --grid, tools/train_tile_sweep.py
-// --grid; the figures are beside those widths in models/cuda_rnn.py).
+// fused rows and the GRU sequence kernel with float32 IO past u=1024, the
+// bf16 fused rows past u=1279, the GRU sequence kernel with bf16 IO past
+// u=767 and training from u=1024: the widths at which this tile was as
+// fast as the cluster tiles or faster at every batch swept
+// (tools/avg_tile_sweep.py --grid, tools/train_tile_sweep.py --grid; the
+// figures are beside those widths in models/cuda_rnn.py).
 //
 // Replaces, at those widths, the TPU kernels of the JAX package:
 //   * dg_avg_grid gates=3 (f32 / bf16 out)
@@ -66,11 +67,11 @@
 //     type (W = u rounded up to kBlockUnits; bf16: rounded to nearest even,
 //     as torch rounds), so every tile is whole and 16-byte aligned, and
 //     bf16 halves the stream.  h lives in two global buffers [W][R'] (R'
-//     the rows rounded up to kBlockRows), k-major, holding the dot's
-//     operand (rounded in bf16); the carried f32 h and the LSTM's c sit in
-//     a carry buffer [2][W][R'] that only the owner of a (row, unit) reads
-//     and writes.  The wrapper zeroes all three, so padded rows and columns
-//     stay zero and add nothing.
+//     the rows rounded up to kBlockRows), k-major (the bf16 step: [R'][W],
+//     bf16); the carried h and the LSTM's c sit in a float32 carry buffer
+//     [2][W][R'] that only the owner of a (row, unit) reads and writes.
+//     The wrapper zeroes all three, so padded rows and columns stay zero
+//     and add nothing.
 //   * K runs in tiles of kBlockK through a ring of kStages shared-memory
 //     stages filled by cp.async (16 bytes a copy, U and h both).  The CTA's
 //     256 threads are kSplit k-slices of 64: slice s sums k = 32 i + 8 s +
@@ -90,6 +91,61 @@
 //     the T launches.
 //   * Offsets into U, h, the carry and the outputs are size_t: g u^2 passes
 //     2^31 at u=26,755 (GRU) and 23,171 (LSTM).
+//   * The float32 step (GridStepKernel) is described above; the bf16 step
+//     (GridMmaKernel) below.
+//
+// The bf16 step (rows 1b, 2b, and row 7 with bf16 IO; GridMmaKernel).  The
+// same step as the float32 one, with the product on the tensor cores:
+// mma.sync.aligned.m16n8k16 (rnn_mma.cuh), h and U as bf16 operands
+// straight from shared memory (ldmatrix, ldmatrix.trans), float32 sums,
+// never widened before the product.
+//   * Bound on this card: 2 R g u^2 FLOP a step at 989 TFLOP/s (bf16
+//     tensor cores), and U (2 g u^2 bytes) from L2, or past u~3600 from
+//     HBM, each step.  At B=64, T=342, u=4608 (GRU): 5.64 ms of FLOP, 127
+//     MB of U a step.
+//   * h lives in bf16: two buffers [R'][W] row-major (the A operand's
+//     layout; the wrapper allocates them in the dot's type), the float32
+//     carry (h, the LSTM's c) in [2][R'][W] that only the owner of a
+//     (row, unit) reads and writes.  U is the wrapper's bf16 copy
+//     [W][g][W], streamed in 2 bytes.
+//   * A CTA owns 128 rows (8 m16 tiles: 64 windows) so that U streams
+//     about once a step for B <= 64 (4 times at B=256), and 32 units with
+//     all their gates, or 16 where 32 would leave SMs idle (MmaUnits: the
+//     grid of 32 has fewer CTAs than the card has SMs; at u=2049, B=64,
+//     130 CTAs of 16 against 65 of 32).  A warp owns 32 rows x 16 units
+//     (2 m16 x 2 n8 tiles a gate); a warp whose rows are all padding
+//     does no product.
+//   * Rows: for the fused rows an m16 tile holds 8 windows, their forward
+//     rows in rows 0-7 and their reverse-complement rows in 8-15
+//     (MmaWindow), so the accumulator gives a lane (rows l/4 and l/4 + 8)
+//     both branches of a window and the average forms in registers.
+//     Columns: each gate's n8 tile covers the same 8 units, so a lane
+//     holds every gate of its (row, unit) cells (as MmaAvgKernel in
+//     rnn_avg.cu).
+//   * K runs in tiles of 32 through a ring of 4 shared-memory stages filled
+//     by cp.async (16 bytes a copy), U's tile [g][32][units + 8] and h's
+//     [128][32 + 8] (16 bytes of pad a row: ldmatrix's 8 rows fall in 8
+//     bank groups).  Each (row, unit) sum runs over the k-tiles in order,
+//     an order fixed by u alone (no atomics, no split of K): a window's
+//     bits do not depend on the batch, its place or the launch.
+//   * The epilogue: the input rows (bias + W[code], the pad's bias; the
+//     GRU's recurrent bias; row 7's biases) come from a table of the
+//     CTA's units in shared memory filled before the product; for each
+//     m16 tile the carry, the codes and row 7's x W (channel order) are
+//     loaded before any store; then GridStepKernel's gate math, the
+//     carry, h_next in bf16 and the outputs.
+//   * ptxas -v (sm_90a, CUDA 12.8): GridMmaKernel<3, fused, 16 / 32> 124
+//     / 124 registers, <4, fused, 16 / 32> 126 / 126, <3, row 7, 16 / 32>
+//     128 / 128; no spills.
+//   * What bounds it (tools/avg_bf16_ablation.py --grid: edited copies on
+//     an NVIDIA H100 80GB HBM3 at 700 W): not the products and not HBM.
+//     At B=64, u=4608 (GRU, 47.07 ms) the step without its cp.async copies
+//     past the first stages takes 0.525x the time, without the mma 0.887x,
+//     with U read only from its first 256 k rows (L2) 0.959x, with 5
+//     stages 1.009x.  A CTA's 144 k-tiles run one after the other, each a
+//     wait on copies issued three tiles before, a barrier and a dependent
+//     mma chain of 2 k16 steps: that chain, and the 12 SMs that hold two
+//     of the 144 CTAs, bound the step.
 //
 // Training (rows 3-6 from u=1024; rnn_train.cu's contract: masked input
 // rows, hseq (cseq) kept for the backward, the backward's gate cotangents
@@ -126,6 +182,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rnn_mma.cuh"
 #include "rnn_tile.cuh"
 
 namespace {
@@ -192,33 +249,18 @@ __device__ __forceinline__ void LoadU4(const float *p, float (&v)[4]) {
   v[2] = q.z;
   v[3] = q.w;
 }
-__device__ __forceinline__ void LoadU4(const __nv_bfloat16 *p,
-                                       float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2 *>(p);
-  // A bfloat16 is the high half of its float32.
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
 
-__device__ __forceinline__ float AsFloat(float v) { return v; }
-__device__ __forceinline__ float AsFloat(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <int kGates, bool kBf16, int kAStride = kBlockRows>
+template <int kGates, int kAStride = kBlockRows>
 __host__ __device__ constexpr size_t StageBytes() {
-  return static_cast<size_t>(kBlockK) * kGates * kBlockUnits *
-             sizeof(typename Io<kBf16>::Out) +
-         static_cast<size_t>(kBlockK) * kAStride * sizeof(float);
+  return static_cast<size_t>(kBlockK) * (kGates * kBlockUnits + kAStride) *
+         sizeof(float);
 }
 
 // Dynamic shared memory of a CTA: the ring of stages, which the slices'
 // sums reuse after the last tile.
-template <int kGates, bool kBf16, int kAStride = kBlockRows>
+template <int kGates, int kAStride = kBlockRows>
 __host__ __device__ constexpr size_t GridSmem() {
-  const size_t ring = kStages * StageBytes<kGates, kBf16, kAStride>();
+  const size_t ring = kStages * StageBytes<kGates, kAStride>();
   const size_t sums = static_cast<size_t>(kSplit - 1) * 16 * kGates *
                       kSliceThreads * sizeof(float);
   return ring > sums ? ring : sums;
@@ -352,19 +394,19 @@ __device__ __forceinline__ void StageH(float *s_h, const float *h_cur,
             h_cur + (k0 + kk) * rows + r0 + piece * 4);
 }
 
-// One step t of the recurrence for the CTA's rows and units: h_cur (the
-// dot's operand at step t) in, h_next out.  kSeq: row 7 (x W over C
+// One float32 step t of the recurrence for the CTA's rows and units: h_cur
+// (the dot's operand at step t) in, h_next out.  kSeq: row 7 (x W over C
 // channels, seq and last out); else the fused rows (codes, avg and hidden
-// out).
-template <int kGates, bool kBf16, bool kSeq>
+// out).  The bf16 step is GridMmaKernel's.
+template <int kGates, bool kSeq>
 __global__ void __launch_bounds__(kThreads, 2)
     GridStepKernel(const GridArgs a, const int t,
                    const float *__restrict__ h_cur,
                    float *__restrict__ h_next) {
-  using TU = typename Io<kBf16>::Out;  // U's type, and the output's
+  using TU = float;  // U's type, and the output's
   constexpr size_t kUBytes =
       static_cast<size_t>(kBlockK) * kGates * kBlockUnits * sizeof(TU);
-  constexpr size_t kStage = StageBytes<kGates, kBf16>();
+  constexpr size_t kStage = StageBytes<kGates>();
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
@@ -494,12 +536,11 @@ __global__ void __launch_bounds__(kThreads, 2)
             x + (static_cast<size_t>(row) * steps + t) * a.channels;
         float xg[3] = {};
         for (int c = 0; c < a.channels; ++c) {
-          const float v = AsFloat(x_t[c]);
+          const float v = x_t[c];
           const TU *w = kernel + static_cast<size_t>(c) * 3 * units + un;
 #pragma unroll
           for (int g = 0; g < 3; ++g) {
-            xg[g] = fmaf(v, AsFloat(w[static_cast<size_t>(g) * units]),
-                         xg[g]);
+            xg[g] = fmaf(v, w[static_cast<size_t>(g) * units], xg[g]);
           }
         }
         const size_t at = static_cast<size_t>(un) * rows + row;
@@ -511,11 +552,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                                reset * (acc[r][2][n] + b_rec[2 * units]));
         h = z * h + (1.0f - z) * hh;
         a.carry[at] = h;
-        h_next[at] = Io<kBf16>::Operand(h);
+        h_next[at] = h;
         const size_t o = static_cast<size_t>(row) * units + un;
-        out[(static_cast<size_t>(row) * steps + t) * units + un] =
-            Io<kBf16>::Store(h);
-        if (t == steps - 1) last[o] = Io<kBf16>::Store(h);
+        out[(static_cast<size_t>(row) * steps + t) * units + un] = h;
+        if (t == steps - 1) last[o] = h;
       }
     } else {
       const float *kernel = static_cast<const float *>(a.kernel);
@@ -568,15 +608,389 @@ __global__ void __launch_bounds__(kThreads, 2)
             h = og * tanhf(c);
           }
           a.carry[at] = h;
-          h_next[at] = Io<kBf16>::Operand(h);
+          h_next[at] = h;
           mean += h;
         }
         mean *= 0.5f;
-        out[(static_cast<size_t>(w) * steps + t) * units + un] =
-            Io<kBf16>::Store(mean);
+        out[(static_cast<size_t>(w) * steps + t) * units + un] = mean;
         if (t == steps - 1) {
-          last[static_cast<size_t>(w) * units + un] = Io<kBf16>::Store(mean);
+          last[static_cast<size_t>(w) * units + un] = mean;
         }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ bf16: mma.sync
+//
+// The bf16 step (rows 1b, 2b, and row 7 with bf16 IO): the same product,
+// h (bf16) times U (bf16) summed in float32, on the tensor cores, and the
+// float32 epilogue of GridStepKernel.  See "The bf16 step" above.
+
+constexpr int kMmaRows = 128;       // rows a CTA: 8 m16 tiles
+constexpr int kMmaWarpRows = 32;    // rows a warp: 2 m16 tiles
+constexpr int kMmaWarpUnits = 16;   // units a warp: 2 n8 tiles a gate
+constexpr int kMmaK = 32;           // k a stage: 2 k16 steps
+constexpr int kMmaStages = 4;
+constexpr int kMmaPad = 8;          // bf16 after each row of a stage
+
+// Threads of a CTA of kUnits units: a warp for each 32 rows x 16 units.
+template <int kUnits>
+__host__ __device__ constexpr int MmaThreads() {
+  return 32 * (kMmaRows / kMmaWarpRows) * (kUnits / kMmaWarpUnits);
+}
+
+// Bytes of a stage: U's tile [g][kMmaK][kUnits + pad] and h's [kMmaRows]
+// [kMmaK + pad], bf16.  The pad of 16 bytes a row puts the 8 rows that an
+// ldmatrix reads in 8 distinct 16-byte bank groups.
+template <int kGates, int kUnits>
+__host__ __device__ constexpr size_t MmaStageBytes() {
+  return sizeof(__nv_bfloat16) *
+         (static_cast<size_t>(kGates) * kMmaK * (kUnits + kMmaPad) +
+          static_cast<size_t>(kMmaRows) * (kMmaK + kMmaPad));
+}
+
+// Rows of the epilogue's table of input rows and biases (see
+// GridMmaKernel): row 7 its two biases; the fused rows the five W rows and
+// the pad's, and for the GRU its recurrent bias.
+template <int kGates, bool kSeq>
+__host__ __device__ constexpr int MmaTableRows() {
+  return kSeq ? 2 : kGates == 3 ? 7 : 6;
+}
+
+// Dynamic shared memory of a CTA: the ring of stages, then the table.
+template <int kGates, bool kSeq, int kUnits>
+__host__ __device__ constexpr size_t MmaSmem() {
+  return kMmaStages * MmaStageBytes<kGates, kUnits>() +
+         sizeof(float) * MmaTableRows<kGates, kSeq>() * kGates * kUnits;
+}
+
+// The row of an mma row index in the h buffers and the carry: for the
+// fused rows an m16 tile holds 8 windows, their forward rows first (rows
+// 0-7) and their reverse-complement rows after (8-15), so the accumulator
+// gives a lane (rows l/4 and l/4 + 8) both branches of one window.
+__device__ __forceinline__ int MmaWindow(int row) {
+  return 8 * (row >> 4) + (row & 7);
+}
+
+// One bf16 step t for the CTA's kMmaRows rows and kUnits units: h_cur
+// [R'][W] bf16 (row-major, the dot's operand at step t) in, h_next out;
+// the carry [2][R'][W] float32 (h, the LSTM's c).  kSeq: row 7; else the
+// fused rows, row r holding branch (r / 8) % 2 of window MmaWindow(r).
+template <int kGates, bool kSeq, int kUnits>
+__global__ void __launch_bounds__(MmaThreads<kUnits>(),
+                                  512 / MmaThreads<kUnits>())
+    GridMmaKernel(const GridArgs a, const int t,
+                  const __nv_bfloat16 *__restrict__ h_cur,
+                  __nv_bfloat16 *__restrict__ h_next) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kThreadsN = MmaThreads<kUnits>();
+  constexpr int kUStride = kUnits + kMmaPad;  // bf16 a (gate, k) row
+  constexpr int kHStride = kMmaK + kMmaPad;   // bf16 a row of h
+  constexpr size_t kUElems = static_cast<size_t>(kGates) * kMmaK * kUStride;
+  constexpr size_t kStageElems = MmaStageBytes<kGates, kUnits>() /
+                                 sizeof(bf16);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16 *const ring = reinterpret_cast<bf16 *>(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * kMmaRows;
+  const int n0 = blockIdx.y * kUnits;
+  const size_t width = a.width;
+  const int rows = a.rows;
+  const int cta_rows = min(kMmaRows, rows - r0);  // a multiple of 32
+  const bf16 *__restrict__ u_mat = static_cast<const bf16 *>(a.recurrent);
+  const int n_tiles = a.width / kMmaK;
+  // The warp's 32 rows and 16 units (2 unit groups of 8, every gate);
+  // a warp whose rows are all past R' does no product.
+  const int wrow0 = (warp % (kMmaRows / kMmaWarpRows)) * kMmaWarpRows;
+  const int wunit0 = (warp / (kMmaRows / kMmaWarpRows)) * kMmaWarpUnits;
+  const bool active = wrow0 < cta_rows;
+
+  // The epilogue's table of the CTA's units, filled before the product
+  // (the pipeline's barriers order it before its reads), zero past u: for
+  // the fused rows the input rows s_x[code][g][unit] = bias + W[code]
+  // (code 5, the pad: the bias only) and the GRU's recurrent bias in row
+  // 6; for row 7 the input and recurrent biases in rows 0 and 1.
+  float *const s_x = reinterpret_cast<float *>(
+      smem + kMmaStages * MmaStageBytes<kGates, kUnits>());
+  for (int i = tid; i < MmaTableRows<kGates, kSeq>() * kGates * kUnits;
+       i += kThreadsN) {
+    const int row = i / (kGates * kUnits), rest = i % (kGates * kUnits);
+    const int g = rest / kUnits, un = n0 + rest % kUnits;
+    const size_t u = a.units;
+    float v = 0.0f;
+    if (un < a.units) {
+      if (kSeq || row == 6) {  // a bias row: [2, 3u]'s row 0 or 1
+        v = a.bias[(3 * (kSeq ? row : 1) + g) * u + un];
+      } else {
+        v = a.bias[g * u + un];
+        if (row < 5) {
+          v += static_cast<const float *>(
+              a.kernel)[(row * kGates + g) * u + un];
+        }
+      }
+    }
+    s_x[i] = v;
+  }
+
+  const auto load_tile = [&](int stage, int tile) {
+    bf16 *s_u = ring + stage * kStageElems;
+    bf16 *s_h = s_u + kUElems;
+    const size_t k0 = static_cast<size_t>(tile) * kMmaK;
+    constexpr int kRowCopies = kUnits / 8;  // 16 bytes a copy
+    constexpr int kUCopies = kMmaK * kGates * kRowCopies;
+#pragma unroll
+    for (int c = tid; c < kUCopies; c += kThreadsN) {
+      const int kk = c / (kGates * kRowCopies);
+      const int rest = c % (kGates * kRowCopies);
+      const int g = rest / kRowCopies, piece = rest % kRowCopies;
+      CpAsync16(s_u + (g * kMmaK + kk) * kUStride + piece * 8,
+                u_mat + ((k0 + kk) * kGates + g) * width + n0 + piece * 8);
+    }
+    constexpr int kHRowCopies = kMmaK / 8;
+    for (int c = tid; c < cta_rows * kHRowCopies; c += kThreadsN) {
+      const int r = c / kHRowCopies, piece = c % kHRowCopies;
+      CpAsync16(s_h + r * kHStride + piece * 8,
+                h_cur + static_cast<size_t>(r0 + r) * width + k0 +
+                    piece * 8);
+    }
+  };
+
+  // acc[m][q][j]: m16 tile m, gate q, unit group j (an n8 tile).
+  float acc[2][kGates][2][4] = {};
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    CpAsyncCommit();
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    CpAsyncWait<kMmaStages - 2>();
+    __syncthreads();  // the tile landed; every warp is done with tile-1
+    const int next = tile + kMmaStages - 1;
+    if (next < n_tiles) load_tile(next % kMmaStages, next);
+    CpAsyncCommit();
+    if (!active) continue;
+    const bf16 *s_u = ring + (tile % kMmaStages) * kStageElems;
+    const bf16 *s_h = s_u + kUElems;
+#pragma unroll
+    for (int k16 = 0; k16 < kMmaK / 16; ++k16) {
+      const int col = 16 * k16 + 8 * (lane >> 4);
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        LdMatrixX4(af[m], s_h + (wrow0 + 16 * m + (lane & 15)) * kHStride +
+                              col);
+      }
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        uint32_t bf[4];
+        LdMatrixX4Trans(bf, s_u + (q * kMmaK + 16 * k16 + (lane & 15)) *
+                                      kUStride +
+                                wunit0 + 8 * (lane >> 4));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            MmaBf16(acc[m][q][j], af[m], bf[2 * j], bf[2 * j + 1]);
+          }
+        }
+      }
+    }
+  }
+  CpAsyncWait<0>();
+  if (!active) return;
+
+  // The epilogue, in the registers the sums are in: lane l holds rows
+  // l/4 (fragments 0, 1) and l/4 + 8 (2, 3) of each m16 tile, units 2 (l %
+  // 4) and the next of each unit group, every gate.  For each m16 tile the
+  // loads come first (the carry, the codes, row 7's x W), then the gate
+  // math and the stores, so the loads of a tile wait on no store.
+  const int units = a.units, steps = a.steps, batch = a.batch;
+  const size_t plane = width * rows;
+  bf16 *out = static_cast<bf16 *>(a.out);
+  bf16 *last = static_cast<bf16 *>(a.last);
+  const bool pairs = (units & 1) == 0;  // bf16x2 output stores aligned
+  const int gq = lane >> 2, tq = lane & 3;
+  // Stores output row `row`'s units un0 and un0 + 1 (the second only if
+  // it exists) at step t, and at the last step into `last` too: bf16x2
+  // where aligned.
+  const auto store = [&](int row, int un0, const float (&v)[2]) {
+    const size_t o = (static_cast<size_t>(row) * steps + t) * units + un0;
+    const size_t o_last = static_cast<size_t>(row) * units + un0;
+    const bool both = un0 + 1 < units;
+    if (pairs && both) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162 *>(out + o) = pair;
+      if (t == steps - 1) {
+        *reinterpret_cast<__nv_bfloat162 *>(last + o_last) = pair;
+      }
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (e == 1 && !both) break;
+      out[o + e] = __float2bfloat16(v[e]);
+      if (t == steps - 1) last[o_last + e] = __float2bfloat16(v[e]);
+    }
+  };
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int mrow = r0 + wrow0 + 16 * m;  // the m16 tile's first row
+    // [half (row mrow + gq, or + 8)][unit group][unit]: the carried h
+    // (and the LSTM's c) of the lane's cells.
+    float h_st[2][2][2];
+    [[maybe_unused]] float c_st[2][2][2];
+    if constexpr (kSeq) {
+      const bf16 *x = static_cast<const bf16 *>(a.x);
+      const bf16 *kernel = static_cast<const bf16 *>(a.kernel);
+      float xg[2][2][2][3] = {};  // x_t W: [half][unit group][unit][gate]
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mrow + 8 * half + gq;
+        if (row >= batch) continue;
+        const bf16 *x_t =
+            x + (static_cast<size_t>(row) * steps + t) * a.channels;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int un0 = n0 + wunit0 + 8 * j + 2 * tq;
+          const float2 h2 = *reinterpret_cast<const float2 *>(
+              a.carry + static_cast<size_t>(row) * width + un0);
+          h_st[half][j][0] = h2.x;
+          h_st[half][j][1] = h2.y;
+          // x_t W in channel order.
+          for (int c = 0; c < a.channels; ++c) {
+            const float v = __bfloat162float(x_t[c]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (un0 + e >= units) break;
+              const bf16 *w =
+                  kernel + static_cast<size_t>(c) * 3 * units + un0 + e;
+#pragma unroll
+              for (int g = 0; g < 3; ++g) {
+                xg[half][j][e][g] = fmaf(
+                    v, __bfloat162float(w[static_cast<size_t>(g) * units]),
+                    xg[half][j][e][g]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mrow + 8 * half + gq;
+        if (row >= batch) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int ul0 = wunit0 + 8 * j + 2 * tq;  // the CTA's unit
+          const int un0 = n0 + ul0;
+          if (un0 >= units) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (un0 + e >= units) break;
+            // The Keras GRU (reset_after=True), biases from the table.
+            const float *b_in = s_x + ul0 + e;
+            const float *b_rec = s_x + 3 * kUnits + ul0 + e;
+            const int f = 2 * half + e;
+            const float z = Sigmoid((xg[half][j][e][0] + b_in[0]) +
+                                    (acc[m][0][j][f] + b_rec[0]));
+            const float reset =
+                Sigmoid((xg[half][j][e][1] + b_in[kUnits]) +
+                        (acc[m][1][j][f] + b_rec[kUnits]));
+            const float hh =
+                tanhf((xg[half][j][e][2] + b_in[2 * kUnits]) +
+                      reset * (acc[m][2][j][f] + b_rec[2 * kUnits]));
+            h_st[half][j][e] = z * h_st[half][j][e] + (1.0f - z) * hh;
+          }
+          const size_t at = static_cast<size_t>(row) * width + un0;
+          *reinterpret_cast<float2 *>(a.carry + at) =
+              make_float2(h_st[half][j][0], h_st[half][j][1]);
+          *reinterpret_cast<__nv_bfloat162 *>(h_next + at) =
+              __floats2bfloat162_rn(h_st[half][j][0], h_st[half][j][1]);
+          const float v[2] = {h_st[half][j][0], h_st[half][j][1]};
+          store(row, un0, v);
+        }
+      }
+    } else {
+      const int w = MmaWindow(mrow) + gq;
+      if (w >= batch) continue;
+      const size_t at_code = static_cast<size_t>(w) * steps;
+      const int code[2] = {a.codes[at_code + t],
+                           Complement(a.codes[at_code + steps - 1 - t])};
+#pragma unroll
+      for (int branch = 0; branch < 2; ++branch) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const size_t at =
+              static_cast<size_t>(mrow + 8 * branch + gq) * width + n0 +
+              wunit0 + 8 * j + 2 * tq;
+          const float2 h2 = *reinterpret_cast<const float2 *>(a.carry + at);
+          h_st[branch][j][0] = h2.x;
+          h_st[branch][j][1] = h2.y;
+          if constexpr (kGates == 4) {
+            const float2 c2 =
+                *reinterpret_cast<const float2 *>(a.carry + plane + at);
+            c_st[branch][j][0] = c2.x;
+            c_st[branch][j][1] = c2.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ul0 = wunit0 + 8 * j + 2 * tq;  // the CTA's unit
+        const int un0 = n0 + ul0;
+        if (un0 >= units) continue;
+        float mean[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int branch = 0; branch < 2; ++branch) {
+          // The input row: bias + W[code] (pad: the bias only).
+          const float *x_row =
+              s_x + (static_cast<unsigned>(code[branch]) < 5u ? code[branch]
+                                                              : 5) *
+                        kGates * kUnits + ul0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (un0 + e >= units) break;
+            const int f = 2 * branch + e;
+            float x[kGates];
+#pragma unroll
+            for (int g = 0; g < kGates; ++g) x[g] = x_row[g * kUnits + e];
+            float &h = h_st[branch][j][e];
+            if constexpr (kGates == 3) {
+              // Keras GRU, reset_after=True.
+              const float *b_rec = s_x + 6 * 3 * kUnits + ul0 + e;
+              const float z =
+                  Sigmoid(x[0] + (acc[m][0][j][f] + b_rec[0]));
+              const float rr =
+                  Sigmoid(x[1] + (acc[m][1][j][f] + b_rec[kUnits]));
+              const float hh = tanhf(
+                  x[2] + rr * (acc[m][2][j][f] + b_rec[2 * kUnits]));
+              h = z * h + (1.0f - z) * hh;
+            } else {
+              // LSTM, gates i, f, c, o.
+              float &c = c_st[branch][j][e];
+              const float ig = Sigmoid(x[0] + acc[m][0][j][f]);
+              const float fg = Sigmoid(x[1] + acc[m][1][j][f]);
+              const float gg = tanhf(x[2] + acc[m][2][j][f]);
+              const float og = Sigmoid(x[3] + acc[m][3][j][f]);
+              c = fg * c + ig * gg;
+              h = og * tanhf(c);
+            }
+            mean[e] += h;
+          }
+          const size_t at =
+              static_cast<size_t>(mrow + 8 * branch + gq) * width + un0;
+          *reinterpret_cast<float2 *>(a.carry + at) =
+              make_float2(h_st[branch][j][0], h_st[branch][j][1]);
+          if constexpr (kGates == 4) {
+            *reinterpret_cast<float2 *>(a.carry + plane + at) =
+                make_float2(c_st[branch][j][0], c_st[branch][j][1]);
+          }
+          *reinterpret_cast<__nv_bfloat162 *>(h_next + at) =
+              __floats2bfloat162_rn(h_st[branch][j][0], h_st[branch][j][1]);
+        }
+        const float v[2] = {mean[0] * 0.5f, mean[1] * 0.5f};
+        store(w, un0, v);
       }
     }
   }
@@ -944,12 +1358,14 @@ cudaError_t OptIn(Kernel fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The T launches of a step kernel (GridStepKernel, GridTrainFwdKernel) for
-// `rows` rows on `stream`, h_cur and h_next swapping each step; the first
-// error, else 0.
-template <typename Kernel, typename Args>
+// The T launches of a step kernel (GridStepKernel, GridMmaKernel,
+// GridTrainFwdKernel) for `rows` rows on `stream`, CTAs of `threads`
+// threads owning `rows_a_cta` rows and `units_a_cta` units, h_cur and
+// h_next (of TH) swapping each step; the first error, else 0.
+template <typename TH, typename Kernel, typename Args>
 int RunSteps(Kernel fn, size_t smem, Args a, long long rows, void *h0,
-             void *h1, void *stream) {
+             void *h1, void *stream, int rows_a_cta = kBlockRows,
+             int units_a_cta = kBlockUnits, int threads = kThreads) {
   long long shape[4];
   if (a.batch < 1 || a.steps < 1 || !Shape(rows, a.units, shape)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -958,27 +1374,63 @@ int RunSteps(Kernel fn, size_t smem, Args a, long long rows, void *h0,
   a.rows = static_cast<int>(shape[1]);
   cudaError_t err = OptIn(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(shape[2]),
-                  static_cast<unsigned>(shape[3]));
+  const dim3 grid(static_cast<unsigned>(RoundUp(shape[1], rows_a_cta) /
+                                        rows_a_cta),
+                  static_cast<unsigned>(shape[0] / units_a_cta));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *h[2] = {static_cast<float *>(h0), static_cast<float *>(h1)};
+  TH *h[2] = {static_cast<TH *>(h0), static_cast<TH *>(h1)};
   for (int t = 0; t < a.steps; ++t) {
-    fn<<<grid, kThreads, smem, s>>>(a, t, h[t & 1], h[(t + 1) & 1]);
+    fn<<<grid, threads, smem, s>>>(a, t, h[t & 1], h[(t + 1) & 1]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-template <int kGates, bool kBf16, bool kSeq>
-int RunGrid(GridArgs a, long long rows, void *h0, void *h1, void *stream) {
-  return RunSteps(GridStepKernel<kGates, kBf16, kSeq>,
-                  GridSmem<kGates, kBf16>(), a, rows, h0, h1, stream);
+// Units a CTA of the bf16 step for `rows` rows at this width on the
+// current card: 32, unless its grid would have fewer CTAs than the card
+// has SMs, then 16 (twice the CTAs, each reading all of h); 0 if the
+// shape is refused or the card cannot be asked.
+int MmaUnits(long long rows, long long units) {
+  long long shape[4];
+  int device = 0, sms = 0;
+  if (!Shape(rows, units, shape) || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  const long long ctas = RoundUp(shape[1], kMmaRows) / kMmaRows *
+                         (shape[0] / 32);
+  return ctas >= sms ? 32 : 16;
+}
+
+template <int kGates, bool kSeq, int kUnits>
+int RunMma(GridArgs a, long long rows, void *h0, void *h1, void *stream) {
+  return RunSteps<__nv_bfloat16>(
+      GridMmaKernel<kGates, kSeq, kUnits>, MmaSmem<kGates, kSeq, kUnits>(),
+      a, rows, h0, h1, stream,
+      kMmaRows, kUnits, MmaThreads<kUnits>());
+}
+
+// The T launches of a step for `rows` rows: the float32 FMA step, or in
+// bf16 the tensor-core step at MmaUnits' unit block.
+template <int kGates, bool kSeq>
+int RunGrid(bool bf16, GridArgs a, long long rows, void *h0, void *h1,
+            void *stream) {
+  if (!bf16) {
+    return RunSteps<float>(GridStepKernel<kGates, kSeq>, GridSmem<kGates>(),
+                           a, rows, h0, h1, stream);
+  }
+  switch (MmaUnits(rows, a.units)) {
+    case 16: return RunMma<kGates, kSeq, 16>(a, rows, h0, h1, stream);
+    case 32: return RunMma<kGates, kSeq, 32>(a, rows, h0, h1, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kGates>
 int RunTrainFwd(TrainArgs a, void *h0, void *h1, void *stream) {
-  return RunSteps(GridTrainFwdKernel<kGates>, GridSmem<kGates, false>(), a,
+  return RunSteps<float>(GridTrainFwdKernel<kGates>, GridSmem<kGates>(), a,
                   2LL * a.batch, h0, h1, stream);
 }
 
@@ -996,7 +1448,7 @@ int RunTrainBwd(TrainArgs a, void *stream) {
   a.rows = static_cast<int>(shape[1]);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto recompute = GridRecomputeKernel<kGates>;
-  constexpr size_t smem_a = GridSmem<kGates, false, kGatherStride>();
+  constexpr size_t smem_a = GridSmem<kGates, kGatherStride>();
   cudaError_t err = OptIn(recompute, smem_a);
   if (err != cudaSuccess) return static_cast<int>(err);
   recompute<<<dim3(static_cast<unsigned>((n_rows + kBlockRows - 1) /
@@ -1006,7 +1458,7 @@ int RunTrainBwd(TrainArgs a, void *stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto step = GridBwdStepKernel<kGates>;
-  constexpr size_t smem_b = GridSmem<1, false, kGatherStride>();
+  constexpr size_t smem_b = GridSmem<1, kGatherStride>();
   err = OptIn(step, smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(shape[2]),
@@ -1042,10 +1494,10 @@ extern "C" {
 // The fused rows past the cluster tiles (1, 2; bf16 != 0: 1b, 2b): codes
 // int8 [B, T]; kernel float [5, g u]; bias float (GRU [2, 3u], LSTM [4u]);
 // recurrent the zero-padded U [W][g][W] (float32, or bfloat16 for bf16);
-// h0, h1 float [W][R'] and carry float [2][W][R'], zeroed (R' for 2B
-// rows: dg_grid_shape); avg [B, T, u] and hidden [B, u] (float32 or
-// bfloat16).  T launches on `stream`; returns the first launch's error (0 =
-// launched).
+// h0, h1 [W][R'] float (bf16: [R'][W] bfloat16) and carry float [2][W][R']
+// (bf16: [2][R'][W]), zeroed (R' for 2B rows: dg_grid_shape); avg [B, T,
+// u] and hidden [B, u] (float32 or bfloat16).  T launches on `stream`;
+// returns the first launch's error (0 = launched).
 int dg_avg_grid(int gates, int bf16, const void *codes, int batch,
                 int steps, const void *kernel, const void *bias,
                 const void *recurrent, int units, void *h0, void *h1,
@@ -1062,14 +1514,8 @@ int dg_avg_grid(int gates, int bf16, const void *codes, int batch,
   a.steps = steps;
   a.units = units;
   const long long rows = 2LL * batch;
-  if (gates == 3) {
-    return bf16 ? RunGrid<3, true, false>(a, rows, h0, h1, stream)
-                : RunGrid<3, false, false>(a, rows, h0, h1, stream);
-  }
-  if (gates == 4) {
-    return bf16 ? RunGrid<4, true, false>(a, rows, h0, h1, stream)
-                : RunGrid<4, false, false>(a, rows, h0, h1, stream);
-  }
+  if (gates == 3) return RunGrid<3, false>(bf16, a, rows, h0, h1, stream);
+  if (gates == 4) return RunGrid<4, false>(bf16, a, rows, h0, h1, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1094,8 +1540,7 @@ int dg_seq_grid(int bf16, const void *x, int batch, int steps, int channels,
   a.steps = steps;
   a.channels = channels;
   a.units = units;
-  return bf16 ? RunGrid<3, true, true>(a, batch, h0, h1, stream)
-              : RunGrid<3, false, true>(a, batch, h0, h1, stream);
+  return RunGrid<3, true>(bf16, a, batch, h0, h1, stream);
 }
 
 // Rows 3 and 5 past the cluster tiles: dg_gru_train_fwd's and
@@ -1182,17 +1627,31 @@ int dg_grid_shape(int rows, int units, long long *out) {
   return Shape(rows, units, out) ? 1 : 0;
 }
 
-// out: rows a CTA, units a CTA, k a stage, k-slices, threads a CTA,
-// stages, rows a thread, units a thread.
-void dg_grid_layout(int *out) {
-  out[0] = kBlockRows;
-  out[1] = kBlockUnits;
-  out[2] = kBlockK;
-  out[3] = kSplit;
-  out[4] = kThreads;
-  out[5] = kStages;
-  out[6] = kThreadRows;
-  out[7] = kThreadUnits;
+// The step's layout for `rows` rows at this width, float32 (bf16 == 0) or
+// bf16: out rows a CTA, units a CTA, k a stage, k-slices, threads a CTA,
+// stages, then rows and units a thread (float32: FMAs) or a warp (bf16:
+// mma.sync); returns 0 if the shape is refused (out untouched).
+int dg_grid_layout(int bf16, int rows, int units, int *out) {
+  long long shape[4];
+  if (!Shape(rows, units, shape)) return 0;
+  if (!bf16) {
+    const int layout[8] = {kBlockRows, kBlockUnits, kBlockK,     kSplit,
+                           kThreads,   kStages,     kThreadRows, kThreadUnits};
+    for (int i = 0; i < 8; ++i) out[i] = layout[i];
+    return 1;
+  }
+  const int mma_units = MmaUnits(rows, units);
+  if (mma_units == 0) return 0;
+  const int layout[8] = {kMmaRows,
+                         mma_units,
+                         kMmaK,
+                         1,
+                         mma_units == 32 ? MmaThreads<32>() : MmaThreads<16>(),
+                         kMmaStages,
+                         kMmaWarpRows,
+                         kMmaWarpUnits};
+  for (int i = 0; i < 8; ++i) out[i] = layout[i];
+  return 1;
 }
 
 const char *dg_error_string(int code) {

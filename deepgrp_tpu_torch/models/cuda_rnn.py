@@ -5,17 +5,19 @@ Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 (``pallas_gru_avg``, ``pallas_lstm_avg``), with the same contract:
 ``codes [B, T]`` in, ``(avg [B, T, u], hidden_avg [B, u])`` out in
 ``out_dtype`` (float32, or bfloat16 for the fast mode, whose kernels run
-the recurrent dot on the tensor cores up to u=2048), at every width: one
-CTA a window up to u=128, past it a window's units split over a
+the recurrent dot on the tensor cores at every width), at every width:
+one CTA a window up to u=128, past it a window's units split over a
 thread-block cluster of CTAs up to :data:`CLUSTER_MAX_UNITS` (u=1024; in
-bfloat16 :data:`BF16_CLUSTER_MAX_UNITS`, u=2048), and past it the grid
+bfloat16 :data:`BF16_CLUSTER_MAX_UNITS`, u=1279), and past it the grid
 tile (``csrc/rnn_grid.cu``: one tiled product of every row's ``h`` with
-``U`` a step, the gate math in its epilogue).  :func:`avg_layout` names
+``U`` a step, FMAs in float32 and ``mma.sync`` in bfloat16, the gate
+math in its epilogue).  :func:`avg_layout` names
 the tile, the CTAs a cluster and where ``U`` sits; only u <= 0 is
 refused.  :func:`gru_apply` is the counterpart of ``pallas_gru_apply``:
 the GRU over a float input ``x [B, T, C]``, ``(seq, last)`` out in
 ``x``'s dtype, at every width (the grid tile past
-:data:`CLUSTER_MAX_UNITS` in either dtype).
+:data:`CLUSTER_MAX_UNITS`, with bfloat16 IO past
+:data:`SEQ_BF16_CLUSTER_MAX_UNITS`).
 
 Training: :class:`GruAvgTrain` and :class:`LstmAvgTrain`, the
 ``torch.autograd.Function`` counterparts of the custom VJPs
@@ -196,7 +198,7 @@ def block_windows(batch: int, sms: int, most: int) -> int:
 
 
 #: The widest layer the float32 fused rows (1, 2) and the GRU sequence
-#: kernel (row 7, either dtype) run on their cluster tiles
+#: kernel (row 7, float32 IO) run on their cluster tiles
 #: (``csrc/rnn_avg.cu``, ``csrc/rnn_seq.cu``: a window's units over 16
 #: CTAs of 64 units, one unit a lane); past it the grid tile
 #: (``csrc/rnn_grid.cu``).  From ``tools/avg_tile_sweep.py --grid`` on an
@@ -209,12 +211,24 @@ def block_windows(batch: int, sms: int, most: int) -> int:
 CLUSTER_MAX_UNITS = 1024
 #: The widest layer the bfloat16 fused rows (1b, 2b) run on their cluster
 #: tile (``MmaAvgKernel``, past u=1024 ``MmaWideKernel`` of
-#: ``csrc/rnn_avg.cu``: ``mma.sync`` with bf16 operands); past it the grid
-#: tile.  The same sweep: at u=2048, B=37, T=150 1b / 2b 13.755 / 19.842
-#: on the cluster tile against 15.458 / 20.643 on the grid (1.12x /
-#: 1.04x); from u=2049 (then 2304, 2560, 2800, 3000, 4096) every batch
-#: runs the grid within 0.99x (the worst: B=37, T=150 at u=3000).
-BF16_CLUSTER_MAX_UNITS = 2048
+#: ``csrc/rnn_avg.cu``); past it the grid tile's bf16 step (``mma.sync``
+#: too).  From ``tools/avg_tile_sweep.py --grid`` on an NVIDIA H100 80GB
+#: HBM3 at 700 W (ms cluster / grid): at u=1024 and 1025 the LSTM at
+#: B=16, T=342 runs the grid 1.044x / 1.062x (8.751 / 9.134, 8.786 /
+#: 9.329), the GRU within 0.999x at every batch; from u=1280 (then 1536,
+#: 2048) every batch (B=16, 64, 256 at T=342; B=37, T=150; B=5, T=23)
+#: runs the grid within 0.824x (the worst: GRU B=16, u=1280, 10.003 /
+#: 8.243).
+BF16_CLUSTER_MAX_UNITS = 1279
+#: The widest layer the GRU sequence kernel (row 7) runs on its cluster
+#: tile with bfloat16 IO (``SeqKernel<..., kBf16>`` of
+#: ``csrc/rnn_seq.cu``); past it the grid tile's bf16 step.  The same
+#: sweep (16, 64, 2048 rows at T=342, ms cluster / grid): u=257 1.470 /
+#: 4.118 at 16 rows, u=512 1.483 / 5.010 at 16 rows and 4.649 / 6.631 at
+#: 64; from u=768 (then 1024) every row count runs the grid within 0.927x
+#: (16 rows at u=768, 6.684 / 6.193).  Float32 IO keeps
+#: :data:`CLUSTER_MAX_UNITS`.
+SEQ_BF16_CLUSTER_MAX_UNITS = 767
 #: The widest layer the training kernels (rows 3-6) run on their cluster
 #: tile (``csrc/rnn_train.cu``, one unit a lane); from u=1024 the grid
 #: tile.  ``tools/train_tile_sweep.py --grid`` (ms forward / backward,
@@ -234,6 +248,9 @@ GRID_U_IN = "L2"
 #: The grid tile's rows and units a CTA (``kBlockRows``, ``kBlockUnits``
 #: of ``csrc/rnn_grid.cu``; the fused rows' 32 rows are 16 windows).
 GRID_ROWS = GRID_UNITS = 32
+#: The rows a CTA of the grid tile's bf16 step (``kMmaRows``: 8 m16 tiles,
+#: the fused rows' 64 windows); its units a CTA are :func:`grid_mma_units`.
+GRID_MMA_ROWS = 128
 
 
 def _check_width(units: int) -> None:
@@ -247,23 +264,47 @@ def _grid_route(units: int, row: str = "seq",
     """Whether a recurrence runs the grid tile at this width: the fused
     inference rows (``row="avg"``) past :data:`CLUSTER_MAX_UNITS`, or in
     bfloat16 past :data:`BF16_CLUSTER_MAX_UNITS`; the GRU sequence kernel
-    (``"seq"``, either dtype) past :data:`CLUSTER_MAX_UNITS`; the
-    training kernels (``"train"``) past :data:`TRAIN_CLUSTER_MAX_UNITS`.
-    Every layout helper and launch asks this."""
+    (``"seq"``) past :data:`CLUSTER_MAX_UNITS`, or with bfloat16 IO past
+    :data:`SEQ_BF16_CLUSTER_MAX_UNITS`; the training kernels
+    (``"train"``) past :data:`TRAIN_CLUSTER_MAX_UNITS`.  Every layout
+    helper and launch asks this."""
     if row == "train":
         return units > TRAIN_CLUSTER_MAX_UNITS
-    if row == "avg" and rnn.dtype_suffix(out_dtype):
-        return units > BF16_CLUSTER_MAX_UNITS
+    if rnn.dtype_suffix(out_dtype):
+        return units > (BF16_CLUSTER_MAX_UNITS if row == "avg"
+                        else SEQ_BF16_CLUSTER_MAX_UNITS)
     return units > CLUSTER_MAX_UNITS
 
 
-def grid_tile(rows: int, units: int) -> Tuple[int, int]:
+def grid_mma_units(rows: int, units: int, sms: int) -> int:
+    """Units a CTA of the grid tile's bf16 step for ``rows`` rows at this
+    width on ``sms`` SMs (pure Python, ``MmaUnits`` of
+    ``csrc/rnn_grid.cu``): 32, unless that grid would have fewer CTAs
+    than the SMs, then 16."""
+    ctas = -(-rows // GRID_MMA_ROWS) * -(-units // GRID_UNITS)
+    return 32 if ctas >= sms else 16
+
+
+def grid_tile(rows: int, units: int,
+              out_dtype: torch.dtype = torch.float32,
+              sms: Optional[int] = None) -> Tuple[int, int]:
     """``(rows a CTA, CTAs a step)`` of the grid tile for ``rows`` rows
     (the fused rows' doubled batch, or the GRU sequence kernel's rows) at
-    this width (pure Python): a CTA owns :data:`GRID_ROWS` rows and
-    :data:`GRID_UNITS` units with all their gates, the grid covers every
-    row and unit.  Raises ``ValueError`` for u <= 0."""
+    this width (pure Python): in float32 a CTA owns :data:`GRID_ROWS`
+    rows and :data:`GRID_UNITS` units with all their gates; in bfloat16
+    (the tensor-core step) :data:`GRID_MMA_ROWS` rows and
+    :func:`grid_mma_units` units on ``sms`` SMs (by default the current
+    CUDA device's); the grid covers every row and unit.  Raises
+    ``ValueError`` for u <= 0."""
     _check_width(units)
+    if out_dtype == torch.bfloat16:
+        if sms is None:
+            sms = torch.cuda.get_device_properties(
+                torch.cuda.current_device()).multi_processor_count
+        width = -(-units // GRID_UNITS) * GRID_UNITS
+        return (min(GRID_MMA_ROWS, max(rows, 1)),
+                -(-rows // GRID_MMA_ROWS)
+                * (width // grid_mma_units(rows, units, sms)))
     return (min(GRID_ROWS, max(rows, 1)),
             -(-rows // GRID_ROWS) * -(-units // GRID_UNITS))
 
@@ -274,8 +315,9 @@ def _grid_buffers(lib: ctypes.CDLL, rows: int, units: int, gates: int,
     """The grid tile's operands beside the parameters, zeroed, on
     ``recurrent``'s device: ``U`` padded to ``[W, gates, W]`` in ``dtype``
     (bfloat16: rounded to nearest even, the dot's operand), the two h
-    buffers ``[2, W, R']`` and the carry ``[2, W, R']`` (W and R' from the
-    library's ``dg_grid_shape``)."""
+    buffers in ``dtype`` and the float32 carry (float32 ``[2, W, R']``
+    each, k-major; bfloat16 ``[2, R', W]``, row-major, as the tensor-core
+    step's A operand; W and R' from the library's ``dg_grid_shape``)."""
     shape = (ctypes.c_longlong * 4)()
     if not lib.dg_grid_shape(rows, units, shape):
         raise ValueError(f"the grid tile refuses {rows} rows at u={units}")
@@ -283,8 +325,10 @@ def _grid_buffers(lib: ctypes.CDLL, rows: int, units: int, gates: int,
     device = recurrent.device
     padded = torch.zeros(width, gates, width, dtype=dtype, device=device)
     padded[:units, :, :units] = recurrent.view(units, gates, units)
-    h = torch.zeros(2, width, rows_p, device=device)
-    carry = torch.zeros(2, width, rows_p, device=device)
+    dims = ((2, rows_p, width) if dtype == torch.bfloat16
+            else (2, width, rows_p))
+    h = torch.zeros(*dims, dtype=dtype, device=device)
+    carry = torch.zeros(*dims, device=device)
     return padded, h, carry
 
 
@@ -300,12 +344,16 @@ def _grid_transposed(recurrent: torch.Tensor, gates: int,
     return padded
 
 
-def _grid_layout() -> list:
-    """The grid tile's layout from the library: rows a CTA, units a CTA,
-    k a stage, k-slices, threads a CTA, stages, rows a thread, units a
-    thread."""
+def _grid_layout(out_dtype: torch.dtype = torch.float32, rows: int = 1,
+                 units: int = GRID_UNITS) -> list:
+    """The grid tile's layout from the library for ``rows`` rows at this
+    width in ``out_dtype`` on the current device: rows a CTA, units a
+    CTA, k a stage, k-slices, threads a CTA, stages, then rows and units
+    a thread (float32) or a warp (bfloat16, the tensor-core step)."""
     out = (ctypes.c_int * 8)()
-    _build.load_kernels("rnn_grid").dg_grid_layout(out)
+    if not _build.load_kernels("rnn_grid").dg_grid_layout(
+            int(out_dtype == torch.bfloat16), rows, units, out):
+        raise ValueError(f"the grid tile refuses {rows} rows at u={units}")
     return list(out)
 
 
@@ -353,7 +401,7 @@ def _library_layout(cell: str, units: int,
     library, which asks the current device (on the grid route the grid
     tile's library); ``ValueError`` for a width it refuses."""
     if _grid_route(units, "avg", out_dtype):
-        return _grid_layout()[0] // 2, 1, GRID_U_IN
+        return _grid_layout(out_dtype, 2, units)[0] // 2, 1, GRID_U_IN
     gates = 4 if cell == "lstm" else 3
     out = (ctypes.c_int * 2)()
     most = _build.load_kernels("rnn_avg").dg_avg_layout(
@@ -377,10 +425,12 @@ def avg_tile(cell: str, batch: int, units: int,
     grid route the grid tile's windows a CTA and CTAs a step
     (:func:`grid_tile`).  Raises ``ValueError`` for a width the kernels
     refuse."""
-    if _grid_route(units, "avg", out_dtype):
-        rows_a_cta, ctas = grid_tile(2 * batch, units)
-        return max(rows_a_cta // 2, 1), ctas
     device = device or torch.device("cuda")
+    if _grid_route(units, "avg", out_dtype):
+        rows_a_cta, ctas = grid_tile(
+            2 * batch, units, out_dtype,
+            torch.cuda.get_device_properties(device).multi_processor_count)
+        return max(rows_a_cta // 2, 1), ctas
     gates = 4 if cell == "lstm" else 3
     cap, cluster, _ = _library_layout(cell, units, out_dtype)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -413,8 +463,8 @@ def avg_bf16_tile(cell: str, units: int) -> str:
     width: ``"mma"`` (the tensor-core tile, ``mma.sync`` with bf16
     operands, one CTA a window, up to u=128), ``"cluster"`` (the same
     step with a window's units split over a cluster of CTAs, up to
-    :data:`BF16_CLUSTER_MAX_UNITS`) or past it ``"grid"`` (the grid tile:
-    FMAs on bf16-rounded operands); raises ``ValueError`` for a width they
+    :data:`BF16_CLUSTER_MAX_UNITS`) or past it ``"grid"`` (the grid tile's
+    bf16 step, ``mma.sync`` too); raises ``ValueError`` for a width they
     refuse."""
     if _grid_route(units, "avg", torch.bfloat16):
         return "grid"
@@ -431,44 +481,47 @@ def avg_bf16_cluster(cell: str, units: int) -> int:
     return avg_cluster(cell, units, torch.bfloat16)
 
 
-def seq_cluster(units: int) -> int:
-    """CTAs a cluster of the GRU sequence kernel at this width: 1 up to
-    u=128, 8 up to u=256, 16 up to :data:`CLUSTER_MAX_UNITS`
-    (``SeqCluster`` in ``csrc/rnn_seq.cu``), 1 on the grid tile past
-    it."""
-    if _grid_route(units):
+def seq_cluster(units: int, dtype: torch.dtype = torch.float32) -> int:
+    """CTAs a cluster of the GRU sequence kernel at this width with
+    ``dtype`` IO: 1 up to u=128, 8 up to u=256, 16 up to
+    :data:`CLUSTER_MAX_UNITS` (``SeqCluster`` in ``csrc/rnn_seq.cu``), 1
+    on the grid tile past it (with bfloat16 IO past
+    :data:`SEQ_BF16_CLUSTER_MAX_UNITS`)."""
+    if _grid_route(units, "seq", dtype):
         return 1
     return 1 if units <= 128 else 8 if units <= 256 else 16
 
 
-def seq_max_rows(units: int) -> int:
+def seq_max_rows(units: int, dtype: torch.dtype = torch.float32) -> int:
     """The most rows a CTA of the GRU sequence kernel owns at this width:
     16, but 4 from u=257 to 512, where each CTA keeps its slice of U in
     shared memory (``MaxRows`` in ``csrc/rnn_seq.cu``); the grid tile's
-    :data:`GRID_ROWS` past :data:`CLUSTER_MAX_UNITS`."""
-    if _grid_route(units):
-        return GRID_ROWS
+    :data:`GRID_ROWS` past :data:`CLUSTER_MAX_UNITS` (with bfloat16 IO
+    :data:`GRID_MMA_ROWS` past :data:`SEQ_BF16_CLUSTER_MAX_UNITS`)."""
+    if _grid_route(units, "seq", dtype):
+        return GRID_MMA_ROWS if dtype == torch.bfloat16 else GRID_ROWS
     return 4 if 256 < units <= 512 else 16
 
 
 def seq_tile(rows: int, units: int, sms: int,
-             slots: Optional[int] = None) -> Tuple[int, int]:
+             slots: Optional[int] = None,
+             dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """``(rows a CTA, CTAs)`` of the GRU sequence kernel for ``rows`` rows
     on ``sms`` SMs: :func:`block_windows` with the kernel's cap at this
     width (:func:`seq_max_rows`) over ``slots``, the CTAs (past u=128 the
     clusters of :func:`seq_cluster` CTAs, each of which holds its
     cluster's rows) that run at once: by default ``sms`` over the CTAs a
     cluster; the card's own count where it places fewer clusters (the
-    library's ``dg_gru_seq_clusters``).  Past :data:`CLUSTER_MAX_UNITS`
-    the grid tile's (:func:`grid_tile`).  Raises ``ValueError`` for u <=
-    0."""
+    library's ``dg_gru_seq_clusters``).  On the grid route (see
+    :func:`seq_cluster`) the grid tile's in ``dtype`` (:func:`grid_tile`).
+    Raises ``ValueError`` for u <= 0."""
     _check_width(units)
-    if _grid_route(units):
-        return grid_tile(rows, units)
-    cluster = seq_cluster(units)
+    if _grid_route(units, "seq", dtype):
+        return grid_tile(rows, units, dtype, sms)
+    cluster = seq_cluster(units, dtype)
     if slots is None:
         slots = sms // cluster
-    rows_a_cta = block_windows(rows, slots, seq_max_rows(units))
+    rows_a_cta = block_windows(rows, slots, seq_max_rows(units, dtype))
     return rows_a_cta, -(-rows // rows_a_cta) * cluster
 
 
@@ -479,10 +532,10 @@ def seq_slots(units: int, steps: int, channels: int,
     (a 16-CTA cluster needs 16 free SMs of one GPC, so fewer than the SMs
     over 16 may fit); ``None`` without a cluster, or when the card cannot
     place one (the launch then raises)."""
-    if seq_cluster(units) == 1:
+    if seq_cluster(units, dtype) == 1:
         return None
     lib = _build.load_kernels("rnn_seq")
-    slots = lib.dg_gru_seq_clusters(units, seq_max_rows(units), steps,
+    slots = lib.dg_gru_seq_clusters(units, seq_max_rows(units, dtype), steps,
                                     channels, int(dtype == torch.bfloat16))
     return slots or None
 
@@ -491,16 +544,19 @@ def seq_slots(units: int, steps: int, channels: int,
 SEQ_U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 
 
-def seq_layout(units: int, rows_a_cta: int) -> Dict[str, object]:
+def seq_layout(units: int, rows_a_cta: int,
+               dtype: torch.dtype = torch.float32) -> Dict[str, object]:
     """The layout the GRU sequence kernel launches at this width and tile:
     rows a lane group, k-slices a unit, where ``U`` sits ("registers",
     "L1/L2" or "shared": each CTA's slice in shared memory) and the CTAs
-    a cluster (1: one CTA a row); past :data:`CLUSTER_MAX_UNITS` the grid
-    tile's: rows a thread, its k-slices, ``U`` in ``"L2"``, no cluster,
-    and its units a thread.  Raises ``ValueError`` for a shape the kernel
-    refuses."""
-    if _grid_route(units) and 0 < rows_a_cta <= GRID_ROWS:
-        layout = _grid_layout()
+    a cluster (1: one CTA a row); on the grid route (see
+    :func:`seq_cluster`) the grid tile's in ``dtype``: rows a thread
+    (bfloat16: a warp), its k-slices, ``U`` in ``"L2"``, no cluster, and
+    its units a thread (a warp).  Raises ``ValueError`` for a shape the
+    kernel refuses."""
+    most = GRID_MMA_ROWS if dtype == torch.bfloat16 else GRID_ROWS
+    if _grid_route(units, "seq", dtype) and 0 < rows_a_cta <= most:
+        layout = _grid_layout(dtype, rows_a_cta, units)
         return {"rows_a_group": layout[6], "slices": layout[3],
                 "u_in": GRID_U_IN, "cluster": 1,
                 "units_a_thread": layout[7]}
@@ -526,7 +582,8 @@ def gru_apply(params: RnnParams, x: torch.Tensor, *,
     dtype, ``bias`` to float32, as ``pallas_rnn.py:121-122``); ``x``
     float32 or bfloat16.  Returns ``(seq [B, T, u], last [B, u])`` in
     ``x``'s dtype.  Dropout raises ``ValueError``, as ``:135-138``.  Past
-    :data:`CLUSTER_MAX_UNITS` a CUDA tensor runs the grid tile.
+    :data:`CLUSTER_MAX_UNITS` (bfloat16: :data:`SEQ_BF16_CLUSTER_MAX_UNITS`)
+    a CUDA tensor runs the grid tile.
     """
     if dropout_key is not None and (
             not isinstance(dropout_rate, (int, float)) or dropout_rate > 0.0):
@@ -572,7 +629,7 @@ def _launch_seq(params: RnnParams, x: torch.Tensor, grid: bool = False
     if batch == 0:
         return seq, last
     bf16 = int(x.dtype == torch.bfloat16)
-    if grid or _grid_route(units):
+    if grid or _grid_route(units, "seq", x.dtype):
         lib = _build.load_kernels("rnn_grid")
         with torch.cuda.device(x.device):
             recurrent, h, carry = _grid_buffers(

@@ -36,15 +36,18 @@ u=96 and u=128 (past the register tile's registers), and past u=128 on
 the float32 cluster tile (a window's units over 8 CTAs up to u=256, 16
 beyond, ragged at u=129, 200, 300 and 520) up to its ceiling u=1024; a
 window's bits there are the same alone and inside a batch, and on a
-second launch.  Past it (in bf16 past u=2048) every inference row (both
-cells, both dtypes, and the scan route's GRU past u=1024) runs the grid
-tile (``csrc/rnn_grid.cu``: one tiled product a step): held against the
+second launch.  Past it (in bf16 past u=1279; the scan route's GRU past
+u=1024, with bf16 IO past u=767) every inference row runs the grid tile
+(``csrc/rnn_grid.cu``: one tiled product a step, ``mma.sync`` in bf16;
+either side of each bf16 route; the float32 rows' bits those of the step
+before the bf16 step's redesign, from stored digests): held against the
 plain versions at u=1025, 2048, 3000 and 4096 (ragged at u=1025 and 3000)
 and at u=4097, 5000 and 8192 (one window, a ragged batch, T <= 32), at
 GRU u=26,800 and LSTM u=23,200 (g u^2 past 2^31 elements), with a
 window's bits alone, in a batch and repeated, and under a CUDA graph's
 capture.  ``cuda_rnn.avg_layout``'s tile agrees with the library's
-layout at every width up to 2048 and past it.
+layout at every width up to 1279 and past it, and the bf16 step's layout
+with ``cuda_rnn.grid_tile``.
 The GRU sequence kernel (``gru_seq``) is held against its plain version
 (``rnn.gru_apply``) on uniform random input at the scan route's shape
 (2048 rows, T=342, u=60), at the CLI's default 512 rows, at u=64 and u=65
@@ -56,8 +59,9 @@ equal to the first (on the cluster and grid tiles too).  The bf16
 variants of the fused kernels are held against their plain versions, up
 to u=128 on their tensor-core tile (``mma.sync``), beyond on its cluster
 tile (a window's units split over a cluster of 2 to 16 CTAs, up to
-u=2048: past u=1024 one m-tile, a warp owning one unit group) and past
-it on the grid tile, which ``cuda_rnn.avg_bf16_tile`` names; a window's
+u=1279: past u=1024 one m-tile, a warp owning one unit group) and past
+it on the grid tile's bf16 step (``mma.sync`` too), which
+``cuda_rnn.avg_bf16_tile`` names; a window's
 bf16 bits are the same alone and inside a batch of 1024 (and of 256 at
 two places, on the cluster tile). Tolerance in bfloat16: atol 2e-2
 (the plain version rounds h and U as the kernel does, but the tensor
@@ -108,6 +112,7 @@ validation and every evaluation chunk, and no plain version runs.
 
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import socket
@@ -137,7 +142,7 @@ pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
 # Past u=1024, where the tiles of several units a lane once ran (the grid
-# tile now; in bf16 the cluster tile up to u=2048): (batch, steps, units),
+# tile now; in bf16 the cluster tile up to u=1279): (batch, steps, units),
 # ragged at u=1025 and 3000, and u=2048 and 4096 at T=342.
 WIDE_SHAPES = ((37, 150, 1025), (64, 342, 2048), (5, 23, 3000),
                (16, 342, 4096))
@@ -506,13 +511,14 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
     # Past u=256 the wave counts the card's own count of clusters at once
     # (16 CTAs need 16 free SMs of one GPC; small ones share an SM): the
     # fewest windows that fill one wave, at most the layout's cap; on the
-    # grid tile (past u=1024, in bf16 past 2048) its rows and CTAs a step.
+    # grid tile (past u=1024, in bf16 past 1279) its rows and CTAs a step
+    # in the dtype's step (bf16: 128 rows a CTA, the tensor-core step).
     lib = _build.load_kernels("rnn_avg")
     for units in (300, 512, 1024, 2048, 4096):
         layout = cuda_rnn.avg_layout("gru", units, dtype)
         if layout["tile"] == "grid":
             for batch in (5, 64, 256, 1024):
-                rows, ctas = cuda_rnn.grid_tile(2 * batch, units)
+                rows, ctas = cuda_rnn.grid_tile(2 * batch, units, dtype)
                 assert cuda_rnn.avg_tile("gru", batch, units, None,
                                          dtype) == (max(rows // 2, 1), ctas)
             continue
@@ -559,7 +565,8 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
                                                dtype)
             assert 1 <= windows <= layout["max_windows"]
             if layout["tile"] == "grid":
-                assert n_cta == cuda_rnn.grid_tile(2 * batch, units)[1]
+                assert n_cta == cuda_rnn.grid_tile(2 * batch, units,
+                                                   dtype)[1]
             else:
                 assert n_cta == -(-batch // windows) * layout["cluster"]
 
@@ -567,7 +574,7 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
 def test_lstm_avg_refuses_u257(device):
     """Named for the first ceiling: the inference kernels take every width
     (past u=256 on a cluster of 16 CTAs, past u=1024 the grid tile; in
-    bf16 past u=2048).  u=4097 launches the grid tile, in float32
+    bf16 past u=1279).  u=4097 launches the grid tile, in float32
     and bfloat16, and no plain version runs; only u <= 0 raises
     ``ValueError``, before any launch."""
     params, codes = random_case(6, 4, 3, 5, 4097, device)
@@ -719,7 +726,8 @@ def random_seq_case(batch, steps, units, dtype, device):
     (torch.float32, 1501, 50, 64), (torch.float32, 1501, 50, 65),
     # The cluster tile: u=512 (16 CTAs, U in shared memory; u=256 above:
     # 8), u=1024 and the ragged u=520 (16 CTAs of 33 units, the last with
-    # 25; U through L1/L2), at few rows.
+    # 25; U through L1/L2), at few rows; with bf16 IO past u=767 the grid
+    # tile (u=1024 here).
     (torch.float32, 6, 40, 512), (torch.float32, 5, 20, 1024),
     (torch.bfloat16, 5, 20, 1024), (torch.bfloat16, 2048, 342, 128),
     (torch.float32, 16, 342, 512), (torch.bfloat16, 16, 342, 512),
@@ -847,19 +855,21 @@ def test_gru_seq_layout(device):
                     (9, 40, 257), (37, 150, 300), (256, 342, 512),
                     (5, 23, 520), (64, 342, 1024),
                     # Past u=1024: one m-tile, one unit group a warp up to
-                    # u=2048, the grid tile beyond.
-                    (5, 23, 2049), *WIDE_SHAPES))])
+                    # u=1279, the grid tile's bf16 step beyond.
+                    (5, 23, 1279), (5, 23, 1280), (5, 23, 2049),
+                    *WIDE_SHAPES))])
 def test_avg_bf16_kernel_matches_plain(device, cell, batch, steps, units):
     """The bf16 kernels against their plain versions; up to u=128 they run
-    the tensor-core tile, beyond it its cluster tile up to u=2048, and
-    past it the grid tile."""
+    the tensor-core tile, beyond it its cluster tile up to u=1279, and
+    past it the grid tile's bf16 step."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(batch * units + steps, gates, batch, steps,
                                 units, device)
     kernel = getattr(cuda_rnn, f"{cell}_avg")
     plain = getattr(rnn, f"{cell}_avg_plain")
     assert cuda_rnn.avg_bf16_tile(cell, units) == (
-        "mma" if units <= 128 else "cluster" if units <= 2048 else "grid")
+        "mma" if units <= 128 else
+        "cluster" if units <= cuda_rnn.BF16_CLUSTER_MAX_UNITS else "grid")
     launches = cuda_rnn.LAUNCHES.get(f"{cell}_avg_bf16")
     avg, hidden = kernel(params, codes, torch.bfloat16)
     torch.cuda.synchronize()
@@ -893,8 +903,8 @@ def test_avg_bf16_rows_independent_of_batch(device, cell, units):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("units", [160, 256, 300, 512, 1024, 2048, 4096])
 def test_avg_bf16_cluster_window_bits(device, cell, units):
-    """On the cluster tile (up to u=2048; the grid tile at u=4096) a
-    window's bf16 bits are the same alone, inside a batch of 256 and at
+    """On the cluster tile (up to u=1279; the grid tile at u=2048 and
+    4096) a window's bf16 bits are the same alone, inside a batch of 256 and at
     another place in that batch (other clusters, another row of the
     m-tile), and a second launch equals the first."""
     gates = 4 if cell == "lstm" else 3
@@ -915,16 +925,16 @@ def test_avg_bf16_cluster_window_bits(device, cell, units):
 
 def test_avg_bf16_tile_by_width(device):
     """The tile of each width: the tensor-core tile up to u=128 (one CTA a
-    window, at most 8), its cluster tile up to u=2048, the grid tile
+    window, at most 8), its cluster tile up to u=1279, the grid tile
     beyond (no cluster; the launch runs it).  A cluster has 2 CTAs where
     half of U's fragments fit a CTA's shared memory at 8 windows (the GRU
     up to u=256, the LSTM up to u=224), else 4; a CTA takes 16 windows
     where two m-tiles fit, else 8 (the H100's 227 KB a block); past
     u=1024 16 CTAs of one m-tile holding only their windows' rows of h: 8
-    windows at u=2048."""
-    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8), (2048, 16, 8)],
+    windows at u=1279."""
+    cases = {"gru": [(240, 2, 16), (241, 2, 8), (256, 2, 8), (1279, 16, 8)],
              "lstm": [(208, 2, 16), (209, 2, 8), (224, 2, 8), (225, 4, 16),
-                      (256, 4, 16), (2048, 16, 8)]}
+                      (256, 4, 16), (1279, 16, 8)]}
     for cell, wide in cases.items():
         for units, tile, cluster, most in (
                 [(1, "mma", 1, 8), (60, "mma", 1, 8), (128, "mma", 1, 8),
@@ -934,7 +944,7 @@ def test_avg_bf16_tile_by_width(device):
             assert cuda_rnn.avg_bf16_cluster(cell, units) == cluster
             assert cuda_rnn.avg_tile(cell, 10 ** 6, units, None,
                                      torch.bfloat16)[0] == most
-        for units in (2049, 4096, 4097):
+        for units in (1280, 2048, 2049, 4096, 4097):
             assert cuda_rnn.avg_bf16_tile(cell, units) == "grid"
             assert cuda_rnn.avg_bf16_cluster(cell, units) == 1
         with pytest.raises(ValueError, match="u=0"):
@@ -974,20 +984,21 @@ def test_avg_cluster_window_bits(device, cell, units):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_avg_layout_matches_library(device, dtype):
     """``cuda_rnn.avg_layout`` at every width its cluster tiles take
-    (1-1024 in float32, 1-2048 in bfloat16) on this card and past them:
+    (1-1024 in float32, 1-1279 in bfloat16) on this card and past them:
     its tile (pure Python, from the width) agrees with the library's
     CTAs a cluster (one CTA a window up to u=128, past it a cluster: in
     float32 8 CTAs with U in shared memory up to u=256, 16 reading it
     through L1/L2 beyond; in bfloat16 2 to 16 CTAs, the library's own
     tile; past them the grid tile's library: no cluster, 16 windows a
-    CTA, tiles of U through L2), and the library refuses u=0."""
+    CTA in float32 and 64 in bfloat16 (the tensor-core step's 128 rows),
+    tiles of U through L2), and the library refuses u=0."""
     ceiling = (cuda_rnn.BF16_CLUSTER_MAX_UNITS if dtype == torch.bfloat16
                else cuda_rnn.CLUSTER_MAX_UNITS)
     for cell in ("gru", "lstm"):
         for units in (ceiling + 1, 4096, 4097, 5000, 8192, 26800):
             assert cuda_rnn.avg_layout(cell, units, dtype) == {
                 "tile": "grid", "cluster": 1, "u_in": "L2",
-                "max_windows": 16}
+                "max_windows": 16 if dtype == torch.float32 else 64}
         for units in range(1, ceiling + 1):
             layout = cuda_rnn.avg_layout(cell, units, dtype)
             assert (layout["cluster"] > 1) == (layout["tile"] == "cluster")
@@ -1138,6 +1149,34 @@ def test_grid_below_ceiling_matches_cluster_route(device, kind, dtype):
                                        rtol=0)
 
 
+@pytest.mark.parametrize("kind,units,grid", [
+    ("gru", 1279, False), ("gru", 1280, True), ("lstm", 1279, False),
+    ("lstm", 1280, True), ("seq", 767, False), ("seq", 768, True)])
+def test_bf16_route_boundary(device, kind, units, grid):
+    """Either side of the bf16 routes (``BF16_CLUSTER_MAX_UNITS`` for rows
+    1b, 2b; ``SEQ_BF16_CLUSTER_MAX_UNITS`` for row 7 with bf16 IO): the
+    cluster tile at the route width, the grid tile's bf16 step one past
+    it (counted under the grid's name too), each within 2e-2 of the plain
+    version."""
+    assert units == grid + (cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS
+                            if kind == "seq"
+                            else cuda_rnn.BF16_CLUSTER_MAX_UNITS)
+    params, inputs = grid_case(kind, torch.bfloat16, 5, 23, units, device)
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    got, plain = run_grid_row(kind, torch.bfloat16, params, inputs)
+    torch.cuda.synchronize()
+    now = cuda_rnn.LAUNCHES.snapshot()
+    row_name, grid_name = grid_names(kind, torch.bfloat16)
+    assert now.get(row_name, 0) == launches.get(row_name, 0) + 1
+    assert now.get(grid_name, 0) == launches.get(grid_name, 0) + int(grid)
+    want = (plain(params, inputs) if kind == "seq"
+            else plain(params, inputs, torch.bfloat16))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=BF16_ATOL,
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("kind", ["gru", "seq"])
 def test_grid_under_capture(device, kind):
     """The grid tile's T launches are captured into a CUDA graph (the
@@ -1161,6 +1200,55 @@ def test_grid_under_capture(device, kind):
     torch.cuda.synchronize()
     for a, b in zip(captured, eager):
         assert torch.equal(a, b)
+
+
+def test_grid_bf16_layout_matches_python(device):
+    """The bf16 step's layout from the library (``dg_grid_layout``: 128
+    rows a CTA, 32 units or 16 by the grid's CTAs against the card's SMs,
+    k 32 a stage, no k-slices, a warp a 32 x 16 tile, 4 stages) is what
+    ``grid_mma_units`` and ``grid_tile`` compute in Python."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows, units in ((10, 2049), (128, 2049), (128, 4608), (512, 4608),
+                        (32, 8192), (2048, 1025), (4, 26800)):
+        unit_block = cuda_rnn.grid_mma_units(rows, units, sms)
+        assert cuda_rnn._grid_layout(torch.bfloat16, rows, units) == [
+            128, unit_block, 32, 1, 32 * 4 * unit_block // 16, 4, 32, 16]
+        assert cuda_rnn.grid_tile(rows, units, torch.bfloat16) == (
+            min(rows, 128),
+            -(-rows // 128) * (-(-units // 32) * 32 // unit_block))
+    with pytest.raises(ValueError, match="u=0"):
+        cuda_rnn._grid_layout(torch.bfloat16, 1, 0)
+
+
+def f32_grid_digests(device) -> dict:
+    """sha256 of the float32 grid rows' outputs (rows 1, 2: avg then
+    hidden; row 7: seq then last) at B=3, T=9, u=1100, inputs from
+    :func:`grid_case`'s seed."""
+    digests = {}
+    for kind in ("gru", "lstm", "seq"):
+        params, inputs = grid_case(kind, torch.float32, 3, 9, 1100, device)
+        got = run_grid_row(kind, torch.float32, params, inputs)[0]
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for out in got:
+            digest.update(out.cpu().numpy().tobytes())
+        digests[kind] = digest.hexdigest()
+    return digests
+
+
+# f32_grid_digests of the float32 step (GridStepKernel) as it ran on an
+# NVIDIA H100 80GB HBM3 before the bf16 step moved to the tensor cores.
+F32_GRID_DIGESTS = {
+    "gru": "f7db520df5ecc2477a54d46ccf89e6253418b0c228ef9422fb6beff6af67c6ef",
+    "lstm": "bb175774d7ab4eb906692c002a6f04f339f2ee024d626ec5a2952c9956549e34",
+    "seq": "98fcad3fb4a47e470ab8522d1ba11622e6170cce96950b4b6e18eb0e8f8cdae6"}
+
+
+def test_grid_f32_bits_unchanged(device):
+    """The float32 grid rows give the bits they gave before the bf16 step
+    got a kernel of its own (the float32 step's machine code is the
+    same)."""
+    assert f32_grid_digests(device) == F32_GRID_DIGESTS
 
 
 def test_grid_shape_matches_python(device):

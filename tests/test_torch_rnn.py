@@ -225,8 +225,32 @@ def test_gru_seq_tile(rows, sms):
         cuda_rnn.seq_tile(rows, 0, sms)
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,units", [
+    (10, 2049), (128, 2049), (128, 4096), (128, 4608), (512, 4608),
+    (32, 8192), (2048, 1025), (74, 3000), (1, 4097)])
+def test_grid_tile_by_dtype(rows, units, sms):
+    """The grid tile's CTAs a step (pure Python): in float32 32 rows and
+    32 units a CTA; in bfloat16 (the tensor-core step) 128 rows a CTA and
+    32 units, or 16 where the grid of 32 would have fewer CTAs than the
+    card has SMs (B=64 at u=4608: 144 CTAs of 32 units; at u=2049: 130
+    of 16)."""
+    row_blocks, unit_blocks = -(-rows // 128), -(-units // 32)
+    assert cuda_rnn.grid_tile(rows, units, sms=sms) == (
+        min(32, rows), -(-rows // 32) * unit_blocks)
+    unit_block = 32 if row_blocks * unit_blocks >= sms else 16
+    assert cuda_rnn.grid_mma_units(rows, units, sms) == unit_block
+    assert cuda_rnn.grid_tile(rows, units, torch.bfloat16, sms) == (
+        min(128, rows), row_blocks * unit_blocks * 32 // unit_block)
+    if sms == 132:
+        assert cuda_rnn.grid_tile(128, 4608, torch.bfloat16, sms) == (128,
+                                                                      144)
+        assert cuda_rnn.grid_tile(128, 2049, torch.bfloat16, sms) == (128,
+                                                                      130)
+
+
 # (units, tile) at each width where the inference kernels' tile changes,
-# the cluster tiles' ceilings (u=1024 in float32, 2048 in bfloat16), one
+# the cluster tiles' ceilings (u=1024 in float32, 1279 in bfloat16), one
 # past each and beyond.
 AVG_TILES = {
     "float32": [(1, "registers"), (64, "registers"), (65, "l2"),
@@ -236,8 +260,9 @@ AVG_TILES = {
                 (8192, "grid"), (26800, "grid")],
     "bfloat16": [(1, "mma"), (128, "mma"), (129, "cluster"),
                  (520, "cluster"), (1024, "cluster"), (1025, "cluster"),
-                 (2048, "cluster"), (2049, "grid"), (3000, "grid"),
-                 (4096, "grid"), (4097, "grid"), (8192, "grid")],
+                 (1279, "cluster"), (1280, "grid"), (2048, "grid"),
+                 (2049, "grid"), (3000, "grid"), (4096, "grid"),
+                 (4097, "grid"), (8192, "grid")],
 }
 
 
@@ -247,7 +272,7 @@ def test_avg_layout_by_width(cell, dtype):
     """The inference kernels' tile by width (pure Python): one CTA a window
     up to u=128 (the register tile in float32, the tensor-core tile in
     bf16), past it a window's units over a cluster of CTAs up to the
-    cluster tiles' ceiling (u=1024 in float32, 2048 in bf16), and past it
+    cluster tiles' ceiling (u=1024 in float32, 1279 in bf16), and past it
     the grid tile at every width; only u <= 0 is refused:
     ``avg_tile_name`` and ``avg_layout`` raise ``ValueError`` naming the
     width, before they ask the library."""
@@ -260,15 +285,17 @@ def test_avg_layout_by_width(cell, dtype):
                 fn(cell, units, getattr(torch, dtype))
 
 
-def test_training_ceiling_stays_at_1024():
-    """Named for the training kernels' former ceiling: they take every
-    width, as the inference kernels do: the cluster tile up to
-    ``TRAIN_CLUSTER_MAX_UNITS`` (u=1023; the float32 inference rows' up to
-    ``CLUSTER_MAX_UNITS``, u=1024, the bf16 rows' up to
-    ``BF16_CLUSTER_MAX_UNITS``, u=2048), the grid tile past each; only
+def test_route_widths_by_row():
+    """Each row's cluster tile up to its route width, the grid tile past
+    it (pure Python): the training kernels up to
+    ``TRAIN_CLUSTER_MAX_UNITS`` (u=1023), the float32 inference rows and
+    row 7 with float32 IO up to ``CLUSTER_MAX_UNITS`` (u=1024), the bf16
+    rows up to ``BF16_CLUSTER_MAX_UNITS`` (u=1279), row 7 with bf16 IO up
+    to ``SEQ_BF16_CLUSTER_MAX_UNITS`` (u=767); every width runs, only
     u <= 0 is refused."""
     assert (cuda_rnn.TRAIN_CLUSTER_MAX_UNITS, cuda_rnn.CLUSTER_MAX_UNITS,
-            cuda_rnn.BF16_CLUSTER_MAX_UNITS) == (1023, 1024, 2048)
+            cuda_rnn.BF16_CLUSTER_MAX_UNITS,
+            cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS) == (1023, 1024, 1279, 767)
     for units in (1023, 1024):
         assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
     assert cuda_rnn.train_layout(1023) == "cluster"
@@ -279,3 +306,26 @@ def test_training_ceiling_stays_at_1024():
     for units in (0, -4097):
         with pytest.raises(ValueError, match=f"not u={units}"):
             cuda_rnn.train_layout(units)
+
+
+@pytest.mark.parametrize("dtype,ceiling", [("float32", 1024),
+                                           ("bfloat16", 767)])
+def test_gru_seq_route_by_io_dtype(dtype, ceiling):
+    """Row 7 (the GRU sequence kernel) runs its cluster tile up to its
+    route width for the IO type (u=1024 with float32 IO, 767 with
+    bfloat16) and the grid tile one past it (pure Python): no cluster,
+    the grid tile's rows a CTA (128 for the bf16 step) and CTAs a step."""
+    dtype = getattr(torch, dtype)
+    assert cuda_rnn._grid_route(ceiling, "seq", dtype) is False
+    assert cuda_rnn.seq_cluster(ceiling, dtype) == 16
+    assert cuda_rnn.seq_max_rows(ceiling, dtype) == 16
+    units = ceiling + 1
+    assert cuda_rnn._grid_route(units, "seq", dtype) is True
+    assert cuda_rnn.seq_cluster(units, dtype) == 1
+    most = 128 if dtype == torch.bfloat16 else 32
+    assert cuda_rnn.seq_max_rows(units, dtype) == most
+    for rows in (16, 64, 2048):
+        assert cuda_rnn.seq_tile(rows, units, 132, dtype=dtype) == (
+            cuda_rnn.grid_tile(rows, units, dtype, 132))
+        assert cuda_rnn.seq_tile(rows, units, 132, dtype=dtype)[0] == min(
+            rows, most)

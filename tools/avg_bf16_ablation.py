@@ -5,10 +5,13 @@ step's time is made of.
 Usage, from the root of a checkout, on a machine with one CUDA card::
 
     python3 tools/avg_bf16_ablation.py [--units U] [--out FILE.json]
+    python3 tools/avg_bf16_ablation.py --grid [--out FILE.json]
 
-Each ablation is a copy of ``deepgrp_tpu_torch/csrc/rnn_avg.cu`` with one
-edit to ``MmaAvgKernel`` or its gate functions (each edit must apply, or
-the script fails), built beside the package's build:
+Each ablation is a copy of ``deepgrp_tpu_torch/csrc/rnn_avg.cu`` and of
+the header it includes, ``rnn_mma.cuh``, with one edit to
+``MmaAvgKernel``, its gate functions or the ``mma`` (each edit must apply
+once to one of the two, or the script fails), built beside the package's
+build:
 
 * ``shipped``: the source as it is;
 * ``libm_gates``: the gates through ``expf``, the IEEE quotient and
@@ -33,6 +36,18 @@ windows a CTA the entry points choose (``cuda_rnn.avg_tile``: 8 and 2 a
 CTA at u=60), both cells through their ``_bf16`` entry points: the
 CUDA-event time over 20 launches after a warm-up and the largest
 difference to the plain version, with the card's name and power limit.
+
+``--grid``: the same for the grid tile's bf16 step (``GridMmaKernel`` of
+``csrc/rnn_grid.cu``) through ``dg_avg_grid`` at the shapes of
+:data:`GRID_CASES`, each time over up to 20 launches:
+
+* ``shipped``;
+* ``no_copies``: no cp.async copies past the ring's first stages
+  (timing only);
+* ``no_mma``: a cheap dependence in place of each ``mma`` (timing only);
+* ``u_from_l2``: every k-tile's U read from U's first 256 rows, which
+  stay in L2 (timing only);
+* ``stages_5``: a ring of 5 stages.
 """
 
 from __future__ import annotations
@@ -46,7 +61,10 @@ import sys
 import threading
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(HERE, "deepgrp_tpu_torch", "csrc", "rnn_avg.cu")
+CSRC = os.path.join(HERE, "deepgrp_tpu_torch", "csrc")
+SOURCE = os.path.join(CSRC, "rnn_avg.cu")
+HEADER = "rnn_mma.cuh"
+GRID_SOURCE = os.path.join(CSRC, "rnn_grid.cu")
 
 _MMA = '''  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
@@ -109,6 +127,24 @@ ABLATIONS = {
     "local_h": [(_HAND_OFF, "            if (p == 0) *reinterpret_cast<"
                             "uint32_t *>(s_h + at) = pair;")],
 }
+_GRID_COPY = "    if (next < n_tiles) load_tile(next % kMmaStages, next);\n"
+_GRID_MMA = "            MmaBf16(acc[m][q][j], af[m], bf[2 * j], bf[2 * j + 1]);"
+_GRID_U = "u_mat + ((k0 + kk) * kGates + g) * width + n0 + piece * 8);"
+GRID_ABLATIONS = {
+    "shipped": [],
+    "no_copies": [(_GRID_COPY, "")],
+    "no_mma": [(_GRID_MMA, "            acc[m][q][j][0] += __uint_as_float("
+                           "(af[m][0] ^ bf[2 * j]) & 3u);")],
+    "u_from_l2": [(_GRID_U, "u_mat + (((k0 + kk) % 256) * kGates + g) * "
+                            "width + n0 + piece * 8);")],
+    "stages_5": [("constexpr int kMmaStages = 4;",
+                  "constexpr int kMmaStages = 5;")],
+}
+# (cell, batch, steps, units) of --grid: PERF.md's B=64, u=4608 and B=16
+# at u=4608 (U from HBM), B=64 at u=2049 (U in L2, 16 units a CTA).
+GRID_CASES = (("gru", 64, 342, 4608), ("lstm", 64, 342, 4608),
+              ("gru", 16, 342, 4608), ("gru", 64, 342, 2049))
+GRID_VALID = ("shipped", "stages_5")
 # The engine's batch and the CLI's default.
 BATCHES = (1024, 256)
 STEPS = 342
@@ -116,41 +152,53 @@ STEPS = 342
 VALID = ("shipped", "libm_gates", "approx_tanh", "two_chains")
 
 
-def ablated_source(name: str) -> str:
-    with open(SOURCE) as fh:
-        text = fh.read()
-    for old, new in ABLATIONS[name]:
-        if text.count(old) != 1:
+def ablated_sources(name: str, source: str, edits) -> dict:
+    """The source and ``rnn_mma.cuh``, by file name, with ``edits`` each
+    applied where its text stands once."""
+    texts = {}
+    for path in (source, os.path.join(CSRC, HEADER)):
+        with open(path) as fh:
+            texts[os.path.basename(path)] = fh.read()
+    for old, new in edits:
+        where = [f for f, text in texts.items() if text.count(old) == 1]
+        if len(where) != 1 or sum(t.count(old) for t in texts.values()) != 1:
             raise RuntimeError(f"ablation {name}: the edit does not apply "
-                               f"once to {SOURCE}:\n{old}")
-        text = text.replace(old, new)
-    return text
+                               f"once to {source} or {HEADER}:\n{old}")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    return texts
 
 
-def build_all():
-    """Builds every ablation in parallel (one nvcc each); returns the
-    libraries by name."""
+def build_all(grid: bool = False):
+    """Builds every ablation (of the grid tile's bf16 step with ``grid``)
+    in parallel (one nvcc each, in a directory of its own, where the
+    edited header is found first); returns the libraries by name."""
     from deepgrp_tpu_torch import _build
 
-    src_dir = _build.BUILD_DIR / "ablation"
-    src_dir.mkdir(parents=True, exist_ok=True)
+    table = GRID_ABLATIONS if grid else ABLATIONS
+    source = GRID_SOURCE if grid else SOURCE
+    prefix = "grid_bf16" if grid else "avg_bf16"
     libs, errors = {}, []
 
     def build(name):
         try:
-            src = src_dir / f"avg_bf16_{name}.cu"
-            src.write_text(ablated_source(name))
+            src_dir = _build.BUILD_DIR / "ablation" / f"{prefix}_{name}"
+            src_dir.mkdir(parents=True, exist_ok=True)
+            for file, text in ablated_sources(name, source,
+                                              table[name]).items():
+                (src_dir / file).write_text(text)
             path = _build.build_shared_library(
-                f"avg_bf16_{name}", [_build.nvcc()], [src],
-                (*_build.NVCC_FLAGS, "-I", str(_build.PKG_DIR / "csrc")))
+                f"{prefix}_{name}", [_build.nvcc()],
+                [src_dir / os.path.basename(source)],
+                (*_build.NVCC_FLAGS, "-I", CSRC))
             lib = ctypes.CDLL(str(path))
-            _build._declare_rnn_avg(lib)
+            (_build._declare_rnn_grid if grid else _build._declare_rnn_avg)(
+                lib)
             libs[name] = lib
         except BaseException as err:  # re-raised below, in the main thread
             errors.append(err)
 
     threads = [threading.Thread(target=build, args=(name,))
-               for name in ABLATIONS]
+               for name in table]
     for thread in threads:
         thread.start()
     for thread in threads:
@@ -160,12 +208,65 @@ def build_all():
     return libs
 
 
+def grid_rows(torch, libs) -> list:
+    """``--grid``: each ablation of the bf16 grid step at each of
+    :data:`GRID_CASES`, checked against the plain version and timed."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from avg_tile_sweep import adaptive_ms, max_err
+
+    import chip_smoke
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    rows = []
+    for cell, batch, steps, units in GRID_CASES:
+        gates = 4 if cell == "lstm" else 3
+        params, codes = chip_smoke.random_rnn_on_card(
+            torch, units + batch, gates, batch, steps, units)
+        want = getattr(rnn, f"{cell}_avg_plain")(params, codes,
+                                                 torch.bfloat16)
+        for name, lib in libs.items():
+            def launch():
+                avg = torch.empty(batch, steps, units, device="cuda",
+                                  dtype=torch.bfloat16)
+                hidden = torch.empty(batch, units, device="cuda",
+                                     dtype=torch.bfloat16)
+                recurrent, h, carry = cuda_rnn._grid_buffers(
+                    lib, 2 * batch, units, gates, params["recurrent"],
+                    torch.bfloat16)
+                err = lib.dg_avg_grid(
+                    gates, 1, codes.data_ptr(), batch, steps,
+                    params["kernel"].data_ptr(), params["bias"].data_ptr(),
+                    recurrent.data_ptr(), units, h[0].data_ptr(),
+                    h[1].data_ptr(), carry.data_ptr(), avg.data_ptr(),
+                    hidden.data_ptr(),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+                if err:
+                    raise RuntimeError(f"{name}: {lib.dg_error_string(err)}")
+                return avg, hidden
+
+            got = launch()
+            torch.cuda.synchronize()
+            row = {"ablation": name, "cell": cell, "batch": batch,
+                   "steps": steps, "units": units,
+                   "max_abs_err": max_err(got, want),
+                   "ms": adaptive_ms(torch, launch),
+                   "output": "bf16 function" if name in GRID_VALID
+                             else "timing only"}
+            del got
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del want, params, codes
+    return rows
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--units", type=int, default=60,
                         help="the layer's width (default: the flagship's)")
+    parser.add_argument("--grid", action="store_true",
+                        help="ablate the grid tile's bf16 step instead")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
     units = args.units
@@ -183,6 +284,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+    if args.grid:
+        rows = grid_rows(torch, build_all(grid=True))
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump({"card": card, "rows": rows}, fh, indent=1)
+        return 0
     libs = build_all()
     rows = []
     for gates, cell in ((3, "gru"), (4, "lstm")):

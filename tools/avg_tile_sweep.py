@@ -7,7 +7,7 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
     python3 tools/avg_tile_sweep.py [--kernel avg|avg_bf16|seq]
         [--min-units N] [--out FILE.json]
     python3 tools/avg_tile_sweep.py --grid [--units 257,...,4096]
-        [--rows 1,1b,2,2b,7] [--out FILE.jsonl]
+        [--rows 1,1b,2,2b,7,7b] [--mma-units 16,32] [--out FILE.jsonl]
 
 ``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs>``
 (``deepgrp_tpu_torch/csrc/rnn_avg.cu``, the float32 register tile) takes
@@ -32,16 +32,26 @@ type and the CTAs a cluster, and the rows a CTA (a cluster) at run time.
 ``--grid`` times the grid tile (``csrc/rnn_grid.cu``) beside the routed
 launch instead, through the wrappers of ``models/cuda_rnn.py``
 (``_launch`` / ``_launch_seq`` with ``grid=True`` beside the same call
-without it), for the fused rows of both cells in float32 and bf16 out at
-the batches of :data:`GRID_BATCHES`, and row 7 (the GRU sequence
-kernel) in float32 and bf16 IO at :data:`GRID_SEQ_ROWS` rows, at each
-width of ``--units`` (:data:`GRID_WIDTHS` by default; ``--rows`` keeps
-only the rows it names, row 7 in both dtypes): each output
-checked against its plain version first (1e-5; 2e-2 in bf16), then
-timed with CUDA events after that launch (over up to 20 launches, one
-launch where one takes more than a second).  One JSON line a case: the
-routed tile's name and ms, the grid's ms and their ratio, printed and
-appended to ``--out``.
+without it; once where the route is the grid tile), for the fused rows
+of both cells in float32 and bf16 out (rows 1, 2, 1b, 2b) at the batches
+of :data:`GRID_BATCHES`, and row 7 (the GRU sequence kernel) in float32
+and bf16 IO (rows 7, 7b) at :data:`GRID_SEQ_ROWS` rows, at each width of
+``--units`` (:data:`GRID_WIDTHS` by default; ``--rows`` keeps only the
+rows it names): each output checked against its plain version first
+(1e-5; 2e-2 in bf16), then timed with CUDA events after that launch
+(over up to 20 launches, one launch where one takes more than a
+second).  Beside them cuDNN's time for the same work in the row's dtype
+(``torch.nn.GRU`` / ``LSTM``, TF32 off; ``library_ms``) and the bound as
+``chip_smoke.py`` counts it (``bound_ms``, ``bound_by``: the FLOP at the
+dot type's peak, or ``U`` once, then each step the part of it past the
+card's L2 and shared memory, and the IO once, over 3.35 TB/s).  One JSON
+line a case: the routed tile's name and ms, the grid's ms and their
+ratio, cuDNN's ms and the bound, printed and appended to ``--out``.
+``--mma-units`` also times the bf16 rows' grid step (``GridMmaKernel``)
+at each unit block it lists (``mma_<n>_ms``, checked as the others),
+from a copy of ``csrc/rnn_grid.cu`` built with an entry point that takes
+the unit block from the caller (the library picks one by the grid's
+CTAs and the card's SMs).
 
 The script builds a copy of the source with one more C entry point that
 launches any variant listed for the kernel (float32 out, bfloat16 for
@@ -437,10 +447,105 @@ def adaptive_ms(torch, launch) -> float:
                               max(1, min(20, int(1000.0 / max(first, 1e-3)))))
 
 
-def grid_sweep(torch, widths, card: str, out_path, only=None) -> list:
+# dg_sweep_mma: the bf16 grid step (RunMma) at the caller's unit block,
+# appended to a copy of csrc/rnn_grid.cu (its templates are in the file's
+# anonymous namespace); dg_avg_grid's and dg_seq_grid's arguments.
+_MMA_ENTRY = """
+extern "C" int dg_sweep_mma(int units_a_cta, int gates, int seq,
+                            const void *in, int batch, int steps,
+                            int channels, const void *kernel,
+                            const void *bias, const void *recurrent,
+                            int units, void *h0, void *h1, void *carry,
+                            void *out, void *last, void *stream) {
+  GridArgs a{};
+  if (seq) {
+    a.x = in;
+  } else {
+    a.codes = static_cast<const int8_t *>(in);
+  }
+  a.kernel = kernel;
+  a.bias = static_cast<const float *>(bias);
+  a.recurrent = recurrent;
+  a.carry = static_cast<float *>(carry);
+  a.out = out;
+  a.last = last;
+  a.batch = batch;
+  a.steps = steps;
+  a.channels = channels;
+  a.units = units;
+  const long long rows = seq ? batch : 2LL * batch;
+  switch (units_a_cta * 100 + gates * 10 + seq) {
+    case 1630: return RunMma<3, false, 16>(a, rows, h0, h1, stream);
+    case 1640: return RunMma<4, false, 16>(a, rows, h0, h1, stream);
+    case 1631: return RunMma<3, true, 16>(a, rows, h0, h1, stream);
+    case 3230: return RunMma<3, false, 32>(a, rows, h0, h1, stream);
+    case 3240: return RunMma<4, false, 32>(a, rows, h0, h1, stream);
+    case 3231: return RunMma<3, true, 32>(a, rows, h0, h1, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+
+
+def mma_library():
+    """Builds the copy of ``csrc/rnn_grid.cu`` with ``dg_sweep_mma``."""
+    from deepgrp_tpu_torch import _build
+
+    src_dir = _build.BUILD_DIR / "sweep"
+    src_dir.mkdir(parents=True, exist_ok=True)
+    src = src_dir / "grid_mma_sweep.cu"
+    with open(os.path.join(CSRC, "rnn_grid.cu")) as fh:
+        src.write_text(fh.read() + _MMA_ENTRY)
+    path = _build.build_shared_library(
+        "grid_mma_sweep", [_build.nvcc()], [src],
+        (*_build.NVCC_FLAGS, "-I", CSRC))
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dg_sweep_mma.argtypes = [i, i, i, p, i, i, i, p, p, p, i] + [p] * 6
+    lib.dg_sweep_mma.restype = i
+    lib.dg_grid_shape.argtypes = [i, i, p]
+    lib.dg_grid_shape.restype = i
+    lib.dg_error_string.argtypes = [i]
+    lib.dg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mma_run(torch, lib, units_a_cta: int, kind: str, params, inputs):
+    """The bf16 grid step of row ``kind`` at ``units_a_cta`` units a CTA,
+    with the wrapper's buffers made as ``cuda_rnn`` makes them; returns
+    the outputs."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    batch, steps = inputs.shape[:2]
+    units = params["recurrent"].shape[0]
+    seq = kind == "seq"
+    gates = 4 if kind == "lstm" else 3
+    dtype = torch.bfloat16
+    kernel = params["kernel"].to(dtype) if seq else params["kernel"]
+    recurrent, h, carry = cuda_rnn._grid_buffers(
+        lib, batch if seq else 2 * batch, units, gates, params["recurrent"],
+        dtype)
+    out = torch.empty(batch, steps, units, device="cuda", dtype=dtype)
+    last = torch.empty(batch, units, device="cuda", dtype=dtype)
+    err = lib.dg_sweep_mma(
+        units_a_cta, gates, int(seq), inputs.data_ptr(), batch, steps,
+        inputs.shape[2] if seq else 0, kernel.data_ptr(),
+        params["bias"].data_ptr(), recurrent.data_ptr(), units,
+        h[0].data_ptr(), h[1].data_ptr(), carry.data_ptr(), out.data_ptr(),
+        last.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err:
+        raise RuntimeError(f"dg_sweep_mma: {lib.dg_error_string(err)}")
+    return out, last
+
+
+def grid_sweep(torch, widths, card: str, out_path, only=None,
+               mma_units=()) -> list:
     """``--grid``: the routed launch and the grid tile's, checked and
     timed, at each width, row, dtype and batch (``only``: of the rows
-    named there); one row each."""
+    named there; ``mma_units``: the bf16 step at those unit blocks too);
+    one row each."""
+    mma_lib = mma_library() if mma_units else None
     cases = [(kind, dtype) for kind in ("gru", "lstm", "seq")
              for dtype in (torch.float32, torch.bfloat16)]
     rows, failed = [], []
@@ -450,20 +555,20 @@ def grid_sweep(torch, widths, card: str, out_path, only=None) -> list:
                       if kind == "seq" else GRID_BATCHES)
             for batch, steps in shapes:
                 bf16 = dtype == torch.bfloat16
-                row = {"row": "7" if kind == "seq" else
-                       ("2" if kind == "lstm" else "1") + ("b" if bf16
-                                                           else ""),
+                row = {"row": {"seq": "7", "lstm": "2"}.get(kind, "1")
+                       + ("b" if bf16 else ""),
                        "kind": kind, "dtype": str(dtype).split(".")[-1],
                        "batch": batch, "steps": steps, "units": units}
                 if only and row["row"] not in only:
                     continue
                 try:
-                    grid_case(torch, kind, dtype, row)
+                    grid_case(torch, kind, dtype, row,
+                              (mma_lib, mma_units) if bf16 else None)
                 except RuntimeError as err:  # a launch refused, or memory
                     row["error"] = str(err)
                 tol = BF16_TOL if bf16 else TOL["avg"]
-                if "error" in row or not (row["routed_err"] <= tol
-                                          and row["grid_err"] <= tol):
+                errs = [v for k, v in row.items() if k.endswith("_err")]
+                if "error" in row or not all(e <= tol for e in errs):
                     failed.append(row)
                 row["card"] = card
                 rows.append(row)
@@ -478,11 +583,13 @@ def grid_sweep(torch, widths, card: str, out_path, only=None) -> list:
     return rows
 
 
-def grid_case(torch, kind: str, dtype, row: dict) -> None:
+def grid_case(torch, kind: str, dtype, row: dict, mma=None) -> None:
     """One case of :func:`grid_sweep`, its results written into ``row``:
     weights and inputs made on the card from a seed, the plain version's
-    outputs, then the routed launch and the grid tile's, each checked and
-    timed."""
+    outputs, then the routed launch and the grid tile's (and with ``mma``,
+    ``(library, unit blocks)``, the bf16 step at each), each checked and
+    timed, then cuDNN and the bound."""
+    import chip_smoke
     from deepgrp_tpu_torch.models import cuda_rnn, rnn
 
     batch, steps, units = row["batch"], row["steps"], row["units"]
@@ -500,7 +607,8 @@ def grid_case(torch, kind: str, dtype, row: dict) -> None:
         inputs = torch.rand(batch, steps, 5, generator=gen,
                             device="cuda").to(dtype)
         want = rnn.gru_apply(params, inputs)
-        row["routed_tile"] = ("grid" if cuda_rnn._grid_route(units)
+        row["routed_tile"] = ("grid" if cuda_rnn._grid_route(units, "seq",
+                                                             dtype)
                               else "cluster")
 
         def run(grid):
@@ -515,13 +623,31 @@ def grid_case(torch, kind: str, dtype, row: dict) -> None:
             return cuda_rnn._launch(f"{kind}_avg", gates, params, inputs,
                                     dtype, grid)
     torch.cuda.synchronize()
-    for key, grid in (("routed", False), ("grid", True)):
+    routes = (("routed", False),) + ((("grid", True),)
+                                     if row["routed_tile"] != "grid" else ())
+    for key, grid in routes:
         got = run(grid)
         torch.cuda.synchronize()
         row[f"{key}_err"] = max_err(got, want)
         del got
         row[f"{key}_ms"] = adaptive_ms(torch, lambda: run(grid))
+    if row["routed_tile"] == "grid":
+        row["grid_err"], row["grid_ms"] = row["routed_err"], row["routed_ms"]
     row["grid_over_routed"] = row["grid_ms"] / row["routed_ms"]
+    for units_a_cta in (mma[1] if mma else ()):
+        def forced():
+            return mma_run(torch, mma[0], units_a_cta, kind, params, inputs)
+
+        got = forced()
+        torch.cuda.synchronize()
+        row[f"mma_{units_a_cta}_err"] = max_err(got, want)
+        del got
+        row[f"mma_{units_a_cta}_ms"] = adaptive_ms(torch, forced)
+    del want
+    row["library_ms"] = adaptive_ms(torch, chip_smoke.grid_library(
+        torch, kind, gates, dtype, params, inputs))
+    row.update(chip_smoke.grid_bound(torch, kind, gates, dtype, params,
+                                     inputs))
 
 
 def main() -> int:
@@ -535,6 +661,9 @@ def main() -> int:
                         help="time the grid tile beside the routed launch")
     parser.add_argument("--units", help="--grid: widths, comma-separated")
     parser.add_argument("--rows", help="--grid: rows, comma-separated")
+    parser.add_argument("--mma-units",
+                        help="--grid: the bf16 step's unit blocks to time "
+                             "(16, 32), comma-separated")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -546,11 +675,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.grid:
         widths = (tuple(int(u) for u in args.units.split(","))
                   if args.units else GRID_WIDTHS)
         grid_sweep(torch, widths, card, args.out,
-                   args.rows.split(",") if args.rows else None)
+                   args.rows.split(",") if args.rows else None,
+                   tuple(int(n) for n in args.mma_units.split(","))
+                   if args.mma_units else ())
         return 0
     variants = {"avg": VARIANTS, "avg_bf16": BF16_VARIANTS,
                 "seq": SEQ_VARIANTS}[args.kernel]
