@@ -66,15 +66,15 @@ seconds are printed after it):
    threads, CTAs and warps an SM) and the backward's split (recurrence
    kernel ms, reduction kernel ms), and checks both cells' pairs again
    past the register tile: at u=96 (B=64, T=342) and u=128 (B=256, T=342,
-   U through L1/L2), on the wide layout (4u threads up to 1,024) at
-   u=129 (B=256), u=200 (B=37, T=150) and its widest, u=256 (B=256,
-   T=342), and on the cluster tile (a window's units over a cluster of
-   CTAs, whose CTAs a cluster, windows a cluster and clusters at once it
-   prints) at u=257 (B=5, T=20), u=300 (B=37, T=150), u=520 (B=5,
-   T=23), u=512 (B=256, T=342) and its route's ceiling u=1023 (B=37,
-   T=150), and on the grid tile from u=1024 (B=64, T=342); u=128, 256,
-   300, 512 and 1024 are also timed as above (u=128, over 20 launches,
-   the reference point of the layout it extends; the others over 5).
+   U through L1/L2), on the cluster tile (a window's units over a
+   cluster of CTAs, whose CTAs a cluster, windows a cluster and clusters
+   at once it prints) at u=129 (B=256), u=200 (B=37, T=150), u=256
+   (B=256, T=342), u=257 (B=5, T=20), u=300 (B=37, T=150) and its
+   route's ceiling u=511 (B=37, T=150), and on the grid tile from u=512
+   at u=520 (B=5, T=23), u=512 (B=256, T=342), u=1023 (B=37, T=150) and
+   u=1024 (B=64, T=342); u=128, 256, 300, 512 and 1024 are also timed as
+   above (u=128, over 20 launches, the reference point of the layout it
+   extends; the others over 5).
    On the grid tile at phase 2's shapes past u=1024 (u=1025, B=37,
    T=150; 2048, B=64; 3000, B=5, T=23; 4096, B=16; T=342 unless given):
    with masks, a window's forward and gate cotangents alone and in the
@@ -87,7 +87,9 @@ seconds are printed after it):
    with and without masks, as above (each call counted under the row's
    name and the grid's), a window's bits alone, in the batch and
    repeated; u=4608 timed over 3 launches with its bound (the HBM bytes
-   as phase 2's grid rows count them); and at GRU u=26,800 / LSTM
+   as phase 2's grid rows count them), the backward's recompute (A) and
+   steps (B) apart (``torch.profiler``) beside the forward; and at GRU
+   u=26,800 / LSTM
    u=23,200 (B=2, T=4: g u^2 and the reduction's partials past 2^31
    elements) the forward and the gradients against the plain versions,
    run after the port's buffers are freed.
@@ -313,10 +315,10 @@ seconds are printed after it):
 19. Training at the ceilings: on phase 7's chromosomes (same seed),
     ``train`` through ``cli.main`` (captured, the card's default) of
     ``gru_att`` (vecsize 342, attention, dropout 0.0928) and of the LSTM
-    at u=256 on the wide layout (2 x 5 steps each, batch 256, RMSprop's
-    default rate), at u=1023 on the cluster tile (its route's ceiling; 2 x
-    3 steps each, batch 256, at a learning rate of 1e-5 for the width),
-    at u=2048 on the grid tile (2 x 3 steps each, batch 64, at 1e-5 too)
+    at u=256 on the cluster tile (2 x 5 steps each, batch 256, RMSprop's
+    default rate), at u=1023 on the grid tile (2 x 3 steps each, batch
+    256, at a learning rate of 1e-5 for the width; its inference on the
+    cluster tile), at u=2048 (2 x 3 steps each, batch 64, at 1e-5 too)
     and at u=4608 (2 x 2 steps each, batch 64, at 1e-5; the grid tile's
     launches counted too); depths
     cut from 200 x 250:
@@ -425,21 +427,22 @@ TRAIN_KERNELS = {
 TRAIN_SHAPES = {"flagship": (256, 342, 60), "ragged": (37, 150, 32)}
 LSTM_WIDE_SHAPE = (64, 342, 96)
 # Widths past the window tile's registers: U through L1/L2 up to u=128,
-# the wide layout (4u threads up to 1,024) from u=129 to u=256, the
-# cluster tile past it to its route's ceiling, u=1023 (ragged: 64 units a
-# CTA but the last), at the CLI's default batch and ragged (u=257, 300,
-# 520: 17, 19 and 33 units a CTA of 16), then the grid tile at u=1024
-# (64 windows).
+# the cluster tile from u=129 to its route's ceiling, u=511, at the CLI's
+# default batch and ragged over the CTAs of a cluster (u=129: 17 units a
+# CTA of the forward's 8, 33 of the backward's 4; u=257 and 300: 17 and
+# 19 of 16), then the grid tile from u=512 (u=520 and 1023 ragged over
+# its 32-unit blocks).
 TRAIN_WIDE_SHAPES = {"u96": LSTM_WIDE_SHAPE, "u128": (256, 342, 128),
                      "u129": (256, 342, 129), "u200": (37, 150, 200),
                      "u256": (256, 342, 256), "u257": (5, 20, 257),
-                     "u300": (37, 150, 300), "u520": (5, 23, 520),
+                     "u300": (37, 150, 300), "u511": (37, 150, 511),
+                     "u520": (5, 23, 520),
                      "u512": (256, 342, 512), "u1023": (37, 150, 1023),
                      "u1024": (64, 342, 1024)}
-# The timed ones: the wide layout's widest and the cluster tile's, and
-# u=128 (the L1/L2 layout's widest) at the same batch as the reference
-# point, over 20 launches at u=128 and 5 past it (u=129 and u=200 are
-# checked, not timed: PERF.md and rnn_train.cu's header keep their times).
+# The timed ones: u=128 (the L1/L2 layout's widest) as the reference
+# point, u=256 and 300 on the cluster tile, u=512 and 1024 on the grid
+# tile, over 20 launches at u=128 and 5 past it (u=129, 200, 511 are
+# checked, not timed: tools/train_tile_sweep.py --routes times them).
 TRAIN_WIDE_TIMED = ("u128", "u256", "u300", "u512", "u1024")
 # Past u=1024 (the grid tile) phase 2's LANE_SHAPES: checked
 # with masks, a window's bits alone and repeated, timed over WIDE_REPS.
@@ -447,8 +450,9 @@ TRAIN_WIDE_TIMED = ("u128", "u256", "u300", "u512", "u1024")
 # L1/L2 layout, past the u=113 at which the first inference kernel
 # stopped); phase 19 trains at the ceiling.
 LSTM_WIDE_UNITS = 128
-# Phase 19: both cells trained at the wide layout's ceiling (u=256), at
-# the cluster tile's (u=1023) and on the grid tile (u=2048, batch 64):
+# Phase 19: both cells trained at u=256 (the cluster tile), u=1023 (the
+# grid tile; the cluster tile's route ceiling before the routes moved to
+# u=511) and u=2048 (batch 64):
 # width: ((epochs, steps) of gru_att, of the LSTM; RMSprop's
 # learning rate, None for its default; batch), the depth cut from 200 x
 # 250 (a step takes about 0.3 s at u=1024 and B=256, 0.7 s at u=2048 and
@@ -466,8 +470,8 @@ LSTM_WIDE_UNITS = 128
 # Past the cluster tiles u=4608 (the grid tile; batch 64, 2 x 2 steps,
 # the rate from tools/train_rate_witness.py at u=4608: 1e-5 and 3e-6 the
 # same losses through the kernels and the plain versions).  Each trained
-# model predicts the fixture of its cell; u=1023 (the cluster tile's
-# route ceiling; the rate found at u=1024) trains 2 x 3 steps (cut from
+# model predicts the fixture of its cell; u=1023 (the rate found at
+# u=1024) trains 2 x 3 steps (cut from
 # 2 x 5, and the three fixtures a model to one, to make room for u=4608
 # in the time limit).
 TRAIN_CEILING_RUNS = {256: (((2, 5), (2, 5)), None, 256),
@@ -1435,8 +1439,8 @@ def train_kernel_phase(torch):
                 results[(name, label)] = row
     # Widths past the window tile's registers, which the block-row
     # backward refused (dU beside U in shared memory stopped it at u=82 for
-    # LSTM and u=94 for GRU), past u=128 on the wide layout and past
-    # u=256 on the cluster tile; timed from u=128 on (TRAIN_WIDE_TIMED).
+    # LSTM and u=94 for GRU), past u=128 on the cluster tile and from
+    # u=512 on the grid tile; timed from u=128 on (TRAIN_WIDE_TIMED).
     for cell in ("gru", "lstm"):
         gates = 4 if cell == "lstm" else 3
         for label, (batch, steps, units) in TRAIN_WIDE_SHAPES.items():
@@ -1506,12 +1510,57 @@ def grid_train_phase(torch) -> dict:
             if batch > 1:
                 train_window_bits(torch, cell, case)
             if label == GRID_LINE_SHAPE:
-                for name, row in time_train_kernels(torch, cell, case, errors,
-                                                    WIDE_REPS).items():
+                rows = time_train_kernels(torch, cell, case, errors,
+                                          WIDE_REPS)
+                rows[f"{cell}_train_bwd"].update(grid_bwd_split(
+                    torch, cell, case, rows[f"{cell}_train_fwd"]))
+                for name, row in rows.items():
                     results[(f"{name}_grid", label)] = row
             del case
         grid_train_huge(torch, cell, gates, *GRID_HUGE[cell])
     return results
+
+
+def grid_bwd_split(torch, cell: str, case, fwd_row: dict) -> dict:
+    """The grid backward's recurrence apart (``torch.profiler``, one call,
+    warm): the recompute (A) and the T steps (B), beside the forward's time
+    and the step's bound, the forward's FLOP (the same product, U^T for
+    U); the keys ``recompute_ms``, ``step_ms``, ``fwd_ms``,
+    ``step_bound_ms`` of phase 6's kernels line."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    params, codes, masks, d_avg, d_hid = case
+    seqs = cuda_rnn.train_fwd(cell, params, codes, masks)[2:]
+
+    def recurrence():
+        cuda_rnn._bwd_recurrence(cell, params, codes, masks, tuple(seqs),
+                                 d_avg, d_hid)
+
+    recurrence()
+    # The profiler can drop a kernel's record: a part it did not see after
+    # three profiled calls is reported as None (not measured).
+    split = {"recompute_ms": None, "step_ms": None}
+    for _ in range(3):
+        by_name = device_time(torch, recurrence)
+        for key, kernel in (("recompute_ms", "GridRecomputeKernel"),
+                            ("step_ms", "GridBwdStepKernel")):
+            ms = sum(t for name, t in by_name.items() if kernel in name)
+            if split[key] is None and ms > 0:
+                split[key] = ms
+        if None not in split.values():
+            break
+    split.update(fwd_ms=fwd_row["ms"], step_bound_ms=fwd_row["bound_ms"])
+    if split["step_ms"] is None:
+        raise AssertionError(f"{cell}: the profiler saw no (B) step")
+    recompute = ("not measured (the profiler dropped its record)"
+                 if split["recompute_ms"] is None
+                 else f"{split['recompute_ms']:.4f}")
+    print(f"  {cell}_train_bwd_grid recurrence (profiler): (A) "
+          f"recompute_ms={recompute} (B) step_ms={split['step_ms']:.4f} "
+          f"against the forward's {split['fwd_ms']:.4f} "
+          f"({split['step_ms'] / split['fwd_ms']:.3f}x; bound "
+          f"{split['step_bound_ms']:.4f})", flush=True)
+    return split
 
 
 def grid_train_huge(torch, cell: str, gates: int, batch: int, steps: int,
@@ -1896,8 +1945,8 @@ def training_phase(torch, np, tmp: str):
 
 def wide_training_phase(torch, np, tmp: str) -> dict:
     """Phase 19: both cells trained at the widths of
-    :data:`TRAIN_CEILING_RUNS` (the wide layout, the cluster tile, the
-    grid tile) through the CLI, captured; one
+    :data:`TRAIN_CEILING_RUNS` (the cluster tile, the grid tile)
+    through the CLI, captured; one
     step against the plain versions; a captured epoch's steps/s and device
     time by kernel name; a captured ``Trainer.fit`` against the eager
     one; then each trained model predicts the fixture of its cell on the
@@ -1932,10 +1981,12 @@ def wide_training_phase(torch, np, tmp: str) -> dict:
             n_epochs=epochs, n_batches=steps, **opts)
         grid = ["", "_grid"] if cuda_rnn.train_layout(
             opts["units"]) == "grid" else [""]
+        avg_grid = ["", "_grid"] if cuda_rnn.avg_tile_name(
+            cell, opts["units"]) == "grid" else [""]
         launches[name] = check_counts({
             **{f"{cell}_train_{kind}{g}": epochs * steps
                for kind in ("fwd", "bwd") for g in grid},
-            **{f"{cell}_avg{g}": epochs for g in grid}})
+            **{f"{cell}_avg{g}": epochs for g in avg_grid}})
         check_losses(name, records, epochs)
         print(f"{name} train CLI (captured, -b {batch}): {seconds:.3f} s for "
               f"{epochs} x {steps} steps (data, build of the samplers and "
@@ -4911,7 +4962,10 @@ def main() -> int:
             "replaces": replaces, "launches": grid_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            # The backward's step (B) beside the forward (grid_bwd_split).
+            **{key: row[key] for key in ("recompute_ms", "step_ms", "fwd_ms",
+                                         "step_bound_ms") if key in row}})
     kernels.append({
         "name": "mss_stack", "route": "cuda",
         "source": "deepgrp_tpu_torch/csrc/mss_stack.cu",

@@ -251,12 +251,13 @@ def _declare_rnn_grid(lib: ctypes.CDLL) -> None:
     # codes, batch, steps, masks, kernel, bias, padded U, units (as
     # dg_gru_train_fwd's head); the forwards: avg, hidden, hseq (and cseq),
     # h0, h1, carry, stream; the recurrences: padded U^T, hseq (and cseq),
-    # d_avg, d_hidden, d_rp and d_xp (or da), carry, stream
+    # d_avg, d_hidden, d_rp and d_xp (or da), carry, cot, blocks of 32
+    # units a CTA of (B), stream
     head = [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32]
     lib.dg_gru_train_fwd_grid.argtypes = head + [_PTR] * 7
     lib.dg_lstm_train_fwd_grid.argtypes = head + [_PTR] * 8
-    lib.dg_gru_bwd_grid.argtypes = head + [_PTR] * 8
-    lib.dg_lstm_bwd_grid.argtypes = head + [_PTR] * 8
+    lib.dg_gru_bwd_grid.argtypes = head + [_PTR] * 8 + [_I32, _PTR]
+    lib.dg_lstm_bwd_grid.argtypes = head + [_PTR] * 8 + [_I32, _PTR]
     for fn in (lib.dg_avg_grid, lib.dg_seq_grid, lib.dg_grid_shape,
                lib.dg_grid_layout, lib.dg_gru_train_fwd_grid,
                lib.dg_lstm_train_fwd_grid, lib.dg_gru_bwd_grid,

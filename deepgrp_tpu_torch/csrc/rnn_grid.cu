@@ -165,18 +165,44 @@
 //     (B) does not recompute.
 //   * The backward's (B), GridBwdStepKernel, T launches in reverse time:
 //     dh of each (row, unit) as the product of step t+1's gate cotangents
-//     (GRU d_rp, LSTM da) with a zero-padded U^T [g][W][W] (K = g W, one
-//     gate's tile), then the cotangent math of rnn_train.cu's header in the
-//     epilogue for every gate of the unit; a carry passes dh z (GRU) or dc
-//     f (LSTM) to step t-1; step T-1 seeds dh with d_hidden / 2.
-//   * Both read their A operand row-major (hseq, the cotangents), so a
-//     gather stages it k-major with 4-byte cp.async copies that write zeros
-//     past the rows and the width (Gather), into a stage padded to 36
-//     floats a k so a warp's copies meet no bank conflict.
+//     (GRU d_rp, LSTM da) with a zero-padded U^T [g][W][W] (K = g W), then
+//     the cotangent math of rnn_train.cu's header in the epilogue for
+//     every gate of the unit; a carry passes dh z (GRU) or dc f (LSTM) to
+//     step t-1; step T-1 seeds dh with d_hidden / 2.  A CTA owns 32 rows
+//     and 1-4 blocks of 32 units (the caller's count: grid_bwd_groups
+//     of models/cuda_rnn.py, from the CTAs a step against the SMs),
+//     each thread 4 rows x 4
+//     units of each block (16-64 sums); the epilogue also writes the
+//     cotangents k-major into a ping-pong [2][g W][R'] that the next
+//     step stages with 16-byte copies, as the forward stages h.
+//   * (A) reads hseq row-major, so a gather stages it k-major with 4-byte
+//     cp.async copies that write zeros past the rows and the width
+//     (Gather), into a stage padded to 36 floats a k so a warp's copies
+//     meet no bank conflict.
 //   * Every sum runs in an order fixed by u: a window's bits do not depend
-//     on the batch, its place or the launch; no atomics.
+//     on the batch, its place, (B)'s blocks a CTA or the launch; no
+//     atomics.
 //   * Bound: the forward does the inference step's FLOP, the backward
 //     three times as many (A, B and the reduction's dU).
+//   * What held (B) back, and the redesign (tools/train_tile_sweep.py
+//     --ablate: edited copies, each checked against the plain recurrence
+//     and bitwise equal to the shipped one; NVIDIA H100 80GB HBM3 at
+//     700 W; ms of (B) at B=64, T=342, u=4608, GRU / LSTM).  The first
+//     design, one block of 32 units a CTA (16 sums a thread, 2 FMAs a
+//     float loaded from shared memory) with A gathered in 4-byte copies
+//     from the row-major cotangents, took 380.13 / 461.39 (2.0 / 1.8x
+//     the forward's step; this kernel so edited 356.84 / 468.44); the
+//     same tile with the 16-byte k-major copies 257.47 / 343.65: the
+//     gather was the larger cause (1.39 / 1.36x).
+//     With those copies, 1-4 blocks a CTA took 257.47 / 257.08 / 213.23
+//     / 285.12 (GRU): 3 blocks (48 sums, 3 FMAs a float, the forward's
+//     ratio) fill the 132 SMs with 192 CTAs, 4 leave 12 SMs two of 144.
+//     grid_bwd_groups (models/cuda_rnn.py) estimates each count's time
+//     from the CTAs a step against the SMs; it picks 3 there (213.23 / 278.92: 1.12 / 1.09x the
+//     forward's 189.70 / 255.58), 2 at B=256, u=1024 (44.02 against 1
+//     block's 51.93), 1 at B=16, u=4096 (77.50; 4 blocks 190.83).
+//   * ptxas -v (sm_90a, CUDA 12.8): GridBwdStepKernel<g, 1-4 blocks> 87 /
+//     91 / 113 / 127 registers, either cell; no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1225,70 +1251,225 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---- the backward's (B)
+//
+// The product of step t+1's gate cotangents A [R', g W] (GRU d_rp, LSTM
+// da, K = g W in the padded U^T's (gate, unit) order) with U^T [g W, W]:
+// dh [R', W].  A CTA owns kBlockRows rows and kGroups blocks of 32 units
+// (the caller's); each thread 4 rows x 4 kGroups units, unit n0 + 32 q + 4 ug
+// + e of block q, so a warp's loads of a k's U are 128 contiguous bytes
+// and its A loads four broadcast float4s: per k one float4 of A and
+// kGroups of U for 16 kGroups FMAs.  A arrives k-major from the previous
+// step's epilogue (a ping-pong cot [2][g W][R']), staged with 16-byte
+// copies as StageH stages h.  K and the slices run as in TileDot: slice s
+// sums k = 32 i + 8 s + j of every tile i in order, and the slices' sums
+// are added in slice order, an order fixed by u alone (kGroups and the
+// batch change which CTA owns a sum, not its order).
+
+constexpr int kBwdMaxGroups = 4;     // most blocks of 32 units a CTA
+constexpr int kBwdRowA = kBlockRows;  // A's stage row stride (floats)
+
+template <int kGroups>
+__host__ __device__ constexpr size_t BwdStageBytes() {
+  return static_cast<size_t>(kBlockK) *
+         (kGroups * kBlockUnits + kBwdRowA) * sizeof(float);
+}
+
+// Dynamic shared memory of (B): the ring, which every slice's sums reuse
+// after the last tile.
+template <int kGroups>
+__host__ __device__ constexpr size_t BwdSmem() {
+  const size_t ring = kStages * BwdStageBytes<kGroups>();
+  const size_t sums = static_cast<size_t>(kSplit) * 16 * kGroups *
+                      kSliceThreads * sizeof(float);
+  return ring > sums ? ring : sums;
+}
+
+// A 16-byte cp.async that writes zeros and reads nothing unless `valid`.
+__device__ __forceinline__ void CpAsync16If(void *smem, const void *gmem,
+                                            bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// (B)'s product for the CTA's rows r0.. and units n0..: acc[r][q][e] of
+// row r0 + 4 rg + r and unit n0 + 32 q + 4 ug + e, summed over n_tiles
+// tiles of kBlockK.  load_a(s_a, tile) issues the copies that stage the
+// tile's A k-major (s_a[kk kBwdRowA + r]).  Every thread then holds the
+// sum of its slice; CotSums adds them.
+template <int kGroups, typename LoadA>
+__device__ __forceinline__ void CotDot(
+    unsigned char *smem, const float *__restrict__ b_mat, size_t width,
+    int n0, int n_tiles, const LoadA &load_a,
+    float (&acc)[kThreadRows][kGroups][kThreadUnits]) {
+  constexpr size_t kUBytes =
+      static_cast<size_t>(kBlockK) * kGroups * kBlockUnits * sizeof(float);
+  constexpr size_t kStage = BwdStageBytes<kGroups>();
+  constexpr int kUnits = kGroups * kBlockUnits;
+  const int tid = threadIdx.x;
+  const int slice = tid / kSliceThreads, own = tid % kSliceThreads;
+  const int ug = own % (kBlockUnits / kThreadUnits);
+  const int rg = own / (kBlockUnits / kThreadUnits);
+
+  const auto load_tile = [&](int stage, int tile) {
+    unsigned char *base = smem + stage * kStage;
+    float *s_u = reinterpret_cast<float *>(base);
+    const size_t k0 = static_cast<size_t>(tile) * kBlockK;
+    constexpr int kRowCopies = kUnits / 4;
+#pragma unroll
+    for (int c = tid; c < kBlockK * kRowCopies; c += kThreads) {
+      const int kk = c / kRowCopies, col = (c % kRowCopies) * 4;
+      const bool in = n0 + col < static_cast<int>(width);
+      CpAsync16If(s_u + kk * kUnits + col,
+                  b_mat + (k0 + kk) * width + (in ? n0 + col : 0), in);
+    }
+    load_a(reinterpret_cast<float *>(base + kUBytes), tile);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    CpAsyncCommit();
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    CpAsyncWait<kStages - 2>();
+    __syncthreads();  // the tile landed; every slice is done with tile-1
+    const int next = tile + kStages - 1;
+    if (next < n_tiles) load_tile(next % kStages, next);
+    CpAsyncCommit();
+    const unsigned char *base = smem + (tile % kStages) * kStage;
+    const float *s_u = reinterpret_cast<const float *>(base);
+    const float *s_a = reinterpret_cast<const float *>(base + kUBytes);
+#pragma unroll
+    for (int j = 0; j < kBlockK / kSplit; ++j) {
+      const int kk = slice * (kBlockK / kSplit) + j;
+      const float4 aq = *reinterpret_cast<const float4 *>(
+          s_a + kk * kBwdRowA + kThreadRows * rg);
+      const float av[kThreadRows] = {aq.x, aq.y, aq.z, aq.w};
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        float u[kThreadUnits];
+        LoadU4(s_u + kk * kUnits + q * kBlockUnits + kThreadUnits * ug, u);
+#pragma unroll
+        for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+          for (int e = 0; e < kThreadUnits; ++e) {
+            acc[r][q][e] = fmaf(av[r], u[e], acc[r][q][e]);
+          }
+        }
+      }
+    }
+  }
+  CpAsyncWait<0>();
+  __syncthreads();  // the ring is free for the slices' sums
+}
+
+// The slices' sums of CotDot, added in slice order ((s0 + s1) + s2) + s3:
+// every slice stores its sums, then thread (slice s, own) takes the sums
+// of own's 4 rows at its units c = s kGroups + i (c = 4 q + e), i <
+// kGroups, into dh[r][i].
+template <int kGroups>
+__device__ __forceinline__ void CotSums(
+    unsigned char *smem,
+    const float (&acc)[kThreadRows][kGroups][kThreadUnits],
+    float (&dh)[kThreadRows][kGroups]) {
+  constexpr int kAcc = kThreadRows * kGroups * kThreadUnits;
+  const int slice = threadIdx.x / kSliceThreads;
+  const int own = threadIdx.x % kSliceThreads;
+  float *sums = reinterpret_cast<float *>(smem);
+  float *mine = sums + slice * kAcc * kSliceThreads + own;
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+#pragma unroll
+      for (int e = 0; e < kThreadUnits; ++e) {
+        mine[((r * kGroups + q) * kThreadUnits + e) * kSliceThreads] =
+            acc[r][q][e];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      const int c = slice * kGroups + i;
+      const int idx = (r * kGroups + c / kThreadUnits) * kThreadUnits +
+                      c % kThreadUnits;
+      float v = sums[idx * kSliceThreads + own];
+#pragma unroll
+      for (int s = 1; s < kSplit; ++s) {
+        v += sums[(s * kAcc + idx) * kSliceThreads + own];
+      }
+      dh[r][i] = v;
+    }
+  }
+}
+
 // The backward's (B), step t (launched for t = T-1 down to 0): dh of the
-// CTA's rows and units as the product of step t+1's gate cotangents (GRU
-// d_rp, LSTM da, K = g W in the padded U^T's (gate, unit) order) with
-// U^T, then the cotangent math of rnn_train.cu's header for every gate of
-// each unit, reading the preactivations (A) left in d_out at step t and
-// writing the cotangents there.  The carry holds what passes to step t-1
-// beside the product (GRU dh z, LSTM dc f); step T-1 seeds dh with
-// d_hidden / 2 and runs no product.
-template <int kGates>
+// CTA's rows and units (CotDot, CotSums), then the cotangent math of
+// rnn_train.cu's header for every gate of each unit, reading the
+// preactivations (A) left in d_out at step t and writing the cotangents
+// there (and d_rp), and k-major into cot_next for step t-1.  The carry
+// holds what passes to step t-1 beside the product (GRU dh z, LSTM dc f);
+// step T-1 seeds dh with d_hidden / 2 and runs no product.
+template <int kGates, int kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
-    GridBwdStepKernel(const TrainArgs a, const int t) {
+    GridBwdStepKernel(const TrainArgs a, const int t,
+                      const float *__restrict__ cot_cur,
+                      float *__restrict__ cot_next) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int slice = threadIdx.x / kSliceThreads;
   const int own = threadIdx.x % kSliceThreads;
   const int ug = own % (kBlockUnits / kThreadUnits);
   const int rg = own / (kBlockUnits / kThreadUnits);
   const int r0 = blockIdx.x * kBlockRows;
-  const int n0 = blockIdx.y * kBlockUnits;
+  const int n0 = blockIdx.y * kGroups * kBlockUnits;
   const int units = a.units, steps = a.steps, batch = a.batch;
+  const size_t rows = a.rows;
   const size_t cols = static_cast<size_t>(kGates) * units;
-  const float *next = kGates == 3 ? a.d_rp : a.d_out;
 
-  Gather gather(next);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + gather.Row(i);
-    gather.src[i] = row < 2 * batch
-                        ? next + (static_cast<size_t>(row) * steps + t + 1) *
-                                     cols
-                        : nullptr;
-  }
-  float acc[kThreadRows][1][kThreadUnits] = {};
-  if (!TileDot<1, kGatherStride>(
-          smem, a.transposed, a.width, n0,
-          t == steps - 1 ? 0 : kGates * a.width / kBlockK,
-          [&](float *s_a, int tile) {
-            const int gate = tile * kBlockK / a.width;
-            const int i = tile * kBlockK - gate * a.width + gather.kk;
-            gather.Stage(s_a, gate * static_cast<size_t>(units) + i,
-                         i < units);
-          },
-          acc)) {
-    return;
-  }
+  float acc[kThreadRows][kGroups][kThreadUnits] = {};
+  CotDot<kGroups>(
+      smem, a.transposed, a.width, n0,
+      t == steps - 1 ? 0 : kGates * a.width / kBlockK,
+      [&](float *s_a, int tile) { StageH(s_a, cot_cur, rows, r0, tile); },
+      acc);
+  float dh_sum[kThreadRows][kGroups];
+  CotSums<kGroups>(smem, acc, dh_sum);
 
+  int code[kThreadRows];
 #pragma unroll
   for (int r = 0; r < kThreadRows; ++r) {
     const int row = r0 + kThreadRows * rg + r;
-    if (row >= 2 * batch) break;
     const bool reverse = row >= batch;
-    const int w = reverse ? row - batch : row;
-    const int code = RowCode(a, w, reverse, t);
+    code[r] = row < 2 * batch ? RowCode(a, reverse ? row - batch : row,
+                                        reverse, t)
+                              : 0;
+  }
 #pragma unroll
-    for (int m = 0; m < kThreadUnits; ++m) {
-      const int un = n0 + kThreadUnits * ug + m;
-      if (un >= units) break;
+  for (int i = 0; i < kGroups; ++i) {
+    const int c = slice * kGroups + i;
+    const int un = n0 + kBlockUnits * (c / kThreadUnits) +
+                   kThreadUnits * ug + c % kThreadUnits;
+    if (un >= units) continue;
+    float next[kGates][kThreadRows] = {};
+#pragma unroll
+    for (int r = 0; r < kThreadRows; ++r) {
+      const int row = r0 + kThreadRows * rg + r;
+      if (row >= 2 * batch) break;
+      const int w = row >= batch ? row - batch : row;
       float x[kGates], p[kGates];
-      InputRow<kGates>(a, row, code, un, x);
+      InputRow<kGates>(a, row, code[r], un, x);
       const size_t at_d =
           (static_cast<size_t>(row) * steps + t) * cols + un;
 #pragma unroll
       for (int g = 0; g < kGates; ++g) p[g] = a.d_out[at_d + g * units];
       const size_t at_prev =
           (static_cast<size_t>(row) * steps + t - 1) * units + un;
-      const size_t at = static_cast<size_t>(un) * a.rows + row;
+      const size_t at = static_cast<size_t>(un) * rows + row;
       const size_t at_w = static_cast<size_t>(w) * units + un;
       const float seed = 0.5f * a.d_hidden[at_w];
       const float half_avg =
@@ -1305,7 +1486,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float rh = p[2] + b_rec[2];
         const float hh = tanhf(x[2] + rr * rh);
         const float dh =
-            ((t == steps - 1 ? seed : a.carry[at]) + acc[r][0][m]) +
+            ((t == steps - 1 ? seed : a.carry[at]) + dh_sum[r][i]) +
             half_avg;
         const float da_z = dh * (h_prev - hh) * z * (1.0f - z);
         const float da_h = dh * (1.0f - z) * (1.0f - hh * hh);
@@ -1313,9 +1494,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         a.d_out[at_d] = da_z;
         a.d_out[at_d + units] = da_r;
         a.d_out[at_d + 2 * units] = da_h;
-        a.d_rp[at_d] = da_z;
-        a.d_rp[at_d + units] = da_r;
-        a.d_rp[at_d + 2 * units] = da_h * rr;
+        next[0][r] = da_z;
+        next[1][r] = da_r;
+        next[2][r] = da_h * rr;
         a.carry[at] = dh * z;
       } else {
         const float c_prev = t > 0 ? a.cseq[at_prev] : 0.0f;
@@ -1324,17 +1505,29 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float gg = tanhf(x[2] + p[2]);
         const float og = Sigmoid(x[3] + p[3]);
         const float tanh_c = tanhf(fg * c_prev + ig * gg);
-        const float dh = ((t == steps - 1 ? seed : 0.0f) + acc[r][0][m]) +
+        const float dh = ((t == steps - 1 ? seed : 0.0f) + dh_sum[r][i]) +
                          half_avg;
         const float dc = t == steps - 1 ? 0.0f : a.carry[at];
         const float d_o = dh * tanh_c;
         const float dc_t = dc + dh * og * (1.0f - tanh_c * tanh_c);
-        a.d_out[at_d] = (dc_t * gg) * ig * (1.0f - ig);
-        a.d_out[at_d + units] = (dc_t * c_prev) * fg * (1.0f - fg);
-        a.d_out[at_d + 2 * units] = (dc_t * ig) * (1.0f - gg * gg);
-        a.d_out[at_d + 3 * units] = d_o * og * (1.0f - og);
+        next[0][r] = (dc_t * gg) * ig * (1.0f - ig);
+        next[1][r] = (dc_t * c_prev) * fg * (1.0f - fg);
+        next[2][r] = (dc_t * ig) * (1.0f - gg * gg);
+        next[3][r] = d_o * og * (1.0f - og);
         a.carry[at] = dc_t * fg;
       }
+      float *d_next = kGates == 3 ? a.d_rp : a.d_out;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) d_next[at_d + g * units] = next[g][r];
+    }
+    // The cotangents of step t+1's product (d_rp, da) k-major for step
+    // t-1: rows 4 rg.. of column (g, un), zeros past the batch.
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) {
+      *reinterpret_cast<float4 *>(
+          cot_next + (static_cast<size_t>(g) * a.width + un) * rows + r0 +
+          kThreadRows * rg) =
+          make_float4(next[g][0], next[g][1], next[g][2], next[g][3]);
     }
   }
 }
@@ -1434,13 +1627,37 @@ int RunTrainFwd(TrainArgs a, void *h0, void *h1, void *stream) {
                   2LL * a.batch, h0, h1, stream);
 }
 
+// (B)'s T launches for t = T-1 down to 0, kGroups blocks of 32 units a
+// CTA, the cotangents handed k-major between steps through cot [2][g
+// W][R']; the first error, else 0.
+template <int kGates, int kGroups>
+int RunBwdSteps(const TrainArgs &a, const long long *shape, float *cot,
+                cudaStream_t s) {
+  const auto step = GridBwdStepKernel<kGates, kGroups>;
+  constexpr size_t smem = BwdSmem<kGroups>();
+  cudaError_t err = OptIn(step, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(shape[2]),
+                  static_cast<unsigned>((shape[3] + kGroups - 1) / kGroups));
+  const size_t plane = static_cast<size_t>(kGates) * shape[0] * shape[1];
+  for (int t = a.steps - 1; t >= 0; --t) {
+    step<<<grid, kThreads, smem, s>>>(a, t, cot + ((t + 1) & 1) * plane,
+                                      cot + (t & 1) * plane);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 // A training backward's launches on `stream`: (A) once, then (B) for t =
-// T-1 down to 0; the first error, else 0.
+// T-1 down to 0 in `groups` blocks of 32 units a CTA (1 to
+// kBwdMaxGroups); the first error, else 0.
 template <int kGates>
-int RunTrainBwd(TrainArgs a, void *stream) {
+int RunTrainBwd(TrainArgs a, float *cot, int groups, void *stream) {
   long long shape[4];
   const long long n_rows = 2LL * a.batch * a.steps;
-  if (a.batch < 1 || a.steps < 1 || !Shape(2LL * a.batch, a.units, shape) ||
+  if (a.batch < 1 || a.steps < 1 || groups < 1 || groups > kBwdMaxGroups ||
+      !Shape(2LL * a.batch, a.units, shape) ||
       n_rows > 0x7fffffffLL - kBlockRows) {  // (A)'s rows a 32-bit grid
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1457,18 +1674,13 @@ int RunTrainBwd(TrainArgs a, void *stream) {
               kThreads, smem_a, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto step = GridBwdStepKernel<kGates>;
-  constexpr size_t smem_b = GridSmem<1, kGatherStride>();
-  err = OptIn(step, smem_b);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(shape[2]),
-                  static_cast<unsigned>(shape[3]));
-  for (int t = a.steps - 1; t >= 0; --t) {
-    step<<<grid, kThreads, smem_b, s>>>(a, t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  switch (groups) {
+    case 1: return RunBwdSteps<kGates, 1>(a, shape, cot, s);
+    case 2: return RunBwdSteps<kGates, 2>(a, shape, cot, s);
+    case 3: return RunBwdSteps<kGates, 3>(a, shape, cot, s);
+    case 4: return RunBwdSteps<kGates, 4>(a, shape, cot, s);
   }
-  return 0;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The arguments every training entry point shares.
@@ -1581,14 +1793,16 @@ int dg_lstm_train_fwd_grid(const void *codes, int batch, int steps,
 // Rows 4 and 6's recurrences past the cluster tiles: the arguments of
 // dg_gru_bwd_recurrence / dg_lstm_bwd_recurrence (rnn_train.cu), recurrent
 // the padded U as above, transposed the padded U^T [g][W][W] (zero past
-// u), carry [W][R'] scratch; the gate cotangents out (d_rp and d_xp, or
-// da, [2B, T, g u]), for dg_train_reduce.  T + 1 launches on `stream`.
+// u), carry [W][R'] and cot [2][g W][R'] scratch, zeroed; the gate
+// cotangents out (d_rp and d_xp, or da, [2B, T, g u]), for
+// dg_train_reduce; (B) in `groups` blocks of 32 units a CTA (1-4; any
+// count gives the same bits).  T + 1 launches on `stream`.
 int dg_gru_bwd_grid(const void *codes, int batch, int steps,
                     const void *masks, const void *kernel, const void *bias,
                     const void *recurrent, int units, const void *transposed,
                     const void *hseq, const void *d_avg,
                     const void *d_hidden, void *d_rp, void *d_xp,
-                    void *carry, void *stream) {
+                    void *carry, void *cot, int groups, void *stream) {
   TrainArgs a =
       TrainHead(codes, batch, steps, masks, kernel, bias, recurrent, units);
   a.transposed = static_cast<const float *>(transposed);
@@ -1598,7 +1812,7 @@ int dg_gru_bwd_grid(const void *codes, int batch, int steps,
   a.d_rp = static_cast<float *>(d_rp);
   a.d_out = static_cast<float *>(d_xp);
   a.carry = static_cast<float *>(carry);
-  return RunTrainBwd<3>(a, stream);
+  return RunTrainBwd<3>(a, static_cast<float *>(cot), groups, stream);
 }
 
 int dg_lstm_bwd_grid(const void *codes, int batch, int steps,
@@ -1607,7 +1821,7 @@ int dg_lstm_bwd_grid(const void *codes, int batch, int steps,
                      const void *transposed, const void *hseq,
                      const void *cseq, const void *d_avg,
                      const void *d_hidden, void *da, void *carry,
-                     void *stream) {
+                     void *cot, int groups, void *stream) {
   TrainArgs a =
       TrainHead(codes, batch, steps, masks, kernel, bias, recurrent, units);
   a.transposed = static_cast<const float *>(transposed);
@@ -1617,7 +1831,7 @@ int dg_lstm_bwd_grid(const void *codes, int batch, int steps,
   a.d_hidden = static_cast<const float *>(d_hidden);
   a.d_out = static_cast<float *>(da);
   a.carry = static_cast<float *>(carry);
-  return RunTrainBwd<4>(a, stream);
+  return RunTrainBwd<4>(a, static_cast<float *>(cot), groups, stream);
 }
 
 // out[0] W (u padded to whole unit blocks: U's rows and columns, h's k),

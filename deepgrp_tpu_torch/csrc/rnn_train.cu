@@ -11,9 +11,9 @@
 //   * dg_lstm_bwd_recurrence <- :542 _lstm_train_bwd_kernel (_lstm_bwd_call
 //     + dg_train_reduce         :715, custom VJP pallas_lstm_avg_train
 //                               :806-855)
-// up to u=1024 (kMaxUnits); past it rnn_grid.cu's grid tile runs the
-// forwards and the recurrences (the caller sends u=1024 there too), and
-// dg_train_reduce sums its cotangents at every width.
+// up to u=1024 (kMaxUnits); the caller (models/cuda_rnn.py) sends u=512
+// and past to rnn_grid.cu's grid tile, whose cotangents dg_train_reduce
+// sums too.
 // Contract (identical to those kernels and to the plain PyTorch versions in
 // deepgrp_tpu_torch/models/rnn.py): the inference contract of rnn_avg.cu,
 // plus Keras input dropout as per-gate scales of the selected input row,
@@ -45,7 +45,7 @@
 // hseq written, so both kernels are bound by float32 arithmetic, not bytes.
 // The recurrence is sequential in T, so its parallelism is B x 2 x g*u.
 //
-// The window tile (every kernel here up to u=256).  The first design's
+// The window tile (every kernel here up to u=128).  The first design's
 // block-row tile gave 120 threads a CTA and one CTA an SM at B=256: 3.75
 // warps an SM, about one a scheduler, so nothing hid the latency of shared
 // loads and dependent FMAs; and its
@@ -95,79 +95,28 @@
 //     there, so the threads bound the width: 4u <= 512, u <= 128, for both
 //     cells (the block-row backward, with U and the CTA's dU in shared
 //     memory, stopped at u=82 for LSTM and u=94 for GRU), and then the
-//     wide layout below.  B=256 gives the GRU forward 16 warps an SM,
+//     cluster tile below.  B=256 gives the GRU forward 16 warps an SM,
 //     against the block-row tile's 3.75.
-//   * The wide layout (129 <= u <= 256, kWideUnits): the same thread map
-//     and forwards under a 1,024-thread bound (GruTrainFwdKernel<false,
-//     true>, LstmTrainFwdKernel<false, true>: at most 64 registers, one
-//     CTA an SM).  The backward's transposed product cannot stage its
-//     parts [2][u][ldp] (2u(u+2) floats: 528 KB at u=256, over the 227 KB
-//     a CTA may have), so GruBwdRecurrenceWideKernel and
-//     LstmBwdRecurrenceWideKernel stage the step's gate cotangents d
-//     [2][g u] instead and lane (i, s) forms dh_prev[row, i] = sum_j
-//     d[row, j] U[i, j] over the quads s, s+4, ... of the g u columns
-//     (DhPrevRow), reading U's row i through L1/L2 (a unit's four lanes
-//     read 64 consecutive bytes; the cotangents are float4 broadcasts);
-//     the butterfly of GateDots sums the slices, so the lane that needs
-//     dh_prev[row, i] next step holds it in a register: no dh_prev in
-//     shared memory.  Two barriers a step, as above; sums in an order
-//     fixed by u, no atomics; the GRU's forward and backward share
-//     GateDots.  Shared memory (WideSmem) 4 (2 Pad4(u) + 2 Pad4(g u) +
-//     Pad4(5 g u) + 10 g) + T bytes: at u=256, T=342 the GRU's 24,014 B
-//     and the LSTM's 31,222 B (the forwards' 19,918 / 25,078 B).
-//   * The wide layout, timed on the H100 (tools/train_tile_sweep.py,
-//     B=256, T=342, masks at rate 0.0928, ms; GRU / LSTM; forward,
-//     backward = recurrence + reduction; cuDNN's forward and forward +
-//     backward, TF32 off, in the same process):
-//       u=128 (U through L1/L2): 3.07, 10.76 = 9.72 + 1.13 / 4.64, 13.29
-//             = 11.90 + 1.41; cuDNN 1.46, 10.49 / 3.04, 8.01;
-//       u=129: 3.24, 8.94 = 7.09 + 1.88 / 5.05, 16.14 = 13.81 + 2.31;
-//       u=160: 6.51, 16.26 / 8.67, 24.14;
-//       u=192: 10.06, 21.98 / 12.31, 32.10;
-//       u=224: 12.34, 29.48 / 16.80, 41.83;
-//       u=256: 16.19, 36.85 = 32.86 + 3.91 / 21.84, 51.51 = 46.52 +
-//             4.93; cuDNN 6.88, 26.42 / 6.90, 21.88 (bounds 1.03, 3.08 /
-//             1.37, 4.11).
-//     What bounds it: U's stream from L2.  Each CTA reads all of U every
-//     step (768 KB GRU, 1 MB LSTM at u=256): 67 / 90 GB a forward at
-//     B=256, read at 4.1 TB/s in both cells, and the backward recurrence,
-//     which reads U twice a step (GateDots, DhPrevRow), moves 134 GB in
-//     32.86 ms, the same rate: reading U's rows for dh_prev costs what the
-//     gate recompute's reads cost, so a transposed copy of U (coalesced
-//     across i) would move the same bytes.  So the wide layout is 2.4x
-//     (GRU) and 3.4x (LSTM) slower than cuDNN at u=256; two windows a CTA
-//     would halve U's bytes a row.  The other design, a window's units
-//     split over a thread-block cluster with U's slices in shared memory
-//     (rnn_tile.cuh), needs 4 CTAs a window for the GRU's 768 KB of f32 U
-//     and 8 for the LSTM's 1 MB: 33 / 16 windows at once on 132 SMs, 8 /
-//     16 waves of 342 steps; at the ~3.5 us a step that tile takes for
-//     the bf16 inference at u=256 (rnn_avg.cu, tools/avg_bf16_ablation.py)
-//     that is an estimated 10 / 19 ms a forward, no better; it was not
-//     built.  At u=129 the GRU's wide backward recurrence (7.09 ms) beats
-//     the L1/L2 layout's at u=128 (9.72), the LSTM's does not (13.81
-//     against 11.90); u <= 128 keeps its layouts.
 //   * No float atomics anywhere: two backward runs are bitwise equal.
 //   * All float32 with FMA (the counterpart of Precision.HIGHEST): no TF32,
 //     no tensor cores.  Sums run in other orders than the plain versions;
 //     the tolerances allow for that.
 //   * ptxas -v (sm_90a, CUDA 12.8): LstmTrainFwdKernel 109 registers (U in
-//     registers) / 72 (U through L2) / 64 (wide), GruTrainFwdKernel 94 /
-//     69 / 63, no spills; LstmBwdRecurrenceKernel 128 / 86 registers, 16
-//     bytes of spill stores and loads in the register variant, none in
-//     the other; GruBwdRecurrenceKernel 128 / 89 registers, 28 bytes of
+//     registers) / 72 (U through L2), GruTrainFwdKernel 94 / 69, no
+//     spills; LstmBwdRecurrenceKernel 128 / 86 registers, 16 bytes of
 //     spill stores and loads in the register variant, none in the other;
-//     LstmBwdRecurrenceWideKernel 64 registers, 12 bytes of spill stores
-//     and loads; GruBwdRecurrenceWideKernel 64 registers, no spills;
+//     GruBwdRecurrenceKernel 128 / 89 registers, 28 bytes of spill stores
+//     and loads in the register variant, none in the other;
 //     TrainReduceKernel 72 registers, 32,384 B of static shared memory, no
 //     spills; SumReducePartsKernel 32.
 //   * What bounds them on this card up to u=128: not bytes or FMAs but
 //     latency.  The step loop is sequential, and each step waits on
 //     shared loads, shuffles and barriers; 16 warps an SM hide part of
-//     it.  Past u=128, U's stream from L2 (above).
+//     it.
 //
-// The cluster tile (257 <= u <= 1024, kMaxUnits of rnn_cluster.cuh; the
+// The cluster tile (129 <= u <= 1024, kMaxUnits of rnn_cluster.cuh; the
 // section of that name below): a window's units over a thread-block
-// cluster of 8 or 16 CTAs, each owning uc = ceil(u / kCluster) <= 64
+// cluster of 4, 8 or 16 CTAs, each owning uc = ceil(u / kCluster) <= 64
 // units with all their gates and U's columns, one unit a lane, for 2, 4
 // or 8 windows a cluster (TrainFwdClusterKernel,
 // BwdRecurrenceClusterKernel<kGates, kWin, kCluster>).  The forward is
@@ -176,55 +125,51 @@
 // the gates with the forward's ClusterDots and GruGateMath (the forward's
 // bits), its (B) reduce-scatters dh_prev's partials through distributed
 // shared memory.
-//   * The layouts, timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
-//     (tools/train_tile_sweep.py --clusters, B=256, T=342, masks at rate
-//     0.0928, ms, forward / backward recurrence, GRU; LSTM; CTAs x
-//     windows a cluster):
-//       u=256: 8x2 8.79 / 27.03, 8x4 6.74 / 20.29, 8x8 5.30 / 18.21,
-//              16x2 11.38 / 31.99, 16x4 8.82 / 20.31, 16x8 5.63 / 24.32;
-//              LSTM 8x8 6.56 / 20.53, 16x8 6.82 / 28.14 (the wide layout,
-//              timed beside them in a second run: 16.24 / 32.88; 21.18 /
-//              46.33, where 8x8 took 5.30 / 18.23; 6.52 / 20.38);
-//       u=300: 8x2 11.46 / 32.35, 8x4 8.76 / 31.26, 8x8 7.80 / 33.08,
-//              16x2 15.01 / 40.43, 16x4 10.55 / 26.71, 16x8 8.84 / 36.59;
-//              LSTM 8x4 12.71 / 29.75, 8x8 13.20 / 37.04, 16x4 13.53 /
-//              33.53, 16x8 12.65 / 40.53;
-//       u=512: 8x2 32.49 / 94.86, 8x4 23.91 / 76.37, 8x8 18.97 / 53.50,
-//              16x4 26.38 / 56.09, 16x8 17.87 / 56.77; LSTM 8x4 29.65 /
-//              73.81, 8x8 28.29 / 62.44, 16x4 27.60 / 70.28, 16x8 21.33 /
-//              65.86;
-//       u=1024 (16 CTAs): x2 120.51 / 366.89, x4 78.65 / 206.69, x8
-//              73.91 / 171.43; LSTM x2 146.85 / 445.03, x4 100.23 /
-//              280.42, x8 89.31 / 197.70.
-//     So the forward takes 16 CTAs and 8 windows, the backward 8 CTAs (4
-//     windows up to u=384, 8 up to u=512) and past u=512 16 CTAs and 8
-//     windows (ClusterLayoutOf); a batch of at most 4 takes fewer
-//     windows.  The CTAs a cluster depend on the width only: the order of
-//     dh_prev's sum over the slots does, so a window's bits are the same
-//     in any batch.  At u=256 the cluster tile beats the wide layout 3x
-//     in the forward and 1.8-2.3x in the backward recurrence; u <= 256
-//     keeps the wide layout (ROADMAP item 28).
+//   * The routes (tools/train_tile_sweep.py --routes on an NVIDIA H100
+//     80GB HBM3 at its 700 W limit: at u=129, 160, 192, 224, 256, 300,
+//     384, 512, 768 and 1023, B=256 and 64 at T=342, B=37 at T=150, B=5
+//     at T=23, both cells, masks at rate 0.0928, each tile checked
+//     against the plain versions, then timed in turns in one process;
+//     PERF.md section 6 has the figures).  No tile was within 1.02x of
+//     the fastest at every batch: the grid tile (rnn_grid.cu) won at
+//     B=256 from u=224 (the LSTM from 192) and at B=64 from u=512, this
+//     tile at B=37 up to u=384 (the LSTM 512) and at B=5 up to 768 (the
+//     LSTM 1023).  So
+//     each width takes the tile whose largest ratio to the fastest, over
+//     both cells and the four batches, is least: this tile from u=129 to
+//     511 (at u=129 1.08, u=256 1.25, u=384 1.62; the grid 3.05, 2.02,
+//     1.71), the grid from u=512 (1.60 against this tile's 1.69; at
+//     u=1023 1.07 against 2.11).  The wide layout that served u=129-256
+//     (one CTA a window, 4u threads up to 1,024, every CTA reading all of
+//     U from L2 each step) was never the fastest (largest ratio 1.96 at
+//     u=129, 3.48 at u=256) and was deleted.
+//   * The layout (ClusterLayoutOf), from the same sweep (each kernel's
+//     CTAs a cluster with the least largest ratio over the batches; ms at
+//     GRU B=256, T=342, 4 / 8 / 16 CTAs, the best windows): the forward 8
+//     CTAs up to u=256 (u=129 2.53 / 2.76 / 3.75, u=256 6.46 / 5.25 /
+//     5.59), 16 past it (within 1.14 of the best at u=300-512, 8 up to
+//     1.32); the backward (recurrence and reduction) 4 CTAs up to u=256
+//     (u=129 7.22 / 11.44 / 14.21, u=256 21.06 / 22.04 / 23.72).  Past
+//     u=256 the backward keeps the layout it had before the sweep, 8 CTAs
+//     and 4 windows up to u=384, 8 past it: 16 CTAs had the least largest
+//     ratio there (u=384 1.07 against 8's 1.19, both at B=5) but took
+//     1.12 / 1.08x (GRU / LSTM) the 8-CTA layout's time at B=256, u=511,
+//     in turns.  The windows a cluster by batch and width are within 1.10
+//     (forward) and 1.15 (backward up to u=256) of the best windows at
+//     every case.  The CTAs a cluster depend on the
+//     width only: the order of dh_prev's sum over the slots does, so a
+//     window's bits are the same in any batch.
 //   * What bounds it: every cluster streams its CTAs' column slices of U
 //     (all of U, 12.6 MB for the GRU at u=1024) from L2 each step, the
 //     backward twice (A, B); more windows a cluster cut the stream a row,
-//     fewer let more clusters run at once (the card places 7 clusters of
-//     16 at 8 windows and u=1024).
+//     fewer let more clusters run at once.
 //   * ptxas -v (sm_90a): TrainFwdClusterKernel 96 (2 windows), 118 (GRU
 //     4, 8), 127 / 144 (LSTM 4 / 8) registers; BwdRecurrenceClusterKernel
-//     110 (2 windows), 126-146 (4), 224 / 228 (8) registers; no spills.
-//   * Shared memory: the forward's two h buffers 16 kWin Pad4(u) bytes
-//     (128 KB at 8 windows and u=1024), the backward's h_prev 8 kWin
-//     Pad4(u) and the slots 8 kCluster kWin uc bytes (64 + 128 KB there).
-//   * Where it stops: the caller (models/cuda_rnn.py,
-//     TRAIN_CLUSTER_MAX_UNITS) runs it up to u=1023 and the grid tile
-//     (rnn_grid.cu) from u=1024, where the grid was as fast or faster at
-//     every batch swept (tools/train_tile_sweep.py --grid on an NVIDIA
-//     H100 80GB HBM3 at 700 W, ms forward + backward, cluster / grid:
-//     u=1024, B=64, T=342 GRU 108.86 / 60.16; the closest, LSTM B=37,
-//     T=150 28.93 / 29.30), and at u=768 it was not (the forward of B=37,
-//     T=150: LSTM 1.12x the cluster tile's time on the grid).  Past
-//     u=1024 a tile with several units a lane served up to u=4096 once;
-//     the grid was 1.5-7.7x faster there (forward + backward).
+//     110 (2 windows), 126-146 (4), 224 / 228 (8) registers; no spills
+//     (each layout in rnn_train.log of a build).
+//   * Shared memory: the forward's two h buffers 16 kWin Pad4(u) bytes,
+//     the backward's h_prev 8 kWin Pad4(u) and the slots 8 kCluster kWin
+//     uc bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -286,20 +231,17 @@ constexpr int kMaxGates = 4;
 constexpr int kSlices = 4;  // k-slices a unit (lanes 4i .. 4i+3)
 // U's slice stays in registers up to this width (kRegQuads quads x 4 k x g
 // gates: 64 floats LSTM, 48 GRU; 256 threads, two CTAs an SM under a
-// 128-register cap); wider layers (up to kWideUnits = 256 units) read it
-// from device memory through L2 (U is 4 g u^2 bytes, at most 1 MB).
+// 128-register cap); wider layers (up to kWindowUnits = 128 units) read it
+// from device memory through L2 (U is 4 g u^2 bytes, at most 256 KB).
 constexpr int kRegUnits = 64;
 constexpr int kRegQuads = kRegUnits / (4 * kSlices);
 constexpr int kRegThreads = kSlices * kRegUnits;
-// Past kMaxThreads / 4 = 128 units the wide layout (4u threads up to 1,024,
-// one CTA an SM, at most 64 registers a thread) serves up to kWideUnits.
-constexpr int kWideThreads = 1024;
-constexpr int kWideUnits = kWideThreads / kSlices;
+constexpr int kWindowUnits = kMaxThreads / kSlices;
 
-// The launch bound of a window kernel's variant: U in registers, U through
-// L1/L2 up to u=128, or the wide layout.
-constexpr int WindowThreads(bool u_regs, bool wide) {
-  return u_regs ? kRegThreads : wide ? kWideThreads : kMaxThreads;
+// The launch bound of a window kernel's variant: U in registers, or U
+// through L1/L2 up to u=128.
+constexpr int WindowThreads(bool u_regs) {
+  return u_regs ? kRegThreads : kMaxThreads;
 }
 
 __host__ __device__ __forceinline__ int Pad4(int n) { return (n + 3) & ~3; }
@@ -536,9 +478,8 @@ __device__ void StageWindow(const int8_t *__restrict__ codes, int batch,
   StageCodes(codes, batch, steps, window, 1, s_codes);
 }
 
-template <bool kURegs, bool kWide = false>
-__global__ void __launch_bounds__(WindowThreads(kURegs, kWide),
-                                  kURegs ? 2 : 1)
+template <bool kURegs>
+__global__ void __launch_bounds__(WindowThreads(kURegs), kURegs ? 2 : 1)
 LstmTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
                    const float *__restrict__ masks,
                    const float *__restrict__ kernel,
@@ -602,9 +543,8 @@ LstmTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
 // The GRU's (reset_after=True): the LSTM forward's step with three gates
 // and a recurrent bias row; the gate dots are summed in the order
 // GruBwdRecurrenceKernel recomputes them.
-template <bool kURegs, bool kWide = false>
-__global__ void __launch_bounds__(WindowThreads(kURegs, kWide),
-                                  kURegs ? 2 : 1)
+template <bool kURegs>
+__global__ void __launch_bounds__(WindowThreads(kURegs), kURegs ? 2 : 1)
 GruTrainFwdKernel(const int8_t *__restrict__ codes, int batch, int steps,
                   const float *__restrict__ masks,
                   const float *__restrict__ kernel,
@@ -976,277 +916,9 @@ GruBwdRecurrenceKernel(const int8_t *__restrict__ codes, int batch,
   }
 }
 
-// ---------------------------------- the wide layout (129 <= u <= 256)
+// --------------------------- the cluster tile (129 <= u <= 1024)
 //
-// The window tile's thread map, 4u threads up to 1,024, with another (C):
-// the parts [2][u][ldp] of the transposed product would take 2u(u+2)
-// floats (528 KB at u=256), so the step's gate cotangents d [2][g u] are
-// staged instead (8 KB for the LSTM at u=256) and lane (i, s) forms row i
-// of dh_prev itself, over the quads s, s+4, ... of the g u columns,
-//   dh_prev[row, i] = sum_j d[row, j] U[i, j],
-// reading U's row i through L1/L2 (the four lanes of a unit read 64
-// consecutive bytes of it); the butterfly of GateDots sums the four
-// slices, so the lanes of the row that needs dh_prev[row, i] in the next
-// step hold it in a register.  The writer lanes (s < 2, one a row) stage
-// the cotangents and the next step's h_prev.  Two barriers a step, as in
-// the kernels above.
-
-// (C) of the wide layout: dh_prev[row, i] for the lane's row (s & 1),
-// from d [2][dstride] (zero past g u) and U's row i.
-__device__ __forceinline__ float DhPrevRow(const float *__restrict__ recurrent,
-                                           const float *s_d, int width,
-                                           int i, int s, unsigned lanes) {
-  const int dstride = Pad4(width);
-  const float4 *df = reinterpret_cast<const float4 *>(s_d);
-  const float4 *dr = reinterpret_cast<const float4 *>(s_d + dstride);
-  const float *u_row = recurrent + static_cast<size_t>(i) * width;
-  float acc_f = 0.0f, acc_r = 0.0f;
-  const int n_quads = SliceQuads(width, s);
-  for (int m = 0; m < n_quads; ++m) {
-    const int q = s + kSlices * m;
-    const float4 a4 = df[q], b4 = dr[q];
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = 4 * q + c;
-      const float w = j < width ? __ldg(u_row + j) : 0.0f;
-      acc_f = fmaf(a[c], w, acc_f);
-      acc_r = fmaf(b[c], w, acc_r);
-    }
-  }
-  // (1) xor 1: lane bit 0 picks the row it keeps; (2) xor 2: the pair.
-  const bool odd = s & 1;
-  const float part = (odd ? acc_r : acc_f) +
-                     __shfl_xor_sync(lanes, odd ? acc_f : acc_r, 1);
-  return part + __shfl_xor_sync(lanes, part, 2);
-}
-
-// Shared memory of a wide backward recurrence: h_prev [2][hstride], the
-// cotangents d [2][Pad4(g u)], W [5][g u] (padded to 4 floats), masks
-// [2][g*5], codes [T].
-template <int kGates>
-struct WideLayout {
-  float *h, *d, *w, *m;
-  int8_t *codes;
-  __device__ explicit WideLayout(float *base, int units) {
-    h = base;
-    d = h + 2 * Pad4(units);  // 16-byte aligned: Pad4(u) is a multiple of 4
-    w = d + 2 * Pad4(kGates * units);
-    m = w + Pad4(kCodes * kGates * units);
-    codes = reinterpret_cast<int8_t *>(m + 2 * kGates * kCodes);
-  }
-};
-
-size_t WideSmem(int gates, int units, int steps) {
-  const int width = gates * units;
-  const size_t floats = 2 * static_cast<size_t>(Pad4(units)) +
-                        2 * static_cast<size_t>(Pad4(width)) +
-                        Pad4(kCodes * width) + 2 * gates * kCodes;
-  return sizeof(float) * floats + static_cast<size_t>(steps);
-}
-
-// Zeroes the pads of h_prev and d (read as float4, never written).
-template <int kGates>
-__device__ void ZeroWidePads(const WideLayout<kGates> &sm, int units) {
-  const int hstride = Pad4(units);
-  const int width = kGates * units, dstride = Pad4(width);
-  for (int e = threadIdx.x; e < 2 * hstride; e += blockDim.x) {
-    if (e % hstride >= units) sm.h[e] = 0.0f;
-  }
-  for (int e = threadIdx.x; e < 2 * dstride; e += blockDim.x) {
-    if (e % dstride >= width) sm.d[e] = 0.0f;
-  }
-}
-
-// The LSTM's: LstmBwdRecurrenceKernel's (A) and outputs.
-__global__ void __launch_bounds__(kWideThreads, 1)
-LstmBwdRecurrenceWideKernel(const int8_t *__restrict__ codes, int batch,
-                            int steps, const float *__restrict__ masks,
-                            const float *__restrict__ kernel,
-                            const float *__restrict__ bias,
-                            const float *__restrict__ recurrent, int units,
-                            const float *__restrict__ hseq,
-                            const float *__restrict__ cseq,
-                            const float *__restrict__ d_avg,
-                            const float *__restrict__ d_hidden,
-                            float *__restrict__ da) {
-  extern __shared__ float4 smem4[];
-  const int width = kLstmGates * units;
-  const int hstride = Pad4(units), dstride = Pad4(width);
-  const WideLayout<kLstmGates> sm(reinterpret_cast<float *>(smem4), units);
-
-  const int tid = threadIdx.x;
-  const int window = blockIdx.x;
-  const int i = tid / kSlices, s = tid % kSlices;
-  const int row = s & 1;
-  const bool writer = (s & 2) == 0;
-  const size_t row_base =
-      static_cast<size_t>(row ? batch + window : window) * steps;
-  auto h_at = [&](int step) {  // hseq of (row, i) at `step`, zero before 0
-    return (writer && step >= 0) ? hseq[(row_base + step) * units + i]
-                                 : 0.0f;
-  };
-  auto c_at = [&](int step) {
-    return step >= 0 ? cseq[(row_base + step) * units + i] : 0.0f;
-  };
-  auto half_avg_at = [&](int step) {
-    return d_avg[(static_cast<size_t>(window) * steps + step) * units + i] *
-           0.5f;
-  };
-  ZeroWidePads<kLstmGates>(sm, units);
-  if (writer) sm.h[row * hstride + i] = h_at(steps - 2);  // h_prev of T-1
-  StageWindow<kLstmGates>(codes, batch, steps, masks, kernel, units, window,
-                          sm.w, sm.m, sm.codes);
-  USlice<kLstmGates, false> us;
-  LoadUSlice<kLstmGates, false>(recurrent, units, i, s, us);
-  const unsigned lanes = WarpLanes();
-  float b_in[kLstmGates];
-#pragma unroll
-  for (int g = 0; g < kLstmGates; ++g) b_in[g] = bias[g * units + i];
-  __syncthreads();
-
-  const float half_hid =
-      d_hidden[static_cast<size_t>(window) * units + i] * 0.5f;
-  float nx_c = c_at(steps - 2), nx_da = half_avg_at(steps - 1);
-  float nx_h = h_at(steps - 3);
-  float dc = 0.0f, dh_prev = 0.0f;
-
-  for (int t = steps - 1; t >= 0; --t) {
-    // (A) preactivations and da of the lane's row.
-    const int code = row ? Complement(sm.codes[steps - 1 - t])
-                         : sm.codes[t];
-    float pre[kLstmGates];
-    LstmPreacts<false>(us, sm.h, sm.w, sm.m, b_in, units, i, s, code, lanes,
-                       pre);
-    const float dh = t < steps - 1 ? dh_prev : half_hid;
-    float d_a[kLstmGates];
-    LstmCellBackward(pre, dh + nx_da, nx_c, dc, d_a);
-    if (writer) {
-      float *out = da + (row_base + t) * width + i;
-#pragma unroll
-      for (int g = 0; g < kLstmGates; ++g) {
-        out[g * units] = d_a[g];
-        sm.d[row * dstride + g * units + i] = d_a[g];
-      }
-    }
-    if (t > 0) {
-      nx_c = c_at(t - 2);
-      nx_da = half_avg_at(t - 1);
-    }
-    __syncthreads();  // (1) da staged; every read of h_prev done
-
-    // (C) dh_prev of the lane's (row, i); stage the next step's h_prev.
-    dh_prev = DhPrevRow(recurrent, sm.d, width, i, s, lanes);
-    if (writer) {
-      sm.h[row * hstride + i] = nx_h;
-      nx_h = h_at(t - 3);
-    }
-    __syncthreads();  // (2) h_prev staged; every read of da done
-  }
-}
-
-// The GRU's: GruBwdRecurrenceKernel's (A) and outputs; dh_prev = dh z +
-// d_rp U^T, the first term in the lane's registers.
-__global__ void __launch_bounds__(kWideThreads, 1)
-GruBwdRecurrenceWideKernel(const int8_t *__restrict__ codes, int batch,
-                           int steps, const float *__restrict__ masks,
-                           const float *__restrict__ kernel,
-                           const float *__restrict__ bias,
-                           const float *__restrict__ recurrent, int units,
-                           const float *__restrict__ hseq,
-                           const float *__restrict__ d_avg,
-                           const float *__restrict__ d_hidden,
-                           float *__restrict__ d_rp,
-                           float *__restrict__ d_xp) {
-  extern __shared__ float4 smem4[];
-  const int width = kGruGates * units;
-  const int hstride = Pad4(units), dstride = Pad4(width);
-  const WideLayout<kGruGates> sm(reinterpret_cast<float *>(smem4), units);
-
-  const int tid = threadIdx.x;
-  const int window = blockIdx.x;
-  const int i = tid / kSlices, s = tid % kSlices;
-  const int row = s & 1;
-  const bool rp_writer = (s & 2) == 0;
-  const size_t row_base =
-      static_cast<size_t>(row ? batch + window : window) * steps;
-  auto h_at = [&](int step) {
-    return (rp_writer && step >= 0) ? hseq[(row_base + step) * units + i]
-                                    : 0.0f;
-  };
-  auto half_avg_at = [&](int step) {
-    return d_avg[(static_cast<size_t>(window) * steps + step) * units + i] *
-           0.5f;
-  };
-  ZeroWidePads<kGruGates>(sm, units);
-  if (rp_writer) sm.h[row * hstride + i] = h_at(steps - 2);
-  StageWindow<kGruGates>(codes, batch, steps, masks, kernel, units, window,
-                         sm.w, sm.m, sm.codes);
-  USlice<kGruGates, false> us;
-  LoadUSlice<kGruGates, false>(recurrent, units, i, s, us);
-  const unsigned lanes = WarpLanes();
-  float b_in[kGruGates], b_rec[kGruGates];
-#pragma unroll
-  for (int g = 0; g < kGruGates; ++g) {
-    b_in[g] = bias[g * units + i];
-    b_rec[g] = bias[width + g * units + i];
-  }
-  __syncthreads();
-
-  const float half_hid =
-      d_hidden[static_cast<size_t>(window) * units + i] * 0.5f;
-  float nx_da = half_avg_at(steps - 1);
-  float nx_h = h_at(steps - 3);
-  float keep = 0.0f, dh_prev = 0.0f;  // dh z and d_rp U^T of the step after
-
-  for (int t = steps - 1; t >= 0; --t) {
-    // (A) gates and cotangents of the lane's row.
-    const int code = row ? Complement(sm.codes[steps - 1 - t])
-                         : sm.codes[t];
-    float dot[kGruGates], x[kGruGates];
-    GateDots<kGruGates, false>(us, sm.h, units, i, s, lanes, dot);
-    InputRow<kGruGates>(sm.w, sm.m + row * kGruGates * kCodes, b_in, units,
-                        i, code, x);
-    const float z = Sigmoid(x[0] + (dot[0] + b_rec[0]));
-    const float r = Sigmoid(x[1] + (dot[1] + b_rec[1]));
-    const float rh = dot[2] + b_rec[2];
-    const float hh = tanhf(x[2] + r * rh);
-    const float h_prev = sm.h[row * hstride + i];
-    const float dh = t < steps - 1 ? keep + dh_prev : half_hid;
-    const float dht = dh + nx_da;
-    const float da_z = dht * (h_prev - hh) * z * (1.0f - z);
-    const float da_h = dht * (1.0f - z) * (1.0f - hh * hh);
-    const float da_r = (da_h * rh) * r * (1.0f - r);
-    keep = dht * z;
-    {
-      float *out = (rp_writer ? d_rp : d_xp) + (row_base + t) * width + i;
-      out[0] = da_z;
-      out[units] = da_r;
-      out[2 * units] = rp_writer ? da_h * r : da_h;
-    }
-    if (rp_writer) {
-      float *d_row = sm.d + row * dstride + i;
-      d_row[0] = da_z;
-      d_row[units] = da_r;
-      d_row[2 * units] = da_h * r;
-    }
-    if (t > 0) nx_da = half_avg_at(t - 1);
-    __syncthreads();  // (1) d_rp staged; every read of h_prev done
-
-    // (C) the d_rp U^T part of dh_prev; the next step's h_prev.
-    dh_prev = DhPrevRow(recurrent, sm.d, width, i, s, lanes);
-    if (rp_writer) {
-      sm.h[row * hstride + i] = nx_h;
-      nx_h = h_at(t - 3);
-    }
-    __syncthreads();  // (2) h_prev staged; every read of d_rp done
-  }
-}
-
-// --------------------------- the cluster tile (257 <= u <= 1024)
-//
-// Past kWideUnits a window's units split over a thread-block cluster of
+// Past kWindowUnits a window's units split over a thread-block cluster of
 // kCluster CTAs, as the float32 inference tile does (AvgClusterKernel in
 // rnn_avg.cu): the CTA of rank r owns units [r uc, (r + 1) uc), uc =
 // ceil(u / kCluster) <= 64, with all their gates and all k of their
@@ -1829,40 +1501,52 @@ int ClusterSlotsOf(int units) {
 }
 
 // The cluster tile's layout of a kernel at a width and batch: CTAs a
-// cluster and windows a cluster, from the sweep on the H100 (the note at
-// the top): the forward 16 CTAs, 8 windows; the backward 8 CTAs (4
-// windows up to u=384, 8 up to u=512), then 16 CTAs and 8 windows; fewer
-// windows for a batch of at most 4.  CTAs a cluster depend on the width
-// only, so a window's bits do not depend on its batch.
+// cluster and windows a cluster, from tools/train_tile_sweep.py --routes
+// on the H100 (the note at the top).  The forward: 8 CTAs up to u=256,
+// 16 past it; 2 windows a cluster below B=64, 4 below B=256 or up to
+// u=192, else 8.  The backward: 4 CTAs up to u=256, 2 windows below
+// B=64, else 4; past u=256 the layout it had before the sweep, 8 CTAs
+// and 4 windows up to u=384, 8 past it, fewer where the batch holds at
+// most half of them (16 CTAs lost 1.08-1.12x at B=256, u=511).  CTAs a
+// cluster depend on the width only, so a window's bits do not depend on
+// its batch.
 struct TrainCluster {
   int cluster, windows;
 };
+constexpr int kNarrowClusterUnits = 256;  // the forward's 8, backward's 4
 TrainCluster ClusterLayoutOf(bool backward, int units, int batch) {
-  const int cluster = backward && units <= 512 ? 8 : 16;
-  int windows = backward && units <= 384 ? 4 : 8;
-  while (windows > 2 && batch <= windows / 2) windows /= 2;
-  return {cluster, windows};
+  const bool narrow = units <= kNarrowClusterUnits;
+  if (backward && narrow) return {4, batch < 64 ? 2 : 4};
+  if (backward) {
+    int windows = units <= 384 ? 4 : 8;
+    while (windows > 2 && batch <= windows / 2) windows /= 2;
+    return {8, windows};
+  }
+  return {narrow ? 8 : 16,
+          batch < 64 ? 2 : batch < 256 || units <= 192 ? 4 : 8};
 }
 
 template <int kValue>
 using Int = std::integral_constant<int, kValue>;
 
 // op(Int<kWin>{}, Int<kCluster>{}) in the layout ClusterLayoutOf picks
-// (the forward's only in clusters of 16, so only those are compiled).
+// (the backward's 4 CTAs only in 2 or 4 windows, so only those are
+// compiled).
 template <bool kBackward, typename Op>
 int InClusterLayout(int units, int batch, Op op) {
   const TrainCluster lay = ClusterLayoutOf(kBackward, units, batch);
   const auto in = [&](auto cluster) {
-    switch (lay.windows) {
-      case 2: return op(Int<2>{}, cluster);
-      case 4: return op(Int<4>{}, cluster);
-      default: return op(Int<8>{}, cluster);
-    }
+    if (lay.windows == 2) return op(Int<2>{}, cluster);
+    if (lay.windows == 4) return op(Int<4>{}, cluster);
+    return op(Int<8>{}, cluster);
   };
   if constexpr (kBackward) {
     if (lay.cluster == 8) return in(Int<8>{});
+    return lay.windows == 2 ? op(Int<2>{}, Int<4>{}) : op(Int<4>{}, Int<4>{});
+  } else {
+    if (lay.cluster == 8) return in(Int<8>{});
+    return in(Int<16>{});
   }
-  return in(Int<16>{});
 }
 
 // The training forward on the cluster tile, in the layout ClusterLayoutOf
@@ -2127,27 +1811,18 @@ int LaunchWindow(Kernel kernel_fn, int batch, int units, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The window kernels take 4u threads a CTA: up to kMaxThreads / 4 = 128
-// units U in registers or through L1/L2, then the wide layout up to
-// kWideUnits = 256.
+// The window kernels take 4u threads a CTA: up to kWindowUnits = 128
+// units, U in registers or through L1/L2.
 bool BadWindowShape(int batch, int steps, int units) {
-  return batch <= 0 || steps <= 0 || units <= 0 || units > kWideUnits;
+  return batch <= 0 || steps <= 0 || units <= 0 || units > kWindowUnits;
 }
-
-bool IsWide(int units) { return kSlices * units > kMaxThreads; }
 
 // Past the window tile the cluster tile, up to kMaxUnits.
 bool BadTrainShape(int batch, int steps, int units) {
   return batch <= 0 || steps <= 0 || units <= 0 || units > kMaxUnits;
 }
 
-bool IsCluster(int units) { return units > kWideUnits; }
-
-// Shared memory of a window kernel's launch at this width.
-size_t WindowKernelSmem(int gates, int units, int steps, bool backward) {
-  return backward && IsWide(units) ? WideSmem(gates, units, steps)
-                                   : WindowSmem(gates, units, steps, backward);
-}
+bool IsCluster(int units) { return units > kWindowUnits; }
 
 }  // namespace
 
@@ -2168,10 +1843,8 @@ int dg_gru_train_fwd(const void *codes, int batch, int steps,
                                  nullptr,
                                  static_cast<cudaStream_t>(stream));
   }
-  const size_t smem = WindowKernelSmem(kGruGates, units, steps, false);
-  const auto fn = units <= kRegUnits ? GruTrainFwdKernel<true>
-                  : IsWide(units)    ? GruTrainFwdKernel<false, true>
-                                     : GruTrainFwdKernel<false>;
+  const size_t smem = WindowSmem(kGruGates, units, steps, false);
+  const auto fn = units <= kRegUnits ? GruTrainFwdKernel<true> : GruTrainFwdKernel<false>;
   return LaunchWindow(
       fn, batch, units, smem, static_cast<cudaStream_t>(stream),
       static_cast<const int8_t *>(codes), batch, steps,
@@ -2194,10 +1867,8 @@ int dg_lstm_train_fwd(const void *codes, int batch, int steps,
                                   recurrent, units, avg, hidden, hseq, cseq,
                                   static_cast<cudaStream_t>(stream));
   }
-  const size_t smem = WindowKernelSmem(kLstmGates, units, steps, false);
-  const auto fn = units <= kRegUnits ? LstmTrainFwdKernel<true>
-                  : IsWide(units)    ? LstmTrainFwdKernel<false, true>
-                                     : LstmTrainFwdKernel<false>;
+  const size_t smem = WindowSmem(kLstmGates, units, steps, false);
+  const auto fn = units <= kRegUnits ? LstmTrainFwdKernel<true> : LstmTrainFwdKernel<false>;
   return LaunchWindow(
       fn, batch, units, smem, static_cast<cudaStream_t>(stream),
       static_cast<const int8_t *>(codes), batch, steps,
@@ -2224,9 +1895,8 @@ int dg_lstm_bwd_recurrence(const void *codes, int batch, int steps,
                                   d_hidden, da, nullptr,
                                   static_cast<cudaStream_t>(stream));
   }
-  const size_t smem = WindowKernelSmem(kLstmGates, units, steps, true);
+  const size_t smem = WindowSmem(kLstmGates, units, steps, true);
   const auto fn = units <= kRegUnits ? LstmBwdRecurrenceKernel<true>
-                  : IsWide(units)    ? LstmBwdRecurrenceWideKernel
                                      : LstmBwdRecurrenceKernel<false>;
   return LaunchWindow(
       fn, batch, units, smem, static_cast<cudaStream_t>(stream),
@@ -2255,9 +1925,8 @@ int dg_gru_bwd_recurrence(const void *codes, int batch, int steps,
                                  d_hidden, d_rp, d_xp,
                                  static_cast<cudaStream_t>(stream));
   }
-  const size_t smem = WindowKernelSmem(kGruGates, units, steps, true);
+  const size_t smem = WindowSmem(kGruGates, units, steps, true);
   const auto fn = units <= kRegUnits ? GruBwdRecurrenceKernel<true>
-                  : IsWide(units)    ? GruBwdRecurrenceWideKernel
                                      : GruBwdRecurrenceKernel<false>;
   return LaunchWindow(
       fn, batch, units, smem, static_cast<cudaStream_t>(stream),
@@ -2274,33 +1943,27 @@ int dg_gru_bwd_recurrence(const void *codes, int batch, int steps,
 // backward recurrence, 2 the GRU backward recurrence, 3 the GRU forward.
 int dg_window_ctas_per_sm(int which, int units, int steps) {
   struct Entry {
-    const void *fns[3];  // U through L2, U in registers, the wide layout
+    const void *fns[2];  // U through L2, U in registers
     int gates;
     bool backward;
   };
   const Entry kernels[4] = {
       {{reinterpret_cast<const void *>(LstmTrainFwdKernel<false>),
-        reinterpret_cast<const void *>(LstmTrainFwdKernel<true>),
-        reinterpret_cast<const void *>(LstmTrainFwdKernel<false, true>)},
+        reinterpret_cast<const void *>(LstmTrainFwdKernel<true>)},
        kLstmGates, false},
       {{reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<false>),
-        reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<true>),
-        reinterpret_cast<const void *>(LstmBwdRecurrenceWideKernel)},
+        reinterpret_cast<const void *>(LstmBwdRecurrenceKernel<true>)},
        kLstmGates, true},
       {{reinterpret_cast<const void *>(GruBwdRecurrenceKernel<false>),
-        reinterpret_cast<const void *>(GruBwdRecurrenceKernel<true>),
-        reinterpret_cast<const void *>(GruBwdRecurrenceWideKernel)},
+        reinterpret_cast<const void *>(GruBwdRecurrenceKernel<true>)},
        kGruGates, true},
       {{reinterpret_cast<const void *>(GruTrainFwdKernel<false>),
-        reinterpret_cast<const void *>(GruTrainFwdKernel<true>),
-        reinterpret_cast<const void *>(GruTrainFwdKernel<false, true>)},
+        reinterpret_cast<const void *>(GruTrainFwdKernel<true>)},
        kGruGates, false}};
   if (which < 0 || which > 3 || BadWindowShape(1, steps, units)) return 0;
   const Entry &entry = kernels[which];
-  const void *fn =
-      entry.fns[units <= kRegUnits ? 1 : IsWide(units) ? 2 : 0];
-  const size_t smem =
-      WindowKernelSmem(entry.gates, units, steps, entry.backward);
+  const void *fn = entry.fns[units <= kRegUnits ? 1 : 0];
+  const size_t smem = WindowSmem(entry.gates, units, steps, entry.backward);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess) {
     cudaGetLastError();
@@ -2319,7 +1982,7 @@ int dg_window_ctas_per_sm(int which, int units, int steps) {
 // as dg_window_ctas_per_sm's): out[0] CTAs a cluster, out[1] windows a
 // cluster, out[2] the clusters of it the card runs at once (0 if it cannot
 // place one).  Returns 0 (out untouched) where the kernel runs no cluster:
-// u <= 256, or a shape it refuses.
+// u <= 128, or a shape it refuses.
 int dg_train_clusters(int which, int units, int batch, int *out) {
   if (which < 0 || which > 3 || BadTrainShape(batch, 1, units) ||
       !IsCluster(units)) {

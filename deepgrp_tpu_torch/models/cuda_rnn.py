@@ -28,9 +28,9 @@ sequences kept for the backward); their backward runs the recurrence
 kernel, which recomputes the gates and writes the gate cotangents, and the
 reduction kernel, which sums them into the gradients of the three
 parameters (none for the codes and masks).  The training kernels take
-every width, as the inference kernels do: one CTA a window up to u=256,
+every width, as the inference kernels do: one CTA a window up to u=128,
 past it a window's units split over a thread-block cluster up to
-:data:`TRAIN_CLUSTER_MAX_UNITS` (u=1023), and past it the grid tile
+:data:`TRAIN_CLUSTER_MAX_UNITS` (u=511), and past it the grid tile
 (``csrc/rnn_grid.cu``: the forward one tiled product of every row's
 ``h`` with ``U`` a step; the backward one product of every ``(row,
 t)``'s ``h_prev`` with ``U`` that recomputes the gates, then one product
@@ -230,16 +230,17 @@ BF16_CLUSTER_MAX_UNITS = 1279
 #: :data:`CLUSTER_MAX_UNITS`.
 SEQ_BF16_CLUSTER_MAX_UNITS = 767
 #: The widest layer the training kernels (rows 3-6) run on their cluster
-#: tile (``csrc/rnn_train.cu``, one unit a lane); from u=1024 the grid
-#: tile.  ``tools/train_tile_sweep.py --grid`` (ms forward / backward,
-#: cluster against grid): at u=768 the forward of B=37, T=150 takes the
-#: grid 1.05x (GRU) / 1.12x (LSTM) the cluster tile's time, the LSTM's
-#: backward 1.04x; at u=1024 the grid is within 1.01x at every
-#: batch in both directions (the worst: LSTM B=37, T=150, 28.93 ms forward
-#: and backward on the cluster tile against 29.30), and within 0.72x from
-#: u=1025 on.  The library's cluster tile takes u=1024 too; the route
-#: sends it to the grid.
-TRAIN_CLUSTER_MAX_UNITS = 1023
+#: tile (``csrc/rnn_train.cu``, one unit a lane, from u=129); from u=512
+#: the grid tile.  ``tools/train_tile_sweep.py --routes`` (u=129-1023,
+#: B=256, 64 at T=342, B=37 at T=150, B=5 at T=23, both cells, in turns;
+#: the largest ratio of a tile's forward + backward to the fastest
+#: tile's, cluster / grid): u=129 1.08 / 3.05, u=256 1.25 / 2.02, u=300
+#: 1.34 / 1.77, u=384 1.62 / 1.71, u=512 1.69 / 1.60, u=768 1.97 / 1.24,
+#: u=1023 2.11 / 1.07.  No tile came within 1.02x at every batch (the
+#: grid wins at B >= 64, the cluster tile at B <= 37, up to different
+#: widths), so each width takes the tile with the least largest ratio.
+#: The library's cluster tile takes u <= 1024.
+TRAIN_CLUSTER_MAX_UNITS = 511
 #: Where a kernel keeps ``U``, by the library's code.
 U_IN = {0: "L1/L2", 1: "registers", 2: "shared"}
 #: Where the grid tile keeps ``U``: tiles of it copied from L2 (or HBM)
@@ -307,6 +308,58 @@ def grid_tile(rows: int, units: int,
                 * (width // grid_mma_units(rows, units, sms)))
     return (min(GRID_ROWS, max(rows, 1)),
             -(-rows // GRID_ROWS) * -(-units // GRID_UNITS))
+
+
+#: The most blocks of :data:`GRID_UNITS` units a CTA of the training
+#: backward's (B) step owns (``kBwdMaxGroups`` of ``csrc/rnn_grid.cu``).
+GRID_BWD_MAX_GROUPS = 4
+
+
+#: The time a block of :data:`GRID_UNITS` units takes in a CTA of (B)
+#: that owns 1-4 of them (20 = the time at 3 or 4), fitted to
+#: ``tools/train_tile_sweep.py --ablate`` (every count forced; H100, ms of
+#: (B)): GRU B=64, u=4608 1-4 blocks 257.47 / 257.08 / 213.23 / 285.12,
+#: GRU B=256, u=1024 51.93 / 44.02 / 56.02 / 47.23, LSTM B=16, u=4096
+#: 77.50 / 118.49 / 153.09 / 190.83; the estimate orders the fastest
+#: first at all three.
+GRID_BWD_BLOCK_COST = (0, 29, 24, 20, 20)
+
+
+def grid_bwd_groups(rows: int, units: int, sms: int) -> int:
+    """Blocks of :data:`GRID_UNITS` units a CTA of the grid tile's
+    training backward step (B) owns for ``rows`` rows (the doubled batch)
+    at this width on ``sms`` SMs (pure Python; the count
+    :func:`_bwd_recurrence` gives ``dg_*_bwd_grid``): the count, up to
+    :data:`GRID_BWD_MAX_GROUPS`, with the least estimated step time (the
+    CTAs of the busiest SM times the blocks a CTA times
+    :data:`GRID_BWD_BLOCK_COST`, 1.3x where no SM runs two CTAs), the
+    fewer at a tie.  The blocks change which CTA owns a sum, not its
+    order, so a window's bits do not depend on them.  Raises
+    ``ValueError`` for u <= 0."""
+    _check_width(units)
+    row_blocks, blocks = -(-rows // GRID_ROWS), -(-units // GRID_UNITS)
+    costs = []
+    for groups in range(1, GRID_BWD_MAX_GROUPS + 1):
+        ctas = row_blocks * -(-blocks // groups)
+        costs.append(-(-ctas // sms) * groups * GRID_BWD_BLOCK_COST[groups]
+                     * (13 if ctas <= sms else 10))
+    return 1 + costs.index(min(costs))
+
+
+def grid_bwd_tile(rows: int, units: int,
+                  sms: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(rows a CTA, units a CTA, CTAs a step)`` of the grid tile's
+    training backward step (B) for ``rows`` rows at this width on ``sms``
+    SMs (by default the current CUDA device's; pure Python otherwise):
+    :data:`GRID_ROWS` rows and :func:`grid_bwd_groups` blocks of
+    :data:`GRID_UNITS` units a CTA."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    groups = grid_bwd_groups(rows, units, sms)
+    blocks = -(-units // GRID_UNITS)
+    return (GRID_ROWS, groups * GRID_UNITS,
+            -(-rows // GRID_ROWS) * -(-blocks // groups))
 
 
 def _grid_buffers(lib: ctypes.CDLL, rows: int, units: int, gates: int,
@@ -669,19 +722,17 @@ def _launch_seq(params: RnnParams, x: torch.Tensor, grid: bool = False
 
 
 #: The widest layer of the training kernels' window tile (4u threads a
-#: CTA, at most 1,024).
-TRAIN_WINDOW_UNITS = 256
+#: CTA, at most 512); past it the cluster tile.
+TRAIN_WINDOW_UNITS = 128
 
 
 def train_layout(units: int) -> str:
     """The training kernels' layout at a width (pure Python): the window
-    tile's ``"registers"`` (U's slice in registers, u <= 64), ``"l2"`` (U
-    through L1/L2, u <= 128) or ``"wide"`` (1,024 threads at most, one
-    CTA an SM; the backward stages the gate cotangents and forms dh_prev
-    from U's rows, u <= 256), then ``"cluster"`` (a window's units over a
-    thread-block cluster, one unit a lane, up to
-    :data:`TRAIN_CLUSTER_MAX_UNITS`), past it ``"grid"`` (the grid tile).
-    Raises ``ValueError`` for u <= 0."""
+    tile's ``"registers"`` (U's slice in registers, u <= 64) or ``"l2"``
+    (U through L1/L2, up to :data:`TRAIN_WINDOW_UNITS`), then
+    ``"cluster"`` (a window's units over a thread-block cluster, one unit
+    a lane, up to :data:`TRAIN_CLUSTER_MAX_UNITS`), past it ``"grid"``
+    (the grid tile).  Raises ``ValueError`` for u <= 0."""
     if units <= 0:
         raise ValueError(f"the training kernels take widths u >= 1, not "
                          f"u={units}")
@@ -689,7 +740,7 @@ def train_layout(units: int) -> str:
         return "grid"
     if units > TRAIN_WINDOW_UNITS:
         return "cluster"
-    return "registers" if units <= 64 else "l2" if units <= 128 else "wide"
+    return "registers" if units <= 64 else "l2"
 
 
 def _check_masks(name: str, gates: int, masks: Optional[torch.Tensor],
@@ -780,14 +831,19 @@ def train_bwd(cell: str, params: RnnParams, codes: torch.Tensor,
 def _bwd_recurrence(cell: str, params: RnnParams, codes: torch.Tensor,
                     masks: Optional[torch.Tensor],
                     seqs: Tuple[torch.Tensor, ...], d_avg: torch.Tensor,
-                    d_hidden: torch.Tensor, grid: bool = False
+                    d_hidden: torch.Tensor, grid: bool = False,
+                    groups: Optional[int] = None
                     ) -> Tuple[torch.Tensor, ...]:
     """The backward's recurrence kernel of ``cell`` on checked inputs (see
     :func:`train_bwd`): the gate cotangents, ``(da [2B, T, 4u],)`` for
     LSTM, ``(d_rp, d_xp)`` ``[2B, T, 3u]`` each for GRU.  Past
     :data:`TRAIN_CLUSTER_MAX_UNITS` (or with ``grid``) the grid tile's: its
     recompute of the gates writes their preactivations into ``da``
-    (``d_xp``), which each step then overwrites with the cotangents."""
+    (``d_xp``), which each step then overwrites with the cotangents; each
+    step also writes them k-major into a scratch ``[2, g W, R']`` that the
+    next step's product reads, in ``groups`` blocks of :data:`GRID_UNITS`
+    units a CTA (by default :func:`grid_bwd_groups` on this card; any
+    count gives the same bits)."""
     batch, steps = codes.shape
     units = params["recurrent"].shape[0]
     gates = 4 if cell == "lstm" else 3
@@ -805,11 +861,19 @@ def _bwd_recurrence(cell: str, params: RnnParams, codes: torch.Tensor,
             recurrent, _, carry = _grid_buffers(
                 lib, 2 * batch, units, gates, params["recurrent"],
                 torch.float32)
-            transposed = _grid_transposed(params["recurrent"], gates,
-                                          recurrent.shape[0])
+            width = recurrent.shape[0]
+            transposed = _grid_transposed(params["recurrent"], gates, width)
+            # (B)'s cotangents handed k-major between steps.
+            cot = torch.zeros(2, gates * width, carry.shape[2],
+                              device=codes.device)
+            if groups is None:
+                groups = grid_bwd_groups(
+                    2 * batch, units, torch.cuda.get_device_properties(
+                        codes.device).multi_processor_count)
             err = getattr(lib, f"dg_{cell}_bwd_grid")(
                 *head, recurrent.data_ptr(), units, transposed.data_ptr(),
-                *ins, carry.data_ptr(), ctypes.c_void_p(stream))
+                *ins, carry.data_ptr(), cot.data_ptr(), groups,
+                ctypes.c_void_p(stream))
         else:
             err = getattr(lib, f"dg_{cell}_bwd_recurrence")(
                 *head, params["recurrent"].data_ptr(), units, *ins,
@@ -875,7 +939,7 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     """The tile of ``cell``'s training kernels (the forward and the
     backward's recurrence) on a CUDA device: its layout
     (:func:`train_layout`, ``"refused"`` for u <= 0) and threads a
-    CTA (four per unit the CTA owns).  On the window tile (u <= 256):
+    CTA (four per unit the CTA owns).  On the window tile (u <= 128):
     CTAs (one a window), resident CTAs an SM of each kernel (0 where it
     cannot launch) and the warps an SM that gives at this batch.  On the
     cluster tile, for each kernel (``fwd_...``, ``bwd_...``; the library
@@ -883,8 +947,10 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
     threads a CTA, clusters, and the clusters the card runs at once.  On
     the grid tile (past :data:`TRAIN_CLUSTER_MAX_UNITS`), from its
     library: rows and units a CTA,
-    threads a CTA, the CTAs of a forward or backward step, and the CTAs
-    of the backward's recompute of the gates (over the ``2B T`` rows)."""
+    threads a CTA, the CTAs of a forward step, the CTAs
+    of the backward's recompute of the gates (over the ``2B T`` rows),
+    and the rows, units and CTAs of a backward step (``bwd_*``,
+    :func:`grid_bwd_tile`)."""
     device = device or torch.device("cuda")
     if units <= 0:
         return {"layout": "refused", "threads": 4 * units, "ctas": batch,
@@ -898,11 +964,15 @@ def train_tile(cell: str, batch: int, units: int, steps: int,
             raise ValueError(f"{cell}_train_fwd_grid refuses u={units} at "
                              f"B={batch}")
         grid = _grid_layout()
+        bwd = grid_bwd_tile(2 * batch, units, torch.cuda.get_device_properties(
+            device).multi_processor_count)
         return {"layout": layout, "rows_a_cta": min(grid[0], 2 * batch),
                 "units_a_cta": grid[1], "threads": grid[4],
                 "ctas_a_step": shape[2] * shape[3],
                 "recompute_ctas": (-(-2 * batch * steps // grid[0])
-                                   * shape[3])}
+                                   * shape[3]),
+                "bwd_rows_a_cta": min(bwd[0], 2 * batch),
+                "bwd_units_a_cta": bwd[1], "bwd_ctas_a_step": bwd[2]}
     lib = _build.load_kernels("rnn_train")
     if layout == "cluster":
         tile: Dict[str, object] = {"layout": layout}

@@ -14,9 +14,9 @@ The shapes include the engine's default tile at the flagship shape
 The training kernels are held against their plain versions at the
 flagship training shape (256 windows, T=342, u=60), a ragged batch and
 tiny widths (also at u=96 and u=128, past the register tile, at
-u=129, 200 and 256 on the wide layout, from u=257 on the cluster tile up
-to its route's ceiling u=1023, and from u=1024 on the grid tile, ragged
-at u=1025 and 3000, at u=2048, 4096, 4097, 5000 and 8192), with
+u=129 on the cluster tile up to its route's ceiling u=511, and from
+u=512 on the grid tile, ragged at u=520, 1023, 1025 and 3000, at
+u=1024, 2048, 4096, 4097, 5000 and 8192), with
 and without dropout masks: forward outputs at atol 1e-5;
 gradients at a max abs difference of 1e-4 times the largest magnitude of
 that gradient (sums over B x T terms taken in other orders); two backward
@@ -175,6 +175,13 @@ def random_case(seed, gates, batch, steps, units, device):
 
 
 TRAIN_SHAPES = [(256, 342, 60), (37, 150, 32), (3, 7, 5), (9, 1, 17)]
+# The grid's backward step (B) (batch, steps, units): ragged rows at B=1,
+# 3, 19 over ragged widths (u=1025, 3000, 4097), T=1 (no product), and on
+# 132 SMs its blocks of 32 units a CTA with a ragged last CTA: B=64 at
+# u=4097 2 blocks (129), u=3001 3 (94), B=256 at u=1537 4 (49).
+GRID_BWD_SHAPES = ((1, 20, 1025), (3, 9, 3000), (19, 12, 4097),
+                   (3, 1, 1025), (64, 12, 4097), (64, 12, 3001),
+                   (256, 4, 1537))
 
 
 def random_masks(seed, gates, batch, device, rate=0.0928):
@@ -210,62 +217,77 @@ def test_train_kernels_match_plain(device, cell, masked, batch, steps,
                                                (37, 150, 300),
                                                (5, 23, 520),
                                                (64, 342, 512),
+                                               (8, 64, 511),
+                                               (8, 64, 512),
                                                (8, 64, 1023),
                                                (8, 64, 1024),
-                                               *WIDE_SHAPES])
+                                               *WIDE_SHAPES,
+                                               *GRID_BWD_SHAPES])
 def test_train_kernels_match_plain_wide(device, cell, masked, batch, steps,
                                         units):
     """Widths past the register tile (U read through L2) up to u=128, the
-    wide layout past it (4u threads up to 1,024; the backward stages the
-    gate cotangents and forms dh_prev from U's rows) up to u=256, the
-    cluster tile past it (a window's units over a cluster of CTAs) up to
-    u=1023, and the grid tile from u=1024; ragged batches at u=200 and
-    300, ragged widths over the cluster's CTAs at u=257, 300, 520 and
-    1023, over the grid's unit blocks at u=1025 and 3000."""
+    cluster tile (a window's units over a cluster of CTAs) from u=129 to
+    its route's ceiling u=511 and the grid tile from u=512
+    (``cuda_rnn.train_layout``); ragged batches at u=200 and 300, ragged
+    widths over the cluster's CTAs at u=129, 257 and 300, over the grid's
+    unit blocks at u=520, 1023, 1025 and 3000; the grid's backward step
+    (B) at ragged rows (B=1, 3, 19), over its blocks of 1-4 x 32 units a
+    CTA (:data:`GRID_BWD_SHAPES`) and at T=1."""
     check_train_pair(device, cell, masked, batch, steps, units)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("units", [300, 1023, 1024, 1025, 2048, 4096])
+@pytest.mark.parametrize("units", [129, 256, 300, 511, 1023, 1024, 1025,
+                                   2048, 4096, 4097])
 def test_train_cluster_bits_alone_and_repeated(device, cell, units):
-    """On the cluster tile (up to u=1023) and on the grid tile (from
-    u=1024) a window's training forward and backward cotangents have the
-    same bits alone and inside a batch (whatever its cluster, CTA, lane or
-    the windows a cluster; on the grid its row block), and a second run
-    repeats them."""
+    """On the tile each width routes to (from u=129; the grid tile from
+    u=512, at u=4097 one unit past a block of 32) a window's training
+    forward and backward cotangents have the same bits alone and inside a
+    batch (whatever its cluster, CTA, lane or the windows a cluster; on
+    the grid its row block), and a second run repeats them.  On the
+    cluster tile also inside a batch of 256, which takes 4 or 8 windows a
+    cluster in both kernels where the window alone takes 2."""
     gates = 4 if cell == "lstm" else 3
-    batch, steps = 19, 40
-    params, codes = random_case(units, gates, batch, steps, units, device)
-    masks = random_masks(units, gates, batch, device)
-    rng = np.random.default_rng(units + 1)
-    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
-                         dtype=torch.float32, device=device)
-    d_hid = torch.tensor(rng.normal(size=(batch, units)),
-                         dtype=torch.float32, device=device)
+    steps = 40
+    cluster = units <= cuda_rnn.TRAIN_CLUSTER_MAX_UNITS
+    for batch in (19, 256) if cluster else (19,):
+        if batch == 256:
+            big = cuda_rnn.train_tile(cell, batch, units, steps)
+            one = cuda_rnn.train_tile(cell, 1, units, steps)
+            for kind in ("fwd", "bwd"):
+                assert big[f"{kind}_windows"] >= 4 > one[f"{kind}_windows"]
+        params, codes = random_case(units, gates, batch, steps, units,
+                                    device)
+        masks = random_masks(units, gates, batch, device)
+        rng = np.random.default_rng(units + 1)
+        d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                             dtype=torch.float32, device=device)
+        d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                             dtype=torch.float32, device=device)
 
-    def run(rows):
-        lo, hi = rows
-        sub_masks = masks.view(gates, 2, batch, 5)[:, :, lo:hi].reshape(
-            gates, 2 * (hi - lo), 5).contiguous()
-        sub = codes[lo:hi].contiguous()
-        out = cuda_rnn.train_fwd(cell, params, sub, sub_masks)
-        seqs = tuple(out[2:])
-        cot = cuda_rnn._bwd_recurrence(cell, params, sub, sub_masks, seqs,
-                                       d_avg[lo:hi].contiguous(),
-                                       d_hid[lo:hi].contiguous())
-        return out, cot
+        def run(rows):
+            lo, hi = rows
+            sub_masks = masks.view(gates, 2, batch, 5)[:, :, lo:hi].reshape(
+                gates, 2 * (hi - lo), 5).contiguous()
+            sub = codes[lo:hi].contiguous()
+            out = cuda_rnn.train_fwd(cell, params, sub, sub_masks)
+            seqs = tuple(out[2:])
+            cot = cuda_rnn._bwd_recurrence(cell, params, sub, sub_masks,
+                                           seqs, d_avg[lo:hi].contiguous(),
+                                           d_hid[lo:hi].contiguous())
+            return out, cot
 
-    (out, cot), (again, cot_again) = run((0, batch)), run((0, batch))
-    alone, cot_alone = run((11, 12))
-    torch.cuda.synchronize()
-    for g, a in zip(out + cot, again + cot_again):
-        assert torch.equal(g, a)
-    assert torch.equal(alone[0], out[0][11:12])
-    assert torch.equal(alone[1], out[1][11:12])
-    for seq, seq_alone in zip(out[2:], alone[2:]):
-        assert torch.equal(seq_alone, seq[[11, batch + 11]])
-    for c, c_alone in zip(cot, cot_alone):
-        assert torch.equal(c_alone, c[[11, batch + 11]])
+        (out, cot), (again, cot_again) = run((0, batch)), run((0, batch))
+        alone, cot_alone = run((11, 12))
+        torch.cuda.synchronize()
+        for g, a in zip(out + cot, again + cot_again):
+            assert torch.equal(g, a)
+        assert torch.equal(alone[0], out[0][11:12])
+        assert torch.equal(alone[1], out[1][11:12])
+        for seq, seq_alone in zip(out[2:], alone[2:]):
+            assert torch.equal(seq_alone, seq[[11, batch + 11]])
+        for c, c_alone in zip(cot, cot_alone):
+            assert torch.equal(c_alone, c[[11, batch + 11]])
 
 
 def check_train_pair(device, cell, masked, batch, steps, units):
@@ -317,17 +339,17 @@ def test_window_tile_quadruples_warps_per_sm(device, cell):
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_backward_width_ceiling(device, cell):
+def test_train_tile_by_width(device, cell):
     """The training kernels (forward and backward recurrence) launch up
-    to u=1023 at T=342 on their window and cluster tiles (4u threads a
-    CTA, the wide layout past u=128, the cluster tile past u=256, one unit
-    a lane, at most 256 threads a CTA), and from u=1024 on the grid tile,
-    whose tile the library reports."""
-    for units, layout in ((128, "l2"), (129, "wide"), (256, "wide")):
-        tile = cuda_rnn.train_tile(cell, 8, units, 342)
-        assert tile["layout"] == layout, tile
-        assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
-    for units in (257, 512, 1023):
+    to u=511 at T=342 on their window and cluster tiles (4u threads a
+    CTA up to u=128; past it one unit a lane over a cluster of CTAs, at
+    most 256 threads a CTA), and from u=512 on the grid tile, whose tile
+    the library reports, the backward step's (B) as ``grid_bwd_tile``
+    counts it on this card."""
+    tile = cuda_rnn.train_tile(cell, 8, 128, 342)
+    assert tile["layout"] == "l2", tile
+    assert tile["bwd_ctas_per_sm"] >= 1 and tile["fwd_ctas_per_sm"] >= 1
+    for units in (129, 256, 257, 511):
         tile = cuda_rnn.train_tile(cell, 8, units, 342)
         assert tile["layout"] == "cluster", tile
         for kind in ("fwd", "bwd"):
@@ -338,23 +360,27 @@ def test_backward_width_ceiling(device, cell):
             assert tile[f"{kind}_clusters"] == -(-8 // tile[
                 f"{kind}_windows"]), tile
             assert tile[f"{kind}_clusters_at_once"] >= 1, tile
-    for batch, units in ((8, 1024), (8, 1025), (8, 2048), (8, 4096),
-                         (8, 4097), (64, 4608), (3, 8192)):
+    for batch, units in ((8, 512), (8, 1023), (8, 1024), (8, 1025),
+                         (8, 2048), (8, 4096), (8, 4097), (64, 4608),
+                         (3, 8192)):
         tile = cuda_rnn.train_tile(cell, batch, units, 342)
         assert tile == {
             "layout": "grid", "rows_a_cta": min(32, 2 * batch),
             "units_a_cta": 32, "threads": 256,
             "ctas_a_step": cuda_rnn.grid_tile(2 * batch, units)[1],
-            "recompute_ctas": -(-2 * batch * 342 // 32) * -(-units // 32)}
+            "recompute_ctas": -(-2 * batch * 342 // 32) * -(-units // 32),
+            "bwd_rows_a_cta": min(32, 2 * batch),
+            "bwd_units_a_cta": cuda_rnn.grid_bwd_tile(2 * batch, units)[1],
+            "bwd_ctas_a_step": cuda_rnn.grid_bwd_tile(2 * batch, units)[2]}
     tile = cuda_rnn.train_tile(cell, 8, 0, 342)
     assert tile["layout"] == "refused"
     assert tile["bwd_ctas_per_sm"] == 0 and tile["fwd_ctas_per_sm"] == 0
 
 
-def test_gru_backward_refuses_u129(device):
-    """Named for the first ceiling (u=128): both cells' forward and
-    backward now take every width (u=4097 launches the grid tile) and
-    refuse only u <= 0, naming it, before any launch."""
+def test_train_kernels_refuse_only_u0(device):
+    """Both cells' forward and backward take every width (u=4097 launches
+    the grid tile) and refuse only u <= 0, naming it, before any
+    launch."""
     batch, steps = 2, 5
     for cell, gates in (("gru", 3), ("lstm", 4)):
         for units in (0, 4097):
@@ -1344,6 +1370,80 @@ def test_grid_train_bits(device, cell):
     torch.cuda.synchronize()
     for a, b in zip(captured, eager):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_grid_bwd_blocks_keep_bits(device, cell):
+    """The grid's backward step (B) given each count of blocks of 32 units
+    a CTA (1-4) gives the same gate cotangents bit for bit at B=19,
+    u=3001 (a ragged last CTA at every count); 0 and 5 blocks are
+    refused; ``train_tile`` reports the count ``grid_bwd_groups`` picks
+    on this card."""
+    gates = 4 if cell == "lstm" else 3
+    batch, steps, units = 19, 6, 3001
+    params, codes = random_case(units, gates, batch, steps, units, device)
+    masks = random_masks(units, gates, batch, device)
+    rng = np.random.default_rng(units + 3)
+    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                         dtype=torch.float32, device=device)
+    d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                         dtype=torch.float32, device=device)
+    seqs = tuple(cuda_rnn.train_fwd(cell, params, codes, masks)[2:])
+
+    def cotangents(groups):
+        return cuda_rnn._bwd_recurrence(cell, params, codes, masks, seqs,
+                                        d_avg, d_hid, groups=groups)
+
+    runs = [cotangents(groups) for groups in (1, 2, 3, 4)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for got, first in zip(run, runs[0]):
+            assert torch.equal(got, first)
+    for groups in (0, 5):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cotangents(groups)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = cuda_rnn.train_tile(cell, batch, units, steps)
+    assert tile["bwd_units_a_cta"] == 32 * cuda_rnn.grid_bwd_groups(
+        2 * batch, units, sms)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_grid_bwd_bits_by_unit_block(device, cell):
+    """The grid's backward step sums each (row, unit) in an order fixed by
+    u, whatever its blocks of units a CTA: at B=128, u=4097 (4 blocks a
+    CTA on 132 SMs, the last CTA ragged) two backward runs give the same
+    gradients and cotangents bit for bit, and a window alone (one row
+    block, 1 block a CTA) its rows' cotangents in the batch."""
+    gates = 4 if cell == "lstm" else 3
+    batch, steps, units = 128, 8, 4097
+    params, codes = random_case(units + 1, gates, batch, steps, units, device)
+    masks = random_masks(units, gates, batch, device)
+    rng = np.random.default_rng(units + 2)
+    d_avg = torch.tensor(rng.normal(size=(batch, steps, units)),
+                         dtype=torch.float32, device=device)
+    d_hid = torch.tensor(rng.normal(size=(batch, units)),
+                         dtype=torch.float32, device=device)
+    out = cuda_rnn.train_fwd(cell, params, codes, masks)
+    seqs = tuple(out[2:])
+    grads = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    again = cuda_rnn.train_bwd(cell, params, codes, masks, seqs, d_avg,
+                               d_hid)
+    cot = cuda_rnn._bwd_recurrence(cell, params, codes, masks, seqs, d_avg,
+                                   d_hid)
+    w = 41
+    sub_masks = masks.view(gates, 2, batch, 5)[:, :, w:w + 1].reshape(
+        gates, 2, 5).contiguous()
+    alone = cuda_rnn._bwd_recurrence(
+        cell, params, codes[w:w + 1].contiguous(), sub_masks,
+        tuple(q[[w, batch + w]].contiguous() for q in seqs),
+        d_avg[w:w + 1].contiguous(), d_hid[w:w + 1].contiguous())
+    torch.cuda.synchronize()
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
+    for got, full in zip(alone, cot):
+        assert torch.equal(got, full[[w, batch + w]])
 
 
 @pytest.mark.parametrize("cell,units", [("gru", 26800), ("lstm", 23200)])

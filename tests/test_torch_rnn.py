@@ -288,18 +288,18 @@ def test_avg_layout_by_width(cell, dtype):
 def test_route_widths_by_row():
     """Each row's cluster tile up to its route width, the grid tile past
     it (pure Python): the training kernels up to
-    ``TRAIN_CLUSTER_MAX_UNITS`` (u=1023), the float32 inference rows and
+    ``TRAIN_CLUSTER_MAX_UNITS`` (u=511), the float32 inference rows and
     row 7 with float32 IO up to ``CLUSTER_MAX_UNITS`` (u=1024), the bf16
     rows up to ``BF16_CLUSTER_MAX_UNITS`` (u=1279), row 7 with bf16 IO up
     to ``SEQ_BF16_CLUSTER_MAX_UNITS`` (u=767); every width runs, only
     u <= 0 is refused."""
     assert (cuda_rnn.TRAIN_CLUSTER_MAX_UNITS, cuda_rnn.CLUSTER_MAX_UNITS,
             cuda_rnn.BF16_CLUSTER_MAX_UNITS,
-            cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS) == (1023, 1024, 1279, 767)
+            cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS) == (511, 1024, 1279, 767)
     for units in (1023, 1024):
         assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
-    assert cuda_rnn.train_layout(1023) == "cluster"
-    for units in (1024, 1025, 2048, 4096, 4097, 8192):
+    assert cuda_rnn.train_layout(511) == "cluster"
+    for units in (512, 1023, 1024, 1025, 2048, 4096, 4097, 8192):
         assert cuda_rnn.train_layout(units) == "grid"
     for units in (1025, 2048, 4096, 4097, 8192):
         assert cuda_rnn.avg_tile_name("lstm", units) == "grid"

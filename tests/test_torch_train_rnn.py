@@ -135,13 +135,12 @@ def test_autograd_function_matches_jax_vjp(cell, batch, steps, units,
                                    err_msg=name)
 
 
-# The widths either side of the window tile's wide layout (u=128 | 129),
-# up to its widest (u=256), and on the cluster tile past it: u=257, u=520
-# (ragged over 16 CTAs: 33 units a CTA), u=1024 (64 units a CTA, one a
-# lane) and past it with several units a lane, u=1025 (ragged: 65 units a
-# CTA) and u=2048, and past the cluster tiles on the grid tile, u=4100
-# (ragged against its 32-unit blocks); the LSTM's u=128 cases keep the ids
-# they had when u=128 was the ceiling.
+# The widths either side of the window tile's ceiling (u=128 | 129), up to
+# u=256, u=257, u=520 (ragged over 16 CTAs: 33 units a CTA), u=1024 and
+# past it u=1025 (ragged) and u=2048, and u=4100 (ragged against the grid
+# tile's 32-unit blocks); the LSTM's u=128 cases keep the ids they had
+# when u=128 was the ceiling.  On the CPU every case runs the plain
+# versions; the tiles are the card tests'.
 WIDE_CASES = [
     pytest.param(cell, units, rate,
                  id=(str(rate) if (cell, units) == ("lstm", 128)
@@ -149,9 +148,10 @@ WIDE_CASES = [
     for cell in ("gru", "lstm") for units in (128, 129, 200, 256, 257, 520,
                                               1024, 1025, 2048, 4100)
     for rate in (0.0, 0.0928)]
-# Steps of a wide case: 20 on the window tile, 8 past it, fewer past
-# u=1024, where the JAX kernels' interpret mode takes seconds a step.
+# Steps of a wide case: 20 up to u=256, 8 past it, fewer past u=1024,
+# where the JAX kernels' interpret mode takes seconds a step.
 WIDE_STEPS = {1025: 3, 2048: 2, 4100: 2}
+WIDE_STEPS_MAX_UNITS = 256
 
 
 @pytest.mark.parametrize("cell,units,rate", WIDE_CASES)
@@ -167,8 +167,7 @@ def test_lstm_train_matches_jax_vjp_u128(cell, units, rate):
     rounding of avg (which agrees within 3e-7) and not the kernels'
     agreement."""
     batch = 2
-    steps = WIDE_STEPS.get(
-        units, 20 if units <= cuda_rnn.TRAIN_WINDOW_UNITS else 8)
+    steps = WIDE_STEPS.get(units, 20 if units <= WIDE_STEPS_MAX_UNITS else 8)
     params, codes, masks = random_case(units, cell, batch, steps, units,
                                        rate)
     with torch.no_grad():
@@ -226,21 +225,49 @@ def test_plain_bwd_matches_autograd(cell, rate, batch, steps, units):
 
 def test_train_layout_by_width():
     """The training kernels' layout of a width (the window tile up to
-    u=256, the cluster tile past it up to ``TRAIN_CLUSTER_MAX_UNITS``,
-    u=1023), the grid tile from u=1024 at every width, and the refusal of
+    u=128, the cluster tile past it up to ``TRAIN_CLUSTER_MAX_UNITS``,
+    u=511), the grid tile from u=512 at every width, and the refusal of
     u <= 0 only."""
     for units, layout in ((1, "registers"), (64, "registers"), (65, "l2"),
-                          (128, "l2"), (129, "wide"), (256, "wide"),
-                          (257, "cluster"), (520, "cluster"),
-                          (1023, "cluster"), (1024, "grid"), (1025, "grid"),
+                          (128, "l2"), (129, "cluster"), (256, "cluster"),
+                          (257, "cluster"), (511, "cluster"), (512, "grid"),
+                          (520, "grid"),
+                          (1023, "grid"), (1024, "grid"), (1025, "grid"),
                           (2048, "grid"), (3000, "grid"),
                           (4096, "grid"), (4097, "grid"), (4100, "grid"),
                           (8192, "grid"), (26800, "grid")):
         assert cuda_rnn.train_layout(units) == layout
-    assert cuda_rnn.TRAIN_CLUSTER_MAX_UNITS == 1023
+    assert cuda_rnn.TRAIN_CLUSTER_MAX_UNITS == 511
+    assert cuda_rnn.TRAIN_WINDOW_UNITS == 128
     for units in (0, -1):
         with pytest.raises(ValueError, match=f"u >= 1, not u={units}"):
             cuda_rnn.train_layout(units)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,units", [
+    (2, 1024), (10, 1025), (32, 4096), (38, 4097), (74, 2048), (128, 3001),
+    (128, 3300), (128, 4097), (128, 4608), (512, 1024), (512, 1537),
+    (512, 4096), (4, 26800)])
+def test_grid_bwd_tile_by_fill(rows, units, sms):
+    """The grid's backward step (B) (pure Python): 32 rows a CTA and 1-4
+    blocks of 32 units, never more than the width has, and CTAs that
+    cover every row and unit.  On 132 SMs, at the three shapes whose
+    every count ``tools/train_tile_sweep.py --ablate`` timed (the note at
+    ``GRID_BWD_BLOCK_COST``), the count that was fastest: B=64, u=4608 3
+    blocks, B=256, u=1024 2, B=16, u=4096 1."""
+    row_blocks, blocks = -(-rows // 32), -(-units // 32)
+    groups = cuda_rnn.grid_bwd_groups(rows, units, sms)
+    assert 1 <= groups <= min(cuda_rnn.GRID_BWD_MAX_GROUPS, blocks)
+    tile = cuda_rnn.grid_bwd_tile(rows, units, sms)
+    assert tile == (32, 32 * groups, row_blocks * -(-blocks // groups))
+    assert tile[0] * row_blocks >= rows
+    assert tile[1] * (tile[2] // row_blocks) >= units
+    fastest = {(128, 4608): 3, (512, 1024): 2, (32, 4096): 1}
+    if sms == 132 and (rows, units) in fastest:
+        assert groups == fastest[(rows, units)]
+    with pytest.raises(ValueError, match="u=0"):
+        cuda_rnn.grid_bwd_groups(rows, 0, sms)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])

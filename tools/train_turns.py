@@ -9,7 +9,7 @@ Usage, on a machine with one CUDA card::
     python3 tools/train_turns.py [--root DIR] [--label NAME]
         [--shapes 256x342x60,256x342x512,64x342x1024] [--reps 20]
         [--sass [--sass-dir DIR] [--libs rnn_train,rnn_avg,rnn_seq]]
-        [--out FILE.jsonl]
+        [--split] [--out FILE.jsonl]
     python3 tools/train_turns.py --summary FILE.jsonl [--sass-dir DIR]
 
 ``--root`` is the checkout whose package is imported and built (by
@@ -17,7 +17,10 @@ default the one this script is in).  Each case: random weights and codes
 from a seed, dropout masks at rate 0.0928, output cotangents; each time
 is CUDA events over ``--reps`` launches after a warm-up.  The line holds
 the label, the card's name and power limit and the ms of each
-``{cell} {fwd|bwd} BxTxU``.  ``--sass`` adds a hash of the SASS of each
+``{cell} {fwd|bwd} BxTxU``.  ``--split`` adds, for each, the device ms
+of one backward recurrence (``cuda_rnn._bwd_recurrence``) by kernel
+(``torch.profiler``; the name up to its template arguments), so the grid
+tile's recompute (A) and step (B) stand apart.  ``--sass`` adds a hash of the SASS of each
 kernel of the built libraries (``--libs``, by default ``rnn_train``;
 ``cuobjdump -sass``), by its mangled name
 with the anonymous namespace's tag (a hash of the source file) dropped
@@ -157,6 +160,12 @@ def run(args) -> dict:
                 torch, lambda: cuda_rnn.train_bwd(cell, params, codes, masks,
                                                   seqs, d_avg, d_hid),
                 args.reps)
+            if args.split:
+                row.setdefault("split", {})[f"{cell} {shape}"] = (
+                    kernel_ms(torch, lambda: cuda_rnn._bwd_recurrence(
+                        cell, params, codes, masks, seqs, d_avg, d_hid)))
+            del params, codes, masks, d_avg, d_hid, out, seqs
+            torch.cuda.empty_cache()
     if args.sass:
         row["sass"] = {}
         for name in args.libs.split(","):
@@ -164,6 +173,29 @@ def run(args) -> dict:
                 _build.load_kernels(name)._name,
                 args.sass_dir and os.path.join(args.sass_dir, args.label)))
     return row
+
+
+def kernel_ms(torch, fn) -> dict:
+    """Device ms of one call of ``fn`` (warm) by kernel, the name up to its
+    template arguments (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = defaultdict(float)
+    for event in prof.key_averages():
+        total = getattr(event, "device_time_total", None)
+        if total is None:
+            total = event.cuda_time_total
+        name = re.sub(r"^void\s+", "", event.key).replace(
+            "(anonymous namespace)::", "")
+        name = re.split(r"[<(]", name)[0].split("::")[-1]
+        if total > 0:
+            out[name] += total / 1e3
+    return dict(out)
 
 
 def summary(path: str, sass_dir: str = None) -> None:
@@ -190,6 +222,16 @@ def summary(path: str, sass_dir: str = None) -> None:
             print(f"{key}: {label} / {base} = {ratio:.4f} (runs in order "
                   f"{runs})")
         print(f"largest ratio {label} / {base}: {worst:.4f}")
+        for key in by_label[base][0].get("split", {}):
+            for name in by_label[base][0]["split"][key]:
+                values = [[r["split"][key].get(name, 0.0)
+                           for r in by_label[lab]] for lab in (base, label)]
+                if all(values[0]) and all(values[1]):
+                    ratio = ((sum(values[1]) / len(values[1]))
+                             / (sum(values[0]) / len(values[0])))
+                    print(f"{key} {name}: {label} / {base} = {ratio:.4f} "
+                          f"(ms {[round(v, 4) for v in values[0]]} -> "
+                          f"{[round(v, 4) for v in values[1]]})")
         if sass_dir:
             sass = [dumped_hashes(os.path.join(sass_dir, name))
                     for name in (base, label)]
@@ -220,6 +262,7 @@ def main() -> int:
     parser.add_argument("--shapes", default=DEFAULT_SHAPES)
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--sass", action="store_true")
+    parser.add_argument("--split", action="store_true")
     parser.add_argument("--sass-dir")
     parser.add_argument("--libs", default="rnn_train")
     parser.add_argument("--out")
