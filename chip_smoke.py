@@ -14,9 +14,15 @@ seconds are printed after it):
 2. Kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at the flagship shape (B=1024 windows, T=342, u=60) and at a
    ragged one (B=1000, T=150, u=32), also at u=96 and u=128 (past the
-   register tile's registers) and on the cluster tile at u=256, 512 (B=256),
-   1024 (B=64, its ceiling) and ragged at u=300 (B=37, T=150) and u=520
-   (B=5, T=23), past u=1024 on the grid tile (``csrc/rnn_grid.cu``) at
+   register tile's registers), past u=128 on the cluster tile at u=256
+   (B=256) and ragged at u=300 (B=37, T=150), from u=384 on the stationary
+   tile at u=512 (B=256), 768 and 1024 (B=64, the ceiling) and ragged at
+   u=520 (B=5, T=23); at each of those the stationary tile's layout (CTAs,
+   units a CTA, threads, windows a row block, stages, shared bytes, the
+   variant's ptxas usage), where it is routed the grid tile timed beside
+   it, elsewhere the stationary tile forced (against the plain version,
+   a window's bits alone, in the batch and repeated, its time beside the
+   routed tile's); past u=1024 on the grid tile (``csrc/rnn_grid.cu``) at
    u=2048 (B=64, T=342), 4096 (B=16, T=342) and ragged at u=1025 (B=37,
    T=150: one past the ceiling) and u=3000 (B=5, T=23), each with its
    tile (CTAs a cluster, clusters at once; the ptxas usage of each
@@ -335,7 +341,9 @@ seconds are printed after it):
     each launched, no plain version; the rows the two precisions share
     printed).
 20. Wide models predict: ``gru_att`` and the LSTM of the flagship options
-    at u=512, u=1024 (the float32 cluster tiles' ceiling), u=2048 (the
+    at u=512, u=1024 (in float32 both on the stationary tile, whose
+    launches are counted under its name too; u=1024 the float32 tiles'
+    ceiling), u=2048 (the
     grid tile in both dtypes and on the scan route) and u=4608 (the grid tile; one fixture each, ``gru_att.fa``
     and ``lstm.fa``), made by the port's initialiser from a seed and written
     as ``.npz`` model files, predict the three fixtures (from u=2048 the
@@ -355,7 +363,9 @@ Before each predict or train run every launch count is set to 0; after it,
 the kernels of that path must have launched and the plain versions must
 not have run (``dg_mss_stack`` on the ``on`` route and the sharded
 engine's ``auto`` on a sparse track only).  The line before
-the last lists each kernel (``{"kernels": [...]}``); the last line is
+the last lists each kernel (``{"kernels": [...]}``; the stationary
+tile's rows timed at phase 2's u=1024, B=64 and counted on phase 20's
+paths); the last line is
 ``{"ok": true, "device": ...}``.
 """
 
@@ -396,12 +406,15 @@ SHAPES = {"flagship": (1024, 342, 60), "ragged": (1000, 150, 32)}
 # L1/L2), at the engine's batch.
 WIDE_SHAPES = {"u96": (1024, 342, 96), "u128": (1024, 342, 128)}
 # Past u=128 on the cluster tiles (a window's units over 8 or 16 CTAs in
-# float32, 2 to 16 in bf16), up to the ceiling u=1024: at the CLI's
-# default batch, 64 windows at the ceiling, and ragged (u=300: 19 units a
-# CTA of 16; u=520: 33).
+# float32, 2 to 16 in bf16) and, in float32 from u=384, the stationary
+# tile, up to the ceiling u=1024: at the CLI's default batch, 64 windows
+# at u=768 and the ceiling, and ragged (u=300: 19 units a CTA of 16;
+# u=520: 4 a CTA of the stationary tile's 130).
 CLUSTER_SHAPES = {"u256": (256, 342, 256), "u512": (256, 342, 512),
                   "u1024": (64, 342, 1024), "ragged_u300": (37, 150, 300),
-                  "ragged_u520": (5, 23, 520)}
+                  "ragged_u520": (5, 23, 520), "u768": (64, 342, 768)}
+# The stationary tile's shape in the kernels line.
+STATIONARY_LINE_SHAPE = "u1024"
 # Past the float32 cluster tiles' ceiling (u=1024) on the grid tile (the
 # bf16 rows on their cluster tile of 16 CTAs up to u=1279): ragged at
 # u=1025 (one past the ceiling) and u=3000, and u=2048 and 4096 at T=342;
@@ -827,22 +840,70 @@ def random_rnn_on_card(torch, seed: int, gates: int, batch: int, steps: int,
 
 
 def grid_beside_cluster(torch, label: str, run, want, cluster_ms: float,
-                        reps: int, tol: float) -> float:
-    """The grid tile (``run``) at a width the cluster tile serves: its
-    difference to the plain version's outputs ``want`` and its ms beside
-    the cluster tile's; raises past ``tol``."""
+                        reps: int, tol: float, tile: str = "cluster") -> float:
+    """The grid tile (``run``) at a width the cluster (or ``tile``) tile
+    serves: its difference to the plain version's outputs ``want`` and its
+    ms beside that tile's; raises past ``tol``."""
     got = run()
     torch.cuda.synchronize()
     err = max((g.float() - w.float()).abs().max().item()
               for g, w in zip(got, want))
     ms = cuda_ms(torch, run, reps)
-    print(f"{label}: grid tile ms={ms:.4f} beside the cluster tile's "
+    print(f"{label}: grid tile ms={ms:.4f} beside the {tile} tile's "
           f"{cluster_ms:.4f} ({cluster_ms / ms:.2f}x), max_abs_err={err:.3g}",
           flush=True)
     if not err <= tol:
         raise AssertionError(f"{label}: the grid tile differs from the plain "
                              f"version by {err}")
     return ms
+
+
+def stationary_beside(torch, name: str, label: str, params, codes, want,
+                      row: dict, reps: int, log: str) -> dict:
+    """Phase 2 past u=128 up to the ceiling: the float32 stationary
+    tile's layout at this shape and its variant's ptxas usage; where the
+    route runs it (``row`` is its), the grid tile timed beside it, and
+    ``row`` again under the tile's name; elsewhere the stationary tile
+    forced: against the plain version's ``want`` (1e-5), a window's bits
+    alone, in the batch and repeated, its ms beside the routed tile's."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    cell = name.split("_")[0]
+    gates = 4 if cell == "lstm" else 3
+    batch, _ = codes.shape
+    units = params["recurrent"].shape[0]
+    lay = cuda_rnn.stationary_layout(cell, batch, units)
+    args = (f"{gates}, {lay['windows_a_group']}, {lay['units_a_lane']}, "
+            f"{512 if lay['variant'] == 1 else 256}")
+    usage = ptxas_usage(log, "AvgStationaryKernel")[args]
+    print(f"  stationary tile: {lay['ctas']} CTAs x {lay['units_a_cta']} "
+          f"units, {lay['threads']} threads, row blocks of "
+          f"{lay['windows_a_block']} windows x {lay['blocks']}, "
+          f"{lay['stages']} stages, {lay['smem']} B shared, variant "
+          f"{lay['variant']} <{args}>: {usage}", flush=True)
+    if cuda_rnn.avg_tile_name(cell, units) == "stationary":
+        grid_beside_cluster(torch, f"{name} {label}",
+                            lambda: cuda_rnn._launch(name, gates, params,
+                                                     codes, grid=True),
+                            want, row["ms"], reps, TOL, "stationary")
+        return {(f"{name}_stationary", label): row}
+
+    def forced(c=codes):
+        return cuda_rnn._launch(name, gates, params, c, stationary=True)
+
+    got = forced()
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    del got
+    window_bits(torch, forced, codes)
+    ms = cuda_ms(torch, forced, reps)
+    print(f"{name} {label}: the stationary tile (forced) max_abs_err="
+          f"{err:.3g} ms={ms:.4f} beside the routed tile's {row['ms']:.4f}",
+          flush=True)
+    if not err <= TOL:
+        raise AssertionError(f"{name} {label}: the stationary tile differs "
+                             f"from the plain version by {err}")
+    return {}
 
 
 def grid_kernel_phase(torch, rows) -> dict:
@@ -1006,7 +1067,10 @@ def kernel_phase(torch):
                              ("AvgClusterKernel", "gates, windows a lane "
                                                   "group, CTAs a cluster, U "
                                                   "in shared memory, units "
-                                                  "a lane")):
+                                                  "a lane"),
+                             ("AvgStationaryKernel", "gates, windows a lane "
+                                                     "group, units a lane, "
+                                                     "most threads")):
         for args, usage in sorted(ptxas_usage(log, template).items()):
             print(f"ptxas {template}<{args}> ({fields}): {usage}",
                   flush=True)
@@ -1056,6 +1120,10 @@ def kernel_phase(torch):
                 raise AssertionError(f"{name} {label}: kernel differs from "
                                      f"its plain version by {err}")
             results[(name, label)] = row
+            if 128 < units <= cuda_rnn.CLUSTER_MAX_UNITS:
+                results.update(stationary_beside(
+                    torch, name, label, params, codes, (p_avg, p_hidden),
+                    row, reps, log))
     log = (_build.BUILD_DIR / "rnn_grid.log").read_text()
     for args, usage in sorted(ptxas_usage(log, "GridStepKernel").items()):
         print(f"ptxas GridStepKernel<{args}> (gates, GRU over x): {usage}",
@@ -4623,14 +4691,15 @@ def scan_bed_matches(name: str, cell: str, fixture: str, model_path: str,
                              f"BED differs from the fused route's")
 
 
-def add_grid_launches(grid_launches: dict, row: str, count: int) -> None:
-    """Adds the grid tile's launches of the run just made under its name
-    (``row`` with ``_grid`` after the cell's kernel name); raises unless
-    each of the row's ``count`` launches ran it."""
+def add_grid_launches(grid_launches: dict, row: str, count: int,
+                      tile: str = "grid") -> None:
+    """Adds the grid tile's (or ``tile``'s) launches of the run just made
+    under its name (``row`` with ``_grid`` after the cell's kernel name);
+    raises unless each of the row's ``count`` launches ran it."""
     from deepgrp_tpu_torch.models import cuda_rnn
 
-    grid = (row.replace("_avg", "_avg_grid") if "_avg" in row
-            else f"{row}_grid")
+    grid = (row.replace("_avg", f"_avg_{tile}") if "_avg" in row
+            else f"{row}_{tile}")
     got = cuda_rnn.LAUNCHES.get(grid)
     if got != count:
         raise AssertionError(f"{grid}: {got} launches of {count} of {row}")
@@ -4650,8 +4719,8 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
     7) on the card: classes equal, max probability within 1e-5.  From
     u=2048 each model predicts its one fixture of
     :data:`PREDICT_WIDE_FIXTURES`.  Returns the launch counts of each
-    run, and the grid tile's launches by kernel name (every launch of a
-    run on the grid tile)."""
+    run, and the grid and stationary tiles' launches by kernel name
+    (every launch of a run on those tiles)."""
     from deepgrp_tpu_torch.models import cuda_rnn
     from deepgrp_tpu_torch.data.fasta import read_multi_fasta
     from deepgrp_tpu_torch.models.keras_io import save_model_npz
@@ -4692,11 +4761,12 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
                     suffix = "_bf16" if precision == "bfloat16" else ""
                     launches[f"{name} {fixture} {precision}"] = check_path(
                         f"{cell}_avg{suffix}")
-                    if cuda_rnn.avg_tile_name(
-                            cell, units, getattr(torch, precision)) == "grid":
+                    tile = cuda_rnn.avg_tile_name(cell, units,
+                                                  getattr(torch, precision))
+                    if tile in ("grid", "stationary"):
                         add_grid_launches(
                             grid_launches, f"{cell}_avg{suffix}",
-                            launches[f"{name} {fixture} {precision}"])
+                            launches[f"{name} {fixture} {precision}"], tile)
                 same = len(set(rows["float32"]) & set(rows["bfloat16"]))
                 print(f"{name} predict {fixture}: {len(rows['float32'])} BED "
                       f"rows in float32 ({seconds['float32']:.3f} s), "
@@ -4734,8 +4804,8 @@ def wide_predict_phase(torch, np, tmp: str) -> Tuple[dict, dict]:
             if not (same_c and diff <= TOL):
                 raise AssertionError(f"{name}: the fused track differs from "
                                      f"{against}")
-    print(f"grid tile launches on phase 20's paths: {grid_launches}",
-          flush=True)
+    print(f"grid and stationary tile launches on phase 20's paths: "
+          f"{grid_launches}", flush=True)
     return launches, grid_launches
 
 
@@ -4923,7 +4993,8 @@ def main() -> int:
     phase(f"20. wide models predict: gru_att and lstm at "
           f"u={', u='.join(map(str, PREDICT_WIDE_UNITS))} (random "
           f"weights from a seed) on the fixtures through the CLI in float32 "
-          f"and bf16 (past u=1024 the grid tile, in bf16 past 1279); the "
+          f"and bf16 (u=512, 1024 in float32 on the stationary tile; past "
+          f"u=1024 the grid tile, in bf16 past 1279); the "
           f"track against the CPU "
           f"(u=512) and the scan route (u >= 1024), the scan route's BEDs "
           f"(u >= 2048)")
@@ -4966,6 +5037,16 @@ def main() -> int:
             # The backward's step (B) beside the forward (grid_bwd_split).
             **{key: row[key] for key in ("recompute_ms", "step_ms", "fwd_ms",
                                          "step_bound_ms") if key in row}})
+    for name, (_, replaces) in KERNELS.items():
+        row = timings[(f"{name}_stationary", STATIONARY_LINE_SHAPE)]
+        kernels.append({
+            "name": f"{name}_stationary", "route": "cuda",
+            "source": "deepgrp_tpu_torch/csrc/rnn_avg.cu",
+            "replaces": replaces,
+            "launches": grid_launches[f"{name}_stationary"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     kernels.append({
         "name": "mss_stack", "route": "cuda",
         "source": "deepgrp_tpu_torch/csrc/mss_stack.cu",

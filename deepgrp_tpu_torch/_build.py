@@ -192,9 +192,16 @@ def _declare_rnn_avg(lib: ctypes.CDLL) -> None:
     lib.dg_avg_bf16_tile.argtypes = [_I32, _I32]  # gates, units
     lib.dg_avg_layout.argtypes = [_I32, _I32, _I32, _PTR]  # ..., bf16, out
     lib.dg_avg_clusters.argtypes = [_I32] * 4  # gates, units, bb, bf16
+    # gates, variant, codes, batch, steps, kernel, bias, recurrent, units,
+    # scratch, avg, hidden, stream
+    lib.dg_avg_stationary.argtypes = ([_I32, _I32, _PTR, _I32, _I32]
+                                      + [_PTR] * 3 + [_I32] + [_PTR] * 4)
     for fn in (lib.dg_avg_bf16_tile, lib.dg_avg_layout,
-               lib.dg_avg_clusters):
+               lib.dg_avg_clusters, lib.dg_avg_stationary):
         fn.restype = _I32
+    # gates, units, batch, variant, int[11] out -> scratch bytes
+    lib.dg_avg_stationary_layout.argtypes = [_I32] * 4 + [_PTR]
+    lib.dg_avg_stationary_layout.restype = ctypes.c_longlong
 
 
 def _declare_rnn_train(lib: ctypes.CDLL) -> None:

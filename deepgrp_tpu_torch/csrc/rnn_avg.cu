@@ -98,13 +98,14 @@
 //
 // The float32 cluster tile (AvgClusterKernel<kGates, kWin, kCluster,
 // kUSmem, 1>), which the float32 entry points run past u=128 up to u=1024
-// (kMaxUnits; past it the grid tile, rnn_grid.cu, the last bullet).  Past
-// u=128 one CTA a window would read all
-// of U from L2 every step (the register tile's 2 windows a CTA at u=256:
-// 8.2622 / 10.7776 ms at B=256, slower than cuDNN), and 4u threads stop
-// at u=256.  So a window's units split over a thread-block cluster, as
-// the GRU sequence kernel's cluster tile (csrc/rnn_seq.cu) splits a
-// row's, with this file's windows and input:
+// (kMaxUnits); the route (cuda_rnn.py) sends it u=129-383 and the
+// stationary tile (below) u=384-1024, the grid tile (rnn_grid.cu) past
+// u=1024.  Past u=128 one CTA a window would read all of U from L2 every
+// step (the register tile's 2 windows a CTA at u=256: 8.2622 / 10.7776 ms
+// at B=256, slower than cuDNN), and 4u threads stop at u=256.  So a
+// window's units split over a thread-block cluster, as the GRU sequence
+// kernel's cluster tile (csrc/rnn_seq.cu) splits a row's, with this
+// file's windows and input:
 //   * The CTA of rank r owns units [r uc, (r + 1) uc), uc = ceil(u /
 //     kCluster) <= 64, with all their gates and all k of their columns of
 //     U, so its lanes (four k-slices a unit, the register tile's lane
@@ -126,34 +127,20 @@
 //     past bb in a group read zero rows of h (no branch in the dot).
 //   * Layouts: up to u=256 8 CTAs, each CTA's slice of U in shared memory
 //     (98 kB GRU, 130 kB LSTM at u=256), 4 windows a lane group; past it
-//     16 CTAs (non-portable) streaming the slice through L1/L2 (196 kB a
-//     CTA a step for the GRU at u=512), 8 windows a lane group; 2 when the
-//     CTA owns at most 2; at most 8 windows a CTA.  The caller counts
-//     clusters in a wave and asks the card how many it places at once
-//     (dg_avg_clusters): on the H100 15 of 8 CTAs at u=256, of 16 CTAs 21
-//     at u=512 (CTAs of the L1/L2 layout share an SM) but 7 at u=1024
-//     (the two h buffers of 8 windows take 128 kB).
+//     16 CTAs (non-portable) streaming the slice through L1/L2, 8 windows
+//     a lane group; 2 when the CTA owns at most 2; at most 8 windows a CTA.
+//     The caller counts clusters in a wave and asks the card how many it
+//     places at once (dg_avg_clusters): on the H100 15 of 8 CTAs at u=256,
+//     of 16 CTAs 21 at u=512 but 7 at u=1024 (the two h buffers of 8
+//     windows take 128 kB).
 //   * The layouts, timed on an NVIDIA H100 80GB HBM3 at its 700 W limit
 //     (tools/avg_tile_sweep.py --min-units 129, T=342, ms a launch, GRU /
-//     LSTM): the register tile (2 windows a CTA, U through L1/L2) against
-//     8 CTAs at 2, 4 and 8 windows a cluster: u=160, B=256: 3.5004 /
-//     4.3013 against 3.5402, 3.0788, 2.0423 / 3.9114, 3.6314, 2.3690; B=1024:
-//     14.1796 / 17.2423 against 10.7716, 8.8875, 6.2662 / 15.5608,
-//     10.9302, 7.1398; u=200, B=256: 5.1715 / 6.5285 against 4.2761,
-//     5.0384, 4.0622 / 6.6779, 5.7882, 4.6692; B=1024: 21.1244 / 25.8290
-//     against 17.0017, 15.2262, 12.3754 / 23.8087, 17.4358, 13.5524;
-//     u=256, B=256: 8.4321 / 10.3821 against 6.4466, 6.3956, 5.5402 /
-//     10.1188, 7.4010, 6.2491; B=1024: 31.9709 / 40.9670 against 22.8968,
-//     22.9307, 16.6558 / 39.0031, 26.5938, 18.7939.  Past u=256, 16 CTAs
-//     with U in shared memory at 2 windows a cluster (the GRU's slice fits
-//     beside 2 up to u=512, the LSTM's up to u=448) against U through
-//     L1/L2 at 2, 4 and 8: u=300, B=256: 14.1780 / 17.0470 against
-//     14.7025, 15.8506, 8.8753 / 22.6416, 20.0151, 11.0055; u=512, B=256:
-//     27.7318 / - against 34.0921, 34.1962, 20.2449 / 42.8060, 43.0080,
-//     25.0810; u=1024, B=64: 37.1939, 44.4544, 30.8815 / 50.2227,
-//     58.0800, 39.8692 through L1/L2.  So the cluster tile from u=129 on,
-//     and past u=256 the L1/L2 layout at 8 windows: the smem layout's 2
-//     windows a cluster take 4x the waves.
+//     LSTM): at u=256, B=1024 the register tile 31.9709 / 40.9670, 8 CTAs
+//     at 2, 4 and 8 windows a cluster 22.8968, 22.9307, 16.6558 /
+//     39.0031, 26.5938, 18.7939; at u=300, B=256 16 CTAs with U in shared
+//     memory at 2 windows 14.1780 / 17.0470, through L1/L2 at 2, 4 and 8
+//     14.7025, 15.8506, 8.8753 / 22.6416, 20.0151, 11.0055.  So the cluster
+//     tile from u=129 on, past u=256 the L1/L2 layout at 8 windows.
 //   * ptxas -v (sm_90a, CUDA 12.8): AvgClusterKernel<3, 4, 8, shared> 104
 //     registers, <4, 4, 8, shared> 128, <3, 8, 16, L1/L2> 124, <4, 8, 16,
 //     L1/L2> 128, kWin 2 96-101; no spills.
@@ -161,22 +148,86 @@
 //     threads, one or two warps a scheduler, the cluster barrier), as the
 //     GRU sequence kernel's; past it the L2 stream of U's slices (every
 //     cluster reads all of U each step: 3 MB for the GRU at u=512, 12.6
-//     MB at u=1024), where cuDNN is faster (PERF.md).
+//     MB at u=1024, under 2 TB/s at u=1024, B=64, where 8 clusters run in
+//     two waves).
 //   * A window's bits depend on its codes and the weights only: each
 //     unit's sum runs in an order fixed by u (its quads in order, then the
 //     butterfly), nothing is atomic, whatever the window's cluster, CTA
 //     or lane.
 //   * Where it stops: past u=1024 a CTA of 16 would own more than 64
 //     units, more than a lane group of 4 uc threads holds within the
-//     launch bounds.  A tile with several units a lane served u=1025 to
-//     4096 once, but every cluster streamed all of U each step, and the
-//     grid tile (rnn_grid.cu: one tiled product a step, U read about once
-//     for the batch) was faster at every width past u=1024 and every batch
-//     swept (tools/avg_tile_sweep.py --grid on an NVIDIA H100 80GB HBM3 at
-//     700 W, ms cluster / grid, GRU: u=1025, B=5, T=23 1.129 / 0.855;
-//     u=2048, B=64 211.122 / 35.621; u=4096, B=16 544.952 / 40.560).  At
-//     u=1024 the cluster tile stays: B=5, T=23 0.594 / 0.816 (LSTM 1.071 /
-//     1.102), though at B=64 it takes 30.923 against the grid's 12.133.
+//     launch bounds; the grid tile (rnn_grid.cu: one tiled product a step,
+//     U read about once for the batch) was faster at every width past
+//     u=1024 and every batch swept (tools/avg_tile_sweep.py --grid).
+//
+// The float32 stationary tile (AvgStationaryKernel<kGates, kWin, kUt,
+// kThreads>, entry point dg_avg_stationary), which the route runs at
+// u=384-1024 in place of the cluster tile.  There the cluster tile
+// streamed U, not h: the card's 132 SMs hold 132 x 227 kB of shared
+// memory, and U (12.6 MB GRU, 16.8 MB LSTM at u=1024) fits on chip once,
+// split over the SMs, though not in one cluster.  So U stays put and h
+// moves:
+//   * One cooperative launch for all T steps (every CTA resident, at most
+//     one an SM; a grid the card cannot hold at once is refused and the
+//     wrapper raises).  CTA c owns units [c uc, (c + 1) uc), uc = ceil(u /
+//     SMs) (8 at u=1024: 128 CTAs), with all their gates and all k of
+//     their columns of U, loaded into shared memory once (99 kB GRU, 132
+//     kB LSTM at u=1024), k-major a column, padded so that a warp's unit
+//     slots start 16 banks apart, and its columns of W.
+//   * Every CTA serves every window, in row blocks of `windows` windows.
+//     Each step the owners store the new h of their units into one of two
+//     buffers [rows][width] of the zeroed scratch (rows 2 w + b; 512 kB at
+//     B=64, u=1024, so it stays in L2), and each CTA streams every row
+//     block's h back by cp.async in stages of 64 k through a ring of 2-4
+//     stages (a wait and a CTA barrier a stage); a grid barrier (an atomic
+//     arrival a CTA after a fence, an acquire poll) ends the step.
+//   * The lanes: 4 a unit slot (the four k-slices), a lane group of kWin
+//     windows, each lane kUt units with all their gates, so a quad of k
+//     costs 2 kWin + kUt g float4 loads from shared memory for 16 kWin kUt
+//     g FMAs.  The butterfly, the gate math, the average and the stores
+//     are the cluster tile's; a lane's carry comes from the scratch (h
+//     from the buffer its owner wrote the step before, the LSTM's c from a
+//     third buffer only its lane writes).
+//   * Variants, (kWin, kUt, threads): (4, 2, 256) where all its row
+//     groups fill, else (4, 1, 512) where it has at least 128 threads,
+//     else (2, 1, 256) (StatVariant; one that does not fit the shared
+//     memory gives way to the next).  Timed on the H100
+//     (tools/avg_tile_sweep.py --stationary --variants; GRU, ms (2, 1) /
+//     (4, 1) / (4, 2)): u=1024, B=64 26.150 / 14.575 / 12.623; B=16 6.894
+//     / 6.137 / 8.291; B=5, T=23 0.394 / 0.485 / 0.762; u=768, B=64 20.176
+//     / 9.734 / 10.423; u=512, B=16 3.091 / 3.551 / 5.283; B=256 29.601 /
+//     17.250 / 15.701.
+//   * Bits: each unit's sum runs in the cluster tile's order (k-slice s
+//     takes the quads s, s + 4, ... in order, then the butterfly) into the
+//     same gate math, so the outputs equal the cluster tile's bit for bit
+//     (tests/test_torch_cuda.py's digests), and a window's bits depend on
+//     its codes and the weights only, whatever the batch, row block,
+//     variant or CTA.
+//   * Timed on an NVIDIA H100 80GB HBM3 at 700 W (tools/avg_tile_sweep.py
+//     --stationary; ms stationary / cluster / grid / cuDNN): GRU B=64,
+//     u=1024 12.633 / 30.936 / 12.227 / 14.410, LSTM 14.453 / 39.788 /
+//     16.743 / 15.031; GRU B=256, u=512 15.763 / 20.490 / 11.209 / 14.421,
+//     LSTM 18.168 / 24.754 / 15.577 / 15.372; GRU B=5, T=23, u=1024 0.376 /
+//     0.592 / 0.825 / 0.491.  From u=384 it took at most 0.97x the cluster
+//     tile's time at every batch swept (B=16, 64, 256 at T=342; B=37,
+//     T=150; B=5, T=23); at u=257-352 up to 1.05-1.57x (at B=256), at
+//     u=129-256 1.8-3.2x; past u=1024 it lost to the grid tile at B >= 64.
+//   * ptxas -v (sm_90a, CUDA 12.8; chip_smoke.py's phase 2):
+//     AvgStationaryKernel<3, 2, 1, 256> 96 registers, <3, 4, 1, 512> 117,
+//     <3, 4, 2, 256> 168, <4, 2, 1, 256> 110, <4, 4, 1, 512> 116, <4, 4, 2,
+//     256> 246; no spills.
+//   * What bounds it (tools/avg_stationary_ablation.py, GRU B=64, u=1024,
+//     ms): shipped 12.73; no copies of h past the ring's first stages
+//     10.72; no grid barrier 12.04; no FMAs 7.68; stages of 32 k 15.94; a
+//     ring of 2 stages 12.71.  A step (37 us, 805 MFLOP: a
+//     third of the float32 rate) is the FMA loop at two warps a scheduler,
+//     a fixed cost a stage (its wait, barrier and copies: halving the
+//     stages' k adds 0.6 us each) and the h stream from L2 (all CTAs read
+//     the same rows: 64 MB a step at B=64, u=1024), then the barrier.  At
+//     B=256 the stream weighs more (u=512: no copies 11.81 of 15.68).
+//     Tried and not kept (same bits, slower at every shape tried): each
+//     stage multicast to clusters of 2 or 4 CTAs by bulk copies with
+//     mbarriers, and mbarriers in place of the CTA barrier a stage.
 //
 // The bf16 tensor-core tile (MmaAvgKernel<kGates, kKT, kUSmem, kCluster>),
 // which the _bf16 entry points run up to u=128 (kMmaUnits) one CTA a
@@ -373,6 +424,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "rnn_mma.cuh"
 #include "rnn_tile.cuh"
@@ -883,6 +936,471 @@ int LaunchClusterTile(const void *codes, int batch, int steps,
       static_cast<const int8_t *>(codes), batch, steps, f32(kernel),
       f32(bias), f32(recurrent), units, bb, static_cast<float *>(avg),
       static_cast<float *>(hidden)));
+}
+
+// ---- The float32 stationary tile -------------------------------------------
+
+constexpr int kStatK = 64;          // k of a stage of h (16 quads)
+constexpr int kStatHStride = kStatK + 4;  // floats a row of a stage
+constexpr int kStatStages = 4;      // most stages of the ring
+constexpr int kStatCount = 64;      // floats before h in the scratch (the
+                                    // barrier's count, then padding)
+
+// The stationary tile's variants: (windows a lane group, units a lane,
+// most threads a CTA) = (2, 1, 256), (4, 1, 512), (4, 2, 256).
+constexpr int kStatVariants = 3;
+__host__ __device__ constexpr int StatWin(int v) { return v == 0 ? 2 : 4; }
+__host__ __device__ constexpr int StatUnits(int v) { return v == 2 ? 2 : 1; }
+__host__ __device__ constexpr int StatThreads(int v) {
+  return v == 1 ? 512 : 256;
+}
+
+// The layout of the stationary tile for one launch (host and device):
+// each CTA owns uc units of the width with all their gates and all k of
+// their columns of U (in shared memory for the whole launch), for every
+// window of the batch, which it takes in row blocks of `windows` windows
+// (row_groups lane groups of `win` windows; a lane group has 4 threads a
+// unit slot, `groups` slots of `per_lane` units), each row block's h
+// streamed from the scratch in stages of kStatK k through a ring of
+// `stages` buffers.  threads == 0: refused.
+struct StatLayout {
+  int uc, ctas, groups, row_groups, threads, windows, blocks, width;
+  int ustride, stages, rows_pad;
+  int u_floats, w_floats, stage_floats;
+  size_t smem, scratch;
+
+  StatLayout() = default;
+  __host__ StatLayout(int gates, int units, int batch, int win, int per_lane,
+                      int max_threads, int sms, size_t optin) {
+    *this = StatLayout{};
+    if (units <= 0 || batch <= 0 || sms <= 0) return;
+    uc = (units + sms - 1) / sms;
+    ctas = (units + uc - 1) / uc;
+    groups = (uc + per_lane - 1) / per_lane;
+    const int most = max_threads / (kSlices * groups);
+    if (most < 1) return;
+    row_groups = std::min(most, (batch + win - 1) / win);
+    windows = row_groups * win;
+    blocks = (batch + windows - 1) / windows;
+    width = (units + kStatK - 1) / kStatK * kStatK;
+    // Columns a unit slot apart start 16 banks apart (see the note).
+    ustride = width + 16 / per_lane;
+    u_floats = gates * uc * ustride;
+    w_floats = Pad4(kCodes * gates * uc);
+    stage_floats = 2 * windows * kStatHStride;
+    const size_t fixed = sizeof(float) * (static_cast<size_t>(u_floats) +
+                                          w_floats);
+    const size_t stage = sizeof(float) * static_cast<size_t>(stage_floats);
+    if (optin < fixed + 2 * stage) return;
+    stages = static_cast<int>(std::min<size_t>(kStatStages,
+                                               (optin - fixed) / stage));
+    smem = fixed + stages * stage;
+    rows_pad = blocks * 2 * windows;
+    // The count, the two h buffers and (LSTM) the carry, zeroed.
+    scratch = sizeof(float) *
+              (kStatCount + static_cast<size_t>(gates == 4 ? 3 : 2) *
+                                rows_pad * width);
+    threads = kSlices * groups * row_groups;
+  }
+};
+
+struct StatArgs {
+  const int8_t *codes;
+  const float *kernel, *bias, *recurrent;
+  unsigned *count;          // the grid barrier's arrivals
+  float *h;                 // [2][rows_pad][width], rows 2 w + b
+  float *carry;             // [rows_pad][width] (LSTM's c)
+  float *avg, *hidden;
+  int batch, steps, units;
+  StatLayout lay;
+};
+
+__device__ __forceinline__ void StatCopy16(void *smem, const void *gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void StatCommit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most stages - 2 groups are pending: the oldest stage of
+// the ring has landed.
+__device__ __forceinline__ void StatWait(int stages) {
+  if (stages <= 2) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else if (stages == 3) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  }
+}
+
+// Every CTA of the (cooperative) launch has arrived `target` times in all:
+// the h stores of each CTA before it are seen by every CTA after it.
+__device__ __forceinline__ void GridBarrier(unsigned *count,
+                                            unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// The stationary tile (see the note above): one cooperative launch for
+// all T steps; CTA c owns units [c uc, (c + 1) uc) with their slice of U in
+// shared memory; each step every CTA streams the h of every row from the
+// scratch (row blocks, stages of kStatK k), forms whole gate sums of its
+// units (four k-slices, the butterfly), does their gate math and writes
+// their new h back; a grid barrier ends the step.
+template <int kGates, int kWin, int kUt, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
+AvgStationaryKernel(const StatArgs a) {
+  static_assert(kWin == 2 || kWin == 4 || kWin == 8, "kWin: 2, 4 or 8");
+  constexpr int kOwn = OwnWindows(kWin);
+  constexpr int kCols = kUt * kGates;
+  constexpr int kStageQuads = kStatK / 4;
+  extern __shared__ float4 smem4[];
+  const StatLayout &lay = a.lay;
+  const int units = a.units, uc = lay.uc, cols = kGates * uc;
+  const int width = lay.width, steps = a.steps, batch = a.batch;
+  float *s_u = reinterpret_cast<float *>(smem4);  // [g uc][ustride]
+  float *s_w = s_u + lay.u_floats;                // [5][g uc]
+  float *s_h = s_w + lay.w_floats;                // [stages][2 windows][hs]
+  const int base = static_cast<int>(blockIdx.x) * uc;
+  const int tid = threadIdx.x;
+  const int group = tid / kSlices, s = tid % kSlices;
+  const int slot = group % lay.groups;
+  const int w0 = group / lay.groups * kWin;  // in a row block
+
+  // The CTA's columns of U (column g uc + j: gate g of unit base + j),
+  // k-major a column, zero past u; a warp reads a k row's uc units.
+  for (int j = tid; j < units * cols; j += blockDim.x) {
+    const int k = j / cols, o = j - k * cols;
+    const int g = o / uc, n = base + o - g * uc;
+    s_u[o * lay.ustride + k] =
+        n < units ? a.recurrent[k * kGates * units + g * units + n] : 0.0f;
+  }
+  for (int j = tid; j < cols * (lay.ustride - units); j += blockDim.x) {
+    const int o = j / (lay.ustride - units);
+    s_u[o * lay.ustride + units + j - o * (lay.ustride - units)] = 0.0f;
+  }
+  for (int j = tid; j < kCodes * cols; j += blockDim.x) {
+    const int c = j / cols, o = j - c * cols;
+    const int g = o / uc, n = base + o - g * uc;
+    s_w[j] = n < units ? a.kernel[c * kGates * units + g * units + n] : 0.0f;
+  }
+
+  // The lane's units: local[j] of the CTA's (a slot past uc reads the
+  // last one's column and stores nothing).
+  int local[kUt], unit[kUt];
+  bool valid[kUt];
+  Cell<kGates> cell[kUt];
+  const float *u_col[kUt][kGates];
+#pragma unroll
+  for (int j = 0; j < kUt; ++j) {
+    local[j] = slot * kUt + j;
+    unit[j] = base + local[j];
+    valid[j] = local[j] < uc && unit[j] < units;
+    const int l = min(local[j], uc - 1);
+    cell[j].load(a.bias, units, min(unit[j], units - 1));
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) u_col[j][g] = s_u + (g * uc + l) *
+                                                      lay.ustride;
+  }
+  const bool writer = kWin >= 4 || s < 2;
+  const unsigned lanes = WarpLanes();
+  const int n_quads = Pad4(units) / 4;
+  const int k_blocks = width / kStatK;
+  const int chunks = lay.blocks * k_blocks;
+  const int stages = lay.stages;
+  const size_t buffer = static_cast<size_t>(lay.rows_pad) * width;
+  __syncthreads();
+
+  for (int t = 0; t < steps; ++t) {
+    const float *h_cur = a.h + (t & 1) * buffer;
+    float *h_nxt = a.h + ((t + 1) & 1) * buffer;
+    // Chunk c: k block c % k_blocks of row block c / k_blocks, into stage
+    // c % stages (an empty group past the last chunk keeps the count).
+    const auto issue = [&](int c) {
+      if (c < chunks) {
+        const int rb = c / k_blocks, kb = c - rb * k_blocks;
+        float *dst = s_h + (c % stages) * lay.stage_floats;
+        const float *src =
+            h_cur + static_cast<size_t>(rb) * 2 * lay.windows * width +
+            kb * kStatK;
+        for (int i = tid; i < 2 * lay.windows * kStageQuads;
+             i += blockDim.x) {
+          const int r = i / kStageQuads, q = i - r * kStageQuads;
+          StatCopy16(dst + r * kStatHStride + 4 * q,
+                     src + static_cast<size_t>(r) * width + 4 * q);
+        }
+      }
+      StatCommit();
+    };
+    for (int c = 0; c < stages - 1; ++c) issue(c);
+
+    float acc[kWin][2][kCols];
+    float h_own[kOwn][kUt][2], c_own[kOwn][kUt][2];
+    for (int c = 0; c < chunks; ++c) {
+      StatWait(stages);
+      __syncthreads();
+      issue(c + stages - 1);
+      const int rb = c / k_blocks, kb = c - rb * k_blocks;
+      if (kb == 0) {
+#pragma unroll
+        for (int w = 0; w < kWin; ++w) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+#pragma unroll
+            for (int o = 0; o < kCols; ++o) acc[w][b][o] = 0.0f;
+          }
+        }
+        // The carry of the lane's windows (written by this lane the step
+        // before; h by its owner CTA, read from L2).
+#pragma unroll
+        for (int jw = 0; jw < kOwn; ++jw) {
+          const int row = rb * lay.windows + OwnWindow<kWin>(w0, s, jw);
+#pragma unroll
+          for (int j = 0; j < kUt; ++j) {
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const size_t at = static_cast<size_t>(2 * row + b) * width +
+                                min(unit[j], units - 1);
+              h_own[jw][j][b] = __ldcg(h_cur + at);
+              c_own[jw][j][b] = kGates == 4 ? a.carry[at] : 0.0f;
+            }
+          }
+        }
+      }
+      const float *stage = s_h + (c % stages) * lay.stage_floats +
+                           2 * w0 * kStatHStride;
+      // Quad ql of the stage (q of the width) into the sums.
+      const auto quad = [&](int ql, int q) {
+        float u_q[4][kCols];
+#pragma unroll
+        for (int j = 0; j < kUt; ++j) {
+#pragma unroll
+          for (int g = 0; g < kGates; ++g) {
+            const float4 v =
+                *reinterpret_cast<const float4 *>(u_col[j][g] + 4 * q);
+            u_q[0][j * kGates + g] = v.x;
+            u_q[1][j * kGates + g] = v.y;
+            u_q[2][j * kGates + g] = v.z;
+            u_q[3][j * kGates + g] = v.w;
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < kWin; ++w) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const float4 h4 = *reinterpret_cast<const float4 *>(
+                stage + (2 * w + b) * kStatHStride + 4 * ql);
+            const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+            for (int cq = 0; cq < 4; ++cq) {
+#pragma unroll
+              for (int o = 0; o < kCols; ++o) {
+                acc[w][b][o] = fmaf(hv[cq], u_q[cq][o], acc[w][b][o]);
+              }
+            }
+          }
+        }
+      };
+      if ((kb + 1) * kStageQuads <= n_quads) {
+#pragma unroll
+        for (int m = 0; m < kStageQuads / kSlices; ++m) {
+          quad(s + kSlices * m, kb * kStageQuads + s + kSlices * m);
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < kStageQuads / kSlices; ++m) {
+          const int ql = s + kSlices * m;
+          if (kb * kStageQuads + ql < n_quads) {
+            quad(ql, kb * kStageQuads + ql);
+          }
+        }
+      }
+      if (kb != k_blocks - 1) continue;
+
+      // The row block's sums are whole: the butterfly, the gate math of
+      // the lane's windows and units, the new h and c, the average.
+      float dot[kOwn][2][kCols];
+      if constexpr (kWin >= 4) {
+        float half[kWin / 2][2][kCols];
+        FoldWindows<kWin, kCols>(acc, s & 1, 1, lanes, half);
+        FoldWindows<kWin / 2, kCols>(half, (s >> 1) & 1, 2, lanes, dot);
+      } else {
+        FoldWindows<kWin, kCols>(acc, s & 1, 1, lanes, dot);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+#pragma unroll
+          for (int o = 0; o < kCols; ++o) {
+            dot[0][b][o] += __shfl_xor_sync(lanes, dot[0][b][o], 2);
+          }
+        }
+      }
+#pragma unroll
+      for (int jw = 0; jw < kOwn; ++jw) {
+        const int row = rb * lay.windows + OwnWindow<kWin>(w0, s, jw);
+        if (!writer || row >= batch) continue;
+        const int8_t *w_codes = a.codes + static_cast<size_t>(row) * steps;
+        const int code_b[2] = {w_codes[t], Complement(w_codes[steps - 1 - t])};
+#pragma unroll
+        for (int j = 0; j < kUt; ++j) {
+          if (!valid[j]) continue;
+          float d[2][kGates];
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+#pragma unroll
+            for (int g = 0; g < kGates; ++g) d[b][g] = dot[jw][b][j * kGates + g];
+          }
+          StepWindow(
+              cell[j], d, code_b, s_w + local[j], cols, uc, h_own[jw][j],
+              c_own[jw][j],
+              [&](int b, float h) {
+                const size_t at =
+                    static_cast<size_t>(2 * row + b) * width + unit[j];
+                h_nxt[at] = h;
+                if constexpr (kGates == 4) a.carry[at] = c_own[jw][j][b];
+              },
+              row, batch, steps, t, units, unit[j], a.avg, a.hidden);
+        }
+      }
+    }
+    if (t + 1 < steps) GridBarrier(a.count, (t + 1) * gridDim.x);
+  }
+}
+
+// Calls f with the kernel of (gates, variant v); -1 for an unknown
+// variant.
+template <int kGates, int v, typename F>
+int StatWith(const F &f) {
+  return f(AvgStationaryKernel<kGates, StatWin(v), StatUnits(v),
+                               StatThreads(v)>);
+}
+
+template <typename F>
+int StatWithKernel(int gates, int v, const F &f) {
+  switch (gates * 10 + v) {
+    case 30: return StatWith<3, 0>(f);
+    case 31: return StatWith<3, 1>(f);
+    case 32: return StatWith<3, 2>(f);
+    case 40: return StatWith<4, 0>(f);
+    case 41: return StatWith<4, 1>(f);
+    case 42: return StatWith<4, 2>(f);
+  }
+  return -1;
+}
+
+// A cooperative launch of the layout's grid, or with `fits`, none:
+// whether the card holds every CTA at once (1) or not (0).
+template <typename Kernel>
+int StatLaunch(Kernel fn, const StatArgs &a, cudaStream_t stream,
+               int *fits = nullptr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(a.lay.smem));
+  // Every CTA must be resident (a grid barrier each step): refused where
+  // the card cannot hold the grid at once.
+  int per_sm = 0, device = 0, sms = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, a.lay.threads, a.lay.smem);
+  }
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fits != nullptr) {
+    *fits = per_sm * sms >= a.lay.ctas;
+    return 0;
+  }
+  if (per_sm * sms < a.lay.ctas) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.lay.ctas);
+  config.blockDim = dim3(a.lay.threads);
+  config.dynamicSmemBytes = a.lay.smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, fn, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout of variant `v` (0 .. kStatVariants - 1) on the current card.
+inline StatLayout StatLayoutOf(int gates, int units, int batch, int v) {
+  int device = 0, sms = 0;
+  if (v < 0 || v >= kStatVariants ||
+      cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return StatLayout{};
+  }
+  return StatLayout(gates, units, batch, StatWin(v), StatUnits(v),
+                    StatThreads(v), sms, SmemOptin());
+}
+
+// Whether the card holds every CTA of the layout at once.
+inline bool StatFits(int gates, int v, const StatLayout &lay) {
+  if (lay.threads == 0) return false;
+  StatArgs a{};
+  a.lay = lay;
+  int fits = 0;
+  const int err = StatWithKernel(
+      gates, v, [&](auto fn) { return StatLaunch(fn, a, nullptr, &fits); });
+  cudaGetLastError();  // clears an error of the query
+  return err == 0 && fits == 1;
+}
+
+// The variant the library picks for a shape (v < 0; measured on the
+// H100, see the note above): (4, 2) where its row groups are full (all 256
+// threads), else (4, 1) where it has at least 128 threads, else (2, 1).
+// Every variant gives the same bits.
+inline int StatVariant(int gates, int units, int batch, int v) {
+  if (v >= 0) return v < kStatVariants ? v : -1;
+  const StatLayout wide = StatLayoutOf(gates, units, batch, 2);
+  if (wide.threads > 0 &&
+      wide.row_groups == StatThreads(2) / (kSlices * wide.groups)) {
+    return 2;
+  }
+  return StatLayoutOf(gates, units, batch, 1).threads >= 128 ? 1 : 0;
+}
+
+// The layout the library launches for a shape: variant `v` (< 0: its
+// choice, else the first of the others whose grid the card holds at
+// once); threads == 0 if refused.
+inline StatLayout StatChoose(int gates, int units, int batch, int *v) {
+  const int first = StatVariant(gates, units, batch, *v);
+  if (first < 0) return StatLayout{};
+  const int order[] = {first, 2, 1, 0};
+  for (int cand : order) {
+    if (*v >= 0 && cand != first) break;  // a variant asked for: no other
+    const StatLayout lay = StatLayoutOf(gates, units, batch, cand);
+    if (StatFits(gates, cand, lay)) {
+      *v = cand;
+      return lay;
+    }
+  }
+  return StatLayout{};
 }
 
 // The float32 tile by width and windows a CTA (measured on the H100, see
@@ -1630,6 +2148,61 @@ int dg_lstm_avg_bf16(const void *codes, int batch, int steps,
                      void *hidden, void *stream) {
   return LaunchAvgBf16<4>(codes, batch, steps, kernel, bias, recurrent,
                           units, bb, avg, hidden, stream);
+}
+
+// The float32 stationary tile's layout for a shape on the current card:
+// out[0] CTAs, [1] units a CTA, [2] threads a CTA, [3] windows a row
+// block, [4] row blocks, [5] stages, [6] shared bytes, [7] windows a lane
+// group, [8] units a lane, [9] the padded width, [10] the variant;
+// `variant` -1 for the library's choice, else 0 .. 2.  Returns the
+// scratch bytes its launch takes (zeroed by the caller), 0 if refused (or
+// if the card cannot hold the grid at once).
+long long dg_avg_stationary_layout(int gates, int units, int batch,
+                                   int variant, int *out) {
+  if (gates != 3 && gates != 4) return 0;
+  int v = variant;
+  const StatLayout lay = StatChoose(gates, units, batch, &v);
+  if (lay.threads == 0) return 0;
+  const int fields[11] = {lay.ctas, lay.uc, lay.threads, lay.windows,
+                          lay.blocks, lay.stages,
+                          static_cast<int>(lay.smem), StatWin(v),
+                          StatUnits(v), lay.width, v};
+  for (int i = 0; i < 11; ++i) out[i] = fields[i];
+  return static_cast<long long>(lay.scratch);
+}
+
+// Launches the stationary tile (cooperative: every CTA resident, else
+// cudaErrorCooperativeLaunchTooLarge) in `variant` (as
+// dg_avg_stationary_layout takes it) with `scratch` of its bytes, zeroed;
+// the other arguments as dg_gru_avg's.
+int dg_avg_stationary(int gates, int variant, const void *codes, int batch,
+                      int steps, const void *kernel, const void *bias,
+                      const void *recurrent, int units, void *scratch,
+                      void *avg, void *hidden, void *stream) {
+  if ((gates != 3 && gates != 4) || steps <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int v = variant;
+  StatArgs a{};
+  a.lay = StatChoose(gates, units, batch, &v);
+  if (a.lay.threads == 0) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
+  a.codes = static_cast<const int8_t *>(codes);
+  a.kernel = static_cast<const float *>(kernel);
+  a.bias = static_cast<const float *>(bias);
+  a.recurrent = static_cast<const float *>(recurrent);
+  a.count = static_cast<unsigned *>(scratch);
+  a.h = static_cast<float *>(scratch) + kStatCount;
+  a.carry = a.h + 2 * static_cast<size_t>(a.lay.rows_pad) * a.lay.width;
+  a.avg = static_cast<float *>(avg);
+  a.hidden = static_cast<float *>(hidden);
+  a.batch = batch;
+  a.steps = steps;
+  a.units = units;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return StatWithKernel(gates, v,
+                        [&](auto fn) { return StatLaunch(fn, a, s); });
 }
 
 // The layout the kernels of a cell with `gates` gates (3 GRU, 4 LSTM) run

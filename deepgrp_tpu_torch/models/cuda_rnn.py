@@ -8,11 +8,16 @@ Inference: counterpart of ``deepgrp_tpu/models/pallas_rnn.py``
 the recurrent dot on the tensor cores at every width), at every width:
 one CTA a window up to u=128, past it a window's units split over a
 thread-block cluster of CTAs up to :data:`CLUSTER_MAX_UNITS` (u=1024; in
-bfloat16 :data:`BF16_CLUSTER_MAX_UNITS`, u=1279), and past it the grid
+bfloat16 :data:`BF16_CLUSTER_MAX_UNITS`, u=1279; in float32 from
+:data:`STATIONARY_MIN_UNITS`, u=384, the stationary tile: one cooperative
+grid whose CTAs each keep some units' slice of ``U`` in shared memory
+for the whole launch and serve every window, ``h`` handed over in device
+memory, a grid barrier a step), and past it the grid
 tile (``csrc/rnn_grid.cu``: one tiled product of every row's ``h`` with
 ``U`` a step, FMAs in float32 and ``mma.sync`` in bfloat16, the gate
 math in its epilogue).  :func:`avg_layout` names
-the tile, the CTAs a cluster and where ``U`` sits; only u <= 0 is
+the tile, the CTAs a cluster and where ``U`` sits
+(:func:`stationary_layout` the stationary tile's launch); only u <= 0 is
 refused.  :func:`gru_apply` is the counterpart of ``pallas_gru_apply``:
 the GRU over a float input ``x [B, T, C]``, ``(seq, last)`` out in
 ``x``'s dtype, at every width (the grid tile past
@@ -46,7 +51,9 @@ launches by name: ``gru_avg``, ``lstm_avg``, ``gru_avg_bf16``,
 ``lstm_avg_bf16``, ``gru_seq`` (either dtype), ``gru_train_fwd``,
 ``gru_train_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd`` (a backward
 counts once, for either cell: it is the recurrence kernel, the reduction
-kernel and the sum of the reduction's partials).  A call of the grid tile
+kernel and the sum of the reduction's partials).  A launch of the
+stationary tile counts under its row's name and as ``gru_avg_stationary``
+or ``lstm_avg_stationary``.  A call of the grid tile
 (its step launches) counts once under its row's name and once under
 the grid's: ``gru_avg_grid``, ``lstm_avg_grid``, ``gru_avg_grid_bf16``,
 ``lstm_avg_grid_bf16``, ``gru_seq_grid`` (either dtype),
@@ -146,11 +153,13 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str, shape: str) -> None:
 
 
 def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
-            out_dtype: torch.dtype = torch.float32, grid: bool = False
+            out_dtype: torch.dtype = torch.float32, grid: bool = False,
+            stationary: bool = False, variant: int = -1
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launches ``name``'s kernel on the tile of :func:`avg_tile_name`
-    (``grid``: on the grid tile at any width, to time it beside the
-    cluster tiles)."""
+    (``grid``: on the grid tile at any width, ``stationary``: on the
+    float32 stationary tile at any width it takes, in its ``variant``
+    (-1: the library's choice), to time them beside the other tiles)."""
     cell = name.split("_")[0]
     name += rnn.dtype_suffix(out_dtype)
     batch, steps, units = _check(name, gates, params, codes)
@@ -158,6 +167,25 @@ def _launch(name: str, gates: int, params: RnnParams, codes: torch.Tensor,
     avg = _empty(codes.device, batch, steps, units, dtype=out_dtype)
     hidden = _empty(codes.device, batch, units, dtype=out_dtype)
     if batch == 0:
+        return avg, hidden
+    if not grid and (stationary or _stationary_route(units, out_dtype)):
+        if out_dtype != torch.float32:
+            raise ValueError(f"{name}: the stationary tile is float32 only")
+        lib = _build.load_kernels("rnn_avg")
+        with torch.cuda.device(codes.device):
+            layout = stationary_layout(cell, batch, units, variant)
+            scratch = torch.zeros(layout["scratch"], dtype=torch.uint8,
+                                  device=codes.device)
+            stream = torch.cuda.current_stream(codes.device).cuda_stream
+            err = lib.dg_avg_stationary(
+                gates, variant, codes.data_ptr(), batch, steps,
+                params["kernel"].data_ptr(), params["bias"].data_ptr(),
+                params["recurrent"].data_ptr(), units, scratch.data_ptr(),
+                avg.data_ptr(), hidden.data_ptr(), ctypes.c_void_p(stream))
+        _raise_on(lib, err, f"{name} (stationary)",
+                  f"B={batch} T={steps} u={units}")
+        LAUNCHES.add(name)
+        LAUNCHES.add(name.replace("_avg", "_avg_stationary"))
         return avg, hidden
     if grid or _grid_route(units, "avg", out_dtype):
         lib = _build.load_kernels("rnn_grid")
@@ -209,6 +237,18 @@ def block_windows(batch: int, sms: int, most: int) -> int:
 #: 256 at T=342; B=37, T=150; B=5, T=23; row 7 at 16, 64, 2048 rows) runs
 #: the grid within 0.87x the cluster tile's time.
 CLUSTER_MAX_UNITS = 1024
+#: The narrowest layer the float32 fused rows (1, 2) run on the
+#: stationary tile (``AvgStationaryKernel`` of ``csrc/rnn_avg.cu``: each
+#: CTA keeps its units' slice of ``U`` in shared memory for the whole
+#: launch), up to :data:`CLUSTER_MAX_UNITS`; below it the cluster tile.
+#: From ``tools/avg_tile_sweep.py --stationary`` on an NVIDIA H100 80GB
+#: HBM3 at 700 W (B=16, 64, 256 at T=342; B=37, T=150; B=5, T=23; both
+#: cells; the stationary tile's largest ratio to the cluster tile's time
+#: over them): u=257 1.57, u=300 1.28, u=320 1.31, u=352 1.05 (each at
+#: B=256), u=384 0.97, u=512 0.83, u=768 0.91, u=1024 0.71; at u=129-256
+#: 1.8-3.2; past u=1024 it took up to 1.34x (u=1025) and 2.31x (u=1280)
+#: the grid tile's time.
+STATIONARY_MIN_UNITS = 384
 #: The widest layer the bfloat16 fused rows (1b, 2b) run on their cluster
 #: tile (``MmaAvgKernel``, past u=1024 ``MmaWideKernel`` of
 #: ``csrc/rnn_avg.cu``); past it the grid tile's bf16 step (``mma.sync``
@@ -275,6 +315,47 @@ def _grid_route(units: int, row: str = "seq",
         return units > (BF16_CLUSTER_MAX_UNITS if row == "avg"
                         else SEQ_BF16_CLUSTER_MAX_UNITS)
     return units > CLUSTER_MAX_UNITS
+
+
+def _stationary_route(units: int,
+                      out_dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the float32 fused inference rows (1, 2) run the stationary
+    tile at this width: from :data:`STATIONARY_MIN_UNITS` up to
+    :data:`CLUSTER_MAX_UNITS`, in float32 only.  Every layout helper and
+    launch asks this."""
+    return (not rnn.dtype_suffix(out_dtype)
+            and STATIONARY_MIN_UNITS <= units <= CLUSTER_MAX_UNITS)
+
+
+#: The fields of ``dg_avg_stationary_layout``'s ``out``, in order.
+STATIONARY_FIELDS = ("ctas", "units_a_cta", "threads", "windows_a_block",
+                     "blocks", "stages", "smem", "windows_a_group",
+                     "units_a_lane", "width", "variant")
+
+
+def stationary_layout(cell: str, batch: int, units: int,
+                      variant: int = -1) -> Dict[str, int]:
+    """The float32 stationary tile's launch for ``batch`` windows at this
+    width on the current CUDA device, from the library: its CTAs (one
+    cooperative grid, every CTA resident), the units a CTA owns (with
+    their slice of ``U`` in its shared memory), threads a CTA, the
+    windows of a row block (each CTA takes every window of the batch, a
+    row block at a time) and the row blocks, the stages of ``h``'s ring,
+    the shared bytes, the windows a lane group, the units a lane, the
+    padded width, the variant (``variant`` -1: the library's choice by
+    batch, else the first other variant that fits where it does not;
+    every variant gives the same bits) and ``scratch``, the zeroed bytes
+    the launch takes (barrier count, two ``h`` buffers, the LSTM's
+    carry).  Raises ``ValueError`` for a shape the tile refuses (or
+    whose grid the card cannot hold at once)."""
+    _check_width(units)
+    out = (ctypes.c_int * len(STATIONARY_FIELDS))()
+    scratch = _build.load_kernels("rnn_avg").dg_avg_stationary_layout(
+        4 if cell == "lstm" else 3, units, max(batch, 1), variant, out)
+    if scratch == 0:
+        raise ValueError(f"{cell}_avg's stationary tile refuses u={units} "
+                         f"at B={batch} (variant {variant})")
+    return {**dict(zip(STATIONARY_FIELDS, out)), "scratch": scratch}
 
 
 def grid_mma_units(rows: int, units: int, sms: int) -> int:
@@ -419,11 +500,15 @@ def avg_tile_name(cell: str, units: int,
     ``"mma"`` (the tensor-core tile, one CTA a window, u <= 128); past
     u=128 ``"cluster"`` in either (a window's units over a thread-block
     cluster of CTAs) up to :data:`CLUSTER_MAX_UNITS` (in bfloat16
-    :data:`BF16_CLUSTER_MAX_UNITS`), and past it ``"grid"`` (the grid
-    tile).  Raises ``ValueError`` for u <= 0."""
+    :data:`BF16_CLUSTER_MAX_UNITS`), in float32 from
+    :data:`STATIONARY_MIN_UNITS` ``"stationary"`` (the stationary tile,
+    :func:`stationary_layout`), and past it ``"grid"`` (the grid tile).
+    Raises ``ValueError`` for u <= 0."""
     _check_width(units)
     if _grid_route(units, "avg", out_dtype):
         return "grid"
+    if _stationary_route(units, out_dtype):
+        return "stationary"
     if units > 128:
         return "cluster"
     if rnn.dtype_suffix(out_dtype):
@@ -440,7 +525,8 @@ def avg_layout(cell: str, units: int,
     sits: ``"registers"``, ``"shared"``, each CTA's share in shared
     memory, ``"L1/L2"``, read each step, or on the grid tile ``"L2"``,
     tiles of it copied into shared memory each step) and ``max_windows``
-    (the most windows a CTA, of a cluster: the cluster's, owns).  Raises
+    (the most windows a CTA, of a cluster: the cluster's, owns; None on
+    the stationary tile, whose every CTA serves every window).  Raises
     ``ValueError`` for u <= 0 before it asks."""
     tile = avg_tile_name(cell, units, out_dtype)
     most, cluster, u_in = _library_layout(cell, units, out_dtype)
@@ -455,6 +541,9 @@ def _library_layout(cell: str, units: int,
     tile's library); ``ValueError`` for a width it refuses."""
     if _grid_route(units, "avg", out_dtype):
         return _grid_layout(out_dtype, 2, units)[0] // 2, 1, GRID_U_IN
+    if _stationary_route(units, out_dtype):
+        stationary_layout(cell, 1, units)  # raises where it is refused
+        return None, 1, U_IN[2]
     gates = 4 if cell == "lstm" else 3
     out = (ctypes.c_int * 2)()
     most = _build.load_kernels("rnn_avg").dg_avg_layout(
@@ -475,6 +564,7 @@ def avg_tile(cell: str, batch: int, units: int,
     the card's SMs, or past u=128 the clusters (of :func:`avg_cluster`
     CTAs, each of which holds its cluster's windows) that the card places
     at once (a cluster of 16 CTAs needs 16 free SMs of one GPC); on the
+    stationary tile every window and its layout's CTAs; on the
     grid route the grid tile's windows a CTA and CTAs a step
     (:func:`grid_tile`).  Raises ``ValueError`` for a width the kernels
     refuse."""
@@ -484,6 +574,9 @@ def avg_tile(cell: str, batch: int, units: int,
             2 * batch, units, out_dtype,
             torch.cuda.get_device_properties(device).multi_processor_count)
         return max(rows_a_cta // 2, 1), ctas
+    if _stationary_route(units, out_dtype):
+        with torch.cuda.device(device):
+            return batch, stationary_layout(cell, batch, units)["ctas"]
     gates = 4 if cell == "lstm" else 3
     cap, cluster, _ = _library_layout(cell, units, out_dtype)
     sms = torch.cuda.get_device_properties(device).multi_processor_count

@@ -36,7 +36,12 @@ u=96 and u=128 (past the register tile's registers), and past u=128 on
 the float32 cluster tile (a window's units over 8 CTAs up to u=256, 16
 beyond, ragged at u=129, 200, 300 and 520) up to its ceiling u=1024; a
 window's bits there are the same alone and inside a batch, and on a
-second launch.  Past it (in bf16 past u=1279; the scan route's GRU past
+second launch.  The float32 stationary tile (the route from u=384;
+forced at u=257-1024 with one to 256 windows at ragged T) matches the
+plain version, gives the same bits in every variant and the cluster
+tile's bits (stored digests), replays under a CUDA graph's capture bit
+for bit, and its layout holds every unit and window on a grid the card
+keeps resident.  Past it (in bf16 past u=1279; the scan route's GRU past
 u=1024, with bf16 IO past u=767) every inference row runs the grid tile
 (``csrc/rnn_grid.cu``: one tiled product a step, ``mma.sync`` in bf16;
 either side of each bf16 route; the float32 rows' bits those of the step
@@ -537,11 +542,21 @@ def test_gru_avg_tile_fills_the_card(device, dtype):
     # Past u=256 the wave counts the card's own count of clusters at once
     # (16 CTAs need 16 free SMs of one GPC; small ones share an SM): the
     # fewest windows that fill one wave, at most the layout's cap; on the
-    # grid tile (past u=1024, in bf16 past 1279) its rows and CTAs a step
-    # in the dtype's step (bf16: 128 rows a CTA, the tensor-core step).
+    # float32 stationary tile (u=384-1024) every CTA of one resident grid,
+    # at most one an SM, takes every window; on the grid tile (past
+    # u=1024, in bf16 past 1279) its rows and CTAs a step in the dtype's
+    # step (bf16: 128 rows a CTA, the tensor-core step).
     lib = _build.load_kernels("rnn_avg")
     for units in (300, 512, 1024, 2048, 4096):
         layout = cuda_rnn.avg_layout("gru", units, dtype)
+        if layout["tile"] == "stationary":
+            for batch in (5, 64, 256, 1024):
+                ctas = cuda_rnn.stationary_layout("gru", batch,
+                                                  units)["ctas"]
+                assert ctas <= sms
+                assert cuda_rnn.avg_tile("gru", batch, units, None,
+                                         dtype) == (batch, ctas)
+            continue
         if layout["tile"] == "grid":
             for batch in (5, 64, 256, 1024):
                 rows, ctas = cuda_rnn.grid_tile(2 * batch, units, dtype)
@@ -583,12 +598,18 @@ def test_lstm_avg_tile_fills_the_card(device, dtype):
         assert cuda_rnn.avg_tile("lstm", 1024, 60, None, dtype) == (8, 128)
     # Past u=1024 the CLI's default batch and -b 1024 get a tile within the
     # width's cap of windows a CTA (its h buffers; on the grid tile its
-    # row block), every window placed.
-    for units in (2048, 4096):
+    # row block), every window placed; at u=1024 in float32 the
+    # stationary tile's CTAs, at most one an SM, each take every window.
+    for units in (2048, 4096, 1024):
         layout = cuda_rnn.avg_layout("lstm", units, dtype)
         for batch in (256, 1024):
             windows, n_cta = cuda_rnn.avg_tile("lstm", batch, units, None,
                                                dtype)
+            if layout["tile"] == "stationary":
+                assert windows == batch and n_cta <= sms
+                assert n_cta == cuda_rnn.stationary_layout(
+                    "lstm", batch, units)["ctas"]
+                continue
             assert 1 <= windows <= layout["max_windows"]
             if layout["tile"] == "grid":
                 assert n_cta == cuda_rnn.grid_tile(2 * batch, units,
@@ -985,12 +1006,13 @@ def test_avg_bf16_tile_by_width(device):
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("units", [129, 200, 256, 300, 512, 520, 1024,
-                                   1025, 2048, 4096])
+                                   1025, 2048, 4096, 768, 1023])
 def test_avg_cluster_window_bits(device, cell, units):
-    """On the float32 cluster tile (up to u=1024; the grid tile past it) a
-    window's bits are the same alone, inside a batch of 64 and at another
-    place in it (other clusters, another lane of a group; another row of
-    the grid's row block), and a second launch equals the first."""
+    """On the float32 cluster and stationary tiles (up to u=1024; the grid
+    tile past it) a window's bits are the same alone, inside a batch of 64
+    and at another place in it (other clusters, another lane of a group;
+    another row block of the stationary tile, another row of the grid's
+    row block), and a second launch equals the first."""
     gates = 4 if cell == "lstm" else 3
     params, codes = random_case(units + gates, gates, 64, 150, units,
                                 device)
@@ -1007,17 +1029,181 @@ def test_avg_cluster_window_bits(device, cell, units):
         assert torch.equal(a, b)
 
 
+# The float32 stationary tile (rows 1 and 2 from
+# cuda_rnn.STATIONARY_MIN_UNITS to the ceiling; forced at every width
+# here): widths either side of its variants' shapes, ragged over the CTAs
+# (u=300: 3 units a CTA of 100; u=520: 4 of 130; u=1023: 8, the last 7),
+# and (batch, T) from one window to the CLI's 256 at ragged T.
+STATIONARY_UNITS = (257, 300, 512, 520, 768, 1023, 1024)
+STATIONARY_BATCHES = ((1, 1), (5, 23), (37, 150), (64, 23), (256, 23))
+
+
+def run_stationary(cell, params, codes, variant=-1):
+    """``cell``'s fused row on the stationary tile at any width it takes
+    (``variant`` -1: the library's)."""
+    return cuda_rnn._launch(f"{cell}_avg", 4 if cell == "lstm" else 3,
+                            params, codes, stationary=True, variant=variant)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", STATIONARY_UNITS)
+@pytest.mark.parametrize("batch,steps", STATIONARY_BATCHES)
+def test_stationary_matches_plain(device, cell, batch, steps, units):
+    """The stationary tile against the plain version at 1e-5 on both
+    outputs; one launch counted under the row's name and the tile's, no
+    plain version run."""
+    gates = 4 if cell == "lstm" else 3
+    params, codes = random_case(batch + steps + units, gates, batch, steps,
+                                units, device)
+    launches = cuda_rnn.LAUNCHES.snapshot()
+    plain_calls = rnn.PLAIN_CALLS.snapshot()
+    avg, hidden = run_stationary(cell, params, codes)
+    torch.cuda.synchronize()
+    now = cuda_rnn.LAUNCHES.snapshot()
+    for name in (f"{cell}_avg", f"{cell}_avg_stationary"):
+        assert now.get(name, 0) == launches.get(name, 0) + 1
+    assert rnn.PLAIN_CALLS.snapshot() == plain_calls
+    want_avg, want_hidden = getattr(rnn, f"{cell}_avg_plain")(params, codes)
+    torch.testing.assert_close(avg, want_avg, atol=ATOL, rtol=0)
+    torch.testing.assert_close(hidden, want_hidden, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("units", [300, 768, 1024])
+def test_stationary_variants_give_the_same_bits(device, cell, units):
+    """Each variant of the stationary tile (2 or 4 windows a lane group,
+    1 or 2 units a lane) gives the library's choice's bits, at 64 windows
+    and at 5: the variant changes which thread owns a sum, not its
+    order."""
+    gates = 4 if cell == "lstm" else 3
+    for batch, steps in ((64, 40), (5, 23)):
+        params, codes = random_case(units + batch, gates, batch, steps,
+                                    units, device)
+        want = run_stationary(cell, params, codes)
+        for variant in range(3):
+            got = run_stationary(cell, params, codes, variant)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                batch, variant)
+
+
+def stationary_digests(device) -> dict:
+    """sha256 of the stationary tile's outputs (avg then hidden) for each
+    cell at :data:`STATIONARY_DIGEST_SHAPES`, inputs from
+    :func:`random_case`'s seed."""
+    digests = {}
+    for cell in ("gru", "lstm"):
+        gates = 4 if cell == "lstm" else 3
+        for batch, steps, units in STATIONARY_DIGEST_SHAPES:
+            params, codes = random_case(units + batch + steps, gates, batch,
+                                        steps, units, device)
+            got = run_stationary(cell, params, codes)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for out in got:
+                digest.update(out.cpu().numpy().tobytes())
+            digests[f"{cell} {batch}x{steps}x{units}"] = digest.hexdigest()
+    return digests
+
+
+# (batch, T, u) of the digests, on the stationary route: ragged over its
+# CTAs (u=385: the last of 129 owns one unit of 3; u=1023: the last of 128
+# owns 7 of 8) and over the cluster tile's 16 CTAs (u=520: 33 units a CTA).
+STATIONARY_DIGEST_SHAPES = ((37, 12, 385), (5, 23, 520), (3, 9, 1023))
+# The same digests of the float32 cluster tile (AvgClusterKernel on 16
+# CTAs, U through L1/L2) as it ran on an NVIDIA H100 80GB HBM3 before the
+# stationary tile took its widths.
+CLUSTER_TILE_DIGESTS = {
+    "gru 37x12x385":
+        "d95ecd49a3132121ff8f55e13f032b88c1d36ff7e5c15ff6d320e5a10694f048",
+    "gru 5x23x520":
+        "fa6440d1d6b3a52c0014347b188e5eae2132410f6aa6a1b332f7592290b89d42",
+    "gru 3x9x1023":
+        "d50167c29b2a53112a5494e15b33e9afd6a49aa1edc916b4376fbdd996e9ab74",
+    "lstm 37x12x385":
+        "c73514c55c5ab86c962ea66ff961ca4858f6d296901eea7acb5f709e5aebfbb7",
+    "lstm 5x23x520":
+        "a7d4326f327cff75694265035aeb7126f7ea775c47f10ee4b5ab5d4856427930",
+    "lstm 3x9x1023":
+        "d4ce9b1825a0bb21e198ff0446457bf468095cd94ab426716a8dd1890cf9af73"}
+
+
+def test_stationary_bits_are_the_cluster_tiles(device):
+    """The stationary tile sums each unit in the cluster tile's order
+    (four k-slices, then the butterfly), so its outputs are the cluster
+    tile's bit for bit."""
+    assert stationary_digests(device) == CLUSTER_TILE_DIGESTS
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stationary_under_capture(device, cell):
+    """On its route the stationary tile's one cooperative launch (and the
+    wrapper's zeroed scratch, from the graph's pool) is captured into a
+    CUDA graph; a replay on new codes equals an eager call bit for bit."""
+    gates = 4 if cell == "lstm" else 3
+    units = cuda_rnn.CLUSTER_MAX_UNITS
+    assert cuda_rnn.avg_tile_name(cell, units) == "stationary"
+    kernel = getattr(cuda_rnn, f"{cell}_avg")
+    params, codes = random_case(11, gates, 5, 23, units, device)
+    static = codes.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kernel(params, static)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel(params, static)
+    other = random_case(12, gates, 5, 23, units, device)[1]
+    static.copy_(other)
+    graph.replay()
+    eager = kernel(params, other)
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stationary_layout_holds_every_window(device, cell):
+    """The library's stationary layout at each width of its route: at most
+    one CTA an SM of the card (every CTA resident: the launch is
+    cooperative), its CTAs cover every unit and its row blocks every
+    window, its shared memory within the card's opt-in; the variant of 2
+    windows a group up to 8 windows; ``avg_tile`` gives every window to
+    each of the layout's CTAs."""
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    for units in (cuda_rnn.STATIONARY_MIN_UNITS, 520, 768,
+                  cuda_rnn.CLUSTER_MAX_UNITS):
+        for batch in (1, 5, 37, 64, 256, 1024):
+            lay = cuda_rnn.stationary_layout(cell, batch, units)
+            assert lay["ctas"] <= sms
+            assert lay["ctas"] * lay["units_a_cta"] >= units
+            assert lay["windows_a_block"] * lay["blocks"] >= batch
+            assert lay["threads"] <= 512 and lay["stages"] >= 2
+            assert lay["width"] % 64 == 0 and lay["width"] >= units
+            if batch <= 8:
+                assert lay["variant"] == 0
+            assert cuda_rnn.avg_tile(cell, batch, units) == (batch,
+                                                            lay["ctas"])
+    with pytest.raises(ValueError, match="u=0"):
+        cuda_rnn.stationary_layout(cell, 1, 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_avg_layout_matches_library(device, dtype):
-    """``cuda_rnn.avg_layout`` at every width its cluster tiles take
-    (1-1024 in float32, 1-1279 in bfloat16) on this card and past them:
-    its tile (pure Python, from the width) agrees with the library's
-    CTAs a cluster (one CTA a window up to u=128, past it a cluster: in
-    float32 8 CTAs with U in shared memory up to u=256, 16 reading it
-    through L1/L2 beyond; in bfloat16 2 to 16 CTAs, the library's own
-    tile; past them the grid tile's library: no cluster, 16 windows a
-    CTA in float32 and 64 in bfloat16 (the tensor-core step's 128 rows),
-    tiles of U through L2), and the library refuses u=0."""
+    """``cuda_rnn.avg_layout`` at every width its cluster and stationary
+    tiles take (1-1024 in float32, 1-1279 in bfloat16) on this card and
+    past them: its tile (pure Python, from the width) agrees with the
+    library's CTAs a cluster (one CTA a window up to u=128, past it a
+    cluster: in float32 8 CTAs with U in shared memory up to u=256, 16
+    reading it through L1/L2 beyond, up to the stationary tile's
+    narrowest width, from which no cluster, each CTA's slice of U in
+    shared memory and no cap of windows (every CTA serves every window);
+    in bfloat16 2 to 16 CTAs, the library's own tile; past them the grid
+    tile's library: no cluster, 16 windows a CTA in float32 and 64 in
+    bfloat16 (the tensor-core step's 128 rows), tiles of U through L2),
+    and the library refuses u=0."""
     ceiling = (cuda_rnn.BF16_CLUSTER_MAX_UNITS if dtype == torch.bfloat16
                else cuda_rnn.CLUSTER_MAX_UNITS)
     for cell in ("gru", "lstm"):
@@ -1031,6 +1217,9 @@ def test_avg_layout_matches_library(device, dtype):
             if dtype == torch.bfloat16:
                 assert layout["tile"] == cuda_rnn.avg_bf16_tile(cell, units)
                 assert layout["cluster"] in (1, 2, 4, 8, 16), units
+            elif units >= cuda_rnn.STATIONARY_MIN_UNITS:
+                assert layout == {"tile": "stationary", "cluster": 1,
+                                  "u_in": "shared", "max_windows": None}, units
             elif units > 128:
                 assert (layout["cluster"], layout["u_in"]) == (
                     (8, "shared") if units <= 256 else (16, "L1/L2")), units

@@ -250,12 +250,13 @@ def test_grid_tile_by_dtype(rows, units, sms):
 
 
 # (units, tile) at each width where the inference kernels' tile changes,
-# the cluster tiles' ceilings (u=1024 in float32, 1279 in bfloat16), one
-# past each and beyond.
+# the cluster and stationary tiles' ceilings (u=1024 in float32, 1279 in
+# bfloat16), one past each and beyond.
 AVG_TILES = {
     "float32": [(1, "registers"), (64, "registers"), (65, "l2"),
                 (128, "l2"), (129, "cluster"), (300, "cluster"),
-                (1023, "cluster"), (1024, "cluster"), (1025, "grid"),
+                (383, "cluster"), (384, "stationary"),
+                (1023, "stationary"), (1024, "stationary"), (1025, "grid"),
                 (2048, "grid"), (4096, "grid"), (4097, "grid"),
                 (8192, "grid"), (26800, "grid")],
     "bfloat16": [(1, "mma"), (128, "mma"), (129, "cluster"),
@@ -271,9 +272,11 @@ AVG_TILES = {
 def test_avg_layout_by_width(cell, dtype):
     """The inference kernels' tile by width (pure Python): one CTA a window
     up to u=128 (the register tile in float32, the tensor-core tile in
-    bf16), past it a window's units over a cluster of CTAs up to the
-    cluster tiles' ceiling (u=1024 in float32, 1279 in bf16), and past it
-    the grid tile at every width; only u <= 0 is refused:
+    bf16), past it a window's units over a cluster of CTAs (in float32 up
+    to u=383, then the stationary tile: every CTA of one resident grid
+    owns some units for every window) up to the ceiling (u=1024 in
+    float32, 1279 in bf16), and past it the grid tile at every width;
+    only u <= 0 is refused:
     ``avg_tile_name`` and ``avg_layout`` raise ``ValueError`` naming the
     width, before they ask the library."""
     for units, tile in AVG_TILES[dtype]:
@@ -288,16 +291,22 @@ def test_avg_layout_by_width(cell, dtype):
 def test_route_widths_by_row():
     """Each row's cluster tile up to its route width, the grid tile past
     it (pure Python): the training kernels up to
-    ``TRAIN_CLUSTER_MAX_UNITS`` (u=511), the float32 inference rows and
-    row 7 with float32 IO up to ``CLUSTER_MAX_UNITS`` (u=1024), the bf16
-    rows up to ``BF16_CLUSTER_MAX_UNITS`` (u=1279), row 7 with bf16 IO up
-    to ``SEQ_BF16_CLUSTER_MAX_UNITS`` (u=767); every width runs, only
+    ``TRAIN_CLUSTER_MAX_UNITS`` (u=511), the float32 inference rows up to
+    ``CLUSTER_MAX_UNITS`` (u=1024; the cluster tile below
+    ``STATIONARY_MIN_UNITS``, u=384, the stationary tile from it) and row
+    7 with float32 IO up to ``CLUSTER_MAX_UNITS``, the bf16 rows up to
+    ``BF16_CLUSTER_MAX_UNITS`` (u=1279), row 7 with bf16 IO up to
+    ``SEQ_BF16_CLUSTER_MAX_UNITS`` (u=767); every width runs, only
     u <= 0 is refused."""
     assert (cuda_rnn.TRAIN_CLUSTER_MAX_UNITS, cuda_rnn.CLUSTER_MAX_UNITS,
             cuda_rnn.BF16_CLUSTER_MAX_UNITS,
-            cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS) == (511, 1024, 1279, 767)
-    for units in (1023, 1024):
-        assert cuda_rnn.avg_tile_name("gru", units) == "cluster"
+            cuda_rnn.SEQ_BF16_CLUSTER_MAX_UNITS,
+            cuda_rnn.STATIONARY_MIN_UNITS) == (511, 1024, 1279, 767, 384)
+    assert cuda_rnn.avg_tile_name("gru", 383) == "cluster"
+    for units in (384, 1023, 1024):
+        assert cuda_rnn.avg_tile_name("gru", units) == "stationary"
+        assert cuda_rnn.avg_tile_name("gru", units,
+                                      torch.bfloat16) == "cluster"
     assert cuda_rnn.train_layout(511) == "cluster"
     for units in (512, 1023, 1024, 1025, 2048, 4096, 4097, 8192):
         assert cuda_rnn.train_layout(units) == "grid"

@@ -8,6 +8,9 @@ Usage, from the root of a checkout, on a machine with one CUDA card::
         [--min-units N] [--out FILE.json]
     python3 tools/avg_tile_sweep.py --grid [--units 257,...,4096]
         [--rows 1,1b,2,2b,7,7b] [--mma-units 16,32] [--out FILE.jsonl]
+    python3 tools/avg_tile_sweep.py --stationary --parent DIR
+        [--units 129,...,1280] [--rows 1,2] [--variants] [--out FILE.jsonl]
+    python3 tools/avg_tile_sweep.py --summary FILE.jsonl
 
 ``--kernel avg`` (the default): ``AvgKernel<kGates, kWin, kURegs>``
 (``deepgrp_tpu_torch/csrc/rnn_avg.cu``, the float32 register tile) takes
@@ -52,6 +55,29 @@ at each unit block it lists (``mma_<n>_ms``, checked as the others),
 from a copy of ``csrc/rnn_grid.cu`` built with an entry point that takes
 the unit block from the caller (the library picks one by the grid's
 CTAs and the card's SMs).
+
+``--stationary`` times the float32 stationary tile (rows 1 and 2,
+``AvgStationaryKernel`` of ``csrc/rnn_avg.cu``, forced at every width
+through ``cuda_rnn._launch(..., stationary=True)``, the library's variant
+and clusters) in turns with the parent's route, built from the parent
+checkout at ``--parent DIR`` (its ``csrc/rnn_avg.cu`` as a library of its
+own, launched with the windows a CTA its ``cuda_rnn.avg_tile`` gave: the
+register tile, the cluster tiles; past its ceiling its route was the
+grid tile, which this checkout keeps), in the order parent, stationary,
+stationary, parent (each ms the mean of its two turns), then the grid
+tile, at :data:`STATIONARY_WIDTHS` (``--units``) and
+:data:`GRID_BATCHES`: each launch first checked against the plain
+version (1e-5), and the stationary tile's outputs against the parent's
+bit for bit (``bits_parent``; required where the parent's route is its
+cluster tile, which sums in the same order).  Beside them cuDNN's time and the bound
+as ``--grid``.  One JSON line a case, with the stationary layout; this
+checkout's route (``routed_tile``) and ``routed_over_parent``; with
+``--variants`` also each variant of the stationary tile forced
+(``variant_<n>_ms``, checked against the library's choice bit for bit).
+``--summary FILE`` prints, for each width of such lines, each tile's
+largest ratio over the cells and batches to the fastest of the parent's
+route, the stationary tile and the grid tile, and the routed tile's
+largest ratio to the parent's route.
 
 The script builds a copy of the source with one more C entry point that
 launches any variant listed for the kernel (float32 out, bfloat16 for
@@ -200,6 +226,10 @@ SEQ_VARIANTS = sorted({case[-1] for case in SEQ_CASES})
 GRID_WIDTHS = (257, 384, 512, 768, 1024, 1025, 1280, 1536, 2048, 3000, 4096)
 GRID_BATCHES = ((16, 342), (64, 342), (256, 342), (37, 150), (5, 23))
 GRID_SEQ_ROWS = (16, 64, 2048)
+# --stationary: the 8-CTA layout's widths (up to u=256), the 16-CTA
+# layout's (up to the ceiling, u=1024) and two past it.
+STATIONARY_WIDTHS = (129, 192, 256, 257, 300, 384, 512, 768, 1023, 1024,
+                     1025, 1280)
 TOL = {"avg": 1e-5, "avg_bf16": 2e-2, "seq": 1e-5}
 BF16_TOL = 2e-2
 _AVG_HEAD = ("const void *codes, int batch, int steps, const void *kernel, "
@@ -650,6 +680,208 @@ def grid_case(torch, kind: str, dtype, row: dict, mma=None) -> None:
                                      inputs))
 
 
+def parent_library(root: str):
+    """The parent checkout's ``csrc/rnn_avg.cu`` at ``root``, built as a
+    library of its own (its entry points as this checkout's, the
+    stationary ones aside)."""
+    from deepgrp_tpu_torch import _build
+
+    src = os.path.join(root, "deepgrp_tpu_torch", "csrc", "rnn_avg.cu")
+    path = _build.build_shared_library("rnn_avg_parent", [_build.nvcc()],
+                                       [src], _build.NVCC_FLAGS)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("dg_gru_avg", "dg_lstm_avg"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, i, i, p, p, p, i, i, p, p, p]
+        fn.restype = i
+    lib.dg_avg_layout.argtypes = [i, i, i, p]
+    lib.dg_avg_layout.restype = i
+    lib.dg_avg_clusters.argtypes = [i] * 4
+    lib.dg_avg_clusters.restype = i
+    lib.dg_error_string.argtypes = [i]
+    lib.dg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def parent_launch(torch, lib, kind: str, params, codes):
+    """The parent's routed float32 launch of row ``kind`` (its register or
+    cluster tile at the windows a CTA its ``avg_tile`` chose), or None past
+    its cluster tile's ceiling (where its route was the grid tile)."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    gates = 4 if kind == "lstm" else 3
+    batch, steps = codes.shape
+    units = params["recurrent"].shape[0]
+    out = (ctypes.c_int * 2)()
+    cap = lib.dg_avg_layout(gates, units, 0, out)
+    if cap == 0:
+        return None
+    slots = torch.cuda.get_device_properties(0).multi_processor_count
+    if out[0] > 1:
+        slots = lib.dg_avg_clusters(gates, units, cap, 0) or slots // out[0]
+    windows = cuda_rnn.block_windows(batch, slots, cap)
+
+    def launch():
+        avg = torch.empty(batch, steps, units, device="cuda")
+        hidden = torch.empty(batch, units, device="cuda")
+        err = getattr(lib, f"dg_{kind}_avg")(
+            codes.data_ptr(), batch, steps, params["kernel"].data_ptr(),
+            params["bias"].data_ptr(), params["recurrent"].data_ptr(), units,
+            windows, avg.data_ptr(), hidden.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"parent {kind}_avg: "
+                               f"{lib.dg_error_string(err).decode()}")
+        return avg, hidden
+
+    return launch
+
+
+def stationary_sweep(torch, widths, card: str, out_path, parent_root: str,
+                     only=None, variants: bool = False) -> list:
+    """``--stationary``: at each width, row and batch, the stationary
+    tile, the parent's route and the grid tile checked and timed (see the
+    module's note); one row each."""
+    import chip_smoke
+    from deepgrp_tpu_torch.models import cuda_rnn, rnn
+
+    plib = parent_library(parent_root)
+    rows, failed = [], []
+    for units in widths:
+        for kind in ("gru", "lstm"):
+            row_name = "2" if kind == "lstm" else "1"
+            if only and row_name not in only:
+                continue
+            gates = 4 if kind == "lstm" else 3
+            for batch, steps in GRID_BATCHES:
+                row = {"row": row_name, "kind": kind, "batch": batch,
+                       "steps": steps, "units": units,
+                       "routed_tile": cuda_rnn.avg_tile_name(kind, units)}
+                try:
+                    params, codes = chip_smoke.random_rnn_on_card(
+                        torch, units + batch + steps + gates, gates, batch,
+                        steps, units)
+                    want = getattr(rnn, f"{kind}_avg_plain")(params, codes)
+                    row["stationary"] = cuda_rnn.stationary_layout(
+                        kind, batch, units)
+
+                    def stationary():
+                        return cuda_rnn._launch(f"{kind}_avg", gates, params,
+                                                codes, stationary=True)
+
+                    def grid():
+                        return cuda_rnn._launch(f"{kind}_avg", gates, params,
+                                                codes, grid=True)
+
+                    parent = parent_launch(torch, plib, kind, params, codes)
+                    if parent is None:
+                        parent = grid
+                        row["parent_tile"] = "grid"
+                    else:
+                        row["parent_tile"] = "parent"
+                    got = stationary()
+                    torch.cuda.synchronize()
+                    row["stationary_err"] = max_err(got, want)
+                    base = parent()
+                    torch.cuda.synchronize()
+                    row["parent_err"] = max_err(base, want)
+                    row["bits_parent"] = all(torch.equal(a, b)
+                                             for a, b in zip(got, base))
+                    del got, base
+                    turns = [adaptive_ms(torch, fn) for fn in
+                             (parent, stationary, stationary, parent)]
+                    row["parent_ms"] = (turns[0] + turns[3]) / 2
+                    row["stationary_ms"] = (turns[1] + turns[2]) / 2
+                    if variants:
+                        stationary_variants(torch, row, stationary, kind,
+                                            gates, params, codes)
+                    got = grid()
+                    torch.cuda.synchronize()
+                    row["grid_err"] = max_err(got, want)
+                    del got, want
+                    row["grid_ms"] = adaptive_ms(torch, grid)
+                    routed = {"stationary": "stationary_ms",
+                              "grid": "grid_ms"}.get(row["routed_tile"],
+                                                     "parent_ms")
+                    row["routed_over_parent"] = (row[routed]
+                                                 / row["parent_ms"])
+                    row["library_ms"] = adaptive_ms(
+                        torch, chip_smoke.grid_library(
+                            torch, kind, gates, torch.float32, params,
+                            codes))
+                    row.update(chip_smoke.grid_bound(
+                        torch, kind, gates, torch.float32, params, codes))
+                    del params, codes
+                except (RuntimeError, ValueError) as err:
+                    row["error"] = str(err)
+                errs = [v for k, v in row.items() if k.endswith("_err")]
+                if ("error" in row or not all(e <= TOL["avg"] for e in errs)
+                        or (row.get("parent_tile") == "parent"
+                            and not row["bits_parent"])
+                        or not row.get("variants_same_bits", True)):
+                    failed.append(row)
+                row["card"] = card
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+                if out_path:
+                    with open(out_path, "a") as fh:
+                        fh.write(json.dumps(row) + "\n")
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{len(failed)} cases failed: {failed}")
+    return rows
+
+
+def stationary_variants(torch, row: dict, stationary, kind: str,
+                        gates: int, params, codes) -> None:
+    """``--variants``: each variant of the stationary tile forced, timed
+    and held against the library's choice bit for bit, into ``row``."""
+    from deepgrp_tpu_torch.models import cuda_rnn
+
+    want = stationary()
+    same = True
+    for variant in range(3):
+        def forced(variant=variant):
+            return cuda_rnn._launch(f"{kind}_avg", gates, params, codes,
+                                    stationary=True, variant=variant)
+
+        try:
+            got = forced()
+        except ValueError:  # the variant does not fit the shared memory
+            row[f"variant_{variant}_ms"] = None
+            continue
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(g, w) for g, w in zip(got, want))
+        del got
+        row[f"variant_{variant}_ms"] = adaptive_ms(torch, forced)
+    row["variants_same_bits"] = same
+
+
+def summary(path: str) -> None:
+    """``--summary``: each width's largest ratio of each tile to the
+    fastest over its lines' cells and batches, and the routed tile's to
+    the parent's route."""
+    by_width = {}
+    with open(path) as fh:
+        for line in fh:
+            row = json.loads(line)
+            if "stationary_ms" in row:
+                by_width.setdefault(row["units"], []).append(row)
+    for units, rows in sorted(by_width.items()):
+        worst = {}
+        for row in rows:
+            best = min(row["parent_ms"], row["stationary_ms"],
+                       row["grid_ms"])
+            for tile in ("parent", "stationary", "grid"):
+                worst[tile] = max(worst.get(tile, 0.0),
+                                  row[f"{tile}_ms"] / best)
+            worst["routed/parent"] = max(worst.get("routed/parent", 0.0),
+                                         row["routed_over_parent"])
+        print(json.dumps({"units": units, "routed": rows[0]["routed_tile"],
+                          **{k: round(v, 3) for k, v in worst.items()}}))
+
+
 def main() -> int:
     import torch
 
@@ -664,8 +896,20 @@ def main() -> int:
     parser.add_argument("--mma-units",
                         help="--grid: the bf16 step's unit blocks to time "
                              "(16, 32), comma-separated")
+    parser.add_argument("--stationary", action="store_true",
+                        help="time the float32 stationary tile beside the "
+                             "parent's route (--parent) and the grid tile")
+    parser.add_argument("--parent", help="--stationary: the parent "
+                        "checkout's root")
+    parser.add_argument("--summary", help="print the routes' ratios of a "
+                        "--stationary JSON-lines file")
+    parser.add_argument("--variants", action="store_true",
+                        help="--stationary: time each variant too")
     parser.add_argument("--out", help="JSON file for the rows")
     args = parser.parse_args()
+    if args.summary:
+        summary(args.summary)
+        return 0
     if not torch.cuda.is_available():
         print("avg_tile_sweep: no CUDA card", file=sys.stderr)
         return 1
@@ -677,6 +921,15 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.stationary:
+        if not args.parent:
+            parser.error("--stationary needs --parent DIR")
+        widths = (tuple(int(u) for u in args.units.split(","))
+                  if args.units else STATIONARY_WIDTHS)
+        stationary_sweep(torch, widths, card, args.out, args.parent,
+                         args.rows.split(",") if args.rows else None,
+                         args.variants)
+        return 0
     if args.grid:
         widths = (tuple(int(u) for u in args.units.split(","))
                   if args.units else GRID_WIDTHS)
